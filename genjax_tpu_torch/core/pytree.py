@@ -1,0 +1,113 @@
+"""Pytree dataclass substrate on ``torch.utils._pytree``.
+
+Counterpart of ``genjax_tpu/core/pytree.py``. Every framework object
+(traces, choice maps, generative functions) is a frozen dataclass registered
+as a torch pytree node: fields declared with ``Pytree.static()`` ride in the
+node's context (they must compare by value), every other field is a child,
+so ``tree_map`` over a trace reaches its tensors.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+from typing import Any, Callable, TypeVar
+
+import torch
+import torch.utils._pytree as pytree
+
+T = TypeVar("T")
+
+_STATIC_MARK = "genjax_tpu_torch_static"
+
+
+class Pytree:
+    """Base mixin for pytree-registered dataclasses.
+
+    Subclasses are declared with ``@Pytree.dataclass``; fields declared with
+    ``Pytree.static()`` live in the tree's context, all others are children.
+
+    >>> import torch
+    >>> import torch.utils._pytree as pytree
+    >>> from genjax_tpu_torch import Pytree
+    >>> @Pytree.dataclass
+    ... class Particle(Pytree):
+    ...     pos: torch.Tensor
+    ...     name: str = Pytree.static(default="p")
+    >>> p = Particle(torch.zeros(3))
+    >>> [leaf.shape for leaf in pytree.tree_leaves(p)]
+    [torch.Size([3])]
+    >>> pytree.tree_map(lambda x: x + 1.0, p).name  # static rides along
+    'p'
+    """
+
+    @staticmethod
+    def dataclass(cls: type[T] | None = None, /, **kwargs) -> type[T]:
+        if cls is None:
+            return functools.partial(Pytree.dataclass, **kwargs)  # type: ignore
+
+        kwargs.setdefault("frozen", True)
+        dcls = dataclasses.dataclass(**kwargs)(cls)
+        data_fields, meta_fields = [], []
+        for f in dataclasses.fields(dcls):
+            (meta_fields if f.metadata.get(_STATIC_MARK) else data_fields).append(f.name)
+
+        def flatten(obj):
+            children = [getattr(obj, n) for n in data_fields]
+            return children, tuple(getattr(obj, n) for n in meta_fields)
+
+        def unflatten(children, context):
+            obj = object.__new__(dcls)
+            for n, v in zip(data_fields, children):
+                object.__setattr__(obj, n, v)
+            for n, v in zip(meta_fields, context):
+                object.__setattr__(obj, n, v)
+            return obj
+
+        pytree.register_pytree_node(
+            dcls, flatten, unflatten,
+            serialized_type_name=f"{dcls.__module__}.{dcls.__qualname__}",
+        )
+        return dcls
+
+    @staticmethod
+    def static(**kwargs) -> Any:
+        """Declare a static (context) field."""
+        metadata = dict(kwargs.pop("metadata", {}))
+        metadata[_STATIC_MARK] = True
+        return dataclasses.field(metadata=metadata, **kwargs)
+
+    def __repr__(self) -> str:
+        parts = []
+        for f in dataclasses.fields(self):  # type: ignore[arg-type]
+            v = getattr(self, f.name)
+            if isinstance(v, torch.Tensor) and v.ndim > 0:
+                parts.append(f"{f.name}=<{v.dtype}{list(v.shape)}>")
+            else:
+                parts.append(f"{f.name}={v!r}")
+        return f"{type(self).__name__}({', '.join(parts)})"
+
+
+@Pytree.dataclass
+class Const(Pytree):
+    """A static value carried in the tree's context, with no tensor leaves."""
+
+    val: Any = Pytree.static()
+
+    def unwrap(self) -> Any:
+        return self.val
+
+    def __call__(self, *args, **kwargs):
+        return self.val(*args, **kwargs)
+
+
+@Pytree.dataclass
+class Closure(Pytree):
+    """A static callable with dynamic closed-over arguments; the source
+    carrier of ``@gen`` functions."""
+
+    dyn_args: tuple
+    fn: Callable = Pytree.static()
+
+    def __call__(self, *args, **kwargs):
+        return self.fn(*self.dyn_args, *args, **kwargs)

@@ -1,0 +1,120 @@
+"""The distributions of the flagship model and the README quickstart.
+
+Counterpart of part of ``genjax_tpu/dists/catalog.py``: ``normal``,
+``log_normal``, ``mv_normal_diag``, ``beta`` and ``flip``, with the same
+names, TFP parameter orders and log-density formulas (the normal density is
+``-(log(2 pi s^2) + (x - m)^2 / s^2) / 2``, as ``jax.scipy.stats.norm``
+computes it). Log-densities are elementwise over batch dimensions;
+``mv_normal_diag`` reduces over the event axis. Arguments that are not
+tensors are made float32 tensors on the device of the tensor arguments
+(a CUDA device wins over the CPU); samples are drawn on the generator's
+device.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from .distribution import exact_density
+
+_LOG_2PI = math.log(2.0 * math.pi)
+
+
+def _tensors(*xs, device=None) -> list[torch.Tensor]:
+    """Coerce ``xs`` to float tensors on one device: ``device`` if given,
+    else the first CUDA tensor's, else the CPU."""
+    if device is None:
+        devices = [x.device for x in xs if isinstance(x, torch.Tensor)]
+        device = next((d for d in devices if d.type != "cpu"), devices[0] if devices else None)
+    out = []
+    for x in xs:
+        if not isinstance(x, torch.Tensor):
+            out.append(torch.as_tensor(x, dtype=torch.float32, device=device))
+        else:
+            t = x.to(device)
+            out.append(t if t.is_floating_point() else t.to(torch.float32))
+    return out
+
+
+def _batch_shape(*params) -> torch.Size:
+    return torch.broadcast_shapes(*(p.shape for p in params))
+
+
+def _normal_logpdf(v, loc=0.0, scale=1.0):
+    v, loc, scale = _tensors(v, loc, scale)
+    s2 = scale * scale
+    return (torch.log((2.0 * math.pi) * s2) + (v - loc) ** 2 / s2) / -2.0
+
+
+def _normal_sample(gen, loc=0.0, scale=1.0):
+    loc, scale = _tensors(loc, scale, device=gen.device)
+    z = torch.randn(_batch_shape(loc, scale), generator=gen, device=gen.device)
+    return loc + scale * z
+
+
+def _log_normal_logpdf(v, loc=0.0, scale=1.0):
+    (v,) = _tensors(v)
+    log_v = torch.log(v)
+    return torch.where(
+        v > 0.0, _normal_logpdf(log_v, loc, scale) - log_v, -torch.inf
+    )
+
+
+def _mv_normal_diag_logpdf(v, loc, scale_diag):
+    return torch.sum(_normal_logpdf(v, loc, scale_diag), dim=-1)
+
+
+def _betaln(a, b):
+    """log B(a, b), summed in the reference's order for max(a, b) < 8 and
+    in float64 above, where the float32 sum cancels."""
+    a, b = torch.minimum(a, b), torch.maximum(a, b)
+    small_b = torch.lgamma(a) + (torch.lgamma(b) - torch.lgamma(a + b))
+    a64, b64 = a.double(), b.double()
+    large_b = (torch.lgamma(a64) + torch.lgamma(b64) - torch.lgamma(a64 + b64)).to(a.dtype)
+    return torch.where(b < 8.0, small_b, large_b)
+
+
+def _beta_logpdf(v, concentration1, concentration0):
+    x, a, b = _tensors(v, concentration1, concentration0)
+    log_probs = -_betaln(a, b) + (
+        torch.xlogy(a - 1.0, x) + torch.special.xlog1py(b - 1.0, -x)
+    )
+    out = torch.where((x > 1.0) | (x < 0.0), -torch.inf, log_probs)
+    return torch.where((a <= 0.0) | (b <= 0.0), torch.nan, out)
+
+
+def _beta_sample(gen, concentration1, concentration0):
+    a, b = _tensors(concentration1, concentration0, device=gen.device)
+    shape = _batch_shape(a, b)
+    x = torch._standard_gamma(a.expand(shape).contiguous(), generator=gen)
+    y = torch._standard_gamma(b.expand(shape).contiguous(), generator=gen)
+    return x / (x + y)
+
+
+def _flip_logpdf(v, p):
+    v, p = _tensors(v, p)
+    return torch.xlogy(v, p) + torch.special.xlog1py(1.0 - v, -p)
+
+
+def _flip_sample(gen, p):
+    (p,) = _tensors(p, device=gen.device)
+    return torch.rand(p.shape, generator=gen, device=gen.device) < p
+
+
+normal = exact_density(_normal_sample, _normal_logpdf, "normal")
+
+log_normal = exact_density(
+    lambda gen, loc=0.0, scale=1.0: torch.exp(_normal_sample(gen, loc, scale)),
+    _log_normal_logpdf,
+    "log_normal",
+)
+
+mv_normal_diag = exact_density(_normal_sample, _mv_normal_diag_logpdf, "mv_normal_diag")
+
+beta = exact_density(_beta_sample, _beta_logpdf, "beta")
+
+flip = exact_density(_flip_sample, _flip_logpdf, "flip")
+
+__all__ = ["beta", "flip", "log_normal", "mv_normal_diag", "normal"]

@@ -1,0 +1,31 @@
+"""Carrying state across from the JAX package, as numpy.
+
+This module takes numpy arrays only, so the port never imports JAX: the
+caller flattens JAX state to numpy on its side. Model constants such as a
+regression's ``X`` need no conversion: ``hierarchical_regression(X)`` and
+``linear_regression(X)`` take the numpy arrays as they are.
+"""
+
+from __future__ import annotations
+
+from typing import Mapping
+
+import numpy as np
+import torch
+
+from .generative.choice_map import ChoiceMap
+
+
+def choice_map_from_numpy(entries: Mapping[tuple, np.ndarray]) -> ChoiceMap:
+    """``{address_tuple: array}`` -> ChoiceMap of CPU tensors."""
+    return ChoiceMap.from_mapping(
+        (addr, torch.from_numpy(np.array(v))) for addr, v in entries.items()
+    )
+
+
+def columns_from_numpy(q: np.ndarray, device) -> torch.Tensor:
+    """Column-layout positions ``(D, N)`` as a contiguous float32 tensor."""
+    q = np.asarray(q)
+    if q.ndim != 2:
+        raise ValueError(f"columns are (D, N); got shape {q.shape}")
+    return torch.from_numpy(np.ascontiguousarray(q, np.float32)).to(device)

@@ -1,0 +1,183 @@
+"""Bridge from ``@gen`` models to the fused column-layout HMC sweep.
+
+Counterpart of ``genjax_tpu/kernels/model_interface.py``: ``ColumnPacker``,
+``column_logdensity`` and ``column_hmc`` with a diagonal metric. Positions
+are packed chains-on-the-last-axis: ``(D, N)`` with ``D`` the flattened
+dimension of the selected addresses padded to a multiple of 8. Padding
+dimensions carry an independent standard-normal density (see
+``column_logdensity``): flat padding directions random-walk and never
+U-turn, so they must not be made flat.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any, Sequence
+
+import torch
+
+from ..generative.choice_map import ChoiceMap
+from ..generative.gfi import GenerativeFunction
+from ..generative.mask import Mask
+from .bodies import body_for
+from .hmc import pallas_hmc
+
+_WARMUP = (
+    "{} comes with the next slice of the port (ROADMAP queue 1: "
+    "kernels/adaptation.py and warmup_column)"
+)
+
+
+def _round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+def _path(addr) -> tuple:
+    return addr if isinstance(addr, tuple) else (addr,)
+
+
+def _value(chm: ChoiceMap, path: tuple):
+    v = chm.get_submap(*path).get_value()
+    return v.value if isinstance(v, Mask) else v
+
+
+class ColumnPacker:
+    """Flatten/unflatten a set of addresses to/from a padded column vector."""
+
+    def __init__(self, model, constraint, args, addresses: Sequence[Any]):
+        self.addresses = list(addresses)
+        template = model.simulate(torch.Generator().manual_seed(0), args).get_choices()
+        self.shapes = []
+        offset = 0
+        for addr in self.addresses:
+            path = _path(addr)
+            if constraint is not None and not constraint.get_submap(*path).static_is_empty():
+                raise ValueError(
+                    f"address {addr!r} is constrained — packing it as a "
+                    "latent would silently override the observation"
+                )
+            shape = tuple(torch.as_tensor(_value(template, path)).shape)
+            size = math.prod(shape)
+            self.shapes.append((path, shape, offset, size))
+            offset += size
+        self.dim = offset
+        self.padded_dim = max(_round_up(offset, 8), 8)
+
+    def unpack(self, q) -> ChoiceMap:
+        """(padded_dim,) -> ChoiceMap over the addresses."""
+        chm = ChoiceMap.empty()
+        for path, shape, offset, size in self.shapes:
+            v = q[offset : offset + size]
+            chm |= ChoiceMap.entry(v.reshape(shape) if shape else v[0], *path)
+        return chm
+
+    def pack(self, chm: ChoiceMap) -> torch.Tensor:
+        """ChoiceMap -> (padded_dim,) float32 vector."""
+        parts = [
+            torch.as_tensor(_value(chm, path), dtype=torch.float32).reshape(size)
+            for path, _shape, _offset, size in self.shapes
+        ]
+        flat = torch.cat(parts)
+        return torch.nn.functional.pad(flat, (0, self.padded_dim - self.dim))
+
+
+def column_logdensity(model, constraint, args, packer: ColumnPacker):
+    """The model's log-joint as a batched column function ``(D, N) -> (N,)``.
+
+    The padding dimensions (``packer.dim .. padded_dim``) carry an
+    independent standard-normal density, which leaves the marginal over the
+    real dimensions unchanged. The returned callable's ``body`` attribute is
+    the CUDA sweep's device body for this model and packing
+    (``bodies.body_for``), or None."""
+    n_pad = packer.padded_dim - packer.dim
+
+    def one(q):
+        score, _ = model.assess(packer.unpack(q) | constraint, args)
+        if n_pad:
+            score = score - 0.5 * torch.sum(q[packer.dim :] ** 2)
+        return score
+
+    batched = torch.func.vmap(one, in_dims=1)
+
+    def logdensity_cols(q: torch.Tensor) -> torch.Tensor:
+        return batched(q)
+
+    logdensity_cols.body = body_for(model, constraint, args, packer.addresses)
+    return logdensity_cols
+
+
+def init_columns(model, constraint, args, packer: ColumnPacker, n_chains: int, seed: int, device):
+    """``n_chains`` draws of ``model.generate`` under ``constraint``, packed
+    as columns ``(padded_dim, n_chains)`` on ``device``. The stream is a
+    generator seeded apart from every int32 sweep seed."""
+    gen = torch.Generator(device=device).manual_seed((0xC0FFEE << 32) | (seed & 0xFFFFFFFF))
+
+    def init_one(_):
+        tr, _w = model.generate(gen, constraint, args)
+        return packer.pack(tr.get_choices())
+
+    dummy = torch.zeros(n_chains, device=device)
+    return torch.func.vmap(init_one, randomness="different", out_dims=1)(dummy).contiguous()
+
+
+def column_hmc(
+    model: GenerativeFunction,
+    constraint: ChoiceMap,
+    args: tuple,
+    addresses: Sequence[Any],
+    *,
+    n_chains: int,
+    n_steps: int,
+    eps: float,
+    L: int = 5,
+    seed: int = 0,
+    block_n: int | None = None,
+    interpret: bool = False,
+    backend: str = "auto",
+    warmup: bool = False,
+    inv_mass=None,
+    mass: str = "diag",
+    device="cpu",
+):
+    """Prior-initialized, MH-adjusted HMC over ``addresses`` in the column
+    layout, on ``device``. Returns ``(positions, accept_rate, packer)``;
+    decode single chains with ``packer.unpack(positions[:, i])``.
+
+    ``backend``, ``interpret`` and ``block_n`` are those of ``pallas_hmc``.
+    On a CUDA device the default runs the CUDA sweep kernel, which needs a
+    device body for this model and packing (``kernels/bodies.py``
+    ``body_for``); without one it raises, and ``backend="torch"`` runs the
+    plain twin on the card instead. ``interpret=True`` is the reference's
+    name for the counter stream (``rng="counter"`` of the kernel and the
+    twin): it chooses the random stream, not an interpret mode.
+
+    >>> import torch
+    >>> import genjax_tpu_torch as g
+    >>> from genjax_tpu_torch.kernels import column_hmc
+    >>> @g.gen
+    ... def model():
+    ...     mu = g.normal(0.0, 1.0) @ "mu"
+    ...     _ = g.normal(mu, 1.0) @ "y"
+    >>> q, accept, packer = column_hmc(
+    ...     model, g.C["y"].set(2.0), (), ["mu"],
+    ...     n_chains=256, n_steps=100, eps=0.5, L=5, seed=1,
+    ... )
+    >>> tuple(q.shape)   # (packed dims padded to a multiple of 8, chains)
+    (8, 256)
+    >>> bool(abs(q[0].mean() - 1.0) < 0.3)   # posterior mean = 1
+    True
+    """
+    if warmup:
+        raise NotImplementedError(_WARMUP.format("warmup=True"))
+    if mass != "diag":
+        raise NotImplementedError(_WARMUP.format(f"mass={mass!r}"))
+    if constraint is None:
+        constraint = ChoiceMap.empty()
+    packer = ColumnPacker(model, constraint, args, addresses)
+    logdensity_cols = column_logdensity(model, constraint, args, packer)
+    q0 = init_columns(model, constraint, args, packer, n_chains, seed, torch.device(device))
+    q, accept = pallas_hmc(
+        logdensity_cols, q0, seed, n_steps=n_steps, eps=eps, L=L,
+        block_n=block_n, interpret=interpret, backend=backend, inv_mass=inv_mass,
+    )
+    return q, accept, packer

@@ -1,0 +1,89 @@
+"""Bayesian regression families.
+
+Counterpart of ``genjax_tpu/models/regression.py`` (``linear_regression``
+and the flagship ``hierarchical_regression``). ``X`` is taken as an array
+(numpy, as the reference's benchmark passes it) and used as a float32
+tensor on the device of the model's draws.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import Callable
+
+import numpy as np
+import torch
+
+from ..core.pytree import Pytree
+from ..dists import log_normal, mv_normal_diag
+from ..lang.static_lang import StaticGenerativeFunction, gen
+
+
+def _on_device(array) -> Callable[[torch.device], torch.Tensor]:
+    """``array`` as a float32 tensor, copied once to each device asked for."""
+    host = torch.as_tensor(np.asarray(array, np.float32))
+    return functools.cache(lambda device: host.to(device))
+
+
+def _device_of(x) -> torch.device:
+    return x.device if isinstance(x, torch.Tensor) else torch.device("cpu")
+
+
+@Pytree.dataclass
+class RegressionModel(StaticGenerativeFunction):
+    """A ``@gen`` regression model that also declares, as plain data, its
+    family and constants, so that code which knows the family can recognise
+    the model's density (the CUDA HMC sweep's device bodies in
+    ``kernels/bodies.py``)."""
+
+    column_family: str = Pytree.static(default="")
+    X: np.ndarray = Pytree.static(default=None, compare=False)
+    obs_scale: float = Pytree.static(default=0.0)
+
+
+def linear_regression(X, *, obs_scale: float = 0.25, prior_scale: float = 1.0):
+    """``w ~ N(0, prior_scale); y ~ N(X @ w, obs_scale)``.
+
+    Returns ``(model, exact_posterior)`` where ``exact_posterior(y)`` gives
+    the conjugate ``(mean, covariance)`` of ``w | y``.
+    """
+    X_on = _on_device(X)
+    n, d = np.shape(X)
+
+    @gen
+    def model():
+        w = mv_normal_diag(0.0, prior_scale * torch.ones(d)) @ "w"
+        dev = _device_of(w)
+        return mv_normal_diag(X_on(dev) @ w, obs_scale * torch.ones(n, device=dev)) @ "y"
+
+    def exact_posterior(y):
+        Xt = X_on(torch.device("cpu"))
+        y = torch.as_tensor(np.asarray(y, np.float32))
+        prec = torch.eye(d) / prior_scale**2 + (Xt.T @ Xt) / obs_scale**2
+        cov = torch.linalg.inv(prec)
+        mean = cov @ (Xt.T @ y) / obs_scale**2
+        return mean, cov
+
+    return model, exact_posterior
+
+
+def hierarchical_regression(X, *, obs_scale: float = 0.25):
+    """The flagship model: ``tau ~ LogNormal(0, 0.5)``, ``w ~ N(0, tau)``,
+    ``y ~ N(X @ w, obs_scale)``. Addresses: ``tau``, ``w``, ``y``.
+
+    The model declares its family, ``X`` and ``obs_scale``: packed over
+    exactly ``["tau", "w"]`` with exactly ``y`` constrained, its column
+    log-density carries the ``hier_regression`` device body.
+    """
+    X_on = _on_device(X)
+    n, d = np.shape(X)
+
+    def model():
+        tau = log_normal(0.0, 0.5) @ "tau"
+        dev = _device_of(tau)
+        w = mv_normal_diag(torch.zeros(d, device=dev), tau * torch.ones(d, device=dev)) @ "w"
+        return mv_normal_diag(X_on(dev) @ w, obs_scale * torch.ones(n, device=dev)) @ "y"
+
+    return RegressionModel(
+        gen(model).source, "hierarchical_regression", np.asarray(X, np.float32), float(obs_scale)
+    )

@@ -1,0 +1,149 @@
+"""The PyTorch port's package boundary and layer order.
+
+``genjax_tpu_torch`` must import without JAX (it runs on a CUDA machine that
+has none), must never name ``jax`` or ``genjax_tpu`` in an import, and its
+imports, function-level ones included, must point down its layer order
+without cycles, as ``tests/test_layering.py`` enforces for the JAX package.
+"""
+
+import ast
+import os
+import subprocess
+import sys
+from collections import defaultdict
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = "genjax_tpu_torch"
+PKG_ROOT = os.path.join(REPO, PKG)
+
+LAYERS = {
+    "core": 0,
+    "generative": 2,
+    "lang": 3,
+    "dists": 3,
+    "models": 4,
+    "kernels": 5,
+    "<root>": 9,
+    "interop": 9,
+}
+
+
+def _module_name(path):
+    parts = os.path.relpath(path, REPO)[: -len(".py")].split(os.sep)
+    if parts[-1] == "__init__":
+        parts = parts[:-1]
+    return ".".join(parts)
+
+
+def _subpackage(modname):
+    parts = modname.split(".")
+    return "<root>" if len(parts) == 1 else parts[1]
+
+
+def _iter_py_files():
+    for root, dirs, files in os.walk(PKG_ROOT):
+        dirs[:] = sorted(d for d in dirs if d != "__pycache__")
+        for f in sorted(files):
+            if f.endswith(".py"):
+                yield os.path.join(root, f)
+
+
+def _imports(path, modname):
+    """Absolute module names imported anywhere in ``path``, function-level
+    imports included, so a deferred import cannot hide an upward edge."""
+    tree = ast.parse(open(path).read(), filename=path)
+    parts = modname.split(".")
+    base_pkg = parts if os.path.basename(path) == "__init__.py" else parts[:-1]
+    for node in ast.walk(tree):
+        if isinstance(node, ast.ImportFrom):
+            if node.level > 0:
+                base = base_pkg[: len(base_pkg) - (node.level - 1)]
+                target = base + (node.module.split(".") if node.module else [])
+                yield ".".join(target)
+                if node.module is None:
+                    for alias in node.names:
+                        yield ".".join(target + [alias.name])
+            elif node.module:
+                yield node.module
+        elif isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+
+
+def _graph():
+    mods = {_module_name(p): p for p in _iter_py_files()}
+    edges = defaultdict(set)
+    for mod, path in mods.items():
+        for target in _imports(path, mod):
+            if target.split(".")[0] != PKG:
+                continue
+            while target and target not in mods:
+                target = ".".join(target.split(".")[:-1])
+            if not target or target == mod or mod.startswith(target + "."):
+                continue
+            edges[mod].add(target)
+            anc = target.split(".")
+            while len(anc) > 1:
+                anc = anc[:-1]
+                pkg = ".".join(anc)
+                if pkg in mods and pkg != mod and not mod.startswith(pkg + "."):
+                    edges[mod].add(pkg)
+    return mods, edges
+
+
+def test_imports_without_jax():
+    code = (
+        "import sys, genjax_tpu_torch, genjax_tpu_torch.kernels, "
+        "genjax_tpu_torch.models, genjax_tpu_torch.interop; "
+        "print(sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
+        "or m == 'genjax_tpu' or m.startswith('genjax_tpu.')))"
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True, cwd=REPO
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "[]", proc.stdout
+
+
+def test_no_jax_import_anywhere():
+    bad = []
+    for path in _iter_py_files():
+        for target in _imports(path, _module_name(path)):
+            if target.split(".")[0] in ("jax", "jaxlib", "genjax_tpu"):
+                bad.append(f"{os.path.relpath(path, REPO)} imports {target}")
+    assert not bad, "\n".join(bad)
+
+
+def test_layer_direction():
+    _, edges = _graph()
+    violations = [
+        f"{src} -> {dst}"
+        for src, targets in edges.items()
+        for dst in targets
+        if _subpackage(src) != _subpackage(dst)
+        and LAYERS[_subpackage(src)] <= LAYERS[_subpackage(dst)]
+        and LAYERS[_subpackage(src)] != 9
+    ]
+    assert not violations, "\n".join(sorted(violations))
+
+
+def test_import_graph_acyclic():
+    mods, edges = _graph()
+    color = {m: 0 for m in mods}
+    stack, cycles = [], []
+
+    def dfs(m):
+        color[m] = 1
+        stack.append(m)
+        for nxt in sorted(edges.get(m, ())):
+            if color[nxt] == 1:
+                cycles.append(" -> ".join(stack[stack.index(nxt):] + [nxt]))
+            elif color[nxt] == 0:
+                dfs(nxt)
+        stack.pop()
+        color[m] = 2
+
+    for m in sorted(mods):
+        if color[m] == 0:
+            dfs(m)
+    assert not cycles, "\n".join(cycles)
