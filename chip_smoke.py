@@ -4,11 +4,13 @@ Run from the root of a checkout on a machine with a CUDA card:
 
     python3 chip_smoke.py
 
-It builds the port's CUDA kernel from ``genjax_tpu_torch/kernels/csrc``,
-holds the kernel and its PRNG against their plain torch versions on the
-card, drives the flagship column-HMC path (hierarchical regression, 65,536
-chains) through the public entry point ``column_hmc``, checks that the path
-launched the kernel and agrees in law with the plain twin, times both, and
+It builds the port's CUDA kernels from ``genjax_tpu_torch/kernels/csrc``
+(the HMC sweep K1 with its PRNG K2, and the NUTS sweep K4, one nvcc each,
+in parallel), holds each kernel against its plain torch version on the
+card, and drives the flagship (hierarchical regression, 65,536 chains)
+through the public entry points: ``column_hmc``, ``column_hmc(warmup=True)``
+and the adapted ``column_nuts(warmup=True)``. It checks that each path
+launched its kernel and agrees in law with the plain twin, times both, and
 prints one JSON line of kernel results and a last JSON line naming the
 device. Any failed check exits non-zero; so does a machine without CUDA.
 """
@@ -17,9 +19,11 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -32,6 +36,14 @@ SEED = 0
 BLOCK_N = 128  # chain block of the counter stream, as in the reference's tests
 K1_TIMED_SWEEPS = 2000
 TWIN_TIMED_SWEEPS = 5
+HMC_WARMUP_PHASES = 6  # warmup_column's default
+
+# the adapted column-NUTS path: the reference's bench_nuts setup
+NUTS_STEPS = 10
+NUTS_DEPTH = 8
+NUTS_EPS0 = 0.1
+NUTS_WARMUP_PHASES = 10  # warmup_column_nuts's default
+K4_WINDOW_S = 3.0
 
 
 class SmokeFailure(RuntimeError):
@@ -76,6 +88,50 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def ptxas_kernels(report: str):
+    """``(kernel, registers, spill stores, spill loads, static smem)`` for
+    each entry function in an ``nvcc -Xptxas -v`` report."""
+    out = []
+    for chunk in report.split("Compiling entry function '")[1:]:
+        mangled = chunk.split("'", 1)[0]
+        m = re.search(r"([a-z][a-z_]*_kernel)(?:ILi(\d+)ELi(\d+)E)?", mangled)
+        name = m.group(1) if m else mangled
+        if m and m.group(2):
+            name += f"<D={m.group(2)},body={m.group(3)}>"
+        regs = re.search(r"Used (\d+) registers", chunk)
+        spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", chunk)
+        smem = re.search(r"(\d+) bytes smem", chunk)
+        out.append((
+            name, int(regs.group(1)) if regs else -1,
+            int(spills.group(1)) if spills else -1, int(spills.group(2)) if spills else -1,
+            int(smem.group(1)) if smem else 0,
+        ))
+    return out
+
+
+def compare_nuts_counter(density, body, q0_np, seed, eps, depth, device, nuts, nuts_pallas):
+    """K4 and its plain version on the counter stream from one ``q0``, 3
+    transitions: ``(fraction within 1e-4, differing chains, differing
+    blocks, max abs err over agreeing chains, (accept, leapfrogs) of the
+    kernel, of the twin)``."""
+    q0 = torch.from_numpy(q0_np).to(device)
+    kw = dict(n_steps=3, eps=eps, max_depth=depth, rng="counter", block_n=BLOCK_N)
+    qk, acc_k, leaps_k = nuts_pallas.nuts_sweep(body, q0, seed, **kw)
+    qt, acc_t, leaps_t = nuts.nuts_sweep_cols(density, q0, seed, **kw)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(qk).all()), "K4 positions are not finite")
+    err = (qk - qt).abs().amax(dim=0)
+    close = err <= 1e-4
+    return (
+        float(close.float().mean()),
+        int((~close).sum()),
+        int((~close).view(-1, BLOCK_N).any(dim=1).sum()),
+        float(err[close].max()),
+        (float(acc_k.mean()) / 3, float(leaps_k.mean()) / 3),
+        (float(acc_t), float(leaps_t)),
+    )
+
+
 def compare_counter(ld, body, q0_np, seed, eps, device, hmc):
     """The kernel and the plain twin on the counter stream from one ``q0``:
     ``(fraction within 1e-4, flipped chains, max abs err over agreeing
@@ -118,17 +174,32 @@ def main() -> int:
                     f"CUDA {torch.version.cuda}, matmul tf32 off")
 
     import genjax_tpu_torch as g
-    from genjax_tpu_torch.kernels import bodies, hmc
+    from genjax_tpu_torch.kernels import _build, bodies, hmc, nuts, nuts_pallas
     from genjax_tpu_torch.kernels.model_interface import (
-        ColumnPacker, column_hmc, column_logdensity, init_columns,
+        ColumnPacker, column_hmc, column_logdensity, column_nuts, init_columns,
     )
     from genjax_tpu_torch.models import hierarchical_regression
 
-    # ---- build
-    t0 = time.perf_counter()
-    hmc._lib()
+    # ---- build: one nvcc for each source, started together
+    def timed_load(lib):
+        t0 = time.perf_counter()
+        lib()
+        return time.perf_counter() - t0
+
+    with ThreadPoolExecutor(2) as pool:
+        k1_load, k4_load = pool.map(timed_load, (hmc._lib, nuts_pallas._lib))
     phase("build", f"K1 loaded from genjax_tpu_torch/kernels/csrc/hmc_sweep.cu "
-                   f"in {time.perf_counter() - t0:.2f} s (build included)")
+                   f"in {k1_load:.2f} s (build included)")
+    phase("build", f"K4 loaded from genjax_tpu_torch/kernels/csrc/nuts_sweep.cu "
+                   f"in {k4_load:.2f} s (build included, in parallel with K1's)")
+    k4_smem = nuts_pallas.smem_bytes(16, NUTS_DEPTH, nuts_pallas.DEFAULT_BLOCK, 16 * 8 + 16)
+    phase("build", f"K4 dynamic shared memory at the flagship launch (D=16, depth {NUTS_DEPTH}, "
+                   f"{nuts_pallas.DEFAULT_BLOCK} chains a block): {k4_smem} B of the card's "
+                   f"{nuts_pallas._lib().nuts_smem_limit(0)} B per block")
+    for source in ("hmc_sweep", "nuts_sweep"):
+        for name, regs, stores, loads, smem in ptxas_kernels(_build.ptxas_report(source)):
+            phase("build", f"{source}.cu {name}: {regs} registers, spill stores {stores} B, "
+                           f"spill loads {loads} B, static smem {smem} B")
 
     # ---- K2 on the card: bit for bit against the plain counter stream
     worst_rel = 0.0
@@ -208,6 +279,103 @@ def main() -> int:
                                f"({float(z[0]):.2f} SE), w means within {float(z[1:].max()):.2f} SE "
                                f"(limit 4 MC standard errors)")
 
+    # ---- the HMC warmup path: one K1 launch per phase and one for the sweep
+    hmc.hmc_sweep_launches = 0
+    q_w, accept_w, _ = column_hmc(
+        model, obs, (), ["tau", "w"], n_chains=N_CHAINS, n_steps=N_STEPS, eps=EPS, L=L,
+        seed=SEED, warmup=True, device="cuda",
+    )
+    torch.cuda.synchronize()
+    warm_launches = hmc.hmc_sweep_launches
+    check(warm_launches == HMC_WARMUP_PHASES + 1,
+          f"column_hmc(warmup=True) made {warm_launches} K1 launches, not {HMC_WARMUP_PHASES + 1}")
+    check(hmc.pallas_hmc.last_backend == "cuda", "the HMC warmup path left the card")
+    check(bool(torch.isfinite(q_w).all()), "warmed-up HMC positions are not finite")
+    phase("main path HMC warmup", f"column_hmc(warmup=True) flagship: {warm_launches} K1 "
+                                  f"launches ({HMC_WARMUP_PHASES} phases + 1), accept "
+                                  f"{float(accept_w):.4f}")
+
+    # ---- K4 against its plain version on the counter stream
+    k4_cases = [
+        ("iid_normal", iid, iid, numpy_q0(8, 4096, 21, False), 0.4),
+        ("hier_regression", ld, ld.body, numpy_q0(16, 4096, 22, True), 0.05),
+        ("hier_regression", ld, ld.body, numpy_q0(16, N_CHAINS, 23, True), 0.05),
+    ]
+    k4_err = None
+    for name, density, body, q0_np, eps in k4_cases:
+        frac, n_chains_diff, n_blocks_diff, err, (acc_k, lf_k), (acc_t, lf_t) = (
+            compare_nuts_counter(density, body, q0_np, 7, eps, 6, device, nuts, nuts_pallas)
+        )
+        phase("K4 vs plain", f"{name} {q0_np.shape}, eps {eps}, depth 6, 3 transitions: "
+                             f"{frac:.5f} of chains within 1e-4 ({n_chains_diff} chains in "
+                             f"{n_blocks_diff} of {q0_np.shape[1] // BLOCK_N} blocks differ), max "
+                             f"abs err {err:.3g} on the rest; accept {acc_k:.5f} vs {acc_t:.5f}; "
+                             f"leapfrogs {lf_k:.4f} vs {lf_t:.4f}")
+        check(frac >= 0.99, f"{name}: only {frac:.4f} of chains agree within 1e-4")
+        check(abs(acc_k - acc_t) <= 0.005, f"{name}: accept statistics {acc_k} vs {acc_t}")
+        check(abs(lf_k - lf_t) <= 0.01 * lf_t, f"{name}: mean leapfrogs {lf_k} vs {lf_t}")
+        if q0_np.shape[1] == N_CHAINS:
+            k4_err = err
+
+    # ---- the adapted column-NUTS path, through the public entry point
+    hmc.hmc_sweep_launches = 0
+    nuts_pallas.nuts_sweep_launches = 0
+    t0 = time.perf_counter()
+    q_n, acc_n, leaps_n, _ = column_nuts(
+        model, obs, (), ["tau", "w"], n_chains=N_CHAINS, n_steps=NUTS_STEPS, eps=NUTS_EPS0,
+        max_depth=NUTS_DEPTH, seed=SEED, warmup=True, device="cuda",
+    )
+    torch.cuda.synchronize()
+    nuts_s = time.perf_counter() - t0
+    k4_launches = nuts_pallas.nuts_sweep_launches
+    check(k4_launches == NUTS_WARMUP_PHASES + 1,
+          f"column_nuts(warmup=True) made {k4_launches} K4 launches, not {NUTS_WARMUP_PHASES + 1}")
+    check(hmc.hmc_sweep_launches == 0, "the NUTS path launched K1")
+    check(nuts_pallas.pallas_nuts.last_backend == "cuda",
+          f"the NUTS path took {nuts_pallas.pallas_nuts.last_backend}")
+    check(tuple(q_n.shape) == (16, N_CHAINS), f"NUTS positions have shape {tuple(q_n.shape)}")
+    check(bool(torch.isfinite(q_n).all()), "NUTS positions are not finite")
+
+    # the same warmup again, outside the counted run, for its eps and mass:
+    # K4 is deterministic, so its sweep must give the main path's positions
+    q0_n = init_columns(model, obs, (), packer, N_CHAINS, SEED, device)
+    t0 = time.perf_counter()
+    q_wn, eps_n, im_n = nuts_pallas.warmup_column_nuts(
+        ld, q0_n, SEED, eps0=NUTS_EPS0, max_depth=NUTS_DEPTH
+    )
+    torch.cuda.synchronize()
+    nuts_warm_s = time.perf_counter() - t0
+    sweep_kw = dict(n_steps=NUTS_STEPS, eps=eps_n, max_depth=NUTS_DEPTH, inv_mass=im_n)
+    q_again, _, _ = nuts_pallas.pallas_nuts(ld, q_wn, SEED, **sweep_kw)
+    check(torch.equal(q_again, q_n), "K4 is not deterministic: the main path did not repeat")
+    phase("main path NUTS", f"column_nuts(warmup=True) flagship {N_CHAINS} chains x "
+                            f"{NUTS_STEPS} steps, depth {NUTS_DEPTH}, on "
+                            f"{nuts_pallas.pallas_nuts.last_backend}: {k4_launches} K4 launches "
+                            f"({NUTS_WARMUP_PHASES} warmup phases + 1), adapted eps {eps_n:.6g}, "
+                            f"accept {float(acc_n):.4f}, mean leapfrogs {float(leaps_n):.4f}, "
+                            f"{nuts_s:.2f} s including init and warmup; repeat equal")
+
+    # ---- the NUTS main path against the twin, in law, from the warmed-up state
+    t0 = time.perf_counter()
+    q_nt, acc_nt, leaps_nt = nuts_pallas.pallas_nuts(ld, q_wn, SEED, backend="torch", **sweep_kw)
+    torch.cuda.synchronize()
+    twin_nuts_s = time.perf_counter() - t0
+    check(nuts_pallas.pallas_nuts.last_backend == "torch", "the twin run did not take the twin")
+    check(abs(float(acc_n) - float(acc_nt)) <= 0.02,
+          f"NUTS accept statistics {float(acc_n)} vs twin {float(acc_nt)}")
+    check(abs(float(leaps_n) - float(leaps_nt)) <= 0.05 * float(leaps_nt),
+          f"NUTS mean leapfrogs {float(leaps_n)} vs twin {float(leaps_nt)}")
+    real_k, real_t = q_n[:9], q_nt[:9]
+    se = torch.sqrt((real_k.var(dim=1) + real_t.var(dim=1)) / N_CHAINS)
+    z_n = ((real_k.mean(dim=1) - real_t.mean(dim=1)) / se).abs()
+    check(bool((z_n < 4).all()), f"NUTS tau, w means differ from the twin by {z_n.tolist()} SE")
+    phase("main path NUTS vs twin", f"accept {float(acc_n):.4f} vs {float(acc_nt):.4f}; mean "
+                                    f"leapfrogs {float(leaps_n):.4f} vs {float(leaps_nt):.4f}; tau "
+                                    f"mean {float(q_n[0].mean()):.4f} vs {float(q_nt[0].mean()):.4f} "
+                                    f"({float(z_n[0]):.2f} SE), w means within "
+                                    f"{float(z_n[1:].max()):.2f} SE (limit 4); twin sweep "
+                                    f"{twin_nuts_s:.2f} s")
+
     # ---- timings at the main path's shape
     # windows of a few seconds each: 2000 K1 sweeps, 5 twin sweeps
     ms = cuda_ms(lambda: hmc.hmc_sweep(ld.body, q0, SEED, n_steps=N_STEPS, eps=EPS, L=L),
@@ -241,6 +409,45 @@ def main() -> int:
                                  f"(packer, density closure, routing) "
                                  f"{call_ms - init_ms - ms:.3f} ms")
 
+    # ---- NUTS timings from the warmed-up state: K4 over >= 3 s, the twin over 1 sweep
+    def k4_sweep():
+        return nuts_pallas.nuts_sweep(ld.body, q_wn, SEED, n_steps=NUTS_STEPS, eps=eps_n,
+                                      max_depth=NUTS_DEPTH, inv_mass=im_n)
+
+    k4_reps = max(3, math.ceil(1.2 * K4_WINDOW_S * 1e3 / cuda_ms(k4_sweep, 20)))
+    k4_ms = cuda_ms(k4_sweep, k4_reps)
+    check(k4_ms * k4_reps >= K4_WINDOW_S * 1e3, f"K4 timing window {k4_ms * k4_reps:.0f} ms < 3 s")
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    nuts.nuts_sweep_cols(ld, q_wn, SEED, **sweep_kw)  # the vs-twin run was its warm-up
+    end.record()
+    torch.cuda.synchronize()
+    nuts_plain_ms = start.elapsed_time(end)
+    transitions = N_CHAINS * NUTS_STEPS
+    phase("timing NUTS", f"{smi}: K4 {k4_ms:.4f} ms per {NUTS_STEPS}-transition sweep (window "
+                         f"{k4_ms * k4_reps / 1e3:.2f} s, {k4_reps} sweeps) = "
+                         f"{transitions / k4_ms * 1e3:.6g} samples/s = "
+                         f"{transitions * float(leaps_n) / k4_ms * 1e3:.6g} leapfrogs/s; plain "
+                         f"twin {nuts_plain_ms:.2f} ms per sweep (1 sweep) = "
+                         f"{transitions / nuts_plain_ms * 1e3:.6g} samples/s = "
+                         f"{transitions * float(leaps_nt) / nuts_plain_ms * 1e3:.6g} leapfrogs/s "
+                         f"({N_CHAINS} chains x {NUTS_STEPS} transitions, depth {NUTS_DEPTH}, "
+                         f"adapted eps {eps_n:.6g})")
+
+    # a chain block runs until its longest tree is done: the share of
+    # thread-leaf slots that integrate a live chain, from one transition
+    _, _, leaves_1 = nuts_pallas.nuts_sweep(ld.body, q_wn, SEED + 1, n_steps=1, eps=eps_n,
+                                            max_depth=NUTS_DEPTH, inv_mass=im_n)
+    block_max = leaves_1.view(-1, 128).amax(dim=1)
+    phase("where the time goes", f"NUTS: mean leapfrogs per chain {float(leaves_1.mean()):.3f} "
+                                 f"in one transition, mean of the block maxima "
+                                 f"{float(block_max.mean()):.3f}: K4's 128-chain blocks keep "
+                                 f"{float(leaves_1.mean() / block_max.mean()):.3f} of their "
+                                 f"thread-leaf slots busy; column_nuts call {nuts_s:.3f} s "
+                                 f"(host clock): warmup_column_nuts {nuts_warm_s:.3f} s "
+                                 f"({NUTS_WARMUP_PHASES} K4 sweeps and host reads of eps), "
+                                 f"the main K4 sweep {k4_ms / 1e3:.4f} s")
+
     print(json.dumps({"kernels": [{
         "name": "hmc_sweep (K1, with K2's counter PRNG as device functions)",
         "route": "cuda",
@@ -250,8 +457,18 @@ def main() -> int:
         "max_abs_err": flagship_err,
         "ms": ms,
         "plain_ms": plain_ms,
+    }, {
+        "name": "nuts_sweep (K4)",
+        "route": "cuda",
+        "source": "genjax_tpu_torch/kernels/csrc/nuts_sweep.cu",
+        "replaces": "genjax_tpu/kernels/nuts_pallas.py:72",
+        "launches": k4_launches,
+        "max_abs_err": k4_err,
+        "ms": k4_ms,
+        "plain_ms": nuts_plain_ms,
     }]}), flush=True)
-    check(all(math.isfinite(v) for v in (ms, plain_ms, flagship_err)), "non-finite result")
+    check(all(math.isfinite(v) for v in (ms, plain_ms, flagship_err, k4_ms, nuts_plain_ms, k4_err)),
+          "non-finite result")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

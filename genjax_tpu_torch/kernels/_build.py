@@ -47,11 +47,22 @@ def _digest() -> str:
     return h.hexdigest()[:16]
 
 
+def _so_path(name: str) -> Path:
+    return BUILD_DIR / f"{name}-{_digest()}.so"
+
+
+def ptxas_report(name: str) -> str:
+    """What ``-Xptxas -v`` said when ``csrc/<name>.cu`` was built (each
+    kernel's registers, spills and static shared memory)."""
+    return _so_path(name).with_suffix(".ptxas.txt").read_text()
+
+
 @functools.cache
 def load(name: str) -> ctypes.CDLL:
-    """Compile ``csrc/<name>.cu`` if its build is missing, and load it."""
+    """Compile ``csrc/<name>.cu`` if its build is missing, and load it.
+    Builds of different sources may run in parallel threads."""
     src = CSRC / f"{name}.cu"
-    so = BUILD_DIR / f"{name}-{_digest()}.so"
+    so = _so_path(name)
     if not so.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
@@ -65,6 +76,7 @@ def load(name: str) -> ctypes.CDLL:
                 f"nvcc failed to build {src} (exit {proc.returncode}):\n"
                 f"{proc.stdout}{proc.stderr}"
             )
+        so.with_suffix(".ptxas.txt").write_text(proc.stderr)
         os.replace(tmp, so)
         print(
             f"built {so.relative_to(BUILD_DIR.parents[1])} from "

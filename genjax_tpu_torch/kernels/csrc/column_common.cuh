@@ -1,0 +1,154 @@
+// Device code shared by the column-layout sweep kernels: the HMC sweep (K1,
+// hmc_sweep.cu) and the NUTS sweep (K4, nuts_sweep.cu).
+//
+// - K2, the counter stream: the bit-exact port of the reference's in-kernel
+//   software PRNG (genjax_tpu/kernels/hmc.py: _sw_rand_bits_factory,
+//   _uniform_01, _normal);
+// - the device bodies: a column log-density and its gradient, written by hand
+//   (CUDA has no autodiff) and chosen by a template parameter.
+//
+// No fast-math in any kernel that includes this: rejection relies on NaN and
+// -inf comparing false, and Box-Muller needs accurate logf/cosf.
+
+#pragma once
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr float kTwoPi = 6.283185307179586f;
+constexpr float kLog2Pi = 1.8378770664093453f;
+constexpr uint32_t kBlockMix = 0x3504F333u;
+
+enum Body { kIidNormal = 0, kHierRegression = 1 };
+enum Rng { kCounter = 0, kPhilox = 1 };
+
+// ---------------------------------------------------------------- K2: PRNG
+
+__device__ __forceinline__ uint32_t fmix32(uint32_t x) {
+  x ^= x >> 16;
+  x *= 0x85EBCA6Bu;
+  x ^= x >> 13;
+  x *= 0xC2B2AE35u;
+  x ^= x >> 16;
+  return x;
+}
+
+// _sw_rand_bits_factory: base ^ salt*0x9E3779B1 + row*0x85EBCA77 +
+// col*0xC2B2AE3D, then two murmur3 finalizer rounds, all mod 2^32.
+__device__ __forceinline__ uint32_t counter_bits(uint32_t base, uint32_t salt,
+                                                 uint32_t row, uint32_t col) {
+  uint32_t x = base ^ (salt * 0x9E3779B1u);
+  x = x + row * 0x85EBCA77u + col * 0xC2B2AE3Du;
+  return fmix32(fmix32(x));
+}
+
+// _uniform_01: the top 24 bits, with a half-step offset, so u is in (0, 1).
+__device__ __forceinline__ float uniform_from_bits(uint32_t bits) {
+  return static_cast<float>(bits >> 8) * (1.0f / 16777216.0f) +
+         (0.5f / 16777216.0f);
+}
+
+// _normal: Box-Muller (cosine branch) on salts s and s + 1.
+__device__ __forceinline__ float counter_normal(uint32_t base, uint32_t salt,
+                                                uint32_t row, uint32_t col) {
+  const float u1 = uniform_from_bits(counter_bits(base, salt, row, col));
+  const float u2 = uniform_from_bits(counter_bits(base, salt + 1u, row, col));
+  return sqrtf(-2.0f * logf(u1)) * cosf(kTwoPi * u2);
+}
+
+// --------------------------------------------------------------- bodies
+
+// The constants of a body, in shared memory: X (n_obs x d_w, row-major), y.
+struct BodyConsts {
+  const float* X;
+  const float* y;
+  int n_obs;
+  int d_w;
+  float obs_scale;
+};
+
+template <int D>
+__device__ __forceinline__ float iid_normal(const float (&q)[D], float (&g)[D]) {
+  float lp = 0.0f;
+#pragma unroll
+  for (int d = 0; d < D; ++d) {
+    lp -= 0.5f * q[d] * q[d];
+    g[d] = -q[d];
+  }
+  return lp;
+}
+
+// q[0] = tau, q[1 .. d_w] = w, the rest is padding with a standard-normal
+// density. lp = LogNormal(tau; 0, .5) + sum_j N(w_j; 0, tau)
+//             + sum_i N(y_i; (X w)_i, obs_scale) - 1/2 sum pad^2.
+// Normal terms use the reference's form -(log(2 pi s^2) + (x - m)^2 / s^2) / 2.
+// Outside tau > 0 the log-normal term is -inf while its gradient keeps
+// log(tau), so it is NaN there exactly as autograd through the model gives,
+// and the proposal is rejected.
+template <int D>
+__device__ __forceinline__ float hier_regression(const float (&q)[D], float (&g)[D],
+                                                 const float* X, const float* y,
+                                                 int n_obs, int d_w,
+                                                 float obs_scale) {
+  const float tau = q[0];
+  const float lt = logf(tau);
+  float lp = tau > 0.0f ? -(kLog2Pi + logf(0.25f) + 4.0f * lt * lt) * 0.5f - lt
+                        : -INFINITY;
+  float g_tau = -(4.0f * lt + 1.0f) / tau;
+
+  const float tau2 = tau * tau;
+  const float inv_tau2 = 1.0f / tau2;
+  const float log_norm_w = logf(kTwoPi * tau2);
+  float sum_w2 = 0.0f;
+#pragma unroll
+  for (int j = 0; j < D - 1; ++j) {
+    if (j < d_w) {
+      const float w = q[1 + j];
+      sum_w2 += w * w;
+      g[1 + j] = -w * inv_tau2;
+    }
+  }
+  lp -= 0.5f * (static_cast<float>(d_w) * log_norm_w + sum_w2 * inv_tau2);
+  g_tau += sum_w2 * inv_tau2 / tau - static_cast<float>(d_w) / tau;
+
+  const float inv_s2 = 1.0f / (obs_scale * obs_scale);
+  float sum_r2 = 0.0f;
+  for (int i = 0; i < n_obs; ++i) {
+    const float* xi = X + i * d_w;
+    float r = y[i];
+#pragma unroll
+    for (int j = 0; j < D - 1; ++j) {
+      if (j < d_w) r -= xi[j] * q[1 + j];
+    }
+    sum_r2 += r * r;
+    const float rs = r * inv_s2;
+#pragma unroll
+    for (int j = 0; j < D - 1; ++j) {
+      if (j < d_w) g[1 + j] += xi[j] * rs;
+    }
+  }
+  lp -= 0.5f * (static_cast<float>(n_obs) * logf(kTwoPi * obs_scale * obs_scale) +
+                sum_r2 * inv_s2);
+  g[0] = g_tau;
+
+#pragma unroll
+  for (int d = 1; d < D; ++d) {
+    if (d > d_w) {
+      lp -= 0.5f * q[d] * q[d];
+      g[d] = -q[d];
+    }
+  }
+  return lp;
+}
+
+// lp(q), with its gradient written to g (every entry).
+template <int D, int BODY>
+__device__ __forceinline__ float lp_grad(const float (&q)[D], float (&g)[D],
+                                         const BodyConsts& body) {
+  if (BODY == kIidNormal) return iid_normal<D>(q, g);
+  return hier_regression<D>(q, g, body.X, body.y, body.n_obs, body.d_w, body.obs_scale);
+}
+
+}  // namespace

@@ -1,0 +1,356 @@
+// NUTS sweep for Hopper (sm_90a), one chain per thread: K4.
+//
+// Replaces genjax_tpu/kernels/nuts_pallas.py::_nuts_kernel, the Pallas TPU
+// kernel that keeps a chain block's whole NUTS tree on chip for a sweep.
+//
+// What it computes: n_steps NUTS transitions on each of N chains, with the
+// reference kernel's semantics. A transition draws momentum r0 ~ N(0, M) and
+// doubles the trajectory up to max_depth times, each doubling in a random
+// direction: a subtree of 2^j leapfrog leaves, multinomial progressive
+// sampling within it and biased progressive sampling across doublings. Leaf
+// i is pushed on a checkpoint stack at slot popcount(i) and checked for a
+// U-turn against slots popcount(i) - 1 - k, k < ntz(i + 1), the openers of
+// every balanced subtree closing at i; a leaf whose energy rises by more than
+// div_threshold diverges. Per chain it returns the position, and the accept
+// statistic and leapfrog count summed over the transitions.
+//
+// Design: a CUDA block is a chain block of `blockDim.x` chains, one chain a
+// thread. The leaf loop and the doubling loop exit on block-wide conditions
+// (any chain of the block still integrating, any not done), taken with
+// __syncthreads_or, exactly as the reference exits per chain block; so every
+// loop bound is uniform over the block, and the stream's salt, which advances
+// once per block-wide draw, is one per block. The two checkpoint stacks sit
+// in dynamic shared memory, [slot][d][chain], so a warp's accesses fall in
+// consecutive banks; the body's constants and the inverse mass sit in front
+// of them. The tree (its two ends with their gradients, the proposal) and the
+// subtree's proposal are register arrays, D being a template parameter. The
+// subtree is built in place on the end it extends: both ends are swapped
+// when it runs backward, and an end left half-extended by a subtree that
+// U-turned or diverged is never read again, since that chain is then done.
+// A chain that is done, or whose subtree has stopped, skips the leapfrog:
+// its state would not change, and what it would push is never read.
+//
+// Bound on this card: at the flagship's D = 16 and depth 8 the two stacks
+// take 128 KiB of shared memory for 128 chains, so one block fits an SM and
+// four warps hide little latency; every leaf is a dependent chain of a
+// gradient (about 256 FMAs for the flagship), so the kernel is latency-bound.
+// Making it fast (smaller stacks, more chains an SM) is later work.
+//
+// Random streams (runtime flag `rng`):
+//   0 = counter: K2, bit-exact; the block's base is seed + block * 0x3504F333,
+//       the column is the thread, and the salt schedule is the reference's:
+//       a transition draws r0 on salts s, s + 1 and starts doubling at s + 4;
+//       every direction, leaf and subtree take draws at the salt and moves it
+//       by 4; a transition ends by moving it by 4. The launch block is the
+//       stream's chain block.
+//   1 = philox: Philox4x32-10 from curand's header, keyed by (seed, chain),
+//       counter (salt, draw, kind); held in law only.
+//
+// No fast-math: NaN energies become +inf, logaddexp(-inf, -inf) is -inf, and
+// u < NaN must be false.
+
+#include <cstdint>
+#include <cuda_runtime.h>
+#include <curand_kernel.h>
+
+#include "column_common.cuh"  // K2's counter stream, the device bodies
+
+namespace {
+
+constexpr int kMaxThreads = 256;
+
+struct NutsParams {
+  const float* q_in;      // (D, N)
+  float* q_out;           // (D, N)
+  float* accepts;         // (N,) accept statistic summed over transitions
+  float* leaps;           // (N,) leapfrogs summed over transitions
+  const float* inv_mass;  // (D,)
+  const float* consts;    // body constants: X (n_obs x d_w, row-major), y
+  int n_consts;
+  int N;
+  int n_obs;
+  int d_w;
+  float obs_scale;
+  int n_steps;
+  float eps;
+  float div_threshold;
+  int max_depth;
+  uint32_t seed;
+  int rng;
+};
+
+// jnp.logaddexp: max + log1p(exp(-|a - b|)), and a + b where a - b is NaN
+// (NaN inputs, or infinities of one sign: logaddexp(-inf, -inf) = -inf).
+__device__ __forceinline__ float log_add_exp(float a, float b) {
+  const float delta = a - b;
+  if (isnan(delta)) return a + b;
+  return fmaxf(a, b) + log1pf(expf(-fabsf(delta)));
+}
+
+// jnp.minimum(1, x), which keeps a NaN (fminf would drop it).
+__device__ __forceinline__ float min1(float x) { return isnan(x) ? x : fminf(1.0f, x); }
+
+struct Stream {
+  int rng;
+  uint32_t base;  // counter: seed + block * kBlockMix
+  uint32_t col;   // counter: the chain's column in its block
+  uint2 key;      // philox: (seed, chain)
+
+  // the reference's (1, block) uniform draw: row 0
+  __device__ __forceinline__ float uniform(uint32_t salt) const {
+    if (rng == kCounter) return uniform_from_bits(counter_bits(base, salt, 0u, col));
+    return uniform_from_bits(curand_Philox4x32_10(make_uint4(salt, 0u, 0u, 0u), key).x);
+  }
+
+  // the reference's (D, block) normal draw on salts salt and salt + 1
+  template <int D>
+  __device__ __forceinline__ void normals(uint32_t salt, float (&z)[D]) const {
+    if (rng == kCounter) {
+#pragma unroll
+      for (int d = 0; d < D; ++d) z[d] = counter_normal(base, salt, d, col);
+      return;
+    }
+#pragma unroll
+    for (int j = 0; j < D / 4; ++j) {
+      const uint4 b = curand_Philox4x32_10(make_uint4(salt, static_cast<uint32_t>(j), 1u, 0u), key);
+      float s0, c0, s1, c1;
+      sincosf(kTwoPi * uniform_from_bits(b.y), &s0, &c0);
+      sincosf(kTwoPi * uniform_from_bits(b.w), &s1, &c1);
+      const float r0 = sqrtf(-2.0f * logf(uniform_from_bits(b.x)));
+      const float r1 = sqrtf(-2.0f * logf(uniform_from_bits(b.z)));
+      z[4 * j + 0] = r0 * c0;
+      z[4 * j + 1] = r0 * s0;
+      z[4 * j + 2] = r1 * c1;
+      z[4 * j + 3] = r1 * s1;
+    }
+  }
+};
+
+template <int D>
+__device__ __forceinline__ void swap_if(bool cond, float (&a)[D], float (&b)[D]) {
+#pragma unroll
+  for (int d = 0; d < D; ++d) {
+    const float t = a[d];
+    a[d] = cond ? b[d] : a[d];
+    b[d] = cond ? t : b[d];
+  }
+}
+
+// 1/2 r' M^-1 r, summed in the reference's order: (m * r) * r over d.
+template <int D>
+__device__ __forceinline__ float kinetic(const float (&r)[D], const float* im) {
+  float s = 0.0f;
+#pragma unroll
+  for (int d = 0; d < D; ++d) s += im[d] * r[d] * r[d];
+  return 0.5f * s;
+}
+
+template <int D, int BODY>
+__global__ void __launch_bounds__(kMaxThreads) nuts_sweep_kernel(const NutsParams prm) {
+  extern __shared__ float smem[];
+  const int B = blockDim.x;
+  const int tid = threadIdx.x;
+  float* s_consts = smem;
+  float* im = smem + prm.n_consts;  // inverse mass (D,)
+  float* ck_z = im + D;             // checkpoint stacks [slot][d][chain]
+  float* ck_r = ck_z + prm.max_depth * D * B;
+  for (int k = tid; k < prm.n_consts; k += B) s_consts[k] = prm.consts[k];
+  for (int k = tid; k < D; k += B) im[k] = prm.inv_mass[k];
+  __syncthreads();
+  const BodyConsts body{s_consts, s_consts + prm.n_obs * prm.d_w, prm.n_obs, prm.d_w,
+                        prm.obs_scale};
+
+  // threads past N idle through the block-wide loops as done chains
+  const int n = blockIdx.x * B + tid;
+  const bool valid = n < prm.N;
+  const Stream stream{prm.rng, prm.seed + static_cast<uint32_t>(blockIdx.x) * kBlockMix,
+                      static_cast<uint32_t>(tid),
+                      make_uint2(prm.seed, static_cast<uint32_t>(n))};
+
+  float q[D];  // the chain's position: each transition's proposal
+#pragma unroll
+  for (int d = 0; d < D; ++d) q[d] = valid ? prm.q_in[static_cast<size_t>(d) * prm.N + n] : 1.0f;
+
+  // the tree: its backward (m) and forward (p) ends with their gradients,
+  // and the subtree's proposal
+  float zm[D], rm[D], gm[D], zp[D], rp[D], gp[D], szprop[D];
+  float acc_sum = 0.0f, leap_sum = 0.0f;
+  uint32_t salt = 1u;
+
+  for (int step = 0; step < prm.n_steps; ++step) {
+    stream.normals<D>(salt, rm);
+#pragma unroll
+    for (int d = 0; d < D; ++d) rm[d] *= sqrtf(1.0f / im[d]);
+    const float ld0 = lp_grad<D, BODY>(q, gm, body);
+    const float energy0 = -ld0 + kinetic<D>(rm, im);
+#pragma unroll
+    for (int d = 0; d < D; ++d) {
+      zm[d] = q[d];
+      zp[d] = q[d];
+      rp[d] = rm[d];
+      gp[d] = gm[d];
+    }
+    float lw_traj = -energy0;
+    float t_sacc = 0.0f, t_scnt = 0.0f, n_leap = 0.0f;
+    bool done = !valid;
+    salt += 4u;
+
+    for (int j = 0; j < prm.max_depth; ++j) {
+      if (!__syncthreads_or(!done)) break;
+      const float dir = stream.uniform(salt) < 0.5f ? -1.0f : 1.0f;
+      salt += 4u;
+      const bool fwd = dir > 0.0f;
+      const float e = prm.eps * dir;
+      const float half_e = 0.5f * e;
+
+      // build the subtree on the end it extends, held in (zp, rp, gp)
+      swap_if<D>(!fwd, zm, zp);
+      swap_if<D>(!fwd, rm, rp);
+      swap_if<D>(!fwd, gm, gp);
+#pragma unroll
+      for (int d = 0; d < D; ++d) szprop[d] = zp[d];
+      float lw_sub = -INFINITY;
+      bool s_turn = false, s_div = false;
+      float s_sacc = t_sacc, s_scnt = t_scnt;
+
+      const int n_leaves = 1 << j;
+      for (int i = 0; i < n_leaves; ++i) {
+        const bool active = !(s_turn || s_div || done);
+        if (!__syncthreads_or(active)) break;
+        const uint32_t leaf_salt = salt;
+        salt += 4u;
+        if (!active) continue;
+
+#pragma unroll
+        for (int d = 0; d < D; ++d) {
+          rp[d] = rp[d] + half_e * gp[d];
+          zp[d] = zp[d] + e * im[d] * rp[d];
+        }
+        const float ld_new = lp_grad<D, BODY>(zp, gp, body);
+        const int bc = __popc(i);
+#pragma unroll
+        for (int d = 0; d < D; ++d) {
+          rp[d] = rp[d] + half_e * gp[d];
+          ck_z[(bc * D + d) * B + tid] = zp[d];
+          ck_r[(bc * D + d) * B + tid] = rp[d];
+        }
+
+        float energy = -ld_new + kinetic<D>(rp, im);
+        if (isnan(energy)) energy = INFINITY;
+        const float lw_leaf = -energy;
+        const bool div_new = energy - energy0 > prm.div_threshold;
+        const float lw_new = log_add_exp(lw_sub, lw_leaf);
+        if (stream.uniform(leaf_salt) < expf(lw_leaf - lw_new)) {  // NaN never takes
+#pragma unroll
+          for (int d = 0; d < D; ++d) szprop[d] = zp[d];
+        }
+        s_sacc += min1(expf(energy0 - energy));
+        s_scnt += 1.0f;
+
+        const int ntz1 = __ffs(i + 1) - 1;
+        for (int k = 0; k < ntz1; ++k) {
+          const int slot = bc - 1 - k;
+          float a = 0.0f, b = 0.0f;
+#pragma unroll
+          for (int d = 0; d < D; ++d) {
+            const float dzm = dir * (zp[d] - ck_z[(slot * D + d) * B + tid]) * im[d];
+            a += dzm * ck_r[(slot * D + d) * B + tid];
+            b += dzm * rp[d];
+          }
+          if (a < 0.0f || b < 0.0f) s_turn = true;
+        }
+        lw_sub = lw_new;
+        s_div = s_div || div_new;
+      }
+
+      const bool sub_ok = !(s_turn || s_div);
+      const float p_acc = min1(expf(lw_sub - lw_traj));
+      const float u = stream.uniform(salt);
+      salt += 4u;
+      if (!done && sub_ok) {
+        if (u < p_acc) {
+#pragma unroll
+          for (int d = 0; d < D; ++d) q[d] = szprop[d];
+        }
+        lw_traj = log_add_exp(lw_traj, lw_sub);
+      }
+      swap_if<D>(!fwd, zm, zp);
+      swap_if<D>(!fwd, rm, rp);
+      swap_if<D>(!fwd, gm, gp);
+
+      float a = 0.0f, b = 0.0f;
+#pragma unroll
+      for (int d = 0; d < D; ++d) {
+        const float dzm = (zp[d] - zm[d]) * im[d];
+        a += dzm * rm[d];
+        b += dzm * rp[d];
+      }
+      if (!done) {
+        n_leap += static_cast<float>(n_leaves);
+        t_sacc = s_sacc;
+        t_scnt = s_scnt;
+      }
+      done = done || !sub_ok || a < 0.0f || b < 0.0f;
+    }
+    acc_sum += t_sacc / fmaxf(t_scnt, 1.0f);
+    leap_sum += n_leap;
+    salt += 4u;
+  }
+
+  if (valid) {
+#pragma unroll
+    for (int d = 0; d < D; ++d) prm.q_out[static_cast<size_t>(d) * prm.N + n] = q[d];
+    prm.accepts[n] = acc_sum;
+    prm.leaps[n] = leap_sum;
+  }
+}
+
+template <int D, int BODY>
+cudaError_t launch(const NutsParams& prm, int block, size_t smem, cudaStream_t stream) {
+  const cudaError_t err = cudaFuncSetAttribute(
+      nuts_sweep_kernel<D, BODY>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const int blocks = (prm.N + block - 1) / block;
+  nuts_sweep_kernel<D, BODY><<<blocks, block, smem, stream>>>(prm);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// The largest dynamic shared memory a block may opt in to on `device`, or -1.
+int nuts_smem_limit(int device) {
+  int bytes = 0;
+  if (cudaDeviceGetAttribute(&bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, device) !=
+      cudaSuccess)
+    return -1;
+  return bytes;
+}
+
+// Returns the cudaError_t of the launch (0 on success).
+int nuts_sweep(const float* q_in, float* q_out, float* accepts, float* leaps,
+               const float* inv_mass, const float* consts, int n_consts, int body, int dim,
+               int N, int n_obs, int d_w, float obs_scale, int n_steps, float eps,
+               float div_threshold, int max_depth, int seed, int rng, int block, void* stream) {
+  if (N <= 0 || block <= 0 || block > kMaxThreads || n_consts < 0 || n_steps < 0 ||
+      max_depth < 1 || max_depth > 30 || (rng != kCounter && rng != kPhilox))
+    return cudaErrorInvalidValue;
+  if (body == kHierRegression && (d_w < 1 || d_w + 1 > dim || n_consts != n_obs * (d_w + 1)))
+    return cudaErrorInvalidValue;
+  const NutsParams prm{q_in, q_out, accepts, leaps, inv_mass, consts, n_consts, N, n_obs,
+                       d_w, obs_scale, n_steps, eps, div_threshold, max_depth,
+                       static_cast<uint32_t>(seed), rng};
+  const size_t smem = sizeof(float) * (static_cast<size_t>(n_consts) + dim +
+                                       2 * static_cast<size_t>(max_depth) * dim * block);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dim == 8 && body == kIidNormal) return launch<8, kIidNormal>(prm, block, smem, s);
+  if (dim == 16 && body == kIidNormal) return launch<16, kIidNormal>(prm, block, smem, s);
+  if (dim == 8 && body == kHierRegression) return launch<8, kHierRegression>(prm, block, smem, s);
+  if (dim == 16 && body == kHierRegression)
+    return launch<16, kHierRegression>(prm, block, smem, s);
+  return cudaErrorInvalidValue;
+}
+
+}  // extern "C"

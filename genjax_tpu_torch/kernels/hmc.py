@@ -27,6 +27,7 @@ from typing import Callable
 import torch
 
 from . import _build
+from .adaptation import windowed_warmup
 from .bodies import Body
 
 _TWO_PI = 6.283185307179586
@@ -58,7 +59,8 @@ def _sw_rand_bits_factory(base, col=None):
     """The reference's counter-based software PRNG: bits are a pure function
     of (base, salt, row, column) through two murmur3 finalizer rounds.
     ``base`` is an int or an int64 tensor over the columns; ``col`` defaults
-    to the column index within the draw."""
+    to the column index within the draw; ``salt`` is an int or an int64
+    tensor over the columns (NUTS advances it per chain block)."""
 
     def rand_bits(shape, salt):
         device = base.device if isinstance(base, torch.Tensor) else None
@@ -67,7 +69,8 @@ def _sw_rand_bits_factory(base, col=None):
         else:
             r = torch.zeros((), dtype=torch.int64, device=device)
         c = col if col is not None else torch.arange(shape[-1], dtype=torch.int64, device=device)
-        x = base ^ ((int(salt) * 0x9E3779B1) & _M32)
+        salt = salt if isinstance(salt, torch.Tensor) else int(salt)
+        x = base ^ ((salt * 0x9E3779B1) & _M32)
         x = (x + _mul32(r, 0x85EBCA77) + _mul32(c, 0xC2B2AE3D)) & _M32
         for _ in range(2):
             x = x ^ (x >> 16)
@@ -109,6 +112,17 @@ def _inv_mass_col(inv_mass, d: int, device) -> torch.Tensor:
     if inv_mass is None:
         return torch.ones((d, 1), dtype=torch.float32, device=device)
     return torch.as_tensor(inv_mass, dtype=torch.float32, device=device).reshape(d, 1)
+
+
+def _lp_grad(logdensity_cols: Callable, q: torch.Tensor):
+    """``(lp (N,), grad (D, N))`` by autograd. One backward of ``lp.sum()``
+    gives every chain's gradient at once: chains are independent, so column
+    ``j`` of the gradient is ``d lp[j] / d q[:, j]``."""
+    with torch.enable_grad():
+        q = q.detach().requires_grad_(True)
+        lp = logdensity_cols(q)
+        (g,) = torch.autograd.grad(lp.sum(), q)
+    return lp.detach(), g
 
 
 def _reference_hmc(
@@ -160,20 +174,11 @@ def _reference_hmc(
     else:
         raise ValueError(f"rng must be 'generator' or 'counter', got {rng!r}")
 
-    # one backward of lp.sum() gives every chain's gradient at once: chains
-    # are independent, so column j of the gradient is d lp[j] / d q[:, j]
-    def lp_g(q):
-        with torch.enable_grad():
-            q = q.detach().requires_grad_(True)
-            lp = logdensity_cols(q)
-            (g,) = torch.autograd.grad(lp.sum(), q)
-        return lp.detach(), g
-
     def kinetic(p):
         return 0.5 * torch.sum(inv_mass * p * p, dim=0)
 
     q = q0.to(torch.float32)
-    lp, g = lp_g(q)
+    lp, g = _lp_grad(logdensity_cols, q)
     accepted = torch.zeros(n, dtype=torch.float32, device=device)
     for i in range(n_steps):
         z, u = draws(i)
@@ -183,7 +188,7 @@ def _reference_hmc(
         for _ in range(L):
             p = p + (eps / 2.0) * g_new
             q_new = q_new + eps * inv_mass * p
-            lp_new, g_new = lp_g(q_new)
+            lp_new, g_new = _lp_grad(logdensity_cols, q_new)
             p = p + (eps / 2.0) * g_new
         log_alpha = (lp_new - kinetic(p)) - (lp - ke0)
         accept = torch.log(u) < log_alpha  # NaN or -inf log_alpha rejects
@@ -368,3 +373,39 @@ def pallas_hmc(
 
 
 pallas_hmc.last_backend = None
+
+
+def warmup_column(
+    logdensity_cols: Callable,
+    q0: torch.Tensor,
+    seed: int,
+    *,
+    n_phases: int = 6,
+    steps_per_phase: int = 25,
+    eps0: float = 0.1,
+    L: int = 5,
+    target_accept: float = 0.8,
+    backend: str = "auto",
+):
+    """Windowed warmup for the column layout (``adaptation.windowed_warmup``):
+    per phase, a short HMC sweep through ``pallas_hmc``'s routing (on the
+    card one launch of the sweep kernel), a step-size nudge toward
+    ``target_accept``, and the diagonal inverse mass from the cross-chain
+    variance.
+
+    Phase seeds ``(seed + 1) * 1_000_003 + phase`` are the reference's
+    stream, disjoint from the main sweep's ``seed``.
+
+    Returns ``(q, eps, inv_mass)`` ready for the main sweep.
+    """
+
+    def sweep(q, idx, eps, inv_mass):
+        return pallas_hmc(
+            logdensity_cols, q, (seed + 1) * 1_000_003 + idx, n_steps=steps_per_phase,
+            eps=eps, L=L, inv_mass=inv_mass, backend=backend,
+        )
+
+    q, eps, inv_mass, _accs = windowed_warmup(
+        sweep, q0.to(torch.float32), n_windows=n_phases, eps0=eps0, target_accept=target_accept,
+    )
+    return q, float(eps), inv_mass

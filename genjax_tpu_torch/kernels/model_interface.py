@@ -1,7 +1,8 @@
-"""Bridge from ``@gen`` models to the fused column-layout HMC sweep.
+"""Bridge from ``@gen`` models to the fused column-layout sweeps.
 
 Counterpart of ``genjax_tpu/kernels/model_interface.py``: ``ColumnPacker``,
-``column_logdensity`` and ``column_hmc`` with a diagonal metric. Positions
+``column_logdensity``, ``column_hmc`` and ``column_nuts`` with a diagonal
+metric, each with the windowed warmup. Positions
 are packed chains-on-the-last-axis: ``(D, N)`` with ``D`` the flattened
 dimension of the selected addresses padded to a multiple of 8. Padding
 dimensions carry an independent standard-normal density (see
@@ -20,12 +21,8 @@ from ..generative.choice_map import ChoiceMap
 from ..generative.gfi import GenerativeFunction
 from ..generative.mask import Mask
 from .bodies import body_for
-from .hmc import pallas_hmc
-
-_WARMUP = (
-    "{} comes with the next slice of the port (ROADMAP queue 1: "
-    "kernels/adaptation.py and warmup_column)"
-)
+from .hmc import pallas_hmc, warmup_column
+from .nuts_pallas import pallas_nuts, warmup_column_nuts
 
 
 def _round_up(x: int, m: int) -> int:
@@ -144,8 +141,10 @@ def column_hmc(
     decode single chains with ``packer.unpack(positions[:, i])``.
 
     ``backend``, ``interpret`` and ``block_n`` are those of ``pallas_hmc``.
-    On a CUDA device the default runs the CUDA sweep kernel, which needs a
-    device body for this model and packing (``kernels/bodies.py``
+    ``warmup=True`` first adapts ``eps`` (from ``eps`` as its start) and the
+    diagonal inverse mass with ``warmup_column``, whose phases take the same
+    routing. On a CUDA device the default runs the CUDA sweep kernel, which
+    needs a device body for this model and packing (``kernels/bodies.py``
     ``body_for``); without one it raises, and ``backend="torch"`` runs the
     plain twin on the card instead. ``interpret=True`` is the reference's
     name for the counter stream (``rng="counter"`` of the kernel and the
@@ -167,17 +166,83 @@ def column_hmc(
     >>> bool(abs(q[0].mean() - 1.0) < 0.3)   # posterior mean = 1
     True
     """
-    if warmup:
-        raise NotImplementedError(_WARMUP.format("warmup=True"))
     if mass != "diag":
-        raise NotImplementedError(_WARMUP.format(f"mass={mass!r}"))
+        raise NotImplementedError(
+            f"mass={mass!r}: the dense metric comes with the port of kernels/dense_mass.py "
+            "(ROADMAP queue 1, item 13)"
+        )
     if constraint is None:
         constraint = ChoiceMap.empty()
     packer = ColumnPacker(model, constraint, args, addresses)
     logdensity_cols = column_logdensity(model, constraint, args, packer)
     q0 = init_columns(model, constraint, args, packer, n_chains, seed, torch.device(device))
+    if warmup:
+        q0, eps, inv_mass = warmup_column(logdensity_cols, q0, seed, eps0=eps, L=L, backend=backend)
     q, accept = pallas_hmc(
         logdensity_cols, q0, seed, n_steps=n_steps, eps=eps, L=L,
         block_n=block_n, interpret=interpret, backend=backend, inv_mass=inv_mass,
     )
     return q, accept, packer
+
+
+def column_nuts(
+    model: GenerativeFunction,
+    constraint: ChoiceMap,
+    args: tuple,
+    addresses: Sequence[Any],
+    *,
+    n_chains: int,
+    n_steps: int,
+    eps: float,
+    max_depth: int = 8,
+    seed: int = 0,
+    warmup: bool = False,
+    inv_mass=None,
+    block_n: int | None = None,
+    interpret: bool = False,
+    backend: str = "auto",
+    device="cpu",
+):
+    """Prior-initialized No-U-Turn sampling over ``addresses`` in the column
+    layout, on ``device``. Returns ``(positions, accept_stat,
+    mean_leapfrogs, packer)``.
+
+    ``backend``, ``interpret`` and ``block_n`` are those of
+    ``nuts_pallas.pallas_nuts``: on a CUDA device the default runs the CUDA
+    NUTS kernel, which needs a device body for this model and packing, and
+    raises without one (``backend="torch"`` runs the plain twin there).
+    ``warmup=True`` first adapts ``eps`` (from ``eps`` as its start) and the
+    diagonal inverse mass with ``warmup_column_nuts``, whose phases take the
+    same routing: on the card, one kernel launch per phase.
+
+    >>> import torch
+    >>> import genjax_tpu_torch as g
+    >>> from genjax_tpu_torch.kernels import column_nuts
+    >>> @g.gen
+    ... def model():
+    ...     mu = g.normal(0.0, 1.0) @ "mu"
+    ...     _ = g.normal(mu, 1.0) @ "y"
+    >>> q, accept, leaps, packer = column_nuts(
+    ...     model, g.C["y"].set(2.0), (), ["mu"],
+    ...     n_chains=256, n_steps=20, eps=0.5, max_depth=5, seed=1,
+    ... )
+    >>> tuple(q.shape)
+    (8, 256)
+    >>> bool(abs(q[0].mean() - 1.0) < 0.3)   # posterior mean = 1
+    True
+    """
+    if constraint is None:
+        constraint = ChoiceMap.empty()
+    packer = ColumnPacker(model, constraint, args, addresses)
+    logdensity_cols = column_logdensity(model, constraint, args, packer)
+    q0 = init_columns(model, constraint, args, packer, n_chains, seed, torch.device(device))
+    if warmup:
+        q0, eps, inv_mass = warmup_column_nuts(
+            logdensity_cols, q0, seed, eps0=eps, max_depth=max_depth, backend=backend,
+            block_n=block_n,
+        )
+    q, accept, leaps = pallas_nuts(
+        logdensity_cols, q0, seed, n_steps=n_steps, eps=eps, max_depth=max_depth,
+        inv_mass=inv_mass, block_n=block_n, interpret=interpret, backend=backend,
+    )
+    return q, accept, leaps, packer
