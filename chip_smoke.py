@@ -5,14 +5,18 @@ Run from the root of a checkout on a machine with a CUDA card:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from ``genjax_tpu_torch/kernels/csrc``
-(the HMC sweep K1 with its PRNG K2, and the NUTS sweep K4, one nvcc each,
-in parallel), holds each kernel against its plain torch version on the
-card, and drives the flagship (hierarchical regression, 65,536 chains)
-through the public entry points: ``column_hmc``, ``column_hmc(warmup=True)``
-and the adapted ``column_nuts(warmup=True)``. It checks that each path
-launched its kernel and agrees in law with the plain twin, times both, and
-prints one JSON line of kernel results and a last JSON line naming the
-device. Any failed check exits non-zero; so does a machine without CUDA.
+(the HMC sweep K1 with its PRNG K2, the NUTS sweep K4 and the Gaussian
+elliptical-slice sweep K3, one nvcc each, in parallel), holds each kernel
+against its plain torch version on the card, and drives two workloads
+through the public entry points: the flagship (hierarchical regression,
+65,536 chains) with ``column_hmc``, ``column_hmc(warmup=True)`` and the
+adapted ``column_nuts(warmup=True)``; and exact sampling of GP latents
+(D = 256, 8,192 chains, ``bench.py::bench_gp``'s setup) with
+``ess_sweep_gauss_pallas``, held against the closed-form posterior. It
+checks that each path launched its kernel and agrees in law with the plain
+twin, times both, and prints one JSON line of kernel results and a last
+JSON line naming the device. Any failed check exits non-zero; so does a
+machine without CUDA.
 """
 
 from __future__ import annotations
@@ -45,6 +49,15 @@ NUTS_EPS0 = 0.1
 NUTS_WARMUP_PHASES = 10  # warmup_column_nuts's default
 K4_WINDOW_S = 3.0
 
+# the GP / elliptical-slice path: the reference's bench_gp setup
+GP_D = 256
+GP_CHAINS = 8192
+GP_STEPS = 50
+GP_SWEEPS = 40  # 2,000 transitions from q0 = 0 reach the posterior
+GP_NOISE = 0.3
+K3_WINDOW_S = 3.0
+K3_TWIN_TIMED_SWEEPS = 2
+
 
 class SmokeFailure(RuntimeError):
     pass
@@ -64,6 +77,29 @@ def flagship_data():
     X = np.random.default_rng(0).normal(size=(16, 8)).astype(np.float32)
     y = np.random.default_rng(1).normal(size=(16,)).astype(np.float32)
     return X, y
+
+
+def gp_data():
+    """``chol`` and ``y`` as the reference's ``bench_gp`` builds them: inputs
+    uniform on [0, 10] from numpy seed 0, a unit squared-exponential Gram
+    matrix with 1e-4 jitter factored in float64, ``y`` a draw of the GP
+    plus noise 0.3."""
+    rng = np.random.default_rng(0)
+    X = rng.uniform(0.0, 10.0, size=(GP_D, 1))
+    K = np.exp(-0.5 * (X - X.T) ** 2) + 1e-4 * np.eye(GP_D)
+    chol = np.linalg.cholesky(K).astype(np.float32)
+    f_true = (chol @ rng.normal(size=GP_D)).astype(np.float32)
+    y = (f_true + GP_NOISE * rng.normal(size=GP_D)).astype(np.float32)
+    return chol, y
+
+
+def gp_closed_form(chol: np.ndarray, y: np.ndarray):
+    """Posterior mean ``C prec y`` and sds of the latents, ``C = (K^-1 +
+    prec I)^-1 = K - K (K + noise^2 I)^-1 K``, in float64."""
+    L = chol.astype(np.float64)
+    K = L @ L.T
+    C = K - K @ np.linalg.solve(K + GP_NOISE**2 * np.eye(GP_D), K)
+    return C @ (y.astype(np.float64) / GP_NOISE**2), np.sqrt(np.diag(C))
 
 
 def numpy_q0(d: int, n: int, seed: int, tau_row: bool) -> np.ndarray:
@@ -157,6 +193,152 @@ def compare_counter(ld, body, q0_np, seed, eps, device, hmc):
     )
 
 
+def compare_ess_counter(d, n, block_n, device, elliptical):
+    """K3 and its plain version on the counter stream, through
+    ``ess_sweep_gauss_pallas(interpret=True)``, 5 steps from one numpy
+    ``q0``: ``(fraction within 1e-4, differing chains, max abs err over
+    agreeing chains)``. D = 256 is the GP path's data; smaller D take a
+    random SPD prior, D = 16 with vector ``prec`` and ``mean``."""
+    rng = np.random.default_rng(100 + d)
+    if d == GP_D:
+        chol, y = gp_data()
+        kw = dict(prec=1.0 / GP_NOISE**2)
+    else:
+        A = rng.normal(size=(d, d))
+        chol = np.linalg.cholesky(A @ A.T / d + np.eye(d)).astype(np.float32)
+        y = rng.normal(size=d).astype(np.float32)
+        kw = dict(prec=4.0)
+        if d == 16:
+            kw = dict(prec=np.linspace(0.5, 8.0, d, dtype=np.float32),
+                      mean=np.linspace(-1.0, 1.0, d, dtype=np.float32))
+    q0 = torch.from_numpy(rng.normal(size=(d, n)).astype(np.float32)).to(device)
+    kw.update(n_steps=5, chol_prior=chol, y=y, block_n=block_n, interpret=True)
+    qk = elliptical.ess_sweep_gauss_pallas(q0, 7, backend="cuda", **kw)
+    qt = elliptical.ess_sweep_gauss_pallas(q0, 7, backend="torch", **kw)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(qk).all()), "K3 positions are not finite")
+    err = (qk - qt).abs().amax(dim=0)
+    close = err <= 1e-4
+    return float(close.float().mean()), int((~close).sum()), float(err[close].max())
+
+
+def gp_path(device, smi: str, elliptical) -> dict:
+    """K3 against its plain version, the GP main path, the main path against
+    the twin in law, and the timings. Returns K3's entry of the kernels
+    line."""
+    for d, n, block_n in [(3, 512, None), (16, 4096, 128), (GP_D, GP_CHAINS, None)]:
+        frac, n_diff, err = compare_ess_counter(d, n, block_n, device, elliptical)
+        block = block_n or elliptical._default_block_n(d, n)
+        phase("K3 vs plain", f"({d}, {n}), block_n {block}, 5 steps: {frac:.5f} of chains within "
+                             f"1e-4 ({n_diff} chains differ), max abs err {err:.3g} on the rest")
+        check(frac >= 0.99, f"K3 ({d}, {n}): only {frac:.4f} of chains agree within 1e-4")
+        if d == GP_D:
+            k3_err = err
+
+    # ---- the main path: 40 calls of the public entry point from q0 = 0
+    chol, y = gp_data()
+    prec = 1.0 / GP_NOISE**2
+    elliptical.ess_gauss_sweep_launches = 0
+    q = torch.zeros(GP_D, GP_CHAINS, device=device)
+    t0 = time.perf_counter()
+    for s in range(GP_SWEEPS):
+        q_prev = q
+        q = elliptical.ess_sweep_gauss_pallas(q, SEED + s, n_steps=GP_STEPS, chol_prior=chol, y=y, prec=prec)
+    torch.cuda.synchronize()
+    gp_s = time.perf_counter() - t0
+    launches = elliptical.ess_gauss_sweep_launches
+    check(elliptical.ess_sweep_gauss_pallas.last_backend == "cuda",
+          f"the GP path took {elliptical.ess_sweep_gauss_pallas.last_backend}")
+    check(launches == GP_SWEEPS, f"{GP_SWEEPS} calls made {launches} K3 launches")
+    check(tuple(q.shape) == (GP_D, GP_CHAINS), f"GP positions have shape {tuple(q.shape)}")
+    check(bool(torch.isfinite(q).all()), "GP positions are not finite")
+    q_again = elliptical.ess_sweep_gauss_pallas(
+        q_prev, SEED + GP_SWEEPS - 1, n_steps=GP_STEPS, chol_prior=chol, y=y, prec=prec
+    )
+    check(torch.equal(q_again, q), "K3 is not deterministic: the last call did not repeat")
+    m_exact, sd_exact = gp_closed_form(chol, y)
+    draws = q.double().cpu().numpy()
+    z_mean = np.abs(draws.mean(axis=1) - m_exact) / sd_exact
+    sd_ratio = draws.std(axis=1) / sd_exact
+    phase("main path GP", f"ess_sweep_gauss_pallas D={GP_D} x {GP_CHAINS} chains x {GP_STEPS} "
+                          f"steps, {GP_SWEEPS} calls from q0 = 0 on "
+                          f"{elliptical.ess_sweep_gauss_pallas.last_backend}: {launches} K3 "
+                          f"launches, {gp_s:.3f} s (host clock); repeat of the last call equal; "
+                          f"|mean - closed form| / posterior sd: mean over dims "
+                          f"{float(z_mean.mean()):.4f} (limit 0.1), max {float(z_mean.max()):.4f}; "
+                          f"sd / closed form in [{float(sd_ratio.min()):.4f}, "
+                          f"{float(sd_ratio.max()):.4f}] (limit 10%)")
+    check(float(z_mean.mean()) < 0.1, f"GP means are {float(z_mean.mean()):.4f} posterior sd off")
+    check(bool((np.abs(sd_ratio - 1.0) <= 0.1).all()), "a GP sd is more than 10% off the closed form")
+
+    # ---- one more sweep by K3 (Philox) and by the twin (generator), in law
+    seed = SEED + GP_SWEEPS
+    kw = dict(n_steps=GP_STEPS, chol_prior=chol, y=y, prec=prec)
+    qk = elliptical.ess_sweep_gauss_pallas(q, seed, **kw)
+    t0 = time.perf_counter()
+    qt = elliptical.ess_sweep_gauss_pallas(q, seed, backend="torch", **kw)
+    torch.cuda.synchronize()
+    twin_s = time.perf_counter() - t0
+    check(elliptical.ess_sweep_gauss_pallas.last_backend == "torch", "the twin run did not take the twin")
+    se = torch.sqrt((qk.var(dim=1) + qt.var(dim=1)) / GP_CHAINS)
+    z = ((qk.mean(dim=1) - qt.mean(dim=1)) / se).abs()
+    sd_rel = (qk.std(dim=1) / qt.std(dim=1) - 1.0).abs()
+    phase("main path GP vs twin", f"one {GP_STEPS}-step sweep from K3's state: per-dim means within "
+                                  f"{float(z.max()):.3f} MC standard errors (limit 5), sds within "
+                                  f"{float(sd_rel.max()):.4f} (limit 0.05); twin sweep {twin_s:.3f} s")
+    check(bool((z < 5).all()), f"GP means differ from the twin by up to {float(z.max()):.2f} SE")
+    check(bool((sd_rel < 0.05).all()), f"GP sds differ from the twin by up to {float(sd_rel.max()):.4f}")
+
+    # ---- timings at the path's shape, from K3's state
+    y_d, prec_d, mean_d = (torch.as_tensor(v, dtype=torch.float32, device=device).reshape(GP_D, 1)
+                           for v in (y, np.full(GP_D, prec), np.zeros(GP_D)))
+    chol_d = torch.as_tensor(chol, device=device)
+    k3_kw = dict(n_steps=GP_STEPS, chol=chol_d, y=y_d, prec=prec_d, mean=mean_d)
+
+    def k3_sweep():
+        return elliptical.ess_gauss_sweep(q, seed, **k3_kw)
+
+    k3_reps = max(3, math.ceil(1.2 * K3_WINDOW_S * 1e3 / cuda_ms(k3_sweep, 20)))
+    k3_ms = cuda_ms(k3_sweep, k3_reps)
+    check(k3_ms * k3_reps >= K3_WINDOW_S * 1e3, f"K3 timing window {k3_ms * k3_reps:.0f} ms < 3 s")
+    plain_ms = cuda_ms(lambda: elliptical._reference_ess_gauss(q, seed, **k3_kw), K3_TWIN_TIMED_SWEEPS)
+    transitions = GP_CHAINS * GP_STEPS
+    gflop = 2.0 * GP_D * GP_D * GP_CHAINS * GP_STEPS / 1e9
+    phase("timing GP", f"{smi}: K3 {k3_ms:.4f} ms per {GP_STEPS}-step sweep (window "
+                       f"{k3_ms * k3_reps / 1e3:.2f} s, {k3_reps} sweeps) = "
+                       f"{transitions / k3_ms * 1e3:.6g} transitions/s, product "
+                       f"{gflop / k3_ms * 1e3:.6g} GFLOP/s ({gflop:.4g} GFLOP a sweep; "
+                       f"{gflop / k3_ms * 1e3 / 67e3:.4f} of the 67 TFLOP/s FP32 peak); plain twin "
+                       f"{plain_ms:.2f} ms per sweep ({K3_TWIN_TIMED_SWEEPS} sweeps) = "
+                       f"{transitions / plain_ms * 1e3:.6g} transitions/s ({GP_CHAINS} chains x "
+                       f"{GP_STEPS} steps, D={GP_D}, max_iters 24)")
+
+    # K3 without its shrink loop (max_iters 0) and on the counter stream; the
+    # same 50 products as a cuBLAS FP32 GEMM, for reference
+    no_shrink_ms = cuda_ms(lambda: elliptical.ess_gauss_sweep(q, seed, max_iters=0, **k3_kw), 200)
+    block_n = elliptical._default_block_n(GP_D, GP_CHAINS)
+    counter_ms = cuda_ms(
+        lambda: elliptical.ess_gauss_sweep(q, seed, rng="counter", block_n=block_n, **k3_kw), 200
+    )
+    z_gemm = torch.randn(GP_D, GP_CHAINS, device=device)
+    gemm_ms = cuda_ms(lambda: [chol_d @ z_gemm for _ in range(GP_STEPS)], 20)
+    phase("where the time goes", f"GP: {GP_SWEEPS} calls {gp_s * 1e3:.3f} ms (host clock) against "
+                                 f"{GP_SWEEPS} K3 sweeps {GP_SWEEPS * k3_ms:.3f} ms; K3 {k3_ms:.4f} "
+                                 f"ms per sweep, {no_shrink_ms:.4f} ms with max_iters 0 (no shrink "
+                                 f"loop), {counter_ms:.4f} ms on the counter stream; the sweep's "
+                                 f"{GP_STEPS} products alone as a cuBLAS FP32 GEMM {gemm_ms:.4f} ms")
+    return {
+        "name": "ess_gauss_sweep (K3)",
+        "route": "cuda",
+        "source": "genjax_tpu_torch/kernels/csrc/ess_gauss_sweep.cu",
+        "replaces": "genjax_tpu/kernels/elliptical.py:364",
+        "launches": launches,
+        "max_abs_err": k3_err,
+        "ms": k3_ms,
+        "plain_ms": plain_ms,
+    }
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this test needs a CUDA card",
@@ -174,7 +356,7 @@ def main() -> int:
                     f"CUDA {torch.version.cuda}, matmul tf32 off")
 
     import genjax_tpu_torch as g
-    from genjax_tpu_torch.kernels import _build, bodies, hmc, nuts, nuts_pallas
+    from genjax_tpu_torch.kernels import _build, bodies, elliptical, hmc, nuts, nuts_pallas
     from genjax_tpu_torch.kernels.model_interface import (
         ColumnPacker, column_hmc, column_logdensity, column_nuts, init_columns,
     )
@@ -186,17 +368,22 @@ def main() -> int:
         lib()
         return time.perf_counter() - t0
 
-    with ThreadPoolExecutor(2) as pool:
-        k1_load, k4_load = pool.map(timed_load, (hmc._lib, nuts_pallas._lib))
+    with ThreadPoolExecutor(3) as pool:
+        k1_load, k4_load, k3_load = pool.map(timed_load, (hmc._lib, nuts_pallas._lib, elliptical._lib))
     phase("build", f"K1 loaded from genjax_tpu_torch/kernels/csrc/hmc_sweep.cu "
                    f"in {k1_load:.2f} s (build included)")
     phase("build", f"K4 loaded from genjax_tpu_torch/kernels/csrc/nuts_sweep.cu "
                    f"in {k4_load:.2f} s (build included, in parallel with K1's)")
+    phase("build", f"K3 loaded from genjax_tpu_torch/kernels/csrc/ess_gauss_sweep.cu "
+                   f"in {k3_load:.2f} s (build included, in parallel with K1's and K4's)")
     k4_smem = nuts_pallas.smem_bytes(16, NUTS_DEPTH, nuts_pallas.DEFAULT_BLOCK, 16 * 8 + 16)
     phase("build", f"K4 dynamic shared memory at the flagship launch (D=16, depth {NUTS_DEPTH}, "
                    f"{nuts_pallas.DEFAULT_BLOCK} chains a block): {k4_smem} B of the card's "
                    f"{nuts_pallas._lib().nuts_smem_limit(0)} B per block")
-    for source in ("hmc_sweep", "nuts_sweep"):
+    phase("build", f"K3 dynamic shared memory at the GP launch (D={GP_D}, 64 chains a block): "
+                   f"{elliptical._lib().ess_gauss_smem_bytes(GP_D)} B of the card's "
+                   f"{elliptical._lib().ess_gauss_smem_limit(0)} B per block")
+    for source in ("hmc_sweep", "nuts_sweep", "ess_gauss_sweep"):
         for name, regs, stores, loads, smem in ptxas_kernels(_build.ptxas_report(source)):
             phase("build", f"{source}.cu {name}: {regs} registers, spill stores {stores} B, "
                            f"spill loads {loads} B, static smem {smem} B")
@@ -448,6 +635,9 @@ def main() -> int:
                                  f"({NUTS_WARMUP_PHASES} K4 sweeps and host reads of eps), "
                                  f"the main K4 sweep {k4_ms / 1e3:.4f} s")
 
+    # ---- the GP / elliptical-slice path (K3)
+    k3_entry = gp_path(device, smi, elliptical)
+
     print(json.dumps({"kernels": [{
         "name": "hmc_sweep (K1, with K2's counter PRNG as device functions)",
         "route": "cuda",
@@ -466,8 +656,9 @@ def main() -> int:
         "max_abs_err": k4_err,
         "ms": k4_ms,
         "plain_ms": nuts_plain_ms,
-    }]}), flush=True)
-    check(all(math.isfinite(v) for v in (ms, plain_ms, flagship_err, k4_ms, nuts_plain_ms, k4_err)),
+    }, k3_entry]}), flush=True)
+    check(all(math.isfinite(v) for v in (ms, plain_ms, flagship_err, k4_ms, nuts_plain_ms, k4_err,
+                                         k3_entry["max_abs_err"], k3_entry["ms"], k3_entry["plain_ms"])),
           "non-finite result")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -1,11 +1,12 @@
 """genjax_tpu_torch: the PyTorch/CUDA port of ``genjax_tpu``.
 
 The port imports torch, numpy and scipy, never JAX. Names follow the JAX
-package; randomness comes from explicit ``torch.Generator`` objects. This
-slice carries the flagship column-HMC path: the GFI with ``simulate``,
-``assess`` and ``generate``, ``@gen``, five distributions, the regression
-models and the column bridge to the fused HMC sweep, whose CUDA kernel is in
-``kernels/csrc/hmc_sweep.cu``.
+package; randomness comes from explicit ``torch.Generator`` objects. It
+carries the GFI with ``simulate``, ``assess`` and ``generate``, ``@gen``,
+six distributions, the regression and GP models, and the column samplers
+whose sweeps are CUDA kernels in ``kernels/csrc``: HMC (``hmc_sweep.cu``),
+NUTS (``nuts_sweep.cu``) and Gaussian elliptical slice sampling
+(``ess_gauss_sweep.cu``).
 """
 
 from .core import (
@@ -24,6 +25,7 @@ from .dists import (
     exact_density,
     flip,
     log_normal,
+    mv_normal,
     mv_normal_diag,
     normal,
 )
@@ -62,6 +64,7 @@ __all__ = [
     "flip",
     "gen",
     "log_normal",
+    "mv_normal",
     "mv_normal_diag",
     "normal",
 ]

@@ -1,6 +1,6 @@
 """Distributions: the ``Distribution`` GFI and a catalog subset."""
 
-from .catalog import beta, flip, log_normal, mv_normal_diag, normal
+from .catalog import beta, flip, log_normal, mv_normal, mv_normal_diag, normal
 from .distribution import (
     Distribution,
     DistributionTrace,
@@ -18,6 +18,7 @@ __all__ = [
     "exact_density",
     "flip",
     "log_normal",
+    "mv_normal",
     "mv_normal_diag",
     "normal",
 ]

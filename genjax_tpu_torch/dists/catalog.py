@@ -1,14 +1,14 @@
 """The distributions of the flagship model and the README quickstart.
 
 Counterpart of part of ``genjax_tpu/dists/catalog.py``: ``normal``,
-``log_normal``, ``mv_normal_diag``, ``beta`` and ``flip``, with the same
-names, TFP parameter orders and log-density formulas (the normal density is
-``-(log(2 pi s^2) + (x - m)^2 / s^2) / 2``, as ``jax.scipy.stats.norm``
-computes it). Log-densities are elementwise over batch dimensions;
-``mv_normal_diag`` reduces over the event axis. Arguments that are not
-tensors are made float32 tensors on the device of the tensor arguments
-(a CUDA device wins over the CPU); samples are drawn on the generator's
-device.
+``log_normal``, ``mv_normal_diag``, ``mv_normal``, ``beta`` and ``flip``,
+with the same names, TFP parameter orders and log-density formulas (the
+normal density is ``-(log(2 pi s^2) + (x - m)^2 / s^2) / 2``, as
+``jax.scipy.stats.norm`` computes it). Log-densities are elementwise over
+batch dimensions; ``mv_normal_diag`` and ``mv_normal`` reduce over the event
+axis. Arguments that are not tensors are made float32 tensors on the device
+of the tensor arguments (a CUDA device wins over the CPU); samples are drawn
+on the generator's device.
 """
 
 from __future__ import annotations
@@ -66,6 +66,27 @@ def _mv_normal_diag_logpdf(v, loc, scale_diag):
     return torch.sum(_normal_logpdf(v, loc, scale_diag), dim=-1)
 
 
+def _mv_normal_logpdf(v, loc, covariance_matrix):
+    """``jax.scipy.stats.multivariate_normal.logpdf``: one Cholesky factor
+    gives the quadratic form (a triangular solve) and the log-determinant
+    (its diagonal)."""
+    v, loc, cov = _tensors(v, loc, covariance_matrix)
+    chol = torch.linalg.cholesky(cov)
+    z = torch.linalg.solve_triangular(chol, (v - loc).unsqueeze(-1), upper=False).squeeze(-1)
+    n = cov.shape[-1]
+    log_det = torch.sum(torch.log(torch.diagonal(chol, dim1=-2, dim2=-1)), dim=-1)
+    return -0.5 * torch.sum(z * z, dim=-1) - 0.5 * n * _LOG_2PI - log_det
+
+
+def _mv_normal_sample(gen, loc, covariance_matrix):
+    """``loc + L z`` with ``L`` the lower Cholesky factor and ``z ~ N(0, I)``."""
+    loc, cov = _tensors(loc, covariance_matrix, device=gen.device)
+    chol = torch.linalg.cholesky(cov)
+    shape = torch.broadcast_shapes(loc.shape, cov.shape[:-1])
+    z = torch.randn(shape, generator=gen, device=gen.device)
+    return loc + (chol @ z.unsqueeze(-1)).squeeze(-1)
+
+
 def _betaln(a, b):
     """log B(a, b), summed in the reference's order for max(a, b) < 8 and
     in float64 above, where the float32 sum cancels."""
@@ -113,8 +134,10 @@ log_normal = exact_density(
 
 mv_normal_diag = exact_density(_normal_sample, _mv_normal_diag_logpdf, "mv_normal_diag")
 
+mv_normal = exact_density(_mv_normal_sample, _mv_normal_logpdf, "mv_normal")
+
 beta = exact_density(_beta_sample, _beta_logpdf, "beta")
 
 flip = exact_density(_flip_sample, _flip_logpdf, "flip")
 
-__all__ = ["beta", "flip", "log_normal", "mv_normal_diag", "normal"]
+__all__ = ["beta", "flip", "log_normal", "mv_normal", "mv_normal_diag", "normal"]

@@ -1,11 +1,12 @@
 // Device code shared by the column-layout sweep kernels: the HMC sweep (K1,
-// hmc_sweep.cu) and the NUTS sweep (K4, nuts_sweep.cu).
+// hmc_sweep.cu), the NUTS sweep (K4, nuts_sweep.cu) and the Gaussian
+// elliptical-slice sweep (K3, ess_gauss_sweep.cu).
 //
 // - K2, the counter stream: the bit-exact port of the reference's in-kernel
 //   software PRNG (genjax_tpu/kernels/hmc.py: _sw_rand_bits_factory,
-//   _uniform_01, _normal);
+//   _uniform_01, _normal); all three kernels use it;
 // - the device bodies: a column log-density and its gradient, written by hand
-//   (CUDA has no autodiff) and chosen by a template parameter.
+//   (CUDA has no autodiff) and chosen by a template parameter (K1, K4).
 //
 // No fast-math in any kernel that includes this: rejection relies on NaN and
 // -inf comparing false, and Box-Muller needs accurate logf/cosf.

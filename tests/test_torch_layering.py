@@ -94,7 +94,8 @@ def _graph():
 def test_imports_without_jax():
     code = (
         "import sys, genjax_tpu_torch, genjax_tpu_torch.kernels, "
-        "genjax_tpu_torch.models, genjax_tpu_torch.interop; "
+        "genjax_tpu_torch.kernels.elliptical, genjax_tpu_torch.models, "
+        "genjax_tpu_torch.models.gp, genjax_tpu_torch.interop; "
         "print(sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'genjax_tpu' or m.startswith('genjax_tpu.')))"
     )
@@ -112,6 +113,16 @@ def test_no_jax_import_anywhere():
             if target.split(".")[0] in ("jax", "jaxlib", "genjax_tpu"):
                 bad.append(f"{os.path.relpath(path, REPO)} imports {target}")
     assert not bad, "\n".join(bad)
+
+
+def test_gp_and_elliptical_modules_are_layered():
+    """The GP model sits at layer 4 and reaches no kernel module; the
+    elliptical sampler sits at layer 5, above it."""
+    mods, edges = _graph()
+    for mod in (f"{PKG}.models.gp", f"{PKG}.kernels.elliptical", f"{PKG}.dists.catalog"):
+        assert mod in mods, mod
+    assert not [t for t in edges[f"{PKG}.models.gp"] if _subpackage(t) == "kernels"]
+    assert f"{PKG}.kernels.hmc" in edges[f"{PKG}.kernels.elliptical"]
 
 
 def test_layer_direction():
