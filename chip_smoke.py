@@ -6,17 +6,20 @@ Run from the root of a checkout on a machine with a CUDA card:
 
 It builds the port's CUDA kernels from ``genjax_tpu_torch/kernels/csrc``
 (the HMC sweep K1 with its PRNG K2, the NUTS sweep K4 and the Gaussian
-elliptical-slice sweep K3, one nvcc each, in parallel), holds each kernel
-against its plain torch version on the card, and drives two workloads
-through the public entry points: the flagship (hierarchical regression,
-65,536 chains) with ``column_hmc``, ``column_hmc(warmup=True)`` and the
-adapted ``column_nuts(warmup=True)``; and exact sampling of GP latents
-(D = 256, 8,192 chains, ``bench.py::bench_gp``'s setup) with
-``ess_sweep_gauss_pallas``, held against the closed-form posterior. It
-checks that each path launched its kernel and agrees in law with the plain
-twin, times both, and prints one JSON line of kernel results and a last
-JSON line naming the device. Any failed check exits non-zero; so does a
-machine without CUDA.
+elliptical-slice sweep K3, one nvcc each, in parallel), reports each
+kernel's registers, spills and resident blocks an SM, holds each kernel
+against its plain torch version on the card (the flagship's body shape and
+a generic one), and drives two workloads through the public entry points:
+the flagship (hierarchical regression, 65,536 chains) with ``column_hmc``,
+``column_hmc(warmup=True)`` and the adapted ``column_nuts(warmup=True)``;
+and exact sampling of GP latents (D = 256, 8,192 chains,
+``bench.py::bench_gp``'s setup) with ``ess_sweep_gauss_pallas``, held
+against the closed-form posterior. It checks that each path launched its
+kernel in the body variant it should, and agrees in law with the plain twin;
+it times the kernels and the twins, computes each kernel's bound from the
+work this run's inputs need, and prints one JSON line of kernel results and a
+last JSON line naming the device. Any failed check exits non-zero; so does a machine
+without CUDA.
 """
 
 from __future__ import annotations
@@ -38,7 +41,7 @@ EPS = 0.02
 L = 5
 SEED = 0
 BLOCK_N = 128  # chain block of the counter stream, as in the reference's tests
-K1_TIMED_SWEEPS = 2000
+K1_TIMED_SWEEPS = 2000  # a window of about a second at 0.5 ms a sweep
 TWIN_TIMED_SWEEPS = 5
 HMC_WARMUP_PHASES = 6  # warmup_column's default
 
@@ -57,6 +60,10 @@ GP_SWEEPS = 40  # 2,000 transitions from q0 = 0 reach the posterior
 GP_NOISE = 0.3
 K3_WINDOW_S = 3.0
 K3_TWIN_TIMED_SWEEPS = 2
+
+# the H100 SXM's published peaks: FP32 outside the tensor cores, and HBM3
+FP32_FLOPS = 67e12
+HBM_BYTES_S = 3.35e12
 
 
 class SmokeFailure(RuntimeError):
@@ -110,6 +117,53 @@ def numpy_q0(d: int, n: int, seed: int, tau_row: bool) -> np.ndarray:
     return q0
 
 
+def hier_grad_flop(n_obs: int, d_w: int, d: int) -> int:
+    """FP32 FLOP of one ``hier_regression`` gradient (an FMA is 2): per
+    observation the residual and the gradient terms (2 d_w FMAs), r^2 and
+    r / s^2; the weights' prior (3 a weight); the padding (3 a dimension);
+    about 20 for tau's scalars. Logs, divisions' refinement and the PRNG are
+    not counted, so the bound is low."""
+    return n_obs * (4 * d_w + 3) + 3 * d_w + 3 * (d - 1 - d_w) + 20
+
+
+def bound(flop: float, nbytes: float) -> tuple[float, str]:
+    """The least time in ms the card could take: the larger of the FLOP
+    over the FP32 peak and the bytes over the HBM rate, and which bounds."""
+    t_ops, t_bytes = flop / FP32_FLOPS, nbytes / HBM_BYTES_S
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def k1_bound(n: int, d: int, n_steps: int, leapfrogs: int, grad_flop: int, n_consts: int):
+    """K1's bound: ``n_steps * L + 1`` gradients a chain, a leapfrog's
+    three FMAs a dimension, two kinetic energies and the momentum scale a
+    step; q read and written once, the accepts written, the constants and
+    inverse mass read."""
+    flop = n * ((n_steps * leapfrogs + 1) * grad_flop + n_steps * leapfrogs * 6 * d + n_steps * 7 * d)
+    return bound(flop, 4 * (2 * d * n + n + d + n_consts))
+
+
+def k4_bound(n: int, d: int, n_steps: int, leaps_total: float, grad_flop: int, n_consts: int):
+    """K4's bound from the leapfrogs this run's chains took (``leaps``,
+    summed over chains): a gradient, the leapfrog's three FMAs and the
+    kinetic energy a leaf, and a gradient and a kinetic energy a transition;
+    the U-turn checks are not counted. q read and written once, accepts and
+    leaps written."""
+    flop = leaps_total * (grad_flop + 9 * d) + n * n_steps * (grad_flop + 4 * d)
+    return bound(flop, 4 * (2 * d * n + 2 * n + d + n_consts))
+
+
+def k3_bound(chol: torch.Tensor, n: int, n_steps: int):
+    """K3's bound: the product ``chol @ z`` a chain and step, D (D + 1) FLOP
+    where ``chol`` is lower-triangular (checked: a Cholesky factor is, and
+    its zero upper triangle needs no work), else 2 D^2; and about 15 D for
+    the five coefficient sums and the update; the shrink and the draws are
+    not counted. q read and written once, chol, y, prec and mean read."""
+    d = chol.shape[0]
+    product = d * (d + 1) if bool((chol.triu(1) == 0).all()) else 2 * d * d
+    flop = n * n_steps * (product + 15 * d)
+    return bound(flop, 4 * (2 * d * n + d * d + 3 * d))
+
+
 def cuda_ms(fn, reps: int) -> float:
     """Mean wall time of ``fn`` on the card in ms, by CUDA events, after one
     warm-up call."""
@@ -130,10 +184,11 @@ def ptxas_kernels(report: str):
     out = []
     for chunk in report.split("Compiling entry function '")[1:]:
         mangled = chunk.split("'", 1)[0]
-        m = re.search(r"([a-z][a-z_]*_kernel)(?:ILi(\d+)ELi(\d+)E)?", mangled)
+        m = re.search(r"([a-z][a-z_]*_kernel)", mangled)
         name = m.group(1) if m else mangled
-        if m and m.group(2):
-            name += f"<D={m.group(2)},body={m.group(3)}>"
+        targs = re.search(r"_kernelI((?:Li\d+E)+)E", mangled)
+        if targs:
+            name += "<" + ",".join(re.findall(r"Li(\d+)E", targs.group(1))) + ">"
         regs = re.search(r"Used (\d+) registers", chunk)
         spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", chunk)
         smem = re.search(r"(\d+) bytes smem", chunk)
@@ -168,10 +223,20 @@ def compare_nuts_counter(density, body, q0_np, seed, eps, depth, device, nuts, n
     )
 
 
+def generic_body(bodies):
+    """A hier_regression body at a shape with no specialised kernel:
+    ``(n_obs, d_w) = (5, 3)``, packed in D = 8."""
+    rng = np.random.default_rng(53)
+    return bodies.hier_regression(
+        rng.normal(size=(5, 3)).astype(np.float32), rng.normal(size=5).astype(np.float32), 0.25
+    )
+
+
 def compare_counter(ld, body, q0_np, seed, eps, device, hmc):
     """The kernel and the plain twin on the counter stream from one ``q0``:
     ``(fraction within 1e-4, flipped chains, max abs err over agreeing
-    chains, kernel accept rate, twin accept rate)``."""
+    chains, kernel accept rate, twin accept rate)``. The variant the kernel
+    took is on ``hmc.hmc_sweep.last_variant``."""
     q0 = torch.from_numpy(q0_np).to(device)
     qk, acc_k = hmc.hmc_sweep(
         body, q0, seed, n_steps=5, eps=eps, L=L, rng="counter", block_n=BLOCK_N
@@ -327,6 +392,10 @@ def gp_path(device, smi: str, elliptical) -> dict:
                                  f"ms per sweep, {no_shrink_ms:.4f} ms with max_iters 0 (no shrink "
                                  f"loop), {counter_ms:.4f} ms on the counter stream; the sweep's "
                                  f"{GP_STEPS} products alone as a cuBLAS FP32 GEMM {gemm_ms:.4f} ms")
+    bound_ms, bound_by = k3_bound(chol_d, GP_CHAINS, GP_STEPS)
+    phase("bound GP", f"K3 at D={GP_D} x {GP_CHAINS} chains x {GP_STEPS} steps, chol "
+                      f"lower-triangular: bound {bound_ms:.4f} ms ({bound_by}), K3 at "
+                      f"{bound_ms / k3_ms:.4f} of it")
     return {
         "name": "ess_gauss_sweep (K3)",
         "route": "cuda",
@@ -336,6 +405,9 @@ def gp_path(device, smi: str, elliptical) -> dict:
         "max_abs_err": k3_err,
         "ms": k3_ms,
         "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": None,  # no single PyTorch call computes the sweep
     }
 
 
@@ -356,7 +428,7 @@ def main() -> int:
                     f"CUDA {torch.version.cuda}, matmul tf32 off")
 
     import genjax_tpu_torch as g
-    from genjax_tpu_torch.kernels import _build, bodies, elliptical, hmc, nuts, nuts_pallas
+    from genjax_tpu_torch.kernels import _build, adaptation, bodies, elliptical, hmc, nuts, nuts_pallas
     from genjax_tpu_torch.kernels.model_interface import (
         ColumnPacker, column_hmc, column_logdensity, column_nuts, init_columns,
     )
@@ -376,10 +448,22 @@ def main() -> int:
                    f"in {k4_load:.2f} s (build included, in parallel with K1's)")
     phase("build", f"K3 loaded from genjax_tpu_torch/kernels/csrc/ess_gauss_sweep.cu "
                    f"in {k3_load:.2f} s (build included, in parallel with K1's and K4's)")
-    k4_smem = nuts_pallas.smem_bytes(16, NUTS_DEPTH, nuts_pallas.DEFAULT_BLOCK, 16 * 8 + 16)
-    phase("build", f"K4 dynamic shared memory at the flagship launch (D=16, depth {NUTS_DEPTH}, "
-                   f"{nuts_pallas.DEFAULT_BLOCK} chains a block): {k4_smem} B of the card's "
-                   f"{nuts_pallas._lib().nuts_smem_limit(0)} B per block")
+    X, y = flagship_data()
+    flag_body = bodies.hier_regression(X, y, 0.25)
+    gen_body = generic_body(bodies)
+    for body, d in [(flag_body, 16), (gen_body, 8)]:
+        spec = int(body.variant(d) == "specialised")
+        k1_smem = hmc.smem_bytes(body, d)
+        c_smem = hmc._lib().hmc_smem_bytes(d, body.kind, spec, body.n_obs, body.d_w)
+        check(k1_smem == c_smem, f"K1 shared memory: the wrapper says {k1_smem} B, the kernel {c_smem} B")
+        k4_smem = nuts_pallas.smem_bytes(body, d, NUTS_DEPTH, nuts_pallas.DEFAULT_BLOCK)
+        c_smem = nuts_pallas._lib().nuts_smem_bytes(d, body.kind, spec, body.n_obs, body.d_w,
+                                                    NUTS_DEPTH, nuts_pallas.DEFAULT_BLOCK)
+        check(k4_smem == c_smem, f"K4 shared memory: the wrapper says {k4_smem} B, the kernel {c_smem} B")
+        phase("build", f"dynamic shared memory, {body.name} ({body.n_obs}, {body.d_w}) "
+                       f"{body.variant(d)}, D={d}: K1 {k1_smem} B a block; K4 {k4_smem} B a block "
+                       f"(depth {NUTS_DEPTH}, {nuts_pallas.DEFAULT_BLOCK} chains) of the card's "
+                       f"{nuts_pallas._lib().nuts_smem_limit(0)} B")
     phase("build", f"K3 dynamic shared memory at the GP launch (D={GP_D}, 64 chains a block): "
                    f"{elliptical._lib().ess_gauss_smem_bytes(GP_D)} B of the card's "
                    f"{elliptical._lib().ess_gauss_smem_limit(0)} B per block")
@@ -387,6 +471,24 @@ def main() -> int:
         for name, regs, stores, loads, smem in ptxas_kernels(_build.ptxas_report(source)):
             phase("build", f"{source}.cu {name}: {regs} registers, spill stores {stores} B, "
                            f"spill loads {loads} B, static smem {smem} B")
+
+    # ---- registers, spills and resident blocks an SM, from the CUDA runtime
+    n_sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for body, d in [(flag_body, 16), (gen_body, 8)]:
+        info = hmc.kernel_info(body, d)
+        blocks = -(-N_CHAINS // hmc.THREADS)
+        phase("occupancy", f"K1 {body.name} ({body.n_obs}, {body.d_w}) {body.variant(d)}, D={d}, "
+                           f"{hmc.THREADS} threads a block: {info['registers']} registers, "
+                           f"{info['local_bytes']} B local a thread, {info['blocks_per_sm']} "
+                           f"blocks an SM ({info['blocks_per_sm'] * hmc.THREADS // 32} warps); "
+                           f"{N_CHAINS} chains make {blocks} blocks = "
+                           f"{blocks / (n_sms * info['blocks_per_sm']):.3f} waves on {n_sms} SMs")
+    for block in (nuts_pallas.DEFAULT_BLOCK, BLOCK_N):
+        info = nuts_pallas.kernel_info(flag_body, 16, NUTS_DEPTH, block)
+        phase("occupancy", f"K4 hier_regression (16, 8) specialised, D=16, {block} chains a "
+                           f"block, depth {NUTS_DEPTH}: {info['registers']} registers, "
+                           f"{info['local_bytes']} B local a thread, {info['blocks_per_sm']} "
+                           f"blocks an SM ({info['blocks_per_sm'] * block // 32} warps)")
 
     # ---- K2 on the card: bit for bit against the plain counter stream
     worst_rel = 0.0
@@ -408,7 +510,6 @@ def main() -> int:
                 f"normals max rel err {worst_rel:.3g}")
 
     # ---- K1 against its plain version on the counter stream
-    X, y = flagship_data()
     model = hierarchical_regression(X)
     obs = g.C["y"].set(y)
     packer = ColumnPacker(model, obs, (), ["tau", "w"])
@@ -416,16 +517,19 @@ def main() -> int:
     check(ld.body is not None and ld.body.name == "hier_regression", "flagship density has no body")
     iid = bodies.iid_normal()
     cases = [
-        ("iid_normal", iid, iid, numpy_q0(8, 4096, 11, False), 0.2),
-        ("hier_regression", ld, ld.body, numpy_q0(16, 4096, 12, True), EPS),
-        ("hier_regression", ld, ld.body, numpy_q0(16, N_CHAINS, 13, True), EPS),
+        ("iid_normal", iid, iid, numpy_q0(8, 4096, 11, False), 0.2, "specialised"),
+        ("hier_regression", ld, ld.body, numpy_q0(16, 4096, 12, True), EPS, "specialised"),
+        ("hier_regression", ld, ld.body, numpy_q0(16, N_CHAINS, 13, True), EPS, "specialised"),
+        ("hier_regression (5, 3)", gen_body, gen_body, numpy_q0(8, 4096, 14, True), EPS, "generic"),
     ]
     flagship_err = None
-    for name, density, body, q0_np, eps in cases:
+    for name, density, body, q0_np, eps, variant in cases:
         frac, flipped, err, rate_k, rate_t = compare_counter(density, body, q0_np, 7, eps, device, hmc)
-        phase("K1 vs plain", f"{name} {q0_np.shape}: {frac:.5f} of chains within 1e-4 "
-                             f"({flipped} flipped MH decisions), max abs err {err:.3g} on the "
-                             f"rest; accept {rate_k:.5f} vs {rate_t:.5f}")
+        phase("K1 vs plain", f"{name} {q0_np.shape}, {hmc.hmc_sweep.last_variant} variant: "
+                             f"{frac:.5f} of chains within 1e-4 ({flipped} flipped MH "
+                             f"decisions), max abs err {err:.3g} on the rest; accept "
+                             f"{rate_k:.5f} vs {rate_t:.5f}")
+        check(hmc.hmc_sweep.last_variant == variant, f"{name}: K1 took {hmc.hmc_sweep.last_variant}")
         check(frac >= 0.995, f"{name}: only {frac:.4f} of chains agree within 1e-4")
         check(abs(rate_k - rate_t) <= 0.005, f"{name}: accept rates {rate_k} vs {rate_t}")
         if q0_np.shape[1] == N_CHAINS:
@@ -443,11 +547,14 @@ def main() -> int:
     launches = hmc.hmc_sweep_launches
     check(launches > 0, "the main path launched the sweep kernel no time")
     check(hmc.pallas_hmc.last_backend == "cuda", f"main path took {hmc.pallas_hmc.last_backend}")
+    check(hmc.hmc_sweep.last_variant == "specialised",
+          f"the flagship took K1's {hmc.hmc_sweep.last_variant} variant")
     check(tuple(q.shape) == (16, N_CHAINS), f"positions have shape {tuple(q.shape)}")
     check(bool(torch.isfinite(q).all()), "main-path positions are not finite")
     phase("main path", f"column_hmc flagship {N_CHAINS} chains x {N_STEPS} steps on "
-                       f"{hmc.pallas_hmc.last_backend}: {launches} kernel launch(es), accept "
-                       f"{float(accept):.4f}, {main_s:.2f} s including init")
+                       f"{hmc.pallas_hmc.last_backend}, K1's {hmc.hmc_sweep.last_variant} "
+                       f"variant: {launches} kernel launch(es), accept {float(accept):.4f}, "
+                       f"{main_s:.2f} s including init")
 
     q0 = init_columns(model, obs, (), packer, N_CHAINS, SEED, device)
     q_twin, accept_twin = hmc.pallas_hmc(
@@ -477,6 +584,7 @@ def main() -> int:
     check(warm_launches == HMC_WARMUP_PHASES + 1,
           f"column_hmc(warmup=True) made {warm_launches} K1 launches, not {HMC_WARMUP_PHASES + 1}")
     check(hmc.pallas_hmc.last_backend == "cuda", "the HMC warmup path left the card")
+    check(hmc.hmc_sweep.last_variant == "specialised", "the HMC warmup left the specialised variant")
     check(bool(torch.isfinite(q_w).all()), "warmed-up HMC positions are not finite")
     phase("main path HMC warmup", f"column_hmc(warmup=True) flagship: {warm_launches} K1 "
                                   f"launches ({HMC_WARMUP_PHASES} phases + 1), accept "
@@ -487,17 +595,21 @@ def main() -> int:
         ("iid_normal", iid, iid, numpy_q0(8, 4096, 21, False), 0.4),
         ("hier_regression", ld, ld.body, numpy_q0(16, 4096, 22, True), 0.05),
         ("hier_regression", ld, ld.body, numpy_q0(16, N_CHAINS, 23, True), 0.05),
+        ("hier_regression (5, 3)", gen_body, gen_body, numpy_q0(8, 4096, 24, True), 0.05),
     ]
     k4_err = None
     for name, density, body, q0_np, eps in k4_cases:
         frac, n_chains_diff, n_blocks_diff, err, (acc_k, lf_k), (acc_t, lf_t) = (
             compare_nuts_counter(density, body, q0_np, 7, eps, 6, device, nuts, nuts_pallas)
         )
-        phase("K4 vs plain", f"{name} {q0_np.shape}, eps {eps}, depth 6, 3 transitions: "
+        phase("K4 vs plain", f"{name} {q0_np.shape}, {nuts_pallas.nuts_sweep.last_variant} "
+                             f"variant, eps {eps}, depth 6, 3 transitions: "
                              f"{frac:.5f} of chains within 1e-4 ({n_chains_diff} chains in "
                              f"{n_blocks_diff} of {q0_np.shape[1] // BLOCK_N} blocks differ), max "
                              f"abs err {err:.3g} on the rest; accept {acc_k:.5f} vs {acc_t:.5f}; "
                              f"leapfrogs {lf_k:.4f} vs {lf_t:.4f}")
+        check(nuts_pallas.nuts_sweep.last_variant == body.variant(q0_np.shape[0]),
+              f"{name}: K4 took {nuts_pallas.nuts_sweep.last_variant}")
         check(frac >= 0.99, f"{name}: only {frac:.4f} of chains agree within 1e-4")
         check(abs(acc_k - acc_t) <= 0.005, f"{name}: accept statistics {acc_k} vs {acc_t}")
         check(abs(lf_k - lf_t) <= 0.01 * lf_t, f"{name}: mean leapfrogs {lf_k} vs {lf_t}")
@@ -520,6 +632,8 @@ def main() -> int:
     check(hmc.hmc_sweep_launches == 0, "the NUTS path launched K1")
     check(nuts_pallas.pallas_nuts.last_backend == "cuda",
           f"the NUTS path took {nuts_pallas.pallas_nuts.last_backend}")
+    check(nuts_pallas.nuts_sweep.last_variant == "specialised",
+          f"the flagship took K4's {nuts_pallas.nuts_sweep.last_variant} variant")
     check(tuple(q_n.shape) == (16, N_CHAINS), f"NUTS positions have shape {tuple(q_n.shape)}")
     check(bool(torch.isfinite(q_n).all()), "NUTS positions are not finite")
 
@@ -537,8 +651,10 @@ def main() -> int:
     check(torch.equal(q_again, q_n), "K4 is not deterministic: the main path did not repeat")
     phase("main path NUTS", f"column_nuts(warmup=True) flagship {N_CHAINS} chains x "
                             f"{NUTS_STEPS} steps, depth {NUTS_DEPTH}, on "
-                            f"{nuts_pallas.pallas_nuts.last_backend}: {k4_launches} K4 launches "
-                            f"({NUTS_WARMUP_PHASES} warmup phases + 1), adapted eps {eps_n:.6g}, "
+                            f"{nuts_pallas.pallas_nuts.last_backend}, K4's "
+                            f"{nuts_pallas.nuts_sweep.last_variant} variant, "
+                            f"{nuts_pallas.DEFAULT_BLOCK} chains a block: {k4_launches} K4 "
+                            f"launches ({NUTS_WARMUP_PHASES} warmup phases + 1), adapted eps {eps_n:.6g}, "
                             f"accept {float(acc_n):.4f}, mean leapfrogs {float(leaps_n):.4f}, "
                             f"{nuts_s:.2f} s including init and warmup; repeat equal")
 
@@ -563,19 +679,26 @@ def main() -> int:
                                     f"{float(z_n[1:].max()):.2f} SE (limit 4); twin sweep "
                                     f"{twin_nuts_s:.2f} s")
 
-    # ---- timings at the main path's shape
-    # windows of a few seconds each: 2000 K1 sweeps, 5 twin sweeps
-    ms = cuda_ms(lambda: hmc.hmc_sweep(ld.body, q0, SEED, n_steps=N_STEPS, eps=EPS, L=L),
-                 K1_TIMED_SWEEPS)
+    # ---- timings at the main path's shape: K1 over two windows of about a
+    # second; 5 twin sweeps
+    grad_flop = hier_grad_flop(16, 8, 16)
+    k1_times = [
+        cuda_ms(lambda: hmc.hmc_sweep(ld.body, q0, SEED, n_steps=N_STEPS, eps=EPS, L=L), K1_TIMED_SWEEPS)
+        for _ in range(2)
+    ]
+    ms = sum(k1_times) / 2
     plain_ms = cuda_ms(
         lambda: hmc._reference_hmc(ld, q0, SEED, n_steps=N_STEPS, eps=EPS, L=L), TWIN_TIMED_SWEEPS
     )
+    k1_bound_ms, k1_bound_by = k1_bound(N_CHAINS, 16, N_STEPS, L, grad_flop, 144)
     samples = N_CHAINS * N_STEPS
-    phase("timing", f"{smi}: K1 {ms:.4f} ms/sweep = {samples / ms * 1e3:.6g} samples/s "
-                    f"(window {ms * K1_TIMED_SWEEPS / 1e3:.2f} s); plain twin {plain_ms:.2f} "
-                    f"ms/sweep = {samples / plain_ms * 1e3:.6g} samples/s (window "
-                    f"{plain_ms * TWIN_TIMED_SWEEPS / 1e3:.2f} s) ({N_CHAINS} chains x "
-                    f"{N_STEPS} steps, L={L})")
+    phase("timing", f"{smi}: K1 {ms:.4f} ms/sweep = {samples / ms * 1e3:.6g} samples/s (two "
+                    f"windows of {K1_TIMED_SWEEPS} sweeps: {k1_times[0]:.4f} and {k1_times[1]:.4f} "
+                    f"ms); plain twin {plain_ms:.2f} ms/sweep = {samples / plain_ms * 1e3:.6g} "
+                    f"samples/s (window {plain_ms * TWIN_TIMED_SWEEPS / 1e3:.2f} s) ({N_CHAINS} "
+                    f"chains x {N_STEPS} steps, L={L}); bound {k1_bound_ms:.4f} ms "
+                    f"({k1_bound_by}: {grad_flop} FLOP a gradient), K1 at "
+                    f"{k1_bound_ms / ms:.4f} of it")
 
     def wall_ms(fn, reps=3):
         times = []
@@ -596,14 +719,53 @@ def main() -> int:
                                  f"(packer, density closure, routing) "
                                  f"{call_ms - init_ms - ms:.3f} ms")
 
-    # ---- NUTS timings from the warmed-up state: K4 over >= 3 s, the twin over 1 sweep
-    def k4_sweep():
-        return nuts_pallas.nuts_sweep(ld.body, q_wn, SEED, n_steps=NUTS_STEPS, eps=eps_n,
-                                      max_depth=NUTS_DEPTH, inv_mass=im_n)
+    # ---- each NUTS warmup phase's K4 time and leapfrogs: warmup_column_nuts's
+    # loop again with CUDA events around each sweep, which must repeat it
+    warm = []
 
-    k4_reps = max(3, math.ceil(1.2 * K4_WINDOW_S * 1e3 / cuda_ms(k4_sweep, 20)))
-    k4_ms = cuda_ms(k4_sweep, k4_reps)
-    check(k4_ms * k4_reps >= K4_WINDOW_S * 1e3, f"K4 timing window {k4_ms * k4_reps:.0f} ms < 3 s")
+    def timed_phase(q, idx, eps, inv_mass):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        q, acc, leaps = nuts_pallas.nuts_sweep(
+            ld.body, q, (SEED + 1) * 1_000_003 + idx, n_steps=NUTS_STEPS, eps=eps,
+            max_depth=NUTS_DEPTH, inv_mass=inv_mass,
+        )
+        end.record()
+        warm.append((start, end, leaps, eps))
+        return q, acc.mean() / NUTS_STEPS
+
+    q_wp, eps_wp, _, _ = adaptation.windowed_warmup(
+        timed_phase, q0_n, n_windows=NUTS_WARMUP_PHASES, eps0=NUTS_EPS0
+    )
+    torch.cuda.synchronize()
+    check(torch.equal(q_wp, q_wn) and float(eps_wp) == eps_n,
+          "the timed warmup did not repeat warmup_column_nuts")
+    warm_ms = warm_bound_ms = 0.0
+    for idx, (start, end, leaps, eps) in enumerate(warm):
+        t = start.elapsed_time(end)
+        b, by = k4_bound(N_CHAINS, 16, NUTS_STEPS, float(leaps.sum()), grad_flop, 144)
+        warm_ms, warm_bound_ms = warm_ms + t, warm_bound_ms + b
+        phase("NUTS warmup phases", f"phase {idx}: eps {eps:.6g}, mean leapfrogs a transition "
+                                    f"{float(leaps.mean()) / NUTS_STEPS:.4f}, K4 {t:.4f} ms, bound "
+                                    f"{b:.4f} ms ({by}), K4 at {b / t:.4f} of it")
+    phase("NUTS warmup phases", f"{smi}: the {NUTS_WARMUP_PHASES} warmup sweeps take {warm_ms:.4f} "
+                                f"ms of K4 against a bound of {warm_bound_ms:.4f} ms; the timed "
+                                f"warmup repeats warmup_column_nuts exactly")
+
+    # ---- NUTS timings from the warmed-up state: K4 over two windows of
+    # >= 1.5 s; the twin over 1 sweep
+    def k4_sweep():
+        return nuts_pallas.nuts_sweep(
+            ld.body, q_wn, SEED, n_steps=NUTS_STEPS, eps=eps_n, max_depth=NUTS_DEPTH, inv_mass=im_n,
+        )
+
+    k4_reps = max(3, math.ceil(1.2 * K4_WINDOW_S / 2 * 1e3 / cuda_ms(k4_sweep, 5)))
+    k4_times = [cuda_ms(k4_sweep, k4_reps) for _ in range(2)]
+    k4_ms = sum(k4_times) / 2
+    check(k4_ms * 2 * k4_reps >= K4_WINDOW_S * 1e3, f"K4 timing window {k4_ms * 2 * k4_reps:.0f} ms < 3 s")
+    _, _, leaps = k4_sweep()
+    k4_bound_ms, k4_bound_by = k4_bound(N_CHAINS, 16, NUTS_STEPS, float(leaps.sum()), grad_flop, 144)
+
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
     nuts.nuts_sweep_cols(ld, q_wn, SEED, **sweep_kw)  # the vs-twin run was its warm-up
@@ -611,28 +773,32 @@ def main() -> int:
     torch.cuda.synchronize()
     nuts_plain_ms = start.elapsed_time(end)
     transitions = N_CHAINS * NUTS_STEPS
-    phase("timing NUTS", f"{smi}: K4 {k4_ms:.4f} ms per {NUTS_STEPS}-transition sweep (window "
-                         f"{k4_ms * k4_reps / 1e3:.2f} s, {k4_reps} sweeps) = "
+    phase("timing NUTS", f"{smi}: K4 {k4_ms:.4f} ms per {NUTS_STEPS}-transition sweep, "
+                         f"{nuts_pallas.DEFAULT_BLOCK} chains a block (two windows of {k4_reps} "
+                         f"sweeps: {k4_times[0]:.4f} and {k4_times[1]:.4f} ms) = "
                          f"{transitions / k4_ms * 1e3:.6g} samples/s = "
                          f"{transitions * float(leaps_n) / k4_ms * 1e3:.6g} leapfrogs/s; plain "
                          f"twin {nuts_plain_ms:.2f} ms per sweep (1 sweep) = "
                          f"{transitions / nuts_plain_ms * 1e3:.6g} samples/s = "
                          f"{transitions * float(leaps_nt) / nuts_plain_ms * 1e3:.6g} leapfrogs/s "
                          f"({N_CHAINS} chains x {NUTS_STEPS} transitions, depth {NUTS_DEPTH}, "
-                         f"adapted eps {eps_n:.6g})")
+                         f"adapted eps {eps_n:.6g}); bound {k4_bound_ms:.4f} ms ({k4_bound_by}), "
+                         f"K4 at {k4_bound_ms / k4_ms:.4f} of it")
 
     # a chain block runs until its longest tree is done: the share of
     # thread-leaf slots that integrate a live chain, from one transition
-    _, _, leaves_1 = nuts_pallas.nuts_sweep(ld.body, q_wn, SEED + 1, n_steps=1, eps=eps_n,
-                                            max_depth=NUTS_DEPTH, inv_mass=im_n)
-    block_max = leaves_1.view(-1, 128).amax(dim=1)
-    phase("where the time goes", f"NUTS: mean leapfrogs per chain {float(leaves_1.mean()):.3f} "
-                                 f"in one transition, mean of the block maxima "
-                                 f"{float(block_max.mean()):.3f}: K4's 128-chain blocks keep "
-                                 f"{float(leaves_1.mean() / block_max.mean()):.3f} of their "
-                                 f"thread-leaf slots busy; column_nuts call {nuts_s:.3f} s "
-                                 f"(host clock): warmup_column_nuts {nuts_warm_s:.3f} s "
-                                 f"({NUTS_WARMUP_PHASES} K4 sweeps and host reads of eps), "
+    shares = []
+    for block in (nuts_pallas.DEFAULT_BLOCK, BLOCK_N):
+        _, _, leaves_1 = nuts_pallas.nuts_sweep(ld.body, q_wn, SEED + 1, n_steps=1, eps=eps_n,
+                                                max_depth=NUTS_DEPTH, inv_mass=im_n, block_n=block)
+        block_max = leaves_1.view(-1, block).amax(dim=1)
+        shares.append(f"{block}-chain blocks: mean leapfrogs a chain {float(leaves_1.mean()):.3f}, "
+                      f"mean of the block maxima {float(block_max.mean()):.3f}, so "
+                      f"{float(leaves_1.mean() / block_max.mean()):.3f} of the slots busy")
+    phase("where the time goes", "NUTS, one transition: " + "; ".join(shares)
+                                 + f"; column_nuts call {nuts_s:.3f} s (host clock): "
+                                 f"warmup_column_nuts {nuts_warm_s:.3f} s ({NUTS_WARMUP_PHASES} K4 "
+                                 f"sweeps, {warm_ms / 1e3:.4f} s of K4, and host reads of eps), "
                                  f"the main K4 sweep {k4_ms / 1e3:.4f} s")
 
     # ---- the GP / elliptical-slice path (K3)
@@ -647,6 +813,9 @@ def main() -> int:
         "max_abs_err": flagship_err,
         "ms": ms,
         "plain_ms": plain_ms,
+        "bound_ms": k1_bound_ms,
+        "bound_by": k1_bound_by,
+        "library_ms": None,  # no single PyTorch call computes the sweep
     }, {
         "name": "nuts_sweep (K4)",
         "route": "cuda",
@@ -656,6 +825,9 @@ def main() -> int:
         "max_abs_err": k4_err,
         "ms": k4_ms,
         "plain_ms": nuts_plain_ms,
+        "bound_ms": k4_bound_ms,
+        "bound_by": k4_bound_by,
+        "library_ms": None,  # no single PyTorch call computes the sweep
     }, k3_entry]}), flush=True)
     check(all(math.isfinite(v) for v in (ms, plain_ms, flagship_err, k4_ms, nuts_plain_ms, k4_err,
                                          k3_entry["max_abs_err"], k3_entry["ms"], k3_entry["plain_ms"])),

@@ -1,13 +1,21 @@
-"""Column log-densities with a hand-written device body in the CUDA sweep.
+"""Column log-densities with a hand-written device body in the CUDA sweeps.
 
-CUDA has no autodiff, so the HMC sweep kernel (``csrc/hmc_sweep.cu``) takes
-the density and its gradient as a device body chosen by id. This module is
-the registry of those bodies, in place of the reference's jaxpr staging and
-primitive whitelist (``genjax_tpu/kernels/hmc.py:166-228,314-335``). Each
-``Body`` carries the constants the kernel loads into shared memory and the
-plain torch formula of its log-density and gradient, which is the kernel
-body's plain version. ``body_for`` recognises a model's column log-density
-from the family and constants the model declares as plain data.
+CUDA has no autodiff, so the sweep kernels (``csrc/hmc_sweep.cu``,
+``csrc/nuts_sweep.cu``) take the density and its gradient as a device body
+chosen by id (``csrc/column_common.cuh``). This module is the registry of
+those bodies, in place of the reference's jaxpr staging and primitive
+whitelist (``genjax_tpu/kernels/hmc.py:166-228,314-335``). Each ``Body``
+carries its constants and the plain torch formula of its log-density and
+gradient, which is the kernel body's plain version. ``body_for`` recognises
+a model's column log-density from the family and constants the model
+declares as plain data.
+
+Where the constants live in a kernel depends on the body's variant
+(``variant``): at a specialised shape (``SPECIALISED_SHAPES``, the
+flagship's ``(n_obs, d_w) = (16, 8)``) the kernel is compiled with the
+shape fixed and takes ``X`` and ``y`` by value as a kernel parameter, read
+as constant-bank operands; at any other shape (the ``generic`` variant,
+runtime loop bounds) the kernel copies them into shared memory.
 
 A ``Body`` is itself a column log-density ``(D, N) -> (N,)`` whose ``body``
 attribute is itself, so it can be handed to ``pallas_hmc`` directly.
@@ -28,6 +36,9 @@ _LOG_2PI = math.log(2.0 * math.pi)
 
 IID_NORMAL = 0
 HIER_REGRESSION = 1
+
+# hier_regression's (n_obs, d_w) compiled as their own kernel variant
+SPECIALISED_SHAPES = ((16, 8),)
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -52,6 +63,25 @@ class Body:
 
     def min_dim(self) -> int:
         return 1 + self.d_w if self.kind == HIER_REGRESSION else 1
+
+    def variant(self, d: int) -> str:
+        """The kernel variant this body takes at packed dimension ``d``:
+        ``"specialised"`` (no shape, or a shape in ``SPECIALISED_SHAPES`` that
+        fits ``d``) or ``"generic"`` (runtime shape)."""
+        if self.kind == HIER_REGRESSION and (
+            (self.n_obs, self.d_w) not in SPECIALISED_SHAPES or d != 16
+        ):
+            return "generic"
+        return "specialised"
+
+    def shared_consts_floats(self, d: int) -> int:
+        """Floats of the constants a kernel copies into shared memory at
+        packed dimension ``d`` (``shared_consts_floats`` of
+        ``csrc/column_common.cuh``): ``X`` and ``y`` rounded up to a float4
+        in the generic variant, none otherwise."""
+        if self.kind != HIER_REGRESSION or self.variant(d) != "generic":
+            return 0
+        return (self.n_obs * (self.d_w + 1) + 3) // 4 * 4
 
     def consts_on(self, device: torch.device) -> torch.Tensor:
         """The constants on ``device``, copied there once."""

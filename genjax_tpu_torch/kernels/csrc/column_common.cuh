@@ -6,7 +6,16 @@
 //   software PRNG (genjax_tpu/kernels/hmc.py: _sw_rand_bits_factory,
 //   _uniform_01, _normal); all three kernels use it;
 // - the device bodies: a column log-density and its gradient, written by hand
-//   (CUDA has no autodiff) and chosen by a template parameter (K1, K4).
+//   (CUDA has no autodiff) and chosen by template parameters (K1, K4): the
+//   body and its shape (the flagship's (n_obs, d_w) = (16, 8) compiled as its
+//   own variant, or a runtime shape).
+//
+// What bounds the bodies on this card: FP32 instruction throughput. A
+// flagship gradient is about 256 FFMAs of X against w and r. Read from shared
+// memory inside a runtime loop, each FFMA pair costs a load, and the SM
+// starts one such load a clock against four FFMAs; so the specialised shape
+// unrolls its loops and takes X and y as constant-bank operands (below),
+// which leaves the FFMAs and 16 independent residual chains.
 //
 // No fast-math in any kernel that includes this: rejection relies on NaN and
 // -inf comparing false, and Box-Muller needs accurate logf/cosf.
@@ -60,11 +69,56 @@ __device__ __forceinline__ float counter_normal(uint32_t base, uint32_t salt,
 }
 
 // --------------------------------------------------------------- bodies
+//
+// One chain per thread. The flagship's constants, hier_regression's X
+// (16 x 8) and y (16), are the same for every chain. At the specialised shape
+// (n_obs, d_w) = (16, 8) the observation and weight loops unroll completely
+// and the constants travel by value in the kernel's parameter space
+// (UniformConsts, a __grid_constant__ kernel parameter), so every X and y read
+// is an FFMA operand from the constant bank at a compile-time offset: no load
+// instruction at all. The runtime-shape variant (any (n_obs, d_w)) runs the
+// same body with runtime loop bounds and the constants in shared memory
+// (SharedConsts), X as compact as in device memory.
 
-// The constants of a body, in shared memory: X (n_obs x d_w, row-major), y.
-struct BodyConsts {
+// X (NOBS x DW, row-major) and y of a specialised shape, by value in the
+// kernel's parameter space. An empty struct for the runtime-shape variant.
+template <int NOBS, int DW>
+struct UniformConsts {
+  float X[NOBS * DW];
+  float y[NOBS];
+
+  __device__ __forceinline__ float x(int i, int j) const { return X[i * DW + j]; }
+  __device__ __forceinline__ float yv(int i) const { return y[i]; }
+};
+
+template <>
+struct UniformConsts<0, 0> {};
+
+// X (n_obs x d_w, row-major) and y of a runtime shape, in shared memory.
+struct SharedConsts {
   const float* X;
   const float* y;
+  int d_w;
+
+  __device__ __forceinline__ float x(int i, int j) const { return X[i * d_w + j]; }
+  __device__ __forceinline__ float yv(int i) const { return y[i]; }
+};
+
+// Floats of the runtime shape's constants in shared memory (X, y), rounded
+// up to a float4 so what follows them stays 16-byte aligned.
+__host__ __device__ constexpr int shared_consts_floats(int n_obs, int d_w) {
+  return (n_obs * (d_w + 1) + 3) / 4 * 4;
+}
+
+// Copy the constants (X n_obs x d_w row-major, then y) from device memory to
+// shared memory; the block synchronises before reading them.
+__device__ __forceinline__ void load_shared_consts(float* dst, const float* consts, int n_obs,
+                                                   int d_w) {
+  for (int k = threadIdx.x; k < n_obs * (d_w + 1); k += blockDim.x) dst[k] = consts[k];
+}
+
+// The runtime shape of a body.
+struct BodyShape {
   int n_obs;
   int d_w;
   float obs_scale;
@@ -88,15 +142,20 @@ __device__ __forceinline__ float iid_normal(const float (&q)[D], float (&g)[D]) 
 // Outside tau > 0 the log-normal term is -inf while its gradient keeps
 // log(tau), so it is NaN there exactly as autograd through the model gives,
 // and the proposal is rejected.
-template <int D>
+//
+// NOBS, DW > 0: the specialised shape, loops unrolled; 0: the runtime shape.
+// Each observation's residual r = y_i - sum_j X_ij w_j and its gradient terms
+// are summed in the reference's order (j ascending, then observations
+// ascending).
+template <int D, int NOBS, int DW, class Consts>
 __device__ __forceinline__ float hier_regression(const float (&q)[D], float (&g)[D],
-                                                 const float* X, const float* y,
-                                                 int n_obs, int d_w,
-                                                 float obs_scale) {
+                                                 const Consts& c, const BodyShape& s) {
+  const int n_obs = NOBS > 0 ? NOBS : s.n_obs;
+  const int d_w = NOBS > 0 ? DW : s.d_w;
+
   const float tau = q[0];
   const float lt = logf(tau);
-  float lp = tau > 0.0f ? -(kLog2Pi + logf(0.25f) + 4.0f * lt * lt) * 0.5f - lt
-                        : -INFINITY;
+  float lp = tau > 0.0f ? -(kLog2Pi + logf(0.25f) + 4.0f * lt * lt) * 0.5f - lt : -INFINITY;
   float g_tau = -(4.0f * lt + 1.0f) / tau;
 
   const float tau2 = tau * tau;
@@ -114,23 +173,23 @@ __device__ __forceinline__ float hier_regression(const float (&q)[D], float (&g)
   lp -= 0.5f * (static_cast<float>(d_w) * log_norm_w + sum_w2 * inv_tau2);
   g_tau += sum_w2 * inv_tau2 / tau - static_cast<float>(d_w) / tau;
 
-  const float inv_s2 = 1.0f / (obs_scale * obs_scale);
+  const float inv_s2 = 1.0f / (s.obs_scale * s.obs_scale);
   float sum_r2 = 0.0f;
-  for (int i = 0; i < n_obs; ++i) {
-    const float* xi = X + i * d_w;
-    float r = y[i];
+#pragma unroll
+  for (int i = 0; i < (NOBS > 0 ? NOBS : n_obs); ++i) {
+    float r = c.yv(i);
 #pragma unroll
     for (int j = 0; j < D - 1; ++j) {
-      if (j < d_w) r -= xi[j] * q[1 + j];
+      if (j < d_w) r -= c.x(i, j) * q[1 + j];
     }
     sum_r2 += r * r;
     const float rs = r * inv_s2;
 #pragma unroll
     for (int j = 0; j < D - 1; ++j) {
-      if (j < d_w) g[1 + j] += xi[j] * rs;
+      if (j < d_w) g[1 + j] += c.x(i, j) * rs;
     }
   }
-  lp -= 0.5f * (static_cast<float>(n_obs) * logf(kTwoPi * obs_scale * obs_scale) +
+  lp -= 0.5f * (static_cast<float>(n_obs) * logf(kTwoPi * s.obs_scale * s.obs_scale) +
                 sum_r2 * inv_s2);
   g[0] = g_tau;
 
@@ -145,11 +204,14 @@ __device__ __forceinline__ float hier_regression(const float (&q)[D], float (&g)
 }
 
 // lp(q), with its gradient written to g (every entry).
-template <int D, int BODY>
-__device__ __forceinline__ float lp_grad(const float (&q)[D], float (&g)[D],
-                                         const BodyConsts& body) {
-  if (BODY == kIidNormal) return iid_normal<D>(q, g);
-  return hier_regression<D>(q, g, body.X, body.y, body.n_obs, body.d_w, body.obs_scale);
+template <int D, int BODY, int NOBS, int DW, class Consts>
+__device__ __forceinline__ float lp_grad(const float (&q)[D], float (&g)[D], const Consts& c,
+                                         const BodyShape& s) {
+  if constexpr (BODY == kIidNormal) {
+    return iid_normal<D>(q, g);
+  } else {
+    return hier_regression<D, NOBS, DW>(q, g, c, s);
+  }
 }
 
 }  // namespace

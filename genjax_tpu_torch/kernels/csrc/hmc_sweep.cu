@@ -13,15 +13,22 @@
 // Design: each thread owns one chain and keeps q, p, grad, the proposal and
 // lp in registers for all n_steps * L leapfrogs; D (8 or 16) is a template
 // parameter so every per-dimension loop unrolls into registers. The density
-// and its gradient are a hand-written device body chosen by a template
-// parameter (CUDA has no autodiff): `iid_normal` and `hier_regression`, the
-// flagship hierarchical regression, whose X and y sit in shared memory,
-// loaded once per block and read as warp-wide broadcasts.
+// and its gradient are a hand-written device body chosen by template
+// parameters (CUDA has no autodiff; column_common.cuh): `iid_normal`, and
+// `hier_regression`, the flagship hierarchical regression, either at the
+// specialised shape (n_obs, d_w) = (16, 8), whose X and y are a
+// __grid_constant__ kernel parameter read as constant-bank operands, or at a
+// runtime shape, whose constants sit in shared memory. eps * M^-1, M^-1 and
+// the momentum sd are per-dimension values the same for every chain, kept in
+// shared memory.
 //
-// Bound on this card: fp32 ALU. Per chain, a flagship leapfrog costs about
-// 2 x 128 FMAs for X w and X^T r, so a sweep costs n_steps * L * 256 FMAs per
-// chain, while it moves only 2 * D * 4 bytes of state per chain (one load and
-// one store), whatever n_steps is.
+// Bound on this card: fp32 instruction throughput. A flagship gradient is
+// about 630 FLOP (256 FFMAs of X w and X^T r, the prior's logs and
+// divisions), a leapfrog about 100 more, while a chain moves only 2 * D * 4
+// bytes of state (one load and one store) whatever n_steps is.
+// __launch_bounds__(128, 4) caps the registers at 128, so four 128-thread
+// blocks share an SM: 528 slots on 132 SMs hold the flagship's 512 blocks in
+// one wave. (64-thread blocks measured the same time on the H100; PERF.md.)
 //
 // Random streams (runtime flag `rng`):
 //   0 = counter: the bit-exact port of the reference's software stream,
@@ -34,6 +41,8 @@
 // Box-Muller needs accurate logf/cosf.
 
 #include <cstdint>
+#include <cstring>
+#include <type_traits>
 #include <cuda_runtime.h>
 #include <curand_kernel.h>
 
@@ -42,18 +51,17 @@
 namespace {
 
 constexpr int kThreads = 128;
+constexpr int kMinBlocks = 4;
+constexpr size_t kDefaultSmem = 48 * 1024;  // the most a block takes without opting in
 
 struct Params {
   const float* q_in;      // (D, N)
   float* q_out;           // (D, N)
   float* accepts;         // (N,) accepted steps per chain
   const float* inv_mass;  // (D,)
-  const float* consts;    // body constants: X (n_obs x d_w, row-major), y
-  int n_consts;
+  const float* consts;    // body constants in device memory: X (n_obs x d_w), y
+  BodyShape shape;
   int N;
-  int n_obs;
-  int d_w;
-  float obs_scale;
   int n_steps;
   int L;
   float eps;
@@ -64,24 +72,42 @@ struct Params {
 
 // ---------------------------------------------------------------- sweep
 
-template <int D, int BODY>
-__global__ void __launch_bounds__(kThreads) hmc_sweep_kernel(const Params prm) {
-  extern __shared__ float smem[];
-  for (int k = threadIdx.x; k < prm.n_consts; k += blockDim.x) smem[k] = prm.consts[k];
+template <int D, int BODY, int NOBS, int DW>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+    hmc_sweep_kernel(const __grid_constant__ Params prm,
+                     const __grid_constant__ UniformConsts<NOBS, DW> uc) {
+  constexpr bool kShared = BODY == kHierRegression && NOBS == 0;
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int n_shared = kShared ? shared_consts_floats(prm.shape.n_obs, prm.shape.d_w) : 0;
+  float* s_eps_im = smem + n_shared;  // eps * M^-1
+  float* s_im = s_eps_im + D;         // M^-1
+  float* s_std = s_im + D;            // momentum sd, sqrt(M)
+  if (kShared) load_shared_consts(smem, prm.consts, prm.shape.n_obs, prm.shape.d_w);
+  for (int k = threadIdx.x; k < D; k += blockDim.x) {
+    const float im = prm.inv_mass[k];
+    s_eps_im[k] = prm.eps * im;
+    s_im[k] = im;
+    s_std[k] = sqrtf(1.0f / im);
+  }
   __syncthreads();
 
   const int n = blockIdx.x * blockDim.x + threadIdx.x;
   if (n >= prm.N) return;
-  const BodyConsts body{smem, smem + prm.n_obs * prm.d_w, prm.n_obs, prm.d_w, prm.obs_scale};
+  // the specialised shape reads X and y straight from the kernel parameter
+  auto body_lp = [&](const float (&x)[D], float (&gx)[D]) {
+    if constexpr (kShared) {
+      const SharedConsts c{smem, smem + prm.shape.n_obs * prm.shape.d_w, prm.shape.d_w};
+      return lp_grad<D, BODY, NOBS, DW>(x, gx, c, prm.shape);
+    } else {
+      return lp_grad<D, BODY, NOBS, DW>(x, gx, uc, prm.shape);
+    }
+  };
 
-  float q[D], g[D], p[D], qn[D], gn[D], im[D], mom_std[D];
+  float q[D], g[D], p[D], qn[D], gn[D];
 #pragma unroll
-  for (int d = 0; d < D; ++d) {
-    q[d] = prm.q_in[static_cast<size_t>(d) * prm.N + n];
-    im[d] = prm.inv_mass[d];
-    mom_std[d] = sqrtf(1.0f / im[d]);
-  }
-  float lp = lp_grad<D, BODY>(q, g, body);
+  for (int d = 0; d < D; ++d) q[d] = prm.q_in[static_cast<size_t>(d) * prm.N + n];
+  float lp = body_lp(q, g);
 
   // the counter stream's chain block and column (int32 wraparound of the
   // reference's seed + block * 0x3504F333 is uint32 arithmetic here)
@@ -95,7 +121,7 @@ __global__ void __launch_bounds__(kThreads) hmc_sweep_kernel(const Params prm) {
     const uint32_t salt = static_cast<uint32_t>(i) * 4u;
     if (prm.rng == kCounter) {
 #pragma unroll
-      for (int d = 0; d < D; ++d) p[d] = mom_std[d] * counter_normal(base, salt, d, col);
+      for (int d = 0; d < D; ++d) p[d] = s_std[d] * counter_normal(base, salt, d, col);
     } else {
 #pragma unroll
       for (int j = 0; j < D / 4; ++j) {
@@ -107,16 +133,16 @@ __global__ void __launch_bounds__(kThreads) hmc_sweep_kernel(const Params prm) {
         sincosf(kTwoPi * uniform_from_bits(b.w), &s1, &c1);
         const float r0 = sqrtf(-2.0f * logf(uniform_from_bits(b.x)));
         const float r1 = sqrtf(-2.0f * logf(uniform_from_bits(b.z)));
-        p[4 * j + 0] = mom_std[4 * j + 0] * r0 * c0;
-        p[4 * j + 1] = mom_std[4 * j + 1] * r0 * s0;
-        p[4 * j + 2] = mom_std[4 * j + 2] * r1 * c1;
-        p[4 * j + 3] = mom_std[4 * j + 3] * r1 * s1;
+        p[4 * j + 0] = s_std[4 * j + 0] * r0 * c0;
+        p[4 * j + 1] = s_std[4 * j + 1] * r0 * s0;
+        p[4 * j + 2] = s_std[4 * j + 2] * r1 * c1;
+        p[4 * j + 3] = s_std[4 * j + 3] * r1 * s1;
       }
     }
     float ke0 = 0.0f;
 #pragma unroll
     for (int d = 0; d < D; ++d) {
-      ke0 += im[d] * p[d] * p[d];
+      ke0 += s_im[d] * p[d] * p[d];
       qn[d] = q[d];
       gn[d] = g[d];
     }
@@ -127,15 +153,15 @@ __global__ void __launch_bounds__(kThreads) hmc_sweep_kernel(const Params prm) {
 #pragma unroll
       for (int d = 0; d < D; ++d) {
         p[d] += half_eps * gn[d];
-        qn[d] += prm.eps * im[d] * p[d];
+        qn[d] += s_eps_im[d] * p[d];
       }
-      lpn = lp_grad<D, BODY>(qn, gn, body);
+      lpn = body_lp(qn, gn);
 #pragma unroll
       for (int d = 0; d < D; ++d) p[d] += half_eps * gn[d];
     }
     float ke1 = 0.0f;
 #pragma unroll
-    for (int d = 0; d < D; ++d) ke1 += im[d] * p[d] * p[d];
+    for (int d = 0; d < D; ++d) ke1 += s_im[d] * p[d] * p[d];
     ke1 *= 0.5f;
 
     const float log_alpha = (lpn - ke1) - (lp - ke0);
@@ -182,36 +208,115 @@ __global__ void counter_stream_kernel(uint32_t* bits, float* uniforms, float* no
   normals[idx] = counter_normal(base, salt, r, c);
 }
 
-template <int D, int BODY>
-cudaError_t launch(const Params& prm, cudaStream_t stream) {
-  const int blocks = (prm.N + kThreads - 1) / kThreads;
-  const size_t smem = static_cast<size_t>(prm.n_consts) * sizeof(float);
-  hmc_sweep_kernel<D, BODY><<<blocks, kThreads, smem, stream>>>(prm);
-  return cudaGetLastError();
+// Dynamic shared memory of one block: the runtime-shape constants, then
+// eps * M^-1, M^-1 and the momentum sd.
+size_t smem_bytes(int dim, int body, int specialised, int n_obs, int d_w) {
+  const bool shared = body == kHierRegression && !specialised;
+  return sizeof(float) * (static_cast<size_t>(shared ? shared_consts_floats(n_obs, d_w) : 0) +
+                          3 * static_cast<size_t>(dim));
+}
+
+// Calls f with the kernel instantiation for (dim, body, specialised) as
+// integral constants, or returns cudaErrorInvalidValue. iid_normal has no
+// constants and one variant.
+template <class F>
+cudaError_t dispatch(int dim, int body, int specialised, F&& f) {
+  using std::integral_constant;
+  using I8 = integral_constant<int, 8>;
+  using I16 = integral_constant<int, 16>;
+  using Iid = integral_constant<int, kIidNormal>;
+  using Hier = integral_constant<int, kHierRegression>;
+  using Z = integral_constant<int, 0>;
+  if (body == kIidNormal) {  // no constants: one variant
+    if (dim == 8) return f(I8{}, Iid{}, Z{}, Z{});
+    if (dim == 16) return f(I16{}, Iid{}, Z{}, Z{});
+  }
+  if (body == kHierRegression && !specialised) {
+    if (dim == 8) return f(I8{}, Hier{}, Z{}, Z{});
+    if (dim == 16) return f(I16{}, Hier{}, Z{}, Z{});
+  }
+  if (body == kHierRegression && specialised && dim == 16)
+    return f(I16{}, Hier{}, integral_constant<int, 16>{}, integral_constant<int, 8>{});
+  return cudaErrorInvalidValue;
+}
+
+template <int D, int BODY, int NOBS, int DW>
+const void* kernel_ptr() {
+  return reinterpret_cast<const void*>(&hmc_sweep_kernel<D, BODY, NOBS, DW>);
+}
+
+// Above the default 48 KiB a block opts in to `smem` bytes of dynamic shared
+// memory; the runtime refuses more than the card's opt-in limit.
+cudaError_t allow_smem(const void* fn, size_t smem) {
+  if (smem <= kDefaultSmem) return cudaSuccess;
+  return cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(smem));
 }
 
 }  // namespace
 
 extern "C" {
 
-// Returns the cudaError_t of the launch (0 on success).
+// The largest dynamic shared memory a block may opt in to on `device`, or -1.
+int hmc_smem_limit(int device) {
+  int bytes = 0;
+  if (cudaDeviceGetAttribute(&bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, device) !=
+      cudaSuccess)
+    return -1;
+  return bytes;
+}
+
+long hmc_smem_bytes(int dim, int body, int specialised, int n_obs, int d_w) {
+  return static_cast<long>(smem_bytes(dim, body, specialised, n_obs, d_w));
+}
+
+// Returns the cudaError_t of the launch (0 on success). `consts` is the
+// body's constants in device memory and `consts_host` the same on the host
+// (read into the kernel's parameters at the specialised shape).
 int hmc_sweep(const float* q_in, float* q_out, float* accepts, const float* inv_mass,
-              const float* consts, int n_consts, int body, int dim, int N, int n_obs,
-              int d_w, float obs_scale, int n_steps, int L, float eps, int seed, int rng,
-              int block_n, void* stream) {
-  if (N <= 0 || block_n <= 0 || n_consts < 0 ||
-      n_consts > static_cast<int>(48 * 1024 / sizeof(float)))
+              const float* consts, const float* consts_host, int n_consts, int body,
+              int specialised, int dim, int N, int n_obs, int d_w, float obs_scale, int n_steps,
+              int L, float eps, int seed, int rng, int block_n, void* stream) {
+  if (N <= 0 || block_n <= 0 || n_consts < 0 || (rng != kCounter && rng != kPhilox))
     return cudaErrorInvalidValue;
   if (body == kHierRegression && (d_w < 1 || d_w + 1 > dim || n_consts != n_obs * (d_w + 1)))
     return cudaErrorInvalidValue;
-  Params prm{q_in, q_out, accepts, inv_mass, consts, n_consts, N, n_obs, d_w, obs_scale,
-             n_steps, L, eps, static_cast<uint32_t>(seed), rng, block_n};
+  if (specialised && body == kHierRegression && (n_obs != 16 || d_w != 8))
+    return cudaErrorInvalidValue;
+  const size_t smem = smem_bytes(dim, body, specialised, n_obs, d_w);
+  const Params prm{q_in, q_out, accepts, inv_mass, consts, BodyShape{n_obs, d_w, obs_scale},
+                   N, n_steps, L, eps, static_cast<uint32_t>(seed), rng, block_n};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dim == 8 && body == kIidNormal) return launch<8, kIidNormal>(prm, s);
-  if (dim == 16 && body == kIidNormal) return launch<16, kIidNormal>(prm, s);
-  if (dim == 8 && body == kHierRegression) return launch<8, kHierRegression>(prm, s);
-  if (dim == 16 && body == kHierRegression) return launch<16, kHierRegression>(prm, s);
-  return cudaErrorInvalidValue;
+  const int blocks = (N + kThreads - 1) / kThreads;
+  return dispatch(dim, body, specialised, [&](auto d, auto b, auto no, auto dw) {
+    constexpr int NOBS = decltype(no)::value, DW = decltype(dw)::value;
+    const cudaError_t err =
+        allow_smem(kernel_ptr<decltype(d)::value, decltype(b)::value, NOBS, DW>(), smem);
+    if (err != cudaSuccess) return err;
+    UniformConsts<NOBS, DW> uc{};
+    if constexpr (NOBS > 0) std::memcpy(&uc, consts_host, sizeof(uc));
+    hmc_sweep_kernel<decltype(d)::value, decltype(b)::value, NOBS, DW>
+        <<<blocks, kThreads, smem, s>>>(prm, uc);
+    return cudaGetLastError();
+  });
+}
+
+// Registers, local (spill) bytes a thread, and resident blocks an SM of one
+// instantiation: out[0..2]. Returns a cudaError_t.
+int hmc_kernel_info(int dim, int body, int specialised, int n_obs, int d_w, int* out) {
+  const size_t smem = smem_bytes(dim, body, specialised, n_obs, d_w);
+  return dispatch(dim, body, specialised, [&](auto d, auto b, auto no, auto dw) {
+    const void* fn = kernel_ptr<decltype(d)::value, decltype(b)::value, decltype(no)::value,
+                                decltype(dw)::value>();
+    cudaError_t err = allow_smem(fn, smem);
+    if (err != cudaSuccess) return err;
+    cudaFuncAttributes attr;
+    err = cudaFuncGetAttributes(&attr, fn);
+    if (err != cudaSuccess) return err;
+    out[0] = attr.numRegs;
+    out[1] = static_cast<int>(attr.localSizeBytes);
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[2], fn, kThreads, smem);
+  });
 }
 
 int counter_stream(uint32_t* bits, float* uniforms, float* normals, int seed, int block,

@@ -21,7 +21,7 @@
 // loop bound is uniform over the block, and the stream's salt, which advances
 // once per block-wide draw, is one per block. The two checkpoint stacks sit
 // in dynamic shared memory, [slot][d][chain], so a warp's accesses fall in
-// consecutive banks; the body's constants and the inverse mass sit in front
+// consecutive banks; the body's constants (at a runtime shape) sit in front
 // of them. The tree (its two ends with their gradients, the proposal) and the
 // subtree's proposal are register arrays, D being a template parameter. The
 // subtree is built in place on the end it extends: both ends are swapped
@@ -30,11 +30,17 @@
 // A chain that is done, or whose subtree has stopped, skips the leapfrog:
 // its state would not change, and what it would push is never read.
 //
-// Bound on this card: at the flagship's D = 16 and depth 8 the two stacks
-// take 128 KiB of shared memory for 128 chains, so one block fits an SM and
-// four warps hide little latency; every leaf is a dependent chain of a
-// gradient (about 256 FMAs for the flagship), so the kernel is latency-bound.
-// Making it fast (smaller stacks, more chains an SM) is later work.
+// Bound on this card: every leaf is a dependent chain of a gradient (about
+// 630 FLOP for the flagship, with the prior's logs and divisions) and the
+// scalar work after it (energies, log-add-exp, the PRNG, the decisions), so
+// the kernel is bound by latency and instruction throughput. A thread holds
+// about 128 registers of tree state and uses 255 in all, and the default
+// 32-chain block (one warp) takes 32 KiB of stacks at depth 8, so six blocks
+// share an SM (shared-memory bound); the specialised body's unrolled
+// observations, whose X and y are kernel-parameter operands, give the warp
+// its ILP. (Spreading a chain over 2 or 4 lanes, with its sums taken by warp
+// shuffles, measured about twice as slow on the H100: every lane repeats the
+// scalar work; PERF.md.)
 //
 // Random streams (runtime flag `rng`):
 //   0 = counter: K2, bit-exact; the block's base is seed + block * 0x3504F333,
@@ -50,6 +56,8 @@
 // u < NaN must be false.
 
 #include <cstdint>
+#include <cstring>
+#include <type_traits>
 #include <cuda_runtime.h>
 #include <curand_kernel.h>
 
@@ -65,12 +73,9 @@ struct NutsParams {
   float* accepts;         // (N,) accept statistic summed over transitions
   float* leaps;           // (N,) leapfrogs summed over transitions
   const float* inv_mass;  // (D,)
-  const float* consts;    // body constants: X (n_obs x d_w, row-major), y
-  int n_consts;
+  const float* consts;    // body constants in device memory: X (n_obs x d_w), y
+  BodyShape shape;
   int N;
-  int n_obs;
-  int d_w;
-  float obs_scale;
   int n_steps;
   float eps;
   float div_threshold;
@@ -136,40 +141,53 @@ __device__ __forceinline__ void swap_if(bool cond, float (&a)[D], float (&b)[D])
   }
 }
 
-// 1/2 r' M^-1 r, summed in the reference's order: (m * r) * r over d.
+// 1/2 r' M^-1 r, summed in the reference's order ((m * r) * r).
 template <int D>
-__device__ __forceinline__ float kinetic(const float (&r)[D], const float* im) {
+__device__ __forceinline__ float kinetic(const float (&r)[D], const float (&im)[D]) {
   float s = 0.0f;
 #pragma unroll
   for (int d = 0; d < D; ++d) s += im[d] * r[d] * r[d];
   return 0.5f * s;
 }
 
-template <int D, int BODY>
-__global__ void __launch_bounds__(kMaxThreads) nuts_sweep_kernel(const NutsParams prm) {
-  extern __shared__ float smem[];
-  const int B = blockDim.x;
+template <int D, int BODY, int NOBS, int DW>
+__global__ void __launch_bounds__(kMaxThreads)
+    nuts_sweep_kernel(const __grid_constant__ NutsParams prm,
+                      const __grid_constant__ UniformConsts<NOBS, DW> uc) {
+  constexpr bool kShared = BODY == kHierRegression && NOBS == 0;
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int T = blockDim.x;
   const int tid = threadIdx.x;
-  float* s_consts = smem;
-  float* im = smem + prm.n_consts;  // inverse mass (D,)
-  float* ck_z = im + D;             // checkpoint stacks [slot][d][chain]
-  float* ck_r = ck_z + prm.max_depth * D * B;
-  for (int k = tid; k < prm.n_consts; k += B) s_consts[k] = prm.consts[k];
-  for (int k = tid; k < D; k += B) im[k] = prm.inv_mass[k];
+  const int n_shared = kShared ? shared_consts_floats(prm.shape.n_obs, prm.shape.d_w) : 0;
+  float* ck_z = smem + n_shared;  // checkpoint stacks [slot][d][thread]
+  float* ck_r = ck_z + prm.max_depth * D * T;
+  if (kShared) load_shared_consts(smem, prm.consts, prm.shape.n_obs, prm.shape.d_w);
   __syncthreads();
-  const BodyConsts body{s_consts, s_consts + prm.n_obs * prm.d_w, prm.n_obs, prm.d_w,
-                        prm.obs_scale};
+
+  // the specialised shape reads X and y straight from the kernel parameter
+  auto body_lp = [&](const float (&x)[D], float (&gx)[D]) {
+    if constexpr (kShared) {
+      const SharedConsts c{smem, smem + prm.shape.n_obs * prm.shape.d_w, prm.shape.d_w};
+      return lp_grad<D, BODY, NOBS, DW>(x, gx, c, prm.shape);
+    } else {
+      return lp_grad<D, BODY, NOBS, DW>(x, gx, uc, prm.shape);
+    }
+  };
 
   // threads past N idle through the block-wide loops as done chains
-  const int n = blockIdx.x * B + tid;
+  const int n = blockIdx.x * T + tid;
   const bool valid = n < prm.N;
   const Stream stream{prm.rng, prm.seed + static_cast<uint32_t>(blockIdx.x) * kBlockMix,
                       static_cast<uint32_t>(tid),
                       make_uint2(prm.seed, static_cast<uint32_t>(n))};
 
-  float q[D];  // the chain's position: each transition's proposal
+  float im[D], q[D];  // the inverse mass; the position: each transition's proposal
 #pragma unroll
-  for (int d = 0; d < D; ++d) q[d] = valid ? prm.q_in[static_cast<size_t>(d) * prm.N + n] : 1.0f;
+  for (int d = 0; d < D; ++d) {
+    im[d] = prm.inv_mass[d];
+    q[d] = valid ? prm.q_in[static_cast<size_t>(d) * prm.N + n] : 1.0f;
+  }
 
   // the tree: its backward (m) and forward (p) ends with their gradients,
   // and the subtree's proposal
@@ -181,7 +199,7 @@ __global__ void __launch_bounds__(kMaxThreads) nuts_sweep_kernel(const NutsParam
     stream.normals<D>(salt, rm);
 #pragma unroll
     for (int d = 0; d < D; ++d) rm[d] *= sqrtf(1.0f / im[d]);
-    const float ld0 = lp_grad<D, BODY>(q, gm, body);
+    const float ld0 = body_lp(q, gm);
     const float energy0 = -ld0 + kinetic<D>(rm, im);
 #pragma unroll
     for (int d = 0; d < D; ++d) {
@@ -226,13 +244,13 @@ __global__ void __launch_bounds__(kMaxThreads) nuts_sweep_kernel(const NutsParam
           rp[d] = rp[d] + half_e * gp[d];
           zp[d] = zp[d] + e * im[d] * rp[d];
         }
-        const float ld_new = lp_grad<D, BODY>(zp, gp, body);
+        const float ld_new = body_lp(zp, gp);
         const int bc = __popc(i);
 #pragma unroll
         for (int d = 0; d < D; ++d) {
           rp[d] = rp[d] + half_e * gp[d];
-          ck_z[(bc * D + d) * B + tid] = zp[d];
-          ck_r[(bc * D + d) * B + tid] = rp[d];
+          ck_z[(bc * D + d) * T + tid] = zp[d];
+          ck_r[(bc * D + d) * T + tid] = rp[d];
         }
 
         float energy = -ld_new + kinetic<D>(rp, im);
@@ -253,8 +271,8 @@ __global__ void __launch_bounds__(kMaxThreads) nuts_sweep_kernel(const NutsParam
           float a = 0.0f, b = 0.0f;
 #pragma unroll
           for (int d = 0; d < D; ++d) {
-            const float dzm = dir * (zp[d] - ck_z[(slot * D + d) * B + tid]) * im[d];
-            a += dzm * ck_r[(slot * D + d) * B + tid];
+            const float dzm = dir * (zp[d] - ck_z[(slot * D + d) * T + tid]) * im[d];
+            a += dzm * ck_r[(slot * D + d) * T + tid];
             b += dzm * rp[d];
           }
           if (a < 0.0f || b < 0.0f) s_turn = true;
@@ -305,16 +323,42 @@ __global__ void __launch_bounds__(kMaxThreads) nuts_sweep_kernel(const NutsParam
   }
 }
 
-template <int D, int BODY>
-cudaError_t launch(const NutsParams& prm, int block, size_t smem, cudaStream_t stream) {
-  const cudaError_t err = cudaFuncSetAttribute(
-      nuts_sweep_kernel<D, BODY>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  const int blocks = (prm.N + block - 1) / block;
-  nuts_sweep_kernel<D, BODY><<<blocks, block, smem, stream>>>(prm);
-  return cudaGetLastError();
+// Dynamic shared memory of one block of `chains` chains: the runtime shape's
+// constants, then the two checkpoint stacks (max_depth, D, chains).
+size_t smem_bytes(int dim, int body, int specialised, int n_obs, int d_w, int max_depth,
+                  int chains) {
+  const bool shared = body == kHierRegression && !specialised;
+  return sizeof(float) * (static_cast<size_t>(shared ? shared_consts_floats(n_obs, d_w) : 0) +
+                          2 * static_cast<size_t>(max_depth) * dim * chains);
 }
+
+template <int V>
+using IC = std::integral_constant<int, V>;
+
+template <int D, class F>
+cudaError_t dispatch_body(int body, int specialised, F&& f) {
+  if (body == kIidNormal) return f(IC<D>{}, IC<kIidNormal>{}, IC<0>{}, IC<0>{});
+  if (body == kHierRegression && !specialised)
+    return f(IC<D>{}, IC<kHierRegression>{}, IC<0>{}, IC<0>{});
+  if constexpr (D == 16) {
+    if (body == kHierRegression && specialised)
+      return f(IC<D>{}, IC<kHierRegression>{}, IC<16>{}, IC<8>{});
+  }
+  return cudaErrorInvalidValue;
+}
+
+// Calls f with the kernel instantiation for (dim, body, specialised) as
+// integral constants, or returns cudaErrorInvalidValue. iid_normal has no
+// constants and one variant.
+template <class F>
+cudaError_t dispatch(int dim, int body, int specialised, F&& f) {
+  if (dim == 8) return dispatch_body<8>(body, specialised, f);
+  if (dim == 16) return dispatch_body<16>(body, specialised, f);
+  return cudaErrorInvalidValue;
+}
+
+#define NUTS_KERNEL(d, b, no, dw) \
+  nuts_sweep_kernel<decltype(d)::value, decltype(b)::value, decltype(no)::value, decltype(dw)::value>
 
 }  // namespace
 
@@ -329,28 +373,63 @@ int nuts_smem_limit(int device) {
   return bytes;
 }
 
-// Returns the cudaError_t of the launch (0 on success).
+long nuts_smem_bytes(int dim, int body, int specialised, int n_obs, int d_w, int max_depth,
+                     int chains) {
+  return static_cast<long>(smem_bytes(dim, body, specialised, n_obs, d_w, max_depth, chains));
+}
+
+// Returns the cudaError_t of the launch (0 on success). The block is `chains`
+// chains. `consts` is the body's constants in device
+// memory and `consts_host` the same on the host (read into the kernel's
+// parameters at the specialised shape).
 int nuts_sweep(const float* q_in, float* q_out, float* accepts, float* leaps,
-               const float* inv_mass, const float* consts, int n_consts, int body, int dim,
-               int N, int n_obs, int d_w, float obs_scale, int n_steps, float eps,
-               float div_threshold, int max_depth, int seed, int rng, int block, void* stream) {
-  if (N <= 0 || block <= 0 || block > kMaxThreads || n_consts < 0 || n_steps < 0 ||
-      max_depth < 1 || max_depth > 30 || (rng != kCounter && rng != kPhilox))
+               const float* inv_mass, const float* consts, const float* consts_host,
+               int n_consts, int body, int specialised, int dim, int N, int n_obs, int d_w,
+               float obs_scale, int n_steps, float eps, float div_threshold, int max_depth,
+               int seed, int rng, int chains, void* stream) {
+  if (N <= 0 || chains <= 0 || chains > kMaxThreads ||
+      n_consts < 0 || n_steps < 0 || max_depth < 1 || max_depth > 30 ||
+      (rng != kCounter && rng != kPhilox))
     return cudaErrorInvalidValue;
   if (body == kHierRegression && (d_w < 1 || d_w + 1 > dim || n_consts != n_obs * (d_w + 1)))
     return cudaErrorInvalidValue;
-  const NutsParams prm{q_in, q_out, accepts, leaps, inv_mass, consts, n_consts, N, n_obs,
-                       d_w, obs_scale, n_steps, eps, div_threshold, max_depth,
-                       static_cast<uint32_t>(seed), rng};
-  const size_t smem = sizeof(float) * (static_cast<size_t>(n_consts) + dim +
-                                       2 * static_cast<size_t>(max_depth) * dim * block);
+  if (specialised && body == kHierRegression && (n_obs != 16 || d_w != 8))
+    return cudaErrorInvalidValue;
+  const NutsParams prm{q_in, q_out, accepts, leaps, inv_mass, consts,
+                       BodyShape{n_obs, d_w, obs_scale}, N, n_steps, eps, div_threshold,
+                       max_depth, static_cast<uint32_t>(seed), rng};
+  const size_t smem = smem_bytes(dim, body, specialised, n_obs, d_w, max_depth, chains);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dim == 8 && body == kIidNormal) return launch<8, kIidNormal>(prm, block, smem, s);
-  if (dim == 16 && body == kIidNormal) return launch<16, kIidNormal>(prm, block, smem, s);
-  if (dim == 8 && body == kHierRegression) return launch<8, kHierRegression>(prm, block, smem, s);
-  if (dim == 16 && body == kHierRegression)
-    return launch<16, kHierRegression>(prm, block, smem, s);
-  return cudaErrorInvalidValue;
+  const int blocks = (N + chains - 1) / chains;
+  return dispatch(dim, body, specialised, [&](auto d, auto b, auto no, auto dw) {
+    const cudaError_t err = cudaFuncSetAttribute(NUTS_KERNEL(d, b, no, dw),
+                                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                 static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+    UniformConsts<decltype(no)::value, decltype(dw)::value> uc{};
+    if constexpr (decltype(no)::value > 0) std::memcpy(&uc, consts_host, sizeof(uc));
+    NUTS_KERNEL(d, b, no, dw)<<<blocks, chains, smem, s>>>(prm, uc);
+    return cudaGetLastError();
+  });
+}
+
+// Registers, local (spill) bytes a thread, and resident blocks an SM of one
+// instantiation at `chains` chains a block: out[0..2]. Returns a cudaError_t.
+int nuts_kernel_info(int dim, int body, int specialised, int n_obs, int d_w, int max_depth,
+                     int chains, int* out) {
+  const size_t smem = smem_bytes(dim, body, specialised, n_obs, d_w, max_depth, chains);
+  return dispatch(dim, body, specialised, [&](auto d, auto b, auto no, auto dw) {
+    const void* fn = reinterpret_cast<const void*>(&NUTS_KERNEL(d, b, no, dw));
+    cudaError_t err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+    cudaFuncAttributes attr;
+    err = cudaFuncGetAttributes(&attr, fn);
+    if (err != cudaSuccess) return err;
+    out[0] = attr.numRegs;
+    out[1] = static_cast<int>(attr.localSizeBytes);
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[2], fn, chains, smem);
+  });
 }
 
 }  // extern "C"

@@ -5,8 +5,10 @@ float32 with chains on the last axis. Two paths:
 
 - ``hmc_sweep``: the CUDA kernel (``csrc/hmc_sweep.cu``), one chain per
   thread with the whole sweep in registers, for densities that carry a
-  hand-written device body (``kernels/bodies.py``). It replaces the Pallas
-  TPU kernel ``_hmc_kernel`` and its PRNG helpers.
+  hand-written device body (``kernels/bodies.py``), in the body's variant
+  (``Body.variant``: the flagship's shape compiled with its constants as
+  kernel parameters, or a runtime shape). It replaces the Pallas TPU kernel
+  ``_hmc_kernel`` and its PRNG helpers.
 - ``_reference_hmc``: the plain torch twin, any column density, gradients
   from autograd.
 
@@ -205,16 +207,46 @@ def _reference_hmc(
 
 _RNG_IDS = {"counter": 0, "philox": 1}
 
+# threads a block of the CUDA sweep (the kernel's kThreads)
+THREADS = 128
+
 
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = _build.load("hmc_sweep")
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.hmc_sweep.argtypes = [P, P, P, P, P, I, I, I, I, I, I, F, I, I, F, I, I, I, P]
+    lib.hmc_sweep.argtypes = [P, P, P, P, P, P, I, I, I, I, I, I, I, F, I, I, F, I, I, I, P]
     lib.hmc_sweep.restype = I
+    lib.hmc_smem_limit.argtypes = [I]
+    lib.hmc_smem_limit.restype = I
+    lib.hmc_smem_bytes.argtypes = [I, I, I, I, I]
+    lib.hmc_smem_bytes.restype = ctypes.c_long
+    lib.hmc_kernel_info.argtypes = [I, I, I, I, I, P]
+    lib.hmc_kernel_info.restype = I
     lib.counter_stream.argtypes = [P, P, P, I, I, I, I, I, P]
     lib.counter_stream.restype = I
     return lib
+
+
+def smem_bytes(body: Body, d: int) -> int:
+    """Dynamic shared memory of one sweep block: the body's constants (``X``
+    and ``y``, to a float4) in the generic variant, then ``eps * M^-1``,
+    ``M^-1`` and the momentum sd. Above 48 KiB the launch opts in to more,
+    up to the card's limit."""
+    return 4 * (body.shared_consts_floats(d) + 3 * d)
+
+
+def kernel_info(body: Body, d: int) -> dict:
+    """The CUDA runtime's view of the sweep kernel ``body`` takes at ``D =
+    d``: registers a thread, local (spill) bytes a thread, and resident
+    blocks an SM."""
+    out = (ctypes.c_int * 3)()
+    err = _lib().hmc_kernel_info(
+        d, body.kind, int(body.variant(d) == "specialised"), body.n_obs, body.d_w, out
+    )
+    if err != 0:
+        raise RuntimeError(f"hmc_kernel_info failed with CUDA error {err}")
+    return {"registers": out[0], "local_bytes": out[1], "blocks_per_sm": out[2]}
 
 
 def _int32(x: int) -> int:
@@ -235,7 +267,10 @@ def hmc_sweep(
 ):
     """Launch the CUDA sweep kernel on the current stream, without
     synchronising. ``q0`` is a contiguous float32 CUDA tensor of shape
-    ``(D, N)`` with ``D`` 8 or 16. ``rng="counter"`` needs ``block_n``.
+    ``(D, N)`` with ``D`` 8 or 16. ``rng="counter"`` needs ``block_n``, the
+    stream's chain block, which is independent of the launch block
+    (``THREADS``). The body's variant taken is recorded on
+    ``hmc_sweep.last_variant``.
 
     Returns ``(q, accepts)``: positions ``(D, N)`` and per-chain accepted
     step counts ``(N,)``.
@@ -257,6 +292,18 @@ def hmc_sweep(
         raise ValueError("the counter stream needs its chain block: pass block_n")
     if n_steps < 0 or L < 0:
         raise ValueError("n_steps and L must be non-negative")
+    variant = body.variant(d)
+    smem = smem_bytes(body, d)
+    device_index = q0.device.index if q0.device.index is not None else torch.cuda.current_device()
+    limit = _lib().hmc_smem_limit(device_index)
+    if limit < 0:
+        raise RuntimeError(f"could not read the shared-memory limit of CUDA device {device_index}")
+    if smem > limit:
+        raise ValueError(
+            f"K1 needs {smem} B of shared memory per block for {body.name}'s {body.n_obs} x "
+            f"{body.d_w} constants; this card allows {limit} B per block "
+            f"(cudaDevAttrMaxSharedMemoryPerBlockOptin)"
+        )
     inv_mass = _inv_mass_col(inv_mass, d, q0.device).reshape(d).contiguous()
     consts = body.consts_on(q0.device)
     q_out = torch.empty_like(q0)
@@ -264,14 +311,19 @@ def hmc_sweep(
     with torch.cuda.device(q0.device):
         err = _lib().hmc_sweep(
             q0.data_ptr(), q_out.data_ptr(), accepts.data_ptr(), inv_mass.data_ptr(),
-            consts.data_ptr(), consts.numel(), body.kind, d, n, body.n_obs, body.d_w,
-            body.obs_scale, n_steps, L, eps, _int32(seed), _RNG_IDS[rng], block_n or 1,
+            consts.data_ptr(), body.consts.data_ptr(), consts.numel(), body.kind,
+            int(variant == "specialised"), d, n, body.n_obs, body.d_w, body.obs_scale,
+            n_steps, L, eps, _int32(seed), _RNG_IDS[rng], block_n or 1,
             torch.cuda.current_stream(q0.device).cuda_stream,
         )
     if err != 0:
         raise RuntimeError(f"hmc_sweep kernel launch failed with CUDA error {err}")
     hmc_sweep_launches += 1
+    hmc_sweep.last_variant = variant
     return q_out, accepts
+
+
+hmc_sweep.last_variant = None
 
 
 def counter_stream_cuda(seed: int, block: int, salt: int, shape, device):

@@ -25,6 +25,19 @@ from .hmc import pallas_hmc, warmup_column
 from .nuts_pallas import pallas_nuts, warmup_column_nuts
 
 
+def _device(device) -> torch.device:
+    """``device`` as a torch device. The entry points run on the card unless
+    the caller asks for the CPU; where the card is asked for and there is
+    none, they raise rather than run on the CPU."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "column_hmc and column_nuts run on the card by default (device='cuda'), and "
+            "torch sees no CUDA device here; pass device='cpu' to run the plain twin on the CPU"
+        )
+    return device
+
+
 def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
 
@@ -134,11 +147,13 @@ def column_hmc(
     warmup: bool = False,
     inv_mass=None,
     mass: str = "diag",
-    device="cpu",
+    device="cuda",
 ):
     """Prior-initialized, MH-adjusted HMC over ``addresses`` in the column
-    layout, on ``device``. Returns ``(positions, accept_rate, packer)``;
-    decode single chains with ``packer.unpack(positions[:, i])``.
+    layout, on ``device``: the card by default; ``device="cpu"`` runs the
+    plain twin on the CPU, and without a card the default raises. Returns
+    ``(positions, accept_rate, packer)``; decode single chains with
+    ``packer.unpack(positions[:, i])``.
 
     ``backend``, ``interpret`` and ``block_n`` are those of ``pallas_hmc``.
     ``warmup=True`` first adapts ``eps`` (from ``eps`` as its start) and the
@@ -159,7 +174,7 @@ def column_hmc(
     ...     _ = g.normal(mu, 1.0) @ "y"
     >>> q, accept, packer = column_hmc(
     ...     model, g.C["y"].set(2.0), (), ["mu"],
-    ...     n_chains=256, n_steps=100, eps=0.5, L=5, seed=1,
+    ...     n_chains=256, n_steps=100, eps=0.5, L=5, seed=1, device="cpu",
     ... )
     >>> tuple(q.shape)   # (packed dims padded to a multiple of 8, chains)
     (8, 256)
@@ -171,11 +186,12 @@ def column_hmc(
             f"mass={mass!r}: the dense metric comes with the port of kernels/dense_mass.py "
             "(ROADMAP queue 1, item 13)"
         )
+    device = _device(device)
     if constraint is None:
         constraint = ChoiceMap.empty()
     packer = ColumnPacker(model, constraint, args, addresses)
     logdensity_cols = column_logdensity(model, constraint, args, packer)
-    q0 = init_columns(model, constraint, args, packer, n_chains, seed, torch.device(device))
+    q0 = init_columns(model, constraint, args, packer, n_chains, seed, device)
     if warmup:
         q0, eps, inv_mass = warmup_column(logdensity_cols, q0, seed, eps0=eps, L=L, backend=backend)
     q, accept = pallas_hmc(
@@ -201,11 +217,12 @@ def column_nuts(
     block_n: int | None = None,
     interpret: bool = False,
     backend: str = "auto",
-    device="cpu",
+    device="cuda",
 ):
     """Prior-initialized No-U-Turn sampling over ``addresses`` in the column
-    layout, on ``device``. Returns ``(positions, accept_stat,
-    mean_leapfrogs, packer)``.
+    layout, on ``device``: the card by default; ``device="cpu"`` runs the
+    plain twin on the CPU, and without a card the default raises. Returns
+    ``(positions, accept_stat, mean_leapfrogs, packer)``.
 
     ``backend``, ``interpret`` and ``block_n`` are those of
     ``nuts_pallas.pallas_nuts``: on a CUDA device the default runs the CUDA
@@ -224,18 +241,19 @@ def column_nuts(
     ...     _ = g.normal(mu, 1.0) @ "y"
     >>> q, accept, leaps, packer = column_nuts(
     ...     model, g.C["y"].set(2.0), (), ["mu"],
-    ...     n_chains=256, n_steps=20, eps=0.5, max_depth=5, seed=1,
+    ...     n_chains=256, n_steps=20, eps=0.5, max_depth=5, seed=1, device="cpu",
     ... )
     >>> tuple(q.shape)
     (8, 256)
     >>> bool(abs(q[0].mean() - 1.0) < 0.3)   # posterior mean = 1
     True
     """
+    device = _device(device)
     if constraint is None:
         constraint = ChoiceMap.empty()
     packer = ColumnPacker(model, constraint, args, addresses)
     logdensity_cols = column_logdensity(model, constraint, args, packer)
-    q0 = init_columns(model, constraint, args, packer, n_chains, seed, torch.device(device))
+    q0 = init_columns(model, constraint, args, packer, n_chains, seed, device)
     if warmup:
         q0, eps, inv_mass = warmup_column_nuts(
             logdensity_cols, q0, seed, eps0=eps, max_depth=max_depth, backend=backend,

@@ -33,7 +33,9 @@ from .nuts import nuts_sweep_cols
 # launches of the CUDA NUTS kernel in this process
 nuts_sweep_launches = 0
 
-DEFAULT_BLOCK = 128
+# chains a block on the Philox stream; the counter stream's block is its
+# chain block ``block_n``
+DEFAULT_BLOCK = 32
 MAX_BLOCK = 256  # the kernel's __launch_bounds__
 
 
@@ -41,17 +43,38 @@ MAX_BLOCK = 256  # the kernel's __launch_bounds__
 def _lib() -> ctypes.CDLL:
     lib = _build.load("nuts_sweep")
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.nuts_sweep.argtypes = [P, P, P, P, P, P, I, I, I, I, I, I, F, I, F, F, I, I, I, I, P]
+    lib.nuts_sweep.argtypes = [
+        P, P, P, P, P, P, P, I, I, I, I, I, I, I, F, I, F, F, I, I, I, I, P,
+    ]
     lib.nuts_sweep.restype = I
     lib.nuts_smem_limit.argtypes = [I]
     lib.nuts_smem_limit.restype = I
+    lib.nuts_smem_bytes.argtypes = [I, I, I, I, I, I, I]
+    lib.nuts_smem_bytes.restype = ctypes.c_long
+    lib.nuts_kernel_info.argtypes = [I, I, I, I, I, I, I, P]
+    lib.nuts_kernel_info.restype = I
     return lib
 
 
-def smem_bytes(d: int, max_depth: int, block: int, n_consts: int) -> int:
-    """Dynamic shared memory of one K4 block: the body's constants, the
-    inverse mass, and the two checkpoint stacks ``(max_depth, D, block)``."""
-    return 4 * (n_consts + d + 2 * max_depth * d * block)
+def smem_bytes(body: Body, d: int, max_depth: int, block: int) -> int:
+    """Dynamic shared memory of one K4 block of ``block`` chains: the body's
+    constants (``X`` and ``y``, to a float4) in the generic variant, then the
+    two checkpoint stacks ``(max_depth, D, block)``."""
+    return 4 * (body.shared_consts_floats(d) + 2 * max_depth * d * block)
+
+
+def kernel_info(body: Body, d: int, max_depth: int, block: int) -> dict:
+    """The CUDA runtime's view of the K4 instantiation ``body`` takes at
+    ``D = d``, launched with ``block`` chains a block: registers a thread,
+    local (spill) bytes a thread, resident blocks an SM."""
+    out = (ctypes.c_int * 3)()
+    err = _lib().nuts_kernel_info(
+        d, body.kind, int(body.variant(d) == "specialised"), body.n_obs, body.d_w, max_depth,
+        block, out,
+    )
+    if err != 0:
+        raise RuntimeError(f"nuts_kernel_info failed with CUDA error {err}")
+    return {"registers": out[0], "local_bytes": out[1], "blocks_per_sm": out[2]}
 
 
 def nuts_sweep(
@@ -70,8 +93,10 @@ def nuts_sweep(
     """Launch the CUDA NUTS kernel on the current stream, without
     synchronising. ``q0`` is a contiguous float32 CUDA tensor ``(D, N)``
     with ``D`` 8 or 16. The launch block is ``block_n`` chains (default
-    128); ``rng="counter"`` needs ``block_n``, which is then also the
-    stream's chain block, and ``N`` a multiple of it.
+    ``DEFAULT_BLOCK``, at most ``MAX_BLOCK``); ``rng="counter"`` needs
+    ``block_n``, which is then also the stream's chain block, and ``N`` a
+    multiple of it. The body's variant taken is recorded on
+    ``nuts_sweep.last_variant``.
 
     Returns ``(q, accept_sums, leapfrog_sums)``: positions ``(D, N)`` and,
     per chain, the accept statistic and the leapfrog count summed over the
@@ -99,8 +124,9 @@ def nuts_sweep(
         raise ValueError(f"n_chains={n} is not a multiple of the chain block {block}")
     if n_steps < 0 or not 1 <= max_depth <= 30:
         raise ValueError("n_steps must be non-negative and max_depth in 1..30")
+    variant = body.variant(d)
     consts = body.consts_on(q0.device)
-    smem = smem_bytes(d, max_depth, block, consts.numel())
+    smem = smem_bytes(body, d, max_depth, block)
     device_index = q0.device.index if q0.device.index is not None else torch.cuda.current_device()
     limit = _lib().nuts_smem_limit(device_index)
     if limit < 0:
@@ -118,14 +144,19 @@ def nuts_sweep(
     with torch.cuda.device(q0.device):
         err = _lib().nuts_sweep(
             q0.data_ptr(), q_out.data_ptr(), accepts.data_ptr(), leaps.data_ptr(),
-            inv_mass.data_ptr(), consts.data_ptr(), consts.numel(), body.kind, d, n,
-            body.n_obs, body.d_w, body.obs_scale, n_steps, eps, divergence_threshold, max_depth,
-            _int32(seed), _RNG_IDS[rng], block, torch.cuda.current_stream(q0.device).cuda_stream,
+            inv_mass.data_ptr(), consts.data_ptr(), body.consts.data_ptr(), consts.numel(),
+            body.kind, int(variant == "specialised"), d, n, body.n_obs, body.d_w,
+            body.obs_scale, n_steps, eps, divergence_threshold, max_depth, _int32(seed),
+            _RNG_IDS[rng], block, torch.cuda.current_stream(q0.device).cuda_stream,
         )
     if err != 0:
         raise RuntimeError(f"nuts_sweep kernel launch failed with CUDA error {err}")
     nuts_sweep_launches += 1
+    nuts_sweep.last_variant = variant
     return q_out, accepts, leaps
+
+
+nuts_sweep.last_variant = None
 
 
 def pallas_nuts(

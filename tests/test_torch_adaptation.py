@@ -114,7 +114,7 @@ def test_column_hmc_warmup_reaches_the_conjugate_posterior():
     n = 512
     q, accept, _ = column_hmc(
         model, g.C["y"].set(2.0), (), ["mu"], n_chains=n, n_steps=50, eps=0.05, L=5, seed=2,
-        warmup=True,
+        warmup=True, device="cpu",
     )
     assert abs(float(q[0].mean()) - 1.0) < 4 * (0.5 / n) ** 0.5
     assert abs(float(q[0].var()) - 0.5) < 0.1

@@ -20,7 +20,7 @@ from genjax_tpu.kernels import ColumnPacker as JaxPacker
 from genjax_tpu.kernels import column_logdensity as jax_column_logdensity
 from genjax_tpu.models import hierarchical_regression as jax_hier
 from genjax_tpu_torch.interop import columns_from_numpy
-from genjax_tpu_torch.kernels import ColumnPacker, column_logdensity
+from genjax_tpu_torch.kernels import ColumnPacker, bodies, column_logdensity
 from genjax_tpu_torch.models import hierarchical_regression
 
 
@@ -134,3 +134,28 @@ def test_body_only_for_the_exact_packing(addresses, constraint):
         obs = obs | g.C["w"].set(np.zeros(8, np.float32))
     packer = ColumnPacker(tm, obs, (), addresses)
     assert column_logdensity(tm, obs, (), packer).body is None
+
+
+@pytest.mark.parametrize(
+    "n_obs, d_w, variant",
+    [(16, 8, "specialised"), (5, 3, "generic"), (3, 7, "generic"), (20, 8, "generic")],
+)
+def test_body_matches_jax_at_shape(n_obs, d_w, variant):
+    """``Body.lp_grad``, the plain version of the kernels' device body, equals
+    the reference's column log-density and its ``jax.vjp`` gradient to 1e-5,
+    at the shape the kernels specialise and at runtime shapes."""
+    rng = np.random.default_rng(10 * n_obs + d_w)
+    X = rng.normal(size=(n_obs, d_w)).astype(np.float32)
+    y = rng.normal(size=(n_obs,)).astype(np.float32)
+    jm, jobs = jax_hier(X), gj.C["y"].set(y)
+    jld = jax_column_logdensity(jm, jobs, (), JaxPacker(jm, jobs, (), ["tau", "w"]))
+    d = max(-(-(1 + d_w) // 8) * 8, 8)
+    q = rng.normal(size=(d, 32)).astype(np.float32)
+    q[0] = rng.uniform(0.5, 2.0, size=32)
+    j_lp, pullback = jax.vjp(jld, jnp.asarray(q))
+    (j_g,) = pullback(jnp.ones_like(j_lp))
+    body = bodies.hier_regression(X, y, 0.25)
+    assert body.variant(d) == variant
+    t_lp, t_g = body.lp_grad(torch.from_numpy(q))
+    np.testing.assert_allclose(t_lp.numpy(), np.asarray(j_lp), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(t_g.numpy(), np.asarray(j_g), rtol=1e-5, atol=1e-5)

@@ -171,6 +171,30 @@ def test_route_refuses_the_card_without_a_body(backend):
         hmc._route(backend, torch.device("cuda"), False)
 
 
+@pytest.mark.parametrize(
+    "shape, d, smem",
+    [
+        (None, 8, 4 * 24),  # iid_normal: eps * M^-1, M^-1 and the momentum sd
+        ((16, 8), 16, 4 * 48),  # the flagship: X, y as kernel parameters
+        ((5, 3), 8, 4 * (20 + 24)),  # 5 x 4 floats of X, y
+        ((1500, 8), 16, 4 * (13500 + 48)),  # past 48 KiB: the launch opts in
+    ],
+)
+def test_shared_memory(shape, d, smem):
+    """K1's shared memory a block. The generic variant keeps X as compact as
+    in device memory, so its size grows as n_obs (d_w + 1); above 48 KiB the
+    launch opts in to more, up to the card's limit (232,448 B on an H100)."""
+    if shape is None:
+        body = bodies.iid_normal()
+    else:
+        rng = np.random.default_rng(1)
+        body = bodies.hier_regression(
+            rng.normal(size=shape).astype(np.float32), rng.normal(size=shape[0]).astype(np.float32), 0.25
+        )
+    assert hmc.smem_bytes(body, d) == smem
+    assert hmc.smem_bytes(bodies.hier_regression(np.ones((5000, 8)), np.ones(5000), 1.0), 16) <= 232448
+
+
 @pytest.mark.cuda
 def test_column_hmc_on_the_card_without_a_body_raises():
     if not torch.cuda.is_available():
@@ -191,18 +215,40 @@ def test_column_hmc_on_the_card_without_a_body_raises():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("body_name, d", [("iid_normal", 8), ("hier_regression", 16)])
-def test_cuda_kernel_matches_plain_twin(body_name, d):
+@pytest.mark.parametrize(
+    "body_name, d, variant",
+    [
+        ("iid_normal", 8, "specialised"),
+        ("hier_regression", 16, "specialised"),
+        ("hier_regression_5x3", 8, "generic"),
+        ("hier_regression_1500x8", 16, "generic"),  # 54,192 B of shared memory
+    ],
+)
+def test_cuda_kernel_matches_plain_twin(body_name, d, variant):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
-    X = np.random.default_rng(0).normal(size=(16, 8)).astype(np.float32)
-    y = np.random.default_rng(1).normal(size=(16,)).astype(np.float32)
-    body = bodies.iid_normal() if body_name == "iid_normal" else bodies.hier_regression(X, y, 0.25)
+    if body_name == "iid_normal":
+        body = bodies.iid_normal()
+    elif body_name == "hier_regression":
+        X = np.random.default_rng(0).normal(size=(16, 8)).astype(np.float32)
+        y = np.random.default_rng(1).normal(size=(16,)).astype(np.float32)
+        body = bodies.hier_regression(X, y, 0.25)
+    elif body_name == "hier_regression_5x3":
+        rng = np.random.default_rng(53)
+        body = bodies.hier_regression(
+            rng.normal(size=(5, 3)).astype(np.float32), rng.normal(size=5).astype(np.float32), 0.25
+        )
+    else:
+        rng = np.random.default_rng(54)
+        body = bodies.hier_regression(
+            rng.normal(size=(1500, 8)).astype(np.float32), rng.normal(size=1500).astype(np.float32), 2.0
+        )
     q0 = torch.from_numpy(_q0(d, 4096, 6, body_name != "iid_normal")).cuda()
-    eps = 0.2 if body_name == "iid_normal" else 0.02
+    eps = {"iid_normal": 0.2, "hier_regression_1500x8": 0.005}.get(body_name, 0.02)
     inv_mass = torch.linspace(0.5, 2.0, d)
     kw = dict(n_steps=5, eps=eps, L=5, inv_mass=inv_mass, rng="counter", block_n=128)
     qk, acc = hmc.hmc_sweep(body, q0, 5, **kw)
+    assert hmc.hmc_sweep.last_variant == variant
     qt, rate = hmc._reference_hmc(body, q0, 5, **kw)
     close = (qk - qt).abs().amax(dim=0) <= 1e-4
     assert float(close.float().mean()) >= 0.995

@@ -184,7 +184,7 @@ def test_column_nuts_warmup_reaches_the_conjugate_posterior():
     n = 512
     q, acc, leaps, packer = column_nuts(
         _normal_model(), g.C["y"].set(2.0), (), ["mu"], n_chains=n, n_steps=10, eps=0.1,
-        max_depth=6, seed=3, warmup=True,
+        max_depth=6, seed=3, warmup=True, device="cpu",
     )
     assert nuts_pallas.pallas_nuts.last_backend == "torch"
     assert tuple(q.shape) == (8, n) and packer.dim == 1
@@ -238,10 +238,47 @@ def test_routing_on_the_cpu():
         nuts.nuts_sweep_cols(bodies.iid_normal(), q0, 0, n_steps=1, eps=0.1, rng="counter", block_n=100)
 
 
+def _flagship_body():
+    X = np.random.default_rng(0).normal(size=(16, 8)).astype(np.float32)
+    y = np.random.default_rng(1).normal(size=(16,)).astype(np.float32)
+    return bodies.hier_regression(X, y, 0.25)
+
+
 def test_shared_memory_budget():
-    """The flagship's K4 block: two (max_depth, D, 128) stacks, the 144
-    constants of X and y, and the inverse mass."""
-    assert nuts_pallas.smem_bytes(16, 8, 128, 144) == 4 * (144 + 16 + 2 * 8 * 16 * 128)
+    """The flagship's default K4 block: X and y are kernel parameters, so
+    only the two (max_depth, D, 32) stacks; six such blocks fit the 228 KiB
+    of shared memory of an H100 SM."""
+    smem = nuts_pallas.smem_bytes(_flagship_body(), 16, 8, nuts_pallas.DEFAULT_BLOCK)
+    assert smem == 4 * 2 * 8 * 16 * 32
+    assert 6 * (smem + 1024) <= 228 * 1024
+
+
+@pytest.mark.parametrize(
+    "shape, d, depth, block, variant, consts_floats",
+    [
+        ((16, 8), 16, 8, 32, "specialised", 0),  # the flagship: X, y as kernel parameters
+        ((5, 3), 8, 6, 128, "generic", 20),  # 5 x 4 floats
+        ((1500, 8), 16, 4, 32, "generic", 13500),  # X as compact as in device memory
+        (None, 8, 6, 128, "specialised", 0),  # iid_normal: no constants
+    ],
+)
+def test_geometry(shape, d, depth, block, variant, consts_floats):
+    """K4's geometry helpers: the body's variant, the shared memory of a
+    block (the generic variant's constants first, rounded up to a float4),
+    and the block sizes the kernel takes."""
+    if shape is None:
+        body = bodies.iid_normal()
+    else:
+        rng = np.random.default_rng(0)
+        body = bodies.hier_regression(
+            rng.normal(size=shape).astype(np.float32), rng.normal(size=shape[0]).astype(np.float32), 0.25
+        )
+    assert body.variant(d) == variant
+    assert body.shared_consts_floats(d) == consts_floats
+    smem = nuts_pallas.smem_bytes(body, d, depth, block)
+    assert smem == 4 * (consts_floats + 2 * depth * d * block)
+    assert block <= nuts_pallas.MAX_BLOCK == 256
+    assert nuts_pallas.DEFAULT_BLOCK == 32
 
 
 @pytest.mark.cuda
@@ -259,22 +296,32 @@ def test_column_nuts_on_the_card_without_a_body_raises():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("body_name, d", [("iid_normal", 8), ("hier_regression", 16)])
+@pytest.mark.parametrize(
+    "body_name, d",
+    [("iid_normal", 8), ("hier_regression", 16), ("hier_regression_5x3", 8)],
+)
 def test_cuda_kernel_matches_plain_twin(body_name, d):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
-    X = np.random.default_rng(0).normal(size=(16, 8)).astype(np.float32)
-    y = np.random.default_rng(1).normal(size=(16,)).astype(np.float32)
-    body = bodies.iid_normal() if body_name == "iid_normal" else bodies.hier_regression(X, y, 0.25)
+    if body_name == "iid_normal":
+        body = bodies.iid_normal()
+    elif body_name == "hier_regression":
+        body = _flagship_body()
+    else:
+        rng = np.random.default_rng(53)
+        body = bodies.hier_regression(
+            rng.normal(size=(5, 3)).astype(np.float32), rng.normal(size=5).astype(np.float32), 0.25
+        )
     q0 = torch.from_numpy(_q0(d, 4096, 6, body_name != "iid_normal")).cuda()
     eps = 0.4 if body_name == "iid_normal" else 0.05
     inv_mass = torch.linspace(0.5, 2.0, d)
     kw = dict(n_steps=3, eps=eps, max_depth=6, inv_mass=inv_mass, rng="counter", block_n=128)
     qk, acc, leaps = nuts_pallas.nuts_sweep(body, q0, 5, **kw)
+    assert nuts_pallas.nuts_sweep.last_variant == body.variant(d)
     qt, rate, mean_leaps = nuts.nuts_sweep_cols(body, q0, 5, **kw)
     close = (qk - qt).abs().amax(dim=0) <= 1e-4
     assert float(close.float().mean()) >= 0.99
     assert abs(float(acc.mean()) / 3 - float(rate)) <= 0.005
     assert abs(float(leaps.mean()) / 3 - float(mean_leaps)) <= 0.01 * float(mean_leaps)
     with pytest.raises(ValueError, match="shared memory"):
-        nuts_pallas.nuts_sweep(body, q0, 5, n_steps=1, eps=eps, max_depth=30, block_n=256)
+        nuts_pallas.nuts_sweep(body, q0, 5, n_steps=1, eps=eps, max_depth=30, block_n=128)

@@ -6,10 +6,12 @@ of each ``w_j`` within 4 combined Monte Carlo standard errors. The two start
 from different prior draws (the port's generator stream is not the
 reference's), so the comparison is of laws, not of draws.
 ``linear_regression``'s conjugate posterior matches the reference's and is
-recovered by the port's sampler.
+recovered by the port's sampler. The entry points run on the card by
+default, and without one the default raises instead of running on the CPU.
 """
 
 import numpy as np
+import pytest
 import torch
 
 import genjax_tpu as gj
@@ -17,8 +19,9 @@ import genjax_tpu_torch as g
 from genjax_tpu.kernels import column_hmc as jax_column_hmc
 from genjax_tpu.models import hierarchical_regression as jax_hier
 from genjax_tpu.models import linear_regression as jax_linear
-from genjax_tpu_torch.kernels import column_hmc
+from genjax_tpu_torch.kernels import column_hmc, column_nuts
 from genjax_tpu_torch.kernels.hmc import pallas_hmc
+from genjax_tpu_torch.kernels.nuts_pallas import pallas_nuts
 from genjax_tpu_torch.models import hierarchical_regression, linear_regression
 
 N_CHAINS = 512
@@ -34,7 +37,9 @@ def test_flagship_column_hmc_matches_jax_in_law():
     X, y = flagship_data()
     kw = dict(n_chains=N_CHAINS, n_steps=50, eps=0.02, L=5, seed=0)
     jq, jacc, _ = jax_column_hmc(jax_hier(X), gj.C["y"].set(y), (), ["tau", "w"], backend="xla", **kw)
-    tq, tacc, packer = column_hmc(hierarchical_regression(X), g.C["y"].set(y), (), ["tau", "w"], **kw)
+    tq, tacc, packer = column_hmc(
+        hierarchical_regression(X), g.C["y"].set(y), (), ["tau", "w"], device="cpu", **kw
+    )
     assert pallas_hmc.last_backend == "torch"
     assert tuple(tq.shape) == (16, N_CHAINS) and bool(torch.isfinite(tq).all())
     jw, tw = np.asarray(jq)[1:9], tq[1:9].numpy()
@@ -60,10 +65,27 @@ def test_linear_regression_posterior_mean_recovered():
     model, exact_posterior = linear_regression(X, obs_scale=0.5)
     mean, cov = exact_posterior(y)
     q, acc, packer = column_hmc(
-        model, g.C["y"].set(y), (), ["w"], n_chains=1024, n_steps=150, eps=0.1, L=5, seed=4
+        model, g.C["y"].set(y), (), ["w"], n_chains=1024, n_steps=150, eps=0.1, L=5, seed=4,
+        device="cpu",
     )
     assert float(acc) > 0.6
     w = q[:3]
     se = torch.sqrt(torch.diagonal(cov) / 1024)
     assert bool(((w.mean(dim=1) - mean).abs() < 5 * se + 0.01).all()), (w.mean(dim=1), mean)
     torch.testing.assert_close(w.var(dim=1), torch.diagonal(cov), rtol=0.2, atol=1e-3)
+
+
+@pytest.mark.parametrize("entry", ["column_hmc", "column_nuts"])
+def test_entry_points_default_to_the_card(entry, monkeypatch):
+    """Without a card the default ``device`` raises and runs nothing on the
+    CPU; ``device="cpu"`` runs the plain twin there."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    X, y = flagship_data()
+    fn = column_hmc if entry == "column_hmc" else column_nuts
+    kw = dict(n_chains=64, n_steps=2, eps=0.02)
+    pallas_hmc.last_backend = pallas_nuts.last_backend = None
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        fn(hierarchical_regression(X), g.C["y"].set(y), (), ["tau", "w"], **kw)
+    assert pallas_hmc.last_backend is None and pallas_nuts.last_backend is None
+    out = fn(hierarchical_regression(X), g.C["y"].set(y), (), ["tau", "w"], device="cpu", **kw)
+    assert out[0].device.type == "cpu" and tuple(out[0].shape) == (16, 64)
