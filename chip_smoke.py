@@ -13,12 +13,15 @@ a generic one), and drives two workloads through the public entry points:
 the flagship (hierarchical regression, 65,536 chains) with ``column_hmc``,
 ``column_hmc(warmup=True)`` and the adapted ``column_nuts(warmup=True)``;
 and exact sampling of GP latents (D = 256, 8,192 chains,
-``bench.py::bench_gp``'s setup) with ``ess_sweep_gauss_pallas``, held
-against the closed-form posterior. It checks that each path launched its
-kernel in the body variant it should, and agrees in law with the plain twin;
-it times the kernels and the twins, computes each kernel's bound from the
-work this run's inputs need, and prints one JSON line of kernel results and a
-last JSON line naming the device. Any failed check exits non-zero; so does a machine
+``bench.py::bench_gp``'s setup, with ``chol`` put on the card once) with
+``ess_sweep_gauss_pallas``, held against the closed-form posterior. It checks
+that each path launched its kernel in the variant it should (K1 and K4: the
+body's; K3: the tiled one), and agrees in law with the plain twin; it checks
+each kernel's shared-memory reckoning in Python against the kernel's own,
+times the kernels and the twins, computes each kernel's bound from the work
+this run's inputs need (K3's on the FP32 pipes and on the tensor cores), and
+prints one JSON line of kernel results and a last JSON line naming the
+device. Any failed check exits non-zero; so does a machine
 without CUDA.
 """
 
@@ -61,8 +64,10 @@ GP_NOISE = 0.3
 K3_WINDOW_S = 3.0
 K3_TWIN_TIMED_SWEEPS = 2
 
-# the H100 SXM's published peaks: FP32 outside the tensor cores, and HBM3
+# the H100 SXM's published peaks: FP32 outside the tensor cores, TF32 on
+# the tensor cores (dense), and HBM3
 FP32_FLOPS = 67e12
+TF32_FLOPS = 495e12
 HBM_BYTES_S = 3.35e12
 
 
@@ -152,16 +157,28 @@ def k4_bound(n: int, d: int, n_steps: int, leaps_total: float, grad_flop: int, n
     return bound(flop, 4 * (2 * d * n + 2 * n + d + n_consts))
 
 
-def k3_bound(chol: torch.Tensor, n: int, n_steps: int):
-    """K3's bound: the product ``chol @ z`` a chain and step, D (D + 1) FLOP
-    where ``chol`` is lower-triangular (checked: a Cholesky factor is, and
-    its zero upper triangle needs no work), else 2 D^2; and about 15 D for
-    the five coefficient sums and the update; the shrink and the draws are
-    not counted. q read and written once, chol, y, prec and mean read."""
+def k3_bound(chol: torch.Tensor, n: int, n_steps: int) -> dict:
+    """K3's bound, two lines for the same work: the product ``chol @ z`` a
+    chain and step, D (D + 1) FLOP where ``chol`` is lower-triangular
+    (checked: a Cholesky factor is, and its zero upper triangle needs no
+    work), else 2 D^2; about 15 D for the five coefficient sums and the
+    update (the shrink and the draws are not counted); q read and written
+    once, chol, y, prec and mean read. ``fp32``: all of it over the FP32
+    FFMA peak. ``tensor``: the product as 3xTF32, three times its FLOP over
+    the TF32 tensor-core peak, beside the rest over the FP32 peak (the two
+    pipes run side by side). Each line is the larger of its operations and
+    its bytes; K3's bound is the lesser line."""
     d = chol.shape[0]
-    product = d * (d + 1) if bool((chol.triu(1) == 0).all()) else 2 * d * d
-    flop = n * n_steps * (product + 15 * d)
-    return bound(flop, 4 * (2 * d * n + d * d + 3 * d))
+    product = n * n_steps * (d * (d + 1) if bool((chol.triu(1) == 0).all()) else 2 * d * d)
+    rest = n * n_steps * 15 * d
+    t_bytes = 4 * (2 * d * n + d * d + 3 * d) / HBM_BYTES_S
+    fp32 = max((product + rest) / FP32_FLOPS, t_bytes)
+    tensor = max(3 * product / TF32_FLOPS, rest / FP32_FLOPS, t_bytes)
+    return {
+        "fp32_ms": 1e3 * fp32, "tensor_ms": 1e3 * tensor, "bytes_ms": 1e3 * t_bytes,
+        "product_gflop": product / 1e9, "rest_gflop": rest / 1e9,
+        "ms": 1e3 * min(fp32, tensor), "by": "operations" if min(fp32, tensor) > t_bytes else "bytes",
+    }
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -186,9 +203,9 @@ def ptxas_kernels(report: str):
         mangled = chunk.split("'", 1)[0]
         m = re.search(r"([a-z][a-z_]*_kernel)", mangled)
         name = m.group(1) if m else mangled
-        targs = re.search(r"_kernelI((?:Li\d+E)+)E", mangled)
+        targs = re.search(r"_kernelI((?:L[ib]\d+E)+)E", mangled)
         if targs:
-            name += "<" + ",".join(re.findall(r"Li(\d+)E", targs.group(1))) + ">"
+            name += "<" + ",".join(re.findall(r"L[ib](\d+)E", targs.group(1))) + ">"
         regs = re.search(r"Used (\d+) registers", chunk)
         spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", chunk)
         smem = re.search(r"(\d+) bytes smem", chunk)
@@ -258,15 +275,28 @@ def compare_counter(ld, body, q0_np, seed, eps, device, hmc):
     )
 
 
-def compare_ess_counter(d, n, block_n, device, elliptical):
+def symmetric_root(chol: np.ndarray) -> np.ndarray:
+    """The symmetric square root of ``chol chol'``, in float64: a full
+    factor of the same prior, with no zero tile."""
+    L = chol.astype(np.float64)
+    w, V = np.linalg.eigh(L @ L.T)
+    return ((V * np.sqrt(np.clip(w, 0.0, None))) @ V.T).astype(np.float32)
+
+
+def compare_ess_counter(d, n, block_n, factor, device, elliptical):
     """K3 and its plain version on the counter stream, through
     ``ess_sweep_gauss_pallas(interpret=True)``, 5 steps from one numpy
     ``q0``: ``(fraction within 1e-4, differing chains, max abs err over
-    agreeing chains)``. D = 256 is the GP path's data; smaller D take a
-    random SPD prior, D = 16 with vector ``prec`` and ``mean``."""
+    agreeing chains)``; the variant K3 took is on
+    ``elliptical.ess_gauss_sweep.last_variant``. D = 256 is the GP path's
+    data, with its Cholesky factor or (``factor="full"``) the symmetric
+    square root of the same prior; smaller D take a random SPD prior, D = 16
+    with vector ``prec`` and ``mean``."""
     rng = np.random.default_rng(100 + d)
     if d == GP_D:
         chol, y = gp_data()
+        if factor == "full":
+            chol = symmetric_root(chol)
         kw = dict(prec=1.0 / GP_NOISE**2)
     else:
         A = rng.normal(size=(d, d))
@@ -279,47 +309,59 @@ def compare_ess_counter(d, n, block_n, device, elliptical):
     q0 = torch.from_numpy(rng.normal(size=(d, n)).astype(np.float32)).to(device)
     kw.update(n_steps=5, chol_prior=chol, y=y, block_n=block_n, interpret=True)
     qk = elliptical.ess_sweep_gauss_pallas(q0, 7, backend="cuda", **kw)
+    variant = elliptical.ess_gauss_sweep.last_variant
     qt = elliptical.ess_sweep_gauss_pallas(q0, 7, backend="torch", **kw)
     torch.cuda.synchronize()
     check(bool(torch.isfinite(qk).all()), "K3 positions are not finite")
     err = (qk - qt).abs().amax(dim=0)
     close = err <= 1e-4
-    return float(close.float().mean()), int((~close).sum()), float(err[close].max())
+    return float(close.float().mean()), int((~close).sum()), float(err[close].max()), variant
 
 
 def gp_path(device, smi: str, elliptical) -> dict:
     """K3 against its plain version, the GP main path, the main path against
     the twin in law, and the timings. Returns K3's entry of the kernels
     line."""
-    for d, n, block_n in [(3, 512, None), (16, 4096, 128), (GP_D, GP_CHAINS, None)]:
-        frac, n_diff, err = compare_ess_counter(d, n, block_n, device, elliptical)
+    for d, n, block_n, factor in [(3, 512, None, "lower"), (16, 4096, 128, "lower"),
+                                  (GP_D, GP_CHAINS, None, "lower"), (GP_D, GP_CHAINS, None, "full")]:
+        frac, n_diff, err, variant = compare_ess_counter(d, n, block_n, factor, device, elliptical)
         block = block_n or elliptical._default_block_n(d, n)
-        phase("K3 vs plain", f"({d}, {n}), block_n {block}, 5 steps: {frac:.5f} of chains within "
-                             f"1e-4 ({n_diff} chains differ), max abs err {err:.3g} on the rest")
-        check(frac >= 0.99, f"K3 ({d}, {n}): only {frac:.4f} of chains agree within 1e-4")
-        if d == GP_D:
+        phase("K3 vs plain", f"({d}, {n}), {factor} factor, {variant} variant, block_n {block}, 5 "
+                             f"steps: {frac:.5f} of chains within 1e-4 ({n_diff} chains differ), max "
+                             f"abs err {err:.3g} on the rest")
+        check(frac >= 0.99, f"K3 ({d}, {n}, {factor}): only {frac:.4f} of chains agree within 1e-4")
+        check(variant == "tiled", f"K3 ({d}, {n}) took the {variant} variant")
+        if d == GP_D and factor == "lower":
             k3_err = err
 
-    # ---- the main path: 40 calls of the public entry point from q0 = 0
+    # ---- the main path: 40 calls of the public entry point from q0 = 0, with
+    # chol, y, prec and mean put on the card once (as bench_gp's jit makes them
+    # device constants)
     chol, y = gp_data()
     prec = 1.0 / GP_NOISE**2
-    elliptical.ess_gauss_sweep_launches = 0
+    chol_d = torch.as_tensor(chol, device=device)
+    y_d, prec_d, mean_d = (torch.as_tensor(v, dtype=torch.float32, device=device)
+                           for v in (y, np.full(GP_D, prec), np.zeros(GP_D)))
+    gp_kw = dict(n_steps=GP_STEPS, chol_prior=chol_d, y=y_d, prec=prec_d, mean=mean_d)
     q = torch.zeros(GP_D, GP_CHAINS, device=device)
+    torch.cuda.synchronize()
+    elliptical.ess_gauss_sweep_launches = 0
     t0 = time.perf_counter()
     for s in range(GP_SWEEPS):
         q_prev = q
-        q = elliptical.ess_sweep_gauss_pallas(q, SEED + s, n_steps=GP_STEPS, chol_prior=chol, y=y, prec=prec)
+        q = elliptical.ess_sweep_gauss_pallas(q, SEED + s, **gp_kw)
     torch.cuda.synchronize()
     gp_s = time.perf_counter() - t0
     launches = elliptical.ess_gauss_sweep_launches
     check(elliptical.ess_sweep_gauss_pallas.last_backend == "cuda",
           f"the GP path took {elliptical.ess_sweep_gauss_pallas.last_backend}")
+    check(elliptical.ess_gauss_sweep.last_variant == "tiled",
+          f"the GP path took K3's {elliptical.ess_gauss_sweep.last_variant} variant")
     check(launches == GP_SWEEPS, f"{GP_SWEEPS} calls made {launches} K3 launches")
+    main_variant = elliptical.ess_gauss_sweep.last_variant
     check(tuple(q.shape) == (GP_D, GP_CHAINS), f"GP positions have shape {tuple(q.shape)}")
     check(bool(torch.isfinite(q).all()), "GP positions are not finite")
-    q_again = elliptical.ess_sweep_gauss_pallas(
-        q_prev, SEED + GP_SWEEPS - 1, n_steps=GP_STEPS, chol_prior=chol, y=y, prec=prec
-    )
+    q_again = elliptical.ess_sweep_gauss_pallas(q_prev, SEED + GP_SWEEPS - 1, **gp_kw)
     check(torch.equal(q_again, q), "K3 is not deterministic: the last call did not repeat")
     m_exact, sd_exact = gp_closed_form(chol, y)
     draws = q.double().cpu().numpy()
@@ -327,8 +369,9 @@ def gp_path(device, smi: str, elliptical) -> dict:
     sd_ratio = draws.std(axis=1) / sd_exact
     phase("main path GP", f"ess_sweep_gauss_pallas D={GP_D} x {GP_CHAINS} chains x {GP_STEPS} "
                           f"steps, {GP_SWEEPS} calls from q0 = 0 on "
-                          f"{elliptical.ess_sweep_gauss_pallas.last_backend}: {launches} K3 "
-                          f"launches, {gp_s:.3f} s (host clock); repeat of the last call equal; "
+                          f"{elliptical.ess_sweep_gauss_pallas.last_backend}, K3's "
+                          f"{elliptical.ess_gauss_sweep.last_variant} variant: {launches} K3 "
+                          f"launches, {gp_s:.4f} s (host clock); repeat of the last call equal; "
                           f"|mean - closed form| / posterior sd: mean over dims "
                           f"{float(z_mean.mean()):.4f} (limit 0.1), max {float(z_mean.max()):.4f}; "
                           f"sd / closed form in [{float(sd_ratio.min()):.4f}, "
@@ -338,10 +381,9 @@ def gp_path(device, smi: str, elliptical) -> dict:
 
     # ---- one more sweep by K3 (Philox) and by the twin (generator), in law
     seed = SEED + GP_SWEEPS
-    kw = dict(n_steps=GP_STEPS, chol_prior=chol, y=y, prec=prec)
-    qk = elliptical.ess_sweep_gauss_pallas(q, seed, **kw)
+    qk = elliptical.ess_sweep_gauss_pallas(q, seed, **gp_kw)
     t0 = time.perf_counter()
-    qt = elliptical.ess_sweep_gauss_pallas(q, seed, backend="torch", **kw)
+    qt = elliptical.ess_sweep_gauss_pallas(q, seed, backend="torch", **gp_kw)
     torch.cuda.synchronize()
     twin_s = time.perf_counter() - t0
     check(elliptical.ess_sweep_gauss_pallas.last_backend == "torch", "the twin run did not take the twin")
@@ -355,58 +397,67 @@ def gp_path(device, smi: str, elliptical) -> dict:
     check(bool((sd_rel < 0.05).all()), f"GP sds differ from the twin by up to {float(sd_rel.max()):.4f}")
 
     # ---- timings at the path's shape, from K3's state
-    y_d, prec_d, mean_d = (torch.as_tensor(v, dtype=torch.float32, device=device).reshape(GP_D, 1)
-                           for v in (y, np.full(GP_D, prec), np.zeros(GP_D)))
-    chol_d = torch.as_tensor(chol, device=device)
     k3_kw = dict(n_steps=GP_STEPS, chol=chol_d, y=y_d, prec=prec_d, mean=mean_d)
 
-    def k3_sweep():
-        return elliptical.ess_gauss_sweep(q, seed, **k3_kw)
+    def k3_sweep(**kw):
+        return elliptical.ess_gauss_sweep(q, seed, **k3_kw, **kw)
 
     k3_reps = max(3, math.ceil(1.2 * K3_WINDOW_S * 1e3 / cuda_ms(k3_sweep, 20)))
     k3_ms = cuda_ms(k3_sweep, k3_reps)
     check(k3_ms * k3_reps >= K3_WINDOW_S * 1e3, f"K3 timing window {k3_ms * k3_reps:.0f} ms < 3 s")
-    plain_ms = cuda_ms(lambda: elliptical._reference_ess_gauss(q, seed, **k3_kw), K3_TWIN_TIMED_SWEEPS)
+    plain_ms = cuda_ms(lambda: elliptical._reference_ess_gauss(
+        q, seed, **dict(k3_kw, y=y_d[:, None], prec=prec_d[:, None], mean=mean_d[:, None])
+    ), K3_TWIN_TIMED_SWEEPS)
+    b = k3_bound(chol_d, GP_CHAINS, GP_STEPS)
     transitions = GP_CHAINS * GP_STEPS
-    gflop = 2.0 * GP_D * GP_D * GP_CHAINS * GP_STEPS / 1e9
     phase("timing GP", f"{smi}: K3 {k3_ms:.4f} ms per {GP_STEPS}-step sweep (window "
                        f"{k3_ms * k3_reps / 1e3:.2f} s, {k3_reps} sweeps) = "
-                       f"{transitions / k3_ms * 1e3:.6g} transitions/s, product "
-                       f"{gflop / k3_ms * 1e3:.6g} GFLOP/s ({gflop:.4g} GFLOP a sweep; "
-                       f"{gflop / k3_ms * 1e3 / 67e3:.4f} of the 67 TFLOP/s FP32 peak); plain twin "
-                       f"{plain_ms:.2f} ms per sweep ({K3_TWIN_TIMED_SWEEPS} sweeps) = "
-                       f"{transitions / plain_ms * 1e3:.6g} transitions/s ({GP_CHAINS} chains x "
-                       f"{GP_STEPS} steps, D={GP_D}, max_iters 24)")
+                       f"{transitions / k3_ms * 1e3:.6g} transitions/s, the triangle's product "
+                       f"{b['product_gflop'] / k3_ms * 1e3:.6g} GFLOP/s ({b['product_gflop']:.4g} "
+                       f"GFLOP a sweep); plain twin {plain_ms:.2f} ms per sweep "
+                       f"({K3_TWIN_TIMED_SWEEPS} sweeps) = {transitions / plain_ms * 1e3:.6g} "
+                       f"transitions/s ({GP_CHAINS} chains x {GP_STEPS} steps, D={GP_D}, max_iters 24)")
 
-    # K3 without its shrink loop (max_iters 0) and on the counter stream; the
-    # same 50 products as a cuBLAS FP32 GEMM, for reference
-    no_shrink_ms = cuda_ms(lambda: elliptical.ess_gauss_sweep(q, seed, max_iters=0, **k3_kw), 200)
+    # K3 without its shrink loop (max_iters 0), on the counter stream, with a
+    # full factor of the same prior, and with chol = 0 (every tile skipped);
+    # the same 50 square products as a cuBLAS FP32 GEMM, for reference
+    no_shrink_ms = cuda_ms(lambda: k3_sweep(max_iters=0), 200)
     block_n = elliptical._default_block_n(GP_D, GP_CHAINS)
-    counter_ms = cuda_ms(
-        lambda: elliptical.ess_gauss_sweep(q, seed, rng="counter", block_n=block_n, **k3_kw), 200
-    )
+    counter_ms = cuda_ms(lambda: k3_sweep(rng="counter", block_n=block_n), 200)
+    full_d = torch.as_tensor(symmetric_root(chol), device=device)
+    full_ms = cuda_ms(lambda: elliptical.ess_gauss_sweep(q, seed, **dict(k3_kw, chol=full_d)), 200)
+    zero_d = torch.zeros_like(chol_d)  # every tile skipped: no product at all
+    no_product_ms = cuda_ms(lambda: elliptical.ess_gauss_sweep(q, seed, **dict(k3_kw, chol=zero_d)), 200)
     z_gemm = torch.randn(GP_D, GP_CHAINS, device=device)
     gemm_ms = cuda_ms(lambda: [chol_d @ z_gemm for _ in range(GP_STEPS)], 20)
     phase("where the time goes", f"GP: {GP_SWEEPS} calls {gp_s * 1e3:.3f} ms (host clock) against "
                                  f"{GP_SWEEPS} K3 sweeps {GP_SWEEPS * k3_ms:.3f} ms; K3 {k3_ms:.4f} "
                                  f"ms per sweep, {no_shrink_ms:.4f} ms with max_iters 0 (no shrink "
-                                 f"loop), {counter_ms:.4f} ms on the counter stream; the sweep's "
-                                 f"{GP_STEPS} products alone as a cuBLAS FP32 GEMM {gemm_ms:.4f} ms")
-    bound_ms, bound_by = k3_bound(chol_d, GP_CHAINS, GP_STEPS)
+                                 f"loop), {counter_ms:.4f} ms on the counter stream, {full_ms:.4f} "
+                                 f"ms with a full factor (no zero tile to skip), {no_product_ms:.4f} "
+                                 f"ms with chol = 0 (no tile, no product: the draws, sums, shrink "
+                                 f"and updates); the sweep's {GP_STEPS} square products alone as a "
+                                 f"cuBLAS FP32 GEMM {gemm_ms:.4f} ms")
     phase("bound GP", f"K3 at D={GP_D} x {GP_CHAINS} chains x {GP_STEPS} steps, chol "
-                      f"lower-triangular: bound {bound_ms:.4f} ms ({bound_by}), K3 at "
-                      f"{bound_ms / k3_ms:.4f} of it")
+                      f"lower-triangular ({b['product_gflop']:.4g} GFLOP of product, "
+                      f"{b['rest_gflop']:.4g} GFLOP of sums and updates, {b['bytes_ms']:.4f} ms of "
+                      f"bytes): tensor-core line {b['tensor_ms']:.4f} ms (the product as 3xTF32 at "
+                      f"{TF32_FLOPS / 1e12:.0f} TFLOP/s), K3 at {b['tensor_ms'] / k3_ms:.4f} of it; "
+                      f"FP32 line {b['fp32_ms']:.4f} ms ({FP32_FLOPS / 1e12:.0f} TFLOP/s), K3 at "
+                      f"{b['fp32_ms'] / k3_ms:.4f} of it; bound {b['ms']:.4f} ms ({b['by']})")
     return {
         "name": "ess_gauss_sweep (K3)",
         "route": "cuda",
         "source": "genjax_tpu_torch/kernels/csrc/ess_gauss_sweep.cu",
         "replaces": "genjax_tpu/kernels/elliptical.py:364",
+        "variant": main_variant,
         "launches": launches,
         "max_abs_err": k3_err,
         "ms": k3_ms,
         "plain_ms": plain_ms,
-        "bound_ms": bound_ms,
-        "bound_by": bound_by,
+        "bound_ms": b["ms"],
+        "bound_by": b["by"],
+        "bound_fp32_ms": b["fp32_ms"],
         "library_ms": None,  # no single PyTorch call computes the sweep
     }
 
@@ -464,9 +515,13 @@ def main() -> int:
                        f"{body.variant(d)}, D={d}: K1 {k1_smem} B a block; K4 {k4_smem} B a block "
                        f"(depth {NUTS_DEPTH}, {nuts_pallas.DEFAULT_BLOCK} chains) of the card's "
                        f"{nuts_pallas._lib().nuts_smem_limit(0)} B")
-    phase("build", f"K3 dynamic shared memory at the GP launch (D={GP_D}, 64 chains a block): "
-                   f"{elliptical._lib().ess_gauss_smem_bytes(GP_D)} B of the card's "
-                   f"{elliptical._lib().ess_gauss_smem_limit(0)} B per block")
+    for d in (3, 16, 250, GP_D, 300):
+        geo, c_geo = elliptical.geometry(d), elliptical.geometry_cuda(d)
+        check(geo == c_geo, f"K3 geometry at D={d}: the wrapper says {geo}, the kernel {c_geo}")
+        phase("build", f"K3 at D={d}: {geo['variant']} variant, {geo['smem_bytes']} B of dynamic "
+                       f"shared memory a block ({elliptical.NB} chains) of the card's "
+                       f"{elliptical._lib().ess_gauss_smem_limit(0)} B, {geo['tiles']} tiles of chol "
+                       f"(the wrapper's reckoning equals the kernel's)")
     for source in ("hmc_sweep", "nuts_sweep", "ess_gauss_sweep"):
         for name, regs, stores, loads, smem in ptxas_kernels(_build.ptxas_report(source)):
             phase("build", f"{source}.cu {name}: {regs} registers, spill stores {stores} B, "
@@ -489,6 +544,16 @@ def main() -> int:
                            f"block, depth {NUTS_DEPTH}: {info['registers']} registers, "
                            f"{info['local_bytes']} B local a thread, {info['blocks_per_sm']} "
                            f"blocks an SM ({info['blocks_per_sm'] * block // 32} warps)")
+
+    for d in (GP_D, 300):
+        info = elliptical.kernel_info(d)
+        blocks = -(-GP_CHAINS // elliptical.NB)
+        geo = elliptical.geometry(d)
+        phase("occupancy", f"K3 at D={d}, {geo['variant']} variant, {geo['threads']} threads "
+                           f"a block: {info['registers']} registers, {info['local_bytes']} B local a "
+                           f"thread, {info['blocks_per_sm']} block(s) an SM; {GP_CHAINS} chains make "
+                           f"{blocks} blocks = {blocks / (n_sms * max(info['blocks_per_sm'], 1)):.3f} "
+                           f"waves on {n_sms} SMs")
 
     # ---- K2 on the card: bit for bit against the plain counter stream
     worst_rel = 0.0

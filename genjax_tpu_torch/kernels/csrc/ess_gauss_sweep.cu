@@ -17,28 +17,58 @@
 // up to max_iters; then q <- mean + c cos(theta) + nu sin(theta) where a
 // chain accepted, else q.
 //
-// Design: a CUDA block owns kNB = 64 chains for the whole sweep, with q and
-// nu in dynamic shared memory, so q is read from device memory once and
-// written once. The product nu = chol @ z is an FP32 FFMA product written
-// here: the block computes nu's D x 64 tile in row chunks of 256, each
-// thread an 8 x 8 register tile (rows ty*4 + {0..3} and 128 + ty*4 + {0..3},
-// chains tx*4 + {0..3} and 32 + tx*4 + {0..3}); the k-loop streams a 16-wide
-// slab of chol from L2 into shared memory and generates the matching 16 rows
-// of z from the stream into shared memory, so no D x 64 z buffer exists. Each
-// z element is a pure function of (step, row, chain), so a second row chunk
-// (D > 256) regenerates the same z. The five coefficient sums reduce over D
-// with four threads a chain and a shared-memory combine; then one thread a
-// chain runs the shrink. Chains are independent, so the shrink is a
-// per-thread loop that stops when its chain is done: a done chain's bracket,
-// angle and accepted angle never change again, so this gives the unrolled
-// reference's result.
+// A CUDA block owns kNB = 64 chains for the whole sweep, with q in dynamic
+// shared memory, so q is read from device memory once and written once. The
+// five coefficient sums reduce over D with four threads a chain and a
+// shared-memory combine (no atomics, so a launch repeats itself bit for bit);
+// then one thread a chain runs the shrink, a loop that stops when its chain
+// is done (a done chain's bracket and angles never change again, so this
+// gives the unrolled reference's result). Two variants of the product:
 //
-// Bound on this card: the product is 2 D^2 FLOP per chain and step (1.07
-// GFLOP per transition of 8,192 chains at D = 256), all FP32 FFMA, read from
-// shared memory; 8,192 chains make 128 blocks of 256 threads, one block per
-// SM (q and nu take 128 KiB at D = 256), so the FFMA pipes and the shared-
-// memory bandwidth of the inner loop bound it. Tensor cores (TF32 wgmma),
-// TMA for the chol slabs and the tuning of kNB are later work.
+// tiled (D <= 256), the main path's. What bounds it: the product, D (D + 1)
+// FLOP a chain and step over a lower-triangular chol (27 GFLOP a sweep at
+// the GP shape, D = 256 x 8,192 chains x 50 steps); as 3xTF32 on the tensor
+// cores that is three times the product at 495 TFLOP/s, about 0.16 ms.
+// What the design does about it:
+//   - chol is cut into tiles of 16 rows (a band, one m16 MMA tile) by 32
+//     columns (a slab). At the start each block scans chol once from L2 and
+//     marks in shared memory which tiles hold a nonzero; the product skips
+//     the others, so any factor is right and a lower-triangular one costs
+//     about half. No host read of chol decides anything.
+//   - warp w of the 8 compute warps owns bands w and 15 - w, whose k-extents
+//     sum to the same for every warp over a triangle (the usual triangular-
+//     product pairing), and all 64 chains: 64 sums in registers until the
+//     last slab.
+//   - a ninth warp only brings chol's tiles in: lane 0 asks the copy engine
+//     (TMA, a tensor map of chol with the 128-byte swizzle, so the fragment
+//     loads do not conflict on banks, and zeros past D) for each marked tile
+//     of a slab, into a two-stage ring, counted on an mbarrier (`full`); the
+//     compute warps arrive on another (`empty`) when done with a stage, so
+//     no block-wide barrier runs inside the product and a warp with no tile
+//     in a slab goes on to the next. Where chol's rows are not 16-byte
+//     aligned (D % 4 != 0) the warp copies 4 bytes at a time with cp.async.
+//     (Copies issued by the compute warps themselves, and one bulk copy a
+//     tile row, were measured slower; PERF.md.) Slabs run last first, so a
+//     step starts on the slab with the fewest tiles.
+//   - the product runs on the tensor cores in 3xTF32 (mma.sync m16n8k8):
+//     each operand is split as hi = tf32(x) (rounded to nearest in integer
+//     arithmetic) and lo = x - hi (exact, read as TF32 by the tensor core),
+//     and the sum takes lo*hi + hi*lo + hi*hi, small terms first, which keeps
+//     FP32-level accuracy (plain TF32 would change the ellipse's covariance
+//     by about 1e-3, another sampler). The product is bound by the
+//     instructions around the MMAs (the operand splits above all), not by
+//     the tensor cores: PERF.md.
+//   - nu goes into the ring once the product is done, so z's buffer is free
+//     while the shrink runs: the 7 warps that the shrink leaves idle (the
+//     copy warp among them) draw the next step's whole z then (D x 64, rows
+//     padded to 72 floats for conflict-free B fragments).
+//
+// generic (256 < D while q and nu fit in shared memory): one pass of the
+// tiled product cannot hold more than two bands a warp in registers, so the
+// PR 3 design stays for larger D: FP32 FFMA register tiles (8 x 8 a thread)
+// in row chunks of 256, 16-deep slabs of chol transposed into shared memory,
+// and z regenerated slab by slab (each z element is a pure function of step,
+// row and chain).
 //
 // Random streams (runtime flag `rng`):
 //   0 = counter: K2, bit-exact with the reference's interpret-mode stream for
@@ -48,12 +78,15 @@
 //       z on s and s + 1 (row = dimension), the slice uniform on s + 4 and
 //       the angle on s + 5 (row 0), the shrink uniforms on s + 6 (row j).
 //   1 = philox: Philox4x32-10 from curand's header, keyed by (seed, chain),
-//       counter (s, index, kind); held in law only.
+//       counter (s, index, kind); one call gives four normals of z or four
+//       shrink uniforms; held in law only.
 //
-// No fast-math: cosf, sinf and logf are the accurate versions (theta reaches
-// +-2 pi), and a NaN level compares false.
+// No fast-math: sincosf and logf are the accurate versions (theta reaches
+// +-2 pi), and a NaN level compares false. The one intrinsic, __sincosf, is
+// on the Philox draws' Box-Muller angle, kept in [-pi, pi].
 
 #include <cstdint>
+#include <cuda.h>  // CUtensorMap; the encoder comes from the runtime's driver entry point
 #include <cuda_runtime.h>
 #include <curand_kernel.h>
 
@@ -61,13 +94,31 @@
 
 namespace {
 
+constexpr float kPi = 3.14159265358979f;
 constexpr int kNB = 64;          // chains a block
-constexpr int kThreads = 256;    // 8 column groups x 32 row groups
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kCoefs = 5;        // A, B, C, D, E
+constexpr int kParts = kThreads / kNB;  // threads summing one chain's coefficients
+
+enum Variant { kTiled = 0, kGeneric = 1 };
+
+// tiled variant
+constexpr int kBand = 16;                        // rows of a tile: one m16 MMA tile
+constexpr int kSlab = 32;                        // columns of a tile: a slab is a ring stage
+constexpr int kStages = 2;
+constexpr int kWarpBands = 2;                    // bands a warp: w and 15 - w
+constexpr int kWarpTiles = kNB / 8;              // n8 MMA tiles a warp: all 64 chains
+constexpr int kTiledMaxDim = kWarpBands * kWarps * kBand;  // 256
+constexpr int kMaxSlabs = kTiledMaxDim / kSlab;
+constexpr int kTiledThreads = kThreads + 32;     // the 256 compute threads and one copy warp
+constexpr int kTileFloats = kBand * kSlab;       // a tile in the ring, swizzled, no padding
+constexpr int kZStride = kNB + 8;                // conflict-free B fragments
+
+// generic variant
 constexpr int kRowChunk = 256;   // rows of nu a pass computes
 constexpr int kTK = 16;          // depth of a chol / z slab
 constexpr int kCholStride = kRowChunk + 4;  // padded, 16-byte aligned rows of the slab
-constexpr int kCoefs = 5;        // A, B, C, D, E
-constexpr int kParts = kThreads / kNB;  // threads summing one chain's coefficients
 
 struct EssParams {
   const float* q_in;   // (D, N)
@@ -83,16 +134,38 @@ struct EssParams {
   uint32_t seed;
   int rng;
   int block_n;
+  int vec_copy;  // chol rows allow 16-byte copies (D % 4 == 0, chol 16-byte aligned)
 };
 
-// Floats of dynamic shared memory a block takes at dimension D.
-__host__ __device__ constexpr long smem_floats(int D) {
+__host__ __device__ constexpr int round_up(int x, int m) { return (x + m - 1) / m * m; }
+
+__host__ __device__ constexpr long tiled_smem_floats(int D) {
+  static_assert(kStages * kSlab >= kNB, "nu fits in the ring");
+  return 1L * kStages * round_up(D, kBand) * kSlab    // chol ring, then nu
+         + 1024 / sizeof(float)                         // the ring's alignment
+         + 1L * D * kNB                                 // q
+         + 1L * round_up(D, kSlab) * kZStride           // z
+         + kParts * kCoefs * kNB                        // coefficient partial sums
+         + 3L * kNB                                     // cos, sin of the accepted angle, done
+         + 3L * D;                                      // prec, mean, r0
+}
+
+__host__ __device__ constexpr long generic_smem_floats(int D) {
   return 2L * D * kNB                  // q, nu
          + kTK * kCholStride           // chol slab, transposed
          + kTK * kNB                   // z slab
          + kParts * kCoefs * kNB       // coefficient partial sums
          + 3L * kNB                    // cos, sin of the accepted angle, done
          + 3L * D;                     // prec, mean, r0
+}
+
+int variant_for(int D) { return D <= kTiledMaxDim ? kTiled : kGeneric; }
+
+int threads_for(int variant) { return variant == kTiled ? kTiledThreads : kThreads; }
+
+long smem_bytes(int D, int variant) {
+  return static_cast<long>(sizeof(float)) *
+         (variant == kGeneric ? generic_smem_floats(D) : tiled_smem_floats(D));
 }
 
 struct Stream {
@@ -116,8 +189,9 @@ struct Stream {
     }
     const uint4 b = curand_Philox4x32_10(make_uint4(s, k / 4u, 1u, 0u), key);
     float s0, c0, s1, c1;
-    sincosf(kTwoPi * uniform_from_bits(b.y), &s0, &c0);
-    sincosf(kTwoPi * uniform_from_bits(b.w), &s1, &c1);
+    // the angle 2 pi u - pi in [-pi, pi], where __sincosf's error is 2^-21.4
+    __sincosf(fmaf(kTwoPi, uniform_from_bits(b.y), -kPi), &s0, &c0);
+    __sincosf(fmaf(kTwoPi, uniform_from_bits(b.w), -kPi), &s1, &c1);
     const float r0 = sqrtf(-2.0f * logf(uniform_from_bits(b.x)));
     const float r1 = sqrtf(-2.0f * logf(uniform_from_bits(b.z)));
     z[0] = r0 * c0;
@@ -138,16 +212,446 @@ struct Stream {
     u_theta = uniform_from_bits(b.y);
   }
 
-  // the shrink uniform of iteration j (salt s + 6, row j)
-  __device__ __forceinline__ float shrink(uint32_t s, uint32_t j) const {
+  // the shrink uniform of iteration j (salt s + 6, row j), for j = 0, 1, ...
+  // in order: on Philox one call in `cache` serves four iterations
+  __device__ __forceinline__ float shrink(uint32_t s, uint32_t j, uint4& cache) const {
     if (rng == kCounter) return uniform_from_bits(counter_bits(base, s + 6u, j, col));
-    const uint4 b = curand_Philox4x32_10(make_uint4(s, j / 4u, 2u, 0u), key);
+    if (j % 4u == 0u) cache = curand_Philox4x32_10(make_uint4(s, j / 4u, 2u, 0u), key);
     const uint32_t t = j % 4u;
-    return uniform_from_bits(t == 0u ? b.x : t == 1u ? b.y : t == 2u ? b.z : b.w);
+    return uniform_from_bits(t == 0u ? cache.x : t == 1u ? cache.y : t == 2u ? cache.z : cache.w);
   }
 };
 
-__global__ void __launch_bounds__(kThreads, 1) ess_gauss_sweep_kernel(const EssParams p) {
+// ---------------------------------------------------------------- shared steps
+
+// prec, mean, r0 = mean - y and the block's q from device memory
+__device__ __forceinline__ void load_block(const EssParams& p, int n0, float* q_s, float* prec_s,
+                                           float* mean_s, float* r0_s) {
+  for (int d = threadIdx.x; d < p.D; d += kThreads) {
+    prec_s[d] = p.prec[d];
+    mean_s[d] = p.mean[d];
+    r0_s[d] = p.mean[d] - p.y[d];
+  }
+  for (int e = threadIdx.x; e < p.D * kNB; e += kThreads) {
+    const int n = n0 + e % kNB;
+    q_s[e] = n < p.N ? p.q_in[static_cast<size_t>(e / kNB) * p.N + n] : 0.0f;
+  }
+}
+
+__device__ __forceinline__ void store_block(const EssParams& p, int n0, const float* q_s) {
+  for (int e = threadIdx.x; e < p.D * kNB; e += kThreads) {
+    const int n = n0 + e % kNB;
+    if (n < p.N) p.q_out[static_cast<size_t>(e / kNB) * p.N + n] = q_s[e];
+  }
+}
+
+// this thread's share of the five coefficient sums over D: four threads a
+// chain, rows d = part (mod 4), into part_s
+__device__ __forceinline__ void coefficient_parts(int D, const float* q_s, const float* nu_s,
+                                                  const float* prec_s, const float* mean_s,
+                                                  const float* r0_s, float* part_s) {
+  const int chain = threadIdx.x % kNB, part = threadIdx.x / kNB;
+  float a = 0.0f, b = 0.0f, cc = 0.0f, dc = 0.0f, ec = 0.0f;
+#pragma unroll 4
+  for (int d = part; d < D; d += kParts) {
+    const float pr = prec_s[d], r0 = r0_s[d];
+    const float c = q_s[d * kNB + chain] - mean_s[d];
+    const float nu = nu_s[d * kNB + chain];
+    a += pr * c * c;
+    b += pr * nu * nu;
+    cc += pr * c * nu;
+    dc += pr * c * r0;
+    ec += pr * nu * r0;
+  }
+  float* out = part_s + part * kCoefs * kNB + chain;
+  out[0 * kNB] = a;
+  out[1 * kNB] = b;
+  out[2 * kNB] = cc;
+  out[3 * kNB] = dc;
+  out[4 * kNB] = ec;
+}
+
+// the slice and the shrink of chain `chain` (thread < kNB): cos and sin of
+// the accepted angle and whether it accepted
+__device__ __forceinline__ void shrink_chain(const EssParams& p, int n0, int chain, uint32_t salt,
+                                             const float* part_s, float F, float* cos_s,
+                                             float* sin_s, float* done_s) {
+  float coef[kCoefs] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+  for (int g = 0; g < kParts; ++g)
+#pragma unroll
+    for (int m = 0; m < kCoefs; ++m) coef[m] += part_s[(g * kCoefs + m) * kNB + chain];
+  const float A = coef[0], B = coef[1], C = coef[2], Dc = coef[3], E = coef[4];
+  auto ll = [&](float theta) {
+    float st, ct;
+    sincosf(theta, &st, &ct);
+    return -0.5f * (A * ct * ct + B * st * st + 2.0f * C * ct * st + 2.0f * Dc * ct +
+                    2.0f * E * st + F);
+  };
+  const Stream stream(p, n0 + chain);
+  float u, u_theta;
+  stream.start(salt, u, u_theta);
+  const float log_y = -0.5f * (A + 2.0f * Dc + F) + logf(u);
+  const float theta0 = u_theta * kTwoPi;
+  float lo = theta0 - kTwoPi, hi = theta0, theta = theta0, theta_acc = theta0;
+  bool done = ll(theta0) > log_y;
+  uint4 cache = make_uint4(0u, 0u, 0u, 0u);
+  for (int j = 0; j < p.max_iters && !done; ++j) {
+    if (theta >= 0.0f) {
+      hi = theta;
+    } else {
+      lo = theta;
+    }
+    theta = lo + (hi - lo) * stream.shrink(salt, static_cast<uint32_t>(j), cache);
+    if (ll(theta) > log_y) {
+      theta_acc = theta;
+      done = true;
+    }
+  }
+  float st, ct;
+  sincosf(theta_acc, &st, &ct);
+  cos_s[chain] = ct;
+  sin_s[chain] = st;
+  done_s[chain] = done ? 1.0f : 0.0f;
+}
+
+__device__ __forceinline__ float block_f(int D, const float* prec_s, const float* r0_s) {
+  float f = 0.0f;
+  for (int d = 0; d < D; ++d) f += prec_s[d] * r0_s[d] * r0_s[d];
+  return f;
+}
+
+// ---------------------------------------------------------------- tiled variant
+
+__device__ __forceinline__ uint32_t smem_u32(const void* ptr) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count));
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
+// this thread's arrival on `bar`, with `bytes` more to come from the copy engine
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ bool mbar_try_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t ok;
+  asm volatile(
+      "{\n"
+      ".reg .pred P1;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%1], %2;\n"
+      "selp.b32 %0, 1, 0, P1;\n"
+      "}\n"
+      : "=r"(ok)
+      : "r"(smem_u32(bar)), "r"(parity)
+      : "memory");
+  return ok != 0u;
+}
+
+// wait until the phase of `bar` with parity `parity` has completed; a wait
+// that never ends traps (a launch error) rather than hang the card
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  for (int tries = 0; !mbar_try_wait(bar, parity); ++tries)
+    if (tries > (1 << 22)) __trap();
+}
+
+// one tile (kBand rows x kSlab columns from (row, col)) of the tensor `map`
+// by the copy engine (TMA), counted on `bar`
+__device__ __forceinline__ void tma_tile(float* dst, const CUtensorMap* map, int col, int row,
+                                         uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.tile.mbarrier::complete_tx::bytes [%0], [%1, "
+      "{%2, %3}], [%4];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(col), "r"(row), "r"(smem_u32(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(src_bytes)
+               : "memory");
+}
+
+// this thread's arrival on `bar` once its cp.async copies so far have landed
+__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
+// Element (r, c) of a 16 x 32 tile in the ring: rows of 128 bytes whose
+// 16-byte chunks are XOR-swizzled by r % 8, the copy engine's 128-byte
+// swizzle, so that the MMA fragment loads do not conflict on banks.
+__device__ __forceinline__ int tile_at(int r, int c) {
+  return r * kSlab + ((((c >> 2) ^ (r & 7))) << 2) + (c & 3);
+}
+
+// Bring the tiles of slab `slab` that `bands` marks (bit b = rows 16b ..
+// 16b + 15) into a ring stage, tile b at stage + b * kTileFloats, counted on
+// the stage's barrier `full`; called by the copy warp. Where chol's rows are
+// 16-byte aligned (D % 4 == 0) lane 0 asks the copy engine for each tile
+// (one instruction a tile; it zero-fills rows and columns past D); otherwise
+// the lanes copy 4 bytes at a time with cp.async, zero-filling the same.
+__device__ __forceinline__ void copy_slab(const EssParams& p, const CUtensorMap* map, float* stage,
+                                          uint64_t* full, int slab, uint32_t bands, int lane) {
+  const int D = p.D, k0 = slab * kSlab;
+  if (p.vec_copy) {
+    if (lane == 0) {
+      mbar_arrive_expect_tx(full, kTileFloats * 4 * __popc(bands));
+      for (uint32_t rest = bands; rest; rest &= rest - 1) {
+        const int b = __ffs(rest) - 1;
+        tma_tile(stage + b * kTileFloats, map, k0, b * kBand, full);
+      }
+    }
+  } else {
+    for (int e = lane; e < round_up(D, kBand) * kSlab; e += 32) {
+      const int row = e / kSlab, kk = e % kSlab;
+      if (!((bands >> (row / kBand)) & 1u)) continue;
+      const bool in = row < D && k0 + kk < D;
+      cp_async4(stage + row / kBand * kTileFloats + tile_at(row % kBand, kk),
+                in ? p.chol + static_cast<size_t>(row) * D + k0 + kk : p.chol, in ? 4 : 0);
+    }
+    cp_async_arrive(full);
+  }
+}
+
+// x = hi + lo: hi the TF32 nearest x (ties away from zero: add half of the
+// 13 dropped bits, then drop them), lo = x - hi exactly (|lo| <= 2^-11 |x|),
+// which the tensor core reads to TF32 by dropping its low 13 bits
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// One band's 16 x 64 tile of nu += (its tile's columns kk .. kk + 7) @ (z
+// rows k0 + kk .. + 7), in 3xTF32. Fragments of m16n8k8 (g = lane / 4,
+// t = lane % 4): A (g, t), (g + 8, t), (g, t + 4), (g + 8, t + 4); B (t, g),
+// (t + 4, g); C (g, 2t), (g, 2t + 1), (g + 8, 2t), (g + 8, 2t + 1).
+__device__ __forceinline__ void band_mma(float (&acc)[kWarpTiles][4], const float* tile, int kk,
+                                         const uint32_t (&b_hi)[kWarpTiles][2],
+                                         const uint32_t (&b_lo)[kWarpTiles][2]) {
+  const int g = threadIdx.x % 32 / 4, t = threadIdx.x % 4;
+  uint32_t a_hi[4], a_lo[4];
+  split_tf32(tile[tile_at(g, kk + t)], a_hi[0], a_lo[0]);
+  split_tf32(tile[tile_at(g + 8, kk + t)], a_hi[1], a_lo[1]);
+  split_tf32(tile[tile_at(g, kk + t + 4)], a_hi[2], a_lo[2]);
+  split_tf32(tile[tile_at(g + 8, kk + t + 4)], a_hi[3], a_lo[3]);
+#pragma unroll
+  for (int nt = 0; nt < kWarpTiles; ++nt) {
+    mma_tf32(acc[nt], a_lo, b_hi[nt][0], b_hi[nt][1]);
+    mma_tf32(acc[nt], a_hi, b_lo[nt][0], b_lo[nt][1]);
+    mma_tf32(acc[nt], a_hi, b_hi[nt][0], b_hi[nt][1]);
+  }
+}
+
+// z of the step with salt `salt` (D x kNB, rows padded to kZStride) into
+// z_s, by threads first, first + stride, ...: each takes four rows of one
+// chain at a time, one Philox call
+__device__ __forceinline__ void draw_z(const EssParams& p, int n0, float* z_s, uint32_t salt, int first,
+                                       int stride) {
+  for (int e = first; e < round_up(p.D, 4) / 4 * kNB; e += stride) {
+    const int r = 4 * (e / kNB), c = e % kNB;
+    float z4[4];
+    Stream(p, n0 + c).normals4(salt, static_cast<uint32_t>(r), z4);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      if (r + i < p.D) z_s[(r + i) * kZStride + c] = z4[i];
+  }
+}
+
+__global__ void __launch_bounds__(kTiledThreads, 1)
+    ess_tiled_kernel(const EssParams p, const __grid_constant__ CUtensorMap chol_map) {
+  extern __shared__ __align__(16) float smem[];
+  __shared__ uint32_t tile_mask[kMaxSlabs];  // bit b of slab s: tile (band b, slab s) holds a nonzero
+  __shared__ int slabs[kMaxSlabs];           // the slabs with a nonzero tile, last first
+  __shared__ int n_slabs;
+  __shared__ float f_coef;
+  __shared__ uint64_t full[kStages];         // a ring stage's slab has landed
+  __shared__ uint64_t empty[kStages];        // the compute warps are done with a ring stage
+  const int D = p.D;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const bool copier = warp == kWarps;  // the copy warp: it only asks for chol's tiles
+  const int d_pad = round_up(D, kSlab), stage_floats = round_up(D, kBand) / kBand * kTileFloats;
+  // the ring first, aligned to the copy engine's 1024-byte swizzle atom; it
+  // holds nu ([D][kNB]) between the product and the update
+  float* ring = smem + (1024u - smem_u32(smem) % 1024u) % 1024u / sizeof(float);
+  float* nu_s = ring;
+  float* q_s = ring + kStages * stage_floats;     // [D][kNB]
+  float* z_s = q_s + D * kNB;                     // [d_pad][kZStride]
+  float* part_s = z_s + d_pad * kZStride;         // [kParts][kCoefs][kNB]
+  float* cos_s = part_s + kParts * kCoefs * kNB;
+  float* sin_s = cos_s + kNB;
+  float* done_s = sin_s + kNB;
+  float* prec_s = done_s + kNB;
+  float* mean_s = prec_s + D;
+  float* r0_s = mean_s + D;
+
+  const int n0 = blockIdx.x * kNB;
+  if (tid < kMaxSlabs) tile_mask[tid] = 0u;
+  if (tid < kStages) {
+    mbar_init(&full[tid], p.vec_copy ? 1u : 32u);
+    mbar_init(&empty[tid], kWarps);
+  }
+  if (!copier) {
+    load_block(p, n0, q_s, prec_s, mean_s, r0_s);
+    for (int e = D * kZStride + tid; e < d_pad * kZStride; e += kThreads) z_s[e] = 0.0f;
+  }
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  __syncthreads();
+
+  // ---- which tiles of chol hold a nonzero (NaN counts as nonzero)
+  if (!copier) {
+    static_assert(kSlab == 32, "a warp reads one slab's columns of a row");
+    uint32_t bits[kMaxSlabs] = {};
+    for (int row = warp; row < D; row += kWarps) {
+#pragma unroll
+      for (int s = 0; s < kMaxSlabs; ++s) {
+        const int col = s * kSlab + lane;
+        if (col < D && p.chol[row * D + col] != 0.0f) bits[s] |= 1u << (row / kBand);
+      }
+    }
+#pragma unroll
+    for (int s = 0; s < kMaxSlabs; ++s) {
+      bits[s] = __reduce_or_sync(0xffffffffu, bits[s]);
+      if (lane == 0 && bits[s]) atomicOr(&tile_mask[s], bits[s]);
+    }
+  }
+  __syncthreads();
+  if (tid == 0) {
+    // last slab first: over a lower triangle it has the fewest tiles, and it
+    // is the one each step waits for
+    int m = 0;
+    for (int s = d_pad / kSlab - 1; s >= 0; --s)
+      if (tile_mask[s]) slabs[m++] = s;
+    n_slabs = m;
+    f_coef = block_f(D, prec_s, r0_s);
+  }
+  __syncthreads();
+
+  // this warp's bands: w and 15 - w
+  const int bands[kWarpBands] = {warp, 2 * kWarps - 1 - warp};
+  const int g = lane / 4, t = lane % 4;
+  // the update: this thread's chain and rows
+  const int chain = tid % kNB, group0 = tid / kNB;
+  const uint32_t salt_step = static_cast<uint32_t>(8 + p.max_iters);
+  if (!copier && p.n_steps > 0) draw_z(p, n0, z_s, 0u, tid, kThreads);
+
+  for (int step = 0; step < p.n_steps; ++step) {
+    const uint32_t salt = static_cast<uint32_t>(step) * salt_step;
+    const bool next = step + 1 < p.n_steps;
+
+    // ---- nu = chol @ z over the marked tiles
+    float acc[kWarpBands][kWarpTiles][4];
+#pragma unroll
+    for (int j = 0; j < kWarpBands; ++j)
+#pragma unroll
+      for (int nt = 0; nt < kWarpTiles; ++nt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[j][nt][i] = 0.0f;
+
+    // slab i of this step is the launch's slab c = step * n_slabs + i, in
+    // stage c % 2 for the (c / 2)-th time: `full` completes a phase when it
+    // has landed, `empty` when the 8 compute warps are done with it
+    const int c0 = step * n_slabs;
+    __syncthreads();  // the update is done with nu, so the ring is free
+    if (copier) {
+      for (int i = 0; i < n_slabs; ++i) {
+        const int c = c0 + i, stage = c % kStages;
+        if (i >= kStages) mbar_wait(&empty[stage], (c / kStages - 1) & 1);
+        copy_slab(p, &chol_map, ring + stage * stage_floats, &full[stage], slabs[i], tile_mask[slabs[i]],
+                  lane);
+      }
+    } else {
+      for (int i = 0; i < n_slabs; ++i) {
+        const int c = c0 + i, stage = c % kStages;
+        const float* tiles = ring + stage * stage_floats;
+        const int k0 = slabs[i] * kSlab;
+        uint32_t mine = 0u;  // bit j: this warp's band j has a tile in the slab
+#pragma unroll
+        for (int j = 0; j < kWarpBands; ++j) mine |= ((tile_mask[slabs[i]] >> bands[j]) & 1u) << j;
+        mbar_wait(&full[stage], (c / kStages) & 1);
+        if (mine) {
+#pragma unroll
+          for (int kk = 0; kk < kSlab; kk += 8) {
+            uint32_t b_hi[kWarpTiles][2], b_lo[kWarpTiles][2];
+            const float* zr = z_s + (k0 + kk + t) * kZStride + g;
+#pragma unroll
+            for (int nt = 0; nt < kWarpTiles; ++nt) {
+              split_tf32(zr[nt * 8], b_hi[nt][0], b_lo[nt][0]);
+              split_tf32(zr[4 * kZStride + nt * 8], b_hi[nt][1], b_lo[nt][1]);
+            }
+#pragma unroll
+            for (int j = 0; j < kWarpBands; ++j)
+              if ((mine >> j) & 1u) band_mma(acc[j], tiles + bands[j] * kTileFloats, kk, b_hi, b_lo);
+          }
+        }
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&empty[stage]);
+      }
+    }
+    __syncthreads();  // every warp is done with z and with the ring
+    if (!copier) {
+#pragma unroll
+      for (int j = 0; j < kWarpBands; ++j) {
+        const int row = bands[j] * kBand + g;
+#pragma unroll
+        for (int nt = 0; nt < kWarpTiles; ++nt) {
+          const int col = nt * 8 + 2 * t;
+          if (row < D)
+            *reinterpret_cast<float2*>(&nu_s[row * kNB + col]) = make_float2(acc[j][nt][0], acc[j][nt][1]);
+          if (row + 8 < D)
+            *reinterpret_cast<float2*>(&nu_s[(row + 8) * kNB + col]) =
+                make_float2(acc[j][nt][2], acc[j][nt][3]);
+        }
+      }
+    }
+    __syncthreads();
+
+    // ---- the coefficient sums, then the shrink: one thread a chain
+    if (!copier) coefficient_parts(D, q_s, nu_s, prec_s, mean_s, r0_s, part_s);
+    __syncthreads();
+    if (tid < kNB) {
+      shrink_chain(p, n0, tid, salt, part_s, f_coef, cos_s, sin_s, done_s);
+    } else if (next) {
+      // meanwhile the other warps, the copy warp too, draw the next step's z
+      // (z is free: nu is in the ring)
+      draw_z(p, n0, z_s, salt + salt_step, tid - kNB, kTiledThreads - kNB);
+    }
+    __syncthreads();
+
+    // ---- q <- mean + c cos + nu sin where the chain accepted
+    if (!copier && done_s[chain] != 0.0f) {
+      const float ct = cos_s[chain], st = sin_s[chain];
+      for (int d = group0; d < D; d += kParts) {
+        const float m = mean_s[d];
+        float* q = &q_s[d * kNB + chain];
+        *q = m + (*q - m) * ct + nu_s[d * kNB + chain] * st;
+      }
+    }
+    // nu's writes to the ring, before the copy engine's next ones
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (!copier) store_block(p, n0, q_s);
+}
+
+// ---------------------------------------------------------------- generic variant
+
+__global__ void __launch_bounds__(kThreads, 1) ess_generic_kernel(const EssParams p) {
   extern __shared__ __align__(16) float smem[];
   const int D = p.D;
   const int tid = threadIdx.x;
@@ -165,21 +669,9 @@ __global__ void __launch_bounds__(kThreads, 1) ess_gauss_sweep_kernel(const EssP
   __shared__ float f_coef;
 
   const int n0 = blockIdx.x * kNB;
-  for (int d = tid; d < D; d += kThreads) {
-    prec_s[d] = p.prec[d];
-    mean_s[d] = p.mean[d];
-    r0_s[d] = p.mean[d] - p.y[d];
-  }
-  for (int e = tid; e < D * kNB; e += kThreads) {
-    const int n = n0 + e % kNB;
-    q_s[e] = n < p.N ? p.q_in[static_cast<size_t>(e / kNB) * p.N + n] : 0.0f;
-  }
+  load_block(p, n0, q_s, prec_s, mean_s, r0_s);
   __syncthreads();
-  if (tid == 0) {
-    float f = 0.0f;
-    for (int d = 0; d < D; ++d) f += prec_s[d] * r0_s[d] * r0_s[d];
-    f_coef = f;
-  }
+  if (tid == 0) f_coef = block_f(D, prec_s, r0_s);
 
   // the z slab: this thread's chain and its four rows of each slab
   const int z_chain = tid % kNB;
@@ -188,9 +680,6 @@ __global__ void __launch_bounds__(kThreads, 1) ess_gauss_sweep_kernel(const EssP
   // the product: this thread's register tile
   const int tx = tid % 8;
   const int ty = tid / 8;
-  // the coefficient sums: this thread's chain and row residue
-  const int c_chain = tid % kNB;
-  const int c_part = tid / kNB;
 
   for (int step = 0; step < p.n_steps; ++step) {
     const uint32_t salt = static_cast<uint32_t>(step) * static_cast<uint32_t>(8 + p.max_iters);
@@ -246,65 +735,9 @@ __global__ void __launch_bounds__(kThreads, 1) ess_gauss_sweep_kernel(const EssP
     }
     __syncthreads();
 
-    // ---- the coefficient sums over D: four threads a chain, then a combine
-    {
-      float a = 0.0f, b = 0.0f, cc = 0.0f, dc = 0.0f, ec = 0.0f;
-      for (int d = c_part; d < D; d += kParts) {
-        const float pr = prec_s[d], r0 = r0_s[d];
-        const float c = q_s[d * kNB + c_chain] - mean_s[d];
-        const float nu = nu_s[d * kNB + c_chain];
-        a += pr * c * c;
-        b += pr * nu * nu;
-        cc += pr * c * nu;
-        dc += pr * c * r0;
-        ec += pr * nu * r0;
-      }
-      float* part = part_s + c_part * kCoefs * kNB + c_chain;
-      part[0 * kNB] = a;
-      part[1 * kNB] = b;
-      part[2 * kNB] = cc;
-      part[3 * kNB] = dc;
-      part[4 * kNB] = ec;
-    }
+    coefficient_parts(D, q_s, nu_s, prec_s, mean_s, r0_s, part_s);
     __syncthreads();
-
-    // ---- the shrink: one thread a chain
-    if (tid < kNB) {
-      float coef[kCoefs] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
-#pragma unroll
-      for (int g = 0; g < kParts; ++g)
-#pragma unroll
-        for (int m = 0; m < kCoefs; ++m) coef[m] += part_s[(g * kCoefs + m) * kNB + tid];
-      const float A = coef[0], B = coef[1], C = coef[2], Dc = coef[3], E = coef[4];
-      const float F = f_coef;
-      auto ll = [&](float theta) {
-        const float ct = cosf(theta), st = sinf(theta);
-        return -0.5f * (A * ct * ct + B * st * st + 2.0f * C * ct * st + 2.0f * Dc * ct +
-                        2.0f * E * st + F);
-      };
-      const Stream stream(p, n0 + tid);
-      float u, u_theta;
-      stream.start(salt, u, u_theta);
-      const float log_y = -0.5f * (A + 2.0f * Dc + F) + logf(u);
-      const float theta0 = u_theta * kTwoPi;
-      float lo = theta0 - kTwoPi, hi = theta0, theta = theta0, theta_acc = theta0;
-      bool done = ll(theta0) > log_y;
-      for (int j = 0; j < p.max_iters && !done; ++j) {
-        if (theta >= 0.0f) {
-          hi = theta;
-        } else {
-          lo = theta;
-        }
-        theta = lo + (hi - lo) * stream.shrink(salt, static_cast<uint32_t>(j));
-        if (ll(theta) > log_y) {
-          theta_acc = theta;
-          done = true;
-        }
-      }
-      cos_s[tid] = cosf(theta_acc);
-      sin_s[tid] = sinf(theta_acc);
-      done_s[tid] = done ? 1.0f : 0.0f;
-    }
+    if (tid < kNB) shrink_chain(p, n0, tid, salt, part_s, f_coef, cos_s, sin_s, done_s);
     __syncthreads();
 
     // ---- q <- mean + c cos + nu sin where the chain accepted
@@ -317,19 +750,55 @@ __global__ void __launch_bounds__(kThreads, 1) ess_gauss_sweep_kernel(const EssP
     }
     __syncthreads();
   }
+  store_block(p, n0, q_s);
+}
 
-  for (int e = tid; e < D * kNB; e += kThreads) {
-    const int n = n0 + e % kNB;
-    if (n < p.N) p.q_out[static_cast<size_t>(e / kNB) * p.N + n] = q_s[e];
-  }
+const void* kernel_for(int variant) {
+  return variant == kTiled ? reinterpret_cast<const void*>(ess_tiled_kernel)
+                           : reinterpret_cast<const void*>(ess_generic_kernel);
+}
+
+// chol (dim x dim, row-major, 16-byte aligned rows) as a tensor of the copy
+// engine: 16 x 32 tiles, the 128-byte swizzle, zeros past the edges. The
+// encoder is the driver's cuTensorMapEncodeTiled, found through the runtime.
+bool encode_chol_map(CUtensorMap* map, const float* chol, int dim) {
+  using Encode = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+                              const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+                              CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+                              CUtensorMapFloatOOBfill);
+  static Encode encode = [] {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found) != cudaSuccess ||
+        found != cudaDriverEntryPointSuccess)
+      fn = nullptr;
+    return reinterpret_cast<Encode>(fn);
+  }();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(dim), static_cast<cuuint64_t>(dim)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(dim) * sizeof(float)};
+  const cuuint32_t box[2] = {kSlab, kBand};
+  const cuuint32_t element_strides[2] = {1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<float*>(chol), dims, strides, box,
+                element_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 }  // namespace
 
 extern "C" {
 
-// Bytes of dynamic shared memory a K3 block takes at dimension `dim`.
-long ess_gauss_smem_bytes(int dim) { return static_cast<long>(sizeof(float)) * smem_floats(dim); }
+// K3's geometry at dimension `dim`: out[0] the variant (0 tiled, 1 generic),
+// out[1] the dynamic shared memory of a block in bytes, out[2] the tiles of
+// chol the tiled variant marks (bands of 16 rows x slabs of 32 columns; 0 in
+// the generic variant, which skips nothing), out[3] the threads of a block.
+void ess_gauss_geometry(int dim, long* out) {
+  const int variant = variant_for(dim);
+  out[0] = variant;
+  out[1] = smem_bytes(dim, variant);
+  out[2] = variant == kTiled ? 1L * (round_up(dim, kBand) / kBand) * (round_up(dim, kSlab) / kSlab) : 0L;
+  out[3] = threads_for(variant);
+}
 
 // The largest dynamic shared memory a block may opt in to on `device`, or -1.
 int ess_gauss_smem_limit(int device) {
@@ -340,6 +809,23 @@ int ess_gauss_smem_limit(int device) {
   return bytes;
 }
 
+// The CUDA runtime's view of K3 at dimension `dim`: out[0] registers a
+// thread, out[1] local (spill) bytes a thread, out[2] resident blocks an SM.
+int ess_gauss_kernel_info(int dim, int* out) {
+  const int variant = variant_for(dim);
+  const void* fn = kernel_for(variant);
+  const size_t smem = static_cast<size_t>(smem_bytes(dim, variant));
+  cudaError_t err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, fn);
+  if (err != cudaSuccess) return err;
+  out[0] = attr.numRegs;
+  out[1] = static_cast<int>(attr.localSizeBytes);
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[2], fn, threads_for(variant), smem);
+}
+
 // Returns the cudaError_t of the launch (0 on success).
 int ess_gauss_sweep(const float* q_in, float* q_out, const float* chol, const float* y,
                     const float* prec, const float* mean, int dim, int N, int n_steps,
@@ -347,15 +833,22 @@ int ess_gauss_sweep(const float* q_in, float* q_out, const float* chol, const fl
   if (dim <= 0 || N <= 0 || n_steps < 0 || max_iters < 0 || block_n <= 0 ||
       (rng != kCounter && rng != kPhilox))
     return cudaErrorInvalidValue;
+  const int variant = variant_for(dim);
+  const int vec_copy = dim % 4 == 0 && reinterpret_cast<uintptr_t>(chol) % 16 == 0;
   const EssParams prm{q_in, q_out, chol, y, prec, mean, dim, N, n_steps, max_iters,
-                      static_cast<uint32_t>(seed), rng, block_n};
-  const size_t smem = static_cast<size_t>(ess_gauss_smem_bytes(dim));
-  const cudaError_t err = cudaFuncSetAttribute(
-      ess_gauss_sweep_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+                      static_cast<uint32_t>(seed), rng, block_n, vec_copy};
+  CUtensorMap chol_map{};
+  if (variant != kGeneric && vec_copy && !encode_chol_map(&chol_map, chol, dim))
+    return cudaErrorInvalidValue;
+  const void* fn = kernel_for(variant);
+  const size_t smem = static_cast<size_t>(smem_bytes(dim, variant));
+  const cudaError_t err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const int blocks = (N + kNB - 1) / kNB;
-  ess_gauss_sweep_kernel<<<blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(prm);
-  return cudaGetLastError();
+  void* args[] = {const_cast<EssParams*>(&prm), &chol_map};
+  return cudaLaunchKernel(fn, dim3(blocks), dim3(threads_for(variant)), args, smem,
+                          static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

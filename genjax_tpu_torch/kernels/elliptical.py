@@ -31,6 +31,7 @@ from typing import Callable
 
 import torch
 
+from ..core.device import entry_device
 from . import _build
 from .hmc import _RNG_IDS, _counter_stream, _int32, _normal, _route, _uniform_01
 
@@ -352,17 +353,78 @@ def _reference_ess_gauss(
     return q
 
 
+# K3's geometry (the kernel's constants): 64 chains a block. The tiled
+# variant (D <= 256; 256 compute threads and a copy warp) cuts chol into
+# tiles of 16 rows by 32 columns and keeps in shared memory a two-stage ring
+# of chol's tiles (rows padded to 16; it holds nu between the product and
+# the update) with 1 KiB for its alignment, q (D x 64) and z (rows padded to
+# 32, 72 floats a row). The generic variant (256 threads) keeps q and nu
+# (D x 64), a transposed 16 x 260 chol slab and a 16 x 64 z slab.
+NB = 64
+_PARTS, _COEFS = 4, 5
+_BAND, _SLAB, _STAGES, _TILED_MAX_DIM = 16, 32, 2, 256
+_Z_STRIDE = NB + 8
+_TK, _CHOL_STRIDE = 16, 256 + 4
+VARIANTS = ("tiled", "generic")  # the kernel's ids 0 and 1
+
+
+def _round_up(x: int, m: int) -> int:
+    return (x + m - 1) // m * m
+
+
+def geometry(d: int) -> dict:
+    """K3's launch geometry at dimension ``d``: its variant, the dynamic
+    shared memory of a block in bytes, the tiles of ``chol`` the tiled
+    variant marks for its zero-tile skip (0 in the generic variant), and the
+    threads of a block."""
+    floats = _PARTS * _COEFS * NB + 3 * NB + 3 * d  # partial sums, angles, prec / mean / r0
+    if d > _TILED_MAX_DIM:
+        floats += 2 * d * NB + _TK * _CHOL_STRIDE + _TK * NB
+        return {"variant": "generic", "smem_bytes": 4 * floats, "tiles": 0, "threads": 256}
+    ring = _STAGES * _round_up(d, _BAND) * _SLAB + 256  # and its 1024-byte alignment
+    floats += ring + d * NB + _round_up(d, _SLAB) * _Z_STRIDE
+    tiles = (_round_up(d, _BAND) // _BAND) * (_round_up(d, _SLAB) // _SLAB)
+    return {"variant": "tiled", "smem_bytes": 4 * floats, "tiles": tiles, "threads": 256 + 32}
+
+
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = _build.load("ess_gauss_sweep")
     P, I = ctypes.c_void_p, ctypes.c_int
     lib.ess_gauss_sweep.argtypes = [P, P, P, P, P, P, I, I, I, I, I, I, I, P]
     lib.ess_gauss_sweep.restype = I
-    lib.ess_gauss_smem_bytes.argtypes = [I]
-    lib.ess_gauss_smem_bytes.restype = ctypes.c_long
+    lib.ess_gauss_geometry.argtypes = [I, P]
+    lib.ess_gauss_geometry.restype = None
     lib.ess_gauss_smem_limit.argtypes = [I]
     lib.ess_gauss_smem_limit.restype = I
+    lib.ess_gauss_kernel_info.argtypes = [I, P]
+    lib.ess_gauss_kernel_info.restype = I
     return lib
+
+
+def geometry_cuda(d: int) -> dict:
+    """:func:`geometry` as the compiled kernel reckons it."""
+    out = (ctypes.c_long * 4)()
+    _lib().ess_gauss_geometry(d, out)
+    return {"variant": VARIANTS[out[0]], "smem_bytes": out[1], "tiles": out[2], "threads": out[3]}
+
+
+@functools.cache
+def _smem_limit(device_index: int) -> int:
+    limit = _lib().ess_gauss_smem_limit(device_index)
+    if limit < 0:
+        raise RuntimeError(f"could not read the shared-memory limit of CUDA device {device_index}")
+    return limit
+
+
+def kernel_info(d: int) -> dict:
+    """The CUDA runtime's view of K3 at ``D = d``: registers a thread, local
+    (spill) bytes a thread, resident blocks an SM."""
+    out = (ctypes.c_int * 3)()
+    err = _lib().ess_gauss_kernel_info(d, out)
+    if err != 0:
+        raise RuntimeError(f"ess_gauss_kernel_info failed with CUDA error {err}")
+    return {"registers": out[0], "local_bytes": out[1], "blocks_per_sm": out[2]}
 
 
 def ess_gauss_sweep(
@@ -381,9 +443,12 @@ def ess_gauss_sweep(
     """Launch the CUDA Gaussian-ESS kernel on the current stream, without
     synchronising. ``q0`` is a contiguous float32 CUDA tensor ``(D, N)`` and
     ``chol`` a contiguous float32 CUDA tensor ``(D, D)``; ``y``, ``prec``
-    and ``mean`` are scalars or hold ``D`` values each. ``rng="counter"`` is
-    the counter stream for chain block ``block_n`` (required, dividing
-    ``N``); ``rng="philox"`` draws from Philox keyed by (seed, chain).
+    and ``mean`` are scalars or hold ``D`` values each. Inputs already on
+    the card as contiguous float32 ``(D,)`` (or ``(D, 1)``) tensors are
+    passed as they are, with no copy. ``rng="counter"`` is the counter
+    stream for chain block ``block_n`` (required, dividing ``N``);
+    ``rng="philox"`` draws from Philox keyed by (seed, chain). The variant
+    (:func:`geometry`) is recorded on ``ess_gauss_sweep.last_variant``.
 
     Returns ``q`` ``(D, N)``.
     """
@@ -405,13 +470,12 @@ def ess_gauss_sweep(
         raise ValueError(f"the counter stream needs a chain block dividing N={n}: got block_n={block_n}")
     if n_steps < 0 or max_iters < 0:
         raise ValueError("n_steps and max_iters must be non-negative")
+    geo = geometry(d)
     y, prec, mean = (
         torch.broadcast_to(_f32(v, q0.device).reshape(-1), (d,)).contiguous() for v in (y, prec, mean)
     )
     device_index = q0.device.index if q0.device.index is not None else torch.cuda.current_device()
-    smem, limit = _lib().ess_gauss_smem_bytes(d), _lib().ess_gauss_smem_limit(device_index)
-    if limit < 0:
-        raise RuntimeError(f"could not read the shared-memory limit of CUDA device {device_index}")
+    smem, limit = geo["smem_bytes"], _smem_limit(device_index)
     if smem > limit:
         raise ValueError(
             f"K3 needs {smem} B of shared memory per block at D={d}; this card allows {limit} B "
@@ -427,7 +491,11 @@ def ess_gauss_sweep(
     if err != 0:
         raise RuntimeError(f"ess_gauss_sweep kernel launch failed with CUDA error {err}")
     ess_gauss_sweep_launches += 1
+    ess_gauss_sweep.last_variant = geo["variant"]
     return q_out
+
+
+ess_gauss_sweep.last_variant = None
 
 
 def _default_block_n(d: int, n: int) -> int:
@@ -456,6 +524,7 @@ def ess_sweep_gauss_pallas(
     block_n: int | None = None,
     interpret: bool = False,
     backend: str = "auto",
+    device="cuda",
 ) -> torch.Tensor:
     """:func:`ess_sweep_gauss_cols` as one kernel launch: ``n_steps``
     Gaussian-likelihood ESS transitions with the shrink unrolled to
@@ -466,20 +535,27 @@ def ess_sweep_gauss_pallas(
     ``mean`` become ``(D, 1)``. ``block_n`` defaults to the reference's
     chain block and must divide the chain count.
 
+    It runs on the card unless the caller asks for the CPU: ``q0``,
+    ``chol_prior``, ``y``, ``prec`` and ``mean`` are placed on ``device``
+    (``"cuda"`` by default; with no card that raises, naming
+    ``device="cpu"``). Inputs already there as float32 tensors are used as
+    they are, with no copy: a caller of many sweeps keeps ``chol`` on the
+    card and passes it to each call.
+
     Backends: ``"cuda"`` is the kernel (needs chains on the card),
     ``"torch"`` the plain version ``_reference_ess_gauss``, and ``"auto"``
     (default) takes ``"cuda"`` for chains on the card and ``"torch"`` for
-    chains on the CPU. ``interpret=True`` selects the counter stream, the
-    port of the reference's interpret-mode PRNG for chain block
-    ``block_n``; otherwise the kernel draws from Philox and the plain
-    version from a ``torch.Generator`` seeded with ``seed``. The backend
-    taken is recorded on ``ess_sweep_gauss_pallas.last_backend``.
+    chains on the CPU (``device="cpu"``). ``interpret=True`` selects the
+    counter stream, the port of the reference's interpret-mode PRNG for
+    chain block ``block_n``; otherwise the kernel draws from Philox and the
+    plain version from a ``torch.Generator`` seeded with ``seed``. The
+    backend taken is recorded on ``ess_sweep_gauss_pallas.last_backend``.
 
     Returns ``q`` of shape ``(D, N)``.
     """
-    q0 = _f32(q0, None)
+    device = entry_device(device, "ess_sweep_gauss_pallas")
+    q0 = _f32(q0, device)
     d, n = q0.shape
-    device = q0.device
     chol = _f32(chol_prior, device)
     if chol.ndim < 2:
         # scalar or (D,) standard deviations -> diagonal factor

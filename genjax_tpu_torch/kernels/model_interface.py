@@ -17,6 +17,7 @@ from typing import Any, Sequence
 
 import torch
 
+from ..core.device import entry_device
 from ..generative.choice_map import ChoiceMap
 from ..generative.gfi import GenerativeFunction
 from ..generative.mask import Mask
@@ -26,16 +27,9 @@ from .nuts_pallas import pallas_nuts, warmup_column_nuts
 
 
 def _device(device) -> torch.device:
-    """``device`` as a torch device. The entry points run on the card unless
-    the caller asks for the CPU; where the card is asked for and there is
-    none, they raise rather than run on the CPU."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "column_hmc and column_nuts run on the card by default (device='cuda'), and "
-            "torch sees no CUDA device here; pass device='cpu' to run the plain twin on the CPU"
-        )
-    return device
+    """``device`` as a torch device: the card unless the caller asks for the
+    CPU, where the plain twins run."""
+    return entry_device(device, "column_hmc and column_nuts")
 
 
 def _round_up(x: int, m: int) -> int:

@@ -4,8 +4,11 @@ Counterpart of ``genjax_tpu/models/gp.py``: the squared-exponential Gram
 matrix, the ``@gen`` model ``gp_regression`` whose likelihood is the exact
 GP marginal (``mv_normal`` over ``K + sigma^2 I``), the closed-form log
 marginal and predictive, and the Laplace approximation for binary GP
-classification with its predictive. Inputs may be numpy arrays or tensors;
-arrays become float32 tensors, tensors keep their device. The latent
+classification with its predictive. Inputs may be numpy arrays or tensors.
+The closed forms run on the card unless the caller asks for the CPU: their
+inputs are placed on ``device`` (``"cuda"`` by default; with no card they
+raise, naming ``device="cpu"``). ``sq_exp_kernel`` and ``gp_regression``
+follow the device of their inputs and draws, as the GFI does. The latent
 function values of a GP are sampled exactly by elliptical slice sampling
 (``kernels/elliptical.py``), which sits above this module.
 """
@@ -16,6 +19,7 @@ import math
 
 import torch
 
+from ..core.device import entry_device
 from ..dists import mv_normal, normal
 from ..lang.static_lang import gen
 from .regression import _device_of, _on_device
@@ -73,11 +77,16 @@ def _noisy_gram(X, amplitude, lengthscale, noise, jitter) -> torch.Tensor:
     return K + (noise**2 + jitter) * torch.eye(K.shape[0], device=K.device)
 
 
-def gp_log_marginal(X, y, amplitude, lengthscale, noise, *, jitter=1e-5) -> torch.Tensor:
+def _on(device, entry: str, X, *more):
+    """``X`` as points and ``more`` as float32 tensors, on ``device``."""
+    device = entry_device(device, entry)
+    return (_as_points(X).to(device), *(_f32(v, device) for v in more))
+
+
+def gp_log_marginal(X, y, amplitude, lengthscale, noise, *, jitter=1e-5, device="cuda") -> torch.Tensor:
     """Exact log marginal likelihood ``log N(y | 0, K + sigma^2 I)``: one
     Cholesky factor serves the quadratic form and the log-determinant."""
-    X = _as_points(X)
-    y = _f32(y, X.device)
+    X, y = _on(device, "gp_log_marginal", X, y)
     n = X.shape[0]
     chol = torch.linalg.cholesky(_noisy_gram(X, amplitude, lengthscale, noise, jitter))
     alpha = torch.cholesky_solve(y[:, None], chol).squeeze(-1)
@@ -88,12 +97,11 @@ def gp_log_marginal(X, y, amplitude, lengthscale, noise, *, jitter=1e-5) -> torc
     )
 
 
-def gp_posterior(X, y, X_test, amplitude, lengthscale, noise, *, jitter: float = 1e-5):
+def gp_posterior(X, y, X_test, amplitude, lengthscale, noise, *, jitter: float = 1e-5, device="cuda"):
     """Closed-form GP predictive at ``X_test``: ``(mean, cov)`` of the
     noise-free function values ``f* | y``, with ``K`` factorized once."""
-    X = _as_points(X)
+    X, y = _on(device, "gp_posterior", X, y)
     X_test = _as_points(X_test).to(X.device)
-    y = _f32(y, X.device)
     chol = torch.linalg.cholesky(_noisy_gram(X, amplitude, lengthscale, noise, jitter))
     Ks = sq_exp_kernel(X_test, X, amplitude, lengthscale)
     Kss = sq_exp_kernel(X_test, X_test, amplitude, lengthscale)
@@ -110,15 +118,16 @@ def _b_factor(K, W):
     return sw, torch.linalg.cholesky(B)
 
 
-def gp_classify_laplace(X, y01, amplitude, lengthscale, *, jitter: float = 1e-5, n_newton: int = 20):
+def gp_classify_laplace(
+    X, y01, amplitude, lengthscale, *, jitter: float = 1e-5, n_newton: int = 20, device="cuda"
+):
     """Laplace approximation for binary GP classification (Rasmussen &
     Williams 2006, Algorithm 3.1): logistic likelihood, ``n_newton`` Newton
     steps to the posterior mode of the latent values, Gaussian curvature
     around it. Returns ``(f_hat (N,), cov (N, N), log_marginal_approx)``;
     ``kernels.elliptical.ess_sweep_cols`` samples the exact latent
     posterior to audit it."""
-    X = _as_points(X)
-    y = _f32(y01, X.device)
+    X, y = _on(device, "gp_classify_laplace", X, y01)
     n = X.shape[0]
     K = sq_exp_kernel(X, X, amplitude, lengthscale) + jitter * torch.eye(n, device=X.device)
 
@@ -142,14 +151,13 @@ def gp_classify_laplace(X, y01, amplitude, lengthscale, *, jitter: float = 1e-5,
     return f, cov, lml
 
 
-def gp_classify_predict(X, y01, X_test, amplitude, lengthscale, *, jitter: float = 1e-5):
+def gp_classify_predict(X, y01, X_test, amplitude, lengthscale, *, jitter: float = 1e-5, device="cuda"):
     """Predictive class probabilities at ``X_test`` under the Laplace
     approximation, with the moderation integral approximated by MacKay's
     kappa correction. Returns ``(probs, mean_star, var_star)``."""
-    f_hat, _, _ = gp_classify_laplace(X, y01, amplitude, lengthscale, jitter=jitter)
-    X = _as_points(X)
+    X, y = _on(device, "gp_classify_predict", X, y01)
+    f_hat, _, _ = gp_classify_laplace(X, y, amplitude, lengthscale, jitter=jitter, device=X.device)
     X_test = _as_points(X_test).to(X.device)
-    y = _f32(y01, X.device)
     n = X.shape[0]
     K = sq_exp_kernel(X, X, amplitude, lengthscale) + jitter * torch.eye(n, device=X.device)
     Ks = sq_exp_kernel(X_test, X, amplitude, lengthscale)

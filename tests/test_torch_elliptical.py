@@ -11,6 +11,9 @@
   ``tests/kernels/test_elliptical.py`` (at 1024 chains, not 2048).
 - The fast path runs the generic path's chain on the same stream.
 - Routing: the plain version on the CPU; no fallback for chains on the card.
+- The entry point runs on the card by default and places its inputs on
+  ``device``; K3's geometry (variant, shared memory, tiles of ``chol``).
+- A factor that is not triangular, draw for draw against the reference.
 
 The CUDA kernel is held against its plain version in tests marked ``cuda``,
 which skip without a card; JAX is imported inside the tests that compare
@@ -73,7 +76,7 @@ def test_counter_version_matches_pallas_interpret_draw_for_draw(case, seed, n_st
 
     q0, kw = _counter_case(case)
     jq = np.asarray(jax_ess_pallas(jnp.asarray(q0), seed, n_steps=n_steps, interpret=True, **kw))
-    tq = E.ess_sweep_gauss_pallas(q0, seed, n_steps=n_steps, interpret=True, **kw)
+    tq = E.ess_sweep_gauss_pallas(q0, seed, n_steps=n_steps, interpret=True, device="cpu", **kw)
     assert E.ess_sweep_gauss_pallas.last_backend == "torch"
     err = np.abs(tq.numpy() - jq).max(axis=0)
     assert float((err <= 1e-5).mean()) >= 0.99, err.max()
@@ -175,7 +178,7 @@ def test_generic_gp_latents_match_gp_posterior():
     amp, ls, noise = 1.0, 1.2, 0.4
     K = sq_exp_kernel(X, X, amp, ls).double().numpy() + 1e-6 * np.eye(6)
     y = (rng.multivariate_normal(np.zeros(6), K) + noise * rng.randn(6)).astype(np.float32)
-    mean_exact, cov_exact = gp_posterior(X, y, X, amp, ls, noise, jitter=1e-6)
+    mean_exact, cov_exact = gp_posterior(X, y, X, amp, ls, noise, jitter=1e-6, device="cpu")
     q, _ = E.ess_sweep_cols(
         _ll_cols(y, noise**2), torch.zeros(6, N_CHAINS), 2, n_steps=250, chol_prior=np.linalg.cholesky(K)
     )
@@ -187,7 +190,7 @@ def test_generic_gp_latents_match_gp_posterior():
 def _gauss_sweep(path, q0, seed, **kw):
     if path == "fast":
         return E.ess_sweep_gauss_cols(q0, seed, **kw)[0]
-    return E.ess_sweep_gauss_pallas(q0, seed, **kw)  # K3's plain version, generator stream
+    return E.ess_sweep_gauss_pallas(q0, seed, device="cpu", **kw)  # K3's plain version, generator stream
 
 
 @pytest.mark.parametrize("path", ["fast", "k3_plain"])
@@ -260,7 +263,7 @@ def test_max_iters_zero_is_a_no_op_for_chains_not_accepted_at_once():
     assert 0 < int(kept.sum()) < 128
 
     kw = dict(n_steps=1, chol_prior=1.0, y=np.zeros(2, np.float32), prec=100.0, max_iters=0, block_n=128)
-    tq = E.ess_sweep_gauss_pallas(q0, 4, interpret=True, **kw)
+    tq = E.ess_sweep_gauss_pallas(q0, 4, interpret=True, device="cpu", **kw)
     jq = np.asarray(jax_ess_pallas(jnp.asarray(q0.numpy()), 4, interpret=True, **kw))
     np.testing.assert_allclose(tq.numpy(), jq, atol=1e-6)
     kept = (tq == q0).all(dim=0)
@@ -269,7 +272,7 @@ def test_max_iters_zero_is_a_no_op_for_chains_not_accepted_at_once():
 
 def test_routing_on_the_cpu():
     q0 = torch.zeros(2, 256)
-    kw = dict(n_steps=1, chol_prior=1.0, y=np.zeros(2, np.float32))
+    kw = dict(n_steps=1, chol_prior=1.0, y=np.zeros(2, np.float32), device="cpu")
     E.ess_sweep_gauss_pallas(q0, 0, **kw)
     assert E.ess_sweep_gauss_pallas.last_backend == "torch"
     # a request for the card with chains on the CPU raises, never falls back
@@ -288,23 +291,112 @@ def test_routing_on_the_cpu():
         )
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("d, n, block_n", [(3, 512, 512), (16, 4096, 128), (300, 256, 128)])
-def test_cuda_kernel_matches_plain_version(d, n, block_n):
-    """K3 against its plain version on the counter stream, 5 steps: at least
-    99% of chains within 1e-4 (f32 sums over D in another order can flip a
-    borderline shrink decision); D = 300 takes two row chunks of the
-    product."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card")
+def test_default_device_is_the_card(monkeypatch):
+    """Without a card the default ``device`` raises, naming ``device='cpu'``,
+    and runs nothing on the CPU; ``device="cpu"`` runs the plain version."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    kw = dict(n_steps=1, chol_prior=1.0, y=np.zeros(2, np.float32))
+    E.ess_sweep_gauss_pallas.last_backend = None
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        E.ess_sweep_gauss_pallas(torch.zeros(2, 128), 0, **kw)
+    assert E.ess_sweep_gauss_pallas.last_backend is None
+    q = E.ess_sweep_gauss_pallas(torch.zeros(2, 128), 0, device="cpu", **kw)
+    assert q.device.type == "cpu" and E.ess_sweep_gauss_pallas.last_backend == "torch"
+
+
+def test_numpy_inputs_follow_device():
+    """A numpy ``q0``, ``chol_prior``, ``y``, ``prec`` and ``mean`` are placed
+    on ``device``, and give what the same values as tensors give."""
+    q0, kw = _counter_case("d8_vector_prec_mean")
+    q_np = E.ess_sweep_gauss_pallas(q0, 3, n_steps=2, interpret=True, device="cpu", **kw)
+    kw_t = {k: torch.as_tensor(v) if isinstance(v, np.ndarray) else v for k, v in kw.items()}
+    q_t = E.ess_sweep_gauss_pallas(torch.from_numpy(q0), 3, n_steps=2, interpret=True, device="cpu", **kw_t)
+    assert q_np.device.type == "cpu" and torch.equal(q_np, q_t)
+
+
+# (variant, shared memory a block in bytes, tiles of chol, threads), from the kernel's
+# constants: 64 chains a block; tiled: two ring stages of 16 x 32 tiles of
+# chol (rows padded to 16) and 1 KiB for their alignment, q D x 64, z rows
+# padded to 32 at 72 floats; generic: q and nu D x 64, a 16 x 260 chol
+# slab, a 16 x 64 z slab; both: partial sums 4 x 5 x 64, three angles a
+# chain, prec / mean / r0
+@pytest.mark.parametrize(
+    "d, expected",
+    [
+        (3, ("tiled", 21028, 1, 288)),
+        (16, ("tiled", 24512, 1, 288)),
+        (250, ("tiled", 213176, 128, 288)),
+        (256, ("tiled", 214784, 128, 288)),
+        (300, ("generic", 183824, 0, 256)),
+    ],
+)
+def test_geometry(d, expected):
+    geo = E.geometry(d)
+    assert (geo["variant"], geo["smem_bytes"], geo["tiles"], geo["threads"]) == expected
+    assert geo["smem_bytes"] <= 232448  # an H100's shared memory a block
+
+
+@pytest.mark.parametrize("seed", [4, -9])
+def test_full_factor_counter_version_matches_pallas_interpret(seed):
+    """A factor that is not triangular (the symmetric square root of an SPD
+    matrix): the plain version against the reference's Pallas kernel in
+    interpret mode, draw for draw on the counter stream."""
+    import jax.numpy as jnp
+    from genjax_tpu.kernels.elliptical import ess_sweep_gauss_pallas as jax_ess_pallas
+
+    Sigma, rng = _spd(8, 12)
+    w, V = np.linalg.eigh(Sigma.astype(np.float64))
+    root = ((V * np.sqrt(w)) @ V.T).astype(np.float32)
+    assert np.abs(np.triu(root, 1)).max() > 1e-2  # not triangular
+    kw = dict(chol_prior=root, y=rng.randn(12).astype(np.float32), prec=3.0, block_n=128)
+    q0 = np.random.default_rng(3).normal(size=(12, 256)).astype(np.float32)
+    jq = np.asarray(jax_ess_pallas(jnp.asarray(q0), seed, n_steps=6, interpret=True, **kw))
+    tq = E.ess_sweep_gauss_pallas(q0, seed, n_steps=6, interpret=True, device="cpu", **kw)
+    err = np.abs(tq.numpy() - jq).max(axis=0)
+    assert float((err <= 1e-5).mean()) >= 0.99, err.max()
+
+
+def _kernel_case(d, factor):
+    """``(chol, y, prec, mean)`` on the card: a lower Cholesky factor or the
+    symmetric square root of a random SPD matrix."""
     rng = np.random.default_rng(d)
     A = rng.normal(size=(d, d))
-    chol = torch.as_tensor(np.linalg.cholesky(A @ A.T / d + np.eye(d)).astype(np.float32)).cuda()
-    q0 = torch.as_tensor(rng.normal(size=(d, n)).astype(np.float32)).cuda()
+    S = A @ A.T / d + np.eye(d)
+    if factor == "lower":
+        chol = np.linalg.cholesky(S)
+    else:
+        w, V = np.linalg.eigh(S)
+        chol = (V * np.sqrt(w)) @ V.T
+    chol = torch.as_tensor(chol.astype(np.float32)).cuda()
     y, prec, mean = (torch.as_tensor(rng.normal(size=(d, 1)).astype(np.float32)).cuda() for _ in range(3))
-    prec = prec.abs() + 0.5
+    return chol, y, prec.abs() + 0.5, mean
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "d, n, block_n, factor",
+    [
+        (3, 512, 512, "lower"),
+        (16, 4096, 128, "lower"),
+        (300, 256, 128, "lower"),
+        (256, 2048, 1024, "lower"),
+        (256, 2048, 1024, "full"),
+        (250, 2048, 1024, "lower"),
+    ],
+)
+def test_cuda_kernel_matches_plain_version(d, n, block_n, factor):
+    """K3 against its plain version on the counter stream, 5 steps: at least
+    99% of chains within 1e-4 (f32 sums over D in another order can flip a
+    borderline shrink decision). D <= 256 takes the tiled variant (a full
+    factor shows that the tile skip skips only zeros; D = 250 is not a
+    multiple of a tile), D = 300 the generic one with two row chunks."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    chol, y, prec, mean = _kernel_case(d, factor)
+    q0 = torch.as_tensor(np.random.default_rng(d + 1).normal(size=(d, n)).astype(np.float32)).cuda()
     kw = dict(n_steps=5, chol=chol, y=y, prec=prec, mean=mean, max_iters=24, block_n=block_n)
     qk = E.ess_gauss_sweep(q0, 7, rng="counter", **kw)
+    assert E.ess_gauss_sweep.last_variant == E.geometry(d)["variant"] == ("generic" if d > 256 else "tiled")
     qt = E._reference_ess_gauss(q0, 7, rng="counter", **kw)
     close = (qk - qt).abs().amax(dim=0) <= 1e-4
     assert float(close.float().mean()) >= 0.99
@@ -313,3 +405,18 @@ def test_cuda_kernel_matches_plain_version(d, n, block_n):
     with pytest.raises(ValueError, match="shared memory"):
         E.ess_gauss_sweep(torch.zeros(1024, 64, device="cuda"), 0, n_steps=1,
                           chol=torch.eye(1024, device="cuda"), y=0.0, prec=1.0, mean=0.0)
+
+
+@pytest.mark.cuda
+def test_cuda_geometry_and_default_device():
+    """The kernel's own reckoning of its geometry equals the wrapper's, and
+    numpy inputs go to the card by default and launch K3."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    for d in (3, 16, 250, 256, 300):
+        assert E.geometry_cuda(d) == E.geometry(d)
+    q0, kw = _counter_case("d8_vector_prec_mean")
+    launches = E.ess_gauss_sweep_launches
+    q = E.ess_sweep_gauss_pallas(q0, 3, n_steps=2, **kw)
+    assert q.is_cuda and E.ess_sweep_gauss_pallas.last_backend == "cuda"
+    assert E.ess_gauss_sweep_launches == launches + 1

@@ -6,6 +6,8 @@
   the largest reference entry for entries that cancel to near zero.
 - ``gp_regression``'s ``assess`` score and ``generate`` weight on choices
   fixed from numpy equal the reference's to rtol 1e-4.
+- The four closed forms that take ``device`` run on the card by default
+  and raise without one, naming ``device="cpu"``.
 - ``mv_normal`` sampling agrees in law with its covariance.
 - The ESS audit of ``tests/models/test_gp_classify.py``: exact latent
   sampling through the port's ``ess_sweep_cols`` agrees with the Laplace
@@ -45,26 +47,41 @@ def _close(got, ref, rtol=RTOL):
     np.testing.assert_allclose(got, ref, rtol=rtol, atol=rtol * float(np.abs(ref).max()))
 
 
+# each closed form, called with the reference's arguments (the port's also
+# take ``device``, given as ``**kw``)
 CLOSED_FORMS = {
-    "sq_exp_kernel": lambda m: [m.sq_exp_kernel(X, XT, AMP, LS)],
-    "sq_exp_kernel_1d_points": lambda m: [m.sq_exp_kernel(X[:, 0], XT[:, 0], AMP, LS)],
-    "gp_log_marginal": lambda m: [m.gp_log_marginal(X, Y, AMP, LS, NOISE)],
-    "gp_log_marginal_jitter": lambda m: [m.gp_log_marginal(X, Y, 0.7, 1.4, 0.1, jitter=1e-3)],
-    "gp_posterior": lambda m: list(m.gp_posterior(X, Y, XT, AMP, LS, NOISE)),
-    "gp_classify_laplace": lambda m: list(m.gp_classify_laplace(X_CLS, Y_CLS, 1.5, 0.8)),
-    "gp_classify_laplace_5_newton": lambda m: list(m.gp_classify_laplace(X_CLS, Y_CLS, 1.5, 0.8, n_newton=5)),
-    "gp_classify_predict": lambda m: list(m.gp_classify_predict(X_CLS, Y_CLS, XT[:, :1], 1.5, 0.8)),
+    "sq_exp_kernel": lambda m, **kw: [m.sq_exp_kernel(X, XT, AMP, LS)],
+    "sq_exp_kernel_1d_points": lambda m, **kw: [m.sq_exp_kernel(X[:, 0], XT[:, 0], AMP, LS)],
+    "gp_log_marginal": lambda m, **kw: [m.gp_log_marginal(X, Y, AMP, LS, NOISE, **kw)],
+    "gp_log_marginal_jitter": lambda m, **kw: [m.gp_log_marginal(X, Y, 0.7, 1.4, 0.1, jitter=1e-3, **kw)],
+    "gp_posterior": lambda m, **kw: list(m.gp_posterior(X, Y, XT, AMP, LS, NOISE, **kw)),
+    "gp_classify_laplace": lambda m, **kw: list(m.gp_classify_laplace(X_CLS, Y_CLS, 1.5, 0.8, **kw)),
+    "gp_classify_laplace_5_newton": lambda m, **kw: list(
+        m.gp_classify_laplace(X_CLS, Y_CLS, 1.5, 0.8, n_newton=5, **kw)
+    ),
+    "gp_classify_predict": lambda m, **kw: list(m.gp_classify_predict(X_CLS, Y_CLS, XT[:, :1], 1.5, 0.8, **kw)),
 }
+ON_THE_CARD = ["gp_log_marginal", "gp_posterior", "gp_classify_laplace", "gp_classify_predict"]
 
 
 @pytest.mark.parametrize("name", sorted(CLOSED_FORMS))
 def test_closed_forms_match_reference(name):
     refs = CLOSED_FORMS[name](jgp)
-    gots = CLOSED_FORMS[name](tgp)
+    gots = CLOSED_FORMS[name](tgp, **({"device": "cpu"} if name.startswith("gp_") else {}))
     assert len(refs) == len(gots)
     for got, ref in zip(gots, refs):
         assert got.dtype == torch.float32 and tuple(got.shape) == tuple(np.shape(ref))
         _close(got, ref)
+
+
+@pytest.mark.parametrize("name", ON_THE_CARD)
+def test_closed_forms_default_to_the_card(name, monkeypatch):
+    """Without a card the default ``device`` raises, naming ``device='cpu'``;
+    ``device="cpu"`` runs on the CPU, numpy inputs included."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        CLOSED_FORMS[name](tgp)
+    assert all(t.device.type == "cpu" for t in CLOSED_FORMS[name](tgp, device="cpu"))
 
 
 def _mvn_inputs(seed, batch):
@@ -128,7 +145,7 @@ def test_gp_regression_generate_weight_is_the_exact_marginal():
     tr, w = tm.generate(torch.Generator().manual_seed(1), g.C["y"].set(Y), ())
     ch = tr.get_choices()
     amp, ls, noise = (torch.exp(ch[a]) for a in ("log_amp", "log_ls", "log_noise"))
-    torch.testing.assert_close(w, tgp.gp_log_marginal(X, Y, amp, ls, noise, jitter=1e-5), rtol=1e-4, atol=0)
+    torch.testing.assert_close(w, tgp.gp_log_marginal(X, Y, amp, ls, noise, jitter=1e-5, device="cpu"), rtol=1e-4, atol=0)
 
 
 def test_ess_audit_agrees_with_laplace_mode():
@@ -147,5 +164,5 @@ def test_ess_audit_agrees_with_laplace_mode():
         return torch.sum(y[:, None] * f_cols - torch.logaddexp(torch.zeros_like(f_cols), f_cols), dim=0)
 
     f_cols, _ = ess_sweep_cols(ll, torch.zeros(n, 2048), 0, n_steps=300, chol_prior=np.linalg.cholesky(K))
-    f_hat, _, _ = tgp.gp_classify_laplace(Xc, y.numpy(), 1.5, 0.8)
+    f_hat, _, _ = tgp.gp_classify_laplace(Xc, y.numpy(), 1.5, 0.8, device="cpu")
     np.testing.assert_allclose(f_cols.numpy().mean(axis=1), f_hat.numpy(), atol=0.25)
