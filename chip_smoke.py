@@ -9,9 +9,13 @@ It builds the port's CUDA kernels from ``genjax_tpu_torch/kernels/csrc``
 elliptical-slice sweep K3, one nvcc each, in parallel), reports each
 kernel's registers, spills and resident blocks an SM, holds each kernel
 against its plain torch version on the card (the flagship's body shape and
-a generic one), and drives two workloads through the public entry points:
+a generic one), and drives three workloads through the public entry points:
 the flagship (hierarchical regression, 65,536 chains) with ``column_hmc``,
 ``column_hmc(warmup=True)`` and the adapted ``column_nuts(warmup=True)``;
+the same model through the trace path (``bench.py::bench_gfi``'s shape):
+``torch.func.vmap`` of ``generate``, 20 transitions of vmapped
+``mh(HMC(...))``, and the batched runner ``run_chains_hmc``, which launches
+K1, held against its plain twin and the per-transition runner in law;
 and exact sampling of GP latents (D = 256, 8,192 chains,
 ``bench.py::bench_gp``'s setup, with ``chol`` put on the card once) with
 ``ess_sweep_gauss_pallas``, held against the closed-form posterior. It checks
@@ -45,7 +49,7 @@ L = 5
 SEED = 0
 BLOCK_N = 128  # chain block of the counter stream, as in the reference's tests
 K1_TIMED_SWEEPS = 2000  # a window of about a second at 0.5 ms a sweep
-TWIN_TIMED_SWEEPS = 5
+TWIN_TIMED_SWEEPS = 2
 HMC_WARMUP_PHASES = 6  # warmup_column's default
 
 # the adapted column-NUTS path: the reference's bench_nuts setup
@@ -53,7 +57,10 @@ NUTS_STEPS = 10
 NUTS_DEPTH = 8
 NUTS_EPS0 = 0.1
 NUTS_WARMUP_PHASES = 10  # warmup_column_nuts's default
-K4_WINDOW_S = 3.0
+K4_WINDOW_S = 1.5
+
+# the trace path: the reference's bench_gfi setup
+GFI_STEPS = 20
 
 # the GP / elliptical-slice path: the reference's bench_gp setup
 GP_D = 256
@@ -61,7 +68,7 @@ GP_CHAINS = 8192
 GP_STEPS = 50
 GP_SWEEPS = 40  # 2,000 transitions from q0 = 0 reach the posterior
 GP_NOISE = 0.3
-K3_WINDOW_S = 3.0
+K3_WINDOW_S = 1.5
 K3_TWIN_TIMED_SWEEPS = 2
 
 # the H100 SXM's published peaks: FP32 outside the tensor cores, TF32 on
@@ -80,8 +87,11 @@ def check(ok: bool, what: str) -> None:
         raise SmokeFailure(what)
 
 
+T_START = time.perf_counter()
+
+
 def phase(name: str, line: str) -> None:
-    print(f"[{name}] {line}", flush=True)
+    print(f"[{name}] {line} [t+{time.perf_counter() - T_START:.1f} s]", flush=True)
 
 
 def flagship_data():
@@ -404,7 +414,7 @@ def gp_path(device, smi: str, elliptical) -> dict:
 
     k3_reps = max(3, math.ceil(1.2 * K3_WINDOW_S * 1e3 / cuda_ms(k3_sweep, 20)))
     k3_ms = cuda_ms(k3_sweep, k3_reps)
-    check(k3_ms * k3_reps >= K3_WINDOW_S * 1e3, f"K3 timing window {k3_ms * k3_reps:.0f} ms < 3 s")
+    check(k3_ms * k3_reps >= K3_WINDOW_S * 1e3, f"K3 timing window {k3_ms * k3_reps:.0f} ms < {K3_WINDOW_S} s")
     plain_ms = cuda_ms(lambda: elliptical._reference_ess_gauss(
         q, seed, **dict(k3_kw, y=y_d[:, None], prec=prec_d[:, None], mean=mean_d[:, None])
     ), K3_TWIN_TIMED_SWEEPS)
@@ -462,6 +472,264 @@ def gp_path(device, smi: str, elliptical) -> dict:
     }
 
 
+def wall_ms(fn, reps=3):
+    """Median host-clock time of ``fn`` in ms, each call ended by a device
+    synchronise."""
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return sorted(times)[len(times) // 2]
+
+
+def device_busy(fn):
+    """One call of ``fn`` under ``torch.profiler``: the time the card was
+    busy (the union of its kernels' and copies' intervals, in ms), how many
+    of them there were, and the call's host-clock time with the profiler on.
+    None when the profiler recorded nothing on the device."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1e3
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+    if not spans:
+        return None
+    busy_us, (lo, hi) = 0.0, spans[0]
+    for a, b in spans[1:]:
+        if a > hi:
+            busy_us, lo, hi = busy_us + (hi - lo), a, b
+        else:
+            hi = max(hi, b)
+    busy_us += hi - lo
+    return busy_us / 1e3, len(spans), host_ms
+
+
+def busy_line(what: str, busy, call_ms: float) -> str:
+    if busy is None:
+        return f"{what}: device busy time not measured (torch.profiler recorded nothing on the device)"
+    busy_ms, n, host_ms = busy
+    return (f"{what}: the card busy {busy_ms:.3f} ms in {n} kernels and copies (torch.profiler, one call, "
+            f"{host_ms:.3f} ms on the host clock with the profiler on) = {busy_ms / call_ms:.4f} of the "
+            f"{call_ms:.3f} ms call without it, idle the other {1 - busy_ms / call_ms:.4f}")
+
+
+def in_law(a, b, n: int):
+    """Largest gap between the cross-chain means of two ``(n, k)`` samples,
+    in combined Monte Carlo standard errors."""
+    se = torch.sqrt((a.var(dim=0) + b.var(dim=0)) / n)
+    return float(((a.mean(dim=0) - b.mean(dim=0)) / se).abs().max())
+
+
+def gfi_path(device, smi: str, g, hmc, model, y, ld, q0) -> dict:
+    """The trace path at the flagship's full width: the per-transition edit
+    API, the batched sweep runner (which launches K1) at both chain axes,
+    both against the plain twin in law, and where a ``run_chains_hmc`` call
+    spends its time. Returns the K1 launches of each sweep call."""
+    from genjax_tpu_torch.inference import mcmc
+
+    pytree = torch.utils._pytree
+    sel = g.S["w"] | g.S["tau"]
+    request = g.HMC(sel, EPS, L=L)
+    y_d = torch.as_tensor(y, device=device)
+    obs = g.C["y"].set(y_d)
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    dummy = torch.zeros(N_CHAINS, device=device)
+    init = torch.func.vmap(lambda _: model.generate(gen, obs, ())[0], randomness="different")
+    step = torch.func.vmap(lambda tr: g.mh(gen, tr, request), randomness="different")
+    assess = lambda trs, axis=0: torch.func.vmap(  # noqa: E731
+        lambda tr: model.assess(tr.get_choices(), ())[0], in_dims=axis)(trs)
+
+    def gates(name, trs, axis=0):
+        w = trs["w"].movedim(axis, 0)
+        check(tuple(w.shape) == (N_CHAINS, 8), f"{name}: w has shape {tuple(trs['w'].shape)}")
+        check(torch.equal(trs["y"].movedim(axis, 0), y_d.expand(N_CHAINS, 16)),
+              f"{name}: a trace's y is not the observation bit for bit")
+        check(bool(torch.isfinite(w).all()) and bool((trs["tau"] > 0).all()),
+              f"{name}: w is not finite or tau left its support")
+        score, again = trs.get_score(), assess(trs, axis)
+        rel = float(((score - again).abs() / again.abs().clamp_min(1.0)).max())
+        check(rel <= 1e-4, f"{name}: get_score() is {rel:.3g} (relative) off assess of the choices")
+        return rel
+
+    # ---- the per-transition edit API: entry()'s program at bench_gfi's width
+    trs0 = init(dummy)
+    hmc.hmc_sweep_launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trs_t, accs = trs0, []
+    for _ in range(GFI_STEPS):
+        trs_t, acc = step(trs_t)
+        accs.append(acc.float().mean())
+    torch.cuda.synchronize()
+    trace_s = time.perf_counter() - t0
+    acc_t = float(torch.stack(accs).mean())
+    check(hmc.hmc_sweep_launches == 0, "the per-transition runner launched K1")
+    check(0.0 < acc_t <= 1.0, f"per-transition accept rate {acc_t}")
+    rel = gates("GFI trace", trs_t)
+    phase("main path GFI trace", f"vmap(generate) then {GFI_STEPS} transitions of vmap(mh(HMC(S[w] | "
+                                 f"S[tau], {EPS}, L={L}))) over {N_CHAINS} chains on the card: accept "
+                                 f"{acc_t:.4f}, {trace_s:.3f} s (host clock, first call), y equal bit for "
+                                 f"bit, get_score() within {rel:.3g} of assess (limit 1e-4), w "
+                                 f"{tuple(trs_t['w'].shape)}")
+
+    # ---- run_chains makes its chains itself, on the card by default
+    rc_steps = 2
+    hmc.hmc_sweep_launches = 0
+    res = g.run_chains(SEED, lambda gn: model.generate(gn, obs, ())[0], request, rc_steps, N_CHAINS,
+                       record=lambda tr: tr["tau"])
+    torch.cuda.synchronize()
+    leaves = pytree.tree_leaves(res)
+    check(all(isinstance(v, torch.Tensor) and v.is_cuda for v in leaves), "run_chains left a leaf off the card")
+    check(hmc.hmc_sweep_launches == 0, "run_chains launched K1")
+    check(tuple(res.accept_rate.shape) == (N_CHAINS,) and tuple(res.history.shape) == (N_CHAINS, rc_steps),
+          f"run_chains: accept_rate {tuple(res.accept_rate.shape)}, history {tuple(res.history.shape)}")
+    check(torch.equal(res.history[:, -1], res.trace["tau"]), "run_chains: the last recorded tau is not the trace's")
+    acc_rc = float(res.accept_rate.mean())
+    check(0.0 < acc_rc <= 1.0, f"run_chains accept rate {acc_rc}")
+    rel = gates("GFI run_chains", res.trace)
+    phase("main path GFI run_chains", f"run_chains(seed, generate, HMC, {rc_steps} steps, {N_CHAINS} chains, "
+                                      f"record=tau) with the default device: every leaf on the card, accept "
+                                      f"{acc_rc:.4f}, history {tuple(res.history.shape)}, y equal bit for bit, "
+                                      f"get_score() within {rel:.3g} of assess")
+
+    # ---- the batched runner, chains first and chains last: one K1 launch a call
+    sweeps, launches = {}, {}
+    for axis in (0, -1):
+        batch = trs0 if axis == 0 else pytree.tree_map(lambda v: v.movedim(0, -1), trs0)
+        hmc.hmc_sweep_launches = 0
+        new, acc = g.run_chains_hmc(gen, batch, sel, eps=EPS, L=L, n_steps=GFI_STEPS, chain_axis=axis)
+        torch.cuda.synchronize()
+        launches[axis] = hmc.hmc_sweep_launches
+        check(g.run_chains_hmc.last_backend == "cuda", f"run_chains_hmc took {g.run_chains_hmc.last_backend}")
+        check(launches[axis] == 1, f"run_chains_hmc(chain_axis={axis}) made {launches[axis]} K1 launches")
+        check(hmc.hmc_sweep.last_variant == "specialised", f"K1 took {hmc.hmc_sweep.last_variant}")
+        check(0.0 < float(acc) <= 1.0, f"sweep accept rate {float(acc)}")
+        check(pytree.tree_structure(new) == pytree.tree_structure(batch), "the trace structure changed")
+        rel = gates(f"GFI sweep (chain_axis={axis})", new, axis)
+        sweeps[axis] = (new, float(acc))
+        phase("main path GFI sweep", f"run_chains_hmc(chain_axis={axis}) {N_CHAINS} chains x {GFI_STEPS} "
+                                     f"steps on {g.run_chains_hmc.last_backend}, K1's "
+                                     f"{hmc.hmc_sweep.last_variant} variant: {launches[axis]} K1 launch, "
+                                     f"accept {float(acc):.4f}, y equal bit for bit, get_score() within "
+                                     f"{rel:.3g} of assess, w {tuple(new['w'].shape)}")
+
+    # ---- against the twin and the per-transition runner, in law, pairwise
+    hmc.hmc_sweep_launches = 0
+    trs_tw, acc_tw = g.run_chains_hmc(gen, trs0, sel, eps=EPS, L=L, n_steps=GFI_STEPS, backend="torch")
+    torch.cuda.synchronize()
+    check(g.run_chains_hmc.last_backend == "torch" and hmc.hmc_sweep_launches == 0,
+          "backend='torch' did not run the twin")
+    gates("GFI twin", trs_tw)
+    flat = lambda trs, axis=0: torch.cat(  # noqa: E731
+        [trs["tau"].movedim(axis, 0).reshape(N_CHAINS, 1), trs["w"].movedim(axis, 0)], dim=1)
+    runs = {"sweep": (flat(sweeps[0][0]), sweeps[0][1]), "sweep, chains last": (flat(sweeps[-1][0], -1), sweeps[-1][1]),
+            "twin": (flat(trs_tw), float(acc_tw)), "trace": (flat(trs_t), acc_t)}
+    worst_z = worst_acc = 0.0
+    names = list(runs)
+    for i, a in enumerate(names):
+        for b in names[i + 1:]:
+            z, d_acc = in_law(runs[a][0], runs[b][0], N_CHAINS), abs(runs[a][1] - runs[b][1])
+            check(z < 4, f"{a} and {b}: tau, w means differ by {z:.2f} MC standard errors")
+            check(d_acc <= 0.02, f"{a} and {b}: accept rates {runs[a][1]} and {runs[b][1]}")
+            worst_z, worst_acc = max(worst_z, z), max(worst_acc, d_acc)
+    phase("main path GFI vs twin", "; ".join(f"{k}: accept {v[1]:.4f}, tau mean {float(v[0][:, 0].mean()):.4f}"
+                                             for k, v in runs.items())
+                                   + f"; every pair's tau and w_j means within {worst_z:.2f} MC standard "
+                                     f"errors (limit 4), accept rates within {worst_acc:.4f} (limit 0.02)")
+
+    # ---- a model with no device body: auto raises, the twin runs when asked
+    @g.gen
+    def conjugate():
+        mu = g.normal(0.0, 1.0) @ "mu"
+        g.normal(mu, 1.0) @ "y"
+
+    obs_c = g.C["y"].set(torch.as_tensor(2.0, device=device))
+    trs_c = torch.func.vmap(lambda _: conjugate.generate(gen, obs_c, ())[0], randomness="different")(dummy[: min(4096, N_CHAINS)])
+    refused = False
+    try:
+        g.run_chains_hmc(gen, trs_c, g.S["mu"], eps=0.5, L=5, n_steps=GFI_STEPS)
+    except ValueError as e:
+        refused = "backend='torch'" in str(e)
+    check(refused, "a model with no device body did not raise under backend='auto' on the card")
+    trs_c, acc_c = g.run_chains_hmc(gen, trs_c, g.S["mu"], eps=0.5, L=5, n_steps=100, backend="torch")
+    mu = trs_c["mu"]
+    check(g.run_chains_hmc.last_backend == "torch" and mu.is_cuda, "the twin did not run on the card")
+    check(abs(float(mu.mean()) - 1.0) < 0.08 and abs(float(mu.var()) - 0.5) < 0.08,
+          f"conjugate posterior moments {float(mu.mean())}, {float(mu.var())} (exact 1, 0.5)")
+    phase("main path GFI routing", f"a model with no device body: backend='auto' raises on the card, "
+                                   f"backend='torch' runs the twin there: 4096 chains x 100 steps, accept "
+                                   f"{float(acc_c):.4f}, mean {float(mu.mean()):.4f} (exact 1), variance "
+                                   f"{float(mu.var()):.4f} (exact 0.5)")
+
+    # ---- the three runners on the host clock, as bench_gfi names them
+    transitions = N_CHAINS * GFI_STEPS
+
+    def run_trace():
+        trs = trs0
+        for _ in range(GFI_STEPS):
+            trs, _acc = step(trs)
+
+    trace_ms = wall_ms(run_trace)
+    sweep_ms = wall_ms(lambda: g.run_chains_hmc(gen, trs0, sel, eps=EPS, L=L, n_steps=GFI_STEPS))
+    lanes0 = pytree.tree_map(lambda v: v.movedim(0, -1), trs0)
+    sweep_last_ms = wall_ms(
+        lambda: g.run_chains_hmc(gen, lanes0, sel, eps=EPS, L=L, n_steps=GFI_STEPS, chain_axis=-1))
+    twin_ms = wall_ms(
+        lambda: g.run_chains_hmc(gen, trs0, sel, eps=EPS, L=L, n_steps=GFI_STEPS, backend="torch"), reps=1)
+    column_ms = wall_ms(lambda: hmc.pallas_hmc(ld, q0, SEED, n_steps=GFI_STEPS, eps=EPS, L=L), reps=9)
+    rate = lambda ms: transitions / ms * 1e3  # noqa: E731
+    phase("timing GFI", f"{smi}: {N_CHAINS} chains x {GFI_STEPS} transitions a call, host clock, median of "
+                        f"3: trace (vmapped mh(HMC) a transition) {trace_ms:.3f} ms = {rate(trace_ms):.6g} "
+                        f"transitions/s; sweep (run_chains_hmc, K1) {sweep_ms:.3f} ms = "
+                        f"{rate(sweep_ms):.6g} transitions/s (chains last: {sweep_last_ms:.3f} ms; "
+                        f"backend='torch', 1 call: {twin_ms:.3f} ms = {rate(twin_ms):.6g} transitions/s); "
+                        f"column (pallas_hmc on packed columns, K1, median of 9) {column_ms:.4f} ms = "
+                        f"{rate(column_ms):.6g} transitions/s; column/sweep {sweep_ms / column_ms:.2f}x, "
+                        f"column/trace {trace_ms / column_ms:.2f}x")
+
+    # ---- where a run_chains_hmc call spends its time: its stages again, each
+    # ended by a synchronise, and K1 by CUDA events
+    stage = {}
+    stage["seed read"] = wall_ms(lambda: int(torch.randint(0, 2**30, (), generator=gen, device=device)))
+    stage["column_view"] = wall_ms(lambda: mcmc.column_view(trs0, sel, 0))
+    z_cols, _ld_cols, write_back = mcmc.column_view(trs0, sel, 0)
+    stage["kernel view (equal-y check, packer, body)"] = wall_ms(
+        lambda: mcmc._KernelView(trs0, sel, 0, z_cols.shape[0]))
+    y_b = trs0["y"]
+    stage["of which the equal-y check"] = wall_ms(lambda: bool((y_b == y_b.select(0, 0).unsqueeze(0)).all()))
+    view = mcmc._KernelView(trs0, sel, 0, z_cols.shape[0])
+    stage["pack"] = wall_ms(lambda: view.pack(z_cols, gen))
+    q_in = view.pack(z_cols, gen)
+    k1_ms = cuda_ms(lambda: hmc.hmc_sweep(view.body, q_in, SEED, n_steps=GFI_STEPS, eps=EPS, L=L), 500)
+    stage["K1 call (host clock)"] = wall_ms(
+        lambda: hmc.pallas_hmc(view.body, q_in, SEED, n_steps=GFI_STEPS, eps=EPS, L=L))
+    q_out, _ = hmc.pallas_hmc(view.body, q_in, SEED, n_steps=GFI_STEPS, eps=EPS, L=L)
+    stage["unpack"] = wall_ms(lambda: view.unpack(q_out))
+    z_final = view.unpack(q_out)
+    stage["write_back"] = wall_ms(lambda: write_back(z_final, gen))
+    parts = sum(v for k, v in stage.items() if not k.startswith("of which"))
+    phase("where the time goes", f"GFI, {smi}: run_chains_hmc call {sweep_ms:.3f} ms (host clock, median of "
+                                 f"3); its stages alone, each ended by a synchronise: "
+                                 + ", ".join(f"{k} {v:.3f} ms" for k, v in stage.items())
+                                 + f" (sum {parts:.3f} ms); K1 on the card {k1_ms:.4f} ms a {GFI_STEPS}-step "
+                                   f"sweep by CUDA events (500 sweeps) = {k1_ms / sweep_ms:.4f} of the call")
+    # ---- how long the card itself works in a call of each runner
+    busy_sweep = device_busy(lambda: g.run_chains_hmc(gen, trs0, sel, eps=EPS, L=L, n_steps=GFI_STEPS))
+    busy_step = device_busy(lambda: step(trs0))
+    phase("where the time goes", f"GFI, {smi}: " + busy_line("run_chains_hmc", busy_sweep, sweep_ms) + "; "
+                                 + busy_line("one vmapped mh(HMC) transition", busy_step, trace_ms / GFI_STEPS))
+    return {"run_chains_hmc": launches[0], "run_chains_hmc(chain_axis=-1)": launches[-1]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this test needs a CUDA card",
@@ -491,14 +759,23 @@ def main() -> int:
         lib()
         return time.perf_counter() - t0
 
-    with ThreadPoolExecutor(3) as pool:
-        k1_load, k4_load, k3_load = pool.map(timed_load, (hmc._lib, nuts_pallas._lib, elliptical._lib))
+    def first_grad():
+        # the first torch.func.grad_and_value imports torch._dynamo, sympy and
+        # torch.distributed.tensor, seconds of host work that the trace path
+        # would otherwise pay in its first transition: done beside the builds
+        x = torch.ones(4, 3, device=device)
+        torch.func.vmap(torch.func.grad_and_value(lambda z: (z * z).sum()))(x)
+
+    with ThreadPoolExecutor(4) as pool:
+        k1_load, k4_load, k3_load, grad_load = pool.map(
+            timed_load, (hmc._lib, nuts_pallas._lib, elliptical._lib, first_grad))
     phase("build", f"K1 loaded from genjax_tpu_torch/kernels/csrc/hmc_sweep.cu "
                    f"in {k1_load:.2f} s (build included)")
     phase("build", f"K4 loaded from genjax_tpu_torch/kernels/csrc/nuts_sweep.cu "
                    f"in {k4_load:.2f} s (build included, in parallel with K1's)")
     phase("build", f"K3 loaded from genjax_tpu_torch/kernels/csrc/ess_gauss_sweep.cu "
                    f"in {k3_load:.2f} s (build included, in parallel with K1's and K4's)")
+    phase("build", f"torch.func's first grad_and_value (its lazy imports) took {grad_load:.2f} s beside the builds")
     X, y = flagship_data()
     flag_body = bodies.hier_regression(X, y, 0.25)
     gen_body = generic_body(bodies)
@@ -655,6 +932,9 @@ def main() -> int:
                                   f"launches ({HMC_WARMUP_PHASES} phases + 1), accept "
                                   f"{float(accept_w):.4f}")
 
+    # ---- the trace path: mh(HMC) a transition, and run_chains_hmc on K1
+    gfi_launches = gfi_path(device, smi, g, hmc, model, y, ld, q0)
+
     # ---- K4 against its plain version on the counter stream
     k4_cases = [
         ("iid_normal", iid, iid, numpy_q0(8, 4096, 21, False), 0.4),
@@ -765,15 +1045,6 @@ def main() -> int:
                     f"({k1_bound_by}: {grad_flop} FLOP a gradient), K1 at "
                     f"{k1_bound_ms / ms:.4f} of it")
 
-    def wall_ms(fn, reps=3):
-        times = []
-        for _ in range(reps):
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            times.append((time.perf_counter() - t0) * 1e3)
-        return sorted(times)[len(times) // 2]
-
     call_ms = wall_ms(lambda: column_hmc(
         model, obs, (), ["tau", "w"], n_chains=N_CHAINS, n_steps=N_STEPS, eps=EPS, L=L,
         seed=SEED, device="cuda",
@@ -827,7 +1098,7 @@ def main() -> int:
     k4_reps = max(3, math.ceil(1.2 * K4_WINDOW_S / 2 * 1e3 / cuda_ms(k4_sweep, 5)))
     k4_times = [cuda_ms(k4_sweep, k4_reps) for _ in range(2)]
     k4_ms = sum(k4_times) / 2
-    check(k4_ms * 2 * k4_reps >= K4_WINDOW_S * 1e3, f"K4 timing window {k4_ms * 2 * k4_reps:.0f} ms < 3 s")
+    check(k4_ms * 2 * k4_reps >= K4_WINDOW_S * 1e3, f"K4 timing window {k4_ms * 2 * k4_reps:.0f} ms < {K4_WINDOW_S} s")
     _, _, leaps = k4_sweep()
     k4_bound_ms, k4_bound_by = k4_bound(N_CHAINS, 16, NUTS_STEPS, float(leaps.sum()), grad_flop, 144)
 
@@ -875,6 +1146,8 @@ def main() -> int:
         "source": "genjax_tpu_torch/kernels/csrc/hmc_sweep.cu",
         "replaces": "genjax_tpu/kernels/hmc.py:93",
         "launches": launches,
+        "launches_by_path": {"column_hmc": launches, "column_hmc(warmup=True)": warm_launches,
+                             **gfi_launches},
         "max_abs_err": flagship_err,
         "ms": ms,
         "plain_ms": plain_ms,

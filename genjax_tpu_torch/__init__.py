@@ -2,9 +2,10 @@
 
 The port imports torch, numpy and scipy, never JAX. Names follow the JAX
 package; randomness comes from explicit ``torch.Generator`` objects. It
-carries the GFI with ``simulate``, ``assess`` and ``generate``, ``@gen``,
-six distributions, the regression and GP models, and the column samplers
-whose sweeps are CUDA kernels in ``kernels/csrc``: HMC (``hmc_sweep.cu``),
+carries the GFI (``simulate``, ``assess``, ``generate``, ``project``,
+``edit`` and ``update``), ``@gen``, six distributions, the regression and GP
+models, the trace path (the ``HMC`` edit request, ``mh``, ``run_chains`` and
+the batched ``run_chains_hmc``) and the column samplers whose sweeps are CUDA kernels in ``kernels/csrc``: HMC (``hmc_sweep.cu``),
 NUTS (``nuts_sweep.cu``) and Gaussian elliptical slice sampling
 (``ess_gauss_sweep.cu``).
 """
@@ -18,6 +19,7 @@ from .core import (
     NotTracedError,
     Pytree,
 )
+from .core.diff import Diff, NoChange, UnknownChange
 from .dists import (
     Distribution,
     ExactDensity,
@@ -32,13 +34,21 @@ from .dists import (
 from .generative import (
     C,
     ChoiceMap,
+    DiffAnnotate,
+    EditRequest,
+    EmptyRequest,
     GenerativeFunction,
     Mask,
+    NotSupportedEditRequest,
+    Regenerate,
     S,
     Selection,
     Trace,
+    Update,
 )
-from .lang import StaticGenerativeFunction, StaticTrace, gen
+from .inference import MHChainResult, mh, run_chain, run_chains, run_chains_hmc
+from .inference.requests import HMC, SafeHMC, mh_accept, selection_gradient
+from .lang import StaticGenerativeFunction, StaticRequest, StaticTrace, gen
 
 __all__ = [
     "AddressReuse",
@@ -46,25 +56,44 @@ __all__ = [
     "ChoiceMap",
     "Closure",
     "Const",
+    "Diff",
+    "DiffAnnotate",
     "Distribution",
+    "EditRequest",
+    "EmptyRequest",
     "ExactDensity",
     "GenJAXError",
     "GenerativeFunction",
+    "HMC",
+    "MHChainResult",
     "Mask",
     "MissingAddress",
+    "NoChange",
+    "NotSupportedEditRequest",
     "NotTracedError",
     "Pytree",
+    "Regenerate",
     "S",
+    "SafeHMC",
     "Selection",
     "StaticGenerativeFunction",
+    "StaticRequest",
     "StaticTrace",
     "Trace",
+    "UnknownChange",
+    "Update",
     "beta",
     "exact_density",
     "flip",
     "gen",
     "log_normal",
+    "mh",
+    "mh_accept",
     "mv_normal",
     "mv_normal_diag",
     "normal",
+    "run_chain",
+    "run_chains",
+    "run_chains_hmc",
+    "selection_gradient",
 ]

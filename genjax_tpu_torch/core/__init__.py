@@ -1,5 +1,6 @@
 """Substrate: pytree dataclasses and the effect-handler stack."""
 
+from .diff import Diff, NoChange, UnknownChange
 from .handlers import (
     AddressReuse,
     GenJAXError,
@@ -15,11 +16,14 @@ __all__ = [
     "AddressReuse",
     "Closure",
     "Const",
+    "Diff",
     "GenJAXError",
     "MissingAddress",
+    "NoChange",
     "NotTracedError",
     "Pytree",
     "TraceHandler",
+    "UnknownChange",
     "dispatch_trace",
     "handle",
 ]

@@ -4,7 +4,10 @@ Counterpart of ``genjax_tpu/core/pytree.py``. Every framework object
 (traces, choice maps, generative functions) is a frozen dataclass registered
 as a torch pytree node: fields declared with ``Pytree.static()`` ride in the
 node's context (they must compare by value), every other field is a child,
-so ``tree_map`` over a trace reaches its tensors.
+so ``tree_map`` over a trace reaches its tensors. A child field that holds
+``None`` is an empty subtree, as in JAX (torch's own pytrees make ``None`` a
+leaf, which ``torch.func.vmap`` refuses as an input or an output): which
+fields are absent rides in the context.
 """
 
 from __future__ import annotations
@@ -53,14 +56,18 @@ class Pytree:
             (meta_fields if f.metadata.get(_STATIC_MARK) else data_fields).append(f.name)
 
         def flatten(obj):
-            children = [getattr(obj, n) for n in data_fields]
-            return children, tuple(getattr(obj, n) for n in meta_fields)
+            values = [getattr(obj, n) for n in data_fields]
+            absent = tuple(v is None for v in values)
+            meta = tuple(getattr(obj, n) for n in meta_fields)
+            return [v for v in values if v is not None], (meta, absent)
 
         def unflatten(children, context):
+            meta, absent = context
+            children = iter(children)
             obj = object.__new__(dcls)
-            for n, v in zip(data_fields, children):
-                object.__setattr__(obj, n, v)
-            for n, v in zip(meta_fields, context):
+            for n, gone in zip(data_fields, absent):
+                object.__setattr__(obj, n, None if gone else next(children))
+            for n, v in zip(meta_fields, meta):
                 object.__setattr__(obj, n, v)
             return obj
 

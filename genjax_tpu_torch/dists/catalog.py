@@ -6,7 +6,9 @@ with the same names, TFP parameter orders and log-density formulas (the
 normal density is ``-(log(2 pi s^2) + (x - m)^2 / s^2) / 2``, as
 ``jax.scipy.stats.norm`` computes it). Log-densities are elementwise over
 batch dimensions; ``mv_normal_diag`` and ``mv_normal`` reduce over the event
-axis. Arguments that are not tensors are made float32 tensors on the device
+axis. Every sampler takes ``sample_shape=`` with TFP's meaning: the count of
+independent draws, which PREPENDS the parameters' batch shape; the
+log-densities accept and ignore it. Arguments that are not tensors are made float32 tensors on the device
 of the tensor arguments (a CUDA device wins over the CPU); samples are drawn
 on the generator's device.
 """
@@ -38,23 +40,39 @@ def _tensors(*xs, device=None) -> list[torch.Tensor]:
     return out
 
 
-def _batch_shape(*params) -> torch.Size:
-    return torch.broadcast_shapes(*(p.shape for p in params))
+def _shape(kwargs) -> tuple:
+    """The ``sample_shape`` keyword as a tuple of ints (an int is one axis)."""
+    s = kwargs.pop("sample_shape", ())
+    if kwargs:
+        raise TypeError(f"unexpected keyword arguments {sorted(kwargs)}")
+    return tuple(int(n) for n in (s if isinstance(s, (tuple, list, torch.Size)) else (s,)))
 
 
-def _normal_logpdf(v, loc=0.0, scale=1.0):
+def _bshape(sample_shape, *params) -> tuple:
+    """``sample_shape`` before the broadcast batch shape of ``params``
+    (tensors, or explicit shape tuples): it counts independent draws and is
+    not another broadcast operand."""
+    batch: tuple = ()
+    for p in params:
+        shape = p if isinstance(p, tuple) else tuple(p.shape)
+        if shape and shape != batch:  # a scalar broadcasts to anything
+            batch = tuple(torch.broadcast_shapes(batch, shape)) if batch else shape
+    return tuple(sample_shape) + batch
+
+
+def _normal_logpdf(v, loc=0.0, scale=1.0, **kw):
     v, loc, scale = _tensors(v, loc, scale)
     s2 = scale * scale
     return (torch.log((2.0 * math.pi) * s2) + (v - loc) ** 2 / s2) / -2.0
 
 
-def _normal_sample(gen, loc=0.0, scale=1.0):
+def _normal_sample(gen, loc=0.0, scale=1.0, **kw):
     loc, scale = _tensors(loc, scale, device=gen.device)
-    z = torch.randn(_batch_shape(loc, scale), generator=gen, device=gen.device)
+    z = torch.randn(_bshape(_shape(kw), loc, scale), generator=gen, device=gen.device)
     return loc + scale * z
 
 
-def _log_normal_logpdf(v, loc=0.0, scale=1.0):
+def _log_normal_logpdf(v, loc=0.0, scale=1.0, **kw):
     (v,) = _tensors(v)
     log_v = torch.log(v)
     return torch.where(
@@ -62,11 +80,11 @@ def _log_normal_logpdf(v, loc=0.0, scale=1.0):
     )
 
 
-def _mv_normal_diag_logpdf(v, loc, scale_diag):
+def _mv_normal_diag_logpdf(v, loc, scale_diag, **kw):
     return torch.sum(_normal_logpdf(v, loc, scale_diag), dim=-1)
 
 
-def _mv_normal_logpdf(v, loc, covariance_matrix):
+def _mv_normal_logpdf(v, loc, covariance_matrix, **kw):
     """``jax.scipy.stats.multivariate_normal.logpdf``: one Cholesky factor
     gives the quadratic form (a triangular solve) and the log-determinant
     (its diagonal)."""
@@ -78,11 +96,11 @@ def _mv_normal_logpdf(v, loc, covariance_matrix):
     return -0.5 * torch.sum(z * z, dim=-1) - 0.5 * n * _LOG_2PI - log_det
 
 
-def _mv_normal_sample(gen, loc, covariance_matrix):
+def _mv_normal_sample(gen, loc, covariance_matrix, **kw):
     """``loc + L z`` with ``L`` the lower Cholesky factor and ``z ~ N(0, I)``."""
     loc, cov = _tensors(loc, covariance_matrix, device=gen.device)
     chol = torch.linalg.cholesky(cov)
-    shape = torch.broadcast_shapes(loc.shape, cov.shape[:-1])
+    shape = _bshape(_shape(kw), loc, tuple(cov.shape[:-1]))
     z = torch.randn(shape, generator=gen, device=gen.device)
     return loc + (chol @ z.unsqueeze(-1)).squeeze(-1)
 
@@ -97,7 +115,7 @@ def _betaln(a, b):
     return torch.where(b < 8.0, small_b, large_b)
 
 
-def _beta_logpdf(v, concentration1, concentration0):
+def _beta_logpdf(v, concentration1, concentration0, **kw):
     x, a, b = _tensors(v, concentration1, concentration0)
     log_probs = -_betaln(a, b) + (
         torch.xlogy(a - 1.0, x) + torch.special.xlog1py(b - 1.0, -x)
@@ -106,28 +124,28 @@ def _beta_logpdf(v, concentration1, concentration0):
     return torch.where((a <= 0.0) | (b <= 0.0), torch.nan, out)
 
 
-def _beta_sample(gen, concentration1, concentration0):
+def _beta_sample(gen, concentration1, concentration0, **kw):
     a, b = _tensors(concentration1, concentration0, device=gen.device)
-    shape = _batch_shape(a, b)
+    shape = _bshape(_shape(kw), a, b)
     x = torch._standard_gamma(a.expand(shape).contiguous(), generator=gen)
     y = torch._standard_gamma(b.expand(shape).contiguous(), generator=gen)
     return x / (x + y)
 
 
-def _flip_logpdf(v, p):
+def _flip_logpdf(v, p, **kw):
     v, p = _tensors(v, p)
     return torch.xlogy(v, p) + torch.special.xlog1py(1.0 - v, -p)
 
 
-def _flip_sample(gen, p):
+def _flip_sample(gen, p, **kw):
     (p,) = _tensors(p, device=gen.device)
-    return torch.rand(p.shape, generator=gen, device=gen.device) < p
+    return torch.rand(_bshape(_shape(kw), p), generator=gen, device=gen.device) < p
 
 
 normal = exact_density(_normal_sample, _normal_logpdf, "normal")
 
 log_normal = exact_density(
-    lambda gen, loc=0.0, scale=1.0: torch.exp(_normal_sample(gen, loc, scale)),
+    lambda gen, loc=0.0, scale=1.0, **kw: torch.exp(_normal_sample(gen, loc, scale, **kw)),
     _log_normal_logpdf,
     "log_normal",
 )

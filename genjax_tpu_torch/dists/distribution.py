@@ -1,9 +1,12 @@
 """``Distribution``: generative functions over a single (unaddressed) choice.
 
 Counterpart of ``genjax_tpu/dists/distribution.py``: the GFI of a primitive
-distribution (``simulate``, ``assess``, ``generate`` under a full or absent
-constraint), ``ExactDensity`` and the ``exact_density`` factory.
-Draws come from the caller's ``torch.Generator`` on its device.
+distribution (``simulate``, ``assess``, ``generate``, ``project`` and the
+``Update`` and ``Regenerate`` edits, under a full or absent constraint and a
+concrete selection), ``ExactDensity``, the keyword-argument adaptor and the
+``exact_density`` factory. Draws come from the caller's ``torch.Generator``
+on its device. Masked constraints and selections whose flags are tensors
+wait for the combinators.
 """
 
 from __future__ import annotations
@@ -13,12 +16,28 @@ from typing import Any, Callable
 
 import torch
 
+from ..core.diff import Diff
 from ..core.pytree import Pytree
 from ..generative.choice_map import ChoiceMap, ValueChm
-from ..generative.concepts import Score, Weight
+from ..generative.concepts import (
+    EditRequest,
+    NotSupportedEditRequest,
+    Regenerate,
+    Retdiff,
+    Score,
+    Update,
+    Weight,
+)
 from ..generative.gfi import GenerativeFunction
-from ..generative.mask import Mask
-from ..generative.trace import Trace
+from ..generative.mask import Mask, concrete_false, concrete_true
+from ..generative.selection import Selection
+from ..generative.trace import Trace, tensor_leaves
+
+
+def _with_combinators(what: str):
+    return NotImplementedError(
+        f"{what} comes with the combinators of the port (ROADMAP queue 1, item 7)"
+    )
 
 
 @Pytree.dataclass
@@ -27,6 +46,12 @@ class DistributionTrace(Trace):
     args: tuple
     value: Any
     score: Score
+
+    def __post_init__(self):
+        # a recorded trace holds tensor leaves only (``tensor_leaves``)
+        device = self.score.device if isinstance(self.score, torch.Tensor) else None
+        object.__setattr__(self, "args", tensor_leaves(self.args, device))
+        object.__setattr__(self, "value", tensor_leaves(self.value, device))
 
     def get_args(self) -> tuple:
         return self.args
@@ -81,12 +106,78 @@ class Distribution(GenerativeFunction):
             tr = self.simulate(gen, args)
             return tr, torch.zeros((), device=gen.device)
         if isinstance(v, Mask):
-            raise NotImplementedError(
-                "generate under a masked constraint comes with the combinator "
-                "slice of the port (ROADMAP queue 1, slice 3)"
-            )
+            raise _with_combinators("generate under a masked constraint")
         w = self.estimate_logpdf(gen, v, *args)
         return DistributionTrace(self, args, v, w), w
+
+    def project(self, gen: torch.Generator | None, trace: Trace, selection: Selection) -> Weight:
+        check = selection.check()
+        if concrete_true(check):
+            return trace.get_score()
+        if concrete_false(check):
+            return torch.zeros_like(trace.get_score())
+        raise _with_combinators("project under a selection whose flag is a tensor")
+
+    # ----- edits -----
+
+    def edit(
+        self, gen: torch.Generator, trace: Trace, request: EditRequest, argdiffs: Any
+    ) -> tuple[Trace, Weight, Retdiff, EditRequest]:
+        if isinstance(request, Update):
+            return self._edit_update(gen, trace, request.constraint, argdiffs)
+        if isinstance(request, Regenerate):
+            return self._edit_regenerate(gen, trace, request.selection, argdiffs)
+        raise NotSupportedEditRequest(
+            f"{type(self).__name__} cannot serve {type(request).__name__}."
+        )
+
+    def _edit_update(self, gen, trace, constraint: ChoiceMap, argdiffs):
+        primals = Diff.tree_primal(argdiffs)
+        v = constraint.get_value()
+        old_choices = trace.get_choices()
+        if v is None:
+            old_v = old_choices.get_value()
+            fwd = self.estimate_logpdf(gen, old_v, *primals)
+            new_tr = DistributionTrace(self, primals, old_v, fwd)
+            return new_tr, fwd - trace.get_score(), Diff.no_change(old_v), Update(ChoiceMap.empty())
+        if isinstance(v, Mask):
+            raise _with_combinators("an Update under a masked constraint")
+        fwd = self.estimate_logpdf(gen, v, *primals)
+        new_tr = DistributionTrace(self, primals, v, fwd)
+        return new_tr, fwd - trace.get_score(), Diff.unknown_change(new_tr.value), Update(old_choices)
+
+    def _edit_regenerate(self, gen, trace, selection: Selection, argdiffs):
+        check = selection.check()
+        primals = Diff.tree_primal(argdiffs)
+        if concrete_true(check):
+            score, new_v = self.random_weighted(gen, *primals)
+            new_tr = DistributionTrace(self, primals, new_v, score)
+            return (
+                new_tr,
+                score - trace.get_score(),
+                Diff.unknown_change(new_v),
+                Update(ValueChm(trace.get_retval())),
+            )
+        if concrete_false(check):
+            if Diff.static_check_no_change(argdiffs):
+                return (
+                    trace,
+                    torch.zeros_like(trace.get_score()),
+                    Diff.no_change(trace.get_retval()),
+                    Update(ChoiceMap.empty()),
+                )
+            old_v = trace.get_choices().get_value()
+            new_score = self.estimate_logpdf(gen, old_v, *primals)
+            return (
+                DistributionTrace(self, primals, old_v, new_score),
+                new_score - trace.get_score(),
+                Diff.no_change(trace.get_retval()),
+                Update(ChoiceMap.empty()),
+            )
+        raise _with_combinators("Regenerate under a selection whose flag is a tensor")
+
+    def handle_kwargs(self) -> GenerativeFunction:
+        return KwargsDistribution(self)
 
 
 class ExactDensity(Distribution):
@@ -116,6 +207,34 @@ class ExactDensity(Distribution):
 
 
 @Pytree.dataclass
+class KwargsDistribution(Distribution):
+    """Keyword-argument adaptor: args are ``(positional_args, kwargs_dict)``."""
+
+    inner: Distribution
+
+    def _exact(self) -> ExactDensity:
+        if not isinstance(self.inner, ExactDensity):
+            raise NotImplementedError("kwargs on non-exact distributions")
+        return self.inner
+
+    def random_weighted(self, gen, *args):
+        (pos, kw) = args
+        v = self._exact().sample(gen, *pos, **kw)
+        return self.inner.logpdf(v, *pos, **kw), v
+
+    def estimate_logpdf(self, gen, v, *args):
+        (pos, kw) = args
+        return self._exact().logpdf(v, *pos, **kw)
+
+    def assess(self, chm, args):
+        (pos, kw) = args
+        v = chm.get_value()
+        if isinstance(v, Mask):
+            v = v.value
+        return self._exact().logpdf(v, *pos, **kw), v
+
+
+@Pytree.dataclass
 class LambdaDensity(ExactDensity):
     """An ExactDensity from a sampler/logpdf function pair."""
 
@@ -123,11 +242,11 @@ class LambdaDensity(ExactDensity):
     logpdf_fn: Callable = Pytree.static()
     name: str = Pytree.static(default="exact_density")
 
-    def sample(self, gen: torch.Generator, *args) -> Any:
-        return self.sampler(gen, *args)
+    def sample(self, gen: torch.Generator, *args, **kwargs) -> Any:
+        return self.sampler(gen, *args, **kwargs)
 
-    def logpdf(self, v: Any, *args) -> Score:
-        return self.logpdf_fn(v, *args)
+    def logpdf(self, v: Any, *args, **kwargs) -> Score:
+        return self.logpdf_fn(v, *args, **kwargs)
 
     def __repr__(self):
         return f"genjax_tpu_torch.{self.name}"

@@ -2,8 +2,11 @@
 
 Counterpart of ``genjax_tpu/generative/choice_map.py`` for static and value
 nodes: the ``C`` builder, ``ChoiceMap.empty``/``entry``/``d``,
-``get_submap``/``get_value``/``static_is_empty`` and left-priority ``|``.
-Indexed, switch, masked and filtered nodes wait for the combinator slice.
+``get_submap``/``get_value``/``static_is_empty``, left-priority ``|`` and
+``merge``, and filtering by a static selection (``filter``, lazy as in the
+reference; ``filter_eager``, pruned; ``get_selection``). Indexed, switch and
+masked nodes, and filters whose flags are tensors, wait for the combinator
+slice.
 """
 
 from __future__ import annotations
@@ -13,7 +16,8 @@ from typing import Any, Iterable, Mapping
 
 from ..core.handlers import GenJAXError
 from ..core.pytree import Pytree
-from .mask import Mask, concrete_false
+from .mask import Flag, Mask, concrete_false, concrete_true, is_concrete
+from .selection import AllSel, ChmSel, NoneSel, Selection
 
 
 class ChoiceMapNoValueAtAddress(GenJAXError):
@@ -24,6 +28,13 @@ def _not_yet(what: str):
     return NotImplementedError(
         f"{what} needs indexed choice maps, which come with the combinator "
         "slice of the port (ROADMAP queue 1, slice 3)"
+    )
+
+
+def _traced_flag(what: str):
+    return NotImplementedError(
+        f"{what} under a flag that is a tensor needs masked choice maps, which come "
+        "with the combinators of the port (ROADMAP queue 1, item 7)"
     )
 
 
@@ -88,6 +99,37 @@ class ChoiceMap(Pytree):
             for comp in addr if isinstance(addr, tuple) else (addr,):
                 chm = chm.get_inner_map(comp)
         return chm
+
+    def filter_eager(self, selection: Selection) -> "ChoiceMap":
+        """Prune to the entries ``selection`` covers: unlike the lazy
+        ``filter``, unselected subtrees leave the result's structure. For
+        where the result's leaf set matters: raveling a selection into a flat
+        position vector must carry no inert unselected leaf."""
+        return _invalid_extras(self, ~selection)
+
+    def filter(self, selection: Selection | Flag) -> "ChoiceMap":
+        if not isinstance(selection, Selection):
+            return self.mask(selection)
+        if isinstance(selection, AllSel):
+            return self
+        if isinstance(selection, NoneSel):
+            return ChoiceMap.empty()
+        if self.static_is_empty():
+            return self
+        return FilteredChm(self, selection)
+
+    def mask(self, flag: Flag) -> "ChoiceMap":
+        if concrete_true(flag):
+            return self
+        if concrete_false(flag):
+            return ChoiceMap.empty()
+        raise _traced_flag("ChoiceMap.mask")
+
+    def merge(self, other: "ChoiceMap") -> "ChoiceMap":
+        return self | other
+
+    def get_selection(self) -> Selection:
+        return ChmSel(self)
 
     def extend(self, *addrs) -> "ChoiceMap":
         acc = self
@@ -184,6 +226,30 @@ class StaticChm(ChoiceMap):
 
 
 @Pytree.dataclass
+class FilteredChm(ChoiceMap):
+    """Lazy filter by a selection, resolved at read time: the unselected
+    leaves stay in the tree and read as absent."""
+
+    inner: ChoiceMap
+    selection: Selection
+
+    def get_value(self) -> Any:
+        check = self.selection.check()
+        if not is_concrete(check):
+            raise _traced_flag("a read of a filtered choice map")
+        return Mask.maybe_mask(self.inner.get_value(), check)
+
+    def get_inner_map(self, addr) -> ChoiceMap:
+        return self.inner.get_inner_map(addr).filter(self.selection.get_subselection(addr))
+
+    def static_addresses(self) -> tuple:
+        return self.inner.static_addresses()
+
+    def static_is_empty(self) -> bool:
+        return self.inner.static_is_empty()
+
+
+@Pytree.dataclass
 class OrChm(ChoiceMap):
     """Left-priority union of two maps of different node kinds."""
 
@@ -201,6 +267,9 @@ class OrChm(ChoiceMap):
 
     def get_inner_map(self, addr) -> ChoiceMap:
         return self.c1.get_inner_map(addr) | self.c2.get_inner_map(addr)
+
+    def filter(self, selection) -> ChoiceMap:
+        return self.c1.filter(selection) | self.c2.filter(selection)
 
     def static_addresses(self) -> tuple:
         out = list(self.c1.static_addresses())
@@ -224,6 +293,28 @@ def _or_build(c1: ChoiceMap, c2: ChoiceMap) -> ChoiceMap:
     if isinstance(c1, ValueChm) and isinstance(c2, ValueChm):
         return ValueChm(Mask.maybe_none(Mask(c1.v) | Mask(c2.v)))
     return OrChm(c1, c2)
+
+
+def _invalid_extras(chm: ChoiceMap, sel: Selection) -> ChoiceMap:
+    """``chm`` pruned to the entries ``sel`` does NOT cover; statically empty
+    when ``sel`` covers them all."""
+    if chm.static_is_empty():
+        return _EMPTY
+    if isinstance(chm, ValueChm):
+        check = sel.check()
+        if not is_concrete(check):
+            raise _traced_flag("pruning a choice map")
+        return _EMPTY if check else chm
+    if isinstance(chm, StaticChm):
+        return StaticChm.build(
+            {k: _invalid_extras(sub, sel.get_subselection(k)) for k, sub in zip(chm.keys, chm.submaps)}
+        )
+    if isinstance(chm, FilteredChm):
+        # the selected part is what the filter keeps and ``sel`` does not cover
+        return _invalid_extras(chm.inner, sel | ~chm.selection)
+    if isinstance(chm, OrChm):
+        return _or_build(_invalid_extras(chm.c1, sel), _invalid_extras(chm.c2, sel))
+    return chm
 
 
 class _ChoiceMapBuilder:

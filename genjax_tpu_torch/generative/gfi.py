@@ -1,10 +1,11 @@
 """``GenerativeFunction``: the Generative Function Interface (GFI).
 
-Counterpart of ``genjax_tpu/generative/gfi.py`` with ``simulate``,
-``assess`` and ``generate``.
-Randomness comes from an explicit ``torch.Generator`` in place of a JAX key:
-draws are made on the generator's device. ``edit``, ``update`` and
-``project`` wait for the trace-path slice.
+Counterpart of ``genjax_tpu/generative/gfi.py``: abstract ``simulate``,
+``assess``, ``generate``, ``project`` and ``edit`` (SMCP3 semantics), the
+derived ``update``, ``importance`` and ``propose``, and the closure that
+``gen_fn(*args)`` returns. Randomness comes from an explicit
+``torch.Generator`` in place of a JAX key: draws are made on the generator's
+device. The postfix combinators wait for the combinator slice.
 """
 
 from __future__ import annotations
@@ -14,21 +15,21 @@ from typing import Any
 
 import torch
 
+from ..core.diff import Diff
 from ..core.handlers import dispatch_trace
 from ..core.pytree import Pytree
 from .choice_map import ChoiceMap
-from .concepts import Arguments, Score, Weight
+from .concepts import Arguments, EditRequest, Retdiff, Score, Update, Weight
+from .selection import Selection
 from .trace import Trace
-
-_TRACE_PATH = (
-    "edit/update/project are part of the trace-path slice of the port "
-    "(ROADMAP queue 1: the HMC edit request, mh and run_chains_hmc)"
-)
 
 
 class GenerativeFunction(Pytree):
-    """A probability measure over an addressed sample space, with the GFI
-    ``simulate``/``assess``/``generate``."""
+    """A probability measure over an addressed sample space, with the GFI:
+    ``simulate``, ``assess``, ``generate``, ``project``, ``edit`` and the
+    derived ``update``, ``importance`` and ``propose``."""
+
+    # ----- abstract GFI -----
 
     @abc.abstractmethod
     def simulate(self, gen: torch.Generator, args: Arguments) -> Trace:
@@ -45,30 +46,91 @@ class GenerativeFunction(Pytree):
         """Importance sampling under partial constraints: a trace that agrees
         with ``constraint`` and the log weight of the constrained choices."""
 
-    def edit(self, *args, **kwargs):
-        raise NotImplementedError(_TRACE_PATH)
+    @abc.abstractmethod
+    def project(self, gen: torch.Generator, trace: Trace, selection: Selection) -> Weight:
+        """The log-density contribution of the selected choices."""
 
-    def update(self, *args, **kwargs):
-        raise NotImplementedError(_TRACE_PATH)
+    @abc.abstractmethod
+    def edit(
+        self, gen: torch.Generator, trace: Trace, request: EditRequest, argdiffs: Any
+    ) -> tuple[Trace, Weight, Retdiff, EditRequest]:
+        """Serve a primitive edit request with SMCP3 weight accounting."""
 
-    def project(self, *args, **kwargs):
-        raise NotImplementedError(_TRACE_PATH)
+    # ----- derived GFI -----
 
-    def __call__(self, *args) -> "GenerativeFunctionClosure":
-        return GenerativeFunctionClosure(self, args)
+    def update(
+        self, gen: torch.Generator, trace: Trace, constraint: ChoiceMap, argdiffs: Any = None
+    ):
+        if argdiffs is None:
+            argdiffs = Diff.tree_diff_no_change(trace.get_args())
+        new_tr, w, retdiff, bwd = self.edit(gen, trace, Update(constraint), argdiffs)
+        discard = bwd.constraint if isinstance(bwd, Update) else bwd
+        return new_tr, w, retdiff, discard
+
+    def importance(
+        self, gen: torch.Generator, constraint: ChoiceMap, args: Arguments
+    ) -> tuple[Trace, Weight]:
+        return self.generate(gen, constraint, args)
+
+    def propose(self, gen: torch.Generator, args: Arguments):
+        tr = self.simulate(gen, args)
+        return tr.get_choices(), tr.get_score(), tr.get_retval()
+
+    # ----- call/closure syntax -----
+
+    def __call__(self, *args, **kwargs) -> "GenerativeFunctionClosure":
+        return GenerativeFunctionClosure(self, args, tuple(kwargs.items()))
 
     def __matmul__(self, addr):
         """Support zero-argument models: ``model @ "x"``."""
-        return GenerativeFunctionClosure(self, ()) @ addr
+        return GenerativeFunctionClosure(self, (), ()) @ addr
+
+    def handle_kwargs(self) -> "GenerativeFunction":
+        """A generative function equivalent to this one that takes
+        ``(args, kwargs_dict)``."""
+        raise NotImplementedError(
+            f"{type(self).__name__} does not support keyword arguments."
+        )
 
 
 @Pytree.dataclass
 class GenerativeFunctionClosure(Pytree):
     """Returned by ``gen_fn(*args)``: binds the call into an enclosing ``@gen``
-    body via ``@ "addr"``."""
+    body via ``@ "addr"``, and forwards the GFI with the arguments applied."""
 
     gen_fn: GenerativeFunction
     args: tuple
+    kwargs: tuple = ()  # (name, value) pairs
+
+    def _resolved(self) -> tuple[GenerativeFunction, tuple]:
+        if self.kwargs:
+            return self.gen_fn.handle_kwargs(), (self.args, dict(self.kwargs))
+        return self.gen_fn, self.args
 
     def __matmul__(self, addr):
-        return dispatch_trace(addr, self.gen_fn, self.args)
+        gen_fn, args = self._resolved()
+        return dispatch_trace(addr, gen_fn, args)
+
+    def simulate(self, gen: torch.Generator) -> Trace:
+        gen_fn, args = self._resolved()
+        return gen_fn.simulate(gen, args)
+
+    def assess(self, chm: ChoiceMap) -> tuple[Score, Any]:
+        gen_fn, args = self._resolved()
+        return gen_fn.assess(chm, args)
+
+    def generate(self, gen: torch.Generator, constraint: ChoiceMap):
+        gen_fn, args = self._resolved()
+        return gen_fn.generate(gen, constraint, args)
+
+    def importance(self, gen: torch.Generator, constraint: ChoiceMap):
+        gen_fn, args = self._resolved()
+        return gen_fn.importance(gen, constraint, args)
+
+    def propose(self, gen: torch.Generator):
+        gen_fn, args = self._resolved()
+        return gen_fn.propose(gen, args)
+
+    def __call__(self, gen: torch.Generator):
+        gen_fn, args = self._resolved()
+        return gen_fn.simulate(gen, args).get_retval()

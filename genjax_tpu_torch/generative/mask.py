@@ -119,6 +119,17 @@ class Mask(Pytree):
                 return None
         return v
 
+    @staticmethod
+    def maybe_mask(v: Any, flag: Flag):
+        """``v`` under ``flag``: ``v`` itself where the flag is concretely
+        true, None where it is concretely false (or ``v`` is None), else a
+        ``Mask``."""
+        if v is None or concrete_false(flag):
+            return None
+        if concrete_true(flag) and not isinstance(v, Mask):
+            return v
+        return Mask.maybe_none(Mask(v, flag))
+
     def unmask(self, default: Any = None) -> Any:
         """The value; with ``default``, invalid lanes are replaced by it."""
         if default is None:

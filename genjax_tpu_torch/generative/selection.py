@@ -1,8 +1,9 @@
 """``Selection``: an algebra of static-address predicates.
 
 Counterpart of ``genjax_tpu/generative/selection.py`` for static addresses
-(strings, tuples, Python ints and the ``...`` wildcard). Dynamic index
-selections wait for the combinator slice.
+(strings, tuples, Python ints and the ``...`` wildcard), with ``ChmSel``,
+the selection of the addresses a choice map holds. Dynamic index selections
+wait for the combinator slice.
 """
 
 from __future__ import annotations
@@ -11,7 +12,7 @@ import abc
 from typing import Any
 
 from ..core.pytree import Pytree
-from .mask import Flag, flag_and, flag_not, flag_or
+from .mask import Flag, Mask, flag_and, flag_not, flag_or
 
 
 class Selection(Pytree):
@@ -66,6 +67,9 @@ class Selection(Pytree):
         if isinstance(self, NoneSel):
             return AllSel()
         return ComplementSel(self)
+
+    def complement(self) -> "Selection":
+        return ~self
 
     def mask(self, flag: bool) -> "Selection":
         return self if flag else NoneSel()
@@ -156,6 +160,23 @@ class OrSel(Selection):
 
     def get_subselection(self, addr) -> Selection:
         return self.a.get_subselection(addr) | self.b.get_subselection(addr)
+
+
+@Pytree.dataclass
+class ChmSel(Selection):
+    """Selection of every address that holds a value in a choice map."""
+
+    chm: Any  # ChoiceMap, typed loosely: choice_map imports this module
+
+    def check(self) -> Flag:
+        v = self.chm.get_value()
+        if v is None:
+            return False
+        return v.flag if isinstance(v, Mask) else True
+
+    def get_subselection(self, addr) -> Selection:
+        sub = self.chm.get_submap(addr)
+        return NoneSel() if sub.static_is_empty() else ChmSel(sub)
 
 
 class _SelectionBuilder:

@@ -119,14 +119,25 @@ def hier_regression(X, y, obs_scale: float) -> Body:
     return Body(HIER_REGRESSION, consts, n_obs, d_w, float(obs_scale))
 
 
+def _path(addr) -> tuple:
+    return addr if isinstance(addr, tuple) else (addr,)
+
+
+def body_packing(model) -> tuple | None:
+    """The address paths, in the body's row order, that ``model``'s family
+    packs for its device body, or None for a model with none."""
+    if getattr(model, "column_family", None) == "hierarchical_regression":
+        return (("tau",), ("w",))
+    return None
+
+
 def body_for(model, constraint, args, addresses) -> Body | None:
     """The device body of ``model``'s column log-density under this packing,
     or None. A model names its family and constants as plain data
     (``column_family``, ``X``, ``obs_scale``; see
     ``models/regression.py``); only the packings below have a body."""
-    if getattr(model, "column_family", None) != "hierarchical_regression":
-        return None
-    if list(addresses) != ["tau", "w"] or args != ():
+    packing = body_packing(model)
+    if packing is None or tuple(_path(a) for a in addresses) != packing or args != ():
         return None
     if not isinstance(constraint, StaticChm) or constraint.keys != ("y",):
         return None

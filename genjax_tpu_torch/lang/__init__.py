@@ -1,5 +1,5 @@
 """The ``@gen`` modeling language."""
 
-from .static_lang import StaticGenerativeFunction, StaticTrace, gen
+from .static_lang import StaticGenerativeFunction, StaticRequest, StaticTrace, gen
 
-__all__ = ["StaticGenerativeFunction", "StaticTrace", "gen"]
+__all__ = ["StaticGenerativeFunction", "StaticRequest", "StaticTrace", "gen"]

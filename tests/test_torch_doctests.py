@@ -42,4 +42,7 @@ def test_example_volume():
         "genjax_tpu_torch.dists.distribution",
         "genjax_tpu_torch.lang.static_lang",
         "genjax_tpu_torch.kernels.model_interface",
+        "genjax_tpu_torch.core.diff",
+        "genjax_tpu_torch.inference.requests.hmc",
+        "genjax_tpu_torch.inference.mcmc",
     } <= names, sorted(names)

@@ -180,13 +180,6 @@ def test_missing_address_raises_in_assess():
         hierarchical_regression(X).assess(g.C["y"].set(y), ())
 
 
-def test_trace_edits_name_later_slice():
-    X, _ = flagship_data()
-    tm = hierarchical_regression(X)
-    with pytest.raises(NotImplementedError, match="trace-path slice"):
-        tm.edit(None, None, None, None)
-
-
 def test_readme_quickstart_runs():
     @g.gen
     def beta_bernoulli(alpha, beta):

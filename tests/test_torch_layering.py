@@ -23,6 +23,7 @@ LAYERS = {
     "dists": 3,
     "models": 4,
     "kernels": 5,
+    "inference": 6,
     "<root>": 9,
     "interop": 9,
 }
@@ -95,7 +96,8 @@ def test_imports_without_jax():
     code = (
         "import sys, genjax_tpu_torch, genjax_tpu_torch.kernels, "
         "genjax_tpu_torch.kernels.elliptical, genjax_tpu_torch.models, "
-        "genjax_tpu_torch.models.gp, genjax_tpu_torch.interop; "
+        "genjax_tpu_torch.models.gp, genjax_tpu_torch.interop, "
+        "genjax_tpu_torch.inference.mcmc, genjax_tpu_torch.inference.requests.hmc; "
         "print(sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'genjax_tpu' or m.startswith('genjax_tpu.')))"
     )
@@ -123,6 +125,21 @@ def test_gp_and_elliptical_modules_are_layered():
         assert mod in mods, mod
     assert not [t for t in edges[f"{PKG}.models.gp"] if _subpackage(t) == "kernels"]
     assert f"{PKG}.kernels.hmc" in edges[f"{PKG}.kernels.elliptical"]
+
+
+def test_inference_sits_above_kernels_lang_and_dists():
+    """The trace path's runners reach the column kernels' routing
+    (``run_chains_hmc`` through ``pallas_hmc``), and nothing below reaches
+    up into them."""
+    mods, edges = _graph()
+    for mod in (f"{PKG}.inference.mcmc", f"{PKG}.inference.requests.hmc",
+                f"{PKG}.inference.requests.grad_view", f"{PKG}.core.diff"):
+        assert mod in mods, mod
+    assert f"{PKG}.kernels.hmc" in edges[f"{PKG}.inference.mcmc"]
+    for sub in ("kernels", "lang", "dists", "generative", "core", "models"):
+        assert LAYERS["inference"] > LAYERS[sub]
+    below = [m for m in mods if _subpackage(m) not in ("inference", "<root>", "interop")]
+    assert not [f"{m} -> {t}" for m in below for t in edges[m] if _subpackage(t) == "inference"]
 
 
 def test_layer_direction():

@@ -75,12 +75,27 @@ def test_linear_regression_posterior_mean_recovered():
     torch.testing.assert_close(w.var(dim=1), torch.diagonal(cov), rtol=0.2, atol=1e-3)
 
 
-@pytest.mark.parametrize("entry", ["column_hmc", "column_nuts"])
+@pytest.mark.parametrize("entry", ["column_hmc", "column_nuts", "run_chains"])
 def test_entry_points_default_to_the_card(entry, monkeypatch):
     """Without a card the default ``device`` raises and runs nothing on the
     CPU; ``device="cpu"`` runs the plain twin there."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     X, y = flagship_data()
+    if entry == "run_chains":
+        model, made = hierarchical_regression(X), []
+
+        def make_trace(gen):
+            made.append(gen.device.type)
+            return model.generate(gen, g.C["y"].set(torch.as_tensor(y)), ())[0]
+
+        request = g.HMC(g.S["w"] | g.S["tau"], 0.02, L=2)
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            g.run_chains(0, make_trace, request, n_steps=2, n_chains=64)
+        assert made == []
+        res = g.run_chains(0, make_trace, request, n_steps=2, n_chains=64, device="cpu")
+        assert made == ["cpu"] and res.trace["w"].device.type == "cpu"
+        assert tuple(res.trace["w"].shape) == (64, 8)
+        return
     fn = column_hmc if entry == "column_hmc" else column_nuts
     kw = dict(n_chains=64, n_steps=2, eps=0.02)
     pallas_hmc.last_backend = pallas_nuts.last_backend = None
