@@ -15,7 +15,14 @@ the flagship (hierarchical regression, 65,536 chains) with ``column_hmc``,
 the same model through the trace path (``bench.py::bench_gfi``'s shape):
 ``torch.func.vmap`` of ``generate``, 20 transitions of vmapped
 ``mh(HMC(...))``, and the batched runner ``run_chains_hmc``, which launches
-K1, held against its plain twin and the per-transition runner in law;
+K1, held against its plain twin and the per-transition runner in law; the
+one-call driver ``sample_posterior(algorithm="hmc_sweep")`` on the
+flagship at full width (one K1 launch a warmup window and a draw, split-R̂
+under 1.05, in law against its twin); the trace path's
+``sample_posterior`` with ``"nuts"`` and ``"hmc"`` on a linear regression
+against its exact posterior, one vmapped NUTS trace transition on the
+flagship, and ``run_chains_nuts``, which launches K4, against its twin;
+K2's Philox stream against its bound and ``torch.randn``;
 and exact sampling of GP latents (D = 256, 8,192 chains,
 ``bench.py::bench_gp``'s setup, with ``chol`` put on the card once) with
 ``ess_sweep_gauss_pallas``, held against the closed-form posterior. It checks
@@ -71,11 +78,47 @@ GP_NOISE = 0.3
 K3_WINDOW_S = 1.5
 K3_TWIN_TIMED_SWEEPS = 2
 
+# the one-call driver on the flagship (sample_posterior, "hmc_sweep"): the
+# reference's defaults at bench_hmc's step size and L
+SP_WARMUP = 300
+SP_SAMPLES = 100
+SP_EPS0 = 0.02
+SP_TWIN_CHAINS = 8192  # the backend="torch" run it is held against
+# at thin=1 the 100 draws of L=5 do not mix the flagship's hierarchy (the
+# reference's split-R-hat is 1.16-1.34 there too); at thin=10 they do
+SP_THIN_CONVERGED = 10
+
+# the trace path's NUTS and HMC through sample_posterior:
+# examples/10_sample_posterior.py's linear regression, cut to about 15 s
+# (NUTS pays 31 gradients a transition at depth 5 whatever its tree)
+TP_N, TP_D = 24, 3
+TP_CHAINS = 512
+TP_WARMUP = 40
+TP_SAMPLES = 40
+TP_DEPTH = 5
+TP_L = 8
+
+# the batched NUTS runner on the flagship's traces
+RCN_STEPS = 10
+RCN_EPS = 0.05
+
 # the H100 SXM's published peaks: FP32 outside the tensor cores, TF32 on
 # the tensor cores (dense), and HBM3
 FP32_FLOPS = 67e12
 TF32_FLOPS = 495e12
 HBM_BYTES_S = 3.35e12
+# INT32: 64 integer lanes an SM (16 a partition, the Hopper white paper) x
+# 132 SMs x the 1.98 GHz boost clock; NVIDIA's data sheet gives no INT32 rate
+INT32_OPS = 64 * 132 * 1.98e9
+# Philox4x32-10: ten rounds of two 32 x 32 -> 64-bit products (4 integer
+# operations), four XORs and the two key additions: 100 operations a call,
+# all on one INT32 pipe in the issue form, an upper estimate. On Hopper the
+# products (IMAD.WIDE, taken as two slots each) issue on the FMA pipe and
+# the XORs (two three-way LOP3s a round) and key additions on the ALU pipe,
+# 64 lanes an SM each and in parallel: a call needs 40 slots of either, and
+# the bound takes that
+PHILOX_INT_OPS = 10 * (4 + 4 + 2)
+PHILOX_PIPE_OPS = max(10 * 2 * 2, 10 * (2 + 2))
 
 
 class SmokeFailure(RuntimeError):
@@ -707,14 +750,14 @@ def gfi_path(device, smi: str, g, hmc, model, y, ld, q0) -> dict:
     y_b = trs0["y"]
     stage["of which the equal-y check"] = wall_ms(lambda: bool((y_b == y_b.select(0, 0).unsqueeze(0)).all()))
     view = mcmc._KernelView(trs0, sel, 0, z_cols.shape[0])
-    stage["pack"] = wall_ms(lambda: view.pack(z_cols, gen))
-    q_in = view.pack(z_cols, gen)
+    stage["pack"] = wall_ms(lambda: view.packer.pack_columns(z_cols, view.rows, gen))
+    q_in = view.packer.pack_columns(z_cols, view.rows, gen)
     k1_ms = cuda_ms(lambda: hmc.hmc_sweep(view.body, q_in, SEED, n_steps=GFI_STEPS, eps=EPS, L=L), 500)
     stage["K1 call (host clock)"] = wall_ms(
         lambda: hmc.pallas_hmc(view.body, q_in, SEED, n_steps=GFI_STEPS, eps=EPS, L=L))
     q_out, _ = hmc.pallas_hmc(view.body, q_in, SEED, n_steps=GFI_STEPS, eps=EPS, L=L)
-    stage["unpack"] = wall_ms(lambda: view.unpack(q_out))
-    z_final = view.unpack(q_out)
+    stage["unpack"] = wall_ms(lambda: view.packer.unpack_columns(q_out, view.rows))
+    z_final = view.packer.unpack_columns(q_out, view.rows)
     stage["write_back"] = wall_ms(lambda: write_back(z_final, gen))
     parts = sum(v for k, v in stage.items() if not k.startswith("of which"))
     phase("where the time goes", f"GFI, {smi}: run_chains_hmc call {sweep_ms:.3f} ms (host clock, median of "
@@ -728,6 +771,270 @@ def gfi_path(device, smi: str, g, hmc, model, y, ld, q0) -> dict:
     phase("where the time goes", f"GFI, {smi}: " + busy_line("run_chains_hmc", busy_sweep, sweep_ms) + "; "
                                  + busy_line("one vmapped mh(HMC) transition", busy_step, trace_ms / GFI_STEPS))
     return {"run_chains_hmc": launches[0], "run_chains_hmc(chain_axis=-1)": launches[-1]}
+
+
+def k2_line(device, smi: str):
+    """K2's bound and library time: the random numbers one flagship K1 sweep
+    draws in its Philox stream (a Philox4x32-10 call gives four normals by
+    Box-Muller, and one more call a step gives the accept uniform), against
+    ``torch.randn`` and ``torch.rand`` of the same counts on a CUDA generator
+    (Philox4x32-10 too), which write them out."""
+    normals, uniforms = N_CHAINS * 16 * N_STEPS, N_CHAINS * N_STEPS
+    calls = N_CHAINS * N_STEPS * (16 // 4 + 1)
+    t_ops = calls * PHILOX_PIPE_OPS / INT32_OPS
+    t_issue = calls * PHILOX_INT_OPS / INT32_OPS
+    t_bytes = 4 * (normals + uniforms) / HBM_BYTES_S
+    bound_ms, by = 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+    gen = torch.Generator(device=device).manual_seed(SEED)
+
+    def draw():
+        torch.randn(normals, generator=gen, device=device)
+        torch.rand(uniforms, generator=gen, device=device)
+
+    library_ms = cuda_ms(draw, 50)
+    phase("K2", f"{smi}: the Philox stream of one flagship K1 sweep ({N_CHAINS} chains x 16 dims x "
+                f"{N_STEPS} steps = {normals} normals and {uniforms} accept uniforms, {calls} "
+                f"Philox4x32-10 calls of {PHILOX_INT_OPS} integer operations, {PHILOX_PIPE_OPS} on the "
+                f"busier of the FMA and ALU pipes): bound {bound_ms:.4f} ms ({by}; operations "
+                f"{1e3 * t_ops:.4f} ms at {INT32_OPS / 1e12:.2f} TOP/s a pipe, all {PHILOX_INT_OPS} on "
+                f"one pipe {1e3 * t_issue:.4f} ms, the numbers written out {1e3 * t_bytes:.4f} ms "
+                f"at {HBM_BYTES_S / 1e12:.2f} TB/s); torch.randn + torch.rand of the same counts on a "
+                f"CUDA generator {library_ms:.4f} ms by CUDA events (50 calls), at "
+                f"{bound_ms / library_ms:.4f} of the bound")
+    return {"bound_ms": bound_ms, "bound_by": by, "library_ms": library_ms}
+
+
+def chain_means_z(a, b):
+    """Largest gap between two runs' posterior means of ``(chains, samples,
+    k)`` draws, in combined Monte Carlo standard errors from the spread of
+    the chains' own means (independent across chains, whatever the
+    autocorrelation inside them)."""
+    ma, mb = a.mean(dim=1), b.mean(dim=1)
+    se = torch.sqrt(ma.var(dim=0) / ma.shape[0] + mb.var(dim=0) / mb.shape[0])
+    return float(((ma.mean(dim=0) - mb.mean(dim=0)) / se).abs().max())
+
+
+def sample_posterior_path(device, smi: str, g, hmc, model, y) -> int:
+    """``sample_posterior(algorithm="hmc_sweep")`` on the flagship at full
+    width: its K1 launches, its diagnostics, in law against the same call on
+    the plain twin, a call's time by stage and the card's busy share.
+    Returns the K1 launches of a call."""
+    from genjax_tpu_torch.inference import sample
+
+    sel = g.S["w"] | g.S["tau"]
+    obs = g.C["y"].set(torch.as_tensor(y, device=device))
+    kw = dict(n_warmup=SP_WARMUP, n_samples=SP_SAMPLES, algorithm="hmc_sweep", eps0=SP_EPS0, L=L)
+
+    def call(seed=SEED, n_chains=N_CHAINS, thin=1, **extra):
+        return sample.sample_posterior(seed, model, obs, (), sel, n_chains=n_chains, thin=thin, **kw, **extra)
+
+    def diag_range(r):
+        rhat = torch.cat([r.rhat_of("tau").reshape(1), r.rhat_of("w")])
+        ess_ = torch.cat([r.ess_of("tau").reshape(1), r.ess_of("w")])
+        return (f"split-R-hat of tau, w {float(rhat.min()):.4f}-{float(rhat.max()):.4f} (tau "
+                f"{float(rhat[0]):.4f}), ESS {float(ess_.min()):.1f}-{float(ess_.max()):.1f}")
+
+    hmc.hmc_sweep_launches = 0
+    t0 = time.perf_counter()
+    res = call()
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = hmc.hmc_sweep_launches
+    want = min(6, SP_WARMUP) + SP_SAMPLES
+    check(launches == want, f"sample_posterior(hmc_sweep) made {launches} K1 launches, not {want}")
+    check(hmc.pallas_hmc.last_backend == "cuda" and hmc.hmc_sweep.last_variant == "specialised",
+          f"sample_posterior(hmc_sweep) took {hmc.pallas_hmc.last_backend}, {hmc.hmc_sweep.last_variant}")
+    w, tau = res["w"], res["tau"]
+    check(tuple(w.shape) == (N_CHAINS, SP_SAMPLES, 8) and tuple(tau.shape) == (N_CHAINS, SP_SAMPLES)
+          and w.is_cuda, f"draws: w {tuple(w.shape)}, tau {tuple(tau.shape)}, on {w.device}")
+    check(bool(torch.isfinite(w).all()) and bool((tau > 0).all()), "draws are not finite or tau left its support")
+    check(float(res.divergence_rate) == 0.0, f"divergence rate {float(res.divergence_rate)}")
+    acc, eps = float(res.accept_rate), float(res.eps)
+    phase("main path sample_posterior hmc_sweep",
+          f"sample_posterior(hierarchical_regression, S[w] | S[tau], {N_CHAINS} chains, n_warmup="
+          f"{SP_WARMUP}, n_samples={SP_SAMPLES}, thin=1, eps0={SP_EPS0}, L={L}, algorithm='hmc_sweep') on "
+          f"{hmc.pallas_hmc.last_backend}, K1's {hmc.hmc_sweep.last_variant} variant: {launches} K1 "
+          f"launches ({min(6, SP_WARMUP)} windows + {SP_SAMPLES} draws), draws w {tuple(w.shape)} on the "
+          f"card, adapted eps {eps:.6g}, accept {acc:.4f}, divergence rate 0, {diag_range(res)}, "
+          f"{first_s:.3f} s (host clock, first call)")
+
+    # ---- converged: the same call drawing every SP_THIN_CONVERGED transitions
+    hmc.hmc_sweep_launches = 0
+    res_c = call(thin=SP_THIN_CONVERGED)
+    launches_c = hmc.hmc_sweep_launches
+    check(launches_c == want, f"sample_posterior(hmc_sweep, thin={SP_THIN_CONVERGED}) made {launches_c} K1 launches")
+    rhat = torch.cat([res_c.rhat_of("tau").reshape(1), res_c.rhat_of("w")])
+    check(bool((rhat < 1.05).all()), f"thin={SP_THIN_CONVERGED}: split-R-hat of tau, w {rhat.tolist()} (limit 1.05)")
+    check(float(res_c.divergence_rate) == 0.0, f"divergence rate {float(res_c.divergence_rate)}")
+    phase("main path sample_posterior hmc_sweep",
+          f"the same with thin={SP_THIN_CONVERGED} ({SP_SAMPLES * SP_THIN_CONVERGED} sampling transitions): "
+          f"{launches_c} K1 launches, accept {float(res_c.accept_rate):.4f}, {diag_range(res_c)}; every "
+          f"split-R-hat under 1.05")
+
+    # ---- in law against the plain twin (the GFI's assess), at fewer chains
+    t0 = time.perf_counter()
+    res_t = call(seed=SEED + 1, n_chains=SP_TWIN_CHAINS, backend="torch")
+    torch.cuda.synchronize()
+    twin_s = time.perf_counter() - t0
+    check(hmc.hmc_sweep_launches == launches, "the backend='torch' call launched K1")
+    flat = lambda r: torch.cat([r["tau"][:, :, None], r["w"]], dim=2)  # noqa: E731
+    z = chain_means_z(flat(res), flat(res_t))
+    d_acc = abs(acc - float(res_t.accept_rate))
+    check(d_acc <= 0.02, f"hmc_sweep accept {acc} vs twin {float(res_t.accept_rate)}")
+    check(z < 4, f"hmc_sweep tau, w means differ from the twin's by {z:.2f} MC standard errors")
+    phase("main path sample_posterior hmc_sweep vs twin",
+          f"backend='torch' at {SP_TWIN_CHAINS} chains ({twin_s:.2f} s, {diag_range(res_t)}): accept "
+          f"{acc:.4f} vs {float(res_t.accept_rate):.4f} (limit 0.02), eps {eps:.6g} vs {float(res_t.eps):.6g}, tau mean "
+          f"{float(tau.mean()):.4f} vs {float(res_t['tau'].mean()):.4f}; tau and w_j means within {z:.2f} "
+          f"MC standard errors of the chains' means (limit 4)")
+
+    # ---- a call's time, its stages, K1's share and the card's busy share
+    call_ms = wall_ms(call)
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    stage = {"init": wall_ms(lambda: sample._init_traces(gen, model, obs, (), N_CHAINS, device))}
+    trs = sample._init_traces(gen, model, obs, (), N_CHAINS, device)
+    warm_kw = dict(n_warmup=SP_WARMUP, eps0=SP_EPS0, L=L, target_accept=0.8, backend="auto")
+    stage["warmup"] = wall_ms(lambda: sample._warm_sweep(gen, trs, sel, **warm_kw))
+    trs_w, eps_w, im_w = sample._warm_sweep(gen, trs, sel, **warm_kw)
+    draw_kw = dict(n_samples=SP_SAMPLES, thin=1, eps=eps_w, inv_mass=im_w, L=L, backend="auto")
+    stage["draws"] = wall_ms(lambda: sample._draw_sweep(gen, trs_w, sel, **draw_kw))
+    trs_d, draws, _accs = sample._draw_sweep(gen, trs_w, sel, **draw_kw)
+    stage["diagnostics"] = wall_ms(lambda: sample._column_diagnostics(draws, SP_SAMPLES))
+    stage["unravel"] = wall_ms(lambda: sample._unraveler(trs_d, sel)(draws))
+    run = sample._ColumnSweep(trs_w, sel, 0, "auto", "chip_smoke")
+    q = run.start(gen)
+    sweep_kw = dict(eps=float(eps_w), L=L, inv_mass=run.inv_mass(im_w))
+    k1_window_ms = cuda_ms(lambda: hmc.hmc_sweep(run.view.body, q, SEED, n_steps=SP_WARMUP // 6, **sweep_kw), 20)
+    k1_draw_ms = cuda_ms(lambda: hmc.hmc_sweep(run.view.body, q, SEED, n_steps=1, **sweep_kw), 200)
+    k1_ms = 6 * k1_window_ms + SP_SAMPLES * k1_draw_ms
+    parts = sum(stage.values())
+    phase("where the time goes",
+          f"sample_posterior(hmc_sweep), {smi}: a call {call_ms:.3f} ms (host clock, median of 3); its "
+          f"stages alone, each ended by a synchronise: " + ", ".join(f"{k} {v:.3f} ms" for k, v in stage.items())
+          + f" (sum {parts:.3f} ms); K1 on the card {k1_ms:.4f} ms a call by CUDA events (6 windows x "
+            f"{k1_window_ms:.4f} ms a {SP_WARMUP // 6}-step sweep + {SP_SAMPLES} draws x {k1_draw_ms:.4f} ms "
+            f"a 1-step sweep) = {k1_ms / call_ms:.4f} of the call")
+    busy = device_busy(call)
+    phase("where the time goes", f"sample_posterior(hmc_sweep), {smi}: " + busy_line("a call", busy, call_ms))
+    return launches
+
+
+def trace_nuts_path(device, smi: str, g, hmc, nuts_pallas, model_flag, y) -> int:
+    """The trace path's ``sample_posterior`` (``"nuts"`` and ``"hmc"``, no
+    kernel) against the exact posterior of the linear regression of
+    ``examples/10_sample_posterior.py``; one vmapped NUTS trace transition
+    on the flagship at full width; and ``run_chains_nuts`` on the flagship's
+    traces, which launches K4, against its twin. Returns the K4 launches of
+    a ``run_chains_nuts`` call."""
+    from genjax_tpu_torch.inference import sample
+    from genjax_tpu_torch.models import linear_regression
+
+    # ---- "nuts" and "hmc" against the exact posterior
+    rng = np.random.default_rng(0)
+    X = rng.normal(size=(TP_N, TP_D)).astype(np.float32)
+    w_true = np.asarray([1.0, -2.0, 0.5], np.float32)
+    y_lr = (X @ w_true + 0.25 * rng.normal(size=TP_N)).astype(np.float32)
+    lin, exact_posterior = linear_regression(X)
+    post_mean, post_cov = exact_posterior(y_lr)
+    post_sd = torch.sqrt(torch.diagonal(post_cov))
+    obs_lr = g.C["y"].set(torch.as_tensor(y_lr, device=device))
+    lines = []
+    for algorithm in ("nuts", "hmc"):
+        hmc.hmc_sweep_launches = nuts_pallas.nuts_sweep_launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = sample.sample_posterior(
+            SEED, lin, obs_lr, (), g.S["w"], n_chains=TP_CHAINS, n_warmup=TP_WARMUP,
+            n_samples=TP_SAMPLES, algorithm=algorithm, eps0=0.02, max_depth=TP_DEPTH, L=TP_L,
+        )
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        check(hmc.hmc_sweep_launches == 0 and nuts_pallas.nuts_sweep_launches == 0,
+              f"sample_posterior({algorithm!r}) launched a kernel")
+        w = res["w"]
+        check(tuple(w.shape) == (TP_CHAINS, TP_SAMPLES, TP_D) and w.is_cuda, f"{algorithm}: w {tuple(w.shape)}")
+        flat = w[:, -TP_SAMPLES // 2:].reshape(-1, TP_D).cpu()
+        d_mean = float((flat.mean(dim=0) - post_mean).abs().max())
+        sd_rel = float((flat.std(dim=0) / post_sd - 1.0).abs().max())
+        rhat = res.rhat_of("w")
+        check(d_mean < 0.05, f"{algorithm}: posterior means {flat.mean(dim=0).tolist()} vs exact {post_mean.tolist()}")
+        check(sd_rel < 0.25, f"{algorithm}: posterior sds {flat.std(dim=0).tolist()} vs exact {post_sd.tolist()}")
+        check(bool((rhat < 1.15).all()), f"{algorithm}: split-R-hat {rhat.tolist()} (limit 1.15)")
+        check(float(res.eps) != 0.02, f"{algorithm}: the warmup left eps at eps0")
+        lines.append(f"{algorithm}: {secs:.2f} s, means within {d_mean:.4f} of exact (limit 0.05), sds within "
+                     f"{sd_rel:.4f} (limit 25%), split-R-hat max {float(rhat.max()):.4f} (limit 1.15), ESS min "
+                     f"{float(res.ess_of('w').min()):.1f}, eps 0.02 -> {float(res.eps):.6g}, accept "
+                     f"{float(res.accept_rate):.4f}, divergence rate {float(res.divergence_rate):.4f}")
+    phase("main path sample_posterior nuts/hmc",
+          f"linear_regression(X {TP_N} x {TP_D}), S[w], {TP_CHAINS} chains on the card, n_warmup={TP_WARMUP}, "
+          f"n_samples={TP_SAMPLES}, eps0=0.02, max_depth={TP_DEPTH} (nuts), L={TP_L} (hmc), no kernel: "
+          + "; ".join(lines) + " (the last half of the draws against the exact posterior)")
+
+    # ---- one vmapped NUTS trace transition on the flagship at full width
+    sel = g.S["w"] | g.S["tau"]
+    obs = g.C["y"].set(torch.as_tensor(y, device=device))
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    trs = sample._init_traces(gen, model_flag, obs, (), N_CHAINS, device)
+    step = sample._trace_step(gen, sel, "nuts", L=L, max_depth=NUTS_DEPTH)
+    eps_t, im_t = torch.tensor(RCN_EPS, device=device), torch.ones(9, device=device)
+    step(trs, eps_t, im_t)
+    nuts_ms = wall_ms(lambda: step(trs, eps_t, im_t), reps=1)
+    phase("timing NUTS trace", f"{smi}: one vmapped NUTS.edit_with_info transition of {N_CHAINS} flagship "
+                               f"traces at max_depth {NUTS_DEPTH} ({2**NUTS_DEPTH - 1} leaves, each a vmapped "
+                               f"grad_and_value of assess, whatever the tree), eps {RCN_EPS}: {nuts_ms:.1f} ms "
+                               f"(host clock, 1 call after one warm-up call)")
+
+    # ---- run_chains_nuts: one K4 launch a call, against the twin in law
+    nuts_pallas.nuts_sweep_launches = 0
+    new, acc, leaps = g.run_chains_nuts(gen, trs, sel, eps=RCN_EPS, max_depth=NUTS_DEPTH, n_steps=RCN_STEPS)
+    torch.cuda.synchronize()
+    launches = nuts_pallas.nuts_sweep_launches
+    check(g.run_chains_nuts.last_backend == "cuda", f"run_chains_nuts took {g.run_chains_nuts.last_backend}")
+    check(launches == 1, f"run_chains_nuts made {launches} K4 launches")
+    check(nuts_pallas.nuts_sweep.last_variant == "specialised", f"K4 took {nuts_pallas.nuts_sweep.last_variant}")
+    check(torch.equal(new["y"], trs["y"]) and bool(torch.isfinite(new["w"]).all()),
+          "run_chains_nuts: y changed or w is not finite")
+    t0 = time.perf_counter()
+    twin, acc_t, leaps_t = g.run_chains_nuts(gen, trs, sel, eps=RCN_EPS, max_depth=NUTS_DEPTH,
+                                             n_steps=RCN_STEPS, backend="torch")
+    torch.cuda.synchronize()
+    twin_s = time.perf_counter() - t0
+    check(g.run_chains_nuts.last_backend == "torch" and nuts_pallas.nuts_sweep_launches == 1,
+          "backend='torch' did not run the twin")
+    flat = lambda t: torch.cat([t["tau"].reshape(N_CHAINS, 1), t["w"]], dim=1)  # noqa: E731
+    z = in_law(flat(new), flat(twin), N_CHAINS)
+    check(abs(float(acc) - float(acc_t)) <= 0.02, f"run_chains_nuts accept {float(acc)} vs twin {float(acc_t)}")
+    check(abs(float(leaps) - float(leaps_t)) <= 0.05 * float(leaps_t),
+          f"run_chains_nuts leapfrogs {float(leaps)} vs twin {float(leaps_t)}")
+    check(z < 4, f"run_chains_nuts tau, w means differ from the twin's by {z:.2f} MC standard errors")
+
+    @g.gen
+    def conjugate():
+        mu = g.normal(0.0, 1.0) @ "mu"
+        g.normal(mu, 1.0) @ "y"
+
+    trs_c = sample._init_traces(gen, conjugate, g.C["y"].set(2.0), (), 1024, device)
+    refused = False
+    try:
+        g.run_chains_nuts(gen, trs_c, g.S["mu"], eps=0.5, max_depth=4)
+    except ValueError as e:
+        refused = "backend='torch'" in str(e)
+    check(refused, "run_chains_nuts: a model with no device body did not raise under backend='auto'")
+    call_ms = wall_ms(lambda: g.run_chains_nuts(gen, trs, sel, eps=RCN_EPS, max_depth=NUTS_DEPTH, n_steps=RCN_STEPS))
+    run = sample._ColumnSweep(trs, sel, 0, "auto", "chip_smoke")
+    q, im = run.start(gen), run.inv_mass(None)  # the call's block and mass, its padding inert
+    k4_ms = cuda_ms(lambda: nuts_pallas.nuts_sweep(run.view.body, q, SEED, n_steps=RCN_STEPS, eps=RCN_EPS,
+                                                   max_depth=NUTS_DEPTH, inv_mass=im), 20)
+    busy = device_busy(lambda: g.run_chains_nuts(gen, trs, sel, eps=RCN_EPS, max_depth=NUTS_DEPTH, n_steps=RCN_STEPS))
+    phase("main path run_chains_nuts",
+          f"{smi}: run_chains_nuts(flagship, {N_CHAINS} traces from vmap(generate), eps {RCN_EPS}, max_depth "
+          f"{NUTS_DEPTH}, {RCN_STEPS} transitions) on {g.run_chains_nuts.last_backend}, K4's "
+          f"{nuts_pallas.nuts_sweep.last_variant} variant: {launches} K4 launch a call, accept {float(acc):.4f} "
+          f"vs twin {float(acc_t):.4f} (limit 0.02), mean leapfrogs {float(leaps):.4f} vs {float(leaps_t):.4f} "
+          f"(limit 5%), tau and w_j means within {z:.2f} SE (limit 4), twin {twin_s:.2f} s; no device body "
+          f"raises under 'auto'; a call {call_ms:.3f} ms (host clock, median of 3), K4 {k4_ms:.4f} ms of it "
+          f"by CUDA events (20 sweeps) = {k4_ms / call_ms:.4f}; " + busy_line("a call", busy, call_ms))
+    return launches
 
 
 def main() -> int:
@@ -850,6 +1157,7 @@ def main() -> int:
     check(worst_rel < 1e-5, f"counter normals differ: max rel err {worst_rel:.3g}")
     phase("K2", f"counter bits and uniforms equal bit for bit over 5 draws; "
                 f"normals max rel err {worst_rel:.3g}")
+    k2_entry = k2_line(device, smi)
 
     # ---- K1 against its plain version on the counter stream
     model = hierarchical_regression(X)
@@ -934,6 +1242,9 @@ def main() -> int:
 
     # ---- the trace path: mh(HMC) a transition, and run_chains_hmc on K1
     gfi_launches = gfi_path(device, smi, g, hmc, model, y, ld, q0)
+
+    # ---- the one-call driver on K1
+    sp_launches = sample_posterior_path(device, smi, g, hmc, model, y)
 
     # ---- K4 against its plain version on the counter stream
     k4_cases = [
@@ -1137,6 +1448,9 @@ def main() -> int:
                                  f"sweeps, {warm_ms / 1e3:.4f} s of K4, and host reads of eps), "
                                  f"the main K4 sweep {k4_ms / 1e3:.4f} s")
 
+    # ---- the NUTS trace path: sample_posterior nuts/hmc, and run_chains_nuts on K4
+    rcn_launches = trace_nuts_path(device, smi, g, hmc, nuts_pallas, model, y)
+
     # ---- the GP / elliptical-slice path (K3)
     k3_entry = gp_path(device, smi, elliptical)
 
@@ -1147,19 +1461,21 @@ def main() -> int:
         "replaces": "genjax_tpu/kernels/hmc.py:93",
         "launches": launches,
         "launches_by_path": {"column_hmc": launches, "column_hmc(warmup=True)": warm_launches,
-                             **gfi_launches},
+                             **gfi_launches, "sample_posterior(hmc_sweep)": sp_launches},
         "max_abs_err": flagship_err,
         "ms": ms,
         "plain_ms": plain_ms,
         "bound_ms": k1_bound_ms,
         "bound_by": k1_bound_by,
         "library_ms": None,  # no single PyTorch call computes the sweep
+        "k2_philox": k2_entry,  # K2's stream in the sweep: its bound, and torch.randn's time
     }, {
         "name": "nuts_sweep (K4)",
         "route": "cuda",
         "source": "genjax_tpu_torch/kernels/csrc/nuts_sweep.cu",
         "replaces": "genjax_tpu/kernels/nuts_pallas.py:72",
         "launches": k4_launches,
+        "launches_by_path": {"column_nuts(warmup=True)": k4_launches, "run_chains_nuts": rcn_launches},
         "max_abs_err": k4_err,
         "ms": k4_ms,
         "plain_ms": nuts_plain_ms,

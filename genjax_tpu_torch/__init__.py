@@ -4,8 +4,11 @@ The port imports torch, numpy and scipy, never JAX. Names follow the JAX
 package; randomness comes from explicit ``torch.Generator`` objects. It
 carries the GFI (``simulate``, ``assess``, ``generate``, ``project``,
 ``edit`` and ``update``), ``@gen``, six distributions, the regression and GP
-models, the trace path (the ``HMC`` edit request, ``mh``, ``run_chains`` and
-the batched ``run_chains_hmc``) and the column samplers whose sweeps are CUDA kernels in ``kernels/csrc``: HMC (``hmc_sweep.cu``),
+models, the trace path (the ``HMC`` and ``NUTS`` edit requests, ``mh``,
+``run_chains``, the batched ``run_chains_hmc`` and ``run_chains_nuts``), the
+one-call driver ``inference.sample_posterior`` with split-R̂ and ESS, and the
+column
+samplers whose sweeps are CUDA kernels in ``kernels/csrc``: HMC (``hmc_sweep.cu``),
 NUTS (``nuts_sweep.cu``) and Gaussian elliptical slice sampling
 (``ess_gauss_sweep.cu``).
 """
@@ -46,8 +49,8 @@ from .generative import (
     Trace,
     Update,
 )
-from .inference import MHChainResult, mh, run_chain, run_chains, run_chains_hmc
-from .inference.requests import HMC, SafeHMC, mh_accept, selection_gradient
+from .inference import MHChainResult, mh, run_chain, run_chains, run_chains_hmc, run_chains_nuts
+from .inference.requests import HMC, NUTS, SafeHMC, mh_accept, selection_gradient
 from .lang import StaticGenerativeFunction, StaticRequest, StaticTrace, gen
 
 __all__ = [
@@ -68,6 +71,7 @@ __all__ = [
     "MHChainResult",
     "Mask",
     "MissingAddress",
+    "NUTS",
     "NoChange",
     "NotSupportedEditRequest",
     "NotTracedError",
@@ -95,5 +99,6 @@ __all__ = [
     "run_chain",
     "run_chains",
     "run_chains_hmc",
+    "run_chains_nuts",
     "selection_gradient",
 ]

@@ -1,11 +1,12 @@
 """MCMC loops: Metropolis-Hastings over edit requests, and chain runners.
 
 Counterpart of ``genjax_tpu/inference/mcmc.py``: ``mh``, ``run_chain``,
-``run_chains`` and the batched sweep runner ``run_chains_hmc``. A chain is a
-Python loop of edits, and many chains are one ``torch.func.vmap`` over the
-trace batch. An entry point that receives traces runs where they live, with
-a ``torch.Generator`` on the same device; ``run_chains``, which makes its
-chains, runs on the card unless asked for the CPU.
+``run_chains`` and the batched sweep runners ``run_chains_hmc`` and
+``run_chains_nuts``. A chain is a Python loop of edits, and many chains are
+one ``torch.func.vmap`` over the trace batch. An entry point that receives
+traces runs where they live, with a ``torch.Generator`` on the same device;
+``run_chains``, which makes its chains, runs on the card unless asked for
+the CPU.
 
 Weight conventions (why ``mh`` treats ``Regenerate`` specially): a
 ``Regenerate`` edit returns the *joint*-density ratio as its weight, which a
@@ -31,6 +32,7 @@ from ..generative.trace import Trace, check_same_device, trace_device
 from ..kernels.bodies import body_for, body_packing
 from ..kernels.hmc import _route, pallas_hmc
 from ..kernels.model_interface import ColumnPacker
+from ..kernels.nuts_pallas import pallas_nuts
 from .requests.grad_view import column_view
 from .requests.hmc import mh_accept
 
@@ -102,15 +104,15 @@ def _leaf_paths(chm: ChoiceMap, prefix: tuple = ()):
 
 
 class _KernelView:
-    """A trace batch in the layout of the CUDA sweep kernel's device body.
+    """A trace batch in the layout of the CUDA sweep kernels' device body.
 
     ``z`` from ``column_view`` ravels the selected choices in tree-flatten
     order, unpadded; a device body wants its own address order, padded to the
-    packer's dimension with independent standard normals. This maps between
-    the two by a row index, and holds the body, which exists only when the
-    model has one for this selection (``kernels/bodies.py``), the traces take
-    no arguments, and every chain's frozen complement is the same (the body
-    carries one set of constants for all chains)."""
+    packer's dimension. The packer (``ColumnPacker``) owns that layout: this
+    finds the body, which exists only when the model has one for this
+    selection (``kernels/bodies.py``), the traces take no arguments, and
+    every chain's frozen complement is the same (the body carries one set of
+    constants for all chains), and binds the packer's row map from ``z``."""
 
     def __init__(self, traces, selection: Selection, chain_axis: int, d: int):
         self.body = None
@@ -138,35 +140,70 @@ class _KernelView:
         body = body_for(model, first, (), list(order))
         if body is None or packer.dim != d:
             return
-        # row i of the kernel's block is row ``rows[i]`` of z
         z_offset, offset = {}, 0
         for path, v in selected:
             z_offset[path] = offset
             offset += v.numel() // v.shape[chain_axis]
-        rows = []
-        for path, _shape, _off, size in packer.shapes:
-            rows += range(z_offset[path], z_offset[path] + size)
-        self.body, self.packer, self.rows = body, packer, rows
+        self.body, self.packer, self.rows = body, packer, packer.row_map(z_offset)
 
-    def pack(self, z: torch.Tensor, gen: torch.Generator) -> torch.Tensor:
-        """``z (d, N)`` in the body's order, with fresh standard-normal
-        padding rows."""
-        n_pad = self.packer.padded_dim - self.packer.dim
-        pad = torch.randn((n_pad, z.shape[1]), generator=gen, device=z.device)
-        return torch.cat([z[self.rows].to(torch.float32), pad]).contiguous()
 
-    def pack_inv_mass(self, inv_mass, device):
-        if inv_mass is None:
-            return None
-        inv_mass = torch.as_tensor(inv_mass, dtype=torch.float32, device=device).reshape(-1)
-        ones = torch.ones(self.packer.padded_dim - self.packer.dim, device=device)
-        return torch.cat([inv_mass[self.rows], ones])
+def _seed(gen: torch.Generator) -> int:
+    """A sweep's int seed, drawn from ``gen``: one host read."""
+    return int(torch.randint(0, 2**30, (), generator=gen, device=gen.device))
 
-    def unpack(self, q: torch.Tensor) -> torch.Tensor:
-        """The kernel's block back in ``z``'s order, the padding dropped."""
-        z = torch.empty((self.packer.dim, q.shape[1]), dtype=q.dtype, device=q.device)
-        z[self.rows] = q[: self.packer.dim]
-        return z
+
+class _ColumnSweep:
+    """The launch that the batched runners (``run_chains_hmc``,
+    ``run_chains_nuts``) and ``sample_posterior(algorithm="hmc_sweep")``
+    share: a trace batch's selected choices as one column block
+    (``column_view``), the backend, and sweeps over the block.
+
+    The backend is the samplers' (``hmc._route``): on the card ``"auto"``
+    takes the CUDA kernel, which needs the batch's device body
+    (``_KernelView``), and raises without one; ``"torch"``, and the CPU, run
+    the plain twin over the GFI's own ``assess`` of each chain's frozen
+    complement. The view is built once here, so a phase of many launches
+    builds it once. A sweep runs on a block in the launch's layout
+    (``start``): on the kernel the body's rows padded with fresh normals, on
+    the twin ``z`` itself; ``finish`` maps a block, or a stack of draws of
+    its ``real`` rows, back to ``z``'s order."""
+
+    def __init__(self, traces, selection: Selection, chain_axis: int, backend: str, entry: str):
+        device = trace_device(traces)
+        self.z, self.ld_cols, self.write_back = column_view(traces, selection, chain_axis)
+        view = None
+        if backend == "cuda" or (backend == "auto" and device.type == "cuda"):
+            view = _KernelView(traces, selection, chain_axis, self.z.shape[0])
+            if view.body is None and view.chains_differ:
+                raise ValueError(
+                    f"{entry}: the chains' frozen choices differ, and the CUDA sweep kernel's "
+                    "device body carries one set of constants for all chains. Pass "
+                    "backend='torch' to run the plain torch twin over each chain's own."
+                )
+        self.backend = _route(backend, device, view is not None and view.body is not None)
+        self.view = view if self.backend == "cuda" else None
+
+    def start(self, gen: torch.Generator) -> torch.Tensor:
+        return self.view.packer.pack_columns(self.z, self.view.rows, gen) if self.view else self.z
+
+    def inv_mass(self, inv_mass):
+        """An inverse mass over ``z``'s rows, in the launch's layout."""
+        if not self.view:
+            return inv_mass
+        return self.view.packer.pack_inv_mass(inv_mass, self.view.rows, self.z.device)
+
+    def sweep(self, sampler: Callable, q: torch.Tensor, seed: int, inv_mass, **kw):
+        """``sampler`` (``pallas_hmc`` or ``pallas_nuts``) from ``q``, with
+        ``inv_mass`` in the launch's layout: one launch on the kernel."""
+        density = self.view.body if self.view else self.ld_cols
+        return sampler(density, q, seed, backend=self.backend, inv_mass=inv_mass, **kw)
+
+    def real(self, q: torch.Tensor) -> torch.Tensor:
+        """The rows of a launch block that hold the selected choices."""
+        return q[: self.view.packer.dim] if self.view else q
+
+    def finish(self, q: torch.Tensor) -> torch.Tensor:
+        return self.view.packer.unpack_columns(q, self.view.rows).to(self.z.dtype) if self.view else q
 
 
 def run_chains_hmc(
@@ -235,34 +272,87 @@ def run_chains_hmc(
     True
     """
     check_same_device(gen, traces, "run_chains_hmc")
-    device = trace_device(traces)
-    seed = int(torch.randint(0, 2**30, (), generator=gen, device=gen.device))
-    z_cols, ld_cols, write_back = column_view(traces, selection, chain_axis)
-    view = None
-    if backend == "cuda" or (backend == "auto" and device.type == "cuda"):
-        view = _KernelView(traces, selection, chain_axis, z_cols.shape[0])
-        if view.body is None and view.chains_differ:
-            raise ValueError(
-                "run_chains_hmc: the chains' frozen choices differ, and the CUDA sweep "
-                "kernel's device body carries one set of constants for all chains. Pass "
-                "backend='torch' to run the plain torch twin over each chain's own."
-            )
-    kw = dict(n_steps=n_steps, eps=eps, L=L)
-    if _route(backend, device, view is not None and view.body is not None) == "cuda":
-        q, accept_rate = pallas_hmc(
-            view.body, view.pack(z_cols, gen), seed, backend="cuda",
-            inv_mass=view.pack_inv_mass(inv_mass, device), **kw,
-        )
-        z_final = view.unpack(q).to(z_cols.dtype)
-    else:
-        z_final, accept_rate = pallas_hmc(
-            ld_cols, z_cols, seed, inv_mass=inv_mass, backend="torch", **kw
-        )
-    run_chains_hmc.last_backend = pallas_hmc.last_backend
-    return write_back(z_final, gen), accept_rate
+    seed = _seed(gen)
+    run = _ColumnSweep(traces, selection, chain_axis, backend, "run_chains_hmc")
+    q, accept_rate = run.sweep(
+        pallas_hmc, run.start(gen), seed, run.inv_mass(inv_mass), n_steps=n_steps, eps=eps, L=L
+    )
+    run_chains_hmc.last_backend = run.backend
+    return run.write_back(run.finish(q), gen), accept_rate
 
 
 run_chains_hmc.last_backend = None
+
+
+def run_chains_nuts(
+    gen: torch.Generator,
+    traces: Trace,
+    selection: Selection,
+    *,
+    eps,
+    max_depth: int = 8,
+    n_steps: int = 1,
+    inv_mass: Any = None,
+    chain_axis: int = 0,
+    backend: str = "auto",
+) -> tuple[Trace, Any, Any]:
+    """``n_steps`` of NUTS on a BATCH of traces: the ``run_chains_hmc``
+    pattern with NUTS as the dynamics, the same chain as iterating the
+    ``NUTS`` edit request. The selected choices ravel once into a column
+    block, one sweep runs through ``kernels.nuts_pallas.pallas_nuts``, and
+    the traces are rebuilt by one vmapped ``Update`` at the end.
+
+    The routing is ``run_chains_hmc``'s: on the card ``"auto"`` launches the
+    CUDA NUTS kernel (K4) over the batch's device body, and a batch with
+    none raises; ``backend="torch"``, and the CPU, run the twin
+    ``nuts_sweep_cols`` over the GFI's own ``assess``. The backend taken is
+    recorded on ``run_chains_nuts.last_backend``.
+
+    Returns ``(traces, accept_stat, mean_leapfrogs)``, the traces in the
+    layout of the input batch.
+
+    >>> import torch
+    >>> import genjax_tpu_torch as g
+    >>> @g.gen
+    ... def model():
+    ...     mu = g.normal(0.0, 1.0) @ "mu"
+    ...     _ = g.normal(mu, 1.0) @ "y"
+    >>> obs = g.C["y"].set(2.0)
+    >>> gen = torch.Generator().manual_seed(0)
+    >>> trs = torch.func.vmap(
+    ...     lambda _: model.generate(gen, obs, ())[0], randomness="different"
+    ... )(torch.zeros(256))
+    >>> trs, acc, leaps = g.run_chains_nuts(gen, trs, g.S["mu"], eps=0.5, n_steps=50)
+    >>> bool(abs(trs.get_choices()["mu"].mean() - 1.0) < 0.2)
+    True
+    >>> bool(acc > 0.5) and bool(leaps >= 1.0)
+    True
+    """
+    check_same_device(gen, traces, "run_chains_nuts")
+    seed = _seed(gen)
+    run = _ColumnSweep(traces, selection, chain_axis, backend, "run_chains_nuts")
+    q, accept_stat, leaps = run.sweep(
+        pallas_nuts, run.start(gen), seed, run.inv_mass(inv_mass), n_steps=n_steps, eps=eps,
+        max_depth=max_depth,
+    )
+    run_chains_nuts.last_backend = run.backend
+    return run.write_back(run.finish(q), gen), accept_stat, leaps
+
+
+run_chains_nuts.last_backend = None
+
+
+def generator_on(gen: torch.Generator | int, device: torch.device, entry: str) -> torch.Generator:
+    """``gen`` if it is a generator on ``device``'s type, or a generator on
+    ``device`` seeded with the int ``gen``; a generator elsewhere raises."""
+    if not isinstance(gen, torch.Generator):
+        return torch.Generator(device=device).manual_seed(int(gen))
+    if gen.device.type != device.type:
+        raise ValueError(
+            f"{entry}: the generator lives on {gen.device} and the chains are to run on "
+            f"{device}; pass device={gen.device.type!r} or a generator on {device}"
+        )
+    return gen
 
 
 def run_chains(
@@ -289,13 +379,7 @@ def run_chains(
     step axis follows the chain axis).
     """
     device = entry_device(device, "run_chains")
-    if not isinstance(gen, torch.Generator):
-        gen = torch.Generator(device=device).manual_seed(int(gen))
-    elif gen.device.type != device.type:
-        raise ValueError(
-            f"run_chains: the generator lives on {gen.device} and the chains are to run on "
-            f"{device}; pass device={gen.device.type!r} or a generator on {device}"
-        )
+    gen = generator_on(gen, device, "run_chains")
     if layout not in ("lanes", "batch"):
         raise ValueError(f"layout must be 'lanes' or 'batch', got {layout!r}")
 

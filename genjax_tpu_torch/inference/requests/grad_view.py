@@ -23,7 +23,7 @@ from ...core.typing_ import static_check_supports_grad
 from ...generative.choice_map import ChoiceMap
 from ...generative.concepts import Argdiffs
 from ...generative.selection import Selection
-from ...generative.trace import Trace
+from ...generative.trace import Trace, trace_device
 
 
 def split_ravel(tree) -> tuple[torch.Tensor, Callable]:
@@ -32,19 +32,21 @@ def split_ravel(tree) -> tuple[torch.Tensor, Callable]:
     Returns ``(z0, rebuild)``: ``rebuild(z)`` reassembles the full tree with
     ``z``'s slices in the differentiable slots and the original values
     everywhere else; ``rebuild(z, nongrad_fill=fn)`` replaces each other leaf
-    with ``fn(leaf)`` instead (zeros for a gradient tree).
+    with ``fn(leaf)`` instead (zeros for a gradient tree). ``z`` may carry
+    leading batch axes: ``z (..., d)`` gives differentiable leaves shaped
+    ``(..., *shape)``.
     """
     leaves, spec = pytree.tree_flatten(tree)
     diff_mask = tuple(static_check_supports_grad(leaf) for leaf in leaves)
     parts = [leaf for leaf, d in zip(leaves, diff_mask) if d]
     shapes = [tuple(p.shape) for p in parts]
     sizes = [math.prod(s) for s in shapes]
-    z0 = torch.cat([p.reshape(-1) for p in parts]) if parts else torch.zeros(0)
+    z0 = torch.cat([p.reshape(-1) for p in parts]) if parts else torch.zeros(0, device=trace_device(tree))
 
     def rebuild(z, nongrad_fill: Callable | None = None):
         slices = iter(
-            piece.reshape(shape).to(part.dtype)
-            for piece, shape, part in zip(torch.split(z, sizes), shapes, parts)
+            piece.reshape(tuple(z.shape[:-1]) + shape).to(part.dtype)
+            for piece, shape, part in zip(torch.split(z, sizes, dim=-1), shapes, parts)
         )
         out = [
             next(slices) if d else (leaf if nongrad_fill is None else nongrad_fill(leaf))

@@ -1,0 +1,372 @@
+"""``sample_posterior``: the one-call sampling driver.
+
+Counterpart of ``genjax_tpu/inference/sample.py`` for ``algorithm`` in
+``"nuts"``, ``"hmc"`` and ``"hmc_sweep"``: make a batch of chains from the
+prior under the constraint, adapt the step size and a diagonal mass over the
+warmup, draw thinned samples, and report split-R̂ and ESS for each sampled
+parameter.
+
+- ``"nuts"`` (the default) and ``"hmc"`` are the per-transition trace path:
+  each transition is one ``torch.func.vmap`` over the chain batch of
+  ``NUTS.edit_with_info`` or ``mh(HMC)``. There is no kernel on this path;
+  NUTS integrates a fixed ``2**max_depth - 1`` leaves a transition
+  (``kernels.nuts.nuts_transition``).
+- ``"hmc_sweep"`` is the throughput form of ``"hmc"``, the same chain run
+  batch-first over a column block (``mcmc._ColumnSweep``, the launch that
+  ``run_chains_hmc`` uses): on the card one launch of the CUDA HMC kernel
+  (K1) per warmup window and per draw, the traces rebuilt once a phase.
+
+Chains are made on ``device``, the card unless the caller asks for the CPU;
+randomness comes from one ``torch.Generator`` on it. The other algorithms,
+sharding, checkpointed resume and ``sample_logdensity`` are not ported yet
+and raise ``NotImplementedError`` naming their ``ROADMAP.md`` item.
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+import torch
+import torch.utils._pytree as pytree
+
+from ..core.device import entry_device
+from ..core.diff import Diff
+from ..core.pytree import Pytree
+from ..generative.choice_map import ChoiceMap
+from ..generative.gfi import GenerativeFunction
+from ..generative.mask import Mask
+from ..generative.selection import Selection
+from ..kernels.adaptation import cross_chain_inv_mass, multiplicative_nudge
+from ..kernels.hmc import pallas_hmc
+from .diagnostics import ess, split_rhat
+from .mcmc import _ColumnSweep, _seed, generator_on, mh
+from .requests.grad_view import column_view, split_ravel
+from .requests.hmc import HMC
+from .requests.nuts import NUTS
+
+# algorithms of the reference that come with the port of the column samplers
+_COLUMN_ALGORITHMS = ("chees", "pt", "dense_hmc", "dense_nuts")
+
+
+@Pytree.dataclass
+class PosteriorSamples(Pytree):
+    """Thinned posterior draws and convergence diagnostics.
+
+    ``positions``: a choice map of the selected addresses, each value shaped
+    ``(n_chains, n_samples, *event_shape)``. ``rhat``/``ess`` hold the same
+    addresses' split-R̂ and bulk effective sample size, one for each element
+    of the event. ``eps``/``inv_mass`` are the adapted kernel settings,
+    ``inv_mass`` over the raveled selection.
+    """
+
+    positions: Any
+    rhat: Any
+    ess: Any
+    accept_rate: Any
+    divergence_rate: Any
+    eps: Any
+    inv_mass: Any
+
+    @staticmethod
+    def _read(tree, addr):
+        path = addr if isinstance(addr, tuple) else (addr,)
+        v = tree.get_submap(*path).get_value()
+        return v.value if isinstance(v, Mask) else v
+
+    def __getitem__(self, addr):
+        """Draws at ``addr``: shape ``(n_chains, n_samples, *event)``."""
+        return self._read(self.positions, addr)
+
+    def rhat_of(self, addr):
+        return self._read(self.rhat, addr)
+
+    def ess_of(self, addr):
+        return self._read(self.ess, addr)
+
+
+def _column_diagnostics(draws: torch.Tensor, n_samples: int):
+    """Split-R̂ and bulk ESS of each dimension of ``draws (chains, samples,
+    dim)``: the one place the diagnostics' lag budget lives."""
+    return split_rhat(draws), ess(draws, max_lag=min(n_samples - 1, 64))
+
+
+def _windows(n_warmup: int) -> list[int]:
+    """The warmup's windows: up to 6, totalling exactly ``n_warmup``
+    transitions, the first ``n_warmup % 6`` one longer."""
+    n_windows = min(6, n_warmup)
+    if n_windows == 0:
+        return []
+    base, rem = divmod(n_warmup, n_windows)
+    return [base + (1 if i < rem else 0) for i in range(n_windows)]
+
+
+def _positions(traces, selection: Selection) -> torch.Tensor:
+    """The raveled selected choices of a chains-first trace batch: ``(N, d)``."""
+    return column_view(traces, selection)[0].T
+
+
+def _init_traces(gen, model, constraint, args, n_chains: int, device):
+    """``n_chains`` traces of ``model.generate`` under ``constraint``, chains
+    first, on ``device``."""
+    def on_device(tree):
+        return pytree.tree_map(lambda v: v.to(device) if isinstance(v, torch.Tensor) else v, tree)
+
+    constraint, args = on_device(constraint), on_device(args)
+    return torch.func.vmap(
+        lambda _: model.generate(gen, constraint, args)[0], randomness="different"
+    )(torch.zeros(n_chains, device=device))
+
+
+def _trace_step(gen, selection: Selection, algorithm: str, *, L: int, max_depth: int):
+    """One transition of every chain of a trace batch at ``(eps,
+    inv_mass)``: ``step(traces, eps, inv_mass) -> (traces, accept,
+    divergence)``, the last two means over the chains. NUTS reports its
+    accept statistic and divergences; HMC its MH accepts and no divergence."""
+
+    def one(tr, eps, inv_mass):
+        if algorithm == "nuts":
+            request = NUTS(selection, eps, max_depth=max_depth, inv_mass=inv_mass)
+            argdiffs = Diff.tree_diff_no_change(tr.get_args())
+            new_tr, _w, _rd, _bwd, info = request.edit_with_info(gen, tr, argdiffs)
+            return new_tr, info.accept_prob, info.diverged.to(torch.float32)
+        new_tr, accepted = mh(gen, tr, HMC(selection, eps, L=L, inv_mass=inv_mass))
+        accepted = accepted.to(torch.float32)
+        return new_tr, accepted, torch.zeros_like(accepted)
+
+    batched = torch.func.vmap(one, in_dims=(0, None, None), randomness="different")
+
+    def step(traces, eps, inv_mass):
+        traces, accs, divs = batched(traces, eps, inv_mass)
+        return traces, accs.mean(), divs.mean()
+
+    return step
+
+
+def _warm(step, traces, selection: Selection, *, n_warmup: int, eps0, target_accept: float):
+    """The trace path's warmup: each window runs its transitions at the
+    current settings, nudges ``eps`` toward ``target_accept`` by the
+    window's mean accept, and takes the inverse mass from the cross-chain
+    variance of the raveled selected choices. ``eps`` stays on the device."""
+    z = _positions(traces, selection)
+    eps = torch.tensor(eps0, dtype=torch.float32, device=z.device)
+    inv_mass = torch.ones(z.shape[1], device=z.device)
+    for n_steps in _windows(n_warmup):
+        accs = []
+        for _ in range(n_steps):
+            traces, acc, _div = step(traces, eps, inv_mass)
+            accs.append(acc)
+        eps = multiplicative_nudge(eps, torch.stack(accs).mean(), target_accept=target_accept)
+        inv_mass = cross_chain_inv_mass(_positions(traces, selection), chain_axis=0)
+    return traces, eps, inv_mass
+
+
+def _draw(step, traces, selection: Selection, *, n_samples: int, thin: int, eps, inv_mass):
+    """The trace path's sampling: a draw of every chain each ``thin``
+    transitions. Returns ``(traces, draws (N, n_samples, d), accepts
+    (n_samples,), divergences (n_samples,))``."""
+    draws, accs, divs = [], [], []
+    for _ in range(n_samples):
+        a, dv = [], []
+        for _ in range(thin):
+            traces, acc, div = step(traces, eps, inv_mass)
+            a.append(acc)
+            dv.append(div)
+        draws.append(_positions(traces, selection))
+        accs.append(torch.stack(a).mean())
+        divs.append(torch.stack(dv).mean())
+    return traces, torch.stack(draws, dim=1), torch.stack(accs), torch.stack(divs)
+
+
+def _warm_sweep(gen, traces, selection: Selection, *, n_warmup: int, eps0, L: int,
+                target_accept: float, backend: str):
+    """``"hmc_sweep"``'s warmup on one column block: one sweep (on the card
+    one K1 launch) per window, the window's accept nudging ``eps`` (read to
+    the host once a window, as the launch takes it) and the block's
+    cross-chain variance giving the inverse mass; the traces are rebuilt
+    once at the end."""
+    run = _ColumnSweep(traces, selection, 0, backend, "sample_posterior")
+    eps = torch.tensor(eps0, dtype=torch.float32, device=run.z.device)
+    inv_mass = torch.ones(run.z.shape[0], device=run.z.device)
+    windows = _windows(n_warmup)
+    if not windows:
+        return traces, eps, inv_mass
+    seed = _seed(gen)
+    q = run.start(gen)
+    for wi, n_steps in enumerate(windows):
+        q, acc = run.sweep(pallas_hmc, q, seed + wi, run.inv_mass(inv_mass), n_steps=n_steps,
+                           eps=float(eps), L=L)
+        eps = multiplicative_nudge(eps, acc, target_accept=target_accept)
+        inv_mass = cross_chain_inv_mass(run.finish(q), chain_axis=1)
+    return run.write_back(run.finish(q), gen), eps, inv_mass
+
+
+def _draw_sweep(gen, traces, selection: Selection, *, n_samples: int, thin: int, eps, inv_mass,
+                L: int, backend: str):
+    """``"hmc_sweep"``'s sampling on one column block: one sweep of ``thin``
+    steps per draw (on the card one K1 launch), ``eps`` read and the
+    inverse mass packed once for all of them; the draws are kept in the
+    launch's layout and mapped back once, and the traces rebuilt once.
+    Returns ``(traces, draws (N, n_samples, d), accepts (n_samples,))``."""
+    run = _ColumnSweep(traces, selection, 0, backend, "sample_posterior")
+    seed = _seed(gen)
+    q = run.start(gen)
+    eps, inv_mass = float(eps), run.inv_mass(inv_mass)
+    draws, accs = [], []
+    for s in range(n_samples):
+        q, acc = run.sweep(pallas_hmc, q, seed + s, inv_mass, n_steps=thin, eps=eps, L=L)
+        draws.append(run.real(q))
+        accs.append(acc)
+    z = run.finish(torch.stack(draws))  # (n_samples, d, N)
+    return run.write_back(z[-1], gen), z.permute(2, 0, 1), torch.stack(accs)
+
+
+def _unraveler(traces, selection: Selection):
+    """Maps raveled selected values ``(..., d)`` back onto the selection's
+    choice map. Positions carry the sampled (differentiable) leaves only:
+    the others are blanked, so the draws do not repeat chain 0's values."""
+    template = pytree.tree_map(lambda v: v[0], traces.get_choices().filter_eager(selection))
+    _z0, rebuild = split_ravel(template)
+    return lambda z: rebuild(z, nongrad_fill=lambda _leaf: None)
+
+
+def _finish_trace_result(traces, draws, accs, divs, selection: Selection, eps, inv_mass):
+    """Diagnostics of ``draws (N, n_samples, d)``, and the draws and
+    diagnostics mapped back onto the selection's addresses."""
+    rhat, ess_ = _column_diagnostics(draws, draws.shape[1])
+    unravel = _unraveler(traces, selection)
+    return PosteriorSamples(
+        positions=unravel(draws),
+        rhat=unravel(rhat.to(torch.float32)),
+        ess=unravel(ess_.to(torch.float32)),
+        accept_rate=accs.mean(),
+        divergence_rate=divs.mean(),
+        eps=eps,
+        inv_mass=inv_mass,
+    )
+
+
+def sample_posterior(
+    gen: torch.Generator | int,
+    model: GenerativeFunction,
+    constraint: ChoiceMap,
+    args: tuple,
+    selection: Selection,
+    *,
+    n_chains: int = 1024,
+    n_warmup: int = 300,
+    n_samples: int = 100,
+    thin: int = 1,
+    algorithm: str = "nuts",
+    eps0: float = 0.1,
+    L: int = 8,
+    max_depth: int = 8,
+    target_accept: float = 0.8,
+    device="cuda",
+    backend: str = "auto",
+    mesh=None,
+    checkpoint_dir: str | None = None,
+    checkpoint_every: int = 0,
+    max_segments: int | None = None,
+) -> PosteriorSamples:
+    """Sample ``p(selection | constraint)`` with adaptive NUTS or HMC.
+
+    ``n_chains`` chains start from ``model.generate`` under ``constraint``
+    on ``device``: the card by default; ``device="cpu"`` runs on the CPU,
+    and without a card the default raises. ``gen`` is a ``torch.Generator``
+    on that device, or an int that seeds one; the constraint's and the
+    arguments' tensors are moved there.
+
+    Warmup: up to 6 windows totalling exactly ``n_warmup`` transitions
+    (``n_warmup=0`` keeps ``eps0`` and the identity mass); each runs its
+    transitions at the current settings, nudges the step size toward
+    ``target_accept`` and takes the diagonal inverse mass from the
+    cross-chain variance of the raveled selected choices. Sampling then
+    records one draw each ``thin`` transitions.
+
+    ``algorithm``:
+
+    - ``"nuts"``: vmapped ``NUTS.edit_with_info`` over the chains, to
+      ``max_depth``, recording its accept statistic and divergences;
+    - ``"hmc"``: vmapped ``mh(HMC(selection, eps, L))``, divergence rate 0;
+    - ``"hmc_sweep"``: the same chain as ``"hmc"`` run batch-first over a
+      column block: on the card one launch of the CUDA HMC kernel (K1) per
+      warmup window and per draw over the batch's device body, which the
+      flagship ``hierarchical_regression`` has; ``backend`` is that of
+      ``run_chains_hmc`` (on the card ``"auto"`` launches K1 or raises,
+      ``"torch"`` runs the plain twin over the GFI's ``assess``).
+      Divergences surface as rejections (``divergence_rate`` is 0).
+
+    Not ported yet, each raising ``NotImplementedError`` with its
+    ``ROADMAP.md`` item: ``"chees"``, ``"pt"``, ``"dense_hmc"`` and
+    ``"dense_nuts"`` (item 13), ``mesh`` (item 15), and
+    ``checkpoint_dir``/``checkpoint_every``/``max_segments`` (item 16).
+
+    >>> import torch
+    >>> import genjax_tpu_torch as g
+    >>> from genjax_tpu_torch.inference import sample_posterior
+    >>> @g.gen
+    ... def model():
+    ...     mu = g.normal(0.0, 1.0) @ "mu"
+    ...     _ = g.normal(mu, 1.0) @ "y"
+    >>> res = sample_posterior(
+    ...     0, model, g.C["y"].set(2.0), (), g.S["mu"], n_chains=256, n_warmup=30,
+    ...     n_samples=20, algorithm="hmc_sweep", eps0=0.1, L=5, device="cpu",
+    ... )
+    >>> tuple(res["mu"].shape)
+    (256, 20)
+    >>> bool(abs(res["mu"].mean() - 1.0) < 0.1)   # posterior mean 1
+    True
+    """
+    if algorithm in _COLUMN_ALGORITHMS:
+        raise NotImplementedError(
+            f"sample_posterior(algorithm={algorithm!r}) comes with the port of the column "
+            "samplers (ROADMAP.md queue 1, item 13)"
+        )
+    if algorithm not in ("nuts", "hmc", "hmc_sweep"):
+        raise ValueError(f"unknown algorithm {algorithm!r}")
+    if mesh is not None:
+        raise NotImplementedError(
+            "sample_posterior(mesh=...): sharding the chain axis comes with the port of "
+            "parallel/ (ROADMAP.md queue 1, item 15)"
+        )
+    if checkpoint_dir is not None or checkpoint_every or max_segments is not None:
+        raise NotImplementedError(
+            "sample_posterior(checkpoint_dir=, checkpoint_every=, max_segments=): segmented "
+            "resume comes with the port of io/checkpoint.py (ROADMAP.md queue 1, item 16)"
+        )
+    if n_samples <= 0:
+        # before the warmup, which would otherwise run in full first
+        raise ValueError(f"n_samples must be >= 1, got {n_samples}")
+    device = entry_device(device, "sample_posterior")
+    gen = generator_on(gen, device, "sample_posterior")
+    traces = _init_traces(gen, model, constraint, args, n_chains, device)
+    if algorithm == "hmc_sweep":
+        traces, eps, inv_mass = _warm_sweep(
+            gen, traces, selection, n_warmup=n_warmup, eps0=eps0, L=L,
+            target_accept=target_accept, backend=backend,
+        )
+        traces, draws, accs = _draw_sweep(
+            gen, traces, selection, n_samples=n_samples, thin=thin, eps=eps, inv_mass=inv_mass,
+            L=L, backend=backend,
+        )
+        divs = torch.zeros_like(accs)
+    else:
+        step = _trace_step(gen, selection, algorithm, L=L, max_depth=max_depth)
+        traces, eps, inv_mass = _warm(
+            step, traces, selection, n_warmup=n_warmup, eps0=eps0, target_accept=target_accept
+        )
+        traces, draws, accs, divs = _draw(
+            step, traces, selection, n_samples=n_samples, thin=thin, eps=eps, inv_mass=inv_mass
+        )
+    return _finish_trace_result(traces, draws, accs, divs, selection, eps, inv_mass)
+
+
+def sample_logdensity(*args, **kwargs):
+    """The one-call driver for a raw column log-density: not ported yet."""
+    raise NotImplementedError(
+        "sample_logdensity runs ChEES (kernels/chees.py) and comes with the port of the "
+        "column samplers (ROADMAP.md queue 1, item 13)"
+    )
+
+
+__all__ = ["PosteriorSamples", "sample_logdensity", "sample_posterior"]

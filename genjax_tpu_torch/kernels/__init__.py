@@ -13,7 +13,7 @@ from .elliptical import (
 )
 from .hmc import hmc_sweep, pallas_hmc, warmup_column
 from .model_interface import ColumnPacker, column_hmc, column_logdensity, column_nuts
-from .nuts import nuts_sweep_cols, nuts_transition_cols
+from .nuts import nuts_sweep_cols, nuts_transition, nuts_transition_cols
 from .nuts_pallas import nuts_sweep, pallas_nuts, warmup_column_nuts
 
 __all__ = [
@@ -33,6 +33,7 @@ __all__ = [
     "iid_normal",
     "nuts_sweep",
     "nuts_sweep_cols",
+    "nuts_transition",
     "nuts_transition_cols",
     "pallas_hmc",
     "pallas_nuts",

@@ -26,6 +26,16 @@ from .hmc import pallas_hmc, warmup_column
 from .nuts_pallas import pallas_nuts, warmup_column_nuts
 
 
+# The inverse mass of a padding row when a block packed from a trace batch's
+# selection runs through a sweep kernel. Its momentum comes out 2**50 times
+# larger, so a leapfrog moves the row by a part in 1e15 of its momentum's
+# draw and the gradient does not change the momentum in float32: the row
+# stays put, its kinetic energy is constant, and it adds nothing to the
+# energy change or to a U-turn check. With a unit mass the rows would move
+# under their standard-normal density and lengthen or shorten NUTS's trees.
+PAD_INV_MASS = 2.0**-100
+
+
 def _device(device) -> torch.device:
     """``device`` as a torch device: the card unless the caller asks for the
     CPU, where the plain twins run."""
@@ -83,6 +93,42 @@ class ColumnPacker:
         ]
         flat = torch.cat(parts)
         return torch.nn.functional.pad(flat, (0, self.padded_dim - self.dim))
+
+    # ---- columns in another order of the same addresses (a trace batch's
+    # raveled selection, ``grad_view.column_view``), mapped by a row index
+
+    def row_map(self, offsets: dict) -> list[int]:
+        """Row ``i`` of the packed block is row ``rows[i]`` of a block in
+        which address path ``p`` starts at row ``offsets[p]``."""
+        rows = []
+        for path, _shape, _offset, size in self.shapes:
+            rows += range(offsets[path], offsets[path] + size)
+        return rows
+
+    def pack_columns(self, z: torch.Tensor, rows: list[int], gen: torch.Generator) -> torch.Tensor:
+        """``z (dim, N)`` as a contiguous float32 ``(padded_dim, N)`` block in
+        this packing, the padding rows fresh standard normals from ``gen``
+        (the padding's density, ``column_logdensity``)."""
+        pad = torch.randn((self.padded_dim - self.dim, z.shape[1]), generator=gen, device=z.device)
+        return torch.cat([z[rows].to(torch.float32), pad]).contiguous()
+
+    def pack_inv_mass(self, inv_mass, rows: list[int], device) -> torch.Tensor:
+        """An inverse mass over ``z``'s rows (None: ones), in this packing,
+        with ``PAD_INV_MASS`` on the padding, which makes the padding rows
+        inert: a sweep over the packed block then runs the chain of ``z``'s
+        rows alone, as the twin does over ``z``."""
+        if inv_mass is None:
+            real = torch.ones(self.dim, device=device)
+        else:
+            real = torch.as_tensor(inv_mass, dtype=torch.float32, device=device).reshape(-1)[rows]
+        return torch.cat([real, torch.full((self.padded_dim - self.dim,), PAD_INV_MASS, device=device)])
+
+    def unpack_columns(self, q: torch.Tensor, rows: list[int]) -> torch.Tensor:
+        """A packed block ``(..., padded_dim, N)`` back in ``z``'s row order
+        ``(..., dim, N)``, the padding dropped."""
+        z = torch.empty((*q.shape[:-2], self.dim, q.shape[-1]), dtype=q.dtype, device=q.device)
+        z[..., rows, :] = q[..., : self.dim, :]
+        return z
 
 
 def column_logdensity(model, constraint, args, packer: ColumnPacker):

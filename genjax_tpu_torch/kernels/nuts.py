@@ -1,8 +1,12 @@
-"""Column NUTS: the plain torch twin of the NUTS sweep kernel (K4).
+"""NUTS: one chain's fixed-budget transition, and the column twin of the
+NUTS sweep kernel (K4).
 
-Counterpart of ``genjax_tpu/kernels/nuts.py`` (``nuts_transition_cols``,
-``nuts_sweep_cols``). Positions are ``(D, N)`` float32, chains on the last
-axis. The sampler is the iterative No-U-Turn scheme of the reference:
+Counterpart of ``genjax_tpu/kernels/nuts.py`` (``nuts_transition``,
+``nuts_transition_cols``, ``nuts_sweep_cols``). ``nuts_transition`` moves
+one chain ``(D,)`` over a fixed budget of ``2**max_depth - 1`` leaves, for
+``torch.func.vmap`` over chains (the trace path's ``NUTS`` request). The
+column functions move ``(D, N)`` float32 positions, chains on the last axis.
+The sampler is the iterative No-U-Turn scheme of the reference:
 
 - multinomial progressive sampling within a subtree, biased progressive
   sampling across doublings;
@@ -11,10 +15,10 @@ axis. The sampler is the iterative No-U-Turn scheme of the reference:
   ``popcount(i) - 1 - j`` for ``j < ntz(i + 1)``;
 - divergence when the energy rises by more than ``divergence_threshold``.
 
-The batch of chains is explicit, never vmapped: the leaf and doubling loops
-are Python loops over the whole batch with collective exits (one host read
-of a flag per leaf and per doubling), and per-chain freezing is the
-``active`` mask.
+In the column functions the batch of chains is explicit, never vmapped: the
+leaf and doubling loops are Python loops over the whole batch with
+collective exits (one host read of a flag per leaf and per doubling), and
+per-chain freezing is the ``active`` mask.
 
 Two random streams (``NUTSDraws``):
 
@@ -107,10 +111,145 @@ def _logaddexp(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def _uturn(dz, inv_mass, r_a, r_b) -> torch.Tensor:
-    """``dz . M^-1 r_a < 0`` or ``dz . M^-1 r_b < 0``, per chain."""
+    """``dz . M^-1 r_a < 0`` or ``dz . M^-1 r_b < 0``, per chain (over the
+    leading axis: a column block, or one chain's ``(D,)`` vectors)."""
     return (torch.sum(dz * inv_mass * r_a, dim=0) < 0.0) | (
         torch.sum(dz * inv_mass * r_b, dim=0) < 0.0
     )
+
+
+def nuts_transition(
+    logdensity: Callable,
+    z0: torch.Tensor,
+    gen: torch.Generator,
+    eps,
+    max_depth: int = 8,
+    divergence_threshold: float = 1000.0,
+    inv_mass=None,
+):
+    """One NUTS transition of a single chain, for ``torch.func.vmap`` over
+    chains (``randomness="different"``).
+
+    ``logdensity`` maps ``z (D,)`` to a scalar; each leaf costs one
+    ``torch.func.grad_and_value``, and the gradients at the trajectory's two
+    ends are carried, not recomputed. The budget is fixed, as in the
+    reference: doubling ``j`` integrates all ``2**j`` leaves of its subtree
+    whatever the chain's state, so every loop bound, checkpoint slot
+    (``popcount(i)``) and U-turn check count (``ntz(i + 1)``) is a function
+    of the loop indices alone, and chains that turned, diverged or finished
+    are frozen by ``torch.where`` masks; nothing reads a tensor's value, so
+    the transition is safe under vmap. It costs ``2**max_depth - 1``
+    gradients a transition. Draws from ``gen``, in order: the momentum, then
+    for each doubling its direction, one uniform a leaf and the subtree's
+    acceptance uniform. ``inv_mass`` is a diagonal inverse mass ``(D,)`` or
+    ``(D, 1)``.
+
+    Returns ``(z_new, NUTSInfo)`` with 0-dim info fields.
+    """
+    d = z0.shape[0]
+    device = z0.device
+    if inv_mass is None:
+        inv_mass = torch.ones(d, dtype=torch.float32, device=device)
+    else:
+        inv_mass = torch.as_tensor(inv_mass, dtype=torch.float32, device=device).reshape(d)
+    grad_and_value = torch.func.grad_and_value(logdensity)
+
+    def kinetic(r):
+        return 0.5 * torch.sum(inv_mass * r * r)
+
+    r0 = torch.randn(d, generator=gen, device=device) / torch.sqrt(inv_mass)
+    g0, ld0 = grad_and_value(z0)
+    energy0 = -ld0 + kinetic(r0)
+
+    false = torch.zeros((), dtype=torch.bool, device=device)
+    z_m, r_m, g_m = z0, r0, g0
+    z_p, r_p, g_p = z0, r0, g0
+    z_prop, lw_traj = z0, -energy0
+    done, t_turn, t_div = false, false, false
+    n_leap = torch.zeros((), dtype=torch.int32, device=device)
+    depth = torch.zeros((), dtype=torch.int32, device=device)
+    t_sacc = torch.zeros((), dtype=torch.float32, device=device)
+    t_scnt = torch.zeros((), dtype=torch.float32, device=device)
+
+    for j in range(max_depth):
+        direction = torch.where(torch.rand((), generator=gen, device=device) < 0.5, 1.0, -1.0)
+        fwd = direction > 0
+        e = eps * direction
+        # the subtree of 2**j leaves off the moving end, with its checkpoint
+        # stack: leaf i is pushed at slot popcount(i), a Python index
+        z = torch.where(fwd, z_p, z_m)
+        r = torch.where(fwd, r_p, r_m)
+        g = torch.where(fwd, g_p, g_m)
+        ck_z, ck_r = [z] * (j + 1), [r] * (j + 1)
+        s_zprop = z
+        lw_sub = torch.full((), -torch.inf, device=device)
+        s_turn, s_div, s_sacc, s_scnt = false, false, t_sacc, t_scnt
+        for i in range(1 << j):
+            active = ~(s_turn | s_div)
+            r_half = r + 0.5 * e * g
+            z_new = z + e * inv_mass * r_half
+            g_new, ld_new = grad_and_value(z_new)
+            r_new = r_half + 0.5 * e * g_new
+
+            bc = bin(i).count("1")
+            ck_z[bc], ck_r[bc] = z_new, r_new
+
+            energy = -ld_new + kinetic(r_new)
+            # an overflowed or NaN state is a divergence, not a NaN weight
+            energy = torch.where(torch.isnan(energy), torch.inf, energy)
+            lw_leaf = -energy
+            div_new = active & (energy - energy0 > divergence_threshold)
+            lw_new = torch.where(active, _logaddexp(lw_sub, lw_leaf), lw_sub)
+            take = active & (torch.rand((), generator=gen, device=device) < torch.exp(lw_leaf - lw_new))
+            s_zprop = torch.where(take, z_new, s_zprop)
+
+            acc = torch.clamp(torch.exp(energy0 - energy), max=1.0)
+            s_sacc = s_sacc + torch.where(active, acc, 0.0)
+            s_scnt = s_scnt + active.to(torch.float32)
+
+            # the openers of every subtree closing at leaf i are the top
+            # ntz(i + 1) stack entries
+            ntz1 = ((i + 1) & -(i + 1)).bit_length() - 1
+            for j_off in range(ntz1):
+                slot = bc - 1 - j_off
+                dz = direction * (z_new - ck_z[slot])
+                s_turn = s_turn | (active & _uturn(dz, inv_mass, ck_r[slot], r_new))
+
+            z = torch.where(active, z_new, z)
+            r = torch.where(active, r_new, r)
+            g = torch.where(active, g_new, g)
+            lw_sub = lw_new
+            s_div = s_div | div_new
+
+        # biased progressive sampling across the doubling
+        sub_ok = ~(s_turn | s_div)
+        live = ~done
+        p_acc = torch.clamp(torch.exp(lw_sub - lw_traj), max=1.0)
+        take = live & sub_ok & (torch.rand((), generator=gen, device=device) < p_acc)
+        z_prop = torch.where(take, s_zprop, z_prop)
+        grow = live & sub_ok
+        lw_traj = torch.where(grow, _logaddexp(lw_traj, lw_sub), lw_traj)
+        upd_f, upd_b = grow & fwd, grow & ~fwd
+        z_p, r_p, g_p = (torch.where(upd_f, s, t) for s, t in ((z, z_p), (r, r_p), (g, g_p)))
+        z_m, r_m, g_m = (torch.where(upd_b, s, t) for s, t in ((z, z_m), (r, r_m), (g, g_m)))
+
+        global_turn = _uturn(z_p - z_m, inv_mass, r_m, r_p)
+        n_leap = n_leap + torch.where(done, 0, 1 << j).to(torch.int32)
+        depth = depth + live.to(torch.int32)
+        # flags of a subtree built after the chain finished come from the
+        # masked budget, not from its trajectory
+        t_turn, t_div = t_turn | (live & s_turn), t_div | (live & s_div)
+        t_sacc = torch.where(done, t_sacc, s_sacc)
+        t_scnt = torch.where(done, t_scnt, s_scnt)
+        done = done | ~sub_ok | global_turn
+
+    info = NUTSInfo(
+        accept_prob=t_sacc / torch.clamp(t_scnt, min=1.0),
+        num_leapfrogs=n_leap,
+        diverged=t_div,
+        depth=depth,
+    )
+    return z_prop, info
 
 
 def nuts_transition_cols(

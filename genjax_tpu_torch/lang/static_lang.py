@@ -76,11 +76,12 @@ class StaticRequest(PrimitiveEditRequest):
 
 def _on(device, total) -> torch.Tensor:
     """A sum of scores or weights as a tensor: a sum no address added to is
-    still the Python 0.0 it began as, and becomes a zero on ``device``, where
-    the trace lives."""
+    still the Python 0.0 it began as, and becomes a float32 zero on
+    ``device``, where the trace or the choices live. ``device`` may be a
+    function that finds it, called only then."""
     if isinstance(total, torch.Tensor):
         return total
-    return torch.full((), float(total), device=device)
+    return torch.full((), float(total), device=device() if callable(device) else device)
 
 
 @Pytree.dataclass
@@ -107,7 +108,7 @@ class StaticTrace(Trace):
         return self.gen_fn
 
     def get_score(self):
-        return torch.as_tensor(sum(tr.get_score() for tr in self.subtraces))
+        return _on(functools.partial(trace_device, self), sum(tr.get_score() for tr in self.subtraces))
 
     def get_choices(self) -> ChoiceMap:
         acc = ChoiceMap.empty()
@@ -285,7 +286,7 @@ class StaticGenerativeFunction(GenerativeFunction):
     def assess(self, chm: ChoiceMap, args: tuple):
         h = AssessHandler(chm)
         retval = self.run(h, args)
-        return torch.as_tensor(h.score), retval
+        return _on(functools.partial(trace_device, (chm, args)), h.score), retval
 
     def generate(self, gen: torch.Generator, constraint: ChoiceMap, args: tuple):
         _check_generator(gen, "generate")

@@ -14,8 +14,10 @@ from typing import Callable
 import numpy as np
 import torch
 
+from ..core.handlers import active_handler
 from ..core.pytree import Pytree
 from ..dists import log_normal, mv_normal_diag
+from ..generative.trace import trace_device
 from ..lang.static_lang import StaticGenerativeFunction, gen
 
 
@@ -27,6 +29,18 @@ def _on_device(array) -> Callable[[torch.device], torch.Tensor]:
 
 def _device_of(x) -> torch.device:
     return x.device if isinstance(x, torch.Tensor) else torch.device("cpu")
+
+
+def _running_device() -> torch.device:
+    """The device that the running model body was called on: its
+    generator's, or in ``assess`` (no generator) its choices'. A model whose
+    first draw has tensor parameters makes them here, so that its traces
+    hold their leaves on one device."""
+    handler = active_handler()
+    gen = getattr(handler, "gen", None)
+    if gen is not None:
+        return gen.device
+    return trace_device(getattr(handler, "chm", None)) or torch.device("cpu")
 
 
 @Pytree.dataclass
@@ -52,8 +66,8 @@ def linear_regression(X, *, obs_scale: float = 0.25, prior_scale: float = 1.0):
 
     @gen
     def model():
-        w = mv_normal_diag(0.0, prior_scale * torch.ones(d)) @ "w"
-        dev = _device_of(w)
+        dev = _running_device()
+        w = mv_normal_diag(torch.zeros(d, device=dev), prior_scale * torch.ones(d, device=dev)) @ "w"
         return mv_normal_diag(X_on(dev) @ w, obs_scale * torch.ones(n, device=dev)) @ "y"
 
     def exact_posterior(y):

@@ -97,7 +97,9 @@ def test_imports_without_jax():
         "import sys, genjax_tpu_torch, genjax_tpu_torch.kernels, "
         "genjax_tpu_torch.kernels.elliptical, genjax_tpu_torch.models, "
         "genjax_tpu_torch.models.gp, genjax_tpu_torch.interop, "
-        "genjax_tpu_torch.inference.mcmc, genjax_tpu_torch.inference.requests.hmc; "
+        "genjax_tpu_torch.inference.mcmc, genjax_tpu_torch.inference.requests.hmc, "
+        "genjax_tpu_torch.inference.requests.nuts, genjax_tpu_torch.inference.sample, "
+        "genjax_tpu_torch.inference.diagnostics, genjax_tpu_torch.inference.adaptation; "
         "print(sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'genjax_tpu' or m.startswith('genjax_tpu.')))"
     )
@@ -129,13 +131,20 @@ def test_gp_and_elliptical_modules_are_layered():
 
 def test_inference_sits_above_kernels_lang_and_dists():
     """The trace path's runners reach the column kernels' routing
-    (``run_chains_hmc`` through ``pallas_hmc``), and nothing below reaches
-    up into them."""
+    (``run_chains_hmc`` through ``pallas_hmc``, ``run_chains_nuts`` through
+    ``pallas_nuts``), the NUTS request its transition in ``kernels.nuts``,
+    the driver ``sample`` the runners' shared launch in ``mcmc``, and
+    nothing below reaches up into them."""
     mods, edges = _graph()
     for mod in (f"{PKG}.inference.mcmc", f"{PKG}.inference.requests.hmc",
-                f"{PKG}.inference.requests.grad_view", f"{PKG}.core.diff"):
+                f"{PKG}.inference.requests.grad_view", f"{PKG}.core.diff",
+                f"{PKG}.inference.requests.nuts", f"{PKG}.inference.sample",
+                f"{PKG}.inference.diagnostics", f"{PKG}.inference.adaptation"):
         assert mod in mods, mod
     assert f"{PKG}.kernels.hmc" in edges[f"{PKG}.inference.mcmc"]
+    assert f"{PKG}.kernels.nuts_pallas" in edges[f"{PKG}.inference.mcmc"]
+    assert f"{PKG}.kernels.nuts" in edges[f"{PKG}.inference.requests.nuts"]
+    assert f"{PKG}.inference.mcmc" in edges[f"{PKG}.inference.sample"]
     for sub in ("kernels", "lang", "dists", "generative", "core", "models"):
         assert LAYERS["inference"] > LAYERS[sub]
     below = [m for m in mods if _subpackage(m) not in ("inference", "<root>", "interop")]

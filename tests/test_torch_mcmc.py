@@ -16,6 +16,7 @@ import torch
 import genjax_tpu_torch as g
 from genjax_tpu_torch.inference import mcmc
 from genjax_tpu_torch.kernels import bodies, hmc
+from genjax_tpu_torch.kernels.model_interface import PAD_INV_MASS
 from genjax_tpu_torch.models import hierarchical_regression
 
 
@@ -345,8 +346,8 @@ def test_on_the_card_auto_raises_without_a_device_body(monkeypatch):
 def test_kernel_view_maps_z_to_the_bodys_rows(order, monkeypatch):
     """``z`` ravels in tree-flatten order (tau, w), unpadded; the kernel's
     block follows the body's packing, padded to 16 with fresh standard
-    normals and ones in the inverse mass. Held for the flagship's packing
-    and for the other order of the same addresses."""
+    normals, made inert by their inverse mass (``PAD_INV_MASS``). Held for
+    the flagship's packing and for the other order of the same addresses."""
     monkeypatch.setattr(bodies, "body_packing", lambda model: order)
     monkeypatch.setattr(mcmc, "body_packing", lambda model: order)
     model, gen, trs, y = _flagship_batch(32)
@@ -356,18 +357,20 @@ def test_kernel_view_maps_z_to_the_bodys_rows(order, monkeypatch):
     view = mcmc._KernelView(trs, sel, 0, 9)
     assert view.body is not None and view.body.name == "hier_regression"
     np.testing.assert_array_equal(view.body.consts[-16:].numpy(), y)
-    q = view.pack(z, gen)
+    q = view.packer.pack_columns(z, view.rows, gen)
     assert tuple(q.shape) == (16, 32) and q.is_contiguous()
     tau_row = 0 if order[0] == ("tau",) else 8
     w_rows = slice(1, 9) if order[0] == ("tau",) else slice(0, 8)
     assert torch.equal(q[tau_row], trs["tau"]) and torch.equal(q[w_rows].T, trs["w"])
     pad = q[9:]
     assert abs(float(pad.mean())) < 0.2 and abs(float(pad.std()) - 1.0) < 0.2
-    assert not torch.equal(view.pack(z, gen)[9:], pad)  # fresh at every call
-    assert torch.equal(view.unpack(q), z)
-    im = view.pack_inv_mass(torch.arange(1.0, 10.0), torch.device("cpu"))
+    assert not torch.equal(view.packer.pack_columns(z, view.rows, gen)[9:], pad)  # fresh at every call
+    assert torch.equal(view.packer.unpack_columns(q, view.rows), z)
+    im = view.packer.pack_inv_mass(torch.arange(1.0, 10.0), view.rows, "cpu")
     assert im[tau_row] == 1.0 and torch.equal(im[w_rows], torch.arange(2.0, 10.0))
-    assert torch.equal(im[9:], torch.ones(7)) and view.pack_inv_mass(None, None) is None
+    pad = torch.full((7,), PAD_INV_MASS)
+    assert torch.equal(im[9:], pad)
+    assert torch.equal(view.packer.pack_inv_mass(None, view.rows, "cpu"), torch.cat([torch.ones(9), pad]))
 
 
 def test_kernel_view_refuses_what_the_body_does_not_cover():
