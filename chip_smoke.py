@@ -23,7 +23,15 @@ under 1.05, in law against its twin); the trace path's
 against its exact posterior, one vmapped NUTS trace transition on the
 flagship, and ``run_chains_nuts``, which launches K4, against its twin;
 K2's Philox stream against its bound and ``torch.randn``;
-and exact sampling of GP latents (D = 256, 8,192 chains,
+the column samplers, which have no kernel in either package, at full width:
+``sample_posterior`` with ``"chees"`` (split-R̂ under 1.05 at thin 8),
+``"pt"`` (the flagship, and a bimodal toy's mode weights), ``"dense_hmc"``
+and ``"dense_nuts"`` and ``column_hmc(mass="dense")`` on
+``bench.py::bench_dense``'s 128-d correlated Gaussian (the sample covariance
+against the target's), ``sample_logdensity`` and ``column_svgd`` (the card
+against the CPU from the same start), the flagship's means held against the
+K1 draws of ``sample_posterior(hmc_sweep)``, each timed with the card's busy
+share; and exact sampling of GP latents (D = 256, 8,192 chains,
 ``bench.py::bench_gp``'s setup, with ``chol`` put on the card once) with
 ``ess_sweep_gauss_pallas``, held against the closed-form posterior. It checks
 that each path launched its kernel in the variant it should (K1 and K4: the
@@ -101,6 +109,41 @@ TP_L = 8
 # the batched NUTS runner on the flagship's traces
 RCN_STEPS = 10
 RCN_EPS = 0.05
+
+# the column samplers (no kernel in either package): bench.py's bench_chees,
+# bench_dense and bench_svgd shapes. ChEES at thin 16, where the reference's
+# split-R-hat is 1.007-1.027 on this model at 65,536 chains on the CPU
+# (1.027-1.078 at thin 8, and the port's 1.0647 at most on the card;
+# scripts/column_samplers_probe.py chees)
+CS_WARMUP = 200
+CS_SAMPLES = 25
+CHEES_EPS0 = 0.02
+CHEES_TARGET = 0.651  # ChEES's optimal acceptance, chees_hmc's default
+CHEES_THIN = 16
+PT_RUNGS = 6
+PT_L = 8
+PT_TOY_CHAINS = 4096  # the reference test's 256, more chains at no cost on the card
+DENSE_D = 128
+DENSE_CHAINS = 16384
+DENSE_L = 5
+DENSE_EPS0 = 0.5
+DENSE_WARMUP = 40  # bench_dense's 4 phases x 10 steps
+DENSE_NUTS_CHAINS = 2048
+DENSE_NUTS_DEPTH = 6
+DENSE_NUTS_SAMPLES = 10
+DENSE_COV_FACTOR = 1.5  # the covariance gate, in RMS Monte Carlo errors at the chain count
+SVGD_PARTICLES = 4096
+SVGD_STEPS = 100
+# SVGD's 100 steps from the prior do not converge on this model, and once a
+# particle crosses tau = 0 the flow is sensitive to rounding (the CPU at 4,096
+# particles: tau's mean 0.61 against K1's 0.39, and two starts 1e-7 apart end
+# 0.34 apart in it; scripts/column_samplers_probe.py svgd). The means are
+# held within this many posterior sds of K1's draws (the prior's tau mean is
+# 5.4 away), and the card against the CPU over the first SVGD_AGREE_STEPS
+# steps, before the flow is chaotic
+SVGD_MEAN_BOUND = 4.0
+SVGD_AGREE_STEPS = 5
+SVGD_CHAOS_STEPS = 20  # reported, not gated: how far apart the two are by then
 
 # the H100 SXM's published peaks: FP32 outside the tensor cores, TF32 on
 # the tensor cores (dense), and HBM3
@@ -814,11 +857,12 @@ def chain_means_z(a, b):
     return float(((ma.mean(dim=0) - mb.mean(dim=0)) / se).abs().max())
 
 
-def sample_posterior_path(device, smi: str, g, hmc, model, y) -> int:
+def sample_posterior_path(device, smi: str, g, hmc, model, y):
     """``sample_posterior(algorithm="hmc_sweep")`` on the flagship at full
     width: its K1 launches, its diagnostics, in law against the same call on
     the plain twin, a call's time by stage and the card's busy share.
-    Returns the K1 launches of a call."""
+    Returns the K1 launches of a call and the thin-10 draws of ``tau`` and
+    ``w``, ``(chains, samples, 9)``."""
     from genjax_tpu_torch.inference import sample
 
     sel = g.S["w"] | g.S["tau"]
@@ -916,7 +960,7 @@ def sample_posterior_path(device, smi: str, g, hmc, model, y) -> int:
             f"a 1-step sweep) = {k1_ms / call_ms:.4f} of the call")
     busy = device_busy(call)
     phase("where the time goes", f"sample_posterior(hmc_sweep), {smi}: " + busy_line("a call", busy, call_ms))
-    return launches
+    return launches, flat(res_c)
 
 
 def trace_nuts_path(device, smi: str, g, hmc, nuts_pallas, model_flag, y) -> int:
@@ -1036,6 +1080,268 @@ def trace_nuts_path(device, smi: str, g, hmc, nuts_pallas, model_flag, y) -> int
           f"by CUDA events (20 sweeps) = {k4_ms / call_ms:.4f}; " + busy_line("a call", busy, call_ms))
     return launches
 
+
+def dense_target(device):
+    """``bench.py::bench_dense``'s target: ``Sigma* = A A^T / d + 0.05 I``
+    with ``A`` from numpy seed 0, as the ``@gen`` model ``x ~ mv_normal(0,
+    Sigma*)`` with its parameters on the card. Returns the model and
+    ``Sigma*`` in float64 on the host."""
+    import genjax_tpu_torch as g
+
+    rng = np.random.default_rng(0)
+    A = rng.normal(size=(DENSE_D, DENSE_D))
+    sigma = A @ A.T / DENSE_D + 0.05 * np.eye(DENSE_D)
+    loc = torch.zeros(DENSE_D, device=device)
+    cov = torch.as_tensor(sigma, dtype=torch.float32, device=device)
+
+    @g.gen
+    def correlated():
+        return g.mv_normal(loc, cov) @ "x"
+
+    return correlated, sigma
+
+
+def cov_error(draws: torch.Tensor, sigma: np.ndarray) -> float:
+    """Relative Frobenius error of the sample covariance of ``draws (n,
+    d)`` against ``sigma``."""
+    s = np.cov(draws.double().cpu().numpy(), rowvar=False)
+    return float(np.linalg.norm(s - sigma) / np.linalg.norm(sigma))
+
+
+def cov_bound(sigma: np.ndarray, n: int) -> float:
+    """``DENSE_COV_FACTOR`` times the RMS relative Frobenius error of the
+    sample covariance of ``n`` independent exact draws, ``sqrt((tr(S)^2 +
+    |S|_F^2) / n) / |S|_F`` for a Gaussian. Draws pooled over several
+    samples a chain hold at least ``n`` independent ones' worth, so this is
+    an upper bound on their error's scale."""
+    fro2 = float(np.sum(sigma * sigma))
+    return DENSE_COV_FACTOR * math.sqrt((np.trace(sigma) ** 2 + fro2) / n) / math.sqrt(fro2)
+
+
+def column_samplers_path(device, smi: str, g, hmc, nuts_pallas, elliptical, model, y, ref_draws) -> None:
+    """The column samplers, which have no kernel in either package, on the
+    card at full width through their entry points: ``sample_posterior``
+    with ``"chees"``, ``"pt"``, ``"dense_hmc"`` and ``"dense_nuts"``,
+    ``sample_logdensity``, ``column_hmc(mass="dense")`` and ``column_svgd``.
+    The flagship's moments are held against the last half of ``ref_draws``,
+    the ``(chains, samples, 9)`` draws of ``tau`` and ``w`` of
+    ``sample_posterior(hmc_sweep)`` at thin 10 (K1, split-R-hat under 1.05):
+    its first half still drifts in ``tau`` (the reference's own halves are
+    3.77 SE apart at 65,536 chains; scripts/column_samplers_probe.py
+    moments). Each phase prints its line, then holds its gates."""
+    from genjax_tpu_torch.inference import sample
+    from genjax_tpu_torch.kernels import column_hmc, column_svgd, svgd
+    from genjax_tpu_torch.kernels.model_interface import column_logdensity, init_columns
+
+    sel = g.S["w"] | g.S["tau"]
+    obs = g.C["y"].set(torch.as_tensor(y, device=device))
+    half = ref_draws.shape[1] // 2
+    z_halves = chain_means_z(ref_draws[:, :half], ref_draws[:, half:])
+    ref_draws = ref_draws[:, half:]
+
+    def launches():
+        return hmc.hmc_sweep_launches + nuts_pallas.nuts_sweep_launches + elliptical.ess_gauss_sweep_launches
+
+    def flat(r):
+        return torch.cat([r["tau"][:, :, None], r["w"]], dim=2)
+
+    def rhat_max(r):
+        return float(torch.cat([r.rhat_of("tau").reshape(1), r.rhat_of("w")]).max())
+
+    def gated(name: str, line: str, gates) -> None:
+        phase(name, line)
+        for ok, what in gates:
+            check(ok, what)
+
+    timings = {}
+
+    def timed(name, fn):
+        """Run ``fn`` once on the host clock, ended by a synchronise; the
+        kernels' launch counts must not move (no kernel on these paths)."""
+        before = launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        timings[name] = time.perf_counter() - t0
+        check(launches() == before, f"{name} launched a kernel")
+        return out
+
+    # ---- ChEES on the flagship
+    res = timed("chees", lambda: sample.sample_posterior(
+        SEED, model, obs, (), sel, n_chains=N_CHAINS, n_warmup=CS_WARMUP, n_samples=CS_SAMPLES,
+        thin=CHEES_THIN, algorithm="chees", eps0=CHEES_EPS0, target_accept=CHEES_TARGET, device=device))
+    d = flat(res)
+    hi, z, acc = rhat_max(res), chain_means_z(d, ref_draws), float(res.accept_rate)
+    gated("main path sample_posterior chees",
+          f"sample_posterior(hierarchical_regression, S[w] | S[tau], {N_CHAINS} chains, n_warmup={CS_WARMUP}, "
+          f"n_samples={CS_SAMPLES}, thin={CHEES_THIN}, eps0={CHEES_EPS0}, target_accept={CHEES_TARGET}, "
+          f"algorithm='chees') on the card, no kernel: {timings['chees']:.2f} s, draws {tuple(d.shape)}, "
+          f"split-R-hat of tau, w up to {hi:.4f} (limit 1.05 at thin {CHEES_THIN}), accept {acc:.4f} (limit "
+          f"{CHEES_TARGET} +- 0.05), eps {float(res.eps):.6g}, divergence rate {float(res.divergence_rate):.4f}; "
+          f"tau and w_j means within {z:.2f} pooled MC standard errors of the last {ref_draws.shape[1]} of K1's "
+          f"thin-10 draws (limit 4; K1's first {half} against its last: {z_halves:.2f})",
+          [(tuple(d.shape) == (N_CHAINS, CS_SAMPLES, 9) and d.is_cuda and bool(torch.isfinite(d).all()),
+            f"chees draws {tuple(d.shape)} on {d.device}"),
+           (hi < 1.05, f"chees: split-R-hat up to {hi:.4f} at thin {CHEES_THIN} (limit 1.05)"),
+           (z < 4, f"chees: tau, w means {z:.2f} MC standard errors from K1's (limit 4)"),
+           (abs(acc - CHEES_TARGET) <= 0.05, f"chees: accept {acc:.4f}, target {CHEES_TARGET} (limit 0.05)")])
+
+    # ---- sample_logdensity: the raw-density twin, from the same q0
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    _packer, ld, q0_l = sample._column_prep(gen, model, obs, (), sel, N_CHAINS, device)
+    res_l = timed("sample_logdensity", lambda: sample.sample_logdensity(
+        SEED + 1, ld, q0_l, n_warmup=CS_WARMUP, n_samples=CS_SAMPLES, thin=CHEES_THIN, eps0=CHEES_EPS0))
+    d_l = res_l.draws[:, :, :9]
+    z_l, rh_l = chain_means_z(d_l, ref_draws), float(res_l.rhat[:9].max())
+    gated("main path sample_logdensity",
+          f"sample_logdensity(the flagship's column_logdensity, the same q0 {tuple(q0_l.shape)} on the card, "
+          f"n_warmup={CS_WARMUP}, n_samples={CS_SAMPLES}, thin={CHEES_THIN}): {timings['sample_logdensity']:.2f} s, "
+          f"split-R-hat of tau, w up to {rh_l:.4f} (limit 1.05), accept {float(res_l.accept_rate):.4f}, tau and "
+          f"w_j means within {z_l:.2f} pooled MC standard errors of K1's (limit 4)",
+          [(d_l.is_cuda and bool(torch.isfinite(d_l).all()), "sample_logdensity draws"),
+           (z_l < 4, f"sample_logdensity: means {z_l:.2f} MC standard errors from K1's (limit 4)"),
+           (rh_l < 1.05, f"sample_logdensity: split-R-hat up to {rh_l:.4f} (limit 1.05)")])
+
+    # ---- parallel tempering: the flagship, and the bimodal toy
+    res_p = timed("pt", lambda: sample.sample_posterior(
+        SEED, model, obs, (), sel, n_chains=N_CHAINS, n_warmup=CS_WARMUP, n_samples=CS_SAMPLES,
+        algorithm="pt", eps0=CHEES_EPS0, L=PT_L, n_rungs=PT_RUNGS, device=device))
+    d_p = flat(res_p)
+    z_p = chain_means_z(d_p, ref_draws)
+
+    @g.gen
+    def bimodal():
+        mu = g.normal(0.0, 10.0) @ "mu"
+        _ = g.normal(mu * mu, 1.0) @ "y"
+
+    res_b = timed("pt toy", lambda: sample.sample_posterior(
+        SEED, bimodal, g.C["y"].set(4.0), (), g.S["mu"], n_chains=PT_TOY_CHAINS, n_warmup=200, n_samples=200,
+        algorithm="pt", eps0=0.05, L=8, n_rungs=5, device=device))
+    mu = res_b["mu"][:, 100:]
+    frac, abs_mu = float((mu > 0).float().mean()), float(mu.abs().mean())
+    gated("main path sample_posterior pt",
+          f"flagship, {N_CHAINS} chains x {PT_RUNGS} rungs, n_warmup={CS_WARMUP}, n_samples={CS_SAMPLES}, "
+          f"eps0={CHEES_EPS0}, L={PT_L}: {timings['pt']:.2f} s, split-R-hat up to {rhat_max(res_p):.4f}, cold "
+          f"accept {float(res_p.accept_rate):.4f}, tau and w_j means within {z_p:.2f} MC standard errors of "
+          f"K1's (limit 4), divergence rate {float(res_p.divergence_rate)}; the bimodal toy of "
+          f"tests/kernels/test_pt.py (mu ~ N(0, 10), y ~ N(mu^2, 1), y = 4) at {PT_TOY_CHAINS} chains x 5 "
+          f"rungs, 200 + 200 sweeps: {timings['pt toy']:.2f} s, {frac:.4f} of the last 100 draws positive "
+          f"(limit 0.5 +- 0.1), mean |mu| {abs_mu:.4f} (limit 2 +- 0.1)",
+          [(d_p.is_cuda and bool(torch.isfinite(d_p).all()), "pt draws"),
+           (z_p < 4, f"pt: tau, w means {z_p:.2f} MC standard errors from K1's (limit 4)"),
+           (float(res_p.divergence_rate) == 0.0, "pt: a divergence rate"),
+           (abs(frac - 0.5) <= 0.1, f"pt toy: {frac:.4f} of the draws in the positive mode (limit 0.5 +- 0.1)"),
+           (abs(abs_mu - 2.0) <= 0.1, f"pt toy: mean |mu| {abs_mu:.4f} (limit 2 +- 0.1)")])
+
+    # ---- the dense metric on bench_dense's 128-d correlated Gaussian
+    dense, sigma = dense_target(device)
+    diag = np.diag(sigma)
+    res_d = timed("dense_hmc", lambda: sample.sample_posterior(
+        SEED, dense, g.ChoiceMap.empty(), (), g.S["x"], n_chains=DENSE_CHAINS, n_warmup=DENSE_WARMUP,
+        n_samples=CS_SAMPLES, algorithm="dense_hmc", eps0=DENSE_EPS0, L=DENSE_L, device=device))
+    x = res_d["x"]
+    err_d, bound_d = cov_error(x.reshape(-1, DENSE_D), sigma), cov_bound(sigma, DENSE_CHAINS)
+    im_d = float(np.max(np.abs(res_d.inv_mass.double().cpu().numpy() / diag - 1.0)))
+    im_bound = 5.0 * math.sqrt(2.0 / DENSE_CHAINS)
+    q_c, acc_c, _packer = timed("column_hmc dense", lambda: column_hmc(
+        dense, g.ChoiceMap.empty(), (), ["x"], n_chains=DENSE_CHAINS, n_steps=CS_SAMPLES, eps=DENSE_EPS0,
+        L=DENSE_L, seed=SEED, warmup=True, mass="dense", device=device))
+    err_c = cov_error(q_c[:DENSE_D].T, sigma)
+    res_n = timed("dense_nuts", lambda: sample.sample_posterior(
+        SEED, dense, g.ChoiceMap.empty(), (), g.S["x"], n_chains=DENSE_NUTS_CHAINS, n_warmup=DENSE_WARMUP,
+        n_samples=DENSE_NUTS_SAMPLES, algorithm="dense_nuts", eps0=DENSE_EPS0, max_depth=DENSE_NUTS_DEPTH,
+        device=device))
+    x_n = res_n["x"]
+    err_n, bound_n = cov_error(x_n.reshape(-1, DENSE_D), sigma), cov_bound(sigma, DENSE_NUTS_CHAINS)
+    im_n = float(np.max(np.abs(res_n.inv_mass.double().cpu().numpy() / diag - 1.0)))
+    im_bound_n = 5.0 * math.sqrt(2.0 / DENSE_NUTS_CHAINS)
+    gated("main path dense",
+          f"bench_dense's Sigma* (D={DENSE_D}, A A^T/d + 0.05 I, numpy seed 0) as x ~ mv_normal(0, Sigma*): "
+          f"sample_posterior(dense_hmc, {DENSE_CHAINS} chains, n_warmup={DENSE_WARMUP}, n_samples={CS_SAMPLES}, "
+          f"eps0={DENSE_EPS0}, L={DENSE_L}) {timings['dense_hmc']:.2f} s, accept {float(res_d.accept_rate):.4f}, "
+          f"eps {float(res_d.eps):.6g}, covariance error {err_d:.4f} (relative Frobenius; limit {bound_d:.4f} = "
+          f"{DENSE_COV_FACTOR} x the RMS error of {DENSE_CHAINS} exact draws), inv_mass within {im_d:.4f} of "
+          f"diag(Sigma*) (limit {im_bound:.4f} = 5 sqrt(2/N)); column_hmc(mass='dense', warmup=True, "
+          f"{CS_SAMPLES} steps) {timings['column_hmc dense']:.2f} s, accept {float(acc_c):.4f}, covariance "
+          f"error {err_c:.4f} (limit {bound_d:.4f}); sample_posterior(dense_nuts, {DENSE_NUTS_CHAINS} chains, "
+          f"depth {DENSE_NUTS_DEPTH}, n_samples={DENSE_NUTS_SAMPLES}) {timings['dense_nuts']:.2f} s, accept "
+          f"{float(res_n.accept_rate):.4f}, white eps {float(res_n.eps):.6g}, divergence rate "
+          f"{float(res_n.divergence_rate):.4f}, covariance error {err_n:.4f} (limit {bound_n:.4f}), inv_mass "
+          f"within {im_n:.4f} (limit {im_bound_n:.4f})",
+          [(tuple(x.shape) == (DENSE_CHAINS, CS_SAMPLES, DENSE_D) and x.is_cuda and bool(torch.isfinite(x).all()),
+            f"dense_hmc draws {tuple(x.shape)}"),
+           (err_d < bound_d, f"dense_hmc: covariance error {err_d:.4f} (limit {bound_d:.4f})"),
+           (im_d < im_bound, f"dense_hmc: inv_mass off diag(Sigma*) by {im_d:.4f} (limit {im_bound:.4f})"),
+           (err_c < bound_d, f"column_hmc(mass='dense'): covariance error {err_c:.4f} (limit {bound_d:.4f})"),
+           (bool(torch.isfinite(x_n).all()) and err_n < bound_n,
+            f"dense_nuts: covariance error {err_n:.4f} (limit {bound_n:.4f})"),
+           (im_n < im_bound_n, f"dense_nuts: inv_mass off diag(Sigma*) by {im_n:.4f} (limit {im_bound_n:.4f})")])
+
+    # ---- SVGD on the flagship: the means against K1's; the card against the CPU
+    q_s, packer_s = timed("column_svgd", lambda: column_svgd(
+        model, obs, (), ["tau", "w"], n_particles=SVGD_PARTICLES, n_steps=SVGD_STEPS, seed=SEED, device=device))
+    ref_flat = ref_draws.reshape(-1, 9)
+    ref_mean, ref_sd = ref_flat.mean(dim=0), ref_flat.std(dim=0)
+    gap = (q_s.mean(dim=1) - ref_mean).abs() / ref_sd
+    pad = packer_s.padded_dim - packer_s.dim
+    q0 = init_columns(model, obs, (), packer_s, SVGD_PARTICLES, SEED, device)[: packer_s.dim]
+
+    def on_real_rows(ld):
+        return lambda q: ld(torch.cat([q, q.new_zeros((pad, q.shape[1]))]))
+
+    ld_card = on_real_rows(column_logdensity(model, obs, (), packer_s))
+    ld_cpu = on_real_rows(column_logdensity(model, g.C["y"].set(torch.as_tensor(y)), (), packer_s))
+    same = torch.equal(svgd(ld_card, q0, n_steps=SVGD_STEPS, step_size=0.15), q_s)
+    agree = []
+    for steps in (SVGD_AGREE_STEPS, SVGD_CHAOS_STEPS):
+        a = svgd(ld_card, q0, n_steps=steps, step_size=0.15).cpu()
+        b = svgd(ld_cpu, q0.cpu(), n_steps=steps, step_size=0.15)
+        agree.append((steps, torch.allclose(a.mean(dim=1), b.mean(dim=1), rtol=1e-3, atol=1e-4),
+                      torch.allclose(a, b, rtol=1e-3, atol=1e-5), float((a - b).abs().max()),
+                      float((a.mean(dim=1) - b.mean(dim=1)).abs().max())))
+    gated("main path svgd",
+          f"column_svgd(flagship, {SVGD_PARTICLES} particles, {SVGD_STEPS} steps, step 0.15, AdaGrad) on the card: "
+          f"{timings['column_svgd']:.2f} s, no kernel, particles finite {bool(torch.isfinite(q_s).all())}; tau, w "
+          f"means within {float(gap.max()):.3f} posterior sds of K1's (limit {SVGD_MEAN_BOUND}; tau "
+          f"{float(q_s[0].mean()):.4f} vs {float(ref_mean[0]):.4f}; {int((q_s[0] <= 0).sum())} particles at "
+          f"tau <= 0); a second card run from the same q0 equal bit for bit: {same}; the card against the CPU "
+          f"from the same q0: " + "; ".join(
+              f"{n} steps: means allclose(rtol 1e-3, atol 1e-4) {m_ok}, particles allclose(rtol 1e-3, atol "
+              f"1e-5) {ok}, max abs {err:.3g}, means {mgap:.3g} apart"
+              for n, m_ok, ok, err, mgap in agree) + f" (the means gated at {SVGD_AGREE_STEPS} steps)",
+          [(tuple(q_s.shape) == (9, SVGD_PARTICLES) and q_s.is_cuda and bool(torch.isfinite(q_s).all()),
+            f"column_svgd particles {tuple(q_s.shape)}"),
+           (bool((gap < SVGD_MEAN_BOUND).all()),
+            f"column_svgd: tau, w means {gap.tolist()} posterior sds from K1's (limit {SVGD_MEAN_BOUND})"),
+           (agree[0][1], f"column_svgd: the particles' means on the card and the CPU differ after "
+                         f"{SVGD_AGREE_STEPS} steps by {agree[0][4]:.3g} (rtol 1e-3, atol 1e-4)")])
+
+    # ---- timing: a call of each at cut depth (4 + 1 sweeps or transitions,
+    # 5 steps), host clock, median of 3, and the card's busy share
+    small = dict(n_warmup=4, n_samples=1, device=device)
+    calls = {
+        "chees (4 + 1 sweeps)": lambda: sample.sample_posterior(
+            SEED, model, obs, (), sel, n_chains=N_CHAINS, algorithm="chees", eps0=CHEES_EPS0,
+            target_accept=CHEES_TARGET, **small),
+        "sample_logdensity (4 + 1 sweeps)": lambda: sample.sample_logdensity(
+            SEED, ld, q0_l, eps0=CHEES_EPS0, n_warmup=4, n_samples=1),
+        f"pt ({PT_RUNGS} rungs, 4 + 1 sweeps)": lambda: sample.sample_posterior(
+            SEED, model, obs, (), sel, n_chains=N_CHAINS, algorithm="pt", eps0=CHEES_EPS0, L=PT_L,
+            n_rungs=PT_RUNGS, **small),
+        "dense_hmc (4 + 1 transitions)": lambda: sample.sample_posterior(
+            SEED, dense, g.ChoiceMap.empty(), (), g.S["x"], n_chains=DENSE_CHAINS, algorithm="dense_hmc",
+            eps0=DENSE_EPS0, L=DENSE_L, **small),
+        "dense_nuts (4 + 1 transitions)": lambda: sample.sample_posterior(
+            SEED, dense, g.ChoiceMap.empty(), (), g.S["x"], n_chains=DENSE_NUTS_CHAINS, algorithm="dense_nuts",
+            eps0=DENSE_EPS0, max_depth=DENSE_NUTS_DEPTH, **small),
+        "column_svgd (5 steps)": lambda: column_svgd(
+            model, obs, (), ["tau", "w"], n_particles=SVGD_PARTICLES, n_steps=5, seed=SEED, device=device),
+    }
+    for name, fn in calls.items():
+        call_ms = wall_ms(fn)
+        phase("timing column samplers", f"{smi}: {name}: a call {call_ms:.3f} ms (host clock, median of 3); "
+                                        + busy_line("a call", device_busy(fn), call_ms))
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -1244,7 +1550,7 @@ def main() -> int:
     gfi_launches = gfi_path(device, smi, g, hmc, model, y, ld, q0)
 
     # ---- the one-call driver on K1
-    sp_launches = sample_posterior_path(device, smi, g, hmc, model, y)
+    sp_launches, k1_draws = sample_posterior_path(device, smi, g, hmc, model, y)
 
     # ---- K4 against its plain version on the counter stream
     k4_cases = [
@@ -1453,6 +1759,9 @@ def main() -> int:
 
     # ---- the GP / elliptical-slice path (K3)
     k3_entry = gp_path(device, smi, elliptical)
+
+    # ---- the column samplers: ChEES, PT, the dense metric, SVGD (no kernel)
+    column_samplers_path(device, smi, g, hmc, nuts_pallas, elliptical, model, y, k1_draws)
 
     print(json.dumps({"kernels": [{
         "name": "hmc_sweep (K1, with K2's counter PRNG as device functions)",

@@ -6,11 +6,14 @@ carries the GFI (``simulate``, ``assess``, ``generate``, ``project``,
 ``edit`` and ``update``), ``@gen``, six distributions, the regression and GP
 models, the trace path (the ``HMC`` and ``NUTS`` edit requests, ``mh``,
 ``run_chains``, the batched ``run_chains_hmc`` and ``run_chains_nuts``), the
-one-call driver ``inference.sample_posterior`` with split-R̂ and ESS, and the
-column
-samplers whose sweeps are CUDA kernels in ``kernels/csrc``: HMC (``hmc_sweep.cu``),
-NUTS (``nuts_sweep.cu``) and Gaussian elliptical slice sampling
-(``ess_gauss_sweep.cu``).
+one-call drivers ``inference.sample_posterior`` (seven algorithms) and
+``sample_logdensity`` with split-R̂ and ESS, the column samplers whose
+sweeps are CUDA kernels in ``kernels/csrc``: HMC (``hmc_sweep.cu``), NUTS
+(``nuts_sweep.cu``) and Gaussian elliptical slice sampling
+(``ess_gauss_sweep.cu``), and the column samplers that are torch on the
+card, as the reference's are XLA: ChEES, parallel tempering, the dense
+metric, SVGD and SG-MCMC (``kernels.chees``, ``pt``, ``dense_mass``,
+``svgd``, ``sgld``).
 """
 
 from .core import (

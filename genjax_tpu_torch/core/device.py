@@ -3,7 +3,9 @@
 The port's entry points that launch CUDA kernels, or that stand beside them
 on the card (the GP closed forms), run on the card unless the caller asks
 for the CPU. Where the card is asked for and torch sees none, they raise
-rather than run on the CPU.
+rather than run on the CPU. An entry point that receives its chains runs
+where they live, and a generator on another device raises
+(``chain_generator``).
 """
 
 from __future__ import annotations
@@ -21,3 +23,24 @@ def entry_device(device, entry: str) -> torch.device:
             "device here; pass device='cpu' to run on the CPU"
         )
     return device
+
+
+def same_device(a: torch.device, b: torch.device) -> bool:
+    """Whether two devices are one; a device named without an index matches
+    any card of its type."""
+    return a.type == b.type and (a.index is None or b.index is None or a.index == b.index)
+
+
+def chain_generator(seed, device: torch.device, entry: str) -> torch.Generator:
+    """The random stream of chains that live on ``device``: ``seed`` itself
+    if it is a ``torch.Generator`` there, a new generator there seeded with
+    the int ``seed`` otherwise. A generator on another device raises a
+    ``ValueError`` naming ``entry``: the chains are not moved to it."""
+    if isinstance(seed, torch.Generator):
+        if not same_device(seed.device, device):
+            raise ValueError(
+                f"{entry}: the generator lives on {seed.device} and the chains on {device}; "
+                "make the generator on the chains' device (torch.Generator(device=...))"
+            )
+        return seed
+    return torch.Generator(device=device).manual_seed(int(seed))

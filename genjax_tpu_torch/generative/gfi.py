@@ -14,6 +14,7 @@ import abc
 from typing import Any
 
 import torch
+import torch.utils._pytree as pytree
 
 from ..core.diff import Diff
 from ..core.handlers import dispatch_trace
@@ -21,7 +22,7 @@ from ..core.pytree import Pytree
 from .choice_map import ChoiceMap
 from .concepts import Arguments, EditRequest, Retdiff, Score, Update, Weight
 from .selection import Selection
-from .trace import Trace
+from .trace import Trace, trace_device
 
 
 class GenerativeFunction(Pytree):
@@ -75,6 +76,14 @@ class GenerativeFunction(Pytree):
     def propose(self, gen: torch.Generator, args: Arguments):
         tr = self.simulate(gen, args)
         return tr.get_choices(), tr.get_score(), tr.get_retval()
+
+    def get_zero_trace(self, *args) -> Trace:
+        """A trace of the right structure and shapes with every tensor leaf
+        zero: one ``simulate`` under a throwaway generator on the arguments'
+        device (or the CPU), its leaves zeroed (torch has no abstract
+        evaluation of shapes)."""
+        tr = self.simulate(torch.Generator(device=trace_device(args) or "cpu").manual_seed(0), args)
+        return pytree.tree_map(lambda v: torch.zeros_like(v) if isinstance(v, torch.Tensor) else v, tr)
 
     # ----- call/closure syntax -----
 

@@ -21,6 +21,7 @@ import numpy as np
 import torch
 import torch.utils._pytree as pytree
 
+from ..core.device import same_device as _same_device
 from ..core.diff import Diff
 from ..core.pytree import Pytree
 from .concepts import Arguments, EditRequest, Retdiff, Score, Weight
@@ -72,11 +73,6 @@ def trace_device(tree: Any) -> torch.device | None:
         if isinstance(leaf, torch.Tensor):
             return leaf.device
     return None
-
-
-def _same_device(a: torch.device, b: torch.device) -> bool:
-    # a device named without an index matches any card of its type
-    return a.type == b.type and (a.index is None or b.index is None or a.index == b.index)
 
 
 def check_same_device(gen: torch.Generator, tr: Any, what: str) -> None:

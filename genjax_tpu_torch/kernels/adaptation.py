@@ -9,7 +9,9 @@ warmups (``hmc.warmup_column``, ``nuts_pallas.warmup_column_nuts``):
 - ``multiplicative_nudge``: the coarse per-window step-size update;
 - ``cross_chain_inv_mass``: the diagonal inverse mass from the cross-chain
   variance of one time slice;
-- ``windowed_warmup``: per window, a sweep, a nudge and a new mass.
+- ``windowed_warmup``: per window, a sweep, a nudge and a new mass;
+- ``_halton2``: the base-2 van der Corput jitter of ChEES's trajectory
+  length (``chees.py``).
 
 Arithmetic is float32 on the device of its inputs, as in the reference.
 """
@@ -37,11 +39,15 @@ class StepSizeAdaptState:
     mu: torch.Tensor  # shrinkage point: log(10 * eps0), fixed
 
     @staticmethod
-    def init(eps0) -> "StepSizeAdaptState":
-        eps0 = _f32(eps0)
+    def init(eps0, *, device=None) -> "StepSizeAdaptState":
+        """The state before the first update, every leaf on ``device`` (the
+        chains'; by default ``eps0``'s, or the CPU). A tensor ``eps0`` of
+        shape ``(R,)`` gives ``(R,)`` leaves and one shared step counter."""
+        eps0 = _f32(eps0).to(device)
+        zero = torch.zeros_like(eps0)
         return StepSizeAdaptState(
-            torch.log(eps0), _f32(0.0), _f32(0.0), torch.tensor(0, dtype=torch.int32),
-            torch.log(10.0 * eps0),
+            torch.log(eps0), zero, zero.clone(),
+            torch.tensor(0, dtype=torch.int32, device=eps0.device), torch.log(10.0 * eps0),
         )
 
 
@@ -113,3 +119,13 @@ def windowed_warmup(
         inv_mass = cross_chain_inv_mass(q, chain_axis=chain_axis)
         accs.append(acc)
     return q, eps, inv_mass, torch.stack(accs) if accs else torch.zeros(0, device=q0.device)
+
+
+def _halton2(i: int) -> torch.Tensor:
+    """Base-2 van der Corput value of the integer ``i`` in (0, 1): its low
+    24 bits reversed behind the binary point, plus ``2**-25``, as a float32
+    scalar on the CPU (every partial sum is exact in float32, so the order
+    of the sum does not matter)."""
+    bits = torch.arange(24)
+    digits = (int(i) >> bits) & 1
+    return torch.sum(digits * 0.5 ** (bits + 1.0)).to(torch.float32) + 2.0**-25

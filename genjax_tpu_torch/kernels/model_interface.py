@@ -1,8 +1,11 @@
 """Bridge from ``@gen`` models to the fused column-layout sweeps.
 
 Counterpart of ``genjax_tpu/kernels/model_interface.py``: ``ColumnPacker``,
-``column_logdensity``, ``column_hmc`` and ``column_nuts`` with a diagonal
-metric, each with the windowed warmup. Positions
+``column_logdensity``, ``column_hmc`` (a diagonal metric, or with
+``mass="dense"`` a full one) and ``column_nuts``, each with the windowed
+warmup, and the prior-initialised column samplers ``column_chees``,
+``column_pt`` and ``column_svgd``. Each makes its chains on the card unless
+the caller asks for the CPU. Positions
 are packed chains-on-the-last-axis: ``(D, N)`` with ``D`` the flattened
 dimension of the selected addresses padded to a multiple of 8. Padding
 dimensions carry an independent standard-normal density (see
@@ -17,13 +20,17 @@ from typing import Any, Sequence
 
 import torch
 
-from ..core.device import entry_device
+from ..core.device import chain_generator, entry_device
 from ..generative.choice_map import ChoiceMap
 from ..generative.gfi import GenerativeFunction
 from ..generative.mask import Mask
 from .bodies import body_for
+from .chees import chees_hmc
+from .dense_mass import hmc_sweep_dense_cols, warmup_column_dense
 from .hmc import pallas_hmc, warmup_column
 from .nuts_pallas import pallas_nuts, warmup_column_nuts
+from .pt import geometric_ladder, pt_hmc
+from .svgd import svgd
 
 
 # The inverse mass of a padding row when a block packed from a trace batch's
@@ -34,12 +41,6 @@ from .nuts_pallas import pallas_nuts, warmup_column_nuts
 # energy change or to a U-turn check. With a unit mass the rows would move
 # under their standard-normal density and lengthen or shorten NUTS's trees.
 PAD_INV_MASS = 2.0**-100
-
-
-def _device(device) -> torch.device:
-    """``device`` as a torch device: the card unless the caller asks for the
-    CPU, where the plain twins run."""
-    return entry_device(device, "column_hmc and column_nuts")
 
 
 def _round_up(x: int, m: int) -> int:
@@ -156,11 +157,14 @@ def column_logdensity(model, constraint, args, packer: ColumnPacker):
     return logdensity_cols
 
 
-def init_columns(model, constraint, args, packer: ColumnPacker, n_chains: int, seed: int, device):
+def init_columns(model, constraint, args, packer: ColumnPacker, n_chains: int, seed, device):
     """``n_chains`` draws of ``model.generate`` under ``constraint``, packed
-    as columns ``(padded_dim, n_chains)`` on ``device``. The stream is a
-    generator seeded apart from every int32 sweep seed."""
-    gen = torch.Generator(device=device).manual_seed((0xC0FFEE << 32) | (seed & 0xFFFFFFFF))
+    as columns ``(padded_dim, n_chains)`` on ``device``. ``seed`` is a
+    ``torch.Generator`` on ``device``, drawn from, or an int: a generator
+    seeded from it apart from every int32 sweep seed."""
+    if not isinstance(seed, torch.Generator):
+        seed = (0xC0FFEE << 32) | (int(seed) & 0xFFFFFFFF)
+    gen = chain_generator(seed, device, "init_columns")
 
     def init_one(_):
         tr, _w = model.generate(gen, constraint, args)
@@ -168,6 +172,16 @@ def init_columns(model, constraint, args, packer: ColumnPacker, n_chains: int, s
 
     dummy = torch.zeros(n_chains, device=device)
     return torch.func.vmap(init_one, randomness="different", out_dims=1)(dummy).contiguous()
+
+
+def _prior_columns(model, constraint, args, addresses, n_chains: int, seed: int, device):
+    """The packer, the column log-density and ``n_chains`` prior-initialised
+    columns on ``device``."""
+    if constraint is None:
+        constraint = ChoiceMap.empty()
+    packer = ColumnPacker(model, constraint, args, addresses)
+    logdensity_cols = column_logdensity(model, constraint, args, packer)
+    return packer, logdensity_cols, init_columns(model, constraint, args, packer, n_chains, seed, device)
 
 
 def column_hmc(
@@ -205,6 +219,13 @@ def column_hmc(
     name for the counter stream (``rng="counter"`` of the kernel and the
     twin): it chooses the random stream, not an interpret mode.
 
+    ``mass="dense"`` (with ``warmup=True``, and no ``inv_mass``) adapts a
+    full covariance metric from the cross-chain spread
+    (``dense_mass.warmup_column_dense``) and runs the dense sweep
+    ``hmc_sweep_dense_cols``, torch products on ``device`` for which no kernel
+    exists in either package: ``backend``, ``interpret`` and ``block_n`` do
+    not apply to it.
+
     >>> import torch
     >>> import genjax_tpu_torch as g
     >>> from genjax_tpu_torch.kernels import column_hmc
@@ -221,17 +242,26 @@ def column_hmc(
     >>> bool(abs(q[0].mean() - 1.0) < 0.3)   # posterior mean = 1
     True
     """
-    if mass != "diag":
-        raise NotImplementedError(
-            f"mass={mass!r}: the dense metric comes with the port of kernels/dense_mass.py "
-            "(ROADMAP queue 1, item 13)"
+    if mass not in ("diag", "dense"):
+        raise ValueError(f"mass must be 'diag' or 'dense', got {mass!r}")
+    if mass == "dense" and not warmup:
+        raise ValueError(
+            "mass='dense' requires warmup=True (the dense metric is estimated from the "
+            "cross-chain spread during warmup)"
         )
-    device = _device(device)
-    if constraint is None:
-        constraint = ChoiceMap.empty()
-    packer = ColumnPacker(model, constraint, args, addresses)
-    logdensity_cols = column_logdensity(model, constraint, args, packer)
-    q0 = init_columns(model, constraint, args, packer, n_chains, seed, device)
+    if mass == "dense" and inv_mass is not None:
+        raise ValueError(
+            "mass='dense' adapts its own full-covariance metric; inv_mass (a diagonal) "
+            "cannot be combined with it"
+        )
+    device = entry_device(device, "column_hmc")
+    packer, logdensity_cols, q0 = _prior_columns(model, constraint, args, addresses, n_chains, seed, device)
+    if mass == "dense":
+        q0, eps_d, cov_chol = warmup_column_dense(logdensity_cols, q0, seed, eps0=eps, L=L)
+        q, accept = hmc_sweep_dense_cols(
+            logdensity_cols, q0, seed, n_steps=n_steps, eps=eps_d, L=L, cov_chol=cov_chol
+        )
+        return q, accept, packer
     if warmup:
         q0, eps, inv_mass = warmup_column(logdensity_cols, q0, seed, eps0=eps, L=L, backend=backend)
     q, accept = pallas_hmc(
@@ -288,12 +318,8 @@ def column_nuts(
     >>> bool(abs(q[0].mean() - 1.0) < 0.3)   # posterior mean = 1
     True
     """
-    device = _device(device)
-    if constraint is None:
-        constraint = ChoiceMap.empty()
-    packer = ColumnPacker(model, constraint, args, addresses)
-    logdensity_cols = column_logdensity(model, constraint, args, packer)
-    q0 = init_columns(model, constraint, args, packer, n_chains, seed, device)
+    device = entry_device(device, "column_nuts")
+    packer, logdensity_cols, q0 = _prior_columns(model, constraint, args, addresses, n_chains, seed, device)
     if warmup:
         q0, eps, inv_mass = warmup_column_nuts(
             logdensity_cols, q0, seed, eps0=eps, max_depth=max_depth, backend=backend,
@@ -304,3 +330,97 @@ def column_nuts(
         inv_mass=inv_mass, block_n=block_n, interpret=interpret, backend=backend,
     )
     return q, accept, leaps, packer
+
+
+def column_chees(
+    model: GenerativeFunction,
+    constraint: ChoiceMap,
+    args: tuple,
+    addresses: Sequence[Any],
+    *,
+    n_chains: int,
+    n_warmup: int = 300,
+    n_steps: int = 200,
+    eps: float = 0.05,
+    seed: int = 0,
+    collect: bool = False,
+    device="cuda",
+    **chees_kwargs,
+):
+    """Prior-initialised ChEES-adaptive HMC over ``addresses`` in the column
+    layout (``chees.chees_hmc``), on ``device``: the card by default,
+    raising without one; ``device="cpu"`` runs on the CPU. Step size,
+    diagonal mass and trajectory length adapt jointly from cross-chain
+    statistics. Returns ``(positions, info, packer)``."""
+    device = entry_device(device, "column_chees")
+    packer, ld, q0 = _prior_columns(model, constraint, args, addresses, n_chains, seed, device)
+    q, info = chees_hmc(
+        ld, q0, seed, n_warmup=n_warmup, n_steps=n_steps, eps0=eps, collect=collect, **chees_kwargs
+    )
+    return q, info, packer
+
+
+def column_svgd(
+    model: GenerativeFunction,
+    constraint: ChoiceMap,
+    args: tuple,
+    addresses: Sequence[Any],
+    *,
+    n_particles: int,
+    n_steps: int,
+    step_size: float = 0.15,
+    seed: int = 0,
+    device="cuda",
+    **svgd_kwargs,
+):
+    """Prior-initialised SVGD over ``addresses`` (``svgd.svgd``): a
+    deterministic particle flow to the posterior, on ``device`` (the card by
+    default, raising without one; ``device="cpu"`` runs on the CPU). SVGD
+    runs on the real dimensions only: padding rows are pinned at zero and
+    left out of the kernel's distances, since inert padding directions
+    inflate the RBF metric and weaken the repulsion. Returns ``(positions
+    (dim, n_particles), packer)``."""
+    device = entry_device(device, "column_svgd")
+    packer, ld, q0 = _prior_columns(model, constraint, args, addresses, n_particles, seed, device)
+    pad = packer.padded_dim - packer.dim
+
+    def ld_real(qr):
+        return ld(torch.cat([qr, qr.new_zeros((pad, qr.shape[1]))]))
+
+    q = svgd(ld_real, q0[: packer.dim], n_steps=n_steps, step_size=step_size, **svgd_kwargs)
+    return q, packer
+
+
+def column_pt(
+    model: GenerativeFunction,
+    constraint: ChoiceMap,
+    args: tuple,
+    addresses: Sequence[Any],
+    *,
+    n_chains: int,
+    n_rungs: int = 6,
+    betas=None,
+    n_warmup: int = 300,
+    n_steps: int = 200,
+    eps: float = 0.05,
+    L: int = 8,
+    seed: int = 0,
+    collect: bool = False,
+    device="cuda",
+    **pt_kwargs,
+):
+    """Prior-initialised parallel-tempering HMC over ``addresses``
+    (``pt.pt_hmc``), on ``device`` (the card by default, raising without
+    one; ``device="cpu"`` runs on the CPU): a geometric ladder of
+    ``n_rungs`` inverse temperatures unless ``betas`` is given, with
+    even-odd replica exchange, for multimodal posteriors. Returns
+    ``(cold_positions, info, packer)``."""
+    device = entry_device(device, "column_pt")
+    if betas is None:
+        betas = geometric_ladder(n_rungs)
+    packer, ld, q0 = _prior_columns(model, constraint, args, addresses, n_chains, seed, device)
+    q, info = pt_hmc(
+        ld, q0, seed, betas=betas, n_warmup=n_warmup, n_steps=n_steps, eps0=eps, L=L,
+        collect=collect, **pt_kwargs,
+    )
+    return q, info, packer

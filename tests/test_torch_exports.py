@@ -1,0 +1,40 @@
+"""The port's public names against the reference's: every name of
+``genjax_tpu.kernels.__all__`` and the public API of
+``genjax_tpu.inference.sample`` resolves in ``genjax_tpu_torch``, and the
+dual-averaging state is made on the device its chains live on."""
+
+import pytest
+import torch
+
+import genjax_tpu.inference.sample as ref_sample
+import genjax_tpu.kernels as ref_kernels
+import genjax_tpu_torch.inference as inference
+import genjax_tpu_torch.kernels as kernels
+from genjax_tpu_torch.inference import sample
+from genjax_tpu_torch.kernels.adaptation import StepSizeAdaptState
+
+SAMPLE_API = ["PosteriorSamples", "LogdensitySamples", "sample_posterior", "sample_logdensity"]
+
+
+@pytest.mark.parametrize("name", sorted(ref_kernels.__all__))
+def test_every_reference_kernel_name_resolves(name):
+    assert callable(getattr(kernels, name)), name
+    assert name in kernels.__all__
+
+
+@pytest.mark.parametrize("name", SAMPLE_API)
+def test_the_sample_api_resolves(name):
+    assert hasattr(ref_sample, name)
+    assert getattr(sample, name) is getattr(inference, name)
+    assert name in sample.__all__ and name in inference.__all__
+
+
+@pytest.mark.parametrize("eps0", [0.1, [0.1, 0.2, 0.3]])
+def test_step_size_state_init_places_every_leaf(eps0):
+    st = StepSizeAdaptState.init(eps0, device="meta")
+    leaves = (st.log_eps, st.log_eps_bar, st.h_bar, st.step, st.mu)
+    assert all(leaf.device.type == "meta" for leaf in leaves)
+    assert st.step.dtype == torch.int32 and st.step.shape == ()
+    assert all(leaf.shape == torch.as_tensor(eps0).shape for leaf in (st.log_eps, st.log_eps_bar, st.h_bar, st.mu))
+    cpu = StepSizeAdaptState.init(eps0)
+    assert cpu.log_eps.device.type == "cpu" and float(cpu.h_bar.sum()) == 0.0

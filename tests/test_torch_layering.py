@@ -99,7 +99,10 @@ def test_imports_without_jax():
         "genjax_tpu_torch.models.gp, genjax_tpu_torch.interop, "
         "genjax_tpu_torch.inference.mcmc, genjax_tpu_torch.inference.requests.hmc, "
         "genjax_tpu_torch.inference.requests.nuts, genjax_tpu_torch.inference.sample, "
-        "genjax_tpu_torch.inference.diagnostics, genjax_tpu_torch.inference.adaptation; "
+        "genjax_tpu_torch.inference.diagnostics, genjax_tpu_torch.inference.adaptation, "
+        "genjax_tpu_torch.kernels.chees, genjax_tpu_torch.kernels.pt, "
+        "genjax_tpu_torch.kernels.dense_mass, genjax_tpu_torch.kernels.svgd, "
+        "genjax_tpu_torch.kernels.sgld; "
         "print(sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'genjax_tpu' or m.startswith('genjax_tpu.')))"
     )
@@ -149,6 +152,22 @@ def test_inference_sits_above_kernels_lang_and_dists():
         assert LAYERS["inference"] > LAYERS[sub]
     below = [m for m in mods if _subpackage(m) not in ("inference", "<root>", "interop")]
     assert not [f"{m} -> {t}" for m in below for t in edges[m] if _subpackage(t) == "inference"]
+
+
+def test_column_samplers_sit_below_inference():
+    """The column samplers (ChEES, parallel tempering, the dense metric,
+    SVGD, SG-MCMC) are kernel modules: the model bridge and the driver reach
+    down to them, and they reach nothing in ``inference``."""
+    mods, edges = _graph()
+    samplers = [f"{PKG}.kernels.{m}" for m in ("chees", "pt", "dense_mass", "svgd", "sgld")]
+    for mod in samplers:
+        assert mod in mods, mod
+        assert not [t for t in edges[mod] if _subpackage(t) in ("inference", "<root>", "interop")], mod
+    for mod in samplers[:4]:
+        assert mod in edges[f"{PKG}.kernels.model_interface"], mod
+    for mod in (f"{PKG}.kernels.chees", f"{PKG}.kernels.pt", f"{PKG}.kernels.dense_mass"):
+        assert mod in edges[f"{PKG}.inference.sample"], mod
+    assert LAYERS["kernels"] < LAYERS["inference"]
 
 
 def test_layer_direction():

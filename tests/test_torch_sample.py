@@ -260,10 +260,6 @@ def test_batched_rebuild_matches_one_draw_at_a_time():
 
 
 @pytest.mark.parametrize("kw, item", [
-    (dict(algorithm="chees"), "item 13"),
-    (dict(algorithm="pt"), "item 13"),
-    (dict(algorithm="dense_hmc"), "item 13"),
-    (dict(algorithm="dense_nuts"), "item 13"),
     (dict(mesh=object()), "item 15"),
     (dict(checkpoint_dir="ckpt", checkpoint_every=5), "item 16"),
     (dict(max_segments=1), "item 16"),
@@ -274,8 +270,6 @@ def test_options_not_ported_raise_naming_their_item(kw, item):
 
 
 def test_sample_logdensity_and_unknown_algorithms_raise():
-    with pytest.raises(NotImplementedError, match="item 13"):
-        sample.sample_logdensity(0, lambda q: -0.5 * (q * q).sum(0), torch.zeros(2, 4))
     with pytest.raises(ValueError, match="unknown algorithm"):
         sample_posterior(0, conjugate, OBS, (), g.S["mu"], algorithm="gibbs", device="cpu")
 
