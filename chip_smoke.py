@@ -22,7 +22,11 @@ under 1.05, in law against its twin); the trace path's
 ``sample_posterior`` with ``"nuts"`` and ``"hmc"`` on a linear regression
 against its exact posterior, one vmapped NUTS trace transition on the
 flagship, and ``run_chains_nuts``, which launches K4, against its twin;
-K2's Philox stream against its bound and ``torch.randn``;
+K2 alone (``csrc/k2_stream.cu``, the device functions of one K1 sweep
+making its normals and uniforms, written out or folded into one store a
+chain): the counter variant bit for bit against the torch port, the Philox
+variant against a torch port of Philox4x32-10 and in law, and its time
+against its bound and ``torch.randn``;
 the column samplers, which have no kernel in either package, at full width:
 ``sample_posterior`` with ``"chees"`` (split-R̂ under 1.05 at thin 8),
 ``"pt"`` (the flagship, and a bimodal toy's mode weights), ``"dense_hmc"``
@@ -33,7 +37,14 @@ against the CPU from the same start), the flagship's means held against the
 K1 draws of ``sample_posterior(hmc_sweep)``, each timed with the card's busy
 share; and exact sampling of GP latents (D = 256, 8,192 chains,
 ``bench.py::bench_gp``'s setup, with ``chol`` put on the card once) with
-``ess_sweep_gauss_pallas``, held against the closed-form posterior. It checks
+``ess_sweep_gauss_pallas``, held against the closed-form posterior; and the
+combinators, which are torch in both packages: ``linear_gaussian_ssm``'s
+kernel scanned over 100 steps (``bench.py::bench_pf``'s shape), a vmapped
+``generate`` of 131,072 particles under ``C[:, "y"]`` (weights against
+their float64 reckoning), the one-step ``IndexRequest`` beside the dense
+``Update``, ``sample_posterior(hmc)`` over ``S[..., "z"]`` against the exact
+Gaussian posterior, and every combinator configuration of the reference's
+GFI-contract test vmapped over 4,096 lanes. It checks
 that each path launched its kernel in the variant it should (K1 and K4: the
 body's; K3: the tiled one), and agrees in law with the plain twin; it checks
 each kernel's shared-memory reckoning in Python against the kernel's own,
@@ -144,6 +155,39 @@ SVGD_STEPS = 100
 SVGD_MEAN_BOUND = 4.0
 SVGD_AGREE_STEPS = 5
 SVGD_CHAOS_STEPS = 20  # reported, not gated: how far apart the two are by then
+
+# K2 alone (csrc/k2_stream.cu): the counter variant held bit for bit
+# against the torch port of the counter stream, and the Philox variant
+# against a torch port of Philox4x32-10 and the same Box-Muller (uniforms
+# bit for bit, normals to K2_PHILOX_TOL: a few float32 ulps of logf and
+# sincosf at |z| < 6), at this many chains and steps; the timed launches
+# make one flagship K1 sweep's numbers
+K2_CHECK_CHAINS = 4096
+K2_CHECK_STEPS = 3
+K2_PHILOX_TOL = 1e-5
+K2_TIMED_LAUNCHES = 200
+
+# the combinators' card path: bench.py::bench_pf's shape (a linear-Gaussian
+# state-space model scanned over 100 steps, 131,072 particles, ys = 0)
+SSM_T = 100
+SSM_PARTICLES = 131072
+SSM_EDIT_STEP = 50
+# its latent posterior through sample_posterior("hmc"): the exact posterior
+# from dense Gaussian conditioning (precision eigenvalues 4-8, so HMC mixes
+# fast); means within 0.05 (about 0.12 posterior sd), sds within 10%
+SSM_CHAINS = 16384
+SSM_WARMUP = 40
+SSM_SAMPLES = 20
+SSM_L = 5
+SSM_EPS0 = 0.2
+SSM_YS_SEED = 3
+SSM_MEAN_TOL = 0.05
+SSM_SD_TOL = 0.10
+SSM_RHAT = 1.1
+# every combinator configuration of the reference's GFI-contract test,
+# vmapped over this many lanes
+COMB_LANES = 4096
+COMB_TOL = 1e-4
 
 # the H100 SXM's published peaks: FP32 outside the tensor cores, TF32 on
 # the tensor cores (dense), and HBM3
@@ -844,7 +888,7 @@ def k2_line(device, smi: str):
                 f"at {HBM_BYTES_S / 1e12:.2f} TB/s); torch.randn + torch.rand of the same counts on a "
                 f"CUDA generator {library_ms:.4f} ms by CUDA events (50 calls), at "
                 f"{bound_ms / library_ms:.4f} of the bound")
-    return {"bound_ms": bound_ms, "bound_by": by, "library_ms": library_ms}
+    return {"bound_ms": bound_ms, "bound_by": by, "library_ms": library_ms, "ops_bound_ms": 1e3 * t_ops}
 
 
 def chain_means_z(a, b):
@@ -1343,6 +1387,444 @@ def column_samplers_path(device, smi: str, g, hmc, nuts_pallas, elliptical, mode
         phase("timing column samplers", f"{smi}: {name}: a call {call_ms:.3f} ms (host clock, median of 3); "
                                         + busy_line("a call", device_busy(fn), call_ms))
 
+_U32 = 0xFFFFFFFF
+
+
+def _mulhilo32(a, m: int):
+    """The high and low words of ``a * m`` for ``a`` an int64 tensor of
+    uint32 values and ``m`` a uint32, by 16-bit halves (no int64 overflow)."""
+    a_lo, a_hi = a & 0xFFFF, a >> 16
+    m_lo, m_hi = m & 0xFFFF, m >> 16
+    ll, lh, hl, hh = a_lo * m_lo, a_lo * m_hi, a_hi * m_lo, a_hi * m_hi
+    mid = (ll >> 16) + (lh & 0xFFFF) + (hl & 0xFFFF)
+    return hh + (lh >> 16) + (hl >> 16) + (mid >> 16), ((mid & 0xFFFF) << 16) | (ll & 0xFFFF)
+
+
+def philox4x32_10(c, k):
+    """Philox4x32-10 (Salmon et al. 2011; curand_Philox4x32_10) on int64
+    tensors holding uint32 words: the plain version of K2's Philox stream."""
+    c0, c1, c2, c3 = c
+    k0, k1 = k
+    for r in range(10):
+        if r:
+            k0, k1 = (k0 + 0x9E3779B9) & _U32, (k1 + 0xBB67AE85) & _U32
+        hi0, lo0 = _mulhilo32(c0, 0xD2511F53)
+        hi1, lo1 = _mulhilo32(c2, 0xCD9E8D57)
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+    return c0, c1, c2, c3
+
+
+def philox_k1_stream(seed: int, n: int, steps: int, D: int, device):
+    """The plain version of K1's Philox draws (``philox_normals4`` and
+    ``philox_uniform`` at counters ``(step, j, 0, 0)``, keyed by ``(seed,
+    chain)``): normals ``(steps, D, n)`` and uniforms ``(steps, n)``."""
+    shape = (steps, D // 4 + 1, n)
+    step = torch.arange(steps, device=device).view(-1, 1, 1).expand(shape)
+    draw = torch.arange(D // 4 + 1, device=device).view(1, -1, 1).expand(shape)
+    zero = torch.zeros(shape, dtype=torch.int64, device=device)
+    key = (torch.full((1, 1, 1), seed & _U32, device=device), torch.arange(n, device=device).view(1, 1, -1))
+    u = [(b >> 8).float() * (1.0 / 16777216.0) + (0.5 / 16777216.0)
+         for b in philox4x32_10((step, draw, zero, zero), key)]
+    two_pi = 6.283185307179586
+    r0, r1 = torch.sqrt(-2.0 * torch.log(u[0][:, :-1])), torch.sqrt(-2.0 * torch.log(u[2][:, :-1]))
+    a0, a1 = two_pi * u[1][:, :-1], two_pi * u[3][:, :-1]
+    z = torch.stack([r0 * torch.cos(a0), r0 * torch.sin(a0), r1 * torch.cos(a1), r1 * torch.sin(a1)], dim=2)
+    return z.reshape(steps, D, n), u[0][:, -1]
+
+
+def k2_own(device, smi: str, hmc, lib, entry: dict) -> dict:
+    """K2 alone (``csrc/k2_stream.cu``, the device functions K1 draws with):
+    the counter variant bit for bit against the torch port of the counter
+    stream, the Philox variant against ``philox_k1_stream`` and in law, and
+    both variants' time making one flagship K1 sweep's normals and uniforms,
+    written out and folded into one store a chain, beside K2's bound and
+    ``torch.randn`` + ``torch.rand`` (``k2_line``). Returns ``entry`` with
+    K2's own numbers; ``launches`` counts the timed Philox run's launches."""
+    import ctypes
+
+    P, I = ctypes.c_void_p, ctypes.c_int
+    lib.k2_stream.argtypes = [P, P, I, I, I, I, I, I, P]
+    lib.k2_stream.restype = I
+    D = lib.k2_stream_dim()
+    stream = torch.cuda.current_stream(device).cuda_stream
+    launched = [0]
+
+    def launch(rng: int, n: int, steps: int, out=None, fold: int = 0):
+        normals, uniforms = out if out is not None else (
+            torch.empty((steps, D, n), device=device), torch.empty((steps, n), device=device))
+        err = lib.k2_stream(normals.data_ptr(), uniforms.data_ptr(), n, steps, SEED, rng, fold, BLOCK_N,
+                            stream)
+        check(err == 0, f"k2_stream launch failed with CUDA error {err}")
+        launched[0] += 1
+        return normals, uniforms
+
+    # the counter variant against the torch port, step by step
+    n, steps = K2_CHECK_CHAINS, K2_CHECK_STEPS
+    normals, uniforms = launch(0, n, steps)
+    bits = hmc._counter_stream(SEED, n, BLOCK_N, device)
+    same_u = same_n = True
+    counter_err = 0.0
+    for i in range(steps):
+        ref_n = hmc._normal(bits, (D, n), 4 * i)
+        ref_u = hmc._uniform_01(bits, (n,), 4 * i + 2)
+        same_u &= torch.equal(uniforms[i], ref_u)
+        same_n &= torch.equal(normals[i], ref_n)
+        counter_err = max(counter_err, float((normals[i] - ref_n).abs().max()))
+    check(same_u and same_n, f"K2's counter variant differs from the torch port: uniforms equal {same_u}, "
+                             f"normals equal {same_n}, max abs err {counter_err:.3g}")
+
+    # the Philox variant against the torch port of Philox4x32-10
+    normals, uniforms = launch(1, n, steps)
+    ref_n, ref_u = philox_k1_stream(SEED, n, steps, D, device)
+    philox_err = float((normals - ref_n).abs().max())
+    philox_u_same = torch.equal(uniforms, ref_u)
+    check(philox_u_same and philox_err <= K2_PHILOX_TOL,
+          f"K2's Philox variant differs from the torch port: uniforms equal {philox_u_same}, normals max abs "
+          f"err {philox_err:.3g} (limit {K2_PHILOX_TOL})")
+
+    # the Philox variant at the flagship sweep's counts: moments in law
+    n, steps = N_CHAINS, N_STEPS
+    out = launch(1, n, steps)
+    normals, uniforms = out
+    z = normals.double()
+    k = z.numel()
+    z_mean, z_var = float(z.mean()), float(z.var())
+    u_mean, u_var = float(uniforms.double().mean()), float(uniforms.double().var())
+    lag = float((z[:, :, 1:] * z[:, :, :-1]).mean())  # neighbouring chains
+    pair = float((z[:, 0::4] * z[:, 1::4]).mean())  # one Box-Muller pair
+    check(abs(z_mean) < 4 / math.sqrt(k), f"K2 Philox normals' mean {z_mean}")
+    check(abs(z_var - 1) < 4 * math.sqrt(2 / k), f"K2 Philox normals' variance {z_var}")
+    check(abs(lag) < 4 / math.sqrt(k) and abs(pair) < 4 / math.sqrt(k / 4),
+          f"K2 Philox normals correlate: neighbouring chains {lag}, Box-Muller pair {pair}")
+    nu = uniforms.numel()
+    check(abs(u_mean - 0.5) < 4 * math.sqrt(1 / 12 / nu), f"K2 Philox uniforms' mean {u_mean}")
+    check(abs(u_var - 1 / 12) < 4 * math.sqrt(1 / 180 / nu), f"K2 Philox uniforms' variance {u_var}")
+    del z
+
+    # times at one flagship sweep's counts, the output reused: the numbers
+    # written out, and folded into one store a chain (the generation alone)
+    launched[0] = 0
+    philox_ms = cuda_ms(lambda: launch(1, n, steps, out), K2_TIMED_LAUNCHES)
+    launches = launched[0]
+    counter_ms = cuda_ms(lambda: launch(0, n, steps, out), K2_TIMED_LAUNCHES)
+    philox_fold_ms = cuda_ms(lambda: launch(1, n, steps, out, fold=1), K2_TIMED_LAUNCHES)
+    counter_fold_ms = cuda_ms(lambda: launch(0, n, steps, out, fold=1), K2_TIMED_LAUNCHES)
+    del out, normals, uniforms
+    full_bits = hmc._counter_stream(SEED, n, BLOCK_N, device)
+
+    def counter_plain():
+        for i in range(steps):
+            hmc._normal(full_bits, (D, n), 4 * i)
+            hmc._uniform_01(full_bits, (n,), 4 * i + 2)
+
+    counter_plain_ms = cuda_ms(counter_plain, 2)
+    del full_bits
+    philox_plain_ms = cuda_ms(lambda: philox_k1_stream(SEED, n, steps, D, device), 2)
+    entry = dict(entry)
+    ops_ms = entry.pop("ops_bound_ms")  # reported as the fold's bound
+    bound_ms, library_ms = entry["bound_ms"], entry["library_ms"]
+    phase("K2", f"{smi}: K2 alone (csrc/k2_stream.cu), one flagship K1 sweep's {steps * D * n} normals and "
+                f"{steps * n} uniforms written out: Philox {philox_ms:.4f} ms, counter stream "
+                f"{counter_ms:.4f} ms by CUDA events ({K2_TIMED_LAUNCHES} launches each, {launches} launches "
+                f"of k2_stream counted in the Philox run); bound {bound_ms:.4f} ms ({entry['bound_by']}), "
+                f"Philox at {bound_ms / philox_ms:.4f} of it; torch.randn + torch.rand {library_ms:.4f} ms = "
+                f"{library_ms / philox_ms:.3f} x K2's time; plain versions: the torch port of Philox4x32-10 "
+                f"{philox_plain_ms:.3f} ms, of the counter stream {counter_plain_ms:.3f} ms")
+    phase("K2", f"{smi}: K2 alone, the same numbers folded into one store a chain (the generation without "
+                f"the {4 * steps * (D + 1) * n / 1e6:.1f} MB of stores): Philox {philox_fold_ms:.4f} ms, counter "
+                f"stream {counter_fold_ms:.4f} ms; Philox's operations bound {ops_ms:.4f} ms, at "
+                f"{ops_ms / philox_fold_ms:.4f} of it")
+    phase("K2", f"Philox variant against the torch port of Philox4x32-10 ({K2_CHECK_CHAINS} chains x "
+                f"{K2_CHECK_STEPS} steps): uniforms bit for bit, normals max abs err {philox_err:.3g} (limit "
+                f"{K2_PHILOX_TOL}); counter variant bit for bit equal to the torch port of the counter stream; "
+                f"Philox moments at the flagship counts: normals mean {z_mean:.3g}, variance {z_var:.6f}, "
+                f"neighbour correlation {lag:.3g}, pair correlation {pair:.3g}; uniforms mean {u_mean:.6f}, "
+                f"variance {u_var:.6f} (limits 4 SE)")
+    return {**entry, "ms": philox_ms, "plain_ms": philox_plain_ms, "max_abs_err": philox_err,
+            "launches": launches, "fold_ms": philox_fold_ms, "fold_bound_ms": ops_ms,
+            "counter_ms": counter_ms, "counter_fold_ms": counter_fold_ms, "counter_plain_ms": counter_plain_ms,
+            "counter_max_abs_err": counter_err,
+            "source": "genjax_tpu_torch/kernels/csrc/k2_stream.cu (column_common.cuh's philox_normals4 and "
+                      "philox_uniform, which K1 and K4 draw with)"}
+
+
+def _leaves_on(tree, device) -> bool:
+    return all(v.device.type == device.type
+               for v in torch.utils._pytree.tree_leaves(tree) if isinstance(v, torch.Tensor))
+
+
+def _double(chm):
+    return torch.utils._pytree.tree_map(
+        lambda v: v.double() if isinstance(v, torch.Tensor) and v.is_floating_point() else v, chm)
+
+
+def ssm_exact_posterior(ys: np.ndarray):
+    """The exact posterior of ``z_1..T`` given ``y_1..T`` under
+    ``linear_gaussian_ssm()`` (unit steps from ``z_0 = 0``, noise sd 0.5) by
+    dense Gaussian conditioning in float64: mean and sds."""
+    n = len(ys)
+    prec = np.diag(np.full(n, 1.0 + 4.0))
+    prec[np.arange(n - 1), np.arange(n - 1)] += 1.0
+    prec[np.arange(n - 1), np.arange(1, n)] = prec[np.arange(1, n), np.arange(n - 1)] = -1.0
+    cov = np.linalg.inv(prec)
+    return cov @ (4.0 * ys.astype(np.float64)), np.sqrt(np.diag(cov))
+
+
+def ssm_path(device, smi: str, g, hmc) -> None:
+    """The combinators' card path: ``linear_gaussian_ssm``'s kernel scanned
+    over 100 steps (``bench.py::bench_pf``'s shape), generated under
+    ``C[:, "y"]`` by ``torch.func.vmap`` over 131,072 particles, edited at
+    one step, and sampled with ``sample_posterior(hmc)``. Torch on the card:
+    the reference's combinators are XLA, not Pallas, so no kernel."""
+    from genjax_tpu_torch.inference import sample_posterior
+    from genjax_tpu_torch.models import linear_gaussian_ssm
+
+    kernel, exact = linear_gaussian_ssm()
+    model = kernel.scan(n=SSM_T)
+    args = (0.0, None)
+    n, T = SSM_PARTICLES, SSM_T
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    ys = torch.zeros(T, device=device)
+    obs = g.C[:, "y"].set(ys)
+    lanes = torch.zeros(n, device=device)
+    generate = torch.func.vmap(lambda _: model.generate(gen, obs, args), randomness="different")
+    hmc.hmc_sweep_launches = 0
+    trs, ws = generate(lanes)
+    torch.cuda.synchronize()
+    gen_ms = wall_ms(lambda: generate(lanes))
+    busy = device_busy(lambda: generate(lanes))
+    check(_leaves_on((trs, ws), device), "[main path scan] an output of generate is not on the card")
+    z = trs.get_choices()[:, "z"]
+    check(tuple(z.shape) == (n, T), f"[main path scan] z has shape {tuple(z.shape)}")
+    z64 = z.double().cpu()
+    want = (-0.5 * (math.log(2 * math.pi * 0.25) + (ys.double().cpu() - z64) ** 2 / 0.25)).sum(1)
+    w_err = float(((ws.double().cpu() - want).abs() / want.abs()).max())
+    check(w_err < 1e-5, f"[main path scan] weights against sum_t log N(y_t; z_t, 0.5): rel err {w_err:.3g}")
+    assess = torch.func.vmap(lambda tr: model.assess(tr.get_choices(), args)[0])
+    score = torch.func.vmap(lambda tr: tr.get_score())(trs)
+    s_err = float(((score - assess(trs)).abs() / score.abs()).max())
+    check(s_err < 1e-5, f"[main path scan] get_score against assess: rel err {s_err:.3g}")
+    sims = torch.func.vmap(lambda _: model.simulate(gen, args), randomness="different")(lanes)
+    zs = sims.get_choices()[:, "z"]
+    var_T, var_1 = float(zs[:, T - 1].double().var()), float(zs[:, 0].double().var())
+    se_T, se_1 = T * math.sqrt(2 / (n - 1)), math.sqrt(2 / (n - 1))
+    check(abs(var_T - T) < 4 * se_T and abs(var_1 - 1) < 4 * se_1,
+          f"[main path scan] simulate's var z_100 {var_T} (SE {se_T:.3g}), var z_1 {var_1} (SE {se_1:.3g})")
+    check(hmc.hmc_sweep_launches == 0, "the scan path launched K1")
+    del sims, zs, z64
+    phase("main path scan", f"{smi}: vmap of linear_gaussian_ssm().scan(n={T}).generate over {n} particles "
+                            f"under C[:, 'y'] (ys = 0), on {ws.device}: {gen_ms:.3f} ms a call (host clock, "
+                            f"median of 3); weights against sum_t log N(y_t; z_t, 0.5) in float64 rel err "
+                            f"{w_err:.3g}, get_score against assess rel err {s_err:.3g} (limits 1e-5); simulate "
+                            f"var z_100 {var_T:.4f} ({abs(var_T - T) / se_T:.2f} SE), var z_1 {var_1:.5f} "
+                            f"({abs(var_1 - 1) / se_1:.2f} SE); log-mean-exp weight "
+                            f"{float(torch.logsumexp(ws.double(), 0) - math.log(n)):.4f} against the Kalman "
+                            f"filter's {exact(ys.cpu().tolist()):.4f}")
+    phase("where the time goes", f"scan, {smi}: " + busy_line("one vmapped generate", busy, gen_ms))
+
+    # ---- one step edited: the O(1) IndexRequest beside the dense Update
+    t = SSM_EDIT_STEP
+    v = 0.5 * torch.randn(n, generator=gen, device=device)
+    assess64 = torch.func.vmap(lambda tr: model.assess(_double(tr.get_choices()), args)[0])
+    old = assess64(trs)
+
+    def edited(request_of):
+        def one(tr, x):
+            new_tr, w, _rd, bwd = tr.edit(gen, request_of(x))
+            return new_tr, w, bwd
+        return torch.func.vmap(one, randomness="different")
+
+    index_edit = edited(lambda x: g.IndexRequest(t, g.Update(g.C["z"].set(x))))
+    dense_edit = edited(lambda x: g.Update(g.C[t, "z"].set(x)))
+    regen_edit = edited(lambda x: g.IndexRequest(t, g.Regenerate(g.S["z"])))
+    back = torch.func.vmap(lambda tr, b: tr.edit(gen, b)[1], randomness="different")
+    # the weights subtract float32 step scores that reach -800 on this shape
+    # (ys = 0, particles from the prior): 1e-4, plus 8 ulp of the two steps'
+    # scores where their rounding alone exceeds it
+    steps = torch.func.vmap(torch.func.vmap(lambda st: st.get_score()))(trs.inner)
+    tol = 1e-4 + 8 * 2.0**-23 * (steps[:, t].abs() + steps[:, t + 1].abs()).double()
+    new, w, bwd = index_edit(trs, v)
+    gap_v = (w.double() - (assess64(new) - old)).abs()
+    gap, gap_ok = float(gap_v.max()), bool((gap_v <= tol).all())
+    cancel = float((w + back(new, bwd)).abs().max())
+    check(_leaves_on((new, w, bwd), device), "[main path scan edit] an output is not on the card")
+    check(gap_ok and cancel < 1e-4,
+          f"[main path scan edit] IndexRequest weight against assess(new) - assess(old) {gap:.3g} "
+          f"(limit {float(tol.max()):.3g}), round trip {cancel:.3g} (limit 1e-4)")
+    new_d, w_d, _ = dense_edit(trs, v)
+    dense_v = (w_d - w).double().abs()
+    dense_gap = float(dense_v.max())
+    check(bool((dense_v <= tol).all()), f"[main path scan edit] the dense Update's weight differs by {dense_gap:.3g}")
+    # a distribution's Regenerate weighs its new score against its old, as
+    # the reference's does, so this weight too is assess(new) - assess(old)
+    new_r, w_r, bwd_r = regen_edit(trs, v)
+    moved = float((new_r.get_choices()[:, "z"][:, t] != trs.get_choices()[:, "z"][:, t]).double().mean())
+    check(moved > 0.99, f"[main path scan edit] Regenerate moved z_{t} in {moved} of the lanes")
+    r_gap_v = (w_r.double() - (assess64(new_r) - old)).abs()
+    r_gap = float(r_gap_v.max())
+    r_cancel = float((w_r + back(new_r, bwd_r)).abs().max())
+    check(bool((r_gap_v <= tol).all()) and r_cancel < 1e-4,
+          f"[main path scan edit] Regenerate weight gap {r_gap:.3g}, round trip {r_cancel:.3g}")
+    index_ms = wall_ms(lambda: index_edit(trs, v))
+    dense_ms = wall_ms(lambda: dense_edit(trs, v))
+    regen_ms = wall_ms(lambda: regen_edit(trs, v))
+    del new, new_d, new_r, bwd, bwd_r
+    phase("main path scan edit", f"{smi}: vmapped IndexRequest({t}, Update(C['z'])) over {n} traces of "
+                                 f"T = {T}: {index_ms:.3f} ms a call, the dense Update(C[{t}, 'z']) of the "
+                                 f"same values {dense_ms:.3f} ms (ratio {index_ms / dense_ms:.4f}), "
+                                 f"IndexRequest({t}, Regenerate) {regen_ms:.3f} ms (host clock, median of 3); "
+                                 f"weight against assess(new) - assess(old) in float64 {gap:.3g}, against "
+                                 f"the dense Update {dense_gap:.3g}, IndexRequest({t}, Regenerate)'s against "
+                                 f"assess(new) - assess(old) {r_gap:.3g} (limit 1e-4 + 8 ulp of the two steps' "
+                                 f"float32 scores: {float(tol.max()):.3g} at most); round trips {cancel:.3g} "
+                                 f"and {r_cancel:.3g} (limit 1e-4)")
+    del trs, ws
+
+    # ---- the latent posterior through the one-call driver
+    ys_np = np.random.default_rng(SSM_YS_SEED).normal(size=T).astype(np.float32)
+    mean, sd = ssm_exact_posterior(ys_np)
+    obs = g.C[:, "y"].set(torch.from_numpy(ys_np))
+    t0 = time.perf_counter()
+    res = sample_posterior(SEED, model, obs, args, g.S[..., "z"], algorithm="hmc", n_chains=SSM_CHAINS,
+                           n_warmup=SSM_WARMUP, n_samples=SSM_SAMPLES, L=SSM_L, eps0=SSM_EPS0,
+                           device=device)
+    torch.cuda.synchronize()
+    sp_s = time.perf_counter() - t0
+    draws = res[:, "z"]
+    check(tuple(draws.shape) == (SSM_CHAINS, SSM_SAMPLES, T) and type(res.positions).__name__ == "IndexedChm",
+          f"[main path scan sample_posterior] positions {type(res.positions).__name__} {tuple(draws.shape)}")
+    check(_leaves_on(res.positions, device), "[main path scan sample_posterior] draws are not on the card")
+    flat = draws.reshape(-1, T).double().cpu().numpy()
+    mean_gap = float(np.abs(flat.mean(0) - mean).max())
+    sd_gap = float(np.abs(flat.std(0) / sd - 1).max())
+    rhat = float(res.rhat_of((slice(None), "z")).max())
+    check(mean_gap < SSM_MEAN_TOL and sd_gap < SSM_SD_TOL and rhat < SSM_RHAT,
+          f"[main path scan sample_posterior] mean gap {mean_gap:.4f}, sd gap {sd_gap:.4f}, split-R-hat {rhat:.4f}")
+    check(hmc.hmc_sweep_launches == 0, "sample_posterior('hmc') on the scan launched K1")
+    # no device body for the scan's traces: the batched runner refuses on the card
+    few = torch.func.vmap(lambda _: model.generate(gen, obs, args)[0], randomness="different")(
+        torch.zeros(64, device=device))
+    try:
+        g.run_chains_hmc(gen, few, g.S[..., "z"], eps=0.1, L=SSM_L)
+        refused = ""
+    except ValueError as e:
+        refused = str(e)
+    check("device body" in refused and hmc.hmc_sweep_launches == 0,
+          f"run_chains_hmc(backend='auto') on the scan's traces did not refuse: {refused!r}")
+    phase("main path scan sample_posterior", f"{smi}: sample_posterior(hmc) over S[..., 'z'] of the T = {T} "
+                                             f"model, {SSM_CHAINS} chains, {SSM_WARMUP} warmup + {SSM_SAMPLES} "
+                                             f"draws, L = {SSM_L}: {sp_s:.2f} s (host clock, one call), eps "
+                                             f"{float(res.eps):.4f}, accept {float(res.accept_rate):.4f}; "
+                                             f"draws IndexedChm {tuple(draws.shape)}; against the exact "
+                                             f"posterior: max mean gap {mean_gap:.4f} (limit {SSM_MEAN_TOL}), "
+                                             f"max sd gap {sd_gap:.4f} (limit {SSM_SD_TOL}), max split-R-hat "
+                                             f"{rhat:.4f} (limit {SSM_RHAT}); run_chains_hmc(backend='auto') "
+                                             f"refused the scan's traces: no device body")
+
+
+def combinator_zoo(g, device):
+    """``tests/generative_functions/test_gfi_contract.py``'s combinator
+    configurations in the port, arguments on ``device``."""
+
+    def A(x):
+        x = np.asarray(x)
+        return torch.as_tensor(x.astype(np.float32) if x.dtype == np.float64 else x, device=device)
+
+    @g.gen
+    def leaf(mu):
+        x = g.normal(mu, 1.0) @ "x"
+        return x + g.normal(x, 0.5) @ "y"
+
+    @g.gen
+    def kern(c, _x):
+        z = g.normal(0.7 * c, 1.0) @ "z"
+        return (z, z)
+
+    @g.gen
+    def b0():
+        return g.normal(0.0, 1.0) @ "a"
+
+    @g.gen
+    def b1():
+        return g.normal(1.0, 2.0) @ "b"
+
+    sw = g.switch(b0, b1)
+
+    @g.gen
+    def switch_in_static(idx):
+        return sw(idx, (), ()) @ "sw"
+
+    @g.gen
+    def nested(mu):
+        return g.normal(leaf(mu) @ "sub", 1.0) @ "top"
+
+    @g.gen
+    def step(x):
+        return g.normal(0.5 * x, 1.0) @ "w"
+
+    @g.gen
+    def acc_step(c, x):
+        return g.normal(c + x, 1.0) @ "w"
+
+    sv = kern.scan(n=4)
+    return {
+        "static": (nested, (0.3,)),
+        "vmap": (leaf.vmap(in_axes=(0,)), (A([0.0, 1.0, 2.0]),)),
+        "scan": (sv, (0.0, A(np.zeros(4)))),
+        "vmap-of-scan": (sv.vmap(in_axes=(0, None)), (A([0.0, 1.0]), A(np.zeros(4)))),
+        "switch": (sw, (0, (), ())),
+        "switch tensor index": (switch_in_static, (A(1),)),
+        "mask": (g.mask_combinator(leaf), (A(True), 0.3)),
+        "dimap": (leaf.dimap(pre=lambda a: (a * 2.0,), post=lambda args, r: r + 1.0), (0.15,)),
+        "repeat": (leaf.repeat(n=3), (0.3,)),
+        "or_else": (b0.or_else(b1), (A(True), (), ())),
+        "mix": (g.mix(b0, b1), (A(np.zeros(2)), (), ())),
+        "iterate": (step.iterate(n=3), (0.5,)),
+        "iterate_final": (step.iterate_final(n=3), (0.5,)),
+        "accumulate": (acc_step.accumulate(), (0.0, A(np.ones(3)))),
+        "reduce": (acc_step.reduce(), (0.0, A(np.ones(3)))),
+        "masked_iterate_final": (step.masked_iterate_final(), (0.5, A([True, False, True]))),
+    }
+
+
+def combinators_path(device, smi: str, g) -> None:
+    """Every combinator configuration on the card, vmapped over
+    ``COMB_LANES`` lanes: ``generate`` under each lane's full choices weighs
+    its ``assess``, an ``Update`` to another lane's choices and its backward
+    request cancel, and every leaf lives on the card."""
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    lanes = torch.zeros(COMB_LANES, device=device)
+    t0 = time.perf_counter()
+    worst = {}
+    for name, (model, args) in combinator_zoo(g, device).items():
+        sim = torch.func.vmap(lambda _: model.simulate(gen, args), randomness="different")
+        trs, donors = sim(lanes), sim(lanes)
+        own = torch.func.vmap(lambda tr: tr.get_score())(trs)
+        scores = torch.func.vmap(lambda tr: model.assess(tr.get_choices(), args)[0])(trs)
+        ws = torch.func.vmap(lambda tr: model.generate(gen, tr.get_choices(), args)[1],
+                             randomness="different")(trs)
+
+        def forward(tr, donor):
+            new_tr, w, _rd, bwd = model.edit(gen, tr, g.Update(donor.get_choices()),
+                                             g.Diff.tree_diff_no_change(args))
+            return new_tr, w, bwd
+
+        new, w, bwd = torch.func.vmap(forward, randomness="different")(trs, donors)
+        wb = torch.func.vmap(lambda tr, b: tr.edit(gen, b)[1], randomness="different")(new, bwd)
+        gen_gap = float(torch.maximum((ws - scores).abs(), (own - scores).abs()).max())
+        trip = float((w + wb).abs().max())
+        check(_leaves_on((trs, new, ws, w, wb, bwd), device), f"[combinators] {name}: a leaf is not on the card")
+        check(gen_gap < COMB_TOL and trip < COMB_TOL,
+              f"[combinators] {name}: generate/score against assess {gen_gap:.3g}, round trip {trip:.3g}")
+        worst[name] = (gen_gap, trip)
+    torch.cuda.synchronize()
+    phase("combinators", f"{smi}: {len(worst)} configurations x {COMB_LANES} lanes on the card in "
+                         f"{time.perf_counter() - t0:.2f} s; generate under full choices and get_score against "
+                         f"assess, and the Update round trip, worst "
+                         f"{max(v[0] for v in worst.values()):.3g} and {max(v[1] for v in worst.values()):.3g} "
+                         f"(limits {COMB_TOL}): " + ", ".join(worst))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this test needs a CUDA card",
@@ -1379,15 +1861,18 @@ def main() -> int:
         x = torch.ones(4, 3, device=device)
         torch.func.vmap(torch.func.grad_and_value(lambda z: (z * z).sum()))(x)
 
-    with ThreadPoolExecutor(4) as pool:
-        k1_load, k4_load, k3_load, grad_load = pool.map(
-            timed_load, (hmc._lib, nuts_pallas._lib, elliptical._lib, first_grad))
+    with ThreadPoolExecutor(5) as pool:
+        k1_load, k4_load, k3_load, k2_load, grad_load = pool.map(
+            timed_load, (hmc._lib, nuts_pallas._lib, elliptical._lib, lambda: _build.load("k2_stream"),
+                         first_grad))
     phase("build", f"K1 loaded from genjax_tpu_torch/kernels/csrc/hmc_sweep.cu "
                    f"in {k1_load:.2f} s (build included)")
     phase("build", f"K4 loaded from genjax_tpu_torch/kernels/csrc/nuts_sweep.cu "
                    f"in {k4_load:.2f} s (build included, in parallel with K1's)")
     phase("build", f"K3 loaded from genjax_tpu_torch/kernels/csrc/ess_gauss_sweep.cu "
                    f"in {k3_load:.2f} s (build included, in parallel with K1's and K4's)")
+    phase("build", f"K2 alone loaded from genjax_tpu_torch/kernels/csrc/k2_stream.cu "
+                   f"in {k2_load:.2f} s (build included, in parallel with the others)")
     phase("build", f"torch.func's first grad_and_value (its lazy imports) took {grad_load:.2f} s beside the builds")
     X, y = flagship_data()
     flag_body = bodies.hier_regression(X, y, 0.25)
@@ -1412,7 +1897,7 @@ def main() -> int:
                        f"shared memory a block ({elliptical.NB} chains) of the card's "
                        f"{elliptical._lib().ess_gauss_smem_limit(0)} B, {geo['tiles']} tiles of chol "
                        f"(the wrapper's reckoning equals the kernel's)")
-    for source in ("hmc_sweep", "nuts_sweep", "ess_gauss_sweep"):
+    for source in ("hmc_sweep", "nuts_sweep", "ess_gauss_sweep", "k2_stream"):
         for name, regs, stores, loads, smem in ptxas_kernels(_build.ptxas_report(source)):
             phase("build", f"{source}.cu {name}: {regs} registers, spill stores {stores} B, "
                            f"spill loads {loads} B, static smem {smem} B")
@@ -1463,7 +1948,7 @@ def main() -> int:
     check(worst_rel < 1e-5, f"counter normals differ: max rel err {worst_rel:.3g}")
     phase("K2", f"counter bits and uniforms equal bit for bit over 5 draws; "
                 f"normals max rel err {worst_rel:.3g}")
-    k2_entry = k2_line(device, smi)
+    k2_entry = k2_own(device, smi, hmc, _build.load("k2_stream"), k2_line(device, smi))
 
     # ---- K1 against its plain version on the counter stream
     model = hierarchical_regression(X)
@@ -1763,6 +2248,12 @@ def main() -> int:
     # ---- the column samplers: ChEES, PT, the dense metric, SVGD (no kernel)
     column_samplers_path(device, smi, g, hmc, nuts_pallas, elliptical, model, y, k1_draws)
 
+    # ---- the combinators: the scanned state-space model and every configuration
+    t_comb = time.perf_counter()
+    ssm_path(device, smi, g, hmc)
+    combinators_path(device, smi, g)
+    phase("combinators", f"the combinator phases took {time.perf_counter() - t_comb:.1f} s")
+
     print(json.dumps({"kernels": [{
         "name": "hmc_sweep (K1, with K2's counter PRNG as device functions)",
         "route": "cuda",
@@ -1777,7 +2268,11 @@ def main() -> int:
         "bound_ms": k1_bound_ms,
         "bound_by": k1_bound_by,
         "library_ms": None,  # no single PyTorch call computes the sweep
-        "k2_philox": k2_entry,  # K2's stream in the sweep: its bound, and torch.randn's time
+        # K2, the PRNG's device functions inside K1 (and K4, K3): its own time
+        # from the standalone launch of csrc/k2_stream.cu, beside its bound and
+        # torch.randn + torch.rand
+        "k2_philox": {"name": "k2_stream (K2 alone, Philox)", "route": "cuda",
+                      "replaces": "genjax_tpu/kernels/hmc.py:39", **k2_entry},
     }, {
         "name": "nuts_sweep (K4)",
         "route": "cuda",
@@ -1793,6 +2288,7 @@ def main() -> int:
         "library_ms": None,  # no single PyTorch call computes the sweep
     }, k3_entry]}), flush=True)
     check(all(math.isfinite(v) for v in (ms, plain_ms, flagship_err, k4_ms, nuts_plain_ms, k4_err,
+                                         k2_entry["ms"], k2_entry["plain_ms"], k2_entry["fold_ms"],
                                          k3_entry["max_abs_err"], k3_entry["ms"], k3_entry["plain_ms"])),
           "non-finite result")
     print(json.dumps({"ok": True, "device": {

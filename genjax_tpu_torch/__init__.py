@@ -13,7 +13,11 @@ sweeps are CUDA kernels in ``kernels/csrc``: HMC (``hmc_sweep.cu``), NUTS
 (``ess_gauss_sweep.cu``), and the column samplers that are torch on the
 card, as the reference's are XLA: ChEES, parallel tempering, the dense
 metric, SVGD and SG-MCMC (``kernels.chees``, ``pt``, ``dense_mass``,
-``svgd``, ``sgld``).
+``svgd``, ``sgld``), and the combinators (``vmap``, ``scan``, ``switch``,
+``mask``, ``dimap``, ``repeat``, ``or_else``, ``mix`` and the derived
+iterations, also as postfix methods such as ``kernel.scan(n=...)``) with the
+indexed, masked and switch choice maps and the ``IndexRequest`` and
+``VectorRequest`` edits, and the state-space models of ``models.ssm``.
 """
 
 from .core import (
@@ -30,6 +34,7 @@ from .dists import (
     Distribution,
     ExactDensity,
     beta,
+    categorical,
     exact_density,
     flip,
     log_normal,
@@ -44,6 +49,7 @@ from .generative import (
     EditRequest,
     EmptyRequest,
     GenerativeFunction,
+    IndexRequest,
     Mask,
     NotSupportedEditRequest,
     Regenerate,
@@ -51,7 +57,29 @@ from .generative import (
     Selection,
     Trace,
     Update,
+    VectorRequest,
 )
+from .combinators import (
+    MaskCombinator,
+    ScanCombinator,
+    SwitchCombinator,
+    VmapCombinator,
+    accumulate,
+    contramap,
+    dimap,
+    iterate,
+    iterate_final,
+    masked_iterate,
+    masked_iterate_final,
+    mix,
+    or_else,
+    repeat,
+    scan,
+    switch,
+    vmap,
+)
+from .combinators import map as map_  # keeps the builtin in * imports
+from .combinators.mask_comb import mask as mask_combinator
 from .inference import MHChainResult, mh, run_chain, run_chains, run_chains_hmc, run_chains_nuts
 from .inference.requests import HMC, NUTS, SafeHMC, mh_accept, selection_gradient
 from .lang import StaticGenerativeFunction, StaticRequest, StaticTrace, gen
@@ -71,8 +99,10 @@ __all__ = [
     "GenJAXError",
     "GenerativeFunction",
     "HMC",
+    "IndexRequest",
     "MHChainResult",
     "Mask",
+    "MaskCombinator",
     "MissingAddress",
     "NUTS",
     "NoChange",
@@ -82,26 +112,46 @@ __all__ = [
     "Regenerate",
     "S",
     "SafeHMC",
+    "ScanCombinator",
     "Selection",
     "StaticGenerativeFunction",
     "StaticRequest",
     "StaticTrace",
+    "SwitchCombinator",
     "Trace",
     "UnknownChange",
     "Update",
+    "VectorRequest",
+    "VmapCombinator",
+    "accumulate",
     "beta",
+    "categorical",
+    "contramap",
+    "dimap",
     "exact_density",
     "flip",
     "gen",
+    "iterate",
+    "iterate_final",
     "log_normal",
+    "map_",
+    "mask_combinator",
+    "masked_iterate",
+    "masked_iterate_final",
     "mh",
     "mh_accept",
     "mv_normal",
     "mv_normal_diag",
+    "mix",
     "normal",
+    "or_else",
+    "repeat",
     "run_chain",
     "run_chains",
     "run_chains_hmc",
     "run_chains_nuts",
+    "scan",
     "selection_gradient",
+    "switch",
+    "vmap",
 ]

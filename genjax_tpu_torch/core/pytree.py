@@ -7,7 +7,9 @@ node's context (they must compare by value), every other field is a child,
 so ``tree_map`` over a trace reaches its tensors. A child field that holds
 ``None`` is an empty subtree, as in JAX (torch's own pytrees make ``None`` a
 leaf, which ``torch.func.vmap`` refuses as an input or an output): which
-fields are absent rides in the context.
+fields are absent rides in the context. ``none_free`` does the same for the
+``None`` entries of a tuple (a scan's ``(init, None)`` arguments, a
+``(carry, None)`` return value).
 """
 
 from __future__ import annotations
@@ -118,3 +120,38 @@ class Closure(Pytree):
 
     def __call__(self, *args, **kwargs):
         return self.fn(*self.dyn_args, *args, **kwargs)
+
+
+class NoneFreeTuple(tuple):
+    """A tuple whose ``None`` entries are no leaves: which entries are
+    ``None`` rides in the tree's context, as a ``None`` field of a
+    ``Pytree.dataclass`` does. It is a ``tuple`` in every other respect."""
+
+    def __repr__(self):
+        return f"NoneFreeTuple({tuple.__repr__(self)})"
+
+
+def _flatten_none_free(t):
+    return [x for x in t if x is not None], tuple(x is None for x in t)
+
+
+def _unflatten_none_free(children, absent):
+    children = iter(children)
+    return NoneFreeTuple(None if gone else next(children) for gone in absent)
+
+
+pytree.register_pytree_node(
+    NoneFreeTuple, _flatten_none_free, _unflatten_none_free,
+    serialized_type_name=f"{__name__}.NoneFreeTuple",
+)
+
+
+def none_free(tree: Any) -> Any:
+    """``tree`` with every plain tuple (or ``NoneFreeTuple``) that holds a
+    ``None``, at any depth of nested tuples, made a ``NoneFreeTuple``, so
+    that ``torch.func.vmap`` can take and return it. Other nodes are left
+    as they are."""
+    if type(tree) is not tuple and not isinstance(tree, NoneFreeTuple):
+        return tree
+    items = tuple(none_free(x) for x in tree)
+    return NoneFreeTuple(items) if any(x is None for x in items) else items

@@ -1,6 +1,6 @@
 """Distributions: the ``Distribution`` GFI and a catalog subset."""
 
-from .catalog import beta, flip, log_normal, mv_normal, mv_normal_diag, normal
+from .catalog import beta, categorical, flip, log_normal, mv_normal, mv_normal_diag, normal
 from .distribution import (
     Distribution,
     DistributionTrace,
@@ -15,6 +15,7 @@ __all__ = [
     "ExactDensity",
     "LambdaDensity",
     "beta",
+    "categorical",
     "exact_density",
     "flip",
     "log_normal",

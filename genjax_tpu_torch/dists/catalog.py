@@ -1,7 +1,8 @@
 """The distributions of the flagship model and the README quickstart.
 
 Counterpart of part of ``genjax_tpu/dists/catalog.py``: ``normal``,
-``log_normal``, ``mv_normal_diag``, ``mv_normal``, ``beta`` and ``flip``,
+``log_normal``, ``mv_normal_diag``, ``mv_normal``, ``beta``, ``flip`` and
+``categorical`` (over the last axis of its logits),
 with the same names, TFP parameter orders and log-density formulas (the
 normal density is ``-(log(2 pi s^2) + (x - m)^2 / s^2) / 2``, as
 ``jax.scipy.stats.norm`` computes it). Log-densities are elementwise over
@@ -142,6 +143,32 @@ def _flip_sample(gen, p, **kw):
     return torch.rand(_bshape(_shape(kw), p), generator=gen, device=gen.device) < p
 
 
+def _categorical_logpmf(v, logits, **kw):
+    """``log softmax(logits)[v]``, with TFP's batch semantics (a batched
+    value against one logits vector scores elementwise); ``-inf`` outside
+    ``0..K-1``."""
+    (logits,) = _tensors(logits)
+    vi = torch.as_tensor(v, device=logits.device).to(torch.int64)
+    batch = torch.broadcast_shapes(tuple(vi.shape), tuple(logits.shape[:-1]))
+    logits_b = torch.broadcast_to(logits, batch + tuple(logits.shape[-1:]))
+    vi_b = torch.broadcast_to(vi, batch)
+    k = logits.shape[-1]
+    picked = torch.gather(logits_b, -1, vi_b.clamp(0, k - 1).unsqueeze(-1)).squeeze(-1)
+    lp = picked - torch.logsumexp(logits_b, dim=-1)
+    return torch.where((vi_b >= 0) & (vi_b < k), lp, -torch.inf)
+
+
+def _categorical_sample(gen, logits, **kw):
+    """An int64 draw from ``softmax(logits)`` by the Gumbel-max trick, as
+    ``jax.random.categorical`` draws."""
+    (logits,) = _tensors(logits, device=gen.device)
+    shape = _bshape(_shape(kw), tuple(logits.shape[:-1])) + tuple(logits.shape[-1:])
+    u = torch.rand(shape, generator=gen, device=gen.device)
+    tiny = torch.finfo(u.dtype).tiny
+    gumbel = -torch.log(-torch.log(u.clamp_min(tiny)))
+    return torch.argmax(logits + gumbel, dim=-1)
+
+
 normal = exact_density(_normal_sample, _normal_logpdf, "normal")
 
 log_normal = exact_density(
@@ -158,4 +185,6 @@ beta = exact_density(_beta_sample, _beta_logpdf, "beta")
 
 flip = exact_density(_flip_sample, _flip_logpdf, "flip")
 
-__all__ = ["beta", "flip", "log_normal", "mv_normal", "mv_normal_diag", "normal"]
+categorical = exact_density(_categorical_sample, _categorical_logpmf, "categorical")
+
+__all__ = ["beta", "categorical", "flip", "log_normal", "mv_normal", "mv_normal_diag", "normal"]

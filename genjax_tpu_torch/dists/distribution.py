@@ -5,8 +5,10 @@ distribution (``simulate``, ``assess``, ``generate``, ``project`` and the
 ``Update`` and ``Regenerate`` edits, under a full or absent constraint and a
 concrete selection), ``ExactDensity``, the keyword-argument adaptor and the
 ``exact_density`` factory. Draws come from the caller's ``torch.Generator``
-on its device. Masked constraints and selections whose flags are tensors
-wait for the combinators.
+on its device. A constraint ``Mask``-wrapped under a tensor flag, and a
+selection whose ``check()`` is a tensor, are served lane by lane as the
+reference's ``lax.cond`` is under ``vmap``: both sides are computed and
+``torch.where`` selects.
 """
 
 from __future__ import annotations
@@ -29,15 +31,18 @@ from ..generative.concepts import (
     Weight,
 )
 from ..generative.gfi import GenerativeFunction
-from ..generative.mask import Mask, concrete_false, concrete_true
+from ..core.staging import FlagOp
+from ..generative.mask import Mask
 from ..generative.selection import Selection
 from ..generative.trace import Trace, tensor_leaves
 
 
-def _with_combinators(what: str):
-    return NotImplementedError(
-        f"{what} comes with the combinators of the port (ROADMAP queue 1, item 7)"
-    )
+def _select_value(flag, new, old):
+    """``new`` where ``flag`` holds, else ``old``, in a dtype both fit (an
+    integer observation may constrain a boolean draw)."""
+    new, old = torch.as_tensor(new), torch.as_tensor(old)
+    dtype = torch.promote_types(new.dtype, old.dtype)
+    return FlagOp.where(flag, new.to(dtype), old.to(dtype))
 
 
 @Pytree.dataclass
@@ -106,17 +111,19 @@ class Distribution(GenerativeFunction):
             tr = self.simulate(gen, args)
             return tr, torch.zeros((), device=gen.device)
         if isinstance(v, Mask):
-            raise _with_combinators("generate under a masked constraint")
+            # the constrained lanes score the constraint, the others draw
+            _score, fresh = self.random_weighted(gen, *args)
+            value = _select_value(v.flag, v.value, fresh)
+            score = self.estimate_logpdf(gen, value, *args)
+            return DistributionTrace(self, args, value, score), FlagOp.where(
+                v.flag, score, torch.zeros_like(score)
+            )
         w = self.estimate_logpdf(gen, v, *args)
         return DistributionTrace(self, args, v, w), w
 
     def project(self, gen: torch.Generator | None, trace: Trace, selection: Selection) -> Weight:
-        check = selection.check()
-        if concrete_true(check):
-            return trace.get_score()
-        if concrete_false(check):
-            return torch.zeros_like(trace.get_score())
-        raise _with_combinators("project under a selection whose flag is a tensor")
+        score = trace.get_score()
+        return FlagOp.where(selection.check(), score, torch.zeros_like(score))
 
     # ----- edits -----
 
@@ -141,7 +148,14 @@ class Distribution(GenerativeFunction):
             new_tr = DistributionTrace(self, primals, old_v, fwd)
             return new_tr, fwd - trace.get_score(), Diff.no_change(old_v), Update(ChoiceMap.empty())
         if isinstance(v, Mask):
-            raise _with_combinators("an Update under a masked constraint")
+            new_v = _select_value(v.flag, v.value, old_choices.get_value())
+            fwd = self.estimate_logpdf(gen, new_v, *primals)
+            return (
+                DistributionTrace(self, primals, new_v, fwd),
+                fwd - trace.get_score(),
+                Diff.unknown_change(new_v),
+                Update(old_choices.mask(v.flag)),
+            )
         fwd = self.estimate_logpdf(gen, v, *primals)
         new_tr = DistributionTrace(self, primals, v, fwd)
         return new_tr, fwd - trace.get_score(), Diff.unknown_change(new_tr.value), Update(old_choices)
@@ -149,7 +163,7 @@ class Distribution(GenerativeFunction):
     def _edit_regenerate(self, gen, trace, selection: Selection, argdiffs):
         check = selection.check()
         primals = Diff.tree_primal(argdiffs)
-        if concrete_true(check):
+        if FlagOp.concrete_true(check):
             score, new_v = self.random_weighted(gen, *primals)
             new_tr = DistributionTrace(self, primals, new_v, score)
             return (
@@ -158,7 +172,7 @@ class Distribution(GenerativeFunction):
                 Diff.unknown_change(new_v),
                 Update(ValueChm(trace.get_retval())),
             )
-        if concrete_false(check):
+        if FlagOp.concrete_false(check):
             if Diff.static_check_no_change(argdiffs):
                 return (
                     trace,
@@ -174,7 +188,17 @@ class Distribution(GenerativeFunction):
                 Diff.no_change(trace.get_retval()),
                 Update(ChoiceMap.empty()),
             )
-        raise _with_combinators("Regenerate under a selection whose flag is a tensor")
+        # a tensor flag: the selected lanes draw afresh, the others keep
+        old_v = trace.get_choices().get_value()
+        _score, fresh = self.random_weighted(gen, *primals)
+        new_v = _select_value(check, fresh, old_v)
+        score = self.estimate_logpdf(gen, new_v, *primals)
+        return (
+            DistributionTrace(self, primals, new_v, score),
+            score - trace.get_score(),
+            Diff.unknown_change(new_v),
+            Update(ValueChm(old_v).mask(check)),
+        )
 
     def handle_kwargs(self) -> GenerativeFunction:
         return KwargsDistribution(self)

@@ -6,11 +6,13 @@ from .concepts import (
     DiffAnnotate,
     EditRequest,
     EmptyRequest,
+    IndexRequest,
     NotSupportedEditRequest,
     PrimitiveEditRequest,
     Regenerate,
     Score,
     Update,
+    VectorRequest,
     Weight,
 )
 from .gfi import GenerativeFunction, GenerativeFunctionClosure
@@ -28,6 +30,7 @@ __all__ = [
     "EmptyRequest",
     "GenerativeFunction",
     "GenerativeFunctionClosure",
+    "IndexRequest",
     "Mask",
     "NotSupportedEditRequest",
     "PrimitiveEditRequest",
@@ -37,5 +40,6 @@ __all__ = [
     "Selection",
     "Trace",
     "Update",
+    "VectorRequest",
     "Weight",
 ]

@@ -2,9 +2,8 @@
 
 Counterpart of ``genjax_tpu/generative/concepts.py``: the value aliases
 (``Weight``, ``Score``, ``Arguments``), ``EditRequest`` and its primitive
-requests ``Update``, ``Regenerate`` and ``EmptyRequest``, ``DiffAnnotate``,
-and ``dispatch_edit``. ``IndexRequest`` and ``VectorRequest`` wait for the
-combinators.
+requests ``Update``, ``Regenerate``, ``IndexRequest`` and ``VectorRequest``,
+``EmptyRequest``, ``DiffAnnotate``, and ``dispatch_edit``.
 
 Weights follow SMCP3 semantics: for an edit moving ``(x, args)`` to
 ``(x', args')`` the returned weight is
@@ -41,6 +40,7 @@ __all__ = [
     "DiffAnnotate",
     "EditRequest",
     "EmptyRequest",
+    "IndexRequest",
     "NotSupportedEditRequest",
     "PrimitiveEditRequest",
     "Regenerate",
@@ -48,6 +48,7 @@ __all__ = [
     "Retval",
     "Score",
     "Update",
+    "VectorRequest",
     "Weight",
 ]
 
@@ -210,6 +211,43 @@ class Regenerate(PrimitiveEditRequest):
     """Resample the selected addresses from their priors."""
 
     selection: Any  # Selection
+
+
+@Pytree.dataclass(init=False)
+class IndexRequest(PrimitiveEditRequest):
+    """Apply a sub-request at one index of a ``Scan`` or ``Vmap`` trace: the
+    edit re-runs the kernel O(1) times, whatever the length. The index is a
+    Python int or an int tensor (which may differ by lane under
+    ``torch.func.vmap``); a Python int rides in the tree's context."""
+
+    request: EditRequest
+    dyn_index: Any  # None | int tensor
+    static_index: Any = Pytree.static(default=None)  # None | int
+
+    def __init__(self, index, request: EditRequest):
+        concrete = isinstance(index, int) and not isinstance(index, bool)
+        object.__setattr__(self, "request", request)
+        object.__setattr__(self, "dyn_index", None if concrete else index)
+        object.__setattr__(self, "static_index", index if concrete else None)
+
+    @property
+    def index(self):
+        return self.static_index if self.static_index is not None else self.dyn_index
+
+
+@Pytree.dataclass
+class VectorRequest(PrimitiveEditRequest):
+    """Per-lane (vmap) or per-step (scan) edit requests: one request pytree
+    whose tensor leaves carry the lane or step axis in front, slice ``t``
+    being the request for lane or step ``t``. A scan whose steps' backward
+    requests differ in structure returns them as a tuple, one a step."""
+
+    request: Any  # EditRequest | tuple[EditRequest, ...]
+
+    def at(self, t: int) -> EditRequest:
+        if isinstance(self.request, tuple):
+            return self.request[t]
+        return pytree.tree_map(lambda v: v[t], self.request)
 
 
 @Pytree.dataclass

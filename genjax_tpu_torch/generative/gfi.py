@@ -5,13 +5,16 @@ Counterpart of ``genjax_tpu/generative/gfi.py``: abstract ``simulate``,
 derived ``update``, ``importance`` and ``propose``, and the closure that
 ``gen_fn(*args)`` returns. Randomness comes from an explicit
 ``torch.Generator`` in place of a JAX key: draws are made on the generator's
-device. The postfix combinators wait for the combinator slice.
+device. The postfix combinators (``vmap``, ``scan``, ``switch``, ``mask``,
+``dimap`` and the rest) build the classes of ``combinators/``, a layer above
+this one: that package fills this module's constructor table when it is
+imported (``genjax_tpu_torch`` imports it), so no import points up.
 """
 
 from __future__ import annotations
 
 import abc
-from typing import Any
+from typing import Any, Callable
 
 import torch
 import torch.utils._pytree as pytree
@@ -23,6 +26,33 @@ from .choice_map import ChoiceMap
 from .concepts import Arguments, EditRequest, Retdiff, Score, Update, Weight
 from .selection import Selection
 from .trace import Trace, trace_device
+
+
+_COMBINATORS: dict[str, Callable] = {}
+
+
+def register_combinators(**constructors: Callable) -> None:
+    """Fill the constructor table of the postfix combinator methods
+    (``combinators/__init__.py`` calls this)."""
+    _COMBINATORS.update(constructors)
+
+
+def _combinator(name: str) -> Callable:
+    try:
+        return _COMBINATORS[name]
+    except KeyError:
+        raise RuntimeError(
+            f"GenerativeFunction.{name}: the combinators are not loaded; "
+            "import genjax_tpu_torch.combinators (importing genjax_tpu_torch does)"
+        ) from None
+
+
+def _identity_args(*args):
+    return args
+
+
+def _identity_post(_args, retval):
+    return retval
 
 
 class GenerativeFunction(Pytree):
@@ -84,6 +114,57 @@ class GenerativeFunction(Pytree):
         evaluation of shapes)."""
         tr = self.simulate(torch.Generator(device=trace_device(args) or "cpu").manual_seed(0), args)
         return pytree.tree_map(lambda v: torch.zeros_like(v) if isinstance(v, torch.Tensor) else v, tr)
+
+    # ----- postfix combinators -----
+
+    def vmap(self, /, *, in_axes: Any = 0, axis_size: int | None = None):
+        return _combinator("vmap")(self, in_axes=in_axes, axis_size=axis_size)
+
+    def repeat(self, /, *, n: int):
+        return _combinator("repeat")(n=n)(self)
+
+    def scan(self, /, *, n: int | None = None):
+        return _combinator("scan")(n=n)(self)
+
+    def accumulate(self):
+        return _combinator("accumulate")()(self)
+
+    def reduce(self):
+        return _combinator("reduce")()(self)
+
+    def iterate(self, /, *, n: int):
+        return _combinator("iterate")(n=n)(self)
+
+    def iterate_final(self, /, *, n: int):
+        return _combinator("iterate_final")(n=n)(self)
+
+    def masked_iterate(self):
+        return _combinator("masked_iterate")()(self)
+
+    def masked_iterate_final(self):
+        return _combinator("masked_iterate_final")()(self)
+
+    def mask(self):
+        return _combinator("mask")(self)
+
+    def or_else(self, gen_fn: "GenerativeFunction"):
+        return _combinator("or_else")(self, gen_fn)
+
+    def switch(self, *branches: "GenerativeFunction"):
+        return _combinator("switch")(self, *branches)
+
+    def mix(self, *fns: "GenerativeFunction"):
+        return _combinator("mix")(self, *fns)
+
+    def dimap(self, /, *, pre: Callable = _identity_args, post: Callable = _identity_post,
+              info: str | None = None):
+        return _combinator("dimap")(pre=pre, post=post, info=info)(self)
+
+    def map(self, f: Callable, *, info: str | None = None):
+        return _combinator("map")(f, info=info)(self)
+
+    def contramap(self, f: Callable, *, info: str | None = None):
+        return _combinator("contramap")(f, info=info)(self)
 
     # ----- call/closure syntax -----
 

@@ -3,7 +3,8 @@ type.
 
 Counterpart of ``genjax_tpu/generative/mask.py``. A flag is a Python bool
 (concrete) or a boolean tensor whose shape is a prefix of every leaf's
-shape, so a batch of particles can carry per-particle validity.
+shape, so a batch of particles can carry per-particle validity. The flag
+algebra is ``core.staging.FlagOp``.
 """
 
 from __future__ import annotations
@@ -14,52 +15,11 @@ import torch
 import torch.utils._pytree as pytree
 
 from ..core.pytree import Pytree
-
-Flag = Any  # bool | torch.Tensor of dtype bool
-
-
-def is_concrete(flag: Flag) -> bool:
-    return isinstance(flag, bool)
-
-
-def concrete_true(flag: Flag) -> bool:
-    return flag is True
-
-
-def concrete_false(flag: Flag) -> bool:
-    return flag is False
-
-
-def flag_and(f1: Flag, f2: Flag) -> Flag:
-    if is_concrete(f1) and is_concrete(f2):
-        return f1 and f2
-    if concrete_false(f1) or concrete_false(f2):
-        return False
-    if concrete_true(f1):
-        return f2
-    if concrete_true(f2):
-        return f1
-    return torch.logical_and(f1, f2)
-
-
-def flag_or(f1: Flag, f2: Flag) -> Flag:
-    if is_concrete(f1) and is_concrete(f2):
-        return f1 or f2
-    if concrete_true(f1) or concrete_true(f2):
-        return True
-    if concrete_false(f1):
-        return f2
-    if concrete_false(f2):
-        return f1
-    return torch.logical_or(f1, f2)
-
-
-def flag_not(f: Flag) -> Flag:
-    return (not f) if is_concrete(f) else torch.logical_not(f)
+from ..core.staging import Flag, FlagOp
 
 
 def _check_flag_prefix(value: Any, flag: Flag) -> None:
-    if is_concrete(flag):
+    if FlagOp.is_concrete(flag) or not isinstance(flag, torch.Tensor):
         return
     fshape = tuple(flag.shape)
     if fshape == ():
@@ -73,28 +33,19 @@ def _check_flag_prefix(value: Any, flag: Flag) -> None:
             )
 
 
-def _where(flag: Flag, a: Any, b: Any) -> Any:
-    """Leafwise select: ``a`` where ``flag`` holds, else ``b``."""
-
-    def per_leaf(x, y):
-        x = torch.as_tensor(x)
-        f = torch.as_tensor(flag, device=x.device)
-        f = f.reshape(tuple(f.shape) + (1,) * (x.ndim - f.ndim))
-        return torch.where(f, x, torch.as_tensor(y, dtype=x.dtype, device=x.device))
-
-    return pytree.tree_map(per_leaf, a, b)
-
-
 @Pytree.dataclass(init=False)
 class Mask(Pytree):
     """A value plus a validity flag.
 
+    >>> import torch
     >>> import genjax_tpu_torch as g
     >>> m = g.Mask(1.5, True)
     >>> float(m.unmask()), bool(m.flag)
     (1.5, True)
     >>> float(g.Mask(2.5, False).unmask(default=0.0))   # invalid -> default
     0.0
+    >>> g.Mask(torch.tensor([1.0, 2.0]), torch.tensor([True, False])).unmask(default=0.0)
+    tensor([1., 0.])
     """
 
     value: Any
@@ -102,7 +53,7 @@ class Mask(Pytree):
 
     def __init__(self, value: Any, flag: Flag = True):
         if isinstance(value, Mask):
-            flag = flag_and(flag, value.flag)
+            flag = FlagOp.and_(flag, value.flag)
             value = value.value
         _check_flag_prefix(value, flag)
         object.__setattr__(self, "value", value)
@@ -113,39 +64,63 @@ class Mask(Pytree):
         """Collapse a concretely invalid Mask to None; unwrap a concretely
         valid one."""
         if isinstance(v, Mask):
-            if concrete_true(v.flag):
+            if FlagOp.concrete_true(v.flag):
                 return v.value
-            if concrete_false(v.flag):
+            if FlagOp.concrete_false(v.flag):
                 return None
         return v
 
     @staticmethod
     def maybe_mask(v: Any, flag: Flag):
         """``v`` under ``flag``: ``v`` itself where the flag is concretely
-        true, None where it is concretely false (or ``v`` is None), else a
-        ``Mask``."""
-        if v is None or concrete_false(flag):
+        true (an inner Mask keeps its own flag), None where it is concretely
+        false (or ``v`` is None), else a ``Mask`` whose flag ANDs with any
+        inner one."""
+        if v is None or FlagOp.concrete_false(flag):
             return None
-        if concrete_true(flag) and not isinstance(v, Mask):
+        if FlagOp.concrete_true(flag):
             return v
-        return Mask.maybe_none(Mask(v, flag))
+        return Mask(v, flag)
+
+    def primal_flag(self) -> Flag:
+        return self.flag
 
     def unmask(self, default: Any = None) -> Any:
         """The value; with ``default``, invalid lanes are replaced by it."""
         if default is None:
             return self.value
-        if is_concrete(self.flag):
-            return self.value if self.flag else default
-        return _where(self.flag, self.value, default)
+        return FlagOp.where(self.flag, self.value, default)
+
+    # ----- combination: index-select truth tables -----
 
     def __or__(self, other: "Mask") -> "Mask":
         # valid(self) ? self : other
         f1, f2 = self.flag, other.flag
-        if is_concrete(f1):
-            value = self.value if f1 else other.value
-        else:
-            value = _where(f1, self.value, other.value)
-        return Mask(value, flag_or(f1, f2))
+        value = _choose_value(_flag_to_idx2(f1, f2, "or"), self.value, other.value)
+        return Mask(value, FlagOp.or_(f1, f2))
+
+    def __xor__(self, other: "Mask") -> "Mask":
+        # valid only where exactly one side is
+        f1, f2 = self.flag, other.flag
+        value = _choose_value(_flag_to_idx2(f1, f2, "xor"), self.value, other.value)
+        return Mask(value, FlagOp.xor_(f1, f2))
 
     def __invert__(self) -> "Mask":
-        return Mask(self.value, flag_not(self.flag))
+        return Mask(self.value, FlagOp.not_(self.flag))
+
+
+def _flag_to_idx2(f1: Flag, f2: Flag, mode: str):
+    """Which value to take: 0 the first, 1 the second; an int for concrete
+    flags, else a tensor of the flags' shape."""
+    if FlagOp.is_concrete(f1) and FlagOp.is_concrete(f2):
+        return 0 if f1 else 1
+    a1, a2 = torch.as_tensor(f1), torch.as_tensor(f2)
+    if mode == "or":
+        return torch.where(a1, 0, 1)
+    return torch.where(a1 & ~a2, 0, torch.where(a2 & ~a1, 1, 0))
+
+
+def _choose_value(idx, v1, v2):
+    if isinstance(idx, int):
+        return (v1, v2)[idx]
+    return FlagOp.where(idx == 0, v1, v2)

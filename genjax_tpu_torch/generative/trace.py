@@ -23,7 +23,7 @@ import torch.utils._pytree as pytree
 
 from ..core.device import same_device as _same_device
 from ..core.diff import Diff
-from ..core.pytree import Pytree
+from ..core.pytree import Pytree, none_free
 from .concepts import Arguments, EditRequest, Retdiff, Score, Weight
 
 
@@ -47,7 +47,8 @@ def _tensor_leaf(x: Any, device) -> Any:
 
 def tensor_leaves(tree: Any, device=None) -> Any:
     """``tree`` with its Python numbers and numpy arrays made tensors on
-    ``device`` (floats become float32), and every other leaf as it is.
+    ``device`` (floats become float32), its tuples' ``None`` entries taken
+    out of the leaves (``none_free``), and every other leaf as it is.
     ``torch.func.vmap`` takes and returns tensor leaves only, and the MH
     accept selects leaf by leaf between an old trace and a new one, so traces
     record tensors. ``device`` may be a function that finds it, called only
@@ -64,7 +65,7 @@ def tensor_leaves(tree: Any, device=None) -> Any:
         return tree
     if type(tree) is tuple and all(isinstance(x, (torch.Tensor, bool, int, float)) for x in tree):
         return tuple(one(x) for x in tree)
-    return pytree.tree_map(one, tree)
+    return pytree.tree_map(one, none_free(tree))
 
 
 def trace_device(tree: Any) -> torch.device | None:

@@ -16,10 +16,21 @@ import torch
 from .generative.choice_map import ChoiceMap
 
 
+def _component(c):
+    # ``...`` stands for every index of a lane or time axis, as ``:`` does
+    return slice(None) if c is Ellipsis else c
+
+
 def choice_map_from_numpy(entries: Mapping[tuple, np.ndarray]) -> ChoiceMap:
-    """``{address_tuple: array}`` -> ChoiceMap of CPU tensors."""
+    """``{address_tuple: array}`` -> ChoiceMap of CPU tensors. An address
+    component ``...`` or ``slice(None)`` takes the array's leading axis as
+    a lane or time axis (the layout of a ``vmap`` or ``scan`` trace's
+    choices): ``{(..., "z"): zs}`` is ``C[:, "z"].set(zs)``, so a JAX
+    ``ScanTrace``'s choices flattened to numpy cross as they are."""
     return ChoiceMap.from_mapping(
-        (addr, torch.from_numpy(np.array(v))) for addr, v in entries.items()
+        (tuple(_component(c) for c in (addr if isinstance(addr, tuple) else (addr,))),
+         torch.from_numpy(np.array(v)))
+        for addr, v in entries.items()
     )
 
 

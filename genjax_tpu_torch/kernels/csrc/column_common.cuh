@@ -5,6 +5,10 @@
 // - K2, the counter stream: the bit-exact port of the reference's in-kernel
 //   software PRNG (genjax_tpu/kernels/hmc.py: _sw_rand_bits_factory,
 //   _uniform_01, _normal); all three kernels use it;
+// - K2, the Philox stream that takes the place of the reference's hardware
+//   bits (_hw_rand_bits): K1, K4 and k2_stream.cu draw through
+//   philox_normals4 and philox_uniform (K3 keeps its own Box-Muller, whose
+//   angle is shifted into [-pi, pi] for __sincosf);
 // - the device bodies: a column log-density and its gradient, written by hand
 //   (CUDA has no autodiff) and chosen by template parameters (K1, K4): the
 //   body and its shape (the flagship's (n_obs, d_w) = (16, 8) compiled as its
@@ -24,6 +28,7 @@
 
 #include <cstdint>
 #include <cuda_runtime.h>
+#include <curand_kernel.h>
 
 namespace {
 
@@ -66,6 +71,24 @@ __device__ __forceinline__ float counter_normal(uint32_t base, uint32_t salt,
   const float u1 = uniform_from_bits(counter_bits(base, salt, row, col));
   const float u2 = uniform_from_bits(counter_bits(base, salt + 1u, row, col));
   return sqrtf(-2.0f * logf(u1)) * cosf(kTwoPi * u2);
+}
+
+// Philox4x32-10 from curand's header, keyed by the caller (seed, chain) and
+// counted by the caller's (step or salt, draw, kind): four standard normals
+// by Box-Muller (both branches of two pairs) from one call.
+__device__ __forceinline__ float4 philox_normals4(uint4 counter, uint2 key) {
+  const uint4 b = curand_Philox4x32_10(counter, key);
+  float s0, c0, s1, c1;
+  sincosf(kTwoPi * uniform_from_bits(b.y), &s0, &c0);
+  sincosf(kTwoPi * uniform_from_bits(b.w), &s1, &c1);
+  const float r0 = sqrtf(-2.0f * logf(uniform_from_bits(b.x)));
+  const float r1 = sqrtf(-2.0f * logf(uniform_from_bits(b.z)));
+  return make_float4(r0 * c0, r0 * s0, r1 * c1, r1 * s1);
+}
+
+// One uniform in (0, 1) from a Philox4x32-10 call's first word.
+__device__ __forceinline__ float philox_uniform(uint4 counter, uint2 key) {
+  return uniform_from_bits(curand_Philox4x32_10(counter, key).x);
 }
 
 // --------------------------------------------------------------- bodies

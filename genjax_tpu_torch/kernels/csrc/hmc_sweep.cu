@@ -44,9 +44,8 @@
 #include <cstring>
 #include <type_traits>
 #include <cuda_runtime.h>
-#include <curand_kernel.h>
 
-#include "column_common.cuh"  // K2's counter stream, the device bodies
+#include "column_common.cuh"  // K2 (counter and Philox streams), the device bodies
 
 namespace {
 
@@ -125,18 +124,12 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
     } else {
 #pragma unroll
       for (int j = 0; j < D / 4; ++j) {
-        const uint4 b = curand_Philox4x32_10(
-            make_uint4(static_cast<uint32_t>(i), static_cast<uint32_t>(j), 0u, 0u),
-            philox_key);
-        float s0, c0, s1, c1;
-        sincosf(kTwoPi * uniform_from_bits(b.y), &s0, &c0);
-        sincosf(kTwoPi * uniform_from_bits(b.w), &s1, &c1);
-        const float r0 = sqrtf(-2.0f * logf(uniform_from_bits(b.x)));
-        const float r1 = sqrtf(-2.0f * logf(uniform_from_bits(b.z)));
-        p[4 * j + 0] = s_std[4 * j + 0] * r0 * c0;
-        p[4 * j + 1] = s_std[4 * j + 1] * r0 * s0;
-        p[4 * j + 2] = s_std[4 * j + 2] * r1 * c1;
-        p[4 * j + 3] = s_std[4 * j + 3] * r1 * s1;
+        const float4 z = philox_normals4(
+            make_uint4(static_cast<uint32_t>(i), static_cast<uint32_t>(j), 0u, 0u), philox_key);
+        p[4 * j + 0] = s_std[4 * j + 0] * z.x;
+        p[4 * j + 1] = s_std[4 * j + 1] * z.y;
+        p[4 * j + 2] = s_std[4 * j + 2] * z.z;
+        p[4 * j + 3] = s_std[4 * j + 3] * z.w;
       }
     }
     float ke0 = 0.0f;
@@ -169,10 +162,8 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
     if (prm.rng == kCounter) {
       u = uniform_from_bits(counter_bits(base, salt + 2u, 0u, col));
     } else {
-      const uint4 b = curand_Philox4x32_10(
-          make_uint4(static_cast<uint32_t>(i), static_cast<uint32_t>(D / 4), 0u, 0u),
-          philox_key);
-      u = uniform_from_bits(b.x);
+      u = philox_uniform(
+          make_uint4(static_cast<uint32_t>(i), static_cast<uint32_t>(D / 4), 0u, 0u), philox_key);
     }
     // NaN or -inf log_alpha compares false: the proposal is rejected
     if (logf(u) < log_alpha) {

@@ -50,7 +50,8 @@
 //       by 4; a transition ends by moving it by 4. The launch block is the
 //       stream's chain block.
 //   1 = philox: Philox4x32-10 from curand's header, keyed by (seed, chain),
-//       counter (salt, draw, kind); held in law only.
+//       counter (salt, draw, kind), through column_common.cuh's
+//       philox_normals4 and philox_uniform; held in law only.
 //
 // No fast-math: NaN energies become +inf, logaddexp(-inf, -inf) is -inf, and
 // u < NaN must be false.
@@ -59,9 +60,8 @@
 #include <cstring>
 #include <type_traits>
 #include <cuda_runtime.h>
-#include <curand_kernel.h>
 
-#include "column_common.cuh"  // K2's counter stream, the device bodies
+#include "column_common.cuh"  // K2 (counter and Philox streams), the device bodies
 
 namespace {
 
@@ -104,7 +104,7 @@ struct Stream {
   // the reference's (1, block) uniform draw: row 0
   __device__ __forceinline__ float uniform(uint32_t salt) const {
     if (rng == kCounter) return uniform_from_bits(counter_bits(base, salt, 0u, col));
-    return uniform_from_bits(curand_Philox4x32_10(make_uint4(salt, 0u, 0u, 0u), key).x);
+    return philox_uniform(make_uint4(salt, 0u, 0u, 0u), key);
   }
 
   // the reference's (D, block) normal draw on salts salt and salt + 1
@@ -117,16 +117,11 @@ struct Stream {
     }
 #pragma unroll
     for (int j = 0; j < D / 4; ++j) {
-      const uint4 b = curand_Philox4x32_10(make_uint4(salt, static_cast<uint32_t>(j), 1u, 0u), key);
-      float s0, c0, s1, c1;
-      sincosf(kTwoPi * uniform_from_bits(b.y), &s0, &c0);
-      sincosf(kTwoPi * uniform_from_bits(b.w), &s1, &c1);
-      const float r0 = sqrtf(-2.0f * logf(uniform_from_bits(b.x)));
-      const float r1 = sqrtf(-2.0f * logf(uniform_from_bits(b.z)));
-      z[4 * j + 0] = r0 * c0;
-      z[4 * j + 1] = r0 * s0;
-      z[4 * j + 2] = r1 * c1;
-      z[4 * j + 3] = r1 * s1;
+      const float4 v = philox_normals4(make_uint4(salt, static_cast<uint32_t>(j), 1u, 0u), key);
+      z[4 * j + 0] = v.x;
+      z[4 * j + 1] = v.y;
+      z[4 * j + 2] = v.z;
+      z[4 * j + 3] = v.w;
     }
   }
 };

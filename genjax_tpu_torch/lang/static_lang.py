@@ -19,8 +19,9 @@ import functools
 from typing import Any, Callable
 
 import torch
+import torch.utils._pytree as pytree
 
-from ..core.diff import Diff
+from ..core.diff import Diff, NoChange, UnknownChange
 from ..core.handlers import AddressReuse, MissingAddress, TraceHandler, handle
 from ..core.pytree import Closure, Pytree
 from ..generative.choice_map import ChoiceMap
@@ -195,6 +196,9 @@ class EditHandler(StaticHandler):
         self.bwd: dict = {}
         # False once an upstream address may have changed a value
         self.clean = args_unchanged
+        self.args_unchanged = args_unchanged
+        # the ids of the retval leaves of the subtraces reused untouched
+        self.reused: set[int] = set()
 
     def subrequest(self, addr) -> EditRequest:
         raise NotImplementedError
@@ -217,6 +221,7 @@ class EditHandler(StaticHandler):
         if self.clean and trivial:
             # nothing upstream changed, nothing requested here: reuse
             self.bwd[addr] = EmptyRequest()
+            self.reused.update(id(v) for v in pytree.tree_leaves(sub_tr.get_retval()))
             return self.record(sub_tr)
         # dispatch through the CURRENT callee: the body ran again with the new
         # arguments, so ``gen_fn`` carries any closed-over dynamic values the
@@ -255,6 +260,21 @@ class RegenerateHandler(EditHandler):
 
     def subrequest(self, addr) -> EditRequest:
         return Regenerate(self.selection(*_path(addr)))
+
+
+class ReplayHandler(StaticHandler):
+    """Runs the body again on a trace's own subtraces without editing them:
+    each address returns its old subtrace's retval. The body, a deterministic
+    function of its arguments and those retvals, takes the trace's old path
+    and builds its old retval from the very objects the trace holds."""
+
+    def __init__(self, prev: StaticTrace):
+        super().__init__(None)
+        self.prev = prev
+
+    def handle_trace(self, addr, gen_fn, args):
+        self.visit(addr)
+        return self.prev.get_inner_trace(addr).get_retval()
 
 
 class StaticRequestHandler(EditHandler):
@@ -329,14 +349,40 @@ class StaticGenerativeFunction(GenerativeFunction):
             h = StaticRequestHandler(gen, trace, request, unchanged)
         retval = self.run(h, primals)
         new_tr = StaticTrace(self, primals, retval, tuple(h.subtraces), tuple(h.addresses))
-        # on the clean path throughout (args unchanged, every sub-request
-        # trivial), the deterministic body gave the old retval again
-        retdiff = (
-            Diff.tree_diff_no_change(new_tr.retval)
-            if h.clean
-            else Diff.tree_diff_unknown_change(new_tr.retval)
-        )
+        retdiff = self._retdiff(h, trace, primals, new_tr.retval)
         return new_tr, _on(gen.device, h.weight), retdiff, h.bwd_request()
+
+    def _retdiff(self, h: EditHandler, trace: StaticTrace, primals: tuple, retval) -> Any:
+        """The edited body's retdiff. On the clean path throughout (arguments
+        unchanged, every sub-request trivial) the deterministic body gave the
+        old retval again. Else, where the arguments are unchanged and the new
+        retval holds a reused subtrace's value, the body is replayed on the
+        old trace (``ReplayHandler``): a leaf is unchanged where the old run
+        put the very same object at that position. The new run alone cannot
+        tell, since a body may route a reused value to where another one
+        stood (``a if c else b`` with ``c`` edited). Every other leaf is
+        marked changed."""
+        if h.clean:
+            return Diff.tree_diff_no_change(retval)
+        new_leaves, spec = pytree.tree_flatten(retval)
+        if not h.args_unchanged or not any(id(v) in h.reused for v in new_leaves):
+            return Diff.tree_diff_unknown_change(retval)
+        try:
+            replayed = self.run(ReplayHandler(trace), primals)
+        except MissingAddress:
+            return Diff.tree_diff_unknown_change(retval)
+        old_leaves, old_spec = pytree.tree_flatten(
+            tensor_leaves(replayed, functools.partial(trace_device, trace))
+        )
+        if old_spec != spec:
+            return Diff.tree_diff_unknown_change(retval)
+        return pytree.tree_unflatten(
+            [
+                None if v is None else Diff(v, NoChange if v is old else UnknownChange)
+                for v, old in zip(new_leaves, old_leaves)
+            ],
+            spec,
+        )
 
 
 def _assemble_update_bwd(bwd: dict) -> Update:

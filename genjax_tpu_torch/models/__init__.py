@@ -9,6 +9,7 @@ from .gp import (
     sq_exp_kernel,
 )
 from .regression import RegressionModel, hierarchical_regression, linear_regression
+from .ssm import linear_gaussian_ssm, stochastic_volatility
 
 __all__ = [
     "RegressionModel",
@@ -18,6 +19,8 @@ __all__ = [
     "gp_posterior",
     "gp_regression",
     "hierarchical_regression",
+    "linear_gaussian_ssm",
     "linear_regression",
     "sq_exp_kernel",
+    "stochastic_volatility",
 ]

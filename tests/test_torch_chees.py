@@ -22,19 +22,9 @@ from genjax_tpu.kernels.adaptation import _halton2 as ref_halton2
 from genjax_tpu_torch.core.device import chain_generator
 from genjax_tpu_torch.kernels import chees_hmc, column_chees
 from genjax_tpu_torch.kernels.adaptation import StepSizeAdaptState, _halton2
+from torch_threads import _one_thread  # noqa: F401
 
 KW = dict(rng_impl="threefry2x32")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """One intra-op thread: these tests run many small ops, which torch's
-    thread pool slows many times over when several test processes share the
-    cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _q0(seed, shape, scale):

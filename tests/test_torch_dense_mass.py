@@ -23,20 +23,10 @@ from genjax_tpu_torch.kernels.dense_mass import (
     warmup_column_dense,
     whiten_logdensity,
 )
+from torch_threads import _one_thread  # noqa: F401
 
 N_CHAINS = 2048
 RTOL = 1e-5
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """One intra-op thread: these tests run many small ops, which torch's
-    thread pool slows many times over when several test processes share the
-    cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _correlated_target(rho=0.9, scales=(1.0, 0.3, 0.1)):

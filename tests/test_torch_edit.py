@@ -101,16 +101,6 @@ def test_filter_is_lazy_and_filters_compose():
     assert chm.filter(True) is chm and chm.filter(False).static_is_empty()
 
 
-def test_tensor_flags_name_the_combinator_item():
-    chm = _grid_chm(g)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        chm.mask(torch.tensor(True))
-    tr = g.normal.simulate(gen_at(0), (0.0, 1.0))
-    masked = g.ChoiceMap.entry(g.Mask(torch.tensor(1.0), torch.tensor(True)))
-    with pytest.raises(NotImplementedError, match="item 7"):
-        tr.update(gen_at(1), masked)
-
-
 # ----------------------------------------------------------------------
 # Diff
 # ----------------------------------------------------------------------

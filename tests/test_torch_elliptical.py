@@ -27,6 +27,8 @@ import torch
 
 from genjax_tpu_torch.kernels import elliptical as E
 from genjax_tpu_torch.models import gp_posterior, sq_exp_kernel
+from torch_threads import _one_thread  # noqa: F401
+
 
 N_CHAINS = 1024
 

@@ -68,11 +68,6 @@ def test_choice_map_left_priority_and_empty():
     assert chm.get_submap("obs").static_addresses() == ("y", "z")
 
 
-def test_choice_map_integer_address_names_later_slice():
-    with pytest.raises(NotImplementedError, match="combinator slice"):
-        g.C["xs", 0].set(1.0)
-
-
 SELECTIONS = {
     "or": lambda m: m.S["x"] | m.S["y", "z"],
     "and": lambda m: (m.S["x"] | m.S["y"]) & m.S["y"],

@@ -27,6 +27,8 @@ from genjax_tpu.models import gp as jgp
 from genjax_tpu_torch.interop import choice_map_from_numpy
 from genjax_tpu_torch.kernels import ess_sweep_cols
 from genjax_tpu_torch.models import gp as tgp
+from torch_threads import _one_thread  # noqa: F401
+
 
 RTOL = 1e-5
 

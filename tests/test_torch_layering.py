@@ -21,9 +21,10 @@ LAYERS = {
     "generative": 2,
     "lang": 3,
     "dists": 3,
-    "models": 4,
-    "kernels": 5,
-    "inference": 6,
+    "combinators": 4,
+    "models": 5,
+    "kernels": 6,
+    "inference": 7,
     "<root>": 9,
     "interop": 9,
 }
@@ -102,7 +103,12 @@ def test_imports_without_jax():
         "genjax_tpu_torch.inference.diagnostics, genjax_tpu_torch.inference.adaptation, "
         "genjax_tpu_torch.kernels.chees, genjax_tpu_torch.kernels.pt, "
         "genjax_tpu_torch.kernels.dense_mass, genjax_tpu_torch.kernels.svgd, "
-        "genjax_tpu_torch.kernels.sgld; "
+        "genjax_tpu_torch.kernels.sgld, genjax_tpu_torch.core.staging, "
+        "genjax_tpu_torch.combinators, genjax_tpu_torch.combinators.vmap, "
+        "genjax_tpu_torch.combinators.scan, genjax_tpu_torch.combinators.switch, "
+        "genjax_tpu_torch.combinators.mask_comb, genjax_tpu_torch.combinators.dimap, "
+        "genjax_tpu_torch.combinators.repeat, genjax_tpu_torch.combinators.or_else, "
+        "genjax_tpu_torch.combinators.mixture, genjax_tpu_torch.models.ssm; "
         "print(sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'genjax_tpu' or m.startswith('genjax_tpu.')))"
     )
@@ -168,6 +174,23 @@ def test_column_samplers_sit_below_inference():
     for mod in (f"{PKG}.kernels.chees", f"{PKG}.kernels.pt", f"{PKG}.kernels.dense_mass"):
         assert mod in edges[f"{PKG}.inference.sample"], mod
     assert LAYERS["kernels"] < LAYERS["inference"]
+
+
+def test_combinators_sit_between_the_language_and_the_models():
+    """The combinators build on ``generative``, ``lang`` and ``dists`` and
+    nothing above; ``generative/gfi.py``'s postfix methods reach them only
+    through the constructor table that ``combinators/__init__.py`` fills."""
+    mods, edges = _graph()
+    for mod in ("vmap", "scan", "switch", "mask_comb", "dimap", "repeat", "or_else", "mixture"):
+        mod = f"{PKG}.combinators.{mod}"
+        assert mod in mods, mod
+        assert not [t for t in edges[mod] if _subpackage(t) not in ("core", "generative", "lang",
+                                                                   "dists", "combinators")], mod
+    assert f"{PKG}.lang.static_lang" in edges[f"{PKG}.combinators.mixture"]
+    assert f"{PKG}.generative.gfi" in edges[f"{PKG}.combinators"]
+    assert not [t for t in edges[f"{PKG}.generative.gfi"] if _subpackage(t) == "combinators"]
+    assert LAYERS["lang"] < LAYERS["combinators"] < LAYERS["models"]
+    assert LAYERS["dists"] < LAYERS["combinators"]
 
 
 def test_layer_direction():

@@ -18,6 +18,7 @@ from genjax_tpu_torch.inference import mcmc
 from genjax_tpu_torch.kernels import bodies, hmc
 from genjax_tpu_torch.kernels.model_interface import PAD_INV_MASS
 from genjax_tpu_torch.models import hierarchical_regression
+from torch_threads import _one_thread  # noqa: F401
 
 
 def gen_at(seed):

@@ -22,6 +22,8 @@ import pytest
 import torch
 
 from genjax_tpu_torch.kernels import bodies, nuts, nuts_pallas
+from torch_threads import _one_thread  # noqa: F401
+
 
 SCALES = np.geomspace(0.3, 3.0, 8).astype(np.float32)
 

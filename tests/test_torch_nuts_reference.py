@@ -25,6 +25,7 @@ from genjax_tpu.kernels import nuts as ref_nuts
 from genjax_tpu.models import hierarchical_regression as ref_hierarchical_regression
 from genjax_tpu_torch.kernels.nuts import nuts_transition
 from genjax_tpu_torch.models import hierarchical_regression
+from torch_threads import _one_thread  # noqa: F401
 
 
 def gen_at(seed):

@@ -23,6 +23,7 @@ from genjax_tpu_torch.kernels import hmc, nuts_pallas
 from genjax_tpu_torch.kernels.model_interface import PAD_INV_MASS, ColumnPacker
 from genjax_tpu_torch.kernels.nuts import nuts_sweep_cols, nuts_transition
 from genjax_tpu_torch.models import hierarchical_regression
+from torch_threads import _one_thread  # noqa: F401
 
 
 def gen_at(seed, device="cpu"):

@@ -19,19 +19,9 @@ import genjax_tpu_torch as g
 from genjax_tpu.kernels import geometric_ladder as ref_geometric_ladder
 from genjax_tpu.kernels import pt_hmc as ref_pt_hmc
 from genjax_tpu_torch.kernels import column_pt, geometric_ladder, pt_hmc
+from torch_threads import _one_thread  # noqa: F401
 
 KW = dict(rng_impl="threefry2x32")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """One intra-op thread: these tests run many small ops, which torch's
-    thread pool slows many times over when several test processes share the
-    cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def bimodal_ld(sep=3.0, scale=0.5):

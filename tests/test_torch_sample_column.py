@@ -27,19 +27,9 @@ from genjax_tpu.inference.sample import sample_posterior as ref_sample_posterior
 from genjax_tpu_torch.inference import sample
 from genjax_tpu_torch.inference.sample import sample_logdensity, sample_posterior
 from genjax_tpu_torch.kernels import dense_mass
+from torch_threads import _one_thread  # noqa: F401
 
 COLUMN = ["chees", "pt", "dense_hmc", "dense_nuts"]
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """One intra-op thread: these tests run many small ops, which torch's
-    thread pool slows many times over when several test processes share the
-    cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @g.gen

@@ -13,7 +13,6 @@ the reference test's tolerances stated beside each.
 import jax.numpy as jnp
 import jax.random as jr
 import numpy as np
-import pytest
 import torch
 from scipy.linalg import solve_discrete_lyapunov
 
@@ -24,22 +23,12 @@ from genjax_tpu_torch.kernels.sgld import (
     sghmc_sweep_cols,
     sgld_sweep_cols,
 )
+from torch_threads import _one_thread  # noqa: F401
 
 N_CHAINS = 4096
 RNG = np.random.RandomState(3)
 X = RNG.randn(64, 3).astype(np.float32)
 Y = RNG.randn(64).astype(np.float32)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """One intra-op thread: these tests run many small ops, which torch's
-    thread pool slows many times over when several test processes share the
-    cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _lp_t(q):

@@ -25,20 +25,10 @@ from genjax_tpu_torch.kernels.svgd import (
     rbf_kernel_and_grad,
     svgd,
 )
+from torch_threads import _one_thread  # noqa: F401
 
 # the module: the package's own ``svgd`` name is the function
 ref = importlib.import_module("genjax_tpu.kernels.svgd")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """One intra-op thread: these tests run many small ops, which torch's
-    thread pool slows many times over when several test processes share the
-    cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _particles(seed, d, n, scale=1.0):
