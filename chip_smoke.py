@@ -25,8 +25,10 @@ flagship, and ``run_chains_nuts``, which launches K4, against its twin;
 K2 alone (``csrc/k2_stream.cu``, the device functions of one K1 sweep
 making its normals and uniforms, written out or folded into one store a
 chain): the counter variant bit for bit against the torch port, the Philox
-variant against a torch port of Philox4x32-10 and in law, and its time
-against its bound and ``torch.randn``;
+variant against a torch port of Philox4x32-10 and in law (moments and
+Kolmogorov-Smirnov), its Box-Muller over all 2^23 of its uniforms against
+float64, the SASS of its hot loop, and its time beside the Philox variant
+from before K2's redesign, its bound and ``torch.randn``;
 the column samplers, which have no kernel in either package, at full width:
 ``sample_posterior`` with ``"chees"`` (split-R̂ under 1.05 at thin 8),
 ``"pt"`` (the flagship, and a bimodal toy's mode weights), ``"dense_hmc"``
@@ -158,14 +160,21 @@ SVGD_CHAOS_STEPS = 20  # reported, not gated: how far apart the two are by then
 
 # K2 alone (csrc/k2_stream.cu): the counter variant held bit for bit
 # against the torch port of the counter stream, and the Philox variant
-# against a torch port of Philox4x32-10 and the same Box-Muller (uniforms
-# bit for bit, normals to K2_PHILOX_TOL: a few float32 ulps of logf and
-# sincosf at |z| < 6), at this many chains and steps; the timed launches
-# make one flagship K1 sweep's numbers
+# against a torch port of Philox4x32-10 and the same Box-Muller in float64
+# (uniforms bit for bit, normals to K2_PHILOX_TOL: the SFU's sin, cos, lg2
+# and sqrt at |z| < 6), at this many chains and steps; the timed launches
+# make one flagship K1 sweep's numbers. The whole-domain check runs the
+# Philox stream's radius and angle over all 2^23 of its uniforms against
+# float64, the normals within K2_DOMAIN_TOL where u1 <= 1 - 2^-16 and
+# K2_DOMAIN_TOP_TOL above; one sweep's normals against the standard normal
+# by Kolmogorov-Smirnov, under K2_KS_FACTOR / sqrt(n) (5% level)
 K2_CHECK_CHAINS = 4096
 K2_CHECK_STEPS = 3
 K2_PHILOX_TOL = 1e-5
 K2_TIMED_LAUNCHES = 200
+K2_DOMAIN_TOL = 1e-5
+K2_DOMAIN_TOP_TOL = 1e-3
+K2_KS_FACTOR = 1.63
 
 # the combinators' card path: bench.py::bench_pf's shape (a linear-Gaussian
 # state-space model scanned over 100 steps, 131,072 particles, ys = 0)
@@ -197,15 +206,18 @@ HBM_BYTES_S = 3.35e12
 # INT32: 64 integer lanes an SM (16 a partition, the Hopper white paper) x
 # 132 SMs x the 1.98 GHz boost clock; NVIDIA's data sheet gives no INT32 rate
 INT32_OPS = 64 * 132 * 1.98e9
-# Philox4x32-10: ten rounds of two 32 x 32 -> 64-bit products (4 integer
-# operations), four XORs and the two key additions: 100 operations a call,
-# all on one INT32 pipe in the issue form, an upper estimate. On Hopper the
-# products (IMAD.WIDE, taken as two slots each) issue on the FMA pipe and
-# the XORs (two three-way LOP3s a round) and key additions on the ALU pipe,
-# 64 lanes an SM each and in parallel: a call needs 40 slots of either, and
-# the bound takes that
-PHILOX_INT_OPS = 10 * (4 + 4 + 2)
-PHILOX_PIPE_OPS = max(10 * 2 * 2, 10 * (2 + 2))
+# the SFU (MUFU: sin, cos, lg2, sqrt, rsqrt, ...): 16 results a clock an SM
+# (NVIDIA's arithmetic-instruction throughput table, compute capability 9.0)
+SFU_OPS = 16 * 132 * 1.98e9
+# Philox4x32-10, as the SASS of csrc/k2_stream.cu shows it (cuobjdump on
+# the H100 build): a round is two 32 x 32 -> 64-bit products (IMAD.WIDE.U32,
+# on the FMA pipe, taken as two slots each) and two three-input XORs (LOP3,
+# on the ALU pipe); the round keys are the same for every call of a thread
+# and leave the loop. 60 slots a call, all on one INT32 pipe in the issue
+# form, an upper estimate; the two pipes, 64 lanes an SM each, run in
+# parallel, so a call needs 40 slots of the busier, and the bound takes that
+PHILOX_INT_OPS = 10 * (2 * 2 + 2)
+PHILOX_PIPE_OPS = max(10 * 2 * 2, 10 * 2)
 
 
 class SmokeFailure(RuntimeError):
@@ -336,12 +348,12 @@ def cuda_ms(fn, reps: int) -> float:
 
 
 def ptxas_kernels(report: str):
-    """``(kernel, registers, spill stores, spill loads, static smem)`` for
-    each entry function in an ``nvcc -Xptxas -v`` report."""
+    """``(kernel, registers, spill stores, spill loads, static smem, stack
+    frame)`` for each entry function in an ``nvcc -Xptxas -v`` report."""
     out = []
     for chunk in report.split("Compiling entry function '")[1:]:
         mangled = chunk.split("'", 1)[0]
-        m = re.search(r"([a-z][a-z_]*_kernel)", mangled)
+        m = re.search(r"([a-z][a-z0-9_]*_kernel)", mangled)
         name = m.group(1) if m else mangled
         targs = re.search(r"_kernelI((?:L[ib]\d+E)+)E", mangled)
         if targs:
@@ -349,10 +361,11 @@ def ptxas_kernels(report: str):
         regs = re.search(r"Used (\d+) registers", chunk)
         spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", chunk)
         smem = re.search(r"(\d+) bytes smem", chunk)
+        stack = re.search(r"(\d+) bytes stack frame", chunk)
         out.append((
             name, int(regs.group(1)) if regs else -1,
             int(spills.group(1)) if spills else -1, int(spills.group(2)) if spills else -1,
-            int(smem.group(1)) if smem else 0,
+            int(smem.group(1)) if smem else 0, int(stack.group(1)) if stack else -1,
         ))
     return out
 
@@ -862,16 +875,24 @@ def gfi_path(device, smi: str, g, hmc, model, y, ld, q0) -> dict:
 
 def k2_line(device, smi: str):
     """K2's bound and library time: the random numbers one flagship K1 sweep
-    draws in its Philox stream (a Philox4x32-10 call gives four normals by
-    Box-Muller, and one more call a step gives the accept uniform), against
-    ``torch.randn`` and ``torch.rand`` of the same counts on a CUDA generator
-    (Philox4x32-10 too), which write them out."""
+    draws in its Philox stream, against ``torch.randn`` and ``torch.rand``
+    of the same counts on a CUDA generator (Philox4x32-10 too), which write
+    them out. The bound reads the work whatever implements it: Philox calls
+    as the words the numbers need over 4 (a normal or a uniform takes one
+    word), each of ``PHILOX_PIPE_OPS`` on the busier integer pipe; the
+    transform's least work, a log, a square root, a sine and a cosine a pair
+    of normals on the SFU; the numbers written out once. The largest line
+    bounds; the operations lines alone bound the numbers folded into one
+    store a chain."""
     normals, uniforms = N_CHAINS * 16 * N_STEPS, N_CHAINS * N_STEPS
-    calls = N_CHAINS * N_STEPS * (16 // 4 + 1)
+    calls = (normals + uniforms) / 4
     t_ops = calls * PHILOX_PIPE_OPS / INT32_OPS
     t_issue = calls * PHILOX_INT_OPS / INT32_OPS
+    t_sfu = normals / 2 * 4 / SFU_OPS
     t_bytes = 4 * (normals + uniforms) / HBM_BYTES_S
-    bound_ms, by = 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+    lines = {"bytes": t_bytes, "operations": max(t_ops, t_sfu)}
+    by = max(lines, key=lines.get)
+    bound_ms = 1e3 * lines[by]
     gen = torch.Generator(device=device).manual_seed(SEED)
 
     def draw():
@@ -880,15 +901,88 @@ def k2_line(device, smi: str):
 
     library_ms = cuda_ms(draw, 50)
     phase("K2", f"{smi}: the Philox stream of one flagship K1 sweep ({N_CHAINS} chains x 16 dims x "
-                f"{N_STEPS} steps = {normals} normals and {uniforms} accept uniforms, {calls} "
-                f"Philox4x32-10 calls of {PHILOX_INT_OPS} integer operations, {PHILOX_PIPE_OPS} on the "
-                f"busier of the FMA and ALU pipes): bound {bound_ms:.4f} ms ({by}; operations "
-                f"{1e3 * t_ops:.4f} ms at {INT32_OPS / 1e12:.2f} TOP/s a pipe, all {PHILOX_INT_OPS} on "
-                f"one pipe {1e3 * t_issue:.4f} ms, the numbers written out {1e3 * t_bytes:.4f} ms "
-                f"at {HBM_BYTES_S / 1e12:.2f} TB/s); torch.randn + torch.rand of the same counts on a "
-                f"CUDA generator {library_ms:.4f} ms by CUDA events (50 calls), at "
+                f"{N_STEPS} steps = {normals} normals and {uniforms} accept uniforms, {calls:.0f} "
+                f"Philox4x32-10 calls' words, each call {PHILOX_INT_OPS} integer slots, {PHILOX_PIPE_OPS} on "
+                f"the busier of the FMA and ALU pipes): bound {bound_ms:.4f} ms ({by}; Philox "
+                f"{1e3 * t_ops:.4f} ms at {INT32_OPS / 1e12:.2f} TOP/s a pipe, all {PHILOX_INT_OPS} on one "
+                f"pipe {1e3 * t_issue:.4f} ms; the transform's {2 * normals} SFU operations "
+                f"{1e3 * t_sfu:.4f} ms at {SFU_OPS / 1e12:.2f} TOP/s; the numbers written out "
+                f"{1e3 * t_bytes:.4f} ms at {HBM_BYTES_S / 1e12:.2f} TB/s); torch.randn + torch.rand of the "
+                f"same counts on a CUDA generator {library_ms:.4f} ms by CUDA events (50 calls), at "
                 f"{bound_ms / library_ms:.4f} of the bound")
-    return {"bound_ms": bound_ms, "bound_by": by, "library_ms": library_ms, "ops_bound_ms": 1e3 * t_ops}
+    return {"bound_ms": bound_ms, "bound_by": by, "library_ms": library_ms,
+            "ops_bound_ms": 1e3 * max(t_ops, t_sfu)}
+
+
+SASS_CLASSES = {
+    "sfu": ("MUFU",),
+    "convert": ("I2F", "F2I", "I2FP", "F2F"),
+    "int_fma_pipe": ("IMAD",),
+    "int_alu": ("IADD3", "LOP3", "SHF", "ISETP", "SEL", "LEA", "IABS", "IMNMX", "PRMT", "FLO", "POPC"),
+    "fp32": ("FFMA", "FADD", "FMUL", "FSEL", "FSETP", "FMNMX", "FCHK"),
+    "memory": ("LDG", "STG", "LDS", "STS", "LDL", "STL", "LDC", "ULDC"),
+}
+PHILOX_M0 = ("0xd2511f53", "-0x2daee0ad")  # Philox4x32's first multiplier, as SASS may print it
+
+
+def sass_loops(sass: str) -> dict:
+    """Instruction counts of each kernel in ``cuobjdump -sass`` text: the
+    whole function and its first loop (the instructions from the earliest
+    target of a backward branch to the first branch back to it, the hot
+    path; out-of-line slow paths after it are not counted), by opcode class
+    (``SASS_CLASSES``), and the loop's Philox rounds (products by the first
+    multiplier)."""
+    out = {}
+    for func in sass.split("Function : ")[1:]:
+        name = func.split(None, 1)[0]
+        instrs, labels, pending = [], {}, []
+        for line in func.splitlines():
+            lab = re.match(r"\s*(\.L_x_\d+):", line)
+            if lab:
+                pending.append(lab.group(1))
+                continue
+            m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
+            if not m:
+                continue
+            addr, text = int(m.group(1), 16), m.group(2)
+            for lab_name in pending:
+                labels[lab_name] = addr
+            pending = []
+            instrs.append((addr, text))
+        back = []
+        for addr, text in instrs:
+            t = re.search(r"BRA\s+(?:\S+\s+)?`\((\.L_x_\d+)\)", text) or re.search(r"BRA\s+(0x[0-9a-f]+)", text)
+            if t:
+                target = labels.get(t.group(1)) if t.group(1).startswith(".") else int(t.group(1), 16)
+                if target is not None and target <= addr:
+                    back.append((target, addr))
+        loop = []
+        if back:
+            head = min(t for t, _ in back)
+            latch = min(a for t, a in back if t == head)
+            loop = [text for addr, text in instrs if head <= addr <= latch]
+
+        def classes(texts):
+            ops = [re.sub(r"^@!?U?P\w+\s+", "", t).split()[0] for t in texts]
+            c = {k: sum(op.split(".")[0] in v for op in ops) for k, v in SASS_CLASSES.items()}
+            c["total"] = len(ops)
+            return c
+
+        out[name] = {"function": classes([t for _, t in instrs]), "loop": classes(loop),
+                     "loop_philox_rounds": sum(("IMAD.WIDE" in t or "IMAD.HI" in t)
+                                               and any(k in t for k in PHILOX_M0) for t in loop)}
+    return out
+
+
+def sass_of(lib) -> str:
+    """``cuobjdump -sass`` of a library built by ``_build.load``, with the
+    toolkit's cuobjdump beside its nvcc."""
+    from pathlib import Path
+
+    from genjax_tpu_torch.kernels import _build
+
+    tool = Path(_build._nvcc()).with_name("cuobjdump")
+    return subprocess.run([str(tool), "-sass", lib._name], capture_output=True, text=True, check=True).stdout
 
 
 def chain_means_z(a, b):
@@ -1414,32 +1508,162 @@ def philox4x32_10(c, k):
     return c0, c1, c2, c3
 
 
+def philox_u01(w):
+    """The Philox stream's uniform (``column_common.cuh::philox_u01``) of
+    uint32 words in int64 tensors: ``(2m + 1) 2^-24`` for ``m`` the low 23
+    bits, float32 (exact)."""
+    return (((w & 0x7FFFFF) * 2 + 1).double() * 2.0**-24).float()
+
+
+def box_muller_plain(words):
+    """The four normals ``philox_normals4`` makes of one call's words, in
+    float64 and rounded to float32 once: radii ``sqrt(-2 ln u)`` from words 0
+    and 2, angles ``2 pi u - pi`` from words 1 and 3. Stacked on a new axis
+    after the words' leading axes' first two (``(..., 4, n)`` for words
+    ``(..., n)``)."""
+    u = [philox_u01(w).double() for w in words]
+    r0, r1 = torch.sqrt(-2.0 * torch.log(u[0])), torch.sqrt(-2.0 * torch.log(u[2]))
+    a0, a1 = 2 * math.pi * u[1] - math.pi, 2 * math.pi * u[3] - math.pi
+    return torch.stack([r0 * torch.cos(a0), r0 * torch.sin(a0), r1 * torch.cos(a1), r1 * torch.sin(a1)],
+                       dim=-2).float()
+
+
+def philox_k1_counters(steps: int, D: int):
+    """The Philox counters K1 draws one chain's sweep at (``hmc_sweep.cu``):
+    ``(counter, word)`` for each number, ``word`` None where a call makes
+    four normals: the momenta at ``(step, j, 0, 0)``, ``j < D / 4``, and the
+    accept uniform of step ``i`` at word ``i % 4`` of ``(i // 4, 0, 2, 0)``
+    (``PhiloxUniforms``)."""
+    normals = [((i, j, 0, 0), None) for i in range(steps) for j in range(D // 4)]
+    uniforms = [((i // 4, 0, 2, 0), i % 4) for i in range(steps)]
+    return normals, uniforms
+
+
+def philox_k4_counters(n_steps: int, max_depth: int, D: int):
+    """The Philox counters K4 draws one chain's sweep at
+    (``nuts_sweep.cu``), for trees that double ``max_depth`` times with every
+    leaf integrated (the most draws a sweep makes): the salt starts at 1 and
+    moves by 4 a draw; r0 at ``(salt, j, 1, 0)``; a direction, a leaf and a
+    subtree's uniform at word ``m % 4`` of ``(m // 4, 0, 2, 0)``, ``m = salt
+    // 4``. ``(normals, uniforms)`` as in ``philox_k1_counters``."""
+    normals, uniforms = [], []
+    salt = 1
+
+    def uniform():
+        nonlocal salt
+        uniforms.append(((salt // 4 // 4, 0, 2, 0), salt // 4 % 4))
+        salt += 4
+
+    for _ in range(n_steps):
+        normals += [((salt, j, 1, 0), None) for j in range(D // 4)]
+        salt += 4
+        for j in range(max_depth):
+            uniform()  # the direction
+            for _ in range(2**j):
+                uniform()  # a leaf
+            uniform()  # the subtree's acceptance
+        salt += 4
+    return normals, uniforms
+
+
 def philox_k1_stream(seed: int, n: int, steps: int, D: int, device):
-    """The plain version of K1's Philox draws (``philox_normals4`` and
-    ``philox_uniform`` at counters ``(step, j, 0, 0)``, keyed by ``(seed,
-    chain)``): normals ``(steps, D, n)`` and uniforms ``(steps, n)``."""
-    shape = (steps, D // 4 + 1, n)
-    step = torch.arange(steps, device=device).view(-1, 1, 1).expand(shape)
-    draw = torch.arange(D // 4 + 1, device=device).view(1, -1, 1).expand(shape)
-    zero = torch.zeros(shape, dtype=torch.int64, device=device)
+    """The plain version of K1's Philox draws (``philox_normals4`` at
+    ``(step, j, 0, 0)``, the accept uniforms four steps a call at ``(step //
+    4, 0, 2, 0)``, keyed by ``(seed, chain)``; ``philox_k1_counters``):
+    normals ``(steps, D, n)`` and uniforms ``(steps, n)``."""
     key = (torch.full((1, 1, 1), seed & _U32, device=device), torch.arange(n, device=device).view(1, 1, -1))
-    u = [(b >> 8).float() * (1.0 / 16777216.0) + (0.5 / 16777216.0)
-         for b in philox4x32_10((step, draw, zero, zero), key)]
-    two_pi = 6.283185307179586
-    r0, r1 = torch.sqrt(-2.0 * torch.log(u[0][:, :-1])), torch.sqrt(-2.0 * torch.log(u[2][:, :-1]))
-    a0, a1 = two_pi * u[1][:, :-1], two_pi * u[3][:, :-1]
-    z = torch.stack([r0 * torch.cos(a0), r0 * torch.sin(a0), r1 * torch.cos(a1), r1 * torch.sin(a1)], dim=2)
-    return z.reshape(steps, D, n), u[0][:, -1]
+    shape = (steps, D // 4, n)
+    step = torch.arange(steps, device=device).view(-1, 1, 1).expand(shape)
+    draw = torch.arange(D // 4, device=device).view(1, -1, 1).expand(shape)
+    zero = torch.zeros(shape, dtype=torch.int64, device=device)
+    z = box_muller_plain(philox4x32_10((step, draw, zero, zero), key))
+    shape = ((steps + 3) // 4, 1, n)
+    group = torch.arange(shape[0], device=device).view(-1, 1, 1).expand(shape)
+    zero = torch.zeros(shape, dtype=torch.int64, device=device)
+    words = torch.cat(philox4x32_10((group, zero, zero + 2, zero), key), dim=1)  # (groups, 4, n)
+    return z.reshape(steps, D, n), philox_u01(words.reshape(-1, n)[:steps])
+
+
+def k2_domain(device, smi: str, lib) -> dict:
+    """The Philox stream's Box-Muller over its whole domain: ``k2_transform``
+    runs the kernels' own radius (on ``u1``) and angle (on ``u2``) at all
+    2^23 uniforms ``philox_u01`` gives, held against float64 Box-Muller of
+    the same uniforms. A normal ``r c`` of any pair errs by at most
+    ``|r - r64| (1 + e_trig) + r64 e_trig`` plus the product's rounding (half
+    an ulp, ``r 2^-24``), with ``e_trig`` the largest error of the cosine and
+    sine over all ``u2``: that bound is the largest absolute error of the
+    normals over all 2^46 pairs, gated by ``u1``'s region."""
+    import ctypes
+
+    P, I = ctypes.c_void_p, ctypes.c_int
+    lib.k2_transform.argtypes = [P, P, P, I, P]
+    lib.k2_transform.restype = I
+    count = 1 << 23
+    radius, cos_k, sin_k = (torch.empty(count, device=device) for _ in range(3))
+    err = lib.k2_transform(radius.data_ptr(), cos_k.data_ptr(), sin_k.data_ptr(), count,
+                           torch.cuda.current_stream(device).cuda_stream)
+    check(err == 0, f"k2_transform launch failed with CUDA error {err}")
+    torch.cuda.synchronize()
+    nonfinite = int((~torch.isfinite(radius)).sum() + (~torch.isfinite(cos_k)).sum()
+                    + (~torch.isfinite(sin_k)).sum())
+    u = (torch.arange(count, device=device, dtype=torch.float64) * 2 + 1) * 2.0**-24
+    r64 = torch.sqrt(-2.0 * torch.log(u))
+    angle = 2 * math.pi * u - math.pi
+    e_r = (radius.double() - r64).abs()
+    e_trig = float(torch.maximum((cos_k.double() - torch.cos(angle)).abs(),
+                                 (sin_k.double() - torch.sin(angle)).abs()).max())
+    bound = e_r * (1 + e_trig) + r64 * (e_trig + 2.0**-24)
+    top = u > 1 - 2.0**-16
+    low_max, top_max = float(bound[~top].max()), float(bound[top].max())
+    # the normals themselves on two pairings of u1 with u2, as the kernel
+    # multiplies them
+    direct = []
+    for shift in (0, 4_194_301):
+        gap = ((radius * torch.roll(cos_k, shift)).double() - r64 * torch.cos(torch.roll(angle, shift))).abs()
+        direct.append((float(gap[~top].max()), float(gap[top].max())))
+        del gap
+    phase("K2 domain", f"{smi}: the Philox stream's radius on all {count} values of u1 and angle on all "
+                       f"{count} of u2 (the 23-bit uniforms), against float64 Box-Muller: {nonfinite} "
+                       f"non-finite; radius max abs err {float(e_r[~top].max()):.3g} for u1 <= 1 - 2^-16, "
+                       f"{float(e_r[top].max()):.3g} above; cosine and sine max abs err {e_trig:.3g}; the "
+                       f"normals of every pair within {low_max:.3g} for u1 <= 1 - 2^-16 (limit "
+                       f"{K2_DOMAIN_TOL}) and {top_max:.3g} above (limit {K2_DOMAIN_TOP_TOL}); measured on "
+                       f"two pairings: {direct[0][0]:.3g} and {direct[1][0]:.3g} below, {direct[0][1]:.3g} "
+                       f"and {direct[1][1]:.3g} above")
+    check(nonfinite == 0, f"the Philox transform gave {nonfinite} non-finite values")
+    check(low_max <= K2_DOMAIN_TOL and top_max <= K2_DOMAIN_TOP_TOL,
+          f"the Philox normals err by up to {low_max:.3g} (u1 <= 1 - 2^-16) and {top_max:.3g} above")
+    return {"nonfinite": nonfinite, "max_abs_err": max(low_max, top_max), "max_abs_err_low": low_max,
+            "max_abs_err_top": top_max, "trig_max_abs_err": e_trig}
+
+
+def k2_sass(lib) -> dict:
+    """SASS instruction counts of K2 alone's folded kernels (the
+    generation's hot loop, which makes one step's numbers: five Philox calls
+    in the code, of which the redesign's accept uniform runs one step in
+    four) and of ``k2_transform_kernel``, from ``cuobjdump -sass``."""
+    counts = sass_loops(sass_of(lib))
+    out = {}
+    for mangled, c in counts.items():
+        m = re.search(r"k2_stream_kernelILi(\d)ELb1E", mangled)
+        if m:
+            out[{"0": "counter", "1": "philox", "2": "philox_before"}[m.group(1)]] = c
+        elif "k2_transform_kernel" in mangled:
+            out["transform"] = c
+    return out
 
 
 def k2_own(device, smi: str, hmc, lib, entry: dict) -> dict:
     """K2 alone (``csrc/k2_stream.cu``, the device functions K1 draws with):
     the counter variant bit for bit against the torch port of the counter
-    stream, the Philox variant against ``philox_k1_stream`` and in law, and
-    both variants' time making one flagship K1 sweep's normals and uniforms,
-    written out and folded into one store a chain, beside K2's bound and
-    ``torch.randn`` + ``torch.rand`` (``k2_line``). Returns ``entry`` with
-    K2's own numbers; ``launches`` counts the timed Philox run's launches."""
+    stream, the Philox variant against ``philox_k1_stream`` and in law
+    (moments, and Kolmogorov-Smirnov on one sweep's normals), the variant
+    before the redesign in law, the transform over its whole domain
+    (``k2_domain``), the SASS of the generation, and the three variants' time
+    making one flagship K1 sweep's normals and uniforms, written out and
+    folded into one store a chain, beside K2's bound and ``torch.randn`` +
+    ``torch.rand`` (``k2_line``). Returns ``entry`` with K2's own numbers;
+    ``launches`` counts the timed Philox run's launches."""
     import ctypes
 
     P, I = ctypes.c_void_p, ctypes.c_int
@@ -1473,7 +1697,9 @@ def k2_own(device, smi: str, hmc, lib, entry: dict) -> dict:
     check(same_u and same_n, f"K2's counter variant differs from the torch port: uniforms equal {same_u}, "
                              f"normals equal {same_n}, max abs err {counter_err:.3g}")
 
-    # the Philox variant against the torch port of Philox4x32-10
+    # the Philox variant against the torch port of Philox4x32-10, at more
+    # steps than a uniform call serves
+    steps = 4 * K2_CHECK_STEPS + 1
     normals, uniforms = launch(1, n, steps)
     ref_n, ref_u = philox_k1_stream(SEED, n, steps, D, device)
     philox_err = float((normals - ref_n).abs().max())
@@ -1482,33 +1708,55 @@ def k2_own(device, smi: str, hmc, lib, entry: dict) -> dict:
           f"K2's Philox variant differs from the torch port: uniforms equal {philox_u_same}, normals max abs "
           f"err {philox_err:.3g} (limit {K2_PHILOX_TOL})")
 
-    # the Philox variant at the flagship sweep's counts: moments in law
+    # the Philox variants at the flagship sweep's counts: moments in law,
+    # and the redesign's normals against the standard normal
     n, steps = N_CHAINS, N_STEPS
-    out = launch(1, n, steps)
-    normals, uniforms = out
-    z = normals.double()
-    k = z.numel()
-    z_mean, z_var = float(z.mean()), float(z.var())
-    u_mean, u_var = float(uniforms.double().mean()), float(uniforms.double().var())
-    lag = float((z[:, :, 1:] * z[:, :, :-1]).mean())  # neighbouring chains
-    pair = float((z[:, 0::4] * z[:, 1::4]).mean())  # one Box-Muller pair
-    check(abs(z_mean) < 4 / math.sqrt(k), f"K2 Philox normals' mean {z_mean}")
-    check(abs(z_var - 1) < 4 * math.sqrt(2 / k), f"K2 Philox normals' variance {z_var}")
-    check(abs(lag) < 4 / math.sqrt(k) and abs(pair) < 4 / math.sqrt(k / 4),
-          f"K2 Philox normals correlate: neighbouring chains {lag}, Box-Muller pair {pair}")
-    nu = uniforms.numel()
-    check(abs(u_mean - 0.5) < 4 * math.sqrt(1 / 12 / nu), f"K2 Philox uniforms' mean {u_mean}")
-    check(abs(u_var - 1 / 12) < 4 * math.sqrt(1 / 180 / nu), f"K2 Philox uniforms' variance {u_var}")
-    del z
+    laws = {}
+    for rng, name in ((2, "before the redesign"), (1, "redesigned")):
+        normals, uniforms = launch(rng, n, steps)
+        z = normals.double()
+        k = z.numel()
+        z_mean, z_var = float(z.mean()), float(z.var())
+        u_mean, u_var = float(uniforms.double().mean()), float(uniforms.double().var())
+        lag = float((z[:, :, 1:] * z[:, :, :-1]).mean())  # neighbouring chains
+        pair = float((z[:, 0::4] * z[:, 1::4]).mean())  # one Box-Muller pair
+        nu = uniforms.numel()
+        check(abs(z_mean) < 4 / math.sqrt(k), f"K2 Philox ({name}) normals' mean {z_mean}")
+        check(abs(z_var - 1) < 4 * math.sqrt(2 / k), f"K2 Philox ({name}) normals' variance {z_var}")
+        check(abs(lag) < 4 / math.sqrt(k) and abs(pair) < 4 / math.sqrt(k / 4),
+              f"K2 Philox ({name}) normals correlate: neighbouring chains {lag}, Box-Muller pair {pair}")
+        check(abs(u_mean - 0.5) < 4 * math.sqrt(1 / 12 / nu), f"K2 Philox ({name}) uniforms' mean {u_mean}")
+        check(abs(u_var - 1 / 12) < 4 * math.sqrt(1 / 180 / nu), f"K2 Philox ({name}) uniforms' variance {u_var}")
+        laws[name] = (z_mean, z_var, lag, pair, u_mean, u_var)
+        del z
+    out = normals, uniforms
+    zs = torch.sort(normals.flatten())[0].double()
+    cdf = 0.5 * torch.erfc(-zs / math.sqrt(2.0))
+    del zs
+    rank = torch.arange(1, k + 1, device=device, dtype=torch.float64)
+    ks = max(float((rank / k - cdf).max()), float((cdf - (rank - 1) / k).max()))
+    del cdf, rank
+    ks_limit = K2_KS_FACTOR / math.sqrt(k)
+    check(ks < ks_limit, f"K2 Philox normals' Kolmogorov-Smirnov statistic {ks:.4g} (limit {ks_limit:.4g})")
 
     # times at one flagship sweep's counts, the output reused: the numbers
-    # written out, and folded into one store a chain (the generation alone)
+    # written out, and folded into one store a chain (the generation
+    # alone); the redesign and the variant before it in turns
+    def timed(rng, fold):
+        return cuda_ms(lambda: launch(rng, n, steps, out, fold=fold), K2_TIMED_LAUNCHES)
+
     launched[0] = 0
-    philox_ms = cuda_ms(lambda: launch(1, n, steps, out), K2_TIMED_LAUNCHES)
+    t_new = [timed(1, 0)]
     launches = launched[0]
-    counter_ms = cuda_ms(lambda: launch(0, n, steps, out), K2_TIMED_LAUNCHES)
-    philox_fold_ms = cuda_ms(lambda: launch(1, n, steps, out, fold=1), K2_TIMED_LAUNCHES)
-    counter_fold_ms = cuda_ms(lambda: launch(0, n, steps, out, fold=1), K2_TIMED_LAUNCHES)
+    t_before = [timed(2, 0), timed(2, 0)]
+    t_new.append(timed(1, 0))
+    t_new_fold = [timed(1, 1)]
+    t_before_fold = [timed(2, 1), timed(2, 1)]
+    t_new_fold.append(timed(1, 1))
+    counter_ms = timed(0, 0)
+    counter_fold_ms = timed(0, 1)
+    philox_ms, before_ms = sum(t_new) / 2, sum(t_before) / 2
+    philox_fold_ms, before_fold_ms = sum(t_new_fold) / 2, sum(t_before_fold) / 2
     del out, normals, uniforms
     full_bits = hmc._counter_stream(SEED, n, BLOCK_N, device)
 
@@ -1524,28 +1772,52 @@ def k2_own(device, smi: str, hmc, lib, entry: dict) -> dict:
     ops_ms = entry.pop("ops_bound_ms")  # reported as the fold's bound
     bound_ms, library_ms = entry["bound_ms"], entry["library_ms"]
     phase("K2", f"{smi}: K2 alone (csrc/k2_stream.cu), one flagship K1 sweep's {steps * D * n} normals and "
-                f"{steps * n} uniforms written out: Philox {philox_ms:.4f} ms, counter stream "
-                f"{counter_ms:.4f} ms by CUDA events ({K2_TIMED_LAUNCHES} launches each, {launches} launches "
-                f"of k2_stream counted in the Philox run); bound {bound_ms:.4f} ms ({entry['bound_by']}), "
-                f"Philox at {bound_ms / philox_ms:.4f} of it; torch.randn + torch.rand {library_ms:.4f} ms = "
-                f"{library_ms / philox_ms:.3f} x K2's time; plain versions: the torch port of Philox4x32-10 "
+                f"{steps * n} uniforms written out: Philox {philox_ms:.4f} ms (windows {t_new[0]:.4f}, "
+                f"{t_new[1]:.4f}), before the redesign {before_ms:.4f} ms (windows {t_before[0]:.4f}, "
+                f"{t_before[1]:.4f}), counter stream {counter_ms:.4f} ms by CUDA events "
+                f"({K2_TIMED_LAUNCHES} launches a window, {launches} launches of k2_stream counted in the "
+                f"first Philox window); bound {bound_ms:.4f} ms ({entry['bound_by']}), Philox at "
+                f"{bound_ms / philox_ms:.4f} of it (before {bound_ms / before_ms:.4f}); torch.randn + "
+                f"torch.rand {library_ms:.4f} ms = {library_ms / philox_ms:.3f} x K2's time (before "
+                f"{library_ms / before_ms:.3f}); plain versions: the torch port of Philox4x32-10 "
                 f"{philox_plain_ms:.3f} ms, of the counter stream {counter_plain_ms:.3f} ms")
     phase("K2", f"{smi}: K2 alone, the same numbers folded into one store a chain (the generation without "
-                f"the {4 * steps * (D + 1) * n / 1e6:.1f} MB of stores): Philox {philox_fold_ms:.4f} ms, counter "
-                f"stream {counter_fold_ms:.4f} ms; Philox's operations bound {ops_ms:.4f} ms, at "
-                f"{ops_ms / philox_fold_ms:.4f} of it")
+                f"the {4 * steps * (D + 1) * n / 1e6:.1f} MB of stores): Philox {philox_fold_ms:.4f} ms "
+                f"(windows {t_new_fold[0]:.4f}, {t_new_fold[1]:.4f}), before the redesign "
+                f"{before_fold_ms:.4f} ms (windows {t_before_fold[0]:.4f}, {t_before_fold[1]:.4f}), counter "
+                f"stream {counter_fold_ms:.4f} ms; the operations bound {ops_ms:.4f} ms, Philox at "
+                f"{ops_ms / philox_fold_ms:.4f} of it (before {ops_ms / before_fold_ms:.4f})")
+    sass = k2_sass(lib)
+    for name in ("philox", "philox_before", "counter", "transform"):
+        c = sass.get(name)
+        if c is None:
+            phase("K2 SASS", f"{name}: not found in cuobjdump's output")
+            continue
+        lp, fn = c["loop"], c["function"]
+        per_call = "" if name in ("counter", "transform") else (
+            f", {lp['total'] / 5:.1f} a Philox call of the 5 in the loop's code "
+            f"({c['loop_philox_rounds']} Philox rounds identified by their first multiplier)")
+        phase("K2 SASS", f"{name}: the hot loop {lp['total']} instructions{per_call}: "
+                         + ", ".join(f"{k} {v}" for k, v in lp.items() if k != "total")
+                         + f"; the whole kernel {fn['total']} (" + ", ".join(
+                             f"{k} {v}" for k, v in fn.items() if k != "total") + ")")
     phase("K2", f"Philox variant against the torch port of Philox4x32-10 ({K2_CHECK_CHAINS} chains x "
-                f"{K2_CHECK_STEPS} steps): uniforms bit for bit, normals max abs err {philox_err:.3g} (limit "
-                f"{K2_PHILOX_TOL}); counter variant bit for bit equal to the torch port of the counter stream; "
-                f"Philox moments at the flagship counts: normals mean {z_mean:.3g}, variance {z_var:.6f}, "
-                f"neighbour correlation {lag:.3g}, pair correlation {pair:.3g}; uniforms mean {u_mean:.6f}, "
-                f"variance {u_var:.6f} (limits 4 SE)")
+                f"{4 * K2_CHECK_STEPS + 1} steps): uniforms bit for bit, normals max abs err {philox_err:.3g} "
+                f"(limit {K2_PHILOX_TOL}); counter variant bit for bit equal to the torch port of the counter "
+                f"stream; Philox moments at the flagship counts (limits 4 SE), "
+                + "; ".join(f"{name}: normals mean {m:.3g}, variance {v:.6f}, neighbour correlation {lg:.3g}, "
+                            f"pair correlation {pr:.3g}, uniforms mean {um:.6f}, variance {uv:.6f}"
+                            for name, (m, v, lg, pr, um, uv) in laws.items())
+                + f"; Kolmogorov-Smirnov statistic of the redesign's {k} normals {ks:.4g} (limit "
+                  f"{K2_KS_FACTOR} / sqrt(n) = {ks_limit:.4g})")
     return {**entry, "ms": philox_ms, "plain_ms": philox_plain_ms, "max_abs_err": philox_err,
             "launches": launches, "fold_ms": philox_fold_ms, "fold_bound_ms": ops_ms,
+            "before_ms": before_ms, "before_fold_ms": before_fold_ms, "ks": ks, "ks_limit": ks_limit,
             "counter_ms": counter_ms, "counter_fold_ms": counter_fold_ms, "counter_plain_ms": counter_plain_ms,
             "counter_max_abs_err": counter_err,
+            "sass_loop": {name: c["loop"]["total"] for name, c in sass.items()},
             "source": "genjax_tpu_torch/kernels/csrc/k2_stream.cu (column_common.cuh's philox_normals4 and "
-                      "philox_uniform, which K1 and K4 draw with)"}
+                      "PhiloxUniforms, which K1, K4 and K3 draw with)"}
 
 
 def _leaves_on(tree, device) -> bool:
@@ -1898,9 +2170,9 @@ def main() -> int:
                        f"{elliptical._lib().ess_gauss_smem_limit(0)} B, {geo['tiles']} tiles of chol "
                        f"(the wrapper's reckoning equals the kernel's)")
     for source in ("hmc_sweep", "nuts_sweep", "ess_gauss_sweep", "k2_stream"):
-        for name, regs, stores, loads, smem in ptxas_kernels(_build.ptxas_report(source)):
-            phase("build", f"{source}.cu {name}: {regs} registers, spill stores {stores} B, "
-                           f"spill loads {loads} B, static smem {smem} B")
+        for name, regs, stores, loads, smem, stack in ptxas_kernels(_build.ptxas_report(source)):
+            phase("build", f"{source}.cu {name}: {regs} registers, stack frame {stack} B, spill "
+                           f"stores {stores} B, spill loads {loads} B, static smem {smem} B")
 
     # ---- registers, spills and resident blocks an SM, from the CUDA runtime
     n_sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -1948,7 +2220,9 @@ def main() -> int:
     check(worst_rel < 1e-5, f"counter normals differ: max rel err {worst_rel:.3g}")
     phase("K2", f"counter bits and uniforms equal bit for bit over 5 draws; "
                 f"normals max rel err {worst_rel:.3g}")
-    k2_entry = k2_own(device, smi, hmc, _build.load("k2_stream"), k2_line(device, smi))
+    k2_lib = _build.load("k2_stream")
+    k2_entry = k2_own(device, smi, hmc, k2_lib, k2_line(device, smi))
+    k2_entry["domain"] = k2_domain(device, smi, k2_lib)
 
     # ---- K1 against its plain version on the counter stream
     model = hierarchical_regression(X)
@@ -2289,6 +2563,7 @@ def main() -> int:
     }, k3_entry]}), flush=True)
     check(all(math.isfinite(v) for v in (ms, plain_ms, flagship_err, k4_ms, nuts_plain_ms, k4_err,
                                          k2_entry["ms"], k2_entry["plain_ms"], k2_entry["fold_ms"],
+                                         k2_entry["before_ms"], k2_entry["before_fold_ms"],
                                          k3_entry["max_abs_err"], k3_entry["ms"], k3_entry["plain_ms"])),
           "non-finite result")
     print(json.dumps({"ok": True, "device": {

@@ -6,9 +6,9 @@
 //   software PRNG (genjax_tpu/kernels/hmc.py: _sw_rand_bits_factory,
 //   _uniform_01, _normal); all three kernels use it;
 // - K2, the Philox stream that takes the place of the reference's hardware
-//   bits (_hw_rand_bits): K1, K4 and k2_stream.cu draw through
-//   philox_normals4 and philox_uniform (K3 keeps its own Box-Muller, whose
-//   angle is shifted into [-pi, pi] for __sincosf);
+//   bits (_hw_rand_bits): K1, K4, K3 and k2_stream.cu draw through
+//   philox_normals4 and philox_u01 (K1's accept uniforms and K4's
+//   directions, leaves and subtree uniforms four a call, PhiloxUniforms);
 // - the device bodies: a column log-density and its gradient, written by hand
 //   (CUDA has no autodiff) and chosen by template parameters (K1, K4): the
 //   body and its shape (the flagship's (n_obs, d_w) = (16, 8) compiled as its
@@ -22,7 +22,9 @@
 // which leaves the FFMAs and 16 independent residual chains.
 //
 // No fast-math in any kernel that includes this: rejection relies on NaN and
-// -inf comparing false, and Box-Muller needs accurate logf/cosf.
+// -inf comparing false. The counter stream is the reference's bit for bit
+// and keeps the accurate logf/cosf; the Philox stream, held in law only,
+// takes its transform on the SFU through explicit intrinsics (below).
 
 #pragma once
 
@@ -33,6 +35,7 @@
 namespace {
 
 constexpr float kTwoPi = 6.283185307179586f;
+constexpr float kPi = 3.14159265358979f;
 constexpr float kLog2Pi = 1.8378770664093453f;
 constexpr uint32_t kBlockMix = 0x3504F333u;
 
@@ -73,23 +76,78 @@ __device__ __forceinline__ float counter_normal(uint32_t base, uint32_t salt,
   return sqrtf(-2.0f * logf(u1)) * cosf(kTwoPi * u2);
 }
 
+// ---------------------------------------------------- K2: the Philox stream
+//
 // Philox4x32-10 from curand's header, keyed by the caller (seed, chain) and
-// counted by the caller's (step or salt, draw, kind): four standard normals
-// by Box-Muller (both branches of two pairs) from one call.
+// counted by the caller's (step or salt, draw, kind, 0). What bounds it on
+// this card is issue slots: a call is about 45 integer instructions (a
+// round is two IMAD.WIDE and two LOP3), and a Box-Muller with the accurate
+// sincosf/logf/sqrtf would add about 240 more. So the transform runs on the
+// SFU (MUFU: sin, cos, lg2 and sqrt at 16 a clock an SM, beside the FP32
+// and integer pipes), uniforms take no int-to-float conversion (16 a clock
+// an SM as well), and callers use every word of a call.
+
+// sqrt.approx.f32: one MUFU operation, relative error about 2^-23.
+__device__ __forceinline__ float sqrt_approx(float x) {
+  float r;
+  asm("sqrt.approx.f32 %0, %1;" : "=f"(r) : "f"(x));
+  return r;
+}
+
+// A uniform in (0, 1) from the low 23 bits m of a Philox word: the exponent
+// of 1 OR'd in gives 1 + m 2^-23, and one exact subtraction (Sterbenz) of
+// 1 - 2^-24 gives (2m + 1) 2^-24, in [2^-24, 1 - 2^-24].
+__device__ __forceinline__ float philox_u01(uint32_t w) {
+  return __uint_as_float((w & 0x007FFFFFu) | 0x3F800000u) - (1.0f - 0x1p-24f);
+}
+
+// Box-Muller's radius sqrt(-2 ln u) on the SFU. Near u = 1, lg2.approx's
+// absolute error (about 1e-7) exceeds |ln u| (3e-8 at the top) and could
+// turn -2 ln u negative, so where t = 1 - u (exact) is under 2^-6 the series
+// -2 ln(1 - t) = 2t + t^2 + 2t^3/3 + t^4/2 takes its place (truncation under
+// 2^-24 / 5 of the value); both branches give r^2 > 0.
+__device__ __forceinline__ float bm_radius(float u) {
+  constexpr float kMinusTwoLn2 = -1.3862943611198906f;
+  const float t = 1.0f - u;
+  const float series = t * fmaf(t, fmaf(t, fmaf(t, 0.5f, 0.6666667f), 1.0f), 2.0f);
+  return sqrt_approx(t < 0x1p-6f ? series : kMinusTwoLn2 * __log2f(u));
+}
+
+// Box-Muller's angle 2 pi u - pi, in (-pi, pi) where __sincosf's absolute
+// error is 2^-21.41; the shift by pi flips both signs, the same in law.
+__device__ __forceinline__ void bm_angle(float u, float* s, float* c) {
+  __sincosf(fmaf(kTwoPi, u, -kPi), s, c);
+}
+
+// Four standard normals by Box-Muller (both branches of two pairs) from one
+// Philox4x32-10 call: radii from words x and z, angles from y and w.
 __device__ __forceinline__ float4 philox_normals4(uint4 counter, uint2 key) {
   const uint4 b = curand_Philox4x32_10(counter, key);
   float s0, c0, s1, c1;
-  sincosf(kTwoPi * uniform_from_bits(b.y), &s0, &c0);
-  sincosf(kTwoPi * uniform_from_bits(b.w), &s1, &c1);
-  const float r0 = sqrtf(-2.0f * logf(uniform_from_bits(b.x)));
-  const float r1 = sqrtf(-2.0f * logf(uniform_from_bits(b.z)));
+  bm_angle(philox_u01(b.y), &s0, &c0);
+  bm_angle(philox_u01(b.w), &s1, &c1);
+  const float r0 = bm_radius(philox_u01(b.x));
+  const float r1 = bm_radius(philox_u01(b.z));
   return make_float4(r0 * c0, r0 * s0, r1 * c1, r1 * s1);
 }
 
-// One uniform in (0, 1) from a Philox4x32-10 call's first word.
-__device__ __forceinline__ float philox_uniform(uint4 counter, uint2 key) {
-  return uniform_from_bits(curand_Philox4x32_10(counter, key).x);
-}
+// Uniforms four a Philox call: draw n takes word n % 4 of the call at
+// counter (n / 4, 0, 2, 0), made when the first draw of its four comes, so
+// draws n must come in increasing order (gaps allowed). The kind word 2
+// keeps these counters apart from the caller's normals.
+struct PhiloxUniforms {
+  uint4 words = make_uint4(0u, 0u, 0u, 0u);
+  uint32_t group = 0xFFFFFFFFu;
+
+  __device__ __forceinline__ float draw(uint32_t n, uint2 key) {
+    if ((n >> 2) != group) {
+      group = n >> 2;
+      words = curand_Philox4x32_10(make_uint4(group, 0u, 2u, 0u), key);
+    }
+    const uint32_t t = n & 3u;
+    return philox_u01(t == 0u ? words.x : t == 1u ? words.y : t == 2u ? words.z : words.w);
+  }
+};
 
 // --------------------------------------------------------------- bodies
 //

@@ -78,12 +78,14 @@
 //       z on s and s + 1 (row = dimension), the slice uniform on s + 4 and
 //       the angle on s + 5 (row 0), the shrink uniforms on s + 6 (row j).
 //   1 = philox: Philox4x32-10 from curand's header, keyed by (seed, chain),
-//       counter (s, index, kind); one call gives four normals of z or four
+//       counter (s, index, kind); one call gives four normals of z
+//       (column_common.cuh's philox_normals4, shared with K1 and K4) or four
 //       shrink uniforms; held in law only.
 //
-// No fast-math: sincosf and logf are the accurate versions (theta reaches
-// +-2 pi), and a NaN level compares false. The one intrinsic, __sincosf, is
-// on the Philox draws' Box-Muller angle, kept in [-pi, pi].
+// No fast-math: a NaN level compares false. The slice's own sincosf and logf
+// are the accurate versions (theta reaches +-2 pi) on either stream, and the
+// counter stream's Box-Muller keeps the accurate logf/cosf (bit-exact port);
+// only the Philox stream's Box-Muller runs on the SFU, through intrinsics.
 
 #include <cstdint>
 #include <cuda.h>  // CUtensorMap; the encoder comes from the runtime's driver entry point
@@ -94,7 +96,6 @@
 
 namespace {
 
-constexpr float kPi = 3.14159265358979f;
 constexpr int kNB = 64;          // chains a block
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
@@ -187,17 +188,11 @@ struct Stream {
       for (int t = 0; t < 4; ++t) z[t] = counter_normal(base, s, k + t, col);
       return;
     }
-    const uint4 b = curand_Philox4x32_10(make_uint4(s, k / 4u, 1u, 0u), key);
-    float s0, c0, s1, c1;
-    // the angle 2 pi u - pi in [-pi, pi], where __sincosf's error is 2^-21.4
-    __sincosf(fmaf(kTwoPi, uniform_from_bits(b.y), -kPi), &s0, &c0);
-    __sincosf(fmaf(kTwoPi, uniform_from_bits(b.w), -kPi), &s1, &c1);
-    const float r0 = sqrtf(-2.0f * logf(uniform_from_bits(b.x)));
-    const float r1 = sqrtf(-2.0f * logf(uniform_from_bits(b.z)));
-    z[0] = r0 * c0;
-    z[1] = r0 * s0;
-    z[2] = r1 * c1;
-    z[3] = r1 * s1;
+    const float4 v = philox_normals4(make_uint4(s, k / 4u, 1u, 0u), key);
+    z[0] = v.x;
+    z[1] = v.y;
+    z[2] = v.z;
+    z[3] = v.w;
   }
 
   // the slice uniform (salt s + 4) and the first angle's uniform (s + 5)
@@ -208,8 +203,8 @@ struct Stream {
       return;
     }
     const uint4 b = curand_Philox4x32_10(make_uint4(s, 0u, 0u, 0u), key);
-    u = uniform_from_bits(b.x);
-    u_theta = uniform_from_bits(b.y);
+    u = philox_u01(b.x);
+    u_theta = philox_u01(b.y);
   }
 
   // the shrink uniform of iteration j (salt s + 6, row j), for j = 0, 1, ...
@@ -218,7 +213,7 @@ struct Stream {
     if (rng == kCounter) return uniform_from_bits(counter_bits(base, s + 6u, j, col));
     if (j % 4u == 0u) cache = curand_Philox4x32_10(make_uint4(s, j / 4u, 2u, 0u), key);
     const uint32_t t = j % 4u;
-    return uniform_from_bits(t == 0u ? cache.x : t == 1u ? cache.y : t == 2u ? cache.z : cache.w);
+    return philox_u01(t == 0u ? cache.x : t == 1u ? cache.y : t == 2u ? cache.z : cache.w);
   }
 };
 

@@ -35,10 +35,14 @@
 //       keyed by (seed, chain block of `block_n`, column, dimension, salt).
 //       The block is a stream parameter, independent of this launch geometry.
 //   1 = philox: Philox4x32-10 from curand's header, keyed by (seed, global
-//       chain index), counter (step, draw); held in law only.
+//       chain index): the momenta four normals a call at counter (step, j,
+//       0, 0), the accept uniforms four steps a call at (step / 4, 0, 2, 0)
+//       (column_common.cuh's PhiloxUniforms), each drawn at the top of its
+//       step, before the leapfrogs; held in law only.
 //
-// No fast-math: rejection relies on NaN and -inf comparing false, and
-// Box-Muller needs accurate logf/cosf.
+// No fast-math: rejection relies on NaN and -inf comparing false. The
+// counter stream's Box-Muller keeps the accurate logf/cosf (bit-exact port);
+// the Philox stream's runs on the SFU through explicit intrinsics.
 
 #include <cstdint>
 #include <cstring>
@@ -116,8 +120,13 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
 
   const float half_eps = prm.eps / 2.0f;
   float accepted = 0.0f;
+  PhiloxUniforms accept_u;
   for (int i = 0; i < prm.n_steps; ++i) {
     const uint32_t salt = static_cast<uint32_t>(i) * 4u;
+    // the accept uniform first: its counter is known before the trajectory
+    // that its decision waits for
+    float u = 0.0f;
+    if (prm.rng == kPhilox) u = accept_u.draw(static_cast<uint32_t>(i), philox_key);
     if (prm.rng == kCounter) {
 #pragma unroll
       for (int d = 0; d < D; ++d) p[d] = s_std[d] * counter_normal(base, salt, d, col);
@@ -158,13 +167,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
     ke1 *= 0.5f;
 
     const float log_alpha = (lpn - ke1) - (lp - ke0);
-    float u;
-    if (prm.rng == kCounter) {
-      u = uniform_from_bits(counter_bits(base, salt + 2u, 0u, col));
-    } else {
-      u = philox_uniform(
-          make_uint4(static_cast<uint32_t>(i), static_cast<uint32_t>(D / 4), 0u, 0u), philox_key);
-    }
+    if (prm.rng == kCounter) u = uniform_from_bits(counter_bits(base, salt + 2u, 0u, col));
     // NaN or -inf log_alpha compares false: the proposal is rejected
     if (logf(u) < log_alpha) {
 #pragma unroll

@@ -49,12 +49,18 @@
 //       every direction, leaf and subtree take draws at the salt and moves it
 //       by 4; a transition ends by moving it by 4. The launch block is the
 //       stream's chain block.
-//   1 = philox: Philox4x32-10 from curand's header, keyed by (seed, chain),
-//       counter (salt, draw, kind), through column_common.cuh's
-//       philox_normals4 and philox_uniform; held in law only.
+//   1 = philox: Philox4x32-10 from curand's header, keyed by (seed, chain):
+//       r0 four normals a call at counter (salt, j, 1, 0) (philox_normals4);
+//       the direction, leaf and subtree uniforms, whose salts are 1 + 4m,
+//       four a call: draw m takes word m % 4 of the call at (m / 4, 0, 2, 0)
+//       (column_common.cuh's PhiloxUniforms); held in law only.
+//   Every thread takes a leaf's uniform before the leaf's leapfrog, a done
+//   or stopped chain too, so the Philox call that a fourth draw makes is
+//   block-uniform and its rounds do not wait behind the gradient.
 //
 // No fast-math: NaN energies become +inf, logaddexp(-inf, -inf) is -inf, and
-// u < NaN must be false.
+// u < NaN must be false. The counter stream keeps the accurate logf/cosf
+// (bit-exact port); the Philox stream's Box-Muller runs on the SFU.
 
 #include <cstdint>
 #include <cstring>
@@ -100,11 +106,13 @@ struct Stream {
   uint32_t base;  // counter: seed + block * kBlockMix
   uint32_t col;   // counter: the chain's column in its block
   uint2 key;      // philox: (seed, chain)
+  PhiloxUniforms cache;  // philox: the uniforms' current call
 
-  // the reference's (1, block) uniform draw: row 0
-  __device__ __forceinline__ float uniform(uint32_t salt) const {
+  // the reference's (1, block) uniform draw: row 0; salts come in
+  // increasing order
+  __device__ __forceinline__ float uniform(uint32_t salt) {
     if (rng == kCounter) return uniform_from_bits(counter_bits(base, salt, 0u, col));
-    return philox_uniform(make_uint4(salt, 0u, 0u, 0u), key);
+    return cache.draw(salt >> 2, key);
   }
 
   // the reference's (D, block) normal draw on salts salt and salt + 1
@@ -173,9 +181,8 @@ __global__ void __launch_bounds__(kMaxThreads)
   // threads past N idle through the block-wide loops as done chains
   const int n = blockIdx.x * T + tid;
   const bool valid = n < prm.N;
-  const Stream stream{prm.rng, prm.seed + static_cast<uint32_t>(blockIdx.x) * kBlockMix,
-                      static_cast<uint32_t>(tid),
-                      make_uint2(prm.seed, static_cast<uint32_t>(n))};
+  Stream stream{prm.rng, prm.seed + static_cast<uint32_t>(blockIdx.x) * kBlockMix,
+                static_cast<uint32_t>(tid), make_uint2(prm.seed, static_cast<uint32_t>(n)), {}};
 
   float im[D], q[D];  // the inverse mass; the position: each transition's proposal
 #pragma unroll
@@ -230,7 +237,7 @@ __global__ void __launch_bounds__(kMaxThreads)
       for (int i = 0; i < n_leaves; ++i) {
         const bool active = !(s_turn || s_div || done);
         if (!__syncthreads_or(active)) break;
-        const uint32_t leaf_salt = salt;
+        const float u_leaf = stream.uniform(salt);
         salt += 4u;
         if (!active) continue;
 
@@ -253,7 +260,7 @@ __global__ void __launch_bounds__(kMaxThreads)
         const float lw_leaf = -energy;
         const bool div_new = energy - energy0 > prm.div_threshold;
         const float lw_new = log_add_exp(lw_sub, lw_leaf);
-        if (stream.uniform(leaf_salt) < expf(lw_leaf - lw_new)) {  // NaN never takes
+        if (u_leaf < expf(lw_leaf - lw_new)) {  // NaN never takes
 #pragma unroll
           for (int d = 0; d < D; ++d) szprop[d] = zp[d];
         }

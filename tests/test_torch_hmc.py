@@ -140,6 +140,20 @@ def test_twin_rejects_off_support_proposals():
     assert float(acc) < 1.0
 
 
+@pytest.mark.parametrize("interpret", [True, False], ids=["counter", "generator"])
+def test_kernel_grid_blocks_get_distinct_streams(interpret):
+    """The reference's ``test_column_hmc.py`` case of the same name: two
+    chain blocks that start identically must decorrelate, on the counter
+    stream (a base per block of ``block_n``) and on the generator."""
+    q0 = torch.zeros(8, 256)
+    q, _ = hmc.pallas_hmc(
+        lambda q: -0.5 * (q * q).sum(dim=0), q0, 3, n_steps=20, eps=0.5, L=3, block_n=128,
+        interpret=interpret, backend="torch",
+    )
+    assert hmc.pallas_hmc.last_backend == "torch"
+    assert not torch.allclose(q[:, :128], q[:, 128:])
+
+
 def test_routing_on_the_cpu():
     q0 = torch.zeros(8, 128)
     hmc.pallas_hmc(bodies.iid_normal(), q0, 0, n_steps=1, eps=0.1, L=1)
