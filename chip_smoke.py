@@ -46,7 +46,17 @@ kernel scanned over 100 steps (``bench.py::bench_pf``'s shape), a vmapped
 their float64 reckoning), the one-step ``IndexRequest`` beside the dense
 ``Update``, ``sample_posterior(hmc)`` over ``S[..., "z"]`` against the exact
 Gaussian posterior, and every combinator configuration of the reference's
-GFI-contract test vmapped over 4,096 lanes. It checks
+GFI-contract test vmapped over 4,096 lanes; and SMC, which is torch in both
+packages: ``bench.py::bench_pf``'s particle filter (131,072 particles x 100
+steps, systematic resampling decided by one host read a step, against the
+float64 Kalman filter over 10 seeds, with its step taken apart, the other
+resample design and the row moves timed beside it), ``bench_dp``'s tempered
+SMC on the DP mixture (4,096 particles, 10 rungs; the card against the CPU
+in law), the conjugate normal model through ``tempered_smc`` (prior
+``Regenerate`` and HMC rejuvenation) and ``adaptive_tempered_smc``,
+``bench_sir``'s 65,536 importance estimates through ``ImportanceK``, and the
+Kalman filters, sequential and parallel, on a 4-state system over 4,096
+steps. It checks
 that each path launched its kernel in the variant it should (K1 and K4: the
 body's; K3: the tiled one), and agrees in law with the plain twin; it checks
 each kernel's shared-memory reckoning in Python against the kernel's own,
@@ -2097,6 +2107,419 @@ def combinators_path(device, smi: str, g) -> None:
                          f"(limits {COMB_TOL}): " + ", ".join(worst))
 
 
+PF_PARTICLES = 131072  # bench.py::bench_pf, not cut
+PF_T = 100
+PF_SEEDS = 10
+PF_DESIGN_RUNS = 5  # each resample design, in turns
+DP_PARTICLES = 4096  # bench.py::bench_dp, cut in reps only
+DP_RUNGS = 10
+DP_DATA = 60
+DP_TRUNC = 8
+DP_SEEDS = 10
+CONJ_PARTICLES = 4096
+CONJ_SEEDS = 8
+CONJ_Y = 1.5
+SIR_TRIALS = 65536  # bench.py::bench_sir, cut in reps only
+SIR_K = 50
+SIR_REPS = 3
+KALMAN_D = 4
+KALMAN_T = 4096
+
+
+def per_call_ms(fn, reps: int) -> float:
+    """Host-clock ms a call of ``fn`` over ``reps`` calls in a row, the
+    device synchronised before and after."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def host_reads(fn) -> int:
+    """How many times one call of ``fn`` waits on the card for a value
+    (``torch.cuda.set_sync_debug_mode``'s warnings, counted)."""
+    import warnings
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+            torch.cuda.synchronize()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
+def resample_where(gen, fire, particles, log_w, log_z, method):
+    """The other design of ``parallel.smc.resample_if``, kept here to time it
+    against the package's: resample on every step and select with
+    ``torch.where``, reading nothing on the host."""
+    from genjax_tpu_torch.parallel.resampling import resample_particles
+
+    k = log_w.shape[0]
+    inc = torch.logsumexp(log_w, dim=0) - math.log(k)
+    moved = resample_particles(gen, particles, log_w, k, method)
+    particles = torch.utils._pytree.tree_map(
+        lambda new, old: torch.where(fire.reshape((1,) * new.ndim), new, old), moved, particles)
+    return (particles, torch.where(fire, torch.zeros_like(log_w), log_w),
+            torch.where(fire, log_z + inc, log_z))
+
+
+def packed_move(tree, counts, n: int):
+    """``redistribute`` as the reference moves rows: every leaf whose rows
+    are whole 4-byte words bit-cast to int32 and laid side by side in one
+    matrix (at least 8 wide), one repeat of the matrix, the leaves read back
+    as views of it; other leaves repeated one by one."""
+    leaves, spec = torch.utils._pytree.tree_flatten(tree)
+    k = counts.shape[0]
+    pack = [i for i, v in enumerate(leaves) if v.ndim >= 1 and v.element_size() % 4 == 0]
+    out = [torch.repeat_interleave(v, counts, dim=0, output_size=n) if i not in pack else None
+           for i, v in enumerate(leaves)]
+    if pack:
+        cols = [leaves[i].reshape(k, -1).contiguous().view(torch.int32) for i in pack]
+        width = sum(c.shape[1] for c in cols)
+        if width < 8:
+            cols.append(torch.zeros((k, 8 - width), dtype=torch.int32, device=counts.device))
+        moved = torch.repeat_interleave(torch.cat(cols, dim=1), counts, dim=0, output_size=n)
+        c0 = 0
+        for i, c in zip(pack, cols):
+            words = moved[:, c0:c0 + c.shape[1]]
+            if leaves[i].element_size() > 4:
+                words = words.contiguous()
+            out[i] = words.view(leaves[i].dtype).reshape((n,) + tuple(leaves[i].shape[1:]))
+            c0 += c.shape[1]
+    return torch.utils._pytree.tree_unflatten(out, spec)
+
+
+def leafwise_move(tree, counts, n: int):
+    """``redistribute`` leaf by leaf, without packing: the row move the
+    packed one is timed against."""
+    return torch.utils._pytree.tree_map(
+        lambda v: torch.repeat_interleave(v, counts, dim=0, output_size=n), tree)
+
+
+def gather_move(tree, counts, n: int):
+    """``redistribute`` as one index vector from the counts and a gather of
+    each leaf along it."""
+    idx = torch.repeat_interleave(torch.arange(counts.shape[0], device=counts.device), counts, output_size=n)
+    return torch.utils._pytree.tree_map(lambda v: torch.index_select(v, 0, idx), tree)
+
+
+def se_gap(values, want: float):
+    """Mean of ``values``, its standard error, and its gap to ``want`` in
+    standard errors."""
+    v = np.asarray(values, np.float64)
+    se = v.std(ddof=1) / math.sqrt(len(v))
+    return float(v.mean()), float(se), float(abs(v.mean() - want) / se)
+
+
+def dp_data() -> np.ndarray:
+    """``bench.py::bench_dp``'s 60 points: three centres, noise 0.4, numpy
+    seed 0."""
+    rng = np.random.default_rng(0)
+    return (np.array([-4.0, 0.0, 4.0])[rng.integers(0, 3, DP_DATA)]
+            + 0.4 * rng.normal(size=DP_DATA)).astype(np.float32)
+
+
+def kalman_system(d: int, seed: int):
+    """A random stable ``d``-state system observed in ``d // 2`` outputs
+    (float64, numpy)."""
+    rng = np.random.default_rng(seed)
+    A = rng.normal(size=(d, d))
+    A = 0.95 * A / np.abs(np.linalg.eigvals(A)).max()
+
+    def spd(k, scale):
+        m = rng.normal(size=(k, k))
+        return scale * (m @ m.T / k + 0.5 * np.eye(k))
+
+    dy = max(1, d // 2)
+    return dict(A=A, Q=spd(d, 0.2), C=rng.normal(size=(dy, d)), R=spd(dy, 0.3), mu0=np.zeros(d),
+                P0=np.eye(d)), rng
+
+
+def smc_path(device, smi: str, g) -> dict:
+    """SMC and GenSP on the card (no kernel: the reference runs them as XLA):
+    ``bench.py::bench_pf``'s particle filter with systematic resampling,
+    ``bench_dp``'s tempered SMC on the DP mixture, the conjugate normal
+    model through both tempered drivers, ``bench_sir``'s importance
+    estimates through ``ImportanceK``, and the Kalman filters, sequential and
+    parallel, on a 4-state system over 4,096 steps."""
+    import genjax_tpu_torch.parallel.smc as pf_mod
+    from genjax_tpu_torch.dists import LGSSMParams, kalman_filter, kalman_filter_parallel
+    from genjax_tpu_torch.inference import (
+        ImportanceK, Target, adaptive_tempered_smc, geometric_ladder, tempered_smc,
+    )
+    from genjax_tpu_torch.models import dp_mixture_model, linear_gaussian_ssm
+    from genjax_tpu_torch.parallel import SSMParticleFilter, effective_sample_size, resample_particles
+    from genjax_tpu_torch.parallel.resampling import redistribute, systematic_counts
+
+    t_smc = time.perf_counter()
+    out = {}
+
+    # ---- the particle filter: bench_pf
+    kernel, exact = linear_gaussian_ssm()
+    K, T = PF_PARTICLES, PF_T
+    ys = torch.zeros(T, device=device)
+    obs = g.C[:, "y"].set(ys)
+    xs = torch.zeros(T, device=device)
+    pf = SSMParticleFilter(kernel, n_particles=K, ess_threshold=0.5, method="systematic")
+
+    def run_pf(seed):
+        return pf.run(seed, 0.0, xs, obs, device=device)
+
+    first = run_pf(0)
+    check(_leaves_on(first, device) and tuple(first.carries.shape) == (K,)
+          and tuple(first.ess_history.shape) == (T,), "[main path pf] an output is off the card or misshapen")
+    torch.cuda.synchronize()
+    lzs, pf_ms = [], []
+    for seed in range(1, PF_SEEDS + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = run_pf(seed)
+        lzs.append(float(res.log_marginal))
+        pf_ms.append((time.perf_counter() - t0) * 1e3)
+    want = exact(ys.cpu().tolist())
+    mean_lz, se_lz, _ = se_gap(lzs, want)
+    check(abs(mean_lz - want) <= 4 * se_lz + 0.01,
+          f"[main path pf] mean log marginal {mean_lz:.5f} (SE {se_lz:.5f}) against the Kalman filter's {want:.5f}")
+    reads = host_reads(lambda: run_pf(99))
+    busy = device_busy(lambda: run_pf(98))
+    run_ms = float(np.median(pf_ms))
+    fire = float((first.ess_history < 0.5 * K).double().mean())
+    # bench_pf's decomposition: a vmapped extend, the ESS, a standalone resample
+    gen = torch.Generator(device=device).manual_seed(77)
+    carry = torch.zeros(K, device=device)
+    sub0 = obs.get_submap(0)
+
+    def extend():
+        def one(c):
+            tr, w = kernel.generate(gen, sub0, (c, xs[0]))
+            return tr.get_retval()[0], w
+        return torch.func.vmap(one, randomness="different")(carry)
+
+    lw = torch.randn(K, generator=gen, device=device)
+    t_ext = per_call_ms(extend, 20)
+    t_ess = per_call_ms(lambda: effective_sample_size(lw), 200)
+    t_res = per_call_ms(lambda: resample_particles(gen, carry, lw, K, "systematic"), 100)
+    step_ms = run_ms / T
+    explained = (t_ext + t_ess + fire * t_res) / step_ms
+    # the two designs of the resample decision, in turns in this call
+    design_ms = {"host read": [], "torch.where": []}
+    package_resample_if = pf_mod.resample_if
+    try:
+        for r in range(PF_DESIGN_RUNS):
+            for name, fn in (("host read", package_resample_if), ("torch.where", resample_where)):
+                pf_mod.resample_if = fn
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                lz = float(run_pf(200 + r).log_marginal)
+                design_ms[name].append((time.perf_counter() - t0) * 1e3)
+                check(math.isfinite(lz), f"[pf resample designs] {name}: log marginal {lz}")
+        pf_mod.resample_if = resample_where
+        where_reads = host_reads(lambda: run_pf(300))
+    finally:
+        pf_mod.resample_if = package_resample_if
+    # the packed row move against leaf by leaf, on the pf's carry and bench_dp's traces
+    counts = systematic_counts(gen, lw, K)
+    data = torch.from_numpy(dp_data()).to(device)
+    dp_model = dp_mixture_model(DP_TRUNC)
+    dp_obs = g.C["obs", :, "x"].set(data)
+    dp_traces = torch.func.vmap(lambda _: dp_model.generate(gen, dp_obs, (data,))[0], randomness="different")(
+        torch.zeros(K, device=device))
+    n_leaves = len(torch.utils._pytree.tree_leaves(dp_traces))
+    moves = {}
+    for what, tree in (("pf carry", carry), ("bench_dp trace", dp_traces)):
+        kept = torch.utils._pytree.tree_leaves(redistribute(tree, counts, K))
+        for other in (packed_move, leafwise_move, gather_move):
+            same = all(torch.equal(a, b) for a, b in zip(kept, torch.utils._pytree.tree_leaves(other(tree, counts, K))))
+            check(same, f"[pf row moves] {what}: {other.__name__} differs from redistribute")
+        moves[what] = tuple(per_call_ms(lambda: fn(tree, counts, K), 50)
+                            for fn in (packed_move, leafwise_move, gather_move, redistribute))
+    del dp_traces
+    phase("main path pf", f"{smi}: SSMParticleFilter(linear_gaussian_ssm, n_particles={K}, ess_threshold=0.5, "
+                          f"systematic).run over T = {T}, ys = 0 (bench_pf), {PF_SEEDS} seeds: a run "
+                          f"{run_ms:.2f} ms (host clock, median; {min(pf_ms):.2f}-{max(pf_ms):.2f}) = "
+                          f"{K * T / run_ms * 1e3:.6g} particle-steps/s; mean log marginal {mean_lz:.5f} (SE "
+                          f"{se_lz:.5f}) against the float64 Kalman filter's {want:.5f} (limit 4 SE + 0.01); "
+                          f"host reads a run {reads} = {reads / T:.3f} a step")
+    phase("where the time goes", f"pf, {smi}: a step {step_ms * 1e3:.1f} us; vmapped extend {t_ext * 1e3:.1f} us, "
+                                 f"ESS {t_ess * 1e3:.1f} us, standalone systematic resample {t_res * 1e3:.1f} us "
+                                 f"(host clock, means of 20, 200, 100 calls), firing rate {fire:.3f} (ess_history "
+                                 f"of seed 0): they explain {explained:.4f} of the step; "
+                                 + busy_line("one run", busy, run_ms))
+    phase("pf resample designs", f"{smi}: a run with the decision read on the host (kept) "
+                                 f"{', '.join(f'{v:.2f}' for v in design_ms['host read'])} ms, resampling every step "
+                                 f"and selecting with torch.where {', '.join(f'{v:.2f}' for v in design_ms['torch.where'])} "
+                                 f"ms (in turns, host clock); host reads a run {reads} and {where_reads}")
+    phase("pf row moves", f"{smi}: redistribute at K = {K} (host clock, means of 50): " + "; ".join(
+        f"{what} ({1 if what == 'pf carry' else n_leaves} leaves) {a * 1e3:.1f} us packed into one int32 matrix "
+        f"(the reference's design), {b * 1e3:.1f} us a repeat_interleave a leaf, {c * 1e3:.1f} us one index vector "
+        f"and an index_select a leaf, {d * 1e3:.1f} us the package's redistribute (a repeat for one leaf, the "
+        f"gather for more)" for what, (a, b, c, d) in moves.items()))
+    out["pf"] = dict(run_ms=run_ms, reads=reads, explained=explained, design_ms=design_ms, moves=moves)
+
+    # ---- tempered SMC on the DP mixture: bench_dp
+    betas = geometric_ladder(DP_RUNGS)
+
+    def run_dp(seed, dev):
+        d = data.to(dev)
+        return tempered_smc(seed, dp_model, g.C["obs", :, "x"].set(d), (d,), n_particles=DP_PARTICLES,
+                            betas=betas, device=dev)
+
+    first = run_dp(0, device)
+    check(_leaves_on(first, device), "[main path dp] an output is off the card")
+    card, dp_ms = [], []
+    for seed in range(1, DP_SEEDS + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        card.append(float(run_dp(seed, device).log_marginal))
+        dp_ms.append((time.perf_counter() - t0) * 1e3)
+    t0 = time.perf_counter()
+    cpu = [float(run_dp(1000 + seed, "cpu").log_marginal) for seed in range(DP_SEEDS)]
+    cpu_ms = (time.perf_counter() - t0) * 1e3 / DP_SEEDS
+    pooled = math.sqrt(np.var(card, ddof=1) / len(card) + np.var(cpu, ddof=1) / len(cpu))
+    dp_gap = abs(np.mean(card) - np.mean(cpu)) / pooled
+    check(all(map(math.isfinite, card + cpu)) and dp_gap < 4,
+          f"[main path dp] the card's mean log marginal {np.mean(card):.4f} against the CPU's {np.mean(cpu):.4f}: "
+          f"{dp_gap:.2f} pooled SE")
+    dp_busy = device_busy(lambda: run_dp(97, device))
+    dp_call = float(np.median(dp_ms))
+    phase("main path dp", f"{smi}: tempered_smc(dp_mixture_model({DP_TRUNC}), n_particles={DP_PARTICLES}, "
+                          f"geometric_ladder({DP_RUNGS})) on bench_dp's {DP_DATA} points, no rejuvenation: a call "
+                          f"{dp_call:.2f} ms (host clock, median of {DP_SEEDS}) = {1e3 / dp_call:.4g} calls/s = "
+                          f"{DP_PARTICLES * DP_RUNGS / dp_call * 1e3:.6g} particle-rungs/s; on the CPU {cpu_ms:.1f} ms "
+                          f"a call; mean log marginal {np.mean(card):.4f} (card, {DP_SEEDS} seeds) against "
+                          f"{np.mean(cpu):.4f} (CPU, {DP_SEEDS} other seeds): {dp_gap:.2f} pooled SE (limit 4); "
+                          + busy_line("one call", dp_busy, dp_call))
+    out["dp"] = dict(call_ms=dp_call)
+
+    # ---- the conjugate check: test_tempered.py's normal-normal model
+    @g.gen
+    def conjugate():
+        mu = g.normal(0.0, 1.0) @ "mu"
+        _ = g.normal(mu, 0.5) @ "y"
+
+    conj_obs = g.C["y"].set(torch.tensor(CONJ_Y, device=device))
+    exact_lz = -0.5 * math.log(2 * math.pi * 1.25) - CONJ_Y**2 / 2.5
+    post_mean, post_sd = 0.8 * CONJ_Y, math.sqrt(0.2)
+    configs = {
+        "tempered_smc, rejuvenation S['mu']": lambda s: tempered_smc(
+            s, conjugate, conj_obs, (), n_particles=CONJ_PARTICLES, betas=geometric_ladder(10),
+            rejuvenation=g.S["mu"], n_rejuvenation=2, device=device),
+        "tempered_smc, HMC(S['mu'], 0.3, L=5)": lambda s: tempered_smc(
+            s, conjugate, conj_obs, (), n_particles=CONJ_PARTICLES, betas=geometric_ladder(12),
+            rejuvenation=g.HMC(g.S["mu"], 0.3, L=5), n_rejuvenation=2, device=device),
+        "adaptive_tempered_smc, HMC(S['mu'], 0.15, L=5)": lambda s: adaptive_tempered_smc(
+            s, conjugate, conj_obs, (), n_particles=CONJ_PARTICLES,
+            rejuvenation=g.HMC(g.S["mu"], 0.15, L=5), device=device),
+    }
+    lines = []
+    for name, run in configs.items():
+        lz, means, sds, rungs, t0 = [], [], [], [], time.perf_counter()
+        for seed in range(CONJ_SEEDS):
+            res = run(seed)
+            w = torch.softmax(res.log_weights.double(), 0)
+            mu = res.traces.get_choices()["mu"].double()
+            m = float((w * mu).sum())
+            lz.append(float(res.log_marginal))
+            means.append(m)
+            sds.append(math.sqrt(float((w * (mu - m) ** 2).sum())))
+            rungs.append(int(getattr(res, "n_rungs", len(res.ess_history))))
+        call_s = (time.perf_counter() - t0) / CONJ_SEEDS
+        lz_m, lz_se, _ = se_gap(lz, exact_lz)
+        m_m, m_se, _ = se_gap(means, post_mean)
+        sd_gap = abs(np.mean(sds) / post_sd - 1)
+        check(abs(lz_m - exact_lz) <= 4 * lz_se + 0.01 and abs(m_m - post_mean) <= 4 * m_se + 0.01
+              and sd_gap < 0.10,
+              f"[conjugate] {name}: evidence {lz_m:.4f} (SE {lz_se:.4f}) against {exact_lz:.4f}, mean {m_m:.4f} "
+              f"(SE {m_se:.4f}) against {post_mean}, sd off by {sd_gap:.3f}")
+        lines.append(f"{name}: {call_s:.3f} s a call, evidence {lz_m:.4f} (SE {lz_se:.4f}; exact {exact_lz:.4f}), "
+                     f"posterior mean {m_m:.4f} (SE {m_se:.4f}; exact {post_mean}), sd {np.mean(sds):.4f} "
+                     f"(exact {post_sd:.4f}), n_rungs {min(rungs)}-{max(rungs)}; "
+                     + busy_line("one call", device_busy(lambda: run(CONJ_SEEDS)), call_s * 1e3))
+    phase("conjugate", f"{smi}: {CONJ_PARTICLES} particles, {CONJ_SEEDS} seeds each (limits: 4 SE + 0.01, sd "
+                       f"10%): " + "; ".join(lines))
+
+    # ---- SIR: bench_sir through ImportanceK
+    @g.gen
+    def beta_bernoulli():
+        p = g.beta(2.0, 2.0) @ "p"
+        return g.flip(p) @ "v"
+
+    sir_target = Target(beta_bernoulli, (), g.C["v"].set(True))
+    alg = ImportanceK(sir_target, k_particles=SIR_K)
+    sir_gen = torch.Generator(device=device).manual_seed(SEED)
+
+    def sir():
+        def one(_):
+            collection = alg.run_smc(sir_gen, device=device)
+            return collection.sample_particle(sir_gen).get_choices()["p"]
+        return torch.func.vmap(one, randomness="different")(torch.zeros(SIR_TRIALS, device=device))
+
+    ps = sir()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(SIR_REPS):
+        ps = sir()
+    torch.cuda.synchronize()
+    sir_ms = (time.perf_counter() - t0) * 1e3 / SIR_REPS
+    sir_busy = device_busy(sir)
+    ps = ps.double().cpu().numpy()
+    # the law of one estimate at K = 50: E[sum p_i^2 / sum p_i] under the
+    # Beta(2, 2) prior, in float64 from two million numpy draws (3/5 at K = oo)
+    rng = np.random.default_rng(5)
+    prior = rng.beta(2.0, 2.0, size=(2_000_000, SIR_K))
+    law = (prior * prior).sum(1) / prior.sum(1)
+    law_mean, law_se = float(law.mean()), float(law.std() / math.sqrt(law.size))
+    sir_se = float(ps.std() / math.sqrt(ps.size))
+    sir_gap = abs(ps.mean() - law_mean) / math.hypot(sir_se, law_se)
+    check(ps.shape == (SIR_TRIALS,) and sir_gap < 4 and abs(ps.mean() - 0.6) < 4 * sir_se + abs(law_mean - 0.6),
+          f"[main path sir] mean {ps.mean():.5f} (SE {sir_se:.5f}) against the K = {SIR_K} law {law_mean:.5f}")
+    phase("main path sir", f"{smi}: vmap over {SIR_TRIALS} trials of ImportanceK(beta_bernoulli, k_particles="
+                           f"{SIR_K}).run_smc and sample_particle (bench_sir): {sir_ms:.2f} ms a call (host clock, "
+                           f"mean of {SIR_REPS}) = {SIR_TRIALS / sir_ms * 1e3:.6g} SIR estimates/s; mean p "
+                           f"{ps.mean():.5f} (SE {sir_se:.5f}) against {law_mean:.5f}, the mean of a {SIR_K}-particle "
+                           f"estimate ({sir_gap:.2f} SE, limit 4), and 3/5 at infinitely many; "
+                           + busy_line("one call", sir_busy, sir_ms))
+
+    # ---- the Kalman filters: a random stable 4-state system over 4,096 steps
+    sys64, rng = kalman_system(KALMAN_D, 11)
+    params64 = LGSSMParams(**{k: torch.from_numpy(np.asarray(v, np.float64)) for k, v in sys64.items()})
+    dy = sys64["C"].shape[0]
+    z = np.zeros(KALMAN_D)
+    ys_np = []
+    for _ in range(KALMAN_T):
+        z = sys64["A"] @ z + rng.multivariate_normal(np.zeros(KALMAN_D), sys64["Q"])
+        ys_np.append(sys64["C"] @ z + rng.multivariate_normal(np.zeros(dy), sys64["R"]))
+    ys64 = torch.from_numpy(np.asarray(ys_np))
+    m64, _c64, lm64 = kalman_filter(params64, ys64)
+    params = LGSSMParams(**{k: v.to(device, torch.float32) for k, v in vars(params64).items()})
+    ys32 = ys64.to(device, torch.float32)
+    m_seq, _c, lm = kalman_filter(params, ys32)
+    m_par, _cp = kalman_filter_parallel(params, ys32)
+    check(_leaves_on((m_seq, m_par, lm), device), "[kalman] an output is off the card")
+    lm_rel = abs(float(lm) - float(lm64)) / abs(float(lm64))
+    scale = max(1.0, float(m64.abs().max()))
+    seq_err = float((m_seq.double().cpu() - m64).abs().max()) / scale
+    par_err = float((m_par.double().cpu() - m64).abs().max()) / scale
+    check(lm_rel < 1e-4 and seq_err < 1e-3 and par_err < 1e-3,
+          f"[kalman] log marginal rel err {lm_rel:.3g}, filtered means {seq_err:.3g} and {par_err:.3g}")
+    seq_ms = wall_ms(lambda: kalman_filter(params, ys32), reps=1)
+    par_ms = wall_ms(lambda: kalman_filter_parallel(params, ys32))
+    par_busy = device_busy(lambda: kalman_filter_parallel(params, ys32))
+    phase("kalman", f"{smi}: a {KALMAN_D}-state system, {dy} outputs, T = {KALMAN_T}, float32 on the card against "
+                    f"float64 on the CPU: kalman_filter {seq_ms:.2f} ms (one call), kalman_filter_parallel {par_ms:.2f} ms "
+                    f"(median of 3; host clock); log marginal {float(lm):.3f} against {float(lm64):.3f}, rel err "
+                    f"{lm_rel:.3g} (limit 1e-4); filtered means max err {seq_err:.3g} and {par_err:.3g} of "
+                    f"max(1, |m|) (limit 1e-3); " + busy_line("one parallel filter", par_busy, par_ms))
+    phase("smc", f"the SMC phases took {time.perf_counter() - t_smc:.1f} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this test needs a CUDA card",
@@ -2527,6 +2950,9 @@ def main() -> int:
     ssm_path(device, smi, g, hmc)
     combinators_path(device, smi, g)
     phase("combinators", f"the combinator phases took {time.perf_counter() - t_comb:.1f} s")
+
+    # ---- SMC and GenSP: the particle filter, tempered SMC, SIR, the Kalman oracle (no kernel)
+    smc_path(device, smi, g)
 
     print(json.dumps({"kernels": [{
         "name": "hmc_sweep (K1, with K2's counter PRNG as device functions)",

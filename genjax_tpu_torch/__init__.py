@@ -17,7 +17,12 @@ metric, SVGD and SG-MCMC (``kernels.chees``, ``pt``, ``dense_mass``,
 ``mask``, ``dimap``, ``repeat``, ``or_else``, ``mix`` and the derived
 iterations, also as postfix methods such as ``kernel.scan(n=...)``) with the
 indexed, masked and switch choice maps and the ``IndexRequest`` and
-``VectorRequest`` edits, and the state-space models of ``models.ssm``.
+``VectorRequest`` edits, and the state-space models of ``models.ssm``;
+and SMC and GenSP (``Target``, ``ImportanceK``, ``ChangeTarget``,
+``Marginal``, ``inference.tempered_smc`` and its adaptive ladder, the
+``MALA`` and ``Rejuvenate`` moves, the particle filter and resamplers of
+``parallel``, the Kalman oracle ``dists.LinearGaussianSSM`` and the
+mixture models), torch on the card, as the reference's are XLA.
 """
 
 from .core import (
@@ -80,13 +85,30 @@ from .combinators import (
 )
 from .combinators import map as map_  # keeps the builtin in * imports
 from .combinators.mask_comb import mask as mask_combinator
-from .inference import MHChainResult, mh, run_chain, run_chains, run_chains_hmc, run_chains_nuts
-from .inference.requests import HMC, NUTS, SafeHMC, mh_accept, selection_gradient
+from . import parallel
+from .inference import (
+    ChangeTarget,
+    Importance,
+    ImportanceK,
+    Marginal,
+    MHChainResult,
+    ParticleCollection,
+    SMCAlgorithm,
+    Target,
+    marginal,
+    mh,
+    run_chain,
+    run_chains,
+    run_chains_hmc,
+    run_chains_nuts,
+)
+from .inference.requests import HMC, MALA, NUTS, Rejuvenate, SafeHMC, mh_accept, selection_gradient
 from .lang import StaticGenerativeFunction, StaticRequest, StaticTrace, gen
 
 __all__ = [
     "AddressReuse",
     "C",
+    "ChangeTarget",
     "ChoiceMap",
     "Closure",
     "Const",
@@ -99,8 +121,12 @@ __all__ = [
     "GenJAXError",
     "GenerativeFunction",
     "HMC",
+    "Importance",
+    "ImportanceK",
     "IndexRequest",
+    "MALA",
     "MHChainResult",
+    "Marginal",
     "Mask",
     "MaskCombinator",
     "MissingAddress",
@@ -108,9 +134,12 @@ __all__ = [
     "NoChange",
     "NotSupportedEditRequest",
     "NotTracedError",
+    "ParticleCollection",
     "Pytree",
     "Regenerate",
+    "Rejuvenate",
     "S",
+    "SMCAlgorithm",
     "SafeHMC",
     "ScanCombinator",
     "Selection",
@@ -118,6 +147,7 @@ __all__ = [
     "StaticRequest",
     "StaticTrace",
     "SwitchCombinator",
+    "Target",
     "Trace",
     "UnknownChange",
     "Update",
@@ -135,6 +165,7 @@ __all__ = [
     "iterate_final",
     "log_normal",
     "map_",
+    "marginal",
     "mask_combinator",
     "masked_iterate",
     "masked_iterate_final",
@@ -145,6 +176,7 @@ __all__ = [
     "mix",
     "normal",
     "or_else",
+    "parallel",
     "repeat",
     "run_chain",
     "run_chains",

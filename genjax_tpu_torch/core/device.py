@@ -10,7 +10,10 @@ where they live, and a generator on another device raises
 
 from __future__ import annotations
 
+from typing import Any
+
 import torch
+import torch.utils._pytree as pytree
 
 
 def entry_device(device, entry: str) -> torch.device:
@@ -44,3 +47,17 @@ def chain_generator(seed, device: torch.device, entry: str) -> torch.Generator:
             )
         return seed
     return torch.Generator(device=device).manual_seed(int(seed))
+
+
+def entry_generator(seed, device, entry: str) -> tuple[torch.Generator, torch.device]:
+    """``entry_device`` and ``chain_generator`` together: the device an
+    entry point that makes its chains or particles runs on, and its
+    generator there."""
+    device = entry_device(device, entry)
+    return chain_generator(seed, device, entry), device
+
+
+def to_device(tree: Any, device: torch.device) -> Any:
+    """``tree`` with its tensor leaves on ``device``; other leaves as they
+    are."""
+    return pytree.tree_map(lambda v: v.to(device) if isinstance(v, torch.Tensor) else v, tree)

@@ -16,6 +16,7 @@ on the generator's device.
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -23,6 +24,13 @@ import torch
 from .distribution import exact_density
 
 _LOG_2PI = math.log(2.0 * math.pi)
+
+
+@functools.lru_cache(maxsize=256)
+def _number(x: float, negative: bool, device) -> torch.Tensor:
+    # the sign is part of the key: -0.0 equals 0.0 and hashes the same; the
+    # tensor is never written into, so one serves every call
+    return torch.full((), x, dtype=torch.float32, device=device)
 
 
 def _tensors(*xs, device=None) -> list[torch.Tensor]:
@@ -33,7 +41,11 @@ def _tensors(*xs, device=None) -> list[torch.Tensor]:
         device = next((d for d in devices if d.type != "cpu"), devices[0] if devices else None)
     out = []
     for x in xs:
-        if not isinstance(x, torch.Tensor):
+        if isinstance(x, (bool, int, float)):
+            # filled on the device, as a trace records a number: a copy from
+            # the host would make the card's stream wait for it
+            out.append(_number(float(x), math.copysign(1.0, x) < 0, device))
+        elif not isinstance(x, torch.Tensor):
             out.append(torch.as_tensor(x, dtype=torch.float32, device=device))
         else:
             t = x.to(device)
@@ -85,12 +97,21 @@ def _mv_normal_diag_logpdf(v, loc, scale_diag, **kw):
     return torch.sum(_normal_logpdf(v, loc, scale_diag), dim=-1)
 
 
+def cholesky_or_nan(cov: torch.Tensor) -> torch.Tensor:
+    """The lower Cholesky factor of each matrix of ``cov``, all NaN where a
+    matrix is not positive definite, as ``jnp.linalg.cholesky`` gives it:
+    one bad batch element raises nothing and spoils no other, and nothing
+    waits on the card for the factorisation's error code."""
+    chol, info = torch.linalg.cholesky_ex(cov)
+    return torch.where((info != 0)[..., None, None], torch.nan, chol)
+
+
 def _mv_normal_logpdf(v, loc, covariance_matrix, **kw):
     """``jax.scipy.stats.multivariate_normal.logpdf``: one Cholesky factor
     gives the quadratic form (a triangular solve) and the log-determinant
-    (its diagonal)."""
+    (its diagonal); NaN for a covariance that is not positive definite."""
     v, loc, cov = _tensors(v, loc, covariance_matrix)
-    chol = torch.linalg.cholesky(cov)
+    chol = cholesky_or_nan(cov)
     z = torch.linalg.solve_triangular(chol, (v - loc).unsqueeze(-1), upper=False).squeeze(-1)
     n = cov.shape[-1]
     log_det = torch.sum(torch.log(torch.diagonal(chol, dim1=-2, dim2=-1)), dim=-1)
@@ -98,9 +119,10 @@ def _mv_normal_logpdf(v, loc, covariance_matrix, **kw):
 
 
 def _mv_normal_sample(gen, loc, covariance_matrix, **kw):
-    """``loc + L z`` with ``L`` the lower Cholesky factor and ``z ~ N(0, I)``."""
+    """``loc + L z`` with ``L`` the lower Cholesky factor and ``z ~ N(0, I)``
+    (NaN for a covariance that is not positive definite)."""
     loc, cov = _tensors(loc, covariance_matrix, device=gen.device)
-    chol = torch.linalg.cholesky(cov)
+    chol = cholesky_or_nan(cov)
     shape = _bshape(_shape(kw), loc, tuple(cov.shape[:-1]))
     z = torch.randn(shape, generator=gen, device=gen.device)
     return loc + (chol @ z.unsqueeze(-1)).squeeze(-1)

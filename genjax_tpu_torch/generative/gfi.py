@@ -32,18 +32,19 @@ _COMBINATORS: dict[str, Callable] = {}
 
 
 def register_combinators(**constructors: Callable) -> None:
-    """Fill the constructor table of the postfix combinator methods
-    (``combinators/__init__.py`` calls this)."""
+    """Fill the constructor table of the postfix methods
+    (``combinators/__init__.py`` and, for ``marginal``, ``inference/sp.py``
+    call this)."""
     _COMBINATORS.update(constructors)
 
 
-def _combinator(name: str) -> Callable:
+def _combinator(name: str, package: str = "combinators") -> Callable:
     try:
         return _COMBINATORS[name]
     except KeyError:
         raise RuntimeError(
-            f"GenerativeFunction.{name}: the combinators are not loaded; "
-            "import genjax_tpu_torch.combinators (importing genjax_tpu_torch does)"
+            f"GenerativeFunction.{name}: its constructor is not loaded; "
+            f"import genjax_tpu_torch.{package} (importing genjax_tpu_torch does)"
         ) from None
 
 
@@ -165,6 +166,10 @@ class GenerativeFunction(Pytree):
 
     def contramap(self, f: Callable, *, info: str | None = None):
         return _combinator("contramap")(f, info=info)(self)
+
+    def marginal(self, /, *, selection: Any = None, algorithm: Any = None):
+        """The marginal distribution over ``selection`` (``inference.sp.Marginal``)."""
+        return _combinator("marginal", "inference")(self, selection=selection, algorithm=algorithm)
 
     # ----- call/closure syntax -----
 

@@ -1,6 +1,8 @@
 """MCMC moves as edit requests."""
 
 from .hmc import HMC, SafeHMC, mh_accept, selection_gradient
+from .mala import MALA
 from .nuts import NUTS
+from .rejuvenate import Rejuvenate
 
-__all__ = ["HMC", "NUTS", "SafeHMC", "mh_accept", "selection_gradient"]
+__all__ = ["HMC", "MALA", "NUTS", "Rejuvenate", "SafeHMC", "mh_accept", "selection_gradient"]

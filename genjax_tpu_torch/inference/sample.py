@@ -33,7 +33,7 @@ from typing import Any
 import torch
 import torch.utils._pytree as pytree
 
-from ..core.device import entry_device
+from ..core.device import entry_device, to_device
 from ..core.diff import Diff
 from ..core.pytree import Pytree
 from ..generative.choice_map import ChoiceMap
@@ -114,14 +114,10 @@ def _positions(traces, selection: Selection) -> torch.Tensor:
     return column_view(traces, selection)[0].T
 
 
-def _on_device(tree, device):
-    return pytree.tree_map(lambda v: v.to(device) if isinstance(v, torch.Tensor) else v, tree)
-
-
 def _init_traces(gen, model, constraint, args, n_chains: int, device):
     """``n_chains`` traces of ``model.generate`` under ``constraint``, chains
     first, on ``device``."""
-    constraint, args = _on_device(constraint, device), _on_device(args, device)
+    constraint, args = to_device(constraint, device), to_device(args, device)
     return torch.func.vmap(
         lambda _: model.generate(gen, constraint, args)[0], randomness="different"
     )(torch.zeros(n_chains, device=device))
@@ -291,7 +287,7 @@ def _column_prep(gen, model, constraint, args, selection: Selection, n_chains: i
     Returns ``(packer, ld, q0)``."""
     shape_chm = model.get_zero_trace(*args).get_choices().filter_eager(selection)
     paths = _static_value_paths(shape_chm)
-    constraint, args = _on_device(constraint, device), _on_device(args, device)
+    constraint, args = to_device(constraint, device), to_device(args, device)
     packer = ColumnPacker(model, constraint, args, paths)
     ld = column_logdensity(model, constraint, args, packer)
     return packer, ld, init_columns(model, constraint, args, packer, n_chains, gen, device)

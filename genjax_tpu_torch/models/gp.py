@@ -21,6 +21,7 @@ import torch
 
 from ..core.device import entry_device
 from ..dists import mv_normal, normal
+from ..dists.catalog import cholesky_or_nan
 from ..lang.static_lang import gen
 from .regression import _device_of, _on_device
 
@@ -88,7 +89,7 @@ def gp_log_marginal(X, y, amplitude, lengthscale, noise, *, jitter=1e-5, device=
     Cholesky factor serves the quadratic form and the log-determinant."""
     X, y = _on(device, "gp_log_marginal", X, y)
     n = X.shape[0]
-    chol = torch.linalg.cholesky(_noisy_gram(X, amplitude, lengthscale, noise, jitter))
+    chol = cholesky_or_nan(_noisy_gram(X, amplitude, lengthscale, noise, jitter))
     alpha = torch.cholesky_solve(y[:, None], chol).squeeze(-1)
     return (
         -0.5 * (y @ alpha)
@@ -102,7 +103,7 @@ def gp_posterior(X, y, X_test, amplitude, lengthscale, noise, *, jitter: float =
     noise-free function values ``f* | y``, with ``K`` factorized once."""
     X, y = _on(device, "gp_posterior", X, y)
     X_test = _as_points(X_test).to(X.device)
-    chol = torch.linalg.cholesky(_noisy_gram(X, amplitude, lengthscale, noise, jitter))
+    chol = cholesky_or_nan(_noisy_gram(X, amplitude, lengthscale, noise, jitter))
     Ks = sq_exp_kernel(X_test, X, amplitude, lengthscale)
     Kss = sq_exp_kernel(X_test, X_test, amplitude, lengthscale)
     mean = Ks @ torch.cholesky_solve(y[:, None], chol).squeeze(-1)
@@ -115,7 +116,7 @@ def _b_factor(K, W):
     sqrt(W)`` (Rasmussen & Williams 2006, eq. 3.26)."""
     sw = torch.sqrt(W)
     B = torch.eye(K.shape[0], device=K.device) + sw[:, None] * K * sw[None, :]
-    return sw, torch.linalg.cholesky(B)
+    return sw, cholesky_or_nan(B)
 
 
 def gp_classify_laplace(

@@ -1,7 +1,8 @@
 """Bayesian regression families.
 
-Counterpart of ``genjax_tpu/models/regression.py`` (``linear_regression``
-and the flagship ``hierarchical_regression``). ``X`` is taken as an array
+Counterpart of ``genjax_tpu/models/regression.py`` (``linear_regression``,
+the flagship ``hierarchical_regression`` and ``logistic_regression``;
+``poisson_regression`` waits for ``poisson``). ``X`` is taken as an array
 (numpy, as the reference's benchmark passes it) and used as a float32
 tensor on the device of the model's draws.
 """
@@ -16,7 +17,7 @@ import torch
 
 from ..core.handlers import active_handler
 from ..core.pytree import Pytree
-from ..dists import log_normal, mv_normal_diag
+from ..dists import flip, log_normal, mv_normal_diag
 from ..generative.trace import trace_device
 from ..lang.static_lang import StaticGenerativeFunction, gen
 
@@ -101,3 +102,30 @@ def hierarchical_regression(X, *, obs_scale: float = 0.25):
     return RegressionModel(
         gen(model).source, "hierarchical_regression", np.asarray(X, np.float32), float(obs_scale)
     )
+
+
+def logistic_regression(X, *, prior_scale: float = 2.0):
+    """Bayesian logistic regression: ``w ~ N(0, prior_scale)``, ``y_i ~
+    Bernoulli(sigmoid(x_i . w))``. Addresses ``"w"`` and ``("obs", i,
+    "y")``, one flip a point through a vmapped observation model; constrain
+    with ``C["obs", :, "y"].set(y01)``. Returns ``model``."""
+    X_on = _on_device(X)
+    n, d = np.shape(X)
+
+    # made once, outside the body, so that every run of the body calls the
+    # same generative function
+    @gen
+    def obs_point(i, probs):
+        return flip(probs[i]) @ "y"
+
+    obs_vmap = obs_point.vmap(in_axes=(0, None))
+
+    @gen
+    def model():
+        dev = _running_device()
+        w = mv_normal_diag(torch.zeros(d, device=dev), prior_scale * torch.ones(d, device=dev)) @ "w"
+        probs = torch.sigmoid(X_on(dev) @ w)
+        _ = obs_vmap(torch.arange(n, device=dev), probs) @ "obs"
+        return probs
+
+    return model

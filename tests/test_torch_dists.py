@@ -155,3 +155,49 @@ def test_sample_shape_through_the_gfi():
     torch.testing.assert_close(score.sum(), tr.get_score().sum())
     with pytest.raises(TypeError, match="unexpected keyword"):
         g.normal.sample(gen, 0.0, 1.0, shape=(4,))
+
+
+_COVS = np.stack([np.eye(2), np.ones((2, 2))]).astype(np.float32)
+
+
+def test_mv_normal_not_positive_definite_is_nan_like_reference():
+    """A covariance that is not positive definite gives NaN where the
+    reference does, and raises nothing: the batched logpdf, its
+    ``torch.func.vmap``, a sample, and ``simulate`` through it (score NaN).
+    The other batch element keeps its value (-1.8379 = -log(2 pi))."""
+    import jax
+
+    zeros = np.zeros(2, np.float32)
+    ref = np.asarray(jax.vmap(lambda c: gj.mv_normal.logpdf(zeros, zeros, c))(jnp.asarray(_COVS)))
+    covs = torch.from_numpy(_COVS)
+    batched = g.mv_normal.logpdf(torch.zeros(2), torch.zeros(2), covs).numpy()
+    vmapped = torch.func.vmap(lambda c: g.mv_normal.logpdf(torch.zeros(2), torch.zeros(2), c))(covs).numpy()
+    for got in (batched, vmapped):
+        np.testing.assert_allclose(got[0], ref[0], rtol=RTOL)
+        assert np.isnan(got[1]) and np.isnan(ref[1])
+    assert abs(got[0] + 1.8379) < 1e-4
+    sample = g.mv_normal.sample(torch.Generator().manual_seed(0), torch.zeros(2), covs)
+    assert torch.isfinite(sample[0]).all() and torch.isnan(sample[1]).all()
+
+    @g.gen
+    def model():
+        return g.mv_normal(torch.zeros(2), covs[1]) @ "x"
+
+    tr = model.simulate(torch.Generator().manual_seed(0), ())
+    assert torch.isnan(tr.get_score()) and torch.isnan(tr.get_retval()).all()
+
+
+def test_gp_closed_forms_not_positive_definite_are_nan():
+    """The GP closed forms on a Gram matrix that is not positive definite
+    (a negative jitter: ``K - 2 I``) give NaN, as the reference's
+    ``jnp.linalg.cholesky`` does, instead of raising."""
+    from genjax_tpu.models import gp_log_marginal as ref_lml
+    from genjax_tpu_torch.models import gp_log_marginal, gp_posterior
+
+    X = np.linspace(0.0, 1.0, 5, dtype=np.float32)
+    y = np.sin(X).astype(np.float32)
+    ref = float(ref_lml(X, y, 1.0, 0.3, 0.0, jitter=-2.0))
+    got = gp_log_marginal(X, y, 1.0, 0.3, 0.0, jitter=-2.0, device="cpu")
+    assert np.isnan(ref) and torch.isnan(got)
+    mean, cov = gp_posterior(X, y, X[:2], 1.0, 0.3, 0.0, jitter=-2.0, device="cpu")
+    assert torch.isnan(mean).all() and torch.isnan(cov).all()

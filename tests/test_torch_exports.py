@@ -38,3 +38,31 @@ def test_step_size_state_init_places_every_leaf(eps0):
     assert all(leaf.shape == torch.as_tensor(eps0).shape for leaf in (st.log_eps, st.log_eps_bar, st.h_bar, st.mu))
     cpu = StepSizeAdaptState.init(eps0)
     assert cpu.log_eps.device.type == "cpu" and float(cpu.h_bar.sum()) == 0.0
+
+
+SMC_NAMES = {
+    "inference": ["Algorithm", "ChangeTarget", "Importance", "ImportanceK", "Marginal", "ParticleCollection",
+                  "SMCAlgorithm", "SampleDistribution", "Target", "marginal", "AdaptiveTemperedSMCResult",
+                  "TemperedSMCResult", "adaptive_tempered_smc", "geometric_ladder", "tempered_smc"],
+    "inference.requests": ["MALA", "Rejuvenate"],
+    "dists": ["LGSSMParams", "LinearGaussianSSM", "ffbs", "kalman_filter", "kalman_filter_parallel",
+              "kalman_predict", "kalman_smoother", "kalman_smoother_parallel", "kalman_update", "lgssm_em"],
+    "models": ["dp_mixture_model", "gaussian_mixture_model", "logistic_regression"],
+    "parallel": ["SSMParticleFilter", "effective_sample_size", "multinomial_indices", "redistribute",
+                 "resample_particles", "residual_indices", "stratified_counts", "stratified_indices",
+                 "systematic_counts", "systematic_indices"],
+    "": ["ChangeTarget", "Importance", "ImportanceK", "MALA", "Marginal", "ParticleCollection", "Rejuvenate",
+         "SMCAlgorithm", "Target", "marginal", "parallel"],
+}
+
+
+@pytest.mark.parametrize("module,name", [(m, n) for m, names in SMC_NAMES.items() for n in names])
+def test_smc_names_resolve(module, name):
+    """Slice 11's names resolve where the reference exports them, and are in
+    the port's ``__all__`` there."""
+    import importlib
+
+    ref = importlib.import_module("genjax_tpu" + ("." + module if module else ""))
+    port = importlib.import_module("genjax_tpu_torch" + ("." + module if module else ""))
+    assert hasattr(ref, name), name
+    assert getattr(port, name) is not None and name in port.__all__

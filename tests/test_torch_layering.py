@@ -24,6 +24,7 @@ LAYERS = {
     "combinators": 4,
     "models": 5,
     "kernels": 6,
+    "parallel": 6,
     "inference": 7,
     "<root>": 9,
     "interop": 9,
@@ -108,7 +109,12 @@ def test_imports_without_jax():
         "genjax_tpu_torch.combinators.scan, genjax_tpu_torch.combinators.switch, "
         "genjax_tpu_torch.combinators.mask_comb, genjax_tpu_torch.combinators.dimap, "
         "genjax_tpu_torch.combinators.repeat, genjax_tpu_torch.combinators.or_else, "
-        "genjax_tpu_torch.combinators.mixture, genjax_tpu_torch.models.ssm; "
+        "genjax_tpu_torch.combinators.mixture, genjax_tpu_torch.models.ssm, "
+        "genjax_tpu_torch.parallel, genjax_tpu_torch.parallel.resampling, "
+        "genjax_tpu_torch.parallel.smc, genjax_tpu_torch.inference.sp, "
+        "genjax_tpu_torch.inference.smc, genjax_tpu_torch.inference.tempered, "
+        "genjax_tpu_torch.inference.requests.mala, genjax_tpu_torch.inference.requests.rejuvenate, "
+        "genjax_tpu_torch.dists.lgssm, genjax_tpu_torch.models.mixture; "
         "print(sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'genjax_tpu' or m.startswith('genjax_tpu.')))"
     )
@@ -191,6 +197,42 @@ def test_combinators_sit_between_the_language_and_the_models():
     assert not [t for t in edges[f"{PKG}.generative.gfi"] if _subpackage(t) == "combinators"]
     assert LAYERS["lang"] < LAYERS["combinators"] < LAYERS["models"]
     assert LAYERS["dists"] < LAYERS["combinators"]
+
+
+def test_kernels_and_parallel_never_import_inference():
+    """The reference's rule (``tests/test_layering.py``): nothing under
+    ``kernels/`` or ``parallel/`` imports ``inference/``."""
+    _, edges = _graph()
+    bad = [
+        f"{src} -> {dst}"
+        for src, targets in edges.items()
+        if _subpackage(src) in ("kernels", "parallel")
+        for dst in targets
+        if _subpackage(dst) == "inference"
+    ]
+    assert not bad, "\n".join(bad)
+
+
+def test_smc_modules_are_layered():
+    """SMC and GenSP: the particle filter and the resamplers sit in
+    ``parallel`` (layer 6) on the GFI below them; ``inference.smc`` and
+    ``inference.tempered`` reach down to them; the Kalman oracle and the
+    mixture models sit with the distributions and the models."""
+    mods, edges = _graph()
+    for mod in ("parallel.resampling", "parallel.smc", "inference.sp", "inference.smc",
+                "inference.tempered", "inference.requests.mala", "inference.requests.rejuvenate",
+                "dists.lgssm", "models.mixture"):
+        assert f"{PKG}.{mod}" in mods, mod
+    assert f"{PKG}.parallel.resampling" in edges[f"{PKG}.parallel.smc"]
+    assert f"{PKG}.parallel.resampling" in edges[f"{PKG}.inference.smc"]
+    assert f"{PKG}.parallel.smc" in edges[f"{PKG}.inference.tempered"]
+    assert f"{PKG}.parallel.resampling" in edges[f"{PKG}.inference.tempered"]
+    assert f"{PKG}.inference.requests.grad_view" in edges[f"{PKG}.inference.requests.mala"]
+    for mod in ("parallel.resampling", "parallel.smc"):
+        assert not [t for t in edges[f"{PKG}.{mod}"]
+                    if _subpackage(t) not in ("core", "generative", "dists", "parallel")], mod
+    assert not [t for t in edges[f"{PKG}.dists.lgssm"] if _subpackage(t) not in ("core", "generative", "dists")]
+    assert LAYERS["models"] < LAYERS["parallel"] < LAYERS["inference"]
 
 
 def test_layer_direction():
