@@ -56,7 +56,17 @@ in law), the conjugate normal model through ``tempered_smc`` (prior
 ``Regenerate`` and HMC rejuvenation) and ``adaptive_tempered_smc``,
 ``bench_sir``'s 65,536 importance estimates through ``ImportanceK``, and the
 Kalman filters, sequential and parallel, on a 4-state system over 4,096
-steps. It checks
+steps; and the catalog, ADEV and variational inference, torch in both
+packages: ``bench.py::bench_vi``'s ELBO gradient (the flip/normal mixture,
+4,096 estimates a step, against the exact gradient in float64, then 300
+descent steps that must lower the exact loss, the reverse pass timed
+beside one forward pass a parameter), the ``@expectation`` example and two
+estimators at 2^20 lanes against their closed forms, 2^20 draws of each of
+the 48 distributions (log-densities on the card against the CPU, moments
+against scipy or the CPU's draws), ``poisson_regression`` at n = 100,000,
+d = 16 through ``fit_map`` and ``laplace_approximation`` against a float64
+Newton optimum and inverse Hessian, and full-rank ADVI on the 128-d dense
+target against its covariance. It checks
 that each path launched its kernel in the variant it should (K1 and K4: the
 body's; K3: the tiled one), and agrees in law with the plain twin; it checks
 each kernel's shared-memory reckoning in Python against the kernel's own,
@@ -2520,6 +2530,422 @@ def smc_path(device, smi: str, g) -> dict:
     return out
 
 
+# ----------------------------------------------------------------------
+# slice 12: the catalog, ADEV, VI, MAP/Laplace and ADVI (no kernel)
+# ----------------------------------------------------------------------
+
+VI_BATCH = 4096  # bench.py::bench_vi's gradient estimates a step
+VI_STEPS = 300
+VI_WARMUP = 5
+VI_LR = 0.05
+VI_PHI0 = (0.0, 1.0, -1.0, -1.0, -1.0)  # (component logit, mu1, log_s1, mu0, log_s0)
+ADEV_LANES = 2**20
+CATALOG_N = 2**20
+CATALOG_LP_TOL = 1e-4  # card against CPU, relative to max(1, |value|)
+GLM_N, GLM_D = 100_000, 16
+GLM_STEPS, GLM_LR = 300, 0.05
+GLM_TOL = 1e-3
+ADVI_STEPS, ADVI_LR, ADVI_SAMPLES = 1000, 0.01, 128  # the rate cosine-decayed to 0 over the steps
+ADVI_DRAWS = 16384  # the dense phase's chain count: cov_bound's n
+
+
+def mixture_vi(g):
+    """``bench.py::bench_vi``'s program: the flip/normal mixture with ``y =
+    1.5`` observed, the guide ``flip_reinforce`` on ``z`` and
+    ``normal_reparam`` on ``mu`` inside ``Marginal``. Returns the ELBO's
+    gradient estimator and the guide and target, for the forward pass."""
+    from genjax_tpu_torch.core.pytree import Const
+    from genjax_tpu_torch.inference import Target, vi
+    from genjax_tpu_torch.inference.sp import Marginal
+
+    @g.gen
+    def model_fn(phi):
+        z = g.flip(0.5) @ "z"
+        mu = g.normal(torch.where(z, 2.0, -2.0), 1.0) @ "mu"
+        _ = g.normal(mu, 0.5) @ "y"
+
+    @g.gen
+    def guide_fn(target):
+        (phi,) = target.args
+        z = vi.flip_reinforce(torch.sigmoid(phi[0])) @ "z"
+        zf = z.to(torch.float32)
+        m = zf * phi[1] + (1.0 - zf) * phi[3]
+        s = torch.exp(zf * phi[2] + (1.0 - zf) * phi[4])
+        _ = vi.normal_reparam(m, s) @ "mu"
+
+    guide = Marginal(guide_fn, Const(g.Selection.all()), Const(None))
+    make_target = lambda phi: Target(model_fn, (phi,), g.C["y"].set(1.5))  # noqa: E731
+    return vi.ELBO(guide, make_target), guide, make_target
+
+
+def exact_neg_elbo(phi, y=1.5, sigma=0.5):
+    """The mixture's negative ELBO and its gradient in float64 numpy: ``z``
+    enumerated over {0, 1}, every ``mu`` term a Gaussian expectation."""
+    phi = np.asarray(phi, np.float64)
+    q1 = 1.0 / (1.0 + math.exp(-phi[0]))
+    q = {1: q1, 0: 1.0 - q1}
+    m, s = {1: phi[1], 0: phi[3]}, {1: math.exp(phi[2]), 0: math.exp(phi[4])}
+    c = {1: 2.0, 0: -2.0}
+
+    def f(z):  # E_{mu ~ N(m, s)}[log p(z, mu, y) - log q(mu | z)]
+        return (math.log(0.5) - 0.5 * ((m[z] - c[z]) ** 2 + s[z] ** 2)
+                - 0.5 * math.log(2 * math.pi * sigma**2) - 0.5 * ((y - m[z]) ** 2 + s[z] ** 2) / sigma**2
+                + 0.5 + math.log(s[z]))
+
+    elbo = sum(q[z] * (f(z) - math.log(q[z])) for z in (0, 1))
+    dm = {z: -(m[z] - c[z]) + (y - m[z]) / sigma**2 for z in (0, 1)}
+    ds = {z: 1.0 - s[z] ** 2 * (1.0 + 1.0 / sigma**2) for z in (0, 1)}
+    grad = [q[1] * q[0] * (f(1) - f(0) + math.log(q[0]) - math.log(q[1])),
+            q[1] * dm[1], q[1] * ds[1], q[0] * dm[0], q[0] * ds[0]]
+    return -elbo, -np.asarray(grad)
+
+
+def vi_main_path(device, smi: str, g) -> None:
+    """``[main path vi]``: bench_vi's ELBO gradient at full width (4,096
+    estimates a step through ``torch.func.vmap``), held against the exact
+    gradient at ``phi0``, then ``VI_STEPS`` descent steps that must lower
+    the exact loss; the reverse pass beside the forward pass that the other
+    design would take (one ``jvp_estimate`` a parameter)."""
+    from genjax_tpu_torch.adev import Dual, expectation
+    from genjax_tpu_torch.adev.core import fork
+    from genjax_tpu_torch.inference import Importance
+
+    elbo_grad, guide, make_target = mixture_vi(g)
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    lanes = torch.zeros(VI_BATCH, device=device)
+    batched = torch.func.vmap(lambda _, phi: elbo_grad(gen, (phi,))[0], in_dims=(0, None), randomness="different")
+    phi0 = torch.tensor(VI_PHI0, device=device)
+
+    def step(phi):
+        return phi - VI_LR * batched(lanes, phi).mean(dim=0)
+
+    # gate (a): the 4,096-estimate mean at phi0 against the exact gradient
+    gs = batched(lanes, phi0).double()
+    loss0, exact = exact_neg_elbo(VI_PHI0)
+    mean, se = gs.mean(0).cpu().numpy(), (gs.std(0) / math.sqrt(VI_BATCH)).cpu().numpy()
+    z = np.abs(mean - exact) / se
+    check(bool(np.all(z < 5)), f"ELBO gradient at phi0 {mean.tolist()} vs exact {exact.tolist()}: {z.tolist()} SE")
+
+    # the other design: one forward (jvp) pass a parameter, 5 vmapped passes
+    def forward_grad(phi):
+        def one(_):
+            model_gen = fork(gen)
+
+            @expectation
+            def loss(p):
+                target = make_target(p)
+                return -Importance(target, guide).estimate_normalizing_constant(
+                    model_gen, target, device=model_gen.device)
+
+            eye = torch.eye(5, device=device)
+            return torch.stack([loss.jvp_estimate(gen, (Dual(phi, eye[i]),), streams=(model_gen,)).tangent
+                                for i in range(5)])
+
+        return torch.func.vmap(one, randomness="different")(lanes)
+
+    fs = forward_grad(phi0).double()
+    zf = np.abs(fs.mean(0).cpu().numpy() - exact) / (fs.std(0) / math.sqrt(VI_BATCH)).cpu().numpy()
+    check(bool(np.all(zf < 5)), f"forward-pass ELBO gradient off the exact one by {zf.tolist()} SE")
+    rev_ms = wall_ms(lambda: batched(lanes, phi0), reps=5)
+    fwd_ms = wall_ms(lambda: forward_grad(phi0), reps=3)
+
+    # the descent: warm up, then VI_STEPS timed steps on the host clock
+    phi = phi0
+    for _ in range(VI_WARMUP):
+        phi = step(phi)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(VI_STEPS):
+        phi = step(phi)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    step_ms = wall_s / VI_STEPS * 1e3
+    busy = device_busy(lambda: step(phi))
+    loss1, _ = exact_neg_elbo(phi.cpu().numpy())
+    check(math.isfinite(loss1) and loss1 < loss0, f"exact negative ELBO {loss1} after the descent vs {loss0} at phi0")
+    phase("main path vi", f"{smi}: bench_vi's ELBO, {VI_BATCH} gradient estimates a step (torch.func.vmap "
+                          f"of vi.ELBO's grad_estimate): at phi0 the mean within {float(z.max()):.2f} SE of the "
+                          f"exact float64 gradient (limit 5; {np.round(mean, 4).tolist()} vs "
+                          f"{np.round(exact, 4).tolist()}); {VI_WARMUP} + {VI_STEPS} steps of {VI_LR}: "
+                          f"{step_ms:.3f} ms a step (host clock, mean of {VI_STEPS}) = "
+                          f"{VI_BATCH / step_ms * 1e3:.6g} gradient estimates/s; exact negative ELBO "
+                          f"{loss0:.4f} -> {loss1:.4f} (phi {np.round(phi.cpu().numpy(), 4).tolist()}); "
+                          + busy_line("a step", busy, step_ms))
+    phase("main path vi", f"{smi}: the gradient pass at {VI_BATCH} x 5 parameters: one reverse pass "
+                          f"(torch.func.grad over the transformed run, the port's design) {rev_ms:.3f} ms; "
+                          f"one forward pass a parameter (5 jvp_estimate passes) {fwd_ms:.3f} ms, "
+                          f"{fwd_ms / rev_ms:.2f}x; its mean within {float(zf.max()):.2f} SE of the exact "
+                          f"gradient (host clock, median)")
+
+
+def adev_path(device, smi: str) -> None:
+    """``[adev]``: the ``@expectation`` docstring example (d/dp of
+    ``flip_enum`` exactly 1), and ``normal_reparam`` and ``beta_implicit``
+    at 2^20 vmapped estimates against their closed forms."""
+    from genjax_tpu_torch.adev import beta_implicit, expectation, flip_enum, normal_reparam
+
+    gen = torch.Generator(device=device).manual_seed(SEED)
+
+    @expectation
+    def obj(p):
+        return torch.where(flip_enum(p), 1.0, 0.0)
+
+    (dp,) = obj.grad_estimate(gen, (0.3,))
+    check(dp.device.type == device.type and float(dp) == 1.0, f"d/dp of the flip_enum example is {float(dp)}, not 1")
+
+    @expectation
+    def quad(mu):
+        return (normal_reparam(mu, 1.0) - 2.0) ** 2
+
+    @expectation
+    def beta_mean(ab):
+        a, b = ab
+        return beta_implicit(a, b)
+
+    lanes = torch.zeros(ADEV_LANES, device=device)
+    quad_b = torch.func.vmap(lambda _: quad.grad_estimate(gen, (0.5,))[0], randomness="different")
+    beta_b = torch.func.vmap(lambda _: torch.stack(beta_mean.grad_estimate(gen, ((2.0, 2.0),))[0]),
+                             randomness="different")
+    gq, gb = quad_b(lanes).double(), beta_b(lanes).double()
+    zq = abs(float(gq.mean()) + 3.0) / (float(gq.std()) / math.sqrt(ADEV_LANES))
+    want = torch.tensor([0.125, -0.125], dtype=torch.float64, device=device)
+    zb = ((gb.mean(0) - want).abs() / (gb.std(0) / math.sqrt(ADEV_LANES))).max().item()
+    check(zq < 5 and zb < 5, f"normal_reparam off -3 by {zq:.2f} SE, beta_implicit off (1/8, -1/8) by {zb:.2f} SE")
+    q_ms, b_ms = wall_ms(lambda: quad_b(lanes)), wall_ms(lambda: beta_b(lanes))
+    phase("adev", f"{smi}: d/dp E[flip_enum(p)] = {float(dp)} (exact); normal_reparam d/dmu E[(x - 2)^2] "
+                  f"at mu 0.5: {float(gq.mean()):.5f} (exact -3, {zq:.2f} SE) over {ADEV_LANES} vmapped "
+                  f"estimates in {q_ms:.3f} ms; beta_implicit d/da, d/db E[Beta(2, 2)]: "
+                  f"{gb.mean(0).cpu().numpy().round(5).tolist()} (exact 1/8, -1/8, {zb:.2f} SE) in "
+                  f"{b_ms:.3f} ms (host clock, median of 3)")
+
+
+def catalog_cases():
+    """The chip phase's parameters of each of the 48 distributions, and
+    scipy's float64 distribution where it has one (else None: the CPU port's
+    own draws stand in)."""
+    import scipy.stats as ss
+
+    logp = np.log([0.2, 0.3, 0.5]).astype(np.float32)
+    alpha = np.asarray([2.0, 3.0, 4.0], np.float32)
+    logit = lambda p: float(np.log(p / (1 - p)))  # noqa: E731
+    return {
+        "normal": ((0.3, 1.7), ss.norm(0.3, 1.7)),
+        "cauchy": ((0.5, 2.0), ss.cauchy(0.5, 2.0)),
+        "laplace": ((0.5, 2.0), ss.laplace(0.5, 2.0)),
+        "logistic": ((0.5, 2.0), ss.logistic(0.5, 2.0)),
+        "gumbel": ((0.5, 2.0), ss.gumbel_r(0.5, 2.0)),
+        "student_t": ((4.0, 0.5, 2.0), ss.t(4.0, 0.5, 2.0)),
+        "half_normal": ((1.5,), ss.halfnorm(0, 1.5)),
+        "half_cauchy": ((0.0, 1.5), ss.halfcauchy(0, 1.5)),
+        "half_student_t": ((4.0, 0.0, 1.5), None),
+        "uniform": ((1.0, 3.0), ss.uniform(1.0, 2.0)),
+        "exponential": ((2.0,), ss.expon(scale=0.5)),
+        "gamma": ((2.0, 3.0), ss.gamma(2.0, scale=1 / 3)),
+        "inverse_gamma": ((5.0, 3.0), ss.invgamma(5.0, scale=3.0)),
+        "chi": ((3.0,), ss.chi(3.0)),
+        "chi2": ((3.0,), ss.chi2(3.0)),
+        "weibull": ((2.0, 1.5), ss.weibull_min(2.0, scale=1.5)),
+        "log_normal": ((0.3, 0.8), ss.lognorm(0.8, scale=np.exp(0.3))),
+        "logit_normal": ((0.3, 0.8), None),
+        "truncated_normal": ((0.0, 1.0, -1.0, 2.0), ss.truncnorm(-1.0, 2.0)),
+        "truncated_cauchy": ((0.0, 1.0, -2.0, 3.0), None),
+        "kumaraswamy": ((2.0, 3.0), None),
+        "moyal": ((0.5, 2.0), ss.moyal(0.5, 2.0)),
+        "double_sided_maxwell": ((0.5, 1.0), None),
+        "exp_gamma": ((2.0, 1.5), None),
+        "exp_inverse_gamma": ((2.0, 1.5), None),
+        "inverse_gaussian": ((2.0, 3.0), ss.invgauss(2.0 / 3.0, scale=3.0)),
+        "von_mises": ((0.0, 2.0), ss.vonmises(2.0)),
+        "lambert_w_normal": ((0.3, 1.0, 0.1), None),
+        "beta": ((2.0, 3.0), ss.beta(2.0, 3.0)),
+        "bernoulli": ((logit(0.3),), ss.bernoulli(0.3)),
+        "flip": ((0.3,), ss.bernoulli(0.3)),
+        "categorical": ((logp,), None),
+        "binomial": ((10.0, logit(0.4)), ss.binom(10, 0.4)),
+        "geometric": ((logit(0.3),), ss.geom(0.3, loc=-1)),
+        "poisson": ((3.5,), ss.poisson(3.5)),
+        "negative_binomial": ((5.0, logit(0.4)), ss.nbinom(5, 0.6)),
+        "beta_binomial": ((10.0, 2.0, 3.0), ss.betabinom(10, 2.0, 3.0)),
+        "skellam": ((3.0, 2.0), ss.skellam(3.0, 2.0)),
+        "zipf": ((5.5,), ss.zipf(5.5)),
+        "non_central_chi2": ((3.0, 1.5), ss.ncx2(3.0, 1.5)),
+        "dirichlet": ((alpha,), None),
+        "multinomial": ((5.0, logp), None),
+        "dirichlet_multinomial": ((5.0, alpha), None),
+        "mv_normal_diag": ((np.asarray([0.5, -0.5, 0.0], np.float32), np.asarray([1.5, 0.5, 1.0], np.float32)), None),
+        "mv_normal": ((np.asarray([0.5, -0.5], np.float32), np.asarray([[2.0, 0.3], [0.3, 1.0]], np.float32)), None),
+        "power_spherical": ((np.asarray([0.0, 0.0, 1.0], np.float32), 5.0), None),
+        "von_mises_fisher": ((np.asarray([0.0, 0.0, 1.0], np.float32), 5.0), None),
+        "beta_quotient": ((3.0, 2.0, 4.0, 2.0), None),
+    }
+
+
+def catalog_path(device, smi: str, g) -> None:
+    """``[catalog]``: 2^20 draws of each of the 48 distributions on the
+    card from one generator, timed; the card's log-density of those values
+    against the CPU port's; mean (and variance where scipy's fourth moment
+    is finite) within 5 SE of scipy's float64 moments, and the CDF at the
+    quartiles within 5 SE, or, with no scipy counterpart, within 5 combined
+    SE of the CPU port's own 2^20 draws."""
+    from genjax_tpu_torch.dists import catalog
+
+    cases = catalog_cases()
+    check(sorted(cases) == sorted(catalog.__all__) and len(cases) == 48, "the chip phase does not cover the 48")
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    cpu_gen = torch.Generator().manual_seed(SEED)
+    times = []
+    n = CATALOG_N
+    for name in sorted(cases):
+        args, ref = cases[name]
+        d = getattr(g, name)
+        on_card = [torch.as_tensor(a, device=device) if isinstance(a, np.ndarray) else a for a in args]
+        x = d.sample(gen, *on_card, sample_shape=(n,))  # first call outside the clock
+        ms = wall_ms(lambda: d.sample(gen, *on_card, sample_shape=(n,)))
+        check(x.device.type == device.type and x.shape[0] == n, f"{name}: draws {tuple(x.shape)} on {x.device}")
+        lp_card = d.logpdf(x, *on_card).cpu()
+        lp_cpu = d.logpdf(x.cpu(), *args)
+        fin = torch.isfinite(lp_cpu)
+        check(bool(torch.equal(fin, torch.isfinite(lp_card))) and bool(fin.all()),
+              f"{name}: the log-density's finite values differ between the card and the CPU, or a draw scores "
+              "outside the support")
+        lp_err = float(((lp_card - lp_cpu).abs() / lp_cpu.abs().clamp_min(1.0)).max())
+        check(lp_err <= CATALOG_LP_TOL, f"{name}: card log-density off the CPU's by {lp_err:.3g} (limit {CATALOG_LP_TOL})")
+        xs = x.double().reshape(n, -1).cpu()
+        m, sd = xs.mean(0), xs.std(0)
+        if ref is not None:
+            mean, var, kurt = (float(v) for v in ref.stats(moments="mvk"))
+            worst = 0.0
+            if math.isfinite(var):
+                worst = abs(float(m[0]) - mean) / math.sqrt(var / n)
+            if math.isfinite(kurt):
+                m4 = float(((xs[:, 0] - m[0]) ** 4).mean())
+                worst = max(worst, abs(float(sd[0]) ** 2 - var) / math.sqrt(max(m4 - var * var, 1e-30) / n))
+            for q in (0.25, 0.5, 0.75):
+                at = float(ref.ppf(q))
+                p = float(ref.cdf(at))
+                if 0 < p < 1:
+                    worst = max(worst, abs(float((xs[:, 0] <= at).double().mean()) - p) / math.sqrt(p * (1 - p) / n))
+            against = "scipy"
+        else:
+            y = d.sample(cpu_gen, *args, sample_shape=(n,)).double().reshape(n, -1)
+            se = torch.sqrt((xs.var(0) + y.var(0)) / n).clamp_min(1e-12)
+            worst = float(((m - y.mean(0)).abs() / se).max())
+            v4 = lambda s: ((s - s.mean(0)) ** 4).mean(0) - s.var(0) ** 2  # noqa: E731
+            se_v = torch.sqrt((v4(xs) + v4(y)) / n).clamp_min(1e-12)
+            worst = max(worst, float(((xs.var(0) - y.var(0)).abs() / se_v).max()))
+            against = "the CPU port's draws"
+        check(worst < 5, f"{name}: 2^20 draws off {against} by {worst:.2f} SE")
+        times.append((name, ms))
+        phase("catalog", f"{smi}: {name}{tuple(args) if len(str(args)) < 60 else ''}: {n} draws in {ms:.3f} ms "
+                         f"(host clock, median of 3, {n / ms * 1e3:.6g} draws/s); logpdf card vs CPU within "
+                         f"{lp_err:.3g} (limit {CATALOG_LP_TOL}, relative to max(1, |value|)); moments within "
+                         f"{worst:.2f} SE of {against} (limit 5)")
+    # torch_distribution: a draw that is a function of the card's generator
+    td = g.torch_distribution(torch.distributions.Normal, "normal_td")
+    loc, scale = torch.tensor(0.3, device=device), torch.tensor(1.7, device=device)
+    a, b = (td.sample(torch.Generator(device=device).manual_seed(SEED), loc, scale, sample_shape=(n,))
+            for _ in range(2))
+    z_td = abs(float(a.double().mean()) - 0.3) / (1.7 / math.sqrt(n))
+    check(a.device.type == device.type and torch.equal(a, b) and z_td < 5,
+          f"torch_distribution: draws not a function of the generator, or off N(0.3, 1.7) by {z_td:.2f} SE")
+    total = sum(ms for _, ms in times)
+    slow = sorted(times, key=lambda t: -t[1])[:3]
+    phase("catalog", f"{smi}: 48 distributions x {n} draws in {total:.2f} ms in all; slowest "
+                     + ", ".join(f"{name} {ms:.3f} ms" for name, ms in slow)
+                     + f"; torch_distribution(Normal) repeats under one seed, mean within {z_td:.2f} SE")
+
+
+def glm_path(device, smi: str, g) -> None:
+    """``[main path glm]``: ``poisson_regression`` at n = 100,000, d = 16
+    (numpy seed 0), ``fit_map`` and ``laplace_approximation`` on the card,
+    the mode against the float64 Newton optimum and the covariance against
+    the float64 inverse Hessian, both to 1e-3 relative."""
+    from genjax_tpu_torch.inference import fit_map, laplace_approximation
+    from genjax_tpu_torch.models import poisson_regression
+
+    rng = np.random.default_rng(0)
+    X = (rng.normal(size=(GLM_N, GLM_D)) / 4).astype(np.float32)
+    w_true = rng.normal(size=GLM_D) * 0.5
+    Y = rng.poisson(np.exp(X.astype(np.float64) @ w_true)).astype(np.float32)
+    Xd, Yd = X.astype(np.float64), Y.astype(np.float64)
+    w64 = np.zeros(GLM_D)
+    for _ in range(30):
+        rate = np.exp(Xd @ w64)
+        w64 -= np.linalg.solve(np.eye(GLM_D) + Xd.T @ (rate[:, None] * Xd), w64 + Xd.T @ (rate - Yd))
+    rate = np.exp(Xd @ w64)
+    cov64 = np.linalg.inv(np.eye(GLM_D) + Xd.T @ (rate[:, None] * Xd))
+
+    model = poisson_regression(X)
+    obs = g.C["obs", torch.arange(GLM_N, device=device), "y"].set(torch.as_tensor(Y, device=device))
+    kw = dict(n_steps=GLM_STEPS, learning_rate=GLM_LR, device=device)
+    res = fit_map(SEED, model, obs, (), g.S["w"], **kw)
+    lap = laplace_approximation(SEED, model, obs, (), g.S["w"], **kw)
+    check(res["w"].device.type == device.type == lap.cov.device.type, "the GLM did not run on the card")
+    mode_err = float(np.linalg.norm(res["w"].double().cpu().numpy() - w64) / np.linalg.norm(w64))
+    lap_mode_err = float(np.linalg.norm(lap.mean.double().cpu().numpy() - w64) / np.linalg.norm(w64))
+    cov_err = float(np.linalg.norm(lap.cov.double().cpu().numpy() - cov64) / np.linalg.norm(cov64))
+    check(max(mode_err, lap_mode_err) < GLM_TOL and cov_err < GLM_TOL,
+          f"GLM mode {mode_err:.3g} / {lap_mode_err:.3g} and covariance {cov_err:.3g} off float64 (limit {GLM_TOL})")
+    fit_ms = wall_ms(lambda: fit_map(SEED, model, obs, (), g.S["w"], **kw), reps=1)
+    lap_ms = wall_ms(lambda: laplace_approximation(SEED, model, obs, (), g.S["w"], **kw), reps=1)
+    fit_busy = device_busy(lambda: fit_map(SEED, model, obs, (), g.S["w"], **kw))
+    lap_busy = device_busy(lambda: laplace_approximation(SEED, model, obs, (), g.S["w"], **kw))
+    phase("main path glm", f"{smi}: poisson_regression n {GLM_N}, d {GLM_D}: fit_map ({GLM_STEPS} Adam steps "
+                           f"of {GLM_LR}, 8 restarts) mode within {mode_err:.3g} relative of the float64 "
+                           f"Newton optimum, laplace_approximation's within {lap_mode_err:.3g} and its "
+                           f"covariance within {cov_err:.3g} of the float64 inverse Hessian (limit "
+                           f"{GLM_TOL}); fit_map {fit_ms:.1f} ms, laplace_approximation {lap_ms:.1f} ms "
+                           f"(host clock, one call each); " + busy_line("fit_map", fit_busy, fit_ms) + "; "
+                           + busy_line("laplace_approximation", lap_busy, lap_ms))
+
+
+def advi_path(device, smi: str) -> None:
+    """``[advi]``: full-rank ``"stl"`` ADVI (``column_advi``) on
+    ``dense_target``, ``bench_dense``'s 128-d correlated Gaussian: the
+    covariance of ``ADVI_DRAWS`` draws from the fit against the target's
+    within ``cov_bound``, their mean within 5 SE of 0."""
+    from genjax_tpu_torch.inference import column_advi
+
+    model, sigma = dense_target(device)
+
+    def cosine(step):
+        # a constant rate lets Adam kick the fit off its optimum once STL's
+        # gradients vanish there (the ELBO dropped 0.9 nats between steps
+        # 300 and 500 at a constant 0.01, on the CPU); decayed, it settles
+        return ADVI_LR * 0.5 * (1.0 + math.cos(math.pi * min(step, ADVI_STEPS) / ADVI_STEPS))
+
+    t0 = time.perf_counter()
+    post = column_advi(SEED, model, None, (), ["x"], rank="full", estimator="stl", n_steps=ADVI_STEPS,
+                       learning_rate=cosine, n_samples=ADVI_SAMPLES, device=device)
+    torch.cuda.synchronize()
+    call_s = time.perf_counter() - t0
+    res = post.result
+    check(res.mu.device.type == device.type, "ADVI did not run on the card")
+    draws = res.sample(torch.Generator(device=device).manual_seed(SEED + 1), ADVI_DRAWS).T
+    err, lim = cov_error(draws, sigma), cov_bound(sigma, ADVI_DRAWS)
+    z = float((draws.double().mean(0).cpu() / torch.sqrt(torch.as_tensor(np.diag(sigma).copy()) / ADVI_DRAWS)).abs().max())
+    direct = float(np.linalg.norm(res.cov.double().cpu().numpy() - sigma) / np.linalg.norm(sigma))
+    check(err < lim and z < 5, f"ADVI covariance error {err:.4f} (limit {lim:.4f}), mean {z:.2f} SE (limit 5)")
+    phase("advi", f"{smi}: column_advi full rank, stl, {DENSE_D}-d dense target, {ADVI_STEPS} Adam steps from "
+                  f"{ADVI_LR} cosine-decayed, {ADVI_SAMPLES} samples a step: {call_s:.2f} s (host clock, one call) = "
+                  f"{call_s / ADVI_STEPS * 1e3:.3f} ms a step; covariance of {ADVI_DRAWS} draws off the "
+                  f"target's by {err:.4f} (relative Frobenius; limit {lim:.4f}), the fit's own "
+                  f"{direct:.4f}; mean within {z:.2f} SE (limit 5); final ELBO {float(res.elbo):.4f} "
+                  f"(the target is normalised: 0 at the optimum)")
+
+
+def vi_path(device, smi: str, g) -> None:
+    """Slice 12's phases: VI's main path, ADEV, the catalog, the GLM's MAP
+    and Laplace fits and ADVI."""
+    t0 = time.perf_counter()
+    vi_main_path(device, smi, g)
+    adev_path(device, smi)
+    catalog_path(device, smi, g)
+    glm_path(device, smi, g)
+    advi_path(device, smi)
+    phase("vi", f"{smi}: the catalog, ADEV, VI, GLM and ADVI phases took {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this test needs a CUDA card",
@@ -2953,6 +3379,9 @@ def main() -> int:
 
     # ---- SMC and GenSP: the particle filter, tempered SMC, SIR, the Kalman oracle (no kernel)
     smc_path(device, smi, g)
+
+    # ---- the catalog, ADEV and VI, MAP and Laplace, ADVI (no kernel)
+    vi_path(device, smi, g)
 
     print(json.dumps({"kernels": [{
         "name": "hmc_sweep (K1, with K2's counter PRNG as device functions)",

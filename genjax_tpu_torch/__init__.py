@@ -3,8 +3,8 @@
 The port imports torch, numpy and scipy, never JAX. Names follow the JAX
 package; randomness comes from explicit ``torch.Generator`` objects. It
 carries the GFI (``simulate``, ``assess``, ``generate``, ``project``,
-``edit`` and ``update``), ``@gen``, six distributions, the regression and GP
-models, the trace path (the ``HMC`` and ``NUTS`` edit requests, ``mh``,
+``edit`` and ``update``), ``@gen``, the reference's 48 distributions and
+``torch_distribution``, the regression, GP and Poisson GLM models, the trace path (the ``HMC`` and ``NUTS`` edit requests, ``mh``,
 ``run_chains``, the batched ``run_chains_hmc`` and ``run_chains_nuts``), the
 one-call drivers ``inference.sample_posterior`` (seven algorithms) and
 ``sample_logdensity`` with split-R̂ and ESS, the column samplers whose
@@ -22,7 +22,11 @@ and SMC and GenSP (``Target``, ``ImportanceK``, ``ChangeTarget``,
 ``Marginal``, ``inference.tempered_smc`` and its adaptive ladder, the
 ``MALA`` and ``Rejuvenate`` moves, the particle filter and resamplers of
 ``parallel``, the Kalman oracle ``dists.LinearGaussianSSM`` and the
-mixture models), torch on the card, as the reference's are XLA.
+mixture models), torch on the card, as the reference's are XLA; and ADEV
+(``adev``: ``@expectation`` and its gradient estimators) with variational
+inference (``vi``: the ELBO, IWELBO and wake losses and ``fit``;
+``inference.advi``), MAP and Laplace estimation (``inference.fit_map``,
+``laplace_approximation``), torch on the card as well.
 """
 
 from .core import (
@@ -34,36 +38,36 @@ from .core import (
     NotTracedError,
     Pytree,
 )
-from .core.diff import Diff, NoChange, UnknownChange
-from .dists import (
-    Distribution,
-    ExactDensity,
-    beta,
-    categorical,
-    exact_density,
-    flip,
-    log_normal,
-    mv_normal,
-    mv_normal_diag,
-    normal,
-)
+from .core.diff import Argdiffs, Diff, NoChange, Retdiff, UnknownChange
+from .core.staging import FlagOp
+from .dists import Distribution, DistributionTrace, ExactDensity, exact_density, torch_distribution
+from .dists.catalog import *  # noqa: F401,F403  (the 48 distributions)
+from .dists import catalog as _catalog
 from .generative import (
+    Arguments,
     C,
     ChoiceMap,
     DiffAnnotate,
     EditRequest,
     EmptyRequest,
     GenerativeFunction,
+    GenerativeFunctionClosure,
     IndexRequest,
     Mask,
     NotSupportedEditRequest,
+    PrimitiveEditRequest,
     Regenerate,
     S,
+    Score,
     Selection,
     Trace,
     Update,
     VectorRequest,
+    Weight,
 )
+from .generative.choice_map import ChoiceMapBuilder
+from .generative.concepts import Retval
+from .generative.selection import SelectionBuilder
 from .combinators import (
     MaskCombinator,
     ScanCombinator,
@@ -85,7 +89,7 @@ from .combinators import (
 )
 from .combinators import map as map_  # keeps the builtin in * imports
 from .combinators.mask_comb import mask as mask_combinator
-from . import parallel
+from . import adev, parallel
 from .inference import (
     ChangeTarget,
     Importance,
@@ -103,87 +107,107 @@ from .inference import (
     run_chains_nuts,
 )
 from .inference.requests import HMC, MALA, NUTS, Rejuvenate, SafeHMC, mh_accept, selection_gradient
-from .lang import StaticGenerativeFunction, StaticRequest, StaticTrace, gen
+from .inference import vi
+from .lang import StaticGenerativeFunction, StaticRequest, StaticTrace, gen, trace
 
-__all__ = [
-    "AddressReuse",
-    "C",
-    "ChangeTarget",
-    "ChoiceMap",
-    "Closure",
-    "Const",
-    "Diff",
-    "DiffAnnotate",
-    "Distribution",
-    "EditRequest",
-    "EmptyRequest",
-    "ExactDensity",
-    "GenJAXError",
-    "GenerativeFunction",
-    "HMC",
-    "Importance",
-    "ImportanceK",
-    "IndexRequest",
-    "MALA",
-    "MHChainResult",
-    "Marginal",
-    "Mask",
-    "MaskCombinator",
-    "MissingAddress",
-    "NUTS",
-    "NoChange",
-    "NotSupportedEditRequest",
-    "NotTracedError",
-    "ParticleCollection",
-    "Pytree",
-    "Regenerate",
-    "Rejuvenate",
-    "S",
-    "SMCAlgorithm",
-    "SafeHMC",
-    "ScanCombinator",
-    "Selection",
-    "StaticGenerativeFunction",
-    "StaticRequest",
-    "StaticTrace",
-    "SwitchCombinator",
-    "Target",
-    "Trace",
-    "UnknownChange",
-    "Update",
-    "VectorRequest",
-    "VmapCombinator",
-    "accumulate",
-    "beta",
-    "categorical",
-    "contramap",
-    "dimap",
-    "exact_density",
-    "flip",
-    "gen",
-    "iterate",
-    "iterate_final",
-    "log_normal",
-    "map_",
-    "marginal",
-    "mask_combinator",
-    "masked_iterate",
-    "masked_iterate_final",
-    "mh",
-    "mh_accept",
-    "mv_normal",
-    "mv_normal_diag",
-    "mix",
-    "normal",
-    "or_else",
-    "parallel",
-    "repeat",
-    "run_chain",
-    "run_chains",
-    "run_chains_hmc",
-    "run_chains_nuts",
-    "scan",
-    "selection_gradient",
-    "switch",
-    "vmap",
-]
+__all__ = sorted(
+    {
+        "AddressReuse",
+        "Argdiffs",
+        "Arguments",
+        "C",
+        "ChangeTarget",
+        "ChoiceMap",
+        "ChoiceMapBuilder",
+        "Closure",
+        "Const",
+        "Diff",
+        "DiffAnnotate",
+        "Distribution",
+        "DistributionTrace",
+        "EditRequest",
+        "EmptyRequest",
+        "ExactDensity",
+        "FlagOp",
+        "GenJAXError",
+        "GenerativeFunction",
+        "GenerativeFunctionClosure",
+        "HMC",
+        "Importance",
+        "ImportanceK",
+        "IndexRequest",
+        "MALA",
+        "MHChainResult",
+        "Marginal",
+        "Mask",
+        "MaskCombinator",
+        "MissingAddress",
+        "NUTS",
+        "NoChange",
+        "NotSupportedEditRequest",
+        "NotTracedError",
+        "ParticleCollection",
+        "PrimitiveEditRequest",
+        "Pytree",
+        "Regenerate",
+        "Rejuvenate",
+        "Retdiff",
+        "Retval",
+        "S",
+        "SMCAlgorithm",
+        "SafeHMC",
+        "ScanCombinator",
+        "Score",
+        "Selection",
+        "SelectionBuilder",
+        "StaticGenerativeFunction",
+        "StaticRequest",
+        "StaticTrace",
+        "SwitchCombinator",
+        "Target",
+        "Trace",
+        "UnknownChange",
+        "Update",
+        "VectorRequest",
+        "VmapCombinator",
+        "Weight",
+        "accumulate",
+        "adev",
+        "beta",
+        "categorical",
+        "contramap",
+        "dimap",
+        "exact_density",
+        "flip",
+        "gen",
+        "iterate",
+        "iterate_final",
+        "log_normal",
+        "map_",
+        "marginal",
+        "mask_combinator",
+        "masked_iterate",
+        "masked_iterate_final",
+        "mh",
+        "mh_accept",
+        "mix",
+        "mv_normal",
+        "mv_normal_diag",
+        "normal",
+        "or_else",
+        "parallel",
+        "repeat",
+        "run_chain",
+        "run_chains",
+        "run_chains_hmc",
+        "run_chains_nuts",
+        "scan",
+        "selection_gradient",
+        "switch",
+        "torch_distribution",
+        "trace",
+        "vi",
+        "vmap",
+        *_catalog.__all__,
+    }
+)

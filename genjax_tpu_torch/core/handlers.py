@@ -42,6 +42,16 @@ def active_handler() -> TraceHandler | None:
     return _HANDLER_STACK[-1] if _HANDLER_STACK else None
 
 
+def innermost_handler(kind: type) -> TraceHandler | None:
+    """The innermost installed handler of type ``kind``, under any handlers
+    installed above it (the ADEV transform sees draws made deep inside the
+    GFI methods its program calls)."""
+    for h in reversed(_HANDLER_STACK):
+        if isinstance(h, kind):
+            return h
+    return None
+
+
 class handle:
     """Context manager installing a handler for the dynamic extent of a model
     body execution."""

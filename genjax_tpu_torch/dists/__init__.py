@@ -1,7 +1,8 @@
-"""Distributions: the ``Distribution`` GFI, a catalog subset, and the
+"""Distributions: the ``Distribution`` GFI, the catalog of 48, and the
 linear-Gaussian state-space posterior with its Kalman family."""
 
-from .catalog import beta, categorical, flip, log_normal, mv_normal, mv_normal_diag, normal
+from . import catalog, special
+from .catalog import *  # noqa: F401,F403  (the 48 distributions)
 from .lgssm import (
     LGSSMParams,
     LinearGaussianSSM,
@@ -20,6 +21,7 @@ from .distribution import (
     ExactDensity,
     LambdaDensity,
     exact_density,
+    torch_distribution,
 )
 
 __all__ = [
@@ -29,11 +31,9 @@ __all__ = [
     "LGSSMParams",
     "LinearGaussianSSM",
     "LambdaDensity",
-    "beta",
-    "categorical",
+    "catalog",
     "exact_density",
     "ffbs",
-    "flip",
     "kalman_filter",
     "kalman_filter_parallel",
     "kalman_predict",
@@ -41,8 +41,7 @@ __all__ = [
     "kalman_smoother_parallel",
     "kalman_update",
     "lgssm_em",
-    "log_normal",
-    "mv_normal",
-    "mv_normal_diag",
-    "normal",
+    "special",
+    "torch_distribution",
+    *catalog.__all__,
 ]

@@ -1,17 +1,25 @@
-"""The distributions of the flagship model and the README quickstart.
+"""The distribution catalog: the reference's 48 exact-density distributions.
 
-Counterpart of part of ``genjax_tpu/dists/catalog.py``: ``normal``,
-``log_normal``, ``mv_normal_diag``, ``mv_normal``, ``beta``, ``flip`` and
-``categorical`` (over the last axis of its logits),
-with the same names, TFP parameter orders and log-density formulas (the
-normal density is ``-(log(2 pi s^2) + (x - m)^2 / s^2) / 2``, as
-``jax.scipy.stats.norm`` computes it). Log-densities are elementwise over
-batch dimensions; ``mv_normal_diag`` and ``mv_normal`` reduce over the event
-axis. Every sampler takes ``sample_shape=`` with TFP's meaning: the count of
-independent draws, which PREPENDS the parameters' batch shape; the
-log-densities accept and ignore it. Arguments that are not tensors are made float32 tensors on the device
-of the tensor arguments (a CUDA device wins over the CPU); samples are drawn
-on the generator's device.
+Counterpart of ``genjax_tpu/dists/catalog.py``, with the same names, TFP
+parameter orders and log-density formulas (``geometric`` counts failures,
+``gamma`` takes a rate, ``bernoulli`` and ``binomial`` take logits, ``flip``
+a probability). The normal density is ``-(log(2 pi s^2) + (x - m)^2 / s^2)
+/ 2``, as ``jax.scipy.stats.norm`` computes it; the other families follow
+the ``jax.scipy.stats`` formula the reference calls, term for term.
+Log-densities are elementwise over batch dimensions; the event families
+(``dirichlet``, ``multinomial``, ``dirichlet_multinomial``, ``mv_normal*``,
+``power_spherical``, ``von_mises_fisher``) reduce over the last axis. Every
+sampler takes ``sample_shape=`` with TFP's meaning: the count of independent
+draws, which PREPENDS the parameters' batch shape; the log-densities accept
+and ignore it. Arguments that are not tensors are made float32 tensors on the
+device of the tensor arguments (a CUDA device wins over the CPU); samples
+are drawn from the caller's generator on its device, by ``torch.rand``,
+``torch.randn``, ``torch._standard_gamma``, ``torch.poisson``,
+``torch.binomial`` and ``torch._sample_dirichlet``, so that every sampler
+runs under ``torch.func.vmap(..., randomness="different")``. Discrete
+samples keep the reference's dtypes (int32 counts from ``poisson``,
+``geometric``, ``bernoulli``, ``negative_binomial``, ``skellam`` and ``zipf``;
+float32 from ``binomial``, ``beta_binomial`` and the multinomials).
 """
 
 from __future__ import annotations
@@ -20,7 +28,9 @@ import functools
 import math
 
 import torch
+import torch.nn.functional as F
 
+from . import special
 from .distribution import exact_density
 
 _LOG_2PI = math.log(2.0 * math.pi)
@@ -149,10 +159,7 @@ def _beta_logpdf(v, concentration1, concentration0, **kw):
 
 def _beta_sample(gen, concentration1, concentration0, **kw):
     a, b = _tensors(concentration1, concentration0, device=gen.device)
-    shape = _bshape(_shape(kw), a, b)
-    x = torch._standard_gamma(a.expand(shape).contiguous(), generator=gen)
-    y = torch._standard_gamma(b.expand(shape).contiguous(), generator=gen)
-    return x / (x + y)
+    return special.beta_sample(gen, a, b, _bshape(_shape(kw), a, b))
 
 
 def _flip_logpdf(v, p, **kw):
@@ -191,22 +198,833 @@ def _categorical_sample(gen, logits, **kw):
     return torch.argmax(logits + gumbel, dim=-1)
 
 
-normal = exact_density(_normal_sample, _normal_logpdf, "normal")
+__all__: list[str] = []
 
-log_normal = exact_density(
+
+def _register(name, sampler, logpdf):
+    d = exact_density(sampler, logpdf, name)
+    globals()[name] = d
+    __all__.append(name)
+    return d
+
+
+def _u01(gen, shape, low: float = 0.0) -> torch.Tensor:
+    """Uniforms in ``[low, 1)`` of ``shape`` from ``gen``."""
+    u = torch.rand(shape, generator=gen, device=gen.device)
+    return u if low == 0.0 else low + (1.0 - low) * u
+
+
+_EPS = torch.finfo(torch.float32).eps
+_TINY = torch.finfo(torch.float32).tiny
+_LOG2 = math.log(2.0)
+
+
+_std_gamma = special.standard_gamma
+
+
+def _chisquare(gen, df, shape) -> torch.Tensor:
+    return 2.0 * _std_gamma(gen, df / 2.0, shape)
+
+
+def _poisson(gen, rate, shape) -> torch.Tensor:
+    return torch.poisson(rate.expand(shape).contiguous(), generator=gen).to(torch.int32)
+
+
+def _binomial(gen, count, prob, shape) -> torch.Tensor:
+    count = torch.as_tensor(count, dtype=torch.float32, device=gen.device).expand(shape)
+    prob = prob.clamp(0.0, 1.0).expand(shape)
+    # under torch.func.vmap both operands carry the lane axis, or the
+    # batching rule writes a batched draw into an unbatched output
+    count, prob = count + torch.zeros_like(prob), prob + torch.zeros_like(count)
+    return torch.binomial(count.contiguous(), prob.contiguous(), generator=gen)
+
+
+def _multinomial_counts(gen, n, p) -> torch.Tensor:
+    """Counts of ``n`` trials over the last axis of ``p`` by a binomial a
+    category on what is left, as ``jax.random.multinomial`` draws."""
+    remaining = torch.flip(torch.cumsum(torch.flip(p, (-1,)), -1), (-1,))
+    ratios = p / torch.where(remaining == 0.0, 1.0, remaining)
+    left = n.expand(p.shape[:-1]).to(torch.float32)
+    counts = []
+    for k in range(p.shape[-1]):
+        c = _binomial(gen, left, ratios[..., k], tuple(p.shape[:-1]))
+        counts.append(c)
+        left = left - c
+    return torch.stack(counts, dim=-1)
+
+
+def _std_cauchy(gen, shape):
+    return torch.tan(math.pi * (_u01(gen, shape).clamp_min(_EPS) - 0.5))
+
+
+def _std_t(gen, df, shape):
+    n = torch.randn(shape, generator=gen, device=gen.device)
+    half_df = df / 2.0
+    return n * torch.sqrt(half_df / _std_gamma(gen, half_df, shape))
+
+
+def _cauchy_logpdf(v, loc=0.0, scale=1.0, **kw):
+    v, loc, scale = _tensors(v, loc, scale)
+    z = (v - loc) / scale
+    return -(torch.log(math.pi * scale) + torch.log1p(z * z))
+
+
+def _t_logpdf(v, df, loc=0.0, scale=1.0, **kw):
+    """``jax.scipy.stats.t.logpdf``."""
+    v, df, loc, scale = _tensors(v, df, loc, scale)
+    z = (v - loc) / scale
+    df_over_two = df / 2.0
+    df_plus_one_over_two = df_over_two + 0.5
+    normalize = (
+        torch.lgamma(df_over_two)
+        + torch.log(scale * scale * math.pi * df) / 2.0
+        - torch.lgamma(df_plus_one_over_two)
+    )
+    return -(normalize + df_plus_one_over_two * torch.log1p(z * z / df))
+
+
+def _chi2_logpdf(v, df, **kw):
+    """``jax.scipy.stats.chi2.logpdf``."""
+    v, df = _tensors(v, df)
+    df_on_two = df / 2.0
+    kernel = (df_on_two - 1.0) * torch.log(v) - v / 2.0
+    nrml = -(torch.lgamma(df_on_two) + _LOG2 * df / 2.0)
+    return torch.where(v < 0.0, -torch.inf, nrml + kernel)
+
+
+def _gamma_logpdf_scale(v, a, scale):
+    """``jax.scipy.stats.gamma.logpdf(v, a, scale=scale)``."""
+    ok = v >= 0.0
+    y = torch.where(ok, v / scale, 1.0)
+    lp = torch.xlogy(a - 1.0, y) - y - (torch.lgamma(a) + torch.log(scale))
+    return torch.where(ok, lp, -torch.inf)
+
+
+# ----------------------------------------------------------------------
+# continuous scalar families
+# ----------------------------------------------------------------------
+
+_register("normal", _normal_sample, _normal_logpdf)
+
+
+def _cauchy_sample(gen, loc=0.0, scale=1.0, **kw):
+    loc, scale = _tensors(loc, scale, device=gen.device)
+    return loc + scale * _std_cauchy(gen, _bshape(_shape(kw), loc, scale))
+
+
+_register("cauchy", _cauchy_sample, _cauchy_logpdf)
+
+
+def _laplace_sample(gen, loc=0.0, scale=1.0, **kw):
+    loc, scale = _tensors(loc, scale, device=gen.device)
+    u = -1.0 + _EPS + (2.0 - _EPS) * _u01(gen, _bshape(_shape(kw), loc, scale))
+    return loc + scale * torch.sign(u) * -torch.log1p(-torch.abs(u))
+
+
+def _laplace_logpdf(v, loc=0.0, scale=1.0, **kw):
+    v, loc, scale = _tensors(v, loc, scale)
+    return -(torch.abs(v - loc) / scale + torch.log(2.0 * scale))
+
+
+_register("laplace", _laplace_sample, _laplace_logpdf)
+
+
+def _logistic_sample(gen, loc=0.0, scale=1.0, **kw):
+    loc, scale = _tensors(loc, scale, device=gen.device)
+    u = _u01(gen, _bshape(_shape(kw), loc, scale)).clamp_min(_TINY)
+    return loc + scale * (torch.log(u) - torch.log1p(-u))
+
+
+def _logistic_logpdf(v, loc=0.0, scale=1.0, **kw):
+    v, loc, scale = _tensors(v, loc, scale)
+    half_z = (v - loc) / scale / 2.0
+    return -2.0 * torch.logaddexp(half_z, -half_z) - torch.log(scale)
+
+
+_register("logistic", _logistic_sample, _logistic_logpdf)
+
+
+def _gumbel_sample(gen, loc=0.0, scale=1.0, **kw):
+    loc, scale = _tensors(loc, scale, device=gen.device)
+    u = _u01(gen, _bshape(_shape(kw), loc, scale)).clamp_min(_TINY)
+    return loc + scale * -torch.log(-torch.log(u))
+
+
+def _gumbel_logpdf(v, loc=0.0, scale=1.0, **kw):
+    v, loc, scale = _tensors(v, loc, scale)
+    z = (v - loc) / scale
+    return -(z + torch.exp(-z)) - torch.log(scale)
+
+
+_register("gumbel", _gumbel_sample, _gumbel_logpdf)
+
+
+def _student_t_sample(gen, df, loc=0.0, scale=1.0, **kw):
+    df, loc, scale = _tensors(df, loc, scale, device=gen.device)
+    return loc + scale * _std_t(gen, df, _bshape(_shape(kw), df, loc, scale))
+
+
+_register("student_t", _student_t_sample, _t_logpdf)
+
+
+def _half_normal_sample(gen, scale=1.0, **kw):
+    (scale,) = _tensors(scale, device=gen.device)
+    return scale * torch.abs(torch.randn(_bshape(_shape(kw), scale), generator=gen, device=gen.device))
+
+
+def _half_normal_logpdf(v, scale=1.0, **kw):
+    (v,) = _tensors(v)
+    return torch.where(v >= 0.0, _LOG2 + _normal_logpdf(v, 0.0, scale), -torch.inf)
+
+
+_register("half_normal", _half_normal_sample, _half_normal_logpdf)
+
+
+def _half_cauchy_sample(gen, loc=0.0, scale=1.0, **kw):
+    loc, scale = _tensors(loc, scale, device=gen.device)
+    return loc + scale * torch.abs(_std_cauchy(gen, _bshape(_shape(kw), loc, scale)))
+
+
+def _half_cauchy_logpdf(v, loc=0.0, scale=1.0, **kw):
+    v, loc = _tensors(v, loc)
+    return torch.where(v >= loc, _LOG2 + _cauchy_logpdf(v, loc, scale), -torch.inf)
+
+
+_register("half_cauchy", _half_cauchy_sample, _half_cauchy_logpdf)
+
+
+def _half_student_t_sample(gen, df, loc=0.0, scale=1.0, **kw):
+    df, loc, scale = _tensors(df, loc, scale, device=gen.device)
+    return loc + scale * torch.abs(_std_t(gen, df, _bshape(_shape(kw), df, loc, scale)))
+
+
+def _half_student_t_logpdf(v, df, loc=0.0, scale=1.0, **kw):
+    v, loc = _tensors(v, loc)
+    return torch.where(v >= loc, _LOG2 + _t_logpdf(v, df, loc, scale), -torch.inf)
+
+
+_register("half_student_t", _half_student_t_sample, _half_student_t_logpdf)
+
+
+def _uniform_sample(gen, low=0.0, high=1.0, **kw):
+    low, high = _tensors(low, high, device=gen.device)
+    u = _u01(gen, _bshape(_shape(kw), low, high))
+    return torch.maximum(low, u * (high - low) + low)
+
+
+def _uniform_logpdf(v, low=0.0, high=1.0, **kw):
+    """``jax.scipy.stats.uniform.logpdf(v, low, high - low)``."""
+    v, low, high = _tensors(v, low, high)
+    scale = high - low
+    return torch.where((v > low + scale) | (v < low), -torch.inf, -torch.log(scale))
+
+
+_register("uniform", _uniform_sample, _uniform_logpdf)
+
+_register("beta", _beta_sample, _beta_logpdf)
+
+
+def _exponential_sample(gen, rate, **kw):
+    (rate,) = _tensors(rate, device=gen.device)
+    return -torch.log1p(-_u01(gen, _bshape(_shape(kw), rate))) / rate
+
+
+def _exponential_logpdf(v, rate, **kw):
+    v, rate = _tensors(v, rate)
+    return torch.where(v >= 0.0, torch.log(rate) - rate * v, -torch.inf)
+
+
+_register("exponential", _exponential_sample, _exponential_logpdf)
+
+
+def _gamma_sample(gen, concentration, rate=1.0, **kw):
+    a, rate = _tensors(concentration, rate, device=gen.device)
+    return _std_gamma(gen, a, _bshape(_shape(kw), a, rate)) / rate
+
+
+def _gamma_logpdf(v, concentration, rate=1.0, **kw):
+    v, a, rate = _tensors(v, concentration, rate)
+    return _gamma_logpdf_scale(v, a, 1.0 / rate)
+
+
+_register("gamma", _gamma_sample, _gamma_logpdf)
+
+
+def _inverse_gamma_sample(gen, concentration, scale, **kw):
+    a, scale = _tensors(concentration, scale, device=gen.device)
+    return scale / _std_gamma(gen, a, _bshape(_shape(kw), a, scale))
+
+
+def _inverse_gamma_logpdf(v, concentration, scale, **kw):
+    v, a, scale = _tensors(v, concentration, scale)
+    return torch.where(
+        v > 0.0,
+        torch.xlogy(a, scale) - torch.lgamma(a) - (a + 1.0) * torch.log(v) - scale / v,
+        -torch.inf,
+    )
+
+
+_register("inverse_gamma", _inverse_gamma_sample, _inverse_gamma_logpdf)
+
+
+def _chi_sample(gen, df, **kw):
+    (df,) = _tensors(df, device=gen.device)
+    return torch.sqrt(_chisquare(gen, df, _bshape(_shape(kw), df)))
+
+
+def _chi_logpdf(v, df, **kw):
+    v, df = _tensors(v, df)
+    return torch.where(
+        v > 0.0,
+        (df - 1.0) * torch.log(v) - v**2 / 2.0 - (df / 2.0 - 1.0) * _LOG2 - torch.lgamma(df / 2.0),
+        -torch.inf,
+    )
+
+
+_register("chi", _chi_sample, _chi_logpdf)
+
+
+def _chi2_sample(gen, df, **kw):
+    (df,) = _tensors(df, device=gen.device)
+    return _chisquare(gen, df, _bshape(_shape(kw), df))
+
+
+_register("chi2", _chi2_sample, _chi2_logpdf)
+
+
+def _weibull_sample(gen, concentration, scale, **kw):
+    k, lam = _tensors(concentration, scale, device=gen.device)
+    u = _u01(gen, _bshape(_shape(kw), k, lam))
+    return torch.pow(-torch.log1p(-u), 1.0 / k) * lam
+
+
+def _weibull_logpdf(v, concentration, scale, **kw):
+    v, k, lam = _tensors(v, concentration, scale)
+    z = v / lam
+    return torch.where(
+        v >= 0.0, torch.log(k) - torch.log(lam) + torch.xlogy(k - 1.0, z) - z**k, -torch.inf
+    )
+
+
+_register("weibull", _weibull_sample, _weibull_logpdf)
+
+_register(
+    "log_normal",
     lambda gen, loc=0.0, scale=1.0, **kw: torch.exp(_normal_sample(gen, loc, scale, **kw)),
     _log_normal_logpdf,
-    "log_normal",
 )
 
-mv_normal_diag = exact_density(_normal_sample, _mv_normal_diag_logpdf, "mv_normal_diag")
 
-mv_normal = exact_density(_mv_normal_sample, _mv_normal_logpdf, "mv_normal")
+def _logit_normal_logpdf(v, loc=0.0, scale=1.0, **kw):
+    (v,) = _tensors(v)
+    logit = torch.log(v) - torch.log1p(-v)
+    return _normal_logpdf(logit, loc, scale) - torch.log(v) - torch.log1p(-v)
 
-beta = exact_density(_beta_sample, _beta_logpdf, "beta")
 
-flip = exact_density(_flip_sample, _flip_logpdf, "flip")
+_register(
+    "logit_normal",
+    lambda gen, loc=0.0, scale=1.0, **kw: torch.sigmoid(_normal_sample(gen, loc, scale, **kw)),
+    _logit_normal_logpdf,
+)
 
-categorical = exact_density(_categorical_sample, _categorical_logpmf, "categorical")
 
-__all__ = ["beta", "categorical", "flip", "log_normal", "mv_normal", "mv_normal_diag", "normal"]
+def _truncated_normal_sample(gen, loc, scale, low, high, **kw):
+    """Inverse-CDF draw through ``erf``, clipped inside the bounds, as
+    ``jax.random.truncated_normal`` draws."""
+    loc, scale, low, high = _tensors(loc, scale, low, high, device=gen.device)
+    a = (low - loc) / scale
+    b = (high - loc) / scale
+    sqrt2 = math.sqrt(2.0)
+    ea, eb = torch.erf(a / sqrt2), torch.erf(b / sqrt2)
+    u = _u01(gen, _bshape(_shape(kw), loc, scale, low, high))
+    z = sqrt2 * torch.erfinv(torch.maximum(ea, u * (eb - ea) + ea))
+    z = torch.clamp(z, torch.nextafter(a, torch.full_like(a, torch.inf)), torch.nextafter(b, torch.full_like(b, -torch.inf)))
+    return loc + scale * z
+
+
+def _truncated_normal_logpdf(v, loc, scale, low, high, **kw):
+    """The normal density over ``log(Phi(b) - Phi(a))``, the difference of
+    ``log_ndtr`` taken on the side where the CDF is small."""
+    v, loc, scale, low, high = _tensors(v, loc, scale, low, high)
+    a = (low - loc) / scale
+    b = (high - loc) / scale
+
+    def log_diff(lo, hi):
+        hi_l = torch.special.log_ndtr(hi)
+        return hi_l + torch.log1p(-torch.exp(torch.special.log_ndtr(lo) - hi_l))
+
+    lz = torch.where(a >= 0.0, log_diff(-b, -a), log_diff(a, b))
+    lp = _normal_logpdf(v, loc, scale) - lz
+    return torch.where((v >= low) & (v <= high), lp, -torch.inf)
+
+
+_register("truncated_normal", _truncated_normal_sample, _truncated_normal_logpdf)
+
+
+def _cauchy_cdf(v, loc, scale):
+    return 0.5 + torch.arctan((v - loc) / scale) / math.pi
+
+
+def _truncated_cauchy_sample(gen, loc, scale, low, high, **kw):
+    loc, scale, low, high = _tensors(loc, scale, low, high, device=gen.device)
+    fa, fb = _cauchy_cdf(low, loc, scale), _cauchy_cdf(high, loc, scale)
+    u = _u01(gen, _bshape(_shape(kw), loc, scale, low, high))
+    return loc + scale * torch.tan(math.pi * (fa + u * (fb - fa) - 0.5))
+
+
+def _truncated_cauchy_logpdf(v, loc, scale, low, high, **kw):
+    v, loc, scale, low, high = _tensors(v, loc, scale, low, high)
+    fa, fb = _cauchy_cdf(low, loc, scale), _cauchy_cdf(high, loc, scale)
+    lp = _cauchy_logpdf(v, loc, scale) - torch.log(fb - fa)
+    return torch.where((v >= low) & (v <= high), lp, -torch.inf)
+
+
+_register("truncated_cauchy", _truncated_cauchy_sample, _truncated_cauchy_logpdf)
+
+
+def _kumaraswamy_sample(gen, concentration1, concentration0, **kw):
+    a, b = _tensors(concentration1, concentration0, device=gen.device)
+    u = _u01(gen, _bshape(_shape(kw), a, b), low=1e-7)
+    return (1.0 - (1.0 - u) ** (1.0 / b)) ** (1.0 / a)
+
+
+def _kumaraswamy_logpdf(v, concentration1, concentration0, **kw):
+    v, a, b = _tensors(v, concentration1, concentration0)
+    return torch.where(
+        (v > 0.0) & (v < 1.0),
+        torch.log(a) + torch.log(b) + torch.xlogy(a - 1.0, v) + torch.special.xlog1py(b - 1.0, -(v**a)),
+        -torch.inf,
+    )
+
+
+_register("kumaraswamy", _kumaraswamy_sample, _kumaraswamy_logpdf)
+
+
+def _moyal_sample(gen, loc=0.0, scale=1.0, **kw):
+    loc, scale = _tensors(loc, scale, device=gen.device)
+    u = 1e-7 + (1.0 - 2e-7) * _u01(gen, _bshape(_shape(kw), loc, scale))
+    return loc + scale * (-2.0 * torch.log(math.sqrt(2.0) * special.erfcinv(u)))
+
+
+def _moyal_logpdf(v, loc=0.0, scale=1.0, **kw):
+    v, loc, scale = _tensors(v, loc, scale)
+    z = (v - loc) / scale
+    return -0.5 * (z + torch.exp(-z)) - 0.5 * math.log(2.0 * math.pi) - torch.log(scale)
+
+
+_register("moyal", _moyal_sample, _moyal_logpdf)
+
+
+def _dsmaxwell_sample(gen, loc=0.0, scale=1.0, **kw):
+    loc, scale = _tensors(loc, scale, device=gen.device)
+    shape = _bshape(_shape(kw), loc, scale)
+    maxwell = torch.linalg.vector_norm(
+        torch.randn(shape + (3,), generator=gen, device=gen.device), dim=-1
+    )
+    sign = torch.where(_u01(gen, shape) < 0.5, -1.0, 1.0)
+    return sign * maxwell * scale + loc
+
+
+def _dsmaxwell_logpdf(v, loc=0.0, scale=1.0, **kw):
+    v, loc, scale = _tensors(v, loc, scale)
+    z = (v - loc) / scale
+    return (
+        2.0 * torch.log(torch.abs(z) + 1e-30)
+        - z**2 / 2.0
+        - 0.5 * math.log(2.0 * math.pi)
+        - torch.log(scale)
+    )
+
+
+_register("double_sided_maxwell", _dsmaxwell_sample, _dsmaxwell_logpdf)
+
+
+def _log_gamma_sample(gen, a, shape):
+    """``log Gamma(a, 1)`` without underflow for small ``a``:
+    ``log G(a + 1) + log(U) / a``."""
+    return torch.log(_std_gamma(gen, a + 1.0, shape)) + torch.log(_u01(gen, shape).clamp_min(_TINY)) / a
+
+
+def _exp_gamma_sample(gen, concentration, rate=1.0, **kw):
+    a, rate = _tensors(concentration, rate, device=gen.device)
+    return _log_gamma_sample(gen, a, _bshape(_shape(kw), a, rate)) - torch.log(rate)
+
+
+def _exp_gamma_logpdf(v, concentration, rate=1.0, **kw):
+    v, a, rate = _tensors(v, concentration, rate)
+    return torch.xlogy(a, rate) + a * v - rate * torch.exp(v) - torch.lgamma(a)
+
+
+_register("exp_gamma", _exp_gamma_sample, _exp_gamma_logpdf)
+
+
+def _exp_inverse_gamma_sample(gen, concentration, scale=1.0, **kw):
+    a, scale = _tensors(concentration, scale, device=gen.device)
+    return torch.log(scale) - _log_gamma_sample(gen, a, _bshape(_shape(kw), a, scale))
+
+
+def _exp_inverse_gamma_logpdf(v, concentration, scale=1.0, **kw):
+    v, a, scale = _tensors(v, concentration, scale)
+    return torch.xlogy(a, scale) - a * v - scale * torch.exp(-v) - torch.lgamma(a)
+
+
+_register("exp_inverse_gamma", _exp_inverse_gamma_sample, _exp_inverse_gamma_logpdf)
+
+
+def _inverse_gaussian_sample(gen, loc, concentration, **kw):
+    """``concentration`` times a unit-shape Wald draw of mean ``loc /
+    concentration`` (Michael, Schucany and Haas), as
+    ``jax.random.wald`` draws."""
+    mu, lam = _tensors(loc, concentration, device=gen.device)
+    shape = _bshape(_shape(kw), mu, lam)
+    mean = mu / lam
+    y = torch.randn(shape, generator=gen, device=gen.device) ** 2
+    z = _u01(gen, shape)
+    mean_sq = mean**2
+    x = mean + mean_sq * y / 2.0 - mean * torch.sqrt(4.0 * mean * y + mean_sq * y**2) / 2.0
+    return lam * torch.where(z <= mean / (mean + x), x, mean_sq / x)
+
+
+def _inverse_gaussian_logpdf(v, loc, concentration, **kw):
+    v, mu, lam = _tensors(v, loc, concentration)
+    return torch.where(
+        v > 0.0,
+        0.5 * (torch.log(lam) - math.log(2.0 * math.pi) - 3.0 * torch.log(v))
+        - lam * (v - mu) ** 2 / (2.0 * mu**2 * v),
+        -torch.inf,
+    )
+
+
+_register("inverse_gaussian", _inverse_gaussian_sample, _inverse_gaussian_logpdf)
+
+
+def _von_mises_sample(gen, loc, concentration, **kw):
+    loc, kappa = _tensors(loc, concentration, device=gen.device)
+    return special.von_mises_sample(gen, loc, kappa, _bshape(_shape(kw), loc, kappa))
+
+
+def _von_mises_logpdf(v, loc, concentration, **kw):
+    v, loc, kappa = _tensors(v, loc, concentration)
+    return kappa * torch.cos(v - loc) - math.log(2.0 * math.pi) - special.log_bessel_i0(kappa)
+
+
+_register("von_mises", _von_mises_sample, _von_mises_logpdf)
+
+
+def _lambert_w_normal_sample(gen, loc=0.0, scale=1.0, tailweight=0.0, **kw):
+    loc, scale, delta = _tensors(loc, scale, tailweight, device=gen.device)
+    u = torch.randn(_bshape(_shape(kw), loc, scale, delta), generator=gen, device=gen.device)
+    return loc + scale * u * torch.exp(delta / 2.0 * u**2)
+
+
+def _lambert_w_normal_logpdf(v, loc=0.0, scale=1.0, tailweight=0.0, **kw):
+    """The inverse transform ``u = sign(z) sqrt(W(delta z^2) / delta)`` and
+    its Jacobian ``|du/dz| = u / (z (1 + W))``, 1 at ``delta = 0`` and in the
+    limit ``z -> 0``."""
+    v, loc, scale, delta = _tensors(v, loc, scale, tailweight)
+    z = (v - loc) / scale
+    wz = special.lambertw(delta * z**2)
+    u = torch.sign(z) * torch.sqrt(torch.clamp_min(wz / torch.where(delta == 0.0, 1.0, delta), 0.0))
+    u = torch.where(delta == 0.0, z, u)
+    dudz = torch.where(
+        (delta == 0.0) | (torch.abs(z) < 1e-6),
+        1.0,
+        torch.abs(u) / torch.clamp_min(torch.abs(z) * (1.0 + wz), 1e-30),
+    )
+    return _normal_logpdf(u, 0.0, 1.0) + torch.log(torch.clamp_min(dudz, 1e-30)) - torch.log(scale)
+
+
+_register("lambert_w_normal", _lambert_w_normal_sample, _lambert_w_normal_logpdf)
+
+
+# ----------------------------------------------------------------------
+# discrete families
+# ----------------------------------------------------------------------
+
+
+def _bernoulli_sample(gen, logits=None, **kw):
+    (logits,) = _tensors(logits, device=gen.device)
+    u = _u01(gen, _bshape(_shape(kw), logits))
+    return (u < torch.sigmoid(logits)).to(torch.int32)
+
+
+def _bernoulli_logpmf(v, logits=None, **kw):
+    v, logits = _tensors(v, logits)
+    return v * logits - F.softplus(logits)
+
+
+_register("bernoulli", _bernoulli_sample, _bernoulli_logpmf)
+
+_register("flip", _flip_sample, _flip_logpdf)
+
+_register("categorical", _categorical_sample, _categorical_logpmf)
+
+
+def _binomial_sample(gen, total_count, logits=None, **kw):
+    n, logits = _tensors(total_count, logits, device=gen.device)
+    return _binomial(gen, n, torch.sigmoid(logits), _bshape(_shape(kw), n, logits))
+
+
+def _binomial_logpmf(v, total_count, logits=None, **kw):
+    k, n, logits = _tensors(v, total_count, logits)
+    comb = torch.lgamma(n + 1.0) - torch.lgamma(k + 1.0) - torch.lgamma(n - k + 1.0)
+    lp = comb + k * logits - n * F.softplus(logits)
+    return torch.where((k >= 0) & (k <= n), lp, -torch.inf)
+
+
+_register("binomial", _binomial_sample, _binomial_logpmf)
+
+
+def _geometric_sample(gen, logits, **kw):
+    """Failures before the first success (TFP's support ``0, 1, ...``):
+    ``floor(log1p(-U) / log1p(-p))``."""
+    (logits,) = _tensors(logits, device=gen.device)
+    u = _u01(gen, _bshape(_shape(kw), logits))
+    p = torch.sigmoid(logits)
+    return torch.floor(torch.log1p(-u) / torch.log1p(-p)).to(torch.int32)
+
+
+def _geometric_logpmf(v, logits, **kw):
+    k, logits = _tensors(v, logits)
+    return torch.where(k >= 0, logits - (k + 1.0) * F.softplus(logits), -torch.inf)
+
+
+_register("geometric", _geometric_sample, _geometric_logpmf)
+
+
+def _poisson_sample(gen, rate, **kw):
+    (rate,) = _tensors(rate, device=gen.device)
+    return _poisson(gen, rate, _bshape(_shape(kw), rate))
+
+
+def _poisson_logpmf(v, rate, **kw):
+    """``jax.scipy.stats.poisson.logpmf``: ``-inf`` off the non-negative
+    integers."""
+    k, mu = _tensors(v, rate)
+    lp = torch.xlogy(k, mu) - torch.lgamma(k + 1.0) - mu
+    return torch.where((k < 0.0) | (torch.round(k) != k), -torch.inf, lp)
+
+
+_register("poisson", _poisson_sample, _poisson_logpmf)
+
+
+def _negative_binomial_sample(gen, total_count, logits, **kw):
+    n, logits = _tensors(total_count, logits, device=gen.device)
+    shape = _bshape(_shape(kw), n, logits)
+    p = torch.sigmoid(logits)
+    return _poisson(gen, _std_gamma(gen, n, shape) * (p / (1.0 - p)), shape)
+
+
+def _negative_binomial_logpmf(v, total_count, logits, **kw):
+    k, n, logits = _tensors(v, total_count, logits)
+    sp = F.softplus(logits)
+    lp = torch.lgamma(k + n) - torch.lgamma(n) - torch.lgamma(k + 1.0) + k * (logits - sp) - n * sp
+    return torch.where(k >= 0, lp, -torch.inf)
+
+
+_register("negative_binomial", _negative_binomial_sample, _negative_binomial_logpmf)
+
+
+def _beta_binomial_sample(gen, total_count, concentration1, concentration0, **kw):
+    n, a, b = _tensors(total_count, concentration1, concentration0, device=gen.device)
+    shape = _bshape(_shape(kw), n, a, b)
+    return _binomial(gen, n, special.beta_sample(gen, a, b, shape), shape)
+
+
+def _beta_binomial_logpmf(v, total_count, concentration1, concentration0, **kw):
+    k, n, a, b = _tensors(v, total_count, concentration1, concentration0)
+    lp = (
+        torch.lgamma(n + 1.0)
+        - torch.lgamma(k + 1.0)
+        - torch.lgamma(n - k + 1.0)
+        + _betaln(k + a, n - k + b)
+        - _betaln(a, b)
+    )
+    return torch.where((k >= 0) & (k <= n), lp, -torch.inf)
+
+
+_register("beta_binomial", _beta_binomial_sample, _beta_binomial_logpmf)
+
+
+def _skellam_sample(gen, rate1, rate2, **kw):
+    mu1, mu2 = _tensors(rate1, rate2, device=gen.device)
+    shape = _bshape(_shape(kw), mu1, mu2)
+    return _poisson(gen, mu1, shape) - _poisson(gen, mu2, shape)
+
+
+def _skellam_logpmf(v, rate1, rate2, **kw):
+    k, mu1, mu2 = _tensors(v, rate1, rate2)
+    return (
+        -(mu1 + mu2)
+        + 0.5 * k * (torch.log(mu1) - torch.log(mu2))
+        + special.log_bessel_iv(torch.abs(k), 2.0 * torch.sqrt(mu1 * mu2))
+    )
+
+
+_register("skellam", _skellam_sample, _skellam_logpmf)
+
+
+def _zipf_sample(gen, power, **kw):
+    (a,) = _tensors(power, device=gen.device)
+    return special.zipf_sample(gen, a, _bshape(_shape(kw), a))
+
+
+def _zipf_logpmf(v, power, **kw):
+    k, a = _tensors(v, power)
+    return torch.where(
+        k >= 1.0, -a * torch.log(k) - torch.log(torch.special.zeta(a, torch.ones_like(a))), -torch.inf
+    )
+
+
+_register("zipf", _zipf_sample, _zipf_logpmf)
+
+
+def _non_central_chi2_sample(gen, df, noncentrality, **kw):
+    df, nc = _tensors(df, noncentrality, device=gen.device)
+    shape = _bshape(_shape(kw), df, nc)
+    j = _poisson(gen, nc / 2.0, shape)
+    return _chisquare(gen, df + 2.0 * j, shape)
+
+
+def _non_central_chi2_logpdf(v, df, noncentrality, **kw):
+    x, df, nc = _tensors(v, df, noncentrality)
+    hd = df / 2.0 - 1.0
+    lp = (
+        -_LOG2
+        - (x + nc) / 2.0
+        + hd / 2.0 * (torch.log(x) - torch.log(torch.clamp_min(nc, 1e-30)))
+        + special.log_bessel_iv(hd, torch.sqrt(torch.clamp_min(nc * x, 0.0)))
+    )
+    lp = torch.where(nc < 1e-10, _chi2_logpdf(x, df), lp)
+    return torch.where(x > 0.0, lp, -torch.inf)
+
+
+_register("non_central_chi2", _non_central_chi2_sample, _non_central_chi2_logpdf)
+
+
+# ----------------------------------------------------------------------
+# event-dimension families
+# ----------------------------------------------------------------------
+
+
+def _dirichlet_sample(gen, concentration, **kw):
+    (alpha,) = _tensors(concentration, device=gen.device)
+    shape = _bshape(_shape(kw), tuple(alpha.shape[:-1])) + tuple(alpha.shape[-1:])
+    return torch._sample_dirichlet(alpha.expand(shape).contiguous(), generator=gen)
+
+
+def _dirichlet_logpdf(v, concentration, **kw):
+    """``jax.scipy.stats.dirichlet.logpdf`` over the last axis: ``-inf``
+    off the simplex (a coordinate not positive, or a sum off 1 by 1e-6)."""
+    x, alpha = _tensors(v, concentration)
+    normalize = torch.sum(torch.lgamma(alpha), -1) - torch.lgamma(torch.sum(alpha, -1))
+    lp = torch.sum(torch.xlogy(alpha - 1.0, x), -1) - normalize
+    simplex = torch.all(x > 0, dim=-1) & (torch.abs(torch.sum(x, -1) - 1.0) < 1e-6)
+    return torch.where(simplex, lp, -torch.inf)
+
+
+_register("dirichlet", _dirichlet_sample, _dirichlet_logpdf)
+
+
+def _multinomial_sample(gen, total_count, logits, **kw):
+    n, logits = _tensors(total_count, logits, device=gen.device)
+    batch = _bshape(_shape(kw), tuple(logits.shape[:-1]), tuple(n.shape))
+    p = torch.softmax(logits, dim=-1).expand(batch + tuple(logits.shape[-1:]))
+    return _multinomial_counts(gen, n, p)
+
+
+def _multinomial_logpmf(v, total_count, logits, **kw):
+    x, n, logits = _tensors(v, total_count, logits)
+    logp = torch.log_softmax(logits, dim=-1)
+    return torch.lgamma(n + 1.0) - torch.sum(torch.lgamma(x + 1.0), -1) + torch.sum(x * logp, -1)
+
+
+_register("multinomial", _multinomial_sample, _multinomial_logpmf)
+
+
+def _dirichlet_multinomial_sample(gen, total_count, concentration, **kw):
+    n, alpha = _tensors(total_count, concentration, device=gen.device)
+    batch = _bshape(_shape(kw), tuple(alpha.shape[:-1]))
+    p = torch._sample_dirichlet(alpha.expand(batch + tuple(alpha.shape[-1:])).contiguous(), generator=gen)
+    return _multinomial_counts(gen, n, p)
+
+
+def _dirichlet_multinomial_logpmf(v, total_count, concentration, **kw):
+    x, n, a = _tensors(v, total_count, concentration)
+    a0 = torch.sum(a, -1)
+    return (
+        torch.lgamma(n + 1.0)
+        - torch.sum(torch.lgamma(x + 1.0), -1)
+        + torch.lgamma(a0)
+        - torch.lgamma(n + a0)
+        + torch.sum(torch.lgamma(x + a) - torch.lgamma(a), -1)
+    )
+
+
+_register("dirichlet_multinomial", _dirichlet_multinomial_sample, _dirichlet_multinomial_logpmf)
+
+_register("mv_normal_diag", _normal_sample, _mv_normal_diag_logpdf)
+
+_register("mv_normal", _mv_normal_sample, _mv_normal_logpdf)
+
+
+def _directional(sampler):
+    """A directional sampler over its parameters' batch, with
+    ``sample_shape`` draws prepended by broadcasting the parameters to
+    them (the reference vmaps a single-draw sampler over split keys)."""
+
+    def sample(gen, mean_direction, concentration, **kw):
+        mu, kappa = _tensors(mean_direction, concentration, device=gen.device)
+        batch = _bshape(_shape(kw), tuple(mu.shape[:-1]), kappa)
+        return sampler(gen, mu.expand(batch + tuple(mu.shape[-1:])), kappa.expand(batch))
+
+    return sample
+
+
+_register(
+    "power_spherical",
+    _directional(special.power_spherical_sample),
+    lambda v, mean_direction, concentration, **kw: special.power_spherical_logpdf(
+        *_tensors(v, mean_direction, concentration)
+    ),
+)
+
+_register(
+    "von_mises_fisher",
+    _directional(special.von_mises_fisher_sample),
+    lambda v, mean_direction, concentration, **kw: special.von_mises_fisher_logpdf(
+        *_tensors(v, mean_direction, concentration)
+    ),
+)
+
+
+# ----------------------------------------------------------------------
+# quotient family (quadrature-based density)
+# ----------------------------------------------------------------------
+
+
+def _beta_quotient_sample(gen, c1_num, c0_num, c1_den, c0_den, **kw):
+    a1, b1, a2, b2 = _tensors(c1_num, c0_num, c1_den, c0_den, device=gen.device)
+    shape = _bshape(_shape(kw), a1, b1, a2, b2)
+    return special.beta_sample(gen, a1, b1, shape) / special.beta_sample(gen, a2, b2, shape)
+
+
+def _beta_quotient_logpdf(v, c1_num, c0_num, c1_den, c0_den, **kw):
+    """The density of ``X / Y`` for independent betas by 128-node
+    Gauss-Legendre quadrature over the denominator: ``f(z) = int f_X(z y)
+    f_Y(y) y dy`` for ``y`` in ``(0, min(1, 1 / z))``."""
+    z, a1, b1, a2, b2 = _tensors(v, c1_num, c0_num, c1_den, c0_den)
+    nodes, weights = special.gauss_legendre(128, device=z.device)
+    upper = torch.clamp_max(1.0 / torch.clamp_min(z, 1e-30), 1.0)
+    expand = (...,) + (None,) * z.dim()
+    y = nodes[expand] * upper
+    vals = torch.exp(
+        _beta_logpdf(torch.clamp(z * y, 1e-30, 1.0 - 1e-7), a1, b1)
+        + _beta_logpdf(torch.clamp(y, 1e-30, 1.0 - 1e-7), a2, b2)
+        + torch.log(y)
+    )
+    integral = torch.sum(weights[expand] * vals, dim=0) * upper
+    return torch.where(z > 0.0, torch.log(torch.clamp_min(integral, 1e-38)), -torch.inf)
+
+
+_register("beta_quotient", _beta_quotient_sample, _beta_quotient_logpdf)

@@ -276,6 +276,35 @@ class LambdaDensity(ExactDensity):
         return f"genjax_tpu_torch.{self.name}"
 
 
+def torch_distribution(dist_ctor, name: str = "torch_distribution") -> LambdaDensity:
+    """An ``ExactDensity`` over a ``torch.distributions`` constructor: the
+    counterpart of the reference's ``tfp_distribution``.
+
+    ``torch.distributions`` samplers take no generator and draw from torch's
+    global streams, so the draw is made a function of the caller's
+    generator: one int64 is drawn from it and seeds the default generator of
+    the generator's device (and the CPU's) under ``torch.random.fork_rng``,
+    which restores the global streams afterwards. Reading that seed is a
+    host read, so this sampler does not run under ``torch.func.vmap``. The
+    log-density sums over any axes ``log_prob`` leaves.
+    """
+
+    def sampler(gen: torch.Generator, *args, sample_shape=(), **kwargs):
+        seed = int(torch.randint(0, 2**63 - 1, (), generator=gen, device=gen.device))
+        cuda = [gen.device] if gen.device.type == "cuda" else []
+        with torch.random.fork_rng(devices=cuda):
+            torch.random.default_generator.manual_seed(seed)
+            if cuda:
+                torch.cuda.default_generators[gen.device.index or 0].manual_seed(seed)
+            return dist_ctor(*args, **kwargs).sample(torch.Size(sample_shape))
+
+    def logpdf(v, *args, sample_shape=(), **kwargs):
+        lp = dist_ctor(*args, **kwargs).log_prob(torch.as_tensor(v))
+        return torch.sum(lp) if lp.dim() else lp
+
+    return LambdaDensity(sampler, logpdf, name)
+
+
 def exact_density(
     sample: Callable, logpdf: Callable, name: str = "exact_density"
 ) -> LambdaDensity:

@@ -652,3 +652,4 @@ class _ChoiceMapBuilder:
 
 
 C = _ChoiceMapBuilder(())
+ChoiceMapBuilder = C

@@ -292,3 +292,4 @@ class _SelectionBuilder:
 
 
 S = _SelectionBuilder()
+SelectionBuilder = _SelectionBuilder

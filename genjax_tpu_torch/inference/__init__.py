@@ -1,9 +1,14 @@
 """Inference library: GenSP targets and algorithms, SMC and tempered SMC,
 MCMC runners and the moves they run as edit requests, the one-call drivers
 ``sample_posterior`` and ``sample_logdensity`` and their convergence
-diagnostics."""
+diagnostics, variational inference (the ADEV losses of ``vi`` and ADVI),
+and MAP and Laplace estimation."""
 
-from . import adaptation, diagnostics, mcmc, requests, sample, smc, sp, tempered
+from . import adaptation, diagnostics, learning, mcmc, requests, sample, smc, sp, tempered, vi
+
+# (the public name ``advi`` is the fit function, not the module)
+from .advi import ADVIPosterior, ADVIResult, advi, column_advi
+from .learning import LaplaceResult, MAPResult, fit_map, laplace_approximation
 from .diagnostics import ess, split_rhat
 from .mcmc import MHChainResult, mh, run_chain, run_chains, run_chains_hmc, run_chains_nuts
 from .sample import LogdensitySamples, PosteriorSamples, sample_logdensity, sample_posterior
@@ -18,12 +23,16 @@ from .tempered import (
 )
 
 __all__ = [
+    "ADVIPosterior",
+    "ADVIResult",
     "AdaptiveTemperedSMCResult",
     "Algorithm",
     "ChangeTarget",
     "Importance",
     "ImportanceK",
+    "LaplaceResult",
     "LogdensitySamples",
+    "MAPResult",
     "MHChainResult",
     "Marginal",
     "ParticleCollection",
@@ -34,9 +43,14 @@ __all__ = [
     "TemperedSMCResult",
     "adaptation",
     "adaptive_tempered_smc",
+    "advi",
+    "column_advi",
     "diagnostics",
     "ess",
+    "fit_map",
     "geometric_ladder",
+    "laplace_approximation",
+    "learning",
     "marginal",
     "mcmc",
     "mh",
@@ -53,4 +67,5 @@ __all__ = [
     "split_rhat",
     "tempered",
     "tempered_smc",
+    "vi",
 ]

@@ -1,5 +1,5 @@
 """The ``@gen`` modeling language."""
 
-from .static_lang import StaticGenerativeFunction, StaticRequest, StaticTrace, gen
+from .static_lang import StaticGenerativeFunction, StaticRequest, StaticTrace, gen, trace
 
-__all__ = ["StaticGenerativeFunction", "StaticRequest", "StaticTrace", "gen"]
+__all__ = ["StaticGenerativeFunction", "StaticRequest", "StaticTrace", "gen", "trace"]

@@ -394,6 +394,14 @@ def _assemble_update_bwd(bwd: dict) -> Update:
     return Update(acc)
 
 
+def trace(addr, gen_fn, args: tuple = ()):
+    """The trace intrinsic in function form: ``trace(addr, gen_fn, args)``
+    is ``gen_fn(*args) @ addr``."""
+    from ..core.handlers import dispatch_trace
+
+    return dispatch_trace(addr, gen_fn, args)
+
+
 def gen(fn: Callable) -> StaticGenerativeFunction:
     """Decorator: a Python function with addressed calls becomes a
     ``StaticGenerativeFunction``.

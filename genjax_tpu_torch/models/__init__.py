@@ -9,7 +9,13 @@ from .gp import (
     sq_exp_kernel,
 )
 from .mixture import dp_mixture_model, gaussian_mixture_model
-from .regression import RegressionModel, hierarchical_regression, linear_regression, logistic_regression
+from .regression import (
+    RegressionModel,
+    hierarchical_regression,
+    linear_regression,
+    logistic_regression,
+    poisson_regression,
+)
 from .ssm import linear_gaussian_ssm, stochastic_volatility
 
 __all__ = [
@@ -25,6 +31,7 @@ __all__ = [
     "linear_gaussian_ssm",
     "linear_regression",
     "logistic_regression",
+    "poisson_regression",
     "sq_exp_kernel",
     "stochastic_volatility",
 ]

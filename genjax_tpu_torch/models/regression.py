@@ -1,8 +1,8 @@
 """Bayesian regression families.
 
-Counterpart of ``genjax_tpu/models/regression.py`` (``linear_regression``,
-the flagship ``hierarchical_regression`` and ``logistic_regression``;
-``poisson_regression`` waits for ``poisson``). ``X`` is taken as an array
+Counterpart of ``genjax_tpu/models/regression.py``: ``linear_regression``,
+the flagship ``hierarchical_regression``, ``logistic_regression`` and
+``poisson_regression``. ``X`` is taken as an array
 (numpy, as the reference's benchmark passes it) and used as a float32
 tensor on the device of the model's draws.
 """
@@ -17,7 +17,7 @@ import torch
 
 from ..core.handlers import active_handler
 from ..core.pytree import Pytree
-from ..dists import flip, log_normal, mv_normal_diag
+from ..dists import flip, log_normal, mv_normal_diag, poisson
 from ..generative.trace import trace_device
 from ..lang.static_lang import StaticGenerativeFunction, gen
 
@@ -127,5 +127,32 @@ def logistic_regression(X, *, prior_scale: float = 2.0):
         probs = torch.sigmoid(X_on(dev) @ w)
         _ = obs_vmap(torch.arange(n, device=dev), probs) @ "obs"
         return probs
+
+    return model
+
+
+def poisson_regression(X, *, prior_scale: float = 1.0):
+    """Poisson GLM: ``w ~ N(0, prior_scale)``, ``y_i ~ Poisson(exp(x_i .
+    w))``. Addresses ``"w"`` and ``("obs", i, "y")``; constrain with
+    ``C["obs", :, "y"].set(counts)``. Returns ``model``: the log-posterior
+    is strictly concave, so ``laplace_approximation`` is its validation
+    reference."""
+    X_on = _on_device(X)
+    n, d = np.shape(X)
+
+    # made once, outside the body (see logistic_regression)
+    @gen
+    def obs_point(i, rates):
+        return poisson(rates[i]) @ "y"
+
+    obs_vmap = obs_point.vmap(in_axes=(0, None))
+
+    @gen
+    def model():
+        dev = _running_device()
+        w = mv_normal_diag(torch.zeros(d, device=dev), prior_scale * torch.ones(d, device=dev)) @ "w"
+        rates = torch.exp(X_on(dev) @ w)
+        _ = obs_vmap(torch.arange(n, device=dev), rates) @ "obs"
+        return rates
 
     return model

@@ -22,6 +22,7 @@ LAYERS = {
     "lang": 3,
     "dists": 3,
     "combinators": 4,
+    "adev": 4,
     "models": 5,
     "kernels": 6,
     "parallel": 6,
