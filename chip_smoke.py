@@ -66,7 +66,17 @@ the 48 distributions (log-densities on the card against the CPU, moments
 against scipy or the CPU's draws), ``poisson_regression`` at n = 100,000,
 d = 16 through ``fit_map`` and ``laplace_approximation`` against a float64
 Newton optimum and inverse Hessian, and full-rank ADVI on the 128-d dense
-target against its covariance. It checks
+target against its covariance; and the discrete and trace-level families,
+torch in both packages: a 64-state discrete HMM over 4,096 observations
+(the sequential and parallel log marginals against each other and float64
+numpy, both Viterbi passes, 16,384 FFBS paths against the smoothed
+marginals), Gibbs within MH over 16,384 chains and block Gibbs over 4,096
+lanes against their closed forms, particle Gibbs on the exact testbed
+against forward-backward and a PMMH run, the elliptical and slice requests
+and involutive MCMC over 65,536 chains in law, SBC over 16,384
+simulations, the posterior predictive of ``linear_regression``, PPCA at n =
+100,000 x d = 64 against float64 and its ML fit, and the BNN's ADVI fit
+against its exact linear posterior. It checks
 that each path launched its kernel in the variant it should (K1 and K4: the
 body's; K3: the tiled one), and agrees in law with the plain twin; it checks
 each kernel's shared-memory reckoning in Python against the kernel's own,
@@ -2946,6 +2956,656 @@ def vi_path(device, smi: str, g) -> None:
     phase("vi", f"{smi}: the catalog, ADEV, VI, GLM and ADVI phases took {time.perf_counter() - t0:.1f} s")
 
 
+# ----------------------------------------------------------------------
+# slice 13: the discrete HMM and its exact tools, enumeration and Gibbs,
+# particle Gibbs and PMMH, the ESS and slice requests, involutive MCMC,
+# predictive checks and SBC, PPCA and the BNN (no kernel)
+# ----------------------------------------------------------------------
+
+HMM_N, HMM_T = 64, 4096
+HMM_FFBS_PATHS = 16384  # (16,384 x 4,096) int64 paths: 537 MB
+HMM_VITERBI_DRAWS = 1024
+HMM_MARGINAL_STEPS = 8
+HMM_LOGPDF_DRAWS = 16
+GIBBS_CHAINS, GIBBS_SWEEPS, GIBBS_BURN = 16384, 400, 100
+GIBBS_X = 1.4
+GIBBS_LANES = 4096
+PG_STATES, PG_T, PG_PARTICLES, PG_SWEEPS, PG_BURN = 16, 64, 256, 400, 100
+# tests/inference/test_pgibbs.py holds 500 draws' smoothed means within 0.25
+# of the RTS smoother's, whose sds are about 0.41 (13.6 SE of independent
+# draws), and their variances within a ratio of 0.5 to 1.7 (7.9 and 11 SE):
+# about 8 SE. Here each state's smoothed probability at each step is held
+# within 8 SE of independent draws, sqrt(p (1 - p) / n), plus 1e-3
+PG_SES = 8.0
+PMMH_T, PMMH_STEPS, PMMH_PARTICLES = 10, 200, 256
+REQ_CHAINS, REQ_STEPS = 65536, 20
+INV_CHAINS, INV_SWEEPS, RJ_SWEEPS = 65536, 40, 30
+INV_X = 1.2
+RJ_YS = (-0.8, -0.5, 0.4, 0.7)
+SBC_SIMS, SBC_DRAWS = 16384, 100
+PRED_DRAWS = 65536
+# the noise sd 2 (W ~ N(0, 1)): at sd 0.5 EM's convergence is slow, 1.4% short
+# of the ML likelihood after 50 iterations (the port and the reference alike)
+PPCA_N, PPCA_D, PPCA_Q, PPCA_SIGMA, PPCA_EM_ITERS = 100_000, 64, 8, 2.0, 50
+BNN_N, BNN_D, BNN_HIDDEN, BNN_DRAWS, BNN_PREDICT_N = 10_000, 16, 64, 4096, 1024
+BNN_STEPS, BNN_LR = 1000, 0.03  # the rate cosine-decayed to 0, as advi_path's
+BNN_TOL = 0.05  # tests/models/test_bnn.py's on the posterior mean
+
+
+def timed(fn):
+    """``(fn(), host-clock seconds)``, the card synchronised around it."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def rel_gap(a, b) -> float:
+    a, b = float(a), float(b)
+    return abs(a - b) / max(1.0, abs(b))
+
+
+def in_law_gap(x: torch.Tensor, mean, var) -> tuple[float, float]:
+    """The largest gap of the mean and of the variance of ``x (n, ...)`` to
+    the closed form's, each in its standard errors (``sqrt(var / n)``,
+    ``var sqrt(2 / n)``)."""
+    x = x.double().reshape(x.shape[0], -1)
+    n = x.shape[0]
+    mean = torch.as_tensor(np.array(mean, np.float64), device=x.device).reshape(-1)
+    var = torch.as_tensor(np.array(var, np.float64), device=x.device).reshape(-1)
+    zm = ((x.mean(0) - mean).abs() / torch.sqrt(var / n)).max()
+    zv = ((x.var(0) - var).abs() / (var * math.sqrt(2.0 / n))).max()
+    return float(zm), float(zv)
+
+
+def numpy_circulant_logits(n: int, k: int, s: float) -> np.ndarray:
+    """The banded circulant logits in float64, written from the definition:
+    ``s ** d`` at cyclic distance ``d <= k``, ``-1 / s`` beyond (``s > 0``)."""
+    i = np.arange(n)
+    d = np.abs(i[:, None] - i[None, :])
+    d = np.minimum(d, n - d)
+    return np.where(d <= k, s ** d.astype(np.float64), -1.0 / s)
+
+
+def numpy_log_softmax(a: np.ndarray) -> np.ndarray:
+    from scipy.special import logsumexp
+
+    return a - logsumexp(a, axis=-1, keepdims=True)
+
+
+def numpy_hmm_forward(log_pi, log_trans, log_obs, ys) -> float:
+    """The float64 forward pass: ``log p(y)``."""
+    from scipy.special import logsumexp
+
+    alpha = log_pi + log_obs[:, ys[0]]
+    for y in ys[1:]:
+        alpha = log_obs[:, y] + logsumexp(alpha[:, None] + log_trans, axis=0)
+    return float(logsumexp(alpha))
+
+
+def numpy_path_log_joint(log_pi, log_trans, log_obs, zs, ys) -> np.ndarray:
+    """``log p(z, y)`` of each path of ``zs (n, T)``, float64."""
+    zs = np.atleast_2d(zs)
+    return (log_pi[zs[:, 0]] + log_trans[zs[:, :-1], zs[:, 1:]].sum(1) + log_obs[zs, ys[None, :]].sum(1))
+
+
+def hmm_path(device, smi: str) -> None:
+    """``[main path hmm]``: ``DiscreteHMMConfiguration(64, 3, 3, 1, 1)`` over
+    4,096 observations simulated by ``discrete_hmm_model``: the three log
+    marginals against each other and float64 numpy, both Viterbi passes,
+    16,384 FFBS paths against the smoothed marginals, ``DiscreteHMM``'s
+    density, and the sequential passes timed beside the parallel ones."""
+    from genjax_tpu_torch.dists import DiscreteHMM, DiscreteHMMConfiguration
+    from genjax_tpu_torch.dists import discrete_hmm as dh
+    from genjax_tpu_torch.dists import hmm_tools as ht
+    from genjax_tpu_torch.generative.choice_map import ChoiceMap
+    from genjax_tpu_torch.models import discrete_hmm_model
+
+    cfg = DiscreteHMMConfiguration(HMM_N, 3, 3, 1.0, 1.0)
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    chain, _ = discrete_hmm_model(cfg, HMM_T)
+    tr, sim_s = timed(lambda: chain.simulate(gen, (torch.tensor(HMM_N // 2, device=device),
+                                                   torch.zeros(HMM_T, device=device))))
+    ys = tr.get_choices()[:, "x"]
+    check(ys.device.type == device.type and tuple(ys.shape) == (HMM_T,), "the HMM did not simulate on the card")
+    lp, lt, lo = cfg.log_initial(device), cfg.log_transition(device), cfg.log_observation(device)
+    for warm in (lambda y: dh.forward_filter(cfg, y), lambda y: ht.hmm_log_marginal(lp, lt, lo, y),
+                 lambda y: ht.forward_parallel(lp, lt, lo, y), lambda y: ht.viterbi(lp, lt, lo, y),
+                 lambda y: ht.viterbi_parallel(lp, lt, lo, y), lambda y: ht.forward_backward(lp, lt, lo, y)):
+        warm(ys[:16])
+
+    (filters, lm_ff), ff_s = timed(lambda: dh.forward_filter(cfg, ys))
+    lm_seq, seq_s = timed(lambda: ht.hmm_log_marginal(lp, lt, lo, ys))
+    (_, lm_par), par_s = timed(lambda: ht.forward_parallel(lp, lt, lo, ys))
+    ys_np = ys.cpu().numpy()
+    lt64 = numpy_log_softmax(numpy_circulant_logits(HMM_N, 3, 1.0))
+    lo64 = lt64.copy()  # the same band and sigma
+    lp64 = lt64[HMM_N // 2]
+    lm64 = numpy_hmm_forward(lp64, lt64, lo64, ys_np)
+    gaps = [rel_gap(lm_seq, lm_ff), rel_gap(lm_par, lm_ff)]
+    gaps64 = [rel_gap(v, lm64) for v in (lm_ff, lm_seq, lm_par)]
+    check(max(gaps) <= 1e-5 and max(gaps64) <= 1e-4,
+          f"HMM log marginals {float(lm_ff)}, {float(lm_seq)}, {float(lm_par)} vs float64 {lm64}")
+
+    (path_s, score_s), vit_s = timed(lambda: ht.viterbi(lp, lt, lo, ys))
+    (path_p, score_p), vitp_s = timed(lambda: ht.viterbi_parallel(lp, lt, lo, ys))
+    j_s, j_p = numpy_path_log_joint(lp64, lt64, lo64, np.stack([path_s.cpu().numpy(), path_p.cpu().numpy()]), ys_np)
+    check(abs(j_s - j_p) <= 1e-3, f"Viterbi paths' log joints {j_s} and {j_p} (float64) differ")
+
+    n = HMM_FFBS_PATHS
+    paths, ffbs_s = timed(lambda: torch.func.vmap(lambda _: dh.backward_sample(gen, cfg, filters),
+                                                  randomness="different")(torch.zeros(n, device=device)))
+    check(tuple(paths.shape) == (n, HMM_T) and paths.dtype == torch.int64, f"FFBS paths {tuple(paths.shape)}")
+    j_draws = numpy_path_log_joint(lp64, lt64, lo64, paths[:HMM_VITERBI_DRAWS].cpu().numpy(), ys_np)
+    check(float(j_draws.max()) <= min(j_s, j_p) + 1e-3,
+          f"an FFBS draw's log joint {float(j_draws.max())} beats Viterbi's {min(j_s, j_p)}")
+    (post, fb_s) = timed(lambda: ht.forward_backward(lp, lt, lo, ys))
+    gammas = torch.exp(post.log_gammas.double())
+    steps = np.linspace(0, HMM_T - 1, HMM_MARGINAL_STEPS).astype(int)
+    worst = -math.inf
+    for t in steps:
+        freq = torch.bincount(paths[:, t], minlength=HMM_N).double() / n
+        se = torch.sqrt(gammas[t] * (1 - gammas[t]) / n)
+        worst = max(worst, float(((freq - gammas[t]).abs() - 1e-3 - 4 * se).max()))
+    check(worst <= 0, f"FFBS marginals off the smoothed ones by {worst} beyond 4 SE + 1e-3")
+
+    draws = paths[:HMM_LOGPDF_DRAWS]
+    w = torch.func.vmap(lambda z: DiscreteHMM.assess(ChoiceMap.entry(z), (cfg, ys))[0])(draws)
+    want = torch.func.vmap(lambda z: dh.path_log_joint(cfg, z, ys))(draws) - lm_ff
+    w64 = numpy_path_log_joint(lp64, lt64, lo64, draws.cpu().numpy(), ys_np) - lm64
+    check(float((w - want).abs().max()) <= 1e-3,
+          f"DiscreteHMM.logpdf off path_log_joint - log marginal by {float((w - want).abs().max())}")
+    busy_ff = device_busy(lambda: dh.forward_filter(cfg, ys))
+    busy_par = device_busy(lambda: ht.forward_parallel(lp, lt, lo, ys))
+    phase("main path hmm", f"{smi}: DiscreteHMMConfiguration({HMM_N}, 3, 3, 1.0, 1.0), T = {HMM_T} simulated by "
+                           f"discrete_hmm_model in {sim_s:.3f} s; log p(y) {float(lm_ff):.6f}: forward_filter, "
+                           f"hmm_log_marginal, forward_parallel within {max(gaps):.3g} of each other (limit 1e-5), "
+                           f"of float64 numpy's {lm64:.6f} within {max(gaps64):.3g} (limit 1e-4); Viterbi log "
+                           f"joints {j_s:.4f} and {j_p:.4f} (float64), the best of {HMM_VITERBI_DRAWS} FFBS draws "
+                           f"{float(j_draws.max()):.4f}; {n} FFBS paths in {ffbs_s:.3f} s, their marginals at "
+                           f"{HMM_MARGINAL_STEPS} steps within 4 SE + 1e-3 (margin {-worst:.3g}); DiscreteHMM.logpdf "
+                           f"of {HMM_LOGPDF_DRAWS} draws within {float((w - want).abs().max()):.3g} of the formula, "
+                           f"{float(np.abs(w.double().cpu().numpy() - w64).max()):.3g} of float64")
+    phase("main path hmm", f"{smi}: sequential against parallel (host clock, one call each): forward_filter "
+                           f"{ff_s * 1e3:.1f} ms, hmm_log_marginal {seq_s * 1e3:.1f} ms, forward_parallel "
+                           f"{par_s * 1e3:.1f} ms ({seq_s / par_s:.2f}x); viterbi {vit_s * 1e3:.1f} ms, "
+                           f"viterbi_parallel {vitp_s * 1e3:.1f} ms ({vit_s / vitp_s:.2f}x); forward_backward "
+                           f"{fb_s * 1e3:.1f} ms; " + busy_line("forward_filter", busy_ff, ff_s * 1e3) + "; "
+                           + busy_line("forward_parallel", busy_par, par_s * 1e3))
+
+
+def gibbs_path(device, smi: str, g) -> None:
+    """``[main path gibbs]``: Gibbs within MH (``enum_move`` on ``z``,
+    ``mh_move(HMC)`` on ``mu``) on the reference test's ``mixed_model``,
+    vmapped over 16,384 chains for 400 sweeps, against the closed form; and
+    ``enumerative_gibbs_vmap`` over 4,096 lanes against float64 numpy."""
+    from scipy.special import logsumexp
+    from scipy.stats import norm
+
+    from genjax_tpu_torch.inference.gibbs import enum_move, enumerative_gibbs_vmap, gibbs_sweep, mh_move
+    from genjax_tpu_torch.inference.requests import HMC
+
+    @g.gen
+    def mixed_model():
+        mu = g.normal(0.0, 1.0) @ "mu"
+        z = g.flip(0.3) @ "z"
+        return g.normal(mu + 2.0 * z.to(torch.float32), 1.0) @ "x"
+
+    lw = np.array([np.log(0.7) + norm.logpdf(GIBBS_X, 0.0, np.sqrt(2.0)),
+                   np.log(0.3) + norm.logpdf(GIBBS_X, 2.0, np.sqrt(2.0))])
+    p_z = np.exp(lw - logsumexp(lw))
+    mu_mean = float(p_z @ np.array([GIBBS_X / 2.0, (GIBBS_X - 2.0) / 2.0]))
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    moves = [enum_move("z", torch.tensor([False, True], device=device)), mh_move(HMC(g.S["mu"], 0.25, 8))]
+
+    def run(n_sweeps, n_chains):
+        def chain(_):
+            tr, _ = mixed_model.generate(gen, g.C["x"].set(GIBBS_X), ())
+            res = gibbs_sweep(gen, tr, moves, n_sweeps=n_sweeps,
+                              record=lambda t: (t.get_choices()["z"].to(torch.float32), t.get_choices()["mu"]))
+            return res.history
+
+        return torch.func.vmap(chain, randomness="different")(torch.zeros(n_chains, device=device))
+
+    run(2, 16)  # warm-up
+    (zs, mus), run_s = timed(lambda: run(GIBBS_SWEEPS, GIBBS_CHAINS))
+    zgaps = []
+    for draws, want in ((zs, p_z[1]), (mus, mu_mean)):
+        means = draws[:, GIBBS_BURN:].double().mean(dim=1)
+        se = float(means.std() / math.sqrt(GIBBS_CHAINS))
+        zgaps.append((float(means.mean()), want, abs(float(means.mean()) - want) / se))
+    check(all(z < 4 for _, _, z in zgaps), f"Gibbs within MH off the closed form: {zgaps}")
+    sweep_ms = wall_ms(lambda: run(1, GIBBS_CHAINS), reps=3)
+    busy = device_busy(lambda: run(1, GIBBS_CHAINS))
+
+    mus_t = torch.tensor([-2.0, 0.0, 3.0], device=device)
+    log_pi = torch.log(torch.tensor([0.2, 0.5, 0.3], device=device))
+
+    @g.gen
+    def site(x):
+        z = g.categorical(log_pi) @ "z"
+        return g.normal(mus_t[z], 1.0) @ "y"
+
+    @g.gen
+    def lanes_model(xs):
+        return site.vmap(in_axes=(0,))(xs) @ "assign"
+
+    xs_np = np.random.default_rng(SEED).uniform(-3.0, 4.0, size=GIBBS_LANES).astype(np.float32)
+    xs = torch.from_numpy(xs_np).to(device)
+    tr, _ = lanes_model.generate(gen, g.C["assign", torch.arange(GIBBS_LANES, device=device), "y"].set(xs), (xs,))
+    (new, info), lanes_s = timed(lambda: enumerative_gibbs_vmap(gen, tr, ("assign", None, "z"),
+                                                                torch.arange(3, device=device)))
+    lw64 = np.log([0.2, 0.5, 0.3])[None, :] + norm.logpdf(xs_np.astype(np.float64)[:, None], [-2.0, 0.0, 3.0], 1.0)
+    exact = np.exp(lw64 - logsumexp(lw64, axis=1, keepdims=True))
+    err = float(np.abs(torch.exp(info.log_probs.double()).cpu().numpy() - exact).max())
+    check(err <= 1e-4, f"enumerative_gibbs_vmap's conditionals off float64 by {err}")
+    phase("main path gibbs", f"{smi}: gibbs_sweep [enum_move(z), mh_move(HMC(mu, 0.25, 8))] on mixed_model "
+                             f"(x = {GIBBS_X}), torch.func.vmap over {GIBBS_CHAINS} chains x {GIBBS_SWEEPS} sweeps "
+                             f"in {run_s:.2f} s (host clock) = {run_s / GIBBS_SWEEPS * 1e3:.2f} ms a sweep; after "
+                             f"{GIBBS_BURN}: P(z = 1) {zgaps[0][0]:.5f} vs {zgaps[0][1]:.5f} ({zgaps[0][2]:.2f} SE), "
+                             f"E[mu] {zgaps[1][0]:.5f} vs {zgaps[1][1]:.5f} ({zgaps[1][2]:.2f} SE; limit 4, the SE "
+                             f"over chain means); enumerative_gibbs_vmap over {GIBBS_LANES} lanes x 3 in "
+                             f"{lanes_s * 1e3:.1f} ms, within {err:.3g} of float64 (limit 1e-4); "
+                             + busy_line("one sweep", busy, sweep_ms))
+
+
+def pgibbs_path(device, smi: str, g) -> None:
+    """``[main path pgibbs]``: ``particle_gibbs`` with ancestor sampling on
+    the exact testbed's chain (16 states, T = 64), 256 particles x 400
+    sweeps, against ``forward_backward``'s smoothed marginals; one ``pmmh``
+    run over a particle filter's estimate."""
+    from genjax_tpu_torch.dists import hmm_tools as ht
+    from genjax_tpu_torch.inference.exact_testbed import build_test_against_exact_inference
+    from genjax_tpu_torch.inference.pgibbs import csmc_sweep, particle_gibbs, pmmh
+    from genjax_tpu_torch.parallel import SSMParticleFilter
+
+    make, chain, cfg = build_test_against_exact_inference(PG_T, PG_STATES, 1, 1, 0.5, 0.5)
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    p = make(gen)
+    kernel, xs = chain.gen_fn, torch.zeros(PG_T, device=device)
+    obs = g.C[:, "x"].set(p.observation_sequence)
+    out, pg_s = timed(lambda: particle_gibbs(gen, kernel, p.initial_state, xs, obs, latent_selection=g.S["z"],
+                                             n_particles=PG_PARTICLES, n_sweeps=PG_SWEEPS, device=device))
+    zs = out.trajectories["z"][PG_BURN:]
+    n = zs.shape[0]
+    check(tuple(out.trajectories["z"].shape) == (PG_SWEEPS, PG_T), "particle_gibbs's trajectories' shape")
+    gam = torch.exp(ht.forward_backward(cfg.log_initial(device), cfg.log_transition(device),
+                                        cfg.log_observation(device), p.observation_sequence).log_gammas.double())
+    freq = torch.stack([torch.bincount(zs[:, t], minlength=PG_STATES).double() / n for t in range(PG_T)])
+    ses = float((((freq - gam).abs() - 1e-3) / torch.sqrt(gam * (1 - gam) / n)).max())
+    tv = float(0.5 * (freq - gam).abs().sum(dim=1).max())
+    z0 = zs[:, 0].double() - zs[:, 0].double().mean()
+    rho1 = float((z0[1:] * z0[:-1]).mean() / (z0 * z0).mean())
+    check(ses <= PG_SES, f"particle Gibbs marginals off forward_backward's by {ses:.2f} SE + 1e-3 (limit {PG_SES})")
+    last = torch.utils._pytree.tree_map(lambda v: v[-1], out.trajectories)
+    busy = device_busy(lambda: csmc_sweep(gen, kernel, p.initial_state, xs, obs, last, latent_selection=g.S["z"],
+                                          n_particles=PG_PARTICLES))
+    sweep_ms = pg_s / (PG_SWEEPS + 1) * 1e3
+
+    # pmmh: a drifted random walk's drift, on a particle filter's log marginal
+    rng = np.random.default_rng(7)
+    ys = (np.cumsum(0.6 + rng.normal(size=PMMH_T)) + 0.5 * rng.normal(size=PMMH_T)).astype(np.float32)
+
+    @g.gen
+    def drift_kernel(carry, x):
+        z_prev, m = carry
+        z = g.normal(z_prev + m, 1.0) @ "z"
+        y = g.normal(z, 0.5) @ "y"
+        return ((z, m), y)
+
+    pf = SSMParticleFilter(drift_kernel, n_particles=PMMH_PARTICLES, ess_threshold=2.0)
+    pobs = g.C[:, "y"].set(torch.from_numpy(ys).to(device))
+    pxs = torch.zeros(PMMH_T, device=device)
+
+    def pf_lz(pgen, m):
+        return pf.run(pgen, (torch.zeros((), device=device), m), pxs, pobs, device=device).log_marginal
+
+    res, pmmh_s = timed(lambda: pmmh(gen, 0.0, lambda m: -0.5 * m**2, pf_lz, n_steps=PMMH_STEPS, step_scales=0.5,
+                                     device=device))
+    acc = float(res.accept_rate)
+    check(bool(torch.isfinite(res.log_zs).all()) and 0.0 < acc < 1.0,
+          f"pmmh: log-evidence finite {bool(torch.isfinite(res.log_zs).all())}, acceptance {acc}")
+    phase("main path pgibbs", f"{smi}: particle_gibbs (ancestor sampling) on the exact testbed's chain "
+                              f"({PG_STATES} states, T = {PG_T}), {PG_PARTICLES} particles x {PG_SWEEPS} sweeps in "
+                              f"{pg_s:.2f} s (host clock) = {sweep_ms:.1f} ms a sweep, {sweep_ms / PG_T:.2f} ms a "
+                              f"step; after {PG_BURN}: every state's smoothed probability within {ses:.2f} SE + 1e-3 of "
+                              f"forward_backward's (limit {PG_SES}), largest total variation of a marginal {tv:.4f}, "
+                              f"lag-1 autocorrelation of z_0 across sweeps {rho1:.3f}; "
+                              + busy_line("one conditional sweep", busy, sweep_ms))
+    phase("main path pgibbs", f"{smi}: pmmh over SSMParticleFilter's log marginal ({PMMH_PARTICLES} particles, "
+                              f"T = {PMMH_T}), {PMMH_STEPS} steps in {pmmh_s:.2f} s (host clock): acceptance {acc:.3f}, "
+                              f"log-evidence finite, the drift's chain mean {float(res.params[PMMH_STEPS // 4:].mean()):.4f}")
+
+
+def requests_path(device, smi: str, g) -> None:
+    """``[main path slice requests]``: ``run_chains`` of ``mh(EllipticalSlice)``
+    on the reference test's linear regression and of ``mh(SliceSample)`` on
+    its normal-normal model, 65,536 chains x 20 transitions, against the
+    closed forms; the lanes that ran out of budget counted in one more
+    transition."""
+    from genjax_tpu_torch.dists import mv_normal_diag
+    from genjax_tpu_torch.inference.requests import EllipticalSlice, SliceSample
+
+    rng = np.random.RandomState(0)
+    X = rng.randn(10, 3).astype(np.float32)
+    s = 0.5
+    y = (X @ np.asarray([1.0, -1.0, 0.5]) + s * rng.randn(10)).astype(np.float32)
+    cov = np.linalg.inv(np.eye(3) + X.T.astype(np.float64) @ X / s**2)
+    m_post = cov @ (X.T.astype(np.float64) @ y) / s**2
+    Xt = torch.from_numpy(X).to(device)
+
+    @g.gen
+    def linreg():
+        w = mv_normal_diag(torch.zeros(3, device=device), torch.ones(3, device=device)) @ "w"
+        mv_normal_diag(Xt @ w, s * torch.ones(10, device=device)) @ "y"
+
+    @g.gen
+    def nn_model():
+        mu = g.normal(1.0, 2.0) @ "mu"
+        g.normal(mu, 0.5) @ "y"
+
+    v_nn = 1.0 / (1.0 / 4.0 + 1.0 / 0.25)
+    m_nn = v_nn * (1.0 / 4.0 + 2.4 / 0.25)
+    cases = [("EllipticalSlice", linreg, g.C["y"].set(torch.from_numpy(y).to(device)), EllipticalSlice(g.S["w"]),
+              "w", m_post, cov),
+             ("SliceSample", nn_model, g.C["y"].set(2.4), SliceSample(g.S["mu"]), "mu", np.array([m_nn]),
+              np.array([[v_nn]]))]
+    lines = []
+    for name, model, obs, req, addr, mean, cov_ in cases:
+        # each chain starts at an exact posterior draw, so the gate holds the
+        # transitions' invariance (the ellipse through a prior draw mixes
+        # slowly where the posterior is much narrower than the prior)
+        m_t = torch.as_tensor(mean, dtype=torch.float32, device=device)
+        l_t = torch.as_tensor(np.linalg.cholesky(cov_), dtype=torch.float32, device=device)
+
+        def make(gen, model=model, obs=obs, addr=addr, m_t=m_t, l_t=l_t):
+            start = m_t + l_t @ torch.randn(m_t.shape, generator=gen, device=device)
+            return model.generate(gen, obs | g.C[addr].set(start if addr == "w" else start[0]), ())[0]
+
+        g.run_chains(SEED, make, req, 1, 16, device=device)  # warm-up
+        res, call_s = timed(lambda: g.run_chains(SEED, make, req, REQ_STEPS, REQ_CHAINS, device=device))
+        zm, zv = in_law_gap(res.trace.get_choices()[addr], mean, np.diag(cov_))
+        check(zm < 4 and zv < 4, f"{name}: means {zm:.2f} SE, variances {zv:.2f} SE off the closed form")
+        gen = torch.Generator(device=device).manual_seed(SEED + 1)
+        exhausted = torch.func.vmap(lambda tr: tr.edit(gen, req)[3].exhausted, randomness="different")(res.trace)
+        busy = device_busy(lambda: g.run_chains(SEED, make, req, 1, REQ_CHAINS, device=device))
+        lines.append(f"mh({name}) {REQ_CHAINS} chains x {REQ_STEPS} in {call_s:.3f} s (host clock) = "
+                     f"{call_s / REQ_STEPS * 1e3:.1f} ms a transition from exact posterior draws, means within "
+                     f"{zm:.2f} SE and variances "
+                     f"within {zv:.2f} SE of the closed form (limit 4), {int(exhausted.sum())} of {REQ_CHAINS} lanes "
+                     f"out of budget in one more transition; "
+                     + busy_line("a one-transition call", busy, call_s / REQ_STEPS * 1e3))
+    phase("main path slice requests", f"{smi}: " + "; ".join(lines))
+
+
+def involutive_path(device, smi: str, g) -> None:
+    """``[main path involutive]``: the reference test's random-walk
+    involution on its conjugate model and its reversible-jump chain, each
+    vmapped over 65,536 chains, in law; ``check=True`` on both."""
+    from genjax_tpu_torch.inference.gibbs import gibbs_sweep
+    from genjax_tpu_torch.inference.involutive import involutive_mh, involutive_move
+
+    @g.gen
+    def conj_model():
+        mu = g.normal(0.0, 1.0) @ "mu"
+        return g.normal(mu, 1.0) @ "x"
+
+    @g.gen
+    def rw_aux():
+        return g.normal(0.0, 0.6) @ "eps"
+
+    def rw_involution(t, u):
+        return g.C["mu"].set(t["mu"] + u["eps"]) | g.C["x"].set(t["x"]), g.C["eps"].set(-u["eps"])
+
+    ys = torch.tensor(RJ_YS, device=device)
+
+    @g.gen
+    def sat_model():
+        k = g.flip(0.5) @ "k"
+        theta = g.normal(0.0, 2.0) @ "theta"
+        a = g.normal(0.0, 2.0) @ "a"
+        b = g.normal(0.0, 2.0) @ "b"
+        mus = torch.where(k, torch.stack([a, a, b, b]), theta.expand(4))
+        _ = g.normal.vmap(in_axes=(0, None))(mus, 0.8) @ "ys"
+        return k
+
+    @g.gen
+    def jump_aux():
+        return g.normal(0.0, 1.2) @ "du"
+
+    def jump_involution(t, u):
+        theta, a, b, du = t["theta"], t["a"], t["b"], u["du"]
+        t_new = (g.C["k"].set(torch.logical_not(t["k"])) | g.C["theta"].set((a + b) / 2.0)
+                 | g.C["a"].set(theta - du) | g.C["b"].set(theta + du) | g.C["ys", :].set(t["ys", :]))
+        return t_new, g.C["du"].set((b - a) / 2.0)
+
+    @g.gen
+    def refresh_aux():
+        u1 = g.normal(0.0, 2.0) @ "u1"
+        u2 = g.normal(0.0, 2.0) @ "u2"
+        return u1 + u2
+
+    def refresh_involution(t, u):
+        k, theta, a, b, u1, u2 = t["k"], t["theta"], t["a"], t["b"], u["u1"], u["u2"]
+        t_new = (g.C["k"].set(k) | g.C["theta"].set(torch.where(k, u1, theta)) | g.C["a"].set(torch.where(k, a, u1))
+                 | g.C["b"].set(torch.where(k, b, u2)) | g.C["ys", :].set(t["ys", :]))
+        return t_new, g.C["u1"].set(torch.where(k, theta, a)) | g.C["u2"].set(torch.where(k, u2, b))
+
+    def sat_rw_involution(t, u):
+        k, eps = t["k"], u["eps"]
+        zero = torch.zeros_like(eps)
+        t_new = (g.C["k"].set(k) | g.C["theta"].set(t["theta"] + torch.where(k, zero, eps))
+                 | g.C["a"].set(t["a"] + torch.where(k, eps, zero)) | g.C["b"].set(t["b"] - torch.where(k, eps, zero))
+                 | g.C["ys", :].set(t["ys", :]))
+        return t_new, g.C["eps"].set(-eps)
+
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    lanes = torch.zeros(INV_CHAINS, device=device)
+
+    def conj_chains(n_sweeps):
+        def chain(_):
+            tr, _ = conj_model.generate(gen, g.C["x"].set(INV_X), ())
+            return gibbs_sweep(gen, tr, [involutive_move(rw_aux, rw_involution)], n_sweeps=n_sweeps).trace
+        return torch.func.vmap(chain, randomness="different")(lanes)
+
+    moves = [involutive_move(jump_aux, jump_involution), involutive_move(rw_aux, sat_rw_involution),
+             involutive_move(refresh_aux, refresh_involution)]
+
+    def sat_trace():
+        return sat_model.generate(gen, g.C["k"].set(False) | g.C["ys", :].set(ys), ())[0]
+
+    def rj_chains(n_sweeps):
+        return torch.func.vmap(lambda _: gibbs_sweep(gen, sat_trace(), moves, n_sweeps=n_sweeps).trace,
+                               randomness="different")(lanes)
+
+    conj_chains(1)
+    trs, conj_s = timed(lambda: conj_chains(INV_SWEEPS))
+    zm, zv = in_law_gap(trs.get_choices()["mu"], INV_X / 2.0, 0.5)
+    check(zm < 4 and zv < 4, f"involutive random walk: mean {zm:.2f} SE, variance {zv:.2f} SE off the posterior")
+
+    def branch_logml(design):
+        c = 4.0 * design @ design.T + 0.64 * np.eye(4)
+        yv = np.asarray(RJ_YS)
+        return -0.5 * (np.linalg.slogdet(2 * np.pi * c)[1] + yv @ np.linalg.solve(c, yv))
+
+    p_k1 = 1.0 / (1.0 + np.exp(branch_logml(np.ones((4, 1)))
+                               - branch_logml(np.array([[1.0, 0], [1, 0], [0, 1], [0, 1]]))))
+    rj, rj_s = timed(lambda: rj_chains(RJ_SWEEPS))
+    pk = float(rj.get_choices()["k"].double().mean())
+    zk = abs(pk - p_k1) / math.sqrt(p_k1 * (1 - p_k1) / INV_CHAINS)
+    check(zk < 4, f"reversible jump: P(k = 1) {pk} vs {p_k1} ({zk:.2f} SE)")
+
+    def checked(aux, inv, tr):
+        def one(t):
+            info = involutive_mh(gen, t, aux, inv, check=True)[1]
+            return info.involution_error, info.logdet
+
+        return torch.func.vmap(one, randomness="different")(tr)
+
+    err_rw, ld_rw = checked(rw_aux, rw_involution, trs)
+    err_j, ld_j = checked(jump_aux, jump_involution, rj)
+    worst = max(float(err_rw.max()), float(err_j.max()), float(ld_rw.abs().max()), float(ld_j.abs().max()))
+    check(worst <= 1e-5, f"involutions not exact: round-trip error or |log det| {worst}")
+    busy = device_busy(lambda: rj_chains(1))
+    rj_sweep_ms = rj_s / RJ_SWEEPS * 1e3
+    phase("main path involutive", f"{smi}: involutive_mh, torch.func.vmap over {INV_CHAINS} chains: the random walk "
+                                  f"on the conjugate model ({INV_SWEEPS} sweeps in {conj_s:.2f} s, host clock) within "
+                                  f"{zm:.2f} SE (mean) and {zv:.2f} SE (variance) of N({INV_X / 2}, 0.5); the "
+                                  f"reversible-jump chain ({RJ_SWEEPS} sweeps of 3 moves in {rj_s:.2f} s) P(k = 1) "
+                                  f"{pk:.5f} vs the enumerated {p_k1:.5f} ({zk:.2f} SE, limit 4); check=True: round "
+                                  f"trip and |log det| at most {worst:.3g} (limit 1e-5); "
+                                  + busy_line("one reversible-jump sweep", busy, rj_sweep_ms))
+
+
+def predictive_sbc_path(device, smi: str, g) -> None:
+    """``[predictive sbc]``: ``sbc_ranks`` with the exact conjugate sampler
+    (16,384 simulations x 100 draws, uniform by ``sbc_uniformity``), and
+    ``posterior_predictive`` over 65,536 exact posterior draws of
+    ``linear_regression`` against the closed-form predictive."""
+    from genjax_tpu_torch.inference.predictive import posterior_predictive
+    from genjax_tpu_torch.inference.sbc import sbc_ranks, sbc_uniformity
+    from genjax_tpu_torch.models import linear_regression
+
+    @g.gen
+    def nn_model():
+        mu = g.normal(0.0, 1.0) @ "mu"
+        g.normal(mu, 0.5) @ "y"
+
+    v = 1.0 / (1.0 + 1.0 / 0.25)
+
+    def exact_sampler(gen, constraint):
+        y = constraint.get_submap("y").get_value()
+        return (v * y / 0.25 + math.sqrt(v) * torch.randn(SBC_DRAWS, generator=gen, device=gen.device))[:, None]
+
+    sbc_ranks(SEED, nn_model, (), g.S["mu"], exact_sampler, n_sims=16, device=device)
+    res, sbc_s = timed(lambda: sbc_ranks(SEED, nn_model, (), g.S["mu"], exact_sampler, n_sims=SBC_SIMS,
+                                         device=device))
+    pvals, counts = sbc_uniformity(res, n_bins=SBC_DRAWS + 1)
+    check(float(pvals[0]) > 1e-3, f"SBC of the exact sampler: p {float(pvals[0])}")
+
+    X, y = flagship_data()
+    model, exact_posterior = linear_regression(X)
+    mean, cov = exact_posterior(y)
+    mean, cov = mean.to(device), cov.to(device)
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    w = mean + torch.randn(PRED_DRAWS, mean.shape[0], generator=gen, device=device) @ torch.linalg.cholesky(cov).T
+    posterior_predictive(gen, model, (), {"w": w[:16]})
+    out, pred_s = timed(lambda: posterior_predictive(gen, model, (), {"w": w}))
+    Xd = torch.from_numpy(X).to(device).double()
+    pm = (Xd @ mean.double()).cpu().numpy()
+    pv = (torch.diagonal(Xd @ cov.double() @ Xd.T) + 0.25**2).cpu().numpy()
+    zm, zv = in_law_gap(out["y"], pm, pv)
+    check(zm < 4 and zv < 4, f"posterior predictive: means {zm:.2f} SE, variances {zv:.2f} SE off the closed form")
+    busy = device_busy(lambda: posterior_predictive(gen, model, (), {"w": w}))
+    phase("predictive sbc", f"{smi}: sbc_ranks with the exact conjugate sampler, {SBC_SIMS} simulations x "
+                            f"{SBC_DRAWS} draws in {sbc_s * 1e3:.1f} ms (host clock), sbc_uniformity over "
+                            f"{SBC_DRAWS + 1} bins p = {float(pvals[0]):.4f} (limit above 1e-3); posterior_predictive "
+                            f"of linear_regression over {PRED_DRAWS} exact draws in {pred_s * 1e3:.1f} ms, y_rep "
+                            f"means within {zm:.2f} SE and variances within {zv:.2f} SE of the closed form "
+                            f"(limit 4); " + busy_line("posterior_predictive", busy, pred_s * 1e3))
+
+
+def ppca_path(device, smi: str) -> None:
+    """``[ppca]``: n = 100,000 x d = 64, q = 8 from numpy seed 0: the
+    log-likelihood on the card against float64 numpy, and 50 EM iterations
+    against the spectral ML fit."""
+    from scipy.linalg import solve_triangular
+
+    from genjax_tpu_torch.interop import ppca_params_from_numpy
+    from genjax_tpu_torch.models.ppca import ppca_em, ppca_log_likelihood, ppca_ml
+
+    rng = np.random.default_rng(SEED)
+    W = rng.normal(size=(PPCA_D, PPCA_Q)).astype(np.float32)
+    mu = rng.normal(size=PPCA_D).astype(np.float32)
+    X = (rng.normal(size=(PPCA_N, PPCA_Q)) @ W.T + mu + PPCA_SIGMA * rng.normal(size=(PPCA_N, PPCA_D))).astype(np.float32)
+    Wt, mut, st = ppca_params_from_numpy(W, mu, PPCA_SIGMA, device=device)
+    Xt = torch.from_numpy(X).to(device)
+    ll, ll_s = timed(lambda: ppca_log_likelihood(Xt, Wt, mut, st**2))
+    c64 = W.astype(np.float64) @ W.T + PPCA_SIGMA**2 * np.eye(PPCA_D)
+    l64 = np.linalg.cholesky(c64)
+    r64 = solve_triangular(l64, (X.astype(np.float64) - mu).T, lower=True)
+    ll64 = float(-0.5 * np.sum(r64**2) - PPCA_N * np.sum(np.log(np.diag(l64))) - 0.5 * PPCA_N * PPCA_D * math.log(2 * math.pi))
+    gap = abs(float(ll) - ll64) / abs(ll64)
+    check(gap <= 1e-4, f"PPCA log-likelihood {float(ll)} vs float64 {ll64}")
+    (W_ml, mu_ml, s2_ml), ml_s = timed(lambda: ppca_ml(Xt, PPCA_Q))
+    ((W_em, _, s2_em), lls), em_s = timed(lambda: ppca_em(Xt, PPCA_Q, n_iters=PPCA_EM_ITERS))
+    ll_ml = ppca_log_likelihood(Xt, W_ml, mu_ml, s2_ml)
+    ll_em = ppca_log_likelihood(Xt, W_em, mu_ml, s2_em)
+    em_gap = abs(float(ll_em) - float(ll_ml)) / abs(float(ll_ml))
+    check(em_gap <= 1e-3, f"PPCA EM {float(ll_em)} vs ML {float(ll_ml)}")
+    busy = device_busy(lambda: ppca_em(Xt, PPCA_Q, n_iters=PPCA_EM_ITERS))
+    phase("ppca", f"{smi}: n = {PPCA_N} x d = {PPCA_D}, q = {PPCA_Q}: ppca_log_likelihood {float(ll):.2f} in "
+                  f"{ll_s * 1e3:.2f} ms (host clock), within {gap:.3g} of float64 numpy's {ll64:.2f} (limit 1e-4); "
+                  f"ppca_ml {ml_s * 1e3:.2f} ms, ll {float(ll_ml):.2f}; ppca_em ({PPCA_EM_ITERS} iterations) "
+                  f"{em_s * 1e3:.1f} ms, ll {float(ll_em):.2f}, within {em_gap:.3g} of ML's (limit 1e-3), "
+                  f"sigma2 {float(s2_em):.5f} vs {float(s2_ml):.5f}; " + busy_line("ppca_em", busy, em_s * 1e3))
+
+
+def bnn_path(device, smi: str) -> None:
+    """``[bnn]``: ``column_advi`` on ``bayesian_nn(X, hidden=())`` (n = 10,000,
+    d = 16) against ``bnn_exact_linear_posterior``; ``bnn_predict`` over
+    4,096 prior draws of a ``hidden=(64,)`` tanh net, held against the
+    network written out."""
+    import genjax_tpu_torch as g
+    from genjax_tpu_torch.inference import column_advi
+    from genjax_tpu_torch.models.bnn import bayesian_nn, bnn_exact_linear_posterior, bnn_predict
+
+    rng = np.random.default_rng(SEED)
+    X = rng.normal(size=(BNN_N, BNN_D)).astype(np.float32)
+    y = (X @ rng.normal(size=BNN_D) + 0.3 + 0.25 * rng.normal(size=BNN_N)).astype(np.float32)
+    Xt, yt = torch.from_numpy(X).to(device), torch.from_numpy(y).to(device)
+    model, addresses, _ = bayesian_nn(X, hidden=())
+
+    def cosine(step):
+        return BNN_LR * 0.5 * (1.0 + math.cos(math.pi * min(step, BNN_STEPS) / BNN_STEPS))
+
+    post, advi_s = timed(lambda: column_advi(SEED, model, g.C["y"].set(yt), (), addresses, rank="full",
+                                             n_steps=BNN_STEPS, learning_rate=cosine, device=device))
+    mean, _ = bnn_exact_linear_posterior(Xt, yt)
+    err = float((post.result.mu[:BNN_D + 1] - mean).abs().max())
+    check(post.result.mu.device.type == device.type and err <= BNN_TOL,
+          f"column_advi's mean off the exact linear posterior by {err} (limit {BNN_TOL})")
+
+    net, _, forward = bayesian_nn(X, hidden=(BNN_HIDDEN,))
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    draws = torch.func.vmap(lambda _: net.simulate(gen, ()).get_choices(), randomness="different")(
+        torch.zeros(BNN_DRAWS, device=device))
+    Xn = Xt[:BNN_PREDICT_N]
+    bnn_predict(draws, Xn[:8], forward)
+    (pm, psd), pred_s = timed(lambda: bnn_predict(draws, Xn, forward))
+    W0, b0, W1, b1 = (draws[a] for a in ("W0", "b0", "W1", "b1"))
+    outs = torch.tanh(torch.einsum("nd,sdh->snh", Xn, W0.reshape(-1, BNN_D, BNN_HIDDEN)) + b0[:, None, :])
+    outs = torch.einsum("snh,sho->sno", outs, W1.reshape(-1, BNN_HIDDEN, 1)) + b1[:, None, :]
+    perr = max(float((pm - outs.mean(0)).abs().max()), float((psd - outs.std(0, unbiased=False)).abs().max()))
+    check(perr <= 1e-4 and bool(torch.isfinite(pm).all()), f"bnn_predict off the network written out by {perr}")
+    busy = device_busy(lambda: bnn_predict(draws, Xn, forward))
+    flop = 2.0 * BNN_DRAWS * BNN_PREDICT_N * (BNN_D * BNN_HIDDEN + BNN_HIDDEN)
+    phase("bnn", f"{smi}: column_advi (full rank, {BNN_STEPS} steps from {BNN_LR} cosine-decayed) on bayesian_nn(X, "
+                 f"hidden=()), n = {BNN_N}, d = {BNN_D}: {advi_s:.2f} s (host clock), its mean within {err:.4f} of "
+                 f"bnn_exact_linear_posterior's (limit {BNN_TOL}); bnn_predict over {BNN_DRAWS} draws of a "
+                 f"hidden=({BNN_HIDDEN},) tanh net at {BNN_PREDICT_N} inputs: {pred_s * 1e3:.2f} ms = "
+                 f"{flop / pred_s / 1e12:.3f} TFLOP/s of its {flop / 1e9:.2f} GFLOP, within {perr:.3g} of the "
+                 f"network written out; " + busy_line("bnn_predict", busy, pred_s * 1e3))
+
+
+def discrete_path(device, smi: str, g) -> None:
+    """Slice 13's phases: the discrete HMM, Gibbs, particle Gibbs and PMMH,
+    the ESS and slice requests, involutive MCMC, predictive checks and SBC,
+    PPCA and the BNN."""
+    t0 = time.perf_counter()
+    hmm_path(device, smi)
+    gibbs_path(device, smi, g)
+    pgibbs_path(device, smi, g)
+    requests_path(device, smi, g)
+    involutive_path(device, smi, g)
+    predictive_sbc_path(device, smi, g)
+    ppca_path(device, smi)
+    bnn_path(device, smi)
+    phase("discrete", f"{smi}: the HMM, Gibbs, particle Gibbs, request, involutive, predictive, SBC, PPCA and BNN "
+                      f"phases took {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this test needs a CUDA card",
@@ -3382,6 +4042,10 @@ def main() -> int:
 
     # ---- the catalog, ADEV and VI, MAP and Laplace, ADVI (no kernel)
     vi_path(device, smi, g)
+
+    # ---- the discrete HMM, Gibbs, particle Gibbs, the requests, involutive
+    # MCMC, predictive checks and SBC, PPCA and the BNN (no kernel)
+    discrete_path(device, smi, g)
 
     print(json.dumps({"kernels": [{
         "name": "hmc_sweep (K1, with K2's counter PRNG as device functions)",

@@ -26,7 +26,12 @@ mixture models), torch on the card, as the reference's are XLA; and ADEV
 (``adev``: ``@expectation`` and its gradient estimators) with variational
 inference (``vi``: the ELBO, IWELBO and wake losses and ``fit``;
 ``inference.advi``), MAP and Laplace estimation (``inference.fit_map``,
-``laplace_approximation``), torch on the card as well.
+``laplace_approximation``), torch on the card as well; and the discrete
+and trace-level families: the discrete HMM's exact posterior
+(``dists.DiscreteHMM``) and dense-HMM tools, exact enumeration and
+enumerative Gibbs, particle Gibbs and PMMH, the ``EllipticalSlice`` and
+``SliceSample`` requests, involutive MCMC, posterior predictive checks,
+simulation-based calibration, and the PPCA, BNN and HMM models.
 """
 
 from .core import (
@@ -106,7 +111,17 @@ from .inference import (
     run_chains_hmc,
     run_chains_nuts,
 )
-from .inference.requests import HMC, MALA, NUTS, Rejuvenate, SafeHMC, mh_accept, selection_gradient
+from .inference.requests import (
+    HMC,
+    MALA,
+    NUTS,
+    EllipticalSlice,
+    Rejuvenate,
+    SafeHMC,
+    SliceSample,
+    mh_accept,
+    selection_gradient,
+)
 from .inference import vi
 from .lang import StaticGenerativeFunction, StaticRequest, StaticTrace, gen, trace
 
@@ -127,6 +142,7 @@ __all__ = sorted(
         "DistributionTrace",
         "EditRequest",
         "EmptyRequest",
+        "EllipticalSlice",
         "ExactDensity",
         "FlagOp",
         "GenJAXError",
@@ -160,6 +176,7 @@ __all__ = sorted(
         "Score",
         "Selection",
         "SelectionBuilder",
+        "SliceSample",
         "StaticGenerativeFunction",
         "StaticRequest",
         "StaticTrace",

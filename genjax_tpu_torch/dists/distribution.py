@@ -118,6 +118,9 @@ class Distribution(GenerativeFunction):
             return DistributionTrace(self, args, value, score), FlagOp.where(
                 v.flag, score, torch.zeros_like(score)
             )
+        # a constraint's Python number is made a tensor where the generator
+        # lives, so a draw whose arguments are numbers too scores there
+        v = tensor_leaves(v, gen.device)
         w = self.estimate_logpdf(gen, v, *args)
         return DistributionTrace(self, args, v, w), w
 

@@ -13,19 +13,20 @@ Q)``, ``y_t = C z_t + v_t`` with ``v_t ~ N(0, R)``, observations ``t = 0 ..
 T-1`` of ``z_t``. Every function runs where its ``ys`` and parameters live,
 in their dtype. The sequential passes are Python loops of small dense
 matrix products; the parallel ones compose their elements by a log-depth
-inclusive scan written in plain tensor ops (``_associative_scan``), where
-the reference calls ``lax.associative_scan``. A matrix that is not positive
+inclusive scan written in plain tensor ops (``core/scan.py``), where the
+reference calls ``lax.associative_scan``. A matrix that is not positive
 definite gives NaN, as ``jnp.linalg.cholesky`` does.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Any, Callable
+from typing import Any
 
 import torch
 
 from ..core.pytree import Pytree
+from ..core.scan import associative_scan, reverse_scan
 from ..generative.mask import Mask
 from .catalog import cholesky_or_nan
 from .distribution import Distribution
@@ -98,36 +99,6 @@ def kalman_filter(params: LGSSMParams, ys):
     return torch.stack(means), torch.stack(covs), torch.stack(lls).sum()
 
 
-def _associative_scan(fn: Callable, elems: tuple) -> tuple:
-    """The inclusive scan of ``elems`` (a tuple of tensors sharing their
-    leading axis) under the associative ``fn(earlier, later)``, which takes
-    and returns element tuples batched along that axis: pairs combine, the
-    scan recurses on the pairs, and the even positions are filled from the
-    odd ones, so the depth is O(log T)."""
-    n = elems[0].shape[0]
-    if n < 2:
-        return elems
-    odd = _associative_scan(fn, fn(tuple(e[0:-1:2] for e in elems), tuple(e[1::2] for e in elems)))
-    if n % 2 == 0:
-        even = fn(tuple(o[:-1] for o in odd), tuple(e[2::2] for e in elems))
-    else:
-        even = fn(odd, tuple(e[2::2] for e in elems))
-    out = []
-    for e, ev, od in zip(elems, even, odd):
-        full = torch.empty_like(e)
-        full[0] = e[0]
-        full[2::2] = ev
-        full[1::2] = od
-        out.append(full)
-    return tuple(out)
-
-
-def _reverse_scan(fn: Callable, elems: tuple) -> tuple:
-    """``_associative_scan`` along the reversed leading axis."""
-    flipped = _associative_scan(fn, tuple(torch.flip(e, dims=(0,)) for e in elems))
-    return tuple(torch.flip(e, dims=(0,)) for e in flipped)
-
-
 def kalman_filter_parallel(params: LGSSMParams, ys):
     """Temporally parallel filtering (Särkkä & García-Fernández 2021): each
     step is a five-matrix element ``(A, b, C, eta, J)`` whose composition
@@ -176,7 +147,7 @@ def kalman_filter_parallel(params: LGSSMParams, ys):
             E @ J_j @ A_i + J_i,
         )
 
-    _, means, covs, _, _ = _associative_scan(combine, elems)
+    _, means, covs, _, _ = associative_scan(combine, elems)
     return means, covs
 
 
@@ -204,7 +175,7 @@ def kalman_smoother_parallel(params: LGSSMParams, ys):
 
     # the ordered suffix composition elem_k * ... * elem_{T-1}: the operands
     # swap in the reversed scan
-    _, means_s, covs_s = _reverse_scan(lambda a, b: combine(b, a), elems)
+    _, means_s, covs_s = reverse_scan(lambda a, b: combine(b, a), elems)
     return means_s, covs_s
 
 

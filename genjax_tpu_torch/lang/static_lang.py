@@ -225,10 +225,11 @@ class EditHandler(StaticHandler):
             return self.record(sub_tr)
         # dispatch through the CURRENT callee: the body ran again with the new
         # arguments, so ``gen_fn`` carries any closed-over dynamic values the
-        # previous subtrace is stale on
-        new_tr, w, _retdiff, bwd = dispatch_edit(
-            gen_fn, self.gen, sub_tr, request, Diff.tree_diff_unknown_change(args)
-        )
+        # previous subtrace is stale on. On the clean prefix this address's
+        # arguments are the previous trace's, so they are marked unchanged
+        # (an ``IndexRequest`` into a vmap or scan needs them so)
+        argdiffs = Diff.tree_diff_no_change(args) if self.clean else Diff.tree_diff_unknown_change(args)
+        new_tr, w, _retdiff, bwd = dispatch_edit(gen_fn, self.gen, sub_tr, request, argdiffs)
         self.weight = self.weight + w
         self.bwd[addr] = bwd
         if not trivial:

@@ -29,10 +29,6 @@ NOT_YET = {
     # the reference's addressed calls are a jaxpr primitive; the port's
     # (as genjax_tpu's) run under a handler stack: no trace primitive
     ("generative_functions.static", "trace_p"),
-    # item 14: dists/discrete_hmm.py and hmm_tools.py
-    ("generative_functions.distributions", "DiscreteHMM"),
-    ("generative_functions.distributions", "DiscreteHMMConfiguration"),
-    ("generative_functions.distributions", "forward_filtering_backward_sampling"),
     # item 9: the staging half of the incremental edit (torch has no jaxpr)
     ("core.compiler", "Environment"),
     ("core.compiler", "InitialStylePrimitive"),

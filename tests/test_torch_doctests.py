@@ -45,4 +45,19 @@ def test_example_volume():
         "genjax_tpu_torch.core.diff",
         "genjax_tpu_torch.inference.requests.hmc",
         "genjax_tpu_torch.inference.mcmc",
+        "genjax_tpu_torch.core.scan",
+        "genjax_tpu_torch.dists.discrete_hmm",
+        "genjax_tpu_torch.dists.hmm_tools",
+        "genjax_tpu_torch.models.hmm",
+        "genjax_tpu_torch.models.ppca",
+        "genjax_tpu_torch.models.bnn",
+        "genjax_tpu_torch.inference.exact_testbed",
+        "genjax_tpu_torch.inference.enumerate_",
+        "genjax_tpu_torch.inference.gibbs",
+        "genjax_tpu_torch.inference.pgibbs",
+        "genjax_tpu_torch.inference.requests.elliptical",
+        "genjax_tpu_torch.inference.requests.slice_",
+        "genjax_tpu_torch.inference.involutive",
+        "genjax_tpu_torch.inference.predictive",
+        "genjax_tpu_torch.inference.sbc",
     } <= names, sorted(names)

@@ -66,3 +66,34 @@ def test_smc_names_resolve(module, name):
     port = importlib.import_module("genjax_tpu_torch" + ("." + module if module else ""))
     assert hasattr(ref, name), name
     assert getattr(port, name) is not None and name in port.__all__
+
+
+SLICE13_NAMES = {
+    "inference": ["CSMCSweepResult", "EnumerationResult", "GibbsInfo", "GibbsSweepResult", "InvolutiveInfo",
+                  "PGibbsResult", "PMMHResult", "SBCResult", "csmc_sweep", "enum_move", "enum_vmap_move",
+                  "enumerate_", "enumerate_posterior", "enumerative_gibbs", "enumerative_gibbs_vmap", "gibbs",
+                  "gibbs_sweep", "involutive", "involutive_mh", "involutive_move", "mh_move", "particle_gibbs",
+                  "pgibbs", "pmmh", "posterior_predictive", "predictive", "sbc_ranks", "sbc_uniformity"],
+    "inference.requests": ["EllipticalSlice", "SliceSample"],
+    "inference.exact_testbed": ["DiscreteHMMInferenceProblem", "build_test_against_exact_inference"],
+    "dists": ["DiscreteHMM", "DiscreteHMMConfiguration", "HMMPosterior", "forward_backward",
+              "forward_backward_parallel", "forward_filtering_backward_sampling", "forward_parallel", "hmm_em",
+              "hmm_log_marginal", "hmm_posterior_sample", "viterbi", "viterbi_parallel"],
+    "models": ["bayesian_nn", "bnn_exact_linear_posterior", "bnn_predict", "dense_hmm_model",
+               "discrete_hmm_model", "ppca_em", "ppca_log_likelihood", "ppca_ml", "ppca_model", "ppca_posterior"],
+    "": ["EllipticalSlice", "SliceSample"],
+}
+
+
+@pytest.mark.parametrize("module,name", [(m, n) for m, names in SLICE13_NAMES.items() for n in names])
+def test_slice13_names_resolve(module, name):
+    """Slice 13's names resolve where the reference exports them, and are in
+    the port's ``__all__`` there (a module's own names, where the reference
+    has no ``__all__``, resolve on the module)."""
+    import importlib
+
+    ref = importlib.import_module("genjax_tpu" + ("." + module if module else ""))
+    port = importlib.import_module("genjax_tpu_torch" + ("." + module if module else ""))
+    assert hasattr(ref, name), name
+    assert getattr(port, name) is not None
+    assert name in getattr(port, "__all__", [name])

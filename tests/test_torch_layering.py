@@ -115,7 +115,14 @@ def test_imports_without_jax():
         "genjax_tpu_torch.parallel.smc, genjax_tpu_torch.inference.sp, "
         "genjax_tpu_torch.inference.smc, genjax_tpu_torch.inference.tempered, "
         "genjax_tpu_torch.inference.requests.mala, genjax_tpu_torch.inference.requests.rejuvenate, "
-        "genjax_tpu_torch.dists.lgssm, genjax_tpu_torch.models.mixture; "
+        "genjax_tpu_torch.dists.lgssm, genjax_tpu_torch.models.mixture, "
+        "genjax_tpu_torch.core.scan, genjax_tpu_torch.dists.discrete_hmm, genjax_tpu_torch.dists.hmm_tools, "
+        "genjax_tpu_torch.models.hmm, genjax_tpu_torch.models.ppca, genjax_tpu_torch.models.bnn, "
+        "genjax_tpu_torch.inference.exact_testbed, genjax_tpu_torch.inference.enumerate_, "
+        "genjax_tpu_torch.inference.gibbs, genjax_tpu_torch.inference.pgibbs, "
+        "genjax_tpu_torch.inference.requests.elliptical, genjax_tpu_torch.inference.requests.slice_, "
+        "genjax_tpu_torch.inference.involutive, genjax_tpu_torch.inference.predictive, "
+        "genjax_tpu_torch.inference.sbc; "
         "print(sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'genjax_tpu' or m.startswith('genjax_tpu.')))"
     )
@@ -234,6 +241,34 @@ def test_smc_modules_are_layered():
                     if _subpackage(t) not in ("core", "generative", "dists", "parallel")], mod
     assert not [t for t in edges[f"{PKG}.dists.lgssm"] if _subpackage(t) not in ("core", "generative", "dists")]
     assert LAYERS["models"] < LAYERS["parallel"] < LAYERS["inference"]
+
+
+def test_slice13_modules_are_layered():
+    """The discrete and trace-level families: the one associative scan sits
+    in ``core`` and serves both the Kalman family and the HMM tools; the HMM
+    distributions sit with the distributions, on ``core`` and ``generative``
+    alone; the models reach no kernel or inference module; the inference
+    modules reach down to the GFI, the models, the resamplers and the
+    gradient view."""
+    mods, edges = _graph()
+    slice13 = ["core.scan", "dists.discrete_hmm", "dists.hmm_tools", "models.hmm", "models.ppca", "models.bnn",
+               "inference.exact_testbed", "inference.enumerate_", "inference.gibbs", "inference.pgibbs",
+               "inference.requests.elliptical", "inference.requests.slice_", "inference.involutive",
+               "inference.predictive", "inference.sbc"]
+    for mod in slice13:
+        assert f"{PKG}.{mod}" in mods, mod
+    assert f"{PKG}.core.scan" in edges[f"{PKG}.dists.lgssm"]
+    assert f"{PKG}.core.scan" in edges[f"{PKG}.dists.hmm_tools"]
+    for mod in ("dists.discrete_hmm", "dists.hmm_tools"):
+        assert not [t for t in edges[f"{PKG}.{mod}"] if _subpackage(t) not in ("core", "generative", "dists")], mod
+    for mod in ("models.hmm", "models.ppca", "models.bnn"):
+        assert not [t for t in edges[f"{PKG}.{mod}"] if _subpackage(t) in ("kernels", "inference", "parallel")], mod
+    assert f"{PKG}.models.hmm" in edges[f"{PKG}.inference.exact_testbed"]
+    assert f"{PKG}.parallel.resampling" in edges[f"{PKG}.inference.pgibbs"]
+    assert f"{PKG}.inference.requests.grad_view" in edges[f"{PKG}.inference.involutive"]
+    assert f"{PKG}.inference.requests.grad_view" in edges[f"{PKG}.inference.requests.elliptical"]
+    assert f"{PKG}.inference.requests.grad_view" in edges[f"{PKG}.inference.requests.slice_"]
+    assert f"{PKG}.inference.sample" in edges[f"{PKG}.inference.predictive"]
 
 
 def test_layer_direction():
