@@ -163,7 +163,8 @@ def test_long_sequence_passes_hold_float64_precision():
     """The sequential passes normalize each step and sum the normalizers as
     a scan: at T = 4,096 the log marginal and the Viterbi score stay within
     1e-6 of float64 (the reference's unnormalized float32 recursion drifts
-    about 3e-6 here, 5e-5 at 64 states on an H100)."""
+    about 3e-6 here, 5e-5 at 64 states on an NVIDIA H100 80GB HBM3 at
+    700.00 W)."""
     from scipy.special import logsumexp
 
     rng = np.random.RandomState(5)
