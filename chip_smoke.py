@@ -1108,7 +1108,7 @@ def sample_posterior_path(device, smi: str, g, hmc, model, y):
     warm_kw = dict(n_warmup=SP_WARMUP, eps0=SP_EPS0, L=L, target_accept=0.8, backend="auto")
     stage["warmup"] = wall_ms(lambda: sample._warm_sweep(gen, trs, sel, **warm_kw))
     trs_w, eps_w, im_w = sample._warm_sweep(gen, trs, sel, **warm_kw)
-    draw_kw = dict(n_samples=SP_SAMPLES, thin=1, eps=eps_w, inv_mass=im_w, L=L, backend="auto")
+    draw_kw = dict(lo=0, hi=SP_SAMPLES, base=SEED, thin=1, eps=eps_w, inv_mass=im_w, L=L, backend="auto")
     stage["draws"] = wall_ms(lambda: sample._draw_sweep(gen, trs_w, sel, **draw_kw))
     trs_d, draws, _accs = sample._draw_sweep(gen, trs_w, sel, **draw_kw)
     stage["diagnostics"] = wall_ms(lambda: sample._column_diagnostics(draws, SP_SAMPLES))
@@ -3606,6 +3606,456 @@ def discrete_path(device, smi: str, g) -> None:
                       f"phases took {time.perf_counter() - t0:.1f} s")
 
 
+# ---- slice 14: the population and column-density algorithms, model
+# comparison, and checkpointed resume (no kernel; K1 in [checkpoint])
+
+ABC_REJ_N, ABC_SMC_N, ABC_GENS = 400_000, 65_536, 10
+SMC2_THETA, SMC2_X, SMC2_T = 1024, 1024, 20
+CHEES_N = 65_536
+NS_LIVE, NS_ITER, NS_MCMC, NS_RUNS = 200, 1600, 20, 1024
+NS_BUSY_ITER = 20  # the profiled and read-counted call: the same at fewer iterations
+PF_PATHS, PF_DRAWS = 64, 4096
+PF_RESAMPLE = PF_PATHS * PF_DRAWS
+PF_COLUMN_PATHS, PF_COLUMN_ITERS = 8, 30
+PF_BUSY_ITERS = 3  # column_pathfinder's profiled and read-counted call
+MC_S, MC_N = 4000, 10_000
+CK_EVERY, CK_SEGMENTS = 25, 2
+CK_HMC_CHAINS, CK_HMC_WARMUP, CK_HMC_SAMPLES, CK_HMC_EVERY = 512, 120, 80, 20
+
+
+def trapezoid(y: np.ndarray, x: np.ndarray) -> float:
+    return float(np.sum((y[1:] + y[:-1]) * np.diff(x)) / 2.0)
+
+
+def costs(fn, call_s: float, what: str = "one call") -> str:
+    """A call's host reads and the card's busy share in it, both of one
+    more call of ``fn`` (whose host-clock time is ``call_s``)."""
+    reads = host_reads(fn)
+    return f"host reads {reads} a call; " + busy_line(what, device_busy(fn), call_s * 1e3)
+
+
+def abc_path(device, smi: str, g) -> None:
+    """``[main path abc]``: ``abc_rejection`` and ``abc_smc`` on
+    ``tests/inference/test_abc.py``'s Gaussian simulator against the
+    quadrature of the closed-form ABC posterior."""
+    from scipy.stats import norm
+
+    from genjax_tpu_torch.inference import abc_rejection, abc_smc, column_weighted_moments
+
+    t0_, s_, y_obs = 1.0, 0.7, 1.3
+
+    @g.gen
+    def gauss():
+        theta = g.normal(0.0, t0_) @ "theta"
+        return g.normal(theta, s_) @ "y"
+
+    def distance(tr):
+        return torch.abs(tr.get_choices()["y"] - y_obs)
+
+    def exact(eps):
+        th = np.linspace(-6.0, 6.0, 200_001)
+        w = norm.pdf(th, 0.0, t0_) * (norm.cdf((y_obs + eps - th) / s_) - norm.cdf((y_obs - eps - th) / s_))
+        w = w / trapezoid(w, th)
+        mean = trapezoid(th * w, th)
+        return mean, trapezoid((th - mean) ** 2 * w, th)
+
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    rej = lambda: abc_rejection(gen, gauss, (), distance, n_samples=ABC_REJ_N, tolerance=0.5, device=device)  # noqa: E731
+    res, s = timed(rej)
+    w = res.choices.flag.double()
+    th = res.choices.value["theta"].double()
+    mean = float((w * th).sum() / w.sum())
+    var = float((w * (th - mean) ** 2).sum() / w.sum())
+    em, ev = exact(0.5)
+    s_marg = math.sqrt(t0_**2 + s_**2)
+    p_hit = norm.cdf((y_obs + 0.5) / s_marg) - norm.cdf((y_obs - 0.5) / s_marg)
+    check(res.choices.flag.is_cuda and abs(mean - em) <= 0.02 and abs(var - ev) <= 0.02,
+          f"abc_rejection: mean {mean} vs {em}, variance {var} vs {ev} (limits 0.02)")
+    check(abs(float(res.accept_rate) - p_hit) <= 0.01, f"abc_rejection accept {float(res.accept_rate)} vs {p_hit}")
+    phase("main path abc", f"{smi}: abc_rejection, {ABC_REJ_N} simulations: mean {mean:.4f} vs the quadrature's "
+                           f"{em:.4f}, variance {var:.4f} vs {ev:.4f} (limits 0.02), accept {float(res.accept_rate):.4f}"
+                           f" vs {p_hit:.4f}; {s:.3f} s; " + costs(rej, s))
+    smc = lambda: abc_smc(gen, gauss, (), distance, ["theta"], n_particles=ABC_SMC_N, n_generations=ABC_GENS,  # noqa: E731
+                          mh_moves=2, device=device)
+    (res, packer), s = timed(smc)
+    m, v = column_weighted_moments(res.params, packer.dim)
+    eps = float(res.tolerance)
+    em, ev = exact(eps)
+    ladder = res.tolerance_history
+    check(bool(torch.all(ladder[1:] <= ladder[:-1])), f"abc_smc's tolerance ladder rose: {ladder.tolist()}")
+    check(abs(float(m[0]) - em) <= 0.06 and abs(float(v[0]) - ev) <= 0.2 * ev,
+          f"abc_smc: mean {float(m[0])} vs {em} (limit 0.06), variance {float(v[0])} vs {ev} (rel 0.2)")
+    phase("main path abc", f"{smi}: abc_smc, {ABC_SMC_N} particles x {ABC_GENS} generations, mh_moves 2: final "
+                           f"tolerance {eps:.4f}, mean {float(m[0]):.4f} vs the quadrature's {em:.4f} (limit 0.06), "
+                           f"variance {float(v[0]):.4f} vs {ev:.4f} (rel 0.2), ladder non-increasing, move accept "
+                           f"{float(res.move_accept_history.mean()):.4f}; {s:.3f} s; " + costs(smc, s))
+
+
+def smc2_path(device, smi: str, g) -> None:
+    """``[main path smc2]``: SMC² on ``tests/inference/test_smc2.py``'s AR(1)
+    state-space model against the Kalman grid."""
+    from scipy.stats import norm
+
+    from genjax_tpu_torch.inference import smc2
+
+    q_, r_, a_true, pm, ps = 1.0, 0.5, 0.8, 0.5, 0.3
+    rng = np.random.RandomState(0)
+    z, ys = 0.0, []
+    for _ in range(SMC2_T):
+        z = a_true * z + q_ * rng.randn()
+        ys.append(z + r_ * rng.randn())
+    ys = np.asarray(ys, np.float32)
+
+    def kalman(a):
+        mean, var, ll = 0.0, 0.0, 0.0
+        for yv in ys:
+            mean, var = a * mean, a * a * var + q_**2
+            sv = var + r_**2
+            ll += norm.logpdf(yv, mean, math.sqrt(sv))
+            gain = var / sv
+            mean, var = mean + gain * (yv - mean), (1 - gain) * var
+        return ll
+
+    grid = np.linspace(-0.6, 1.8, 1201)
+    lw = np.array([norm.logpdf(a, pm, ps) + kalman(a) for a in grid])
+    log_ev = math.log(trapezoid(np.exp(lw - lw.max()), grid)) + lw.max()
+    wg = np.exp(lw - lw.max())
+    exact_mean = float(wg @ grid / wg.sum())
+
+    @g.gen
+    def kernel(c, x):
+        a, zz = c
+        z_new = g.normal(a * zz, q_) @ "z"
+        y = g.normal(z_new, r_) @ "y"
+        return ((a, z_new), y)
+
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    obs = g.C[:, "y"].set(torch.from_numpy(ys).to(device))
+    run = lambda: smc2(  # noqa: E731
+        gen, kernel, lambda gg: pm + ps * torch.randn((), generator=gg, device=gg.device),
+        lambda a: -0.5 * ((a - pm) / ps) ** 2 - math.log(ps) - 0.5 * math.log(2 * math.pi),
+        0.0, torch.zeros(SMC2_T, device=device), obs, n_theta=SMC2_THETA, n_x=SMC2_X, rw_scales=0.15, n_rejuv=2,
+        device=device)
+    res, s = timed(run)
+    wt = torch.exp(res.log_weights.double())
+    mean = float(wt @ res.thetas.double())
+    acc = float(res.rejuv_accept_rate)
+    check(abs(mean - exact_mean) <= 0.06 and abs(float(res.log_evidence) - log_ev) <= 0.6 and acc > 0.05,
+          f"smc2: mean {mean} vs {exact_mean} (0.06), log evidence {float(res.log_evidence)} vs {log_ev} (0.6), "
+          f"rejuvenation accept {acc} (> 0.05)")
+    n_res = int((res.ess_history < 0.5 * SMC2_THETA).sum())
+    phase("main path smc2", f"{smi}: smc2, {SMC2_THETA} parameters x {SMC2_X} state particles, T = {SMC2_T}: "
+                            f"posterior mean of a {mean:.4f} vs the grid's {exact_mean:.4f} (limit 0.06), log evidence "
+                            f"{float(res.log_evidence):.4f} vs {log_ev:.4f} (limit 0.6), {n_res} rejuvenations "
+                            f"accepting {acc:.4f} (> 0.05); {s:.3f} s; " + costs(run, s))
+
+
+def chees_tempered_path(device, smi: str, g) -> None:
+    """``[main path smc_chees]``: ChEES-tempered SMC on
+    ``test_smc_chees.py``'s d = 4 Gaussian and, through the column bridge,
+    on the conjugate model, against the closed forms."""
+    from genjax_tpu_torch.inference import chees_tempered_smc, column_tempered_chees
+
+    c = -0.5 * math.log(2 * math.pi)
+    d, y, sig = 4, 1.5, 0.5
+    s2 = 1.0 + sig**2
+    logz = d * (-0.5 * y * y / s2 - 0.5 * math.log(s2) + c)
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    q0 = torch.randn((d, CHEES_N), generator=gen, device=device)
+    run = lambda: chees_tempered_smc(  # noqa: E731
+        gen, lambda q: torch.sum(-0.5 * q**2 + c, 0),
+        lambda q: torch.sum(-0.5 * ((y - q) / sig) ** 2 - math.log(sig) + c, 0), q0, n_rejuvenation=3)
+    res, s = timed(run)
+    w = torch.softmax(res.log_weights, 0)
+    mean = torch.sum(w * res.particles, 1)
+    var = torch.sum(w * (res.particles - mean[:, None]) ** 2, 1)
+    gm = float((mean - y / s2).abs().max())
+    gv = float((var - sig**2 / s2).abs().max())
+    check(float(res.final_beta) == 1.0 and abs(float(res.log_marginal) - logz) <= 0.05 and gm <= 0.08 and gv <= 0.08,
+          f"chees_tempered_smc: final beta {float(res.final_beta)}, log marginal {float(res.log_marginal)} vs "
+          f"{logz} (0.05), moments off by {gm}, {gv} (0.08)")
+    k = int(res.n_rungs)
+    phase("main path smc_chees", f"{smi}: chees_tempered_smc, d = {d} Gaussian, {CHEES_N} particles, n_rejuvenation "
+                                 f"3: {k} rungs to beta 1, log marginal {float(res.log_marginal):.4f} vs {logz:.4f} "
+                                 f"(limit 0.05), moments within {gm:.4f}, {gv:.4f} (limit 0.08), acceptance "
+                                 f"{float(res.accept_history[:k].mean()):.4f}, mean leapfrogs a sweep "
+                                 f"{float(res.leapfrog_history[:k].mean()):.2f}; {s:.3f} s; " + costs(run, s))
+
+    @g.gen
+    def conjugate():
+        mu = g.normal(0.0, 1.0) @ "mu"
+        _ = g.normal(mu, 0.5) @ "y"
+
+    obs = g.C["y"].set(1.5)
+    exact = -0.5 * 1.5**2 / 1.25 - 0.5 * math.log(1.25) + c
+    run = lambda: column_tempered_chees(conjugate, obs, (), ["mu"], gen, CHEES_N, device=device)  # noqa: E731
+    (res, _packer), s = timed(run)
+    w = torch.softmax(res.log_weights, 0)
+    mu = res.particles[0]
+    m = float(torch.sum(w * mu))
+    v = float(torch.sum(w * (mu - m) ** 2))
+    check(abs(float(res.log_marginal) - exact) <= 0.05 and abs(m - 1.2) <= 0.08 and abs(v - 0.2) <= 0.08,
+          f"column_tempered_chees: log marginal {float(res.log_marginal)} vs {exact}, mean {m}, variance {v}")
+    phase("main path smc_chees", f"{smi}: column_tempered_chees on the conjugate model, {CHEES_N} particles: "
+                                 f"{int(res.n_rungs)} rungs, log marginal {float(res.log_marginal):.4f} vs "
+                                 f"{exact:.4f} (limit 0.05), posterior mean {m:.4f} vs 1.2, variance {v:.4f} vs 0.2 "
+                                 f"(limits 0.08); {s:.3f} s; " + costs(run, s))
+
+
+def nested_path(device, smi: str) -> None:
+    """``[main path nested]``: nested sampling on ``test_nested.py``'s
+    Gaussian evidence problem, the runs one batch."""
+    from genjax_tpu_torch.inference import nested_sampling
+
+    c = -0.5 * math.log(2 * math.pi)
+    sig = 0.5
+    y = torch.tensor(np.linspace(0.4, 1.0, 2), dtype=torch.float32, device=device)
+    exact = float(sum(-0.5 * float(v) ** 2 / (1 + sig**2) - 0.5 * math.log(1 + sig**2) + c for v in y))
+    gen = torch.Generator(device=device).manual_seed(SEED)
+
+    def run(n_iter=NS_ITER):
+        return nested_sampling(
+            lambda gg, n: torch.randn((2, n), generator=gg, device=gg.device),
+            lambda q: torch.sum(-0.5 * q**2 + c, 0),
+            lambda q: torch.sum(-0.5 * ((q - y[:, None]) / sig) ** 2 - math.log(sig) + c, 0),
+            gen, n_live=NS_LIVE, n_iter=n_iter, n_mcmc=NS_MCMC, n_runs=NS_RUNS, device=device)
+
+    res, s = timed(run)
+    se = float(res.log_z.std()) / math.sqrt(NS_RUNS)
+    gap = abs(float(res.log_z_mean) - exact)
+    mono = bool(torch.all(torch.diff(res.dead_log_lik, dim=1) >= 0))
+    check(gap <= 4 * se + 0.05 and mono,
+          f"nested_sampling: mean log Z {float(res.log_z_mean)} vs {exact} (limit {4 * se + 0.05}), dead likelihoods "
+          f"non-decreasing {mono}")
+    small = lambda: run(NS_BUSY_ITER)  # noqa: E731
+    _, small_s = timed(small)
+    phase("main path nested", f"{smi}: nested_sampling, {NS_RUNS} runs as one batch x {NS_LIVE} live points x "
+                              f"{NS_ITER} iterations x {NS_MCMC} walk steps: mean log Z {float(res.log_z_mean):.4f} vs "
+                              f"{exact:.4f}, gap {gap:.4f} (limit 4 x SE {se:.4f} + 0.05), between-run SD "
+                              f"{float(res.log_z.std()):.4f}, classic error {float(res.error_estimate()):.4f}, walk "
+                              f"accept {float(res.accept_rate.mean()):.4f}, dead likelihoods non-decreasing in every "
+                              f"run; {s:.3f} s = {s / (NS_ITER * NS_MCMC) * 1e6:.1f} us a walk step of all runs; at "
+                              f"{NS_BUSY_ITER} iterations ({small_s:.3f} s): " + costs(small, small_s))
+
+
+def pathfinder_path(device, smi: str, g) -> None:
+    """``[main path pathfinder]``: ``multi_pathfinder`` on
+    ``test_pathfinder.py``'s 3-d Gaussian target, and ``column_pathfinder``
+    on the conjugate model."""
+    from genjax_tpu_torch.inference import column_pathfinder, multi_pathfinder
+
+    a = np.random.default_rng(5).normal(size=(3, 3))
+    cov = a @ a.T + 2.0 * np.eye(3)
+    m = np.asarray([1.5, -0.5, 2.0])
+    log_z = 0.5 * 3 * math.log(2 * math.pi) + 0.5 * np.linalg.slogdet(cov)[1]
+    prec = torch.tensor(np.linalg.inv(cov), dtype=torch.float32, device=device)
+    mt = torch.tensor(m, dtype=torch.float32, device=device)
+
+    def logp(zz):
+        dz = zz - mt[:, None]
+        return -0.5 * torch.sum(dz * (prec @ dz), dim=0)
+
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    run = lambda: multi_pathfinder(gen, logp, 3, n_paths=PF_PATHS, n_resample=PF_RESAMPLE, n_draws=PF_DRAWS,  # noqa: E731
+                                   device=device)
+    res, s = timed(run)
+    gm = float((res.mean().double().cpu() - torch.tensor(m)).abs().max())
+    cov_hat = torch.cov(res.draws.double()).cpu().numpy()
+    cov_ok = bool(np.all(np.abs(cov_hat - cov) <= 0.05 + 0.05 * np.abs(cov)))
+    # the ELBO of each path's chosen Gaussian from its own 4,096 draws: the
+    # best-ELBO pick over 60 iterates of 30 draws each is biased upward
+    fresh = float((res.paths.logp - res.paths.logq).double().mean(dim=1).max())
+    best = float(res.path_elbos.max())
+    check(gm <= 0.02 and cov_ok and abs(fresh - log_z) <= 0.05,
+          f"multi_pathfinder: mean off by {gm} (0.02), covariance {cov_hat.tolist()} vs {cov.tolist()} (0.05 + 5%), "
+          f"the best path's ELBO over its draws {fresh} vs log Z {log_z} (0.05)")
+    steps = res.paths.linesearch_steps.double()
+    reads = host_reads(run)
+    phase("main path pathfinder", f"{smi}: multi_pathfinder, {PF_PATHS} paths as one batch x 60 L-BFGS iterations, "
+                                  f"{PF_DRAWS} draws a path, {PF_RESAMPLE} PSIS resamples: mean within {gm:.4f} "
+                                  f"(limit 0.02), covariance within 0.05 + 5%, the best path's ELBO over its "
+                                  f"{PF_DRAWS} draws {fresh:.4f} vs log Z {log_z:.4f} (limit 0.05; the best-ELBO "
+                                  f"picks' own estimates, 30 draws each, up to {best:.4f}), pooled k-hat "
+                                  f"{float(res.pareto_k):.3f}; linesearch steps "
+                                  f"a path and iteration {float(steps.mean()):.3f} (max {int(steps.max())}), "
+                                  f"{int(steps.sum(dim=1).max())} on the longest path; host reads {reads} a call, "
+                                  f"{reads / steps.shape[1]:.2f} an iteration of all the paths together "
+                                  f"({reads / PF_PATHS:.2f} a path); {s:.3f} s; "
+                                  + busy_line("one call", device_busy(run), s * 1e3))
+
+    @g.gen
+    def conjugate():
+        mu = g.normal(0.0, 1.0) @ "mu"
+        _ = g.normal(mu, 0.5) @ "y"
+
+    def run(n_iters=PF_COLUMN_ITERS):
+        return column_pathfinder(gen, conjugate, g.C["y"].set(1.0), (), ["mu"], n_paths=PF_COLUMN_PATHS,
+                                 n_iters=n_iters, n_resample=65_536, device=device)
+
+    post, s = timed(run)
+    small = lambda: run(PF_BUSY_ITERS)  # noqa: E731
+    _, small_s = timed(small)
+    mean = float(post.mean_choices()["mu"])
+    sd = float(post.sample_choices(gen, 65_536)["mu"].std())
+    check(abs(mean - 0.8) <= 0.05 and abs(sd - math.sqrt(0.2)) <= 0.15 * math.sqrt(0.2),
+          f"column_pathfinder: mean {mean} vs 0.8 (0.05), SD {sd} vs {math.sqrt(0.2)} (15%)")
+    phase("main path pathfinder", f"{smi}: column_pathfinder on the conjugate model, {PF_COLUMN_PATHS} paths x "
+                                  f"{PF_COLUMN_ITERS} iterations (the reference test's): posterior "
+                                  f"mean {mean:.4f} vs 0.8 (limit 0.05), SD {sd:.4f} vs {math.sqrt(0.2):.4f} (limit "
+                                  f"15%); {s:.3f} s; at {PF_BUSY_ITERS} iterations ({small_s:.3f} s): "
+                                  + costs(small, small_s))
+
+
+def model_comparison_path(device, smi: str) -> None:
+    """``[model comparison]``: ``psis_loo`` and ``waic`` on a (4,000,
+    10,000) float32 log-likelihood matrix on the card, against the port's
+    own float64 run on the CPU."""
+    from scipy.stats import norm
+
+    from genjax_tpu_torch.inference import psis_loo, waic
+
+    rng = np.random.default_rng(SEED)
+    ys = rng.normal(0.5, 0.8, size=MC_N)
+    v = 1.0 / (1.0 + MC_N / 0.64)
+    mus = v * ys.sum() / 0.64 + math.sqrt(v) * rng.normal(size=MC_S)
+    ll = norm.logpdf(ys[None, :], mus[:, None], 0.8).astype(np.float32)
+    ll_gpu = torch.from_numpy(ll).to(device)
+    loo, loo_s = timed(lambda: psis_loo(ll_gpu))
+    wa, waic_s = timed(lambda: waic(ll_gpu))
+    t0 = time.perf_counter()
+    ll64 = torch.from_numpy(ll).double()
+    loo64, wa64 = psis_loo(ll64), waic(ll64)
+    cpu_s = time.perf_counter() - t0
+    gaps = {"elpd": rel_gap(loo.elpd, loo64.elpd), "p_eff": rel_gap(loo.p_eff, loo64.p_eff),
+            "pareto_k": float(((loo.pareto_k.double().cpu() - loo64.pareto_k).abs()
+                               / loo64.pareto_k.abs().clamp(min=1.0)).max()),
+            "waic elpd": rel_gap(wa.elpd, wa64.elpd), "waic p_eff": rel_gap(wa.p_eff, wa64.p_eff)}
+    check(all(gv <= 1e-4 for gv in gaps.values()), f"model comparison off the float64 CPU run: {gaps}")
+    phase("model comparison", f"{smi}: psis_loo and waic on ({MC_S}, {MC_N}) float32 log-likelihoods "
+                              f"({ll.nbytes / 1e6:.0f} MB): psis_loo {loo_s * 1e3:.2f} ms, waic {waic_s * 1e3:.2f} ms "
+                              f"(host clock); elpd {float(loo.elpd):.3f}, p_eff {float(loo.p_eff):.3f}, max k-hat "
+                              f"{float(loo.pareto_k.max()):.4f}; relative gaps to the port's float64 CPU run ("
+                              f"{cpu_s:.2f} s): " + ", ".join(f"{k} {gv:.2e}" for k, gv in gaps.items())
+                              + " (limit 1e-4); " + costs(lambda: psis_loo(ll_gpu), loo_s, "one psis_loo"))
+
+
+def checkpoint_path(device, smi: str, g, hmc, model, y) -> int:
+    """``[checkpoint]``: ``sample_posterior(hmc_sweep)`` on the flagship and
+    ``"hmc"`` on ``examples/10``'s regression, each run whole without a
+    checkpoint, whole with one, and stopped after ``max_segments`` and
+    resumed: the draws, accepts, ``eps`` and ``inv_mass`` bitwise equal.
+    Returns the K1 launches of the checkpointed whole run."""
+    import os
+    import tempfile
+
+    from genjax_tpu_torch.inference import sample
+    from genjax_tpu_torch.models import linear_regression
+
+    saves, loads, sizes = [], [], []
+    save0, load0 = sample.save_segment_state, sample.load_segment_state
+
+    def timed_save(d, state, meta):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        save0(d, state, meta)
+        saves.append(time.perf_counter() - t0)
+        sizes.append(os.path.getsize(os.path.join(d, f"state_{meta['next_segment']}", "leaves.pt")))
+
+    def timed_load(d, make_template):
+        t0 = time.perf_counter()
+        out = load0(d, make_template)
+        torch.cuda.synchronize()
+        if out is not None:
+            loads.append(time.perf_counter() - t0)
+        return out
+
+    def same(a, b, addr):
+        return (torch.equal(a[addr], b[addr]) and torch.equal(a.accept_rate, b.accept_rate)
+                and torch.equal(a.eps, b.eps) and torch.equal(a.inv_mass, b.inv_mass))
+
+    sample.save_segment_state, sample.load_segment_state = timed_save, timed_load
+    try:
+        cases = []
+        sel = g.S["w"] | g.S["tau"]
+        obs = g.C["y"].set(torch.as_tensor(y, device=device))
+        kw = dict(n_chains=N_CHAINS, n_warmup=SP_WARMUP, n_samples=SP_SAMPLES, algorithm="hmc_sweep", eps0=SP_EPS0,
+                  L=L, device=device)
+        cases.append(("hmc_sweep", "w", CK_EVERY, lambda **o: sample.sample_posterior(SEED, model, obs, (), sel,
+                                                                                       **{**kw, **o})))
+        X = np.random.default_rng(0).normal(size=(24, 3)).astype(np.float32)
+        w_true = np.asarray([1.0, -2.0, 0.5], np.float32)
+        y10 = (X @ w_true + 0.25 * np.random.default_rng(0).normal(size=24)).astype(np.float32)
+        model10, _exact = linear_regression(X)
+        obs10 = g.C["y"].set(torch.from_numpy(y10).to(device))
+        kw10 = dict(n_chains=CK_HMC_CHAINS, n_warmup=CK_HMC_WARMUP, n_samples=CK_HMC_SAMPLES, algorithm="hmc",
+                    eps0=0.02, device=device)
+        cases.append(("hmc", "w", CK_HMC_EVERY, lambda **o: sample.sample_posterior(SEED, model10, obs10, (),
+                                                                                    g.S["w"], **{**kw10, **o})))
+        k1_whole = 0
+        for (name, addr, every, call), small_kw in zip(cases, (dict(), dict(n_warmup=12, n_samples=8))):
+            with tempfile.TemporaryDirectory() as d:
+                plain, plain_s = timed(call)
+                hmc.hmc_sweep_launches = 0
+                whole, whole_s = timed(lambda: call(checkpoint_dir=os.path.join(d, "whole"), checkpoint_every=every))
+                launches_whole = hmc.hmc_sweep_launches
+                n_saves = len(saves)
+                hmc.hmc_sweep_launches = 0
+                part, part_s = timed(lambda: call(checkpoint_dir=os.path.join(d, "part"), checkpoint_every=every,
+                                                  max_segments=CK_SEGMENTS))
+                resumed, resume_s = timed(lambda: call(checkpoint_dir=os.path.join(d, "part"),
+                                                       checkpoint_every=every))
+                launches_split = hmc.hmc_sweep_launches
+            ok = same(plain, whole, addr) and same(plain, resumed, addr)
+            check(ok, f"[checkpoint] {name}: the checkpointed runs differ from the whole run")
+            check(tuple(part[addr].shape[:2]) == (plain[addr].shape[0], CK_SEGMENTS * every),
+                  f"[checkpoint] {name}: the stopped run returned {tuple(part[addr].shape)}")
+            if name == "hmc_sweep":
+                want = min(6, SP_WARMUP) + SP_SAMPLES
+                check(launches_whole == want and launches_split == want,
+                      f"[checkpoint] hmc_sweep made {launches_whole} and {launches_split} K1 launches, not {want}")
+                k1_whole = launches_whole
+            phase("checkpoint", f"{smi}: sample_posterior({name}) at {plain[addr].shape[0]} chains, "
+                                f"checkpoint_every {every}: draws, accepts, eps and inv_mass bitwise equal "
+                                f"(torch.equal) to the run without a checkpoint, whole ({whole_s:.3f} s vs "
+                                f"{plain_s:.3f} s, {n_saves} saves) and stopped after {CK_SEGMENTS} segments "
+                                f"({part_s:.3f} s) then resumed ({resume_s:.3f} s); K1 launches {launches_whole} "
+                                f"whole, {launches_split} stopped and resumed")
+            phase("checkpoint", f"{smi}: {name}: a save {min(saves) * 1e3:.1f}-{max(saves) * 1e3:.1f} ms (host "
+                                f"clock, {len(saves)} saves), a restore {loads[-1] * 1e3:.1f} ms; the state "
+                                f"{min(sizes) / 1e6:.2f}-{max(sizes) / 1e6:.2f} MB (after the warmup to after the "
+                                f"last segment)")
+            saves.clear(), loads.clear(), sizes.clear()
+            with tempfile.TemporaryDirectory() as d:
+                every_small = every if not small_kw else 4
+                small = lambda: call(checkpoint_dir=os.path.join(d, str(time.perf_counter())),  # noqa: E731
+                                     checkpoint_every=every_small, **small_kw)
+                _, small_s = timed(small)
+                what = "the checkpointed run" if not small_kw else (
+                    f"a checkpointed run of {small_kw['n_warmup']} + {small_kw['n_samples']} (every {every_small})")
+                phase("checkpoint", f"{smi}: {name}: {what} {small_s:.3f} s; " + costs(small, small_s))
+            saves.clear(), loads.clear(), sizes.clear()
+    finally:
+        sample.save_segment_state, sample.load_segment_state = save0, load0
+    return k1_whole
+
+
+def population_path(device, smi: str, g, hmc, model, y) -> int:
+    """Slice 14's phases: ABC, SMC², ChEES-tempered SMC, nested sampling,
+    Pathfinder, model comparison and checkpointed resume. Returns the K1
+    launches of the checkpointed ``sample_posterior(hmc_sweep)``."""
+    t0 = time.perf_counter()
+    abc_path(device, smi, g)
+    smc2_path(device, smi, g)
+    chees_tempered_path(device, smi, g)
+    nested_path(device, smi)
+    pathfinder_path(device, smi, g)
+    model_comparison_path(device, smi)
+    launches = checkpoint_path(device, smi, g, hmc, model, y)
+    phase("population", f"{smi}: the ABC, SMC², ChEES-tempered, nested, Pathfinder, model comparison and "
+                        f"checkpoint phases took {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this test needs a CUDA card",
@@ -4047,6 +4497,10 @@ def main() -> int:
     # MCMC, predictive checks and SBC, PPCA and the BNN (no kernel)
     discrete_path(device, smi, g)
 
+    # ---- ABC, SMC², ChEES-tempered SMC, nested sampling, Pathfinder, model
+    # comparison (no kernel), and checkpointed resume of sample_posterior (K1)
+    ck_launches = population_path(device, smi, g, hmc, model, y)
+
     print(json.dumps({"kernels": [{
         "name": "hmc_sweep (K1, with K2's counter PRNG as device functions)",
         "route": "cuda",
@@ -4054,7 +4508,8 @@ def main() -> int:
         "replaces": "genjax_tpu/kernels/hmc.py:93",
         "launches": launches,
         "launches_by_path": {"column_hmc": launches, "column_hmc(warmup=True)": warm_launches,
-                             **gfi_launches, "sample_posterior(hmc_sweep)": sp_launches},
+                             **gfi_launches, "sample_posterior(hmc_sweep)": sp_launches,
+                             f"sample_posterior(hmc_sweep, checkpoint_every={CK_EVERY})": ck_launches},
         "max_abs_err": flagship_err,
         "ms": ms,
         "plain_ms": plain_ms,

@@ -31,7 +31,10 @@ and trace-level families: the discrete HMM's exact posterior
 (``dists.DiscreteHMM``) and dense-HMM tools, exact enumeration and
 enumerative Gibbs, particle Gibbs and PMMH, the ``EllipticalSlice`` and
 ``SliceSample`` requests, involutive MCMC, posterior predictive checks,
-simulation-based calibration, and the PPCA, BNN and HMM models.
+simulation-based calibration, and the PPCA, BNN and HMM models; and the
+population and column-density algorithms (ABC, SMC², ChEES-tempered SMC,
+nested sampling, Pathfinder, WAIC/PSIS-LOO) with checkpointed resume of
+``inference.sample_posterior`` (``io``).
 """
 
 from .core import (
@@ -94,7 +97,7 @@ from .combinators import (
 )
 from .combinators import map as map_  # keeps the builtin in * imports
 from .combinators.mask_comb import mask as mask_combinator
-from . import adev, parallel
+from . import adev, io, parallel
 from .inference import (
     ChangeTarget,
     Importance,
@@ -212,6 +215,7 @@ __all__ = sorted(
         "mv_normal_diag",
         "normal",
         "or_else",
+        "io",
         "parallel",
         "repeat",
         "run_chain",

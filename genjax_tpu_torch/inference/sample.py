@@ -21,13 +21,18 @@ samples, and report split-R̂ and ESS for each sampled parameter.
 - ``sample_logdensity`` runs ChEES on a raw column log-density.
 
 Chains are made on ``device``, the card unless the caller asks for the CPU;
-randomness comes from one ``torch.Generator`` on it. Sharding and
-checkpointed resume are not ported yet and raise ``NotImplementedError``
-naming their ``ROADMAP.md`` item.
+randomness comes from one ``torch.Generator`` on it. The trace-path
+algorithms run their sampling in segments and, given ``checkpoint_dir``,
+save the whole sampler state after the warmup and after every segment
+(``io.save_segment_state``), so that a call with the same arguments resumes
+where the last one stopped and returns the draws of the uninterrupted run bit
+for bit. Sharding the chains (``mesh=``) is not ported yet and raises
+``NotImplementedError`` naming its ``ROADMAP.md`` item.
 """
 
 from __future__ import annotations
 
+import hashlib
 from typing import Any
 
 import torch
@@ -40,6 +45,7 @@ from ..generative.choice_map import ChoiceMap
 from ..generative.gfi import GenerativeFunction
 from ..generative.mask import Mask
 from ..generative.selection import Selection
+from ..io import check_meta_matches, load_segment_state, save_segment_state
 from ..kernels.adaptation import cross_chain_inv_mass, multiplicative_nudge, windowed_warmup
 from ..kernels.chees import chees_hmc
 from ..kernels.dense_mass import hmc_sweep_dense_cols, warmup_column_dense
@@ -166,12 +172,22 @@ def _warm(step, traces, selection: Selection, *, n_warmup: int, eps0, target_acc
     return traces, eps, inv_mass
 
 
-def _draw(step, traces, selection: Selection, *, n_samples: int, thin: int, eps, inv_mass):
-    """The trace path's sampling: a draw of every chain each ``thin``
-    transitions. Returns ``(traces, draws (N, n_samples, d), accepts
-    (n_samples,), divergences (n_samples,))``."""
+def _draw_seed(base: int, s: int) -> int:
+    """The seed of draw ``s``'s random stream: a function of the run's base
+    seed and the draw's index alone, so that where the run is cut into
+    segments does not change what any draw consumes."""
+    return base * 2**32 + s
+
+
+def _draw(step, draw_gen: torch.Generator, traces, selection: Selection, *, lo: int, hi: int, base: int,
+          thin: int, eps, inv_mass):
+    """The trace path's sampling of draws ``lo .. hi - 1``: a draw of every
+    chain each ``thin`` transitions, ``step`` drawing from ``draw_gen``,
+    reseeded for each draw (``_draw_seed``). Returns ``(traces, draws (N,
+    hi - lo, d), accepts (hi - lo,), divergences (hi - lo,))``."""
     draws, accs, divs = [], [], []
-    for _ in range(n_samples):
+    for s in range(lo, hi):
+        draw_gen.manual_seed(_draw_seed(base, s))
         a, dv = [], []
         for _ in range(thin):
             traces, acc, div = step(traces, eps, inv_mass)
@@ -206,24 +222,27 @@ def _warm_sweep(gen, traces, selection: Selection, *, n_warmup: int, eps0, L: in
     return run.write_back(run.finish(q), gen), eps, inv_mass
 
 
-def _draw_sweep(gen, traces, selection: Selection, *, n_samples: int, thin: int, eps, inv_mass,
-                L: int, backend: str):
-    """``"hmc_sweep"``'s sampling on one column block: one sweep of ``thin``
-    steps per draw (on the card one K1 launch), ``eps`` read and the
-    inverse mass packed once for all of them; the draws are kept in the
-    launch's layout and mapped back once, and the traces rebuilt once.
-    Returns ``(traces, draws (N, n_samples, d), accepts (n_samples,))``."""
+def _draw_sweep(draw_gen: torch.Generator, traces, selection: Selection, *, lo: int, hi: int, base: int,
+                thin: int, eps, inv_mass, L: int, backend: str):
+    """``"hmc_sweep"``'s sampling of draws ``lo .. hi - 1`` on one column
+    block: one sweep of ``thin`` steps per draw (on the card one K1 launch),
+    seeded ``base + s`` for draw ``s``, ``eps`` read and the inverse mass
+    packed once for all of them; the draws are kept in the launch's layout
+    and mapped back once, and the traces rebuilt once. The block's padding
+    rows (on the kernel) are drawn from a stream seeded by ``base`` alone:
+    they are inert, so every segment starts them where a whole run keeps
+    them. Returns ``(traces, draws (N, hi - lo, d), accepts (hi - lo,))``."""
     run = _ColumnSweep(traces, selection, 0, backend, "sample_posterior")
-    seed = _seed(gen)
-    q = run.start(gen)
+    q = run.start(draw_gen.manual_seed(base))
     eps, inv_mass = float(eps), run.inv_mass(inv_mass)
     draws, accs = [], []
-    for s in range(n_samples):
-        q, acc = run.sweep(pallas_hmc, q, seed + s, inv_mass, n_steps=thin, eps=eps, L=L)
+    for s in range(lo, hi):
+        q, acc = run.sweep(pallas_hmc, q, base + s, inv_mass, n_steps=thin, eps=eps, L=L)
         draws.append(run.real(q))
         accs.append(acc)
-    z = run.finish(torch.stack(draws))  # (n_samples, d, N)
-    return run.write_back(z[-1], gen), z.permute(2, 0, 1), torch.stack(accs)
+    z = run.finish(torch.stack(draws))  # (hi - lo, d, N)
+    traces = run.write_back(z[-1], draw_gen.manual_seed(_draw_seed(base, hi)))
+    return traces, z.permute(2, 0, 1), torch.stack(accs)
 
 
 def _unraveler(traces, selection: Selection):
@@ -238,6 +257,11 @@ def _unraveler(traces, selection: Selection):
 def _finish_trace_result(traces, draws, accs, divs, selection: Selection, eps, inv_mass):
     """Diagnostics of ``draws (N, n_samples, d)``, and the draws and
     diagnostics mapped back onto the selection's addresses."""
+    if draws.shape[1] == 0:
+        raise ValueError(
+            "no sampling segments ran (max_segments=0 on a fresh run?) — nothing to return; run at "
+            "least one segment"
+        )
     rhat, ess_ = _column_diagnostics(draws, draws.shape[1])
     unravel = _unraveler(traces, selection)
     return PosteriorSamples(
@@ -248,6 +272,66 @@ def _finish_trace_result(traces, draws, accs, divs, selection: Selection, eps, i
         divergence_rate=divs.mean(),
         eps=eps,
         inv_mass=inv_mass,
+    )
+
+
+# ----------------------------------------------------------------------
+# checkpointed resume of the trace-path algorithms
+# ----------------------------------------------------------------------
+
+
+def _state_hash(gen: torch.Generator) -> str:
+    return hashlib.sha256(gen.get_state().numpy().tobytes()).hexdigest()[:16]
+
+
+def _save_sampler_state(checkpoint_dir, traces, eps, inv_mass, base: int, gen_state, draws, accs, divs,
+                        next_segment: int, *, run_identity: dict):
+    """Checkpoint the whole sampler state through the crash-safe segmented
+    save (``io.save_segment_state``): the traces, the adapted ``eps`` and
+    ``inv_mass``, the draws, accepts and divergences so far, the base seed
+    of the draws' streams and the caller's generator's state after it was
+    drawn. The meta records the run identity, so that a resume with other
+    dynamics is refused."""
+    state = {"traces": traces, "eps": eps, "inv_mass": inv_mass, "base": torch.tensor(base),
+             "gen_state": gen_state}
+    n_done = int(draws.shape[1])
+    if n_done:
+        state.update(draws=draws, accs=accs, divs=divs)
+    meta = {"next_segment": int(next_segment), "n_done": n_done, "d": int(inv_mass.shape[0]), **run_identity}
+    save_segment_state(checkpoint_dir, state, meta)
+
+
+def _restore_sampler_state(checkpoint_dir, template_traces, gen: torch.Generator, *, run_identity: dict):
+    """The resume point: None where there is no checkpoint, else ``(traces,
+    eps, inv_mass, base, draws, accs, divs, next_segment)``, with ``gen``
+    set to the state it had when the checkpointed run drew ``base``. A
+    checkpoint of another run is refused. The template's traces are the
+    run's init program executed, so their structure is the run's."""
+
+    def make_template(meta):
+        check_meta_matches(checkpoint_dir, meta, run_identity)
+        n_done, d = meta["n_done"], meta["d"]
+        device = next(v for v in pytree.tree_leaves(template_traces) if isinstance(v, torch.Tensor)).device
+        template = {"traces": template_traces, "eps": torch.zeros((), device=device),
+                    "inv_mass": torch.zeros(d, device=device), "base": torch.tensor(0),
+                    "gen_state": torch.zeros_like(gen.get_state())}
+        if n_done:
+            n_chains = run_identity["n_chains"]
+            template.update(draws=torch.zeros((n_chains, n_done, d), device=device),
+                            accs=torch.zeros(n_done, device=device), divs=torch.zeros(n_done, device=device))
+        return template
+
+    out = load_segment_state(checkpoint_dir, make_template)
+    if out is None:
+        return None
+    state, meta = out
+    gen.set_state(state["gen_state"])
+    empty = state["eps"].new_zeros(0)
+    d = meta["d"]
+    return (
+        state["traces"], state["eps"], state["inv_mass"], int(state["base"]),
+        state.get("draws", state["eps"].new_zeros((run_identity["n_chains"], 0, d))),
+        state.get("accs", empty), state.get("divs", empty), meta["next_segment"],
     )
 
 
@@ -495,9 +579,24 @@ def sample_posterior(
       ``eps`` is the white-space step size, ``inv_mass`` the metric's
       diagonal. ``n_warmup=0`` keeps ``eps0`` and the identity metric.
 
-    Not ported yet, each raising ``NotImplementedError`` with its
-    ``ROADMAP.md`` item: ``mesh`` (item 15), and
-    ``checkpoint_dir``/``checkpoint_every``/``max_segments`` (item 16).
+    Resume (the trace-path algorithms): with ``checkpoint_dir`` and
+    ``checkpoint_every=k``, sampling runs in segments of ``k`` draws and
+    the whole sampler state (the traces, the adapted ``eps``/``inv_mass``,
+    the draws so far, the segment cursor, and the generator state the rest
+    of the run reads) is saved after the warmup and after every segment.
+    Called again with the same arguments and seed, the run resumes from the
+    last saved segment, in the same process or a fresh one, and returns the
+    draws of the uninterrupted run bit for bit: each draw's random stream
+    is seeded from one base seed, drawn after the warmup, and the draw's
+    index, so where the run is cut changes nothing (a run without a
+    checkpoint is the same run). A checkpoint of other arguments or another
+    seed is refused. ``max_segments`` bounds the new segments a call runs;
+    a call that stops early returns the draws so far, and one that ran
+    none raises. The column algorithms refuse ``checkpoint_dir``
+    (``ValueError``).
+
+    Not ported yet: ``mesh`` raises ``NotImplementedError`` naming
+    ``ROADMAP.md`` item 15.
 
     >>> import torch
     >>> import genjax_tpu_torch as g
@@ -517,15 +616,16 @@ def sample_posterior(
     """
     if algorithm not in _TRACE_ALGORITHMS + _COLUMN_ALGORITHMS:
         raise ValueError(f"unknown algorithm {algorithm!r}")
+    if checkpoint_dir is not None and algorithm not in _TRACE_ALGORITHMS:
+        raise ValueError(
+            "checkpoint_dir/resume is supported for the trace-path algorithms ('nuts'/'hmc'/'hmc_sweep'); "
+            "the column algorithms (chees/pt/dense_hmc/dense_nuts) run warmup and sampling with no segment "
+            "boundary to checkpoint at"
+        )
     if mesh is not None:
         raise NotImplementedError(
             "sample_posterior(mesh=...): sharding the chain axis comes with the port of "
             "parallel/ (ROADMAP.md queue 1, item 15)"
-        )
-    if checkpoint_dir is not None or checkpoint_every or max_segments is not None:
-        raise NotImplementedError(
-            "sample_posterior(checkpoint_dir=, checkpoint_every=, max_segments=): segmented "
-            "resume comes with the port of io/checkpoint.py (ROADMAP.md queue 1, item 16)"
         )
     if n_samples <= 0:
         # before the warmup, which would otherwise run in full first
@@ -543,25 +643,65 @@ def sample_posterior(
         if algorithm == "dense_hmc":
             return _sample_dense(gen, packer, ld, q0, L=L, **kw)
         return _sample_dense_nuts(gen, packer, ld, q0, max_depth=max_depth, **kw)
+    seg_size = checkpoint_every if (checkpoint_dir is not None and checkpoint_every > 0) else n_samples
+    # the whole run identity rides in the checkpoint's meta: a resume with
+    # other dynamics (algorithm, step sizes, thin, seed, ...) is refused
+    # rather than mixing two samplers
+    run_identity = {
+        "n_samples": int(n_samples), "seg_size": int(seg_size), "n_chains": int(n_chains),
+        "n_warmup": int(n_warmup), "thin": int(thin), "algorithm": algorithm, "eps0": float(eps0),
+        "L": int(L), "max_depth": int(max_depth), "target_accept": float(target_accept),
+        "seed": int(gen.initial_seed()), "state_hash": _state_hash(gen), "device": device.type,
+        "backend": backend,
+    }
     traces = _init_traces(gen, model, constraint, args, n_chains, device)
-    if algorithm == "hmc_sweep":
-        traces, eps, inv_mass = _warm_sweep(
-            gen, traces, selection, n_warmup=n_warmup, eps0=eps0, L=L,
-            target_accept=target_accept, backend=backend,
-        )
-        traces, draws, accs = _draw_sweep(
-            gen, traces, selection, n_samples=n_samples, thin=thin, eps=eps, inv_mass=inv_mass,
-            L=L, backend=backend,
-        )
-        divs = torch.zeros_like(accs)
+    restored = None
+    if checkpoint_dir is not None:
+        restored = _restore_sampler_state(checkpoint_dir, traces, gen, run_identity=run_identity)
+    if restored is not None:
+        traces, eps, inv_mass, base, draws, accs, divs, start_seg = restored
     else:
-        step = _trace_step(gen, selection, algorithm, L=L, max_depth=max_depth)
-        traces, eps, inv_mass = _warm(
-            step, traces, selection, n_warmup=n_warmup, eps0=eps0, target_accept=target_accept
-        )
-        traces, draws, accs, divs = _draw(
-            step, traces, selection, n_samples=n_samples, thin=thin, eps=eps, inv_mass=inv_mass
-        )
+        if algorithm == "hmc_sweep":
+            traces, eps, inv_mass = _warm_sweep(
+                gen, traces, selection, n_warmup=n_warmup, eps0=eps0, L=L,
+                target_accept=target_accept, backend=backend,
+            )
+        else:
+            traces, eps, inv_mass = _warm(
+                _trace_step(gen, selection, algorithm, L=L, max_depth=max_depth), traces, selection,
+                n_warmup=n_warmup, eps0=eps0, target_accept=target_accept,
+            )
+        # every draw's stream is seeded from this and its index alone
+        base = _seed(gen)
+        draws = eps.new_zeros((n_chains, 0, inv_mass.shape[0]))
+        accs, divs = eps.new_zeros(0), eps.new_zeros(0)
+        start_seg = 0
+        if checkpoint_dir is not None:
+            _save_sampler_state(checkpoint_dir, traces, eps, inv_mass, base, gen.get_state(), draws, accs, divs,
+                                0, run_identity=run_identity)
+    gen_state = gen.get_state()
+    draw_gen = torch.Generator(device=device)
+    step = _trace_step(draw_gen, selection, algorithm, L=L, max_depth=max_depth)
+    bounds = [(lo, min(lo + seg_size, n_samples)) for lo in range(0, n_samples, seg_size)]
+    for si in range(start_seg, len(bounds)):
+        if max_segments is not None and si - start_seg >= max_segments:
+            break
+        lo, hi = bounds[si]
+        if algorithm == "hmc_sweep":
+            traces, d_i, a_i = _draw_sweep(
+                draw_gen, traces, selection, lo=lo, hi=hi, base=base, thin=thin, eps=eps,
+                inv_mass=inv_mass, L=L, backend=backend,
+            )
+            v_i = torch.zeros_like(a_i)
+        else:
+            traces, d_i, a_i, v_i = _draw(
+                step, draw_gen, traces, selection, lo=lo, hi=hi, base=base, thin=thin, eps=eps,
+                inv_mass=inv_mass,
+            )
+        draws, accs, divs = torch.cat([draws, d_i], dim=1), torch.cat([accs, a_i]), torch.cat([divs, v_i])
+        if checkpoint_dir is not None:
+            _save_sampler_state(checkpoint_dir, traces, eps, inv_mass, base, gen_state, draws, accs, divs,
+                                si + 1, run_identity=run_identity)
     return _finish_trace_result(traces, draws, accs, divs, selection, eps, inv_mass)
 
 

@@ -174,6 +174,48 @@ def init_columns(model, constraint, args, packer: ColumnPacker, n_chains: int, s
     return torch.func.vmap(init_one, randomness="different", out_dims=1)(dummy).contiguous()
 
 
+def tempered_factors(model, constraint, args, packer: ColumnPacker, device):
+    """The prior and likelihood column densities of a ``@gen`` model in the
+    column layout: the prior is the ``generate`` weight under the packed
+    latents alone (the unconstrained data add nothing), the padding rows'
+    standard normal in it; the likelihood is the joint minus the prior, so
+    the padding cancels from it and contributes a factor 1 to the
+    evidence."""
+    joint_cols = column_logdensity(model, constraint, args, packer)
+    n_pad = packer.padded_dim - packer.dim
+    # the data the prior's generate samples are not scored: any stream does
+    scratch = torch.Generator(device=device).manual_seed(0)
+
+    def prior_one(q):
+        _, w = model.generate(scratch, packer.unpack(q), args)
+        if n_pad:
+            w = w - 0.5 * torch.sum(q[packer.dim :] ** 2)
+        return w
+
+    prior_cols = torch.func.vmap(prior_one, in_dims=1, randomness="different")
+
+    def lik_cols(q):
+        return joint_cols(q) - prior_cols(q)
+
+    return prior_cols, lik_cols
+
+
+def packed_prior_draws(gen, model, constraint, args, packer: ColumnPacker, n: int, device):
+    """``n`` prior draws of the packed latents ``(padded_dim, n)`` from
+    ``model.generate`` under ``constraint``, the padding rows standard
+    normal (the padding's prior factor)."""
+
+    def init_one(_):
+        tr, _w = model.generate(gen, constraint, args)
+        return packer.pack(tr.get_choices())
+
+    q = torch.func.vmap(init_one, out_dims=1, randomness="different")(torch.zeros(n, device=device))
+    n_pad = packer.padded_dim - packer.dim
+    if n_pad:
+        q[packer.dim :] = torch.randn((n_pad, n), generator=gen, device=device)
+    return q
+
+
 def _prior_columns(model, constraint, args, addresses, n_chains: int, seed: int, device):
     """The packer, the column log-density and ``n_chains`` prior-initialised
     columns on ``device``."""

@@ -60,4 +60,10 @@ def test_example_volume():
         "genjax_tpu_torch.inference.involutive",
         "genjax_tpu_torch.inference.predictive",
         "genjax_tpu_torch.inference.sbc",
+        "genjax_tpu_torch.inference.model_comparison",
+        "genjax_tpu_torch.inference.abc",
+        "genjax_tpu_torch.inference.nested",
+        "genjax_tpu_torch.inference.pathfinder",
+        "genjax_tpu_torch.io.checkpoint",
+        "genjax_tpu_torch.inference.sample",
     } <= names, sorted(names)

@@ -97,3 +97,38 @@ def test_slice13_names_resolve(module, name):
     assert hasattr(ref, name), name
     assert getattr(port, name) is not None
     assert name in getattr(port, "__all__", [name])
+
+
+SLICE14_NAMES = {
+    "inference": ["ABCRejectionResult", "ABCSMCResult", "ChEESTemperedResult", "ELPDResult", "MultiPathfinderResult",
+                  "NestedSamplingResult", "PathfinderPosterior", "PathfinderResult", "SMC2Result", "abc_",
+                  "abc_rejection", "abc_smc", "chees_tempered_smc", "column_nested_sampling", "column_pathfinder",
+                  "column_tempered_chees", "column_weighted_moments", "compare", "multi_pathfinder", "nested",
+                  "nested_sampling", "pathfinder", "psis_loo", "smc2", "waic"],
+    "io": ["check_meta_matches", "load_segment_state", "restore_pytree", "save_pytree", "save_segment_state"],
+    "": ["io"],
+}
+
+
+@pytest.mark.parametrize("module,name", [(m, n) for m, names in SLICE14_NAMES.items() for n in names])
+def test_slice14_names_resolve(module, name):
+    """Slice 14's names resolve where the reference exports them, and are in
+    the port's ``__all__`` there."""
+    import importlib
+
+    ref = importlib.import_module("genjax_tpu" + ("." + module if module else ""))
+    port = importlib.import_module("genjax_tpu_torch" + ("." + module if module else ""))
+    assert hasattr(ref, name), name
+    assert getattr(port, name) is not None and name in port.__all__
+
+
+@pytest.mark.parametrize("name,kind", [("smc2", "function"), ("pathfinder", "function"), ("abc_", "module"),
+                                       ("nested", "module")])
+def test_slice14_names_are_what_the_reference_makes_them(name, kind):
+    import importlib
+    import types
+
+    ref = importlib.import_module("genjax_tpu.inference")
+    port = importlib.import_module("genjax_tpu_torch.inference")
+    want = types.ModuleType if kind == "module" else types.FunctionType
+    assert isinstance(getattr(ref, name), want) and isinstance(getattr(port, name), want)

@@ -18,6 +18,7 @@ PKG_ROOT = os.path.join(REPO, PKG)
 
 LAYERS = {
     "core": 0,
+    "io": 1,
     "generative": 2,
     "lang": 3,
     "dists": 3,
@@ -122,9 +123,12 @@ def test_imports_without_jax():
         "genjax_tpu_torch.inference.gibbs, genjax_tpu_torch.inference.pgibbs, "
         "genjax_tpu_torch.inference.requests.elliptical, genjax_tpu_torch.inference.requests.slice_, "
         "genjax_tpu_torch.inference.involutive, genjax_tpu_torch.inference.predictive, "
-        "genjax_tpu_torch.inference.sbc; "
+        "genjax_tpu_torch.inference.sbc, genjax_tpu_torch.inference.model_comparison, "
+        "genjax_tpu_torch.inference.abc, genjax_tpu_torch.inference.smc2, genjax_tpu_torch.inference.smc_chees, "
+        "genjax_tpu_torch.inference.nested, genjax_tpu_torch.inference._lbfgs, "
+        "genjax_tpu_torch.inference.pathfinder, genjax_tpu_torch.io, genjax_tpu_torch.io.checkpoint; "
         "print(sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
-        "or m == 'genjax_tpu' or m.startswith('genjax_tpu.')))"
+        "or m == 'genjax_tpu' or m.startswith('genjax_tpu.') or m.split('.')[0] in ('optax', 'orbax')))"
     )
     proc = subprocess.run(
         [sys.executable, "-c", code], capture_output=True, text=True, cwd=REPO
@@ -137,7 +141,7 @@ def test_no_jax_import_anywhere():
     bad = []
     for path in _iter_py_files():
         for target in _imports(path, _module_name(path)):
-            if target.split(".")[0] in ("jax", "jaxlib", "genjax_tpu"):
+            if target.split(".")[0] in ("jax", "jaxlib", "genjax_tpu", "optax", "orbax"):
                 bad.append(f"{os.path.relpath(path, REPO)} imports {target}")
     assert not bad, "\n".join(bad)
 
@@ -269,6 +273,31 @@ def test_slice13_modules_are_layered():
     assert f"{PKG}.inference.requests.grad_view" in edges[f"{PKG}.inference.requests.elliptical"]
     assert f"{PKG}.inference.requests.grad_view" in edges[f"{PKG}.inference.requests.slice_"]
     assert f"{PKG}.inference.sample" in edges[f"{PKG}.inference.predictive"]
+
+
+def test_slice14_modules_are_layered():
+    """The population and column-density algorithms sit in ``inference`` on
+    the column bridge, the resamplers and the adaptation kernels; Pathfinder
+    reaches its own L-BFGS and the PSIS of ``model_comparison``; the
+    checkpoint layer sits low, on torch alone, and the driver reaches it."""
+    mods, edges = _graph()
+    slice14 = ["inference.model_comparison", "inference.abc", "inference.smc2", "inference.smc_chees",
+               "inference.nested", "inference._lbfgs", "inference.pathfinder", "io", "io.checkpoint"]
+    for mod in slice14:
+        assert f"{PKG}.{mod}" in mods, mod
+    assert f"{PKG}.inference._lbfgs" in edges[f"{PKG}.inference.pathfinder"]
+    assert f"{PKG}.inference.model_comparison" in edges[f"{PKG}.inference.pathfinder"]
+    assert f"{PKG}.kernels.model_interface" in edges[f"{PKG}.inference.abc"]
+    assert f"{PKG}.parallel.resampling" in edges[f"{PKG}.inference.abc"]
+    assert f"{PKG}.parallel.resampling" in edges[f"{PKG}.inference.smc2"]
+    assert f"{PKG}.kernels.adaptation" in edges[f"{PKG}.inference.smc_chees"]
+    assert f"{PKG}.kernels.chees" in edges[f"{PKG}.inference.smc_chees"]
+    assert f"{PKG}.kernels.model_interface" in edges[f"{PKG}.inference.nested"]
+    assert f"{PKG}.io" in edges[f"{PKG}.inference.sample"]
+    assert not edges[f"{PKG}.inference._lbfgs"] and not edges[f"{PKG}.inference.model_comparison"] - {
+        f"{PKG}.core.pytree", f"{PKG}.core"}
+    assert not [t for t in edges[f"{PKG}.io.checkpoint"]]
+    assert LAYERS["io"] < LAYERS["inference"]
 
 
 def test_layer_direction():

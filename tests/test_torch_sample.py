@@ -261,8 +261,6 @@ def test_batched_rebuild_matches_one_draw_at_a_time():
 
 @pytest.mark.parametrize("kw, item", [
     (dict(mesh=object()), "item 15"),
-    (dict(checkpoint_dir="ckpt", checkpoint_every=5), "item 16"),
-    (dict(max_segments=1), "item 16"),
 ])
 def test_options_not_ported_raise_naming_their_item(kw, item):
     with pytest.raises(NotImplementedError, match=item):
