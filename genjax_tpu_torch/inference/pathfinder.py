@@ -216,17 +216,25 @@ class MultiPathfinderResult(Pytree):
         return torch.mean(self.draws, dim=1)
 
 
-def _multi(gen, logdensity_cols, dim, n_paths, n_resample, device, path_kwargs) -> MultiPathfinderResult:
-    paths = _paths(gen, logdensity_cols, dim, n_paths, device, **path_kwargs)
-    pooled = paths.draws.permute(1, 0, 2).reshape(dim, -1)  # (D, n_paths * n_draws)
+def _pool(paths: PathfinderResult):
+    """The paths' draws pooled ``(D, n_paths * n_draws)``, path by path,
+    their log ratios ``log p - log q`` Pareto-smoothed, and the k-hat (NaN
+    under 25 draws, too few for the tail fit)."""
+    dim = paths.draws.shape[1]
+    pooled = paths.draws.permute(1, 0, 2).reshape(dim, -1)
     lw = (paths.logp - paths.logq).reshape(-1)
     lw = torch.where(torch.isfinite(lw), lw, float("-inf"))
     lw = lw - torch.max(lw)
     total = lw.shape[0]
-    if total >= 25:
-        lw_s, k_hat = _psis_smooth_column(lw, total)
-    else:
-        lw_s, k_hat = lw, torch.tensor(float("nan"), device=device)
+    if total < 25:
+        return pooled, lw, torch.tensor(float("nan"), device=lw.device)
+    lw_s, k_hat = _psis_smooth_column(lw, total)
+    return pooled, lw_s, k_hat
+
+
+def _multi(gen, logdensity_cols, dim, n_paths, n_resample, device, path_kwargs) -> MultiPathfinderResult:
+    paths = _paths(gen, logdensity_cols, dim, n_paths, device, **path_kwargs)
+    pooled, lw_s, k_hat = _pool(paths)
     idx = torch.multinomial(torch.exp(lw_s - torch.max(lw_s)), n_resample, replacement=True, generator=gen)
     return MultiPathfinderResult(draws=pooled[:, idx], pareto_k=k_hat, path_elbos=paths.elbo, paths=paths)
 

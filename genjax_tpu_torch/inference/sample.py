@@ -172,11 +172,27 @@ def _warm(step, traces, selection: Selection, *, n_warmup: int, eps0, target_acc
     return traces, eps, inv_mass
 
 
+_MASK64 = 2**64 - 1
+# the stream index of ``hmc_sweep``'s padding rows, past every draw's
+_PAD_STREAM = 2**32 - 1
+
+
 def _draw_seed(base: int, s: int) -> int:
-    """The seed of draw ``s``'s random stream: a function of the run's base
-    seed and the draw's index alone, so that where the run is cut into
-    segments does not change what any draw consumes."""
-    return base * 2**32 + s
+    """The seed of draw ``s``'s random stream: splitmix64 of ``(base, s)``,
+    a function of the run's base seed and the draw's index alone, so that
+    where the run is cut into segments does not change what any draw
+    consumes. Every bit depends on both, the low 32 bits too, which are all
+    that a CPU generator keeps of a seed."""
+    x = (((base << 32) | s) + 0x9E3779B97F4A7C15) & _MASK64
+    x = ((x ^ (x >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
+    x = ((x ^ (x >> 27)) * 0x94D049BB133111EB) & _MASK64
+    return x ^ (x >> 31)
+
+
+def _sweep_seed(base: int, s: int) -> int:
+    """Draw ``s``'s K1 sweep seed: the top 30 bits of its ``_draw_seed``,
+    in the range of every int sweep seed (``_seed``)."""
+    return _draw_seed(base, s) >> 34
 
 
 def _draw(step, draw_gen: torch.Generator, traces, selection: Selection, *, lo: int, hi: int, base: int,
@@ -226,18 +242,19 @@ def _draw_sweep(draw_gen: torch.Generator, traces, selection: Selection, *, lo: 
                 thin: int, eps, inv_mass, L: int, backend: str):
     """``"hmc_sweep"``'s sampling of draws ``lo .. hi - 1`` on one column
     block: one sweep of ``thin`` steps per draw (on the card one K1 launch),
-    seeded ``base + s`` for draw ``s``, ``eps`` read and the inverse mass
-    packed once for all of them; the draws are kept in the launch's layout
-    and mapped back once, and the traces rebuilt once. The block's padding
-    rows (on the kernel) are drawn from a stream seeded by ``base`` alone:
-    they are inert, so every segment starts them where a whole run keeps
-    them. Returns ``(traces, draws (N, hi - lo, d), accepts (hi - lo,))``."""
+    seeded ``_sweep_seed(base, s)`` for draw ``s``, ``eps`` read and the
+    inverse mass packed once for all of them; the draws are kept in the
+    launch's layout and mapped back once, and the traces rebuilt once (from
+    the stream of draw ``hi``). The block's padding rows (on the kernel) are
+    drawn from the stream ``_PAD_STREAM``, the same in every segment: they
+    are inert, so every segment starts them where a whole run keeps them.
+    Returns ``(traces, draws (N, hi - lo, d), accepts (hi - lo,))``."""
     run = _ColumnSweep(traces, selection, 0, backend, "sample_posterior")
-    q = run.start(draw_gen.manual_seed(base))
+    q = run.start(draw_gen.manual_seed(_draw_seed(base, _PAD_STREAM)))
     eps, inv_mass = float(eps), run.inv_mass(inv_mass)
     draws, accs = [], []
     for s in range(lo, hi):
-        q, acc = run.sweep(pallas_hmc, q, base + s, inv_mass, n_steps=thin, eps=eps, L=L)
+        q, acc = run.sweep(pallas_hmc, q, _sweep_seed(base, s), inv_mass, n_steps=thin, eps=eps, L=L)
         draws.append(run.real(q))
         accs.append(acc)
     z = run.finish(torch.stack(draws))  # (hi - lo, d, N)

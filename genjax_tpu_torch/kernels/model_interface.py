@@ -204,12 +204,7 @@ def packed_prior_draws(gen, model, constraint, args, packer: ColumnPacker, n: in
     """``n`` prior draws of the packed latents ``(padded_dim, n)`` from
     ``model.generate`` under ``constraint``, the padding rows standard
     normal (the padding's prior factor)."""
-
-    def init_one(_):
-        tr, _w = model.generate(gen, constraint, args)
-        return packer.pack(tr.get_choices())
-
-    q = torch.func.vmap(init_one, out_dims=1, randomness="different")(torch.zeros(n, device=device))
+    q = init_columns(model, constraint, args, packer, n, gen, device)
     n_pad = packer.padded_dim - packer.dim
     if n_pad:
         q[packer.dim :] = torch.randn((n_pad, n), generator=gen, device=device)

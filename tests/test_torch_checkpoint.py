@@ -25,6 +25,7 @@ import pytest
 import torch
 
 import genjax_tpu_torch as g
+from genjax_tpu_torch.inference import sample
 from genjax_tpu_torch.inference.sample import sample_posterior
 from genjax_tpu_torch.io import check_meta_matches, load_segment_state, restore_pytree, save_pytree, save_segment_state
 from torch_threads import _one_thread  # noqa: F401
@@ -72,6 +73,35 @@ def test_interrupted_plus_resumed_is_bitwise_in_process(algorithm):
         resumed = _run(algorithm, checkpoint_dir=d, checkpoint_every=4)
         assert tuple(resumed["mu"].shape) == (32, 12)
     _same(plain, resumed)
+
+
+def test_draw_seeds_differ_where_a_cpu_generator_reads_them():
+    """The CPU generator keeps the low 32 bits of a seed: those of the draw
+    seeds of 64 bases x 64 draws are all distinct."""
+    low = {sample._draw_seed(base, s) & 0xFFFFFFFF for base in range(64) for s in range(64)}
+    assert len(low) == 64 * 64
+    assert all(0 <= sample._sweep_seed(base, s) < 2**30 for base in (0, 2**30 - 1) for s in (0, 1, 2**20))
+
+
+@pytest.mark.parametrize("algorithm", ALGORITHMS)
+def test_the_same_traces_drawn_from_two_bases_differ(algorithm):
+    """Two runs' base seeds give the same warmed traces different draws, so
+    that replicate runs on the CPU are independent."""
+    traces = sample._init_traces(torch.Generator().manual_seed(7), model, OBS, (), 32, torch.device("cpu"))
+    eps, inv_mass = torch.tensor(0.3), torch.ones(1)
+
+    def draws(base):
+        draw_gen = torch.Generator()
+        kw = dict(lo=0, hi=4, base=base, thin=1, eps=eps, inv_mass=inv_mass)
+        if algorithm == "hmc_sweep":
+            return sample._draw_sweep(draw_gen, traces, g.S["mu"], L=3, backend="auto", **kw)[1]
+        step = sample._trace_step(draw_gen, g.S["mu"], algorithm, L=3, max_depth=3)
+        return sample._draw(step, draw_gen, traces, g.S["mu"], **kw)[1]
+
+    a, b = draws(1), draws(2)
+    assert torch.equal(a, draws(1))
+    for s in range(4):
+        assert not torch.equal(a[:, s], b[:, s])
 
 
 def test_a_callers_generator_ends_where_the_whole_run_leaves_it():
