@@ -2171,7 +2171,9 @@ def host_reads(fn) -> int:
             torch.cuda.synchronize()
         finally:
             torch.cuda.set_sync_debug_mode("default")
-    return sum("synchroniz" in str(w.message) for w in caught)
+    # the first switch to "warn" in a process also warns that the mode is a
+    # prototype; that warning is no read
+    return sum("synchroniz" in str(w.message) and "prototype" not in str(w.message) for w in caught)
 
 
 def resample_where(gen, fire, particles, log_w, log_z, method):
@@ -4056,6 +4058,241 @@ def population_path(device, smi: str, g, hmc, model, y) -> int:
     return launches
 
 
+EDIT_D = 512
+EDIT_WIDE = 50
+EDIT_CHAIN = 12
+
+
+def close_rel(a, b, tol: float) -> float:
+    """The largest gap between ``a`` and ``b``, relative to ``max(1, |b|)``."""
+    return float(((a - b).abs() / b.abs().clamp_min(1.0)).max())
+
+
+def edit_path(device, smi: str, g, model, y) -> None:
+    """The incremental edit of ``@gen`` bodies at the flagship trace path's
+    width (``N_CHAINS`` traces, vmapped): the reference tests' 50-address
+    body and 12-address chain at d = 512, and the flagship under
+    ``mh(Regenerate(S["tau"]))`` and the ``HMC`` request. Each edit is held
+    to the clean-prefix rule on the same traces (the rule a degraded edit
+    takes, forced here), timed beside it on the host clock."""
+    from genjax_tpu_torch.lang.static_lang import StaticGenerativeFunction, forced_clean_prefix
+
+    edit = StaticGenerativeFunction.edit
+    dummy = torch.zeros(N_CHAINS, device=device)
+    zeros = torch.zeros(EDIT_D, device=device)
+
+    @g.gen
+    def wide():
+        for i in range(EDIT_WIDE):
+            g.normal(zeros + float(i), 1.0) @ f"a{i}"
+        return zeros
+
+    @g.gen
+    def chain():
+        x = g.normal(zeros, 1.0) @ "a0"
+        for i in range(1, EDIT_CHAIN):
+            x = g.normal(x, 1.0) @ f"a{i}"
+        return x
+
+    def vm(fn):
+        return torch.func.vmap(fn, randomness="different")
+
+    def run_edit(trs, request, seed=SEED):
+        gen = torch.Generator(device=device).manual_seed(seed)
+        return vm(lambda tr: tr.edit(gen, request))(trs)
+
+    def both_rules(name, trs, request, dispatched, addrs):
+        """The edit under both rules: gates, round trip, times."""
+        new, w, _rd, bwd = run_edit(trs, request)
+        torch.cuda.synchronize()
+        rule, n = edit.last_rule, edit.last_dispatched
+        check(rule == "incremental", f"{name}: the edit took {rule} ({edit.last_rule_reason})")
+        check(n == dispatched, f"{name}: {n} sub-edits dispatched, expected {dispatched}")
+        with forced_clean_prefix():
+            new_c, w_c, _, _ = run_edit(trs, request)
+            n_c = edit.last_dispatched
+        gap = close_rel(w, w_c, 1e-5)
+        check(gap <= 1e-5, f"{name}: weights {gap:.3g} (relative) off the clean-prefix rule's")
+        choice_gap = max(close_rel(new[a], new_c[a], 1e-5) for a in addrs)
+        check(choice_gap <= 1e-5, f"{name}: new choices {choice_gap:.3g} off the clean-prefix rule's")
+        check(bool(torch.isfinite(w).all()), f"{name}: a weight is not finite")
+        _, w_b, _, _ = vm(lambda tr, b: tr.edit(torch.Generator(device=device).manual_seed(SEED), b))(new, bwd)
+        trip = float((w + w_b).abs().max())
+        check(trip <= 1e-4, f"{name}: the round trip leaves |w + w_bwd| = {trip:.3g} (limit 1e-4)")
+        inc_ms = wall_ms(lambda: run_edit(trs, request))
+        with forced_clean_prefix():
+            cp_ms = wall_ms(lambda: run_edit(trs, request))
+        return (f"{name}: {n} sub-edits dispatched ({n_c} under the clean-prefix rule), {inc_ms:.3f} ms against "
+                f"{cp_ms:.3f} ms = {cp_ms / inc_ms:.2f}x; weights within {gap:.2g} and choices within "
+                f"{choice_gap:.2g} of the clean-prefix rule's (limit 1e-5), |w + w_bwd| <= {trip:.2g}"), inc_ms
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    v = torch.full((EDIT_D,), 0.5, device=device)
+    trs_wide = vm(lambda _: wide.simulate(gen, ()))(dummy)
+    torch.cuda.synchronize()
+    nbytes = sum(trs_wide[f"a{i}"].numel() for i in range(EDIT_WIDE)) * 4
+    two = g.Update(g.C["a0"].set(v) | g.C[f"a{EDIT_WIDE - 1}"].set(v))
+    every = g.Update(g.ChoiceMap.d({f"a{i}": v for i in range(EDIT_WIDE)}))
+    line_two, two_ms = both_rules("wide, 2 of 50", trs_wide, two, 2, ["a0", "a1", f"a{EDIT_WIDE - 1}"])
+    line_all, all_ms = both_rules("wide, all 50", trs_wide, every, EDIT_WIDE, ["a0", "a1", f"a{EDIT_WIDE - 1}"])
+    busy = device_busy(lambda: run_edit(trs_wide, two))
+    phase("incremental edit", f"{smi}: {N_CHAINS} traces of the 50-address body at d = {EDIT_D} "
+                              f"({nbytes / 1e9:.2f} GB of choices), vmapped Update, host clock, median of 3: "
+                              f"{line_two}; {line_all}; all/two {all_ms / two_ms:.2f}x; "
+                              + busy_line("the 2-address edit", busy, two_ms))
+    del trs_wide
+
+    trs_chain = vm(lambda _: chain.simulate(gen, ()))(dummy)
+    addrs = [f"a{i}" for i in range(EDIT_CHAIN)]
+    line_head, head_ms = both_rules("chain, head", trs_chain, g.Update(g.C["a0"].set(v)), 2, addrs)
+    line_tail, tail_ms = both_rules("chain, tail", trs_chain, g.Update(g.C[f"a{EDIT_CHAIN - 1}"].set(v)), 1, addrs)
+    phase("incremental edit", f"{smi}: {N_CHAINS} traces of the {EDIT_CHAIN}-address chain at d = {EDIT_D}: "
+                              f"{line_head}; {line_tail}; head/tail {head_ms / tail_ms:.2f}x")
+    del trs_chain
+
+    obs = g.C["y"].set(torch.as_tensor(y, device=device))
+    trs = vm(lambda _: model.generate(gen, obs, ())[0])(dummy)
+    line_regen, _ = both_rules('flagship, Regenerate(S["tau"])', trs, g.Regenerate(g.S["tau"]), 2,
+                               ["tau", "w", "y"])
+
+    def mh_of(request, seed):
+        gen_m = torch.Generator(device=device).manual_seed(seed)
+        return vm(lambda tr: g.mh(gen_m, tr, request))(trs)
+
+    lines = []
+    for name, request, dispatched in (('mh(Regenerate(S["tau"]))', g.Regenerate(g.S["tau"]), 2),
+                                      ("mh(HMC(S[w] | S[tau]))", g.HMC(g.S["w"] | g.S["tau"], EPS, L=L), 3)):
+        new, acc = mh_of(request, SEED + 1)
+        torch.cuda.synchronize()
+        check(edit.last_rule == "incremental", f"{name}: the edit took {edit.last_rule} ({edit.last_rule_reason})")
+        check(edit.last_dispatched == dispatched, f"{name}: {edit.last_dispatched} sub-edits, expected {dispatched}")
+        with forced_clean_prefix():
+            new_c, acc_c = mh_of(request, SEED + 1)
+        gap = max(close_rel(new[a], new_c[a], 1e-5) for a in ("tau", "w"))
+        check(gap <= 1e-5 and torch.equal(acc, acc_c), f"{name}: the chains part from the clean-prefix rule's "
+                                                        f"({gap:.3g})")
+        inc_ms = wall_ms(lambda: mh_of(request, SEED + 2))
+        with forced_clean_prefix():
+            cp_ms = wall_ms(lambda: mh_of(request, SEED + 2))
+        lines.append(f"{name}: accept {float(acc.float().mean()):.4f}, {dispatched} sub-edits in the final edit, "
+                     f"{inc_ms:.3f} ms against {cp_ms:.3f} ms under the clean-prefix rule; the same "
+                     f"accepts and choices within {gap:.2g}")
+    phase("incremental edit", f"{smi}: the flagship at {N_CHAINS} traces: {line_regen}; " + "; ".join(lines)
+                              + f"; the phase took {time.perf_counter() - t0:.1f} s")
+
+
+def checkify_path(device, smi: str, g) -> None:
+    """The runtime checks on the card, inside ``torch.func.vmap``: each
+    raises under ``do_checkify()``, and none raises, nor reads the card from
+    the host, outside it."""
+    from genjax_tpu_torch.checkify import CheckError, do_checkify
+    from genjax_tpu_torch.generative.choice_map import ChoiceMapInvalidAddress
+
+    t0 = time.perf_counter()
+    n = 4096
+    gen = torch.Generator(device=device).manual_seed(SEED)
+
+    @g.gen
+    def model():
+        x = g.normal(torch.zeros(8, device=device), 1.0) @ "x"
+        return g.normal(x.sum(), 1.0) @ "y"
+
+    flags = torch.ones(n, dtype=torch.bool, device=device)
+    flags[n // 2] = False
+    value = torch.tensor(0.5, device=device)
+    calls = {
+        "a typo'd constraint address": (
+            lambda: torch.func.vmap(lambda _: model.generate(gen, g.C["yy"].set(value), ())[1],
+                                    randomness="different")(flags), ChoiceMapInvalidAddress),
+        "a typo'd address under a tensor flag": (
+            lambda: torch.func.vmap(lambda f: model.generate(gen, g.C["yy"].set(value).mask(~f), ())[1],
+                                    randomness="different")(flags), ChoiceMapInvalidAddress),
+        "an invalid Mask unmasked": (
+            lambda: torch.func.vmap(lambda f: g.Mask(value, f).unmask())(flags), CheckError),
+        "a false masked flag in assess": (
+            lambda: torch.func.vmap(lambda f: g.normal.assess(g.ChoiceMap.entry(g.Mask(value, f)), (0.0, 1.0))[0])(
+                flags), CheckError),
+    }
+    raised = []
+    for name, (fn, error) in calls.items():
+        with do_checkify():
+            try:
+                fn()
+                torch.cuda.synchronize()
+            except error:
+                raised.append(name)
+        check(name in raised, f"checkify: {name} did not raise {error.__name__} inside torch.func.vmap on the card")
+        reads = host_reads(fn)
+        check(reads == 0, f"checkify: {name} read the card {reads} times outside do_checkify")
+    phase("checkify", f"{smi}: {len(raised)} checks raised inside torch.func.vmap over {n} lanes on the card "
+                      f"under do_checkify ({', '.join(raised)}); outside it none raised and none read the card "
+                      f"from the host (host_reads 0); {time.perf_counter() - t0:.1f} s")
+
+
+def time_travel_path(device, smi: str, g) -> None:
+    """The time-travel debugger on card tensors: the reference test's
+    frames and tags, a remix equal to a plain run, and a ``@gen`` program on
+    a card generator whose prefix a remix draws again bit for bit."""
+    from genjax_tpu_torch.debug import rec, tag, time_machine
+
+    t0 = time.perf_counter()
+
+    def program(x):
+        y = rec(lambda a: a * 2.0, "double")(x)
+        z = rec(lambda a: a + 10.0, "add10")(y)
+        return tag(z * z, "squared")
+
+    x = torch.tensor(3.0, device=device)
+    dbg = time_machine(program)(x)
+    tags = [f.debug_tag for f in dbg.sequence]
+    check(tags == ["_enter", "double", "add10", "squared", "_exit"], f"time travel: frames {tags}")
+    at = dbg.jump("add10")
+    check(float(dbg.final_retval) == 256.0 and float(at.frame()[1].args[0]) == 6.0
+          and float(at.frame()[1].local_retval) == 16.0, "time travel: the program's values")
+    new = torch.tensor(100.0, device=device)
+    remixed = at.remix(new)
+    check(torch.equal(remixed.final_retval, (new + 10.0) * (new + 10.0)), "time travel: remix is no plain run")
+    check(at.fwd().frame()[0] == "squared" and at.bwd().frame()[0] == "double", "time travel: fwd/bwd")
+
+    def prog(v):
+        s = tag(torch.sum(v**2), "ss")
+        return s + tag(torch.mean(v), "mean")
+
+    dbg2 = time_machine(prog)(torch.arange(4.0, device=device))
+    check(float(dbg2.final_retval) == 15.5 and [f.debug_tag for f in dbg2.sequence] == ["_enter", "ss", "mean", "_exit"],
+          "time travel: the array program")
+
+    @g.gen
+    def model(mu):
+        x = g.normal(mu, 1.0) @ "x"
+        shifted = tag(x + 100.0, "shifted")
+        return g.normal(shifted, 0.5) @ "y"
+
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    mu = torch.zeros(N_CHAINS, device=device)
+
+    def run(m):
+        trs = torch.func.vmap(lambda a: model.simulate(gen, (a,)), randomness="different")(m)
+        return trs["x"], trs["y"]
+
+    dbg3 = time_machine(run, streams=(gen,))(mu)
+    x0, y0 = dbg3.final_retval
+    at3 = dbg3.jump("shifted")
+    remixed3 = at3.remix(torch.full((N_CHAINS,), -50.0, device=device))
+    x1, y1 = remixed3.final_retval
+    check(torch.equal(x1, x0), "time travel: a remix drew the prefix's x differently")
+    check(x1.device == x0.device == mu.device and bool((y1.mean() + 50.0).abs() < 0.05), f"time travel: remixed y mean {float(y1.mean())}")
+    again = dbg3.jump("_enter").remix(mu)
+    check(torch.equal(again.final_retval[0], x0) and torch.equal(again.final_retval[1], y0),
+          "time travel: a remix with the first arguments is no replay")
+    phase("time travel", f"{smi}: the reference test's frames and tags, remix (100 + 10)^2 = "
+                         f"{float(remixed.final_retval)} as a plain run gives; a vmapped @gen simulate of {N_CHAINS} "
+                         f"lanes on a card generator named in streams: a remix at 'shifted' draws the prefix's x "
+                         f"bit for bit, and a remix at '_enter' replays x and y bit for bit; "
+                         f"{time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this test needs a CUDA card",
@@ -4500,6 +4737,11 @@ def main() -> int:
     # ---- ABC, SMC², ChEES-tempered SMC, nested sampling, Pathfinder, model
     # comparison (no kernel), and checkpointed resume of sample_posterior (K1)
     ck_launches = population_path(device, smi, g, hmc, model, y)
+
+    # ---- the incremental edit, the runtime checks and the time-travel debugger (no kernel)
+    edit_path(device, smi, g, model, y)
+    checkify_path(device, smi, g)
+    time_travel_path(device, smi, g)
 
     print(json.dumps({"kernels": [{
         "name": "hmc_sweep (K1, with K2's counter PRNG as device functions)",

@@ -34,7 +34,11 @@ enumerative Gibbs, particle Gibbs and PMMH, the ``EllipticalSlice`` and
 simulation-based calibration, and the PPCA, BNN and HMM models; and the
 population and column-density algorithms (ABC, SMC², ChEES-tempered SMC,
 nested sampling, Pathfinder, WAIC/PSIS-LOO) with checkpointed resume of
-``inference.sample_posterior`` (``io``).
+``inference.sample_posterior`` (``io``); and the incremental edit of ``@gen``
+bodies and ``Dimap`` (``core.changes``), the runtime checks (``checkify``,
+``typecheck``), the time-travel debugger (``debug``, ``time_travel``), named
+effects and staging (``core.primitive``, ``core.staging``) and the facades
+``incremental``, ``typing``, ``pretty`` and ``experimental``.
 """
 
 from .core import (
@@ -97,7 +101,25 @@ from .combinators import (
 )
 from .combinators import map as map_  # keeps the builtin in * imports
 from .combinators.mask_comb import mask as mask_combinator
-from . import adev, io, parallel
+from . import adev, checkify, debug, experimental, incremental, io, parallel, pretty as _pretty, time_travel, typecheck, typing
+from .checkify import do_checkify
+from .core import (
+    Address,
+    AddressComponent,
+    Environment,
+    InitialStylePrimitive,
+    PythonicPytree,
+    R,
+    StatefulHandler,
+    get_shaped_aval,
+    initial_style_bind,
+    nth,
+    stage,
+    stateful,
+    to_shape_fn,
+)
+from .debug import rec, tag, time_machine
+from .pretty import pretty
 from .inference import (
     ChangeTarget,
     Importance,
@@ -130,8 +152,33 @@ from .lang import StaticGenerativeFunction, StaticRequest, StaticTrace, gen, tra
 
 __all__ = sorted(
     {
+        "Address",
+        "AddressComponent",
         "AddressReuse",
         "Argdiffs",
+        "Environment",
+        "InitialStylePrimitive",
+        "PythonicPytree",
+        "R",
+        "StatefulHandler",
+        "checkify",
+        "debug",
+        "do_checkify",
+        "experimental",
+        "get_shaped_aval",
+        "incremental",
+        "initial_style_bind",
+        "nth",
+        "pretty",
+        "rec",
+        "stage",
+        "stateful",
+        "tag",
+        "time_machine",
+        "time_travel",
+        "to_shape_fn",
+        "typecheck",
+        "typing",
         "Arguments",
         "C",
         "ChangeTarget",

@@ -4,14 +4,15 @@ Counterpart of ``genjax_tpu/combinators/dimap.py``: ``DimapTrace``,
 ``DimapCombinator`` and the decorators ``dimap``, ``map`` and
 ``contramap``. The choices are the inner function's.
 
-The reference carries change tangents through ``pre`` and ``post`` by
-reading their jaxprs (``changed_through``); torch stages no such program,
-so the edit takes the conservative rule: an edit whose inputs are all
-unchanged marks the inner arguments (and, where the inner edit reports no
-change, the return value) ``NoChange``, and any changed input marks every
-one of them ``UnknownChange``. Weights, traces and backward requests are
-the same; only an edit's cost can differ (more of the inner function runs
-again), as with the handler-only edit of ``@gen``.
+An edit carries change tangents through ``pre`` and ``post`` leaf by leaf
+with ``changed_through`` (``core/changes.py``), which runs each under a
+``ChangeMode`` where the reference reads its jaxpr: an inner argument stays
+``NoChange`` unless it depends on a changed outer leaf. Where the change
+cannot be followed (``changed_through`` gives None: a changed leaf that is
+no tensor, a value read to Python), the edit takes the conservative rule: an
+edit whose inputs are all unchanged marks the inner arguments (and, where
+the inner edit reports no change, the return value) ``NoChange``, and any
+changed input marks every one of them ``UnknownChange``.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ from typing import Any, Callable
 
 import torch
 
+from ..core.changes import changed_through
 from ..core.diff import Diff
 from ..core.pytree import Pytree
 from ..generative.choice_map import ChoiceMap
@@ -101,17 +103,22 @@ class DimapCombinator(GenerativeFunction):
     ) -> tuple[DimapTrace, Weight, Retdiff, EditRequest]:
         primals = Diff.tree_primal(argdiffs)
         no_change = Diff.static_check_no_change(argdiffs)
-        inner_args = self._pre(primals)
-        inner_argdiffs = (
-            Diff.tree_diff_no_change(inner_args) if no_change else Diff.tree_diff_unknown_change(inner_args)
-        )
+        if no_change:
+            inner_argdiffs = Diff.tree_diff_no_change(self._pre(primals))
+        else:
+            inner_argdiffs = changed_through(lambda *a: self._pre(a), argdiffs)
+            if inner_argdiffs is None:
+                inner_argdiffs = Diff.tree_diff_unknown_change(self._pre(primals))
         new_inner, w, inner_retdiff, bwd = self.gen_fn.edit(gen, trace.inner, request, inner_argdiffs)
-        new_retval = self.post(primals, Diff.tree_primal(inner_retdiff))
-        retdiff = (
-            Diff.tree_diff_no_change(new_retval)
-            if no_change and Diff.static_check_no_change(inner_retdiff)
-            else Diff.tree_diff_unknown_change(new_retval)
-        )
+        retdiff = changed_through(lambda a, r: self.post(a, r), (argdiffs, inner_retdiff))
+        if retdiff is None:
+            new_retval = self.post(primals, Diff.tree_primal(inner_retdiff))
+            retdiff = (
+                Diff.tree_diff_no_change(new_retval)
+                if no_change and Diff.static_check_no_change(inner_retdiff)
+                else Diff.tree_diff_unknown_change(new_retval)
+            )
+        new_retval = Diff.tree_primal(retdiff)
         return DimapTrace(self, new_inner, primals, new_retval), w, retdiff, bwd
 
 

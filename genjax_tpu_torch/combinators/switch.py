@@ -26,6 +26,7 @@ from typing import Any
 
 import torch
 
+from ..core.checkify import suppress_constraint_validation
 from ..core.diff import Diff, NoChange
 from ..core.pytree import Pytree
 from ..core.staging import FlagOp, is_concrete_index, multi_switch, tree_choose
@@ -126,14 +127,18 @@ class SwitchCombinator(GenerativeFunction):
 
     def assess(self, chm: ChoiceMap, args: tuple):
         idx, branch_args = self._split(args)
-        outs = multi_switch(idx, [f.assess for f in self.branches], [(chm, a) for a in branch_args])
+        # every branch sees the whole constraint: a sibling branch's
+        # addresses are no typos for constraint validation
+        with suppress_constraint_validation():
+            outs = multi_switch(idx, [f.assess for f in self.branches], [(chm, a) for a in branch_args])
         return tree_choose(idx, outs)
 
     def generate(self, gen: torch.Generator, constraint: ChoiceMap, args: tuple):
         idx, branch_args = self._split(args)
-        rets = multi_switch(
-            idx, [f.generate for f in self.branches], [(gen, constraint, a) for a in branch_args]
-        )
+        with suppress_constraint_validation():
+            rets = multi_switch(
+                idx, [f.generate for f in self.branches], [(gen, constraint, a) for a in branch_args]
+            )
         retval, score, weight = tree_choose(
             idx, [None if r is None else (r[0].get_retval(), r[0].get_score(), r[1]) for r in rets]
         )
@@ -196,7 +201,8 @@ class SwitchCombinator(GenerativeFunction):
                 return FlagOp.where(same, k_tr, f_tr), FlagOp.where(same, k_w, f_w), None, None
             return both
 
-        rets = multi_switch(new_idx, [branch(i) for i in range(n)], [(ad,) for ad in branch_argdiffs])
+        with suppress_constraint_validation():
+            rets = multi_switch(new_idx, [branch(i) for i in range(n)], [(ad,) for ad in branch_argdiffs])
         score, weight, retval = tree_choose(
             new_idx,
             [None if r is None else (r[0].get_score(), r[1], r[0].get_retval()) for r in rets],

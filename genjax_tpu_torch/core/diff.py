@@ -3,8 +3,10 @@
 Counterpart of ``genjax_tpu/core/diff.py``: a primal value paired with
 ``NoChange`` or ``UnknownChange``, propagated structurally by the edit
 handlers, whose payoff is that an edit may reuse the subtraces that nothing
-upstream changed. ``changed_through``, which reads a staged program to carry
-tangents through a pure function, waits for the staged edit.
+upstream changed. ``leaf_changes`` reads a tree's tangents leaf by leaf (the
+reference's ``flat_changed`` and ``has_hidden_static_change`` in one);
+``core/changes.py`` carries them through running torch ops
+(``changed_through``).
 """
 
 from __future__ import annotations
@@ -109,14 +111,30 @@ class Diff(Pytree):
         return _wrap(Diff.tree_primal(tree), NoChange)
 
 
-def changed_through(fn, diff_args):
-    """Propagate change tangents through a pure function. The reference
-    reads the function's jaxpr; torch stages no such program, so this waits
-    for the staged edit."""
-    raise NotImplementedError(
-        "changed_through reads a staged program of the function; it comes with the "
-        "staged edit of the port (ROADMAP queue 1, item 9)"
-    )
+def leaf_changes(diff_tree: Any) -> list | None:
+    """``(leaf, changed)`` for each primal leaf of a ``Diff``-annotated tree,
+    ``None`` leaves left out (nothing can change there). A ``Diff`` around a
+    subtree gives its tangent to every leaf under it; a leaf with no ``Diff``
+    counts as changed. Returns None where a change has no leaf to carry it (a
+    changed ``Diff`` whose primal has no leaf, such as a changed ``Const``):
+    per-leaf flags cannot express that, and callers take everything as
+    changed.
+
+    >>> from genjax_tpu_torch import Diff
+    >>> leaf_changes((Diff.no_change(1.0), Diff.unknown_change((2.0, None))))
+    [(1.0, False), (2.0, True)]
+    """
+    out: list = []
+    for node in pytree.tree_leaves(diff_tree, is_leaf=_is_diff):
+        if _is_diff(node):
+            changed = node.tangent is not NoChange
+            leaves = [v for v in pytree.tree_leaves(node.primal) if v is not None]
+            if changed and not leaves:
+                return None
+            out.extend((v, changed) for v in leaves)
+        elif node is not None:
+            out.append((node, True))
+    return out
 
 
 # Short aliases used throughout edit code.

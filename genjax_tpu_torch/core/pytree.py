@@ -155,3 +155,35 @@ def none_free(tree: Any) -> Any:
         return tree
     items = tuple(none_free(x) for x in tree)
     return NoneFreeTuple(items) if any(x is None for x in items) else items
+
+
+class PythonicPytree(Pytree):
+    """Sugar for pytrees whose leaves share a leading axis: indexing,
+    ``len``, iteration and concatenation.
+
+    >>> import torch
+    >>> @Pytree.dataclass
+    ... class Pts(PythonicPytree):
+    ...     x: torch.Tensor
+    >>> pts = Pts(torch.arange(3.0))
+    >>> len(pts), float(pts[1].x), len(pts + pts)
+    (3, 1.0, 6)
+    """
+
+    def __getitem__(self, idx):
+        return pytree.tree_map(lambda leaf: leaf[idx], self)
+
+    def __len__(self) -> int:
+        leaves = pytree.tree_leaves(self)
+        return int(leaves[0].shape[0]) if leaves else 0
+
+    def __iter__(self):
+        return (self[i] for i in range(len(self)))
+
+    def __add__(self, other):
+        return pytree.tree_map(lambda a, b: torch.cat([a, b], dim=0), self, other)
+
+
+def nth(tree: Any, idx) -> Any:
+    """Every leaf of ``tree`` indexed at ``idx`` along its leading axis."""
+    return pytree.tree_map(lambda leaf: leaf[idx], tree)

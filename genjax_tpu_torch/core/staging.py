@@ -8,18 +8,103 @@ tensor. Every tensor is "traced": it may differ between the lanes of a
 ``torch.func.vmap``, so it is never read to the host, and a choice made on
 it runs both sides and selects with ``torch.where``. That is what
 ``lax.cond`` and ``lax.switch`` lower to under ``vmap``, and the only form
-valid under ``torch.func.vmap``. The jaxpr half of the reference module
-(``stage``, ``cached_stage_dynamic``, ``empty_trace``) has no counterpart.
+valid under ``torch.func.vmap``.
+
+The staging half (``stage``, ``to_shape_fn``, ``get_shaped_aval``) is public
+API and nothing on the edit path uses it: the port's incremental edit
+follows changes on running ops (``core/changes.py``) and stages no program.
+``stage`` gives a ``torch.fx`` graph of a call, from ``make_fx``, the
+counterpart of ``make_jaxpr``; ``to_shape_fn`` evaluates a function on
+``device="meta"`` tensors, which carry shapes and dtypes and no data, where
+the reference uses ``eval_shape``. ``cached_stage_dynamic``, which caches the
+staged body of an edit, has no counterpart, since no edit stages.
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, Sequence
+from typing import Any, Callable, NamedTuple, Sequence
 
 import torch
 import torch.utils._pytree as pytree
 
 Flag = Any  # bool | torch.Tensor of dtype bool
+
+
+class ShapeDtype(NamedTuple):
+    """A value's shape and dtype, with no data: the counterpart of
+    ``jax.ShapeDtypeStruct``."""
+
+    shape: tuple
+    dtype: torch.dtype
+
+
+def get_shaped_aval(x: Any) -> ShapeDtype:
+    """The shape and dtype of ``x`` (a tensor, a numpy array or a number).
+
+    >>> get_shaped_aval(torch.zeros(2, 3))
+    ShapeDtype(shape=(2, 3), dtype=torch.float32)
+    """
+    t = x if isinstance(x, torch.Tensor) else torch.as_tensor(x)
+    return ShapeDtype(tuple(t.shape), t.dtype)
+
+
+def _meta(x: Any) -> Any:
+    if isinstance(x, torch.Tensor):
+        return torch.empty(x.shape, dtype=x.dtype, device="meta")
+    if isinstance(x, ShapeDtype):
+        return torch.empty(x.shape, dtype=x.dtype, device="meta")
+    return x
+
+
+def to_shape_fn(fn: Callable, fill: Callable | None = None) -> Callable:
+    """``fn`` evaluated for shapes alone: its tensor arguments (and any
+    ``ShapeDtype``) become ``device="meta"`` tensors, and each tensor it
+    returns becomes a ``ShapeDtype``, or ``fill(shape, dtype)`` with ``fill``
+    (``torch.zeros``, say).
+
+    >>> to_shape_fn(lambda a: (a @ a.T, a.sum()))(torch.ones(4, 2))
+    (ShapeDtype(shape=(4, 4), dtype=torch.float32), ShapeDtype(shape=(), dtype=torch.float32))
+    """
+
+    def wrapped(*args, **kwargs):
+        out = fn(*pytree.tree_map(_meta, args), **pytree.tree_map(_meta, kwargs))
+
+        def leaf(v):
+            if not isinstance(v, torch.Tensor):
+                return v
+            return ShapeDtype(tuple(v.shape), v.dtype) if fill is None else fill(tuple(v.shape), dtype=v.dtype)
+
+        return pytree.tree_map(leaf, out)
+
+    return wrapped
+
+
+def stage(fn: Callable, **make_fx_kwargs) -> Callable:
+    """``stage(fn)(*args)`` returns ``(graph, (flat_args, in_tree,
+    out_tree))``: a ``torch.fx`` graph of ``fn`` on the flat tensor leaves
+    of ``args`` (``make_fx``), and the trees that fold them back.
+
+    >>> graph, (flat, in_tree, out_tree) = stage(lambda a, b: {"s": a + b})(torch.ones(2), torch.ones(2))
+    >>> [n.target.__name__ for n in graph.graph.nodes if n.op == "call_function"]
+    ['add.Tensor']
+    >>> pytree.tree_unflatten(graph(*flat), out_tree)["s"].tolist()
+    [2.0, 2.0]
+    """
+    from torch.fx.experimental.proxy_tensor import make_fx
+
+    def wrapped(*args):
+        flat_args, in_tree = pytree.tree_flatten(args)
+        out_tree: list = []
+
+        def flat_fn(*flat):
+            out_leaves, spec = pytree.tree_flatten(fn(*pytree.tree_unflatten(list(flat), in_tree)))
+            out_tree.append(spec)
+            return out_leaves
+
+        graph = make_fx(flat_fn, **make_fx_kwargs)(*flat_args)
+        return graph, (flat_args, in_tree, out_tree[0])
+
+    return wrapped
 
 
 def _broadcast_flag(flag: torch.Tensor, x: torch.Tensor) -> torch.Tensor:

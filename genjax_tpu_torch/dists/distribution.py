@@ -18,9 +18,11 @@ from typing import Any, Callable
 
 import torch
 
+from ..core.checkify import check, constraint_validation_active, optional_check
 from ..core.diff import Diff
+from ..core.handlers import active_handler
 from ..core.pytree import Pytree
-from ..generative.choice_map import ChoiceMap, ValueChm
+from ..generative.choice_map import ChoiceMap, ChoiceMapInvalidAddress, ValueChm, exists_flag
 from ..generative.concepts import (
     EditRequest,
     NotSupportedEditRequest,
@@ -108,6 +110,15 @@ class Distribution(GenerativeFunction):
     ) -> tuple[DistributionTrace, Weight]:
         v = constraint.get_value()
         if v is None:
+            if (
+                constraint_validation_active()
+                and active_handler() is None
+                and FlagOp.concrete_true(exists_flag(constraint))
+            ):
+                raise ChoiceMapInvalidAddress(
+                    "generate: a distribution takes a value constraint at the root, "
+                    f"got sub-addressed entries: {constraint}"
+                )
             tr = self.simulate(gen, args)
             return tr, torch.zeros((), device=gen.device)
         if isinstance(v, Mask):
@@ -229,6 +240,7 @@ class ExactDensity(Distribution):
     def assess(self, chm: ChoiceMap, args: tuple):
         v = chm.get_value()
         if isinstance(v, Mask):
+            optional_check(lambda: check(v.flag, "assess: masked constraint with invalid flag"))
             v = v.value
         return self.logpdf(v, *args), v
 

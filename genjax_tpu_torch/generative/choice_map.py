@@ -36,6 +36,12 @@ class ChoiceMapCoercionError(GenJAXError):
     pass
 
 
+class ChoiceMapInvalidAddress(GenJAXError):
+    """A constraint addressed a location the generative function never
+    samples (a typo, say): under ``do_checkify()`` this is an error instead
+    of a constraint silently ignored."""
+
+
 def _is_dynamic(x) -> bool:
     return isinstance(x, (torch.Tensor, np.ndarray))
 
@@ -153,6 +159,24 @@ class ChoiceMap(Pytree):
         where the result's leaf set matters: raveling a selection into a flat
         position vector must carry no inert unselected leaf."""
         return _invalid_extras(self, ~selection)
+
+    def invalid_subset(self, gen_fn, args: tuple) -> "ChoiceMap | None":
+        """The entries of this map that no run of ``gen_fn(*args)`` samples
+        (misspelled constraint addresses, say), or None where there are
+        none. The address tree comes from ``gen_fn.get_zero_trace``, one
+        ``simulate``; an entry that a tensor flag or index decides stays,
+        masked by it.
+
+        >>> import genjax_tpu_torch as g
+        >>> @g.gen
+        ... def model():
+        ...     return g.normal(0.0, 1.0) @ "y"
+        >>> extras = g.ChoiceMap.d({"y": 1.0, "z": 2.0}).invalid_subset(model, ())
+        >>> "z" in extras, "y" in extras
+        (True, False)
+        """
+        extras = _invalid_extras(self, shape_selection(gen_fn.get_zero_trace(*args).get_choices()))
+        return None if extras.static_is_empty() else extras
 
     def filter(self, selection: Selection | Flag) -> "ChoiceMap":
         if not isinstance(selection, Selection):

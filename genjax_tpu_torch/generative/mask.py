@@ -14,6 +14,7 @@ from typing import Any
 import torch
 import torch.utils._pytree as pytree
 
+from ..core.checkify import check, optional_check
 from ..core.pytree import Pytree
 from ..core.staging import Flag, FlagOp
 
@@ -86,8 +87,11 @@ class Mask(Pytree):
         return self.flag
 
     def unmask(self, default: Any = None) -> Any:
-        """The value; with ``default``, invalid lanes are replaced by it."""
+        """The value; with ``default``, invalid lanes are replaced by it.
+        Without one, under ``do_checkify()``, an invalid flag raises
+        (``core/checkify.py``)."""
         if default is None:
+            optional_check(lambda: check(self.flag, "Attempted to unmask an invalid Mask."))
             return self.value
         return FlagOp.where(self.flag, self.value, default)
 

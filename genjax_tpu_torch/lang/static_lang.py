@@ -4,27 +4,35 @@ Counterpart of ``genjax_tpu/lang/static_lang.py``: each GFI method runs the
 model's Python body under a handler on the handler stack
 (``core/handlers.py``), which serves every addressed call. An edit
 (``Update``, ``Regenerate``, ``StaticRequest``) runs the body again under an
-edit handler, which edits each old subtrace with its address's sub-request
-and reuses, untouched, every subtrace before the first address that the
-request changes. The reference's staged edit, which reads the body's jaxpr
-to re-score only true dependents, has no counterpart yet: weights, traces
-and backward requests are the same, only the cost of an edit differs. Random
+edit handler and a ``ChangeMode`` (``core/changes.py``), which carries the
+reference's change propagation (``genjax_tpu/lang/staged_edit.py``) over to
+the ops as they run: only the addresses the request touches and their true
+dependents are edited again, every other subtrace is reused untouched. Where
+the change cannot be followed (a changed value read to Python, a write into
+an aliased tensor, a callee reaching a changed value through a Python
+closure), the edit degrades to the clean-prefix rule, which reuses only the
+subtraces before the first address the request changes, as the reference
+falls back where its body does not stage. Random
 draws share the caller's ``torch.Generator``, whose state advances with each
 addressed draw, in place of the reference's ``fold_in`` key counter.
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
 from typing import Any, Callable
 
 import torch
 import torch.utils._pytree as pytree
 
-from ..core.diff import Diff, NoChange, UnknownChange
-from ..core.handlers import AddressReuse, MissingAddress, TraceHandler, handle
+from ..core.changes import ChangeMode, diffs_of, mark_diffs
+from ..core.diff import Diff, NoChange, leaf_changes
+from ..core.checkify import check, constraint_validation_active
+from ..core.handlers import AddressReuse, MissingAddress, TraceHandler, active_handler, handle
 from ..core.pytree import Closure, Pytree
-from ..generative.choice_map import ChoiceMap
+from ..core.staging import FlagOp
+from ..generative.choice_map import ChoiceMap, ChoiceMapInvalidAddress, exists_flag
 from ..generative.concepts import (
     EditRequest,
     EmptyRequest,
@@ -41,18 +49,11 @@ from ..generative.concepts import (
 from ..generative.gfi import GenerativeFunction
 from ..generative.selection import NoneSel, Selection
 from ..generative.trace import Trace, tensor_leaves, trace_device
+from ..generative.typecheck import check_args, check_constraint, check_key
 
 
 def _path(addr) -> tuple:
     return addr if isinstance(addr, tuple) else (addr,)
-
-
-def _check_generator(gen, what: str) -> None:
-    if not isinstance(gen, torch.Generator):
-        raise TypeError(
-            f"{what}: expected a torch.Generator as the source of randomness, "
-            f"got {type(gen).__name__}"
-        )
 
 
 @Pytree.dataclass
@@ -181,24 +182,34 @@ class GenerateHandler(StaticHandler):
 class EditHandler(StaticHandler):
     """Shared machinery of the Update, Regenerate and StaticRequest edits:
     runs the body again, editing each old subtrace with a per-address
-    sub-request.
+    sub-request, under one of two rules.
 
-    Clean prefix: in a static body, execution order equals dependency order,
-    so until the first address whose sub-request does something (and while
-    the top-level arguments are unchanged), every address's arguments equal
-    the previous trace's; those subtraces are reused untouched (weight 0, no
-    re-scoring, no draw from the generator)."""
+    The incremental rule (``mode`` given and not degraded): the body runs
+    under a ``ChangeMode``, which marks the values that depend on a changed
+    one. An addressed call whose arguments and callee carry no mark, and
+    whose sub-request is trivial, reuses its old subtrace untouched (weight
+    0, no re-scoring, no draw from the generator) and returns the old retval
+    unmarked; any other call is edited with per-leaf argdiffs from the marks,
+    and the retval leaves its retdiff reports changed are marked. So only
+    the addresses the request touches and their true dependents run again.
 
-    def __init__(self, gen: torch.Generator, prev: StaticTrace, args_unchanged: bool):
+    The clean-prefix rule (no mode, or once it degraded): in a static body,
+    execution order equals dependency order, so until the first address
+    whose sub-request does something (and while the top-level arguments are
+    unchanged), every address's arguments equal the previous trace's; those
+    subtraces are reused untouched, and every later one is edited with its
+    arguments marked changed."""
+
+    def __init__(self, gen: torch.Generator, prev: StaticTrace, args_unchanged: bool, mode: ChangeMode | None = None):
         super().__init__(gen)
         self.prev = prev
         self.weight: Any = 0.0
         self.bwd: dict = {}
         # False once an upstream address may have changed a value
         self.clean = args_unchanged
-        self.args_unchanged = args_unchanged
-        # the ids of the retval leaves of the subtraces reused untouched
-        self.reused: set[int] = set()
+        self.mode = mode
+        # sub-edits dispatched (the addresses that ran again)
+        self.dispatched = 0
 
     def subrequest(self, addr) -> EditRequest:
         raise NotImplementedError
@@ -214,27 +225,71 @@ class EditHandler(StaticHandler):
         return False
 
     def handle_trace(self, addr, gen_fn, args):
+        mode = self.mode
+        if mode is None:
+            return self._edit_at(addr, gen_fn, args, None)
+        with mode.paused():
+            return self._edit_at(addr, gen_fn, args, mode)
+
+    def _edit_at(self, addr, gen_fn, args, mode: ChangeMode | None):
         self.visit(addr)
         sub_tr = self.prev.get_inner_trace(addr)
         request = self.subrequest(addr)
         trivial = self._is_trivial(request)
-        if self.clean and trivial:
-            # nothing upstream changed, nothing requested here: reuse
-            self.bwd[addr] = EmptyRequest()
-            self.reused.update(id(v) for v in pytree.tree_leaves(sub_tr.get_retval()))
-            return self.record(sub_tr)
+        callee_changed = False
+        if mode is not None and mode.degraded is None:
+            callee_changed = mode.any_changed(gen_fn)
+            if (
+                not callee_changed
+                and python_closure_mismatch(sub_tr.get_gen_fn(), gen_fn)
+                and mode.captures_changed(gen_fn)
+            ):
+                mode.degrade(f"the callee at {addr!r} reaches an edited value through a Python closure")
+        if mode is None or mode.degraded is not None:
+            if self.clean and trivial:
+                # nothing upstream changed, nothing requested here: reuse
+                self.bwd[addr] = EmptyRequest()
+                return self.record(sub_tr)
+            # On the clean prefix this address's arguments are the previous
+            # trace's, so they are marked unchanged (an ``IndexRequest`` into
+            # a vmap or scan needs them so)
+            argdiffs = Diff.tree_diff_no_change(args) if self.clean else Diff.tree_diff_unknown_change(args)
+        else:
+            if not callee_changed and trivial and not mode.any_changed(args):
+                self.bwd[addr] = EmptyRequest()
+                return self.record(sub_tr)
+            # a changed leaf of the callee itself: argdiffs cannot say what
+            # it touches, so every argument counts as changed
+            argdiffs = Diff.tree_diff_unknown_change(args) if callee_changed else diffs_of(mode, args)
         # dispatch through the CURRENT callee: the body ran again with the new
         # arguments, so ``gen_fn`` carries any closed-over dynamic values the
-        # previous subtrace is stale on. On the clean prefix this address's
-        # arguments are the previous trace's, so they are marked unchanged
-        # (an ``IndexRequest`` into a vmap or scan needs them so)
-        argdiffs = Diff.tree_diff_no_change(args) if self.clean else Diff.tree_diff_unknown_change(args)
-        new_tr, w, _retdiff, bwd = dispatch_edit(gen_fn, self.gen, sub_tr, request, argdiffs)
+        # previous subtrace is stale on
+        new_tr, w, retdiff, bwd = dispatch_edit(gen_fn, self.gen, sub_tr, request, argdiffs)
+        self.dispatched += 1
         self.weight = self.weight + w
         self.bwd[addr] = bwd
         if not trivial:
             self.clean = False
-        return self.record(new_tr)
+        retval = self.record(new_tr)
+        if mode is not None and mode.degraded is None:
+            self._mark_retval(mode, retval, retdiff)
+        return retval
+
+    @staticmethod
+    def _mark_retval(mode: ChangeMode, retval, retdiff) -> None:
+        """Mark the leaves of a sub-edit's retval that its retdiff reports
+        changed (all of them where the two do not line up)."""
+        if isinstance(retdiff, Diff) and isinstance(retval, torch.Tensor):
+            pairs = [(retval, retdiff.tangent is not NoChange)]  # a draw's value
+        else:
+            pairs = leaf_changes(retdiff)
+            leaves = [v for v in pytree.tree_leaves(retval) if v is not None]
+            if pairs is None or len(pairs) != len(leaves):
+                pairs = [(v, True) for v in leaves]
+            pairs = [(v, changed) for v, (_, changed) in zip(leaves, pairs)]
+        for v, changed in pairs:
+            if changed and not mode.mark(v):
+                mode.degrade(f"a sub-edit changed a {type(v).__name__}, which is no tensor")
 
     def bwd_request(self) -> EditRequest:
         # per-address backward requests, so that applying the backward request
@@ -243,8 +298,8 @@ class EditHandler(StaticHandler):
 
 
 class UpdateHandler(EditHandler):
-    def __init__(self, gen, prev, constraint: ChoiceMap, args_unchanged=False):
-        super().__init__(gen, prev, args_unchanged)
+    def __init__(self, gen, prev, constraint: ChoiceMap, args_unchanged=False, mode=None):
+        super().__init__(gen, prev, args_unchanged, mode)
         self.constraint = constraint
 
     def subrequest(self, addr) -> EditRequest:
@@ -255,32 +310,17 @@ class UpdateHandler(EditHandler):
 
 
 class RegenerateHandler(EditHandler):
-    def __init__(self, gen, prev, selection: Selection, args_unchanged=False):
-        super().__init__(gen, prev, args_unchanged)
+    def __init__(self, gen, prev, selection: Selection, args_unchanged=False, mode=None):
+        super().__init__(gen, prev, args_unchanged, mode)
         self.selection = selection
 
     def subrequest(self, addr) -> EditRequest:
         return Regenerate(self.selection(*_path(addr)))
 
 
-class ReplayHandler(StaticHandler):
-    """Runs the body again on a trace's own subtraces without editing them:
-    each address returns its old subtrace's retval. The body, a deterministic
-    function of its arguments and those retvals, takes the trace's old path
-    and builds its old retval from the very objects the trace holds."""
-
-    def __init__(self, prev: StaticTrace):
-        super().__init__(None)
-        self.prev = prev
-
-    def handle_trace(self, addr, gen_fn, args):
-        self.visit(addr)
-        return self.prev.get_inner_trace(addr).get_retval()
-
-
 class StaticRequestHandler(EditHandler):
-    def __init__(self, gen, prev, request: StaticRequest, args_unchanged=False):
-        super().__init__(gen, prev, args_unchanged)
+    def __init__(self, gen, prev, request: StaticRequest, args_unchanged=False, mode=None):
+        super().__init__(gen, prev, args_unchanged, mode)
         self.request = request
 
     def subrequest(self, addr) -> EditRequest:
@@ -299,18 +339,25 @@ class StaticGenerativeFunction(GenerativeFunction):
             return self.source(*args)
 
     def simulate(self, gen: torch.Generator, args: tuple) -> StaticTrace:
-        _check_generator(gen, "simulate")
+        check_key(gen, "simulate")
+        check_args(args, "simulate")
         h = SimulateHandler(gen)
         retval = self.run(h, args)
         return StaticTrace(self, args, retval, tuple(h.subtraces), tuple(h.addresses))
 
     def assess(self, chm: ChoiceMap, args: tuple):
+        check_constraint(chm, "assess")
+        check_args(args, "assess")
+        _maybe_validate_constraint(self, chm, args, "assess")
         h = AssessHandler(chm)
         retval = self.run(h, args)
         return _on(functools.partial(trace_device, (chm, args)), h.score), retval
 
     def generate(self, gen: torch.Generator, constraint: ChoiceMap, args: tuple):
-        _check_generator(gen, "generate")
+        check_key(gen, "generate")
+        check_constraint(constraint, "generate")
+        check_args(args, "generate")
+        _maybe_validate_constraint(self, constraint, args, "generate")
         h = GenerateHandler(gen, constraint)
         retval = self.run(h, args)
         tr = StaticTrace(self, args, retval, tuple(h.subtraces), tuple(h.addresses))
@@ -325,65 +372,116 @@ class StaticGenerativeFunction(GenerativeFunction):
     def edit(
         self, gen: torch.Generator, trace: StaticTrace, request: EditRequest, argdiffs: Any
     ) -> tuple[StaticTrace, Weight, Retdiff, EditRequest]:
+        """Edit ``trace`` with ``request`` under the incremental rule
+        (``EditHandler``), or under the clean-prefix rule where the change
+        cannot be followed: the body reaches values through a Python closure
+        that may differ from the trace's, a changed argument or closure leaf
+        is no tensor, or the ``ChangeMode`` degraded while the body ran (from
+        then on). Both give the same weights, traces and backward requests;
+        the rule that served the edit is recorded on
+        ``StaticGenerativeFunction.edit.last_rule`` (with
+        ``last_rule_reason``), and the sub-edits it dispatched on
+        ``last_dispatched``."""
         if not isinstance(request, (Update, Regenerate, StaticRequest)):
             raise NotSupportedEditRequest(
                 f"StaticGenerativeFunction cannot serve {type(request).__name__}."
             )
-        return self._edit_via_handler(gen, trace, request, argdiffs)
-
-    def _edit_via_handler(self, gen, trace, request, argdiffs):
-        """The edit that runs the body under the handler stack (clean-prefix
-        reuse, conservative argdiffs)."""
-        _check_generator(gen, "edit")
+        check_key(gen, "edit")
         primals = Diff.tree_primal(argdiffs)
         old_source = trace.get_gen_fn().source
-        unchanged = (
-            Diff.static_check_no_change(argdiffs)
-            and not any(source_changed_flags(self.source, old_source))
-            and not python_closure_mismatch(old_source, self.source)
-        )
-        if isinstance(request, Update):
-            h: EditHandler = UpdateHandler(gen, trace, request.constraint, unchanged)
-        elif isinstance(request, Regenerate):
-            h = RegenerateHandler(gen, trace, request.selection, unchanged)
+        closure_flags = source_changed_flags(self.source, old_source)
+        closure_mismatch = python_closure_mismatch(old_source, self.source)
+        unchanged = Diff.static_check_no_change(argdiffs) and not any(closure_flags) and not closure_mismatch
+        mode = ChangeMode()
+        if _FORCED_CLEAN_PREFIX:
+            mode.degrade("forced")
+        elif closure_mismatch:
+            mode.degrade("the body reaches values through a Python closure that may have changed")
         else:
-            h = StaticRequestHandler(gen, trace, request, unchanged)
-        retval = self.run(h, primals)
+            reason = mark_diffs(mode, argdiffs)
+            closure = pytree.tree_leaves(self.source)
+            if reason is None and any(f and not mode.mark(v) for v, f in zip(closure, closure_flags)):
+                reason = "a changed closure leaf is no tensor"
+            if reason is not None:
+                mode.degrade(reason)
+        h = self._edit_handler(gen, trace, request, unchanged, mode)
+        with mode if mode.degraded is None else contextlib.nullcontext():
+            retval = self.run(h, primals)
         new_tr = StaticTrace(self, primals, retval, tuple(h.subtraces), tuple(h.addresses))
-        retdiff = self._retdiff(h, trace, primals, new_tr.retval)
+        if mode.degraded is None:
+            retdiff = diffs_of(mode, new_tr.retval)
+        elif h.clean:
+            # the clean path throughout (arguments unchanged, every
+            # sub-request trivial): the deterministic body gave the old retval
+            retdiff = Diff.tree_diff_no_change(new_tr.retval)
+        else:
+            retdiff = Diff.tree_diff_unknown_change(new_tr.retval)
+        _record_rule(mode.degraded, h.dispatched)
         return new_tr, _on(gen.device, h.weight), retdiff, h.bwd_request()
 
-    def _retdiff(self, h: EditHandler, trace: StaticTrace, primals: tuple, retval) -> Any:
-        """The edited body's retdiff. On the clean path throughout (arguments
-        unchanged, every sub-request trivial) the deterministic body gave the
-        old retval again. Else, where the arguments are unchanged and the new
-        retval holds a reused subtrace's value, the body is replayed on the
-        old trace (``ReplayHandler``): a leaf is unchanged where the old run
-        put the very same object at that position. The new run alone cannot
-        tell, since a body may route a reused value to where another one
-        stood (``a if c else b`` with ``c`` edited). Every other leaf is
-        marked changed."""
-        if h.clean:
-            return Diff.tree_diff_no_change(retval)
-        new_leaves, spec = pytree.tree_flatten(retval)
-        if not h.args_unchanged or not any(id(v) in h.reused for v in new_leaves):
-            return Diff.tree_diff_unknown_change(retval)
-        try:
-            replayed = self.run(ReplayHandler(trace), primals)
-        except MissingAddress:
-            return Diff.tree_diff_unknown_change(retval)
-        old_leaves, old_spec = pytree.tree_flatten(
-            tensor_leaves(replayed, functools.partial(trace_device, trace))
-        )
-        if old_spec != spec:
-            return Diff.tree_diff_unknown_change(retval)
-        return pytree.tree_unflatten(
-            [
-                None if v is None else Diff(v, NoChange if v is old else UnknownChange)
-                for v, old in zip(new_leaves, old_leaves)
-            ],
-            spec,
-        )
+    def _edit_via_handler(self, gen, trace, request, argdiffs):
+        """The edit under the clean-prefix rule alone (the rule the
+        incremental edit degrades to)."""
+        with forced_clean_prefix():
+            return self.edit(gen, trace, request, argdiffs)
+
+    @staticmethod
+    def _edit_handler(gen, trace, request, unchanged: bool, mode: ChangeMode) -> EditHandler:
+        live = mode if mode.degraded is None else None
+        if isinstance(request, Update):
+            return UpdateHandler(gen, trace, request.constraint, unchanged, live)
+        if isinstance(request, Regenerate):
+            return RegenerateHandler(gen, trace, request.selection, unchanged, live)
+        return StaticRequestHandler(gen, trace, request, unchanged, live)
+
+
+_FORCED_CLEAN_PREFIX = False
+
+
+@contextlib.contextmanager
+def forced_clean_prefix():
+    """Serve every ``@gen`` edit in this extent with the clean-prefix rule,
+    as a degraded edit is served: the reference point against which tests
+    and ``chip_smoke.py`` hold the incremental rule's weights and time. Not
+    a switch for users: both rules give the same results."""
+    global _FORCED_CLEAN_PREFIX
+    before, _FORCED_CLEAN_PREFIX = _FORCED_CLEAN_PREFIX, True
+    try:
+        yield
+    finally:
+        _FORCED_CLEAN_PREFIX = before
+
+
+def _record_rule(degraded: str | None, dispatched: int) -> None:
+    edit = StaticGenerativeFunction.edit
+    edit.last_rule = "incremental" if degraded is None else "clean_prefix"
+    edit.last_rule_reason = degraded
+    edit.last_dispatched = dispatched
+
+
+StaticGenerativeFunction.edit.last_rule = None
+StaticGenerativeFunction.edit.last_rule_reason = None
+StaticGenerativeFunction.edit.last_dispatched = None
+
+
+def _maybe_validate_constraint(gen_fn, constraint: ChoiceMap, args: tuple, what: str) -> None:
+    """Under ``do_checkify()``: reject a constraint with addresses the model
+    never samples (``ChoiceMap.invalid_subset``). An extra that is there
+    for sure raises ``ChoiceMapInvalidAddress`` at once; one that a tensor
+    flag or index decides is checked on the device (``core/checkify.py``).
+    Only at the top of a GFI call: not inside an enclosing body, whose
+    submaps were scoped already, and not where ``switch`` hands a constraint
+    to branches with other addresses (``suppress_constraint_validation``)."""
+    if not constraint_validation_active() or active_handler() is not None or constraint.static_is_empty():
+        return
+    extras = constraint.invalid_subset(gen_fn, args)
+    if extras is None:
+        return
+    flag = exists_flag(extras)
+    message = f"{what}: the constraint holds addresses the model never samples: {extras}"
+    if FlagOp.concrete_true(flag):
+        raise ChoiceMapInvalidAddress(message)
+    check(FlagOp.not_(flag), message, ChoiceMapInvalidAddress)
 
 
 def _assemble_update_bwd(bwd: dict) -> Update:

@@ -20,31 +20,9 @@ FIXTURE = pathlib.Path(__file__).parent / "fixtures_reference_api.json"
 RENAMED = {"tfp_distribution": "torch_distribution"}
 
 NOT_YET = {
-    # item 16: the facades of operations and debugging
-    ("checkify", "do_checkify"),
-    ("pretty", "pretty"),
-    ("time_travel", "rec"),
-    ("time_travel", "tag"),
-    ("time_travel", "time_machine"),
     # the reference's addressed calls are a jaxpr primitive; the port's
     # (as genjax_tpu's) run under a handler stack: no trace primitive
     ("generative_functions.static", "trace_p"),
-    # item 9: the staging half of the incremental edit (torch has no jaxpr)
-    ("core.compiler", "Environment"),
-    ("core.compiler", "InitialStylePrimitive"),
-    ("core.compiler", "StatefulHandler"),
-    ("core.compiler", "get_shaped_aval"),
-    ("core.compiler", "incremental"),
-    ("core.compiler", "initial_style_bind"),
-    ("core.compiler", "stage"),
-    ("core.compiler", "stateful"),
-    ("core.compiler", "to_shape_fn"),
-    # item 17: typing aliases and pytree helpers not yet exported
-    ("core.generative", "Address"),
-    ("core.generative", "AddressComponent"),
-    ("core.generative", "R"),
-    ("core.pytree", "PythonicPytree"),
-    ("core.pytree", "nth"),
 }
 
 

@@ -19,7 +19,8 @@ import genjax_tpu as gj
 import genjax_tpu_torch as g
 from genjax_tpu.models import hierarchical_regression as jax_hier
 from genjax_tpu.models import linear_regression as jax_linear
-from genjax_tpu_torch.core.diff import Diff, NoChange, UnknownChange, changed_through
+from genjax_tpu_torch.core.changes import changed_through
+from genjax_tpu_torch.core.diff import Diff, NoChange, UnknownChange
 from genjax_tpu_torch.generative.choice_map import FilteredChm
 from genjax_tpu_torch.models import hierarchical_regression, linear_regression
 
@@ -121,8 +122,13 @@ def test_diff_matches_jax():
         assert [repr(t) for t in mod.tree_tangent(mixed)] == ["NoChange", "UnknownChange"]
     assert Diff.no_change(Diff.unknown_change(1.0)).primal == 1.0
     assert Diff.tree_diff((1.0, 2.0), (NoChange, UnknownChange))[1].tangent is UnknownChange
-    with pytest.raises(NotImplementedError, match="item 9"):
-        changed_through(lambda x: x, (Diff.no_change(1.0),))
+    from genjax_tpu.core.diff import changed_through as jchanged_through
+
+    x, y = np.float32(1.5), np.float32(-2.0)
+    fn = lambda a, b: (a * 2.0, b + 1.0, a + b)  # noqa: E731
+    got = changed_through(fn, (Diff.no_change(torch.tensor(x)), Diff.unknown_change(torch.tensor(y))))
+    want = jchanged_through(fn, (JDiff.no_change(jnp.asarray(x)), JDiff.unknown_change(jnp.asarray(y))))
+    assert [d.tangent.name for d in got] == [d.tangent.name for d in want] == ["NoChange", "UnknownChange", "UnknownChange"]
 
 
 # ----------------------------------------------------------------------
@@ -178,7 +184,7 @@ UPDATES = [
 @pytest.mark.parametrize("name,addrs", UPDATES, ids=lambda v: "+".join(v) if isinstance(v, tuple) else v)
 def test_update_matches_jax(name, addrs):
     jtr, ttr = _traces(name, 10)
-    j_new, j_w, _, j_discard = jtr.update(jax.random.key(1), _constraint(gj, name, addrs, 11))
+    j_new, j_w, j_rd, j_discard = jtr.update(jax.random.key(1), _constraint(gj, name, addrs, 11))
     t_new, t_w, t_rd, t_discard = ttr.update(gen_at(1), _constraint(g, name, addrs, 11))
     np.testing.assert_allclose(float(t_w), float(j_w), rtol=TOL, atol=TOL)
     np.testing.assert_allclose(float(t_new.get_score()), float(j_new.get_score()), rtol=TOL)
@@ -187,7 +193,9 @@ def test_update_matches_jax(name, addrs):
         if a in addrs:
             np.testing.assert_allclose(np.asarray(t_discard[a]), np.asarray(j_discard[a]), rtol=TOL)
             np.testing.assert_array_equal(np.asarray(t_new[a]), _choices(name, 11)[a])
-    assert Diff.static_check_no_change(t_rd) == (not addrs)
+    # the retval (``y``) changes only where ``y`` itself is updated: an
+    # update of ``w`` or ``tau`` re-scores ``y`` and leaves its value
+    assert Diff.static_check_no_change(t_rd) == gj.Diff.static_check_no_change(j_rd) == ("y" not in addrs)
 
 
 PROJECTIONS = {

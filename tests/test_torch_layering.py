@@ -28,8 +28,16 @@ LAYERS = {
     "kernels": 6,
     "parallel": 6,
     "inference": 7,
+    "debug": 8,
     "<root>": 9,
     "interop": 9,
+    "checkify": 9,
+    "typecheck": 9,
+    "time_travel": 9,
+    "typing": 9,
+    "pretty": 9,
+    "incremental": 9,
+    "experimental": 9,
 }
 
 
@@ -126,9 +134,12 @@ def test_imports_without_jax():
         "genjax_tpu_torch.inference.sbc, genjax_tpu_torch.inference.model_comparison, "
         "genjax_tpu_torch.inference.abc, genjax_tpu_torch.inference.smc2, genjax_tpu_torch.inference.smc_chees, "
         "genjax_tpu_torch.inference.nested, genjax_tpu_torch.inference._lbfgs, "
-        "genjax_tpu_torch.inference.pathfinder, genjax_tpu_torch.io, genjax_tpu_torch.io.checkpoint; "
+        "genjax_tpu_torch.inference.pathfinder, genjax_tpu_torch.io, genjax_tpu_torch.io.checkpoint, "
+        "genjax_tpu_torch.core.changes, genjax_tpu_torch.debug, genjax_tpu_torch.checkify, "
+        "genjax_tpu_torch.typecheck, genjax_tpu_torch.time_travel, genjax_tpu_torch.pretty, "
+        "genjax_tpu_torch.typing, genjax_tpu_torch.incremental, genjax_tpu_torch.experimental; "
         "print(sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
-        "or m == 'genjax_tpu' or m.startswith('genjax_tpu.') or m.split('.')[0] in ('optax', 'orbax')))"
+        "or m == 'genjax_tpu' or m.startswith('genjax_tpu.') or m.split('.')[0] in ('optax', 'orbax', 'treescope', 'typeguard', 'jaxtyping')))"
     )
     proc = subprocess.run(
         [sys.executable, "-c", code], capture_output=True, text=True, cwd=REPO
@@ -141,7 +152,7 @@ def test_no_jax_import_anywhere():
     bad = []
     for path in _iter_py_files():
         for target in _imports(path, _module_name(path)):
-            if target.split(".")[0] in ("jax", "jaxlib", "genjax_tpu", "optax", "orbax"):
+            if target.split(".")[0] in ("jax", "jaxlib", "genjax_tpu", "optax", "orbax", "treescope", "typeguard", "jaxtyping"):
                 bad.append(f"{os.path.relpath(path, REPO)} imports {target}")
     assert not bad, "\n".join(bad)
 
@@ -298,6 +309,26 @@ def test_slice14_modules_are_layered():
         f"{PKG}.core.pytree", f"{PKG}.core"}
     assert not [t for t in edges[f"{PKG}.io.checkpoint"]]
     assert LAYERS["io"] < LAYERS["inference"]
+
+
+def test_slice15_modules_are_layered():
+    """The change propagation, the named effects, the environment and the
+    checks sit in ``core`` on nothing above it; the language reaches the
+    propagation and the checks; the debugger sits above ``inference`` on
+    the named effects; the facades re-export from below."""
+    mods, edges = _graph()
+    for mod in ("core.changes", "core.primitive", "core.environment", "core.checkify", "generative.typecheck",
+                "debug", "debug.time_travel", "checkify", "typecheck", "time_travel", "typing", "pretty",
+                "incremental", "experimental"):
+        assert f"{PKG}.{mod}" in mods, mod
+    for mod in ("core.changes", "core.primitive", "core.environment", "core.checkify"):
+        assert not [t for t in edges[f"{PKG}.{mod}"] if _subpackage(t) != "core"], mod
+    assert f"{PKG}.core.changes" in edges[f"{PKG}.lang.static_lang"]
+    assert f"{PKG}.core.changes" in edges[f"{PKG}.combinators.dimap"]
+    assert f"{PKG}.core.checkify" in edges[f"{PKG}.generative.mask"]
+    assert f"{PKG}.core.primitive" in edges[f"{PKG}.debug.time_travel"]
+    assert f"{PKG}.debug.time_travel" in edges[f"{PKG}.time_travel"]
+    assert LAYERS["inference"] < LAYERS["debug"] < LAYERS["<root>"]
 
 
 def test_layer_direction():
