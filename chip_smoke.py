@@ -1249,6 +1249,276 @@ def trace_nuts_path(device, smi: str, g, hmc, nuts_pallas, model_flag, y) -> int
     return launches
 
 
+PAR_PF_SEEDS = 5  # each resample mode's runs of the sharded filter
+PAR_RBPF_PARTICLES, PAR_RBPF_T = 65536, 100
+PAR_ISLAND_PARTICLES, PAR_ISLAND_T, PAR_ISLAND_EVERY = 4096, 16, 4  # examples/25's shape
+PAR_ISLAND_SEEDS = 8  # the gate holds the runs' mean log marginal
+PAR_DATA_ROWS, PAR_DATA_D, PAR_DATA_CHAINS = 4096, 8, 1024
+PAR_BNN_D_IN, PAR_BNN_HIDDEN, PAR_BNN_M, PAR_BNN_CHAINS = 8, 256, 64, 1024
+
+
+def parallel_path(device, smi: str, g, hmc, nuts_pallas, model, y, ref_draws) -> dict:
+    """The scale-out layer on the card at a world of one rank on NCCL (a
+    card holds one rank, and NCCL refuses two ranks on one GPU; the
+    multi-rank runs are the CPU tests' gloo worlds): the sharded flagship
+    ``sample_posterior(hmc_sweep, mesh=)`` (K1) and ``column_nuts(warmup=True,
+    mesh=)`` (K4) with their launch counts, the sharded particle filter in
+    both resample modes against Kalman, the RBPF, the island filter on a
+    ``(1, 1)`` hierarchical mesh with its audit, and the data-sharded and
+    tensor-parallel densities against their unsharded twins. Returns the
+    K1 and K4 launches of the sharded calls."""
+    import os
+    import tempfile
+
+    import torch.distributed as dist
+    from genjax_tpu_torch.dists import LGSSMParams, kalman_filter
+    from genjax_tpu_torch.inference import sample
+    from genjax_tpu_torch.kernels.model_interface import column_nuts
+    from genjax_tpu_torch.models import linear_gaussian_ssm
+    from genjax_tpu_torch.parallel import (
+        IslandParticleFilter, SSMParticleFilter, bnn_logdensity_reference, collective_counts, collective_log,
+        data_sharded_logdensity, initialize_distributed, make_hier_mesh, make_mesh, make_mesh_2d, rbpf,
+        shard_params, tp_bnn_logdensity,
+    )
+
+    t_par = time.perf_counter()
+    out = {}
+    store_dir = tempfile.mkdtemp()
+    try:
+        rank_device = initialize_distributed(rank=0, world_size=1,
+                                             store=dist.FileStore(os.path.join(store_dir, "store"), 1))
+    except Exception as e:  # noqa: BLE001 - reported as the phase's failure
+        check(False, f"[parallel] the NCCL group did not start: {type(e).__name__}: {e}")
+    try:
+        check(dist.get_backend() == "nccl" and dist.get_world_size() == 1 and rank_device.type == "cuda",
+              f"[parallel] group: backend {dist.get_backend()}, world {dist.get_world_size()}, {rank_device}")
+        mesh = make_mesh()
+        phase("parallel", f"{smi}: NCCL process group of 1 rank (FileStore rendezvous), mesh {mesh.shape} on "
+                          f"{mesh.device}, {time.perf_counter() - t_par:.2f} s")
+
+        # ---- the sharded flagship HMC: K1 on the rank's shard
+        sel = g.S["w"] | g.S["tau"]
+        obs = g.C["y"].set(torch.as_tensor(y, device=device))
+        kw = dict(n_chains=N_CHAINS, n_warmup=SP_WARMUP, n_samples=SP_SAMPLES, thin=SP_THIN_CONVERGED,
+                  algorithm="hmc_sweep", eps0=SP_EPS0, L=L)
+        hmc.hmc_sweep_launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = sample.sample_posterior(SEED + 5, model, obs, (), sel, mesh=mesh, **kw)
+        torch.cuda.synchronize()
+        sharded_ms = (time.perf_counter() - t0) * 1e3
+        k1 = hmc.hmc_sweep_launches
+        want = min(6, SP_WARMUP) + SP_SAMPLES
+        check(k1 == want, f"[parallel] sharded sample_posterior(hmc_sweep) made {k1} K1 launches, not {want}")
+        check(hmc.pallas_hmc.last_backend == "cuda", "[parallel] the sharded sweep left the card")
+        rhat = torch.cat([res.rhat_of("tau").reshape(1), res.rhat_of("w")])
+        check(bool((rhat < 1.05).all()), f"[parallel] sharded split-R-hat {rhat.tolist()} (limit 1.05)")
+        flat = torch.cat([res["tau"][:, :, None], res["w"]], dim=2)
+        z = chain_means_z(flat, ref_draws)
+        check(z < 4, f"[parallel] sharded posterior means {z:.2f} SE from the unsharded call's (limit 4)")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sample.sample_posterior(SEED + 6, model, obs, (), sel, **kw)
+        torch.cuda.synchronize()
+        plain_call_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sample.sample_posterior(SEED + 7, model, obs, (), sel, mesh=mesh, **kw)
+        torch.cuda.synchronize()
+        sharded_again_ms = (time.perf_counter() - t0) * 1e3
+        out["k1"] = k1
+        phase("parallel", f"{smi}: sample_posterior(flagship, {N_CHAINS} chains, {SP_WARMUP} + {SP_SAMPLES} x thin "
+                          f"{SP_THIN_CONVERGED}, hmc_sweep, mesh=make_mesh()): {k1} K1 launches (as unsharded), "
+                          f"split-R-hat {float(rhat.min()):.4f}-{float(rhat.max()):.4f}, means within {z:.2f} SE of "
+                          f"the unsharded call's; a call {sharded_ms:.1f} ms first, {sharded_again_ms:.1f} ms again, "
+                          f"unsharded {plain_call_ms:.1f} ms (host clock)")
+
+        # ---- the sharded column NUTS: K4 on the rank's shard
+        nuts_pallas.nuts_sweep_launches = 0
+        hmc.hmc_sweep_launches = 0
+        nkw = dict(n_chains=N_CHAINS, n_steps=NUTS_STEPS, eps=NUTS_EPS0, max_depth=NUTS_DEPTH, warmup=True)
+        t0 = time.perf_counter()
+        q_s, acc_s, leaps_s, _ = column_nuts(model, obs, (), ["tau", "w"], seed=SEED, mesh=mesh, **nkw)
+        torch.cuda.synchronize()
+        nuts_ms = (time.perf_counter() - t0) * 1e3
+        k4 = nuts_pallas.nuts_sweep_launches
+        check(k4 == NUTS_WARMUP_PHASES + 1, f"[parallel] sharded column_nuts made {k4} K4 launches")
+        check(hmc.hmc_sweep_launches == 0 and nuts_pallas.pallas_nuts.last_backend == "cuda",
+              "[parallel] the sharded NUTS path left K4")
+        q_u, acc_u, leaps_u, _ = column_nuts(model, obs, (), ["tau", "w"], seed=SEED + 1, **nkw)
+        real_s, real_u = q_s[:9], q_u[:9]
+        se = torch.sqrt((real_s.var(dim=1) + real_u.var(dim=1)) / N_CHAINS)
+        z_n = float(((real_s.mean(dim=1) - real_u.mean(dim=1)) / se).abs().max())
+        check(z_n < 4 and abs(float(acc_s) - float(acc_u)) <= 0.02,
+              f"[parallel] sharded NUTS: means {z_n:.2f} SE, accept {float(acc_s)} vs {float(acc_u)}")
+        out["k4"] = k4
+        phase("parallel", f"{smi}: column_nuts(flagship, {N_CHAINS} chains, warmup=True, mesh): {k4} K4 launches, "
+                          f"accept {float(acc_s):.4f} vs {float(acc_u):.4f} unsharded, mean leapfrogs "
+                          f"{float(leaps_s):.3f} vs {float(leaps_u):.3f}, tau and w means within {z_n:.2f} SE; "
+                          f"{nuts_ms:.1f} ms (host clock)")
+
+        # ---- the sharded particle filter: bench_pf's shape, both modes
+        kernel, exact = linear_gaussian_ssm()
+        xs = torch.zeros(PF_T, device=device)
+        ys_pf = torch.zeros(PF_T, device=device)
+        pobs = g.C[:, "y"].set(ys_pf)
+        want_pf = exact(ys_pf.cpu().tolist())
+        pf = SSMParticleFilter(kernel, n_particles=PF_PARTICLES, ess_threshold=0.5, method="systematic")
+        for mode in ("local", "all_gather"):
+            lzs, ms_runs = [], []
+            for seed in range(PAR_PF_SEEDS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                r = pf.run_sharded(100 + seed, 0.0, xs, pobs, mesh, resample_mode=mode)
+                lzs.append(float(r.log_marginal))
+                ms_runs.append((time.perf_counter() - t0) * 1e3)
+            mean_lz, se_lz, _ = se_gap(lzs, want_pf)
+            check(abs(mean_lz - want_pf) <= 4 * se_lz + 0.01,
+                  f"[parallel] run_sharded({mode}) log marginal {mean_lz:.5f} (SE {se_lz:.5f}) vs Kalman {want_pf:.5f}")
+            reads = host_reads(lambda: pf.run_sharded(200, 0.0, xs, pobs, mesh, resample_mode=mode))
+            phase("parallel", f"{smi}: SSMParticleFilter.run_sharded({PF_PARTICLES} particles x T = {PF_T}, "
+                              f"resample_mode='{mode}'), {PAR_PF_SEEDS} seeds: mean log marginal {mean_lz:.5f} (SE "
+                              f"{se_lz:.5f}) against Kalman's {want_pf:.5f} (limit 4 SE + 0.01); a run "
+                              f"{float(np.median(ms_runs)):.1f} ms (host clock, median); host reads a step "
+                              f"{reads / PF_T:.3f}")
+
+        # ---- the RBPF: no regime switch (the Kalman oracle), and examples/21's two regimes
+        a, q_sd, r_sd = 0.85, 0.6, 0.4
+        rng = np.random.default_rng(21)
+        zt, ys_rb = 0.0, []
+        for _ in range(PAR_RBPF_T):
+            zt = a * zt + q_sd * rng.normal()
+            ys_rb.append(zt + r_sd * rng.normal())
+        ys_rb = torch.tensor(ys_rb, dtype=torch.float32, device=device).reshape(-1, 1)
+        mats = tuple(torch.tensor([[v]], device=device) for v in (a, q_sd**2, 1.0, r_sd**2))
+        params = LGSSMParams(A=mats[0].double(), Q=mats[1].double(), C=mats[2].double(), R=mats[3].double(),
+                             mu0=torch.zeros(1, dtype=torch.float64, device=device), P0=mats[1].double())
+        want_rb = float(kalman_filter(params, ys_rb.double())[2])
+        lzs = []
+        t0 = time.perf_counter()
+        for seed in range(3):
+            # z_0 = 0 exactly: y_0 observes z_1 ~ N(0, Q), as the data are made
+            r = rbpf(seed, lambda gen, u, t: u, lambda u: mats, ys_rb, n_particles=PAR_RBPF_PARTICLES,
+                     init_regime=torch.tensor(0, device=device), mu0=torch.zeros(1, device=device),
+                     P0=torch.zeros(1, 1, device=device), device=device)
+            lzs.append(float(r.log_marginal))
+        torch.cuda.synchronize()
+        rb_ms = (time.perf_counter() - t0) * 1e3 / 3
+        mean_lz, se_lz, _ = se_gap(lzs, want_rb) if len(set(lzs)) > 1 else (lzs[0], 0.0, 0.0)
+        check(abs(mean_lz - want_rb) <= 4 * se_lz + 0.01 and bool(torch.isfinite(r.means).all()),
+              f"[parallel] rbpf log marginal {mean_lz:.5f} (SE {se_lz:.5f}) vs Kalman {want_rb:.5f}")
+        a_reg = torch.tensor([0.85, 0.2], device=device)
+        trans = torch.tensor([[0.9, 0.1], [0.3, 0.7]], device=device)
+
+        def two_regimes(u):
+            return (a_reg[u].reshape(1, 1), mats[1], mats[2], mats[3])
+
+        r2 = rbpf(1, lambda gen, u, t: (torch.rand((), generator=gen, device=device) < trans[u, 1]).long(),
+                  two_regimes, ys_rb[:16], n_particles=1024, init_regime=torch.tensor(0, device=device),
+                  mu0=torch.zeros(1, device=device), P0=torch.zeros(1, 1, device=device), device=device)
+        p_persist = float((torch.exp(r2.log_weights) * (r2.regimes == 0).float()).sum())
+        check(math.isfinite(float(r2.log_marginal)) and 0.0 <= p_persist <= 1.0, "[parallel] two-regime rbpf")
+        phase("parallel", f"{smi}: rbpf({PAR_RBPF_PARTICLES} particles x T = {PAR_RBPF_T}, no regime switch): "
+                          f"log marginal {mean_lz:.5f} against Kalman's {want_rb:.5f} (limit 4 SE + 0.01), a run "
+                          f"{rb_ms:.1f} ms (host clock); examples/21's two regimes at 1024 particles x T = 16: log "
+                          f"marginal {float(r2.log_marginal):.4f}, P(final regime = persistent) {p_persist:.3f}")
+
+        # ---- the island filter on a (1, 1) mesh, with its audit
+        hier = make_hier_mesh(1, 1)
+        ys_is = torch.tensor(np.random.default_rng(3).normal(size=PAR_ISLAND_T) * 0.8, dtype=torch.float32,
+                             device=device)
+        ipf = IslandParticleFilter(kernel, n_particles=PAR_ISLAND_PARTICLES, exchange_every=PAR_ISLAND_EVERY)
+        iobs, ixs = g.C[:, "y"].set(ys_is), torch.zeros(PAR_ISLAND_T, device=device)
+        t0 = time.perf_counter()
+        with collective_log() as log:
+            ires = ipf.run_sharded(7, 0.0, ixs, iobs, hier)
+        torch.cuda.synchronize()
+        is_ms = (time.perf_counter() - t0) * 1e3
+        lzs = [float(ires.log_marginal)] + [float(ipf.run_sharded(8 + s, 0.0, ixs, iobs, hier).log_marginal)
+                                            for s in range(PAR_ISLAND_SEEDS - 1)]
+        want_is = exact(ys_is.cpu().tolist())
+        mean_is = float(np.mean(lzs))
+        n_ex = int(ires.n_exchanges)
+        check(abs(mean_is - want_is) <= 0.15 and n_ex == PAR_ISLAND_T // PAR_ISLAND_EVERY,
+              f"[parallel] islands: mean log marginal {mean_is:.4f} vs {want_is:.4f}, {n_ex} exchanges")
+        counts = collective_counts(log)
+        island_ops = [o for o in counts["ops"] if o["group"] == "island"]
+        check(all(o["kind"] == "all-gather" for o in island_ops)
+              and all(o["group"] == "batch" for o in counts["ops"] if o["per_step"] and o["kind"] == "all-reduce"),
+              f"[parallel] islands: a per-step all-reduce left the batch axis: {counts['ops']}")
+        phase("parallel", f"{smi}: IslandParticleFilter.run_sharded({PAR_ISLAND_PARTICLES} particles x T = "
+                          f"{PAR_ISLAND_T}, exchange_every={PAR_ISLAND_EVERY}, mesh (1, 1)), {PAR_ISLAND_SEEDS} "
+                          f"seeds: mean log marginal {mean_is:.4f} (runs {min(lzs):.4f} to {max(lzs):.4f}) against "
+                          f"Kalman's {want_is:.4f} (limit 0.15), {n_ex} exchanges, the first run {is_ms:.1f} ms "
+                          f"(host clock); its collectives {counts['count']} "
+                          f"({counts['by_kind']}), per step {counts['per_step']}, once {counts['once_per_run']}")
+
+        # ---- the data-sharded and tensor-parallel densities against their twins
+        gen = torch.Generator(device=device).manual_seed(3)
+        Xd = torch.randn(PAR_DATA_ROWS, PAR_DATA_D, generator=gen, device=device)
+        yd = (torch.rand(PAR_DATA_ROWS, generator=gen, device=device)
+              < torch.sigmoid(Xd @ torch.linspace(-1, 1, PAR_DATA_D, device=device))).float()
+
+        def lprior(q):
+            return -0.5 * torch.sum(q**2, dim=0)
+
+        def llik(q, shard):
+            x, yy = shard
+            logits = x @ q
+            return torch.sum(yy[:, None] * torch.nn.functional.logsigmoid(logits)
+                             + (1.0 - yy[:, None]) * torch.nn.functional.logsigmoid(-logits), dim=0)
+
+        mesh2 = make_mesh_2d((1, 1))
+        ld_data = data_sharded_logdensity(lprior, llik, (Xd, yd), mesh2)
+        qd = (0.3 * torch.randn(PAR_DATA_D, PAR_DATA_CHAINS, generator=gen, device=device)).requires_grad_(True)
+        v_s = ld_data(qd)
+        (g_s,) = torch.autograd.grad(v_s.sum(), qd)
+        v_u = lprior(qd) + llik(qd, (Xd, yd))
+        (g_u,) = torch.autograd.grad(v_u.sum(), qd)
+        v_s, v_u = v_s.detach(), v_u.detach()
+        err_d = max(float(((v_s - v_u).abs() / v_u.abs().clamp_min(1.0)).max()),
+                    float(((g_s - g_u).abs() / g_u.abs().clamp_min(1.0)).max()))
+        check(err_d <= 1e-5, f"[parallel] data-sharded density against the unsharded: {err_d:.3g}")
+        qf, acc_d = hmc.pallas_hmc(ld_data, qd.detach(), SEED, n_steps=20, eps=0.01, L=5, backend="torch")
+        check(hmc.pallas_hmc.last_backend == "torch" and bool(torch.isfinite(qf).all()),
+              "[parallel] pallas_hmc(backend='torch') on the data-sharded density")
+        try:
+            hmc.pallas_hmc(ld_data, qd.detach(), SEED, n_steps=1, eps=0.01, L=5)
+            raised = None
+        except ValueError as e:
+            raised = str(e)
+        check(raised is not None and "backend='torch'" in raised,
+              "[parallel] backend='auto' on the data-sharded density did not raise")
+        mesh_tp = make_mesh_2d((1, 1), axes=("model", "batch"))
+        Xb = torch.randn(PAR_BNN_M, PAR_BNN_D_IN, generator=gen, device=device)
+        yb = torch.randn(PAR_BNN_M, generator=gen, device=device)
+        ld_tp = tp_bnn_logdensity(Xb, yb, PAR_BNN_HIDDEN, mesh_tp)
+        ld_ref = bnn_logdensity_reference(Xb, yb, PAR_BNN_HIDDEN)
+        qb = (0.3 * torch.randn(PAR_BNN_HIDDEN * (PAR_BNN_D_IN + 2), PAR_BNN_CHAINS, generator=gen,
+                                device=device))
+        qb_s = shard_params(qb, mesh_tp).requires_grad_(True)
+        v_s = ld_tp(qb_s)
+        (g_s,) = torch.autograd.grad(v_s.sum(), qb_s)
+        qb_u = qb.clone().requires_grad_(True)
+        v_u = ld_ref(qb_u)
+        (g_u,) = torch.autograd.grad(v_u.sum(), qb_u)
+        v_s, v_u = v_s.detach(), v_u.detach()
+        err_t = max(float(((v_s - v_u).abs() / v_u.abs().clamp_min(1.0)).max()),
+                    float(((g_s - g_u).abs() / g_u.abs().clamp_min(1.0)).max()))
+        check(err_t <= 1e-5, f"[parallel] tensor-parallel density against the unsharded: {err_t:.3g}")
+        phase("parallel", f"{smi}: data_sharded_logdensity (logistic, {PAR_DATA_ROWS} rows x {PAR_DATA_D}, "
+                          f"{PAR_DATA_CHAINS} chains, mesh (1, 1)) value and gradient within {err_d:.3g} of the "
+                          f"unsharded (limit 1e-5, relative past 1); pallas_hmc(backend='torch') on it ran, accept "
+                          f"{float(acc_d):.4f}; backend='auto' raised for want of a device body; tp_bnn_logdensity "
+                          f"(hidden {PAR_BNN_HIDDEN}, d_in {PAR_BNN_D_IN}, {PAR_BNN_M} rows, {PAR_BNN_CHAINS} chains) "
+                          f"within {err_t:.3g} of bnn_logdensity_reference")
+    finally:
+        dist.destroy_process_group()
+    check(not dist.is_initialized(), "[parallel] the process group outlived the phase")
+    phase("parallel", f"the parallel phase took {time.perf_counter() - t_par:.1f} s; group destroyed")
+    return out
+
+
 def dense_target(device):
     """``bench.py::bench_dense``'s target: ``Sigma* = A A^T / d + 0.05 I``
     with ``A`` from numpy seed 0, as the ``@gen`` model ``x ~ mv_normal(0,
@@ -3956,16 +4226,21 @@ def checkpoint_path(device, smi: str, g, hmc, model, y) -> int:
     saves, loads, sizes = [], [], []
     save0, load0 = sample.save_segment_state, sample.load_segment_state
 
-    def timed_save(d, state, meta):
+    def timed_save(d, state, meta, **kw):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        save0(d, state, meta)
+        save0(d, state, meta, **kw)
         saves.append(time.perf_counter() - t0)
-        sizes.append(os.path.getsize(os.path.join(d, f"state_{meta['next_segment']}", "leaves.pt")))
+        # what this save wrote: the state, and the segment's draws once
+        seg = meta["next_segment"]
+        written = [os.path.join(d, f"state_{seg}", "leaves.pt")]
+        if kw.get("increment") is not None:
+            written.append(os.path.join(d, f"increment_{seg - 1}", "leaves.pt"))
+        sizes.append(sum(os.path.getsize(f) for f in written))
 
-    def timed_load(d, make_template):
+    def timed_load(d, make_template, **kw):
         t0 = time.perf_counter()
-        out = load0(d, make_template)
+        out = load0(d, make_template, **kw)
         torch.cuda.synchronize()
         if out is not None:
             loads.append(time.perf_counter() - t0)
@@ -4023,9 +4298,9 @@ def checkpoint_path(device, smi: str, g, hmc, model, y) -> int:
                                 f"({part_s:.3f} s) then resumed ({resume_s:.3f} s); K1 launches {launches_whole} "
                                 f"whole, {launches_split} stopped and resumed")
             phase("checkpoint", f"{smi}: {name}: a save {min(saves) * 1e3:.1f}-{max(saves) * 1e3:.1f} ms (host "
-                                f"clock, {len(saves)} saves), a restore {loads[-1] * 1e3:.1f} ms; the state "
-                                f"{min(sizes) / 1e6:.2f}-{max(sizes) / 1e6:.2f} MB (after the warmup to after the "
-                                f"last segment)")
+                                f"clock, {len(saves)} saves), a restore {loads[-1] * 1e3:.1f} ms; a save wrote "
+                                f"{min(sizes) / 1e6:.2f}-{max(sizes) / 1e6:.2f} MB (after the warmup: the state; "
+                                f"after a segment: the state and that segment's draws, each draw saved once)")
             saves.clear(), loads.clear(), sizes.clear()
             with tempfile.TemporaryDirectory() as d:
                 every_small = every if not small_kw else 4
@@ -4709,6 +4984,9 @@ def main() -> int:
                                  f"sweeps, {warm_ms / 1e3:.4f} s of K4, and host reads of eps), "
                                  f"the main K4 sweep {k4_ms / 1e3:.4f} s")
 
+    # ---- the scale-out layer at a world of one rank on NCCL (K1 and K4 on the shard)
+    par_launches = parallel_path(device, smi, g, hmc, nuts_pallas, model, y, k1_draws)
+
     # ---- the NUTS trace path: sample_posterior nuts/hmc, and run_chains_nuts on K4
     rcn_launches = trace_nuts_path(device, smi, g, hmc, nuts_pallas, model, y)
 
@@ -4751,7 +5029,9 @@ def main() -> int:
         "launches": launches,
         "launches_by_path": {"column_hmc": launches, "column_hmc(warmup=True)": warm_launches,
                              **gfi_launches, "sample_posterior(hmc_sweep)": sp_launches,
-                             f"sample_posterior(hmc_sweep, checkpoint_every={CK_EVERY})": ck_launches},
+                             f"sample_posterior(hmc_sweep, checkpoint_every={CK_EVERY})": ck_launches,
+                             f"sample_posterior(hmc_sweep, thin={SP_THIN_CONVERGED}, mesh=make_mesh())":
+                                 par_launches["k1"]},
         "max_abs_err": flagship_err,
         "ms": ms,
         "plain_ms": plain_ms,
@@ -4769,7 +5049,8 @@ def main() -> int:
         "source": "genjax_tpu_torch/kernels/csrc/nuts_sweep.cu",
         "replaces": "genjax_tpu/kernels/nuts_pallas.py:72",
         "launches": k4_launches,
-        "launches_by_path": {"column_nuts(warmup=True)": k4_launches, "run_chains_nuts": rcn_launches},
+        "launches_by_path": {"column_nuts(warmup=True)": k4_launches, "run_chains_nuts": rcn_launches,
+                             "column_nuts(warmup=True, mesh=make_mesh())": par_launches["k4"]},
         "max_abs_err": k4_err,
         "ms": k4_ms,
         "plain_ms": nuts_plain_ms,

@@ -113,6 +113,46 @@ def _inplace_targets(name: str, args: tuple, kwargs: dict) -> list:
     return []
 
 
+def _reach(obj: Any, on_tensor: Callable[[torch.Tensor], bool], depth: int = 0, seen: set | None = None) -> bool:
+    """Walk ``obj`` through Python closure cells, defaults, bound methods,
+    partials, dataclass fields and containers, calling ``on_tensor`` on every
+    tensor reached; True where it returned True for one, or where the walk
+    met what it cannot see through (an object of an unknown kind, more than
+    eight levels down). Every branch is walked, so ``on_tensor`` sees every
+    tensor within reach."""
+    seen = set() if seen is None else seen
+    if depth > 8:
+        return True
+    if isinstance(obj, torch.Tensor):
+        return bool(on_tensor(obj))
+    if isinstance(obj, _ATOMS) or id(obj) in seen:
+        return False
+    seen.add(id(obj))
+
+    def walk_all(xs) -> bool:
+        return any([_reach(x, on_tensor, depth + 1, seen) for x in xs])
+
+    if isinstance(obj, types.FunctionType):
+        cells = []
+        for cell in obj.__closure__ or ():
+            try:
+                cells.append(cell.cell_contents)
+            except ValueError:  # an empty cell
+                pass
+        return walk_all(cells + list(obj.__defaults__ or ()))
+    if isinstance(obj, types.MethodType):
+        return walk_all([obj.__self__, obj.__func__])
+    if isinstance(obj, functools.partial):
+        return walk_all([obj.func, *obj.args, *obj.keywords.values()])
+    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        return walk_all([getattr(obj, f.name, None) for f in dataclasses.fields(obj)])
+    if isinstance(obj, (tuple, list, set, frozenset)):
+        return walk_all(list(obj))
+    if isinstance(obj, dict):
+        return walk_all(list(obj.values()))
+    return True
+
+
 class ChangeMode(TorchFunctionMode):
     """Marks the tensors that depend on changed ones while torch ops run
     under it (see the module docstring).
@@ -171,39 +211,26 @@ class ChangeMode(TorchFunctionMode):
             self._changed.clear()
             self._fresh.clear()
 
-    def captures_changed(self, obj: Any, depth: int = 0, seen: set | None = None) -> bool:
+    def captures_changed(self, obj: Any) -> bool:
         """Does ``obj`` reach a changed tensor through Python closure cells,
         fields or containers, which no pytree flattening sees? What the walk
         cannot see through (an object of an unknown kind, more than eight
         levels down) counts as changed."""
-        seen = set() if seen is None else seen
-        if depth > 8:
-            return True
-        if isinstance(obj, torch.Tensor):
-            return self.is_changed(obj)
-        if isinstance(obj, _ATOMS) or id(obj) in seen:
+        return _reach(obj, self.is_changed)
+
+    def handed_off(self, args: Any, callee: Any) -> None:
+        """An addressed call received ``args`` and ``callee``: the tensors
+        they reach, as arguments or closure leaves, leave ``_fresh``. The
+        call's sub-edit runs unseen (``paused``), so a view it returns of
+        one of them is a view the mode never saw, and a later write into
+        the tensor must degrade."""
+        def forget(t: torch.Tensor) -> bool:
+            self._fresh.pop(id(t), None)
             return False
-        seen.add(id(obj))
-        walk = functools.partial(self.captures_changed, depth=depth + 1, seen=seen)
-        if isinstance(obj, types.FunctionType):
-            cells = []
-            for cell in obj.__closure__ or ():
-                try:
-                    cells.append(cell.cell_contents)
-                except ValueError:  # an empty cell
-                    pass
-            return any(walk(c) for c in cells) or any(walk(d) for d in obj.__defaults__ or ())
-        if isinstance(obj, types.MethodType):
-            return walk(obj.__self__) or walk(obj.__func__)
-        if isinstance(obj, functools.partial):
-            return walk(obj.func) or any(walk(a) for a in obj.args) or any(walk(v) for v in obj.keywords.values())
-        if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
-            return any(walk(getattr(obj, f.name, None)) for f in dataclasses.fields(obj))
-        if isinstance(obj, (tuple, list, set, frozenset)):
-            return any(walk(x) for x in obj)
-        if isinstance(obj, dict):
-            return any(walk(x) for x in obj.values())
-        return True
+
+        for t in _tensors(args):
+            forget(t)
+        _reach(callee, forget)
 
     def paused(self) -> "_Paused":
         """Run torch ops unseen by the mode (an addressed call's sub-edit):

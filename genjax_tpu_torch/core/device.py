@@ -61,3 +61,24 @@ def to_device(tree: Any, device: torch.device) -> Any:
     """``tree`` with its tensor leaves on ``device``; other leaves as they
     are."""
     return pytree.tree_map(lambda v: v.to(device) if isinstance(v, torch.Tensor) else v, tree)
+
+
+_MASK64 = 2**64 - 1
+
+
+def stream_seed(base: int, s: int) -> int:
+    """The seed of stream ``s`` of a run whose base seed is ``base``:
+    splitmix64 of ``(base, s)``. A draw's stream in ``sample_posterior``
+    (so that where a run is cut into segments changes nothing any draw
+    consumes) and a rank's stream in the scale-out layer are both this.
+    Every bit depends on both, the low 32 bits too, which are all that a
+    CPU generator keeps of a seed."""
+    x = (((base << 32) | s) + 0x9E3779B97F4A7C15) & _MASK64
+    x = ((x ^ (x >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
+    x = ((x ^ (x >> 27)) * 0x94D049BB133111EB) & _MASK64
+    return x ^ (x >> 31)
+
+
+def int_seed(gen: torch.Generator) -> int:
+    """An int seed in ``[0, 2**30)`` drawn from ``gen``: one host read."""
+    return int(torch.randint(0, 2**30, (), generator=gen, device=gen.device))

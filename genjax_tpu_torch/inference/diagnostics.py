@@ -10,6 +10,12 @@ One deviation from the reference (``ROADMAP.md`` queue 3): ``ess(...,
 return_tau=True)`` returns a flag ``truncated`` that is True when the lag
 budget cut the Geyer sum short, which is what its name says; the reference's
 flag of that name is True in the opposite case.
+
+With ``mesh`` (a ``parallel.Mesh``), the chains are sharded over its
+``axis``: each rank passes its own chains, and the reductions over chains
+(the mean and variance of the chain means, the within-chain variance, the
+autocovariance sums at each lag) are two sums over the axis. Every rank gets
+what one rank computes on the gathered draws.
 """
 
 from __future__ import annotations
@@ -24,7 +30,23 @@ def _split(draws: torch.Tensor) -> torch.Tensor:
     return torch.cat([draws[:, :half], draws[:, half : 2 * half]], dim=0)
 
 
-def split_rhat(draws: torch.Tensor) -> torch.Tensor:
+def _chain_stats(split: torch.Tensor, within: torch.Tensor, extra, mesh, axis: str):
+    """Over every rank's split chains: ``(M, mean of within, mean of the
+    chain means' squared deviations over M - 1, sum of extra over
+    chains)``, in two sums over ``axis``. ``within (m, ...)`` and ``extra
+    (m, L, ...)`` (or None) are per split chain."""
+    m = split.shape[0]
+    big_m = m * mesh.axis_size(axis)
+    means = split.mean(dim=1)
+    first = mesh.all_reduce_sum(torch.stack([within.sum(dim=0), means.sum(dim=0)]), axis) / big_m
+    dev = ((means - first[1]) ** 2).sum(dim=0, keepdim=True)
+    second = dev if extra is None else torch.cat([dev, extra.sum(dim=0)])
+    second = mesh.all_reduce_sum(second, axis)
+    b = second[0] / (big_m - 1) if big_m > 1 else torch.zeros_like(second[0])
+    return big_m, first[0], b, second[1:]
+
+
+def split_rhat(draws: torch.Tensor, *, mesh=None, axis: str = "batch") -> torch.Tensor:
     """Split-chain potential scale reduction factor (Gelman et al., BDA3;
     Vehtari et al. 2021) of ``draws (n_chains, n_draws, ...)``, one value for
     each trailing index. Values near 1 indicate convergence.
@@ -41,12 +63,17 @@ def split_rhat(draws: torch.Tensor) -> torch.Tensor:
     n = split.shape[1]
     if n == 0:  # one draw a chain: no halves to compare
         return torch.full(draws.shape[2:], torch.nan, dtype=draws.dtype, device=draws.device)
-    w = torch.var(split, dim=1, correction=1).mean(dim=0)
-    b = n * torch.var(split.mean(dim=1), dim=0, correction=1)
+    if mesh is None:
+        w = torch.var(split, dim=1, correction=1).mean(dim=0)
+        b = n * torch.var(split.mean(dim=1), dim=0, correction=1)
+    else:
+        _m, w, var_means, _ = _chain_stats(split, torch.var(split, dim=1, correction=1), None, mesh, axis)
+        b = n * var_means
     return torch.sqrt(((n - 1) / n * w + b / n) / w)
 
 
-def ess(draws: torch.Tensor, max_lag: int | None = None, *, return_tau: bool = False):
+def ess(draws: torch.Tensor, max_lag: int | None = None, *, return_tau: bool = False, mesh=None,
+        axis: str = "batch"):
     """Bulk effective sample size (Vehtari et al. 2021) of ``draws
     (n_chains, n_draws, ...)``, one value for each trailing index: split
     chains, autocorrelations over the pooled variance, and Geyer's initial
@@ -73,6 +100,8 @@ def ess(draws: torch.Tensor, max_lag: int | None = None, *, return_tau: bool = F
     zero, where a within-chain normalization would report the most ESS.
     """
     n_chains, n_draws = draws.shape[0], draws.shape[1]
+    if mesh is not None:
+        n_chains *= mesh.axis_size(axis)
     total = float(n_chains * n_draws)
     split = _split(draws) if n_draws // 2 >= 2 else draws
     m, n = split.shape[0], split.shape[1]
@@ -86,19 +115,27 @@ def ess(draws: torch.Tensor, max_lag: int | None = None, *, return_tau: bool = F
         return out
     means = split.mean(dim=1, keepdim=True)
     centered = split - means
-    w = (torch.sum(centered * centered, dim=1) / (n - 1)).mean(dim=0) + 1e-12
-    b_over_n = torch.var(means[:, 0], dim=0, correction=1) if m > 1 else 0.0
-    var_plus = (n - 1) / n * w + b_over_n
 
     # the autocovariance at each lag: the chain rolled back by the lag, the
     # wrapped tail masked off; one lag at a time, so one rolled copy lives
     valid_shape = (1, n) + (1,) * len(event)
     positions = torch.arange(n, device=draws.device).reshape(valid_shape)
-    acovs = []
+    acov_sums = []
     for lag in range(1, max_lag + 1):
         shifted = torch.roll(centered, -lag, dims=1)
         valid = (positions < n - lag).to(centered.dtype)
-        acovs.append((torch.sum(centered * shifted * valid, dim=1) / n).mean(dim=0))
+        acov_sums.append(torch.sum(centered * shifted * valid, dim=1) / n)
+    within = torch.sum(centered * centered, dim=1) / (n - 1)
+    if mesh is None:
+        w = within.mean(dim=0) + 1e-12
+        b_over_n = torch.var(means[:, 0], dim=0, correction=1) if m > 1 else 0.0
+        acovs = [a.mean(dim=0) for a in acov_sums]
+    else:
+        big_m, w, b_over_n, acov_total = _chain_stats(split, within, torch.stack(acov_sums, dim=1), mesh, axis)
+        w = w + 1e-12
+        acovs = list(acov_total / big_m)
+    var_plus = (n - 1) / n * w + b_over_n
+
     rhos = 1.0 - (w - torch.stack(acovs)) / var_plus
     # Geyer: sum consecutive pairs while they stay positive
     n_pairs = max_lag // 2

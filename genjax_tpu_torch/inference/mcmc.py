@@ -23,7 +23,7 @@ from typing import Any, Callable
 import torch
 import torch.utils._pytree as pytree
 
-from ..core.device import entry_device
+from ..core.device import entry_device, int_seed
 from ..core.pytree import Pytree
 from ..generative.choice_map import ChoiceMap, StaticChm, ValueChm
 from ..generative.concepts import EditRequest, Regenerate
@@ -147,9 +147,8 @@ class _KernelView:
         self.body, self.packer, self.rows = body, packer, packer.row_map(z_offset)
 
 
-def _seed(gen: torch.Generator) -> int:
-    """A sweep's int seed, drawn from ``gen``: one host read."""
-    return int(torch.randint(0, 2**30, (), generator=gen, device=gen.device))
+# a sweep's int seed, drawn from a generator: one host read
+_seed = int_seed
 
 
 class _ColumnSweep:

@@ -26,8 +26,10 @@ algorithms run their sampling in segments and, given ``checkpoint_dir``,
 save the whole sampler state after the warmup and after every segment
 (``io.save_segment_state``), so that a call with the same arguments resumes
 where the last one stopped and returns the draws of the uninterrupted run bit
-for bit. Sharding the chains (``mesh=``) is not ported yet and raises
-``NotImplementedError`` naming its ``ROADMAP.md`` item.
+for bit. Each save writes the state the next segment starts from and that
+segment's draws once, beside the earlier segments' (the reference rewrites
+every draw so far at each save). ``mesh=`` shards the chains of every
+algorithm over the ranks of a mesh axis.
 """
 
 from __future__ import annotations
@@ -38,14 +40,14 @@ from typing import Any
 import torch
 import torch.utils._pytree as pytree
 
-from ..core.device import entry_device, to_device
+from ..core.device import entry_device, stream_seed, to_device
 from ..core.diff import Diff
 from ..core.pytree import Pytree
 from ..generative.choice_map import ChoiceMap
 from ..generative.gfi import GenerativeFunction
 from ..generative.mask import Mask
 from ..generative.selection import Selection
-from ..io import check_meta_matches, load_segment_state, save_segment_state
+from ..io import check_meta_matches, load_increments, load_segment_state, save_segment_state
 from ..kernels.adaptation import cross_chain_inv_mass, multiplicative_nudge, windowed_warmup
 from ..kernels.chees import chees_hmc
 from ..kernels.dense_mass import hmc_sweep_dense_cols, warmup_column_dense
@@ -53,6 +55,7 @@ from ..kernels.hmc import pallas_hmc
 from ..kernels.model_interface import ColumnPacker, column_logdensity, init_columns
 from ..kernels.nuts import nuts_sweep_cols
 from ..kernels.pt import geometric_ladder, pt_hmc
+from ..parallel.mesh import local_count, mesh_generators
 from .diagnostics import ess, split_rhat
 from .mcmc import _ColumnSweep, _seed, generator_on, mh
 from .requests.grad_view import column_view, split_ravel
@@ -99,10 +102,12 @@ class PosteriorSamples(Pytree):
         return self._read(self.ess, addr)
 
 
-def _column_diagnostics(draws: torch.Tensor, n_samples: int):
+def _column_diagnostics(draws: torch.Tensor, n_samples: int, mesh=None, axis: str = "batch"):
     """Split-R̂ and bulk ESS of each dimension of ``draws (chains, samples,
-    dim)``: the one place the diagnostics' lag budget lives."""
-    return split_rhat(draws), ess(draws, max_lag=min(n_samples - 1, 64))
+    dim)`` (every rank's chains, with ``mesh``): the one place the
+    diagnostics' lag budget lives."""
+    return (split_rhat(draws, mesh=mesh, axis=axis),
+            ess(draws, max_lag=min(n_samples - 1, 64), mesh=mesh, axis=axis))
 
 
 def _windows(n_warmup: int) -> list[int]:
@@ -154,11 +159,13 @@ def _trace_step(gen, selection: Selection, algorithm: str, *, L: int, max_depth:
     return step
 
 
-def _warm(step, traces, selection: Selection, *, n_warmup: int, eps0, target_accept: float):
+def _warm(step, traces, selection: Selection, *, n_warmup: int, eps0, target_accept: float, mesh=None,
+          axis: str = "batch"):
     """The trace path's warmup: each window runs its transitions at the
     current settings, nudges ``eps`` toward ``target_accept`` by the
     window's mean accept, and takes the inverse mass from the cross-chain
-    variance of the raveled selected choices. ``eps`` stays on the device."""
+    variance of the raveled selected choices (over every rank's chains
+    with ``mesh``). ``eps`` stays on the device."""
     z = _positions(traces, selection)
     eps = torch.tensor(eps0, dtype=torch.float32, device=z.device)
     inv_mass = torch.ones(z.shape[1], device=z.device)
@@ -167,26 +174,19 @@ def _warm(step, traces, selection: Selection, *, n_warmup: int, eps0, target_acc
         for _ in range(n_steps):
             traces, acc, _div = step(traces, eps, inv_mass)
             accs.append(acc)
-        eps = multiplicative_nudge(eps, torch.stack(accs).mean(), target_accept=target_accept)
-        inv_mass = cross_chain_inv_mass(_positions(traces, selection), chain_axis=0)
+        acc = torch.stack(accs).mean()
+        if mesh is not None:
+            acc = mesh.all_reduce_mean(acc, axis)
+        eps = multiplicative_nudge(eps, acc, target_accept=target_accept)
+        inv_mass = cross_chain_inv_mass(_positions(traces, selection), chain_axis=0, mesh=mesh, axis=axis)
     return traces, eps, inv_mass
 
 
-_MASK64 = 2**64 - 1
 # the stream index of ``hmc_sweep``'s padding rows, past every draw's
 _PAD_STREAM = 2**32 - 1
-
-
-def _draw_seed(base: int, s: int) -> int:
-    """The seed of draw ``s``'s random stream: splitmix64 of ``(base, s)``,
-    a function of the run's base seed and the draw's index alone, so that
-    where the run is cut into segments does not change what any draw
-    consumes. Every bit depends on both, the low 32 bits too, which are all
-    that a CPU generator keeps of a seed."""
-    x = (((base << 32) | s) + 0x9E3779B97F4A7C15) & _MASK64
-    x = ((x ^ (x >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
-    x = ((x ^ (x >> 27)) * 0x94D049BB133111EB) & _MASK64
-    return x ^ (x >> 31)
+# the seed of draw ``s``'s stream: a function of the run's base seed and the
+# draw's index alone, so that where a run is cut changes no draw
+_draw_seed = stream_seed
 
 
 def _sweep_seed(base: int, s: int) -> int:
@@ -216,12 +216,13 @@ def _draw(step, draw_gen: torch.Generator, traces, selection: Selection, *, lo: 
 
 
 def _warm_sweep(gen, traces, selection: Selection, *, n_warmup: int, eps0, L: int,
-                target_accept: float, backend: str):
+                target_accept: float, backend: str, mesh=None, axis: str = "batch"):
     """``"hmc_sweep"``'s warmup on one column block: one sweep (on the card
     one K1 launch) per window, the window's accept nudging ``eps`` (read to
     the host once a window, as the launch takes it) and the block's
     cross-chain variance giving the inverse mass; the traces are rebuilt
-    once at the end."""
+    once at the end. With ``mesh``, the accept and the mass are those of
+    every rank's chains."""
     run = _ColumnSweep(traces, selection, 0, backend, "sample_posterior")
     eps = torch.tensor(eps0, dtype=torch.float32, device=run.z.device)
     inv_mass = torch.ones(run.z.shape[0], device=run.z.device)
@@ -233,8 +234,10 @@ def _warm_sweep(gen, traces, selection: Selection, *, n_warmup: int, eps0, L: in
     for wi, n_steps in enumerate(windows):
         q, acc = run.sweep(pallas_hmc, q, seed + wi, run.inv_mass(inv_mass), n_steps=n_steps,
                            eps=float(eps), L=L)
+        if mesh is not None:
+            acc = mesh.all_reduce_mean(acc, axis)
         eps = multiplicative_nudge(eps, acc, target_accept=target_accept)
-        inv_mass = cross_chain_inv_mass(run.finish(q), chain_axis=1)
+        inv_mass = cross_chain_inv_mass(run.finish(q), chain_axis=1, mesh=mesh, axis=axis)
     return run.write_back(run.finish(q), gen), eps, inv_mass
 
 
@@ -271,15 +274,20 @@ def _unraveler(traces, selection: Selection):
     return lambda z: rebuild(z, nongrad_fill=lambda _leaf: None)
 
 
-def _finish_trace_result(traces, draws, accs, divs, selection: Selection, eps, inv_mass):
+def _finish_trace_result(traces, draws, accs, divs, selection: Selection, eps, inv_mass, mesh=None,
+                         axis: str = "batch"):
     """Diagnostics of ``draws (N, n_samples, d)``, and the draws and
-    diagnostics mapped back onto the selection's addresses."""
+    diagnostics mapped back onto the selection's addresses. With ``mesh``,
+    ``draws`` are this rank's chains, and the diagnostics and rates are
+    those of every rank's."""
     if draws.shape[1] == 0:
         raise ValueError(
             "no sampling segments ran (max_segments=0 on a fresh run?) — nothing to return; run at "
             "least one segment"
         )
-    rhat, ess_ = _column_diagnostics(draws, draws.shape[1])
+    rhat, ess_ = _column_diagnostics(draws, draws.shape[1], mesh, axis)
+    if mesh is not None:
+        accs, divs = mesh.all_reduce_mean(torch.stack([accs, divs]), axis)
     unravel = _unraveler(traces, selection)
     return PosteriorSamples(
         positions=unravel(draws),
@@ -301,55 +309,53 @@ def _state_hash(gen: torch.Generator) -> str:
     return hashlib.sha256(gen.get_state().numpy().tobytes()).hexdigest()[:16]
 
 
-def _save_sampler_state(checkpoint_dir, traces, eps, inv_mass, base: int, gen_state, draws, accs, divs,
-                        next_segment: int, *, run_identity: dict):
-    """Checkpoint the whole sampler state through the crash-safe segmented
-    save (``io.save_segment_state``): the traces, the adapted ``eps`` and
-    ``inv_mass``, the draws, accepts and divergences so far, the base seed
-    of the draws' streams and the caller's generator's state after it was
-    drawn. The meta records the run identity, so that a resume with other
-    dynamics is refused."""
+def _save_sampler_state(checkpoint_dir, traces, eps, inv_mass, base: int, gen_state, increment,
+                        next_segment: int, n_done: int, *, run_identity: dict, group=None):
+    """Checkpoint the sampler through the crash-safe segmented save
+    (``io.save_segment_state``): the state the next segment starts from (the
+    traces, the adapted ``eps`` and ``inv_mass``, the base seed of the
+    draws' streams and the caller's generator's state after it was drawn),
+    and ``increment``, the last segment's draws, accepts and divergences
+    (None after the warmup), saved once beside it. The meta records the run
+    identity, so that a resume with other dynamics is refused."""
     state = {"traces": traces, "eps": eps, "inv_mass": inv_mass, "base": torch.tensor(base),
              "gen_state": gen_state}
-    n_done = int(draws.shape[1])
-    if n_done:
-        state.update(draws=draws, accs=accs, divs=divs)
-    meta = {"next_segment": int(next_segment), "n_done": n_done, "d": int(inv_mass.shape[0]), **run_identity}
-    save_segment_state(checkpoint_dir, state, meta)
+    meta = {"next_segment": int(next_segment), "n_done": int(n_done), "d": int(inv_mass.shape[0]),
+            **run_identity}
+    save_segment_state(checkpoint_dir, state, meta, increment=increment, group=group)
 
 
-def _restore_sampler_state(checkpoint_dir, template_traces, gen: torch.Generator, *, run_identity: dict):
+def _restore_sampler_state(checkpoint_dir, template_traces, gen: torch.Generator, bounds: list, n_local: int, *,
+                           run_identity: dict, group=None):
     """The resume point: None where there is no checkpoint, else ``(traces,
-    eps, inv_mass, base, draws, accs, divs, next_segment)``, with ``gen``
-    set to the state it had when the checkpointed run drew ``base``. A
-    checkpoint of another run is refused. The template's traces are the
-    run's init program executed, so their structure is the run's."""
+    eps, inv_mass, base, increments, next_segment)``, ``increments`` the
+    saved segments' ``(draws, accs, divs)`` in order, with ``gen`` set to
+    the state it had when the checkpointed run drew ``base``. A checkpoint
+    of another run is refused. The template's traces are the run's init
+    program executed, so their structure is the run's."""
+    device = next(v for v in pytree.tree_leaves(template_traces) if isinstance(v, torch.Tensor)).device
 
     def make_template(meta):
         check_meta_matches(checkpoint_dir, meta, run_identity)
-        n_done, d = meta["n_done"], meta["d"]
-        device = next(v for v in pytree.tree_leaves(template_traces) if isinstance(v, torch.Tensor)).device
-        template = {"traces": template_traces, "eps": torch.zeros((), device=device),
-                    "inv_mass": torch.zeros(d, device=device), "base": torch.tensor(0),
-                    "gen_state": torch.zeros_like(gen.get_state())}
-        if n_done:
-            n_chains = run_identity["n_chains"]
-            template.update(draws=torch.zeros((n_chains, n_done, d), device=device),
-                            accs=torch.zeros(n_done, device=device), divs=torch.zeros(n_done, device=device))
-        return template
+        return {"traces": template_traces, "eps": torch.zeros((), device=device),
+                "inv_mass": torch.zeros(meta["d"], device=device), "base": torch.tensor(0),
+                "gen_state": torch.zeros_like(gen.get_state())}
 
-    out = load_segment_state(checkpoint_dir, make_template)
+    out = load_segment_state(checkpoint_dir, make_template, group=group)
     if out is None:
         return None
     state, meta = out
     gen.set_state(state["gen_state"])
-    empty = state["eps"].new_zeros(0)
     d = meta["d"]
-    return (
-        state["traces"], state["eps"], state["inv_mass"], int(state["base"]),
-        state.get("draws", state["eps"].new_zeros((run_identity["n_chains"], 0, d))),
-        state.get("accs", empty), state.get("divs", empty), meta["next_segment"],
-    )
+
+    def increment_template(si):
+        rows = bounds[si][1] - bounds[si][0]
+        return {"draws": torch.zeros((n_local, rows, d), device=device), "accs": torch.zeros(rows, device=device),
+                "divs": torch.zeros(rows, device=device)}
+
+    increments = load_increments(checkpoint_dir, meta["next_segment"], increment_template, group=group)
+    return (state["traces"], state["eps"], state["inv_mass"], int(state["base"]),
+            [(i["draws"], i["accs"], i["divs"]) for i in increments], meta["next_segment"])
 
 
 # ----------------------------------------------------------------------
@@ -395,14 +401,15 @@ def _column_prep(gen, model, constraint, args, selection: Selection, n_chains: i
 
 
 def _column_result(draws_all, packer: ColumnPacker, n_samples: int, thin: int, *, accept_rate,
-                   divergence_rate, eps, inv_mass) -> PosteriorSamples:
+                   divergence_rate, eps, inv_mass, mesh=None, axis: str = "batch") -> PosteriorSamples:
     """The column drivers' results: every ``thin``-th of the collected
     ``(n_steps, padded_dim, N)`` draws unpacked per chain, and split-R̂/ESS
-    over the real (unpadded) rows mapped onto the selection's addresses."""
+    over the real (unpadded) rows (every rank's chains, with ``mesh``)
+    mapped onto the selection's addresses."""
     draws = draws_all[thin - 1 :: thin]  # (n_samples, padded_dim, N)
     unpack = torch.func.vmap(torch.func.vmap(packer.unpack))
     positions = unpack(draws.permute(2, 0, 1))  # (N, n_samples, ...) a leaf
-    rhat, ess_ = _column_diagnostics(draws[:, : packer.dim, :].permute(2, 0, 1), n_samples)
+    rhat, ess_ = _column_diagnostics(draws[:, : packer.dim, :].permute(2, 0, 1), n_samples, mesh, axis)
     pad = packer.padded_dim - packer.dim
 
     def unflatten(flat):
@@ -419,18 +426,21 @@ def _column_result(draws_all, packer: ColumnPacker, n_samples: int, thin: int, *
     )
 
 
-def _sample_chees(gen, packer, ld, q0, *, n_warmup, n_samples, thin, eps0, target_accept):
+def _sample_chees(gen, packer, ld, q0, *, n_warmup, n_samples, thin, eps0, target_accept, mesh=None,
+                  axis="batch"):
     _q, info = chees_hmc(
         ld, q0, gen, n_warmup=n_warmup, n_steps=n_samples * thin, eps0=eps0,
-        target_accept=target_accept, collect=True,
+        target_accept=target_accept, collect=True, mesh=mesh, axis=axis,
     )
     return _column_result(
         info.draws, packer, n_samples, thin, accept_rate=info.accept_rate,
         divergence_rate=info.divergence_rate, eps=info.eps, inv_mass=info.inv_mass[: packer.dim],
+        mesh=mesh, axis=axis,
     )
 
 
-def _sample_dense(gen, packer, ld, q0, *, n_warmup, n_samples, thin, eps0, L, target_accept):
+def _sample_dense(gen, packer, ld, q0, *, n_warmup, n_samples, thin, eps0, L, target_accept, mesh=None,
+                  axis="batch"):
     """The dense metric: up to 6 warmup phases and a remainder sweep,
     totalling exactly ``n_warmup`` transitions (``n_warmup=0`` keeps
     ``eps0`` and the identity metric). NaN trajectories are rejections, so
@@ -441,25 +451,27 @@ def _sample_dense(gen, packer, ld, q0, *, n_warmup, n_samples, thin, eps0, L, ta
         leftover = n_warmup - n_phases * steps_per_phase
         q0, eps, cov_chol = warmup_column_dense(
             ld, q0, gen, n_phases=n_phases, steps_per_phase=steps_per_phase, eps0=eps0, L=L,
-            target_accept=target_accept,
+            target_accept=target_accept, mesh=mesh, axis=axis,
         )
         if leftover:
-            q0, _acc = hmc_sweep_dense_cols(ld, q0, gen, n_steps=leftover, eps=eps, L=L, cov_chol=cov_chol)
+            q0, _acc = hmc_sweep_dense_cols(ld, q0, gen, n_steps=leftover, eps=eps, L=L, cov_chol=cov_chol,
+                                            mesh=mesh, axis=axis)
     else:
         eps = torch.tensor(eps0, dtype=torch.float32, device=q0.device)
         cov_chol = torch.eye(q0.shape[0], device=q0.device)
     _q, accept, draws_all = hmc_sweep_dense_cols(
-        ld, q0, gen, n_steps=n_samples * thin, eps=eps, L=L, cov_chol=cov_chol, collect=True
+        ld, q0, gen, n_steps=n_samples * thin, eps=eps, L=L, cov_chol=cov_chol, collect=True, mesh=mesh,
+        axis=axis,
     )
     return _column_result(
         draws_all, packer, n_samples, thin, accept_rate=accept,
         divergence_rate=torch.zeros((), device=q0.device), eps=eps,
-        inv_mass=torch.diagonal(cov_chol @ cov_chol.T)[: packer.dim],
+        inv_mass=torch.diagonal(cov_chol @ cov_chol.T)[: packer.dim], mesh=mesh, axis=axis,
     )
 
 
 def _sample_dense_nuts(gen, packer, ld, q0, *, n_warmup, n_samples, thin, eps0, max_depth,
-                       target_accept):
+                       target_accept, mesh=None, axis="batch"):
     """Dense-metric NUTS by whitening (Stan's dense_e with NUTS): about half
     of ``n_warmup`` estimates the full covariance with dense HMC (L = 5), the
     cloud is whitened, and the rest adapts the white-space NUTS step size
@@ -472,7 +484,7 @@ def _sample_dense_nuts(gen, packer, ld, q0, *, n_warmup, n_samples, thin, eps0, 
         n_phases_a = min(4, n_a)
         q0, _eps_hmc, cov_chol = warmup_column_dense(
             ld, q0, gen, n_phases=n_phases_a, steps_per_phase=max(1, n_a // n_phases_a), eps0=eps0,
-            L=5, target_accept=target_accept,
+            L=5, target_accept=target_accept, mesh=mesh, axis=axis,
         )
         n_b = max(1, n_warmup - n_a)
         n_phases_b = min(6, n_b)
@@ -493,7 +505,7 @@ def _sample_dense_nuts(gen, packer, ld, q0, *, n_warmup, n_samples, thin, eps0, 
             return u, acc
 
         u0, eps_w, inv_mass_w, _accs = windowed_warmup(
-            sweep, u0, n_windows=n_phases_b, eps0=eps0, target_accept=target_accept
+            sweep, u0, n_windows=n_phases_b, eps0=eps0, target_accept=target_accept, mesh=mesh, axis=axis
         )
     else:
         eps_w = torch.tensor(eps0, dtype=torch.float32, device=q0.device)
@@ -503,24 +515,27 @@ def _sample_dense_nuts(gen, packer, ld, q0, *, n_warmup, n_samples, thin, eps0, 
         inv_mass=inv_mass_w, collect=True,
     )
     draws_all = torch.einsum("ij,sjn->sin", cov_chol, draws_u)  # q = L u
+    if mesh is not None:
+        acc, div = mesh.all_reduce_mean(torch.stack([acc, div]), axis)
     return _column_result(
         draws_all, packer, n_samples, thin, accept_rate=acc, divergence_rate=div, eps=eps_w,
-        inv_mass=torch.diagonal(cov_chol @ cov_chol.T)[: packer.dim],
+        inv_mass=torch.diagonal(cov_chol @ cov_chol.T)[: packer.dim], mesh=mesh, axis=axis,
     )
 
 
-def _sample_pt(gen, packer, ld, q0, *, n_warmup, n_samples, thin, eps0, L, target_accept, n_rungs):
+def _sample_pt(gen, packer, ld, q0, *, n_warmup, n_samples, thin, eps0, L, target_accept, n_rungs, mesh=None,
+               axis="batch"):
     """Parallel tempering: draws, ``eps``, ``inv_mass`` and ``accept_rate``
     of the cold rung. Non-finite proposals are rejections, never
     divergences, so ``divergence_rate`` is 0."""
     _q, info = pt_hmc(
         ld, q0, gen, betas=geometric_ladder(n_rungs), n_warmup=n_warmup, n_steps=n_samples * thin,
-        eps0=eps0, L=L, target_accept=target_accept, collect=True,
+        eps0=eps0, L=L, target_accept=target_accept, collect=True, mesh=mesh, axis=axis,
     )
     return _column_result(
         info.draws, packer, n_samples, thin, accept_rate=info.accept_rate[0],
         divergence_rate=torch.zeros((), device=q0.device), eps=info.eps[0],
-        inv_mass=info.inv_mass[0, : packer.dim],
+        inv_mass=info.inv_mass[0, : packer.dim], mesh=mesh, axis=axis,
     )
 
 
@@ -544,6 +559,7 @@ def sample_posterior(
     device="cuda",
     backend: str = "auto",
     mesh=None,
+    axis: str = "batch",
     checkpoint_dir: str | None = None,
     checkpoint_every: int = 0,
     max_segments: int | None = None,
@@ -612,8 +628,19 @@ def sample_posterior(
     none raises. The column algorithms refuse ``checkpoint_dir``
     (``ValueError``).
 
-    Not ported yet: ``mesh`` raises ``NotImplementedError`` naming
-    ``ROADMAP.md`` item 15.
+    ``mesh`` (a ``parallel.Mesh``) shards the chains over its ``axis``,
+    for every algorithm: every rank of the axis calls
+    ``sample_posterior`` alike, with ``gen`` in the same state, and runs its
+    ``n_chains / size`` chains on its device from a stream of its own
+    (``parallel.mesh_generators``); the warmup adapts to every rank's
+    chains, and the diagnostics and rates are every rank's. The draws
+    returned are the rank's chains (``parallel.gather_batch`` rebuilds the
+    whole). On the card, ``"hmc_sweep"`` launches K1 on each rank's shard as
+    often as the unsharded call does. A checkpoint of a sharded run is
+    saved by every rank under ``rank_<r>/`` (``io.save_segment_state``'s
+    ``group``) and resumes bit for bit at the same world size. The column
+    algorithms' adaptation (ChEES's trajectory, the tempered rungs' step
+    sizes, the dense metric) reduces over every rank's chains.
 
     >>> import torch
     >>> import genjax_tpu_torch as g
@@ -639,20 +666,25 @@ def sample_posterior(
             "the column algorithms (chees/pt/dense_hmc/dense_nuts) run warmup and sampling with no segment "
             "boundary to checkpoint at"
         )
-    if mesh is not None:
-        raise NotImplementedError(
-            "sample_posterior(mesh=...): sharding the chain axis comes with the port of "
-            "parallel/ (ROADMAP.md queue 1, item 15)"
-        )
     if n_samples <= 0:
         # before the warmup, which would otherwise run in full first
         raise ValueError(f"n_samples must be >= 1, got {n_samples}")
-    device = entry_device(device, "sample_posterior")
-    gen = generator_on(gen, device, "sample_posterior")
+    if mesh is None:
+        device = entry_device(device, "sample_posterior")
+        gen = generator_on(gen, device, "sample_posterior")
+        n_local = n_chains
+        seed_identity = (int(gen.initial_seed()), _state_hash(gen))
+    else:
+        n_local = local_count(n_chains, mesh, axis, "n_chains")
+        device = mesh.device
+        # the run is named by the caller's generator, alike on every rank
+        shared = generator_on(gen, device, "sample_posterior")
+        seed_identity = (int(shared.initial_seed()), _state_hash(shared))
+        _shared, gen = mesh_generators(shared, mesh, "sample_posterior")
     if algorithm in _COLUMN_ALGORITHMS:
-        packer, ld, q0 = _column_prep(gen, model, constraint, args, selection, n_chains, device)
+        packer, ld, q0 = _column_prep(gen, model, constraint, args, selection, n_local, device)
         kw = dict(n_warmup=n_warmup, n_samples=n_samples, thin=thin, eps0=eps0,
-                  target_accept=target_accept)
+                  target_accept=target_accept, mesh=mesh, axis=axis)
         if algorithm == "chees":
             return _sample_chees(gen, packer, ld, q0, **kw)
         if algorithm == "pt":
@@ -663,43 +695,43 @@ def sample_posterior(
     seg_size = checkpoint_every if (checkpoint_dir is not None and checkpoint_every > 0) else n_samples
     # the whole run identity rides in the checkpoint's meta: a resume with
     # other dynamics (algorithm, step sizes, thin, seed, ...) is refused
-    # rather than mixing two samplers
+    # rather than mixing two samplers; "layout" refuses the checkpoints that
+    # saved every draw so far in each state
     run_identity = {
         "n_samples": int(n_samples), "seg_size": int(seg_size), "n_chains": int(n_chains),
         "n_warmup": int(n_warmup), "thin": int(thin), "algorithm": algorithm, "eps0": float(eps0),
         "L": int(L), "max_depth": int(max_depth), "target_accept": float(target_accept),
-        "seed": int(gen.initial_seed()), "state_hash": _state_hash(gen), "device": device.type,
-        "backend": backend,
+        "seed": seed_identity[0], "state_hash": seed_identity[1], "device": device.type,
+        "backend": backend, "layout": "increments", "world": 1 if mesh is None else mesh.world_size,
     }
-    traces = _init_traces(gen, model, constraint, args, n_chains, device)
+    bounds = [(lo, min(lo + seg_size, n_samples)) for lo in range(0, n_samples, seg_size)]
+    traces = _init_traces(gen, model, constraint, args, n_local, device)
     restored = None
     if checkpoint_dir is not None:
-        restored = _restore_sampler_state(checkpoint_dir, traces, gen, run_identity=run_identity)
+        restored = _restore_sampler_state(checkpoint_dir, traces, gen, bounds, n_local, run_identity=run_identity,
+                                          group=mesh)
     if restored is not None:
-        traces, eps, inv_mass, base, draws, accs, divs, start_seg = restored
+        traces, eps, inv_mass, base, parts, start_seg = restored
     else:
         if algorithm == "hmc_sweep":
             traces, eps, inv_mass = _warm_sweep(
                 gen, traces, selection, n_warmup=n_warmup, eps0=eps0, L=L,
-                target_accept=target_accept, backend=backend,
+                target_accept=target_accept, backend=backend, mesh=mesh, axis=axis,
             )
         else:
             traces, eps, inv_mass = _warm(
                 _trace_step(gen, selection, algorithm, L=L, max_depth=max_depth), traces, selection,
-                n_warmup=n_warmup, eps0=eps0, target_accept=target_accept,
+                n_warmup=n_warmup, eps0=eps0, target_accept=target_accept, mesh=mesh, axis=axis,
             )
         # every draw's stream is seeded from this and its index alone
         base = _seed(gen)
-        draws = eps.new_zeros((n_chains, 0, inv_mass.shape[0]))
-        accs, divs = eps.new_zeros(0), eps.new_zeros(0)
-        start_seg = 0
+        parts, start_seg = [], 0
         if checkpoint_dir is not None:
-            _save_sampler_state(checkpoint_dir, traces, eps, inv_mass, base, gen.get_state(), draws, accs, divs,
-                                0, run_identity=run_identity)
+            _save_sampler_state(checkpoint_dir, traces, eps, inv_mass, base, gen.get_state(), None, 0, 0,
+                                run_identity=run_identity, group=mesh)
     gen_state = gen.get_state()
     draw_gen = torch.Generator(device=device)
     step = _trace_step(draw_gen, selection, algorithm, L=L, max_depth=max_depth)
-    bounds = [(lo, min(lo + seg_size, n_samples)) for lo in range(0, n_samples, seg_size)]
     for si in range(start_seg, len(bounds)):
         if max_segments is not None and si - start_seg >= max_segments:
             break
@@ -715,11 +747,17 @@ def sample_posterior(
                 step, draw_gen, traces, selection, lo=lo, hi=hi, base=base, thin=thin, eps=eps,
                 inv_mass=inv_mass,
             )
-        draws, accs, divs = torch.cat([draws, d_i], dim=1), torch.cat([accs, a_i]), torch.cat([divs, v_i])
+        parts.append((d_i, a_i, v_i))
         if checkpoint_dir is not None:
-            _save_sampler_state(checkpoint_dir, traces, eps, inv_mass, base, gen_state, draws, accs, divs,
-                                si + 1, run_identity=run_identity)
-    return _finish_trace_result(traces, draws, accs, divs, selection, eps, inv_mass)
+            _save_sampler_state(checkpoint_dir, traces, eps, inv_mass, base, gen_state,
+                                {"draws": d_i, "accs": a_i, "divs": v_i}, si + 1, hi,
+                                run_identity=run_identity, group=mesh)
+    if parts:
+        draws, accs, divs = (torch.cat(x, dim=dim) for x, dim in zip(zip(*parts), (1, 0, 0)))
+    else:
+        draws = eps.new_zeros((n_local, 0, inv_mass.shape[0]))
+        accs = divs = eps.new_zeros(0)
+    return _finish_trace_result(traces, draws, accs, divs, selection, eps, inv_mass, mesh, axis)
 
 
 @Pytree.dataclass

@@ -30,8 +30,10 @@ Deviations from the reference, results alike in law:
   splits keys; ``theta_sample`` takes that generator.
 
 The run makes its particles on ``device``, the card unless the caller asks
-for the CPU. ``mesh=`` waits for the scale-out port (``ROADMAP.md`` item
-15).
+for the CPU. ``mesh=`` shards the parameter particles (and each one's inner
+filter) over a mesh axis: every rank runs its share, the parameter ESS and
+normalizer are two collectives a step, and the parameter resample is exact
+and global (``collective_resample(mode="all_gather")``).
 """
 
 from __future__ import annotations
@@ -46,7 +48,15 @@ from ..core.device import entry_generator, to_device
 from ..core.pytree import Pytree
 from ..generative.choice_map import ChoiceMap
 from ..generative.gfi import GenerativeFunction
-from ..parallel.resampling import _systematic_counts, effective_sample_size, systematic_indices
+from ..parallel.mesh import local_count, mesh_generators
+from ..parallel.resampling import (
+    _systematic_counts,
+    collective_log_normalizer,
+    collective_resample,
+    collective_weight_stats,
+    effective_sample_size,
+    systematic_indices,
+)
 
 
 @Pytree.dataclass
@@ -112,14 +122,20 @@ def smc2(
             number, or a pytree matching theta).
         n_rejuv: PMMH exchange moves per rejuvenation.
         n_steps: the horizon when ``xs`` has no tensor leaves.
-        mesh, axis: sharding the parameter axis is not ported yet.
+        mesh, axis: a ``parallel.Mesh`` shards the ``n_theta`` parameter
+            particles over its ``axis``: every rank calls ``smc2`` alike,
+            ``gen`` in the same state, runs its share from a stream of its
+            own on its device, and gets its particles and log weights (the
+            weights normalised over every rank's) with the global log
+            evidence, ESS history and acceptance.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "smc2(mesh=...): sharding the parameter axis comes with the port of parallel/ "
-            "(ROADMAP.md queue 1, item 15)"
-        )
-    gen, device = entry_generator(gen, device, "smc2")
+    if mesh is None:
+        gen, device = entry_generator(gen, device, "smc2")
+        n_local = n_theta
+    else:
+        n_local = local_count(n_theta, mesh, axis, "n_theta")
+        shared, gen = mesh_generators(gen, mesh, "smc2")
+        device = mesh.device
     xs, constraint, init_carry = to_device((xs, constraint, init_carry), device)
     t_leaves = [v for v in pytree.tree_leaves(xs) if isinstance(v, torch.Tensor)]
     if t_leaves:
@@ -129,7 +145,7 @@ def smc2(
     else:
         raise ValueError("smc2: xs is None/empty — pass n_steps.")
 
-    thetas = _vmap(lambda _: theta_sample(gen))(torch.zeros(n_theta, device=device))
+    thetas = _vmap(lambda _: theta_sample(gen))(torch.zeros(n_local, device=device))
     theta_leaves = pytree.tree_leaves(thetas)
     # a number is shared by every leaf, else a pytree matching theta
     scale_leaves = [rw_scales] * len(theta_leaves) if isinstance(rw_scales, (int, float)) else \
@@ -176,8 +192,8 @@ def smc2(
     def pf_full(thetas, t_now):
         """A fresh filter for every parameter over ``y_0 .. y_t_now``: the
         final particles and ``log p-hat(y_0..t_now | theta)``."""
-        zss = broadcast_z((n_theta, n_x))
-        log_z = torch.zeros(n_theta, device=device)
+        zss = broadcast_z((n_local, n_x))
+        log_z = torch.zeros(n_local, device=device)
         for s in range(t_now + 1):
             zss, inc = pf_step(thetas, zss, s)
             log_z = log_z + inc
@@ -199,7 +215,7 @@ def smc2(
             lps_new = log_prior(props)
             zss_new, lzs_new = pf_full(props, t_now)
             log_alpha = (lps_new + lzs_new) - (lps + log_zs)
-            accept = torch.log(torch.rand(n_theta, generator=gen, device=device)) < log_alpha
+            accept = torch.log(torch.rand(n_local, generator=gen, device=device)) < log_alpha
             pick = lambda a, b: torch.where(_rows(accept, a), a, b)  # noqa: E731
             thetas = pytree.tree_map(pick, props, thetas)
             zss = pytree.tree_map(pick, zss_new, zss)
@@ -208,9 +224,9 @@ def smc2(
             n_acc = n_acc + accept.to(torch.float32).mean()
         return thetas, zss, log_zs, n_acc / n_rejuv
 
-    zss = broadcast_z((n_theta, n_x))
-    omega = torch.zeros(n_theta, device=device)
-    log_zs = torch.zeros(n_theta, device=device)
+    zss = broadcast_z((n_local, n_x))
+    omega = torch.zeros(n_local, device=device)
+    log_zs = torch.zeros(n_local, device=device)
     log_ev = torch.zeros((), device=device)
     acc_sum = torch.zeros((), device=device)
     n_rejuvs = 0
@@ -219,20 +235,34 @@ def smc2(
         zss, incs = pf_step(thetas, zss, t)
         omega = omega + incs
         log_zs = log_zs + incs
-        ess = effective_sample_size(omega)
+        if mesh is None:
+            ess = effective_sample_size(omega)
+        else:
+            ess, log_z_inc = collective_weight_stats(omega, mesh, axis)
         ess_hist.append(ess)
         if bool(ess < ess_threshold * n_theta):
-            log_ev = log_ev + torch.logsumexp(omega, dim=0) - math.log(n_theta)
-            idx = systematic_indices(gen, omega, n_theta)
-            thetas, zss, log_zs = _take((thetas, zss, log_zs), idx)
+            if mesh is None:
+                log_ev = log_ev + torch.logsumexp(omega, dim=0) - math.log(n_theta)
+                idx = systematic_indices(gen, omega, n_theta)
+                thetas, zss, log_zs = _take((thetas, zss, log_zs), idx)
+            else:
+                (thetas, zss, log_zs), _, inc = collective_resample(
+                    shared, (thetas, zss, log_zs), omega, mesh, axis, mode="all_gather", log_z_inc=log_z_inc
+                )
+                log_ev = log_ev + inc
             thetas, zss, log_zs, acc = rejuvenate(thetas, zss, log_zs, t)
-            omega = torch.zeros(n_theta, device=device)
+            omega = torch.zeros(n_local, device=device)
             acc_sum = acc_sum + acc
             n_rejuvs += 1
+    if mesh is None:
+        log_total = torch.logsumexp(omega, dim=0)
+    else:
+        log_total = collective_log_normalizer(omega, mesh, axis) + math.log(n_theta)
+        acc_sum = mesh.all_reduce_mean(acc_sum, axis)
     return SMC2Result(
         thetas=thetas,
-        log_weights=omega - torch.logsumexp(omega, dim=0),
-        log_evidence=log_ev + torch.logsumexp(omega, dim=0) - math.log(n_theta),
+        log_weights=omega - log_total,
+        log_evidence=log_ev + log_total - math.log(n_theta),
         ess_history=torch.stack(ess_hist),
         rejuv_accept_rate=acc_sum / max(n_rejuvs, 1),
     )

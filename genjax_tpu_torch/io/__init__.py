@@ -7,6 +7,7 @@ into the structure of a template rebuilt from code.
 
 from .checkpoint import (
     check_meta_matches,
+    load_increments,
     load_segment_state,
     restore_pytree,
     save_pytree,
@@ -15,6 +16,7 @@ from .checkpoint import (
 
 __all__ = [
     "check_meta_matches",
+    "load_increments",
     "load_segment_state",
     "restore_pytree",
     "save_pytree",

@@ -76,11 +76,28 @@ def multiplicative_nudge(eps, accept_rate, *, target_accept: float = 0.8, rate: 
     return _f32(eps) * torch.exp(rate * (_f32(accept_rate) - target_accept))
 
 
-def cross_chain_inv_mass(q: torch.Tensor, *, chain_axis: int = 1, floor: float = 1e-6):
+def chain_mean(x: torch.Tensor, dim: int, *, mesh=None, axis: str = "batch", keepdim: bool = False):
+    """The mean of ``x`` over its chain dimension ``dim``: with ``mesh`` (a
+    ``parallel.Mesh``), over every rank's chains along ``axis``, which hold
+    equal shares (one sum)."""
+    m = x.mean(dim=dim, keepdim=keepdim)
+    return m if mesh is None else mesh.all_reduce_mean(m, axis)
+
+
+def cross_chain_inv_mass(q: torch.Tensor, *, chain_axis: int = 1, floor: float = 1e-6, mesh=None,
+                         axis: str = "batch"):
     """Diagonal inverse mass from the cross-chain (population) variance of
     one time slice; padding dimensions (zero variance) are floored so their
-    momenta stay finite."""
-    var = torch.var(q, dim=chain_axis, correction=0)
+    momenta stay finite. With ``mesh`` (a ``parallel.Mesh``), the chains are
+    sharded over its ``axis`` and the variance is that of every rank's
+    chains: the global mean in one sum, then the squared deviations in a
+    second."""
+    if mesh is None:
+        var = torch.var(q, dim=chain_axis, correction=0)
+    else:
+        n = q.shape[chain_axis] * mesh.axis_size(axis)
+        mean = mesh.all_reduce_sum(q.sum(dim=chain_axis, keepdim=True), axis) / n
+        var = mesh.all_reduce_sum(((q - mean) ** 2).sum(dim=chain_axis), axis) / n
     return torch.maximum(var, torch.tensor(floor, dtype=var.dtype, device=var.device))
 
 
@@ -93,6 +110,8 @@ def windowed_warmup(
     target_accept: float = 0.8,
     chain_axis: int = 1,
     nudge_rate: float = 1.5,
+    mesh=None,
+    axis: str = "batch",
 ):
     """Windowed warmup: per window, run ``sweep(q, window_index, eps,
     inv_mass) -> (q, accept_rate)``, nudge the step size toward
@@ -103,6 +122,11 @@ def windowed_warmup(
     windows that keeps ``q`` and ``inv_mass`` on their device. The sweep
     kernels take ``eps`` as a launch argument, so ``sweep`` gets it as a
     Python float: one host read of ``eps`` per window.
+
+    With ``mesh`` (a ``parallel.Mesh``), ``q`` is this rank's shard of
+    chains sharded over its ``axis``, and the window's accept rate and the
+    inverse mass are those of every rank's chains (the mean accept in one
+    sum, the variance in two): every rank adapts to the same settings.
 
     Returns ``(q, eps, inv_mass, accept_history)``, ``eps`` a float32 scalar
     tensor and ``accept_history`` of shape ``(n_windows,)``.
@@ -115,8 +139,10 @@ def windowed_warmup(
     for idx in range(n_windows):
         q, acc = sweep(q, idx, float(eps), inv_mass)
         acc = _f32(acc).to(q0.device)
+        if mesh is not None:
+            acc = mesh.all_reduce_mean(acc, axis)
         eps = multiplicative_nudge(eps, acc, target_accept=target_accept, rate=nudge_rate)
-        inv_mass = cross_chain_inv_mass(q, chain_axis=chain_axis)
+        inv_mass = cross_chain_inv_mass(q, chain_axis=chain_axis, mesh=mesh, axis=axis)
         accs.append(acc)
     return q, eps, inv_mass, torch.stack(accs) if accs else torch.zeros(0, device=q0.device)
 

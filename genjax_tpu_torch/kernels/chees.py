@@ -31,7 +31,7 @@ from typing import Any, Callable
 import torch
 
 from ..core.device import chain_generator
-from .adaptation import StepSizeAdaptState, _f32, _halton2, cross_chain_inv_mass, dual_averaging_update
+from .adaptation import StepSizeAdaptState, _f32, _halton2, chain_mean, cross_chain_inv_mass, dual_averaging_update
 from .hmc import _lp_grad
 
 
@@ -78,6 +78,8 @@ def chees_hmc(
     inv_mass: Any | None = None,
     adapt_mass: bool = True,
     collect: bool = False,
+    mesh=None,
+    axis: str = "batch",
 ):
     """ChEES-adaptive HMC on ``N`` column-layout chains, on ``q0``'s device.
 
@@ -87,7 +89,10 @@ def chees_hmc(
     length and (with ``adapt_mass``) the diagonal inverse mass; ``n_warmup=0``
     runs at ``eps0``, ``t0`` and ``inv_mass`` as given. ``n_steps`` sampling
     sweeps follow at the adapted settings, the jitter still on; ``collect``
-    records their positions in ``info.draws``.
+    records their positions in ``info.draws``. With ``mesh`` (a
+    ``parallel.Mesh``), ``q0`` is this rank's share of chains sharded over
+    its ``axis``: the cross-chain means and sums of the adaptation and the
+    reported rates are every rank's, so every rank adapts alike.
 
     Returns ``(q_final, ChEESInfo)``.
     """
@@ -136,19 +141,22 @@ def chees_hmc(
         ok = ~diverged
         q1s = torch.where(ok, q1, q)
         p1s = torch.where(ok, p1, torch.zeros_like(p1))
-        qm = q.mean(dim=1, keepdim=True)
-        qm1 = q1s.mean(dim=1, keepdim=True)
+        qm = chain_mean(q, 1, mesh=mesh, axis=axis, keepdim=True)
+        qm1 = chain_mean(q1s, 1, mesh=mesh, axis=axis, keepdim=True)
         dsq0 = torch.sum((q - qm) ** 2, dim=0)
         dsq1 = torch.sum((q1s - qm1) ** 2, dim=0)
         v1 = im_col * p1s  # dq/dtime at the endpoint
         proj = torch.sum((q1s - qm1) * v1, dim=0)
         per_chain = (dsq1 - dsq0) * proj
         contrib = torch.where(torch.isfinite(per_chain), alpha * per_chain, 0.0)
-        grad_tau = torch.sum(contrib) / (torch.sum(alpha) + 1e-12)
+        sums = torch.stack([torch.sum(contrib), torch.sum(alpha)])
+        if mesh is not None:
+            sums = mesh.all_reduce_sum(sums, axis)
+        grad_tau = sums[0] / (sums[1] + 1e-12)
         # d/d log t = dChEES/dtau * dtau/dt * t = grad_tau * h * t
         grad_logt = grad_tau * tau
         grad_logt = torch.where(torch.isfinite(grad_logt), grad_logt, 0.0)
-        div = diverged.to(torch.float32).mean()
+        div = chain_mean(diverged.to(torch.float32), 0, mesh=mesh, axis=axis)
         return qn, lpn, gn, alpha, grad_logt, n_leap, div
 
     def clamp_logt(log_t, eps):
@@ -166,9 +174,10 @@ def chees_hmc(
             q, lp, g, alpha, grad_logt, _n, _div = sweep(q, lp, g, step_idx, eps, log_t, inv_mass_f)
             mv, update = _adam(mv, grad_logt, adapt.step)
             log_t = clamp_logt(log_t + adam_lr * update, eps)
-            adapt = dual_averaging_update(adapt, alpha.mean(), target_accept=target_accept)
+            adapt = dual_averaging_update(adapt, chain_mean(alpha, 0, mesh=mesh, axis=axis),
+                                          target_accept=target_accept)
             if adapt_mass:
-                inv_mass_f = cross_chain_inv_mass(q, chain_axis=1)
+                inv_mass_f = cross_chain_inv_mass(q, chain_axis=1, mesh=mesh, axis=axis)
         eps_f = torch.exp(adapt.log_eps_bar)
         log_t = clamp_logt(log_t, eps_f)
     else:
@@ -179,7 +188,7 @@ def chees_hmc(
     accs, n_leaps, divs, draws = [], [], [], []
     for step_idx in range(n_warmup, n_warmup + n_steps):
         q, lp, g, alpha, _gl, n_leap, div = sweep(q, lp, g, step_idx, eps_f, log_t, inv_mass_f)
-        accs.append(alpha.mean())
+        accs.append(chain_mean(alpha, 0, mesh=mesh, axis=axis))
         n_leaps.append(n_leap)
         divs.append(div)
         if collect:

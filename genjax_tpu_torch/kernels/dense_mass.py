@@ -27,19 +27,25 @@ from typing import Callable
 import torch
 
 from ..core.device import chain_generator
-from .adaptation import _f32, multiplicative_nudge
+from .adaptation import _f32, chain_mean, multiplicative_nudge
 from .hmc import _lp_grad
 
 
-def cross_chain_cov(q: torch.Tensor, *, shrinkage: float = 0.1, jitter: float = 1e-6) -> torch.Tensor:
+def cross_chain_cov(q: torch.Tensor, *, shrinkage: float = 0.1, jitter: float = 1e-6, mesh=None,
+                    axis: str = "batch") -> torch.Tensor:
     """Full posterior-covariance estimate from the cross-chain spread of
     ``q (D, N)``: the sample covariance over the chains shrunk toward its own
     diagonal, ``(1 - shrinkage) S + shrinkage diag(S) + jitter I``. The
     shrinkage keeps early estimates well conditioned, and for ``N <= D`` it is
-    what makes the Cholesky factor exist; the diagonal is kept exactly."""
+    what makes the Cholesky factor exist; the diagonal is kept exactly. With
+    ``mesh`` (a ``parallel.Mesh``), the chains are sharded over its ``axis``
+    and the covariance is that of every rank's (two sums)."""
     d, n = q.shape
-    c = q - q.mean(dim=1, keepdim=True)
-    s = (c @ c.T) / max(n - 1, 1)
+    c = q - chain_mean(q, 1, mesh=mesh, axis=axis, keepdim=True)
+    if mesh is None:
+        s = (c @ c.T) / max(n - 1, 1)
+    else:
+        s = mesh.all_reduce_sum(c @ c.T, axis) / max(n * mesh.axis_size(axis) - 1, 1)
     diag = torch.diag(torch.diagonal(s))
     eye = torch.eye(d, dtype=q.dtype, device=q.device)
     return (1.0 - shrinkage) * s + shrinkage * diag + jitter * eye
@@ -55,6 +61,8 @@ def hmc_sweep_dense_cols(
     L: int,
     cov_chol,
     collect: bool = False,
+    mesh=None,
+    axis: str = "batch",
 ):
     """``n_steps`` MH-adjusted HMC transitions under the dense metric
     ``Sigma = cov_chol cov_chol^T``, on ``q0``'s device.
@@ -63,7 +71,8 @@ def hmc_sweep_dense_cols(
     ``torch.Generator`` on ``q0``'s device; ``eps`` a float or a scalar
     tensor. A NaN log acceptance is a rejection. Returns ``(q,
     accept_rate)``, with ``collect=True`` also every transition's positions
-    ``(n_steps, D, N)``.
+    ``(n_steps, D, N)``. With ``mesh``, the accept rate is every rank's
+    chains'.
     """
     d, n = q0.shape
     device = q0.device
@@ -97,7 +106,7 @@ def hmc_sweep_dense_cols(
         q = torch.where(accept, q_new, q)
         lp = torch.where(accept, lp_new, lp)
         g = torch.where(accept, g_new, g)
-        acc = acc + accept.to(torch.float32).mean()
+        acc = acc + chain_mean(accept.to(torch.float32), 0, mesh=mesh, axis=axis)
         if collect:
             draws.append(q)
     if collect:
@@ -117,6 +126,8 @@ def warmup_column_dense(
     L: int = 5,
     target_accept: float = 0.8,
     shrinkage: float = 0.1,
+    mesh=None,
+    axis: str = "batch",
 ):
     """Windowed warmup for dense-metric HMC, on ``q0``'s device: per phase,
     a sweep at the current metric, a nudge of the step size toward
@@ -127,7 +138,9 @@ def warmup_column_dense(
     ``seed`` is an int (a warmup stream is seeded from it, apart from the
     sweep's) or a ``torch.Generator`` on ``q0``'s device, drawn from
     directly. Returns ``(q, eps, cov_chol)`` for ``hmc_sweep_dense_cols``,
-    ``eps`` a float32 scalar tensor on the device.
+    ``eps`` a float32 scalar tensor on the device. With ``mesh``, ``q0`` is
+    this rank's share of chains over its ``axis``, and the accept rates and
+    covariances are every rank's.
     """
     d, _ = q0.shape
     if not isinstance(seed, torch.Generator):
@@ -138,13 +151,14 @@ def warmup_column_dense(
     cov_chol = torch.eye(d, dtype=torch.float32, device=q0.device)
     for idx in range(n_phases):
         q, acc = hmc_sweep_dense_cols(
-            logdensity_cols, q, gen, n_steps=steps_per_phase, eps=eps, L=L, cov_chol=cov_chol
+            logdensity_cols, q, gen, n_steps=steps_per_phase, eps=eps, L=L, cov_chol=cov_chol, mesh=mesh,
+            axis=axis,
         )
         eps = multiplicative_nudge(eps, acc, target_accept=target_accept)
         # heavy shrinkage early (estimates from an unconverged cloud), the
         # final value by the last phase
         lam = shrinkage + (1.0 - shrinkage) * (1.0 - (idx + 1.0) / n_phases)
-        cov_chol = torch.linalg.cholesky(cross_chain_cov(q, shrinkage=lam))
+        cov_chol = torch.linalg.cholesky(cross_chain_cov(q, shrinkage=lam, mesh=mesh, axis=axis))
     return q, eps, cov_chol
 
 

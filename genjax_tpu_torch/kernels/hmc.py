@@ -438,6 +438,8 @@ def warmup_column(
     L: int = 5,
     target_accept: float = 0.8,
     backend: str = "auto",
+    mesh=None,
+    axis: str = "batch",
 ):
     """Windowed warmup for the column layout (``adaptation.windowed_warmup``):
     per phase, a short HMC sweep through ``pallas_hmc``'s routing (on the
@@ -447,6 +449,9 @@ def warmup_column(
 
     Phase seeds ``(seed + 1) * 1_000_003 + phase`` are the reference's
     stream, disjoint from the main sweep's ``seed``.
+
+    With ``mesh`` (a ``parallel.Mesh``), ``q0`` is this rank's shard of
+    chains over ``axis`` and the windows adapt to every rank's chains.
 
     Returns ``(q, eps, inv_mass)`` ready for the main sweep.
     """
@@ -459,5 +464,6 @@ def warmup_column(
 
     q, eps, inv_mass, _accs = windowed_warmup(
         sweep, q0.to(torch.float32), n_windows=n_phases, eps0=eps0, target_accept=target_accept,
+        mesh=mesh, axis=axis,
     )
     return q, float(eps), inv_mass

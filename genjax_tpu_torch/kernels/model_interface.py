@@ -20,7 +20,7 @@ from typing import Any, Sequence
 
 import torch
 
-from ..core.device import chain_generator, entry_device
+from ..core.device import chain_generator, entry_device, stream_seed
 from ..generative.choice_map import ChoiceMap
 from ..generative.gfi import GenerativeFunction
 from ..generative.mask import Mask
@@ -221,6 +221,19 @@ def _prior_columns(model, constraint, args, addresses, n_chains: int, seed: int,
     return packer, logdensity_cols, init_columns(model, constraint, args, packer, n_chains, seed, device)
 
 
+def _shard_of(n_chains: int, seed: int, device, mesh, axis: str, entry: str):
+    """``(chains, seed, device)`` of this rank: with ``mesh``, the rank's
+    share of ``n_chains`` sharded over ``axis`` (which must divide it), a
+    seed of its own (``stream_seed(seed, rank)``'s top 30 bits) and the
+    rank's device; without, the arguments as they are."""
+    if mesh is None:
+        return n_chains, seed, entry_device(device, entry)
+    size = mesh.axis_size(axis)
+    if n_chains % size:
+        raise ValueError(f"{entry}: n_chains={n_chains} must divide over {size} shards")
+    return n_chains // size, stream_seed(seed, mesh.rank) >> 34, mesh.device
+
+
 def column_hmc(
     model: GenerativeFunction,
     constraint: ChoiceMap,
@@ -239,6 +252,8 @@ def column_hmc(
     inv_mass=None,
     mass: str = "diag",
     device="cuda",
+    mesh=None,
+    axis: str = "batch",
 ):
     """Prior-initialized, MH-adjusted HMC over ``addresses`` in the column
     layout, on ``device``: the card by default; ``device="cpu"`` runs the
@@ -262,6 +277,11 @@ def column_hmc(
     ``hmc_sweep_dense_cols``, torch products on ``device`` for which no kernel
     exists in either package: ``backend``, ``interpret`` and ``block_n`` do
     not apply to it.
+
+    ``mesh`` (a ``parallel.Mesh``) shards the ``n_chains`` chains over its
+    ``axis``: every rank of the axis calls ``column_hmc`` alike, runs its
+    share on its device from a seed of its own, and the warmup adapts to
+    every rank's chains; the positions returned are the rank's.
 
     >>> import torch
     >>> import genjax_tpu_torch as g
@@ -291,7 +311,9 @@ def column_hmc(
             "mass='dense' adapts its own full-covariance metric; inv_mass (a diagonal) "
             "cannot be combined with it"
         )
-    device = entry_device(device, "column_hmc")
+    if mesh is not None and mass == "dense":
+        raise ValueError("column_hmc: mass='dense' estimates its metric on one device; it takes no mesh")
+    n_chains, seed, device = _shard_of(n_chains, seed, device, mesh, axis, "column_hmc")
     packer, logdensity_cols, q0 = _prior_columns(model, constraint, args, addresses, n_chains, seed, device)
     if mass == "dense":
         q0, eps_d, cov_chol = warmup_column_dense(logdensity_cols, q0, seed, eps0=eps, L=L)
@@ -300,7 +322,8 @@ def column_hmc(
         )
         return q, accept, packer
     if warmup:
-        q0, eps, inv_mass = warmup_column(logdensity_cols, q0, seed, eps0=eps, L=L, backend=backend)
+        q0, eps, inv_mass = warmup_column(logdensity_cols, q0, seed, eps0=eps, L=L, backend=backend,
+                                          mesh=mesh, axis=axis)
     q, accept = pallas_hmc(
         logdensity_cols, q0, seed, n_steps=n_steps, eps=eps, L=L,
         block_n=block_n, interpret=interpret, backend=backend, inv_mass=inv_mass,
@@ -325,6 +348,8 @@ def column_nuts(
     interpret: bool = False,
     backend: str = "auto",
     device="cuda",
+    mesh=None,
+    axis: str = "batch",
 ):
     """Prior-initialized No-U-Turn sampling over ``addresses`` in the column
     layout, on ``device``: the card by default; ``device="cpu"`` runs the
@@ -337,7 +362,8 @@ def column_nuts(
     raises without one (``backend="torch"`` runs the plain twin there).
     ``warmup=True`` first adapts ``eps`` (from ``eps`` as its start) and the
     diagonal inverse mass with ``warmup_column_nuts``, whose phases take the
-    same routing: on the card, one kernel launch per phase.
+    same routing: on the card, one kernel launch per phase. ``mesh`` shards
+    the chains as in ``column_hmc``.
 
     >>> import torch
     >>> import genjax_tpu_torch as g
@@ -355,12 +381,12 @@ def column_nuts(
     >>> bool(abs(q[0].mean() - 1.0) < 0.3)   # posterior mean = 1
     True
     """
-    device = entry_device(device, "column_nuts")
+    n_chains, seed, device = _shard_of(n_chains, seed, device, mesh, axis, "column_nuts")
     packer, logdensity_cols, q0 = _prior_columns(model, constraint, args, addresses, n_chains, seed, device)
     if warmup:
         q0, eps, inv_mass = warmup_column_nuts(
             logdensity_cols, q0, seed, eps0=eps, max_depth=max_depth, backend=backend,
-            block_n=block_n,
+            block_n=block_n, mesh=mesh, axis=axis,
         )
     q, accept, leaps = pallas_nuts(
         logdensity_cols, q0, seed, n_steps=n_steps, eps=eps, max_depth=max_depth,

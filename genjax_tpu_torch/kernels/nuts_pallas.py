@@ -222,12 +222,16 @@ def warmup_column_nuts(
     target_accept: float = 0.8,
     backend: str = "auto",
     block_n: int | None = None,
+    mesh=None,
+    axis: str = "batch",
 ):
     """Windowed warmup driven by NUTS's own accept statistic: per phase, a
     short NUTS sweep through ``pallas_nuts``'s routing (on the card one K4
     launch), a step-size nudge toward ``target_accept``, and the diagonal
     inverse mass from the cross-chain variance. Phase seeds
-    ``(seed + 1) * 1_000_003 + phase`` are the reference's stream.
+    ``(seed + 1) * 1_000_003 + phase`` are the reference's stream. With
+    ``mesh`` (a ``parallel.Mesh``), ``q0`` is this rank's shard of chains
+    over ``axis`` and the phases adapt to every rank's chains.
 
     Returns ``(q, eps, inv_mass)``.
     """
@@ -241,5 +245,6 @@ def warmup_column_nuts(
 
     q, eps, inv_mass, _accs = windowed_warmup(
         sweep, q0.to(torch.float32), n_windows=n_phases, eps0=eps0, target_accept=target_accept,
+        mesh=mesh, axis=axis,
     )
     return q, float(eps), inv_mass

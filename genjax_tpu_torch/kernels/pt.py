@@ -29,7 +29,7 @@ from typing import Any, Callable
 import torch
 
 from ..core.device import chain_generator
-from .adaptation import StepSizeAdaptState, _f32, cross_chain_inv_mass, dual_averaging_update
+from .adaptation import StepSizeAdaptState, _f32, chain_mean, cross_chain_inv_mass, dual_averaging_update
 from .hmc import _lp_grad
 
 
@@ -71,6 +71,8 @@ def pt_hmc(
     inv_mass: Any | None = None,
     adapt_mass: bool = True,
     collect: bool = False,
+    mesh=None,
+    axis: str = "batch",
 ):
     """Replica-exchange HMC over ``N`` column-layout chains x ``R`` rungs, on
     ``q0``'s device.
@@ -82,7 +84,10 @@ def pt_hmc(
     ``geometric_ladder``). ``n_warmup`` sweeps adapt each rung's step size
     and (with ``adapt_mass``) its inverse mass; ``n_steps`` sampling sweeps
     follow. A sweep is an HMC move of ``L`` leapfrogs on every rung, then an
-    even-odd exchange. ``collect`` records the cold chain's positions.
+    even-odd exchange. ``collect`` records the cold chain's positions. With
+    ``mesh`` (a ``parallel.Mesh``), ``q0`` holds this rank's share of
+    chains sharded over its ``axis``, and the rungs' accept and swap rates
+    and inverse masses are every rank's: every rank adapts alike.
 
     Returns ``(q_cold (D, N), PTInfo)``.
     """
@@ -135,7 +140,7 @@ def pt_hmc(
         alpha = torch.where(
             torch.isnan(log_alpha), 0.0, torch.clamp(torch.exp(torch.clamp(log_alpha, max=0.0)), max=1.0)
         )
-        return qn, lpn, gn, alpha.mean(dim=1)  # accept per rung
+        return qn, lpn, gn, chain_mean(alpha, 1, mesh=mesh, axis=axis)  # accept per rung
 
     def swap_sweep(q, lp, g, parity: int):
         """Even-odd adjacent exchange: pair ``(r, r + 1)`` is active when
@@ -156,7 +161,7 @@ def pt_hmc(
 
         up3, dn3 = swap_up[:, None, :], swap_dn[:, None, :]
         return (exchange(q, up3, dn3), exchange(lp, swap_up, swap_dn), exchange(g, up3, dn3),
-                do.to(torch.float32).mean(dim=1))
+                chain_mean(do.to(torch.float32), 1, mesh=mesh, axis=axis))
 
     lp, g = lp_g(q)
     if n_warmup > 0:
@@ -167,7 +172,7 @@ def pt_hmc(
             q, lp, g, _sw = swap_sweep(q, lp, g, idx % 2)
             adapt = dual_averaging_update(adapt, acc, target_accept=target_accept)
             if adapt_mass:
-                inv_mass_f = cross_chain_inv_mass(q, chain_axis=2)
+                inv_mass_f = cross_chain_inv_mass(q, chain_axis=2, mesh=mesh, axis=axis)
         eps_f = torch.exp(adapt.log_eps_bar)
     else:
         eps_f = torch.full((r,), float(eps0), dtype=torch.float32, device=device)

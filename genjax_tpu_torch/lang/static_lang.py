@@ -228,6 +228,8 @@ class EditHandler(StaticHandler):
         mode = self.mode
         if mode is None:
             return self._edit_at(addr, gen_fn, args, None)
+        if mode.degraded is None:
+            mode.handed_off(args, gen_fn)
         with mode.paused():
             return self._edit_at(addr, gen_fn, args, mode)
 

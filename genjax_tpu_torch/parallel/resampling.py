@@ -1,10 +1,11 @@
 """Resampling on one device: weight statistics, index and count generators,
 and the row moves that apply them to a particle pytree.
 
-Counterpart of the single-device half of ``genjax_tpu/parallel/
-resampling.py`` (``_normalize`` to ``resample_particles``). The collective
-half (``collective_*``, resampling across devices) waits for
-``torch.distributed`` (``ROADMAP.md`` item 15).
+Counterpart of ``genjax_tpu/parallel/resampling.py``: the single-device
+half (``_normalize`` to ``resample_particles``) and the collective half
+(``collective_weight_stats``, ``collective_log_normalizer``,
+``collective_resample``), which every rank of a mesh axis runs on its own
+shard of the particles, its reductions calls of ``parallel/_comm.py``.
 
 Every function runs where its weights live and draws from a
 ``torch.Generator`` there. Nothing reads a value back to the host:
@@ -20,10 +21,13 @@ can be held against the reference's from the same uniforms.
 
 from __future__ import annotations
 
+import math
 from typing import Any
 
 import torch
 import torch.utils._pytree as pytree
+
+from . import _comm
 
 
 def _normalize(log_weights: torch.Tensor) -> torch.Tensor:
@@ -179,3 +183,65 @@ def resample_particles(gen: torch.Generator, particles: Any, log_weights, n: int
     if method in _COUNT_METHODS:
         return redistribute(particles, _COUNT_METHODS[method](gen, log_weights, n), n)
     return packed_take(particles, _METHODS[method](gen, log_weights, n), k)
+
+
+# ----------------------------------------------------------------------
+# collective (cross-shard) resampling: every rank of the axis calls these
+# ----------------------------------------------------------------------
+
+
+def collective_weight_stats(log_weights: torch.Tensor, mesh, axis: str = "batch"):
+    """The global ``(ess, log_normalizer)`` of a weight vector sharded over
+    ``axis``, in two collectives: one max for the stable shift, then one sum
+    of the pair ``(sum w, sum w^2)``. The same values on every rank."""
+    global_max = _comm.all_reduce_max(torch.max(log_weights), mesh, axis)
+    shifted = torch.exp(log_weights - global_max)
+    sums = _comm.all_reduce_sum(torch.stack([shifted.sum(), (shifted * shifted).sum()]), mesh, axis)
+    ess = sums[0] * sums[0] / sums[1]
+    k_global = log_weights.shape[0] * _comm.axis_size(mesh, axis)
+    return ess, global_max + torch.log(sums[0]) - math.log(k_global)
+
+
+def collective_log_normalizer(log_weights: torch.Tensor, mesh, axis: str = "batch") -> torch.Tensor:
+    """``log (1 / K) sum_global exp(lw)``, stably: one max and one sum."""
+    global_max = _comm.all_reduce_max(torch.max(log_weights), mesh, axis)
+    total = _comm.all_reduce_sum(torch.sum(torch.exp(log_weights - global_max)), mesh, axis)
+    k_global = log_weights.shape[0] * _comm.axis_size(mesh, axis)
+    return global_max + torch.log(total) - math.log(k_global)
+
+
+def collective_resample(gen: torch.Generator, particles: Any, log_weights: torch.Tensor, mesh,
+                        axis: str = "batch", *, method: str = "systematic", mode: str = "local",
+                        log_z_inc=None):
+    """Resample a particle collection sharded over ``axis``; every rank of
+    the axis calls it with its own shard. Returns ``(new_particles,
+    new_log_weights, log_marginal_increment)``, the increment the global
+    mean-weight normalizer (``log_z_inc`` where the caller has it, which
+    spares its collectives).
+
+    - ``"local"``: each rank resamples its own shard from ``gen``, its own
+      stream, and keeps the shard's mean weight as the (uniform) weight of
+      its particles, so the whole collection stays properly weighted;
+    - ``"all_gather"``: exact global resampling. The log weights and the
+      particles are gathered, every rank draws the same global index vector
+      from ``gen``, which must be in the same state on every rank (the
+      caller's generator), and takes its slice of it.
+    """
+    k_local = log_weights.shape[0]
+    if log_z_inc is None:
+        log_z_inc = collective_log_normalizer(log_weights, mesh, axis)
+    if mode == "local":
+        new_particles = resample_particles(gen, particles, log_weights, k_local, method)
+        shard_log_mean = torch.logsumexp(log_weights, dim=0) - math.log(k_local)
+        return new_particles, (shard_log_mean - log_z_inc).expand(k_local).clone(), log_z_inc
+    if mode == "all_gather":
+        flat_lw = _comm.all_gather_cat(log_weights, mesh, axis)
+        k = flat_lw.shape[0]
+        all_idx = resample_indices(gen, flat_lw, k, method)
+        start = _comm.axis_index(mesh, axis) * k_local
+        gathered = pytree.tree_map(
+            lambda v: _comm.all_gather_cat(v, mesh, axis) if isinstance(v, torch.Tensor) else v, particles
+        )
+        new_particles = packed_take(gathered, all_idx[start : start + k_local], k)
+        return new_particles, torch.zeros_like(log_weights), log_z_inc
+    raise ValueError(f"Unknown collective resampling mode: {mode!r}")

@@ -14,8 +14,14 @@ the pace of a step, so the read costs little, and a step that does not
 resample launches nothing for it. The other design, resampling every step
 and selecting with ``torch.where``, reads nothing and launches the resample
 always; ``chip_smoke.py`` times both. The run lives on ``device``, the card
-unless the caller asks for the CPU. ``run_sharded`` waits for the
-scale-out port (``ROADMAP.md`` item 15).
+unless the caller asks for the CPU.
+
+``run_sharded`` is the reference's ``shard_map`` program run by every rank
+of a mesh axis on its own ``n_particles / world`` particles: the global ESS
+and normalizer in two collectives a step (``collective_weight_stats``), the
+decision one host read of the global ESS a step, as in ``run``, and the
+resample ``collective_resample`` in either mode. ``sharded_importance`` is
+importance sampling with the particles sharded the same way.
 """
 
 from __future__ import annotations
@@ -30,7 +36,49 @@ from ..core.device import entry_generator, to_device
 from ..core.pytree import Pytree
 from ..generative.choice_map import ChoiceMap
 from ..generative.gfi import GenerativeFunction
-from .resampling import effective_sample_size, resample_particles
+from . import _comm
+from .mesh import Mesh, local_count, mesh_generators
+from .resampling import (
+    collective_log_normalizer,
+    collective_resample,
+    collective_weight_stats,
+    effective_sample_size,
+    resample_particles,
+)
+
+
+def _steps(xs, n_steps, entry: str) -> int:
+    leaves = [v for v in pytree.tree_leaves(xs) if v is not None]
+    t_count = leaves[0].shape[0] if leaves else n_steps
+    if t_count is None:
+        raise ValueError(f"{entry}: xs is None/empty — pass n_steps.")
+    return t_count
+
+
+def _broadcast(init_carry, k: int, device):
+    """``k`` copies of the initial carry on ``device``, numbers as float32."""
+
+    def one(v):
+        v = torch.as_tensor(v, device=device)
+        if v.is_floating_point():
+            v = v.to(torch.float32)
+        return v.expand((k,) + tuple(v.shape)).contiguous()
+
+    return pytree.tree_map(one, init_carry)
+
+
+def _extend(kernel, gen, carries, xs, constraint, t: int):
+    """Every particle extended by one step of ``kernel`` under the
+    observations at ``t``: ``(carries, incremental log weights)``."""
+    x = pytree.tree_map(lambda v: None if v is None else v[t], xs)
+    submap = constraint.get_submap(t)
+
+    def extend(c):
+        tr, w = kernel.generate(gen, submap, (c, x))
+        c_new, _y = tr.get_retval()
+        return c_new, w
+
+    return torch.func.vmap(extend, randomness="different")(carries)
 
 
 def resample_if(gen: torch.Generator, fire: torch.Tensor, particles: Any, log_w: torch.Tensor,
@@ -95,32 +143,14 @@ class SSMParticleFilter(Pytree):
         ``gen`` is a ``torch.Generator`` there or an int seed."""
         gen, device = entry_generator(gen, device, "SSMParticleFilter.run")
         k = self.n_particles
-        leaves = [v for v in pytree.tree_leaves(xs) if v is not None]
-        t_count = leaves[0].shape[0] if leaves else n_steps
-        if t_count is None:
-            raise ValueError("SSMParticleFilter.run: xs is None/empty — pass n_steps.")
+        t_count = _steps(xs, n_steps, "SSMParticleFilter.run")
         xs, constraint = to_device(xs, device), to_device(constraint, device)
-
-        def broadcast(v):
-            v = torch.as_tensor(v, device=device)
-            if v.is_floating_point():
-                v = v.to(torch.float32)
-            return v.expand((k,) + tuple(v.shape)).contiguous()
-
-        carries = pytree.tree_map(broadcast, init_carry)
+        carries = _broadcast(init_carry, k, device)
         log_w = torch.zeros(k, device=device)
         log_z = torch.zeros((), device=device)
         ess_hist = []
         for t in range(t_count):
-            x = pytree.tree_map(lambda v: None if v is None else v[t], xs)
-            submap = constraint.get_submap(t)
-
-            def extend(c):
-                tr, w = self.kernel.generate(gen, submap, (c, x))
-                c_new, _y = tr.get_retval()
-                return c_new, w
-
-            carries, ws = torch.func.vmap(extend, randomness="different")(carries)
+            carries, ws = _extend(self.kernel, gen, carries, xs, constraint, t)
             log_w = log_w + ws
             ess = effective_sample_size(log_w)
             ess_hist.append(ess)
@@ -130,10 +160,69 @@ class SSMParticleFilter(Pytree):
         log_marginal = log_z + torch.logsumexp(log_w, dim=0) - math.log(k)
         return ParticleFilterResult(carries, log_w, log_marginal, torch.stack(ess_hist))
 
-    def run_sharded(self, *args, **kwargs):
-        """The reference's multi-chip filter (one ``shard_map`` program,
-        collective resampling): not ported yet."""
-        raise NotImplementedError(
-            "SSMParticleFilter.run_sharded: the collective resampling across devices waits for the "
-            "torch.distributed port (ROADMAP.md item 15); run() filters on one device"
-        )
+    def run_sharded(
+        self,
+        gen,
+        init_carry: Any,
+        xs: Any,
+        constraint: ChoiceMap,
+        mesh: Mesh,
+        *,
+        axis: str = "batch",
+        resample_mode: str = "local",
+        n_steps: int | None = None,
+    ) -> ParticleFilterResult:
+        """The filter with the particles sharded over ``mesh``'s ``axis``:
+        every rank of the axis calls it alike and holds ``n_particles /
+        size`` particles on its device. ``gen`` (a generator on that device,
+        or an int seed) must be in the same state on every rank: each rank
+        draws its particles from its own stream (``mesh_generators``), and
+        ``"all_gather"`` resampling its global indices from ``gen``.
+
+        Returns this rank's carries and log weights, and the global log
+        marginal likelihood and ESS history (alike on every rank)."""
+        entry = "SSMParticleFilter.run_sharded"
+        k = self.n_particles
+        k_local = local_count(k, mesh, axis, "n_particles")
+        shared, local = mesh_generators(gen, mesh, entry)
+        resample_gen = {"local": local, "all_gather": shared}.get(resample_mode)
+        if resample_gen is None:
+            raise ValueError(f"Unknown collective resampling mode: {resample_mode!r}")
+        device = mesh.device
+        t_count = _steps(xs, n_steps, entry)
+        xs, constraint = to_device(xs, device), to_device(constraint, device)
+        carries = _broadcast(init_carry, k_local, device)
+        log_w = torch.zeros(k_local, device=device)
+        log_z = torch.zeros((), device=device)
+        ess_hist = []
+        for t in range(t_count):
+            with _comm.step(t):
+                carries, ws = _extend(self.kernel, local, carries, xs, constraint, t)
+                log_w = log_w + ws
+                # one fused pair of collectives: the ESS of the decision and
+                # the normalizer the resample needs
+                ess, log_z_inc = collective_weight_stats(log_w, mesh, axis)
+                ess_hist.append(ess)
+                if bool(ess < self.ess_threshold * k):
+                    carries, log_w, inc = collective_resample(
+                        resample_gen, carries, log_w, mesh, axis, method=self.method, mode=resample_mode,
+                        log_z_inc=log_z_inc,
+                    )
+                    log_z = log_z + inc
+        log_marginal = log_z + collective_log_normalizer(log_w, mesh, axis)
+        return ParticleFilterResult(carries, log_w, log_marginal, torch.stack(ess_hist))
+
+
+def sharded_importance(target_importance, gen, k_particles: int, mesh: Mesh, *, axis: str = "batch"):
+    """Importance sampling with the particles sharded over ``mesh``'s
+    ``axis``: every rank runs ``target_importance(gen) -> (trace,
+    log_weight)`` for its ``k_particles / size`` particles, vmapped, from its
+    own stream, and the normalizer is one max and one sum over the axis.
+    Returns this rank's ``(traces, log_weights)`` and the global ``log_z``.
+    ``gen`` must be in the same state on every rank."""
+    k_local = local_count(k_particles, mesh, axis, "k_particles")
+    _shared, local = mesh_generators(gen, mesh, "sharded_importance")
+    trs, ws = torch.func.vmap(lambda _: target_importance(local), randomness="different")(
+        torch.zeros(k_local, device=mesh.device)
+    )
+    return trs, ws, collective_log_normalizer(ws, mesh, axis)

@@ -9,8 +9,10 @@ the whole run bit for bit; a checkpoint of another geometry, other dynamics
 or another seed is refused; the column algorithms refuse
 ``checkpoint_dir``; a crash between a state's write and the meta's flip
 leaves a resumable checkpoint; ``n_samples=0`` fails before the warmup and
-``max_segments=0`` on a fresh run raises. The sharded tests wait for the
-scale-out port.
+``max_segments=0`` on a fresh run raises; a save writes one segment's draws
+beside the state, and a checkpoint of the layout that rewrote every draw is
+refused. The sharded resume (2 gloo ranks) is in
+``tests/test_torch_distributed.py``.
 """
 
 import json
@@ -246,3 +248,62 @@ def test_segment_state_protocol():
         with pytest.raises(ValueError, match="refusing to resume"):
             check_meta_matches(d, meta, {"missing": 1})
         check_meta_matches(d, meta, {"who": "me", "next_segment": 2})
+
+
+# ---- the increments: a save writes one segment's draws
+
+
+def _tensor_bytes(tree) -> int:
+    """The bytes of the storages under a tree's tensors, each storage once
+    (views share one, and are saved once)."""
+    from torch.utils._pytree import tree_leaves
+
+    storages = {v.untyped_storage().data_ptr(): v.untyped_storage().nbytes()
+                for v in tree_leaves(tree) if isinstance(v, torch.Tensor)}
+    return sum(storages.values())
+
+
+def _file_bytes(path) -> int:
+    return sum(os.path.getsize(os.path.join(root, f)) for root, _, files in os.walk(path) for f in files)
+
+
+@pytest.mark.parametrize("algorithm", ["hmc", "hmc_sweep"])
+def test_a_save_writes_one_segments_draws_and_the_state(algorithm):
+    """Each save writes the state the next segment starts from and that
+    segment's draws, accepts and divergences once: its bytes are theirs
+    within 10%, the same at every segment, where the earlier layout
+    rewrote every draw so far at each save."""
+    n_chains, seg, n_samples, d = 2048, 4, 12, 1
+    with tempfile.TemporaryDirectory() as dd:
+        res = _run(algorithm, checkpoint_dir=dd, checkpoint_every=seg, n_chains=n_chains, n_samples=n_samples)
+        names = sorted(os.listdir(dd))
+        assert names == ["increment_0", "increment_1", "increment_2", "meta.json", "state_3"]
+        increments = [_file_bytes(os.path.join(dd, f"increment_{i}")) for i in range(3)]
+        state = _file_bytes(os.path.join(dd, "state_3"))
+        inc_leaves = torch.load(os.path.join(dd, "increment_2", "leaves.pt"), weights_only=True)
+        state_leaves = torch.load(os.path.join(dd, "state_3", "leaves.pt"), weights_only=True)
+    # the increment is one segment's draws, accepts and divergences
+    assert sorted(tuple(v.shape) for v in inc_leaves) == sorted([(n_chains, seg, d), (seg,), (seg,)])
+    want_increment = 4 * (n_chains * seg * d + 2 * seg)
+    assert _tensor_bytes(inc_leaves) == want_increment
+    # the state holds no draw: traces, eps, inv_mass, base, generator state
+    assert not [v for v in state_leaves if v is not None and v.dim() >= 2 and v.shape[1] == n_samples]
+    want = want_increment + _tensor_bytes(state_leaves)
+    assert abs(increments[-1] + state - want) <= 0.1 * want
+    assert max(increments) == min(increments)
+    assert tuple(res["mu"].shape) == (n_chains, n_samples)
+
+
+def test_the_layout_that_saved_every_draw_is_refused():
+    """A checkpoint of the earlier layout (every draw so far in each state,
+    no ``layout`` in its meta) is refused by the run-identity check: no
+    accepted run is left to resume from one."""
+    with tempfile.TemporaryDirectory() as d:
+        _run("hmc", checkpoint_dir=d, checkpoint_every=4, max_segments=1)
+        meta_path = os.path.join(d, "meta.json")
+        meta = json.load(open(meta_path))
+        assert meta["layout"] == "increments"
+        del meta["layout"]
+        json.dump(meta, open(meta_path, "w"))
+        with pytest.raises(ValueError, match="refusing to resume"):
+            _run("hmc", checkpoint_dir=d, checkpoint_every=4)

@@ -132,3 +132,28 @@ def test_slice14_names_are_what_the_reference_makes_them(name, kind):
     port = importlib.import_module("genjax_tpu_torch.inference")
     want = types.ModuleType if kind == "module" else types.FunctionType
     assert isinstance(getattr(ref, name), want) and isinstance(getattr(port, name), want)
+
+
+def _reference_parallel_names():
+    import genjax_tpu.parallel as ref_parallel
+
+    return sorted(set(ref_parallel.__all__) - {"shard_map_compat"})
+
+
+@pytest.mark.parametrize("name", _reference_parallel_names())
+def test_every_reference_parallel_name_resolves(name):
+    """Every name of the reference's ``parallel.__all__`` resolves in the
+    port's ``parallel`` and is in its ``__all__``, but ``shard_map_compat``
+    (no ``shard_map`` to call: a deviation)."""
+    import genjax_tpu_torch.parallel as parallel
+
+    assert getattr(parallel, name) is not None
+    assert name in parallel.__all__
+
+
+def test_the_parallel_additions_resolve():
+    import genjax_tpu_torch.parallel as parallel
+
+    for name in ("gather_batch", "collective_log", "collective_counts"):
+        assert callable(getattr(parallel, name)) and name in parallel.__all__
+    assert not hasattr(parallel, "shard_map_compat")

@@ -310,6 +310,41 @@ def test_degrade_cases_take_the_clean_prefix_with_the_reference_weights(model, f
     assert EDIT.last_rule == "incremental"
 
 
+def test_write_into_a_tensor_a_callee_returned_a_view_of():
+    """A callee returns a view of its argument, and the body then writes an
+    edited value into the argument: the view changed, which the callee's
+    unseen sub-edit cannot report, so the edit takes the clean-prefix rule.
+    Torch alone (JAX writes nothing in place): held to the clean-prefix
+    weight and to ``assess`` of the new choices."""
+
+    @g.gen
+    def inner(t):
+        g.normal(0.0, 1.0) @ "a"
+        return t[:1]  # a view of its argument
+
+    @g.gen
+    def model():
+        t = torch.zeros(1)
+        z = g.normal(0.0, 1.0) @ "z"
+        v = inner(t) @ "in"
+        t.add_(z)  # v now holds z
+        return g.normal(v.sum(), 1.0) @ "y"
+
+    zero = torch.tensor(0.0)
+    tr, _ = model.generate(gen_at(0), g.ChoiceMap.d({"z": zero, "y": zero, ("in", "a"): zero}), ())
+    req = g.Update(g.C["z"].set(torch.tensor(2.0)) | g.C["in", "a"].set(torch.tensor(0.5)))
+    new, w, _, _ = tr.edit(gen_at(1), req)
+    assert EDIT.last_rule == "clean_prefix", EDIT.last_rule_reason
+    with forced_clean_prefix():
+        forced, fw, _, _ = tr.edit(gen_at(1), req)
+    _close(w, -4.125)
+    _close(w, fw)
+    score, _ = model.assess(new.get_choices(), ())
+    _close(score, -6.8818, 1e-4)
+    _close(new.get_score(), score)
+    _close(forced.get_score(), score)
+
+
 def _chain_through(levels, leaf_value):
     def make_last(v):
         return lambda: v

@@ -259,11 +259,23 @@ def test_batched_rebuild_matches_one_draw_at_a_time():
     assert out["b"].shape == (4, 5, 2, 3)
 
 
+class _ThreeRanks:
+    """A mesh axis of three ranks, enough to reach the sharding checks
+    without a process group."""
+
+    def axis_size(self, axis):
+        return 3
+
+
 @pytest.mark.parametrize("kw, item", [
-    (dict(mesh=object()), "item 15"),
+    (dict(mesh=_ThreeRanks(), algorithm="chees"), "must divide over 3 shards"),
+    (dict(mesh=_ThreeRanks(), algorithm="hmc"), "must divide over 3 shards"),
 ])
 def test_options_not_ported_raise_naming_their_item(kw, item):
-    with pytest.raises(NotImplementedError, match=item):
+    """Every option is ported: a mesh shards the chains of the column and
+    the trace-path algorithms alike, and a chain count the axis does not
+    divide raises."""
+    with pytest.raises(ValueError, match=item):
         sample_posterior(0, conjugate, OBS, (), g.S["mu"], device="cpu", **kw)
 
 

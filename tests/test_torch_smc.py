@@ -204,7 +204,8 @@ def test_particle_filter_other_methods(method):
 def test_entry_points_default_to_the_card():
     """Without a card every entry point that makes particles raises naming
     ``device='cpu'`` with its defaults; a generator on another device than
-    the one asked for raises; ``run_sharded`` names its roadmap item."""
+    the one asked for raises; ``run_sharded`` checks that its particles
+    divide over the mesh axis."""
     if torch.cuda.is_available():
         pytest.skip("a card is present: the defaults run there")
     kernel, _ = linear_gaussian_ssm()
@@ -222,5 +223,10 @@ def test_entry_points_default_to_the_card():
             call()
     with pytest.raises(ValueError, match="generator lives on cpu"):
         ImportanceK(target, k_particles=4).run_smc(torch.Generator(), device="meta")
-    with pytest.raises(NotImplementedError, match="item 15"):
-        SSMParticleFilter(kernel, n_particles=8).run_sharded()
+    class ThreeRanks:
+        def axis_size(self, axis):
+            return 3
+
+    with pytest.raises(ValueError, match="must divide over 3 shards"):
+        SSMParticleFilter(kernel, n_particles=8).run_sharded(0, 0.0, torch.zeros(2), g.C[:, "y"].set(torch.zeros(2)),
+                                                             ThreeRanks())

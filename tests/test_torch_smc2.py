@@ -123,9 +123,17 @@ def test_inner_resample_indices_equal_the_counts_expansion():
         assert torch.equal(idx[b], _indices_from_counts(counts[b], 17))
 
 
+class _FiveRanks:
+    """A mesh axis of five ranks, enough to reach ``smc2``'s sharding check
+    without a process group."""
+
+    def axis_size(self, axis):
+        return 5
+
+
 def test_mesh_and_defaults():
-    with pytest.raises(NotImplementedError, match="item 15"):
-        _run(0, mesh=object())
+    with pytest.raises(ValueError, match="must divide over 5 shards"):
+        _run(0, mesh=_FiveRanks())
     with pytest.raises(ValueError, match="n_steps"):
         smc2(0, kernel, theta_sample, theta_logprior, 0.0, None, g.C[:, "y"].set(torch.from_numpy(YS)),
              n_theta=4, n_x=4, device="cpu")
