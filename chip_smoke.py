@@ -76,7 +76,13 @@ against forward-backward and a PMMH run, the elliptical and slice requests
 and involutive MCMC over 65,536 chains in law, SBC over 16,384
 simulations, the posterior predictive of ``linear_regression``, PPCA at n =
 100,000 x d = 64 against float64 and its ML fit, and the BNN's ADVI fit
-against its exact linear posterior. It checks
+against its exact linear posterior; the column samplers' twins (HMC, NUTS,
+ChEES) on the row-sharded ``tp_bnn_logdensity`` over a one-rank model axis
+against the unsharded twin on the same seed; and every cookbook of
+``genjax_tpu_torch/cookbook`` (the reference's ``examples/``) as
+``--device cuda`` runs it, in a process of its own beside the host-bound
+phases from the column samplers on (``python3 chip_smoke.py --cookbooks
+OUT`` is that process), each with its seconds and K1/K3/K4 launches. It checks
 that each path launched its kernel in the variant it should (K1 and K4: the
 body's; K3: the tiled one), and agrees in law with the plain twin; it checks
 each kernel's shared-memory reckoning in Python against the kernel's own,
@@ -3242,7 +3248,10 @@ HMM_LOGPDF_DRAWS = 16
 GIBBS_CHAINS, GIBBS_SWEEPS, GIBBS_BURN = 16384, 400, 100
 GIBBS_X = 1.4
 GIBBS_LANES = 4096
-PG_STATES, PG_T, PG_PARTICLES, PG_SWEEPS, PG_BURN = 16, 64, 256, 400, 100
+# 200 sweeps after 50 of burn-in: the run's slowest path, kept short so that
+# the script, with the cookbooks' process beside it, stays well inside its
+# time; the gate below is in SEs of the draws kept
+PG_STATES, PG_T, PG_PARTICLES, PG_SWEEPS, PG_BURN = 16, 64, 256, 200, 50
 # tests/inference/test_pgibbs.py holds 500 draws' smoothed means within 0.25
 # of the RTS smoother's, whose sds are about 0.41 (13.6 SE of independent
 # draws), and their variances within a ratio of 0.5 to 1.7 (7.9 and 11 SE):
@@ -3484,7 +3493,7 @@ def gibbs_path(device, smi: str, g) -> None:
 
 def pgibbs_path(device, smi: str, g) -> None:
     """``[main path pgibbs]``: ``particle_gibbs`` with ancestor sampling on
-    the exact testbed's chain (16 states, T = 64), 256 particles x 400
+    the exact testbed's chain (16 states, T = 64), 256 particles x 200
     sweeps, against ``forward_backward``'s smoothed marginals; one ``pmmh``
     run over a particle filter's estimate."""
     from genjax_tpu_torch.dists import hmm_tools as ht
@@ -4568,6 +4577,217 @@ def time_travel_path(device, smi: str, g) -> None:
                          f"{time.perf_counter() - t0:.1f} s")
 
 
+# the column samplers on the row-sharded tp_bnn_logdensity at a world of one
+# rank (the [parallel] phase's BNN shape), each against the unsharded twin on
+# the same seed: positions within TPS_TOL, the statistics within TPS_STAT_TOL
+TPS_SEED = 17
+TPS_HMC_STEPS, TPS_HMC_L, TPS_EPS = 10, 5, 0.005
+TPS_NUTS_STEPS, TPS_NUTS_DEPTH = 2, 5
+TPS_CHEES_WARMUP, TPS_CHEES_STEPS = 10, 5
+TPS_TOL = 1e-4
+TPS_STAT_TOL = 1e-5
+
+
+def tp_sampling_path(device, smi: str) -> None:
+    """``[tensor-parallel sampling]``: ``pallas_hmc(backend="torch")``, the
+    NUTS twin ``nuts_sweep_cols`` and ``chees_hmc`` on ``tp_bnn_logdensity``
+    (hidden 256, d_in 8, 64 rows, 1,024 chains) over a ``(1, 1)`` ``("model",
+    "batch")`` mesh of one NCCL rank, each held against the unsharded twin
+    ``bnn_logdensity_reference`` on the same seed, with its time (host clock
+    around a synchronised run) and the collectives it issued."""
+    import os
+    import tempfile
+
+    import torch.distributed as dist
+    from genjax_tpu_torch.kernels import chees_hmc, nuts_sweep_cols, pallas_hmc
+    from genjax_tpu_torch.parallel import (
+        bnn_logdensity_reference, bnn_param_count, collective_counts, collective_log, initialize_distributed,
+        make_mesh_2d, shard_params, tp_bnn_logdensity,
+    )
+
+    t_tp = time.perf_counter()
+    rng = np.random.default_rng(TPS_SEED)
+    d = bnn_param_count(PAR_BNN_D_IN, PAR_BNN_HIDDEN)
+    X = torch.from_numpy(rng.normal(size=(PAR_BNN_M, PAR_BNN_D_IN)).astype(np.float32)).to(device)
+    y = torch.from_numpy(rng.normal(size=PAR_BNN_M).astype(np.float32)).to(device)
+    q_all = torch.from_numpy((rng.normal(size=(d, PAR_BNN_CHAINS)) * 0.3).astype(np.float32)).to(device)
+    samplers = [
+        ("pallas_hmc(backend='torch')", lambda ld, q: pallas_hmc(
+            ld, q, 11, n_steps=TPS_HMC_STEPS, eps=TPS_EPS, L=TPS_HMC_L, backend="torch")),
+        ("nuts_sweep_cols", lambda ld, q: nuts_sweep_cols(
+            ld, q, 5, n_steps=TPS_NUTS_STEPS, eps=TPS_EPS, max_depth=TPS_NUTS_DEPTH)),
+        ("chees_hmc", lambda ld, q: (lambda qi: (qi[0], qi[1].accept_rate))(chees_hmc(
+            ld, q, 6, n_warmup=TPS_CHEES_WARMUP, n_steps=TPS_CHEES_STEPS, eps0=TPS_EPS))),
+    ]
+    store_dir = tempfile.mkdtemp()
+    initialize_distributed(rank=0, world_size=1, store=dist.FileStore(os.path.join(store_dir, "store"), 1),
+                           device_type=device.type)
+    try:
+        mesh = make_mesh_2d((1, 1), axes=("model", "batch"), device=device.type)
+        ld_tp = tp_bnn_logdensity(X, y, PAR_BNN_HIDDEN, mesh)
+        ld_ref = bnn_logdensity_reference(X, y, PAR_BNN_HIDDEN)
+        q0 = shard_params(q_all, mesh)
+        for name, run in samplers:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with collective_log() as log:
+                q_tp, stat_tp = run(ld_tp, q0)[:2]
+                torch.cuda.synchronize()
+            tp_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            q_ref, stat_ref = run(ld_ref, q_all)[:2]
+            torch.cuda.synchronize()
+            ref_s = time.perf_counter() - t0
+            diff = (q_tp - q_ref).abs().amax(dim=0)
+            frac = float((diff <= TPS_TOL).float().mean())
+            stat_err = abs(float(stat_tp) - float(stat_ref))
+            counts = collective_counts(log)
+            check(bool(torch.isfinite(q_tp).all()), f"[tensor-parallel sampling] {name}: non-finite positions")
+            check(frac == 1.0, f"[tensor-parallel sampling] {name}: {frac:.5f} of chains within {TPS_TOL} "
+                               f"of the unsharded twin (max {float(diff.max()):.3g})")
+            check(stat_err <= TPS_STAT_TOL, f"[tensor-parallel sampling] {name}: accept {float(stat_tp)} vs "
+                                            f"{float(stat_ref)}")
+            check(counts["count"] > 0 and {o["group"] for o in counts["ops"]} <= {"model", "batch"},
+                  f"[tensor-parallel sampling] {name}: collectives {counts['ops']}")
+            by_group = {}
+            for o in counts["ops"]:
+                by_group[o["group"]] = by_group.get(o["group"], 0) + o["calls"]
+            phase("tensor-parallel sampling",
+                  f"{smi}: {name} on tp_bnn_logdensity (hidden {PAR_BNN_HIDDEN}, d_in {PAR_BNN_D_IN}, "
+                  f"{PAR_BNN_M} rows, D = {d}, {PAR_BNN_CHAINS} chains, mesh {mesh.shape}): every chain within "
+                  f"{TPS_TOL} of the unsharded twin (max {float(diff.max()):.3g}), accept {float(stat_tp):.6f} vs "
+                  f"{float(stat_ref):.6f}; {tp_s * 1e3:.1f} ms sharded, {ref_s * 1e3:.1f} ms unsharded (host "
+                  f"clock, synchronised, first call); {counts['count']} collectives ({counts['bytes']} B): "
+                  + ", ".join(f"{n} over {g_}" for g_, n in sorted(by_group.items())))
+    finally:
+        dist.destroy_process_group()
+    phase("tensor-parallel sampling", f"the phase took {time.perf_counter() - t_tp:.1f} s; group destroyed")
+
+
+def cookbook_child(device, out_path: str) -> None:
+    """``[cookbook]``'s work: every cookbook of ``genjax_tpu_torch/cookbook``
+    run as ``--device cuda`` runs it (``main(device="cuda")``, in this
+    process), its own assertions its gate, so a cookbook that raises ends
+    the process with an error. For each, its wall seconds (host clock), the
+    K1, K3 and K4 launches it made (the counts set to 0 just before it and
+    read just after) and its last printed line, written to ``out_path`` as
+    JSON after each cookbook, with the seconds since the process started
+    (``at``)."""
+    import contextlib
+    import importlib
+    import io
+
+    from genjax_tpu_torch.cookbook import COOKBOOKS
+    from genjax_tpu_torch.kernels import elliptical, hmc, nuts_pallas
+
+    out = {}
+    for name in COOKBOOKS:
+        hmc.hmc_sweep_launches = 0
+        nuts_pallas.nuts_sweep_launches = 0
+        elliptical.ess_gauss_sweep_launches = 0
+        mod = importlib.import_module(f"genjax_tpu_torch.cookbook.{name}")
+        printed = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(printed):
+            mod.main(device=device.type)
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        out[name] = {"s": time.perf_counter() - t0, "K1": hmc.hmc_sweep_launches,
+                     "K3": elliptical.ess_gauss_sweep_launches, "K4": nuts_pallas.nuts_sweep_launches,
+                     "said": (printed.getvalue().strip().splitlines() or [""])[-1][:160],
+                     "at": time.perf_counter() - T_START}
+        print(f"[cookbook] {name}: {out[name]['s']:.2f} s [t+{time.perf_counter() - T_START:.1f} s]", flush=True)
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+        with open(out_path, "w") as f:
+            json.dump(out, f)
+
+
+def cookbook_start():
+    """Start ``[cookbook]`` in a process of its own, ``python3 chip_smoke.py
+    --cookbooks OUT``, beside the later phases: the cookbooks are host-bound
+    (the card idle most of the time) and the kernels' timings are done by
+    then. Returns ``(process, out_path, log_path, t0)``."""
+    import os
+    import tempfile
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_cookbook_")
+    out_path, log_path = os.path.join(work, "cookbooks.json"), os.path.join(work, "cookbooks.log")
+    log = open(log_path, "w")
+    proc = subprocess.Popen([sys.executable, __file__, "--cookbooks", out_path], stdout=log,
+                            stderr=subprocess.STDOUT)
+    log.close()
+    return proc, out_path, log_path, time.perf_counter()
+
+
+def cookbook_finish(started, smi: str) -> None:
+    """Wait for ``[cookbook]``'s process and report each cookbook; the run
+    fails unless every cookbook of the package ran and the process ended
+    with 0."""
+    from genjax_tpu_torch.cookbook import COOKBOOKS
+
+    proc, out_path, log_path, t0 = started
+    rc = proc.wait()
+    wall = time.perf_counter() - t0
+    if rc != 0:
+        with open(log_path) as f:
+            print(f.read()[-8000:], flush=True)
+    check(rc == 0, f"[cookbook] the cookbooks' process ended with {rc} (its log's end above)")
+    with open(out_path) as f:
+        out = json.load(f)
+    check(list(out) == list(COOKBOOKS), f"[cookbook] ran {list(out)}, not {list(COOKBOOKS)}")
+    for name, r in out.items():
+        phase("cookbook", f"{smi}: {name} --device cuda: {r['s']:.2f} s, K1 {r['K1']}, K3 {r['K3']}, "
+                          f"K4 {r['K4']} launches; it said: {r['said']}")
+    phase("cookbook", f"{len(out)} cookbooks in {sum(r['s'] for r in out.values()):.1f} s of their own, done "
+                      f"{out[COOKBOOKS[-1]]['at']:.1f} s after their process started, beside the phases from "
+                      f"[column samplers] on (collected {wall:.1f} s after the start, when those ended)")
+
+
+def finish_phases(device, smi: str, g, hmc, nuts_pallas, elliptical, model, y, k1_draws) -> int:
+    """The phases after the GP path, which need no kernel timing of their
+    own and run beside ``[cookbook]``'s process. Each path returns the
+    memory its allocator cached (``torch.cuda.empty_cache``) before the
+    next: the two processes share the card, and NCCL allocates outside
+    torch's allocator. Returns the K1 launches of the checkpointed run."""
+
+    def settled(fn, *args):
+        out = fn(*args)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        return out
+
+    # ---- the column samplers: ChEES, PT, the dense metric, SVGD (no kernel)
+    settled(column_samplers_path, device, smi, g, hmc, nuts_pallas, elliptical, model, y, k1_draws)
+
+    # ---- the combinators: the scanned state-space model and every configuration
+    t_comb = time.perf_counter()
+    settled(ssm_path, device, smi, g, hmc)
+    settled(combinators_path, device, smi, g)
+    phase("combinators", f"the combinator phases took {time.perf_counter() - t_comb:.1f} s")
+
+    # ---- SMC and GenSP: the particle filter, tempered SMC, SIR, the Kalman oracle (no kernel)
+    settled(smc_path, device, smi, g)
+
+    # ---- the catalog, ADEV and VI, MAP and Laplace, ADVI (no kernel)
+    settled(vi_path, device, smi, g)
+
+    # ---- the discrete HMM, Gibbs, particle Gibbs, the requests, involutive
+    # MCMC, predictive checks and SBC, PPCA and the BNN (no kernel)
+    settled(discrete_path, device, smi, g)
+
+    # ---- ABC, SMC², ChEES-tempered SMC, nested sampling, Pathfinder, model
+    # comparison (no kernel), and checkpointed resume of sample_posterior (K1)
+    ck_launches = settled(population_path, device, smi, g, hmc, model, y)
+
+    # ---- the incremental edit, the runtime checks and the time-travel debugger (no kernel)
+    settled(edit_path, device, smi, g, model, y)
+    settled(checkify_path, device, smi, g)
+    settled(time_travel_path, device, smi, g)
+
+    return ck_launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this test needs a CUDA card",
@@ -4987,39 +5207,29 @@ def main() -> int:
     # ---- the scale-out layer at a world of one rank on NCCL (K1 and K4 on the shard)
     par_launches = parallel_path(device, smi, g, hmc, nuts_pallas, model, y, k1_draws)
 
+    # ---- the column samplers on a row-sharded (tensor-parallel) density (no kernel)
+    tp_sampling_path(device, smi)
+
     # ---- the NUTS trace path: sample_posterior nuts/hmc, and run_chains_nuts on K4
     rcn_launches = trace_nuts_path(device, smi, g, hmc, nuts_pallas, model, y)
 
     # ---- the GP / elliptical-slice path (K3)
     k3_entry = gp_path(device, smi, elliptical)
 
-    # ---- the column samplers: ChEES, PT, the dense metric, SVGD (no kernel)
-    column_samplers_path(device, smi, g, hmc, nuts_pallas, elliptical, model, y, k1_draws)
-
-    # ---- the combinators: the scanned state-space model and every configuration
-    t_comb = time.perf_counter()
-    ssm_path(device, smi, g, hmc)
-    combinators_path(device, smi, g)
-    phase("combinators", f"the combinator phases took {time.perf_counter() - t_comb:.1f} s")
-
-    # ---- SMC and GenSP: the particle filter, tempered SMC, SIR, the Kalman oracle (no kernel)
-    smc_path(device, smi, g)
-
-    # ---- the catalog, ADEV and VI, MAP and Laplace, ADVI (no kernel)
-    vi_path(device, smi, g)
-
-    # ---- the discrete HMM, Gibbs, particle Gibbs, the requests, involutive
-    # MCMC, predictive checks and SBC, PPCA and the BNN (no kernel)
-    discrete_path(device, smi, g)
-
-    # ---- ABC, SMC², ChEES-tempered SMC, nested sampling, Pathfinder, model
-    # comparison (no kernel), and checkpointed resume of sample_posterior (K1)
-    ck_launches = population_path(device, smi, g, hmc, model, y)
-
-    # ---- the incremental edit, the runtime checks and the time-travel debugger (no kernel)
-    edit_path(device, smi, g, model, y)
-    checkify_path(device, smi, g)
-    time_travel_path(device, smi, g)
+    # ---- the reference's cookbooks on the port, each as --device cuda runs
+    # it, in a process of its own beside the host-bound phases that follow
+    cookbooks = cookbook_start()
+    try:
+        ck_launches = finish_phases(device, smi, g, hmc, nuts_pallas, elliptical, model, y, k1_draws)
+        cookbook_finish(cookbooks, smi)
+    except BaseException:
+        with open(cookbooks[2]) as f:
+            print("[cookbook] the cookbooks' process, its log so far:\n" + f.read()[-6000:], flush=True)
+        raise
+    finally:
+        if cookbooks[0].poll() is None:
+            cookbooks[0].kill()
+            cookbooks[0].wait()
 
     print(json.dumps({"kernels": [{
         "name": "hmc_sweep (K1, with K2's counter PRNG as device functions)",
@@ -5072,4 +5282,11 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--cookbooks"]:
+        # [cookbook]'s process (cookbook_start): the card's, TF32 off as in the run
+        if not torch.cuda.is_available():
+            sys.exit(1)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        cookbook_child(torch.device("cuda"), sys.argv[2])
+        sys.exit(0)
     sys.exit(main())

@@ -152,7 +152,8 @@ class VmapCombinator(GenerativeFunction):
         k = len(extras)
 
         def body(*xs):
-            return fn(*xs[:k], pytree.tree_unflatten(list(xs[k:]), spec))
+            # a lane's None (a body that returns nothing) is no vmap output
+            return none_free(fn(*xs[:k], pytree.tree_unflatten(list(xs[k:]), spec)))
 
         return torch.func.vmap(body, in_dims=(*extra_dims, *axes), randomness="different")(
             *extras, *leaves

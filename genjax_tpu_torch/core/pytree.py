@@ -86,6 +86,28 @@ class Pytree:
         metadata[_STATIC_MARK] = True
         return dataclasses.field(metadata=metadata, **kwargs)
 
+    @staticmethod
+    def field(**kwargs) -> Any:
+        """Declare a dynamic (leaf-bearing) field."""
+        return dataclasses.field(**kwargs)
+
+    @staticmethod
+    def const(v: Any) -> "Const":
+        """``v`` as a static constant carried in the tree's context."""
+        return v if isinstance(v, Const) else Const(v)
+
+    @staticmethod
+    def partial(*closed_over) -> Callable[[Callable], "Closure"]:
+        """``Pytree.partial(x)(fn)``: ``fn`` closed over the dynamic ``x``."""
+
+        def decorator(fn: Callable) -> "Closure":
+            return Closure(closed_over, fn)
+
+        return decorator
+
+    def replace(self, **updates):
+        return dataclasses.replace(self, **updates)  # type: ignore[type-var]
+
     def __repr__(self) -> str:
         parts = []
         for f in dataclasses.fields(self):  # type: ignore[arg-type]

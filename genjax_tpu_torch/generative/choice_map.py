@@ -15,7 +15,7 @@ flag decides comes back ``Mask``-wrapped; ``unmask()`` it.
 from __future__ import annotations
 
 import abc
-from typing import Any, Iterable, Mapping
+from typing import Any, Callable, Iterable, Mapping
 
 import numpy as np
 import torch
@@ -105,6 +105,13 @@ class ChoiceMap(Pytree):
     @staticmethod
     def empty() -> "ChoiceMap":
         return _EMPTY
+
+    @staticmethod
+    def choice(v: Any) -> "ChoiceMap":
+        """A value node: the map of ``v`` at the empty address."""
+        return ValueChm(v)
+
+    value = choice
 
     @staticmethod
     def entry(v: Any, *addrs) -> "ChoiceMap":
@@ -203,6 +210,12 @@ class ChoiceMap(Pytree):
 
     def get_selection(self) -> Selection:
         return ChmSel(self)
+
+    @property
+    def at(self) -> "_ChoiceMapBuilder":
+        """``chm.at["a"].set(v)``: the entry layered over this map, with
+        priority."""
+        return _ChoiceMapBuilder(self, ())
 
     def extend(self, *addrs) -> "ChoiceMap":
         acc = self
@@ -661,19 +674,48 @@ class _ChoiceMapBuilder:
     index array takes one position of ``v``'s leading axis each
     (``C[idx, "y"]``)."""
 
-    def __init__(self, path: tuple):
+    def __init__(self, base: ChoiceMap | None, path: tuple):
+        self._base = base
         self._path = path
 
     def __getitem__(self, addr) -> "_ChoiceMapBuilder":
         addr = addr if isinstance(addr, tuple) else (addr,)
-        return _ChoiceMapBuilder(self._path + addr)
+        return _ChoiceMapBuilder(self._base, self._path + addr)
 
     def set(self, v) -> ChoiceMap:
-        return ChoiceMap.entry(v, *self._path)
+        entry = ChoiceMap.entry(v, *self._path)
+        if self._base is None or self._base.static_is_empty():
+            return entry
+        return entry | self._base
 
+    def update(self, fn: Callable[[Any], Any]) -> ChoiceMap:
+        """The entry set to ``fn`` of the base map's value there (of None
+        without a base)."""
+        if self._base is None:
+            return self.set(fn(None))
+        return self.set(fn(self._base.get_submap(*self._path).get_value()))
+
+    # the ChoiceMap constructors, placed at the builder's path
     def kw(self, **kwargs) -> ChoiceMap:
         return ChoiceMap.kw(**kwargs).extend(*self._path)
 
+    def d(self, mapping) -> ChoiceMap:
+        return ChoiceMap.d(mapping).extend(*self._path)
 
-C = _ChoiceMapBuilder(())
+    def v(self, value) -> ChoiceMap:
+        return ChoiceMap.entry(value, *self._path)
+
+    value = v
+
+    def from_mapping(self, pairs) -> ChoiceMap:
+        return ChoiceMap.from_mapping(pairs).extend(*self._path)
+
+    def switch(self, idx, chms) -> ChoiceMap:
+        return ChoiceMap.switch(idx, chms).extend(*self._path)
+
+    def empty(self) -> ChoiceMap:
+        return ChoiceMap.empty()
+
+
+C = _ChoiceMapBuilder(None, ())
 ChoiceMapBuilder = C

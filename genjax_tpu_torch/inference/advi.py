@@ -32,6 +32,7 @@ import torch.utils._pytree as pytree
 from ..core.device import entry_generator, to_device
 from ..core.pytree import Pytree
 from ._adam import adam_init, adam_update
+from ..kernels.rows import refuse_row_sharded
 
 _LOG2PI = 1.8378770664093453
 
@@ -101,6 +102,7 @@ def advi(
     ``q`` cannot reach the target's family, STL gradients do not vanish at
     the optimum and a decaying schedule passes below the noise floor.
     """
+    refuse_row_sharded(logdensity_cols, "advi")
     if rank not in ("diag", "full"):
         raise ValueError(f"rank must be 'diag' or 'full', got {rank!r}")
     if estimator not in ("stl", "entropy"):

@@ -42,6 +42,7 @@ from ..generative.choice_map import ChoiceMap
 from ..kernels.model_interface import ColumnPacker, column_logdensity
 from ._lbfgs import lbfgs_init, lbfgs_update, value_and_grad_from_state
 from .model_comparison import _psis_smooth_column
+from ..kernels.rows import refuse_row_sharded
 
 _LOG2PI = 1.8378770664093453
 
@@ -193,6 +194,7 @@ def pathfinder(
     ``column_logdensity`` convention), through which autograd goes.
     ``init``: an optional ``(D,)`` start (by default uniform on
     ``(-init_scale, init_scale)``, Stan's convention)."""
+    refuse_row_sharded(logdensity_cols, "pathfinder")
     gen, device = entry_generator(gen, device, "pathfinder")
     res = _paths(gen, logdensity_cols, dim, 1, device, init=init, n_iters=n_iters, history=history,
                  n_elbo_samples=n_elbo_samples, n_draws=n_draws, init_scale=init_scale, jitter=jitter)
@@ -252,6 +254,7 @@ def multi_pathfinder(
     """``n_paths`` Pathfinders from independent starts, run as one batch,
     their draws pooled and resampled by Pareto-smoothed importance weights
     ``log p - log q`` (Vehtari et al. 2017): the paper's algorithm 2."""
+    refuse_row_sharded(logdensity_cols, "multi_pathfinder")
     gen, device = entry_generator(gen, device, "multi_pathfinder")
     return _multi(gen, logdensity_cols, dim, n_paths, n_resample, device, path_kwargs)
 

@@ -389,13 +389,14 @@ def _static_value_paths(chm, prefix=()):
 
 def _column_prep(gen, model, constraint, args, selection: Selection, n_chains: int, device):
     """The column drivers' set-up: the selection resolved to packer paths
-    (from the shapes of a zero trace), the column log-density, and
-    ``n_chains`` prior-initialised columns on ``device`` drawn from ``gen``.
-    Returns ``(packer, ld, q0)``."""
-    shape_chm = model.get_zero_trace(*args).get_choices().filter_eager(selection)
-    paths = _static_value_paths(shape_chm)
+    (from the shapes of one trace simulated on ``device``, where the model's
+    arguments and constants live), the column log-density, and ``n_chains``
+    prior-initialised columns on ``device`` drawn from ``gen``. Returns
+    ``(packer, ld, q0)``."""
     constraint, args = to_device(constraint, device), to_device(args, device)
-    packer = ColumnPacker(model, constraint, args, paths)
+    shape_chm = model.simulate(torch.Generator(device=device).manual_seed(0), args).get_choices()
+    paths = _static_value_paths(shape_chm.filter_eager(selection))
+    packer = ColumnPacker(model, constraint, args, paths, device=device)
     ld = column_logdensity(model, constraint, args, packer)
     return packer, ld, init_columns(model, constraint, args, packer, n_chains, gen, device)
 

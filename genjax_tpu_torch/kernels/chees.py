@@ -33,6 +33,7 @@ import torch
 from ..core.device import chain_generator
 from .adaptation import StepSizeAdaptState, _f32, _halton2, chain_mean, cross_chain_inv_mass, dual_averaging_update
 from .hmc import _lp_grad
+from .rows import Rows, chain_mesh
 
 
 @dataclasses.dataclass(frozen=True)
@@ -92,13 +93,21 @@ def chees_hmc(
     records their positions in ``info.draws``. With ``mesh`` (a
     ``parallel.Mesh``), ``q0`` is this rank's share of chains sharded over
     its ``axis``: the cross-chain means and sums of the adaptation and the
-    reported rates are every rank's, so every rank adapts alike.
+    reported rates are every rank's, so every rank adapts alike. A
+    row-sharded density (``.row_shard``): ``q0`` is this rank's block, the
+    kinetic energies, the finiteness check and the criterion's sums over
+    rows are sums over the model axis, every model rank of a chain draws
+    alike (its rows of the full-height momentum, the same uniforms), and the
+    chain means run over the density's chain axis where no ``mesh`` is
+    given.
 
     Returns ``(q_final, ChEESInfo)``.
     """
     d, n = q0.shape
     device = q0.device
-    gen = chain_generator(seed, device, "chees_hmc")
+    rows = Rows(logdensity_cols, d)
+    mesh, axis = chain_mesh(logdensity_cols, mesh, axis)
+    gen = chain_generator(rows.seed(seed), device, "chees_hmc")
     q = q0.to(torch.float32)
     if inv_mass is None:
         inv_mass0 = torch.ones(d, dtype=torch.float32, device=device)
@@ -107,11 +116,11 @@ def chees_hmc(
 
     def sweep(q, lp, g, step_idx, eps, log_t, inv_mass):
         im_col = inv_mass[:, None]
-        p = (1.0 / torch.sqrt(im_col)) * torch.randn((d, n), generator=gen, device=device)
+        p = (1.0 / torch.sqrt(im_col)) * rows.normal(lambda dd: torch.randn((dd, n), generator=gen, device=device))
         u = torch.rand((n,), generator=gen, device=device)
 
         def kinetic(p_):
-            return 0.5 * torch.sum(im_col * p_ * p_, dim=0)
+            return 0.5 * rows.sum(im_col * p_ * p_)
 
         tau = float(_halton2(step_idx)) * torch.exp(log_t)
         # the shared leapfrog count: one host read a sweep
@@ -126,7 +135,7 @@ def chees_hmc(
         alpha = torch.where(
             torch.isnan(log_alpha), 0.0, torch.clamp(torch.exp(torch.clamp(log_alpha, max=0.0)), max=1.0)
         )
-        finite_pos = torch.all(torch.isfinite(q1), dim=0)
+        finite_pos = rows.all_finite(q1)
         accept = (torch.log(u) < log_alpha) & finite_pos
         qn = torch.where(accept, q1, q)
         lpn = torch.where(accept, lp1, lp)
@@ -143,10 +152,8 @@ def chees_hmc(
         p1s = torch.where(ok, p1, torch.zeros_like(p1))
         qm = chain_mean(q, 1, mesh=mesh, axis=axis, keepdim=True)
         qm1 = chain_mean(q1s, 1, mesh=mesh, axis=axis, keepdim=True)
-        dsq0 = torch.sum((q - qm) ** 2, dim=0)
-        dsq1 = torch.sum((q1s - qm1) ** 2, dim=0)
         v1 = im_col * p1s  # dq/dtime at the endpoint
-        proj = torch.sum((q1s - qm1) * v1, dim=0)
+        dsq0, dsq1, proj = rows.sums((q - qm) ** 2, (q1s - qm1) ** 2, (q1s - qm1) * v1)
         per_chain = (dsq1 - dsq0) * proj
         contrib = torch.where(torch.isfinite(per_chain), alpha * per_chain, 0.0)
         sums = torch.stack([torch.sum(contrib), torch.sum(alpha)])

@@ -29,6 +29,7 @@ import torch
 from ..core.device import chain_generator
 from .adaptation import _f32, chain_mean, multiplicative_nudge
 from .hmc import _lp_grad
+from .rows import refuse_row_sharded
 
 
 def cross_chain_cov(q: torch.Tensor, *, shrinkage: float = 0.1, jitter: float = 1e-6, mesh=None,
@@ -74,6 +75,7 @@ def hmc_sweep_dense_cols(
     ``(n_steps, D, N)``. With ``mesh``, the accept rate is every rank's
     chains'.
     """
+    refuse_row_sharded(logdensity_cols, "hmc_sweep_dense_cols")
     d, n = q0.shape
     device = q0.device
     gen = chain_generator(seed, device, "hmc_sweep_dense_cols")
@@ -142,6 +144,7 @@ def warmup_column_dense(
     this rank's share of chains over its ``axis``, and the accept rates and
     covariances are every rank's.
     """
+    refuse_row_sharded(logdensity_cols, "warmup_column_dense")
     d, _ = q0.shape
     if not isinstance(seed, torch.Generator):
         seed = (int(seed) + 1) * 1_000_003
@@ -185,6 +188,7 @@ def whiten_logdensity(logdensity_cols: Callable, cov_chol, mean=0.0):
     >>> bool(torch.allclose(unwhiten(whiten(q)), q, atol=1e-6))
     True
     """
+    refuse_row_sharded(logdensity_cols, "whiten_logdensity")
     cov_chol = _f32(cov_chol)
     d = cov_chol.shape[0]
     mean = _f32(mean).to(cov_chol.device)

@@ -34,6 +34,7 @@ import torch
 from ..core.device import entry_device
 from . import _build
 from .hmc import _RNG_IDS, _counter_stream, _int32, _normal, _route, _uniform_01
+from .rows import refuse_row_sharded
 
 _TWO_PI = 6.283185307179586
 _SEED_MIX = 0xE5517
@@ -116,6 +117,7 @@ def ess_transition_cols(
     Returns ``(q_new, n_iters)``, ``n_iters`` the ``(N,)`` per-chain shrink
     iteration counts (0 = first proposal accepted).
     """
+    refuse_row_sharded(log_lik_cols, "ess_transition_cols")
     d, n = q.shape
     mean = _col(mean, d, q.device)
     z = torch.randn((d, n), generator=gen, device=q.device)
@@ -153,6 +155,7 @@ def ess_sweep_cols(
     seeded with ``seed ^ 0xE5517``; ``rng_impl`` is accepted for the
     reference's signature and selects nothing (the port has no threefry or
     rbg stream)."""
+    refuse_row_sharded(log_lik_cols, "ess_sweep_cols")
     q = _f32(q0, None)
     gen = _generator(seed, q.device)
     draws = []

@@ -31,6 +31,7 @@ import torch
 from . import _build
 from .adaptation import windowed_warmup
 from .bodies import Body
+from .rows import Rows, chain_mesh
 
 _TWO_PI = 6.283185307179586
 _M32 = 0xFFFFFFFF
@@ -102,7 +103,7 @@ def _counter_stream(seed: int, n: int, block_n: int, device):
     """``rand_bits`` over all ``n`` chains: chain ``i`` is column
     ``i % block_n`` of chain block ``i // block_n``."""
     idx = torch.arange(n, dtype=torch.int64, device=device)
-    return _sw_rand_bits_factory(_block_base(seed, idx // block_n), idx % block_n)
+    return _sw_rand_bits_factory(_block_base(int(seed) & _M32, idx // block_n), idx % block_n)
 
 
 # ----------------------------------------------------------------------
@@ -150,10 +151,18 @@ def _reference_hmc(
     ``block_n``: momentum on salts ``4i``/``4i+1`` over ``(D, block)``, the
     accept uniform on salt ``4i+2`` over ``(1, block)``.
 
+    A row-sharded density (``.row_shard``, ``kernels/rows.py``): ``q0`` is
+    this rank's block, each kinetic energy is one sum over the model axis,
+    the momenta are this rank's rows of the full-height draw every model
+    rank makes alike, and the accept rate is the mean over every chain of
+    the mesh.
+
     Returns ``(q, accept_rate)``.
     """
     d, n = q0.shape
     device = q0.device
+    rows = Rows(logdensity_cols, d)
+    seed_or_generator = rows.seed(seed_or_generator)
     inv_mass = _inv_mass_col(inv_mass, d, device)
     mom_std = torch.sqrt(1.0 / inv_mass)
     if rng == "counter":
@@ -162,7 +171,8 @@ def _reference_hmc(
         bits = _counter_stream(int(seed_or_generator), n, block_n, device)
 
         def draws(i):
-            return _normal(bits, (d, n), 4 * i), _uniform_01(bits, (n,), 4 * i + 2)
+            z = rows.normal(lambda dd: _normal(bits, (dd, n), 4 * i))
+            return z, _uniform_01(bits, (n,), 4 * i + 2)
 
     elif rng == "generator":
         gen = seed_or_generator
@@ -170,14 +180,14 @@ def _reference_hmc(
             gen = torch.Generator(device=device).manual_seed(int(gen))
 
         def draws(i):
-            z = torch.randn((d, n), generator=gen, device=device)
+            z = rows.normal(lambda dd: torch.randn((dd, n), generator=gen, device=device))
             return z, torch.rand((n,), generator=gen, device=device)
 
     else:
         raise ValueError(f"rng must be 'generator' or 'counter', got {rng!r}")
 
     def kinetic(p):
-        return 0.5 * torch.sum(inv_mass * p * p, dim=0)
+        return 0.5 * rows.sum(inv_mass * p * p)
 
     q = q0.to(torch.float32)
     lp, g = _lp_grad(logdensity_cols, q)
@@ -198,7 +208,7 @@ def _reference_hmc(
         lp = torch.where(accept, lp_new, lp)
         g = torch.where(accept, g_new, g)
         accepted += accept.to(torch.float32)
-    return q, accepted.mean() / n_steps
+    return q, rows.chain_mean(accepted.mean() / n_steps)
 
 
 # ----------------------------------------------------------------------
@@ -453,8 +463,12 @@ def warmup_column(
     With ``mesh`` (a ``parallel.Mesh``), ``q0`` is this rank's shard of
     chains over ``axis`` and the windows adapt to every rank's chains.
 
+    A row-sharded density whose columns are split over a chain axis adapts
+    over that axis where no ``mesh`` is given.
+
     Returns ``(q, eps, inv_mass)`` ready for the main sweep.
     """
+    mesh, axis = chain_mesh(logdensity_cols, mesh, axis)
 
     def sweep(q, idx, eps, inv_mass):
         return pallas_hmc(

@@ -24,6 +24,7 @@ from ..core.device import chain_generator, entry_device, stream_seed
 from ..generative.choice_map import ChoiceMap
 from ..generative.gfi import GenerativeFunction
 from ..generative.mask import Mask
+from ..generative.trace import trace_device
 from .bodies import body_for
 from .chees import chees_hmc
 from .dense_mass import hmc_sweep_dense_cols, warmup_column_dense
@@ -57,11 +58,15 @@ def _value(chm: ChoiceMap, path: tuple):
 
 
 class ColumnPacker:
-    """Flatten/unflatten a set of addresses to/from a padded column vector."""
+    """Flatten/unflatten a set of addresses to/from a padded column vector.
+    The shapes come from one ``simulate`` on ``device``: the chains', where
+    given, else the arguments' (else the CPU), so that a model whose
+    arguments or constants live on the card draws there."""
 
-    def __init__(self, model, constraint, args, addresses: Sequence[Any]):
+    def __init__(self, model, constraint, args, addresses: Sequence[Any], device=None):
         self.addresses = list(addresses)
-        template = model.simulate(torch.Generator().manual_seed(0), args).get_choices()
+        device = device if device is not None else trace_device(args) or torch.device("cpu")
+        template = model.simulate(torch.Generator(device=device).manual_seed(0), args).get_choices()
         self.shapes = []
         offset = 0
         for addr in self.addresses:
@@ -216,7 +221,7 @@ def _prior_columns(model, constraint, args, addresses, n_chains: int, seed: int,
     columns on ``device``."""
     if constraint is None:
         constraint = ChoiceMap.empty()
-    packer = ColumnPacker(model, constraint, args, addresses)
+    packer = ColumnPacker(model, constraint, args, addresses, device=device)
     logdensity_cols = column_logdensity(model, constraint, args, packer)
     return packer, logdensity_cols, init_columns(model, constraint, args, packer, n_chains, seed, device)
 

@@ -43,6 +43,7 @@ from typing import Callable, NamedTuple
 import torch
 
 from .hmc import _counter_stream, _inv_mass_col, _lp_grad, _normal, _uniform_01
+from .rows import Rows
 
 
 class NUTSInfo(NamedTuple):
@@ -110,12 +111,17 @@ def _logaddexp(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.where(torch.isnan(delta), a + b, out)
 
 
-def _uturn(dz, inv_mass, r_a, r_b) -> torch.Tensor:
+def _uturn(dz, inv_mass, r_a, r_b, rows: Rows | None = None) -> torch.Tensor:
     """``dz . M^-1 r_a < 0`` or ``dz . M^-1 r_b < 0``, per chain (over the
-    leading axis: a column block, or one chain's ``(D,)`` vectors)."""
-    return (torch.sum(dz * inv_mass * r_a, dim=0) < 0.0) | (
-        torch.sum(dz * inv_mass * r_b, dim=0) < 0.0
-    )
+    leading axis: a column block, or one chain's ``(D,)`` vectors); with
+    ``rows``, both dot products over every row of the chain in one
+    reduction."""
+    if rows is None:
+        return (torch.sum(dz * inv_mass * r_a, dim=0) < 0.0) | (
+            torch.sum(dz * inv_mass * r_b, dim=0) < 0.0
+        )
+    a, b = rows.sums(dz * inv_mass * r_a, dz * inv_mass * r_b)
+    return (a < 0.0) | (b < 0.0)
 
 
 def nuts_transition(
@@ -267,19 +273,25 @@ def nuts_transition_cols(
     ``torch.Generator``, or an int seed. ``inv_mass`` is an optional
     diagonal inverse mass of shape ``(D,)`` or ``(D, 1)``.
 
+    A row-sharded density (``.row_shard``): ``q0`` is this rank's block; the
+    kinetic energies and both U-turn dot products are sums over the model
+    axis, and every model rank of a chain draws alike and keeps its rows of
+    the full-height momentum.
+
     Returns ``(z_new, NUTSInfo)`` with per-chain ``(N,)`` info fields.
     """
     d, n = q0.shape
     device = q0.device
-    draws = key if isinstance(key, NUTSDraws) else NUTSDraws("generator", key, n, None, device)
+    rows = Rows(logdensity_cols, d)
+    draws = key if isinstance(key, NUTSDraws) else NUTSDraws("generator", rows.seed(key), n, None, device)
     inv_mass = _inv_mass_col(inv_mass, d, device)
     mom_std = torch.sqrt(1.0 / inv_mass)
 
     def kinetic(r):
-        return 0.5 * torch.sum(inv_mass * r * r, dim=0)
+        return 0.5 * rows.sum(inv_mass * r * r)
 
     q0 = q0.to(torch.float32)
-    r0 = mom_std * draws.normal(d)
+    r0 = mom_std * rows.normal(draws.normal)
     ld0, g0 = _lp_grad(logdensity_cols, q0)
     energy0 = -ld0 + kinetic(r0)
     draws.advance()  # r0 took salts s and s + 1; the doubling starts at s + 4
@@ -345,7 +357,7 @@ def nuts_transition_cols(
             for j_off in range(ntz1):
                 slot = bc - 1 - j_off
                 dz = direction[None, :] * (z_new - ck_z[slot])
-                s_turn = s_turn | (active & _uturn(dz, inv_mass, ck_r[slot], r_new))
+                s_turn = s_turn | (active & _uturn(dz, inv_mass, ck_r[slot], r_new, rows))
 
             z = torch.where(active[None, :], z_new, z)
             r = torch.where(active[None, :], r_new, r)
@@ -366,7 +378,7 @@ def nuts_transition_cols(
         z_p, r_p, g_p = (torch.where(upd_f, s, t) for s, t in ((z, z_p), (r, r_p), (g, g_p)))
         z_m, r_m, g_m = (torch.where(upd_b, s, t) for s, t in ((z, z_m), (r, r_m), (g, g_m)))
 
-        global_turn = _uturn(z_p - z_m, inv_mass, r_m, r_p)
+        global_turn = _uturn(z_p - z_m, inv_mass, r_m, r_p, rows)
         n_leap = n_leap + torch.where(done, 0, 1 << j).to(torch.int32)
         depth = depth + (~done).to(torch.int32)
         t_turn, t_div = t_turn | s_turn, t_div | s_div
@@ -405,7 +417,9 @@ def nuts_sweep_cols(
     ordinary twin; ``rng="counter"`` follows the reference kernel's counter
     stream, salt schedule and per-block exits for chain block ``block_n``
     (see the module docstring). The statistics are accumulated per chain and
-    averaged at the end, as the kernel does.
+    averaged at the end, as the kernel does. A row-sharded density runs as
+    ``nuts_transition_cols`` says, its statistics averaged over every chain
+    of the mesh.
 
     Returns ``(q, accept_stat, mean_leapfrogs)``; with ``collect=True``,
     ``(q, accept_stat, mean_leapfrogs, draws, divergence_rate)`` where
@@ -413,7 +427,8 @@ def nuts_sweep_cols(
     """
     d, n = q0.shape
     device = q0.device
-    draws = NUTSDraws(rng, seed, n, block_n, device)
+    rows = Rows(logdensity_cols, d)
+    draws = NUTSDraws(rng, rows.seed(seed), n, block_n, device)
     q = q0.to(torch.float32)
     acc_sum = torch.zeros(n, dtype=torch.float32, device=device)
     leap_sum = torch.zeros(n, dtype=torch.float32, device=device)
@@ -429,9 +444,9 @@ def nuts_sweep_cols(
         div_sum = div_sum + info.diverged.to(torch.float32)
         if collect:
             samples.append(q)
-    accept_stat = acc_sum.mean() / n_steps
-    mean_leaps = leap_sum.mean() / n_steps
+    accept_stat = rows.chain_mean(acc_sum.mean() / n_steps)
+    mean_leaps = rows.chain_mean(leap_sum.mean() / n_steps)
     if collect:
         stacked = torch.stack(samples) if samples else q.new_zeros((0, d, n))
-        return q, accept_stat, mean_leaps, stacked, div_sum.mean() / n_steps
+        return q, accept_stat, mean_leaps, stacked, rows.chain_mean(div_sum.mean() / n_steps)
     return q, accept_stat, mean_leaps

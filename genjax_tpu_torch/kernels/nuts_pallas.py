@@ -29,6 +29,7 @@ from .adaptation import windowed_warmup
 from .bodies import Body
 from .hmc import _RNG_IDS, _inv_mass_col, _int32, _route
 from .nuts import nuts_sweep_cols
+from .rows import chain_mesh
 
 # launches of the CUDA NUTS kernel in this process
 nuts_sweep_launches = 0
@@ -231,10 +232,13 @@ def warmup_column_nuts(
     inverse mass from the cross-chain variance. Phase seeds
     ``(seed + 1) * 1_000_003 + phase`` are the reference's stream. With
     ``mesh`` (a ``parallel.Mesh``), ``q0`` is this rank's shard of chains
-    over ``axis`` and the phases adapt to every rank's chains.
+    over ``axis`` and the phases adapt to every rank's chains; a row-sharded
+    density whose columns are split over a chain axis adapts over that axis
+    where no ``mesh`` is given.
 
     Returns ``(q, eps, inv_mass)``.
     """
+    mesh, axis = chain_mesh(logdensity_cols, mesh, axis)
 
     def sweep(q, idx, eps, inv_mass):
         q, acc, _leaps = pallas_nuts(

@@ -31,6 +31,7 @@ import torch
 from ..core.device import chain_generator
 from .adaptation import StepSizeAdaptState, _f32, chain_mean, cross_chain_inv_mass, dual_averaging_update
 from .hmc import _lp_grad
+from .rows import refuse_row_sharded
 
 
 @dataclasses.dataclass(frozen=True)
@@ -91,6 +92,7 @@ def pt_hmc(
 
     Returns ``(q_cold (D, N), PTInfo)``.
     """
+    refuse_row_sharded(logdensity_cols, "pt_hmc")
     device = q0.device
     betas = _f32(betas).to(device)
     if betas.ndim != 1:

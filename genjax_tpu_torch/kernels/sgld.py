@@ -23,6 +23,7 @@ import torch.utils._pytree as pytree
 
 from ..core.device import chain_generator
 from .hmc import _lp_grad
+from .rows import refuse_row_sharded
 
 
 def minibatch_grad_cols(
@@ -62,6 +63,7 @@ def full_grad_cols(logdensity_cols: Callable) -> Callable:
     """The exact gradient of a column log-density ``(D, N) -> (N,)`` as a
     ``grad_fn(q, gen)`` that draws nothing: SGLD with it is ULA, SGHMC
     underdamped Langevin."""
+    refuse_row_sharded(logdensity_cols, "full_grad_cols")
 
     def grad_fn(q, gen):
         return _lp_grad(logdensity_cols, q)[1]

@@ -32,6 +32,7 @@ import torch
 
 from .adaptation import _f32
 from .hmc import _lp_grad
+from .rows import refuse_row_sharded
 
 
 def _pairwise_sq_dists(qa: torch.Tensor, qb: torch.Tensor) -> torch.Tensor:
@@ -108,6 +109,7 @@ def svgd(
     ``bandwidth_every=1`` is the exact heuristic each step, and an explicit
     ``bandwidth`` pins the scale. Returns the final particles ``(D, N)``.
     """
+    refuse_row_sharded(logdensity_cols, "svgd")
     q = _f32(q0)
     n = q.shape[1]
     h = None if bandwidth is None else _f32(bandwidth).to(q.device) ** 2

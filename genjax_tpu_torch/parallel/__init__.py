@@ -46,6 +46,7 @@ from .resampling import (
 )
 from .smc import ParticleFilterResult, SSMParticleFilter, sharded_importance
 from .tensor_parallel import (
+    RowShard,
     bnn_logdensity_reference,
     bnn_param_count,
     shard_params,
@@ -59,6 +60,7 @@ __all__ = [
     "Mesh",
     "ParticleFilterResult",
     "RBPFResult",
+    "RowShard",
     "SSMParticleFilter",
     "bnn_logdensity_reference",
     "bnn_param_count",

@@ -12,15 +12,21 @@ The flagship is ``tp_bnn_logdensity``: a wide one-hidden-layer Bayesian
 neural network whose hidden units are split over the model axis, a step's
 collective one ``(M + 1) x N_local`` sum whatever the width.
 
-The column samplers' plain twins sum a chain's kinetic energy and draw its
-momenta over the rows a rank holds, so they do not run a row-sharded chain:
-sampling over these densities needs the kinetic energy summed over the
-model axis too, which no sampler of the port does yet. The data-sharded
-density (``data.py``), whose ranks hold whole chains, has no such need.
+The density carries its row reduction (``.row_shard``, a ``RowShard``):
+the sum of a per-chain partial over the model axis, and the rank's place on
+that axis and on the chain axis. The column twins read it
+(``kernels/rows.py``), so ``pallas_hmc`` and ``pallas_nuts`` with
+``backend="torch"``, ``nuts_sweep_cols``, ``chees_hmc`` and their warmups
+sum their kinetic energies, U-turn checks and ChEES criterion over the model
+axis and draw the same momenta and uniforms on every model rank of a chain,
+as the reference's samplers do over its row-sharded array. The other column
+samplers raise on such a density. The data-sharded density (``data.py``),
+whose ranks hold whole chains, has no such need.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Callable
 
@@ -47,6 +53,41 @@ def shard_params(q: torch.Tensor, mesh: Mesh, model_axis: str = "model", chain_a
     return q[block(q.shape[0], model_axis), block(q.shape[1], chain_axis)].to(mesh.device)
 
 
+@dataclasses.dataclass(frozen=True)
+class RowShard:
+    """A row-sharded density's reduction and this rank's place: ``size``
+    ranks along ``model_axis``, this rank ``index`` among them, holding row
+    block ``rows(d_local)`` of the positions; its columns split over
+    ``chain_axis`` where given."""
+
+    mesh: Mesh
+    model_axis: str
+    chain_axis: str | None
+    size: int
+    index: int
+
+    def rows(self, d_local: int) -> slice:
+        """This rank's rows of the full-height positions."""
+        return slice(self.index * d_local, (self.index + 1) * d_local)
+
+    def sum(self, x: torch.Tensor) -> torch.Tensor:
+        """A per-chain partial summed over the model axis: one collective."""
+        return _comm.all_reduce_sum(x, self.mesh, self.model_axis)
+
+    @property
+    def chain_size(self) -> int:
+        return 1 if self.chain_axis is None else self.mesh.axis_size(self.chain_axis)
+
+    @property
+    def chain_index(self) -> int:
+        return 0 if self.chain_axis is None else self.mesh.axis_index(self.chain_axis)
+
+    def chain_mean(self, x: torch.Tensor) -> torch.Tensor:
+        """A rank-local mean over chains made the mean over the chain axis
+        (no collective where the axis has one rank)."""
+        return x if self.chain_size == 1 else _comm.all_reduce_mean(x, self.mesh, self.chain_axis)
+
+
 def tensor_parallel_logdensity(
     shard_fn: Callable,
     combine_fn: Callable,
@@ -66,7 +107,8 @@ def tensor_parallel_logdensity(
     -> (N_local,)``. Differentiable: the gradient reaching each rank's
     partials is that of the combine, so each rank holds the gradient of its
     own block. ``chain_axis`` names the axis the chain columns are split
-    over (checked to be on the mesh)."""
+    over (checked to be on the mesh). The density carries ``.row_shard``
+    (``RowShard``), which the column twins read."""
     mesh.axis_size(model_axis)
     if chain_axis is not None:
         mesh.axis_size(chain_axis)
@@ -77,6 +119,8 @@ def tensor_parallel_logdensity(
         parts = torch.split(flat, [v.numel() for v in leaves])
         return combine_fn(pytree.tree_unflatten([p.reshape(v.shape) for p, v in zip(parts, leaves)], spec))
 
+    logdensity_cols.row_shard = RowShard(mesh, model_axis, chain_axis, mesh.axis_size(model_axis),
+                                         mesh.axis_index(model_axis))
     return logdensity_cols
 
 
@@ -132,8 +176,11 @@ def tp_bnn_logdensity(
     X, y, out_scale, inv_w2, inv_o2 = _bnn_parts(X, y, hidden, obs_scale, weight_scale, mesh.device)
 
     def shard_fn(q_block):
+        # the network's partial first, then the prior's: the unsharded twin's
+        # order, so that autograd sums a row's gradient terms in its order
+        out = _bnn_out(q_block, X)
         prior = -0.5 * inv_w2 * torch.sum(q_block * q_block, dim=0, keepdim=True)  # (1, N)
-        return {"out": _bnn_out(q_block, X), "prior": prior}
+        return {"out": out, "prior": prior}
 
     def combine_fn(summed):
         resid = y[None, :] - out_scale * summed["out"]

@@ -40,6 +40,8 @@ LAYERS = {
     "pretty": 9,
     "incremental": 9,
     "experimental": 9,
+    # the narratives use the whole package; nothing imports them
+    "cookbook": 10,
 }
 
 
@@ -160,7 +162,10 @@ def test_imports_without_jax():
         "genjax_tpu_torch.typing, genjax_tpu_torch.incremental, genjax_tpu_torch.experimental, "
         "genjax_tpu_torch.parallel.mesh, genjax_tpu_torch.parallel.mcmc, genjax_tpu_torch.parallel.islands, "
         "genjax_tpu_torch.parallel.data, genjax_tpu_torch.parallel.tensor_parallel, "
-        "genjax_tpu_torch.parallel.rbpf, genjax_tpu_torch.parallel.audit; "
+        "genjax_tpu_torch.parallel.rbpf, genjax_tpu_torch.parallel.audit, genjax_tpu_torch.kernels.rows, "
+        "genjax_tpu_torch.cookbook, genjax_tpu_torch.cookbook._common; "
+        "import importlib; from genjax_tpu_torch.cookbook import COOKBOOKS; "
+        "[importlib.import_module('genjax_tpu_torch.cookbook.' + n) for n in COOKBOOKS]; "
         "print(sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'genjax_tpu' or m.startswith('genjax_tpu.') or m.split('.')[0] in ('optax', 'orbax', 'treescope', 'typeguard', 'jaxtyping')))"
     )
@@ -208,7 +213,7 @@ def test_inference_sits_above_kernels_lang_and_dists():
     assert f"{PKG}.inference.mcmc" in edges[f"{PKG}.inference.sample"]
     for sub in ("kernels", "lang", "dists", "generative", "core", "models"):
         assert LAYERS["inference"] > LAYERS[sub]
-    below = [m for m in mods if _subpackage(m) not in ("inference", "<root>", "interop")]
+    below = [m for m in mods if _subpackage(m) not in ("inference", "<root>", "interop", "cookbook")]
     assert not [f"{m} -> {t}" for m in below for t in edges[m] if _subpackage(t) == "inference"]
 
 
@@ -386,6 +391,29 @@ def test_slice16_scale_out_layer_is_layered():
                 scoped.setdefault((mod, target), set()).add(lazy)
     assert scoped == {(f"{PKG}.parallel.mcmc", f"{PKG}.inference.mcmc"): {True}}, scoped
     assert LAYERS["kernels"] < LAYERS["parallel"] < LAYERS["inference"]
+
+
+def test_cookbook_sits_above_every_layer():
+    """The cookbooks reach down into the package; no module of it reaches
+    up into them, and they hold to the no-jax rule with the rest."""
+    mods, edges = _graph()
+    cookbooks = [m for m in mods if _subpackage(m) == "cookbook"]
+    assert f"{PKG}.cookbook.ex10_sample_posterior" in cookbooks
+    assert LAYERS["cookbook"] > max(v for k, v in LAYERS.items() if k != "cookbook")
+    assert not [f"{src} -> {dst}" for src, targets in edges.items() for dst in targets
+                if _subpackage(dst) == "cookbook" and _subpackage(src) != "cookbook"]
+    assert any(_subpackage(t) == "inference" for m in cookbooks for t in edges[m])
+
+
+def test_row_reduction_is_read_not_imported_by_the_kernels():
+    """The column twins read a row-sharded density's ``.row_shard``
+    through ``kernels.rows``, which imports ``core`` alone: ``kernels``
+    imports nothing of ``parallel``."""
+    mods, edges = _graph()
+    assert {_subpackage(t) for t in edges[f"{PKG}.kernels.rows"]} <= {"core"}
+    for mod in ("hmc", "nuts", "chees"):
+        assert f"{PKG}.kernels.rows" in edges[f"{PKG}.kernels.{mod}"], mod
+    assert not [t for m in mods if _subpackage(m) == "kernels" for t in edges[m] if _subpackage(t) == "parallel"]
 
 
 def test_layer_direction():

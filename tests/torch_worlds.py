@@ -412,7 +412,7 @@ def data_world(rank: int, world: int, *, X, Y, q, obs, q0):
 # ----------------------------------------------------------------------
 
 
-def tensor_parallel_world(rank: int, world: int, *, X, y, q, hidden):
+def tensor_parallel_world(rank: int, world: int, *, X, y, q, hidden, q_far):
     from genjax_tpu_torch.parallel import (
         make_mesh_2d,
         shard_params,
@@ -456,6 +456,72 @@ def tensor_parallel_world(rank: int, world: int, *, X, y, q, hidden):
         out["indivisible"] = None
     except ValueError as e:
         out["indivisible"] = str(e)
+    out.update(tensor_parallel_sampling(Xt, yt, q_all, torch.from_numpy(q_far), hidden, assemble))
+    return out
+
+
+def tensor_parallel_sampling(X, y, q_all, q_far, hidden, assemble):
+    """The column samplers on the row-sharded ``tp_bnn_logdensity``: HMC on
+    ``(4, 1)`` and ``(2, 2)``, the posterior climb, NUTS, ChEES and the HMC
+    warmup on ``(4, 1)``, the sweep's collectives, and the samplers that
+    refuse such a density."""
+    from genjax_tpu_torch.kernels import (
+        chees_hmc,
+        nuts_sweep_cols,
+        pallas_hmc,
+        pt_hmc,
+        svgd,
+        warmup_column,
+    )
+    from genjax_tpu_torch.parallel import (
+        collective_counts,
+        collective_log,
+        make_mesh_2d,
+        shard_params,
+        tp_bnn_logdensity,
+    )
+
+    out = {}
+    for shape in ((4, 1), (2, 2)):
+        mesh = make_mesh_2d(shape, axes=("model", "batch"), device="cpu")
+        ld = tp_bnn_logdensity(X, y, hidden, mesh)
+        q, acc = pallas_hmc(ld, shard_params(q_all, mesh), 11, n_steps=3, eps=0.01, L=3, backend="torch")
+        out[("hmc", shape)] = (_np(assemble(mesh, q)), float(acc))
+    mesh = make_mesh_2d((4, 1), axes=("model", "batch"), device="cpu")
+    ld = tp_bnn_logdensity(X, y, hidden, mesh)
+    q0 = shard_params(q_all, mesh)
+    with collective_log() as log:
+        pallas_hmc(ld, q0, 11, n_steps=3, eps=0.01, L=3, backend="torch")
+    out["hmc_audit"] = collective_counts(log)
+
+    mesh22 = make_mesh_2d((2, 2), axes=("model", "batch"), device="cpu")
+    ld22 = tp_bnn_logdensity(X, y, hidden, mesh22)
+    far = shard_params(q_far, mesh22)
+    lp0 = mesh22.all_reduce_mean(ld22(far).mean(), "batch")
+    q1, acc = pallas_hmc(ld22, far, 3, n_steps=25, eps=0.02, L=5, backend="torch")
+    lp1 = mesh22.all_reduce_mean(ld22(q1).mean(), "batch")
+    out["climb"] = (float(lp0), float(lp1), float(acc))
+
+    q, acc, leaps = nuts_sweep_cols(ld, q0, 5, n_steps=2, eps=0.05, max_depth=4)
+    out["nuts"] = (_np(assemble(mesh, q)), float(acc), float(leaps))
+    q, info = chees_hmc(ld, q0, 6, n_warmup=6, n_steps=3, eps0=0.05)
+    out["chees"] = (_np(assemble(mesh, q)), float(info.eps), float(info.trajectory_length),
+                    float(info.accept_rate))
+    q, eps, inv_mass = warmup_column(ld, q0, 7, n_phases=2, steps_per_phase=3, eps0=0.05, L=3,
+                                     backend="torch")
+    out["warmup"] = (_np(assemble(mesh, q)), eps, _np(mesh.all_gather_cat(inv_mass, "model")))
+
+    refusals = {}
+    for name, call in [
+        ("pt_hmc", lambda: pt_hmc(ld, q0, 0, betas=torch.tensor([1.0, 0.5]), n_warmup=1, n_steps=1)),
+        ("svgd", lambda: svgd(ld, q0, n_steps=1)),
+    ]:
+        try:
+            call()
+            refusals[name] = None
+        except ValueError as e:
+            refusals[name] = str(e)
+    out["refusals"] = refusals
     return out
 
 
@@ -534,4 +600,31 @@ def distributed_world(rank: int, world: int, *, ckpt_root: str):
     all_lw = mesh.all_gather_cat(res.log_weights, "batch")
     out["smc2"] = (tuple(res.thetas.shape), float(torch.logsumexp(all_lw, 0)), float(res.log_evidence),
                    tuple(res.ess_history.shape), float(res.rejuv_accept_rate))
+    return out
+
+
+# ----------------------------------------------------------------------
+# tests/test_torch_cookbook_world.py
+# ----------------------------------------------------------------------
+
+
+def cookbook_world(rank: int, world: int, *, names):
+    """The mesh cookbooks named (``"14"``, ``"20"``, ``"25"``) on every rank
+    of the world, as a launcher runs them; their own assertions hold on
+    each rank. Rank 0 returns what each returned, and the mesh shapes."""
+    from genjax_tpu_torch.cookbook import ex14_multichip, ex20_big_data, ex25_island_pf
+    from genjax_tpu_torch.parallel import make_mesh, make_mesh_2d
+
+    out = {}
+    if "14" in names:
+        ex14_multichip.run(make_mesh(device="cpu"))
+        out["14"] = True
+    if "20" in names:
+        X, y = ex20_big_data.make_dataset()
+        mu_post, cov_post = ex20_big_data.exact_posterior(X, y)
+        mesh = make_mesh_2d((2, world // 2), device="cpu")
+        ex20_big_data.run(mesh, X, y, mu_post, cov_post)
+        out["20"] = mesh.shape
+    if "25" in names:
+        out["25"] = ex25_island_pf.run(torch.device("cpu"))
     return out
