@@ -82,7 +82,16 @@ against the unsharded twin on the same seed; and every cookbook of
 ``genjax_tpu_torch/cookbook`` (the reference's ``examples/``) as
 ``--device cuda`` runs it, in a process of its own beside the host-bound
 phases from the column samplers on (``python3 chip_smoke.py --cookbooks
-OUT`` is that process), each with its seconds and K1/K3/K4 launches. It checks
+OUT`` is that process), each with its seconds and K1/K3/K4 launches; and
+the staged device body (``kernels/staged.py``): four column densities (the
+flagship's, the conjugate normal model, ``examples/10``'s
+``linear_regression`` and a D = 5 anisotropic Gaussian) staged and built
+into K1 and K4 at the top, one nvcc each beside the other builds, each
+staged kernel held against its plain version on the counter stream, the
+staged flagship against the hand-written K1, ``column_hmc`` and
+``column_nuts`` with the default backend on the models with no
+hand-written body against their exact posteriors, and the staged times
+beside the hand-written ones. It checks
 that each path launched its kernel in the variant it should (K1 and K4: the
 body's; K3: the tiled one), and agrees in law with the plain twin; it checks
 each kernel's shared-memory reckoning in Python against the kernel's own,
@@ -4788,6 +4797,235 @@ def finish_phases(device, smi: str, g, hmc, nuts_pallas, elliptical, model, y, k
     return ck_launches
 
 
+STAGED_SCALES = (0.05, 0.2, 1.0, 3.0, 5.0)  # tests/kernels/test_column_hmc.py's TestMassAdaptation
+
+
+def staged_densities(device, g, model, y):
+    """The four densities whose staged bodies the script builds
+    (``kernels/staged.py``), as ``name -> (density, D)``: the flagship's
+    column density (which also has a hand-written body), the conjugate
+    normal model (no hand-written body, D = 8), ``examples/10``'s
+    ``linear_regression`` (24 x 3, D = 8) and the reference test's D = 5
+    anisotropic Gaussian."""
+    from genjax_tpu_torch.kernels.model_interface import ColumnPacker, column_logdensity
+    from genjax_tpu_torch.models import linear_regression
+
+    @g.gen
+    def conjugate():
+        mu = g.normal(0.0, 1.0) @ "mu"
+        g.normal(mu, 1.0) @ "y"
+
+    Xl, yl, _ = linreg_data()
+    lin = linear_regression(Xl)[0]
+    out = {}
+    for name, (m, obs, addrs) in {
+        "flagship": (model, g.C["y"].set(y), ["tau", "w"]),
+        "conjugate": (conjugate, g.C["y"].set(2.0), ["mu"]),
+        "linear_regression": (lin, g.C["y"].set(torch.from_numpy(yl).to(device)), ["w"]),
+    }.items():
+        packer = ColumnPacker(m, obs, (), addrs, device=device)
+        out[name] = (column_logdensity(m, obs, (), packer), packer.padded_dim)
+    scales = torch.tensor(STAGED_SCALES, device=device)
+    out["scales5"] = (lambda q: torch.sum(-0.5 * (q / scales[:, None]) ** 2, dim=0), len(STAGED_SCALES))
+    return out, conjugate, lin
+
+
+def linreg_data():
+    """``examples/10_sample_posterior.py``'s regression: 24 x 3 from numpy
+    seed 0, ``w_true = (1, -2, 0.5)``, noise sd 0.25."""
+    rng = np.random.default_rng(0)
+    X = rng.normal(size=(24, 3)).astype(np.float32)
+    w_true = np.asarray([1.0, -2.0, 0.5], np.float32)
+    return X, (X @ w_true + 0.25 * rng.normal(size=24)).astype(np.float32), w_true
+
+
+def turns(fa, fb, reps_a: int, reps_b: int):
+    """Two kernels timed in turns (a, b, b, a) by CUDA events: each one's
+    two windows, in ms a call."""
+    a1 = cuda_ms(fa, reps_a)
+    b1, b2 = cuda_ms(fb, reps_b), cuda_ms(fb, reps_b)
+    return [a1, cuda_ms(fa, reps_a)], [b1, b2]
+
+
+def staged_path(device, smi: str, g, hmc, nuts, nuts_pallas, bodies, built: dict, flag, k4_state) -> dict:
+    """``[K1 staged vs plain]``, ``[K4 staged vs plain]``, ``[main path
+    staged]`` and ``[timing staged]``: the kernels with a staged body
+    (``kernels/staged.py``, built at the top) against their plain version
+    on the counter stream (the twin on the density that was staged, not on
+    its lowered program), the default backend's route for models with no
+    hand-written body, and the staged times beside the hand-written ones.
+    The staged flagship's bounds are the hand-written flagship's: the same
+    function, whose work ``hier_grad_flop`` counts; the lowered program's
+    own count of operations a gradient is reported beside them. Returns the
+    staged entries of the kernels line (K1's and K4's)."""
+    from genjax_tpu_torch.kernels import column_hmc, column_nuts
+
+    flag_ld, flag_body = flag
+    sb = {name: entry["body"] for name, entry in built.items()}
+    # ---- each staged kernel against its plain version, on the counter stream
+    cases = [
+        ("conjugate", numpy_q0(8, 4096, 31, False), 0.2),
+        ("flagship", numpy_q0(16, 4096, 32, True), EPS),
+        ("flagship", numpy_q0(16, N_CHAINS, 33, True), EPS),
+        ("scales5", numpy_q0(5, 4096, 34, False), 0.02),
+    ]
+    k1_err = k4_err = None
+    for name, q0_np, eps in cases:
+        body, density = sb[name], built[name]["density"]
+        frac, flipped, err, rate_k, rate_t = compare_counter(density, body, q0_np, 7, eps, device, hmc)
+        check(hmc.hmc_sweep.last_variant == "staged", f"{name}: K1 took {hmc.hmc_sweep.last_variant}")
+        check(frac >= 0.995, f"staged {name}: only {frac:.4f} of K1's chains agree within 1e-4")
+        check(abs(rate_k - rate_t) <= 0.005, f"staged {name}: accept rates {rate_k} vs {rate_t}")
+        phase("K1 staged vs plain", f"{name} {q0_np.shape}, D={body.d}, {body.flop} operations a gradient, "
+                                    f"{body.n_consts} constants ({'shared' if body.shared else 'global'}): "
+                                    f"{frac:.5f} of chains within 1e-4 ({flipped} flipped MH decisions), max "
+                                    f"abs err {err:.3g} on the rest; accept {rate_k:.5f} vs {rate_t:.5f}")
+        if q0_np.shape[1] == N_CHAINS:
+            k1_err = err
+        frac, n_diff, b_diff, err, (acc_k, lf_k), (acc_t, lf_t) = compare_nuts_counter(
+            density, body, q0_np, 7, 2.5 * eps, 6, device, nuts, nuts_pallas)
+        check(nuts_pallas.nuts_sweep.last_variant == "staged", f"{name}: K4 took {nuts_pallas.nuts_sweep.last_variant}")
+        check(frac >= 0.99, f"staged {name}: only {frac:.4f} of K4's chains agree within 1e-4")
+        check(abs(acc_k - acc_t) <= 0.005, f"staged {name}: K4 accept statistics {acc_k} vs {acc_t}")
+        check(abs(lf_k - lf_t) <= 0.01 * lf_t, f"staged {name}: K4 mean leapfrogs {lf_k} vs {lf_t}")
+        phase("K4 staged vs plain", f"{name} {q0_np.shape}, eps {2.5 * eps}, depth 6, 3 transitions: {frac:.5f} "
+                                    f"of chains within 1e-4 ({n_diff} chains in {b_diff} blocks differ), max abs "
+                                    f"err {err:.3g} on the rest; accept {acc_k:.5f} vs {acc_t:.5f}; leapfrogs "
+                                    f"{lf_k:.4f} vs {lf_t:.4f}")
+        if q0_np.shape[1] == N_CHAINS:
+            k4_err = err
+    # the staged flagship against the hand-written body, one seed, counter stream
+    q0 = torch.from_numpy(numpy_q0(16, N_CHAINS, 33, True)).to(device)
+    kw = dict(n_steps=5, eps=EPS, L=L, rng="counter", block_n=BLOCK_N)
+    q_hand, acc_hand = hmc.hmc_sweep(flag_body, q0, 7, **kw)
+    q_st, acc_st = hmc.hmc_sweep(sb["flagship"], q0, 7, **kw)
+    torch.cuda.synchronize()
+    agree = float(((q_hand - q_st).abs().amax(dim=0) <= 1e-4).float().mean())
+    check(agree >= 0.99, f"the staged flagship K1 and the hand-written agree on {agree:.4f} of chains")
+    phase("K1 staged vs plain", f"the staged flagship against the hand-written K1 on the same seed: {agree:.5f} "
+                                f"of {N_CHAINS} chains within 1e-4; accept {float(acc_st.mean()) / 5:.5f} vs "
+                                f"{float(acc_hand.mean()) / 5:.5f}")
+
+    # ---- the main path: models with no hand-written body on the default backend
+    conjugate, lin = built["conjugate"]["model"], built["linear_regression"]["model"]
+    obs = g.C["y"].set(2.0)
+    hmc.hmc_sweep_launches = nuts_pallas.nuts_sweep_launches = 0
+    t0 = time.perf_counter()
+    q, acc, _ = column_hmc(conjugate, obs, (), ["mu"], n_chains=N_CHAINS, n_steps=N_STEPS, eps=0.5, L=L,
+                           seed=SEED, warmup=True, device="cuda")
+    torch.cuda.synchronize()
+    hmc_s = time.perf_counter() - t0
+    k1_conj = hmc.hmc_sweep_launches
+    check(k1_conj == HMC_WARMUP_PHASES + 1 and nuts_pallas.nuts_sweep_launches == 0,
+          f"column_hmc(conjugate, warmup=True) made {k1_conj} K1 launches")
+    check(hmc.pallas_hmc.last_backend == "cuda" and hmc.pallas_hmc.last_body == "staged",
+          f"column_hmc(conjugate) ran {hmc.pallas_hmc.last_backend}, body {hmc.pallas_hmc.last_body}")
+    se_m, se_v = math.sqrt(0.5 / N_CHAINS), 0.5 * math.sqrt(2.0 / (N_CHAINS - 1))
+    z_hmc = (abs(float(q[0].mean()) - 1.0) / se_m, abs(float(q[0].var()) - 0.5) / se_v)
+    check(max(z_hmc) < 4, f"column_hmc(conjugate): mean and variance {z_hmc} SE off (1, 0.5)")
+    hmc.hmc_sweep_launches = nuts_pallas.nuts_sweep_launches = 0
+    t0 = time.perf_counter()
+    q, acc_n, leaps_n, _ = column_nuts(conjugate, obs, (), ["mu"], n_chains=N_CHAINS, n_steps=NUTS_STEPS,
+                                       eps=0.5, max_depth=NUTS_DEPTH, seed=SEED, warmup=True, device="cuda")
+    torch.cuda.synchronize()
+    nuts_s = time.perf_counter() - t0
+    k4_conj = nuts_pallas.nuts_sweep_launches
+    check(k4_conj == NUTS_WARMUP_PHASES + 1 and hmc.hmc_sweep_launches == 0,
+          f"column_nuts(conjugate, warmup=True) made {k4_conj} K4 launches")
+    check(nuts_pallas.pallas_nuts.last_backend == "cuda" and nuts_pallas.pallas_nuts.last_body == "staged",
+          f"column_nuts(conjugate) ran {nuts_pallas.pallas_nuts.last_backend}, body "
+          f"{nuts_pallas.pallas_nuts.last_body}")
+    z_nuts = (abs(float(q[0].mean()) - 1.0) / se_m, abs(float(q[0].var()) - 0.5) / se_v)
+    check(max(z_nuts) < 4, f"column_nuts(conjugate): mean and variance {z_nuts} SE off (1, 0.5)")
+    phase("main path staged", f"conjugate normal model (no hand-written body), {N_CHAINS} chains, default "
+                              f"backend: column_hmc(warmup=True) {k1_conj} K1 launches, body "
+                              f"{hmc.pallas_hmc.last_body}, accept {float(acc):.4f}, mean and variance "
+                              f"{z_hmc[0]:.2f} and {z_hmc[1]:.2f} SE off (1, 0.5), {hmc_s:.2f} s with staging; "
+                              f"column_nuts(warmup=True) {k4_conj} K4 launches, body "
+                              f"{nuts_pallas.pallas_nuts.last_body}, mean leapfrogs {float(leaps_n):.3f}, "
+                              f"{z_nuts[0]:.2f} and {z_nuts[1]:.2f} SE (limit 4), {nuts_s:.2f} s")
+    Xl, yl, _ = linreg_data()
+    from genjax_tpu_torch.models import linear_regression
+
+    mean, cov = (v.to(device) for v in linear_regression(Xl)[1](yl))
+    hmc.hmc_sweep_launches = 0
+    q, acc_l, _ = column_hmc(lin, g.C["y"].set(torch.from_numpy(yl).to(device)), (), ["w"], n_chains=N_CHAINS,
+                             n_steps=N_STEPS, eps=0.05, L=L, seed=SEED, warmup=True, device="cuda")
+    torch.cuda.synchronize()
+    k1_lin = hmc.hmc_sweep_launches
+    z_lin = ((q[:3].mean(dim=1) - mean) / torch.sqrt(torch.diag(cov) / N_CHAINS)).abs()
+    check(k1_lin == HMC_WARMUP_PHASES + 1 and hmc.pallas_hmc.last_body == "staged",
+          f"column_hmc(linear_regression) made {k1_lin} K1 launches, body {hmc.pallas_hmc.last_body}")
+    check(bool((z_lin < 4).all()), f"column_hmc(linear_regression): means {z_lin.tolist()} SE off the exact")
+    phase("main path staged", f"examples/10's linear_regression (24 x 3, D=8), {N_CHAINS} chains: "
+                              f"column_hmc(warmup=True) {k1_lin} K1 launches, body {hmc.pallas_hmc.last_body}, "
+                              f"accept {float(acc_l):.4f}, w means within {float(z_lin.max()):.2f} SE of "
+                              f"exact_posterior (limit 4)")
+
+    # ---- timing: the staged flagship beside the hand-written, in turns
+    q0 = torch.from_numpy(numpy_q0(16, N_CHAINS, 13, True)).to(device)
+    staged_flag = sb["flagship"]
+    hand_ms, st_ms = turns(lambda: hmc.hmc_sweep(flag_body, q0, SEED, n_steps=N_STEPS, eps=EPS, L=L),
+                           lambda: hmc.hmc_sweep(staged_flag, q0, SEED, n_steps=N_STEPS, eps=EPS, L=L),
+                           K1_TIMED_SWEEPS // 4, 40)
+    k1_st_ms = sum(st_ms) / 2
+    k1_st_plain = cuda_ms(lambda: hmc._reference_hmc(staged_flag, q0, SEED, n_steps=N_STEPS, eps=EPS, L=L), 1)
+    flag_flop, flag_consts = min(hier_grad_flop(16, 8, 16), staged_flag.flop), min(144, staged_flag.n_consts)
+    b1, b1_by = k1_bound(N_CHAINS, 16, N_STEPS, L, flag_flop, flag_consts)
+    phase("timing staged", f"{smi}: K1 flagship ({N_CHAINS} chains x {N_STEPS} steps, L={L}), hand-written "
+                           f"{hand_ms[0]:.4f} and {hand_ms[1]:.4f} ms, staged {st_ms[0]:.4f} and {st_ms[1]:.4f} "
+                           f"ms ({k1_st_ms / (sum(hand_ms) / 2):.2f}x); staged bound {b1:.4f} ms ({b1_by}: the "
+                           f"function's {flag_flop} operations a gradient; the lowered program does "
+                           f"{staged_flag.flop}), staged K1 at {b1 / k1_st_ms:.4f} of it; "
+                           f"its plain version {k1_st_plain:.2f} ms a sweep")
+    q_wn, eps_n, im_n = k4_state
+    hand4, st4 = turns(
+        lambda: nuts_pallas.nuts_sweep(flag_body, q_wn, SEED, n_steps=NUTS_STEPS, eps=eps_n, max_depth=NUTS_DEPTH,
+                                       inv_mass=im_n),
+        lambda: nuts_pallas.nuts_sweep(staged_flag, q_wn, SEED, n_steps=NUTS_STEPS, eps=eps_n,
+                                       max_depth=NUTS_DEPTH, inv_mass=im_n), 20, 6)
+    k4_st_ms = sum(st4) / 2
+    _, _, leaps = nuts_pallas.nuts_sweep(staged_flag, q_wn, SEED, n_steps=NUTS_STEPS, eps=eps_n,
+                                         max_depth=NUTS_DEPTH, inv_mass=im_n)
+    b4, b4_by = k4_bound(N_CHAINS, 16, NUTS_STEPS, float(leaps.sum()), flag_flop, flag_consts)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    nuts.nuts_sweep_cols(staged_flag, q_wn, SEED, n_steps=NUTS_STEPS, eps=eps_n, max_depth=NUTS_DEPTH,
+                         inv_mass=im_n)
+    end.record()
+    torch.cuda.synchronize()
+    k4_st_plain = start.elapsed_time(end)
+    phase("timing staged", f"{smi}: K4 flagship ({N_CHAINS} chains x {NUTS_STEPS} transitions, depth "
+                           f"{NUTS_DEPTH}, the main path's adapted state), hand-written {hand4[0]:.4f} and "
+                           f"{hand4[1]:.4f} ms, staged {st4[0]:.4f} and {st4[1]:.4f} ms "
+                           f"({k4_st_ms / (sum(hand4) / 2):.2f}x); staged bound {b4:.4f} ms ({b4_by}), staged "
+                           f"K4 at {b4 / k4_st_ms:.4f} of it; its plain version {k4_st_plain:.2f} ms (1 sweep)")
+    iid = bodies.iid_normal()
+    q8 = torch.from_numpy(numpy_q0(8, N_CHAINS, 11, False)).to(device)
+    conj_body = sb["conjugate"]
+    iid_ms, conj_ms = turns(lambda: hmc.hmc_sweep(iid, q8, SEED, n_steps=N_STEPS, eps=0.2, L=L),
+                            lambda: hmc.hmc_sweep(conj_body, q8, SEED, n_steps=N_STEPS, eps=0.2, L=L), 200, 200)
+    b8, b8_by = k1_bound(N_CHAINS, 8, N_STEPS, L, conj_body.flop, conj_body.n_consts)
+    phase("timing staged", f"{smi}: K1 at D=8 ({N_CHAINS} x {N_STEPS}, L={L}): bodies.iid_normal() "
+                           f"{iid_ms[0]:.4f} and {iid_ms[1]:.4f} ms, the staged conjugate body (an iid normal "
+                           f"in 7 of its 8 rows, {conj_body.flop} operations a gradient) {conj_ms[0]:.4f} and "
+                           f"{conj_ms[1]:.4f} ms; its bound {b8:.4f} ms ({b8_by})")
+    regs = {name: entry["ptxas"] for name, entry in built.items()}
+    k1 = {"ms": k1_st_ms, "hand_written_ms": sum(hand_ms) / 2, "plain_ms": k1_st_plain, "bound_ms": b1,
+          "bound_by": b1_by, "max_abs_err": k1_err, "operations_a_gradient": staged_flag.flop, "bound_operations_a_gradient": flag_flop,
+          "launches_by_path": {"column_hmc(conjugate, warmup=True)": k1_conj,
+                               "column_hmc(linear_regression, warmup=True)": k1_lin},
+          "iid_normal_d8_ms": sum(iid_ms) / 2, "conjugate_d8_ms": sum(conj_ms) / 2,
+          "registers": {n: r["K1"] for n, r in regs.items()}}
+    k4 = {"ms": k4_st_ms, "hand_written_ms": sum(hand4) / 2, "plain_ms": k4_st_plain, "bound_ms": b4,
+          "bound_by": b4_by, "max_abs_err": k4_err,
+          "launches_by_path": {"column_nuts(conjugate, warmup=True)": k4_conj},
+          "registers": {n: r["K4"] for n, r in regs.items()}}
+    check(all(math.isfinite(v) for v in (k1_st_ms, k1_st_plain, k4_st_ms, k4_st_plain, k1_err, k4_err)),
+          "non-finite staged result")
+    return {"K1": k1, "K4": k4}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this test needs a CUDA card",
@@ -4805,7 +5043,7 @@ def main() -> int:
                     f"CUDA {torch.version.cuda}, matmul tf32 off")
 
     import genjax_tpu_torch as g
-    from genjax_tpu_torch.kernels import _build, adaptation, bodies, elliptical, hmc, nuts, nuts_pallas
+    from genjax_tpu_torch.kernels import _build, adaptation, bodies, elliptical, hmc, nuts, nuts_pallas, staged
     from genjax_tpu_torch.kernels.model_interface import (
         ColumnPacker, column_hmc, column_logdensity, column_nuts, init_columns,
     )
@@ -4824,10 +5062,26 @@ def main() -> int:
         x = torch.ones(4, 3, device=device)
         torch.func.vmap(torch.func.grad_and_value(lambda z: (z * z).sum()))(x)
 
-    with ThreadPoolExecutor(5) as pool:
-        k1_load, k4_load, k3_load, k2_load, grad_load = pool.map(
-            timed_load, (hmc._lib, nuts_pallas._lib, elliptical._lib, lambda: _build.load("k2_stream"),
-                         first_grad))
+    X, y = flagship_data()
+    model = hierarchical_regression(X)
+    with ThreadPoolExecutor(9) as pool:
+        loads = [pool.submit(timed_load, lib) for lib in (
+            hmc._lib, nuts_pallas._lib, elliptical._lib, lambda: _build.load("k2_stream"), first_grad)]
+        # the staged bodies (kernels/staged.py): traced here while the
+        # package's own sources build, after torch.func's first call, then
+        # built beside them, one nvcc each
+        grad_load = loads[4].result()
+        densities, conj_model, lin_model = staged_densities(device, g, model, y)
+        built = {}
+        for name, (density, d) in densities.items():
+            t0 = time.perf_counter()
+            built[name] = {"body": staged.stage_body(density, d, device=device), "density": density,
+                           "stage_s": time.perf_counter() - t0,
+                           "model": {"conjugate": conj_model, "linear_regression": lin_model}.get(name)}
+            built[name]["load"] = pool.submit(timed_load, built[name]["body"].lib)
+        k1_load, k4_load, k3_load, k2_load = (f.result() for f in loads[:4])
+        for entry in built.values():
+            entry["build_s"] = entry.pop("load").result()
     phase("build", f"K1 loaded from genjax_tpu_torch/kernels/csrc/hmc_sweep.cu "
                    f"in {k1_load:.2f} s (build included)")
     phase("build", f"K4 loaded from genjax_tpu_torch/kernels/csrc/nuts_sweep.cu "
@@ -4837,7 +5091,22 @@ def main() -> int:
     phase("build", f"K2 alone loaded from genjax_tpu_torch/kernels/csrc/k2_stream.cu "
                    f"in {k2_load:.2f} s (build included, in parallel with the others)")
     phase("build", f"torch.func's first grad_and_value (its lazy imports) took {grad_load:.2f} s beside the builds")
-    X, y = flagship_data()
+    for name, entry in built.items():
+        body = entry["body"]
+        found = {}
+        for kname, regs, stores, loads, smem, stack in ptxas_kernels(_build.staged_ptxas_report(body.header)):
+            key = "K1" if "hmc_sweep_kernel" in kname else "K4" if "nuts_sweep_kernel" in kname else None
+            if key:
+                found[key] = {"registers": regs, "spill_stores": stores, "spill_loads": loads, "stack": stack}
+        entry["ptxas"] = found
+        phase("build", f"staged body {name} (D={body.d}, {len(body.program.instrs)} instructions, "
+                       f"{body.flop} operations a gradient, {body.n_consts} constants in "
+                       f"{'shared' if body.shared else 'global'} memory): staged in {entry['stage_s']:.2f} s, "
+                       f"K1 and K4 built by one nvcc in {entry['build_s']:.2f} s (in parallel with the others); "
+                       + "; ".join(f"{k}: {v['registers']} registers, stack frame {v['stack']} B, spill stores "
+                                   f"{v['spill_stores']} B, spill loads {v['spill_loads']} B"
+                                   for k, v in sorted(found.items())))
+        check(set(found) == {"K1", "K4"}, f"the staged build of {name} holds {sorted(found)}")
     flag_body = bodies.hier_regression(X, y, 0.25)
     gen_body = generic_body(bodies)
     for body, d in [(flag_body, 16), (gen_body, 8)]:
@@ -4916,7 +5185,6 @@ def main() -> int:
     k2_entry["domain"] = k2_domain(device, smi, k2_lib)
 
     # ---- K1 against its plain version on the counter stream
-    model = hierarchical_regression(X)
     obs = g.C["y"].set(y)
     packer = ColumnPacker(model, obs, (), ["tau", "w"])
     ld = column_logdensity(model, obs, (), packer)
@@ -5204,6 +5472,10 @@ def main() -> int:
                                  f"sweeps, {warm_ms / 1e3:.4f} s of K4, and host reads of eps), "
                                  f"the main K4 sweep {k4_ms / 1e3:.4f} s")
 
+    # ---- the staged device body: any column density on K1 and K4
+    staged_entries = staged_path(device, smi, g, hmc, nuts, nuts_pallas, bodies, built, (ld, ld.body),
+                                 (q_wn, eps_n, im_n))
+
     # ---- the scale-out layer at a world of one rank on NCCL (K1 and K4 on the shard)
     par_launches = parallel_path(device, smi, g, hmc, nuts_pallas, model, y, k1_draws)
 
@@ -5253,6 +5525,10 @@ def main() -> int:
         # torch.randn + torch.rand
         "k2_philox": {"name": "k2_stream (K2 alone, Philox)", "route": "cuda",
                       "replaces": "genjax_tpu/kernels/hmc.py:39", **k2_entry},
+        # the same kernel built with a staged body (kernels/staged.py): the
+        # flagship's density staged, and the paths of models with no
+        # hand-written body
+        "staged": {"source": "genjax_tpu_torch/kernels/staged.py", **staged_entries["K1"]},
     }, {
         "name": "nuts_sweep (K4)",
         "route": "cuda",
@@ -5267,6 +5543,7 @@ def main() -> int:
         "bound_ms": k4_bound_ms,
         "bound_by": k4_bound_by,
         "library_ms": None,  # no single PyTorch call computes the sweep
+        "staged": {"source": "genjax_tpu_torch/kernels/staged.py", **staged_entries["K4"]},
     }, k3_entry]}), flush=True)
     check(all(math.isfinite(v) for v in (ms, plain_ms, flagship_err, k4_ms, nuts_plain_ms, k4_err,
                                          k2_entry["ms"], k2_entry["plain_ms"], k2_entry["fold_ms"],

@@ -5,6 +5,13 @@ into ``build/genjax_tpu_torch/`` at the root of the checkout, under a name
 keyed by a hash of the sources and flags, and loaded with ``ctypes``. Only
 this repository's own sources are built. A failed build raises with nvcc's
 output.
+
+A staged build (``load_staged``) compiles K1 and K4 (``hmc_sweep.cu`` and
+``nuts_sweep.cu``) in one ``nvcc`` process with a staged body: a header
+that ``kernels/staged.py`` printed from a column log-density, written under
+``build/genjax_tpu_torch/staged/`` and included through
+``-DGJT_STAGED_HEADER=<...>``. It is keyed by a hash of the sources, the
+header and the flags.
 """
 
 from __future__ import annotations
@@ -15,11 +22,13 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "genjax_tpu_torch"
+STAGED_DIR = BUILD_DIR / "staged"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
@@ -39,11 +48,12 @@ def _nvcc() -> str:
     return found
 
 
-def _digest() -> str:
+def _digest(extra: str = "") -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for path in sorted(CSRC.glob("*.cu*")):
         h.update(path.name.encode())
         h.update(path.read_bytes())
+    h.update(extra.encode())
     return h.hexdigest()[:16]
 
 
@@ -57,31 +67,62 @@ def ptxas_report(name: str) -> str:
     return _so_path(name).with_suffix(".ptxas.txt").read_text()
 
 
+def _compile(so: Path, sources: list, extra_flags: tuple = ()) -> None:
+    """nvcc ``sources`` into ``so``, its ``-Xptxas -v`` report beside it."""
+    so.parent.mkdir(parents=True, exist_ok=True)
+    tmp = so.with_name(f"{so.name}.{os.getpid()}.{threading.get_ident()}.tmp")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [_nvcc(), *NVCC_FLAGS, *extra_flags, "-o", str(tmp), *map(str, sources)],
+        capture_output=True, text=True,
+    )
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed to build {', '.join(map(str, sources))} (exit {proc.returncode}):\n"
+            f"{proc.stdout}{proc.stderr}"
+        )
+    so.with_suffix(".ptxas.txt").write_text(proc.stderr)
+    os.replace(tmp, so)
+    root = BUILD_DIR.parents[1]
+    print(
+        f"built {so.relative_to(root)} from "
+        f"{', '.join(str(Path(s).relative_to(root)) for s in sources)} in "
+        f"{time.perf_counter() - t0:.2f} s\n{proc.stderr.strip()}",
+        flush=True,
+    )
+
+
 @functools.cache
 def load(name: str) -> ctypes.CDLL:
     """Compile ``csrc/<name>.cu`` if its build is missing, and load it.
     Builds of different sources may run in parallel threads."""
-    src = CSRC / f"{name}.cu"
     so = _so_path(name)
     if not so.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-        t0 = time.perf_counter()
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
-            capture_output=True, text=True,
-        )
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed to build {src} (exit {proc.returncode}):\n"
-                f"{proc.stdout}{proc.stderr}"
-            )
-        so.with_suffix(".ptxas.txt").write_text(proc.stderr)
-        os.replace(tmp, so)
-        print(
-            f"built {so.relative_to(BUILD_DIR.parents[1])} from "
-            f"{src.relative_to(BUILD_DIR.parents[1])} in "
-            f"{time.perf_counter() - t0:.2f} s\n{proc.stderr.strip()}",
-            flush=True,
-        )
+        _compile(so, [CSRC / f"{name}.cu"])
+    return ctypes.CDLL(str(so))
+
+
+def staged_so_path(header: str) -> Path:
+    return STAGED_DIR / f"staged-{_digest(header)}.so"
+
+
+def staged_ptxas_report(header: str) -> str:
+    """What ``-Xptxas -v`` said when K1 and K4 were built with ``header``."""
+    return staged_so_path(header).with_suffix(".ptxas.txt").read_text()
+
+
+@functools.cache
+def load_staged(header: str) -> ctypes.CDLL:
+    """K1 and K4 built with the staged body ``header`` (one nvcc process for
+    both sources), compiled if the build is missing, and loaded. Builds of
+    different headers may run in parallel threads."""
+    so = staged_so_path(header)
+    if not so.exists():
+        inc = so.with_suffix(".cuh")
+        inc.parent.mkdir(parents=True, exist_ok=True)
+        tmp = inc.with_name(f"{inc.name}.{os.getpid()}.{threading.get_ident()}.tmp")
+        tmp.write_text(header)
+        os.replace(tmp, inc)
+        _compile(so, [CSRC / "hmc_sweep.cu", CSRC / "nuts_sweep.cu"],
+                 (f"-I{STAGED_DIR}", f"-DGJT_STAGED_HEADER=<{inc.name}>"))
     return ctypes.CDLL(str(so))

@@ -12,7 +12,12 @@
 // - the device bodies: a column log-density and its gradient, written by hand
 //   (CUDA has no autodiff) and chosen by template parameters (K1, K4): the
 //   body and its shape (the flagship's (n_obs, d_w) = (16, 8) compiled as its
-//   own variant, or a runtime shape).
+//   own variant, or a runtime shape);
+// - the staged body (kStaged): any column log-density within the op set of
+//   kernels/staged.py, printed by that module as gjt_staged::lp_grad into a
+//   header that a staged build includes through -DGJT_STAGED_HEADER=<...>
+//   (kernels/_build.py::load_staged). Only a staged build instantiates it, and
+//   only it: the other builds compile as they did without the macro.
 //
 // What bounds the bodies on this card: FP32 instruction throughput. A
 // flagship gradient is about 256 FFMAs of X against w and r. Read from shared
@@ -32,6 +37,10 @@
 #include <cuda_runtime.h>
 #include <curand_kernel.h>
 
+#ifdef GJT_STAGED_HEADER
+#include GJT_STAGED_HEADER  // gjt_staged::lp_grad, kD, kConsts, kShared
+#endif
+
 namespace {
 
 constexpr float kTwoPi = 6.283185307179586f;
@@ -39,7 +48,7 @@ constexpr float kPi = 3.14159265358979f;
 constexpr float kLog2Pi = 1.8378770664093453f;
 constexpr uint32_t kBlockMix = 0x3504F333u;
 
-enum Body { kIidNormal = 0, kHierRegression = 1 };
+enum Body { kIidNormal = 0, kHierRegression = 1, kStaged = 2 };
 enum Rng { kCounter = 0, kPhilox = 1 };
 
 // ---------------------------------------------------------------- K2: PRNG
@@ -282,6 +291,39 @@ __device__ __forceinline__ float hier_regression(const float (&q)[D], float (&g)
     }
   }
   return lp;
+}
+
+// ------------------------------------------------------------ the staged body
+//
+// A staged build's body reads its hoisted constants (kernels/staged.py) from
+// shared memory, copied there at block start where they fit under the
+// stager's cap (SMEM_CAP_BYTES, kStagedSharedFloats > 0), else from global
+// memory through __ldg (the header's GJT_C). kStagedD is the build's D.
+#ifdef GJT_STAGED_HEADER
+constexpr int kStagedD = gjt_staged::kD;
+constexpr int kStagedConsts = gjt_staged::kConsts;
+constexpr int kStagedSharedFloats = gjt_staged::kShared ? (gjt_staged::kConsts + 3) / 4 * 4 : 0;
+
+template <int D>
+__device__ __forceinline__ float staged_lp_grad(const float (&q)[D], float (&g)[D],
+                                                const float* consts) {
+  static_assert(D == gjt_staged::kD, "a staged build instantiates its own D only");
+  return gjt_staged::lp_grad(q, g, consts);
+}
+#else
+constexpr int kStagedD = 0;
+constexpr int kStagedConsts = 0;
+constexpr int kStagedSharedFloats = 0;
+
+// declared only: a build without a staged header never instantiates it
+template <int D>
+__device__ float staged_lp_grad(const float (&q)[D], float (&g)[D], const float* consts);
+#endif
+
+// Copy the staged constants into shared memory; the block synchronises
+// before reading them.
+__device__ __forceinline__ void load_staged_consts(float* dst, const float* consts) {
+  for (int k = threadIdx.x; k < kStagedConsts; k += blockDim.x) dst[k] = consts[k];
 }
 
 // lp(q), with its gradient written to g (every entry).

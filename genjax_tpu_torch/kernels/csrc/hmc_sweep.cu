@@ -20,7 +20,10 @@
 // __grid_constant__ kernel parameter read as constant-bank operands, or at a
 // runtime shape, whose constants sit in shared memory. eps * M^-1, M^-1 and
 // the momentum sd are per-dimension values the same for every chain, kept in
-// shared memory.
+// shared memory. A staged build (column_common.cuh, kStaged) instantiates the
+// same sweep with the staged body at its own D (any of 1..64), its constants
+// in shared memory in front of those values or, past the stager's cap, read
+// from global memory.
 //
 // Bound on this card: fp32 instruction throughput. A flagship gradient is
 // about 630 FLOP (256 FFMAs of X w and X^T r, the prior's logs and
@@ -55,6 +58,9 @@ namespace {
 
 constexpr int kThreads = 128;
 constexpr int kMinBlocks = 4;
+// a staged body materialises every intermediate of its program: its sweep
+// takes up to 255 registers a thread (two blocks an SM) before it spills
+constexpr int kStagedMinBlocks = 2;
 constexpr size_t kDefaultSmem = 48 * 1024;  // the most a block takes without opting in
 
 struct Params {
@@ -76,17 +82,20 @@ struct Params {
 // ---------------------------------------------------------------- sweep
 
 template <int D, int BODY, int NOBS, int DW>
-__global__ void __launch_bounds__(kThreads, kMinBlocks)
+__global__ void __launch_bounds__(kThreads, BODY == kStaged ? kStagedMinBlocks : kMinBlocks)
     hmc_sweep_kernel(const __grid_constant__ Params prm,
                      const __grid_constant__ UniformConsts<NOBS, DW> uc) {
   constexpr bool kShared = BODY == kHierRegression && NOBS == 0;
+  constexpr bool kStagedSmem = BODY == kStaged && kStagedSharedFloats > 0;
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
-  const int n_shared = kShared ? shared_consts_floats(prm.shape.n_obs, prm.shape.d_w) : 0;
+  const int n_shared = kShared ? shared_consts_floats(prm.shape.n_obs, prm.shape.d_w)
+                               : (kStagedSmem ? kStagedSharedFloats : 0);
   float* s_eps_im = smem + n_shared;  // eps * M^-1
   float* s_im = s_eps_im + D;         // M^-1
   float* s_std = s_im + D;            // momentum sd, sqrt(M)
   if (kShared) load_shared_consts(smem, prm.consts, prm.shape.n_obs, prm.shape.d_w);
+  if (kStagedSmem) load_staged_consts(smem, prm.consts);
   for (int k = threadIdx.x; k < D; k += blockDim.x) {
     const float im = prm.inv_mass[k];
     s_eps_im[k] = prm.eps * im;
@@ -99,7 +108,9 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
   if (n >= prm.N) return;
   // the specialised shape reads X and y straight from the kernel parameter
   auto body_lp = [&](const float (&x)[D], float (&gx)[D]) {
-    if constexpr (kShared) {
+    if constexpr (BODY == kStaged) {
+      return staged_lp_grad<D>(x, gx, kStagedSmem ? static_cast<const float*>(smem) : prm.consts);
+    } else if constexpr (kShared) {
       const SharedConsts c{smem, smem + prm.shape.n_obs * prm.shape.d_w, prm.shape.d_w};
       return lp_grad<D, BODY, NOBS, DW>(x, gx, c, prm.shape);
     } else {
@@ -132,13 +143,13 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
       for (int d = 0; d < D; ++d) p[d] = s_std[d] * counter_normal(base, salt, d, col);
     } else {
 #pragma unroll
-      for (int j = 0; j < D / 4; ++j) {
+      for (int j = 0; j < (D + 3) / 4; ++j) {  // a D that is no multiple of 4 drops the last words
         const float4 z = philox_normals4(
             make_uint4(static_cast<uint32_t>(i), static_cast<uint32_t>(j), 0u, 0u), philox_key);
         p[4 * j + 0] = s_std[4 * j + 0] * z.x;
-        p[4 * j + 1] = s_std[4 * j + 1] * z.y;
-        p[4 * j + 2] = s_std[4 * j + 2] * z.z;
-        p[4 * j + 3] = s_std[4 * j + 3] * z.w;
+        if (4 * j + 1 < D) p[4 * j + 1] = s_std[4 * j + 1] * z.y;
+        if (4 * j + 2 < D) p[4 * j + 2] = s_std[4 * j + 2] * z.z;
+        if (4 * j + 3 < D) p[4 * j + 3] = s_std[4 * j + 3] * z.w;
       }
     }
     float ke0 = 0.0f;
@@ -202,12 +213,14 @@ __global__ void counter_stream_kernel(uint32_t* bits, float* uniforms, float* no
   normals[idx] = counter_normal(base, salt, r, c);
 }
 
-// Dynamic shared memory of one block: the runtime-shape constants, then
-// eps * M^-1, M^-1 and the momentum sd.
+// Dynamic shared memory of one block: the runtime-shape constants (or the
+// staged body's, where they fit under the stager's cap), then eps * M^-1,
+// M^-1 and the momentum sd.
 size_t smem_bytes(int dim, int body, int specialised, int n_obs, int d_w) {
   const bool shared = body == kHierRegression && !specialised;
-  return sizeof(float) * (static_cast<size_t>(shared ? shared_consts_floats(n_obs, d_w) : 0) +
-                          3 * static_cast<size_t>(dim));
+  const int consts = shared ? shared_consts_floats(n_obs, d_w)
+                            : (body == kStaged ? kStagedSharedFloats : 0);
+  return sizeof(float) * (static_cast<size_t>(consts) + 3 * static_cast<size_t>(dim));
 }
 
 // Calls f with the kernel instantiation for (dim, body, specialised) as
@@ -221,6 +234,12 @@ cudaError_t dispatch(int dim, int body, int specialised, F&& f) {
   using Iid = integral_constant<int, kIidNormal>;
   using Hier = integral_constant<int, kHierRegression>;
   using Z = integral_constant<int, 0>;
+#ifdef GJT_STAGED_HEADER
+  // a staged build holds the staged body at its own D, and nothing else
+  if (body == kStaged && dim == kStagedD)
+    return f(integral_constant<int, kStagedD>{}, integral_constant<int, kStaged>{}, Z{}, Z{});
+  return cudaErrorInvalidValue;
+#else
   if (body == kIidNormal) {  // no constants: one variant
     if (dim == 8) return f(I8{}, Iid{}, Z{}, Z{});
     if (dim == 16) return f(I16{}, Iid{}, Z{}, Z{});
@@ -232,6 +251,7 @@ cudaError_t dispatch(int dim, int body, int specialised, F&& f) {
   if (body == kHierRegression && specialised && dim == 16)
     return f(I16{}, Hier{}, integral_constant<int, 16>{}, integral_constant<int, 8>{});
   return cudaErrorInvalidValue;
+#endif
 }
 
 template <int D, int BODY, int NOBS, int DW>
@@ -277,6 +297,7 @@ int hmc_sweep(const float* q_in, float* q_out, float* accepts, const float* inv_
     return cudaErrorInvalidValue;
   if (specialised && body == kHierRegression && (n_obs != 16 || d_w != 8))
     return cudaErrorInvalidValue;
+  if (body == kStaged && n_consts != kStagedConsts) return cudaErrorInvalidValue;
   const size_t smem = smem_bytes(dim, body, specialised, n_obs, d_w);
   const Params prm{q_in, q_out, accepts, inv_mass, consts, BodyShape{n_obs, d_w, obs_scale},
                    N, n_steps, L, eps, static_cast<uint32_t>(seed), rng, block_n};

@@ -1,7 +1,9 @@
 // NUTS sweep for Hopper (sm_90a), one chain per thread: K4.
 //
 // Replaces genjax_tpu/kernels/nuts_pallas.py::_nuts_kernel, the Pallas TPU
-// kernel that keeps a chain block's whole NUTS tree on chip for a sweep.
+// kernel that keeps a chain block's whole NUTS tree on chip for a sweep. A
+// staged build (column_common.cuh, kStaged) instantiates the same sweep with
+// the staged body at its own D, its constants in front of the stacks.
 //
 // What it computes: n_steps NUTS transitions on each of N chains, with the
 // reference kernel's semantics. A transition draws momentum r0 ~ N(0, M) and
@@ -124,12 +126,12 @@ struct Stream {
       return;
     }
 #pragma unroll
-    for (int j = 0; j < D / 4; ++j) {
+    for (int j = 0; j < (D + 3) / 4; ++j) {  // a D that is no multiple of 4 drops the last words
       const float4 v = philox_normals4(make_uint4(salt, static_cast<uint32_t>(j), 1u, 0u), key);
       z[4 * j + 0] = v.x;
-      z[4 * j + 1] = v.y;
-      z[4 * j + 2] = v.z;
-      z[4 * j + 3] = v.w;
+      if (4 * j + 1 < D) z[4 * j + 1] = v.y;
+      if (4 * j + 2 < D) z[4 * j + 2] = v.z;
+      if (4 * j + 3 < D) z[4 * j + 3] = v.w;
     }
   }
 };
@@ -158,19 +160,24 @@ __global__ void __launch_bounds__(kMaxThreads)
     nuts_sweep_kernel(const __grid_constant__ NutsParams prm,
                       const __grid_constant__ UniformConsts<NOBS, DW> uc) {
   constexpr bool kShared = BODY == kHierRegression && NOBS == 0;
+  constexpr bool kStagedSmem = BODY == kStaged && kStagedSharedFloats > 0;
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const int T = blockDim.x;
   const int tid = threadIdx.x;
-  const int n_shared = kShared ? shared_consts_floats(prm.shape.n_obs, prm.shape.d_w) : 0;
+  const int n_shared = kShared ? shared_consts_floats(prm.shape.n_obs, prm.shape.d_w)
+                               : (kStagedSmem ? kStagedSharedFloats : 0);
   float* ck_z = smem + n_shared;  // checkpoint stacks [slot][d][thread]
   float* ck_r = ck_z + prm.max_depth * D * T;
   if (kShared) load_shared_consts(smem, prm.consts, prm.shape.n_obs, prm.shape.d_w);
+  if (kStagedSmem) load_staged_consts(smem, prm.consts);
   __syncthreads();
 
   // the specialised shape reads X and y straight from the kernel parameter
   auto body_lp = [&](const float (&x)[D], float (&gx)[D]) {
-    if constexpr (kShared) {
+    if constexpr (BODY == kStaged) {
+      return staged_lp_grad<D>(x, gx, kStagedSmem ? static_cast<const float*>(smem) : prm.consts);
+    } else if constexpr (kShared) {
       const SharedConsts c{smem, smem + prm.shape.n_obs * prm.shape.d_w, prm.shape.d_w};
       return lp_grad<D, BODY, NOBS, DW>(x, gx, c, prm.shape);
     } else {
@@ -326,11 +333,14 @@ __global__ void __launch_bounds__(kMaxThreads)
 }
 
 // Dynamic shared memory of one block of `chains` chains: the runtime shape's
-// constants, then the two checkpoint stacks (max_depth, D, chains).
+// constants (or the staged body's, where they fit under the stager's cap),
+// then the two checkpoint stacks (max_depth, D, chains).
 size_t smem_bytes(int dim, int body, int specialised, int n_obs, int d_w, int max_depth,
                   int chains) {
   const bool shared = body == kHierRegression && !specialised;
-  return sizeof(float) * (static_cast<size_t>(shared ? shared_consts_floats(n_obs, d_w) : 0) +
+  const int consts = shared ? shared_consts_floats(n_obs, d_w)
+                            : (body == kStaged ? kStagedSharedFloats : 0);
+  return sizeof(float) * (static_cast<size_t>(consts) +
                           2 * static_cast<size_t>(max_depth) * dim * chains);
 }
 
@@ -354,9 +364,15 @@ cudaError_t dispatch_body(int body, int specialised, F&& f) {
 // constants and one variant.
 template <class F>
 cudaError_t dispatch(int dim, int body, int specialised, F&& f) {
+#ifdef GJT_STAGED_HEADER
+  // a staged build holds the staged body at its own D, and nothing else
+  if (body == kStaged && dim == kStagedD) return f(IC<kStagedD>{}, IC<kStaged>{}, IC<0>{}, IC<0>{});
+  return cudaErrorInvalidValue;
+#else
   if (dim == 8) return dispatch_body<8>(body, specialised, f);
   if (dim == 16) return dispatch_body<16>(body, specialised, f);
   return cudaErrorInvalidValue;
+#endif
 }
 
 #define NUTS_KERNEL(d, b, no, dw) \
@@ -397,6 +413,7 @@ int nuts_sweep(const float* q_in, float* q_out, float* accepts, float* leaps,
     return cudaErrorInvalidValue;
   if (specialised && body == kHierRegression && (n_obs != 16 || d_w != 8))
     return cudaErrorInvalidValue;
+  if (body == kStaged && n_consts != kStagedConsts) return cudaErrorInvalidValue;
   const NutsParams prm{q_in, q_out, accepts, leaps, inv_mass, consts,
                        BodyShape{n_obs, d_w, obs_scale}, N, n_steps, eps, div_threshold,
                        max_depth, static_cast<uint32_t>(seed), rng};

@@ -573,7 +573,7 @@ def ess_sweep_gauss_pallas(
             f"n_chains={n} must be divisible by block_n={block_n} "
             "(pad the chain count or pass block_n explicitly)"
         )
-    backend = _route(backend, device, True)
+    backend = _route(backend, device)
     if backend == "cuda":
         q = ess_gauss_sweep(
             q0.contiguous(), seed, n_steps=n_steps, chol=chol.contiguous(), y=y, prec=prec, mean=mean,

@@ -4,11 +4,13 @@ Counterpart of ``genjax_tpu/kernels/hmc.py``. Positions are ``(D, N)``
 float32 with chains on the last axis. Two paths:
 
 - ``hmc_sweep``: the CUDA kernel (``csrc/hmc_sweep.cu``), one chain per
-  thread with the whole sweep in registers, for densities that carry a
-  hand-written device body (``kernels/bodies.py``), in the body's variant
+  thread with the whole sweep in registers, with a device body: a
+  hand-written one (``kernels/bodies.py``) in its variant
   (``Body.variant``: the flagship's shape compiled with its constants as
-  kernel parameters, or a runtime shape). It replaces the Pallas TPU kernel
-  ``_hmc_kernel`` and its PRNG helpers.
+  kernel parameters, or a runtime shape), or any other column density
+  staged into one (``kernels/staged.py``), as the reference's kernel replays
+  any density's jaxpr. It replaces the Pallas TPU kernel ``_hmc_kernel``
+  and its PRNG helpers.
 - ``_reference_hmc``: the plain torch twin, any column density, gradients
   from autograd.
 
@@ -32,6 +34,7 @@ from . import _build
 from .adaptation import windowed_warmup
 from .bodies import Body
 from .rows import Rows, chain_mesh
+from .staged import STAGED, staged_body_for, staging_scope
 
 _TWO_PI = 6.283185307179586
 _M32 = 0xFFFFFFFF
@@ -223,7 +226,17 @@ THREADS = 128
 
 @functools.cache
 def _lib() -> ctypes.CDLL:
-    lib = _build.load("hmc_sweep")
+    return _bind(_build.load("hmc_sweep"))
+
+
+def _lib_for(body) -> ctypes.CDLL:
+    """The build that holds ``body``'s kernel: the staged build of a staged
+    body, the package's own otherwise."""
+    return _bind(body.lib()) if body.kind == STAGED else _lib()
+
+
+@functools.cache
+def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.hmc_sweep.argtypes = [P, P, P, P, P, P, I, I, I, I, I, I, I, F, I, I, F, I, I, I, P]
     lib.hmc_sweep.restype = I
@@ -251,7 +264,7 @@ def kernel_info(body: Body, d: int) -> dict:
     d``: registers a thread, local (spill) bytes a thread, and resident
     blocks an SM."""
     out = (ctypes.c_int * 3)()
-    err = _lib().hmc_kernel_info(
+    err = _lib_for(body).hmc_kernel_info(
         d, body.kind, int(body.variant(d) == "specialised"), body.n_obs, body.d_w, out
     )
     if err != 0:
@@ -277,7 +290,8 @@ def hmc_sweep(
 ):
     """Launch the CUDA sweep kernel on the current stream, without
     synchronising. ``q0`` is a contiguous float32 CUDA tensor of shape
-    ``(D, N)`` with ``D`` 8 or 16. ``rng="counter"`` needs ``block_n``, the
+    ``(D, N)`` with ``D`` 8 or 16 for a hand-written body, the body's own
+    ``d`` (1 to 64) for a staged one. ``rng="counter"`` needs ``block_n``, the
     stream's chain block, which is independent of the launch block
     (``THREADS``). The body's variant taken is recorded on
     ``hmc_sweep.last_variant``.
@@ -294,8 +308,7 @@ def hmc_sweep(
             f"{q0.dtype} {tuple(q0.shape)} contiguous={q0.is_contiguous()}"
         )
     d, n = q0.shape
-    if d not in (8, 16) or d < body.min_dim():
-        raise ValueError(f"D={d}: the kernel takes D in (8, 16) and {body.name} needs D >= {body.min_dim()}")
+    _check_dim(body, d)
     if rng not in _RNG_IDS:
         raise ValueError(f"rng must be 'philox' or 'counter', got {rng!r}")
     if rng == "counter" and block_n is None:
@@ -304,8 +317,9 @@ def hmc_sweep(
         raise ValueError("n_steps and L must be non-negative")
     variant = body.variant(d)
     smem = smem_bytes(body, d)
+    lib = _lib_for(body)
     device_index = q0.device.index if q0.device.index is not None else torch.cuda.current_device()
-    limit = _lib().hmc_smem_limit(device_index)
+    limit = lib.hmc_smem_limit(device_index)
     if limit < 0:
         raise RuntimeError(f"could not read the shared-memory limit of CUDA device {device_index}")
     if smem > limit:
@@ -319,9 +333,9 @@ def hmc_sweep(
     q_out = torch.empty_like(q0)
     accepts = torch.empty(n, dtype=torch.float32, device=q0.device)
     with torch.cuda.device(q0.device):
-        err = _lib().hmc_sweep(
+        err = lib.hmc_sweep(
             q0.data_ptr(), q_out.data_ptr(), accepts.data_ptr(), inv_mass.data_ptr(),
-            consts.data_ptr(), body.consts.data_ptr(), consts.numel(), body.kind,
+            consts.data_ptr(), body.consts.data_ptr(), body.consts.numel(), body.kind,
             int(variant == "specialised"), d, n, body.n_obs, body.d_w, body.obs_scale,
             n_steps, L, eps, _int32(seed), _RNG_IDS[rng], block_n or 1,
             torch.cuda.current_stream(q0.device).cuda_stream,
@@ -334,6 +348,16 @@ def hmc_sweep(
 
 
 hmc_sweep.last_variant = None
+
+
+def _check_dim(body, d: int) -> None:
+    """The packed dimensions a kernel takes with ``body``: 8 or 16 for a
+    hand-written body (at least the body's own), the staged body's own D."""
+    if body.kind == STAGED:
+        if d != body.d:
+            raise ValueError(f"D={d}: the staged body was staged at D={body.d}")
+    elif d not in (8, 16) or d < body.min_dim():
+        raise ValueError(f"D={d}: the kernel takes D in (8, 16) and {body.name} needs D >= {body.min_dim()}")
 
 
 def counter_stream_cuda(seed: int, block: int, salt: int, shape, device):
@@ -360,8 +384,11 @@ def counter_stream_cuda(seed: int, block: int, salt: int, shape, device):
 # ----------------------------------------------------------------------
 
 
-def _route(backend: str, device: torch.device, has_body: bool) -> str:
-    """The backend ``pallas_hmc`` takes for chains on ``device``."""
+def _route(backend: str, device: torch.device, has_body: bool = True) -> str:
+    """The backend a sampler takes for chains on ``device``: ``pallas_hmc``
+    and ``pallas_nuts`` always have a device body there (``device_body``);
+    the trace path's shared launch (``inference/mcmc.py``) only where the
+    model has a hand-written one."""
     if backend not in ("auto", "cuda", "torch"):
         raise ValueError(f"backend must be 'auto', 'cuda' or 'torch', got {backend!r}")
     on_card = device.type == "cuda"
@@ -378,6 +405,18 @@ def _route(backend: str, device: torch.device, has_body: bool) -> str:
     if backend == "cuda" and not has_body:
         raise ValueError("backend='cuda' needs a density with a device body (.body)")
     return backend
+
+
+def device_body(logdensity_cols: Callable, d: int, device) -> Body:
+    """The device body the CUDA sweeps run for ``logdensity_cols`` at ``D =
+    d``: its hand-written ``.body`` where it has one, else the density
+    staged into one (``staged.staged_body_for``, traced on ``device``: once
+    a call of ``column_hmc``/``warmup_column`` or their NUTS kin, which
+    open a ``staged.staging_scope``, and at every call elsewhere), which
+    raises for a density outside the staged op set. Nothing falls back to
+    the twin."""
+    body = getattr(logdensity_cols, "body", None)
+    return body if body is not None else staged_body_for(logdensity_cols, d, device)
 
 
 def pallas_hmc(
@@ -397,12 +436,14 @@ def pallas_hmc(
 
     Backends:
 
-    - ``"cuda"``: the CUDA sweep kernel; needs a CUDA ``q0`` and a density
-      with a device body (``logdensity_cols.body``).
+    - ``"cuda"``: the CUDA sweep kernel; needs a CUDA ``q0``. It runs the
+      density's hand-written body (``logdensity_cols.body``) where there is
+      one, else the density staged into a device body (``device_body``),
+      and raises for a density that cannot be staged.
     - ``"torch"``: the plain twin ``_reference_hmc``.
     - ``"auto"`` (default): ``"cuda"`` for a CUDA ``q0``, ``"torch"`` for a
-      CPU ``q0``. A CUDA ``q0`` whose density has no body raises: the twin
-      runs on the card only when asked for with ``backend="torch"``.
+      CPU ``q0``: the twin runs on the card only when asked for with
+      ``backend="torch"``.
 
     ``interpret`` keeps the reference's signature but selects a random
     stream, not an interpret mode: ``interpret=True`` is the counter stream
@@ -410,13 +451,15 @@ def pallas_hmc(
     the reference's interpret-mode PRNG, for chain block ``block_n``
     (required). Otherwise the kernel draws from Philox and the twin from a
     ``torch.Generator`` seeded with ``seed``. The backend taken is recorded
-    on ``pallas_hmc.last_backend``.
+    on ``pallas_hmc.last_backend``, and the device body the kernel ran on
+    ``pallas_hmc.last_body`` (``"iid_normal"``, ``"hier_regression"`` or
+    ``"staged"``; None on the twin).
 
     Returns ``(q_final, accept_rate)``: positions ``(D, N)`` and the mean
     acceptance rate over chains and steps.
     """
-    body = getattr(logdensity_cols, "body", None)
-    backend = _route(backend, q0.device, body is not None)
+    backend = _route(backend, q0.device)
+    body = device_body(logdensity_cols, q0.shape[0], q0.device) if backend == "cuda" else None
     if backend == "cuda":
         q, accepts = hmc_sweep(
             body, q0.to(torch.float32).contiguous(), seed, n_steps=n_steps, eps=eps,
@@ -431,12 +474,15 @@ def pallas_hmc(
             block_n=block_n,
         )
     pallas_hmc.last_backend = backend
+    pallas_hmc.last_body = body.name if body is not None else None
     return out
 
 
 pallas_hmc.last_backend = None
+pallas_hmc.last_body = None
 
 
+@staging_scope()
 def warmup_column(
     logdensity_cols: Callable,
     q0: torch.Tensor,

@@ -31,6 +31,7 @@ from .dense_mass import hmc_sweep_dense_cols, warmup_column_dense
 from .hmc import pallas_hmc, warmup_column
 from .nuts_pallas import pallas_nuts, warmup_column_nuts
 from .pt import geometric_ladder, pt_hmc
+from .staged import staging_scope
 from .svgd import svgd
 
 
@@ -239,6 +240,7 @@ def _shard_of(n_chains: int, seed: int, device, mesh, axis: str, entry: str):
     return n_chains // size, stream_seed(seed, mesh.rank) >> 34, mesh.device
 
 
+@staging_scope()
 def column_hmc(
     model: GenerativeFunction,
     constraint: ChoiceMap,
@@ -269,10 +271,12 @@ def column_hmc(
     ``backend``, ``interpret`` and ``block_n`` are those of ``pallas_hmc``.
     ``warmup=True`` first adapts ``eps`` (from ``eps`` as its start) and the
     diagonal inverse mass with ``warmup_column``, whose phases take the same
-    routing. On a CUDA device the default runs the CUDA sweep kernel, which
-    needs a device body for this model and packing (``kernels/bodies.py``
-    ``body_for``); without one it raises, and ``backend="torch"`` runs the
-    plain twin on the card instead. ``interpret=True`` is the reference's
+    routing. On a CUDA device the default runs the CUDA sweep kernel on the
+    model's hand-written device body (``kernels/bodies.py`` ``body_for``)
+    where there is one, else on its column density staged into one
+    (``kernels/staged.py``, staged once a call); a density that cannot be
+    staged raises, and ``backend="torch"`` runs the plain twin on the card
+    instead. ``interpret=True`` is the reference's
     name for the counter stream (``rng="counter"`` of the kernel and the
     twin): it chooses the random stream, not an interpret mode.
 
@@ -336,6 +340,7 @@ def column_hmc(
     return q, accept, packer
 
 
+@staging_scope()
 def column_nuts(
     model: GenerativeFunction,
     constraint: ChoiceMap,
@@ -363,8 +368,10 @@ def column_nuts(
 
     ``backend``, ``interpret`` and ``block_n`` are those of
     ``nuts_pallas.pallas_nuts``: on a CUDA device the default runs the CUDA
-    NUTS kernel, which needs a device body for this model and packing, and
-    raises without one (``backend="torch"`` runs the plain twin there).
+    NUTS kernel on the model's hand-written device body or its column
+    density staged into one, as ``column_hmc`` does, and raises for a
+    density that cannot be staged (``backend="torch"`` runs the plain twin
+    there).
     ``warmup=True`` first adapts ``eps`` (from ``eps`` as its start) and the
     diagonal inverse mass with ``warmup_column_nuts``, whose phases take the
     same routing: on the card, one kernel launch per phase. ``mesh`` shards

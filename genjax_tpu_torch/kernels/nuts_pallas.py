@@ -7,7 +7,8 @@ on the TPU, and runs there only under the Pallas interpreter.
 
 - ``nuts_sweep``: the CUDA kernel (``csrc/nuts_sweep.cu``), one chain per
   thread, a CUDA block per chain block, checkpoint stacks in shared memory,
-  for densities that carry a device body (``kernels/bodies.py``).
+  with a device body: hand-written (``kernels/bodies.py``) or staged from
+  any other column density (``kernels/staged.py``).
 - ``nuts.nuts_sweep_cols``: its plain torch version, any column density.
 - ``pallas_nuts`` routes between them with ``hmc._route``.
 - ``warmup_column_nuts``: the windowed warmup driven by NUTS's own accept
@@ -27,7 +28,8 @@ import torch
 from . import _build
 from .adaptation import windowed_warmup
 from .bodies import Body
-from .hmc import _RNG_IDS, _inv_mass_col, _int32, _route
+from .hmc import _RNG_IDS, _check_dim, _inv_mass_col, _int32, _route, device_body
+from .staged import STAGED, staging_scope
 from .nuts import nuts_sweep_cols
 from .rows import chain_mesh
 
@@ -42,7 +44,17 @@ MAX_BLOCK = 256  # the kernel's __launch_bounds__
 
 @functools.cache
 def _lib() -> ctypes.CDLL:
-    lib = _build.load("nuts_sweep")
+    return _bind(_build.load("nuts_sweep"))
+
+
+def _lib_for(body) -> ctypes.CDLL:
+    """The build that holds ``body``'s kernel: the staged build of a staged
+    body, the package's own otherwise."""
+    return _bind(body.lib()) if body.kind == STAGED else _lib()
+
+
+@functools.cache
+def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.nuts_sweep.argtypes = [
         P, P, P, P, P, P, P, I, I, I, I, I, I, I, F, I, F, F, I, I, I, I, P,
@@ -69,7 +81,7 @@ def kernel_info(body: Body, d: int, max_depth: int, block: int) -> dict:
     ``D = d``, launched with ``block`` chains a block: registers a thread,
     local (spill) bytes a thread, resident blocks an SM."""
     out = (ctypes.c_int * 3)()
-    err = _lib().nuts_kernel_info(
+    err = _lib_for(body).nuts_kernel_info(
         d, body.kind, int(body.variant(d) == "specialised"), body.n_obs, body.d_w, max_depth,
         block, out,
     )
@@ -93,7 +105,8 @@ def nuts_sweep(
 ):
     """Launch the CUDA NUTS kernel on the current stream, without
     synchronising. ``q0`` is a contiguous float32 CUDA tensor ``(D, N)``
-    with ``D`` 8 or 16. The launch block is ``block_n`` chains (default
+    with ``D`` 8 or 16 for a hand-written body, the body's own ``d`` for a
+    staged one (as far as the stacks fit). The launch block is ``block_n`` chains (default
     ``DEFAULT_BLOCK``, at most ``MAX_BLOCK``); ``rng="counter"`` needs
     ``block_n``, which is then also the stream's chain block, and ``N`` a
     multiple of it. The body's variant taken is recorded on
@@ -112,8 +125,7 @@ def nuts_sweep(
             f"{q0.dtype} {tuple(q0.shape)} contiguous={q0.is_contiguous()}"
         )
     d, n = q0.shape
-    if d not in (8, 16) or d < body.min_dim():
-        raise ValueError(f"D={d}: the kernel takes D in (8, 16) and {body.name} needs D >= {body.min_dim()}")
+    _check_dim(body, d)
     if rng not in _RNG_IDS:
         raise ValueError(f"rng must be 'philox' or 'counter', got {rng!r}")
     if rng == "counter" and block_n is None:
@@ -128,8 +140,9 @@ def nuts_sweep(
     variant = body.variant(d)
     consts = body.consts_on(q0.device)
     smem = smem_bytes(body, d, max_depth, block)
+    lib = _lib_for(body)
     device_index = q0.device.index if q0.device.index is not None else torch.cuda.current_device()
-    limit = _lib().nuts_smem_limit(device_index)
+    limit = lib.nuts_smem_limit(device_index)
     if limit < 0:
         raise RuntimeError(f"could not read the shared-memory limit of CUDA device {device_index}")
     if smem > limit:
@@ -143,9 +156,9 @@ def nuts_sweep(
     accepts = torch.empty(n, dtype=torch.float32, device=q0.device)
     leaps = torch.empty(n, dtype=torch.float32, device=q0.device)
     with torch.cuda.device(q0.device):
-        err = _lib().nuts_sweep(
+        err = lib.nuts_sweep(
             q0.data_ptr(), q_out.data_ptr(), accepts.data_ptr(), leaps.data_ptr(),
-            inv_mass.data_ptr(), consts.data_ptr(), body.consts.data_ptr(), consts.numel(),
+            inv_mass.data_ptr(), consts.data_ptr(), body.consts.data_ptr(), body.consts.numel(),
             body.kind, int(variant == "specialised"), d, n, body.n_obs, body.d_w,
             body.obs_scale, n_steps, eps, divergence_threshold, max_depth, _int32(seed),
             _RNG_IDS[rng], block, torch.cuda.current_stream(q0.device).cuda_stream,
@@ -177,20 +190,22 @@ def pallas_nuts(
     """Run ``n_steps`` NUTS transitions on ``N`` column-layout chains.
 
     Backends, as for ``hmc.pallas_hmc``: ``"cuda"`` is the CUDA kernel
-    (needs a CUDA ``q0`` and a density with a device body), ``"torch"`` the
-    plain twin ``nuts.nuts_sweep_cols``, and ``"auto"`` (default) takes
-    ``"cuda"`` for a CUDA ``q0`` and ``"torch"`` for a CPU one; a CUDA
-    ``q0`` whose density has no body raises. ``interpret=True`` selects the
+    (needs a CUDA ``q0``; the density's hand-written body, or the density
+    staged into one, ``hmc.device_body``, which raises for a density that
+    cannot be staged), ``"torch"`` the plain twin ``nuts.nuts_sweep_cols``,
+    and ``"auto"`` (default) takes ``"cuda"`` for a CUDA ``q0`` and
+    ``"torch"`` for a CPU one. ``interpret=True`` selects the
     counter stream (the port of the reference's interpret-mode PRNG) for
     chain block ``block_n``, which it needs; otherwise the kernel draws from
     Philox and the twin from a ``torch.Generator`` seeded with ``seed``. The
-    backend taken is recorded on ``pallas_nuts.last_backend``.
+    backend taken is recorded on ``pallas_nuts.last_backend`` and the
+    device body on ``pallas_nuts.last_body`` (None on the twin).
 
     Returns ``(q_final, accept_stat, mean_leapfrogs)``: the mean over chains
     and transitions of the accept statistic and of the leapfrog count.
     """
-    body = getattr(logdensity_cols, "body", None)
-    backend = _route(backend, q0.device, body is not None)
+    backend = _route(backend, q0.device)
+    body = device_body(logdensity_cols, q0.shape[0], q0.device) if backend == "cuda" else None
     if backend == "cuda":
         q, accepts, leaps = nuts_sweep(
             body, q0.to(torch.float32).contiguous(), seed, n_steps=n_steps, eps=eps,
@@ -205,12 +220,15 @@ def pallas_nuts(
             divergence_threshold=divergence_threshold,
         )
     pallas_nuts.last_backend = backend
+    pallas_nuts.last_body = body.name if body is not None else None
     return out
 
 
 pallas_nuts.last_backend = None
+pallas_nuts.last_body = None
 
 
+@staging_scope()
 def warmup_column_nuts(
     logdensity_cols: Callable,
     q0: torch.Tensor,

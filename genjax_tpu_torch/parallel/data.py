@@ -102,6 +102,9 @@ def data_sharded_logdensity(
         lik = log_lik(_comm.replicated(q, mesh, data_axis), shard)
         return log_prior(q) + _comm.sum_partials(lik, mesh, data_axis)
 
+    # the mesh axis its sum runs over, which no device body can reduce
+    # (kernels/staged.py refuses the density by it)
+    logdensity_cols.collective_axis = data_axis
     return logdensity_cols
 
 

@@ -178,11 +178,27 @@ def test_route(backend, device, has_body, taken):
     assert hmc._route(backend, torch.device(device), has_body) == taken
 
 
+def _cumsum_density(q):
+    return -0.5 * torch.cumsum(q * q, dim=0)[-1]
+
+
+@pytest.mark.parametrize("density", ["stageable", "unstageable"])
 @pytest.mark.parametrize("backend", ["auto", "cuda"])
-def test_route_refuses_the_card_without_a_body(backend):
-    """Chains on the card never fall back to the twin unasked."""
+def test_route_refuses_the_card_without_a_body(backend, density):
+    """Chains on the card never fall back to the twin unasked: a density
+    with no hand-written body routes to the kernel with its staged body
+    (``hmc.device_body``), and one that cannot be staged raises naming
+    ``backend='torch'``. The trace path's launch, which has no staged body,
+    still refuses the card without a hand-written one."""
+    assert hmc._route(backend, torch.device("cuda"), True) == "cuda"
     with pytest.raises(ValueError, match="device body"):
         hmc._route(backend, torch.device("cuda"), False)
+    if density == "stageable":
+        body = hmc.device_body(lambda q: -0.5 * (q * q).sum(dim=0), 8, torch.device("cpu"))
+        assert body.name == "staged" and body.kind == 2
+    else:
+        with pytest.raises(ValueError, match="aten.cumsum.*backend='torch'"):
+            hmc.device_body(_cumsum_density, 8, torch.device("cpu"))
 
 
 @pytest.mark.parametrize(
@@ -210,7 +226,11 @@ def test_shared_memory(shape, d, smem):
 
 
 @pytest.mark.cuda
-def test_column_hmc_on_the_card_without_a_body_raises():
+@pytest.mark.parametrize("density", ["stageable", "unstageable"])
+def test_column_hmc_on_the_card_without_a_body_raises(density):
+    """A model with no hand-written body runs K1 with its staged body under
+    the default backend; one whose density cannot be staged raises, and
+    ``backend="torch"`` runs the twin on the card."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     import genjax_tpu_torch as g
@@ -221,10 +241,19 @@ def test_column_hmc_on_the_card_without_a_body_raises():
         mu = g.normal(0.0, 1.0) @ "mu"
         _ = g.normal(mu, 1.0) @ "y"
 
+    @g.gen
+    def cumulative():
+        mu = g.normal(0.0, 1.0) @ "mu"
+        _ = g.normal(torch.cumsum(mu * torch.ones(3, device=mu.device), dim=0)[-1], 1.0) @ "y"
+
     kw = dict(n_chains=256, n_steps=2, eps=0.5, L=2, device="cuda")
+    if density == "stageable":
+        q, _, _ = column_hmc(model, g.C["y"].set(2.0), (), ["mu"], **kw)
+        assert hmc.pallas_hmc.last_backend == "cuda" and hmc.pallas_hmc.last_body == "staged"
+        return
     with pytest.raises(ValueError, match="backend='torch'"):
-        column_hmc(model, g.C["y"].set(2.0), (), ["mu"], **kw)
-    q, _, _ = column_hmc(model, g.C["y"].set(2.0), (), ["mu"], backend="torch", **kw)
+        column_hmc(cumulative, g.C["y"].set(2.0), (), ["mu"], **kw)
+    q, _, _ = column_hmc(cumulative, g.C["y"].set(2.0), (), ["mu"], backend="torch", **kw)
     assert hmc.pallas_hmc.last_backend == "torch" and q.is_cuda
 
 

@@ -163,6 +163,7 @@ def test_imports_without_jax():
         "genjax_tpu_torch.parallel.mesh, genjax_tpu_torch.parallel.mcmc, genjax_tpu_torch.parallel.islands, "
         "genjax_tpu_torch.parallel.data, genjax_tpu_torch.parallel.tensor_parallel, "
         "genjax_tpu_torch.parallel.rbpf, genjax_tpu_torch.parallel.audit, genjax_tpu_torch.kernels.rows, "
+        "genjax_tpu_torch.kernels.staged, "
         "genjax_tpu_torch.cookbook, genjax_tpu_torch.cookbook._common; "
         "import importlib; from genjax_tpu_torch.cookbook import COOKBOOKS; "
         "[importlib.import_module('genjax_tpu_torch.cookbook.' + n) for n in COOKBOOKS]; "
@@ -231,6 +232,18 @@ def test_column_samplers_sit_below_inference():
     for mod in (f"{PKG}.kernels.chees", f"{PKG}.kernels.pt", f"{PKG}.kernels.dense_mass"):
         assert mod in edges[f"{PKG}.inference.sample"], mod
     assert LAYERS["kernels"] < LAYERS["inference"]
+
+
+def test_staged_body_sits_below_model_interface():
+    """The stager (``kernels/staged.py``) reaches torch, numpy and, for its
+    build, ``kernels/_build.py``; the samplers' routing (``hmc``,
+    ``nuts_pallas``) reaches it, and through them ``model_interface``."""
+    mods, edges = _graph()
+    mod = f"{PKG}.kernels.staged"
+    assert mod in mods
+    assert edges[mod] <= {f"{PKG}.kernels._build", f"{PKG}.kernels"}, edges[mod]
+    assert mod in edges[f"{PKG}.kernels.hmc"] and mod in edges[f"{PKG}.kernels.nuts_pallas"]
+    assert f"{PKG}.kernels.hmc" in edges[f"{PKG}.kernels.model_interface"]
 
 
 def test_combinators_sit_between_the_language_and_the_models():

@@ -229,9 +229,14 @@ def test_routing_on_the_cpu():
     q0 = torch.zeros(8, 128)
     nuts_pallas.pallas_nuts(bodies.iid_normal(), q0, 0, n_steps=1, eps=0.1, max_depth=2)
     assert nuts_pallas.pallas_nuts.last_backend == "torch"
-    # a request for the card without a device body raises, never falls back
-    with pytest.raises(ValueError, match="device body"):
+    # a request for the card never falls back: a density without a
+    # hand-written body is staged (and the kernel then refuses a CPU tensor),
+    # one that cannot be staged raises
+    with pytest.raises(ValueError, match="CUDA"):
         nuts_pallas.pallas_nuts(_aniso_torch, q0, 0, n_steps=1, eps=0.1, backend="cuda")
+    with pytest.raises(ValueError, match="aten.sort.*backend='torch'"):
+        nuts_pallas.pallas_nuts(lambda q: torch.sort(q, dim=0).values[0], q0, 0, n_steps=1, eps=0.1,
+                                backend="cuda")
     with pytest.raises(ValueError, match="CUDA"):
         nuts_pallas.pallas_nuts(bodies.iid_normal(), q0, 0, n_steps=1, eps=0.1, backend="cuda")
     with pytest.raises(ValueError, match="block_n"):
@@ -284,16 +289,29 @@ def test_geometry(shape, d, depth, block, variant, consts_floats):
 
 
 @pytest.mark.cuda
-def test_column_nuts_on_the_card_without_a_body_raises():
+@pytest.mark.parametrize("density", ["stageable", "unstageable"])
+def test_column_nuts_on_the_card_without_a_body_raises(density):
+    """A model with no hand-written body runs K4 with its staged body under
+    the default backend; one whose density cannot be staged raises, and
+    ``backend="torch"`` runs the twin on the card."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     import genjax_tpu_torch as g
     from genjax_tpu_torch.kernels import column_nuts
 
+    @g.gen
+    def cumulative():
+        mu = g.normal(0.0, 1.0) @ "mu"
+        _ = g.normal(torch.cumsum(mu * torch.ones(3, device=mu.device), dim=0)[-1], 1.0) @ "y"
+
     kw = dict(n_chains=256, n_steps=2, eps=0.5, max_depth=3, device="cuda")
+    if density == "stageable":
+        q, _, _, _ = column_nuts(_normal_model(), g.C["y"].set(2.0), (), ["mu"], **kw)
+        assert nuts_pallas.pallas_nuts.last_backend == "cuda" and nuts_pallas.pallas_nuts.last_body == "staged"
+        return
     with pytest.raises(ValueError, match="backend='torch'"):
-        column_nuts(_normal_model(), g.C["y"].set(2.0), (), ["mu"], **kw)
-    q, _, _, _ = column_nuts(_normal_model(), g.C["y"].set(2.0), (), ["mu"], backend="torch", **kw)
+        column_nuts(cumulative, g.C["y"].set(2.0), (), ["mu"], **kw)
+    q, _, _, _ = column_nuts(cumulative, g.C["y"].set(2.0), (), ["mu"], backend="torch", **kw)
     assert nuts_pallas.pallas_nuts.last_backend == "torch" and q.is_cuda
 
 
