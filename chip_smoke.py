@@ -91,7 +91,9 @@ staged kernel held against its plain version on the counter stream, the
 staged flagship against the hand-written K1, ``column_hmc`` and
 ``column_nuts`` with the default backend on the models with no
 hand-written body against their exact posteriors, and the staged times
-beside the hand-written ones. It checks
+beside the hand-written ones and every staged density's K1 beside its
+bound (each build's constant mode, registers and spills on its build
+line). It checks
 that each path launched its kernel in the variant it should (K1 and K4: the
 body's; K3: the tiled one), and agrees in law with the plain twin; it checks
 each kernel's shared-memory reckoning in Python against the kernel's own,
@@ -4853,11 +4855,13 @@ def staged_path(device, smi: str, g, hmc, nuts, nuts_pallas, bodies, built: dict
     (``kernels/staged.py``, built at the top) against their plain version
     on the counter stream (the twin on the density that was staged, not on
     its lowered program), the default backend's route for models with no
-    hand-written body, and the staged times beside the hand-written ones.
-    The staged flagship's bounds are the hand-written flagship's: the same
-    function, whose work ``hier_grad_flop`` counts; the lowered program's
-    own count of operations a gradient is reported beside them. Returns the
-    staged entries of the kernels line (K1's and K4's)."""
+    hand-written body, and the staged times beside the hand-written ones
+    and each staged density's K1 beside its bound. The staged flagship's
+    bounds are the hand-written flagship's: the same function, whose work
+    ``hier_grad_flop`` counts; the lowered program's own count of
+    operations a gradient is reported beside them (the other densities'
+    bounds count their programs'). Returns the staged entries of the
+    kernels line (K1's and K4's)."""
     from genjax_tpu_torch.kernels import column_hmc, column_nuts
 
     flag_ld, flag_body = flag
@@ -4877,7 +4881,7 @@ def staged_path(device, smi: str, g, hmc, nuts, nuts_pallas, bodies, built: dict
         check(frac >= 0.995, f"staged {name}: only {frac:.4f} of K1's chains agree within 1e-4")
         check(abs(rate_k - rate_t) <= 0.005, f"staged {name}: accept rates {rate_k} vs {rate_t}")
         phase("K1 staged vs plain", f"{name} {q0_np.shape}, D={body.d}, {body.flop} operations a gradient, "
-                                    f"{body.n_consts} constants ({'shared' if body.shared else 'global'}): "
+                                    f"{body.n_consts} constants ({body.const_mode}): "
                                     f"{frac:.5f} of chains within 1e-4 ({flipped} flipped MH decisions), max "
                                     f"abs err {err:.3g} on the rest; accept {rate_k:.5f} vs {rate_t:.5f}")
         if q0_np.shape[1] == N_CHAINS:
@@ -5009,13 +5013,30 @@ def staged_path(device, smi: str, g, hmc, nuts, nuts_pallas, bodies, built: dict
     phase("timing staged", f"{smi}: K1 at D=8 ({N_CHAINS} x {N_STEPS}, L={L}): bodies.iid_normal() "
                            f"{iid_ms[0]:.4f} and {iid_ms[1]:.4f} ms, the staged conjugate body (an iid normal "
                            f"in 7 of its 8 rows, {conj_body.flop} operations a gradient) {conj_ms[0]:.4f} and "
-                           f"{conj_ms[1]:.4f} ms; its bound {b8:.4f} ms ({b8_by})")
+                           f"{conj_ms[1]:.4f} ms ({sum(conj_ms) / sum(iid_ms):.3f}x); its bound {b8:.4f} ms "
+                           f"({b8_by}), the staged conjugate K1 at {2 * b8 / sum(conj_ms):.4f} of it")
+    # every other staged density's K1 at its own D beside its bound
+    others = {}
+    for name, eps_o in (("linear_regression", 0.05), ("scales5", 0.02)):
+        body_o = sb[name]
+        q_o = torch.from_numpy(numpy_q0(body_o.d, N_CHAINS, 17, False)).to(device)
+        ms_o = [cuda_ms(lambda: hmc.hmc_sweep(body_o, q_o, SEED, n_steps=N_STEPS, eps=eps_o, L=L), 200)
+                for _ in range(2)]
+        b_o, b_o_by = k1_bound(N_CHAINS, body_o.d, N_STEPS, L, body_o.flop, body_o.n_consts)
+        others[name] = {"ms": ms_o, "bound_ms": b_o, "bound_by": b_o_by, "share": 2 * b_o / sum(ms_o),
+                        "operations_a_gradient": body_o.flop, "const_mode": body_o.const_mode}
+        phase("timing staged", f"{smi}: K1 staged {name} (D={body_o.d}, {body_o.flop} operations a gradient, "
+                               f"constants {body_o.const_mode}; {N_CHAINS} x {N_STEPS}, L={L}) {ms_o[0]:.4f} and "
+                               f"{ms_o[1]:.4f} ms; its bound {b_o:.4f} ms ({b_o_by}), the kernel at "
+                               f"{2 * b_o / sum(ms_o):.4f} of it")
     regs = {name: entry["ptxas"] for name, entry in built.items()}
     k1 = {"ms": k1_st_ms, "hand_written_ms": sum(hand_ms) / 2, "plain_ms": k1_st_plain, "bound_ms": b1,
           "bound_by": b1_by, "max_abs_err": k1_err, "operations_a_gradient": staged_flag.flop, "bound_operations_a_gradient": flag_flop,
           "launches_by_path": {"column_hmc(conjugate, warmup=True)": k1_conj,
                                "column_hmc(linear_regression, warmup=True)": k1_lin},
           "iid_normal_d8_ms": sum(iid_ms) / 2, "conjugate_d8_ms": sum(conj_ms) / 2,
+          "conjugate_d8_bound_ms": b8, "other_densities": others,
+          "const_modes": {n: e["body"].const_mode for n, e in built.items()},
           "registers": {n: r["K1"] for n, r in regs.items()}}
     k4 = {"ms": k4_st_ms, "hand_written_ms": sum(hand4) / 2, "plain_ms": k4_st_plain, "bound_ms": b4,
           "bound_by": b4_by, "max_abs_err": k4_err,
@@ -5099,9 +5120,12 @@ def main() -> int:
             if key:
                 found[key] = {"registers": regs, "spill_stores": stores, "spill_loads": loads, "stack": stack}
         entry["ptxas"] = found
-        phase("build", f"staged body {name} (D={body.d}, {len(body.program.instrs)} instructions, "
-                       f"{body.flop} operations a gradient, {body.n_consts} constants in "
-                       f"{'shared' if body.shared else 'global'} memory): staged in {entry['stage_s']:.2f} s, "
+        prog = body.program
+        phase("build", f"staged body {name} (D={body.d}, {len(prog.instrs)} instructions, "
+                       f"{body.flop} operations a gradient, {prog.elements('log')} log and "
+                       f"{prog.elements('div', 'recip', 'rsqrt')} division elements, {prog.guards} guards, "
+                       f"{body.n_consts} constants, constant mode {body.const_mode}): staged in "
+                       f"{entry['stage_s']:.2f} s, "
                        f"K1 and K4 built by one nvcc in {entry['build_s']:.2f} s (in parallel with the others); "
                        + "; ".join(f"{k}: {v['registers']} registers, stack frame {v['stack']} B, spill stores "
                                    f"{v['spill_stores']} B, spill loads {v['spill_loads']} B"

@@ -38,7 +38,7 @@
 #include <curand_kernel.h>
 
 #ifdef GJT_STAGED_HEADER
-#include GJT_STAGED_HEADER  // gjt_staged::lp_grad, kD, kConsts, kShared
+#include GJT_STAGED_HEADER  // gjt_staged::lp_grad, kD, kConsts, kConstMode
 #endif
 
 namespace {
@@ -181,8 +181,10 @@ struct UniformConsts {
   __device__ __forceinline__ float yv(int i) const { return y[i]; }
 };
 
+#ifndef GJT_STAGED_HEADER
 template <>
 struct UniformConsts<0, 0> {};
+#endif
 
 // X (n_obs x d_w, row-major) and y of a runtime shape, in shared memory.
 struct SharedConsts {
@@ -295,29 +297,46 @@ __device__ __forceinline__ float hier_regression(const float (&q)[D], float (&g)
 
 // ------------------------------------------------------------ the staged body
 //
-// A staged build's body reads its hoisted constants (kernels/staged.py) from
-// shared memory, copied there at block start where they fit under the
-// stager's cap (SMEM_CAP_BYTES, kStagedSharedFloats > 0), else from global
+// A staged build's body reads its hoisted constants (kernels/staged.py) where
+// the header's kConstMode puts them: by value in the kernel's parameter space
+// (kStagedParams: UniformConsts<0, 0> below, which only the staged kernel of
+// a staged build instantiates), so that each read at a compile-time index is
+// a constant-bank operand, as the flagship's X and y are; in shared memory,
+// copied there at block start (kStagedSharedFloats > 0); or from global
 // memory through __ldg (the header's GJT_C). kStagedD is the build's D.
 #ifdef GJT_STAGED_HEADER
 constexpr int kStagedD = gjt_staged::kD;
 constexpr int kStagedConsts = gjt_staged::kConsts;
-constexpr int kStagedSharedFloats = gjt_staged::kShared ? (gjt_staged::kConsts + 3) / 4 * 4 : 0;
+constexpr bool kStagedParams = gjt_staged::kConstMode == gjt_staged::kParamConsts;
+constexpr int kStagedSharedFloats =
+    gjt_staged::kConstMode == gjt_staged::kSharedConsts ? (gjt_staged::kConsts + 3) / 4 * 4 : 0;
 
-template <int D>
+template <>
+struct UniformConsts<0, 0> {
+  float c[kStagedParams && kStagedConsts > 0 ? kStagedConsts : 1];
+
+  // the header's GJT_C(k): read through the struct, as hier_regression reads X,
+  // so that the read stays a parameter-space operand
+  __device__ __forceinline__ float operator[](int k) const { return c[k]; }
+};
+
+// consts: the kernel parameter's UniformConsts<0, 0> in the parameter mode, else
+// a pointer to shared or global memory
+template <int D, class Consts>
 __device__ __forceinline__ float staged_lp_grad(const float (&q)[D], float (&g)[D],
-                                                const float* consts) {
+                                                const Consts& consts) {
   static_assert(D == gjt_staged::kD, "a staged build instantiates its own D only");
   return gjt_staged::lp_grad(q, g, consts);
 }
 #else
 constexpr int kStagedD = 0;
 constexpr int kStagedConsts = 0;
+constexpr bool kStagedParams = false;
 constexpr int kStagedSharedFloats = 0;
 
 // declared only: a build without a staged header never instantiates it
-template <int D>
-__device__ float staged_lp_grad(const float (&q)[D], float (&g)[D], const float* consts);
+template <int D, class Consts>
+__device__ float staged_lp_grad(const float (&q)[D], float (&g)[D], const Consts& consts);
 #endif
 
 // Copy the staged constants into shared memory; the block synchronises

@@ -21,9 +21,10 @@
 // runtime shape, whose constants sit in shared memory. eps * M^-1, M^-1 and
 // the momentum sd are per-dimension values the same for every chain, kept in
 // shared memory. A staged build (column_common.cuh, kStaged) instantiates the
-// same sweep with the staged body at its own D (any of 1..64), its constants
-// in shared memory in front of those values or, past the stager's cap, read
-// from global memory.
+// same sweep with the staged body at its own D (any of 1..64): a straight-line
+// body whose constants ride in the kernel parameter as the flagship's do, or,
+// past the stager's caps, sit in shared memory in front of those values or are
+// read from global memory.
 //
 // Bound on this card: fp32 instruction throughput. A flagship gradient is
 // about 630 FLOP (256 FFMAs of X w and X^T r, the prior's logs and
@@ -58,8 +59,10 @@ namespace {
 
 constexpr int kThreads = 128;
 constexpr int kMinBlocks = 4;
-// a staged body materialises every intermediate of its program: its sweep
-// takes up to 255 registers a thread (two blocks an SM) before it spills
+// the staged sweep's bound: at most 255 registers a thread. The flagship's
+// straight-line body takes 168 with no spill, three blocks an SM; a bound of
+// four blocks (128 registers) spills 340 B and is no faster
+// (scripts/staged_launch_bounds.py, PERF.md)
 constexpr int kStagedMinBlocks = 2;
 constexpr size_t kDefaultSmem = 48 * 1024;  // the most a block takes without opting in
 
@@ -108,7 +111,9 @@ __global__ void __launch_bounds__(kThreads, BODY == kStaged ? kStagedMinBlocks :
   if (n >= prm.N) return;
   // the specialised shape reads X and y straight from the kernel parameter
   auto body_lp = [&](const float (&x)[D], float (&gx)[D]) {
-    if constexpr (BODY == kStaged) {
+    if constexpr (BODY == kStaged && kStagedParams) {
+      return staged_lp_grad<D>(x, gx, uc);
+    } else if constexpr (BODY == kStaged) {
       return staged_lp_grad<D>(x, gx, kStagedSmem ? static_cast<const float*>(smem) : prm.consts);
     } else if constexpr (kShared) {
       const SharedConsts c{smem, smem + prm.shape.n_obs * prm.shape.d_w, prm.shape.d_w};
@@ -310,6 +315,8 @@ int hmc_sweep(const float* q_in, float* q_out, float* accepts, const float* inv_
     if (err != cudaSuccess) return err;
     UniformConsts<NOBS, DW> uc{};
     if constexpr (NOBS > 0) std::memcpy(&uc, consts_host, sizeof(uc));
+    if constexpr (decltype(b)::value == kStaged && kStagedParams && kStagedConsts > 0)
+      std::memcpy(uc.c, consts_host, sizeof(float) * kStagedConsts);
     hmc_sweep_kernel<decltype(d)::value, decltype(b)::value, NOBS, DW>
         <<<blocks, kThreads, smem, s>>>(prm, uc);
     return cudaGetLastError();

@@ -3,7 +3,8 @@
 // Replaces genjax_tpu/kernels/nuts_pallas.py::_nuts_kernel, the Pallas TPU
 // kernel that keeps a chain block's whole NUTS tree on chip for a sweep. A
 // staged build (column_common.cuh, kStaged) instantiates the same sweep with
-// the staged body at its own D, its constants in front of the stacks.
+// the staged body at its own D, its constants in the kernel parameter (or, past
+// the stager's caps, in front of the stacks or in global memory).
 //
 // What it computes: n_steps NUTS transitions on each of N chains, with the
 // reference kernel's semantics. A transition draws momentum r0 ~ N(0, M) and
@@ -155,8 +156,18 @@ __device__ __forceinline__ float kinetic(const float (&r)[D], const float (&im)[
   return 0.5f * s;
 }
 
+#ifdef GJT_STAGED_HEADER
+// a staged build holds the staged kernel alone: its bound on resident
+// 256-thread blocks (registers at most 65536 / (256 * kStagedMinBlocks) a
+// thread); PERF.md has the alternatives' times
+constexpr int kStagedMinBlocks = 1;
+#define NUTS_LAUNCH_BOUNDS __launch_bounds__(kMaxThreads, kStagedMinBlocks)
+#else
+#define NUTS_LAUNCH_BOUNDS __launch_bounds__(kMaxThreads)
+#endif
+
 template <int D, int BODY, int NOBS, int DW>
-__global__ void __launch_bounds__(kMaxThreads)
+__global__ void NUTS_LAUNCH_BOUNDS
     nuts_sweep_kernel(const __grid_constant__ NutsParams prm,
                       const __grid_constant__ UniformConsts<NOBS, DW> uc) {
   constexpr bool kShared = BODY == kHierRegression && NOBS == 0;
@@ -175,7 +186,9 @@ __global__ void __launch_bounds__(kMaxThreads)
 
   // the specialised shape reads X and y straight from the kernel parameter
   auto body_lp = [&](const float (&x)[D], float (&gx)[D]) {
-    if constexpr (BODY == kStaged) {
+    if constexpr (BODY == kStaged && kStagedParams) {
+      return staged_lp_grad<D>(x, gx, uc);
+    } else if constexpr (BODY == kStaged) {
       return staged_lp_grad<D>(x, gx, kStagedSmem ? static_cast<const float*>(smem) : prm.consts);
     } else if constexpr (kShared) {
       const SharedConsts c{smem, smem + prm.shape.n_obs * prm.shape.d_w, prm.shape.d_w};
@@ -427,6 +440,8 @@ int nuts_sweep(const float* q_in, float* q_out, float* accepts, float* leaps,
     if (err != cudaSuccess) return err;
     UniformConsts<decltype(no)::value, decltype(dw)::value> uc{};
     if constexpr (decltype(no)::value > 0) std::memcpy(&uc, consts_host, sizeof(uc));
+    if constexpr (decltype(b)::value == kStaged && kStagedParams && kStagedConsts > 0)
+      std::memcpy(uc.c, consts_host, sizeof(float) * kStagedConsts);
     NUTS_KERNEL(d, b, no, dw)<<<blocks, chains, smem, s>>>(prm, uc);
     return cudaGetLastError();
   });

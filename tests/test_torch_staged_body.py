@@ -360,15 +360,27 @@ def test_program_interpreter_is_the_bodys_gradient_under_autograd(bodies_by_name
 
 def test_staged_shared_memory_reckoning(bodies_by_name):
     """K1 and K4 count a staged body's constants in their shared memory
-    (to a float4) where they fit under the cap, else none."""
+    (to a float4) only where the body copies them there: none where they
+    travel by value as a kernel parameter (up to ``PARAM_CAP_BYTES``, the
+    flagship's) or are read from global memory (past ``SMEM_CAP_BYTES``)."""
     body = bodies_by_name["flagship"]
-    floats = (body.n_consts + 3) // 4 * 4
-    assert body.shared and hmc.smem_bytes(body, 16) == 4 * (floats + 3 * 16)
-    assert nuts_pallas.smem_bytes(body, 16, 8, 32) == 4 * (floats + 2 * 8 * 16 * 32)
-    X = torch.from_numpy(np.random.default_rng(0).normal(size=(5000, 8)).astype(np.float32))  # 160 kB
-    big = staged.stage_body(lambda q: -0.5 * torch.sum((X @ q) ** 2, dim=0), 8)
+    assert body.const_mode == "param" and not body.shared and body.shared_consts_floats(16) == 0
+    assert 4 * body.n_consts <= staged.PARAM_CAP_BYTES and "kConstMode = 0" in body.header
+    assert hmc.smem_bytes(body, 16) == 4 * 3 * 16
+    assert nuts_pallas.smem_bytes(body, 16, 8, 32) == 4 * 2 * 8 * 16 * 32
+
+    def regression(n):
+        X = torch.from_numpy(np.random.default_rng(0).normal(size=(n, 8)).astype(np.float32))
+        return staged.stage_body(lambda q: -0.5 * torch.sum((X @ q) ** 2, dim=0), 8)
+
+    mid = regression(300)  # 9.6 kB: past the parameter cap, under the shared-memory cap
+    floats = (mid.n_consts + 3) // 4 * 4
+    assert mid.const_mode == "shared" and mid.shared and "kConstMode = 1" in mid.header
+    assert hmc.smem_bytes(mid, 8) == 4 * (floats + 3 * 8)
+    assert nuts_pallas.smem_bytes(mid, 8, 8, 32) == 4 * (floats + 2 * 8 * 8 * 32)
+    big = regression(5000)  # 160 kB
     # X once: its folded transpose (the gradient's) reads the same copy
-    assert 40000 <= big.n_consts < 40008 and not big.shared and big.shared_consts_floats(8) == 0
+    assert 40000 <= big.n_consts < 40008 and big.const_mode == "global" and big.shared_consts_floats(8) == 0
     assert "__ldg" in big.header
 
 
