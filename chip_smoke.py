@@ -93,7 +93,17 @@ staged flagship against the hand-written K1, ``column_hmc`` and
 hand-written body against their exact posteriors, and the staged times
 beside the hand-written ones and every staged density's K1 beside its
 bound (each build's constant mode, registers and spills on its build
-line). It checks
+line); and the trace path on the staged bodies (``[trace path staged]``):
+the flagship's 65,536 traces with ``S["w"]`` and ``tau`` frozen per chain
+(one chain operand a chain) and with ``S["w"] | S["tau"]`` and each chain's
+own ``y`` (sixteen), staged and built at the top, K1 and K4 with their chain
+operands against their plain versions on the counter stream,
+``run_chains_hmc`` and ``run_chains_nuts`` with the default backend against
+``backend="torch"`` on the same traces, ``examples/05``'s conjugate model
+through both drivers against its exact posterior, and ``examples/10``'s
+``linear_regression`` through ``sample_posterior(hmc_sweep)`` (staged once,
+106 K1 launches) against ``exact_posterior``, each staged K1 timed beside
+its bound. It checks
 that each path launched its kernel in the variant it should (K1 and K4: the
 body's; K3: the tiled one), and agrees in law with the plain twin; it checks
 each kernel's shared-memory reckoning in Python against the kernel's own,
@@ -169,6 +179,21 @@ TP_L = 8
 # the batched NUTS runner on the flagship's traces
 RCN_STEPS = 10
 RCN_EPS = 0.05
+
+# the trace path on the staged bodies: the flagship's traces with (i) S[w],
+# tau frozen per chain, and (ii) S[w] | S[tau], chain c's y shifted by c % 16
+# (tests/test_torch_mcmc.py's sixteen chains, repeated), and (iii) as (ii) on
+# the flagship's model at 40 observations (wide_data); the drivers'
+# transitions a call, and examples/05's conjugate batch and its runs
+TS_HMC_STEPS = 20
+TS_NUTS_STEPS = 2
+TS_K4_STEPS = 3
+TS_K4_DEPTH = 6
+TS_CONJ_CHAINS = 2048
+TS_CONJ_HMC_STEPS = 200
+TS_CONJ_NUTS_STEPS = 100
+TS_CONJ_EPS = 0.5
+TS_LIN_EPS0 = 0.05
 
 # the column samplers (no kernel in either package): bench.py's bench_chees,
 # bench_dense and bench_svgd shapes. ChEES at thin 16, where the reference's
@@ -290,6 +315,15 @@ def flagship_data():
     return X, y
 
 
+def wide_data():
+    """The flagship's model at 40 observations (``X`` 40 x 8): with each
+    chain's own ``y``, 40 chain operands a chain, past the kernels' register
+    cap (``staged.CHAIN_REGISTER_CAP``)."""
+    X = np.random.default_rng(2).normal(size=(40, 8)).astype(np.float32)
+    y = np.random.default_rng(3).normal(size=(40,)).astype(np.float32)
+    return X, y
+
+
 def gp_data():
     """``chol`` and ``y`` as the reference's ``bench_gp`` builds them: inputs
     uniform on [0, 10] from numpy seed 0, a unit squared-exponential Gram
@@ -330,6 +364,16 @@ def hier_grad_flop(n_obs: int, d_w: int, d: int) -> int:
     return n_obs * (4 * d_w + 3) + 3 * d_w + 3 * (d - 1 - d_w) + 20
 
 
+def hier_w_grad_flop(n_obs: int, d_w: int) -> int:
+    """FP32 FLOP of one ``hier_regression`` gradient over ``w`` alone, with
+    ``tau`` frozen per chain (a Gibbs block): the observations' and the
+    weights' prior terms as ``hier_grad_flop`` counts them; tau's scalars
+    (1 / tau^2, its log-normal prior, d_w log tau) depend on the chain
+    alone, so a kernel could compute them once a chain, and they are not
+    counted."""
+    return n_obs * (4 * d_w + 3) + 3 * d_w
+
+
 def bound(flop: float, nbytes: float) -> tuple[float, str]:
     """The least time in ms the card could take: the larger of the FLOP
     over the FP32 peak and the bytes over the HBM rate, and which bounds."""
@@ -337,23 +381,25 @@ def bound(flop: float, nbytes: float) -> tuple[float, str]:
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def k1_bound(n: int, d: int, n_steps: int, leapfrogs: int, grad_flop: int, n_consts: int):
+def k1_bound(n: int, d: int, n_steps: int, leapfrogs: int, grad_flop: int, n_consts: int, k: int = 0):
     """K1's bound: ``n_steps * L + 1`` gradients a chain, a leapfrog's
     three FMAs a dimension, two kinetic energies and the momentum scale a
     step; q read and written once, the accepts written, the constants and
-    inverse mass read."""
+    inverse mass read, and a staged body's ``k`` chain operands a chain read
+    once."""
     flop = n * ((n_steps * leapfrogs + 1) * grad_flop + n_steps * leapfrogs * 6 * d + n_steps * 7 * d)
-    return bound(flop, 4 * (2 * d * n + n + d + n_consts))
+    return bound(flop, 4 * (2 * d * n + n + d + n_consts + k * n))
 
 
-def k4_bound(n: int, d: int, n_steps: int, leaps_total: float, grad_flop: int, n_consts: int):
+def k4_bound(n: int, d: int, n_steps: int, leaps_total: float, grad_flop: int, n_consts: int, k: int = 0):
     """K4's bound from the leapfrogs this run's chains took (``leaps``,
     summed over chains): a gradient, the leapfrog's three FMAs and the
     kinetic energy a leaf, and a gradient and a kinetic energy a transition;
     the U-turn checks are not counted. q read and written once, accepts and
-    leaps written."""
+    leaps written, and a staged body's ``k`` chain operands a chain read
+    once."""
     flop = leaps_total * (grad_flop + 9 * d) + n * n_steps * (grad_flop + 4 * d)
-    return bound(flop, 4 * (2 * d * n + 2 * n + d + n_consts))
+    return bound(flop, 4 * (2 * d * n + 2 * n + d + n_consts + k * n))
 
 
 def k3_bound(chol: torch.Tensor, n: int, n_steps: int) -> dict:
@@ -719,6 +765,21 @@ def in_law(a, b, n: int):
     return float(((a.mean(dim=0) - b.mean(dim=0)) / se).abs().max())
 
 
+def unstageable_traces(g, device, n: int):
+    """``n`` traces of a model whose density reads ``cumsum``, outside the
+    staged body's op set."""
+
+    @g.gen
+    def cumsummed():
+        x = g.normal(torch.zeros(3, device=device), torch.ones(3, device=device)) @ "x"
+        g.normal(torch.cumsum(x, 0)[-1], 1.0) @ "y"
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 3)
+    obs = g.C["y"].set(torch.as_tensor(0.5, device=device))
+    return torch.func.vmap(lambda _: cumsummed.generate(gen, obs, ())[0], randomness="different")(
+        torch.zeros(n, device=device))
+
+
 def gfi_path(device, smi: str, g, hmc, model, y, ld, q0) -> dict:
     """The trace path at the flagship's full width: the per-transition edit
     API, the batched sweep runner (which launches K1) at both chain axes,
@@ -836,7 +897,7 @@ def gfi_path(device, smi: str, g, hmc, model, y, ld, q0) -> dict:
                                    + f"; every pair's tau and w_j means within {worst_z:.2f} MC standard "
                                      f"errors (limit 4), accept rates within {worst_acc:.4f} (limit 0.02)")
 
-    # ---- a model with no device body: auto raises, the twin runs when asked
+    # ---- a density outside the staged op set: auto raises; the twin runs when asked
     @g.gen
     def conjugate():
         mu = g.normal(0.0, 1.0) @ "mu"
@@ -844,21 +905,23 @@ def gfi_path(device, smi: str, g, hmc, model, y, ld, q0) -> dict:
 
     obs_c = g.C["y"].set(torch.as_tensor(2.0, device=device))
     trs_c = torch.func.vmap(lambda _: conjugate.generate(gen, obs_c, ())[0], randomness="different")(dummy[: min(4096, N_CHAINS)])
-    refused = False
+    trs_u = unstageable_traces(g, device, 64)
+    refused = ""
     try:
-        g.run_chains_hmc(gen, trs_c, g.S["mu"], eps=0.5, L=5, n_steps=GFI_STEPS)
+        g.run_chains_hmc(gen, trs_u, g.S["x"], eps=0.5, L=5, n_steps=GFI_STEPS)
     except ValueError as e:
-        refused = "backend='torch'" in str(e)
-    check(refused, "a model with no device body did not raise under backend='auto' on the card")
+        refused = str(e)
+    check("aten.cumsum" in refused and "backend='torch'" in refused,
+          f"a density outside the staged op set did not raise under backend='auto' on the card: {refused!r}")
     trs_c, acc_c = g.run_chains_hmc(gen, trs_c, g.S["mu"], eps=0.5, L=5, n_steps=100, backend="torch")
     mu = trs_c["mu"]
     check(g.run_chains_hmc.last_backend == "torch" and mu.is_cuda, "the twin did not run on the card")
     check(abs(float(mu.mean()) - 1.0) < 0.08 and abs(float(mu.var()) - 0.5) < 0.08,
           f"conjugate posterior moments {float(mu.mean())}, {float(mu.var())} (exact 1, 0.5)")
-    phase("main path GFI routing", f"a model with no device body: backend='auto' raises on the card, "
-                                   f"backend='torch' runs the twin there: 4096 chains x 100 steps, accept "
-                                   f"{float(acc_c):.4f}, mean {float(mu.mean()):.4f} (exact 1), variance "
-                                   f"{float(mu.var()):.4f} (exact 0.5)")
+    phase("main path GFI routing", f"a density outside the staged op set (aten.cumsum): backend='auto' raises "
+                                   f"on the card naming backend='torch'; backend='torch' runs the twin there on "
+                                   f"the conjugate model: 4096 chains x 100 steps, accept {float(acc_c):.4f}, mean "
+                                   f"{float(mu.mean()):.4f} (exact 1), variance {float(mu.var()):.4f} (exact 0.5)")
 
     # ---- the three runners on the host clock, as bench_gfi names them
     transitions = N_CHAINS * GFI_STEPS
@@ -892,10 +955,10 @@ def gfi_path(device, smi: str, g, hmc, model, y, ld, q0) -> dict:
     stage["seed read"] = wall_ms(lambda: int(torch.randint(0, 2**30, (), generator=gen, device=device)))
     stage["column_view"] = wall_ms(lambda: mcmc.column_view(trs0, sel, 0))
     z_cols, _ld_cols, write_back = mcmc.column_view(trs0, sel, 0)
-    stage["kernel view (equal-y check, packer, body)"] = wall_ms(
+    stage["kernel view (leaf sort, packer, body)"] = wall_ms(
         lambda: mcmc._KernelView(trs0, sel, 0, z_cols.shape[0]))
-    y_b = trs0["y"]
-    stage["of which the equal-y check"] = wall_ms(lambda: bool((y_b == y_b.select(0, 0).unsqueeze(0)).all()))
+    leaves = pytree.tree_leaves((trs0.get_choices().filter_eager(~sel), trs0.get_args()))
+    stage["of which the leaf sort"] = wall_ms(lambda: mcmc.chain_varying(leaves, 0))
     view = mcmc._KernelView(trs0, sel, 0, z_cols.shape[0])
     stage["pack"] = wall_ms(lambda: view.packer.pack_columns(z_cols, view.rows, gen))
     q_in = view.packer.pack_columns(z_cols, view.rows, gen)
@@ -1237,18 +1300,13 @@ def trace_nuts_path(device, smi: str, g, hmc, nuts_pallas, model_flag, y) -> int
           f"run_chains_nuts leapfrogs {float(leaps)} vs twin {float(leaps_t)}")
     check(z < 4, f"run_chains_nuts tau, w means differ from the twin's by {z:.2f} MC standard errors")
 
-    @g.gen
-    def conjugate():
-        mu = g.normal(0.0, 1.0) @ "mu"
-        g.normal(mu, 1.0) @ "y"
-
-    trs_c = sample._init_traces(gen, conjugate, g.C["y"].set(2.0), (), 1024, device)
-    refused = False
+    refused = ""
     try:
-        g.run_chains_nuts(gen, trs_c, g.S["mu"], eps=0.5, max_depth=4)
+        g.run_chains_nuts(gen, unstageable_traces(g, device, 64), g.S["x"], eps=0.5, max_depth=4)
     except ValueError as e:
-        refused = "backend='torch'" in str(e)
-    check(refused, "run_chains_nuts: a model with no device body did not raise under backend='auto'")
+        refused = str(e)
+    check("aten.cumsum" in refused and "backend='torch'" in refused,
+          f"run_chains_nuts: a density outside the staged op set did not raise under backend='auto': {refused!r}")
     call_ms = wall_ms(lambda: g.run_chains_nuts(gen, trs, sel, eps=RCN_EPS, max_depth=NUTS_DEPTH, n_steps=RCN_STEPS))
     run = sample._ColumnSweep(trs, sel, 0, "auto", "chip_smoke")
     q, im = run.start(gen), run.inv_mass(None)  # the call's block and mass, its padding inert
@@ -1260,8 +1318,8 @@ def trace_nuts_path(device, smi: str, g, hmc, nuts_pallas, model_flag, y) -> int
           f"{NUTS_DEPTH}, {RCN_STEPS} transitions) on {g.run_chains_nuts.last_backend}, K4's "
           f"{nuts_pallas.nuts_sweep.last_variant} variant: {launches} K4 launch a call, accept {float(acc):.4f} "
           f"vs twin {float(acc_t):.4f} (limit 0.02), mean leapfrogs {float(leaps):.4f} vs {float(leaps_t):.4f} "
-          f"(limit 5%), tau and w_j means within {z:.2f} SE (limit 4), twin {twin_s:.2f} s; no device body "
-          f"raises under 'auto'; a call {call_ms:.3f} ms (host clock, median of 3), K4 {k4_ms:.4f} ms of it "
+          f"(limit 5%), tau and w_j means within {z:.2f} SE (limit 4), twin {twin_s:.2f} s; a density outside "
+          f"the staged op set raises under 'auto'; a call {call_ms:.3f} ms (host clock, median of 3), K4 {k4_ms:.4f} ms of it "
           f"by CUDA events (20 sweeps) = {k4_ms / call_ms:.4f}; " + busy_line("a call", busy, call_ms))
     return launches
 
@@ -2308,7 +2366,7 @@ def ssm_path(device, smi: str, g, hmc) -> None:
                                              f"posterior: max mean gap {mean_gap:.4f} (limit {SSM_MEAN_TOL}), "
                                              f"max sd gap {sd_gap:.4f} (limit {SSM_SD_TOL}), max split-R-hat "
                                              f"{rhat:.4f} (limit {SSM_RHAT}); run_chains_hmc(backend='auto') "
-                                             f"refused the scan's traces: no device body")
+                                             f"refused the scan's traces: no device body (not static addresses)")
 
 
 def combinator_zoo(g, device):
@@ -5047,6 +5105,247 @@ def staged_path(device, smi: str, g, hmc, nuts, nuts_pallas, bodies, built: dict
     return {"K1": k1, "K4": k4}
 
 
+def trace_batches(device, g, model, y) -> dict:
+    """The trace path's batches at full width, each with its kernel view
+    (``mcmc._KernelView``: the model staged, the chain operands bound), made
+    at the top so that their builds start with the others: on the flagship,
+    ``(i)`` ``S["w"]`` with ``tau`` frozen per chain (one chain operand) and
+    ``(ii)`` ``S["w"] | S["tau"]`` with chain ``c``'s ``y`` shifted by ``c %
+    16`` (sixteen); ``(iii)`` as (ii) on the flagship's model at 40
+    observations (``wide_data``: forty, read through ``__ldg``). Each entry
+    carries the function's own operations a gradient and constants, by hand
+    (``hier_w_grad_flop``, ``hier_grad_flop``), for the bounds."""
+    from genjax_tpu_torch.inference import mcmc
+    from genjax_tpu_torch.models import hierarchical_regression
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 21)
+    y_d = torch.as_tensor(y, device=device)
+    dummy = torch.zeros(N_CHAINS, device=device)
+    shift = (torch.arange(N_CHAINS, device=device) % 16).to(torch.float32)[:, None]
+    X_w, y_w = wide_data()
+    wide = hierarchical_regression(X_w)
+
+    def own_y(m, yy):
+        return torch.func.vmap(lambda v: m.generate(gen, g.C["y"].set(v), ())[0], randomness="different")(yy)
+
+    both = g.S["w"] | g.S["tau"]
+    made = {
+        "(i)": (torch.func.vmap(lambda _: model.generate(gen, g.C["y"].set(y_d), ())[0],
+                                randomness="different")(dummy), g.S["w"], 1, "S[w], tau frozen per chain",
+                hier_w_grad_flop(16, 8), 16 * 9),
+        "(ii)": (own_y(model, y_d + shift), both, 16, "S[w] | S[tau], each chain's own y", None, 16 * 8),
+        "(iii)": (own_y(wide, torch.as_tensor(y_w, device=device) + shift), both, 40,
+                  "S[w] | S[tau], each chain's own y of 40 observations (X 40 x 8)", None, 40 * 8),
+    }
+    out = {}
+    for name, (trs, sel, k, label, flop, consts) in made.items():
+        z, _, _ = mcmc.column_view(trs, sel, 0)
+        t0 = time.perf_counter()
+        view = mcmc._KernelView(trs, sel, 0, z.shape[0], "chip_smoke")
+        n_obs = 40 if name == "(iii)" else 16
+        out[name] = {"traces": trs, "sel": sel, "z": z, "view": view, "k": k, "label": label,
+                     "stage_s": time.perf_counter() - t0,
+                     "grad_flop": flop or hier_grad_flop(n_obs, 8, view.body.d), "consts": consts}
+    return out
+
+
+def trace_staged_path(device, smi: str, g, hmc, nuts, nuts_pallas, batches: dict, conj_model, lin_model) -> dict:
+    """``[trace path staged]``: the trace path on K1 and K4 for models with
+    no hand-written body, through the staged bodies with chain operands. For
+    (i), (ii) and (iii) (``trace_batches``; (iii)'s operands read through
+    ``__ldg``): K1 and K4 against their plain versions on the counter stream
+    (the twins over the same bound body), at the gates of the other staged
+    kernels; ``run_chains_hmc`` and ``run_chains_nuts``
+    with the default backend (one launch a call, ``last_body == "staged"``)
+    against ``backend="torch"`` on the same traces, in law; each staged K1
+    and K4 timed by CUDA events beside its bound (from the function's own
+    operations a gradient, counted by hand) and its plain version, and
+    a ``run_chains_hmc`` call on the host clock beside the twin's. Then
+    ``examples/05``'s conjugate model through both drivers against its exact
+    posterior, and ``examples/10``'s ``linear_regression`` through
+    ``sample_posterior(hmc_sweep)`` (staged once a call, as many K1 launches
+    as the flagship's run) against ``exact_posterior``. Returns the entries
+    of the kernels line."""
+    from genjax_tpu_torch.inference import mcmc, sample
+    from genjax_tpu_torch.models import linear_regression
+
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device=device).manual_seed(SEED + 22)
+    k1_out, k4_out, launches = {}, {}, {}
+    for name, b in batches.items():
+        trs, sel, z, view = b["traces"], b["sel"], b["z"], b["view"]
+        body = view.body
+        check(body.name == "staged" and body.k == b["k"] and body.chain.device.type == device.type
+              and body.chain_read == ("ldg" if body.k > 32 else "registers"),
+              f"{name}: the view's body is {body.name} with k={getattr(body, 'k', None)}, chain operands read "
+              f"from {getattr(body, 'chain_read', None)}")
+        q0 = view.packer.pack_columns(z, view.rows, gen)
+        q0_np = q0.cpu().numpy()
+        # ---- K1 and K4 with chain operands against their plain versions
+        frac, flipped, err1, rate_k, rate_t = compare_counter(body, body, q0_np, 7, EPS, device, hmc)
+        check(hmc.hmc_sweep.last_variant == "staged", f"{name}: K1 took {hmc.hmc_sweep.last_variant}")
+        check(frac >= 0.995, f"trace {name}: only {frac:.4f} of K1's chains agree within 1e-4")
+        check(abs(rate_k - rate_t) <= 0.005, f"trace {name}: K1 accept rates {rate_k} vs {rate_t}")
+        frac4, n_diff, b_diff, err4, (acc_k, lf_k), (acc_t, lf_t) = compare_nuts_counter(
+            body, body, q0_np, 7, 2.5 * EPS, TS_K4_DEPTH, device, nuts, nuts_pallas)
+        check(frac4 >= 0.99, f"trace {name}: only {frac4:.4f} of K4's chains agree within 1e-4")
+        check(abs(acc_k - acc_t) <= 0.005, f"trace {name}: K4 accept statistics {acc_k} vs {acc_t}")
+        check(abs(lf_k - lf_t) <= 0.01 * lf_t, f"trace {name}: K4 mean leapfrogs {lf_k} vs {lf_t}")
+        phase("trace path staged", f"{name} {b['label']}, {N_CHAINS} traces, D={body.d}, k={body.k} chain "
+                                   f"operands, {body.flop} operations a gradient, staged in {b['stage_s']:.2f} s: "
+                                   f"K1 {frac:.5f} of chains within 1e-4 of its plain version ({flipped} flipped "
+                                   f"MH decisions), max abs err {err1:.3g}, accept {rate_k:.5f} vs {rate_t:.5f}; "
+                                   f"K4 (depth {TS_K4_DEPTH}) {frac4:.5f} ({n_diff} chains in {b_diff} blocks "
+                                   f"differ), max abs err {err4:.3g}, accept {acc_k:.5f} vs {acc_t:.5f}, "
+                                   f"leapfrogs {lf_k:.4f} vs {lf_t:.4f}")
+        # ---- the drivers with the default backend, against the twin in law
+        flat = lambda t: torch.cat([t[a].reshape(N_CHAINS, -1) for a in (("w",) if name == "(i)" else  # noqa: E731
+                                                                           ("tau", "w"))], dim=1)[:, None]
+        hmc.hmc_sweep_launches = nuts_pallas.nuts_sweep_launches = 0
+        new, acc = g.run_chains_hmc(gen, trs, sel, eps=EPS, n_steps=TS_HMC_STEPS)
+        torch.cuda.synchronize()
+        lk1, body_h = hmc.hmc_sweep_launches, g.run_chains_hmc.last_body
+        check(g.run_chains_hmc.last_backend == "cuda" and body_h == "staged" and lk1 == 1,
+              f"{name}: run_chains_hmc took {g.run_chains_hmc.last_backend}, {g.run_chains_hmc.last_body}, "
+              f"{lk1} K1 launches")
+        check(torch.equal(new["y"], trs["y"]) and bool(torch.isfinite(new["w"]).all()),
+              f"{name}: run_chains_hmc changed y or left w not finite")
+        t0 = time.perf_counter()
+        twin, acc_tw = g.run_chains_hmc(gen, trs, sel, eps=EPS, n_steps=TS_HMC_STEPS, backend="torch")
+        torch.cuda.synchronize()
+        twin_s = time.perf_counter() - t0
+        z_h = chain_means_z(flat(new), flat(twin))
+        check(z_h < 4 and abs(float(acc) - float(acc_tw)) <= 0.02,
+              f"{name}: run_chains_hmc against its twin: {z_h:.2f} SE, accept {float(acc)} vs {float(acc_tw)}")
+        new_n, acc_n, leaps_n = g.run_chains_nuts(gen, trs, sel, eps=RCN_EPS, n_steps=TS_NUTS_STEPS)
+        torch.cuda.synchronize()
+        lk4 = nuts_pallas.nuts_sweep_launches
+        check(g.run_chains_nuts.last_backend == "cuda" and g.run_chains_nuts.last_body == "staged" and lk4 == 1
+              and hmc.hmc_sweep_launches == 1,
+              f"{name}: run_chains_nuts took {g.run_chains_nuts.last_backend}, {g.run_chains_nuts.last_body}, "
+              f"{lk4} K4 launches")
+        twin_n, acc_nt, leaps_nt = g.run_chains_nuts(gen, trs, sel, eps=RCN_EPS, n_steps=TS_NUTS_STEPS,
+                                                     backend="torch")
+        z_n = chain_means_z(flat(new_n), flat(twin_n))
+        check(z_n < 4 and abs(float(acc_n) - float(acc_nt)) <= 0.02
+              and abs(float(leaps_n) - float(leaps_nt)) <= 0.05 * float(leaps_nt),
+              f"{name}: run_chains_nuts against its twin: {z_n:.2f} SE, accept {float(acc_n)} vs "
+              f"{float(acc_nt)}, leapfrogs {float(leaps_n)} vs {float(leaps_nt)}")
+        launches[f"run_chains_hmc {name}"], launches[f"run_chains_nuts {name}"] = lk1, lk4
+        phase("trace path staged", f"{name}: run_chains_hmc(eps={EPS}, n_steps={TS_HMC_STEPS}), default backend "
+                                   f"and L: {lk1} K1 launch, body {body_h}, accept "
+                                   f"{float(acc):.4f} vs twin {float(acc_tw):.4f}, means within {z_h:.2f} SE "
+                                   f"(limit 4); run_chains_nuts(eps={RCN_EPS}, n_steps={TS_NUTS_STEPS}), default "
+                                   f"max_depth: {lk4} K4 launch, accept {float(acc_n):.4f} vs {float(acc_nt):.4f}, "
+                                   f"leapfrogs {float(leaps_n):.3f} vs {float(leaps_nt):.3f}, means within "
+                                   f"{z_n:.2f} SE (limit 4)")
+        # ---- times: K1 and K4 by CUDA events beside their bounds; a driver call
+        k1_ms = [cuda_ms(lambda: hmc.hmc_sweep(body, q0, SEED, n_steps=N_STEPS, eps=EPS, L=L), 200)
+                 for _ in range(2)]
+        k1_plain = cuda_ms(lambda: hmc._reference_hmc(body, q0, SEED, n_steps=N_STEPS, eps=EPS, L=L), 1)
+        # the bounds take the function's own work, counted by hand, not the
+        # lowered program's (which computes tau's scalars at every gradient)
+        grad_flop, consts = min(b["grad_flop"], body.flop), min(b["consts"], body.n_consts)
+        b1, b1_by = k1_bound(N_CHAINS, body.d, N_STEPS, L, grad_flop, consts, body.k)
+
+        def k4_sweep():
+            return nuts_pallas.nuts_sweep(body, q0, SEED, n_steps=TS_K4_STEPS, eps=RCN_EPS, max_depth=TS_K4_DEPTH)
+
+        k4_ms = [cuda_ms(k4_sweep, 20) for _ in range(2)]
+        _, _, leaps = k4_sweep()
+        k4_plain = cuda_ms(lambda: nuts.nuts_sweep_cols(body, q0, SEED, n_steps=TS_K4_STEPS, eps=RCN_EPS,
+                                                        max_depth=TS_K4_DEPTH), 1)
+        b4, b4_by = k4_bound(N_CHAINS, body.d, TS_K4_STEPS, float(leaps.sum()), grad_flop, consts, body.k)
+        call_ms = wall_ms(lambda: g.run_chains_hmc(gen, trs, sel, eps=EPS, n_steps=TS_HMC_STEPS))
+        regs = b.get("ptxas", {})
+        phase("trace path staged", f"{smi}: {name} K1 ({N_CHAINS} chains x {N_STEPS} steps, L={L}) {k1_ms[0]:.4f} "
+                                   f"and {k1_ms[1]:.4f} ms, bound {b1:.4f} ms ({b1_by}: the function's {grad_flop} "
+                                   f"operations a gradient, the program does {body.flop}; {body.k} chain operands "
+                                   f"a chain read once), K1 at {2 * b1 / sum(k1_ms):.4f} of it, plain version "
+                                   f"{k1_plain:.2f} ms; K4 ({TS_K4_STEPS} transitions, depth {TS_K4_DEPTH}, eps "
+                                   f"{RCN_EPS}) {k4_ms[0]:.4f} and {k4_ms[1]:.4f} ms, bound {b4:.4f} ms ({b4_by}), "
+                                   f"K4 at {2 * b4 / sum(k4_ms):.4f} of it, plain version {k4_plain:.2f} ms; "
+                                   f"registers {regs}; a run_chains_hmc call {call_ms:.2f} ms (host clock, median "
+                                   f"of 3, staging included) against backend='torch' {1e3 * twin_s:.2f} ms (1 call)")
+        common = {"d": body.d, "k": body.k, "chain_read": body.chain_read, "operations_a_gradient": body.flop,
+                  "bound_operations_a_gradient": grad_flop}
+        k1_out[name] = {**common, "launches": lk1, "ms": sum(k1_ms) / 2, "plain_ms": k1_plain, "bound_ms": b1,
+                        "bound_by": b1_by, "max_abs_err": err1, "library_ms": None,
+                        "registers": regs.get("K1"), "call_ms": call_ms, "twin_call_ms": 1e3 * twin_s}
+        k4_out[name] = {**common, "launches": lk4, "ms": sum(k4_ms) / 2, "plain_ms": k4_plain, "bound_ms": b4,
+                        "bound_by": b4_by, "max_abs_err": err4, "library_ms": None, "registers": regs.get("K4")}
+
+    # ---- examples/05's conjugate model through both drivers, against N(1, 1/2)
+    gen_c = torch.Generator(device=device).manual_seed(SEED + 23)
+    trs_c = sample._init_traces(gen_c, conj_model, g.C["y"].set(2.0), (), TS_CONJ_CHAINS, device)
+    hmc.hmc_sweep_launches = nuts_pallas.nuts_sweep_launches = 0
+    new_c, acc_c = g.run_chains_hmc(gen_c, trs_c, g.S["mu"], eps=TS_CONJ_EPS, n_steps=TS_CONJ_HMC_STEPS)
+    body_h = g.run_chains_hmc.last_body
+    new_cn, acc_cn, leaps_cn = g.run_chains_nuts(gen_c, trs_c, g.S["mu"], eps=TS_CONJ_EPS,
+                                                 n_steps=TS_CONJ_NUTS_STEPS)
+    torch.cuda.synchronize()
+    check(body_h == "staged" and g.run_chains_nuts.last_body == "staged" and hmc.hmc_sweep_launches == 1
+          and nuts_pallas.nuts_sweep_launches == 1,
+          f"conjugate: bodies {body_h}, {g.run_chains_nuts.last_body}; launches {hmc.hmc_sweep_launches}, "
+          f"{nuts_pallas.nuts_sweep_launches}")
+    sd = 0.5 ** 0.5
+    se_m, se_s = sd / TS_CONJ_CHAINS ** 0.5, sd / (2 * TS_CONJ_CHAINS) ** 0.5
+    zs = {}
+    for run_name, t in (("run_chains_hmc", new_c), ("run_chains_nuts", new_cn)):
+        mu = t["mu"]
+        zs[run_name] = (abs(float(mu.mean()) - 1.0) / se_m, abs(float(mu.std()) - sd) / se_s)
+        check(max(zs[run_name]) < 4, f"conjugate {run_name}: mean and sd {zs[run_name]} SE off (1, {sd:.4f})")
+    launches["run_chains_hmc (conjugate)"] = launches["run_chains_nuts (conjugate)"] = 1
+    phase("trace path staged", f"examples/05's conjugate model, {TS_CONJ_CHAINS} traces, default backend: "
+                               f"run_chains_hmc(eps={TS_CONJ_EPS}, n_steps={TS_CONJ_HMC_STEPS}) 1 K1 launch, "
+                               f"body staged, accept {float(acc_c):.4f}, mean and sd {zs['run_chains_hmc'][0]:.2f} "
+                               f"and {zs['run_chains_hmc'][1]:.2f} SE off (1, 1/sqrt 2); run_chains_nuts(n_steps="
+                               f"{TS_CONJ_NUTS_STEPS}) 1 K4 launch, leapfrogs {float(leaps_cn):.3f}, "
+                               f"{zs['run_chains_nuts'][0]:.2f} and {zs['run_chains_nuts'][1]:.2f} SE (limit 4)")
+
+    # ---- examples/10's linear_regression through sample_posterior(hmc_sweep)
+    Xl, yl, _ = linreg_data()
+    mean, cov = (v.to(device) for v in linear_regression(Xl)[1](yl))
+    stagings = []
+    stage_body = mcmc.stage_body
+
+    def counted(*args, **kw):
+        stagings.append(1)
+        return stage_body(*args, **kw)
+
+    mcmc.stage_body = counted
+    try:
+        hmc.hmc_sweep_launches = 0
+        t0 = time.perf_counter()
+        res = sample.sample_posterior(SEED, lin_model, g.C["y"].set(torch.from_numpy(yl).to(device)), (), g.S["w"],
+                                      n_chains=N_CHAINS, n_warmup=SP_WARMUP, n_samples=SP_SAMPLES,
+                                      algorithm="hmc_sweep", eps0=TS_LIN_EPS0, L=L, device=device)
+        torch.cuda.synchronize()
+        lin_s = time.perf_counter() - t0
+    finally:
+        mcmc.stage_body = stage_body
+    lin_launches = hmc.hmc_sweep_launches
+    want = min(6, SP_WARMUP) + SP_SAMPLES
+    check(lin_launches == want and len(stagings) == 1 and hmc.pallas_hmc.last_body == "staged",
+          f"sample_posterior(linear_regression, hmc_sweep): {lin_launches} K1 launches (want {want}), "
+          f"{len(stagings)} stagings, body {hmc.pallas_hmc.last_body}")
+    w = res["w"]
+    chain_means = w.mean(dim=1)
+    z_lin = ((chain_means.mean(dim=0) - mean) / (chain_means.std(dim=0) / N_CHAINS ** 0.5)).abs()
+    check(bool((z_lin < 4).all()), f"sample_posterior(linear_regression): means {z_lin.tolist()} SE off the exact")
+    launches["sample_posterior(linear_regression, hmc_sweep)"] = lin_launches
+    phase("trace path staged", f"examples/10's linear_regression (24 x 3), sample_posterior(S[w], {N_CHAINS} chains, "
+                               f"n_warmup={SP_WARMUP}, n_samples={SP_SAMPLES}, algorithm='hmc_sweep', eps0="
+                               f"{TS_LIN_EPS0}, L={L}): {lin_launches} K1 launches (the flagship's run makes "
+                               f"{want}), staged {len(stagings)} time, body {hmc.pallas_hmc.last_body}, accept "
+                               f"{float(res.accept_rate):.4f}, w means within {float(z_lin.max()):.2f} SE of "
+                               f"exact_posterior (limit 4), {lin_s:.2f} s (host clock, staging included)")
+    phase("trace path staged", f"the phase took {time.perf_counter() - t_phase:.1f} s")
+    return {"K1": {"trace_path": k1_out, "launches_by_path": launches},
+            "K4": {"trace_path": k4_out, "launches_by_path": {k: v for k, v in launches.items() if "nuts" in k}}}
+
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this test needs a CUDA card",
@@ -5085,7 +5384,7 @@ def main() -> int:
 
     X, y = flagship_data()
     model = hierarchical_regression(X)
-    with ThreadPoolExecutor(9) as pool:
+    with ThreadPoolExecutor(11) as pool:
         loads = [pool.submit(timed_load, lib) for lib in (
             hmc._lib, nuts_pallas._lib, elliptical._lib, lambda: _build.load("k2_stream"), first_grad)]
         # the staged bodies (kernels/staged.py): traced here while the
@@ -5100,8 +5399,12 @@ def main() -> int:
                            "stage_s": time.perf_counter() - t0,
                            "model": {"conjugate": conj_model, "linear_regression": lin_model}.get(name)}
             built[name]["load"] = pool.submit(timed_load, built[name]["body"].lib)
+        # the trace path's batches, their models staged with chain operands
+        traced = trace_batches(device, g, model, y)
+        for entry in traced.values():
+            entry["load"] = pool.submit(timed_load, entry["view"].body.lib)
         k1_load, k4_load, k3_load, k2_load = (f.result() for f in loads[:4])
-        for entry in built.values():
+        for entry in (*built.values(), *traced.values()):
             entry["build_s"] = entry.pop("load").result()
     phase("build", f"K1 loaded from genjax_tpu_torch/kernels/csrc/hmc_sweep.cu "
                    f"in {k1_load:.2f} s (build included)")
@@ -5131,6 +5434,22 @@ def main() -> int:
                                    f"{v['spill_stores']} B, spill loads {v['spill_loads']} B"
                                    for k, v in sorted(found.items())))
         check(set(found) == {"K1", "K4"}, f"the staged build of {name} holds {sorted(found)}")
+    for name, entry in traced.items():
+        body = entry["view"].body
+        found = {}
+        for kname, regs, stores, loads, smem, stack in ptxas_kernels(_build.staged_ptxas_report(body.header)):
+            key = "K1" if "hmc_sweep_kernel" in kname else "K4" if "nuts_sweep_kernel" in kname else None
+            if key:
+                found[key] = {"registers": regs, "spill_stores": stores, "spill_loads": loads, "stack": stack}
+        entry["ptxas"] = found
+        phase("build", f"trace path {name} ({entry['label']}): the model staged with {body.k} chain operands "
+                       f"a chain, read from {body.chain_read} (D={body.d}, {body.flop} operations a gradient, "
+                       f"{body.n_consts} constants, {body.const_mode}): staged in {entry['stage_s']:.2f} s, K1 and K4 built by one nvcc in "
+                       f"{entry['build_s']:.2f} s (in parallel with the others); "
+                       + "; ".join(f"{k}: {v['registers']} registers, stack frame {v['stack']} B, spill stores "
+                                   f"{v['spill_stores']} B, spill loads {v['spill_loads']} B"
+                                   for k, v in sorted(found.items())))
+        check(set(found) == {"K1", "K4"}, f"the staged build of trace path {name} holds {sorted(found)}")
     flag_body = bodies.hier_regression(X, y, 0.25)
     gen_body = generic_body(bodies)
     for body, d in [(flag_body, 16), (gen_body, 8)]:
@@ -5500,6 +5819,10 @@ def main() -> int:
     staged_entries = staged_path(device, smi, g, hmc, nuts, nuts_pallas, bodies, built, (ld, ld.body),
                                  (q_wn, eps_n, im_n))
 
+    # ---- the trace path on the staged bodies, with per-chain chain operands
+    trace_entries = trace_staged_path(device, smi, g, hmc, nuts, nuts_pallas, traced, conj_model, lin_model)
+    del traced
+
     # ---- the scale-out layer at a world of one rank on NCCL (K1 and K4 on the shard)
     par_launches = parallel_path(device, smi, g, hmc, nuts_pallas, model, y, k1_draws)
 
@@ -5552,7 +5875,10 @@ def main() -> int:
         # the same kernel built with a staged body (kernels/staged.py): the
         # flagship's density staged, and the paths of models with no
         # hand-written body
-        "staged": {"source": "genjax_tpu_torch/kernels/staged.py", **staged_entries["K1"]},
+        "staged": {"source": "genjax_tpu_torch/kernels/staged.py", **staged_entries["K1"],
+                   # the trace path's builds: the flagship staged with chain operands
+                   "trace_path": trace_entries["K1"]["trace_path"],
+                   "trace_path_launches": trace_entries["K1"]["launches_by_path"]},
     }, {
         "name": "nuts_sweep (K4)",
         "route": "cuda",
@@ -5567,7 +5893,9 @@ def main() -> int:
         "bound_ms": k4_bound_ms,
         "bound_by": k4_bound_by,
         "library_ms": None,  # no single PyTorch call computes the sweep
-        "staged": {"source": "genjax_tpu_torch/kernels/staged.py", **staged_entries["K4"]},
+        "staged": {"source": "genjax_tpu_torch/kernels/staged.py", **staged_entries["K4"],
+                   "trace_path": trace_entries["K4"]["trace_path"],
+                   "trace_path_launches": trace_entries["K4"]["launches_by_path"]},
     }, k3_entry]}), flush=True)
     check(all(math.isfinite(v) for v in (ms, plain_ms, flagship_err, k4_ms, nuts_plain_ms, k4_err,
                                          k2_entry["ms"], k2_entry["plain_ms"], k2_entry["fold_ms"],

@@ -2,11 +2,10 @@
 
 Counterpart of ``examples/05_mcmc.py``: the chain drivers (``run_chain``,
 ``run_chains_sharded``), dual-averaging step-size adaptation, the batched
-trace drivers and column NUTS. The model has no device body
-(``kernels/bodies.py``), so on the card the batched drivers and column NUTS
-run their torch twins, asked for with ``backend="torch"`` (nothing falls
-back on its own: ``ROADMAP.md``, Ground rules, "Entry points run on the
-card by default").
+trace drivers and column NUTS, with the reference's defaults. The model has
+no hand-written device body (``kernels/bodies.py``), so on the card the
+batched drivers and column NUTS run K1 and K4 over its density staged into
+one (``kernels/staged.py``).
 """
 
 import math
@@ -70,17 +69,17 @@ def main(device="cuda"):
     gen7 = torch.Generator(device=device).manual_seed(7)
     traces = batch(lambda: make_trace(gen7), 2048, device)
     gen8 = torch.Generator(device=device).manual_seed(8)
-    traces, acc = g.run_chains_hmc(gen8, traces, g.S["mu"], eps=float(eps), L=5, n_steps=200, backend="torch")
+    traces, acc = g.run_chains_hmc(gen8, traces, g.S["mu"], eps=float(eps), L=5, n_steps=200)
     mus = traces.get_choices()["mu"]
     print(f"run_chains_hmc x2048: mean {float(torch.mean(mus)):.3f} (exact 1.0), accept {float(acc):.2f}")
     gen9 = torch.Generator(device=device).manual_seed(9)
-    traces, acc, leaps = g.run_chains_nuts(gen9, traces, g.S["mu"], eps=0.5, n_steps=100, backend="torch")
+    traces, acc, leaps = g.run_chains_nuts(gen9, traces, g.S["mu"], eps=0.5, n_steps=100)
     mus = traces.get_choices()["mu"]
     print(f"run_chains_nuts x2048: mean {float(torch.mean(mus)):.3f}, ~{float(leaps):.1f} leapfrogs/transition")
 
     # --- NUTS on the column layout ---
     q, acc, leaps, packer = column_nuts(model, obs, (), ["mu"], n_chains=1024, n_steps=60, eps=0.3, max_depth=6,
-                                        device=device, backend="torch")
+                                        device=device)
     print(f"column NUTS: mean {float(torch.mean(q[0])):.3f}, std {float(torch.std(q[0])):.3f}, "
           f"accept {float(acc):.2f}, ~{float(leaps):.0f} leapfrogs/transition")
 

@@ -18,6 +18,7 @@ proj_old(sel)]. ``HMC`` already returns alpha as its weight.
 
 from __future__ import annotations
 
+import math
 from typing import Any, Callable
 
 import torch
@@ -31,8 +32,9 @@ from ..generative.selection import Selection
 from ..generative.trace import Trace, check_same_device, trace_device
 from ..kernels.bodies import body_for, body_packing
 from ..kernels.hmc import _route, pallas_hmc
-from ..kernels.model_interface import ColumnPacker
+from ..kernels.model_interface import ColumnPacker, column_logdensity, packed_score
 from ..kernels.nuts_pallas import pallas_nuts
+from ..kernels.staged import scope_store, stage_body
 from .requests.grad_view import column_view
 from .requests.hmc import mh_accept
 
@@ -103,48 +105,163 @@ def _leaf_paths(chm: ChoiceMap, prefix: tuple = ()):
     return None if not chm.static_is_empty() else []
 
 
+_TWIN = "Pass backend='torch' to run the plain torch twin over each chain's own choices on the card."
+# an integer chain operand travels as float32, exact up to this magnitude
+_EXACT_INT = 2**24
+
+
+def _refuse(entry: str, what: str) -> ValueError:
+    return ValueError(f"{entry}: {what}, so the CUDA sweep kernels have no device body for it. {_TWIN}")
+
+
+def _integer(v: torch.Tensor) -> bool:
+    return not (v.is_floating_point() or v.dtype == torch.bool)
+
+
+def chain_varying(leaves: list, chain_axis: int, entry: str = "run_chains_hmc") -> list[int]:
+    """The indices of the tensor ``leaves`` (a batch's frozen choices and
+    arguments, chain axis at ``chain_axis``) that differ between chains:
+    one reduction each on the device (NaN equals NaN), and for an integer
+    leaf one more for its magnitude, read to the host at once. An integer
+    leaf that differs and exceeds 2^24 in magnitude raises: as a chain
+    operand it travels as float32."""
+    return _sort_leaves(leaves, chain_axis, entry, ())[0]
+
+
+def _equal(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Elementwise equality in which NaN equals NaN."""
+    same = a == b
+    return same | (a.isnan() & b.isnan()) if a.is_floating_point() else same
+
+
+def _sort_leaves(leaves: list, chain_axis: int, entry: str, kept) -> tuple[list[int], bool]:
+    """``chain_varying``, and in the same host read whether chain 0 of each
+    leaf of ``kept`` (pairs of an index and the value it is compared with)
+    equals that value."""
+    tensors = [i for i, v in enumerate(leaves) if isinstance(v, torch.Tensor)]
+    flags = []
+    for i in tensors:
+        v = leaves[i]
+        flags.append(_equal(v, v.select(chain_axis, 0).unsqueeze(chain_axis)).all())
+        if _integer(v):
+            flags.append((v.abs() > _EXACT_INT).any())
+    flags += [_equal(leaves[i].select(chain_axis, 0), value).all() for i, value in kept]
+    read = iter(torch.stack(flags).tolist() if flags else [])
+    varying = []
+    for i in tensors:
+        differs = not next(read)
+        if _integer(leaves[i]) and next(read) and differs:
+            raise _refuse(entry, f"a frozen integer choice or argument that differs between chains exceeds "
+                                 f"{_EXACT_INT} in magnitude, past float32's exact integers")
+        if differs:
+            varying.append(i)
+    return varying, all(read)
+
+
+def _chain_density(model, packer: ColumnPacker, leaves: list, spec, varying: list):
+    """The model's column density over one chain's frozen choices and
+    arguments with chain operands: ``(q (D, N), c (k, N)) -> (N,)``, the
+    leaves at ``varying`` (index, shape, dtype) rebuilt from consecutive
+    rows of each chain's ``c``, every other leaf as ``leaves`` holds it."""
+
+    def one(q, c):
+        vals, row = list(leaves), 0
+        for i, shape, dtype in varying:
+            size = math.prod(shape)
+            vals[i] = c[row : row + size].reshape(shape).to(dtype)
+            row += size
+        frozen, args = pytree.tree_unflatten(vals, spec)
+        return packed_score(model, frozen, args, packer, q)
+
+    return torch.func.vmap(one, in_dims=(1, 1))
+
+
 class _KernelView:
     """A trace batch in the layout of the CUDA sweep kernels' device body.
 
     ``z`` from ``column_view`` ravels the selected choices in tree-flatten
-    order, unpadded; a device body wants its own address order, padded to the
-    packer's dimension. The packer (``ColumnPacker``) owns that layout: this
-    finds the body, which exists only when the model has one for this
-    selection (``kernels/bodies.py``), the traces take no arguments, and
-    every chain's frozen complement is the same (the body carries one set of
-    constants for all chains), and binds the packer's row map from ``z``."""
+    order, unpadded; a device body takes its packer's rows
+    (``ColumnPacker``), padded, and the view binds the packer's row map from
+    ``z``. The body is the model's hand-written one (``kernels/bodies.py``)
+    where it applies (the traces take no arguments, the selection is the
+    body's addresses, and every chain's frozen complement is the same), else
+    the model's column density (``packed_score``, as ``column_hmc`` builds
+    it) over chain 0's frozen choices and arguments, staged
+    (``kernels/staged.py``). Each frozen and argument leaf is sorted by one
+    reduction on the device, all of them read to the host at once: a leaf
+    equal along the chain axis is a constant of the staged program (so a
+    batch whose leaves are all equal stages the program ``column_hmc``
+    stages), a leaf that differs becomes rows of the chain operands, a
+    ``(k, N)`` float32 block (integers and booleans as float32) bound to
+    the body. The staging is kept for a ``staging_scope`` (``sample_posterior``
+    opens one) under what decides the program: the model, the selected
+    paths and shapes, and every leaf's shape and dtype; a later view of the
+    scope reuses it where the same leaves are chain operands and chain 0 of
+    every other leaf holds the values folded into it (compared in the
+    sort's host read), and stages again where not. Raises, naming the reason and ``backend='torch'``,
+    where no body can be made: selected choices that are not static
+    addresses of continuous values, an integer chain operand past 2^24,
+    and the stager's refusals (an op outside its set, ``D`` beyond
+    ``MAX_D``, a collective)."""
 
-    def __init__(self, traces, selection: Selection, chain_axis: int, d: int):
-        self.body = None
-        self.chains_differ = False
+    def __init__(self, traces, selection: Selection, chain_axis: int, d: int, entry: str = "run_chains_hmc"):
         model = traces.get_gen_fn()
-        order = body_packing(model)
-        if order is None or pytree.tree_leaves(traces.get_args()):
-            return
         choices = traces.get_choices()
         selected = _leaf_paths(choices.filter_eager(selection))
-        frozen_chm = choices.filter_eager(~selection)
-        if selected is None or sorted(p for p, _ in selected) != sorted(order):
-            return
-        # the frozen complement of chain 0, if every chain's equals it: one
-        # reduction on the device and one host read
-        first = pytree.tree_map(lambda v: v.select(chain_axis, 0), frozen_chm)
-        same = [
-            (v == v.select(chain_axis, 0).unsqueeze(chain_axis)).all()
-            for v in pytree.tree_leaves(frozen_chm)
-        ]
-        if same and not bool(torch.stack(same).all()):
-            self.chains_differ = True
-            return
-        packer = ColumnPacker(model, first, (), list(order))
-        body = body_for(model, first, (), list(order))
-        if body is None or packer.dim != d:
-            return
+        if selected is None:
+            raise _refuse(entry, "the selected choices are not static addresses (an indexed, masked or "
+                                 "switched choice map), which a packed column block needs")
+        if not selected or not all(v.is_floating_point() for _, v in selected):
+            raise _refuse(entry, "the selection holds no choice, or a discrete one")
+        paths = [p for p, _ in selected]
+        device = selected[0][1].device  # where the model is staged: the choices' own
         z_offset, offset = {}, 0
         for path, v in selected:
             z_offset[path] = offset
             offset += v.numel() // v.shape[chain_axis]
-        self.body, self.packer, self.rows = body, packer, packer.row_map(z_offset)
+        leaves, spec = pytree.tree_flatten((choices.filter_eager(~selection), traces.get_args()))
+        tensors = [i for i, v in enumerate(leaves) if isinstance(v, torch.Tensor)]
+        first = [v.select(chain_axis, 0) if isinstance(v, torch.Tensor) else v for v in leaves]
+        # a batch's model is remade with its traces: its structure (static
+        # fields, the body's function) names it; with the selection, the
+        # shapes and the dtypes (and any leaf that is no tensor) it decides
+        # the program, and the values of the tensor leaves folded into it
+        # are checked at a hit, in the sort's host read
+        store = scope_store()
+        key = ("trace path", str(pytree.tree_structure(model)), tuple(paths),
+               tuple(tuple(v.shape) for _, v in selected), str(spec),
+               tuple((tuple(first[i].shape), str(first[i].dtype)) if i in tensors else repr(v)
+                     for i, v in enumerate(first)), str(device))
+        kept = store.get(key) if store is not None else None  # (varying, constants, body)
+        varying, same = _sort_leaves(leaves, chain_axis, entry, kept[1] if kept else ())
+        frozen0, args0 = pytree.tree_unflatten(first, spec)
+        self.body = None
+        order = body_packing(model)
+        if order is not None and not varying and not pytree.tree_leaves(args0) and sorted(paths) == sorted(order):
+            packer = ColumnPacker(model, frozen0, (), list(order))
+            body = body_for(model, frozen0, (), list(order))
+            if body is not None and packer.dim == d:
+                self.body, self.packer = body, packer
+        if self.body is None:
+            self.packer = packer = ColumnPacker(model, frozen0, args0, paths, device=device)
+            chain = None
+            if varying:
+                n = selected[0][1].shape[chain_axis]
+                chain = torch.cat([leaves[i].movedim(chain_axis, -1).reshape(-1, n).to(torch.float32)
+                                   for i in varying]).contiguous()
+            if kept and kept[0] == varying and same:
+                body = kept[2]
+            else:
+                if chain is None:
+                    density = column_logdensity(model, frozen0, args0, packer)
+                else:
+                    density = _chain_density(model, packer, first, spec,
+                                             [(i, tuple(first[i].shape), first[i].dtype) for i in varying])
+                body = stage_body(density, packer.padded_dim, device=device, chain=chain)
+                if store is not None:
+                    store[key] = (varying, [(i, first[i].clone()) for i in tensors if i not in varying], body)
+            self.body = body if chain is None else body.bind(chain)
+        self.rows = self.packer.row_map(z_offset)
 
 
 # a sweep's int seed, drawn from a generator: one host read
@@ -158,11 +275,13 @@ class _ColumnSweep:
     (``column_view``), the backend, and sweeps over the block.
 
     The backend is the samplers' (``hmc._route``): on the card ``"auto"``
-    takes the CUDA kernel, which needs the batch's device body
-    (``_KernelView``), and raises without one; ``"torch"``, and the CPU, run
-    the plain twin over the GFI's own ``assess`` of each chain's frozen
-    complement. The view is built once here, so a phase of many launches
-    builds it once. A sweep runs on a block in the launch's layout
+    takes the CUDA kernel over the batch's device body (``_KernelView``:
+    the hand-written one, else the model staged with each chain's own
+    frozen choices and arguments as chain operands), and raises where none
+    can be made; ``"torch"``, and the CPU, run the plain twin over the
+    GFI's own ``assess`` of each chain's frozen complement. The view is
+    built once here, so a phase of many launches builds it once, and the
+    body it runs is named by ``body_name``. A sweep runs on a block in the launch's layout
     (``start``): on the kernel the body's rows padded with fresh normals, on
     the twin ``z`` itself; ``finish`` maps a block, or a stack of draws of
     its ``real`` rows, back to ``z``'s order."""
@@ -172,15 +291,10 @@ class _ColumnSweep:
         self.z, self.ld_cols, self.write_back = column_view(traces, selection, chain_axis)
         view = None
         if backend == "cuda" or (backend == "auto" and device.type == "cuda"):
-            view = _KernelView(traces, selection, chain_axis, self.z.shape[0])
-            if view.body is None and view.chains_differ:
-                raise ValueError(
-                    f"{entry}: the chains' frozen choices differ, and the CUDA sweep kernel's "
-                    "device body carries one set of constants for all chains. Pass "
-                    "backend='torch' to run the plain torch twin over each chain's own."
-                )
-        self.backend = _route(backend, device, view is not None and view.body is not None)
+            view = _KernelView(traces, selection, chain_axis, self.z.shape[0], entry)
+        self.backend = _route(backend, device)
         self.view = view if self.backend == "cuda" else None
+        self.body_name = self.view.body.name if self.view else None
 
     def start(self, gen: torch.Generator) -> torch.Tensor:
         return self.view.packer.pack_columns(self.z, self.view.rows, gen) if self.view else self.z
@@ -233,15 +347,20 @@ def run_chains_hmc(
       instead of once per transition.
 
     ``backend`` is ``pallas_hmc``'s. The traces run where they live. On the
-    card the default ``"auto"`` launches the CUDA sweep kernel, which takes
-    the density as a device body: a batch whose model, selection and frozen
-    choices have one (``kernels/bodies.py``; the flagship
+    card the default ``"auto"`` launches the CUDA sweep kernel (K1), which
+    takes the density as a device body (``_KernelView``): the model's
+    hand-written one where it applies (the flagship
     ``hierarchical_regression`` over ``tau`` and ``w`` with the same ``y``
-    frozen in every chain) runs it, and any other batch raises. With
-    ``backend="torch"``, and on the CPU, the plain twin ``_reference_hmc``
-    runs over the GFI's own ``assess`` of each chain's frozen complement, so
-    any model composes and per-chain constraints are honored. The backend
-    taken is recorded on ``run_chains_hmc.last_backend``.
+    frozen in every chain, ``kernels/bodies.py``), else the model's column
+    density staged (``kernels/staged.py``), every frozen choice and argument
+    that differs between chains read by each chain from its own chain
+    operands; a batch whose density cannot be staged raises, naming why.
+    With ``backend="torch"``, and on the CPU, the plain twin
+    ``_reference_hmc`` runs over the GFI's own ``assess`` of each chain's
+    frozen complement. The backend taken is recorded on
+    ``run_chains_hmc.last_backend``, and the device body the kernel ran on
+    ``run_chains_hmc.last_body`` (``"hier_regression"``, ``"staged"``;
+    None on the twin).
 
     Args:
         traces: a batched trace pytree (from ``torch.func.vmap`` of
@@ -276,11 +395,12 @@ def run_chains_hmc(
     q, accept_rate = run.sweep(
         pallas_hmc, run.start(gen), seed, run.inv_mass(inv_mass), n_steps=n_steps, eps=eps, L=L
     )
-    run_chains_hmc.last_backend = run.backend
+    run_chains_hmc.last_backend, run_chains_hmc.last_body = run.backend, run.body_name
     return run.write_back(run.finish(q), gen), accept_rate
 
 
 run_chains_hmc.last_backend = None
+run_chains_hmc.last_body = None
 
 
 def run_chains_nuts(
@@ -302,10 +422,12 @@ def run_chains_nuts(
     the traces are rebuilt by one vmapped ``Update`` at the end.
 
     The routing is ``run_chains_hmc``'s: on the card ``"auto"`` launches the
-    CUDA NUTS kernel (K4) over the batch's device body, and a batch with
-    none raises; ``backend="torch"``, and the CPU, run the twin
+    CUDA NUTS kernel (K4) over the batch's device body, hand-written or
+    staged with each chain's own chain operands, and a batch whose density
+    cannot be staged raises; ``backend="torch"``, and the CPU, run the twin
     ``nuts_sweep_cols`` over the GFI's own ``assess``. The backend taken is
-    recorded on ``run_chains_nuts.last_backend``.
+    recorded on ``run_chains_nuts.last_backend``, the body on
+    ``run_chains_nuts.last_body``.
 
     Returns ``(traces, accept_stat, mean_leapfrogs)``, the traces in the
     layout of the input batch.
@@ -334,11 +456,12 @@ def run_chains_nuts(
         pallas_nuts, run.start(gen), seed, run.inv_mass(inv_mass), n_steps=n_steps, eps=eps,
         max_depth=max_depth,
     )
-    run_chains_nuts.last_backend = run.backend
+    run_chains_nuts.last_backend, run_chains_nuts.last_body = run.backend, run.body_name
     return run.write_back(run.finish(q), gen), accept_stat, leaps
 
 
 run_chains_nuts.last_backend = None
+run_chains_nuts.last_body = None
 
 
 def generator_on(gen: torch.Generator | int, device: torch.device, entry: str) -> torch.Generator:

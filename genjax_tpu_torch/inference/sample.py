@@ -13,7 +13,8 @@ samples, and report split-R̂ and ESS for each sampled parameter.
 - ``"hmc_sweep"`` is the throughput form of ``"hmc"``, the same chain run
   batch-first over a column block (``mcmc._ColumnSweep``, the launch that
   ``run_chains_hmc`` uses): on the card one launch of the CUDA HMC kernel
-  (K1) per warmup window and per draw, the traces rebuilt once a phase.
+  (K1) per warmup window and per draw, the traces rebuilt once a phase; a
+  model without a hand-written device body is staged once a call.
 - ``"chees"``, ``"pt"``, ``"dense_hmc"`` and ``"dense_nuts"`` are the column
   samplers over the selection packed by ``ColumnPacker``
   (``kernels.chees``, ``pt``, ``dense_mass`` and ``nuts``): torch on the
@@ -55,6 +56,7 @@ from ..kernels.hmc import pallas_hmc
 from ..kernels.model_interface import ColumnPacker, column_logdensity, init_columns
 from ..kernels.nuts import nuts_sweep_cols
 from ..kernels.pt import geometric_ladder, pt_hmc
+from ..kernels.staged import staging_scope
 from ..parallel.mesh import local_count, mesh_generators
 from .diagnostics import ess, split_rhat
 from .mcmc import _ColumnSweep, _seed, generator_on, mh
@@ -540,6 +542,7 @@ def _sample_pt(gen, packer, ld, q0, *, n_warmup, n_samples, thin, eps0, L, targe
     )
 
 
+@staging_scope()
 def sample_posterior(
     gen: torch.Generator | int,
     model: GenerativeFunction,
@@ -588,11 +591,14 @@ def sample_posterior(
     - ``"hmc"``: vmapped ``mh(HMC(selection, eps, L))``, divergence rate 0;
     - ``"hmc_sweep"``: the same chain as ``"hmc"`` run batch-first over a
       column block: on the card one launch of the CUDA HMC kernel (K1) per
-      warmup window and per draw over the batch's device body, which the
-      flagship ``hierarchical_regression`` has; ``backend`` is that of
+      warmup window and per draw over the batch's device body, the
+      hand-written one where the model has it, else its density staged once
+      for the whole call (warmup, draws and every checkpoint segment, each
+      chain's own frozen choices as chain operands); ``backend`` is that of
       ``run_chains_hmc`` (on the card ``"auto"`` launches K1 or raises,
-      ``"torch"`` runs the plain twin over the GFI's ``assess``).
-      Divergences surface as rejections (``divergence_rate`` is 0).
+      naming why, ``"torch"`` runs the plain twin over the GFI's
+      ``assess``). Divergences surface as rejections (``divergence_rate``
+      is 0).
 
     The column algorithms pack a statically addressed selection of an
     addressed model (else ``ValueError``) and run torch on ``device``, no

@@ -17,7 +17,11 @@
 //   kernels/staged.py, printed by that module as gjt_staged::lp_grad into a
 //   header that a staged build includes through -DGJT_STAGED_HEADER=<...>
 //   (kernels/_build.py::load_staged). Only a staged build instantiates it, and
-//   only it: the other builds compile as they did without the macro.
+//   only it: the other builds compile as they did without the macro. A
+//   header with chain operands (the trace path's frozen choices and arguments
+//   that differ from chain to chain) also defines GJT_STAGED_CHAIN: its
+//   kernels read each chain's kChain values from a (kChain, N) block
+//   (ChainOperands below), and no other build sees them.
 //
 // What bounds the bodies on this card: FP32 instruction throughput. A
 // flagship gradient is about 256 FFMAs of X against w and r. Read from shared
@@ -304,9 +308,22 @@ __device__ __forceinline__ float hier_regression(const float (&q)[D], float (&g)
 // a constant-bank operand, as the flagship's X and y are; in shared memory,
 // copied there at block start (kStagedSharedFloats > 0); or from global
 // memory through __ldg (the header's GJT_C). kStagedD is the build's D.
+//
+// Chain operands (a header that defines GJT_STAGED_CHAIN): the pointer to
+// their (kChain, N) block rides in the same kernel parameter, and each thread
+// reads its chain's kChain values once, at sweep start, into registers
+// (ChainOperands): the block is chain-minor as q is, so a warp's reads of one
+// row are coalesced, and the body then reads them as registers at every
+// gradient. The cap is the header's (kChainInRegisters; 32 operands,
+// kernels/staged.py, CHAIN_REGISTER_CAP: the staged flagship's K1 holds 168
+// registers of 255 without spilling, so 32 more still fit a thread; K4 already
+// takes 255, where a larger k would only turn into spills). Above the cap a
+// chain's operands are read through __ldg at each gradient (a warp's reads
+// stay coalesced, and the block stays in L1 and L2).
 #ifdef GJT_STAGED_HEADER
 constexpr int kStagedD = gjt_staged::kD;
 constexpr int kStagedConsts = gjt_staged::kConsts;
+constexpr int kStagedChain = gjt_staged::kChain;
 constexpr bool kStagedParams = gjt_staged::kConstMode == gjt_staged::kParamConsts;
 constexpr int kStagedSharedFloats =
     gjt_staged::kConstMode == gjt_staged::kSharedConsts ? (gjt_staged::kConsts + 3) / 4 * 4 : 0;
@@ -314,30 +331,73 @@ constexpr int kStagedSharedFloats =
 template <>
 struct UniformConsts<0, 0> {
   float c[kStagedParams && kStagedConsts > 0 ? kStagedConsts : 1];
+#ifdef GJT_STAGED_CHAIN
+  const float* chain;  // the chain operands, (kStagedChain, N) row-major
+#endif
 
   // the header's GJT_C(k): read through the struct, as hier_regression reads X,
   // so that the read stays a parameter-space operand
   __device__ __forceinline__ float operator[](int k) const { return c[k]; }
 };
 
+#ifdef GJT_STAGED_CHAIN
+// One chain's operands: in registers up to the cap, read once here ...
+template <bool InRegisters>
+struct StagedChain {
+  float v[kStagedChain];
+
+  __device__ __forceinline__ StagedChain(const float* chain, int n, int N) {
+#pragma unroll
+    for (int r = 0; r < kStagedChain; ++r) v[r] = chain[static_cast<size_t>(r) * N + n];
+  }
+  __device__ __forceinline__ float operator[](int r) const { return v[r]; }
+};
+
+// ... above it, read through __ldg at each use
+template <>
+struct StagedChain<false> {
+  const float* p;
+  int N;
+
+  __device__ __forceinline__ StagedChain(const float* chain, int n, int n_chains)
+      : p(chain + n), N(n_chains) {}
+  __device__ __forceinline__ float operator[](int r) const {
+    return __ldg(p + static_cast<size_t>(r) * N);
+  }
+};
+
+using ChainOperands = StagedChain<gjt_staged::kChainInRegisters>;
+#endif
+
 // consts: the kernel parameter's UniformConsts<0, 0> in the parameter mode, else
-// a pointer to shared or global memory
-template <int D, class Consts>
-__device__ __forceinline__ float staged_lp_grad(const float (&q)[D], float (&g)[D],
+// a pointer to shared or global memory; chain: the chain's operands
+// (ChainOperands), or NoChain where the header takes none
+template <int D, class Chain, class Consts>
+__device__ __forceinline__ float staged_lp_grad(const float (&q)[D], float (&g)[D], const Chain& chain,
                                                 const Consts& consts) {
   static_assert(D == gjt_staged::kD, "a staged build instantiates its own D only");
+#ifdef GJT_STAGED_CHAIN
+  return gjt_staged::lp_grad(q, g, chain, consts);
+#else
+  (void)chain;
   return gjt_staged::lp_grad(q, g, consts);
+#endif
 }
 #else
 constexpr int kStagedD = 0;
 constexpr int kStagedConsts = 0;
+constexpr int kStagedChain = 0;
 constexpr bool kStagedParams = false;
 constexpr int kStagedSharedFloats = 0;
 
 // declared only: a build without a staged header never instantiates it
-template <int D, class Consts>
-__device__ float staged_lp_grad(const float (&q)[D], float (&g)[D], const Consts& consts);
+template <int D, class Chain, class Consts>
+__device__ float staged_lp_grad(const float (&q)[D], float (&g)[D], const Chain& chain,
+                                const Consts& consts);
 #endif
+
+// The chain operands of a build whose body takes none: nothing.
+struct NoChain {};
 
 // Copy the staged constants into shared memory; the block synchronises
 // before reading them.

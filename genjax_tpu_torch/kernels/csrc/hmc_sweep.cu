@@ -24,7 +24,9 @@
 // same sweep with the staged body at its own D (any of 1..64): a straight-line
 // body whose constants ride in the kernel parameter as the flagship's do, or,
 // past the stager's caps, sit in shared memory in front of those values or are
-// read from global memory.
+// read from global memory. A staged body with chain operands (the trace path's
+// per-chain frozen choices) reads each chain's own values from a (k, N) block,
+// once a sweep into registers (column_common.cuh, ChainOperands).
 //
 // Bound on this card: fp32 instruction throughput. A flagship gradient is
 // about 630 FLOP (256 FFMAs of X w and X^T r, the prior's logs and
@@ -109,12 +111,18 @@ __global__ void __launch_bounds__(kThreads, BODY == kStaged ? kStagedMinBlocks :
 
   const int n = blockIdx.x * blockDim.x + threadIdx.x;
   if (n >= prm.N) return;
+#ifdef GJT_STAGED_CHAIN
+  const ChainOperands chain(uc.chain, n, prm.N);  // this chain's, read once
+#else
+  const NoChain chain{};
+#endif
   // the specialised shape reads X and y straight from the kernel parameter
   auto body_lp = [&](const float (&x)[D], float (&gx)[D]) {
     if constexpr (BODY == kStaged && kStagedParams) {
-      return staged_lp_grad<D>(x, gx, uc);
+      return staged_lp_grad<D>(x, gx, chain, uc);
     } else if constexpr (BODY == kStaged) {
-      return staged_lp_grad<D>(x, gx, kStagedSmem ? static_cast<const float*>(smem) : prm.consts);
+      return staged_lp_grad<D>(x, gx, chain,
+                               kStagedSmem ? static_cast<const float*>(smem) : prm.consts);
     } else if constexpr (kShared) {
       const SharedConsts c{smem, smem + prm.shape.n_obs * prm.shape.d_w, prm.shape.d_w};
       return lp_grad<D, BODY, NOBS, DW>(x, gx, c, prm.shape);
@@ -291,13 +299,18 @@ long hmc_smem_bytes(int dim, int body, int specialised, int n_obs, int d_w) {
 
 // Returns the cudaError_t of the launch (0 on success). `consts` is the
 // body's constants in device memory and `consts_host` the same on the host
-// (read into the kernel's parameters at the specialised shape).
+// (read into the kernel's parameters at the specialised shape). `chain` is a
+// staged body's (n_chain, N) block of chain operands in device memory, which
+// a build whose header takes kChain of them needs (n_chain == kChain), and no
+// other build takes (n_chain == 0).
 int hmc_sweep(const float* q_in, float* q_out, float* accepts, const float* inv_mass,
               const float* consts, const float* consts_host, int n_consts, int body,
               int specialised, int dim, int N, int n_obs, int d_w, float obs_scale, int n_steps,
-              int L, float eps, int seed, int rng, int block_n, void* stream) {
+              int L, float eps, int seed, int rng, int block_n, const float* chain, int n_chain,
+              void* stream) {
   if (N <= 0 || block_n <= 0 || n_consts < 0 || (rng != kCounter && rng != kPhilox))
     return cudaErrorInvalidValue;
+  if (n_chain != kStagedChain || (n_chain > 0 && chain == nullptr)) return cudaErrorInvalidValue;
   if (body == kHierRegression && (d_w < 1 || d_w + 1 > dim || n_consts != n_obs * (d_w + 1)))
     return cudaErrorInvalidValue;
   if (specialised && body == kHierRegression && (n_obs != 16 || d_w != 8))
@@ -317,6 +330,9 @@ int hmc_sweep(const float* q_in, float* q_out, float* accepts, const float* inv_
     if constexpr (NOBS > 0) std::memcpy(&uc, consts_host, sizeof(uc));
     if constexpr (decltype(b)::value == kStaged && kStagedParams && kStagedConsts > 0)
       std::memcpy(uc.c, consts_host, sizeof(float) * kStagedConsts);
+#ifdef GJT_STAGED_CHAIN
+    uc.chain = chain;
+#endif
     hmc_sweep_kernel<decltype(d)::value, decltype(b)::value, NOBS, DW>
         <<<blocks, kThreads, smem, s>>>(prm, uc);
     return cudaGetLastError();

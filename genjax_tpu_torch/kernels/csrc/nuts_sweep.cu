@@ -4,7 +4,9 @@
 // kernel that keeps a chain block's whole NUTS tree on chip for a sweep. A
 // staged build (column_common.cuh, kStaged) instantiates the same sweep with
 // the staged body at its own D, its constants in the kernel parameter (or, past
-// the stager's caps, in front of the stacks or in global memory).
+// the stager's caps, in front of the stacks or in global memory), and, where
+// the body takes chain operands, each chain's own from a (k, N) block, read
+// once a sweep (column_common.cuh, ChainOperands).
 //
 // What it computes: n_steps NUTS transitions on each of N chains, with the
 // reference kernel's semantics. A transition draws momentum r0 ~ N(0, M) and
@@ -184,12 +186,20 @@ __global__ void NUTS_LAUNCH_BOUNDS
   if (kStagedSmem) load_staged_consts(smem, prm.consts);
   __syncthreads();
 
+#ifdef GJT_STAGED_CHAIN
+  // this chain's operands, read once (a thread past N reads chain 0's)
+  const int n_own = blockIdx.x * T + tid;
+  const ChainOperands chain(uc.chain, n_own < prm.N ? n_own : 0, prm.N);
+#else
+  const NoChain chain{};
+#endif
   // the specialised shape reads X and y straight from the kernel parameter
   auto body_lp = [&](const float (&x)[D], float (&gx)[D]) {
     if constexpr (BODY == kStaged && kStagedParams) {
-      return staged_lp_grad<D>(x, gx, uc);
+      return staged_lp_grad<D>(x, gx, chain, uc);
     } else if constexpr (BODY == kStaged) {
-      return staged_lp_grad<D>(x, gx, kStagedSmem ? static_cast<const float*>(smem) : prm.consts);
+      return staged_lp_grad<D>(x, gx, chain,
+                               kStagedSmem ? static_cast<const float*>(smem) : prm.consts);
     } else if constexpr (kShared) {
       const SharedConsts c{smem, smem + prm.shape.n_obs * prm.shape.d_w, prm.shape.d_w};
       return lp_grad<D, BODY, NOBS, DW>(x, gx, c, prm.shape);
@@ -412,16 +422,20 @@ long nuts_smem_bytes(int dim, int body, int specialised, int n_obs, int d_w, int
 // Returns the cudaError_t of the launch (0 on success). The block is `chains`
 // chains. `consts` is the body's constants in device
 // memory and `consts_host` the same on the host (read into the kernel's
-// parameters at the specialised shape).
+// parameters at the specialised shape). `chain` is a staged body's (n_chain,
+// N) block of chain operands in device memory, which a build whose header
+// takes kChain of them needs (n_chain == kChain), and no other build takes
+// (n_chain == 0).
 int nuts_sweep(const float* q_in, float* q_out, float* accepts, float* leaps,
                const float* inv_mass, const float* consts, const float* consts_host,
                int n_consts, int body, int specialised, int dim, int N, int n_obs, int d_w,
                float obs_scale, int n_steps, float eps, float div_threshold, int max_depth,
-               int seed, int rng, int chains, void* stream) {
+               int seed, int rng, int chains, const float* chain, int n_chain, void* stream) {
   if (N <= 0 || chains <= 0 || chains > kMaxThreads ||
       n_consts < 0 || n_steps < 0 || max_depth < 1 || max_depth > 30 ||
       (rng != kCounter && rng != kPhilox))
     return cudaErrorInvalidValue;
+  if (n_chain != kStagedChain || (n_chain > 0 && chain == nullptr)) return cudaErrorInvalidValue;
   if (body == kHierRegression && (d_w < 1 || d_w + 1 > dim || n_consts != n_obs * (d_w + 1)))
     return cudaErrorInvalidValue;
   if (specialised && body == kHierRegression && (n_obs != 16 || d_w != 8))
@@ -442,6 +456,9 @@ int nuts_sweep(const float* q_in, float* q_out, float* accepts, float* leaps,
     if constexpr (decltype(no)::value > 0) std::memcpy(&uc, consts_host, sizeof(uc));
     if constexpr (decltype(b)::value == kStaged && kStagedParams && kStagedConsts > 0)
       std::memcpy(uc.c, consts_host, sizeof(float) * kStagedConsts);
+#ifdef GJT_STAGED_CHAIN
+    uc.chain = chain;
+#endif
     NUTS_KERNEL(d, b, no, dw)<<<blocks, chains, smem, s>>>(prm, uc);
     return cudaGetLastError();
   });

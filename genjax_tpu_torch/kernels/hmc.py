@@ -9,8 +9,9 @@ float32 with chains on the last axis. Two paths:
   (``Body.variant``: the flagship's shape compiled with its constants as
   kernel parameters, or a runtime shape), or any other column density
   staged into one (``kernels/staged.py``), as the reference's kernel replays
-  any density's jaxpr. It replaces the Pallas TPU kernel ``_hmc_kernel``
-  and its PRNG helpers.
+  any density's jaxpr, with each chain's own chain operands where the staged
+  body takes any (``chain_operands``). It replaces the Pallas TPU kernel
+  ``_hmc_kernel`` and its PRNG helpers.
 - ``_reference_hmc``: the plain torch twin, any column density, gradients
   from autograd.
 
@@ -238,7 +239,7 @@ def _lib_for(body) -> ctypes.CDLL:
 @functools.cache
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.hmc_sweep.argtypes = [P, P, P, P, P, P, I, I, I, I, I, I, I, F, I, I, F, I, I, I, P]
+    lib.hmc_sweep.argtypes = [P, P, P, P, P, P, I, I, I, I, I, I, I, F, I, I, F, I, I, I, P, I, P]
     lib.hmc_sweep.restype = I
     lib.hmc_smem_limit.argtypes = [I]
     lib.hmc_smem_limit.restype = I
@@ -276,6 +277,29 @@ def _int32(x: int) -> int:
     return ((int(x) + 2**31) & _M32) - 2**31
 
 
+def chain_operands(body, q0: torch.Tensor) -> tuple[int, int]:
+    """``(pointer, k)`` of the chain operands a launch of ``body`` on ``q0
+    (D, N)`` passes: ``(0, 0)`` for a body that takes none, else the block
+    the staged body is bound to (``StagedBody.bind``), which must be a
+    contiguous float32 ``(k, N)`` tensor on ``q0``'s device."""
+    k = getattr(body, "k", 0)
+    if not k:
+        return 0, 0
+    c = body.chain
+    if c is None:
+        raise ValueError(f"the staged body takes k={k} chain operands a chain: bind it to its (k, N) block "
+                         "(StagedBody.bind) before a launch")
+    if c.device != q0.device:
+        raise ValueError(f"the chain operands live on {c.device} and the chains on {q0.device}")
+    if c.dtype != torch.float32:
+        raise ValueError(f"the chain operands must be float32, got {c.dtype}")
+    if tuple(c.shape) != (k, q0.shape[1]):
+        raise ValueError(f"the chain operands must be a (k={k}, N={q0.shape[1]}) block, got {tuple(c.shape)}")
+    if not c.is_contiguous():
+        raise ValueError("the chain operands must be a contiguous (k, N) block")
+    return c.data_ptr(), k
+
+
 def hmc_sweep(
     body: Body,
     q0: torch.Tensor,
@@ -291,7 +315,8 @@ def hmc_sweep(
     """Launch the CUDA sweep kernel on the current stream, without
     synchronising. ``q0`` is a contiguous float32 CUDA tensor of shape
     ``(D, N)`` with ``D`` 8 or 16 for a hand-written body, the body's own
-    ``d`` (1 to 64) for a staged one. ``rng="counter"`` needs ``block_n``, the
+    ``d`` (1 to 64) for a staged one; a staged body with chain operands is
+    bound to their ``(k, N)`` block (``chain_operands``). ``rng="counter"`` needs ``block_n``, the
     stream's chain block, which is independent of the launch block
     (``THREADS``). The body's variant taken is recorded on
     ``hmc_sweep.last_variant``.
@@ -328,6 +353,7 @@ def hmc_sweep(
             f"{body.d_w} constants; this card allows {limit} B per block "
             f"(cudaDevAttrMaxSharedMemoryPerBlockOptin)"
         )
+    chain, k = chain_operands(body, q0)
     inv_mass = _inv_mass_col(inv_mass, d, q0.device).reshape(d).contiguous()
     consts = body.consts_on(q0.device)
     q_out = torch.empty_like(q0)
@@ -337,7 +363,7 @@ def hmc_sweep(
             q0.data_ptr(), q_out.data_ptr(), accepts.data_ptr(), inv_mass.data_ptr(),
             consts.data_ptr(), body.consts.data_ptr(), body.consts.numel(), body.kind,
             int(variant == "specialised"), d, n, body.n_obs, body.d_w, body.obs_scale,
-            n_steps, L, eps, _int32(seed), _RNG_IDS[rng], block_n or 1,
+            n_steps, L, eps, _int32(seed), _RNG_IDS[rng], block_n or 1, chain, k,
             torch.cuda.current_stream(q0.device).cuda_stream,
         )
     if err != 0:
@@ -384,26 +410,16 @@ def counter_stream_cuda(seed: int, block: int, salt: int, shape, device):
 # ----------------------------------------------------------------------
 
 
-def _route(backend: str, device: torch.device, has_body: bool = True) -> str:
-    """The backend a sampler takes for chains on ``device``: ``pallas_hmc``
-    and ``pallas_nuts`` always have a device body there (``device_body``);
-    the trace path's shared launch (``inference/mcmc.py``) only where the
-    model has a hand-written one."""
+def _route(backend: str, device: torch.device) -> str:
+    """The backend a sampler takes for chains on ``device``: on the card
+    ``"auto"`` is the kernel, since every caller has a device body there
+    (``pallas_hmc`` and ``pallas_nuts`` through ``device_body``, the trace
+    path's shared launch through ``inference/mcmc.py``), or raises making
+    one; on the CPU it is the twin."""
     if backend not in ("auto", "cuda", "torch"):
         raise ValueError(f"backend must be 'auto', 'cuda' or 'torch', got {backend!r}")
-    on_card = device.type == "cuda"
     if backend == "auto":
-        if not on_card:
-            return "torch"
-        if not has_body:
-            raise ValueError(
-                "chains on the card need a density with a device body (.body, "
-                "kernels/bodies.py) for the CUDA sweep kernel; this density has none. "
-                "Pass backend='torch' to run the plain torch twin on the card."
-            )
-        return "cuda"
-    if backend == "cuda" and not has_body:
-        raise ValueError("backend='cuda' needs a density with a device body (.body)")
+        return "cuda" if device.type == "cuda" else "torch"
     return backend
 
 

@@ -138,6 +138,15 @@ class ColumnPacker:
         return z
 
 
+def packed_score(model, constraint, args, packer: ColumnPacker, q: torch.Tensor) -> torch.Tensor:
+    """The model's log-joint at one packed column ``q (padded_dim,)`` under
+    ``constraint`` and ``args``, the padding rows' standard normal added."""
+    score, _ = model.assess(packer.unpack(q) | constraint, args)
+    if packer.padded_dim > packer.dim:
+        score = score - 0.5 * torch.sum(q[packer.dim :] ** 2)
+    return score
+
+
 def column_logdensity(model, constraint, args, packer: ColumnPacker):
     """The model's log-joint as a batched column function ``(D, N) -> (N,)``.
 
@@ -146,13 +155,9 @@ def column_logdensity(model, constraint, args, packer: ColumnPacker):
     real dimensions unchanged. The returned callable's ``body`` attribute is
     the CUDA sweep's device body for this model and packing
     (``bodies.body_for``), or None."""
-    n_pad = packer.padded_dim - packer.dim
 
     def one(q):
-        score, _ = model.assess(packer.unpack(q) | constraint, args)
-        if n_pad:
-            score = score - 0.5 * torch.sum(q[packer.dim :] ** 2)
-        return score
+        return packed_score(model, constraint, args, packer, q)
 
     batched = torch.func.vmap(one, in_dims=1)
 

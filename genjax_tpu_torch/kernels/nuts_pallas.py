@@ -28,7 +28,7 @@ import torch
 from . import _build
 from .adaptation import windowed_warmup
 from .bodies import Body
-from .hmc import _RNG_IDS, _check_dim, _inv_mass_col, _int32, _route, device_body
+from .hmc import _RNG_IDS, _check_dim, _inv_mass_col, _int32, _route, chain_operands, device_body
 from .staged import STAGED, staging_scope
 from .nuts import nuts_sweep_cols
 from .rows import chain_mesh
@@ -57,7 +57,7 @@ def _lib_for(body) -> ctypes.CDLL:
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.nuts_sweep.argtypes = [
-        P, P, P, P, P, P, P, I, I, I, I, I, I, I, F, I, F, F, I, I, I, I, P,
+        P, P, P, P, P, P, P, I, I, I, I, I, I, I, F, I, F, F, I, I, I, I, P, I, P,
     ]
     lib.nuts_sweep.restype = I
     lib.nuts_smem_limit.argtypes = [I]
@@ -106,7 +106,8 @@ def nuts_sweep(
     """Launch the CUDA NUTS kernel on the current stream, without
     synchronising. ``q0`` is a contiguous float32 CUDA tensor ``(D, N)``
     with ``D`` 8 or 16 for a hand-written body, the body's own ``d`` for a
-    staged one (as far as the stacks fit). The launch block is ``block_n`` chains (default
+    staged one (as far as the stacks fit), a staged body with chain operands
+    bound to their block (``hmc.chain_operands``). The launch block is ``block_n`` chains (default
     ``DEFAULT_BLOCK``, at most ``MAX_BLOCK``); ``rng="counter"`` needs
     ``block_n``, which is then also the stream's chain block, and ``N`` a
     multiple of it. The body's variant taken is recorded on
@@ -138,6 +139,7 @@ def nuts_sweep(
     if n_steps < 0 or not 1 <= max_depth <= 30:
         raise ValueError("n_steps must be non-negative and max_depth in 1..30")
     variant = body.variant(d)
+    chain, k = chain_operands(body, q0)
     consts = body.consts_on(q0.device)
     smem = smem_bytes(body, d, max_depth, block)
     lib = _lib_for(body)
@@ -161,7 +163,7 @@ def nuts_sweep(
             inv_mass.data_ptr(), consts.data_ptr(), body.consts.data_ptr(), body.consts.numel(),
             body.kind, int(variant == "specialised"), d, n, body.n_obs, body.d_w,
             body.obs_scale, n_steps, eps, divergence_threshold, max_depth, _int32(seed),
-            _RNG_IDS[rng], block, torch.cuda.current_stream(q0.device).cuda_stream,
+            _RNG_IDS[rng], block, chain, k, torch.cuda.current_stream(q0.device).cuda_stream,
         )
     if err != 0:
         raise RuntimeError(f"nuts_sweep kernel launch failed with CUDA error {err}")

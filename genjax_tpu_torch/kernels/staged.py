@@ -19,7 +19,7 @@ instead. ``stage_body(logdensity_cols, d)``:
    ``closed.consts`` at ``hmc.py:321``, or a literal where the graph itself
    wrote the number;
 3. lowers the chain-dependent nodes to a per-chain program over float32 and
-   bool arrays (``Program``): a node of shape ``(k..., N)`` is ``k...``
+   bool arrays (``Program``): a node of shape ``(m..., N)`` is ``m...``
    values a chain, layout ops are strided views, elementwise ops are maps,
    reductions and ``mm`` over model axes are reductions and contractions.
    The lowering follows broadcasts: an instruction runs once along an axis
@@ -48,6 +48,21 @@ instead. ``stage_body(logdensity_cols, d)``:
    compiles it with ``nvcc`` into K1 and K4 (``csrc/column_common.cuh``,
    body id ``kStaged``).
 
+A density may take a second input, its chain operands: ``stage_body(ld, d,
+chain=c)`` stages ``(q, c) -> (lp, grad)`` of ``ld(q, c)``, ``c`` a ``(k, N)``
+float32 block of ``k`` values a chain (the trace path's frozen choices and
+arguments that differ from chain to chain, ``inference/mcmc.py``). They do
+not depend on ``q`` but differ along the chain axis, so a node that depends
+on ``c`` is chain data, computed in the program (operand kind ``"cc"``, read
+at ``cc[row]``), never folded; the simplifier treats it as it treats ``q``.
+The header declares ``kChain``, and with ``k > 0`` defines
+``GJT_STAGED_CHAIN`` and takes the chain's operands as an argument of
+``lp_grad``; K1 and K4 read a chain's ``k`` values once a sweep
+(``csrc/column_common.cuh``). A captured constant that differs along the
+chain axis is still refused: ``c`` is how such values come in. A
+``StagedBody`` with chain operands is bound to its block (``bind``) before a
+launch or a twin runs it.
+
 Only the graph decides the program and the header: the constants' values
 never steer a rewrite, except that where a hoisted constant, or a
 reciprocal or product computed from constants at stage time, is not finite
@@ -57,7 +72,7 @@ its build.
 
 The op set is the aten counterpart of the reference's ``_PALLAS_SAFE_PRIMS``
 (``genjax_tpu/kernels/hmc.py:172-183``): elementwise arithmetic and
-transcendental ops, comparisons, logical ops and ``where``; sum, max, min
+transcendental ops (``xlogy`` and ``xlog1py`` too), comparisons, logical ops and ``where``; sum, max, min
 and log-sum-exp reductions; static slices and selects, reshapes,
 transposes, broadcasts and casts; plus ``mm`` and its kin (``dot_general``)
 and the ops the gradient trace itself emits (``*_backward`` of static
@@ -80,6 +95,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import contextvars
+import copy
 import dataclasses
 import hashlib
 import itertools
@@ -102,6 +118,12 @@ PARAM_CAP_BYTES = 3840
 SMEM_CAP_BYTES = 16384
 # an instruction of at most this many iterations is printed as straight-line code
 UNROLL_LIMIT = 512
+# K1 and K4 hold a chain's operands in registers up to this many (read once a
+# sweep) and read them through __ldg at each gradient above it (the header's
+# kChainInRegisters; csrc/column_common.cuh, ChainOperands). The staged
+# flagship's K1 holds 168 registers of 255 without spilling, so 32 more still
+# fit a thread; K4 already takes 255, where more would only turn into spills.
+CHAIN_REGISTER_CAP = 32
 
 STAGED = 2  # the body id (csrc/column_common.cuh: kStaged)
 
@@ -125,9 +147,10 @@ def _refuse(what: str) -> ValueError:
 
 @dataclasses.dataclass(frozen=True)
 class Opd:
-    """An operand: ``kind`` ``"q"`` (the position), ``"v"`` (per-chain array
-    ``idx``), ``"c"`` (the constants buffer), ``"g"`` (the gradient output),
-    ``"lp"`` (the log-density output) or ``"lit"`` (the literal ``value``);
+    """An operand: ``kind`` ``"q"`` (the position), ``"cc"`` (the chain
+    operands), ``"v"`` (per-chain array ``idx``), ``"c"`` (the constants
+    buffer), ``"g"`` (the gradient output), ``"lp"`` (the log-density output)
+    or ``"lit"`` (the literal ``value``);
     ``offset`` and ``strides`` address it over the instruction's loop
     indices. ``dtype`` is ``"f"`` or ``"b"``."""
 
@@ -194,6 +217,9 @@ _MAP = {
     "sigmoid_bwd": (2, lambda g, y: g * (1.0 - y) * y, "({0} * ((1.0f - {1}) * {1}))"),
     "tanh_bwd": (2, lambda g, y: g * (1.0 - y * y), "({0} * (1.0f - {1} * {1}))"),
     "where": (3, torch.where, "({0} ? {1} : {2})"),
+    # x log(y) and x log1p(y): NaN where y is, else 0 where x is 0
+    "xlogy": (2, torch.xlogy, "(({1} != {1}) ? {1} : (({0} == 0.0f) ? 0.0f : {0} * logf({1})))"),
+    "xlog1py": (2, torch.special.xlog1py, "(({1} != {1}) ? {1} : (({0} == 0.0f) ? 0.0f : {0} * log1pf({1})))"),
     "clamp": (3, lambda x, lo, hi: torch.minimum(torch.maximum(x, lo), hi), "gjt_min(gjt_max({0}, {1}), {2})"),
     "threshold_bwd": (3, lambda g, x, t: torch.where(x <= t, torch.zeros_like(g), g), "(({1} <= {2}) ? 0.0f : {0})"),
     "softplus": (3, lambda x, b, t: torch.where(x * b > t, x, torch.log1p(torch.exp(x * b)) / b),
@@ -214,6 +240,8 @@ _MAP["softplus_bwd"] = (
 )
 # map ops that count no operation in the bound (copies and casts)
 _FREE = {"copy", "to_f", "to_b"}
+# operand kinds that hold per-chain inputs: the position and the chain operands
+_INPUTS = ("q", "cc")
 # map ops whose two operands commute (common subexpressions of either order)
 _COMMUTATIVE = {"add", "mul", "max", "min", "eq", "ne", "and", "or", "xor"}
 
@@ -245,9 +273,10 @@ class Ins:
 @dataclasses.dataclass
 class Program:
     """A per-chain program: ``arrays`` (size, dtype) per chain, ``instrs``
-    over them, the constants buffer ``consts`` (float32), and ``d``; a fast
-    program also writes ``guards`` flags (``"ok"``) and carries the exact
-    ``fallback`` that replaces its results where a flag is false."""
+    over them, the constants buffer ``consts`` (float32), ``d`` and ``k``
+    (chain operands a chain); a fast program also writes ``guards`` flags
+    (``"ok"``) and carries the exact ``fallback`` that replaces its results
+    where a flag is false."""
 
     d: int
     arrays: list
@@ -257,6 +286,7 @@ class Program:
     # the exact program that runs for a chain where one of them is false
     guards: int = 0
     fallback: "Program | None" = None
+    k: int = 0
 
     @property
     def flop(self) -> int:
@@ -310,12 +340,17 @@ def _lse(x: torch.Tensor, dims) -> torch.Tensor:
     return (torch.log(torch.sum(torch.exp(x - m), dim=dims, keepdim=True)) + m).squeeze(dims)
 
 
-def run_program(program: Program, q: torch.Tensor, consts: torch.Tensor):
-    """``(lp (N,), grad (d, N))`` of the program at ``q (d, N)``."""
+def run_program(program: Program, q: torch.Tensor, consts: torch.Tensor, c: torch.Tensor | None = None):
+    """``(lp (N,), grad (d, N))`` of the program at ``q (d, N)``, with the
+    chain operands ``c (k, N)`` where the program takes any."""
     q = q.to(torch.float32).contiguous()
     n = q.shape[1]
+    if program.k and (c is None or tuple(c.shape) != (program.k, n)):
+        raise ValueError(f"the program takes a ({program.k}, {n}) block of chain operands, got "
+                         f"{None if c is None else tuple(c.shape)}")
     env = {
         "device": q.device, "n": n, "q": q, "consts": consts,
+        "cc": c.to(device=q.device, dtype=torch.float32).contiguous() if program.k else None,
         "g": torch.zeros((program.d, n), dtype=torch.float32, device=q.device),
         "lp": torch.zeros((1, n), dtype=torch.float32, device=q.device),
         "ok": torch.ones((max(program.guards, 1), n), dtype=torch.bool, device=q.device),
@@ -349,7 +384,7 @@ def run_program(program: Program, q: torch.Tensor, consts: torch.Tensor):
     if program.fallback is not None:
         ok = env["ok"].all(dim=0)
         if not bool(ok.all()):
-            lp_x, g_x = run_program(program.fallback, q, consts)
+            lp_x, g_x = run_program(program.fallback, q, consts, c)
             lp, g = torch.where(ok, lp, lp_x), torch.where(ok, g, g_x)
     return lp, g
 
@@ -393,7 +428,7 @@ def _expr(opd: Opd, ivars, prefix: str = "") -> str:
     idx = _index(opd, ivars)
     if opd.kind == "c":
         return _const_read(idx, opd.dtype)
-    name = {"q": "q", "g": "g", "lp": "lp", "ok": "ok"}.get(opd.kind, f"{prefix}v{opd.idx}")
+    name = {"q": "q", "cc": "cc", "g": "g", "lp": "lp", "ok": "ok"}.get(opd.kind, f"{prefix}v{opd.idx}")
     return f"{name}[{idx}]"
 
 
@@ -463,8 +498,8 @@ class _Emitter:
         e = opd.offset + sum(s * i for s, i in zip(opd.strides, index))
         if opd.kind == "c":
             return _const_read(str(e), opd.dtype)
-        if opd.kind == "q":
-            return f"q[{e}]"
+        if opd.kind in _INPUTS:
+            return f"{opd.kind}[{e}]"
         if opd.kind == "v" and opd.idx in self.arrays:
             return f"{self.prefix}v{opd.idx}[{e}]"
         if opd.kind == "v":
@@ -554,7 +589,10 @@ class _Emitter:
 def emit(program: Program, mode: str) -> str:
     """The program as ``gjt_staged::lp_grad``, a header for K1 and K4 (and
     for a host compiler: ``__host__``/``__device__`` are empty there), its
-    constants in ``mode`` (``CONST_MODES``)."""
+    constants in ``mode`` (``CONST_MODES``). A program with chain operands
+    (``k > 0``) also defines ``GJT_STAGED_CHAIN`` and takes them as
+    ``cc``; with none, the header differs from one printed before chain
+    operands existed only by its ``kChain`` line."""
     out = [
         "// Generated by genjax_tpu_torch/kernels/staged.py from a column log-density:",
         "// lp and its gradient as one per-chain function (csrc/column_common.cuh, kStaged).",
@@ -569,12 +607,18 @@ def emit(program: Program, mode: str) -> str:
         "",
         f"constexpr int kD = {program.d};",
         f"constexpr int kConsts = {program.consts.numel()};",
+        f"constexpr int kChain = {program.k};  // chain operands a chain (cc)",
         "// where the constants live: by value in the kernel's parameter space,",
         "// copied to shared memory at block start, or read through __ldg",
         "constexpr int kParamConsts = 0, kSharedConsts = 1, kGlobalConsts = 2;",
         f"constexpr int kConstMode = {CONST_MODES.index(mode)};  // {mode}",
         "",
     ]
+    if program.k:
+        out += ["#define GJT_STAGED_CHAIN 1",
+                f"// a chain's operands in registers (up to {CHAIN_REGISTER_CAP}), else read at each use",
+                f"constexpr bool kChainInRegisters = {'true' if program.k <= CHAIN_REGISTER_CAP else 'false'};",
+                ""]
     if mode == "global":
         out += ["#if defined(__CUDA_ARCH__)", "#define GJT_C(k) __ldg(consts + (k))", "#else",
                 "#define GJT_C(k) consts[k]", "#endif"]
@@ -604,9 +648,21 @@ def emit(program: Program, mode: str) -> str:
         "",
         "// consts: a pointer to the constants, or (in a kernel) the parameter that",
         "// holds them by value, read by consts[k]",
-        "template <class Consts>",
-        "__host__ __device__ inline float lp_grad(const float (&q)[kD], float (&g)[kD],",
-        "                                         const Consts& consts) {",
+    ]
+    if program.k:
+        out += [
+            "// cc: the chain's kChain chain operands, read by cc[r]",
+            "template <class Chain, class Consts>",
+            "__host__ __device__ inline float lp_grad(const float (&q)[kD], float (&g)[kD],",
+            "                                         const Chain& cc, const Consts& consts) {",
+        ]
+    else:
+        out += [
+            "template <class Consts>",
+            "__host__ __device__ inline float lp_grad(const float (&q)[kD], float (&g)[kD],",
+            "                                         const Consts& consts) {",
+        ]
+    out += [
         "  (void)consts;",
         "  float lp[1];",
     ]
@@ -626,7 +682,7 @@ class _StagedLp(torch.autograd.Function):
 
     @staticmethod
     def forward(q, body):
-        return body.lp_grad(q)
+        return body.lp_grad(q)  # a bound body's chain operands too
 
     @staticmethod
     def setup_context(ctx, inputs, output):
@@ -650,9 +706,12 @@ class StagedBody:
     """A column log-density staged into a device body of K1 and K4: the
     lowered ``program``, its ``header`` (the emitted function), the hoisted
     constants ``consts`` (float32), where they live in the kernel
-    (``const_mode``) and ``d``. ``lp_grad`` is the plain version; ``lib()``
-    builds the kernels with this body. Like ``bodies.Body``, it is itself a
-    column log-density ``(d, N) -> (N,)`` whose ``body`` is itself."""
+    (``const_mode``), ``d`` and ``k`` (chain operands a chain). ``lp_grad``
+    is the plain version; ``lib()`` builds the kernels with this body. Like
+    ``bodies.Body``, it is itself a column log-density ``(d, N) -> (N,)``
+    whose ``body`` is itself; a body with chain operands is one once bound
+    to its ``(k, N)`` block (``bind``), which the kernels and the twins
+    then read (``chain``)."""
 
     kind = STAGED
     name = "staged"
@@ -663,6 +722,8 @@ class StagedBody:
     def __init__(self, program: Program):
         self.program = program
         self.d = program.d
+        self.k = program.k
+        self.chain = None
         self.consts = program.consts
         self.n_consts = int(program.consts.numel())
         self.const_mode = const_mode(self.n_consts)
@@ -685,6 +746,15 @@ class StagedBody:
         """Operations of one ``(lp, grad)`` (``Program.flop``)."""
         return self.program.flop
 
+    @property
+    def chain_read(self) -> str | None:
+        """How K1 and K4 read a chain's operands: ``"registers"`` (once a
+        sweep, up to ``CHAIN_REGISTER_CAP``), ``"ldg"`` (through ``__ldg`` at
+        each gradient, above it), or None where the body takes none."""
+        if not self.k:
+            return None
+        return "registers" if self.k <= CHAIN_REGISTER_CAP else "ldg"
+
     def min_dim(self) -> int:
         return self.d
 
@@ -706,12 +776,28 @@ class StagedBody:
             self._on_device[key] = c.to(device).contiguous()
         return self._on_device[key]
 
-    def lp_grad(self, q: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    def bind(self, chain: torch.Tensor) -> "StagedBody":
+        """This body bound to the chain operands ``chain (k, N)``: a copy
+        that shares the program and the build, whose ``lp_grad``, call and
+        launches read ``chain``."""
+        if not self.k:
+            raise ValueError("the staged body takes no chain operands")
+        if not isinstance(chain, torch.Tensor) or chain.ndim != 2 or chain.shape[0] != self.k:
+            raise ValueError(f"the staged body takes a (k={self.k}, N) block of chain operands, got "
+                             f"{tuple(chain.shape) if isinstance(chain, torch.Tensor) else type(chain).__name__}")
+        bound = copy.copy(self)
+        bound.chain = chain
+        return bound
+
+    def lp_grad(self, q: torch.Tensor, c: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
         """The plain version: ``(lp (N,), grad (d, N))`` at ``q (d, N)``,
-        the lowered program run with torch."""
+        the lowered program run with torch, on the chain operands ``c (k,
+        N)`` (the bound block where none is given)."""
         if q.shape[0] != self.d:
             raise ValueError(f"the staged body takes d={self.d} rows, got {tuple(q.shape)}")
-        return run_program(self.program, q.detach(), self.consts_on(q.device))
+        c = self.chain if c is None else c
+        return run_program(self.program, q.detach(), self.consts_on(q.device),
+                           None if c is None else c.detach())
 
     def lib(self):
         """K1 and K4 built with this body (``_build.load_staged``), loaded
@@ -726,7 +812,7 @@ class StagedBody:
         return _StagedLp.apply(q, self)[0]
 
     def __repr__(self) -> str:
-        return (f"StagedBody(d={self.d}, {len(self.program.instrs)} instructions, "
+        return (f"StagedBody(d={self.d}, k={self.k}, {len(self.program.instrs)} instructions, "
                 f"{self.n_consts} constants ({self.const_mode}), {self.flop} operations a gradient)")
 
 
@@ -1057,28 +1143,37 @@ def _shape_chain(v1, v2, p1: int, p2: int, name: str):
     return s1, (chain[0] if chain else None)
 
 
-def _trace(logdensity_cols: Callable, d: int, p: int, device):
+def _chain_at(chain: torch.Tensor | None, p: int, device):
+    """The chain operands of a trace at ``p`` chains: the example block's
+    columns in turn (so each keeps a value some chain holds), or None."""
+    if chain is None:
+        return None
+    return chain.detach().to(device=device, dtype=torch.float32)[:, torch.arange(p) % chain.shape[1]].contiguous()
+
+
+def _trace(logdensity_cols: Callable, d: int, p: int, device, chain):
     from torch.fx.experimental.proxy_tensor import make_fx
 
-    def lp_and_grad(q):
-        lp, vjp = torch.func.vjp(logdensity_cols, q)
+    def lp_and_grad(q, *c):
+        lp, vjp = torch.func.vjp(lambda x: logdensity_cols(x, *c), q)
         (grad,) = vjp(torch.ones_like(lp))
         return lp, grad
 
     gen = torch.Generator(device="cpu").manual_seed(0)
     q = (0.5 + torch.rand((d, p), generator=gen)).to(device)
+    inputs = (q,) if chain is None else (q, _chain_at(chain, p, device))
     try:
-        gm = make_fx(lp_and_grad, tracing_mode="real")(q)
+        gm = make_fx(lp_and_grad, tracing_mode="real")(*inputs)
     except Exception as err:  # the density could not be traced at all
         text = f"{type(err).__name__}: {err}".splitlines()[0][:300]
         for op in sorted(_DATA_DEPENDENT):
             if op in text or (op == "item" and ".item()" in text):
                 raise _refuse(f"the density reads a value to the host (aten.{op}: {text})") from err
         raise _refuse(f"the density could not be traced at {p} chains ({text})") from err
-    return gm, q
+    return gm, inputs
 
 
-def _record(gm, q) -> dict:
+def _record(gm, inputs) -> dict:
     vals = {}
 
     class Rec(torch.fx.Interpreter):
@@ -1088,7 +1183,7 @@ def _record(gm, q) -> dict:
             return out
 
     with torch.no_grad():
-        Rec(gm).run(q)
+        Rec(gm).run(*inputs)
     return vals
 
 
@@ -1103,13 +1198,16 @@ def _depends(gm) -> set:
     return dep
 
 
-def stage_body(logdensity_cols: Callable, d: int, *, device=None) -> StagedBody:
+def stage_body(logdensity_cols: Callable, d: int, *, device=None, chain: torch.Tensor | None = None) -> StagedBody:
     """Stage ``logdensity_cols`` (``(d, N) -> (N,)``) into a device body of
     the sweep kernels, tracing on ``device`` (the CPU by default): the
     lowered and simplified program, its emitted function and its hoisted
-    constants. Raises a ``ValueError`` naming the aten op and
-    ``backend='torch'`` for a density outside the op set (module
-    docstring)."""
+    constants. With ``chain``, a ``(k, N)`` float32 block of chain operands
+    (``k >= 1``; its columns are what the traces' chains hold), the density
+    is ``logdensity_cols(q, c)`` and the body takes ``k`` chain operands
+    (bind it to a block, ``StagedBody.bind``, before a launch). Raises a
+    ``ValueError`` naming the aten op and ``backend='torch'`` for a density
+    outside the op set (module docstring)."""
     if getattr(logdensity_cols, "row_shard", None) is not None:
         raise _refuse("the density is row-sharded (.row_shard): its rows are summed by a collective "
                       "over the model axis, which no device body issues")
@@ -1118,18 +1216,22 @@ def stage_body(logdensity_cols: Callable, d: int, *, device=None) -> StagedBody:
                       "collective (an all_reduce), which no device body issues")
     if not (isinstance(d, int) and 1 <= d <= MAX_D):
         raise _refuse(f"D={d} is outside 1..{MAX_D}, the dimensions a staged K1 build takes")
+    if chain is not None and (chain.ndim != 2 or chain.shape[0] < 1 or chain.shape[1] < 1):
+        raise ValueError(f"stage_body: chain operands are a (k >= 1, N >= 1) block, got {tuple(chain.shape)}")
+    k = 0 if chain is None else int(chain.shape[0])
     device = torch.device("cpu") if device is None else torch.device(device)
     p1, p2 = CHAIN_EXTENTS
     # one call first, so that what a density makes at its first call and
     # keeps (a constant it caches) is the same in both traces
     with torch.no_grad():
         try:
-            logdensity_cols(0.5 + torch.zeros((d, p1), device=device))
+            first = () if chain is None else (_chain_at(chain, p1, device),)
+            logdensity_cols(0.5 + torch.zeros((d, p1), device=device), *first)
         except Exception as err:
             text = f"{type(err).__name__}: {err}".splitlines()[0][:300]
             raise _refuse(f"the density fails on a ({d}, {p1}) block ({text})") from err
-    gm1, q1 = _trace(logdensity_cols, d, p1, device)
-    gm2, q2 = _trace(logdensity_cols, d, p2, device)
+    gm1, in1 = _trace(logdensity_cols, d, p1, device, chain)
+    gm2, in2 = _trace(logdensity_cols, d, p2, device, chain)
     for gm in (gm1, gm2):
         for n in gm.graph.nodes:
             if n.op == "call_function" and _is_collective(n.target):
@@ -1147,7 +1249,7 @@ def stage_body(logdensity_cols: Callable, d: int, *, device=None) -> StagedBody:
         a.op != b.op or a.target != b.target for a, b in zip(nodes1, nodes2)
     ):
         raise _refuse("the density's graph changes with the chain count")
-    vals1, vals2 = _record(gm1, q1), _record(gm2, q2)
+    vals1, vals2 = _record(gm1, in1), _record(gm2, in2)
     low = _Lowering()
     env: dict = {}
     dep = _depends(gm1)
@@ -1159,7 +1261,9 @@ def stage_body(logdensity_cols: Callable, d: int, *, device=None) -> StagedBody:
             continue
         v1, v2 = vals1[n1], vals2[n2]
         if n1.op == "placeholder":
-            env[n1] = _Val((d, p1), 1, "f", opd=Opd("q", 0, 0, (1,), "f"))
+            # the position, then the chain operands: chain data from the start
+            kind, rows = ("q", d) if not env else ("cc", k)
+            env[n1] = _Val((rows, p1), 1, "f", opd=Opd(kind, 0, 0, (1,), "f"))
             continue
         if n1.op == "get_attr":
             literal[n1] = False
@@ -1220,12 +1324,12 @@ def stage_body(logdensity_cols: Callable, d: int, *, device=None) -> StagedBody:
     fast_instrs = fast.run(low.instrs)
     guards = sorted({i.out.offset for i in fast_instrs if i.out.kind == "ok"})
     consts, (exact, fast_instrs) = _compact_consts(low, [exact, fast_instrs])
-    program = Program(d, *_compact(low.arrays, exact), consts)
+    program = Program(d, *_compact(low.arrays, exact), consts, k=k)
     if guards and Program(d, low.arrays, fast_instrs, consts).flop < program.flop:
-        renumber = {k: j for j, k in enumerate(guards)}
+        renumber = {j: i for i, j in enumerate(guards)}
         fast_instrs = [dataclasses.replace(i, out=dataclasses.replace(i.out, offset=renumber[i.out.offset]))
                        if i.out.kind == "ok" else i for i in fast_instrs]
-        program = Program(d, *_compact(low.arrays, fast_instrs), consts, len(guards), program)
+        program = Program(d, *_compact(low.arrays, fast_instrs), consts, len(guards), program, k=k)
     return StagedBody(program)
 
 
@@ -1470,7 +1574,7 @@ def _lower(low: _Lowering, n, name: str, env, shape, chain, dtype) -> _Val:
         "logical_and": "and", "logical_or": "or", "logical_xor": "xor", "bitwise_and": "and",
         "bitwise_or": "or", "bitwise_xor": "xor", "sigmoid_backward": "sigmoid_bwd",
         "tanh_backward": "tanh_bwd", "threshold_backward": "threshold_bwd", "where": "where",
-        "square": "square",
+        "square": "square", "xlogy": "xlogy", "special_xlog1py": "xlog1py",
     }
     if base in ("bitwise_not", "bitwise_and", "bitwise_or", "bitwise_xor") and dtype != "b":
         raise _refuse(f"{full} on integer bits")
@@ -2041,7 +2145,7 @@ class _Simplifier:
             return o.kind == "lit" or all(st == 0 for st in o.strides[n:])
 
         def scalar(o):  # one chain value
-            return o.kind in ("v", "q") and all(st == 0 for st in o.strides)
+            return o.kind in ("v", *_INPUTS) and all(st == 0 for st in o.strides)
 
         def summed(o):
             out = self.tmp(ins.sizes)
@@ -2112,7 +2216,7 @@ class _Simplifier:
         the division where it is not."""
         def divisor(ins: Ins):
             y = ins.srcs[1]
-            if y.kind not in ("v", "q"):
+            if y.kind not in ("v", *_INPUTS):
                 return None
             if all(st == 0 for st in y.strides):  # one value: any loop
                 return (y.kind, y.idx, y.offset)
@@ -2213,11 +2317,13 @@ _scope: contextvars.ContextVar = contextvars.ContextVar("gjt_staging_scope", def
 def staging_scope():
     """Within it, ``staged_body_for`` stages a density once per ``(d,
     device)`` and reuses the body, so that a warmup's phases and the sweep
-    after them stage once. A scope opened inside another is the outer one.
-    Used as a decorator by ``column_hmc``, ``column_nuts``,
-    ``warmup_column`` and ``warmup_column_nuts``: the body lives as long as
-    one call of theirs, so a later call stages the density again and reads
-    what its captured tensors hold then."""
+    after them stage once, and the trace path keeps its bodies in the
+    scope's store (``scope_store``). A scope
+    opened inside another is the outer one. Used as a decorator by
+    ``column_hmc``, ``column_nuts``, ``warmup_column``,
+    ``warmup_column_nuts`` and ``sample_posterior``: the body lives as long
+    as one call of theirs, so a later call stages the density again and
+    reads what its captured tensors hold then."""
     if _scope.get() is not None:
         yield
         return
@@ -2242,3 +2348,10 @@ def staged_body_for(logdensity_cols: Callable, d: int, device) -> StagedBody:
         # the density is held beside its body so that its id is not reused
         cache[key] = (logdensity_cols, stage_body(logdensity_cols, d, device=device))
     return cache[key][1]
+
+
+def scope_store() -> dict | None:
+    """The open ``staging_scope``'s store, or None outside one: a caller
+    that keeps its own staged bodies there (the trace path,
+    ``inference/mcmc.py``) keys them, and checks a hit, itself."""
+    return _scope.get()

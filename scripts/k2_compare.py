@@ -22,17 +22,33 @@ The warmed-up states (K4's positions, step size and inverse mass, K3's
 positions) are made once, by the first process, and read by the others, so
 both checkouts start from the same numbers.
 
+Each process also stages, with its checkout's ``kernels/staged.py``, two
+column densities that take no chain operands (the flagship's
+``hierarchical_regression`` over ``["tau", "w"]`` and the conjugate normal
+model over ``["mu"]``) and builds their K1 and K4 beside the sources. The
+script then compares the two checkouts' whole ``-Xptxas -v`` reports of
+every build (each kernel's registers, spills, stack frame, barriers, shared,
+constant and global memory), leaving out what does not come from the
+kernels: the compile times, and the tag of the anonymous namespace in the
+mangled names, which nvcc derives from the source file.
+
     python scripts/k2_compare.py [--rounds 2] PARENT_ROOT CHANGE_ROOT
+    python scripts/k2_compare.py --ptxas PARENT_ROOT CHANGE_ROOT
 
 The first line is the card's name and power limit; the last lines give each
-number's runs in each checkout and the ratio of their means.
+number's runs in each checkout and the ratio of their means. Each build's
+reports are ``equal`` or ``DIFFERENT`` (with the lines that differ), and one
+JSON line ``{"equal": {build: bool}}`` follows. ``--ptxas`` builds each
+checkout once, times nothing, and exits 1 where a report differs.
 """
 
 from __future__ import annotations
 
 import argparse
+import difflib
 import importlib.util
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -56,7 +72,10 @@ def _helpers():
     return mod
 
 
-def child(root: str, state_path: str) -> None:
+SOURCES = ("hmc_sweep", "nuts_sweep", "ess_gauss_sweep", "k2_stream")
+
+
+def child(root: str, state_path: str, ptxas_only: bool) -> None:
     sys.path.insert(0, root)
     import ctypes
 
@@ -65,23 +84,38 @@ def child(root: str, state_path: str) -> None:
 
     cs = _helpers()
     import genjax_tpu_torch as g
-    from genjax_tpu_torch.kernels import _build, elliptical, hmc, nuts_pallas
+    from genjax_tpu_torch.kernels import _build, elliptical, hmc, nuts_pallas, staged
     from genjax_tpu_torch.kernels.model_interface import ColumnPacker, column_logdensity, init_columns
     from genjax_tpu_torch.models import hierarchical_regression
 
-    device = torch.device("cuda")
-    with ThreadPoolExecutor(4) as pool:
-        list(pool.map(lambda f: f(), (hmc._lib, nuts_pallas._lib, elliptical._lib,
-                                      lambda: _build.load("k2_stream"))))
-    out = {"root": root, "ptxas": {}, "ms": {}}
-    for source in ("hmc_sweep", "nuts_sweep", "ess_gauss_sweep", "k2_stream"):
-        out["ptxas"][source] = cs.ptxas_kernels(_build.ptxas_report(source))
+    @g.gen
+    def conjugate():
+        mu = g.normal(0.0, 1.0) @ "mu"
+        g.normal(mu, 1.0) @ "y"
 
+    device = torch.device("cuda")
     X, y = cs.flagship_data()
     model = hierarchical_regression(X)
     obs = g.C["y"].set(y)
     packer = ColumnPacker(model, obs, (), ["tau", "w"])
     ld = column_logdensity(model, obs, (), packer)
+    # the staged builds without chain operands, staged by this checkout
+    bodies = {"staged flagship": staged.stage_body(ld, packer.padded_dim)}
+    conj_obs = g.C["y"].set(2.0)
+    conj_packer = ColumnPacker(conjugate, conj_obs, (), ["mu"])
+    bodies["staged conjugate"] = staged.stage_body(column_logdensity(conjugate, conj_obs, (), conj_packer),
+                                                   conj_packer.padded_dim)
+    with ThreadPoolExecutor(6) as pool:
+        list(pool.map(lambda f: f(), (hmc._lib, nuts_pallas._lib, elliptical._lib,
+                                      lambda: _build.load("k2_stream"), *(b.lib for b in bodies.values()))))
+    out = {"root": root, "ptxas": {}, "ms": {},
+           "reports": {source: _build.ptxas_report(source) for source in SOURCES}}
+    out["reports"].update({name: _build.staged_ptxas_report(b.header) for name, b in bodies.items()})
+    for source in SOURCES:
+        out["ptxas"][source] = cs.ptxas_kernels(out["reports"][source])
+    if ptxas_only:
+        print("RESULT " + json.dumps(out), flush=True)
+        return
     q0 = init_columns(model, obs, (), packer, cs.N_CHAINS, cs.SEED, device)
     chol, y_gp = cs.gp_data()
     chol_d = torch.as_tensor(chol, device=device)
@@ -141,36 +175,65 @@ def child(root: str, state_path: str) -> None:
     print("RESULT " + json.dumps(out), flush=True)
 
 
+def normalised(report: str) -> list[str]:
+    """A ``-Xptxas -v`` report's lines without compile times, the anonymous
+    namespace's tag blanked."""
+    return [re.sub(r"_GLOBAL__N__[0-9a-f]+_", "_GLOBAL__N__*_", line) for line in report.splitlines()
+            if "Compile time" not in line]
+
+
+def compare_reports(a: dict, b: dict, names: tuple[str, str]) -> bool:
+    """Print whether each build's reports are equal in the two checkouts,
+    and the lines that differ; return whether all are."""
+    equal = {}
+    for name in a:
+        la, lb = normalised(a[name]), normalised(b.get(name, ""))
+        equal[name] = la == lb
+        kernels = sum("Compiling entry function" in x for x in la)
+        print(f"[ptxas] {name}: {kernels} kernels, reports {'equal' if equal[name] else 'DIFFERENT'} "
+              f"({names[0]} against {names[1]})")
+        if not equal[name]:
+            print("\n".join(list(difflib.unified_diff(la, lb, lineterm="", n=0))[:60]))
+    print(json.dumps({"equal": equal}), flush=True)
+    return all(equal.values())
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("roots", nargs=2)
     ap.add_argument("--rounds", type=int, default=2)
+    ap.add_argument("--ptxas", action="store_true", help="build each checkout once and compare the reports")
     ap.add_argument("--child", action="store_true", help=argparse.SUPPRESS)
     ap.add_argument("--state", default=str(HERE / "build" / "k2_compare_state.pt"))
     args = ap.parse_args()
     if args.child:
-        child(args.roots[0], args.state)
+        child(args.roots[0], args.state, args.ptxas)
         return 0
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip(), flush=True)
     Path(args.state).parent.mkdir(parents=True, exist_ok=True)
     Path(args.state).unlink(missing_ok=True)
     order = []
-    for r in range(args.rounds):
+    for r in range(1 if args.ptxas else args.rounds):
         order += [0, 1] if r % 2 == 0 else [1, 0]
     results = {0: [], 1: []}
     for idx in order:
         root = args.roots[idx]
-        proc = subprocess.run([sys.executable, __file__, "--child", "--state", args.state, root, root],
-                              capture_output=True, text=True)
+        proc = subprocess.run([sys.executable, __file__, "--child", "--state", args.state, root, root]
+                              + (["--ptxas"] if args.ptxas else []), capture_output=True, text=True)
         if proc.returncode != 0:
             print(proc.stdout[-4000:], proc.stderr[-8000:], sep="\n", file=sys.stderr)
             return 1
         res = json.loads(proc.stdout.split("RESULT ", 1)[1].splitlines()[0])
         results[idx].append(res)
-        print(f"{root}: " + ", ".join(f"{k} {statistics.mean(v):.4f}" for k, v in res["ms"].items())
-              + f" ms; K4 leapfrogs a transition {res['K4_leapfrogs']:.4f}", flush=True)
+        if not args.ptxas:
+            print(f"{root}: " + ", ".join(f"{k} {statistics.mean(v):.4f}" for k, v in res["ms"].items())
+                  + f" ms; K4 leapfrogs a transition {res['K4_leapfrogs']:.4f}", flush=True)
     Path(args.state).unlink(missing_ok=True)
+    names = tuple(Path(r).resolve().name for r in args.roots)
+    same = compare_reports(results[0][0]["reports"], results[1][0]["reports"], names)
+    if args.ptxas:
+        return 0 if same else 1
     for idx in (0, 1):
         first = results[idx][0]
         for source, rows in first["ptxas"].items():

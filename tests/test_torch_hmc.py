@@ -165,17 +165,17 @@ def test_routing_on_the_cpu():
 
 
 @pytest.mark.parametrize(
-    "backend, device, has_body, taken",
+    "backend, device, taken",
     [
-        ("auto", "cpu", False, "torch"),
-        ("auto", "cpu", True, "torch"),
-        ("auto", "cuda", True, "cuda"),
-        ("torch", "cuda", False, "torch"),
-        ("cuda", "cuda", True, "cuda"),
+        ("auto", "cpu", "torch"),
+        ("torch", "cpu", "torch"),
+        ("auto", "cuda", "cuda"),
+        ("torch", "cuda", "torch"),
+        ("cuda", "cuda", "cuda"),
     ],
 )
-def test_route(backend, device, has_body, taken):
-    assert hmc._route(backend, torch.device(device), has_body) == taken
+def test_route(backend, device, taken):
+    assert hmc._route(backend, torch.device(device)) == taken
 
 
 def _cumsum_density(q):
@@ -188,11 +188,10 @@ def test_route_refuses_the_card_without_a_body(backend, density):
     """Chains on the card never fall back to the twin unasked: a density
     with no hand-written body routes to the kernel with its staged body
     (``hmc.device_body``), and one that cannot be staged raises naming
-    ``backend='torch'``. The trace path's launch, which has no staged body,
-    still refuses the card without a hand-written one."""
-    assert hmc._route(backend, torch.device("cuda"), True) == "cuda"
-    with pytest.raises(ValueError, match="device body"):
-        hmc._route(backend, torch.device("cuda"), False)
+    ``backend='torch'``."""
+    assert hmc._route(backend, torch.device("cuda")) == "cuda"
+    with pytest.raises(ValueError, match="backend must be"):
+        hmc._route(backend.upper(), torch.device("cuda"))
     if density == "stageable":
         body = hmc.device_body(lambda q: -0.5 * (q * q).sum(dim=0), 8, torch.device("cpu"))
         assert body.name == "staged" and body.kind == 2

@@ -14,10 +14,10 @@ import pytest
 import torch
 
 import genjax_tpu_torch as g
-from genjax_tpu_torch.inference import mcmc
+from genjax_tpu_torch.inference import mcmc, sample_posterior
 from genjax_tpu_torch.kernels import bodies, hmc
 from genjax_tpu_torch.kernels.model_interface import PAD_INV_MASS
-from genjax_tpu_torch.models import hierarchical_regression
+from genjax_tpu_torch.models import hierarchical_regression, linear_gaussian_ssm
 from torch_threads import _one_thread  # noqa: F401
 
 
@@ -41,6 +41,19 @@ OBS = g.C["y"].set(2.0)  # posterior N(1, 0.5)
 def _init(n, seed=0):
     gen = gen_at(seed)
     return vmap_chains(lambda: conjugate.generate(gen, OBS, ())[0], n)
+
+
+@g.gen
+def cumsummed():
+    x = g.normal(torch.zeros(3), torch.ones(3)) @ "x"
+    _ = g.normal(torch.cumsum(x, 0)[-1], 1.0) @ "y"
+
+
+def _init_cumsum(n):
+    """Traces of a model whose density reads ``cumsum``, outside the staged
+    op set."""
+    gen = gen_at(2)
+    return vmap_chains(lambda: cumsummed.generate(gen, g.C["y"].set(0.5), ())[0], n)
 
 
 def lanes(trs):
@@ -304,41 +317,52 @@ def test_on_the_cpu_auto_runs_the_twin_and_cuda_raises():
     g.run_chains_hmc(gen, trs, sel, eps=0.02, L=2, n_steps=1)
     assert g.run_chains_hmc.last_backend == "torch" and hmc.hmc_sweep_launches == 0
     # the flagship has a device body, so 'cuda' reaches the kernel's wrapper,
-    # which takes no CPU tensor
+    # which takes no CPU tensor; so does a model staged into one
     with pytest.raises(ValueError, match="takes a CUDA tensor"):
         g.run_chains_hmc(gen, trs, sel, eps=0.02, L=2, n_steps=1, backend="cuda")
-    # a model without one cannot take 'cuda' at all
-    with pytest.raises(ValueError, match="needs a density with a device body"):
+    with pytest.raises(ValueError, match="takes a CUDA tensor"):
         g.run_chains_hmc(gen_at(0), _init(8), g.S["mu"], eps=0.1, backend="cuda")
+    # a model whose density cannot be staged cannot take 'cuda' at all
+    with pytest.raises(ValueError, match="aten.cumsum.*backend='torch'"):
+        g.run_chains_hmc(gen_at(0), _init_cumsum(8), g.S["x"], eps=0.1, backend="cuda")
     with pytest.raises(ValueError, match="backend must be"):
         g.run_chains_hmc(gen_at(0), _init(8), g.S["mu"], eps=0.1, backend="xla")
     assert hmc.hmc_sweep_launches == 0
 
 
 def test_on_the_card_auto_raises_without_a_device_body(monkeypatch):
-    """With the traces taken to live on a CUDA device, ``auto`` refuses a
-    model with no device body, and refuses chains whose frozen choices
-    differ; ``backend="torch"`` runs the twin on purpose; nothing falls back
-    quietly."""
+    """With the traces taken to live on a CUDA device, ``auto`` routes every
+    batch whose density can be staged to the kernel (whose wrapper takes no
+    CPU tensor): the conjugate model, the flagship with ``tau`` frozen per
+    chain (``S["w"]``, one chain operand) and with each chain's own ``y``
+    (sixteen), through ``run_chains_hmc``, ``run_chains_nuts`` and
+    ``sample_posterior(hmc_sweep)``; a model whose density cannot be staged
+    raises, naming the op and ``backend="torch"``; ``backend="torch"`` runs
+    the twin on purpose; nothing falls back quietly."""
     monkeypatch.setattr(mcmc, "trace_device", lambda tree: torch.device("cuda"))
     g.run_chains_hmc.last_backend = None
-    with pytest.raises(ValueError, match="Pass backend='torch' to run the plain torch twin"):
-        g.run_chains_hmc(gen_at(0), _init(8), g.S["mu"], eps=0.1)
+    with pytest.raises(ValueError, match="aten.cumsum.*Pass backend='torch' to run the plain torch twin"):
+        g.run_chains_hmc(gen_at(0), _init_cumsum(8), g.S["x"], eps=0.1)
+    with pytest.raises(ValueError, match="aten.cumsum.*backend='torch'"):
+        g.run_chains_nuts(gen_at(0), _init_cumsum(8), g.S["x"], eps=0.1)
     assert g.run_chains_hmc.last_backend is None
     g.run_chains_hmc(gen_at(0), _init(8), g.S["mu"], eps=0.1, backend="torch")
-    assert g.run_chains_hmc.last_backend == "torch"
+    assert g.run_chains_hmc.last_backend == "torch" and g.run_chains_hmc.last_body is None
 
     model, gen, trs, y = _flagship_batch(16)
     sel = g.S["w"] | g.S["tau"]
-    with pytest.raises(ValueError, match="takes a CUDA tensor"):  # routed to the kernel
-        g.run_chains_hmc(gen, trs, sel, eps=0.02, L=2)
-    with pytest.raises(ValueError, match="no device body|needs a density|has none"):
-        g.run_chains_hmc(gen, trs, g.S["w"], eps=0.02, L=2)  # tau frozen: another density
     own_y = torch.func.vmap(
         lambda yy: model.generate(gen, g.C["y"].set(yy), ())[0], randomness="different"
     )(torch.as_tensor(y).expand(16, 16) + torch.arange(16.0)[:, None])
-    with pytest.raises(ValueError, match="frozen choices differ"):
-        g.run_chains_hmc(gen, own_y, sel, eps=0.02, L=2)
+    for batch, selection in [(_init(8), g.S["mu"]), (trs, sel), (trs, g.S["w"]), (own_y, sel)]:
+        for driver in (g.run_chains_hmc, g.run_chains_nuts):
+            with pytest.raises(ValueError, match="takes a CUDA tensor"):  # routed to the kernel
+                driver(gen, batch, selection, eps=0.02)
+    for model_, obs, selection in [(conjugate, OBS, g.S["mu"]), (model, g.C["y"].set(torch.as_tensor(y)), g.S["w"])]:
+        with pytest.raises(ValueError, match="takes a CUDA tensor"):
+            sample_posterior(0, model_, obs, (), selection, n_chains=8, n_warmup=6, n_samples=2,
+                             algorithm="hmc_sweep", device="cpu")
+    assert mcmc._KernelView(own_y, sel, 0, 9).body.k == 16
     new, _ = g.run_chains_hmc(gen, own_y, sel, eps=0.02, L=2, backend="torch")
     assert torch.equal(new["y"], own_y["y"])
 
@@ -375,12 +399,28 @@ def test_kernel_view_maps_z_to_the_bodys_rows(order, monkeypatch):
 
 
 def test_kernel_view_refuses_what_the_body_does_not_cover():
+    """Where the hand-written body does not cover a batch, the view stages
+    the model (``tau`` frozen per chain becomes a chain operand; ``y`` the
+    same in every chain, a constant); it refuses a density outside the
+    staged op set and a selection that is not static addresses."""
     model, gen, trs, y = _flagship_batch(8)
-    assert mcmc._KernelView(trs, g.S["w"], 0, 8).body is None
-    assert mcmc._KernelView(trs, g.S["w"] | g.S["tau"] | g.S["y"], 0, 25).body is None
-    assert mcmc._KernelView(_init(8), g.S["mu"], 0, 1).body is None
+    view = mcmc._KernelView(trs, g.S["w"], 0, 8)
+    assert view.body.name == "staged" and view.body.k == 1 and torch.equal(view.body.chain, trs["tau"][None])
+    view = mcmc._KernelView(trs, g.S["w"] | g.S["tau"] | g.S["y"], 0, 25)
+    assert view.body.name == "staged" and view.body.k == 0 and view.packer.padded_dim == 32
+    view = mcmc._KernelView(_init(8), g.S["mu"], 0, 1)
+    assert view.body.name == "staged" and view.body.k == 0 and view.rows == [0]
     view = mcmc._KernelView(lanes(trs), g.S["w"] | g.S["tau"], -1, 9)
-    assert view.body is not None and view.rows == list(range(9))
+    assert view.body.name == "hier_regression" and view.rows == list(range(9))
+    view = mcmc._KernelView(lanes(trs), g.S["w"], -1, 8)
+    assert view.body.k == 1 and torch.equal(view.body.chain, trs["tau"][None])
+    with pytest.raises(ValueError, match="aten.cumsum.*backend='torch'"):
+        mcmc._KernelView(_init_cumsum(8), g.S["x"], 0, 3)
+    kernel, _ = linear_gaussian_ssm()
+    scanned = torch.func.vmap(lambda _: kernel.scan(n=3).simulate(gen_at(1), (0.0, None)),
+                              randomness="different")(torch.zeros(4))
+    with pytest.raises(ValueError, match="not static addresses.*backend='torch'"):
+        mcmc._KernelView(scanned, g.S[..., "z"], 0, 3)
 
 
 @pytest.mark.cuda
@@ -411,8 +451,11 @@ def test_flagship_sweep_runs_the_cuda_kernel(chain_axis):
         xb = twin[addr].movedim(chain_axis, 0).reshape(n, -1)
         se = torch.sqrt((xa.var(dim=0) + xb.var(dim=0)) / n)
         assert bool((((xa.mean(dim=0) - xb.mean(dim=0)) / se).abs() < 4).all())
-    with pytest.raises(ValueError, match="device body"):
-        g.run_chains_hmc(gen, trs, g.S["w"], eps=0.02, L=5, chain_axis=chain_axis)
+    # tau frozen per chain: the model staged with one chain operand
+    hmc.hmc_sweep_launches = 0
+    new, _ = g.run_chains_hmc(gen, trs, g.S["w"], eps=0.02, L=5, chain_axis=chain_axis)
+    assert g.run_chains_hmc.last_body == "staged" and hmc.hmc_sweep_launches == 1
+    assert torch.equal(new["tau"], trs["tau"])
 
 
 @pytest.mark.cuda

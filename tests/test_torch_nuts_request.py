@@ -232,26 +232,43 @@ def test_run_chains_nuts_inv_mass_and_routing():
     new, _acc, _leaps = g.run_chains_nuts(gen_at(1), trs, g.S["mu"], eps=0.6, max_depth=3,
                                           inv_mass=torch.tensor([0.5]))
     assert new["mu"].shape == (64,)
-    with pytest.raises(ValueError, match="needs a density with a device body"):
+    # 'cuda' stages the model into a device body and reaches the kernel's
+    # wrapper, which takes no CPU tensor
+    with pytest.raises(ValueError, match="takes a CUDA tensor"):
         g.run_chains_nuts(gen_at(0), trs, g.S["mu"], eps=0.1, backend="cuda")
     with pytest.raises(ValueError, match="backend must be"):
         g.run_chains_nuts(gen_at(0), trs, g.S["mu"], eps=0.1, backend="xla")
 
 
+@g.gen
+def cumsummed():
+    x = g.normal(torch.zeros(3), torch.ones(3)) @ "x"
+    _ = g.normal(torch.cumsum(x, 0)[-1], 1.0) @ "y"
+
+
 def test_on_the_card_auto_raises_without_a_device_body(monkeypatch):
     """With the traces taken to live on a CUDA device, ``run_chains_nuts``
-    and ``sample_posterior(hmc_sweep)``'s launch (``_ColumnSweep``) refuse a
-    batch with no device body under ``auto``; ``backend="torch"`` runs the
-    twin on purpose."""
+    and ``sample_posterior(hmc_sweep)``'s launch (``_ColumnSweep``) take the
+    kernel under ``auto`` for a model staged into a device body (the
+    conjugate model), and refuse one whose density cannot be staged,
+    naming ``backend="torch"``; ``backend="torch"`` runs the twin on
+    purpose."""
     monkeypatch.setattr(mcmc, "trace_device", lambda tree: torch.device("cuda"))
     g.run_chains_nuts.last_backend = None
-    with pytest.raises(ValueError, match="Pass backend='torch' to run the plain torch twin"):
+    with pytest.raises(ValueError, match="takes a CUDA tensor"):
         g.run_chains_nuts(gen_at(0), _init(8), g.S["mu"], eps=0.1)
     assert g.run_chains_nuts.last_backend is None
+    run = mcmc._ColumnSweep(_init(8), g.S["mu"], 0, "auto", "sample_posterior")
+    assert run.backend == "cuda" and run.body_name == "staged" and run.view.body.k == 0
+    gen = gen_at(3)
+    unstageable = torch.func.vmap(lambda _: cumsummed.generate(gen, g.C["y"].set(0.5), ())[0],
+                                  randomness="different")(torch.zeros(8))
+    with pytest.raises(ValueError, match="Pass backend='torch' to run the plain torch twin"):
+        g.run_chains_nuts(gen_at(0), unstageable, g.S["x"], eps=0.1)
     with pytest.raises(ValueError, match="Pass backend='torch'"):
-        mcmc._ColumnSweep(_init(8), g.S["mu"], 0, "auto", "sample_posterior")
+        mcmc._ColumnSweep(unstageable, g.S["x"], 0, "auto", "sample_posterior")
     g.run_chains_nuts(gen_at(0), _init(8), g.S["mu"], eps=0.1, max_depth=2, backend="torch")
-    assert g.run_chains_nuts.last_backend == "torch"
+    assert g.run_chains_nuts.last_backend == "torch" and g.run_chains_nuts.last_body is None
 
 
 def flagship_data():
