@@ -2413,6 +2413,23 @@ def combinator_zoo(g, device):
     def acc_step(c, x):
         return g.normal(c + x, 1.0) @ "w"
 
+    # branches that return nothing, or a None field (F6)
+    @g.gen
+    def silent0(mu):
+        _ = g.normal(mu, 1.0) @ "x"
+
+    @g.gen
+    def silent1(mu):
+        _ = g.normal(0.0, 2.0) @ "x"
+
+    @g.gen
+    def field0(mu):
+        return {"a": g.normal(mu, 1.0) @ "x", "b": None}
+
+    @g.gen
+    def field1(mu):
+        return {"a": g.normal(0.0, 2.0) @ "x", "b": None}
+
     sv = kern.scan(n=4)
     return {
         "static": (nested, (0.3,)),
@@ -2431,7 +2448,141 @@ def combinator_zoo(g, device):
         "accumulate": (acc_step.accumulate(), (0.0, A(np.ones(3)))),
         "reduce": (acc_step.reduce(), (0.0, A(np.ones(3)))),
         "masked_iterate_final": (step.masked_iterate_final(), (0.5, A([True, False, True]))),
+        "switch of nothing": (g.switch(silent0, silent1), (A(1), (0.3,), (0.3,))),
+        "switch of a None field": (g.switch(field0, field1), (A(0), (0.3,), (0.3,))),
+        "or_else of nothing": (g.or_else(silent0, silent1), (A(False), (0.3,), (0.3,))),
+        "mix of nothing": (g.mix(silent0, silent1), (A(np.zeros(2)), (0.3,), (0.3,))),
+        "vmap of a switch of nothing": (g.switch(silent0, silent1).vmap(in_axes=(0, None, None)),
+                                        (A([0, 1, 0]), (0.3,), (0.3,))),
     }
+
+
+# The reference's PRNG keys (genjax_tpu_torch/core/keys.py): golden words
+# and draws from jax.random on the CPU (jax 0.9.0, jax_threefry_partitionable
+# True), which the port's keys must give bit for bit on the card (the
+# normals to rtol 1e-6)
+KEYS_GOLDEN = {
+    0: {"key": [0, 0], "split3": [[1797259609, 2579123966], [928981903, 3453687069], [4146024105, 2718843009]],
+        "fold_in1000": [2615604937, 1278946856], "bits4": [4070199207, 4202968722, 1427181096, 2012915765],
+        "uniform4": [0.9476670026779175, 0.9785798788070679, 0.33229148387908936, 0.46866846084594727],
+        "normal4": [1.622642159461975, 2.0252647399902344, -0.4335944354534149, -0.07861734926700592]},
+    42: {"key": [0, 42], "split3": [[1832780943, 270669613], [64467757, 2916123636], [2465931498, 255383827]],
+         "fold_in1000": [3383801349, 143359933], "bits4": [2098992034, 2919706841, 2646866425, 2409546199],
+         "uniform4": [0.48870956897735596, 0.6797971725463867, 0.6162714958190918, 0.5610160827636719],
+         "normal4": [-0.02830461598932743, 0.4671318531036377, 0.2957029640674591, 0.15354591608047485]},
+    -3: {"key": [0, 4294967293], "split3": [[3644612308, 2753299968], [288051037, 3203392507],
+                                            [1092676065, 3523852161]],
+         "fold_in1000": [2037218608, 270260601], "bits4": [2099271892, 2948902054, 2468961888, 1172225582],
+         "uniform4": [0.48877477645874023, 0.6865947246551514, 0.5748499631881714, 0.2729300260543823],
+         "normal4": [-0.028141099959611893, 0.486221045255661, 0.18873563408851624, -0.6039752960205078]},
+    2**32 + 5: {"key": [0, 5], "split3": [[2724472204, 3573582090], [202567368, 3886822060],
+                                          [3594430910, 1784718894]],
+                "fold_in1000": [4125042828, 2299841090], "bits4": [2003086470, 3955154020, 3160280976, 408371909],
+                "uniform4": [0.46637988090515137, 0.9208810329437256, 0.7358101606369019, 0.09508144855499268],
+                "normal4": [-0.08437306433916092, 1.4110229015350342, 0.6304815411567688, -1.310097336769104]},
+}
+# __graft_entry__.py::entry() under jax.random.key(0) on the CPU: the mean w
+# and the mean accept of its 256 chains
+ENTRY_GOLDEN_W = [-0.25149911642074585, -0.02461039461195469, 0.15541110932826996, 0.13058564066886902,
+                  -0.17758262157440186, -0.3101775646209717, 0.13737133145332336, 0.23032718896865845]
+ENTRY_GOLDEN_ACCEPT = 1.0
+ENTRY_CHAINS = 256  # __graft_entry__.py::entry, not cut
+KEYS_TOL = 1e-5
+KEYS_REPS = 3
+
+
+def entry_transition(g, keys, model, obs):
+    """``entry()``'s transition of one chain under a key: ``generate`` at
+    the first of its two keys, then ``mh(HMC(S["w"] | S["tau"], 0.02, L=5))``
+    at the second."""
+    request = g.HMC(g.S["w"] | g.S["tau"], 0.02, L=5)
+
+    def one(k):
+        k0, k1 = keys.split(k).unbind(-2)
+        tr, _ = model.generate(k0, obs, ())
+        tr, accepted = g.mh(k1, tr, request)
+        return tr.get_choices()["w"], accepted
+
+    return one
+
+
+def keys_path(device, smi: str, g, model, y) -> None:
+    """The reference's PRNG keys on the card: the golden words bit for bit,
+    ``entry()`` under ``key(0)`` at its 256 chains against the reference's
+    golden means and the same call on the CPU, and the host clock of the
+    transition at ``N_CHAINS`` traces under a key beside a generator."""
+    from genjax_tpu_torch.core import keys
+
+    t0 = time.perf_counter()
+    worst_normal = 0.0
+    for seed, gold in KEYS_GOLDEN.items():
+        k = keys.key(seed, device=device)
+        check(k.device.type == "cuda", f"[keys] key({seed}) lives on {k.device}")
+        got = {"key": k, "split3": keys.split(k, 3), "fold_in1000": keys.fold_in(k, 1000), "bits4": keys.bits(k, 4)}
+        for name, v in got.items():
+            check(v.tolist() == gold[name], f"[keys] {name} of seed {seed}: {v.tolist()} against {gold[name]}")
+        u = keys.uniform(k, 4)
+        check(u.dtype == torch.float32 and u.tolist() == gold["uniform4"],
+              f"[keys] uniforms of seed {seed}: {u.tolist()} against {gold['uniform4']}")
+        want = torch.tensor(gold["normal4"], dtype=torch.float64)
+        rel = float(((keys.normal(k, 4).double().cpu() - want).abs() / want.abs()).max())
+        worst_normal = max(worst_normal, rel)
+    check(worst_normal <= 1e-6, f"[keys] normals {worst_normal:.3g} (relative) off jax.random's")
+    phase("keys", f"{smi}: key, split, fold_in, bits and uniform of seeds {sorted(KEYS_GOLDEN)} equal "
+                  f"jax.random's golden words bit for bit on the card; normals within {worst_normal:.3g} "
+                  f"relative (limit 1e-6)")
+
+    # entry() under key(0), on the card and on the CPU
+    obs = g.C["y"].set(torch.as_tensor(y, device=device))
+    one = torch.func.vmap(entry_transition(g, keys, model, obs))
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    ws, acc = one(keys.split(keys.key(0, device=device), ENTRY_CHAINS))
+    w_mean, a_mean = ws.mean(0).cpu(), float(acc.float().mean())
+    entry_s = time.perf_counter() - t1
+    one_cpu = torch.func.vmap(entry_transition(g, keys, model, g.C["y"].set(torch.as_tensor(y))))
+    ws_cpu, acc_cpu = one_cpu(keys.split(keys.key(0, device="cpu"), ENTRY_CHAINS))
+    gold_w = torch.tensor(ENTRY_GOLDEN_W)
+    err_gold = max(float((w_mean - gold_w).abs().max()), abs(a_mean - ENTRY_GOLDEN_ACCEPT))
+    err_cpu = max(float((w_mean - ws_cpu.mean(0)).abs().max()), abs(a_mean - float(acc_cpu.float().mean())))
+    check(ws.device.type == "cuda" and bool(torch.isfinite(ws).all()), "[keys] entry()'s w is not finite on the card")
+    check(err_gold <= KEYS_TOL and err_cpu <= KEYS_TOL,
+          f"[keys] entry() under key(0): mean w and accept {err_gold:.3g} off the reference's golden values, "
+          f"{err_cpu:.3g} off the CPU's (limit {KEYS_TOL})")
+    phase("keys", f"{smi}: entry() under key(0), {ENTRY_CHAINS} chains (generate, then mh(HMC(S['w'] | "
+                  f"S['tau'], 0.02, L=5))) on the card: mean accept {a_mean:.6f}, mean w within "
+                  f"{err_gold:.3g} of the reference's golden values and {err_cpu:.3g} of the same call on the "
+                  f"CPU (limit {KEYS_TOL}); {entry_s:.3f} s (host clock, first call)")
+
+    # the transition at N_CHAINS traces: a key against a generator
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    request = g.HMC(g.S["w"] | g.S["tau"], 0.02, L=5)
+
+    def by_generator(_):
+        tr, _w = model.generate(gen, obs, ())
+        tr, accepted = g.mh(gen, tr, request)
+        return tr.get_choices()["w"], accepted
+
+    by_gen = torch.func.vmap(by_generator, randomness="different")
+    lanes = torch.zeros(N_CHAINS, device=device)
+    batch = keys.split(keys.key(1, device=device), N_CHAINS)
+    times = {"key": [], "generator": []}
+    for _ in range(KEYS_REPS):
+        for name, call in (("key", lambda: one(batch)), ("generator", lambda: by_gen(lanes))):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            w, a = call()
+            torch.cuda.synchronize()
+            times[name].append((time.perf_counter() - t1) * 1e3)
+            check(bool(torch.isfinite(w).all()) and 0.0 < float(a.float().mean()) <= 1.0,
+                  f"[keys] the {name} path at {N_CHAINS} traces gave non-finite w or no accept")
+    phase("timing keys", f"{smi}: entry()'s transition (generate then mh(HMC)) over {N_CHAINS} traces, "
+                         f"host clock, {KEYS_REPS} calls each in turns: under a key "
+                         + ", ".join(f"{t:.1f}" for t in times["key"]) + " ms; under a generator "
+                         + ", ".join(f"{t:.1f}" for t in times["generator"]) + " ms; median "
+                         f"{sorted(times['key'])[KEYS_REPS // 2]:.1f} against "
+                         f"{sorted(times['generator'])[KEYS_REPS // 2]:.1f} ms")
+    phase("keys", f"the keys phase took {time.perf_counter() - t0:.1f} s")
 
 
 def combinators_path(device, smi: str, g) -> None:
@@ -4835,6 +4986,9 @@ def finish_phases(device, smi: str, g, hmc, nuts_pallas, elliptical, model, y, k
     settled(combinators_path, device, smi, g)
     phase("combinators", f"the combinator phases took {time.perf_counter() - t_comb:.1f} s")
 
+    # ---- the reference's PRNG keys on the trace path (no kernel)
+    settled(keys_path, device, smi, g, model, y)
+
     # ---- SMC and GenSP: the particle filter, tempered SMC, SIR, the Kalman oracle (no kernel)
     settled(smc_path, device, smi, g)
 
@@ -5850,6 +6004,7 @@ def main() -> int:
             cookbooks[0].kill()
             cookbooks[0].wait()
 
+    phase("total", f"chip_smoke.py took {time.perf_counter() - T_START:.1f} s")
     print(json.dumps({"kernels": [{
         "name": "hmc_sweep (K1, with K2's counter PRNG as device functions)",
         "route": "cuda",

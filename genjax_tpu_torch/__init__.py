@@ -1,7 +1,9 @@
 """genjax_tpu_torch: the PyTorch/CUDA port of ``genjax_tpu``.
 
 The port imports torch, numpy and scipy, never JAX. Names follow the JAX
-package; randomness comes from explicit ``torch.Generator`` objects. It
+package; randomness comes from explicit keys (``core.keys``: JAX's threefry
+keys, which draw on the trace path what the JAX package draws from the same
+key) or ``torch.Generator`` objects. It
 carries the GFI (``simulate``, ``assess``, ``generate``, ``project``,
 ``edit`` and ``update``), ``@gen``, the reference's 48 distributions and
 ``torch_distribution``, the regression, GP and Poisson GLM models, the trace path (the ``HMC`` and ``NUTS`` edit requests, ``mh``,
@@ -54,6 +56,30 @@ from .core.diff import Argdiffs, Diff, NoChange, Retdiff, UnknownChange
 from .core.staging import FlagOp
 from .dists import Distribution, DistributionTrace, ExactDensity, exact_density, torch_distribution
 from .dists.catalog import *  # noqa: F401,F403  (the 48 distributions)
+from .dists import (
+    DiscreteHMM,
+    DiscreteHMMConfiguration,
+    HMMPosterior,
+    LGSSMParams,
+    LinearGaussianSSM,
+    ffbs,
+    forward_backward,
+    forward_backward_parallel,
+    forward_filtering_backward_sampling,
+    forward_parallel,
+    hmm_em,
+    hmm_log_marginal,
+    hmm_posterior_sample,
+    kalman_filter,
+    kalman_filter_parallel,
+    kalman_predict,
+    kalman_smoother,
+    kalman_smoother_parallel,
+    kalman_update,
+    lgssm_em,
+    viterbi,
+    viterbi_parallel,
+)
 from .dists import catalog as _catalog
 from .generative import (
     Arguments,
@@ -118,9 +144,10 @@ from .core import (
     stateful,
     to_shape_fn,
 )
-from .debug import rec, tag, time_machine
+from .debug import TimeTravelingDebugger, rec, tag, time_machine
 from .pretty import pretty
 from .inference import (
+    Algorithm,
     ChangeTarget,
     Importance,
     ImportanceK,
@@ -152,6 +179,31 @@ from .lang import StaticGenerativeFunction, StaticRequest, StaticTrace, gen, tra
 
 __all__ = sorted(
     {
+        "Algorithm",
+        "DiscreteHMM",
+        "DiscreteHMMConfiguration",
+        "HMMPosterior",
+        "LGSSMParams",
+        "LinearGaussianSSM",
+        "TimeTravelingDebugger",
+        "core",
+        "ffbs",
+        "forward_backward",
+        "forward_backward_parallel",
+        "forward_filtering_backward_sampling",
+        "forward_parallel",
+        "hmm_em",
+        "hmm_log_marginal",
+        "hmm_posterior_sample",
+        "kalman_filter",
+        "kalman_filter_parallel",
+        "kalman_predict",
+        "kalman_smoother",
+        "kalman_smoother_parallel",
+        "kalman_update",
+        "lgssm_em",
+        "viterbi",
+        "viterbi_parallel",
         "Address",
         "AddressComponent",
         "AddressReuse",

@@ -11,9 +11,9 @@ the decorators ``scan``, ``accumulate``, ``reduce``, ``iterate``,
 The steps run as a Python loop (torch has no ``lax.scan``), each reading its
 constraint at the Python int ``t``, so a dense or concretely indexed
 constraint gives concrete values; the per-step traces are stacked leaf by
-leaf with the time axis in front (``torch.stack``). One ``torch.Generator``,
-drawn from in sequence, takes the place of the reference's ``fold_in(key,
-t)`` per step. The dense walk's backward request is the steps' stacked
+leaf with the time axis in front (``torch.stack``). Under a key, step ``t``
+draws from ``fold_in(key, t)``, as the reference's steps do; one
+``torch.Generator``, drawn from in sequence, serves every step. The dense walk's backward request is the steps' stacked
 requests where they agree in structure; where they differ, an ``Update``'s
 is the union of its steps' constraints at their indices, and any other
 request a ``VectorRequest`` of one request a step.
@@ -26,6 +26,7 @@ from typing import Any, Callable
 import torch
 import torch.utils._pytree as pytree
 
+from ..core import keys
 from ..core.diff import Diff
 from ..core.pytree import Pytree, none_free
 from ..core.staging import FlagOp
@@ -45,6 +46,12 @@ from ..generative.gfi import GenerativeFunction
 from ..generative.selection import Selection
 from ..generative.trace import Trace, tensor_leaves, trace_device
 from .vmap import put, stacked_score
+
+
+def _step(gen, t):
+    """The randomness of step ``t``: ``fold_in(key, t)`` under a key, as the
+    reference's steps draw, the caller's generator itself otherwise."""
+    return keys.fold_in(gen, t) if keys.is_key(gen) else gen
 
 
 def _at(tree, t):
@@ -135,12 +142,12 @@ class ScanCombinator(GenerativeFunction):
     # ----- GFI -----
 
     def simulate(self, gen: torch.Generator, args: tuple) -> ScanTrace:
-        n, inner, c, ys, _ = self._run(lambda t, c, x: (self.gen_fn.simulate(gen, (c, x)), None), args)
+        n, inner, c, ys, _ = self._run(lambda t, c, x: (self.gen_fn.simulate(_step(gen, t), (c, x)), None), args)
         return ScanTrace(self, inner, args, (c, ys), n)
 
     def generate(self, gen: torch.Generator, constraint: ChoiceMap, args: tuple):
         n, inner, c, ys, ws = self._run(
-            lambda t, c, x: self.gen_fn.generate(gen, constraint.get_submap(t), (c, x)), args
+            lambda t, c, x: self.gen_fn.generate(_step(gen, t), constraint.get_submap(t), (c, x)), args
         )
         return ScanTrace(self, inner, args, (c, ys), n), torch.stack(ws).sum(0)
 
@@ -155,7 +162,7 @@ class ScanCombinator(GenerativeFunction):
 
     def project(self, gen: torch.Generator, trace: ScanTrace, selection: Selection) -> Weight:
         ws = [
-            self.gen_fn.project(gen, _at(trace.inner, t), selection.get_subselection(t))
+            self.gen_fn.project(_step(gen, t), _at(trace.inner, t), selection.get_subselection(t))
             for t in range(trace.length)
         ]
         return torch.stack(ws).sum(0)
@@ -203,16 +210,22 @@ class ScanCombinator(GenerativeFunction):
             submaps = pytree.tree_map(lambda v: torch.as_tensor(v, device=device), constraint.inner)
         slice_trs = pytree.tree_map(lambda v: v[idx_arr], trace.inner)
 
-        def edit_one(tr, chm):
+        def edit_one(g, tr, chm):
             # scored under the combinator's current kernel: the slice trace's
             # recorded one may hold stale closure leaves
             return dispatch_edit(
-                self.gen_fn, gen, tr, Update(chm), Diff.tree_diff_no_change(tr.get_args())
+                self.gen_fn, g, tr, Update(chm), Diff.tree_diff_no_change(tr.get_args())
             )
 
-        new_slices, ws, retdiffs, bwds = torch.func.vmap(edit_one, randomness="different")(
-            slice_trs, submaps
-        )
+        if keys.is_key(gen):
+            # step ``i`` edits under ``fold_in(key, i)``, as the reference's
+            new_slices, ws, retdiffs, bwds = torch.func.vmap(edit_one)(
+                keys.fold_in(gen, idx_arr), slice_trs, submaps
+            )
+        else:
+            new_slices, ws, retdiffs, bwds = torch.func.vmap(
+                lambda tr, chm: edit_one(gen, tr, chm), randomness="different"
+            )(slice_trs, submaps)
         carry_rd, y_rd = retdiffs
         if not Diff.static_check_no_change(carry_rd):
             return None  # the edit moves the carry: slice-local editing is unsound
@@ -240,7 +253,7 @@ class ScanCombinator(GenerativeFunction):
 
         def step(t, c, x):
             new_tr, w, _rd, bwd = dispatch_edit(
-                self.gen_fn, gen, _at(trace.inner, t), subrequest_at(t),
+                self.gen_fn, _step(gen, t), _at(trace.inner, t), subrequest_at(t),
                 Diff.tree_diff_unknown_change((c, x)),
             )
             return new_tr, (w, bwd)
@@ -280,7 +293,7 @@ class ScanCombinator(GenerativeFunction):
             next_slice = pytree.tree_map(lambda v: v[nxt], trace.inner)
             _c, next_x = next_slice.get_args()
             next_new, next_w, next_rd, _ = dispatch_edit(
-                self.gen_fn, gen, next_slice, Update(ChoiceMap.empty()),
+                self.gen_fn, _step(gen, 1), next_slice, Update(ChoiceMap.empty()),
                 (carry_rd, Diff.no_change(next_x)),
             )
             keep = lambda new, old: FlagOp.where(has_next, new, old)  # noqa: E731

@@ -10,7 +10,9 @@ tree of them); the batched inner trace is one trace whose leaves carry the
 lane axis in front. Lane ``i`` reads ``constraint.get_submap(i)``, where
 ``i`` is a tensor under the vmap, so its values come ``Mask``-wrapped; a
 dense constraint (``C[:, "x"]``) whose leaves all carry the lane axis is
-handed to the lanes along that axis instead, with no mask.
+handed to the lanes along that axis instead, with no mask. Under a key,
+lane ``i`` draws from the ``i``-th of ``split(key, n)``, as the reference's
+lanes do.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ from typing import Any, Callable
 import torch
 import torch.utils._pytree as pytree
 
+from ..core import keys
 from ..core.diff import Diff
 from ..core.pytree import Pytree, none_free
 from ..generative.choice_map import ChoiceMap, IndexedChm
@@ -167,40 +170,54 @@ class VmapCombinator(GenerativeFunction):
 
     def simulate(self, gen: torch.Generator, args: tuple) -> VmapTrace:
         n = self._axis_size(args)
-        inner = self._map(
-            lambda _i, a: self.gen_fn.simulate(gen, a), args, (self._lanes(n, gen.device),), (0,)
-        )
+        if keys.is_key(gen):
+            inner = self._map(lambda k, a: self.gen_fn.simulate(k, a), args, (keys.split(gen, n),), (0,))
+        else:
+            inner = self._map(
+                lambda _i, a: self.gen_fn.simulate(gen, a), args, (self._lanes(n, gen.device),), (0,)
+            )
         return VmapTrace(self, inner, args, n)
 
-    def _with_constraint(self, fn, constraint: ChoiceMap, tree, n: int, device):
-        """``fn(lane_constraint, lane_of_tree)`` over the lanes."""
+    def _with_constraint(self, fn, constraint: ChoiceMap, tree, n: int, device, gen=None):
+        """``fn(lane_gen, lane_constraint, lane_of_tree)`` over the lanes:
+        under a key each lane takes its own of ``split(key, n)``, as the
+        reference's lanes do; a generator (or None) is shared."""
         dense = _dense_lanes(constraint, n)
         if dense is not None:
-            return self._map(fn, tree, (dense,), (0,))
-        return self._map(
-            lambda i, a: fn(constraint.get_submap(i), a), tree, (self._lanes(n, device),), (0,)
-        )
+            per_lane, lane_constraint = dense, (lambda c: c)
+        else:
+            per_lane, lane_constraint = self._lanes(n, device), constraint.get_submap
+        if keys.is_key(gen):
+            return self._map(
+                lambda k, x, a: fn(k, lane_constraint(x), a), tree, (keys.split(gen, n), per_lane), (0, 0)
+            )
+        return self._map(lambda x, a: fn(gen, lane_constraint(x), a), tree, (per_lane,), (0,))
 
     def generate(self, gen: torch.Generator, constraint: ChoiceMap, args: tuple):
         n = self._axis_size(args)
         inner, ws = self._with_constraint(
-            lambda chm, a: self.gen_fn.generate(gen, chm, a), constraint, args, n, gen.device
+            lambda g, chm, a: self.gen_fn.generate(g, chm, a), constraint, args, n, gen.device, gen
         )
         return VmapTrace(self, inner, args, n), ws.sum(0)
 
     def assess(self, chm: ChoiceMap, args: tuple):
         n = self._axis_size(args)
         scores, retvals = self._with_constraint(
-            lambda c, a: self.gen_fn.assess(c, a), chm, args, n, trace_device((chm, args))
+            lambda _g, c, a: self.gen_fn.assess(c, a), chm, args, n, trace_device((chm, args))
         )
         return scores.sum(0), retvals
 
     def project(self, gen: torch.Generator, trace: VmapTrace, selection: Selection) -> Weight:
         lanes = self._lanes(trace.n, trace_device(trace.inner))
-        ws = torch.func.vmap(
-            lambda i, tr: self.gen_fn.project(gen, tr, selection.get_subselection(i)),
-            randomness="different",
-        )(lanes, trace.inner)
+        if keys.is_key(gen):
+            ws = torch.func.vmap(
+                lambda k, i, tr: self.gen_fn.project(k, tr, selection.get_subselection(i)),
+            )(keys.split(gen, trace.n), lanes, trace.inner)
+        else:
+            ws = torch.func.vmap(
+                lambda i, tr: self.gen_fn.project(gen, tr, selection.get_subselection(i)),
+                randomness="different",
+            )(lanes, trace.inner)
         return ws.sum(0)
 
     # ----- edits -----
@@ -219,13 +236,23 @@ class VmapCombinator(GenerativeFunction):
         raise NotSupportedEditRequest(f"VmapCombinator cannot serve {type(request).__name__}.")
 
     def _lane_edits(self, gen, trace: VmapTrace, argdiffs, edit_one, per_lane, per_lane_dim):
-        """``edit_one(per_lane_item, lane_trace, lane_argdiffs)`` over the
-        lanes, and the new trace, total weight, retdiff and backward request."""
-        def body(x, sub_tr, ad):
-            new_tr, w, _rd, bwd = edit_one(x, sub_tr, ad)
-            return new_tr, w, bwd
+        """``edit_one(lane_gen, per_lane_item, lane_trace, lane_argdiffs)``
+        over the lanes (under a key, lane ``i`` takes the ``i``-th of
+        ``split(key, n)``), and the new trace, total weight, retdiff and
+        backward request."""
+        if keys.is_key(gen):
+            def body(k, x, sub_tr, ad):
+                new_tr, w, _rd, bwd = edit_one(k, x, sub_tr, ad)
+                return new_tr, w, bwd
 
-        new_inner, ws, bwds = self._map(body, argdiffs, (per_lane, trace.inner), (per_lane_dim, 0))
+            extras, dims = (keys.split(gen, trace.n), per_lane, trace.inner), (0, per_lane_dim, 0)
+        else:
+            def body(x, sub_tr, ad):
+                new_tr, w, _rd, bwd = edit_one(gen, x, sub_tr, ad)
+                return new_tr, w, bwd
+
+            extras, dims = (per_lane, trace.inner), (per_lane_dim, 0)
+        new_inner, ws, bwds = self._map(body, argdiffs, extras, dims)
         new_tr = VmapTrace(self, new_inner, Diff.tree_primal(argdiffs), trace.n)
         return new_tr, ws.sum(0), Diff.tree_diff_unknown_change(new_tr.get_retval()), _lossless_bwd(bwds)
 
@@ -234,18 +261,18 @@ class VmapCombinator(GenerativeFunction):
         if dense is not None:
             return self._lane_edits(
                 gen, trace, argdiffs,
-                lambda chm, tr, ad: self.gen_fn.edit(gen, tr, Update(chm), ad), dense, 0,
+                lambda g, chm, tr, ad: self.gen_fn.edit(g, tr, Update(chm), ad), dense, 0,
             )
         return self._lane_edits(
             gen, trace, argdiffs,
-            lambda i, tr, ad: self.gen_fn.edit(gen, tr, Update(constraint.get_submap(i)), ad),
+            lambda g, i, tr, ad: self.gen_fn.edit(g, tr, Update(constraint.get_submap(i)), ad),
             self._lanes(trace.n, trace_device(trace.inner)), 0,
         )
 
     def _edit_regenerate(self, gen, trace: VmapTrace, selection: Selection, argdiffs):
         return self._lane_edits(
             gen, trace, argdiffs,
-            lambda i, tr, ad: self.gen_fn.edit(gen, tr, Regenerate(selection.get_subselection(i)), ad),
+            lambda g, i, tr, ad: self.gen_fn.edit(g, tr, Regenerate(selection.get_subselection(i)), ad),
             self._lanes(trace.n, trace_device(trace.inner)), 0,
         )
 
@@ -255,7 +282,7 @@ class VmapCombinator(GenerativeFunction):
             raise NotSupportedEditRequest("VmapCombinator serves a stacked VectorRequest only.")
         return self._lane_edits(
             gen, trace, argdiffs,
-            lambda req, tr, ad: dispatch_edit(self.gen_fn, gen, tr, req, ad), per_lane, 0,
+            lambda g, req, tr, ad: dispatch_edit(self.gen_fn, g, tr, req, ad), per_lane, 0,
         )
 
     def _edit_index(self, gen, trace: VmapTrace, idx, request: EditRequest, argdiffs):

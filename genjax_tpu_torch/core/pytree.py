@@ -132,6 +132,20 @@ class Const(Pytree):
         return self.val(*args, **kwargs)
 
 
+def _is_const(x: Any) -> bool:
+    return isinstance(x, Const)
+
+
+def tree_const(v: Any) -> Any:
+    """Every leaf of ``v`` wrapped in ``Const``; a ``Const`` stays as it is."""
+    return pytree.tree_map(lambda x: x if isinstance(x, Const) else Const(x), v, is_leaf=_is_const)
+
+
+def tree_const_unwrap(v: Any) -> Any:
+    """Every ``Const`` of ``v`` replaced by the value it carries."""
+    return pytree.tree_map(lambda x: x.val if isinstance(x, Const) else x, v, is_leaf=_is_const)
+
+
 @Pytree.dataclass
 class Closure(Pytree):
     """A static callable with dynamic closed-over arguments; the source
@@ -168,11 +182,44 @@ pytree.register_pytree_node(
 )
 
 
+class NoneFreeDict(dict):
+    """A dict whose ``None`` values are no leaves, as ``NoneFreeTuple``'s
+    entries: which keys hold ``None`` rides in the tree's context. It is a
+    ``dict`` in every other respect."""
+
+    def __repr__(self):
+        return f"NoneFreeDict({dict.__repr__(self)})"
+
+
+def _flatten_none_free_dict(d):
+    keys = tuple(d)
+    return [d[k] for k in keys if d[k] is not None], (keys, tuple(d[k] is None for k in keys))
+
+
+def _unflatten_none_free_dict(children, context):
+    keys, absent = context
+    children = iter(children)
+    return NoneFreeDict((k, None if gone else next(children)) for k, gone in zip(keys, absent))
+
+
+pytree.register_pytree_node(
+    NoneFreeDict, _flatten_none_free_dict, _unflatten_none_free_dict,
+    serialized_type_name=f"{__name__}.NoneFreeDict",
+)
+
+
 def none_free(tree: Any) -> Any:
-    """``tree`` with every plain tuple (or ``NoneFreeTuple``) that holds a
-    ``None``, at any depth of nested tuples, made a ``NoneFreeTuple``, so
-    that ``torch.func.vmap`` can take and return it. Other nodes are left
-    as they are."""
+    """``tree`` with every plain tuple (or ``NoneFreeTuple``) and every plain
+    dict (or ``NoneFreeDict``) that holds a ``None``, at any depth of nested
+    tuples and dicts, made a ``NoneFreeTuple`` or a ``NoneFreeDict``, so
+    that ``torch.func.vmap`` can take and return it (JAX's pytree takes a
+    ``None`` for an empty tree, torch's for a leaf). Other nodes are left as
+    they are."""
+    if type(tree) is dict or isinstance(tree, NoneFreeDict):
+        items = {k: none_free(v) for k, v in tree.items()}
+        if any(v is None for v in items.values()):
+            return NoneFreeDict(items)
+        return tree if all(items[k] is tree[k] for k in tree) else items
     if type(tree) is not tuple and not isinstance(tree, NoneFreeTuple):
         return tree
     items = tuple(none_free(x) for x in tree)

@@ -114,6 +114,8 @@ def _broadcast_flag(flag: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 
 
 def _where_leaf(flag, a, b):
+    if _nothing((a, b), "FlagOp.where"):
+        return None
     a = torch.as_tensor(a)
     device = a.device if a.device.type != "cpu" else torch.as_tensor(b).device
     a = a.to(device)
@@ -180,6 +182,36 @@ class FlagOp:
         return pytree.tree_map(lambda a, b: _where_leaf(f, a, b), tv, fv)
 
 
+def _nothing(vs: Sequence[Any], what: str) -> bool:
+    """Whether every value of ``vs`` is ``None``: a position that holds
+    nothing in every tree (JAX's pytree takes ``None`` for an empty tree,
+    torch's for a leaf), whose choice is ``None``. Where only some values
+    are ``None`` the trees differ in structure, and that raises."""
+    nones = [v is None for v in vs]
+    if all(nones):
+        return True
+    if any(nones):
+        raise ValueError(
+            f"{what}: the values to choose between differ in structure: some are None "
+            "and some are not, so no choice between them is defined"
+        )
+    return False
+
+
+def staged_check(v: Flag) -> bool:
+    """True only for a concretely true flag (``True``, not a tensor)."""
+    return FlagOp.concrete_true(v)
+
+
+def empty_trace(gen_fn, args: tuple) -> Any:
+    """A trace of ``gen_fn`` at ``args`` with the right shapes and dtypes and
+    every tensor zero: ``simulate`` run on ``device="meta"`` tensors, which
+    compute nothing, under a key (``core/keys.py``)."""
+    from .keys import key
+
+    return to_shape_fn(gen_fn.simulate, torch.zeros)(key(0, device="cpu"), args)
+
+
 def is_concrete_index(idx) -> bool:
     """A Python int (not a bool) is a concrete index; a tensor is not."""
     return isinstance(idx, int) and not isinstance(idx, bool)
@@ -188,9 +220,12 @@ def is_concrete_index(idx) -> bool:
 def staged_choose(idx, vs: Sequence[Any]):
     """``vs[idx]`` for scalar or tensor values: a concrete ``idx`` indexes
     the list; a tensor ``idx`` (clipped into range, as ``lax.select_n``
-    does) selects elementwise."""
+    does) selects elementwise. Where every value is ``None`` the choice
+    is ``None``; where only some are, it raises."""
     if is_concrete_index(idx):
         return vs[idx]
+    if _nothing(vs, "staged_choose"):
+        return None
     arrs = [torch.as_tensor(v) for v in vs]
     device = next((a.device for a in arrs if a.device.type != "cpu"), torch.as_tensor(idx).device)
     dtype = arrs[0].dtype
@@ -207,7 +242,9 @@ def staged_choose(idx, vs: Sequence[Any]):
 def tree_choose(idx, trees: Sequence[Any]):
     """Select ``trees[idx]`` over structurally matching trees: a concrete
     index returns the tree with no tensor work, a tensor index selects each
-    leaf with ``torch.where``."""
+    leaf with ``torch.where``. A position that is ``None`` in every tree is
+    ``None`` in the choice (a branch that returns nothing, or a ``None``
+    field); one that is ``None`` in some trees only raises."""
     if is_concrete_index(idx):
         return trees[idx]
     return pytree.tree_map(lambda *leaves: staged_choose(idx, leaves), *trees)

@@ -12,8 +12,13 @@ Log-densities are elementwise over batch dimensions; the event families
 sampler takes ``sample_shape=`` with TFP's meaning: the count of independent
 draws, which PREPENDS the parameters' batch shape; the log-densities accept
 and ignore it. Arguments that are not tensors are made float32 tensors on the
-device of the tensor arguments (a CUDA device wins over the CPU); samples
-are drawn from the caller's generator on its device, by ``torch.rand``,
+device of the tensor arguments (a CUDA device wins over the CPU). Under a
+key (``core/keys.py``) a distribution draws what the reference's sampler
+draws from the same key, through the same ``jax.random`` formula, for the 22
+whose reference sampler is a transform of ``jax.random.uniform`` or
+``normal`` (``_KEYED``); the others raise ``GFITypeError`` naming the
+``jax.random`` function they would need (``UNKEYED``). Under a generator,
+samples are drawn from it on its device, by ``torch.rand``,
 ``torch.randn``, ``torch._standard_gamma``, ``torch.poisson``,
 ``torch.binomial`` and ``torch._sample_dirichlet``, so that every sampler
 runs under ``torch.func.vmap(..., randomness="different")``. Discrete
@@ -30,6 +35,8 @@ import math
 import torch
 import torch.nn.functional as F
 
+from ..core import keys
+from ..generative.typecheck import GFITypeError
 from . import special
 from .distribution import exact_density
 
@@ -202,10 +209,69 @@ __all__: list[str] = []
 
 
 def _register(name, sampler, logpdf):
-    d = exact_density(sampler, logpdf, name)
+    def sample(gen, *args, **kw):
+        if keys.is_key(gen):
+            return _keyed_sampler(name)(gen, *args, **kw)
+        return sampler(gen, *args, **kw)
+
+    d = exact_density(sample, logpdf, name)
     globals()[name] = d
     __all__.append(name)
     return d
+
+
+#: The draw under a key of each distribution whose reference sampler is
+#: reproduced (the end of this module).
+_KEYED: dict = {}
+
+#: The ``jax.random`` function behind each reference sampler that a key
+#: does not reproduce yet: under a key these raise.
+UNKEYED = {
+    "student_t": "jax.random.t",
+    "half_student_t": "jax.random.t",
+    "beta": "jax.random.beta",
+    "gamma": "jax.random.gamma",
+    "inverse_gamma": "jax.random.gamma",
+    "chi": "jax.random.chisquare",
+    "chi2": "jax.random.chisquare",
+    "exp_gamma": "jax.random.loggamma",
+    "exp_inverse_gamma": "jax.random.loggamma",
+    "moyal": "jax.random.uniform with the special erfcinv",
+    "double_sided_maxwell": "jax.random.double_sided_maxwell",
+    "inverse_gaussian": "jax.random.wald",
+    "von_mises": "the reference's special.von_mises_sample",
+    "binomial": "jax.random.binomial",
+    "poisson": "jax.random.poisson",
+    "negative_binomial": "jax.random.gamma and jax.random.poisson",
+    "beta_binomial": "jax.random.beta and jax.random.binomial",
+    "skellam": "jax.random.poisson",
+    "zipf": "the reference's special.zipf_sample",
+    "non_central_chi2": "jax.random.poisson and jax.random.chisquare",
+    "dirichlet": "jax.random.dirichlet",
+    "multinomial": "jax.random.multinomial",
+    "dirichlet_multinomial": "jax.random.dirichlet and jax.random.multinomial",
+    "power_spherical": "the reference's special.power_spherical_sample",
+    "von_mises_fisher": "the reference's special.von_mises_fisher_sample",
+    "beta_quotient": "jax.random.beta",
+}
+
+
+def _keyed_sampler(name):
+    try:
+        return _KEYED[name]
+    except KeyError:
+        raise GFITypeError(
+            f"{name}: drawing under a key is not reproduced for this distribution (its reference "
+            f"sampler is {UNKEYED.get(name, 'not ported')}); pass a torch.Generator to draw it"
+        ) from None
+
+
+def _keyed(name):
+    def register(fn):
+        _KEYED[name] = fn
+        return fn
+
+    return register
 
 
 def _u01(gen, shape, low: float = 0.0) -> torch.Tensor:
@@ -1028,3 +1094,168 @@ def _beta_quotient_logpdf(v, c1_num, c0_num, c1_den, c0_den, **kw):
 
 
 _register("beta_quotient", _beta_quotient_sample, _beta_quotient_logpdf)
+
+
+# ----------------------------------------------------------------------
+# draws under a key: the reference's samplers on ``jax.random``, reproduced
+# through ``core/keys.py`` so that a key draws what the reference draws
+# ----------------------------------------------------------------------
+
+_F32_EPSNEG = 2.0**-24
+
+
+@_keyed("normal")
+@_keyed("mv_normal_diag")
+def _key_normal(key, loc=0.0, scale=1.0, **kw):
+    loc, scale = _tensors(loc, scale, device=key.device)
+    return loc + scale * keys.normal(key, _bshape(_shape(kw), loc, scale))
+
+
+@_keyed("log_normal")
+def _key_log_normal(key, loc=0.0, scale=1.0, **kw):
+    return torch.exp(_key_normal(key, loc, scale, **kw))
+
+
+@_keyed("logit_normal")
+def _key_logit_normal(key, loc=0.0, scale=1.0, **kw):
+    return torch.sigmoid(_key_normal(key, loc, scale, **kw))
+
+
+@_keyed("half_normal")
+def _key_half_normal(key, scale=1.0, **kw):
+    (scale,) = _tensors(scale, device=key.device)
+    return scale * torch.abs(keys.normal(key, _bshape(_shape(kw), scale)))
+
+
+@_keyed("lambert_w_normal")
+def _key_lambert_w_normal(key, loc=0.0, scale=1.0, tailweight=0.0, **kw):
+    loc, scale, delta = _tensors(loc, scale, tailweight, device=key.device)
+    u = keys.normal(key, _bshape(_shape(kw), loc, scale, delta))
+    return loc + scale * u * torch.exp(delta / 2.0 * u**2)
+
+
+def _key_std_cauchy(key, shape):
+    u = keys.uniform(key, shape, minval=_EPS, maxval=1.0)
+    return torch.tan(math.pi * (u - 0.5))
+
+
+@_keyed("cauchy")
+def _key_cauchy(key, loc=0.0, scale=1.0, **kw):
+    loc, scale = _tensors(loc, scale, device=key.device)
+    return loc + scale * _key_std_cauchy(key, _bshape(_shape(kw), loc, scale))
+
+
+@_keyed("half_cauchy")
+def _key_half_cauchy(key, loc=0.0, scale=1.0, **kw):
+    loc, scale = _tensors(loc, scale, device=key.device)
+    return loc + scale * torch.abs(_key_std_cauchy(key, _bshape(_shape(kw), loc, scale)))
+
+
+@_keyed("laplace")
+def _key_laplace(key, loc=0.0, scale=1.0, **kw):
+    loc, scale = _tensors(loc, scale, device=key.device)
+    u = keys.uniform(key, _bshape(_shape(kw), loc, scale), minval=-1.0 + _F32_EPSNEG, maxval=1.0)
+    return loc + scale * (torch.sign(u) * torch.log1p(-torch.abs(u)))
+
+
+@_keyed("logistic")
+def _key_logistic(key, loc=0.0, scale=1.0, **kw):
+    loc, scale = _tensors(loc, scale, device=key.device)
+    x = keys.uniform(key, _bshape(_shape(kw), loc, scale), minval=_TINY, maxval=1.0)
+    return loc + scale * (torch.log(x) - torch.log1p(-x))
+
+
+def _key_std_gumbel(key, shape):
+    return -torch.log(-torch.log(keys.uniform(key, shape, minval=_TINY, maxval=1.0)))
+
+
+@_keyed("gumbel")
+def _key_gumbel(key, loc=0.0, scale=1.0, **kw):
+    loc, scale = _tensors(loc, scale, device=key.device)
+    return loc + scale * _key_std_gumbel(key, _bshape(_shape(kw), loc, scale))
+
+
+@_keyed("uniform")
+def _key_uniform(key, low=0.0, high=1.0, **kw):
+    low, high = _tensors(low, high, device=key.device)
+    return keys.uniform(key, _bshape(_shape(kw), low, high), minval=low, maxval=high)
+
+
+@_keyed("exponential")
+def _key_exponential(key, rate, **kw):
+    (rate,) = _tensors(rate, device=key.device)
+    return -torch.log1p(-keys.uniform(key, _bshape(_shape(kw), rate))) / rate
+
+
+@_keyed("weibull")
+def _key_weibull(key, concentration, scale, **kw):
+    k, lam = _tensors(concentration, scale, device=key.device)
+    u = keys.uniform(key, _bshape(_shape(kw), k, lam))
+    return torch.pow(-torch.log1p(-u), 1.0 / k) * lam
+
+
+@_keyed("kumaraswamy")
+def _key_kumaraswamy(key, concentration1, concentration0, **kw):
+    a, b = _tensors(concentration1, concentration0, device=key.device)
+    u = keys.uniform(key, _bshape(_shape(kw), a, b), minval=1e-7, maxval=1.0)
+    return (1.0 - (1.0 - u) ** (1.0 / b)) ** (1.0 / a)
+
+
+@_keyed("truncated_normal")
+def _key_truncated_normal(key, loc, scale, low, high, **kw):
+    loc, scale, low, high = _tensors(loc, scale, low, high, device=key.device)
+    a = (low - loc) / scale
+    b = (high - loc) / scale
+    sqrt2 = math.sqrt(2.0)
+    u = keys.uniform(key, _bshape(_shape(kw), loc, scale, low, high), minval=torch.erf(a / sqrt2), maxval=torch.erf(b / sqrt2))
+    z = sqrt2 * keys.erfinv(u)
+    z = torch.clamp(z, torch.nextafter(a, torch.full_like(a, torch.inf)), torch.nextafter(b, torch.full_like(b, -torch.inf)))
+    return loc + scale * z
+
+
+@_keyed("truncated_cauchy")
+def _key_truncated_cauchy(key, loc, scale, low, high, **kw):
+    loc, scale, low, high = _tensors(loc, scale, low, high, device=key.device)
+    fa, fb = _cauchy_cdf(low, loc, scale), _cauchy_cdf(high, loc, scale)
+    u = keys.uniform(key, _bshape(_shape(kw), loc, scale, low, high))
+    return loc + scale * torch.tan(math.pi * (fa + u * (fb - fa) - 0.5))
+
+
+@_keyed("bernoulli")
+def _key_bernoulli(key, logits=None, **kw):
+    (logits,) = _tensors(logits, device=key.device)
+    return (keys.uniform(key, _bshape(_shape(kw), logits)) < torch.sigmoid(logits)).to(torch.int32)
+
+
+@_keyed("flip")
+def _key_flip(key, p, **kw):
+    (p,) = _tensors(p, device=key.device)
+    return keys.uniform(key, _bshape(_shape(kw), p)) < p
+
+
+@_keyed("categorical")
+def _key_categorical(key, logits, **kw):
+    """``jax.random.categorical``: the Gumbel-max trick over the last axis."""
+    (logits,) = _tensors(logits, device=key.device)
+    shape = _bshape(_shape(kw), tuple(logits.shape[:-1])) + tuple(logits.shape[-1:])
+    return torch.argmax(_key_std_gumbel(key, shape) + logits, dim=-1)
+
+
+@_keyed("geometric")
+def _key_geometric(key, logits, **kw):
+    """``jax.random.geometric`` less one: failures before the first
+    success."""
+    (logits,) = _tensors(logits, device=key.device)
+    u = keys.uniform(key, _bshape(_shape(kw), logits))
+    return torch.floor(torch.log(u) / torch.log1p(-torch.sigmoid(logits))).to(torch.int32)
+
+
+@_keyed("mv_normal")
+def _key_mv_normal(key, loc, covariance_matrix, **kw):
+    """``jax.random.multivariate_normal`` by its Cholesky factor: ``loc + L
+    z`` with ``z`` of shape ``sample_shape + (d,)``, or the parameters'
+    batch shape where no ``sample_shape`` is given."""
+    loc, cov = _tensors(loc, covariance_matrix, device=key.device)
+    shape = _shape(kw) or tuple(torch.broadcast_shapes(tuple(loc.shape[:-1]), tuple(cov.shape[:-2])))
+    z = keys.normal(key, tuple(shape) + tuple(loc.shape[-1:]))
+    return loc + (cholesky_or_nan(cov) @ z.unsqueeze(-1)).squeeze(-1)

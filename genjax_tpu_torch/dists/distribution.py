@@ -4,8 +4,8 @@ Counterpart of ``genjax_tpu/dists/distribution.py``: the GFI of a primitive
 distribution (``simulate``, ``assess``, ``generate``, ``project`` and the
 ``Update`` and ``Regenerate`` edits, under a full or absent constraint and a
 concrete selection), ``ExactDensity``, the keyword-argument adaptor and the
-``exact_density`` factory. Draws come from the caller's ``torch.Generator``
-on its device. A constraint ``Mask``-wrapped under a tensor flag, and a
+``exact_density`` factory. Draws come from the caller's key (as the
+reference's draw from the same key) or ``torch.Generator``, on its device. A constraint ``Mask``-wrapped under a tensor flag, and a
 selection whose ``check()`` is a tensor, are served lane by lane as the
 reference's ``lax.cond`` is under ``vmap``: both sides are computed and
 ``torch.where`` selects.
@@ -37,6 +37,7 @@ from ..core.staging import FlagOp
 from ..generative.mask import Mask
 from ..generative.selection import Selection
 from ..generative.trace import Trace, tensor_leaves
+from ..generative.typecheck import GFITypeError
 
 
 def _select_value(flag, new, old):
@@ -305,6 +306,10 @@ def torch_distribution(dist_ctor, name: str = "torch_distribution") -> LambdaDen
     """
 
     def sampler(gen: torch.Generator, *args, sample_shape=(), **kwargs):
+        if not isinstance(gen, torch.Generator):
+            raise GFITypeError(
+                f"{name}: a torch.distributions sampler does not draw under a key; pass a torch.Generator"
+            )
         seed = int(torch.randint(0, 2**63 - 1, (), generator=gen, device=gen.device))
         cuda = [gen.device] if gen.device.type == "cuda" else []
         with torch.random.fork_rng(devices=cuda):

@@ -22,6 +22,7 @@ import torch
 import torch.utils._pytree as pytree
 
 from ..core.device import same_device as _same_device
+from ..core.keys import is_key
 from ..core.diff import Diff
 from ..core.pytree import Pytree, none_free
 from .concepts import Arguments, EditRequest, Retdiff, Score, Weight
@@ -76,11 +77,17 @@ def trace_device(tree: Any) -> torch.device | None:
     return None
 
 
-def check_same_device(gen: torch.Generator, tr: Any, what: str) -> None:
-    """A generator and a trace on different devices raise: an entry point
-    that receives traces runs where they live and moves nothing."""
+def check_same_device(gen, tr: Any, what: str) -> None:
+    """A key or a generator on another device than the trace raises: an
+    entry point that receives traces runs where they live and moves
+    nothing."""
     device = trace_device(tr)
     if device is not None and not _same_device(device, gen.device):
+        if is_key(gen):
+            raise ValueError(
+                f"{what}: the trace lives on {device} and the key on {gen.device}; "
+                "make the key on the trace's device (keys.key(seed, device=...))"
+            )
         raise ValueError(
             f"{what}: the trace lives on {device} and the generator on {gen.device}; "
             "make the generator on the trace's device (torch.Generator(device=...))"

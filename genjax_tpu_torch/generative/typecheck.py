@@ -5,8 +5,8 @@ Counterpart of ``genjax_tpu/typecheck.py`` (the public facade
 ``generative`` so that ``@gen``'s methods can reach it). Cheap ``isinstance``
 checks of the interface's contract, which raise a ``GFITypeError`` with a
 targeted message where a wrong value would otherwise fail deep inside torch:
-the source of randomness is a ``torch.Generator`` (where the reference takes
-a PRNG key), a constraint is a ``ChoiceMap``, a selection a ``Selection``,
+the source of randomness is a key (``core/keys.py``, the reference's PRNG
+key) or a ``torch.Generator``, a constraint is a ``ChoiceMap``, a selection a ``Selection``,
 and arguments come as a tuple. The reference's opt-in deep checking
 (``install_import_hook``) needs ``typeguard``, which the port does not use.
 """
@@ -17,6 +17,7 @@ from typing import Any
 
 import torch
 
+from ..core.keys import is_key
 from .choice_map import ChoiceMap
 from .selection import Selection
 
@@ -27,17 +28,30 @@ class GFITypeError(TypeError):
 
 
 def check_key(gen: Any, what: str) -> None:
-    """The source of randomness: a ``torch.Generator``.
+    """The source of randomness: a key (an int64 tensor of two 32-bit words,
+    ``core.keys.key(seed)``), which draws what the reference draws from the
+    same key, or a ``torch.Generator``.
 
     >>> check_key(42, "simulate")
     Traceback (most recent call last):
     ...
-    genjax_tpu_torch.generative.typecheck.GFITypeError: simulate: expected a torch.Generator as the source of randomness, got int. Make one with torch.Generator(device).manual_seed(seed).
+    genjax_tpu_torch.generative.typecheck.GFITypeError: simulate: expected a key or a torch.Generator as the source of randomness, got int. Make a key with genjax_tpu_torch.core.keys.key(seed), or a generator with torch.Generator(device).manual_seed(seed).
     """
+    if not (isinstance(gen, torch.Generator) or is_key(gen)):
+        raise GFITypeError(
+            f"{what}: expected a key or a torch.Generator as the source of randomness, got "
+            f"{type(gen).__name__}. Make a key with genjax_tpu_torch.core.keys.key(seed), "
+            "or a generator with torch.Generator(device).manual_seed(seed)."
+        )
+
+
+def check_generator(gen: Any, what: str) -> None:
+    """A ``torch.Generator``, where the draws under a key are not reproduced
+    yet: a key raises, naming ``what``, rather than drawing in law."""
     if not isinstance(gen, torch.Generator):
         raise GFITypeError(
-            f"{what}: expected a torch.Generator as the source of randomness, got "
-            f"{type(gen).__name__}. Make one with torch.Generator(device).manual_seed(seed)."
+            f"{what}: drawing under a key is not reproduced here; pass a torch.Generator, got "
+            f"{type(gen).__name__}"
         )
 
 

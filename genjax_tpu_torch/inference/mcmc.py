@@ -24,12 +24,14 @@ from typing import Any, Callable
 import torch
 import torch.utils._pytree as pytree
 
-from ..core.device import entry_device, int_seed
+from ..core import keys
+from ..core.device import entry_device, int_seed, same_device
 from ..core.pytree import Pytree
 from ..generative.choice_map import ChoiceMap, StaticChm, ValueChm
 from ..generative.concepts import EditRequest, Regenerate
 from ..generative.selection import Selection
 from ..generative.trace import Trace, check_same_device, trace_device
+from ..generative.typecheck import check_generator
 from ..kernels.bodies import body_for, body_packing
 from ..kernels.hmc import _route, pallas_hmc
 from ..kernels.model_interface import ColumnPacker, column_logdensity, packed_score
@@ -44,15 +46,21 @@ def mh(
 ) -> tuple[Trace, Any]:
     """One Metropolis-Hastings step driven by an edit request (or a
     ``Selection``, shorthand for ``Regenerate(selection)``), on the trace's
-    device. Returns ``(trace, accepted)``."""
+    device. Returns ``(trace, accepted)``. Under a key, the key splits in
+    four as the reference's does: the edit, the two projections and the
+    accept draw."""
     check_same_device(gen, trace, "mh")
     if isinstance(request, Selection):
         request = Regenerate(request)
-    new_trace, w, _rd, _bwd = trace.edit(gen, request)
+    if keys.is_key(gen):
+        k_edit, k_proj_new, k_proj_old, k_acc = keys.split(gen, 4).unbind(-2)
+    else:
+        k_edit = k_proj_new = k_proj_old = k_acc = gen
+    new_trace, w, _rd, _bwd = trace.edit(k_edit, request)
     if isinstance(request, Regenerate):
         sel = request.selection
-        w = w - (new_trace.project(gen, sel) - trace.project(gen, sel))
-    return mh_accept(gen, trace, new_trace, w)
+        w = w - (new_trace.project(k_proj_new, sel) - trace.project(k_proj_old, sel))
+    return mh_accept(k_acc, trace, new_trace, w)
 
 
 @Pytree.dataclass
@@ -73,10 +81,13 @@ def run_chain(
     record: Callable[[Trace], Any] | None = None,
 ) -> MHChainResult:
     """Run ``n_steps`` of MH on one trace, where it lives. ``record(trace)``
-    is kept for every step, stacked along a leading step axis."""
+    is kept for every step, stacked along a leading step axis. Under a key,
+    step ``t`` takes the ``t``-th of ``split(key, n_steps)``, as the
+    reference's scan does."""
     accepts, history = [], []
-    for _ in range(n_steps):
-        trace, accepted = mh(gen, trace, request)
+    steps = keys.split(gen, n_steps).unbind(-2) if keys.is_key(gen) else [gen] * n_steps
+    for step_gen in steps:
+        trace, accepted = mh(step_gen, trace, request)
         accepts.append(accepted.to(torch.float32))
         if record is not None:
             history.append(record(trace))
@@ -390,6 +401,7 @@ def run_chains_hmc(
     True
     """
     check_same_device(gen, traces, "run_chains_hmc")
+    check_generator(gen, "run_chains_hmc")
     seed = _seed(gen)
     run = _ColumnSweep(traces, selection, chain_axis, backend, "run_chains_hmc")
     q, accept_rate = run.sweep(
@@ -450,6 +462,7 @@ def run_chains_nuts(
     True
     """
     check_same_device(gen, traces, "run_chains_nuts")
+    check_generator(gen, "run_chains_nuts")
     seed = _seed(gen)
     run = _ColumnSweep(traces, selection, chain_axis, backend, "run_chains_nuts")
     q, accept_stat, leaps = run.sweep(
@@ -466,7 +479,10 @@ run_chains_nuts.last_body = None
 
 def generator_on(gen: torch.Generator | int, device: torch.device, entry: str) -> torch.Generator:
     """``gen`` if it is a generator on ``device``'s type, or a generator on
-    ``device`` seeded with the int ``gen``; a generator elsewhere raises."""
+    ``device`` seeded with the int ``gen``; a generator elsewhere raises, and
+    so does a key (these entry points draw from generators only)."""
+    if keys.is_key(gen):
+        check_generator(gen, entry)
     if not isinstance(gen, torch.Generator):
         return torch.Generator(device=device).manual_seed(int(gen))
     if gen.device.type != device.type:
@@ -490,8 +506,11 @@ def run_chains(
 ) -> MHChainResult:
     """Many independent MH chains as one vmapped program, on ``device``: the
     card by default; ``device="cpu"`` runs on the CPU, and without a card
-    the default raises. ``gen`` is a generator on that device, or an int
-    that seeds one; ``make_trace(gen)`` makes one chain's initial trace.
+    the default raises. ``gen`` is a key or a generator on that device, or
+    an int that seeds a generator; ``make_trace(gen)`` makes one chain's
+    initial trace. Under a key, chain ``i`` takes the ``i``-th of
+    ``split(key, n_chains)`` and splits it in two, for its initial trace and
+    its steps, as the reference's chains do.
 
     ``layout`` keeps the reference's signature. There ``"lanes"`` batches
     with the chain axis last inside the vmapped program, which fills the
@@ -501,9 +520,21 @@ def run_chains(
     step axis follows the chain axis).
     """
     device = entry_device(device, "run_chains")
-    gen = generator_on(gen, device, "run_chains")
     if layout not in ("lanes", "batch"):
         raise ValueError(f"layout must be 'lanes' or 'batch', got {layout!r}")
+    if keys.is_key(gen):
+        if not same_device(gen.device, device):
+            raise ValueError(
+                f"run_chains: the key lives on {gen.device} and the chains are to run on {device}; "
+                f"pass device={gen.device.type!r} or a key on {device}"
+            )
+
+        def one_keyed(k):
+            k_init, k_run = keys.split(k).unbind(-2)
+            return run_chain(k_run, make_trace(k_init), request, n_steps, record=record)
+
+        return torch.func.vmap(one_keyed)(keys.split(gen, n_chains))
+    gen = generator_on(gen, device, "run_chains")
 
     def one(_):
         return run_chain(gen, make_trace(gen), request, n_steps, record=record)

@@ -44,6 +44,7 @@ from ...core.pytree import Pytree
 from ...generative.concepts import Argdiffs, EditRequest, Retdiff, Update, Weight
 from ...generative.selection import Selection
 from ...generative.trace import Trace
+from ...generative.typecheck import check_generator
 from .grad_view import selected_logdensity
 
 _TWO_PI = 2.0 * math.pi
@@ -114,6 +115,7 @@ class EllipticalSlice(EditRequest):
     ) -> tuple[Trace, Weight, Retdiff, EditRequest]:
         if not Diff.static_check_no_change(argdiffs):
             raise NotImplementedError("EllipticalSlice requires unchanged arguments.")
+        check_generator(gen, "EllipticalSlice")
         z0, logdensity, to_choices = selected_logdensity(
             tr.get_gen_fn(), tr.get_choices(), self.selection, Diff.tree_primal(argdiffs)
         )

@@ -15,6 +15,7 @@ from typing import Any, Callable
 import torch
 import torch.utils._pytree as pytree
 
+from ...core import keys
 from ...core.diff import Diff
 from ...core.pytree import Pytree
 from ...generative.concepts import Argdiffs, DiffAnnotate, EditRequest, Retdiff, Update, Weight
@@ -94,7 +95,13 @@ class HMC(EditRequest):
         else:
             inv_mass = torch.as_tensor(self.inv_mass, dtype=z0.dtype, device=z0.device)
             inv_mass = inv_mass.broadcast_to(z0.shape)
-        r0 = torch.randn(z0.shape, generator=gen, device=z0.device) / torch.sqrt(inv_mass)
+        if keys.is_key(gen):
+            # the reference's split in three: the momenta and the final Update
+            _, k_mom, k_update = keys.split(gen, 3).unbind(-2)
+            r0 = (1.0 / torch.sqrt(inv_mass)) * keys.normal(k_mom, tuple(z0.shape))
+        else:
+            k_update = gen
+            r0 = torch.randn(z0.shape, generator=gen, device=z0.device) / torch.sqrt(inv_mass)
 
         def kinetic(r):
             return 0.5 * torch.sum(inv_mass * r * r)
@@ -102,7 +109,7 @@ class HMC(EditRequest):
         z1, r1, lp0, lp1 = hmc_trajectory(
             _value_and_grad(logdensity), z0, r0, self.eps, self.L, inv_mass
         )
-        final_trace, _, retdiff, _ = Update(to_choices(z1)).edit(gen, tr, argdiffs)
+        final_trace, _, retdiff, _ = Update(to_choices(z1)).edit(k_update, tr, argdiffs)
         alpha = lp1 - lp0 + kinetic(r0) - kinetic(r1)
         return final_trace, alpha, retdiff, HMC(self.selection, self.eps, self.L, self.inv_mass)
 
@@ -130,7 +137,10 @@ def mh_accept(gen: torch.Generator, trace: Trace, new_trace: Trace, alpha: Weigh
     the leaves align exactly; the select then goes leaf by leaf and keeps the
     new trace's structure."""
     check_same_device(gen, trace, "mh_accept")
-    log_u = torch.log(torch.rand((), generator=gen, device=gen.device))
+    if keys.is_key(gen):
+        log_u = torch.log(keys.uniform(gen))
+    else:
+        log_u = torch.log(torch.rand((), generator=gen, device=gen.device))
     accept = log_u < alpha
 
     def pick(new, old):

@@ -24,6 +24,7 @@ from ...core.typing_ import static_check_supports_grad
 from ...generative.concepts import Argdiffs, EditRequest, Retdiff, Update, Weight
 from ...generative.selection import Selection
 from ...generative.trace import Trace
+from ...generative.typecheck import check_generator
 from .grad_view import selection_gradient
 
 
@@ -57,6 +58,7 @@ class MALA(EditRequest):
     ) -> tuple[Trace, Weight, Retdiff, EditRequest]:
         if not Diff.static_check_no_change(argdiffs):
             raise NotImplementedError("MALA requires unchanged arguments.")
+        check_generator(gen, "MALA")
         eps = self.eps
         values, grads = selection_gradient(self.selection, tr, argdiffs)
         leaves, spec = pytree.tree_flatten(values)

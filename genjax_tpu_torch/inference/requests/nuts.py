@@ -23,6 +23,7 @@ from ...core.pytree import Pytree
 from ...generative.concepts import Argdiffs, EditRequest, Retdiff, Update, Weight
 from ...generative.selection import Selection
 from ...generative.trace import Trace
+from ...generative.typecheck import check_generator
 from ...kernels.nuts import nuts_transition
 from .grad_view import selected_logdensity
 
@@ -61,6 +62,7 @@ class NUTS(EditRequest):
         drivers that report the sampler's health (``sample_posterior``)."""
         if not Diff.static_check_no_change(argdiffs):
             raise NotImplementedError("NUTS requires unchanged arguments.")
+        check_generator(gen, "NUTS")
         z0, logdensity, to_choices = selected_logdensity(
             tr.get_gen_fn(), tr.get_choices(), self.selection, Diff.tree_primal(argdiffs)
         )

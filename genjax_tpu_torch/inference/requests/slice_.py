@@ -42,6 +42,7 @@ from ...core.pytree import Pytree
 from ...generative.concepts import Argdiffs, EditRequest, Retdiff, Update, Weight
 from ...generative.selection import Selection
 from ...generative.trace import Trace
+from ...generative.typecheck import check_generator
 from .grad_view import selected_logdensity
 
 
@@ -103,6 +104,7 @@ class SliceSample(EditRequest):
     ) -> tuple[Trace, Weight, Retdiff, EditRequest]:
         if not Diff.static_check_no_change(argdiffs):
             raise NotImplementedError("SliceSample requires unchanged arguments.")
+        check_generator(gen, "SliceSample")
         z0, logdensity, to_choices = selected_logdensity(
             tr.get_gen_fn(), tr.get_choices(), self.selection, Diff.tree_primal(argdiffs)
         )

@@ -12,9 +12,12 @@ the change cannot be followed (a changed value read to Python, a write into
 an aliased tensor, a callee reaching a changed value through a Python
 closure), the edit degrades to the clean-prefix rule, which reuses only the
 subtraces before the first address the request changes, as the reference
-falls back where its body does not stage. Random
-draws share the caller's ``torch.Generator``, whose state advances with each
-addressed draw, in place of the reference's ``fold_in`` key counter.
+falls back where its body does not stage. Under a key (``core/keys.py``)
+the addressed calls draw as the reference's do: the ``n``-th call in the
+body's order gets ``fold_in(key, n)``, a reused subtrace counting too, and
+``project`` folds in each address's position. Under a ``torch.Generator``
+every draw shares the caller's generator, whose state advances with each
+addressed draw.
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ from typing import Any, Callable
 import torch
 import torch.utils._pytree as pytree
 
+from ..core import keys
 from ..core.changes import ChangeMode, diffs_of, mark_diffs
 from ..core.diff import Diff, NoChange, leaf_changes
 from ..core.checkify import check, constraint_validation_active
@@ -126,12 +130,22 @@ class StaticTrace(Trace):
 
 
 class StaticHandler(TraceHandler):
-    """Base: address-reuse detection and subtrace recording."""
+    """Base: address-reuse detection, subtrace recording and the randomness
+    of each addressed call."""
 
     def __init__(self, gen: torch.Generator | None):
         self.gen = gen
+        self.count = 0
         self.addresses: list = []
         self.subtraces: list[Trace] = []
+
+    def fresh(self):
+        """The randomness of the next addressed call: ``fold_in(key, n)``
+        for the ``n``-th call under a key, the caller's generator itself
+        otherwise."""
+        n = self.count
+        self.count += 1
+        return keys.fold_in(self.gen, n) if keys.is_key(self.gen) else self.gen
 
     def visit(self, addr) -> None:
         if addr in self.addresses:
@@ -146,7 +160,7 @@ class StaticHandler(TraceHandler):
 class SimulateHandler(StaticHandler):
     def handle_trace(self, addr, gen_fn, args):
         self.visit(addr)
-        return self.record(gen_fn.simulate(self.gen, args))
+        return self.record(gen_fn.simulate(self.fresh(), args))
 
 
 class AssessHandler(StaticHandler):
@@ -174,7 +188,7 @@ class GenerateHandler(StaticHandler):
     def handle_trace(self, addr, gen_fn, args):
         self.visit(addr)
         submap = self.constraint.get_submap(*_path(addr))
-        tr, w = gen_fn.generate(self.gen, submap, args)
+        tr, w = gen_fn.generate(self.fresh(), submap, args)
         self.weight = self.weight + w
         return self.record(tr)
 
@@ -235,6 +249,9 @@ class EditHandler(StaticHandler):
 
     def _edit_at(self, addr, gen_fn, args, mode: ChangeMode | None):
         self.visit(addr)
+        # drawn here, whether the call is edited or reused, so that the key
+        # counter stays aligned with the reference's
+        gen = self.fresh()
         sub_tr = self.prev.get_inner_trace(addr)
         request = self.subrequest(addr)
         trivial = self._is_trivial(request)
@@ -266,7 +283,7 @@ class EditHandler(StaticHandler):
         # dispatch through the CURRENT callee: the body ran again with the new
         # arguments, so ``gen_fn`` carries any closed-over dynamic values the
         # previous subtrace is stale on
-        new_tr, w, retdiff, bwd = dispatch_edit(gen_fn, self.gen, sub_tr, request, argdiffs)
+        new_tr, w, retdiff, bwd = dispatch_edit(gen_fn, gen, sub_tr, request, argdiffs)
         self.dispatched += 1
         self.weight = self.weight + w
         self.bwd[addr] = bwd
@@ -367,8 +384,9 @@ class StaticGenerativeFunction(GenerativeFunction):
 
     def project(self, gen: torch.Generator | None, trace: StaticTrace, selection: Selection) -> Weight:
         total: Any = 0.0
-        for addr, sub_tr in zip(trace.addresses, trace.subtraces):
-            total = total + sub_tr.project(gen, selection(*_path(addr)))
+        for i, (addr, sub_tr) in enumerate(zip(trace.addresses, trace.subtraces)):
+            sub_gen = keys.fold_in(gen, i) if keys.is_key(gen) else gen
+            total = total + sub_tr.project(sub_gen, selection(*_path(addr)))
         return _on(trace_device(trace), total)
 
     def edit(

@@ -91,3 +91,62 @@ def test_trace_function_form_and_builders():
     assert torch.equal(a.get_score(), b.get_score())
     assert g.ChoiceMapBuilder is g.C
     assert isinstance(g.S, g.SelectionBuilder)
+
+
+# ----------------------------------------------------------------------
+# the names of ``genjax_tpu``'s own ``__all__``, namespace by namespace
+# ----------------------------------------------------------------------
+
+#: Subpackages of ``genjax_tpu`` with an ``__all__``, each against the
+#: port's namespace of the same path.
+ALL_NAMESPACES = ["", ".core", ".generative", ".dists", ".inference", ".combinators", ".lang",
+                  ".parallel", ".kernels", ".models", ".adev"]
+
+#: Names of those ``__all__`` lists the port does not export, each with its
+#: reason. The list only shrinks: a name on it that the port exports fails.
+EXCLUDED = {
+    # renamed: the port wraps torch.distributions, not TFP
+    ("", "tfp_distribution"): "renamed torch_distribution",
+    (".dists", "tfp_distribution"): "renamed torch_distribution",
+    # exist only for JAX
+    (".parallel", "shard_map_compat"): "a shim over jax's shard_map; the port's collectives are "
+                                       "torch.distributed calls, with no shard_map to call",
+    (".core", "nobeartype"): "an escape hatch from beartype, which the port does not use",
+    (".core", "cached_stage_dynamic"): "caches the jaxpr of an edit; the port's incremental edit "
+                                       "follows changes on running ops and stages no program",
+}
+
+
+def _all_of(sub):
+    import jax
+
+    jax.config.update("jax_platforms", "cpu")
+    return importlib.import_module("genjax_tpu" + sub).__all__
+
+
+@pytest.mark.parametrize("sub", ALL_NAMESPACES, ids=lambda s: s or "top")
+def test_every_name_of_the_reference_all_resolves(sub):
+    port = importlib.import_module("genjax_tpu_torch" + sub)
+    names = _all_of(sub)
+    missing = [n for n in names if (sub, n) not in EXCLUDED and not hasattr(port, n)]
+    assert not missing, f"genjax_tpu_torch{sub} does not export {missing}"
+    exported = [n for (s, n) in EXCLUDED if s == sub and hasattr(port, n)]
+    assert not exported, f"{exported} of genjax_tpu_torch{sub} are exported now: take them off EXCLUDED"
+
+
+def test_excluded_names_are_reference_names_with_reasons():
+    for (sub, name), reason in EXCLUDED.items():
+        assert name in _all_of(sub) and reason
+
+
+def test_the_core_names_the_generative_types_and_the_key():
+    from genjax_tpu_torch import core, generative
+    from genjax_tpu_torch.core import keys
+
+    assert core.ChoiceMap is generative.ChoiceMap and core.Trace is generative.Trace
+    assert core.PRNGKey is keys.PRNGKey is torch.Tensor
+    assert core.tree_const_unwrap(core.tree_const((1, "a"))) == (1, "a")
+    tr = core.empty_trace(importlib.import_module("genjax_tpu_torch").normal, (0.0, 1.0))
+    assert float(tr.get_score()) == 0.0 and float(tr.get_retval()) == 0.0
+    assert core.staged_check(True) and not core.staged_check(torch.tensor(True))
+    assert core.static_check_is_concrete(1) and not core.static_check_is_concrete(torch.ones(()))

@@ -559,3 +559,152 @@ class TestSwitchEdit:
         tr = sw.simulate(gen_at(0), (0, (), ()))
         new_tr, _w, _rd, _bwd = sw.edit(gen_at(1), tr, g.Update(g.C.kw(b=0.3)), (Diff(1, UnknownChange), (), ()))
         assert float(unmask(new_tr.get_choices()["b"])) == approx(0.3)
+
+
+# ----------------------------------------------------------------------
+# branches that return nothing (F6): switch, mix and or_else under a tensor
+# index and under vmap, held against the reference on the same constraints
+# ----------------------------------------------------------------------
+
+
+@g.gen
+def silent0(mu):
+    _ = g.normal(mu, 1.0) @ "x"
+
+
+@g.gen
+def silent1(mu):
+    _ = g.normal(0.0, 2.0) @ "x"
+
+
+@gj.gen
+def silent0_ref(mu):
+    _ = gj.normal(mu, 1.0) @ "x"
+
+
+@gj.gen
+def silent1_ref(mu):
+    _ = gj.normal(0.0, 2.0) @ "x"
+
+
+@g.gen
+def field0(mu):
+    return {"a": g.normal(mu, 1.0) @ "x", "b": None}
+
+
+@g.gen
+def field1(mu):
+    return {"a": g.normal(0.0, 2.0) @ "x", "b": None}
+
+
+@gj.gen
+def field0_ref(mu):
+    return {"a": gj.normal(mu, 1.0) @ "x", "b": None}
+
+
+@gj.gen
+def field1_ref(mu):
+    return {"a": gj.normal(0.0, 2.0) @ "x", "b": None}
+
+
+def _silent_case(name):
+    """(port gen fn, reference gen fn, port args, reference args, port
+    constraint, reference constraint, port edit constraint, reference edit
+    constraint) of one of F6's five cases."""
+    mu = (0.3,)
+    if name == "switch":
+        return (g.switch(silent0, silent1), gj.switch(silent0_ref, silent1_ref),
+                (torch.tensor(1), mu, mu), (jnp.int32(1), mu, mu),
+                g.C["x"].set(0.5), gj.C["x"].set(0.5), g.C["x"].set(0.7), gj.C["x"].set(0.7))
+    if name == "dict":
+        return (g.switch(field0, field1), gj.switch(field0_ref, field1_ref),
+                (torch.tensor(0), mu, mu), (jnp.int32(0), mu, mu),
+                g.C["x"].set(0.5), gj.C["x"].set(0.5), g.C["x"].set(0.7), gj.C["x"].set(0.7))
+    if name == "or_else":
+        return (g.or_else(silent0, silent1), gj.or_else(silent0_ref, silent1_ref),
+                (torch.tensor(False), mu, mu), (jnp.bool_(False), mu, mu),
+                g.C["x"].set(0.5), gj.C["x"].set(0.5), g.C["x"].set(0.7), gj.C["x"].set(0.7))
+    if name == "mix":
+        logits = [np.log(0.25), np.log(0.75)]
+        return (g.mix(silent0, silent1), gj.mix(silent0_ref, silent1_ref),
+                (torch.tensor(logits, dtype=torch.float32), mu, mu), (jnp.asarray(logits, jnp.float32), mu, mu),
+                g.C["mixture_component"].set(1) | g.C["component_sample", "x"].set(0.5),
+                gj.C["mixture_component"].set(1) | gj.C["component_sample", "x"].set(0.5),
+                g.C["component_sample", "x"].set(0.7), gj.C["component_sample", "x"].set(0.7))
+    assert name == "vmap"
+    xs, ys = [0.5, -0.2, 1.0], [0.7, 0.1, -0.4]
+    return (g.switch(silent0, silent1).vmap(in_axes=(0, None, None)),
+            gj.switch(silent0_ref, silent1_ref).vmap(in_axes=(0, None, None)),
+            (torch.tensor([0, 1, 0]), mu, mu), (jnp.asarray([0, 1, 0], jnp.int32), mu, mu),
+            g.C[:, "x"].set(torch.tensor(xs)), gj.C[:, "x"].set(jnp.asarray(xs)),
+            g.C[:, "x"].set(torch.tensor(ys)), gj.C[:, "x"].set(jnp.asarray(ys)))
+
+
+def _nothing(retval, name):
+    if name == "dict":
+        return retval["b"] is None
+    return retval is None
+
+
+SILENT = ["switch", "dict", "or_else", "mix", "vmap"]
+
+
+class TestBranchesReturningNothing:
+    @pytest.mark.parametrize("name", SILENT)
+    def test_simulate_and_assess(self, name):
+        gf, ref, args, ref_args, *_ = _silent_case(name)
+        tr = gf.simulate(gen_at(0), args)
+        assert _nothing(tr.get_retval(), name)
+        chm = tr.get_choices()
+        ref_score, _ = ref.assess(to_jax(chm), ref_args)
+        assert tr.get_score() == approx(ref_score)
+        score, retval = gf.assess(chm, args)
+        assert score == approx(ref_score) and _nothing(retval, name)
+
+    @pytest.mark.parametrize("name", SILENT)
+    def test_generate_project_and_edit(self, name):
+        gf, ref, args, ref_args, chm, ref_chm, new, ref_new = _silent_case(name)
+        tr, w = gf.generate(gen_at(1), chm, args)
+        ref_tr, ref_w = ref.generate(jax.random.key(1), ref_chm, ref_args)
+        assert w == approx(ref_w) and tr.get_score() == approx(ref_tr.get_score())
+        assert _nothing(tr.get_retval(), name)
+        sel = g.Selection.all()
+        assert tr.project(gen_at(2), sel) == approx(ref_tr.project(jax.random.key(2), gj.Selection.all()))
+        new_tr, w, _rd, _bwd = tr.update(gen_at(3), new)
+        ref_new_tr, ref_w, _rd, _bwd = ref_tr.update(jax.random.key(3), ref_new)
+        assert w == approx(ref_w) and new_tr.get_score() == approx(ref_new_tr.get_score())
+        assert _nothing(new_tr.get_retval(), name)
+
+    def test_edit_to_a_new_index(self):
+        """The switch's edit across an index change: the kept and the fresh
+        traces are chosen between (``FlagOp.where``), ``None`` retval and
+        all."""
+        gf, ref, args, ref_args, chm, ref_chm, new, ref_new = _silent_case("switch")
+        tr, _ = gf.generate(gen_at(4), chm, args)
+        ref_tr, _ = ref.generate(jax.random.key(4), ref_chm, ref_args)
+        argdiffs = (Diff(torch.tensor(0), UnknownChange), (Diff(0.3, NoChange),), (Diff(0.3, NoChange),))
+        new_tr, w, _rd, _bwd = gf.edit(gen_at(5), tr, g.Update(new), argdiffs)
+        import genjax_tpu.core.diff as jdiff
+
+        ref_argdiffs = (jdiff.Diff(jnp.int32(0), jdiff.UnknownChange),
+                        (jdiff.Diff(0.3, jdiff.NoChange),), (jdiff.Diff(0.3, jdiff.NoChange),))
+        ref_new_tr, ref_w, _rd, _bwd = ref.edit(jax.random.key(5), ref_tr, gj.Update(ref_new), ref_argdiffs)
+        assert w == approx(ref_w) and new_tr.get_score() == approx(ref_new_tr.get_score())
+        assert new_tr.get_retval() is None
+
+    def test_only_some_branches_returning_nothing_raises(self):
+        gf = g.switch(silent0, branch_normal)
+        with pytest.raises(ValueError, match="some are None"):
+            gf.simulate(gen_at(6), (torch.tensor(1), (0.3,), ()))
+
+    @pytest.mark.parametrize("name", SILENT)
+    def test_traces_cross_an_outer_vmap(self, name):
+        """A batch of the five cases' traces: ``torch.func.vmap`` takes a
+        trace whose return value is ``None`` or holds a ``None`` field, as
+        ``jax.vmap`` takes the reference's."""
+        gf, _ref, args, *_ = _silent_case(name)
+        trs = torch.func.vmap(lambda _: gf.simulate(gen_at(7), args), randomness="different")(torch.zeros(3))
+        assert _nothing(trs.get_retval(), name)
+        scores = torch.func.vmap(lambda tr: gf.assess(tr.get_choices(), args)[0])(trs)
+        own = torch.func.vmap(lambda tr: tr.get_score())(trs)
+        assert torch.allclose(scores, own, atol=1e-6)

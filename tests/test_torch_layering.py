@@ -462,3 +462,16 @@ def test_import_graph_acyclic():
         if color[m] == 0:
             dfs(m)
     assert not cycles, "\n".join(cycles)
+
+
+def test_keys_sit_in_core_on_nothing_above_it():
+    """The threefry keys are a ``core`` module on ``core`` alone (the
+    device rule); the language, the distribution catalog, the combinators
+    and the MCMC drivers that draw under a key reach it."""
+    mods, edges = _graph()
+    assert f"{PKG}.core.keys" in mods
+    assert not [t for t in edges[f"{PKG}.core.keys"] if _subpackage(t) != "core"]
+    assert edges[f"{PKG}.core.keys"] <= {f"{PKG}.core.device"}
+    for mod in ("lang.static_lang", "dists.catalog", "combinators.vmap", "combinators.scan",
+                "inference.mcmc", "inference.requests.hmc", "generative.typecheck"):
+        assert f"{PKG}.core.keys" in edges[f"{PKG}.{mod}"] or f"{PKG}.core" in edges[f"{PKG}.{mod}"], mod
