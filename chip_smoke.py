@@ -4964,6 +4964,223 @@ def cookbook_finish(started, smi: str) -> None:
                       f"[column samplers] on (collected {wall:.1f} s after the start, when those ended)")
 
 
+# The batched drivers under a key (K1's and K4's rbg kernels, csrc/
+# hmc_sweep.cu and nuts_sweep.cu): golden words and results that jax.random
+# and genjax_tpu give on the CPU (jax 0.9.0), where rbg is XLA's
+# Philox4x32-10. The card must give the words bit for bit, the normals to
+# rtol 1e-6, and the drivers' means to KB_TOL. bits_carry holds the elements
+# KB_CARRY_AT of bits([7, 9, 0xFFFFFFF0, 5], (80,)), whose blocks from 16 on
+# carry w2 into w3.
+KB_GOLDEN = {
+    "bits_42": [2620864722, 2991908441, 282133475, 2589630650, 1779689962, 1069940430, 2483751720, 1070514652],
+    "bits_carry": [2424583457, 593842431, 844359680, 1762580777, 1257825562, 2453270968, 738759139, 2083841225,
+                   3399778744, 3063871908],
+    "normal_42": [0.2798862159252167, 0.5146694779396057, -1.50868821144104, 0.26097825169563293],
+    "randint_key0": 31327077,
+    "randint_k_sweep": 447923887,
+    "randint_rbg42": [811770493, 691517416, 664372603, 127527957],
+    # run_chains_hmc(key(0), 4,096 flagship traces from split(key(1), 4096),
+    # S["w"] | S["tau"], eps 0.02, L 5, 20 steps): mean w and the accept rate
+    "hmc_w": [-0.335112988948822, 0.11661200225353241, 0.2840671241283417, -0.08080531656742096,
+              -0.3765628933906555, -0.23591649532318115, 0.08028768002986908, -0.04330014809966087],
+    "hmc_acc": 0.984130859375,
+    # run_chains_nuts(key(0), the same traces, eps 0.05, max_depth 6, 3 transitions)
+    "nuts_w": [-0.22808846831321716, 0.0496029295027256, 0.10904709994792938, 0.037107203155756,
+               -0.27254539728164673, -0.22698235511779785, 0.05441579967737198, 0.10501297563314438],
+    "nuts_acc": 0.9887153506278992,
+    "nuts_leaps": 4.53662109375,
+    # sample_posterior(key(0), linear_regression (linreg_data), S["w"], KB_SP): the draws' mean w
+    "sp_w": [1.0416964292526245, -1.9764766693115234, 0.528666615486145],
+    "sp_acc": 0.9803466796875,
+    "sp_eps": 0.13316915929317474,
+}
+KB_CARRY_AT = [0, 1, 2, 3, 63, 64, 65, 66, 67, 79]
+KB_CHAINS = 4096
+KB_HMC_STEPS = 20
+KB_NUTS = dict(eps=0.05, max_depth=6, n_steps=3)
+KB_SP = dict(n_chains=4096, n_warmup=6, n_samples=10, algorithm="hmc_sweep", eps0=0.1, L=5)
+KB_K4_STEPS = 2  # K4 against its twin from the warmed-up NUTS state (the twin's per-leaf loop is slow)
+# the launch rows' reference rows in the kernels' comparisons: the rows of a
+# packed block moved, and its padding drawing nothing, as a keyed driver's are
+KB_STREAM_ROWS = list(range(1, 9)) + [0] + [-1] * 7
+KB_TOL = 1e-4
+
+
+def keys_batched_path(device, smi: str, g, hmc, nuts, nuts_pallas, model, y, ld, q0, k4_state) -> dict:
+    """``[keys batched]``: the batched drivers under a key on the card. The
+    rbg stream's golden words; K1's and K4's rbg kernels against their plain
+    versions (the twins on the rbg stream) at the flagship's shape; the
+    drivers (``run_chains_hmc``, ``run_chains_nuts``,
+    ``sample_posterior(hmc_sweep)``) under ``key(0)`` against the
+    reference's golden results, each launch counted from 0 before it; and the
+    rbg kernels' times beside the Philox kernels', in turns. Returns the K1
+    and K4 entries for the kernels line."""
+    from genjax_tpu_torch.core import keys
+    from genjax_tpu_torch.inference import sample_posterior
+    from genjax_tpu_torch.models import linear_regression
+
+    t0 = time.perf_counter()
+    gold = KB_GOLDEN
+    k42 = keys.key(42, device=device, impl="rbg")
+    carry = torch.tensor([7, 9, 0xFFFFFFF0, 5], device=device)
+    k0 = keys.key(0, device=device)
+    got = {"bits_42": keys.bits(k42, 8).tolist(), "bits_carry": keys.bits(carry, 80)[KB_CARRY_AT].tolist(),
+           "randint_key0": int(keys.randint(k0, (), 0, 2**30)),
+           "randint_k_sweep": int(keys.randint(keys.split(k0)[0], (), 0, 2**30)),
+           "randint_rbg42": keys.randint(k42, 4, 0, 2**30).tolist()}
+    for name, v in got.items():
+        check(v == gold[name], f"[keys batched] {name}: {v} against jax.random's {gold[name]}")
+    want = torch.tensor(gold["normal_42"], dtype=torch.float64)
+    rel = float(((keys.normal(k42, 4).double().cpu() - want).abs() / want.abs()).max())
+    check(rel <= 1e-6, f"[keys batched] rbg normals {rel:.3g} (relative) off jax.random's")
+    phase("keys batched", f"{smi}: rbg bits of key(42, 'rbg') and of a key whose counter carries into its "
+                          f"second word, and randint of key(0), of run_chains_hmc's k_sweep and of key(42, "
+                          f"'rbg'), equal jax.random's golden words bit for bit on the card; rbg normals "
+                          f"within {rel:.3g} relative (limit 1e-6)")
+
+    # ---- K1's rbg kernel against its plain version: the flagship at N_CHAINS x KB_HMC_STEPS
+    body = ld.body
+    kw1 = dict(n_steps=KB_HMC_STEPS, eps=EPS, L=L, rng="rbg", stream_rows=KB_STREAM_ROWS)
+    qk, acc_k = hmc.hmc_sweep(body, q0, SEED, **kw1)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    qt, rate_t = hmc._reference_hmc(ld, q0, SEED, **kw1)
+    torch.cuda.synchronize()
+    twin1_s = time.perf_counter() - t1
+    diff = (qk - qt).abs()
+    agree = diff.max(dim=0).values <= KB_TOL
+    frac1 = float(agree.float().mean())
+    err1 = float(diff[:, agree].max()) if bool(agree.any()) else math.inf
+    rate_k = float(acc_k.mean()) / KB_HMC_STEPS
+    check(frac1 >= 0.995, f"[keys batched] K1 rbg: only {frac1:.5f} of chains within {KB_TOL} of the twin")
+    check(abs(rate_k - float(rate_t)) <= 0.005, f"[keys batched] K1 rbg accept {rate_k} vs twin {float(rate_t)}")
+    info1 = hmc.kernel_info(body, 16, rng="rbg")
+    phase("keys batched", f"K1 rbg ({hmc.hmc_sweep.last_variant}) against its plain version on the rbg "
+                          f"stream (launch rows drawing reference rows {KB_STREAM_ROWS}), flagship {N_CHAINS} chains x {KB_HMC_STEPS} steps, L={L}: {frac1:.5f} of "
+                          f"chains within {KB_TOL} (limit 0.995), max abs err {err1:.3g} on them; accept "
+                          f"{rate_k:.5f} vs {float(rate_t):.5f}; twin {twin1_s:.2f} s; {info1['registers']} registers, "
+                          f"{info1['local_bytes']} B local, {info1['blocks_per_sm']} blocks an SM")
+
+    # ---- K4's rbg kernel against its plain version, from the warmed-up NUTS state
+    q_wn, eps_n, im_n = k4_state
+    kw4 = dict(n_steps=KB_K4_STEPS, eps=eps_n, max_depth=NUTS_DEPTH, inv_mass=im_n, rng="rbg",
+               stream_rows=KB_STREAM_ROWS)
+    qk4, acc_k4, leaps_k4 = nuts_pallas.nuts_sweep(body, q_wn, SEED, **kw4)
+    t1 = time.perf_counter()
+    qt4, acc_t4, leaps_t4 = nuts.nuts_sweep_cols(ld, q_wn, SEED, **kw4)
+    torch.cuda.synchronize()
+    twin4_s = time.perf_counter() - t1
+    diff4 = (qk4 - qt4).abs()
+    agree4 = diff4.max(dim=0).values <= KB_TOL
+    frac4 = float(agree4.float().mean())
+    err4 = float(diff4[:, agree4].max()) if bool(agree4.any()) else math.inf
+    acc4, lf4 = float(acc_k4.mean()) / KB_K4_STEPS, float(leaps_k4.mean()) / KB_K4_STEPS
+    check(frac4 >= 0.99, f"[keys batched] K4 rbg: only {frac4:.5f} of chains within {KB_TOL} of the twin")
+    check(abs(acc4 - float(acc_t4)) <= 0.005 and abs(lf4 - float(leaps_t4)) <= 0.01 * float(leaps_t4),
+          f"[keys batched] K4 rbg accept {acc4} and leapfrogs {lf4} vs twin {float(acc_t4)}, {float(leaps_t4)}")
+    info4 = nuts_pallas.kernel_info(body, 16, NUTS_DEPTH, nuts_pallas.DEFAULT_BLOCK, rng="rbg")
+    phase("keys batched", f"K4 rbg ({nuts_pallas.nuts_sweep.last_variant}) against its plain version on the "
+                          f"rbg stream, flagship {N_CHAINS} chains x {KB_K4_STEPS} transitions from the "
+                          f"warmed-up state (eps {eps_n:.6g}, depth {NUTS_DEPTH}): {frac4:.5f} of chains within "
+                          f"{KB_TOL} (limit 0.99), max abs err {err4:.3g} on them; accept {acc4:.5f} vs "
+                          f"{float(acc_t4):.5f}, mean leapfrogs {lf4:.4f} vs {float(leaps_t4):.4f}; twin "
+                          f"{twin4_s:.2f} s; {info4['registers']} registers, {info4['local_bytes']} B local, "
+                          f"{info4['blocks_per_sm']} blocks an SM")
+
+    # ---- the drivers under key(0), each launch counted from 0 just before it
+    obs = g.C["y"].set(torch.as_tensor(y, device=device))
+    trs = torch.func.vmap(lambda k: model.generate(k, obs, ())[0])(keys.split(keys.key(1, device=device), KB_CHAINS))
+    sel = g.S["w"] | g.S["tau"]
+
+    def w_err(new, gold_w):
+        return float((new.get_choices()["w"].mean(0).cpu() - torch.tensor(gold_w)).abs().max())
+
+    hmc.hmc_sweep_launches = 0
+    new, acc = g.run_chains_hmc(keys.key(0, device=device), trs, sel, eps=EPS, L=L, n_steps=KB_HMC_STEPS)
+    k1_rcn = hmc.hmc_sweep_launches
+    err_h = max(w_err(new, gold["hmc_w"]), abs(float(acc) - gold["hmc_acc"]))
+    check(k1_rcn == 1 and g.run_chains_hmc.last_backend == "cuda",
+          f"[keys batched] run_chains_hmc under a key made {k1_rcn} K1 launches on {g.run_chains_hmc.last_backend}")
+    check(err_h <= KB_TOL, f"[keys batched] run_chains_hmc under key(0): {err_h:.3g} off the reference (limit {KB_TOL})")
+    nuts_pallas.nuts_sweep_launches = 0
+    new, acc, leaps = g.run_chains_nuts(keys.key(0, device=device), trs, sel, **KB_NUTS)
+    k4_rcn = nuts_pallas.nuts_sweep_launches
+    err_n = max(w_err(new, gold["nuts_w"]), abs(float(acc) - gold["nuts_acc"]))
+    check(k4_rcn == 1 and g.run_chains_nuts.last_backend == "cuda",
+          f"[keys batched] run_chains_nuts under a key made {k4_rcn} K4 launches on {g.run_chains_nuts.last_backend}")
+    check(err_n <= KB_TOL and abs(float(leaps) - gold["nuts_leaps"]) <= KB_TOL * gold["nuts_leaps"],
+          f"[keys batched] run_chains_nuts under key(0): {err_n:.3g} off the reference, leapfrogs "
+          f"{float(leaps)} vs {gold['nuts_leaps']} (limit {KB_TOL})")
+    phase("keys batched", f"{smi}: run_chains_hmc(key(0)) over {KB_CHAINS} flagship traces, {KB_HMC_STEPS} "
+                          f"steps: {k1_rcn} K1 rbg launch ({g.run_chains_hmc.last_body}), mean w and accept "
+                          f"within {err_h:.3g} of the reference's; run_chains_nuts(key(0)), {KB_NUTS}: {k4_rcn} "
+                          f"K4 rbg launch, mean w and accept within {err_n:.3g}, mean leapfrogs "
+                          f"{float(leaps):.6g} vs {gold['nuts_leaps']:.6g} (limit {KB_TOL})")
+
+    Xl, yl, _ = linreg_data()
+    lin = linear_regression(Xl)[0]
+    hmc.hmc_sweep_launches = 0
+    res = sample_posterior(keys.key(0, device=device), lin, g.C["y"].set(torch.from_numpy(yl).to(device)), (),
+                           g.S["w"], **KB_SP)
+    k1_sp = hmc.hmc_sweep_launches
+    err_sp = max(float((res["w"].mean((0, 1)).cpu() - torch.tensor(gold["sp_w"])).abs().max()),
+                 abs(float(res.accept_rate) - gold["sp_acc"]), abs(float(res.eps) - gold["sp_eps"]))
+    n_sp = min(6, KB_SP["n_warmup"]) + KB_SP["n_samples"]
+    check(k1_sp == n_sp, f"[keys batched] sample_posterior(hmc_sweep) under a key made {k1_sp} K1 launches, not {n_sp}")
+    check(err_sp <= KB_TOL, f"[keys batched] sample_posterior(hmc_sweep) under key(0): {err_sp:.3g} off the "
+                            f"reference (limit {KB_TOL})")
+    phase("keys batched", f"sample_posterior(key(0), linear_regression, S['w'], {KB_SP}): {k1_sp} K1 rbg "
+                          f"launches (staged body), draws' mean w, accept and adapted eps within {err_sp:.3g} of "
+                          f"the reference's (limit {KB_TOL})")
+
+    # ---- the rbg kernels' times beside the Philox kernels', in turns (philox, rbg, rbg, philox)
+    def k1(rng):
+        return lambda: hmc.hmc_sweep(body, q0, SEED, n_steps=N_STEPS, eps=EPS, L=L, rng=rng)
+
+    def k4(rng):
+        return lambda: nuts_pallas.nuts_sweep(body, q_wn, SEED, n_steps=NUTS_STEPS, eps=eps_n,
+                                              max_depth=NUTS_DEPTH, inv_mass=im_n, rng=rng)
+
+    reps1 = KB_K1_REPS
+    k1_ph, k1_rbg = turns(k1("philox"), k1("rbg"), reps1, reps1)
+    k4_ph, k4_rbg = turns(k4("philox"), k4("rbg"), KB_K4_REPS, KB_K4_REPS)
+    grad_flop = hier_grad_flop(16, 8, 16)
+    b1, b1_by = k1_bound(N_CHAINS, 16, N_STEPS, L, grad_flop, 144)
+    _, _, leaps_r = k4("rbg")()
+    _, _, leaps_p = k4("philox")()
+    b4r, b4_by = k4_bound(N_CHAINS, 16, NUTS_STEPS, float(leaps_r.sum()), grad_flop, 144)
+    b4p, _ = k4_bound(N_CHAINS, 16, NUTS_STEPS, float(leaps_p.sum()), grad_flop, 144)
+    ms1, ms4 = sum(k1_rbg) / 2, sum(k4_rbg) / 2
+    phase("timing keys batched", f"{smi}: K1 at {N_CHAINS} chains x {N_STEPS} steps, L={L}, in turns: philox "
+                                 f"{k1_ph[0]:.4f}, rbg {k1_rbg[0]:.4f}, {k1_rbg[1]:.4f}, philox {k1_ph[1]:.4f} ms "
+                                 f"({reps1} sweeps a window); bound {b1:.4f} ms ({b1_by}): rbg at "
+                                 f"{b1 / ms1:.4f}, philox at {2 * b1 / sum(k1_ph):.4f} of it")
+    phase("timing keys batched", f"{smi}: K4 at {N_CHAINS} chains x {NUTS_STEPS} transitions, depth {NUTS_DEPTH}, "
+                                 f"from the warmed-up state, in turns: philox {k4_ph[0]:.4f}, rbg {k4_rbg[0]:.4f}, "
+                                 f"{k4_rbg[1]:.4f}, philox {k4_ph[1]:.4f} ms ({KB_K4_REPS} sweeps a window); "
+                                 f"bound {b4r:.4f} ms ({b4_by}, mean leapfrogs a transition "
+                                 f"{float(leaps_r.mean()) / NUTS_STEPS:.4f}; philox's {b4p:.4f} ms at "
+                                 f"{float(leaps_p.mean()) / NUTS_STEPS:.4f}): rbg at {b4r / ms4:.4f}, philox at "
+                                 f"{2 * b4p / sum(k4_ph):.4f} of its")
+    phase("keys batched", f"the keys batched phase took {time.perf_counter() - t0:.1f} s")
+    return {
+        "K1": {"kernel": "hmc_rbg_kernel", "launches": k1_rcn + k1_sp, "launches_by_path": {
+                   "run_chains_hmc(key)": k1_rcn, "sample_posterior(key, hmc_sweep)": k1_sp},
+               "max_abs_err": err1, "share_within_1e-4": frac1, "ms": ms1, "philox_ms": sum(k1_ph) / 2,
+               # the twin's host clock at the comparison's shape (KB_HMC_STEPS steps)
+               "plain_ms": 1e3 * twin1_s, "plain_steps": KB_HMC_STEPS,
+               "bound_ms": b1, "bound_by": b1_by, "library_ms": None, "registers": info1["registers"]},
+        "K4": {"kernel": "nuts_rbg_kernel", "launches": k4_rcn, "launches_by_path": {"run_chains_nuts(key)": k4_rcn},
+               "max_abs_err": err4, "share_within_1e-4": frac4, "ms": ms4, "philox_ms": sum(k4_ph) / 2,
+               "plain_ms": 1e3 * twin4_s, "plain_steps": KB_K4_STEPS,
+               "bound_ms": b4r, "bound_by": b4_by, "library_ms": None, "registers": info4["registers"]},
+    }
+
+
+KB_K1_REPS = 1000  # about half a second a window at 0.5 ms a sweep
+KB_K4_REPS = 400   # about 0.3 s a window at 0.7 ms a sweep
+
+
 def finish_phases(device, smi: str, g, hmc, nuts_pallas, elliptical, model, y, k1_draws) -> int:
     """The phases after the GP path, which need no kernel timing of their
     own and run beside ``[cookbook]``'s process. Each path returns the
@@ -5553,6 +5770,9 @@ def main() -> int:
                            "stage_s": time.perf_counter() - t0,
                            "model": {"conjugate": conj_model, "linear_regression": lin_model}.get(name)}
             built[name]["load"] = pool.submit(timed_load, built[name]["body"].lib)
+        # the rbg kernels of linear_regression's staged body, which
+        # [keys batched]'s keyed sample_posterior launches
+        rbg_load = pool.submit(timed_load, lambda: built["linear_regression"]["body"].lib(True))
         # the trace path's batches, their models staged with chain operands
         traced = trace_batches(device, g, model, y)
         for entry in traced.values():
@@ -5604,6 +5824,14 @@ def main() -> int:
                                    f"{v['spill_stores']} B, spill loads {v['spill_loads']} B"
                                    for k, v in sorted(found.items())))
         check(set(found) == {"K1", "K4"}, f"the staged build of trace path {name} holds {sorted(found)}")
+    found = {("K1" if "hmc_rbg_kernel" in kname else "K4"): (regs, stores)
+             for kname, regs, stores, _loads, _smem, _stack in
+             ptxas_kernels(_build.staged_ptxas_report(built["linear_regression"]["body"].header, True))
+             if "_rbg_kernel" in kname}
+    phase("build", f"staged body linear_regression's rbg kernels (-DGJT_STAGED_RBG): built by one nvcc in "
+                   f"{rbg_load.result():.2f} s (in parallel with the others); "
+                   + "; ".join(f"{k}: {r} registers, spill stores {st} B" for k, (r, st) in sorted(found.items())))
+    check(set(found) == {"K1", "K4"}, f"the staged rbg build of linear_regression holds {sorted(found)}")
     flag_body = bodies.hier_regression(X, y, 0.25)
     gen_body = generic_body(bodies)
     for body, d in [(flag_body, 16), (gen_body, 8)]:
@@ -5986,6 +6214,9 @@ def main() -> int:
     # ---- the NUTS trace path: sample_posterior nuts/hmc, and run_chains_nuts on K4
     rcn_launches = trace_nuts_path(device, smi, g, hmc, nuts_pallas, model, y)
 
+    # ---- the batched drivers under a key: K1's and K4's rbg kernels
+    kb_entries = keys_batched_path(device, smi, g, hmc, nuts, nuts_pallas, model, y, ld, q0, (q_wn, eps_n, im_n))
+
     # ---- the GP / elliptical-slice path (K3)
     k3_entry = gp_path(device, smi, elliptical)
 
@@ -6034,6 +6265,9 @@ def main() -> int:
                    # the trace path's builds: the flagship staged with chain operands
                    "trace_path": trace_entries["K1"]["trace_path"],
                    "trace_path_launches": trace_entries["K1"]["launches_by_path"]},
+        # the batched drivers under a key: K1's rbg kernel (the reference's
+        # XLA twin's stream), its launches on the keyed drivers' paths
+        "rbg": kb_entries["K1"],
     }, {
         "name": "nuts_sweep (K4)",
         "route": "cuda",
@@ -6051,6 +6285,7 @@ def main() -> int:
         "staged": {"source": "genjax_tpu_torch/kernels/staged.py", **staged_entries["K4"],
                    "trace_path": trace_entries["K4"]["trace_path"],
                    "trace_path_launches": trace_entries["K4"]["launches_by_path"]},
+        "rbg": kb_entries["K4"],
     }, k3_entry]}), flush=True)
     check(all(math.isfinite(v) for v in (ms, plain_ms, flagship_err, k4_ms, nuts_plain_ms, k4_err,
                                          k2_entry["ms"], k2_entry["plain_ms"], k2_entry["fold_ms"],

@@ -1,23 +1,34 @@
-"""JAX's threefry2x32 PRNG keys, in torch.
+"""JAX's PRNG keys, in torch: threefry2x32 and rbg.
 
-The counterpart of ``jax.random``'s default key implementation, with
+The counterpart of ``jax.random``'s two key implementations, with
 ``jax_threefry_partitionable`` on (JAX's default): the same key words, splits,
-fold-ins, bits, uniforms and normals as ``jax.random`` gives for the same
-seed, so that a model driven by ``key(0)`` draws what the JAX package draws
-from ``jax.random.key(0)``.
+fold-ins, bits, uniforms, normals, integers and coin flips as ``jax.random``
+gives for the same seed, so that a model driven by ``key(0)`` draws what the
+JAX package draws from ``jax.random.key(0)``.
 
-A key is an int64 tensor whose last axis holds the key's two 32-bit words,
-each in ``[0, 2**32)``; a batch of keys carries leading axes (``split``
-returns ``(num, 2)``), and ``torch.func.vmap`` maps over them like any
-tensor. The words stay in int64 and every sum and shift is masked back to 32
-bits, since torch on the CPU has no shifts of uint32. A key lives on a
-device; every function but ``key`` runs where its key lives.
+A key is an int64 tensor whose last axis holds the key's 32-bit words, each in
+``[0, 2**32)``: two for threefry2x32 (JAX's default), four for rbg; a batch of
+keys carries leading axes (``split`` returns ``(num, 2)`` or ``(num, 4)``),
+and ``torch.func.vmap`` maps over them like any tensor. The words stay in
+int64 and every sum, product and shift is masked back to 32 bits, since torch
+on the CPU has no shifts of uint32. A key lives on a device; every function
+but ``key`` runs where its key lives.
+
+An rbg key is two threefry keys side by side: ``key``, ``split`` and
+``fold_in`` apply threefry to each half, so a key made by them has equal
+halves. Its bits are XLA's ``RngBitGenerator`` as JAX's CPU backend runs it,
+Philox4x32-10: for key words ``(w0, w1, w2, w3)`` the Philox key is ``(w0,
+w1)``, block ``b`` is counted at ``(w2 + b, w3 + carry, w0, w1)`` (a 64-bit
+add over the two low words), and its four words are the row-major elements
+``4b .. 4b + 3`` of the draw. (On a TPU, rbg is the chip's own generator,
+which this does not reproduce.)
 
 The sources are ``jax/_src/prng.py`` (``threefry_seed``,
 ``_threefry2x32_lowering``, ``_threefry_split_foldlike``,
-``threefry_fold_in``, ``_threefry_random_bits_partitionable``) and
-``jax/_src/random.py`` (``_uniform``, ``_normal_real`` and the samplers the
-distributions reproduce).
+``threefry_fold_in``, ``_threefry_random_bits_partitionable``, ``_rbg_seed``,
+``_rbg_split``, ``_rbg_fold_in``, ``_rbg_random_bits``) and
+``jax/_src/random.py`` (``_uniform``, ``_normal_real``, ``_randint``,
+``_bernoulli`` and the samplers the distributions reproduce).
 
 >>> k = key(0, device="cpu")
 >>> k.tolist()
@@ -26,6 +37,10 @@ distributions reproduce).
 [[1797259609, 2579123966], [928981903, 3453687069]]
 >>> round(float(normal(k)), 6)
 1.622642
+>>> key(0, device="cpu", impl="rbg").tolist()
+[0, 0, 0, 0]
+>>> int(randint(k, (), 0, 2**30))
+31327077
 """
 
 from __future__ import annotations
@@ -37,28 +52,37 @@ import torch
 
 from .device import entry_device
 
-#: A key: an int64 tensor of two 32-bit words on its last axis.
+#: A key: an int64 tensor of two (threefry2x32) or four (rbg) 32-bit words
+#: on its last axis.
 PRNGKey = torch.Tensor
 
 _M32 = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 _PARITY = 0x1BD11BDA
+_IMPLS = {"threefry2x32": 2, "rbg": 4}
+# Philox4x32-10's multipliers and key increments
+_PHILOX_M = (0xD2511F53, 0xCD9E8D57)
+_PHILOX_W = (0x9E3779B9, 0xBB67AE85)
 
 
 def is_key(x) -> bool:
-    """Whether ``x`` is a key: an int64 tensor with a last axis of 2."""
-    return isinstance(x, torch.Tensor) and x.dtype == torch.int64 and x.dim() >= 1 and x.shape[-1] == 2
+    """Whether ``x`` is a key: an int64 tensor with a last axis of 2
+    (threefry2x32) or 4 (rbg)."""
+    return isinstance(x, torch.Tensor) and x.dtype == torch.int64 and x.dim() >= 1 and x.shape[-1] in (2, 4)
 
 
-def key(seed, device=None) -> torch.Tensor:
-    """The key of an integer seed, as ``jax.random.key(seed)`` makes it under
-    JAX's default 32-bit mode: the seed is taken as an int32 (its low 32
-    bits), so the high word is 0 and the low word is ``seed mod 2**32``
-    (``-3`` gives ``[0, 4294967293]``, ``2**32 + 5`` gives ``[0, 5]``). An
-    integer tensor of seeds gives a key for each.
+def key(seed, device=None, impl: str = "threefry2x32") -> torch.Tensor:
+    """The key of an integer seed, as ``jax.random.key(seed, impl=impl)``
+    makes it under JAX's default 32-bit mode: the seed is taken as an int32
+    (its low 32 bits), so the high word is 0 and the low word is ``seed mod
+    2**32`` (``-3`` gives ``[0, 4294967293]``, ``2**32 + 5`` gives ``[0,
+    5]``); an rbg key holds that pair twice. An integer tensor of seeds gives
+    a key for each.
 
     An entry point: it makes the key on the card unless ``device`` names
     another, and raises naming ``device="cpu"`` where torch sees no card."""
+    if impl not in _IMPLS:
+        raise ValueError(f"key: impl must be one of {sorted(_IMPLS)}, got {impl!r}")
     device = entry_device("cuda" if device is None else device, "key")
     if isinstance(seed, torch.Tensor):
         if seed.is_floating_point() or seed.dtype == torch.bool:
@@ -69,12 +93,21 @@ def key(seed, device=None) -> torch.Tensor:
             low = torch.tensor(operator.index(seed) & _M32, dtype=torch.int64, device=device)
         except TypeError:
             raise TypeError(f"key: a seed must be an integer, got {type(seed).__name__}") from None
-    return torch.stack([torch.zeros_like(low), low], dim=-1)
+    half = [torch.zeros_like(low), low]
+    return torch.stack(half * (_IMPLS[impl] // 2), dim=-1)
 
 
 def _check(k, what: str) -> None:
     if not is_key(k):
-        raise TypeError(f"{what}: expected a key (an int64 tensor of two words on its last axis), got {_describe(k)}")
+        raise TypeError(f"{what}: expected a key (an int64 tensor of two or four words on its last axis), "
+                        f"got {_describe(k)}")
+
+
+def _halves(k: torch.Tensor, f) -> torch.Tensor:
+    """``f`` of a threefry key, or of each half of an rbg key side by side."""
+    if k.shape[-1] == 2:
+        return f(k)
+    return torch.cat([f(k[..., :2]), f(k[..., 2:])], dim=-1)
 
 
 def _describe(x) -> str:
@@ -123,8 +156,12 @@ def split(k: torch.Tensor, num=2) -> torch.Tensor:
     """``num`` new keys from ``k`` (``num`` an int or a shape), as
     ``jax.random.split``: shape ``k.shape[:-1] + shape + (2,)``."""
     _check(k, "split")
-    b1, b2 = _hash_iota(k, _shape(num))
-    return torch.stack([b1, b2], dim=-1)
+
+    def one(half):
+        b1, b2 = _hash_iota(half, _shape(num))
+        return torch.stack([b1, b2], dim=-1)
+
+    return _halves(k, one)
 
 
 def fold_in(k: torch.Tensor, data) -> torch.Tensor:
@@ -136,8 +173,54 @@ def fold_in(k: torch.Tensor, data) -> torch.Tensor:
         d = data.to(device=k.device, dtype=torch.int64) & _M32
     else:
         d = int(data) & _M32
-    b1, b2 = threefry2x32(k[..., 0], k[..., 1], torch.zeros_like(k[..., 0]), d + torch.zeros_like(k[..., 1]))
-    return torch.stack([b1, b2], dim=-1)
+
+    def one(half):
+        b1, b2 = threefry2x32(half[..., 0], half[..., 1], torch.zeros_like(half[..., 0]),
+                              d + torch.zeros_like(half[..., 1]))
+        return torch.stack([b1, b2], dim=-1)
+
+    return _halves(k, one)
+
+
+def _mulhilo(a: torch.Tensor, m: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The high and low words of the 64-bit product ``a * m`` (``a`` in
+    ``[0, 2**32)``, ``m`` a 32-bit constant), from 16-bit halves: torch has
+    no unsigned 64-bit multiply, and every partial product here stays under
+    ``2**34``."""
+    ah, al = a >> 16, a & 0xFFFF
+    mh, ml = m >> 16, m & 0xFFFF
+    mid = ah * ml + al * mh
+    low = al * ml + ((mid & 0xFFFF) << 16)
+    high = ah * mh + (mid >> 16) + (low >> 32)
+    return high & _M32, low & _M32
+
+
+def _philox4x32(counter: tuple, key_words: tuple) -> tuple:
+    """Philox4x32-10 of the counter words ``(c0, c1, c2, c3)`` under the key
+    words ``(k0, k1)``: ten rounds, the key bumped between them; int64
+    tensors in ``[0, 2**32)`` that broadcast together."""
+    c0, c1, c2, c3 = counter
+    k0, k1 = key_words
+    for r in range(10):
+        hi0, lo0 = _mulhilo(c0, _PHILOX_M[0])
+        hi1, lo1 = _mulhilo(c2, _PHILOX_M[1])
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+        if r < 9:
+            k0, k1 = (k0 + _PHILOX_W[0]) & _M32, (k1 + _PHILOX_W[1]) & _M32
+    return c0, c1, c2, c3
+
+
+def _rbg_bits(k: torch.Tensor, shape: tuple) -> torch.Tensor:
+    """XLA's ``RngBitGenerator`` (Philox4x32-10) under each rbg key of ``k``:
+    block ``b`` at counter ``(w2 + b, w3 + carry, w0, w1)`` and key ``(w0,
+    w1)`` gives the row-major elements ``4b .. 4b + 3`` of ``shape``."""
+    n = math.prod(shape)
+    lead = tuple(k.shape[:-1])
+    w = [k[..., i].reshape(lead + (1,)) for i in range(4)]
+    low = w[2] + torch.arange((n + 3) // 4, dtype=torch.int64, device=k.device)
+    words = _philox4x32((low & _M32, (w[3] + (low >> 32)) & _M32, w[0], w[1]), (w[0], w[1]))
+    flat = torch.stack(torch.broadcast_tensors(*words), dim=-1).reshape(lead + (-1,))
+    return flat[..., :n].reshape(lead + shape)
 
 
 def bits(k: torch.Tensor, shape=()) -> torch.Tensor:
@@ -145,6 +228,8 @@ def bits(k: torch.Tensor, shape=()) -> torch.Tensor:
     ``jax.random.bits(k, shape)`` (uint32 there, int64 in ``[0, 2**32)``
     here): shape ``k.shape[:-1] + shape``."""
     _check(k, "bits")
+    if k.shape[-1] == 4:
+        return _rbg_bits(k, _shape(shape))
     b1, b2 = _hash_iota(k, _shape(shape))
     return b1 ^ b2
 
@@ -161,6 +246,8 @@ def uniform(k: torch.Tensor, shape=(), dtype=torch.float32, minval=0.0, maxval=1
         m = bits(k, shape) >> 9
         floats = m.to(torch.float32) * (2.0 ** -23)
     elif dtype == torch.float64:
+        if k.shape[-1] == 4:
+            raise TypeError("uniform: float64 draws of an rbg key are not reproduced; use float32")
         hi, lo = _hash_iota(k, shape)  # 64 bits an element, high word first
         m = (hi << 20) | (lo >> 12)
         floats = m.to(torch.float64) * (2.0 ** -52)
@@ -218,3 +305,53 @@ def normal(k: torch.Tensor, shape=(), dtype=torch.float32) -> torch.Tensor:
         raise TypeError(f"normal: dtype must be torch.float32, got {dtype}")
     u = uniform(k, shape, dtype, _NORMAL_LOW, 1.0)
     return math.sqrt(2.0) * erfinv(u)
+
+
+def _mullo(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a * b mod 2**32`` for int64 tensors in ``[0, 2**32)``."""
+    return (a * (b & 0xFFFF) + (((a * (b >> 16)) & 0xFFFF) << 16)) & _M32
+
+
+_I32_MIN, _I32_MAX = -(2**31), 2**31 - 1
+
+
+def randint(k: torch.Tensor, shape=(), minval=0, maxval=None) -> torch.Tensor:
+    """Integers in ``[minval, maxval)``, as ``jax.random.randint(k, shape,
+    minval, maxval)`` gives them in its default int32 (int64 here): two
+    32-bit draws from ``split(k)``, the high one's remainder scaled by
+    ``2**32 mod span`` and the low one's added, modulo the span. Bounds are
+    integers (or integer tensors that broadcast against ``shape``), clipped
+    to int32; a ``maxval`` past int32's largest widens the span by one."""
+    _check(k, "randint")
+    if maxval is None:
+        raise TypeError("randint: maxval is required")
+    shape = _shape(shape)
+    lo_, hi_ = (torch.as_tensor(v, dtype=torch.int64, device=k.device) for v in (minval, maxval))
+    out_of_range = hi_ > _I32_MAX
+    lo_, hi_ = lo_.clamp(_I32_MIN, _I32_MAX), hi_.clamp(_I32_MIN, _I32_MAX)
+    k1, k2 = split(k).unbind(-2)
+    higher, lower = bits(k1, shape), bits(k2, shape)
+    span = (hi_ - lo_) & _M32
+    span = torch.where(hi_ <= lo_, torch.ones_like(span), span)
+    span = torch.where(out_of_range & (hi_ > lo_), (span + 1) & _M32, span)
+    # a span that wrapped to 0 leaves the bits as they are (JAX's rem by 0
+    # in uint32 is the dividend)
+    safe = torch.where(span == 0, torch.ones_like(span), span)
+
+    def rem(a):
+        return torch.where(span == 0, a, a % safe)
+
+    multiplier = rem(torch.full_like(span, 2**16))
+    multiplier = rem(_mullo(multiplier, multiplier))
+    offset = rem((_mullo(rem(higher), multiplier) + rem(lower)) & _M32)
+    return ((lo_ + offset + 2**31) & _M32) - 2**31
+
+
+def bernoulli(k: torch.Tensor, p=0.5, shape=None) -> torch.Tensor:
+    """Coin flips that come up True with probability ``p``, as
+    ``jax.random.bernoulli``: float32 uniforms below ``p``. ``shape``
+    defaults to ``p``'s."""
+    _check(k, "bernoulli")
+    p = torch.as_tensor(p, dtype=torch.float32, device=k.device)
+    shape = tuple(p.shape) if shape is None else _shape(shape)
+    return uniform(k, shape) < p

@@ -279,6 +279,13 @@ class _KernelView:
 _seed = int_seed
 
 
+def key_seed(key: torch.Tensor, data=None) -> int:
+    """A sweep's int seed drawn from a key as the reference draws it,
+    ``randint(key, (), 0, 2**30)`` (of ``fold_in(key, data)`` where ``data``
+    is given): one host read."""
+    return int(keys.randint(key if data is None else keys.fold_in(key, data), (), 0, 2**30))
+
+
 class _ColumnSweep:
     """The launch that the batched runners (``run_chains_hmc``,
     ``run_chains_nuts``) and ``sample_posterior(algorithm="hmc_sweep")``
@@ -293,9 +300,13 @@ class _ColumnSweep:
     GFI's own ``assess`` of each chain's frozen complement. The view is
     built once here, so a phase of many launches builds it once, and the
     body it runs is named by ``body_name``. A sweep runs on a block in the launch's layout
-    (``start``): on the kernel the body's rows padded with fresh normals, on
-    the twin ``z`` itself; ``finish`` maps a block, or a stack of draws of
-    its ``real`` rows, back to ``z``'s order."""
+    (``start``): on the kernel the body's rows padded with fresh normals
+    (with zeros on the rbg stream, which draws nothing for them), on the
+    twin ``z`` itself; ``finish`` maps a block, or a stack of draws of its
+    ``real`` rows, back to ``z``'s order. On the rbg stream (``rng="rbg"``,
+    the keyed drivers) the kernel draws each launch row as the reference
+    draws the row of ``z`` it holds (``stream_rows``), so the kernel, the
+    twin and the reference's XLA twin draw alike."""
 
     def __init__(self, traces, selection: Selection, chain_axis: int, backend: str, entry: str):
         device = trace_device(traces)
@@ -307,7 +318,9 @@ class _ColumnSweep:
         self.view = view if self.backend == "cuda" else None
         self.body_name = self.view.body.name if self.view else None
 
-    def start(self, gen: torch.Generator) -> torch.Tensor:
+    def start(self, gen: torch.Generator | None) -> torch.Tensor:
+        """The block a sweep starts from; ``gen`` draws the kernel's padding
+        rows (None: zeros, for the rbg stream)."""
         return self.view.packer.pack_columns(self.z, self.view.rows, gen) if self.view else self.z
 
     def inv_mass(self, inv_mass):
@@ -316,10 +329,22 @@ class _ColumnSweep:
             return inv_mass
         return self.view.packer.pack_inv_mass(inv_mass, self.view.rows, self.z.device)
 
-    def sweep(self, sampler: Callable, q: torch.Tensor, seed: int, inv_mass, **kw):
+    def stream_rows(self) -> list[int] | None:
+        """The row of ``z`` each launch row draws on the rbg stream (-1 for
+        the padding); None where the launch block is ``z``."""
+        if not self.view:
+            return None
+        packer = self.view.packer
+        return list(self.view.rows) + [-1] * (packer.padded_dim - packer.dim)
+
+    def sweep(self, sampler: Callable, q: torch.Tensor, seed: int, inv_mass, rng: str | None = None, **kw):
         """``sampler`` (``pallas_hmc`` or ``pallas_nuts``) from ``q``, with
-        ``inv_mass`` in the launch's layout: one launch on the kernel."""
+        ``inv_mass`` in the launch's layout: one launch on the kernel. With
+        ``rng="rbg"`` the sweep draws the reference twin's keyed stream from
+        the int ``seed``."""
         density = self.view.body if self.view else self.ld_cols
+        if rng == "rbg":
+            kw = dict(kw, rng="rbg", stream_rows=self.stream_rows())
         return sampler(density, q, seed, backend=self.backend, inv_mass=inv_mass, **kw)
 
     def real(self, q: torch.Tensor) -> torch.Tensor:
@@ -373,6 +398,13 @@ def run_chains_hmc(
     ``run_chains_hmc.last_body`` (``"hier_regression"``, ``"staged"``;
     None on the twin).
 
+    ``gen`` is a ``torch.Generator`` on the traces' device, or a PRNG key
+    (``core/keys.py``). Under a key it draws what the reference's
+    ``run_chains_hmc`` draws: ``k_sweep, k_upd = split(key)``, the sweep
+    seeded ``randint(k_sweep, (), 0, 2**30)`` (one host read) on the rbg
+    stream (K1's rbg kernel on the card, the twin's rbg stream elsewhere),
+    and the traces rebuilt under ``k_upd``.
+
     Args:
         traces: a batched trace pytree (from ``torch.func.vmap`` of
             ``generate``), chain axis at ``chain_axis`` on every leaf.
@@ -401,18 +433,29 @@ def run_chains_hmc(
     True
     """
     check_same_device(gen, traces, "run_chains_hmc")
-    check_generator(gen, "run_chains_hmc")
-    seed = _seed(gen)
+    gen, seed, k_upd, rng = _sweep_stream(gen, "run_chains_hmc")
     run = _ColumnSweep(traces, selection, chain_axis, backend, "run_chains_hmc")
     q, accept_rate = run.sweep(
-        pallas_hmc, run.start(gen), seed, run.inv_mass(inv_mass), n_steps=n_steps, eps=eps, L=L
+        pallas_hmc, run.start(gen), seed, run.inv_mass(inv_mass), rng=rng, n_steps=n_steps, eps=eps, L=L
     )
     run_chains_hmc.last_backend, run_chains_hmc.last_body = run.backend, run.body_name
-    return run.write_back(run.finish(q), gen), accept_rate
+    return run.write_back(run.finish(q), k_upd), accept_rate
 
 
 run_chains_hmc.last_backend = None
 run_chains_hmc.last_body = None
+
+
+def _sweep_stream(gen, entry: str):
+    """A batched driver's stream: ``(generator for the padding, seed, the
+    write-back's generator or key, rng)``. A generator draws the seed (the
+    production stream); a key splits into ``k_sweep, k_upd`` and seeds the
+    rbg stream from ``k_sweep``, as the reference does."""
+    if keys.is_key(gen):
+        k_sweep, k_upd = keys.split(gen).unbind(-2)
+        return None, key_seed(k_sweep), k_upd, "rbg"
+    check_generator(gen, entry)
+    return gen, _seed(gen), gen, None
 
 
 def run_chains_nuts(
@@ -439,7 +482,9 @@ def run_chains_nuts(
     cannot be staged raises; ``backend="torch"``, and the CPU, run the twin
     ``nuts_sweep_cols`` over the GFI's own ``assess``. The backend taken is
     recorded on ``run_chains_nuts.last_backend``, the body on
-    ``run_chains_nuts.last_body``.
+    ``run_chains_nuts.last_body``. Under a key it draws what the reference's
+    ``run_chains_nuts`` draws, as ``run_chains_hmc`` does (K4's rbg kernel
+    on the card).
 
     Returns ``(traces, accept_stat, mean_leapfrogs)``, the traces in the
     layout of the input batch.
@@ -462,15 +507,14 @@ def run_chains_nuts(
     True
     """
     check_same_device(gen, traces, "run_chains_nuts")
-    check_generator(gen, "run_chains_nuts")
-    seed = _seed(gen)
+    gen, seed, k_upd, rng = _sweep_stream(gen, "run_chains_nuts")
     run = _ColumnSweep(traces, selection, chain_axis, backend, "run_chains_nuts")
     q, accept_stat, leaps = run.sweep(
-        pallas_nuts, run.start(gen), seed, run.inv_mass(inv_mass), n_steps=n_steps, eps=eps,
+        pallas_nuts, run.start(gen), seed, run.inv_mass(inv_mass), rng=rng, n_steps=n_steps, eps=eps,
         max_depth=max_depth,
     )
     run_chains_nuts.last_backend, run_chains_nuts.last_body = run.backend, run.body_name
-    return run.write_back(run.finish(q), gen), accept_stat, leaps
+    return run.write_back(run.finish(q), k_upd), accept_stat, leaps
 
 
 run_chains_nuts.last_backend = None

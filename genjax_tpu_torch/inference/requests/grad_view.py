@@ -18,6 +18,7 @@ from typing import Callable
 import torch
 import torch.utils._pytree as pytree
 
+from ...core import keys
 from ...core.diff import Diff
 from ...core.typing_ import static_check_supports_grad
 from ...generative.choice_map import ChoiceMap
@@ -110,14 +111,20 @@ def column_view(traces, selection: Selection, chain_axis: int = 0):
         return torch.func.vmap(ld_one, in_dims=(chain_axis, 1))(traces, z)
 
     def write_back(z_final, gen):
-        def one(tr, z):
+        def one(tr, z, g):
             _z0, rebuild = split_ravel(sel_chm(tr))
-            new_tr, _w, _rd, _bwd = tr.update(gen, rebuild(z))
+            new_tr, _w, _rd, _bwd = tr.update(g, rebuild(z))
             return new_tr
 
         # out at axis 0 and moved after: a negative out_dims misplaces the
-        # leaves that do not depend on the batch
-        new = torch.func.vmap(one, in_dims=(chain_axis, 1), randomness="different")(traces, z_final)
+        # leaves that do not depend on the batch. Under a key, chain i
+        # updates with the i-th of split(key, n), as the reference's does
+        if keys.is_key(gen):
+            new = torch.func.vmap(one, in_dims=(chain_axis, 1, 0))(traces, z_final,
+                                                                   keys.split(gen, z_final.shape[1]))
+        else:
+            new = torch.func.vmap(lambda tr, z: one(tr, z, gen), in_dims=(chain_axis, 1),
+                                  randomness="different")(traces, z_final)
         if chain_axis == 0:
             return new
         return pytree.tree_map(lambda v: torch.movedim(v, 0, chain_axis), new)

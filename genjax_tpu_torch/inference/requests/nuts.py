@@ -18,12 +18,12 @@ from typing import Any
 
 import torch
 
+from ...core import keys
 from ...core.diff import Diff
 from ...core.pytree import Pytree
 from ...generative.concepts import Argdiffs, EditRequest, Retdiff, Update, Weight
 from ...generative.selection import Selection
 from ...generative.trace import Trace
-from ...generative.typecheck import check_generator
 from ...kernels.nuts import nuts_transition
 from .grad_view import selected_logdensity
 
@@ -59,18 +59,20 @@ class NUTS(EditRequest):
     def edit_with_info(self, gen: torch.Generator, tr: Trace, argdiffs: Argdiffs):
         """``edit``, and the transition's ``NUTSInfo`` (accept statistic,
         leapfrogs, divergence, depth) after the backward request: for
-        drivers that report the sampler's health (``sample_posterior``)."""
+        drivers that report the sampler's health (``sample_posterior``).
+        Under a key, the key splits in two as the reference's does: the move
+        and the ``Update``."""
         if not Diff.static_check_no_change(argdiffs):
             raise NotImplementedError("NUTS requires unchanged arguments.")
-        check_generator(gen, "NUTS")
         z0, logdensity, to_choices = selected_logdensity(
             tr.get_gen_fn(), tr.get_choices(), self.selection, Diff.tree_primal(argdiffs)
         )
+        k_move, k_update = keys.split(gen).unbind(-2) if keys.is_key(gen) else (gen, gen)
         z_new, info = nuts_transition(
-            logdensity, z0.to(torch.float32), gen, self.eps, max_depth=self.max_depth,
+            logdensity, z0.to(torch.float32), k_move, self.eps, max_depth=self.max_depth,
             divergence_threshold=self.divergence_threshold, inv_mass=self.inv_mass,
         )
-        new_tr, _w, retdiff, _bwd = Update(to_choices(z_new)).edit(gen, tr, argdiffs)
+        new_tr, _w, retdiff, _bwd = Update(to_choices(z_new)).edit(k_update, tr, argdiffs)
         bwd = NUTS(self.selection, self.eps, self.max_depth, self.divergence_threshold, self.inv_mass)
         return new_tr, torch.zeros((), device=z0.device), retdiff, bwd, info
 

@@ -22,7 +22,9 @@ samples, and report split-R̂ and ESS for each sampled parameter.
 - ``sample_logdensity`` runs ChEES on a raw column log-density.
 
 Chains are made on ``device``, the card unless the caller asks for the CPU;
-randomness comes from one ``torch.Generator`` on it. The trace-path
+randomness comes from one ``torch.Generator`` on it, or, for the trace-path
+algorithms, from a PRNG key (``core/keys.py``), under which they draw what
+the reference draws from the same key. The trace-path
 algorithms run their sampling in segments and, given ``checkpoint_dir``,
 save the whole sampler state after the warmup and after every segment
 (``io.save_segment_state``), so that a call with the same arguments resumes
@@ -41,13 +43,15 @@ from typing import Any
 import torch
 import torch.utils._pytree as pytree
 
-from ..core.device import entry_device, stream_seed, to_device
+from ..core import keys
+from ..core.device import entry_device, same_device, stream_seed, to_device
 from ..core.diff import Diff
 from ..core.pytree import Pytree
 from ..generative.choice_map import ChoiceMap
 from ..generative.gfi import GenerativeFunction
 from ..generative.mask import Mask
 from ..generative.selection import Selection
+from ..generative.typecheck import check_generator
 from ..io import check_meta_matches, load_increments, load_segment_state, save_segment_state
 from ..kernels.adaptation import cross_chain_inv_mass, multiplicative_nudge, windowed_warmup
 from ..kernels.chees import chees_hmc
@@ -59,7 +63,7 @@ from ..kernels.pt import geometric_ladder, pt_hmc
 from ..kernels.staged import staging_scope
 from ..parallel.mesh import local_count, mesh_generators
 from .diagnostics import ess, split_rhat
-from .mcmc import _ColumnSweep, _seed, generator_on, mh
+from .mcmc import _ColumnSweep, _seed, generator_on, key_seed, mh
 from .requests.grad_view import column_view, split_ravel
 from .requests.hmc import HMC
 from .requests.nuts import NUTS
@@ -129,8 +133,11 @@ def _positions(traces, selection: Selection) -> torch.Tensor:
 
 def _init_traces(gen, model, constraint, args, n_chains: int, device):
     """``n_chains`` traces of ``model.generate`` under ``constraint``, chains
-    first, on ``device``."""
+    first, on ``device``; under a key, chain ``i`` generates from the
+    ``i``-th of ``split(key, n_chains)``, as the reference's do."""
     constraint, args = to_device(constraint, device), to_device(args, device)
+    if keys.is_key(gen):
+        return torch.func.vmap(lambda k: model.generate(k, constraint, args)[0])(keys.split(gen, n_chains))
     return torch.func.vmap(
         lambda _: model.generate(gen, constraint, args)[0], randomness="different"
     )(torch.zeros(n_chains, device=device))
@@ -138,43 +145,57 @@ def _init_traces(gen, model, constraint, args, n_chains: int, device):
 
 def _trace_step(gen, selection: Selection, algorithm: str, *, L: int, max_depth: int):
     """One transition of every chain of a trace batch at ``(eps,
-    inv_mass)``: ``step(traces, eps, inv_mass) -> (traces, accept,
-    divergence)``, the last two means over the chains. NUTS reports its
-    accept statistic and divergences; HMC its MH accepts and no divergence."""
+    inv_mass)``: ``step(traces, eps, inv_mass, key=None) -> (traces,
+    accept, divergence)``, the last two means over the chains. NUTS reports
+    its accept statistic and divergences; HMC its MH accepts and no
+    divergence. Every chain draws from ``gen``, or, given ``key``, chain
+    ``i`` from the ``i``-th of ``split(key, n_chains)``, as the reference's
+    transitions do."""
 
-    def one(tr, eps, inv_mass):
+    def one(g, tr, eps, inv_mass):
         if algorithm == "nuts":
             request = NUTS(selection, eps, max_depth=max_depth, inv_mass=inv_mass)
             argdiffs = Diff.tree_diff_no_change(tr.get_args())
-            new_tr, _w, _rd, _bwd, info = request.edit_with_info(gen, tr, argdiffs)
+            new_tr, _w, _rd, _bwd, info = request.edit_with_info(g, tr, argdiffs)
             return new_tr, info.accept_prob, info.diverged.to(torch.float32)
-        new_tr, accepted = mh(gen, tr, HMC(selection, eps, L=L, inv_mass=inv_mass))
+        new_tr, accepted = mh(g, tr, HMC(selection, eps, L=L, inv_mass=inv_mass))
         accepted = accepted.to(torch.float32)
         return new_tr, accepted, torch.zeros_like(accepted)
 
-    batched = torch.func.vmap(one, in_dims=(0, None, None), randomness="different")
+    batched = torch.func.vmap(lambda tr, eps, inv_mass: one(gen, tr, eps, inv_mass), in_dims=(0, None, None),
+                              randomness="different")
+    keyed = torch.func.vmap(one, in_dims=(0, 0, None, None))
 
-    def step(traces, eps, inv_mass):
-        traces, accs, divs = batched(traces, eps, inv_mass)
+    def step(traces, eps, inv_mass, key=None):
+        if key is None:
+            traces, accs, divs = batched(traces, eps, inv_mass)
+        else:
+            n = pytree.tree_leaves(traces)[0].shape[0]
+            traces, accs, divs = keyed(keys.split(key, n), traces, eps, inv_mass)
         return traces, accs.mean(), divs.mean()
 
     return step
 
 
 def _warm(step, traces, selection: Selection, *, n_warmup: int, eps0, target_accept: float, mesh=None,
-          axis: str = "batch"):
+          axis: str = "batch", key=None):
     """The trace path's warmup: each window runs its transitions at the
     current settings, nudges ``eps`` toward ``target_accept`` by the
     window's mean accept, and takes the inverse mass from the cross-chain
     variance of the raveled selected choices (over every rank's chains
-    with ``mesh``). ``eps`` stays on the device."""
+    with ``mesh``). ``eps`` stays on the device. Under ``key`` (the
+    reference's ``k_warm``) window ``w`` takes the ``w``-th of
+    ``split(key, n_windows)`` and splits it over its transitions."""
     z = _positions(traces, selection)
     eps = torch.tensor(eps0, dtype=torch.float32, device=z.device)
     inv_mass = torch.ones(z.shape[1], device=z.device)
-    for n_steps in _windows(n_warmup):
+    windows = _windows(n_warmup)
+    wkeys = keys.split(key, len(windows)) if key is not None and windows else None
+    for wi, n_steps in enumerate(windows):
         accs = []
-        for _ in range(n_steps):
-            traces, acc, _div = step(traces, eps, inv_mass)
+        step_keys = keys.split(wkeys[wi], n_steps) if wkeys is not None else [None] * n_steps
+        for kk in step_keys:
+            traces, acc, _div = step(traces, eps, inv_mass, kk)
             accs.append(acc)
         acc = torch.stack(accs).mean()
         if mesh is not None:
@@ -198,17 +219,20 @@ def _sweep_seed(base: int, s: int) -> int:
 
 
 def _draw(step, draw_gen: torch.Generator, traces, selection: Selection, *, lo: int, hi: int, base: int,
-          thin: int, eps, inv_mass):
+          thin: int, eps, inv_mass, sample_keys=None):
     """The trace path's sampling of draws ``lo .. hi - 1``: a draw of every
     chain each ``thin`` transitions, ``step`` drawing from ``draw_gen``,
-    reseeded for each draw (``_draw_seed``). Returns ``(traces, draws (N,
-    hi - lo, d), accepts (hi - lo,), divergences (hi - lo,))``."""
+    reseeded for each draw (``_draw_seed``), or under ``sample_keys`` (the
+    reference's pre-split draw keys) from the ``thin`` keys of
+    ``split(sample_keys[s], thin)`` for draw ``s``. Returns ``(traces, draws
+    (N, hi - lo, d), accepts (hi - lo,), divergences (hi - lo,))``."""
     draws, accs, divs = [], [], []
     for s in range(lo, hi):
-        draw_gen.manual_seed(_draw_seed(base, s))
+        if sample_keys is None:
+            draw_gen.manual_seed(_draw_seed(base, s))
         a, dv = [], []
-        for _ in range(thin):
-            traces, acc, div = step(traces, eps, inv_mass)
+        for kk in (keys.split(sample_keys[s], thin) if sample_keys is not None else [None] * thin):
+            traces, acc, div = step(traces, eps, inv_mass, kk)
             a.append(acc)
             dv.append(div)
         draws.append(_positions(traces, selection))
@@ -224,27 +248,31 @@ def _warm_sweep(gen, traces, selection: Selection, *, n_warmup: int, eps0, L: in
     the host once a window, as the launch takes it) and the block's
     cross-chain variance giving the inverse mass; the traces are rebuilt
     once at the end. With ``mesh``, the accept and the mass are those of
-    every rank's chains."""
+    every rank's chains. Under a key (the reference's ``k_warm``) window
+    ``w`` is seeded ``randint(fold_in(key, 3)) + w`` on the rbg stream and
+    the traces are rebuilt under ``fold_in(key, 9)``, as the reference's
+    are."""
     run = _ColumnSweep(traces, selection, 0, backend, "sample_posterior")
     eps = torch.tensor(eps0, dtype=torch.float32, device=run.z.device)
     inv_mass = torch.ones(run.z.shape[0], device=run.z.device)
     windows = _windows(n_warmup)
     if not windows:
         return traces, eps, inv_mass
-    seed = _seed(gen)
-    q = run.start(gen)
+    keyed = keys.is_key(gen)
+    seed = key_seed(gen, 3) if keyed else _seed(gen)
+    q = run.start(None if keyed else gen)
     for wi, n_steps in enumerate(windows):
-        q, acc = run.sweep(pallas_hmc, q, seed + wi, run.inv_mass(inv_mass), n_steps=n_steps,
-                           eps=float(eps), L=L)
+        q, acc = run.sweep(pallas_hmc, q, seed + wi, run.inv_mass(inv_mass), rng="rbg" if keyed else None,
+                           n_steps=n_steps, eps=float(eps), L=L)
         if mesh is not None:
             acc = mesh.all_reduce_mean(acc, axis)
         eps = multiplicative_nudge(eps, acc, target_accept=target_accept)
         inv_mass = cross_chain_inv_mass(run.finish(q), chain_axis=1, mesh=mesh, axis=axis)
-    return run.write_back(run.finish(q), gen), eps, inv_mass
+    return run.write_back(run.finish(q), keys.fold_in(gen, 9) if keyed else gen), eps, inv_mass
 
 
 def _draw_sweep(draw_gen: torch.Generator, traces, selection: Selection, *, lo: int, hi: int, base: int,
-                thin: int, eps, inv_mass, L: int, backend: str):
+                thin: int, eps, inv_mass, L: int, backend: str, sample_keys=None):
     """``"hmc_sweep"``'s sampling of draws ``lo .. hi - 1`` on one column
     block: one sweep of ``thin`` steps per draw (on the card one K1 launch),
     seeded ``_sweep_seed(base, s)`` for draw ``s``, ``eps`` read and the
@@ -253,17 +281,27 @@ def _draw_sweep(draw_gen: torch.Generator, traces, selection: Selection, *, lo: 
     the stream of draw ``hi``). The block's padding rows (on the kernel) are
     drawn from the stream ``_PAD_STREAM``, the same in every segment: they
     are inert, so every segment starts them where a whole run keeps them.
-    Returns ``(traces, draws (N, hi - lo, d), accepts (hi - lo,))``."""
+    Under ``sample_keys`` (the reference's pre-split draw keys) draw ``s``
+    is seeded ``randint(sample_keys[s])`` on the rbg stream (the segment's
+    seeds read to the host at once), the padding starts at 0, and the traces
+    are rebuilt under ``fold_in(sample_keys[hi - 1], 17)``, as the
+    reference's are. Returns ``(traces, draws (N, hi - lo, d), accepts (hi -
+    lo,))``."""
     run = _ColumnSweep(traces, selection, 0, backend, "sample_posterior")
-    q = run.start(draw_gen.manual_seed(_draw_seed(base, _PAD_STREAM)))
+    keyed = sample_keys is not None
+    q = run.start(None if keyed else draw_gen.manual_seed(_draw_seed(base, _PAD_STREAM)))
     eps, inv_mass = float(eps), run.inv_mass(inv_mass)
+    seeds = (keys.randint(sample_keys[lo:hi], (), 0, 2**30).tolist() if keyed
+             else [_sweep_seed(base, s) for s in range(lo, hi)])
     draws, accs = [], []
-    for s in range(lo, hi):
-        q, acc = run.sweep(pallas_hmc, q, _sweep_seed(base, s), inv_mass, n_steps=thin, eps=eps, L=L)
+    for seed in seeds:
+        q, acc = run.sweep(pallas_hmc, q, seed, inv_mass, rng="rbg" if keyed else None, n_steps=thin, eps=eps,
+                           L=L)
         draws.append(run.real(q))
         accs.append(acc)
     z = run.finish(torch.stack(draws))  # (hi - lo, d, N)
-    traces = run.write_back(z[-1], draw_gen.manual_seed(_draw_seed(base, hi)))
+    upd = keys.fold_in(sample_keys[hi - 1], 17) if keyed else draw_gen.manual_seed(_draw_seed(base, hi))
+    traces = run.write_back(z[-1], upd)
     return traces, z.permute(2, 0, 1), torch.stack(accs)
 
 
@@ -311,6 +349,32 @@ def _state_hash(gen: torch.Generator) -> str:
     return hashlib.sha256(gen.get_state().numpy().tobytes()).hexdigest()[:16]
 
 
+def _gen_state(gen) -> torch.Tensor:
+    """What a checkpoint keeps of the caller's stream: a generator's state
+    (after the base seed was drawn), or a key's words."""
+    return gen.get_state() if isinstance(gen, torch.Generator) else gen.cpu()
+
+
+def _key_on(key: torch.Tensor, device, algorithm: str, mesh) -> torch.device:
+    """The device of a keyed ``sample_posterior``: ``device``, where the key
+    must live. The keyed path is the trace algorithms' on one process; the
+    column algorithms and ``mesh=`` take a generator."""
+    if algorithm in _COLUMN_ALGORITHMS:
+        check_generator(key, f"sample_posterior(algorithm={algorithm!r})")
+    if mesh is not None:
+        raise ValueError(
+            "sample_posterior: a key with mesh= is not reproduced (the sharded run draws each rank's "
+            "stream from a generator); pass a torch.Generator, or drop mesh="
+        )
+    device = entry_device(device, "sample_posterior")
+    if not same_device(key.device, device):
+        raise ValueError(
+            f"sample_posterior: the key lives on {key.device} and the chains are to run on {device}; "
+            f"pass device={key.device.type!r} or a key on {device}"
+        )
+    return device
+
+
 def _save_sampler_state(checkpoint_dir, traces, eps, inv_mass, base: int, gen_state, increment,
                         next_segment: int, n_done: int, *, run_identity: dict, group=None):
     """Checkpoint the sampler through the crash-safe segmented save
@@ -341,13 +405,14 @@ def _restore_sampler_state(checkpoint_dir, template_traces, gen: torch.Generator
         check_meta_matches(checkpoint_dir, meta, run_identity)
         return {"traces": template_traces, "eps": torch.zeros((), device=device),
                 "inv_mass": torch.zeros(meta["d"], device=device), "base": torch.tensor(0),
-                "gen_state": torch.zeros_like(gen.get_state())}
+                "gen_state": torch.zeros_like(_gen_state(gen))}
 
     out = load_segment_state(checkpoint_dir, make_template, group=group)
     if out is None:
         return None
     state, meta = out
-    gen.set_state(state["gen_state"])
+    if isinstance(gen, torch.Generator):
+        gen.set_state(state["gen_state"])
     d = meta["d"]
 
     def increment_template(si):
@@ -577,6 +642,15 @@ def sample_posterior(
     on that device, or an int that seeds one; the constraint's and the
     arguments' tensors are moved there.
 
+    ``gen`` may also be a key on that device for ``"nuts"``, ``"hmc"`` and
+    ``"hmc_sweep"``: the run then draws what the reference's draws from the
+    same key, draw for draw (``k_init, k_warm, k_run = split(key, 3)``, the
+    chains from ``split(k_init, n_chains)``, the warmup's windows and the
+    pre-split draw keys of ``k_run``; ``"hmc_sweep"`` seeds its sweeps
+    with ``randint`` of those keys on the rbg stream, K1's rbg kernel on the
+    card). A key with a column algorithm raises, naming a generator, and so
+    does a key with ``mesh=``.
+
     Warmup: up to 6 windows totalling exactly ``n_warmup`` transitions
     (``n_warmup=0`` keeps ``eps0`` and the identity mass); each runs its
     transitions at the current settings, nudges the step size toward
@@ -630,7 +704,8 @@ def sample_posterior(
     is seeded from one base seed, drawn after the warmup, and the draw's
     index, so where the run is cut changes nothing (a run without a
     checkpoint is the same run). A checkpoint of other arguments or another
-    seed is refused. ``max_segments`` bounds the new segments a call runs;
+    seed (or key: the run identity records its words) is refused.
+    ``max_segments`` bounds the new segments a call runs;
     a call that stops early returns the draws so far, and one that ran
     none raises. The column algorithms refuse ``checkpoint_dir``
     (``ValueError``).
@@ -676,7 +751,13 @@ def sample_posterior(
     if n_samples <= 0:
         # before the warmup, which would otherwise run in full first
         raise ValueError(f"n_samples must be >= 1, got {n_samples}")
-    if mesh is None:
+    keyed = keys.is_key(gen)
+    if keyed:
+        device = _key_on(gen, device, algorithm, mesh)
+        n_local = n_chains
+        seed_identity = (gen.tolist(), "key")
+        k_init, k_warm, k_run = keys.split(gen, 3).unbind(-2)
+    elif mesh is None:
         device = entry_device(device, "sample_posterior")
         gen = generator_on(gen, device, "sample_posterior")
         n_local = n_chains
@@ -712,7 +793,7 @@ def sample_posterior(
         "backend": backend, "layout": "increments", "world": 1 if mesh is None else mesh.world_size,
     }
     bounds = [(lo, min(lo + seg_size, n_samples)) for lo in range(0, n_samples, seg_size)]
-    traces = _init_traces(gen, model, constraint, args, n_local, device)
+    traces = _init_traces(k_init if keyed else gen, model, constraint, args, n_local, device)
     restored = None
     if checkpoint_dir is not None:
         restored = _restore_sampler_state(checkpoint_dir, traces, gen, bounds, n_local, run_identity=run_identity,
@@ -722,21 +803,24 @@ def sample_posterior(
     else:
         if algorithm == "hmc_sweep":
             traces, eps, inv_mass = _warm_sweep(
-                gen, traces, selection, n_warmup=n_warmup, eps0=eps0, L=L,
+                k_warm if keyed else gen, traces, selection, n_warmup=n_warmup, eps0=eps0, L=L,
                 target_accept=target_accept, backend=backend, mesh=mesh, axis=axis,
             )
         else:
             traces, eps, inv_mass = _warm(
                 _trace_step(gen, selection, algorithm, L=L, max_depth=max_depth), traces, selection,
                 n_warmup=n_warmup, eps0=eps0, target_accept=target_accept, mesh=mesh, axis=axis,
+                key=k_warm if keyed else None,
             )
-        # every draw's stream is seeded from this and its index alone
-        base = _seed(gen)
+        # every draw's stream is seeded from this and its index alone (under
+        # a key, from the draw's own pre-split key)
+        base = 0 if keyed else _seed(gen)
         parts, start_seg = [], 0
         if checkpoint_dir is not None:
-            _save_sampler_state(checkpoint_dir, traces, eps, inv_mass, base, gen.get_state(), None, 0, 0,
+            _save_sampler_state(checkpoint_dir, traces, eps, inv_mass, base, _gen_state(gen), None, 0, 0,
                                 run_identity=run_identity, group=mesh)
-    gen_state = gen.get_state()
+    gen_state = _gen_state(gen)
+    sample_keys = keys.split(k_run, n_samples) if keyed else None
     draw_gen = torch.Generator(device=device)
     step = _trace_step(draw_gen, selection, algorithm, L=L, max_depth=max_depth)
     for si in range(start_seg, len(bounds)):
@@ -746,13 +830,13 @@ def sample_posterior(
         if algorithm == "hmc_sweep":
             traces, d_i, a_i = _draw_sweep(
                 draw_gen, traces, selection, lo=lo, hi=hi, base=base, thin=thin, eps=eps,
-                inv_mass=inv_mass, L=L, backend=backend,
+                inv_mass=inv_mass, L=L, backend=backend, sample_keys=sample_keys,
             )
             v_i = torch.zeros_like(a_i)
         else:
             traces, d_i, a_i, v_i = _draw(
                 step, draw_gen, traces, selection, lo=lo, hi=hi, base=base, thin=thin, eps=eps,
-                inv_mass=inv_mass,
+                inv_mass=inv_mass, sample_keys=sample_keys,
             )
         parts.append((d_i, a_i, v_i))
         if checkpoint_dir is not None:

@@ -11,7 +11,9 @@ A staged build (``load_staged``) compiles K1 and K4 (``hmc_sweep.cu`` and
 that ``kernels/staged.py`` printed from a column log-density, written under
 ``build/genjax_tpu_torch/staged/`` and included through
 ``-DGJT_STAGED_HEADER=<...>``. It is keyed by a hash of the sources, the
-header and the flags.
+header and the flags. A staged build holds one stream mode's kernels: the
+counter and Philox streams', or, with ``rbg=True`` (``-DGJT_STAGED_RBG``),
+the rbg stream's, built only where a keyed driver launches them.
 """
 
 from __future__ import annotations
@@ -102,27 +104,34 @@ def load(name: str) -> ctypes.CDLL:
     return ctypes.CDLL(str(so))
 
 
-def staged_so_path(header: str) -> Path:
+_RBG_FLAG = "-DGJT_STAGED_RBG"
+
+
+def staged_so_path(header: str, rbg: bool = False) -> Path:
+    if rbg:
+        return STAGED_DIR / f"staged-rbg-{_digest(header + _RBG_FLAG)}.so"
     return STAGED_DIR / f"staged-{_digest(header)}.so"
 
 
-def staged_ptxas_report(header: str) -> str:
-    """What ``-Xptxas -v`` said when K1 and K4 were built with ``header``."""
-    return staged_so_path(header).with_suffix(".ptxas.txt").read_text()
+def staged_ptxas_report(header: str, rbg: bool = False) -> str:
+    """What ``-Xptxas -v`` said when K1 and K4 were built with ``header``
+    (their rbg kernels with ``rbg=True``)."""
+    return staged_so_path(header, rbg).with_suffix(".ptxas.txt").read_text()
 
 
 @functools.cache
-def load_staged(header: str) -> ctypes.CDLL:
+def load_staged(header: str, rbg: bool = False) -> ctypes.CDLL:
     """K1 and K4 built with the staged body ``header`` (one nvcc process for
-    both sources), compiled if the build is missing, and loaded. Builds of
-    different headers may run in parallel threads."""
-    so = staged_so_path(header)
+    both sources), their rbg kernels with ``rbg=True``, the others' without;
+    compiled if the build is missing, and loaded. Builds of different
+    headers may run in parallel threads."""
+    so = staged_so_path(header, rbg)
     if not so.exists():
-        inc = so.with_suffix(".cuh")
+        inc = staged_so_path(header).with_suffix(".cuh")
         inc.parent.mkdir(parents=True, exist_ok=True)
         tmp = inc.with_name(f"{inc.name}.{os.getpid()}.{threading.get_ident()}.tmp")
         tmp.write_text(header)
         os.replace(tmp, inc)
         _compile(so, [CSRC / "hmc_sweep.cu", CSRC / "nuts_sweep.cu"],
-                 (f"-I{STAGED_DIR}", f"-DGJT_STAGED_HEADER=<{inc.name}>"))
+                 (f"-I{STAGED_DIR}", f"-DGJT_STAGED_HEADER=<{inc.name}>", *((_RBG_FLAG,) if rbg else ())))
     return ctypes.CDLL(str(so))

@@ -9,6 +9,10 @@
 //   bits (_hw_rand_bits): K1, K4, K3 and k2_stream.cu draw through
 //   philox_normals4 and philox_u01 (K1's accept uniforms and K4's
 //   directions, leaves and subtree uniforms four a call, PhiloxUniforms);
+// - K2, the rbg stream: the draws of the reference's XLA twins from
+//   jax.random.key(seed, impl="rbg") as JAX's CPU backend makes them
+//   (rbg_word, rbg_uniform, rbg_normal): K1's and K4's rbg kernels draw
+//   them from a table of the sweep's keys the host makes;
 // - the device bodies: a column log-density and its gradient, written by hand
 //   (CUDA has no autodiff) and chosen by template parameters (K1, K4): the
 //   body and its shape (the flagship's (n_obs, d_w) = (16, 8) compiled as its
@@ -53,7 +57,7 @@ constexpr float kLog2Pi = 1.8378770664093453f;
 constexpr uint32_t kBlockMix = 0x3504F333u;
 
 enum Body { kIidNormal = 0, kHierRegression = 1, kStaged = 2 };
-enum Rng { kCounter = 0, kPhilox = 1 };
+enum Rng { kCounter = 0, kPhilox = 1, kRbg = 2 };
 
 // ---------------------------------------------------------------- K2: PRNG
 
@@ -161,6 +165,125 @@ struct PhiloxUniforms {
     return philox_u01(t == 0u ? words.x : t == 1u ? words.y : t == 2u ? words.z : words.w);
   }
 };
+
+// ------------------------------------------------------- K2: the rbg stream
+//
+// jax.random under an rbg key (w0, w1, w2, w3) draws XLA's RngBitGenerator,
+// which JAX's CPU backend runs as Philox4x32-10: the Philox key is (w0, w1),
+// block b is counted at (w2 + b, w3 + carry, w0, w1) (a 64-bit add over the
+// two low words), and its four words are the row-major elements 4b .. 4b + 3
+// of the draw (core/keys.py has the same in torch). A kernel draws element f
+// of a draw (the reference's flat index: row * N + chain for a (D, N) draw,
+// the chain for an (N,) one) with one Philox call, keeping one word of four.
+// The transforms are the reference's, step for step: uniform is the top 23
+// bits under an exponent of 1, less 1; normal is sqrt(2) erf_inv(u) of a
+// uniform on [nextafter(-1, 0), 1), with XLA's float32 erf_inv polynomial
+// (Giles) and its fused multiply-adds. Accurate log1pf and sqrtf: no
+// intrinsic here.
+
+// Block b of a draw under the rbg key k = (w0, w1, w2, w3): its elements
+// 4b .. 4b + 3.
+__device__ __forceinline__ uint4 rbg_block(uint4 k, uint64_t b) {
+  const uint64_t low = static_cast<uint64_t>(k.z) + (b & 0xFFFFFFFFull);
+  const uint32_t high = k.w + static_cast<uint32_t>(b >> 32) + static_cast<uint32_t>(low >> 32);
+  return curand_Philox4x32_10(make_uint4(static_cast<uint32_t>(low), high, k.x, k.y), make_uint2(k.x, k.y));
+}
+
+__device__ __forceinline__ uint32_t word_of(uint4 w, uint32_t t) {
+  return t == 0u ? w.x : t == 1u ? w.y : t == 2u ? w.z : w.w;
+}
+
+// Element f of a draw under the rbg key k.
+__device__ __forceinline__ uint32_t rbg_word(uint4 k, uint64_t f) {
+  return word_of(rbg_block(k, f >> 2), static_cast<uint32_t>(f & 3u));
+}
+
+// jax.random.uniform on [0, 1) from 32 bits.
+__device__ __forceinline__ float rbg_uniform(uint32_t bits) {
+  return __uint_as_float((bits >> 9) | 0x3F800000u) - 1.0f;
+}
+
+// XLA's float32 erf_inv (ErfInv32): a polynomial in w - 2.5 where
+// w = -log1p(-x^2) < 5, else in sqrt(w) - 3, times x.
+__device__ __forceinline__ float xla_erf_inv(float x) {
+  constexpr float kCentral[9] = {2.81022636e-08f, 3.43273939e-07f, -3.5233877e-06f,
+                                 -4.39150654e-06f, 0.00021858087f, -0.00125372503f,
+                                 -0.00417768164f, 0.246640727f, 1.50140941f};
+  constexpr float kTail[9] = {-0.000200214257f, 0.000100950558f, 0.00134934322f,
+                              -0.00367342844f, 0.00573950773f, -0.0076224613f,
+                              0.00943887047f, 1.00167406f, 2.83297682f};
+  const float xx = x * x;
+  float w = -log1pf(-xx);
+  const bool central = w < 5.0f;
+  w = central ? w - 2.5f : sqrtf(w) - 3.0f;
+  float p = central ? kCentral[0] : kTail[0];
+#pragma unroll
+  for (int i = 1; i < 9; ++i) p = fmaf(p, w, central ? kCentral[i] : kTail[i]);
+  return fabsf(x) == 1.0f ? x * INFINITY : p * x;
+}
+
+// jax.random.normal from 32 bits: minval + (maxval - minval) u, fused, with
+// maxval - minval = 2 in float32, clipped below at minval.
+__device__ __forceinline__ float rbg_normal(uint32_t bits) {
+  constexpr float kLow = -0.99999994f;  // nextafter(-1, 0)
+  const float u = fmaxf(kLow, fmaf(rbg_uniform(bits), 2.0f, kLow));
+  return 1.41421356f * xla_erf_inv(u);
+}
+
+// The rows of a (D_ref, N) normal draw under k for this thread's chain n:
+// launch row d takes the reference's row rows[d] (element rows[d] * N + n),
+// a row of -1 gives 0. With `grouped` (N % 4 == 0, and the four chains
+// n & ~3 .. n | 3 on the four lanes of an aligned 4-lane group, converged
+// here) the group shares each Philox call: a row's block holds its words of
+// the group's four chains, so for each four launch rows d0 .. d0 + 3 lane t
+// makes row d0 + t's block, and four width-4 shuffles hand every lane its
+// word of each (round j: lane s sends its word (s - j) & 3 and lane t takes
+// lane (t + j) & 3's, which is its own word of row d0 + ((t + j) & 3)); four
+// rows of -1 make no call. Otherwise one call a word. The rows are the same
+// for every thread, so every branch on them is uniform.
+template <int D>
+__device__ __forceinline__ void rbg_normals(uint4 k, const int* rows, int N, uint32_t n, bool grouped,
+                                            float (&z)[D]) {
+  if (!grouped) {
+#pragma unroll
+    for (int d = 0; d < D; ++d) {
+      const int row = __ldg(rows + d);
+      z[d] = row < 0 ? 0.0f
+                     : rbg_normal(rbg_word(k, static_cast<uint64_t>(row) * static_cast<uint64_t>(N) + n));
+    }
+    return;
+  }
+  const uint32_t t = n & 3u;
+  const unsigned mask = 0xFu << (threadIdx.x & 28u);
+#pragma unroll
+  for (int d0 = 0; d0 < D; d0 += 4) {
+    int r[4];
+    bool any = false;
+#pragma unroll
+    for (int s = 0; s < 4; ++s) {
+      r[s] = d0 + s < D ? __ldg(rows + d0 + s) : -1;
+      any = any || r[s] >= 0;
+    }
+    if (!any) {
+#pragma unroll
+      for (int s = 0; s < 4 && d0 + s < D; ++s) z[d0 + s] = 0.0f;
+      continue;
+    }
+    const int mine = t == 0u ? r[0] : t == 1u ? r[1] : t == 2u ? r[2] : r[3];
+    const uint4 w = mine < 0 ? make_uint4(0u, 0u, 0u, 0u)
+                             : rbg_block(k, (static_cast<uint64_t>(mine) * static_cast<uint64_t>(N) + (n & ~3u)) >> 2);
+    uint32_t got[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      got[j] = __shfl_sync(mask, word_of(w, (t - j) & 3u), static_cast<int>((t + j) & 3u), 4);
+#pragma unroll
+    for (int s = 0; s < 4 && d0 + s < D; ++s) {
+      const uint32_t j = (s - t) & 3u;  // the round that brought row d0 + s
+      const uint32_t bits = j == 0u ? got[0] : j == 1u ? got[1] : j == 2u ? got[2] : got[3];
+      z[d0 + s] = r[s] < 0 ? 0.0f : rbg_normal(bits);
+    }
+  }
+}
 
 // --------------------------------------------------------------- bodies
 //
@@ -320,6 +443,15 @@ __device__ __forceinline__ float hier_regression(const float (&q)[D], float (&g)
 // takes 255, where a larger k would only turn into spills). Above the cap a
 // chain's operands are read through __ldg at each gradient (a warp's reads
 // stay coalesced, and the block stays in L1 and L2).
+// A staged build holds its kernels in one stream mode: the rbg kernels
+// where -DGJT_STAGED_RBG is given (kernels/_build.py::load_staged), the
+// other streams' kernels otherwise.
+#ifdef GJT_STAGED_RBG
+constexpr bool kStagedRbg = true;
+#else
+constexpr bool kStagedRbg = false;
+#endif
+
 #ifdef GJT_STAGED_HEADER
 constexpr int kStagedD = gjt_staged::kD;
 constexpr int kStagedConsts = gjt_staged::kConsts;

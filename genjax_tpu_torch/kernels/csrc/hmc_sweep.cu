@@ -45,6 +45,18 @@
 //       0, 0), the accept uniforms four steps a call at (step / 4, 0, 2, 0)
 //       (column_common.cuh's PhiloxUniforms), each drawn at the top of its
 //       step, before the leapfrogs; held in law only.
+//   2 = rbg: the reference twin's keyed stream (column_common.cuh), drawn
+//       by a kernel of its own, hmc_rbg_kernel (the same sweep with
+//       RBG = true, so the other streams' kernels are compiled as before):
+//       step i's momentum is normal(kp_i, (D_ref, N)) and its accept
+//       uniform(ku_i, (N,)), the keys read from a (n_steps, 2) table the
+//       host makes (kernels/hmc.py). Launch row d draws the reference's row
+//       rows[d] (a packed block's rows come in another order), element
+//       rows[d] * N + n; a row of -1 (padding) draws 0. Where N % 4 == 0 the
+//       four chains of a 4-lane group share each momentum Philox call
+//       (column_common.cuh, rbg_normals). Its momentum sd is the reference
+//       twin's 1 / sqrt(M^-1). Draw for draw with the reference's XLA twin
+//       on the CPU.
 //
 // No fast-math: rejection relies on NaN and -inf comparing false. The
 // counter stream's Box-Muller keeps the accurate logf/cosf (bit-exact port);
@@ -82,14 +94,16 @@ struct Params {
   uint32_t seed;
   int rng;
   int block_n;
+  const uint4* rbg_keys;  // rbg: (n_steps, 2) keys, kp then ku of each step
+  const int* rbg_rows;    // rbg: (D,) the reference's row of each launch row, -1 none
 };
 
 // ---------------------------------------------------------------- sweep
 
-template <int D, int BODY, int NOBS, int DW>
-__global__ void __launch_bounds__(kThreads, BODY == kStaged ? kStagedMinBlocks : kMinBlocks)
-    hmc_sweep_kernel(const __grid_constant__ Params prm,
-                     const __grid_constant__ UniformConsts<NOBS, DW> uc) {
+// The sweep of one chain a thread. RBG: the rbg stream (hmc_rbg_kernel);
+// otherwise the stream is prm.rng (hmc_sweep_kernel).
+template <int D, int BODY, int NOBS, int DW, bool RBG>
+__device__ __forceinline__ void hmc_sweep_impl(const Params& prm, const UniformConsts<NOBS, DW>& uc) {
   constexpr bool kShared = BODY == kHierRegression && NOBS == 0;
   constexpr bool kStagedSmem = BODY == kStaged && kStagedSharedFloats > 0;
   extern __shared__ float4 smem4[];
@@ -105,7 +119,7 @@ __global__ void __launch_bounds__(kThreads, BODY == kStaged ? kStagedMinBlocks :
     const float im = prm.inv_mass[k];
     s_eps_im[k] = prm.eps * im;
     s_im[k] = im;
-    s_std[k] = sqrtf(1.0f / im);
+    s_std[k] = RBG ? 1.0f / sqrtf(im) : sqrtf(1.0f / im);
   }
   __syncthreads();
 
@@ -150,19 +164,29 @@ __global__ void __launch_bounds__(kThreads, BODY == kStaged ? kStagedMinBlocks :
     // the accept uniform first: its counter is known before the trajectory
     // that its decision waits for
     float u = 0.0f;
-    if (prm.rng == kPhilox) u = accept_u.draw(static_cast<uint32_t>(i), philox_key);
-    if (prm.rng == kCounter) {
+    if constexpr (RBG) {
+      // element row * N + n of normal(kp, (D_ref, N)), four chains a
+      // Philox call where N % 4 == 0 (the block's threads are 128, so a
+      // chain's 4-lane group is aligned); n of uniform(ku, (N,))
+      u = rbg_uniform(rbg_word(__ldg(prm.rbg_keys + 2 * i + 1), static_cast<uint64_t>(n)));
+      rbg_normals<D>(__ldg(prm.rbg_keys + 2 * i), prm.rbg_rows, prm.N, static_cast<uint32_t>(n), prm.N % 4 == 0, p);
 #pragma unroll
-      for (int d = 0; d < D; ++d) p[d] = s_std[d] * counter_normal(base, salt, d, col);
+      for (int d = 0; d < D; ++d) p[d] *= s_std[d];
     } else {
+      if (prm.rng == kPhilox) u = accept_u.draw(static_cast<uint32_t>(i), philox_key);
+      if (prm.rng == kCounter) {
 #pragma unroll
-      for (int j = 0; j < (D + 3) / 4; ++j) {  // a D that is no multiple of 4 drops the last words
-        const float4 z = philox_normals4(
-            make_uint4(static_cast<uint32_t>(i), static_cast<uint32_t>(j), 0u, 0u), philox_key);
-        p[4 * j + 0] = s_std[4 * j + 0] * z.x;
-        if (4 * j + 1 < D) p[4 * j + 1] = s_std[4 * j + 1] * z.y;
-        if (4 * j + 2 < D) p[4 * j + 2] = s_std[4 * j + 2] * z.z;
-        if (4 * j + 3 < D) p[4 * j + 3] = s_std[4 * j + 3] * z.w;
+        for (int d = 0; d < D; ++d) p[d] = s_std[d] * counter_normal(base, salt, d, col);
+      } else {
+#pragma unroll
+        for (int j = 0; j < (D + 3) / 4; ++j) {  // a D that is no multiple of 4 drops the last words
+          const float4 z = philox_normals4(
+              make_uint4(static_cast<uint32_t>(i), static_cast<uint32_t>(j), 0u, 0u), philox_key);
+          p[4 * j + 0] = s_std[4 * j + 0] * z.x;
+          if (4 * j + 1 < D) p[4 * j + 1] = s_std[4 * j + 1] * z.y;
+          if (4 * j + 2 < D) p[4 * j + 2] = s_std[4 * j + 2] * z.z;
+          if (4 * j + 3 < D) p[4 * j + 3] = s_std[4 * j + 3] * z.w;
+        }
       }
     }
     float ke0 = 0.0f;
@@ -191,7 +215,7 @@ __global__ void __launch_bounds__(kThreads, BODY == kStaged ? kStagedMinBlocks :
     ke1 *= 0.5f;
 
     const float log_alpha = (lpn - ke1) - (lp - ke0);
-    if (prm.rng == kCounter) u = uniform_from_bits(counter_bits(base, salt + 2u, 0u, col));
+    if (!RBG && prm.rng == kCounter) u = uniform_from_bits(counter_bits(base, salt + 2u, 0u, col));
     // NaN or -inf log_alpha compares false: the proposal is rejected
     if (logf(u) < log_alpha) {
 #pragma unroll
@@ -207,6 +231,20 @@ __global__ void __launch_bounds__(kThreads, BODY == kStaged ? kStagedMinBlocks :
 #pragma unroll
   for (int d = 0; d < D; ++d) prm.q_out[static_cast<size_t>(d) * prm.N + n] = q[d];
   prm.accepts[n] = accepted;
+}
+
+template <int D, int BODY, int NOBS, int DW>
+__global__ void __launch_bounds__(kThreads, BODY == kStaged ? kStagedMinBlocks : kMinBlocks)
+    hmc_sweep_kernel(const __grid_constant__ Params prm,
+                     const __grid_constant__ UniformConsts<NOBS, DW> uc) {
+  hmc_sweep_impl<D, BODY, NOBS, DW, false>(prm, uc);
+}
+
+template <int D, int BODY, int NOBS, int DW>
+__global__ void __launch_bounds__(kThreads, BODY == kStaged ? kStagedMinBlocks : kMinBlocks)
+    hmc_rbg_kernel(const __grid_constant__ Params prm,
+                   const __grid_constant__ UniformConsts<NOBS, DW> uc) {
+  hmc_sweep_impl<D, BODY, NOBS, DW, true>(prm, uc);
 }
 
 // Debug launch of the counter stream alone, over a (rows, cols) draw of one
@@ -236,11 +274,11 @@ size_t smem_bytes(int dim, int body, int specialised, int n_obs, int d_w) {
   return sizeof(float) * (static_cast<size_t>(consts) + 3 * static_cast<size_t>(dim));
 }
 
-// Calls f with the kernel instantiation for (dim, body, specialised) as
+// Calls f with the kernel instantiation for (dim, body, specialised, rbg) as
 // integral constants, or returns cudaErrorInvalidValue. iid_normal has no
 // constants and one variant.
 template <class F>
-cudaError_t dispatch(int dim, int body, int specialised, F&& f) {
+cudaError_t dispatch(int dim, int body, int specialised, bool rbg, F&& f) {
   using std::integral_constant;
   using I8 = integral_constant<int, 8>;
   using I16 = integral_constant<int, 16>;
@@ -248,28 +286,36 @@ cudaError_t dispatch(int dim, int body, int specialised, F&& f) {
   using Hier = integral_constant<int, kHierRegression>;
   using Z = integral_constant<int, 0>;
 #ifdef GJT_STAGED_HEADER
-  // a staged build holds the staged body at its own D, and nothing else
-  if (body == kStaged && dim == kStagedD)
-    return f(integral_constant<int, kStagedD>{}, integral_constant<int, kStaged>{}, Z{}, Z{});
+  // a staged build holds the staged body at its own D in its one stream
+  // mode, and nothing else
+  if (body == kStaged && dim == kStagedD && rbg == kStagedRbg)
+    return f(integral_constant<int, kStagedD>{}, integral_constant<int, kStaged>{}, Z{}, Z{},
+             std::bool_constant<kStagedRbg>{});
   return cudaErrorInvalidValue;
 #else
+  auto g = [&](auto d, auto b, auto no, auto dw) {
+    return rbg ? f(d, b, no, dw, std::true_type{}) : f(d, b, no, dw, std::false_type{});
+  };
   if (body == kIidNormal) {  // no constants: one variant
-    if (dim == 8) return f(I8{}, Iid{}, Z{}, Z{});
-    if (dim == 16) return f(I16{}, Iid{}, Z{}, Z{});
+    if (dim == 8) return g(I8{}, Iid{}, Z{}, Z{});
+    if (dim == 16) return g(I16{}, Iid{}, Z{}, Z{});
   }
   if (body == kHierRegression && !specialised) {
-    if (dim == 8) return f(I8{}, Hier{}, Z{}, Z{});
-    if (dim == 16) return f(I16{}, Hier{}, Z{}, Z{});
+    if (dim == 8) return g(I8{}, Hier{}, Z{}, Z{});
+    if (dim == 16) return g(I16{}, Hier{}, Z{}, Z{});
   }
   if (body == kHierRegression && specialised && dim == 16)
-    return f(I16{}, Hier{}, integral_constant<int, 16>{}, integral_constant<int, 8>{});
+    return g(I16{}, Hier{}, integral_constant<int, 16>{}, integral_constant<int, 8>{});
   return cudaErrorInvalidValue;
 #endif
 }
 
-template <int D, int BODY, int NOBS, int DW>
+template <int D, int BODY, int NOBS, int DW, bool RBG>
 const void* kernel_ptr() {
-  return reinterpret_cast<const void*>(&hmc_sweep_kernel<D, BODY, NOBS, DW>);
+  if constexpr (RBG)
+    return reinterpret_cast<const void*>(&hmc_rbg_kernel<D, BODY, NOBS, DW>);
+  else
+    return reinterpret_cast<const void*>(&hmc_sweep_kernel<D, BODY, NOBS, DW>);
 }
 
 // Above the default 48 KiB a block opts in to `smem` bytes of dynamic shared
@@ -303,12 +349,18 @@ long hmc_smem_bytes(int dim, int body, int specialised, int n_obs, int d_w) {
 // staged body's (n_chain, N) block of chain operands in device memory, which
 // a build whose header takes kChain of them needs (n_chain == kChain), and no
 // other build takes (n_chain == 0).
+//
+// rng is kCounter, kPhilox or kRbg; the rbg stream takes `rbg_keys`, the
+// sweep's (n_steps, 2) keys of four words in device memory, and `rbg_rows`,
+// the reference's row of each launch row (-1: none), (dim,) in device memory.
 int hmc_sweep(const float* q_in, float* q_out, float* accepts, const float* inv_mass,
               const float* consts, const float* consts_host, int n_consts, int body,
               int specialised, int dim, int N, int n_obs, int d_w, float obs_scale, int n_steps,
               int L, float eps, int seed, int rng, int block_n, const float* chain, int n_chain,
-              void* stream) {
-  if (N <= 0 || block_n <= 0 || n_consts < 0 || (rng != kCounter && rng != kPhilox))
+              const void* rbg_keys, const int* rbg_rows, void* stream) {
+  if (N <= 0 || block_n <= 0 || n_consts < 0 || (rng != kCounter && rng != kPhilox && rng != kRbg))
+    return cudaErrorInvalidValue;
+  if (rng == kRbg && ((n_steps > 0 && rbg_keys == nullptr) || rbg_rows == nullptr))
     return cudaErrorInvalidValue;
   if (n_chain != kStagedChain || (n_chain > 0 && chain == nullptr)) return cudaErrorInvalidValue;
   if (body == kHierRegression && (d_w < 1 || d_w + 1 > dim || n_consts != n_obs * (d_w + 1)))
@@ -318,13 +370,15 @@ int hmc_sweep(const float* q_in, float* q_out, float* accepts, const float* inv_
   if (body == kStaged && n_consts != kStagedConsts) return cudaErrorInvalidValue;
   const size_t smem = smem_bytes(dim, body, specialised, n_obs, d_w);
   const Params prm{q_in, q_out, accepts, inv_mass, consts, BodyShape{n_obs, d_w, obs_scale},
-                   N, n_steps, L, eps, static_cast<uint32_t>(seed), rng, block_n};
+                   N, n_steps, L, eps, static_cast<uint32_t>(seed), rng, block_n,
+                   static_cast<const uint4*>(rbg_keys), rbg_rows};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int blocks = (N + kThreads - 1) / kThreads;
-  return dispatch(dim, body, specialised, [&](auto d, auto b, auto no, auto dw) {
+  return dispatch(dim, body, specialised, rng == kRbg, [&](auto d, auto b, auto no, auto dw, auto rbg) {
     constexpr int NOBS = decltype(no)::value, DW = decltype(dw)::value;
+    constexpr bool RBG = decltype(rbg)::value;
     const cudaError_t err =
-        allow_smem(kernel_ptr<decltype(d)::value, decltype(b)::value, NOBS, DW>(), smem);
+        allow_smem(kernel_ptr<decltype(d)::value, decltype(b)::value, NOBS, DW, RBG>(), smem);
     if (err != cudaSuccess) return err;
     UniformConsts<NOBS, DW> uc{};
     if constexpr (NOBS > 0) std::memcpy(&uc, consts_host, sizeof(uc));
@@ -333,19 +387,22 @@ int hmc_sweep(const float* q_in, float* q_out, float* accepts, const float* inv_
 #ifdef GJT_STAGED_CHAIN
     uc.chain = chain;
 #endif
-    hmc_sweep_kernel<decltype(d)::value, decltype(b)::value, NOBS, DW>
-        <<<blocks, kThreads, smem, s>>>(prm, uc);
+    if constexpr (RBG)
+      hmc_rbg_kernel<decltype(d)::value, decltype(b)::value, NOBS, DW><<<blocks, kThreads, smem, s>>>(prm, uc);
+    else
+      hmc_sweep_kernel<decltype(d)::value, decltype(b)::value, NOBS, DW><<<blocks, kThreads, smem, s>>>(prm, uc);
     return cudaGetLastError();
   });
 }
 
 // Registers, local (spill) bytes a thread, and resident blocks an SM of one
-// instantiation: out[0..2]. Returns a cudaError_t.
-int hmc_kernel_info(int dim, int body, int specialised, int n_obs, int d_w, int* out) {
+// instantiation (the rbg kernel where rbg != 0): out[0..2]. Returns a
+// cudaError_t.
+int hmc_kernel_info(int dim, int body, int specialised, int n_obs, int d_w, int rbg, int* out) {
   const size_t smem = smem_bytes(dim, body, specialised, n_obs, d_w);
-  return dispatch(dim, body, specialised, [&](auto d, auto b, auto no, auto dw) {
+  return dispatch(dim, body, specialised, rbg != 0, [&](auto d, auto b, auto no, auto dw, auto r) {
     const void* fn = kernel_ptr<decltype(d)::value, decltype(b)::value, decltype(no)::value,
-                                decltype(dw)::value>();
+                                decltype(dw)::value, decltype(r)::value>();
     cudaError_t err = allow_smem(fn, smem);
     if (err != cudaSuccess) return err;
     cudaFuncAttributes attr;

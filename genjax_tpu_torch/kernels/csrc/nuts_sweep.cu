@@ -62,6 +62,21 @@
 //   Every thread takes a leaf's uniform before the leaf's leapfrog, a done
 //   or stopped chain too, so the Philox call that a fourth draw makes is
 //   block-uniform and its rounds do not wait behind the gradient.
+//   2 = rbg: the reference twin's keyed stream (column_common.cuh), drawn by
+//       a kernel of its own, nuts_rbg_kernel (the same sweep with RBG = true,
+//       so the other streams' kernels are compiled as before). Transition t
+//       reads its keys from row t of a table the host makes
+//       (kernels/nuts_pallas.py, rbg_table): kr, then doubling j's
+//       direction key fold_in(kd, j), its subtree key fold_in(fold_in(ku, j),
+//       1 << 30), and its leaf keys fold_in(fold_in(ku, j), i). Chain n
+//       draws element n of each (N,) draw (the direction is forward where
+//       its uniform is under 0.5, as the reference's bernoulli has it) and
+//       element rows[d] * N + n of the momentum normal(kr, (D_ref, N)) at
+//       launch row d (-1, padding, draws 0; four chains a Philox call where
+//       N and the block are multiples of 4), with the momentum sd
+//       1 / sqrt(M^-1).
+//       A chain's draws depend on its index alone, so the block-wide exits
+//       change none: draw for draw with the reference's XLA twin on the CPU.
 //
 // No fast-math: NaN energies become +inf, logaddexp(-inf, -inf) is -inf, and
 // u < NaN must be false. The counter stream keeps the accurate logf/cosf
@@ -93,6 +108,9 @@ struct NutsParams {
   int max_depth;
   uint32_t seed;
   int rng;
+  const uint4* rbg_keys;  // rbg: (n_steps, rbg_stride) keys of four words
+  int rbg_stride;         // rbg: keys a transition, 2 max_depth + 2^max_depth
+  const int* rbg_rows;    // rbg: (D,) the reference's row of each launch row, -1 none
 };
 
 // jnp.logaddexp: max + log1p(exp(-|a - b|)), and a + b where a - b is NaN
@@ -168,10 +186,11 @@ constexpr int kStagedMinBlocks = 1;
 #define NUTS_LAUNCH_BOUNDS __launch_bounds__(kMaxThreads)
 #endif
 
-template <int D, int BODY, int NOBS, int DW>
-__global__ void NUTS_LAUNCH_BOUNDS
-    nuts_sweep_kernel(const __grid_constant__ NutsParams prm,
-                      const __grid_constant__ UniformConsts<NOBS, DW> uc) {
+// The sweep of one chain a thread. RBG: the rbg stream (nuts_rbg_kernel);
+// otherwise the stream is prm.rng (nuts_sweep_kernel).
+template <int D, int BODY, int NOBS, int DW, bool RBG>
+__device__ __forceinline__ void nuts_sweep_impl(const NutsParams& prm,
+                                                const UniformConsts<NOBS, DW>& uc) {
   constexpr bool kShared = BODY == kHierRegression && NOBS == 0;
   constexpr bool kStagedSmem = BODY == kStaged && kStagedSharedFloats > 0;
   extern __shared__ float4 smem4[];
@@ -227,10 +246,24 @@ __global__ void NUTS_LAUNCH_BOUNDS
   float acc_sum = 0.0f, leap_sum = 0.0f;
   uint32_t salt = 1u;
 
+  // rbg: element n of an (N,) draw; this transition's keys
+  const uint64_t nn = static_cast<uint64_t>(n);
+  const uint4* keys = prm.rbg_keys;
   for (int step = 0; step < prm.n_steps; ++step) {
-    stream.normals<D>(salt, rm);
+    if constexpr (RBG) {
+      keys = prm.rbg_keys + static_cast<size_t>(step) * prm.rbg_stride;
+      // every thread draws here, a done one too, so a chain's 4-lane group
+      // (aligned where the block is a multiple of 4) shares the momentum's
+      // Philox calls where N % 4 == 0
+      rbg_normals<D>(__ldg(keys), prm.rbg_rows, prm.N, static_cast<uint32_t>(n),
+                     prm.N % 4 == 0 && T % 4 == 0, rm);
 #pragma unroll
-    for (int d = 0; d < D; ++d) rm[d] *= sqrtf(1.0f / im[d]);
+      for (int d = 0; d < D; ++d) rm[d] *= 1.0f / sqrtf(im[d]);
+    } else {
+      stream.normals<D>(salt, rm);
+#pragma unroll
+      for (int d = 0; d < D; ++d) rm[d] *= sqrtf(1.0f / im[d]);
+    }
     const float ld0 = body_lp(q, gm);
     const float energy0 = -ld0 + kinetic<D>(rm, im);
 #pragma unroll
@@ -247,8 +280,13 @@ __global__ void NUTS_LAUNCH_BOUNDS
 
     for (int j = 0; j < prm.max_depth; ++j) {
       if (!__syncthreads_or(!done)) break;
-      const float dir = stream.uniform(salt) < 0.5f ? -1.0f : 1.0f;
-      salt += 4u;
+      float dir;
+      if constexpr (RBG) {
+        dir = rbg_uniform(rbg_word(__ldg(keys + 1 + j), nn)) < 0.5f ? 1.0f : -1.0f;
+      } else {
+        dir = stream.uniform(salt) < 0.5f ? -1.0f : 1.0f;
+        salt += 4u;
+      }
       const bool fwd = dir > 0.0f;
       const float e = prm.eps * dir;
       const float half_e = 0.5f * e;
@@ -267,9 +305,15 @@ __global__ void NUTS_LAUNCH_BOUNDS
       for (int i = 0; i < n_leaves; ++i) {
         const bool active = !(s_turn || s_div || done);
         if (!__syncthreads_or(active)) break;
-        const float u_leaf = stream.uniform(salt);
-        salt += 4u;
-        if (!active) continue;
+        float u_leaf;
+        if constexpr (RBG) {
+          if (!active) continue;
+          u_leaf = rbg_uniform(rbg_word(__ldg(keys + 1 + 2 * prm.max_depth + (n_leaves - 1) + i), nn));
+        } else {
+          u_leaf = stream.uniform(salt);
+          salt += 4u;
+          if (!active) continue;
+        }
 
 #pragma unroll
         for (int d = 0; d < D; ++d) {
@@ -315,8 +359,13 @@ __global__ void NUTS_LAUNCH_BOUNDS
 
       const bool sub_ok = !(s_turn || s_div);
       const float p_acc = min1(expf(lw_sub - lw_traj));
-      const float u = stream.uniform(salt);
-      salt += 4u;
+      float u;
+      if constexpr (RBG) {
+        u = rbg_uniform(rbg_word(__ldg(keys + 1 + prm.max_depth + j), nn));
+      } else {
+        u = stream.uniform(salt);
+        salt += 4u;
+      }
       if (!done && sub_ok) {
         if (u < p_acc) {
 #pragma unroll
@@ -355,6 +404,20 @@ __global__ void NUTS_LAUNCH_BOUNDS
   }
 }
 
+template <int D, int BODY, int NOBS, int DW>
+__global__ void NUTS_LAUNCH_BOUNDS
+    nuts_sweep_kernel(const __grid_constant__ NutsParams prm,
+                      const __grid_constant__ UniformConsts<NOBS, DW> uc) {
+  nuts_sweep_impl<D, BODY, NOBS, DW, false>(prm, uc);
+}
+
+template <int D, int BODY, int NOBS, int DW>
+__global__ void NUTS_LAUNCH_BOUNDS
+    nuts_rbg_kernel(const __grid_constant__ NutsParams prm,
+                    const __grid_constant__ UniformConsts<NOBS, DW> uc) {
+  nuts_sweep_impl<D, BODY, NOBS, DW, true>(prm, uc);
+}
+
 // Dynamic shared memory of one block of `chains` chains: the runtime shape's
 // constants (or the staged body's, where they fit under the stager's cap),
 // then the two checkpoint stacks (max_depth, D, chains).
@@ -382,24 +445,39 @@ cudaError_t dispatch_body(int body, int specialised, F&& f) {
   return cudaErrorInvalidValue;
 }
 
-// Calls f with the kernel instantiation for (dim, body, specialised) as
+// Calls f with the kernel instantiation for (dim, body, specialised, rbg) as
 // integral constants, or returns cudaErrorInvalidValue. iid_normal has no
 // constants and one variant.
 template <class F>
-cudaError_t dispatch(int dim, int body, int specialised, F&& f) {
+cudaError_t dispatch(int dim, int body, int specialised, bool rbg, F&& f) {
 #ifdef GJT_STAGED_HEADER
-  // a staged build holds the staged body at its own D, and nothing else
-  if (body == kStaged && dim == kStagedD) return f(IC<kStagedD>{}, IC<kStaged>{}, IC<0>{}, IC<0>{});
+  // a staged build holds the staged body at its own D in its one stream
+  // mode, and nothing else
+  if (body == kStaged && dim == kStagedD && rbg == kStagedRbg)
+    return f(IC<kStagedD>{}, IC<kStaged>{}, IC<0>{}, IC<0>{}, std::bool_constant<kStagedRbg>{});
   return cudaErrorInvalidValue;
 #else
-  if (dim == 8) return dispatch_body<8>(body, specialised, f);
-  if (dim == 16) return dispatch_body<16>(body, specialised, f);
+  auto g = [&](auto d, auto b, auto no, auto dw) {
+    return rbg ? f(d, b, no, dw, std::true_type{}) : f(d, b, no, dw, std::false_type{});
+  };
+  if (dim == 8) return dispatch_body<8>(body, specialised, g);
+  if (dim == 16) return dispatch_body<16>(body, specialised, g);
   return cudaErrorInvalidValue;
 #endif
 }
 
-#define NUTS_KERNEL(d, b, no, dw) \
-  nuts_sweep_kernel<decltype(d)::value, decltype(b)::value, decltype(no)::value, decltype(dw)::value>
+// The kernel of an instantiation: nuts_rbg_kernel for the rbg stream.
+template <int D, int BODY, int NOBS, int DW, bool RBG>
+const void* kernel_ptr() {
+  if constexpr (RBG)
+    return reinterpret_cast<const void*>(&nuts_rbg_kernel<D, BODY, NOBS, DW>);
+  else
+    return reinterpret_cast<const void*>(&nuts_sweep_kernel<D, BODY, NOBS, DW>);
+}
+
+#define NUTS_KERNEL_PTR(d, b, no, dw, r)                                                  \
+  kernel_ptr<decltype(d)::value, decltype(b)::value, decltype(no)::value, decltype(dw)::value, \
+             decltype(r)::value>()
 
 }  // namespace
 
@@ -426,14 +504,23 @@ long nuts_smem_bytes(int dim, int body, int specialised, int n_obs, int d_w, int
 // N) block of chain operands in device memory, which a build whose header
 // takes kChain of them needs (n_chain == kChain), and no other build takes
 // (n_chain == 0).
+//
+// rng is kCounter, kPhilox or kRbg; the rbg stream takes `rbg_keys`, the
+// sweep's (n_steps, rbg_stride) keys of four words in device memory
+// (rbg_stride = 2 max_depth + 2^max_depth), and `rbg_rows`, the reference's
+// row of each launch row (-1: none), (dim,) in device memory.
 int nuts_sweep(const float* q_in, float* q_out, float* accepts, float* leaps,
                const float* inv_mass, const float* consts, const float* consts_host,
                int n_consts, int body, int specialised, int dim, int N, int n_obs, int d_w,
                float obs_scale, int n_steps, float eps, float div_threshold, int max_depth,
-               int seed, int rng, int chains, const float* chain, int n_chain, void* stream) {
+               int seed, int rng, int chains, const float* chain, int n_chain,
+               const void* rbg_keys, int rbg_stride, const int* rbg_rows, void* stream) {
   if (N <= 0 || chains <= 0 || chains > kMaxThreads ||
       n_consts < 0 || n_steps < 0 || max_depth < 1 || max_depth > 30 ||
-      (rng != kCounter && rng != kPhilox))
+      (rng != kCounter && rng != kPhilox && rng != kRbg))
+    return cudaErrorInvalidValue;
+  if (rng == kRbg && ((n_steps > 0 && rbg_keys == nullptr) || rbg_rows == nullptr ||
+                      rbg_stride != 2 * max_depth + (1 << max_depth)))
     return cudaErrorInvalidValue;
   if (n_chain != kStagedChain || (n_chain > 0 && chain == nullptr)) return cudaErrorInvalidValue;
   if (body == kHierRegression && (d_w < 1 || d_w + 1 > dim || n_consts != n_obs * (d_w + 1)))
@@ -443,12 +530,13 @@ int nuts_sweep(const float* q_in, float* q_out, float* accepts, float* leaps,
   if (body == kStaged && n_consts != kStagedConsts) return cudaErrorInvalidValue;
   const NutsParams prm{q_in, q_out, accepts, leaps, inv_mass, consts,
                        BodyShape{n_obs, d_w, obs_scale}, N, n_steps, eps, div_threshold,
-                       max_depth, static_cast<uint32_t>(seed), rng};
+                       max_depth, static_cast<uint32_t>(seed), rng,
+                       static_cast<const uint4*>(rbg_keys), rbg_stride, rbg_rows};
   const size_t smem = smem_bytes(dim, body, specialised, n_obs, d_w, max_depth, chains);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int blocks = (N + chains - 1) / chains;
-  return dispatch(dim, body, specialised, [&](auto d, auto b, auto no, auto dw) {
-    const cudaError_t err = cudaFuncSetAttribute(NUTS_KERNEL(d, b, no, dw),
+  return dispatch(dim, body, specialised, rng == kRbg, [&](auto d, auto b, auto no, auto dw, auto r) {
+    const cudaError_t err = cudaFuncSetAttribute(NUTS_KERNEL_PTR(d, b, no, dw, r),
                                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
                                                  static_cast<int>(smem));
     if (err != cudaSuccess) return err;
@@ -459,18 +547,24 @@ int nuts_sweep(const float* q_in, float* q_out, float* accepts, float* leaps,
 #ifdef GJT_STAGED_CHAIN
     uc.chain = chain;
 #endif
-    NUTS_KERNEL(d, b, no, dw)<<<blocks, chains, smem, s>>>(prm, uc);
+    constexpr int D = decltype(d)::value, B = decltype(b)::value;
+    constexpr int NOBS = decltype(no)::value, DW = decltype(dw)::value;
+    if constexpr (decltype(r)::value)
+      nuts_rbg_kernel<D, B, NOBS, DW><<<blocks, chains, smem, s>>>(prm, uc);
+    else
+      nuts_sweep_kernel<D, B, NOBS, DW><<<blocks, chains, smem, s>>>(prm, uc);
     return cudaGetLastError();
   });
 }
 
 // Registers, local (spill) bytes a thread, and resident blocks an SM of one
-// instantiation at `chains` chains a block: out[0..2]. Returns a cudaError_t.
+// instantiation (the rbg kernel where rbg != 0) at `chains` chains a block:
+// out[0..2]. Returns a cudaError_t.
 int nuts_kernel_info(int dim, int body, int specialised, int n_obs, int d_w, int max_depth,
-                     int chains, int* out) {
+                     int chains, int rbg, int* out) {
   const size_t smem = smem_bytes(dim, body, specialised, n_obs, d_w, max_depth, chains);
-  return dispatch(dim, body, specialised, [&](auto d, auto b, auto no, auto dw) {
-    const void* fn = reinterpret_cast<const void*>(&NUTS_KERNEL(d, b, no, dw));
+  return dispatch(dim, body, specialised, rbg != 0, [&](auto d, auto b, auto no, auto dw, auto r) {
+    const void* fn = NUTS_KERNEL_PTR(d, b, no, dw, r);
     cudaError_t err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            static_cast<int>(smem));
     if (err != cudaSuccess) return err;

@@ -153,8 +153,10 @@ def ess_sweep_cols(
 
     Every value draws from one ``torch.Generator`` on the chains' device,
     seeded with ``seed ^ 0xE5517``; ``rng_impl`` is accepted for the
-    reference's signature and selects nothing (the port has no threefry or
-    rbg stream)."""
+    reference's signature and selects nothing. The reference draws from
+    ``jax.random.key(seed ^ 0xE5517)`` (threefry, or rbg where ``rng_impl``
+    says so), which ``core/keys.py`` reproduces; this sweep does not draw
+    from it yet, so it is held in law."""
     refuse_row_sharded(log_lik_cols, "ess_sweep_cols")
     q = _f32(q0, None)
     gen = _generator(seed, q.device)

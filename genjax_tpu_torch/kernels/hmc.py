@@ -15,12 +15,14 @@ float32 with chains on the last axis. Two paths:
 - ``_reference_hmc``: the plain torch twin, any column density, gradients
   from autograd.
 
-``pallas_hmc`` routes between them. The random stream is either the
-production stream (Philox in the kernel, a ``torch.Generator`` in the twin,
-held in law) or the counter stream, the bit-exact port of the reference's
-interpret-mode software PRNG, which makes the kernel, the twin and the
-reference's Pallas kernel under ``interpret=True`` agree draw for draw for a
-given chain block ``block_n``.
+``pallas_hmc`` routes between them. The random stream is the production
+stream (Philox in the kernel, a ``torch.Generator`` in the twin, held in law),
+the counter stream, the bit-exact port of the reference's interpret-mode
+software PRNG, which makes the kernel, the twin and the reference's Pallas
+kernel under ``interpret=True`` agree draw for draw for a given chain block
+``block_n``, or the rbg stream: the draws of the reference's XLA twin
+``_reference_hmc`` from ``jax.random.key(seed, impl="rbg")`` as JAX's CPU
+backend makes them (``core/keys.py``), in the kernel and the twin alike.
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ from typing import Callable
 
 import torch
 
+from ..core import keys
 from . import _build
 from .adaptation import windowed_warmup
 from .bodies import Body
@@ -121,6 +124,34 @@ def _inv_mass_col(inv_mass, d: int, device) -> torch.Tensor:
     return torch.as_tensor(inv_mass, dtype=torch.float32, device=device).reshape(d, 1)
 
 
+def _mom_std(inv_mass: torch.Tensor, rng: str) -> torch.Tensor:
+    """The momentum's sd: ``1 / sqrt(M^-1)`` as the reference's XLA twins
+    compute it on the rbg stream, ``sqrt(1 / M^-1)`` as its kernels do on
+    the others."""
+    return 1.0 / torch.sqrt(inv_mass) if rng == "rbg" else torch.sqrt(1.0 / inv_mass)
+
+
+def rbg_step_keys(seed: int, n_steps: int, device) -> torch.Tensor:
+    """The sweep's step keys on the rbg stream, ``split(key(seed, "rbg"),
+    n_steps)``: ``(n_steps, 4)``."""
+    return keys.split(keys.key(int(seed), device=device, impl="rbg"), n_steps)
+
+
+def rbg_rows_normal(k: torch.Tensor, d: int, n: int, stream_rows=None) -> torch.Tensor:
+    """``normal(k, (d_ref, n))`` of the reference's rows in a ``(d, n)``
+    block: row ``i`` holds the reference's row ``stream_rows[i]``, or 0
+    where that is negative (a padding row, which draws nothing); None is
+    every row in order."""
+    if stream_rows is None:
+        return keys.normal(k, (d, n))
+    src = torch.as_tensor(stream_rows, dtype=torch.int64, device=k.device)
+    real = src >= 0
+    draw = keys.normal(k, (int(real.sum()), n))
+    out = torch.zeros((d, n), dtype=torch.float32, device=k.device)
+    out[real] = draw[src[real]]
+    return out
+
+
 def _lp_grad(logdensity_cols: Callable, q: torch.Tensor):
     """``(lp (N,), grad (D, N))`` by autograd. One backward of ``lp.sum()``
     gives every chain's gradient at once: chains are independent, so column
@@ -143,6 +174,7 @@ def _reference_hmc(
     inv_mass=None,
     rng: str = "generator",
     block_n: int | None = None,
+    stream_rows=None,
 ):
     """Plain torch twin of the kernel (same layout and move structure).
 
@@ -153,7 +185,13 @@ def _reference_hmc(
     one on ``q0``'s device seeded with the int given). ``rng="counter"``
     reproduces the reference kernel's interpret-mode stream for chain block
     ``block_n``: momentum on salts ``4i``/``4i+1`` over ``(D, block)``, the
-    accept uniform on salt ``4i+2`` over ``(1, block)``.
+    accept uniform on salt ``4i+2`` over ``(1, block)``. ``rng="rbg"`` draws
+    what the reference's twin draws from the int seed: step ``i`` splits the
+    ``i``-th of ``split(key(seed, "rbg"), n_steps)`` into ``kp, ku``, the
+    momentum ``normal(kp, (D, N))`` and the accept ``uniform(ku, (N,))``;
+    ``stream_rows`` (that stream only) maps each row of ``q0`` to the
+    reference's row it draws, a negative entry drawing nothing (a packed
+    block's padding, ``rbg_rows_normal``).
 
     A row-sharded density (``.row_shard``, ``kernels/rows.py``): ``q0`` is
     this rank's block, each kinetic energy is one sum over the model axis,
@@ -168,7 +206,9 @@ def _reference_hmc(
     rows = Rows(logdensity_cols, d)
     seed_or_generator = rows.seed(seed_or_generator)
     inv_mass = _inv_mass_col(inv_mass, d, device)
-    mom_std = torch.sqrt(1.0 / inv_mass)
+    mom_std = _mom_std(inv_mass, rng)
+    if stream_rows is not None and rng != "rbg":
+        raise ValueError("stream_rows maps the rbg stream's rows: pass rng='rbg'")
     if rng == "counter":
         if block_n is None:
             raise ValueError("the counter stream needs its chain block: pass block_n")
@@ -187,8 +227,16 @@ def _reference_hmc(
             z = rows.normal(lambda dd: torch.randn((dd, n), generator=gen, device=device))
             return z, torch.rand((n,), generator=gen, device=device)
 
+    elif rng == "rbg":
+        step_keys = rbg_step_keys(seed_or_generator, n_steps, device)
+
+        def draws(i):
+            kp, ku = keys.split(step_keys[i]).unbind(-2)
+            z = rows.normal(lambda dd: rbg_rows_normal(kp, dd, n, stream_rows))
+            return z, keys.uniform(ku, (n,))
+
     else:
-        raise ValueError(f"rng must be 'generator' or 'counter', got {rng!r}")
+        raise ValueError(f"rng must be 'generator', 'counter' or 'rbg', got {rng!r}")
 
     def kinetic(p):
         return 0.5 * rows.sum(inv_mass * p * p)
@@ -219,7 +267,7 @@ def _reference_hmc(
 # the CUDA kernel
 # ----------------------------------------------------------------------
 
-_RNG_IDS = {"counter": 0, "philox": 1}
+_RNG_IDS = {"counter": 0, "philox": 1, "rbg": 2}
 
 # threads a block of the CUDA sweep (the kernel's kThreads)
 THREADS = 128
@@ -230,22 +278,23 @@ def _lib() -> ctypes.CDLL:
     return _bind(_build.load("hmc_sweep"))
 
 
-def _lib_for(body) -> ctypes.CDLL:
-    """The build that holds ``body``'s kernel: the staged build of a staged
-    body, the package's own otherwise."""
-    return _bind(body.lib()) if body.kind == STAGED else _lib()
+def _lib_for(body, rng: str = "philox") -> ctypes.CDLL:
+    """The build that holds ``body``'s kernel on stream ``rng``: the staged
+    build of a staged body (its rbg build for ``"rbg"``), the package's own
+    otherwise."""
+    return _bind(body.lib(rng == "rbg")) if body.kind == STAGED else _lib()
 
 
 @functools.cache
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.hmc_sweep.argtypes = [P, P, P, P, P, P, I, I, I, I, I, I, I, F, I, I, F, I, I, I, P, I, P]
+    lib.hmc_sweep.argtypes = [P, P, P, P, P, P, I, I, I, I, I, I, I, F, I, I, F, I, I, I, P, I, P, P, P]
     lib.hmc_sweep.restype = I
     lib.hmc_smem_limit.argtypes = [I]
     lib.hmc_smem_limit.restype = I
     lib.hmc_smem_bytes.argtypes = [I, I, I, I, I]
     lib.hmc_smem_bytes.restype = ctypes.c_long
-    lib.hmc_kernel_info.argtypes = [I, I, I, I, I, P]
+    lib.hmc_kernel_info.argtypes = [I, I, I, I, I, I, P]
     lib.hmc_kernel_info.restype = I
     lib.counter_stream.argtypes = [P, P, P, I, I, I, I, I, P]
     lib.counter_stream.restype = I
@@ -260,13 +309,14 @@ def smem_bytes(body: Body, d: int) -> int:
     return 4 * (body.shared_consts_floats(d) + 3 * d)
 
 
-def kernel_info(body: Body, d: int) -> dict:
+def kernel_info(body: Body, d: int, rng: str = "philox") -> dict:
     """The CUDA runtime's view of the sweep kernel ``body`` takes at ``D =
-    d``: registers a thread, local (spill) bytes a thread, and resident
-    blocks an SM."""
+    d`` on stream ``rng`` (the rbg kernel for ``"rbg"``, the other streams'
+    otherwise): registers a thread, local (spill) bytes a thread, and
+    resident blocks an SM."""
     out = (ctypes.c_int * 3)()
-    err = _lib_for(body).hmc_kernel_info(
-        d, body.kind, int(body.variant(d) == "specialised"), body.n_obs, body.d_w, out
+    err = _lib_for(body, rng).hmc_kernel_info(
+        d, body.kind, int(body.variant(d) == "specialised"), body.n_obs, body.d_w, int(rng == "rbg"), out
     )
     if err != 0:
         raise RuntimeError(f"hmc_kernel_info failed with CUDA error {err}")
@@ -275,6 +325,31 @@ def kernel_info(body: Body, d: int) -> dict:
 
 def _int32(x: int) -> int:
     return ((int(x) + 2**31) & _M32) - 2**31
+
+
+def _words32(k: torch.Tensor) -> torch.Tensor:
+    """Key words in ``[0, 2**32)`` (int64) as the int32 tensor of the same
+    bits, for a kernel that reads them as ``uint4``."""
+    return (((k + 2**31) & _M32) - 2**31).to(torch.int32)
+
+
+@functools.lru_cache(maxsize=64)
+def rbg_keys_table(seed: int, n_steps: int, device) -> torch.Tensor:
+    """K1's keys on the rbg stream, made on the host and kept on ``device``
+    (a launch with the same seed copies nothing): ``(n_steps, 2, 4)`` int32,
+    step ``i``'s ``kp, ku = split(split(key(seed, "rbg"), n_steps)[i])``."""
+    return _words32(keys.split(rbg_step_keys(seed, n_steps, "cpu"))).contiguous().to(device)
+
+
+@functools.lru_cache(maxsize=64)
+def rbg_rows_on(stream_rows: tuple | None, d: int, device) -> torch.Tensor:
+    """The kernel's ``(d,)`` int32 map from a launch row to the reference's
+    row it draws on the rbg stream (-1: none), kept on ``device``; None is
+    every row in order."""
+    rows = list(range(d)) if stream_rows is None else [int(r) for r in stream_rows]
+    if len(rows) != d or max(rows) >= d or len(set(r for r in rows if r >= 0)) != sum(r >= 0 for r in rows):
+        raise ValueError(f"stream_rows must map each of the {d} launch rows to a distinct row, or -1, got {rows}")
+    return torch.tensor(rows, dtype=torch.int32, device=device)
 
 
 def chain_operands(body, q0: torch.Tensor) -> tuple[int, int]:
@@ -311,6 +386,7 @@ def hmc_sweep(
     inv_mass=None,
     rng: str = "philox",
     block_n: int | None = None,
+    stream_rows=None,
 ):
     """Launch the CUDA sweep kernel on the current stream, without
     synchronising. ``q0`` is a contiguous float32 CUDA tensor of shape
@@ -318,7 +394,11 @@ def hmc_sweep(
     ``d`` (1 to 64) for a staged one; a staged body with chain operands is
     bound to their ``(k, N)`` block (``chain_operands``). ``rng="counter"`` needs ``block_n``, the
     stream's chain block, which is independent of the launch block
-    (``THREADS``). The body's variant taken is recorded on
+    (``THREADS``). ``rng="rbg"`` launches the rbg kernel, which draws what
+    ``_reference_hmc(rng="rbg")`` draws from the int ``seed``, its keys
+    from ``rbg_keys_table`` and its rows mapped by ``stream_rows``
+    (``rbg_rows_normal``; a staged body's rbg kernels are a build of their
+    own). The body's variant taken is recorded on
     ``hmc_sweep.last_variant``.
 
     Returns ``(q, accepts)``: positions ``(D, N)`` and per-chain accepted
@@ -335,14 +415,16 @@ def hmc_sweep(
     d, n = q0.shape
     _check_dim(body, d)
     if rng not in _RNG_IDS:
-        raise ValueError(f"rng must be 'philox' or 'counter', got {rng!r}")
+        raise ValueError(f"rng must be 'philox', 'counter' or 'rbg', got {rng!r}")
     if rng == "counter" and block_n is None:
         raise ValueError("the counter stream needs its chain block: pass block_n")
+    if stream_rows is not None and rng != "rbg":
+        raise ValueError("stream_rows maps the rbg stream's rows: pass rng='rbg'")
     if n_steps < 0 or L < 0:
         raise ValueError("n_steps and L must be non-negative")
     variant = body.variant(d)
     smem = smem_bytes(body, d)
-    lib = _lib_for(body)
+    lib = _lib_for(body, rng)
     device_index = q0.device.index if q0.device.index is not None else torch.cuda.current_device()
     limit = lib.hmc_smem_limit(device_index)
     if limit < 0:
@@ -356,6 +438,10 @@ def hmc_sweep(
     chain, k = chain_operands(body, q0)
     inv_mass = _inv_mass_col(inv_mass, d, q0.device).reshape(d).contiguous()
     consts = body.consts_on(q0.device)
+    rbg_keys = rbg_rows = None
+    if rng == "rbg":
+        rbg_keys = rbg_keys_table(int(seed), n_steps, q0.device)
+        rbg_rows = rbg_rows_on(None if stream_rows is None else tuple(stream_rows), d, q0.device)
     q_out = torch.empty_like(q0)
     accepts = torch.empty(n, dtype=torch.float32, device=q0.device)
     with torch.cuda.device(q0.device):
@@ -364,6 +450,8 @@ def hmc_sweep(
             consts.data_ptr(), body.consts.data_ptr(), body.consts.numel(), body.kind,
             int(variant == "specialised"), d, n, body.n_obs, body.d_w, body.obs_scale,
             n_steps, L, eps, _int32(seed), _RNG_IDS[rng], block_n or 1, chain, k,
+            rbg_keys.data_ptr() if rbg_keys is not None and rbg_keys.numel() else None,
+            rbg_rows.data_ptr() if rbg_rows is not None else None,
             torch.cuda.current_stream(q0.device).cuda_stream,
         )
     if err != 0:
@@ -447,6 +535,8 @@ def pallas_hmc(
     interpret: bool = False,
     backend: str = "auto",
     inv_mass=None,
+    rng: str | None = None,
+    stream_rows=None,
 ):
     """Run ``n_steps`` of MH-adjusted HMC on ``N`` column-layout chains.
 
@@ -469,25 +559,30 @@ def pallas_hmc(
     ``torch.Generator`` seeded with ``seed``. The backend taken is recorded
     on ``pallas_hmc.last_backend``, and the device body the kernel ran on
     ``pallas_hmc.last_body`` (``"iid_normal"``, ``"hier_regression"`` or
-    ``"staged"``; None on the twin).
+    ``"staged"``; None on the twin). ``rng="rbg"`` takes the rbg stream in
+    the kernel and the twin alike, the draws of the reference's XLA twin
+    from the int ``seed``, the momentum's rows mapped by ``stream_rows``
+    (``rbg_rows_normal``).
 
     Returns ``(q_final, accept_rate)``: positions ``(D, N)`` and the mean
     acceptance rate over chains and steps.
     """
     backend = _route(backend, q0.device)
+    if rng not in (None, "rbg"):
+        raise ValueError(f"rng must be None (the stream interpret selects) or 'rbg', got {rng!r}")
     body = device_body(logdensity_cols, q0.shape[0], q0.device) if backend == "cuda" else None
     if backend == "cuda":
         q, accepts = hmc_sweep(
             body, q0.to(torch.float32).contiguous(), seed, n_steps=n_steps, eps=eps,
-            L=L, inv_mass=inv_mass, rng="counter" if interpret else "philox",
-            block_n=block_n,
+            L=L, inv_mass=inv_mass, rng=rng or ("counter" if interpret else "philox"),
+            block_n=block_n, stream_rows=stream_rows,
         )
         out = q, accepts.mean() / n_steps
     else:
         out = _reference_hmc(
             logdensity_cols, q0, seed, n_steps=n_steps, eps=eps, L=L,
-            inv_mass=inv_mass, rng="counter" if interpret else "generator",
-            block_n=block_n,
+            inv_mass=inv_mass, rng=rng or ("counter" if interpret else "generator"),
+            block_n=block_n, stream_rows=stream_rows,
         )
     pallas_hmc.last_backend = backend
     pallas_hmc.last_body = body.name if body is not None else None

@@ -112,11 +112,15 @@ class ColumnPacker:
             rows += range(offsets[path], offsets[path] + size)
         return rows
 
-    def pack_columns(self, z: torch.Tensor, rows: list[int], gen: torch.Generator) -> torch.Tensor:
+    def pack_columns(self, z: torch.Tensor, rows: list[int], gen: torch.Generator | None) -> torch.Tensor:
         """``z (dim, N)`` as a contiguous float32 ``(padded_dim, N)`` block in
         this packing, the padding rows fresh standard normals from ``gen``
-        (the padding's density, ``column_logdensity``)."""
-        pad = torch.randn((self.padded_dim - self.dim, z.shape[1]), generator=gen, device=z.device)
+        (the padding's density, ``column_logdensity``), or zeros where
+        ``gen`` is None (the padding's mode, where a sweep that draws no
+        momentum for it leaves it)."""
+        shape = (self.padded_dim - self.dim, z.shape[1])
+        pad = (torch.zeros(shape, device=z.device) if gen is None
+               else torch.randn(shape, generator=gen, device=z.device))
         return torch.cat([z[rows].to(torch.float32), pad]).contiguous()
 
     def pack_inv_mass(self, inv_mass, rows: list[int], device) -> torch.Tensor:

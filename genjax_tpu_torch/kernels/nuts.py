@@ -20,10 +20,18 @@ leaf and doubling loops are Python loops over the whole batch with
 collective exits (one host read of a flag per leaf and per doubling), and
 per-chain freezing is the ``active`` mask.
 
-Two random streams (``NUTSDraws``):
+Three random streams (``NUTSDraws``):
 
 - ``"generator"``: a ``torch.Generator``; the ordinary twin, held in law
   against the reference's ``nuts_sweep_cols``;
+- ``"rbg"``: the draws of the reference's ``nuts_sweep_cols`` from
+  ``jax.random.key(seed, impl="rbg")`` (``core/keys.py``), draw for draw:
+  transition ``t`` splits the ``t``-th step key into ``kr, kd, ku``, draws
+  the momentum ``normal(kr, (D, N))``, doubling ``j``'s directions
+  ``bernoulli(fold_in(kd, j), (N,))`` (True is forward), leaf ``i``'s
+  uniforms from ``fold_in(fold_in(ku, j), i)`` and the subtree's from
+  ``fold_in(fold_in(ku, j), 1 << 30)``. A chain's draws depend on nothing but
+  its index, so the collective exits change none of them;
 - ``"counter"``: the reference kernel's interpret-mode stream
   (``genjax_tpu/kernels/nuts_pallas.py::_nuts_kernel``) for chain block
   ``block_n``. There the loops exit per chain block, and a block's salt
@@ -42,7 +50,9 @@ from typing import Callable, NamedTuple
 
 import torch
 
-from .hmc import _counter_stream, _inv_mass_col, _lp_grad, _normal, _uniform_01
+from ..core import keys
+from .hmc import (_counter_stream, _inv_mass_col, _lp_grad, _mom_std, _normal, _uniform_01, rbg_rows_normal,
+                  rbg_step_keys)
 from .rows import Rows
 
 
@@ -53,6 +63,32 @@ class NUTSInfo(NamedTuple):
     depth: torch.Tensor
 
 
+def rbg_keys_stride(max_depth: int) -> int:
+    """Keys a transition on the rbg stream: ``kr``, a direction and a
+    subtree key a doubling, and ``2**max_depth - 1`` leaf keys."""
+    return 2 * max_depth + (1 << max_depth)
+
+
+def rbg_keys_of(step_keys: torch.Tensor, max_depth: int) -> torch.Tensor:
+    """Every key the transitions of ``step_keys (T, w)`` draw from to
+    ``max_depth``, as the reference's ``nuts_transition_cols`` derives them:
+    ``(T, rbg_keys_stride(max_depth), w)``. Transition ``t`` splits its step
+    key into ``kr, kd, ku``; its row holds ``kr``, then ``fold_in(kd, j)``
+    for ``j < max_depth``, then ``fold_in(fold_in(ku, j), 1 << 30)``, then
+    the leaf keys ``fold_in(fold_in(ku, j), i)`` for ``i < 2**j``, doubling
+    ``j``'s at ``2 max_depth + 2**j + i``. K4's rbg kernel reads the same
+    table (``nuts_pallas.rbg_keys_table``)."""
+    kr, kd, ku = keys.split(step_keys, 3).unbind(-2)
+    device = step_keys.device
+    j = torch.arange(max_depth, device=device)
+    ku_j = keys.fold_in(ku[:, None, :], j)
+    leaf_j = torch.tensor([m.bit_length() - 1 for m in range(1, 1 << max_depth)], dtype=torch.int64,
+                          device=device)
+    leaf_i = torch.arange(1, 1 << max_depth, device=device) - (1 << leaf_j)
+    return torch.cat([kr[:, None, :], keys.fold_in(kd[:, None, :], j), keys.fold_in(ku_j, 1 << 30),
+                      keys.fold_in(ku_j[:, leaf_j], leaf_i)], dim=1)
+
+
 class NUTSDraws:
     """The random draws of a NUTS sweep over ``n`` chains.
 
@@ -60,12 +96,26 @@ class NUTSDraws:
     ``torch.Generator``, or an int that seeds one on ``device``); the chains
     form one block. ``rng="counter"`` is the reference kernel's counter
     stream: chain ``k`` is column ``k % block_n`` of block ``k // block_n``,
-    and each block carries its own salt, starting at 1.
+    and each block carries its own salt, starting at 1. ``rng="rbg"`` is the
+    reference twin's keyed stream from the int seed, ``n_steps`` transitions
+    of it to ``max_depth`` (``step_keys`` given instead: a transition a key,
+    of either implementation), every key a sweep draws from made at once
+    (``rbg_keys_of``, the table K4 reads), the momentum's rows mapped by
+    ``stream_rows`` (``hmc.rbg_rows_normal``). Each transition calls
+    ``start`` first.
     """
 
-    def __init__(self, rng: str, seed_or_generator, n: int, block_n: int | None, device):
+    def __init__(self, rng: str, seed_or_generator, n: int, block_n: int | None, device, *,
+                 n_steps: int = 0, max_depth: int = 0, step_keys: torch.Tensor | None = None, stream_rows=None):
         self.rng, self.n = rng, n
-        if rng == "counter":
+        if stream_rows is not None and rng != "rbg":
+            raise ValueError("stream_rows maps the rbg stream's rows: pass rng='rbg'")
+        if rng == "rbg":
+            self.n_blocks, self.stream_rows, self.t, self.max_depth = 1, stream_rows, 0, max_depth
+            if step_keys is None:
+                step_keys = rbg_step_keys(seed_or_generator, n_steps, device)
+            self.table = rbg_keys_of(step_keys, max_depth)
+        elif rng == "counter":
             if block_n is None:
                 raise ValueError("the counter stream needs its chain block: pass block_n")
             if block_n <= 0 or n % block_n:
@@ -81,7 +131,13 @@ class NUTSDraws:
                 gen = torch.Generator(device=device).manual_seed(int(gen))
             self.gen, self.device = gen, device
         else:
-            raise ValueError(f"rng must be 'generator' or 'counter', got {rng!r}")
+            raise ValueError(f"rng must be 'generator', 'counter' or 'rbg', got {rng!r}")
+
+    def start(self) -> None:
+        """Begin a transition: on the rbg stream, take its row of keys."""
+        if self.rng == "rbg":
+            self.row = self.table[self.t]
+            self.t += 1
 
     def blocks_any(self, flags: torch.Tensor) -> torch.Tensor:
         """``(n,)`` bool -> ``(n_blocks,)``: whether any chain of a block is set."""
@@ -98,9 +154,31 @@ class NUTSDraws:
         return torch.rand(self.n, generator=self.gen, device=self.device)
 
     def normal(self, d: int) -> torch.Tensor:
+        if self.rng == "rbg":
+            return rbg_rows_normal(self.row[0], d, self.n, self.stream_rows)
         if self.rng == "counter":
             return _normal(self.bits, (d, self.n), self.salts[self.block])
         return torch.randn((d, self.n), generator=self.gen, device=self.device)
+
+    def direction(self, j: int) -> torch.Tensor:
+        """Doubling ``j``'s direction, +1 or -1 a chain: the reference's
+        ``bernoulli`` on the rbg stream (True forward); a uniform under 0.5
+        is backward on the others, as the reference's kernel has it."""
+        if self.rng == "rbg":
+            return torch.where(keys.bernoulli(self.row[1 + j], 0.5, (self.n,)), 1.0, -1.0)
+        return torch.where(self.uniform() < 0.5, -1.0, 1.0)
+
+    def leaf(self, j: int, i: int) -> torch.Tensor:
+        """The uniform that takes leaf ``i`` of doubling ``j``."""
+        if self.rng == "rbg":
+            return keys.uniform(self.row[2 * self.max_depth + (1 << j) + i], (self.n,))
+        return self.uniform()
+
+    def subtree(self, j: int) -> torch.Tensor:
+        """The uniform that takes doubling ``j``'s subtree."""
+        if self.rng == "rbg":
+            return keys.uniform(self.row[1 + self.max_depth + j], (self.n,))
+        return self.uniform()
 
 
 def _logaddexp(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -147,7 +225,12 @@ def nuts_transition(
     the transition is safe under vmap. It costs ``2**max_depth - 1``
     gradients a transition. Draws from ``gen``, in order: the momentum, then
     for each doubling its direction, one uniform a leaf and the subtree's
-    acceptance uniform. ``inv_mass`` is a diagonal inverse mass ``(D,)`` or
+    acceptance uniform. Under a PRNG key (``core/keys.py``) it draws what
+    the reference's ``nuts_transition`` draws: ``kr, kd, ku = split(key,
+    3)``, the momentum ``normal(kr, (D,))``, doubling ``j``'s direction
+    ``bernoulli(fold_in(kd, j))`` (True forward), leaf ``i``'s uniform from
+    ``fold_in(fold_in(ku, j), i)`` and the subtree's from ``fold_in(fold_in(ku,
+    j), 1 << 30)``. ``inv_mass`` is a diagonal inverse mass ``(D,)`` or
     ``(D, 1)``.
 
     Returns ``(z_new, NUTSInfo)`` with 0-dim info fields.
@@ -163,7 +246,30 @@ def nuts_transition(
     def kinetic(r):
         return 0.5 * torch.sum(inv_mass * r * r)
 
-    r0 = torch.randn(d, generator=gen, device=device) / torch.sqrt(inv_mass)
+    if keys.is_key(gen):
+        kr, kd, ku = keys.split(gen, 3).unbind(-2)
+        r0 = (1.0 / torch.sqrt(inv_mass)) * keys.normal(kr, (d,))
+
+        def forward(j):
+            return keys.bernoulli(keys.fold_in(kd, j))
+
+        def leaf_u(j, i):
+            return keys.uniform(keys.fold_in(keys.fold_in(ku, j), i))
+
+        def subtree_u(j):
+            return keys.uniform(keys.fold_in(keys.fold_in(ku, j), 1 << 30))
+    else:
+        r0 = torch.randn(d, generator=gen, device=device) / torch.sqrt(inv_mass)
+
+        def forward(_j):
+            return torch.rand((), generator=gen, device=device) < 0.5
+
+        def leaf_u(_j, _i):
+            return torch.rand((), generator=gen, device=device)
+
+        def subtree_u(_j):
+            return torch.rand((), generator=gen, device=device)
+
     g0, ld0 = grad_and_value(z0)
     energy0 = -ld0 + kinetic(r0)
 
@@ -178,7 +284,7 @@ def nuts_transition(
     t_scnt = torch.zeros((), dtype=torch.float32, device=device)
 
     for j in range(max_depth):
-        direction = torch.where(torch.rand((), generator=gen, device=device) < 0.5, 1.0, -1.0)
+        direction = torch.where(forward(j), 1.0, -1.0)
         fwd = direction > 0
         e = eps * direction
         # the subtree of 2**j leaves off the moving end, with its checkpoint
@@ -206,7 +312,7 @@ def nuts_transition(
             lw_leaf = -energy
             div_new = active & (energy - energy0 > divergence_threshold)
             lw_new = torch.where(active, _logaddexp(lw_sub, lw_leaf), lw_sub)
-            take = active & (torch.rand((), generator=gen, device=device) < torch.exp(lw_leaf - lw_new))
+            take = active & (leaf_u(j, i) < torch.exp(lw_leaf - lw_new))
             s_zprop = torch.where(take, z_new, s_zprop)
 
             acc = torch.clamp(torch.exp(energy0 - energy), max=1.0)
@@ -231,7 +337,7 @@ def nuts_transition(
         sub_ok = ~(s_turn | s_div)
         live = ~done
         p_acc = torch.clamp(torch.exp(lw_sub - lw_traj), max=1.0)
-        take = live & sub_ok & (torch.rand((), generator=gen, device=device) < p_acc)
+        take = live & sub_ok & (subtree_u(j) < p_acc)
         z_prop = torch.where(take, s_zprop, z_prop)
         grow = live & sub_ok
         lw_traj = torch.where(grow, _logaddexp(lw_traj, lw_sub), lw_traj)
@@ -270,8 +376,10 @@ def nuts_transition_cols(
     """One NUTS transition over an explicit ``(D, N)`` chain batch.
 
     ``key`` is a ``NUTSDraws`` (whose counter-stream salts it advances), a
-    ``torch.Generator``, or an int seed. ``inv_mass`` is an optional
-    diagonal inverse mass of shape ``(D,)`` or ``(D, 1)``.
+    ``torch.Generator``, an int seed, or a PRNG key (``core/keys.py``, of
+    either implementation), from which it draws what the reference's
+    ``nuts_transition_cols`` draws. ``inv_mass`` is an optional diagonal
+    inverse mass of shape ``(D,)`` or ``(D, 1)``.
 
     A row-sharded density (``.row_shard``): ``q0`` is this rank's block; the
     kinetic energies and both U-turn dot products are sums over the model
@@ -283,9 +391,15 @@ def nuts_transition_cols(
     d, n = q0.shape
     device = q0.device
     rows = Rows(logdensity_cols, d)
-    draws = key if isinstance(key, NUTSDraws) else NUTSDraws("generator", rows.seed(key), n, None, device)
+    if isinstance(key, NUTSDraws):
+        draws = key
+    elif keys.is_key(key):
+        draws = NUTSDraws("rbg", None, n, None, device, max_depth=max_depth, step_keys=key[None])
+    else:
+        draws = NUTSDraws("generator", rows.seed(key), n, None, device)
     inv_mass = _inv_mass_col(inv_mass, d, device)
-    mom_std = torch.sqrt(1.0 / inv_mass)
+    mom_std = _mom_std(inv_mass, draws.rng)
+    draws.start()
 
     def kinetic(r):
         return 0.5 * rows.sum(inv_mass * r * r)
@@ -312,7 +426,7 @@ def nuts_transition_cols(
         running = draws.blocks_any(~done)
         if not bool(running.any()):
             break
-        direction = torch.where(draws.uniform() < 0.5, -1.0, 1.0)
+        direction = draws.direction(j)
         draws.advance(running)
         fwd = direction > 0
         e = (eps * direction)[None, :]
@@ -343,7 +457,7 @@ def nuts_transition_cols(
             div_new = active & (energy - energy0 > divergence_threshold)
             lw_new = torch.where(active, _logaddexp(lw_sub, lw_leaf), lw_sub)
             p_take = torch.exp(lw_leaf - lw_new)
-            take = active & (draws.uniform() < p_take)  # NaN p_take never takes
+            take = active & (draws.leaf(j, i) < p_take)  # NaN p_take never takes
             draws.advance(running_leaf)
             s_zprop = torch.where(take[None, :], z_new, s_zprop)
 
@@ -368,7 +482,7 @@ def nuts_transition_cols(
         sub_ok = ~(s_turn | s_div)
         p_acc = torch.minimum(torch.ones_like(lw_sub), torch.exp(lw_sub - lw_traj))
         live = ~done
-        take = live & sub_ok & (draws.uniform() < p_acc)
+        take = live & sub_ok & (draws.subtree(j) < p_acc)
         draws.advance(running)
         z_prop = torch.where(take[None, :], s_zprop, z_prop)
         grow = live & sub_ok
@@ -409,6 +523,7 @@ def nuts_sweep_cols(
     block_n: int | None = None,
     collect: bool = False,
     divergence_threshold: float = 1000.0,
+    stream_rows=None,
 ):
     """``n_steps`` NUTS transitions over ``(D, N)`` column-layout chains: the
     plain version of the CUDA NUTS sweep (``nuts_pallas.nuts_sweep``).
@@ -416,7 +531,9 @@ def nuts_sweep_cols(
     ``seed`` is an int or a ``torch.Generator``. ``rng="generator"`` is the
     ordinary twin; ``rng="counter"`` follows the reference kernel's counter
     stream, salt schedule and per-block exits for chain block ``block_n``
-    (see the module docstring). The statistics are accumulated per chain and
+    (see the module docstring); ``rng="rbg"`` draws what the reference's
+    ``nuts_sweep_cols`` draws from the int seed, draw for draw, the momentum's
+    rows mapped by ``stream_rows`` (``hmc.rbg_rows_normal``). The statistics are accumulated per chain and
     averaged at the end, as the kernel does. A row-sharded density runs as
     ``nuts_transition_cols`` says, its statistics averaged over every chain
     of the mesh.
@@ -428,7 +545,8 @@ def nuts_sweep_cols(
     d, n = q0.shape
     device = q0.device
     rows = Rows(logdensity_cols, d)
-    draws = NUTSDraws(rng, rows.seed(seed), n, block_n, device)
+    draws = NUTSDraws(rng, rows.seed(seed), n, block_n, device, n_steps=n_steps, max_depth=max_depth,
+                      stream_rows=stream_rows)
     q = q0.to(torch.float32)
     acc_sum = torch.zeros(n, dtype=torch.float32, device=device)
     leap_sum = torch.zeros(n, dtype=torch.float32, device=device)

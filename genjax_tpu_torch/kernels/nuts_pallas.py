@@ -28,9 +28,10 @@ import torch
 from . import _build
 from .adaptation import windowed_warmup
 from .bodies import Body
-from .hmc import _RNG_IDS, _check_dim, _inv_mass_col, _int32, _route, chain_operands, device_body
+from .hmc import (_RNG_IDS, _check_dim, _inv_mass_col, _int32, _route, _words32, chain_operands, device_body,
+                  rbg_rows_on, rbg_step_keys)
 from .staged import STAGED, staging_scope
-from .nuts import nuts_sweep_cols
+from .nuts import nuts_sweep_cols, rbg_keys_of, rbg_keys_stride
 from .rows import chain_mesh
 
 # launches of the CUDA NUTS kernel in this process
@@ -47,24 +48,25 @@ def _lib() -> ctypes.CDLL:
     return _bind(_build.load("nuts_sweep"))
 
 
-def _lib_for(body) -> ctypes.CDLL:
-    """The build that holds ``body``'s kernel: the staged build of a staged
-    body, the package's own otherwise."""
-    return _bind(body.lib()) if body.kind == STAGED else _lib()
+def _lib_for(body, rng: str = "philox") -> ctypes.CDLL:
+    """The build that holds ``body``'s kernel on stream ``rng``: the staged
+    build of a staged body (its rbg build for ``"rbg"``), the package's own
+    otherwise."""
+    return _bind(body.lib(rng == "rbg")) if body.kind == STAGED else _lib()
 
 
 @functools.cache
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.nuts_sweep.argtypes = [
-        P, P, P, P, P, P, P, I, I, I, I, I, I, I, F, I, F, F, I, I, I, I, P, I, P,
+        P, P, P, P, P, P, P, I, I, I, I, I, I, I, F, I, F, F, I, I, I, I, P, I, P, I, P, P,
     ]
     lib.nuts_sweep.restype = I
     lib.nuts_smem_limit.argtypes = [I]
     lib.nuts_smem_limit.restype = I
     lib.nuts_smem_bytes.argtypes = [I, I, I, I, I, I, I]
     lib.nuts_smem_bytes.restype = ctypes.c_long
-    lib.nuts_kernel_info.argtypes = [I, I, I, I, I, I, I, P]
+    lib.nuts_kernel_info.argtypes = [I, I, I, I, I, I, I, I, P]
     lib.nuts_kernel_info.restype = I
     return lib
 
@@ -76,18 +78,28 @@ def smem_bytes(body: Body, d: int, max_depth: int, block: int) -> int:
     return 4 * (body.shared_consts_floats(d) + 2 * max_depth * d * block)
 
 
-def kernel_info(body: Body, d: int, max_depth: int, block: int) -> dict:
+def kernel_info(body: Body, d: int, max_depth: int, block: int, rng: str = "philox") -> dict:
     """The CUDA runtime's view of the K4 instantiation ``body`` takes at
-    ``D = d``, launched with ``block`` chains a block: registers a thread,
-    local (spill) bytes a thread, resident blocks an SM."""
+    ``D = d`` on stream ``rng`` (the rbg kernel for ``"rbg"``), launched with
+    ``block`` chains a block: registers a thread, local (spill) bytes a
+    thread, resident blocks an SM."""
     out = (ctypes.c_int * 3)()
-    err = _lib_for(body).nuts_kernel_info(
+    err = _lib_for(body, rng).nuts_kernel_info(
         d, body.kind, int(body.variant(d) == "specialised"), body.n_obs, body.d_w, max_depth,
-        block, out,
+        block, int(rng == "rbg"), out,
     )
     if err != 0:
         raise RuntimeError(f"nuts_kernel_info failed with CUDA error {err}")
     return {"registers": out[0], "local_bytes": out[1], "blocks_per_sm": out[2]}
+
+
+@functools.lru_cache(maxsize=64)
+def rbg_keys_table(seed: int, n_steps: int, max_depth: int, device) -> torch.Tensor:
+    """K4's keys on the rbg stream, made on the host and kept on ``device``
+    (a launch with the same seed copies nothing): ``nuts.rbg_keys_of`` of
+    the sweep's step keys, ``(n_steps, rbg_keys_stride(max_depth), 4)``
+    int32."""
+    return _words32(rbg_keys_of(rbg_step_keys(seed, n_steps, "cpu"), max_depth)).contiguous().to(device)
 
 
 def nuts_sweep(
@@ -102,6 +114,7 @@ def nuts_sweep(
     rng: str = "philox",
     block_n: int | None = None,
     divergence_threshold: float = 1000.0,
+    stream_rows=None,
 ):
     """Launch the CUDA NUTS kernel on the current stream, without
     synchronising. ``q0`` is a contiguous float32 CUDA tensor ``(D, N)``
@@ -110,8 +123,11 @@ def nuts_sweep(
     bound to their block (``hmc.chain_operands``). The launch block is ``block_n`` chains (default
     ``DEFAULT_BLOCK``, at most ``MAX_BLOCK``); ``rng="counter"`` needs
     ``block_n``, which is then also the stream's chain block, and ``N`` a
-    multiple of it. The body's variant taken is recorded on
-    ``nuts_sweep.last_variant``.
+    multiple of it. ``rng="rbg"`` launches the rbg kernel, which draws what
+    ``nuts.nuts_sweep_cols(rng="rbg")`` draws from the int ``seed``, its
+    keys from ``rbg_keys_table`` and the momentum's rows mapped by
+    ``stream_rows`` (``hmc.rbg_rows_normal``). The body's variant taken is
+    recorded on ``nuts_sweep.last_variant``.
 
     Returns ``(q, accept_sums, leapfrog_sums)``: positions ``(D, N)`` and,
     per chain, the accept statistic and the leapfrog count summed over the
@@ -128,9 +144,11 @@ def nuts_sweep(
     d, n = q0.shape
     _check_dim(body, d)
     if rng not in _RNG_IDS:
-        raise ValueError(f"rng must be 'philox' or 'counter', got {rng!r}")
+        raise ValueError(f"rng must be 'philox', 'counter' or 'rbg', got {rng!r}")
     if rng == "counter" and block_n is None:
         raise ValueError("the counter stream needs its chain block: pass block_n")
+    if stream_rows is not None and rng != "rbg":
+        raise ValueError("stream_rows maps the rbg stream's rows: pass rng='rbg'")
     block = DEFAULT_BLOCK if block_n is None else block_n
     if not 1 <= block <= MAX_BLOCK:
         raise ValueError(f"block_n={block}: the kernel takes 1 to {MAX_BLOCK} chains a block")
@@ -142,7 +160,7 @@ def nuts_sweep(
     chain, k = chain_operands(body, q0)
     consts = body.consts_on(q0.device)
     smem = smem_bytes(body, d, max_depth, block)
-    lib = _lib_for(body)
+    lib = _lib_for(body, rng)
     device_index = q0.device.index if q0.device.index is not None else torch.cuda.current_device()
     limit = lib.nuts_smem_limit(device_index)
     if limit < 0:
@@ -154,6 +172,10 @@ def nuts_sweep(
             f"(cudaDevAttrMaxSharedMemoryPerBlockOptin). Lower block_n or max_depth."
         )
     inv_mass = _inv_mass_col(inv_mass, d, q0.device).reshape(d).contiguous()
+    rbg_table = rbg_rows = None
+    if rng == "rbg":
+        rbg_table = rbg_keys_table(int(seed), n_steps, max_depth, q0.device)
+        rbg_rows = rbg_rows_on(None if stream_rows is None else tuple(stream_rows), d, q0.device)
     q_out = torch.empty_like(q0)
     accepts = torch.empty(n, dtype=torch.float32, device=q0.device)
     leaps = torch.empty(n, dtype=torch.float32, device=q0.device)
@@ -163,7 +185,10 @@ def nuts_sweep(
             inv_mass.data_ptr(), consts.data_ptr(), body.consts.data_ptr(), body.consts.numel(),
             body.kind, int(variant == "specialised"), d, n, body.n_obs, body.d_w,
             body.obs_scale, n_steps, eps, divergence_threshold, max_depth, _int32(seed),
-            _RNG_IDS[rng], block, chain, k, torch.cuda.current_stream(q0.device).cuda_stream,
+            _RNG_IDS[rng], block, chain, k,
+            rbg_table.data_ptr() if rbg_table is not None and rbg_table.numel() else None,
+            rbg_keys_stride(max_depth), rbg_rows.data_ptr() if rbg_rows is not None else None,
+            torch.cuda.current_stream(q0.device).cuda_stream,
         )
     if err != 0:
         raise RuntimeError(f"nuts_sweep kernel launch failed with CUDA error {err}")
@@ -188,6 +213,8 @@ def pallas_nuts(
     interpret: bool = False,
     backend: str = "auto",
     divergence_threshold: float = 1000.0,
+    rng: str | None = None,
+    stream_rows=None,
 ):
     """Run ``n_steps`` NUTS transitions on ``N`` column-layout chains.
 
@@ -202,24 +229,29 @@ def pallas_nuts(
     Philox and the twin from a ``torch.Generator`` seeded with ``seed``. The
     backend taken is recorded on ``pallas_nuts.last_backend`` and the
     device body on ``pallas_nuts.last_body`` (None on the twin).
+    ``rng="rbg"`` takes the rbg stream in the kernel and the twin alike, the
+    draws of the reference's ``nuts_sweep_cols`` from the int ``seed``, the
+    momentum's rows mapped by ``stream_rows``.
 
     Returns ``(q_final, accept_stat, mean_leapfrogs)``: the mean over chains
     and transitions of the accept statistic and of the leapfrog count.
     """
     backend = _route(backend, q0.device)
+    if rng not in (None, "rbg"):
+        raise ValueError(f"rng must be None (the stream interpret selects) or 'rbg', got {rng!r}")
     body = device_body(logdensity_cols, q0.shape[0], q0.device) if backend == "cuda" else None
     if backend == "cuda":
         q, accepts, leaps = nuts_sweep(
             body, q0.to(torch.float32).contiguous(), seed, n_steps=n_steps, eps=eps,
-            max_depth=max_depth, inv_mass=inv_mass, rng="counter" if interpret else "philox",
-            block_n=block_n, divergence_threshold=divergence_threshold,
+            max_depth=max_depth, inv_mass=inv_mass, rng=rng or ("counter" if interpret else "philox"),
+            block_n=block_n, divergence_threshold=divergence_threshold, stream_rows=stream_rows,
         )
         out = q, accepts.mean() / n_steps, leaps.mean() / n_steps
     else:
         out = nuts_sweep_cols(
             logdensity_cols, q0, seed, n_steps=n_steps, eps=eps, max_depth=max_depth,
-            inv_mass=inv_mass, rng="counter" if interpret else "generator", block_n=block_n,
-            divergence_threshold=divergence_threshold,
+            inv_mass=inv_mass, rng=rng or ("counter" if interpret else "generator"), block_n=block_n,
+            divergence_threshold=divergence_threshold, stream_rows=stream_rows,
         )
     pallas_nuts.last_backend = backend
     pallas_nuts.last_body = body.name if body is not None else None

@@ -730,7 +730,7 @@ class StagedBody:
         self.header = emit(program, self.const_mode)
         self.digest = hashlib.sha256(self.header.encode()).hexdigest()[:16]
         self._on_device: dict = {}
-        self._lib = None
+        self._libs: dict = {}  # stream mode (rbg or not) -> build, shared by bound copies
 
     @property
     def body(self) -> "StagedBody":
@@ -799,14 +799,15 @@ class StagedBody:
         return run_program(self.program, q.detach(), self.consts_on(q.device),
                            None if c is None else c.detach())
 
-    def lib(self):
-        """K1 and K4 built with this body (``_build.load_staged``), loaded
-        once: a launch reads no source and hashes nothing."""
-        if self._lib is None:
+    def lib(self, rbg: bool = False):
+        """K1 and K4 built with this body (``_build.load_staged``; their rbg
+        kernels with ``rbg=True``), loaded once: a launch reads no source and
+        hashes nothing."""
+        if rbg not in self._libs:
             from . import _build
 
-            self._lib = _build.load_staged(self.header)
-        return self._lib
+            self._libs[rbg] = _build.load_staged(self.header, rbg)
+        return self._libs[rbg]
 
     def __call__(self, q: torch.Tensor) -> torch.Tensor:
         return _StagedLp.apply(q, self)[0]

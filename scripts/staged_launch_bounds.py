@@ -153,7 +153,7 @@ def main() -> int:
     results = {}
     for (k1, k4), (so, secs) in built.items():
         b = copy.copy(body)
-        b._lib = ctypes.CDLL(str(so))
+        b._libs = {False: ctypes.CDLL(str(so))}
         report = so.with_suffix(".ptxas.txt").read_text()
         ptx = {("K1" if "hmc_sweep" in k else "K4"): {"registers": r, "spill_stores": st, "spill_loads": lo,
                                                       "stack": sf}

@@ -291,6 +291,12 @@ def test_a_key_and_a_trace_on_different_devices_raise():
             call()
     with pytest.raises(ValueError, match="the key lives on meta"):
         g.run_chains(elsewhere, lambda k: model.simulate(k, (0.2,)), g.S["x"], 1, 2, device="cpu")
-    with pytest.raises(GFITypeError, match="run_chains_hmc"):
-        g.run_chains_hmc(tk(41), torch.func.vmap(lambda k: model.simulate(k, (0.2,)))(keys.split(tk(42), 2)),
-                         g.S["x"], eps=0.1)
+    trs = torch.func.vmap(lambda k: model.simulate(k, (0.2,)))(keys.split(tk(42), 2))
+    with pytest.raises(ValueError, match="the trace lives on cpu and the key on meta"):
+        g.run_chains_hmc(elsewhere, trs, g.S["x"], eps=0.1)
+    # a key on the traces' device draws what the reference's run_chains_hmc draws
+    new, acc = g.run_chains_hmc(tk(41), trs, g.S["x"], eps=0.1)
+    ref = jax.vmap(lambda k: model_ref.simulate(k, (0.2,)))(jax.random.split(jk(42), 2))
+    want, want_acc = gj.run_chains_hmc(jk(41), ref, gj.S["x"], eps=0.1)
+    close(new.get_choices()["x"], want.get_choices()["x"])
+    close(acc, want_acc)
