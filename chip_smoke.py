@@ -39,7 +39,11 @@ against the CPU from the same start), the flagship's means held against the
 K1 draws of ``sample_posterior(hmc_sweep)``, each timed with the card's busy
 share; and exact sampling of GP latents (D = 256, 8,192 chains,
 ``bench.py::bench_gp``'s setup, with ``chol`` put on the card once) with
-``ess_sweep_gauss_pallas``, held against the closed-form posterior; and the
+``ess_sweep_gauss_pallas``, held against the closed-form posterior, then
+the elliptical family under a key (K3's threefry and rbg kernels against
+``ess_sweep_gauss_cols``'s plain version, that sweep and the keyed
+``MALA``, ``EllipticalSlice`` and ``SliceSample`` requests against the
+reference's golden results, the keyed kernels timed beside Philox); and the
 combinators, which are torch in both packages: ``linear_gaussian_ssm``'s
 kernel scanned over 100 steps (``bench.py::bench_pf``'s shape), a vmapped
 ``generate`` of 131,072 particles under ``C[:, "y"]`` (weights against
@@ -290,6 +294,13 @@ SFU_OPS = 16 * 132 * 1.98e9
 # parallel, so a call needs 40 slots of the busier, and the bound takes that
 PHILOX_INT_OPS = 10 * (2 * 2 + 2)
 PHILOX_PIPE_OPS = max(10 * 2 * 2, 10 * 2)
+# threefry2x32, as column_common.cuh writes it: 20 rounds of an add, a funnel
+# shift and an XOR, five key injections of two adds, and the counter's two
+# adds, all integer instructions
+THREEFRY_INT_OPS = 20 * 3 + 5 * 2 + 2
+# jax.random.normal's transform of a word (XLA's erf_inv): log1p about 10
+# FLOP, the nine-term polynomial 9 FMAs, the scalings about 4
+NORMAL_FLOP = 10 + 2 * 9 + 4
 
 
 class SmokeFailure(RuntimeError):
@@ -424,6 +435,27 @@ def k3_bound(chol: torch.Tensor, n: int, n_steps: int) -> dict:
         "product_gflop": product / 1e9, "rest_gflop": rest / 1e9,
         "ms": 1e3 * min(fp32, tensor), "by": "operations" if min(fp32, tensor) > t_bytes else "bytes",
     }
+
+
+def k3_keyed_bound(chol: torch.Tensor, n: int, n_steps: int, rng: str) -> dict:
+    """K3's bound on a keyed stream: ``k3_bound``'s tensor-core line, with the
+    draws' work beside it: the hashes (threefry: one a z element, the slice
+    uniform and the first angle; rbg: one Philox call a row of four chains
+    and one each for the two uniforms) on the integer pipes, and the normals'
+    transform on the FP32 pipes; the shrink's draws are not counted. The
+    bound is the largest of the product's line, the hashes, the FP32 work
+    and the bytes."""
+    d = chol.shape[0]
+    base = k3_bound(chol, n, n_steps)
+    z = n * n_steps * d
+    hash_ops = (z + 2 * n * n_steps) * THREEFRY_INT_OPS if rng == "threefry" else (
+        (z // 4 + 2 * n * n_steps) * PHILOX_PIPE_OPS)
+    fp32 = (base["rest_gflop"] * 1e9 + z * NORMAL_FLOP) / FP32_FLOPS
+    lines = {"tensor": base["tensor_ms"] / 1e3, "hash": hash_ops / INT32_OPS, "fp32": fp32,
+             "bytes": base["bytes_ms"] / 1e3}
+    by = max(lines, key=lines.get)
+    return {**{f"{k}_ms": 1e3 * v for k, v in lines.items()}, "hash_gops": hash_ops / 1e9,
+            "ms": 1e3 * lines[by], "by": "bytes" if by == "bytes" else "operations", "line": by}
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -705,7 +737,178 @@ def gp_path(device, smi: str, elliptical) -> dict:
         "bound_by": b["by"],
         "bound_fp32_ms": b["fp32_ms"],
         "library_ms": None,  # no single PyTorch call computes the sweep
-    }
+    }, q
+
+
+# reference results from genjax_tpu on the CPU (recompute them there if the
+# installed jax changes): ess_sweep_gauss_cols(zeros(256, 1024), 0,
+# n_steps=5, gp_data()'s chol and y, prec 1 / GP_NOISE^2, rng_impl): the
+# chains' means of dims 0-7 and the mean square; and run_chains(key(30),
+# generate(C["y"].set(1.2)), request, 5 steps, 256 chains) of ke_models()'s
+# reference twins: the last step's mean choice and the mean accept rate
+KE_GOLDEN = {
+    "ess_threefry": [0.11310874670743942, 0.43688398599624634, -0.4053986072540283, -0.35043811798095703,
+                     0.280916690826416, -0.014596566557884216, 0.1543487012386322, 0.22822171449661255,
+                     0.5026381015777588],
+    "ess_rbg": [0.10455302894115448, 0.47882047295570374, -0.4279111623764038, -0.37759560346603394,
+                0.26785898208618164, -0.0036836983636021614, 0.15045900642871857, 0.2060057669878006,
+                0.5041030645370483],
+    "req_mala": [0.3605118989944458, 0.42872515320777893, 0.3360092043876648, 0.9281249642372131],
+    "req_ess": [0.4223690330982208, 0.3880620300769806, 0.31606027483940125, 1.0],
+    "req_slice": [0.5850317478179932, 1.0],
+}
+KE_GOLDEN_CHAINS = 1024
+KE_STEPS = 3  # the kernels against their plain version
+KE_GENERIC = (300, 1024)  # a generic-variant shape
+KE_TOL = 1e-4
+KE_REPS = 100  # a timed window: 0.1-0.25 s at 1.2-2.5 ms a sweep
+
+
+def ke_models(g, device):
+    """The keyed requests' models: ``x ~ N(0, I_3)``, ``y ~ N(sum x, 0.5)``
+    (its parameters on ``device``), and ``mu ~ N(0, 1)``, ``y ~ N(mu, 1)``."""
+
+    @g.gen
+    def vector_model():
+        x = g.mv_normal_diag(torch.zeros(3, device=device), torch.ones(3, device=device)) @ "x"
+        g.normal(x.sum(), 0.5) @ "y"
+
+    @g.gen
+    def scalar_model():
+        mu = g.normal(0.0, 1.0) @ "mu"
+        g.normal(mu, 1.0) @ "y"
+
+    return vector_model, scalar_model
+
+
+def keys_ess_path(device, smi: str, g, elliptical, q_gp) -> dict:
+    """``[keys ess]``: the elliptical family under a key on the card. K3's
+    threefry and rbg kernels against their plain version
+    (``ess_sweep_gauss_cols(backend="torch")``) at the GP shape and a
+    generic D; ``ess_sweep_gauss_cols`` through its default route, each
+    stream's launches counted from 0 before it, and the keyed ``MALA``,
+    ``EllipticalSlice`` and ``SliceSample`` through ``run_chains``, against
+    the reference's golden results; then ``[timing keys ess]``: the keyed
+    kernels beside Philox at the GP shape from the GP path's state ``q_gp``,
+    in turns, with their bounds. Returns the threefry and rbg entries of
+    K3's line."""
+    from genjax_tpu_torch.core import keys
+    from genjax_tpu_torch.inference.requests import MALA, EllipticalSlice, SliceSample
+
+    t0 = time.perf_counter()
+    chol, y = gp_data()
+    prec = 1.0 / GP_NOISE**2
+    chol_d, y_d = torch.as_tensor(chol, device=device), torch.as_tensor(y, device=device)
+    entries = {}
+    for rng, impl in (("threefry", None), ("rbg", "rbg")):
+        # ---- the keyed kernel against its plain version, 3 steps
+        rows = []
+        for d, n in ((GP_D, GP_CHAINS), KE_GENERIC):
+            if d == GP_D:
+                ch, yy, q0 = chol_d, y_d, q_gp
+            else:
+                rs = np.random.default_rng(d)
+                A = rs.normal(size=(d, d))
+                ch = torch.as_tensor(np.linalg.cholesky(A @ A.T / d + np.eye(d)).astype(np.float32), device=device)
+                yy = torch.as_tensor(rs.normal(size=d).astype(np.float32), device=device)
+                q0 = torch.as_tensor(rs.normal(size=(d, n)).astype(np.float32), device=device)
+            kw = dict(n_steps=KE_STEPS, chol_prior=ch, y=yy, prec=prec, rng_impl=impl)
+            qk, _ = elliptical.ess_sweep_gauss_cols(q0, SEED, **kw)
+            variant = elliptical.ess_gauss_sweep.last_variant
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            qt, _ = elliptical.ess_sweep_gauss_cols(q0, SEED, backend="torch", **kw)
+            torch.cuda.synchronize()
+            twin_s = time.perf_counter() - t1
+            err = (qk - qt).abs().amax(dim=0)
+            agree = err <= KE_TOL
+            frac = float(agree.float().mean())
+            max_err = float(err[agree].max()) if bool(agree.any()) else math.inf
+            check(frac >= 0.99, f"[keys ess] K3 {rng} ({d}, {n}): only {frac:.5f} of chains within {KE_TOL} of "
+                                f"the plain version")
+            check(variant == ("tiled" if d <= 256 else "generic"), f"[keys ess] K3 {rng} at D={d} took {variant}")
+            info = elliptical.kernel_info(d, rng)
+            rows.append((d, n, variant, frac, max_err, twin_s, info))
+            phase("keys ess", f"K3 {rng} ({elliptical.geometry(d, rng)['kernel']}) against its plain version "
+                              f"(ess_sweep_gauss_cols(backend='torch')), ({d}, {n}), {KE_STEPS} steps: {frac:.5f} "
+                              f"of chains within {KE_TOL} (limit 0.99), max abs err {max_err:.3g} on them; plain "
+                              f"{twin_s:.3f} s; {info['registers']} registers, {info['local_bytes']} B local, "
+                              f"{info['blocks_per_sm']} block(s) an SM")
+        # ---- the public sweep under an int seed, its launches counted, against the reference
+        q0 = torch.zeros(GP_D, KE_GOLDEN_CHAINS, device=device)
+        elliptical.ess_gauss_sweep_launches = 0
+        q, _ = elliptical.ess_sweep_gauss_cols(q0, 0, n_steps=5, chol_prior=chol_d, y=y_d, prec=prec,
+                                               rng_impl=impl)
+        launches = elliptical.ess_gauss_sweep_launches
+        route = elliptical.ess_sweep_gauss_cols.last_backend
+        got = q[:8].mean(dim=1).tolist() + [float((q * q).mean())]
+        gold = KE_GOLDEN[f"ess_{rng}"]
+        gerr = max(abs(a - b) for a, b in zip(got, gold))
+        check(launches == 1 and route == "cuda", f"[keys ess] ess_sweep_gauss_cols ({rng}) made {launches} K3 "
+                                                 f"launches on {route}")
+        check(gerr <= KE_TOL, f"[keys ess] ess_sweep_gauss_cols ({rng}) {gerr:.3g} off the reference (limit {KE_TOL})")
+        phase("keys ess", f"ess_sweep_gauss_cols(zeros(256, {KE_GOLDEN_CHAINS}), 0, 5 steps, rng_impl={impl!r}) "
+                          f"on {route}: {launches} K3 {rng} launch, means of dims 0-7 and the mean square within "
+                          f"{gerr:.3g} of the reference's (limit {KE_TOL})")
+        (d0, n0, _, frac0, err0, twin0, info0), generic = rows[0], rows[1]
+        entries[rng] = {"name": f"ess_gauss_sweep (K3, the {rng} stream)", "route": "cuda",
+                        "source": "genjax_tpu_torch/kernels/csrc/ess_gauss_sweep.cu",
+                        "replaces": "genjax_tpu/kernels/elliptical.py:364",
+                        "kernel": elliptical.geometry(GP_D, rng)["kernel"], "launches": launches,
+                        "launches_by_path": {f"ess_sweep_gauss_cols(rng_impl={impl!r})": launches},
+                        "max_abs_err": err0, "share_within_1e-4": frac0, "generic": {
+                            "shape": [generic[0], generic[1]], "max_abs_err": generic[4],
+                            "share_within_1e-4": generic[3]},
+                        # the plain version's host clock at the comparison's shape (KE_STEPS steps)
+                        "plain_ms": 1e3 * twin0, "plain_steps": KE_STEPS, "library_ms": None,
+                        "registers": info0["registers"], "local_bytes": info0["local_bytes"]}
+
+    # ---- the keyed requests through run_chains under key(30), against the reference
+    vector_model, scalar_model = ke_models(g, device)
+    errs = []
+    for name, req, model, addr in (("mala", MALA(g.S["x"], 0.3), vector_model, "x"),
+                                   ("ess", EllipticalSlice(g.S["x"], max_iters=12), vector_model, "x"),
+                                   ("slice", SliceSample(g.S["mu"], width=0.8, max_steps=10), scalar_model, "mu")):
+        res = g.run_chains(keys.key(30, device=device), lambda k, m=model: m.generate(k, g.C["y"].set(1.2), ())[0],
+                           req, 5, 256, record=lambda t, a=addr: t.get_choices()[a], device=device)
+        got = res.history[:, -1].mean(dim=0).reshape(-1).tolist() + [float(res.accept_rate.float().mean())]
+        gerr = max(abs(a - b) for a, b in zip(got, KE_GOLDEN[f"req_{name}"]))
+        check(res.history.is_cuda and gerr <= KE_TOL, f"[keys ess] run_chains({name}) under key(30): {gerr:.3g} "
+                                                      f"off the reference (limit {KE_TOL})")
+        errs.append(f"{name} {gerr:.3g}")
+    phase("keys ess", f"run_chains(key(30), MALA / EllipticalSlice / SliceSample, 5 steps, 256 chains) on the card: "
+                      f"last-step means and accept rates within {', '.join(errs)} of the reference's (limit "
+                      f"{KE_TOL})")
+
+    # ---- the keyed kernels' times beside Philox's, in turns, from the GP state
+    prec_d, mean_d = (torch.as_tensor(v, dtype=torch.float32, device=device)
+                      for v in (np.full(GP_D, prec), np.zeros(GP_D)))
+
+    def sweep(rng):
+        kw = dict(n_steps=GP_STEPS, chol=chol_d, y=y_d, prec=prec_d, mean=mean_d)
+        if rng != "philox":
+            kw["max_iters"] = 64  # ess_sweep_gauss_cols's cap; Philox keeps the GP path's 24
+        return lambda: elliptical.ess_gauss_sweep(q_gp, SEED, rng=rng, **kw)
+
+    order = ("philox", "threefry", "rbg", "rbg", "threefry", "philox")
+    times = {}
+    for rng in order:
+        times.setdefault(rng, []).append(cuda_ms(sweep(rng), KE_REPS))
+    ph = sum(times["philox"]) / 2
+    for rng in ("threefry", "rbg"):
+        ms = sum(times[rng]) / 2
+        b = k3_keyed_bound(chol_d, GP_CHAINS, GP_STEPS, rng)
+        entries[rng].update({"ms": ms, "philox_ms": ph, "bound_ms": b["ms"], "bound_by": b["by"],
+                             "bound_line": b["line"]})
+        phase("timing keys ess", f"{smi}: K3 {rng} at D={GP_D} x {GP_CHAINS} chains x {GP_STEPS} steps from the GP "
+                                 f"state: {times[rng][0]:.4f}, {times[rng][1]:.4f} ms against philox "
+                                 f"{times['philox'][0]:.4f}, {times['philox'][1]:.4f} ms, in turns {order} "
+                                 f"({KE_REPS} sweeps a window); bound {b['ms']:.4f} ms ({b['line']}: hashes "
+                                 f"{b['hash_ms']:.4f} ms, {b['hash_gops']:.4g} G integer operations; tensor-core "
+                                 f"line {b['tensor_ms']:.4f}, FP32 {b['fp32_ms']:.4f}, bytes {b['bytes_ms']:.4f} ms): "
+                                 f"{rng} at {b['ms'] / ms:.4f} of it, {ms / ph:.3f}x philox")
+    phase("keys ess", f"the keys ess phase took {time.perf_counter() - t0:.1f} s")
+    return entries
 
 
 def wall_ms(fn, reps=3):
@@ -6218,7 +6421,11 @@ def main() -> int:
     kb_entries = keys_batched_path(device, smi, g, hmc, nuts, nuts_pallas, model, y, ld, q0, (q_wn, eps_n, im_n))
 
     # ---- the GP / elliptical-slice path (K3)
-    k3_entry = gp_path(device, smi, elliptical)
+    k3_entry, q_gp = gp_path(device, smi, elliptical)
+
+    # ---- the elliptical family under a key: K3's threefry and rbg kernels
+    k3_entry.update(keys_ess_path(device, smi, g, elliptical, q_gp))
+    del q_gp
 
     # ---- the reference's cookbooks on the port, each as --device cuda runs
     # it, in a process of its own beside the host-bound phases that follow
@@ -6290,7 +6497,9 @@ def main() -> int:
     check(all(math.isfinite(v) for v in (ms, plain_ms, flagship_err, k4_ms, nuts_plain_ms, k4_err,
                                          k2_entry["ms"], k2_entry["plain_ms"], k2_entry["fold_ms"],
                                          k2_entry["before_ms"], k2_entry["before_fold_ms"],
-                                         k3_entry["max_abs_err"], k3_entry["ms"], k3_entry["plain_ms"])),
+                                         k3_entry["max_abs_err"], k3_entry["ms"], k3_entry["plain_ms"],
+                                         *(k3_entry[r][k] for r in ("threefry", "rbg")
+                                           for k in ("max_abs_err", "ms", "plain_ms", "bound_ms")))),
           "non-finite result")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

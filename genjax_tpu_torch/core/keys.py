@@ -3,8 +3,10 @@
 The counterpart of ``jax.random``'s two key implementations, with
 ``jax_threefry_partitionable`` on (JAX's default): the same key words, splits,
 fold-ins, bits, uniforms, normals, integers and coin flips as ``jax.random``
-gives for the same seed, so that a model driven by ``key(0)`` draws what the
-JAX package draws from ``jax.random.key(0)``.
+gives for the same seed, and its gamma draws and the samplers built on them
+alone (``gamma``, ``loggamma``, ``beta``, ``dirichlet``, ``chisquare``,
+``t``), so that a model driven by ``key(0)`` draws what the JAX package
+draws from ``jax.random.key(0)``.
 
 A key is an int64 tensor whose last axis holds the key's 32-bit words, each in
 ``[0, 2**32)``: two for threefry2x32 (JAX's default), four for rbg; a batch of
@@ -28,7 +30,8 @@ The sources are ``jax/_src/prng.py`` (``threefry_seed``,
 ``threefry_fold_in``, ``_threefry_random_bits_partitionable``, ``_rbg_seed``,
 ``_rbg_split``, ``_rbg_fold_in``, ``_rbg_random_bits``) and
 ``jax/_src/random.py`` (``_uniform``, ``_normal_real``, ``_randint``,
-``_bernoulli`` and the samplers the distributions reproduce).
+``_bernoulli``, ``_gamma_one``, ``_gamma_impl``, ``_beta``, ``_dirichlet``,
+``_chisquare``, ``_t`` and the samplers the distributions reproduce).
 
 >>> k = key(0, device="cpu")
 >>> k.tolist()
@@ -355,3 +358,156 @@ def bernoulli(k: torch.Tensor, p=0.5, shape=None) -> torch.Tensor:
     p = torch.as_tensor(p, dtype=torch.float32, device=k.device)
     shape = tuple(p.shape) if shape is None else _shape(shape)
     return uniform(k, shape) < p
+
+
+# ----------------------------------------------------------------------
+# jax.random.gamma and what rests on it alone
+# ----------------------------------------------------------------------
+
+
+def _any(mask: torch.Tensor) -> bool:
+    """Whether any element of ``mask`` is set, over every lane of an
+    enclosing ``torch.func`` transform: the gamma sampler's loops exit
+    collectively, once no element of any lane is left (the lanes' values
+    are read under the transform's wrappers, as ``core/changes.py`` reads
+    them). One host read."""
+    from torch._C import _functorch
+
+    while _functorch.is_functorch_wrapped_tensor(mask):
+        mask = _functorch.get_unwrapped(mask)
+    return bool(mask.any())
+
+
+_TINY32 = torch.finfo(torch.float32).tiny
+
+
+def _flush(x: torch.Tensor) -> torch.Tensor:
+    """``x`` with its subnormal values made 0, as XLA computes on the CPU
+    (and a TPU, which has no subnormals): where a gamma draw or its boost
+    underflows past float32's smallest normal, the reference's is 0."""
+    return torch.where(x.abs() < _TINY32, torch.zeros_like(x), x)
+
+
+def _gamma_one(k: torch.Tensor, alpha: torch.Tensor, log_space: bool) -> torch.Tensor:
+    """``jax.random``'s ``_gamma_one`` for each element at once: ``k``
+    ``(n, W)``, one key an element, ``alpha`` ``(n,)`` float32.
+    Marsaglia and Tsang: a round splits an element's key in three, draws a
+    normal ``x`` with ``v = 1 + c x > 0`` (an inner loop that splits in two
+    until it holds) and a uniform ``U``, and the element is done once ``U <
+    1 - 0.0331 X^2`` or ``log U < X / 2 + d (1 - V + log V)`` (``X = x^2``,
+    ``V = v^3``); ``alpha < 1`` takes ``alpha + 1`` and the boost ``u^(1 /
+    alpha)``, in log space ``log(u) / alpha``; subnormal values are made 0
+    (``_flush``). The loops are masked over all elements and exit when no
+    element is left, so each element draws what its own ``lax.while_loop``
+    draws."""
+    one_third = torch.tensor(1.0 / 3.0, dtype=torch.float32)
+    boost_mask = alpha >= 1.0
+    alpha_orig = alpha
+    alpha = torch.where(boost_mask, alpha, alpha + 1.0)
+    d = alpha - one_third
+    c = one_third / torch.sqrt(d)
+
+    def rejected(X, V, U):
+        return (U >= 1.0 - 0.0331 * (X * X)) & (torch.log(U) >= X * 0.5 + d * ((1.0 - V) + torch.log(V)))
+
+    k, sub_key = split(k).unbind(-2)
+    X, V, U = torch.zeros_like(alpha), torch.ones_like(alpha), torch.full_like(alpha, 2.0)
+    active = rejected(X, V, U)
+    while _any(active):
+        k_next, kx, k_u = split(k, 3).unbind(-2)
+        x, v = torch.zeros_like(alpha), torch.full_like(alpha, -1.0)
+        inner = active.clone()
+        while _any(inner):
+            kx_next, k_x = split(kx).unbind(-2)
+            x_new = normal(k_x, ())
+            v_new = 1.0 + x_new * c
+            kx = torch.where(inner[:, None], kx_next, kx)
+            x, v = torch.where(inner, x_new, x), torch.where(inner, v_new, v)
+            inner = inner & (v <= 0.0)
+        U_new = uniform(k_u, ())
+        k = torch.where(active[:, None], k_next, k)
+        X, V, U = (torch.where(active, new, old) for new, old in ((x * x, X), (v * v * v, V), (U_new, U)))
+        active = active & rejected(X, V, U)
+    inv_alpha = 1.0 / alpha_orig
+    if log_space:
+        log_samples = torch.log1p(-uniform(sub_key, ()))
+        log_boost = torch.where(boost_mask | (log_samples == 0.0), 0.0, log_samples * inv_alpha)
+        return torch.log(d) + torch.log(V) + log_boost
+    samples = 1.0 - uniform(sub_key, ())
+    boost = torch.where(boost_mask, 1.0, _flush(torch.pow(samples, inv_alpha)))
+    return _flush(d * V * boost)
+
+
+def _float32(x, k: torch.Tensor) -> torch.Tensor:
+    return torch.as_tensor(x, dtype=torch.float32, device=k.device)
+
+
+def gamma(k: torch.Tensor, a, shape=None, log_space: bool = False) -> torch.Tensor:
+    """Gamma(``a``, 1) draws, as ``jax.random.gamma(k, a, shape)`` (or, with
+    ``log_space``, ``jax.random.loggamma``): ``a`` broadcast to ``shape``
+    (``a``'s own by default), element ``i`` drawn under ``split(k,
+    size)[i]`` by ``_gamma_one``. float32."""
+    _check(k, "gamma")
+    a = _float32(a, k)
+    shape = tuple(a.shape) if shape is None else _shape(shape)
+    a = torch.broadcast_to(a, shape)
+    size = math.prod(shape)
+    flat = _gamma_one(split(k, size).reshape(size, -1), a.reshape(size), log_space)
+    return flat.reshape(shape)
+
+
+def loggamma(k: torch.Tensor, a, shape=None) -> torch.Tensor:
+    """The logs of Gamma(``a``, 1) draws, as ``jax.random.loggamma``: exact
+    where ``gamma`` underflows (small ``a``)."""
+    return gamma(k, a, shape, log_space=True)
+
+
+def beta(k: torch.Tensor, a, b, shape=None) -> torch.Tensor:
+    """Beta(``a``, ``b``) draws, as ``jax.random.beta``: the log-gammas of
+    ``split(k)``'s two keys, each less their maximum, exponentiated and
+    normalised."""
+    _check(k, "beta")
+    a, b = _float32(a, k), _float32(b, k)
+    shape = tuple(torch.broadcast_shapes(a.shape, b.shape)) if shape is None else _shape(shape)
+    key_a, key_b = split(k).unbind(-2)
+    log_a = loggamma(key_a, torch.broadcast_to(a, shape), shape)
+    log_b = loggamma(key_b, torch.broadcast_to(b, shape), shape)
+    log_max = torch.maximum(log_a, log_b)
+    ga, gb = _flush(torch.exp(log_a - log_max)), _flush(torch.exp(log_b - log_max))
+    return ga / (ga + gb)
+
+
+def dirichlet(k: torch.Tensor, alpha, shape=None) -> torch.Tensor:
+    """Dirichlet(``alpha``) draws over ``alpha``'s last axis, as
+    ``jax.random.dirichlet``: the softmax of log-gammas of shape ``shape +
+    alpha.shape[-1:]`` (``shape`` defaults to ``alpha.shape[:-1]``)."""
+    _check(k, "dirichlet")
+    alpha = _float32(alpha, k)
+    if alpha.dim() < 1:
+        raise ValueError(f"dirichlet requires alpha.ndim >= 1, got alpha.ndim == {alpha.dim()}")
+    shape = tuple(alpha.shape[:-1]) if shape is None else _shape(shape)
+    x = loggamma(k, alpha, shape + tuple(alpha.shape[-1:]))
+    e = _flush(torch.exp(x - x.amax(dim=-1, keepdim=True)))
+    return e / e.sum(dim=-1, keepdim=True)
+
+
+def chisquare(k: torch.Tensor, df, shape=None) -> torch.Tensor:
+    """Chi-square(``df``) draws, as ``jax.random.chisquare``: twice the
+    exponential of a log-gamma of ``df / 2``."""
+    _check(k, "chisquare")
+    df = _float32(df, k)
+    shape = tuple(df.shape) if shape is None else _shape(shape)
+    return _flush(torch.exp(loggamma(k, df / 2.0, shape))) * 2.0
+
+
+def t(k: torch.Tensor, df, shape=None) -> torch.Tensor:
+    """Student's t(``df``) draws, as ``jax.random.t``: a normal under
+    ``split(k)``'s first key times ``sqrt((df / 2) / g)``, ``g`` a
+    Gamma(``df / 2``) draw under the second."""
+    _check(k, "t")
+    df = _float32(df, k)
+    shape = tuple(df.shape) if shape is None else _shape(shape)
+    key_n, key_g = split(k).unbind(-2)
+    n = normal(key_n, shape)
+    half_df = df / 2.0
+    return n * torch.sqrt(half_df / gamma(key_g, half_df, shape))

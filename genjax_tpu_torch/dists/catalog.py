@@ -14,10 +14,12 @@ draws, which PREPENDS the parameters' batch shape; the log-densities accept
 and ignore it. Arguments that are not tensors are made float32 tensors on the
 device of the tensor arguments (a CUDA device wins over the CPU). Under a
 key (``core/keys.py``) a distribution draws what the reference's sampler
-draws from the same key, through the same ``jax.random`` formula, for the 22
-whose reference sampler is a transform of ``jax.random.uniform`` or
-``normal`` (``_KEYED``); the others raise ``GFITypeError`` naming the
-``jax.random`` function they would need (``UNKEYED``). Under a generator,
+draws from the same key, through the same ``jax.random`` formula, for the 33
+whose reference sampler is a transform of ``jax.random.uniform``,
+``normal`` or ``gamma`` (``_KEYED``; ``core/keys.py`` ports ``gamma`` and
+``loggamma``, ``beta``, ``dirichlet``, ``chisquare`` and ``t``); the others
+raise ``GFITypeError`` naming the ``jax.random`` function they would need
+(``UNKEYED``). Under a generator,
 samples are drawn from it on its device, by ``torch.rand``,
 ``torch.randn``, ``torch._standard_gamma``, ``torch.poisson``,
 ``torch.binomial`` and ``torch._sample_dirichlet``, so that every sampler
@@ -227,15 +229,6 @@ _KEYED: dict = {}
 #: The ``jax.random`` function behind each reference sampler that a key
 #: does not reproduce yet: under a key these raise.
 UNKEYED = {
-    "student_t": "jax.random.t",
-    "half_student_t": "jax.random.t",
-    "beta": "jax.random.beta",
-    "gamma": "jax.random.gamma",
-    "inverse_gamma": "jax.random.gamma",
-    "chi": "jax.random.chisquare",
-    "chi2": "jax.random.chisquare",
-    "exp_gamma": "jax.random.loggamma",
-    "exp_inverse_gamma": "jax.random.loggamma",
     "moyal": "jax.random.uniform with the special erfcinv",
     "double_sided_maxwell": "jax.random.double_sided_maxwell",
     "inverse_gaussian": "jax.random.wald",
@@ -247,12 +240,10 @@ UNKEYED = {
     "skellam": "jax.random.poisson",
     "zipf": "the reference's special.zipf_sample",
     "non_central_chi2": "jax.random.poisson and jax.random.chisquare",
-    "dirichlet": "jax.random.dirichlet",
     "multinomial": "jax.random.multinomial",
     "dirichlet_multinomial": "jax.random.dirichlet and jax.random.multinomial",
     "power_spherical": "the reference's special.power_spherical_sample",
     "von_mises_fisher": "the reference's special.von_mises_fisher_sample",
-    "beta_quotient": "jax.random.beta",
 }
 
 
@@ -1259,3 +1250,73 @@ def _key_mv_normal(key, loc, covariance_matrix, **kw):
     shape = _shape(kw) or tuple(torch.broadcast_shapes(tuple(loc.shape[:-1]), tuple(cov.shape[:-2])))
     z = keys.normal(key, tuple(shape) + tuple(loc.shape[-1:]))
     return loc + (cholesky_or_nan(cov) @ z.unsqueeze(-1)).squeeze(-1)
+
+
+@_keyed("gamma")
+def _key_gamma(key, concentration, rate=1.0, **kw):
+    conc, rate = _tensors(concentration, rate, device=key.device)
+    return keys.gamma(key, conc, _bshape(_shape(kw), conc, rate)) / rate
+
+
+@_keyed("inverse_gamma")
+def _key_inverse_gamma(key, concentration, scale, **kw):
+    conc, scale = _tensors(concentration, scale, device=key.device)
+    return scale / keys.gamma(key, conc, _bshape(_shape(kw), conc, scale))
+
+
+@_keyed("exp_gamma")
+def _key_exp_gamma(key, concentration, rate=1.0, **kw):
+    conc, rate = _tensors(concentration, rate, device=key.device)
+    return keys.loggamma(key, conc, _bshape(_shape(kw), conc, rate)) - torch.log(rate)
+
+
+@_keyed("exp_inverse_gamma")
+def _key_exp_inverse_gamma(key, concentration, scale=1.0, **kw):
+    conc, scale = _tensors(concentration, scale, device=key.device)
+    return torch.log(scale) - keys.loggamma(key, conc, _bshape(_shape(kw), conc, scale))
+
+
+@_keyed("beta")
+def _key_beta(key, concentration1, concentration0, **kw):
+    a, b = _tensors(concentration1, concentration0, device=key.device)
+    return keys.beta(key, a, b, _bshape(_shape(kw), a, b))
+
+
+@_keyed("beta_quotient")
+def _key_beta_quotient(key, concentration1_numerator, concentration0_numerator,
+                       concentration1_denominator, concentration0_denominator, **kw):
+    a1, b1, a2, b2 = _tensors(concentration1_numerator, concentration0_numerator, concentration1_denominator,
+                              concentration0_denominator, device=key.device)
+    shape = _bshape(_shape(kw), a1, b1, a2, b2)
+    k1, k2 = keys.split(key).unbind(-2)
+    return keys.beta(k1, a1, b1, shape) / keys.beta(k2, a2, b2, shape)
+
+
+@_keyed("dirichlet")
+def _key_dirichlet(key, concentration, **kw):
+    (conc,) = _tensors(concentration, device=key.device)
+    return keys.dirichlet(key, conc, _bshape(_shape(kw), tuple(conc.shape[:-1])) or None)
+
+
+@_keyed("chi")
+def _key_chi(key, df, **kw):
+    (df,) = _tensors(df, device=key.device)
+    return torch.sqrt(keys.chisquare(key, df, _bshape(_shape(kw), df)))
+
+
+@_keyed("chi2")
+def _key_chi2(key, df, **kw):
+    (df,) = _tensors(df, device=key.device)
+    return keys.chisquare(key, df, _bshape(_shape(kw), df))
+
+
+@_keyed("student_t")
+def _key_student_t(key, df, loc=0.0, scale=1.0, **kw):
+    df, loc, scale = _tensors(df, loc, scale, device=key.device)
+    return loc + scale * keys.t(key, df, _bshape(_shape(kw), df, loc, scale))
+
+
+@_keyed("half_student_t")
+def _key_half_student_t(key, df, loc=0.0, scale=1.0, **kw):
+    df, loc, scale = _tensors(df, loc, scale, device=key.device)
+    return loc + scale * torch.abs(keys.t(key, df, _bshape(_shape(kw), df, loc, scale)))

@@ -8,7 +8,11 @@ prior; the likelihood is everything else in the trace, computed as
 values. One transition draws the ellipse through the current value and a
 fresh prior draw and shrinks the angle bracket until the slice level is met
 (Murray, Adams & MacKay 2010). The transition is in detailed balance with
-the posterior, so the SMCP3 weight is 0 and ``mh`` always accepts.
+the posterior, so the SMCP3 weight is 0 and ``mh`` always accepts. Under a
+key the draws are the reference's: ``k_nu, k_u, k_theta, k_update =
+split(key, 4)``, the shrink step ``i``'s uniform under ``fold_in(k_theta, i
++ 1)``, and the ``Update`` under ``k_update``; a generator is drawn in
+sequence.
 
 The reference's shrink is a ``lax.while_loop``. Here it runs the fixed
 budget of ``max_iters`` shrink steps, masked: every step evaluates the
@@ -39,12 +43,12 @@ from typing import Any
 
 import torch
 
+from ...core import keys
 from ...core.diff import Diff
 from ...core.pytree import Pytree
 from ...generative.concepts import Argdiffs, EditRequest, Retdiff, Update, Weight
 from ...generative.selection import Selection
 from ...generative.trace import Trace
-from ...generative.typecheck import check_generator
 from .grad_view import selected_logdensity
 
 _TWO_PI = 2.0 * math.pi
@@ -64,17 +68,32 @@ def _gaussian_logpdf(z, mean, chol):
     return -0.5 * torch.sum(a * a) - logdet - 0.5 * z.shape[0] * math.log(2.0 * math.pi)
 
 
-def ess_transition(gen: torch.Generator, loglik, z0, mean, chol, max_iters: int):
+def _ess_draws(gen, z0, max_iters: int):
+    """The transition's draws ``(eps, u, u_theta, us)``: under a key the
+    reference's (``split(gen, 4)``'s first three; shrink step ``i``'s uniform
+    under ``fold_in(k_theta, i + 1)``), under a generator the same shapes in
+    that order."""
+    if keys.is_key(gen):
+        k_nu, k_u, k_theta = keys.split(gen, 4).unbind(-2)[:3]
+        steps = torch.arange(1, max_iters + 1, device=gen.device)
+        return (keys.normal(k_nu, tuple(z0.shape)), keys.uniform(k_u), keys.uniform(k_theta),
+                keys.uniform(keys.fold_in(k_theta, steps)))
+    dev, dt = z0.device, z0.dtype
+    return (torch.randn(z0.shape, generator=gen, device=dev, dtype=dt),
+            torch.rand((), generator=gen, device=dev, dtype=dt), torch.rand((), generator=gen, device=dev, dtype=dt),
+            torch.rand((max_iters,), generator=gen, device=dev, dtype=dt))
+
+
+def ess_transition(gen, loglik, z0, mean, chol, max_iters: int):
     """One elliptical slice transition of ``z0 (d,)`` under the prior ``N(mean,
     chol chol^T)`` and the log-likelihood ``loglik``, over the fixed budget
-    of ``max_iters`` masked shrink steps. Draws from ``gen``, in order: the
-    prior direction, the slice level, the first angle and one uniform a
-    shrink step. Returns ``(z1, exhausted)``."""
-    eps = torch.randn(z0.shape, generator=gen, device=z0.device, dtype=z0.dtype)
+    of ``max_iters`` masked shrink steps. Draws (``_ess_draws``) the prior
+    direction, the slice level, the first angle and one uniform a shrink
+    step, under a key or from a generator. Returns ``(z1, exhausted)``."""
+    eps, u, u_theta, us = _ess_draws(gen, z0, max_iters)
     nu = chol @ eps if chol.ndim == 2 else torch.broadcast_to(chol, z0.shape) * eps
-    log_y = loglik(z0) + torch.log(torch.rand((), generator=gen, device=z0.device, dtype=z0.dtype))
-    theta = torch.rand((), generator=gen, device=z0.device, dtype=z0.dtype) * _TWO_PI
-    us = torch.rand((max_iters,), generator=gen, device=z0.device, dtype=z0.dtype)
+    log_y = loglik(z0) + torch.log(u)
+    theta = u_theta * _TWO_PI
     centered = z0 - mean
 
     def proposal(angle):
@@ -115,7 +134,6 @@ class EllipticalSlice(EditRequest):
     ) -> tuple[Trace, Weight, Retdiff, EditRequest]:
         if not Diff.static_check_no_change(argdiffs):
             raise NotImplementedError("EllipticalSlice requires unchanged arguments.")
-        check_generator(gen, "EllipticalSlice")
         z0, logdensity, to_choices = selected_logdensity(
             tr.get_gen_fn(), tr.get_choices(), self.selection, Diff.tree_primal(argdiffs)
         )
@@ -126,7 +144,8 @@ class EllipticalSlice(EditRequest):
             return logdensity(z) - _gaussian_logpdf(z, mean, chol)
 
         z1, exhausted = ess_transition(gen, loglik, z0, mean, chol, self.max_iters)
-        final_trace, _, retdiff, _ = Update(to_choices(z1)).edit(gen, tr, argdiffs)
+        k_update = keys.split(gen, 4)[3] if keys.is_key(gen) else gen
+        final_trace, _, retdiff, _ = Update(to_choices(z1)).edit(k_update, tr, argdiffs)
         return (
             final_trace,
             torch.zeros((), device=z0.device),

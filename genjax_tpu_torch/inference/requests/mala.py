@@ -8,7 +8,10 @@ over the selected continuous choices,
 with the exact MH log-ratio as the SMCP3 weight (the asymmetric proposal's
 correction included). Gradients flow through ``assess``
 (``grad_view.selection_gradient``), so any model composes, vmapped over
-chains. The noise comes from the caller's generator, a leaf at a time.
+chains. Under a key the noise is the reference's: ``key, noise_key =
+split(key)``, leaf ``i``'s noise ``normal(fold_in(noise_key, i))``, and the
+``Update`` edits under ``key``; under a generator the noise is drawn from
+it a leaf at a time.
 """
 
 from __future__ import annotations
@@ -18,13 +21,13 @@ from typing import Any
 import torch
 import torch.utils._pytree as pytree
 
+from ...core import keys
 from ...core.diff import Diff
 from ...core.pytree import Pytree
 from ...core.typing_ import static_check_supports_grad
 from ...generative.concepts import Argdiffs, EditRequest, Retdiff, Update, Weight
 from ...generative.selection import Selection
 from ...generative.trace import Trace
-from ...generative.typecheck import check_generator
 from .grad_view import selection_gradient
 
 
@@ -58,15 +61,17 @@ class MALA(EditRequest):
     ) -> tuple[Trace, Weight, Retdiff, EditRequest]:
         if not Diff.static_check_no_change(argdiffs):
             raise NotImplementedError("MALA requires unchanged arguments.")
-        check_generator(gen, "MALA")
         eps = self.eps
         values, grads = selection_gradient(self.selection, tr, argdiffs)
         leaves, spec = pytree.tree_flatten(values)
-        noise = pytree.tree_unflatten(
-            [torch.randn(tuple(torch.as_tensor(v).shape), generator=gen, device=gen.device)
-             for v in leaves],
-            spec,
-        )
+        if keys.is_key(gen):
+            gen, noise_key = keys.split(gen).unbind(-2)
+            noise = [keys.normal(keys.fold_in(noise_key, i), tuple(torch.as_tensor(v).shape))
+                     for i, v in enumerate(leaves)]
+        else:
+            noise = [torch.randn(tuple(torch.as_tensor(v).shape), generator=gen, device=gen.device)
+                     for v in leaves]
+        noise = pytree.tree_unflatten(noise, spec)
         fwd_mean = pytree.tree_map(lambda v, g_: v + 0.5 * eps * eps * g_, values, grads)
 
         def perturb(v, m, x):

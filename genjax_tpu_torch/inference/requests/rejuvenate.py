@@ -3,7 +3,10 @@ request (no accept step; the weight is the log-acceptance ratio).
 
 Counterpart of ``genjax_tpu/inference/requests/rejuvenate.py``, with its
 correction of the backward move: the reverse kernel proposes the old values
-from the NEW trace's choices, so the weight is the exact MH log-ratio.
+from the NEW trace's choices, so the weight is the exact MH log-ratio. Under
+a key the request splits it as the reference does, ``key, sub_key =
+split(key)``: the proposal draws under ``sub_key`` and the ``Update`` edits
+under ``key``; a generator drives both in sequence.
 """
 
 from __future__ import annotations
@@ -12,6 +15,7 @@ from typing import Callable
 
 import torch
 
+from ...core import keys
 from ...core.pytree import Pytree
 from ...generative.concepts import Argdiffs, EditRequest, Retdiff, Update, Weight
 from ...generative.gfi import GenerativeFunction
@@ -32,7 +36,10 @@ class Rejuvenate(EditRequest):
     def edit(
         self, gen: torch.Generator, tr: Trace, argdiffs: Argdiffs
     ) -> tuple[Trace, Weight, Retdiff, EditRequest]:
-        proposed, fwd_score, _ = self.proposal.propose(gen, self.argument_mapping(tr.get_choices()))
+        sub_gen = gen
+        if keys.is_key(gen):
+            gen, sub_gen = keys.split(gen).unbind(-2)
+        proposed, fwd_score, _ = self.proposal.propose(sub_gen, self.argument_mapping(tr.get_choices()))
         new_tr, w, retdiff, bwd_request = Update(proposed).edit(gen, tr, argdiffs)
         assert isinstance(bwd_request, Update)
         bwd_score, _ = self.proposal.assess(

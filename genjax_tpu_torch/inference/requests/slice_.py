@@ -17,6 +17,10 @@ its values, and every bound is a function of the step index alone, so the
 transition runs under ``torch.func.vmap`` over chains. A lane whose shrink
 finds no point in budget stays where it was (an exact no-op, as the
 reference's); the backward request carries ``exhausted``, True there.
+Under a key the draws are the reference's: ``k_u, k_pos, k_dir, k_shrink,
+k_update = split(key, 5)``, shrink step ``j``'s uniform under
+``fold_in(k_shrink, j)``, the ``Update`` under ``k_update``; a generator is
+drawn in sequence.
 
 >>> import torch
 >>> import genjax_tpu_torch as g
@@ -37,29 +41,44 @@ from typing import Any
 
 import torch
 
+from ...core import keys
 from ...core.diff import Diff
 from ...core.pytree import Pytree
 from ...generative.concepts import Argdiffs, EditRequest, Retdiff, Update, Weight
 from ...generative.selection import Selection
 from ...generative.trace import Trace
-from ...generative.typecheck import check_generator
 from .grad_view import selected_logdensity
 
 
-def slice_transition(gen: torch.Generator, logp, x0, width, max_steps: int):
+def _slice_draws(gen, x0, max_steps: int):
+    """The transition's uniforms ``(level, position, split, shrink steps)``:
+    under a key the reference's (``split(gen, 5)``'s first four; shrink step
+    ``j``'s under ``fold_in(k_shrink, j)``), under a generator in that
+    order."""
+    if keys.is_key(gen):
+        k_u, k_pos, k_dir, k_shrink = keys.split(gen, 5).unbind(-2)[:4]
+        steps = torch.arange(max_steps, device=gen.device)
+        return keys.uniform(k_u), keys.uniform(k_pos), keys.uniform(k_dir), keys.uniform(keys.fold_in(k_shrink, steps))
+    dev, dt = x0.device, x0.dtype
+    return (torch.rand((), generator=gen, device=dev, dtype=dt), torch.rand((), generator=gen, device=dev, dtype=dt),
+            torch.rand((), generator=gen, device=dev), torch.rand((max_steps,), generator=gen, device=dev, dtype=dt))
+
+
+def slice_transition(gen, logp, x0, width, max_steps: int):
     """One capped stepping-out and shrink slice transition of the scalar
     ``x0`` under the log-density ``logp``, over the fixed budgets. Draws
-    from ``gen``, in order: the level, the interval's position, the side
-    split and one uniform a shrink step. Returns ``(x1, exhausted)``."""
+    (``_slice_draws``, under a key or from a generator) the level, the
+    interval's position, the side split and one uniform a shrink step.
+    Returns ``(x1, exhausted)``."""
     dev, dt = x0.device, x0.dtype
-    log_y = logp(x0) + torch.log(torch.rand((), generator=gen, device=dev, dtype=dt))
+    u_level, u_pos, u_dir, us = _slice_draws(gen, x0, max_steps)
+    log_y = logp(x0) + torch.log(u_level)
     w = torch.as_tensor(width, dtype=dt, device=dev)
-    lo = x0 - w * torch.rand((), generator=gen, device=dev, dtype=dt)
+    lo = x0 - w * u_pos
     hi = lo + w
     # the budget split at random between the sides (J = floor(m u), K = m -
     # 1 - J): required for reversibility when the cap binds
-    j_budget = torch.floor(max_steps * torch.rand((), generator=gen, device=dev)).to(torch.int64)
-    us = torch.rand((max_steps,), generator=gen, device=dev, dtype=dt)
+    j_budget = torch.floor(max_steps * u_dir).to(torch.int64)
 
     def step_out(pos, budget, direction):
         inside = logp(pos) > log_y
@@ -104,7 +123,6 @@ class SliceSample(EditRequest):
     ) -> tuple[Trace, Weight, Retdiff, EditRequest]:
         if not Diff.static_check_no_change(argdiffs):
             raise NotImplementedError("SliceSample requires unchanged arguments.")
-        check_generator(gen, "SliceSample")
         z0, logdensity, to_choices = selected_logdensity(
             tr.get_gen_fn(), tr.get_choices(), self.selection, Diff.tree_primal(argdiffs)
         )
@@ -114,7 +132,8 @@ class SliceSample(EditRequest):
                 f"{tuple(z0.shape)}. Use EllipticalSlice or HMC for vector blocks."
             )
         x1, exhausted = slice_transition(gen, lambda x: logdensity(x[None]), z0[0], self.width, self.max_steps)
-        final_trace, _, retdiff, _ = Update(to_choices(x1[None])).edit(gen, tr, argdiffs)
+        k_update = keys.split(gen, 5)[4] if keys.is_key(gen) else gen
+        final_trace, _, retdiff, _ = Update(to_choices(x1[None])).edit(k_update, tr, argdiffs)
         return (
             final_trace,
             torch.zeros((), device=z0.device),

@@ -13,6 +13,9 @@
 //   jax.random.key(seed, impl="rbg") as JAX's CPU backend makes them
 //   (rbg_word, rbg_uniform, rbg_normal): K1's and K4's rbg kernels draw
 //   them from a table of the sweep's keys the host makes;
+// - K2, the threefry stream: jax.random.key(seed)'s own hash (threefry2x32,
+//   threefry_word) and the keys' splits and fold-ins (key_fold): K3's keyed
+//   kernels draw the reference's XLA path on it, and on the rbg stream;
 // - the device bodies: a column log-density and its gradient, written by hand
 //   (CUDA has no autodiff) and chosen by template parameters (K1, K4): the
 //   body and its shape (the flagship's (n_obs, d_w) = (16, 8) compiled as its
@@ -57,7 +60,7 @@ constexpr float kLog2Pi = 1.8378770664093453f;
 constexpr uint32_t kBlockMix = 0x3504F333u;
 
 enum Body { kIidNormal = 0, kHierRegression = 1, kStaged = 2 };
-enum Rng { kCounter = 0, kPhilox = 1, kRbg = 2 };
+enum Rng { kCounter = 0, kPhilox = 1, kRbg = 2, kThreefry = 3 };
 
 // ---------------------------------------------------------------- K2: PRNG
 
@@ -282,6 +285,69 @@ __device__ __forceinline__ void rbg_normals(uint4 k, const int* rows, int N, uin
       const uint32_t bits = j == 0u ? got[0] : j == 1u ? got[1] : j == 2u ? got[2] : got[3];
       z[d0 + s] = r[s] < 0 ? 0.0f : rbg_normal(bits);
     }
+  }
+}
+
+// --------------------------------------------------- K2: the threefry stream
+//
+// jax.random under a threefry2x32 key (k1, k2), JAX's default, with
+// jax_threefry_partitionable on: element f of a draw is the hash of the
+// counter pair (f >> 32, f mod 2^32) under the key, its two output words
+// XOR'd (core/keys.py::bits); split(k, num)[i] and fold_in(k, i) are both the
+// hash of (0, i), taken as the new key. An rbg key is two threefry keys side
+// by side, whose splits and fold-ins hash each half. K3's keyed kernels draw
+// from them (ess_gauss_sweep.cu); the transforms are the rbg stream's above.
+// What bounds a hash on this card: integer issue, about 72 instructions a
+// call (20 rounds of an add, a funnel shift and an XOR, five key injections
+// of two adds), each depending on the one before.
+
+// threefry2x32 of the counter pair x under the key k: 20 rounds with
+// Random123's rotations and a key injection every four, the third key word
+// k1 ^ k2 ^ 0x1BD11BDA (core/keys.py::threefry2x32).
+__device__ __forceinline__ uint2 threefry2x32(uint2 k, uint2 x) {
+  constexpr int kRot[2][4] = {{13, 15, 26, 6}, {17, 29, 16, 24}};
+  const uint32_t ks[3] = {k.x, k.y, k.x ^ k.y ^ 0x1BD11BDAu};
+  uint32_t a = x.x + ks[0], b = x.y + ks[1];
+#pragma unroll
+  for (int i = 0; i < 5; ++i) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      a += b;
+      b = __funnelshift_l(b, b, kRot[i % 2][j]);
+      b ^= a;
+    }
+    a += ks[(i + 1) % 3];
+    b += ks[(i + 2) % 3] + static_cast<uint32_t>(i + 1);
+  }
+  return make_uint2(a, b);
+}
+
+// Element f of a draw under the threefry key k.
+__device__ __forceinline__ uint32_t threefry_word(uint2 k, uint64_t f) {
+  const uint2 h = threefry2x32(k, make_uint2(static_cast<uint32_t>(f >> 32), static_cast<uint32_t>(f)));
+  return h.x ^ h.y;
+}
+
+// A key of stream RNG (kThreefry: its words in x and y; kRbg: all four):
+// fold_in(k, data), which is also split(k, num)[data].
+template <int RNG>
+__device__ __forceinline__ uint4 key_fold(uint4 k, uint32_t data) {
+  const uint2 a = threefry2x32(make_uint2(k.x, k.y), make_uint2(0u, data));
+  if constexpr (RNG == kRbg) {
+    const uint2 b = threefry2x32(make_uint2(k.z, k.w), make_uint2(0u, data));
+    return make_uint4(a.x, a.y, b.x, b.y);
+  } else {
+    return make_uint4(a.x, a.y, 0u, 0u);
+  }
+}
+
+// Element f of a draw under the key k of stream RNG.
+template <int RNG>
+__device__ __forceinline__ uint32_t key_word(uint4 k, uint64_t f) {
+  if constexpr (RNG == kRbg) {
+    return rbg_word(k, f);
+  } else {
+    return threefry_word(make_uint2(k.x, k.y), f);
   }
 }
 

@@ -81,6 +81,19 @@
 //       counter (s, index, kind); one call gives four normals of z
 //       (column_common.cuh's philox_normals4, shared with K1 and K4) or four
 //       shrink uniforms; held in law only.
+//   3 = threefry, 2 = rbg: the keyed streams, the draws of the reference's
+//       XLA path (ess_sweep_gauss_cols) from jax.random.key(seed ^ 0xE5517),
+//       threefry2x32 or rbg (column_common.cuh), step i under
+//       fold_in(root, first_step + i) split in three: z (D x N, element
+//       d N + n of normal(k_nu)), the slice uniform (element n of
+//       uniform(k_u)), the first angle (of uniform(k_theta)), and shrink
+//       iteration j's uniform from fold_in(k_theta, j + 1). The host passes
+//       the root key; each block makes a step's three keys once (one thread,
+//       into shared memory, a step ahead in the tiled variant) and a chain's
+//       shrink key at each iteration. Kernels of their own
+//       (ess_tiled_keyed_kernel, ess_generic_keyed_kernel: the same sweep
+//       with KEY = the stream), so the counter and Philox kernels compile as
+//       before. A chain past N draws nothing.
 //
 // No fast-math: a NaN level compares false. The slice's own sincosf and logf
 // are the accurate versions (theta reaches +-2 pi) on either stream, and the
@@ -137,6 +150,28 @@ struct EssParams {
   int block_n;
   int vec_copy;  // chol rows allow 16-byte copies (D % 4 == 0, chol 16-byte aligned)
 };
+
+// The keyed kernels' own argument: fold_in(root, first_step + i) is the key
+// of the launch's step i (threefry: root.x, root.y; rbg: all four words).
+struct KeyArgs {
+  uint4 root;
+  uint32_t first_step;
+};
+
+// KEY of the kernels whose stream is p.rng (counter or Philox); a keyed
+// kernel's KEY is its stream, kThreefry or kRbg.
+constexpr int kRuntime = -1;
+
+// A step's keys on a keyed stream: k_nu, k_u, k_theta = split(key, 3).
+struct StepKeys {
+  uint4 nu, u, theta;
+};
+
+template <int KEY>
+__device__ __forceinline__ StepKeys step_keys(const KeyArgs& ka, int step) {
+  const uint4 k = key_fold<KEY>(ka.root, ka.first_step + static_cast<uint32_t>(step));
+  return {key_fold<KEY>(k, 0u), key_fold<KEY>(k, 1u), key_fold<KEY>(k, 2u)};
+}
 
 __host__ __device__ constexpr int round_up(int x, int m) { return (x + m - 1) / m * m; }
 
@@ -267,10 +302,20 @@ __device__ __forceinline__ void coefficient_parts(int D, const float* q_s, const
 }
 
 // the slice and the shrink of chain `chain` (thread < kNB): cos and sin of
-// the accepted angle and whether it accepted
+// the accepted angle and whether it accepted. KEY: the stream (kRuntime:
+// p.rng's, at salt `salt`; a keyed stream: the step's keys `keys`).
+template <int KEY>
 __device__ __forceinline__ void shrink_chain(const EssParams& p, int n0, int chain, uint32_t salt,
-                                             const float* part_s, float F, float* cos_s,
-                                             float* sin_s, float* done_s) {
+                                             const StepKeys* keys, const float* part_s, float F,
+                                             float* cos_s, float* sin_s, float* done_s) {
+  if constexpr (KEY != kRuntime) {
+    if (n0 + chain >= p.N) {  // a padding chain draws nothing and keeps its point
+      cos_s[chain] = 1.0f;
+      sin_s[chain] = 0.0f;
+      done_s[chain] = 0.0f;
+      return;
+    }
+  }
   float coef[kCoefs] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
 #pragma unroll
   for (int g = 0; g < kParts; ++g)
@@ -284,8 +329,14 @@ __device__ __forceinline__ void shrink_chain(const EssParams& p, int n0, int cha
                     2.0f * E * st + F);
   };
   const Stream stream(p, n0 + chain);
+  const uint64_t n = static_cast<uint64_t>(n0 + chain);
   float u, u_theta;
-  stream.start(salt, u, u_theta);
+  if constexpr (KEY == kRuntime) {
+    stream.start(salt, u, u_theta);
+  } else {
+    u = rbg_uniform(key_word<KEY>(keys->u, n));
+    u_theta = rbg_uniform(key_word<KEY>(keys->theta, n));
+  }
   const float log_y = -0.5f * (A + 2.0f * Dc + F) + logf(u);
   const float theta0 = u_theta * kTwoPi;
   float lo = theta0 - kTwoPi, hi = theta0, theta = theta0, theta_acc = theta0;
@@ -297,7 +348,13 @@ __device__ __forceinline__ void shrink_chain(const EssParams& p, int n0, int cha
     } else {
       lo = theta;
     }
-    theta = lo + (hi - lo) * stream.shrink(salt, static_cast<uint32_t>(j), cache);
+    float u_j;
+    if constexpr (KEY == kRuntime) {
+      u_j = stream.shrink(salt, static_cast<uint32_t>(j), cache);
+    } else {
+      u_j = rbg_uniform(key_word<KEY>(key_fold<KEY>(keys->theta, static_cast<uint32_t>(j) + 1u), n));
+    }
+    theta = lo + (hi - lo) * u_j;
     if (ll(theta) > log_y) {
       theta_acc = theta;
       done = true;
@@ -468,8 +525,43 @@ __device__ __forceinline__ void draw_z(const EssParams& p, int n0, float* z_s, u
   }
 }
 
-__global__ void __launch_bounds__(kTiledThreads, 1)
-    ess_tiled_kernel(const EssParams p, const __grid_constant__ CUtensorMap chol_map) {
+// z of a step on keyed stream KEY (its key k_nu) into z_s, as draw_z: element
+// (d, n) is normal(k_nu)'s element d N + n; a chain past N draws nothing. The
+// rbg stream with N % 4 == 0 takes one Philox call a row of four chains
+// (its four words are the four elements), threefry one hash an element.
+template <int KEY>
+__device__ __forceinline__ void draw_z_keyed(const EssParams& p, int n0, float* z_s, uint4 k_nu, int first,
+                                             int stride) {
+  const uint64_t N = static_cast<uint64_t>(p.N);
+  if (KEY == kRbg && p.N % 4 == 0) {
+    for (int e = first; e < p.D * (kNB / 4); e += stride) {
+      const int r = e / (kNB / 4), c = 4 * (e % (kNB / 4));
+      if (n0 + c >= p.N) {
+#pragma unroll
+        for (int t = 0; t < 4; ++t) z_s[r * kZStride + c + t] = 0.0f;
+        continue;
+      }
+      const uint4 w = rbg_block(k_nu, (r * N + static_cast<uint64_t>(n0 + c)) >> 2);
+#pragma unroll
+      for (int t = 0; t < 4; ++t) z_s[r * kZStride + c + t] = rbg_normal(word_of(w, static_cast<uint32_t>(t)));
+    }
+    return;
+  }
+#pragma unroll 2
+  for (int e = first; e < p.D * kNB; e += stride) {
+    const int r = e / kNB, c = e % kNB;
+    const uint64_t n = static_cast<uint64_t>(n0 + c);
+    z_s[r * kZStride + c] = n < N ? rbg_normal(key_word<KEY>(k_nu, r * N + n)) : 0.0f;
+  }
+}
+
+// The tiled variant's sweep; KEY: kRuntime (p.rng's stream) or a keyed
+// stream, whose step keys live in key_slots[step % 2] (two slots of the
+// keyed kernel's shared memory: a step's are made while the step before it
+// runs).
+template <int KEY>
+__device__ __forceinline__ void ess_tiled(const EssParams& p, const CUtensorMap& chol_map, const KeyArgs& ka,
+                                          StepKeys* key_slots) {
   extern __shared__ __align__(16) float smem[];
   __shared__ uint32_t tile_mask[kMaxSlabs];  // bit b of slab s: tile (band b, slab s) holds a nonzero
   __shared__ int slabs[kMaxSlabs];           // the slabs with a nonzero tile, last first
@@ -534,6 +626,7 @@ __global__ void __launch_bounds__(kTiledThreads, 1)
       if (tile_mask[s]) slabs[m++] = s;
     n_slabs = m;
     f_coef = block_f(D, prec_s, r0_s);
+    if constexpr (KEY != kRuntime) key_slots[0] = step_keys<KEY>(ka, 0);
   }
   __syncthreads();
 
@@ -543,7 +636,13 @@ __global__ void __launch_bounds__(kTiledThreads, 1)
   // the update: this thread's chain and rows
   const int chain = tid % kNB, group0 = tid / kNB;
   const uint32_t salt_step = static_cast<uint32_t>(8 + p.max_iters);
-  if (!copier && p.n_steps > 0) draw_z(p, n0, z_s, 0u, tid, kThreads);
+  if (!copier && p.n_steps > 0) {
+    if constexpr (KEY == kRuntime) {
+      draw_z(p, n0, z_s, 0u, tid, kThreads);
+    } else {
+      draw_z_keyed<KEY>(p, n0, z_s, key_slots[0].nu, tid, kThreads);
+    }
+  }
 
   for (int step = 0; step < p.n_steps; ++step) {
     const uint32_t salt = static_cast<uint32_t>(step) * salt_step;
@@ -569,6 +668,10 @@ __global__ void __launch_bounds__(kTiledThreads, 1)
         if (i >= kStages) mbar_wait(&empty[stage], (c / kStages - 1) & 1);
         copy_slab(p, &chol_map, ring + stage * stage_floats, &full[stage], slabs[i], tile_mask[slabs[i]],
                   lane);
+      }
+      // the next step's keys, while the compute warps run the product
+      if constexpr (KEY != kRuntime) {
+        if (lane == 1 && next) key_slots[(step + 1) % 2] = step_keys<KEY>(ka, step + 1);
       }
     } else {
       for (int i = 0; i < n_slabs; ++i) {
@@ -620,11 +723,15 @@ __global__ void __launch_bounds__(kTiledThreads, 1)
     if (!copier) coefficient_parts(D, q_s, nu_s, prec_s, mean_s, r0_s, part_s);
     __syncthreads();
     if (tid < kNB) {
-      shrink_chain(p, n0, tid, salt, part_s, f_coef, cos_s, sin_s, done_s);
+      shrink_chain<KEY>(p, n0, tid, salt, key_slots + step % 2, part_s, f_coef, cos_s, sin_s, done_s);
     } else if (next) {
       // meanwhile the other warps, the copy warp too, draw the next step's z
       // (z is free: nu is in the ring)
-      draw_z(p, n0, z_s, salt + salt_step, tid - kNB, kTiledThreads - kNB);
+      if constexpr (KEY == kRuntime) {
+        draw_z(p, n0, z_s, salt + salt_step, tid - kNB, kTiledThreads - kNB);
+      } else {
+        draw_z_keyed<KEY>(p, n0, z_s, key_slots[(step + 1) % 2].nu, tid - kNB, kTiledThreads - kNB);
+      }
     }
     __syncthreads();
 
@@ -644,9 +751,25 @@ __global__ void __launch_bounds__(kTiledThreads, 1)
   if (!copier) store_block(p, n0, q_s);
 }
 
+__global__ void __launch_bounds__(kTiledThreads, 1)
+    ess_tiled_kernel(const EssParams p, const __grid_constant__ CUtensorMap chol_map) {
+  ess_tiled<kRuntime>(p, chol_map, KeyArgs{}, nullptr);
+}
+
+template <int KEY>
+__global__ void __launch_bounds__(kTiledThreads, 1)
+    ess_tiled_keyed_kernel(const EssParams p, const __grid_constant__ CUtensorMap chol_map,
+                           const KeyArgs ka) {
+  __shared__ StepKeys key_slots[2];
+  ess_tiled<KEY>(p, chol_map, ka, key_slots);
+}
+
 // ---------------------------------------------------------------- generic variant
 
-__global__ void __launch_bounds__(kThreads, 1) ess_generic_kernel(const EssParams p) {
+// The generic variant's sweep; KEY as ess_tiled's, the step's keys in
+// key_slots[0], made at the step's start.
+template <int KEY>
+__device__ __forceinline__ void ess_generic(const EssParams& p, const KeyArgs& ka, StepKeys* key_slots) {
   extern __shared__ __align__(16) float smem[];
   const int D = p.D;
   const int tid = threadIdx.x;
@@ -678,6 +801,10 @@ __global__ void __launch_bounds__(kThreads, 1) ess_generic_kernel(const EssParam
 
   for (int step = 0; step < p.n_steps; ++step) {
     const uint32_t salt = static_cast<uint32_t>(step) * static_cast<uint32_t>(8 + p.max_iters);
+    if constexpr (KEY != kRuntime) {
+      if (tid == 0) key_slots[0] = step_keys<KEY>(ka, step);
+      __syncthreads();
+    }
 
     // ---- nu = chol @ z
     for (int i0 = 0; i0 < D; i0 += kRowChunk) {
@@ -696,7 +823,18 @@ __global__ void __launch_bounds__(kThreads, 1) ess_generic_kernel(const EssParam
               (row < D && k < D) ? p.chol[static_cast<size_t>(row) * D + k] : 0.0f;
         }
         float z4[4];
-        z_stream.normals4(salt, static_cast<uint32_t>(k0 + z_rows), z4);
+        if constexpr (KEY == kRuntime) {
+          z_stream.normals4(salt, static_cast<uint32_t>(k0 + z_rows), z4);
+        } else {
+          const uint64_t n = static_cast<uint64_t>(n0 + z_chain);
+#pragma unroll
+          for (int t = 0; t < 4; ++t) {
+            const int row = k0 + z_rows + t;
+            z4[t] = row < D && n < static_cast<uint64_t>(p.N)
+                        ? rbg_normal(key_word<KEY>(key_slots[0].nu, row * static_cast<uint64_t>(p.N) + n))
+                        : 0.0f;
+          }
+        }
 #pragma unroll
         for (int t = 0; t < 4; ++t) {
           z_s[(z_rows + t) * kNB + z_chain] = (k0 + z_rows + t < D) ? z4[t] : 0.0f;
@@ -732,7 +870,7 @@ __global__ void __launch_bounds__(kThreads, 1) ess_generic_kernel(const EssParam
 
     coefficient_parts(D, q_s, nu_s, prec_s, mean_s, r0_s, part_s);
     __syncthreads();
-    if (tid < kNB) shrink_chain(p, n0, tid, salt, part_s, f_coef, cos_s, sin_s, done_s);
+    if (tid < kNB) shrink_chain<KEY>(p, n0, tid, salt, key_slots, part_s, f_coef, cos_s, sin_s, done_s);
     __syncthreads();
 
     // ---- q <- mean + c cos + nu sin where the chain accepted
@@ -748,7 +886,26 @@ __global__ void __launch_bounds__(kThreads, 1) ess_generic_kernel(const EssParam
   store_block(p, n0, q_s);
 }
 
-const void* kernel_for(int variant) {
+__global__ void __launch_bounds__(kThreads, 1) ess_generic_kernel(const EssParams p) {
+  ess_generic<kRuntime>(p, KeyArgs{}, nullptr);
+}
+
+template <int KEY>
+__global__ void __launch_bounds__(kThreads, 1) ess_generic_keyed_kernel(const EssParams p, const KeyArgs ka) {
+  __shared__ StepKeys key_slots[1];
+  ess_generic<KEY>(p, ka, key_slots);
+}
+
+bool keyed(int rng) { return rng == kThreefry || rng == kRbg; }
+
+// the kernel of `variant` on stream `rng`
+const void* kernel_for(int variant, int rng) {
+  if (rng == kThreefry)
+    return variant == kTiled ? reinterpret_cast<const void*>(ess_tiled_keyed_kernel<kThreefry>)
+                             : reinterpret_cast<const void*>(ess_generic_keyed_kernel<kThreefry>);
+  if (rng == kRbg)
+    return variant == kTiled ? reinterpret_cast<const void*>(ess_tiled_keyed_kernel<kRbg>)
+                             : reinterpret_cast<const void*>(ess_generic_keyed_kernel<kRbg>);
   return variant == kTiled ? reinterpret_cast<const void*>(ess_tiled_kernel)
                            : reinterpret_cast<const void*>(ess_generic_kernel);
 }
@@ -804,11 +961,12 @@ int ess_gauss_smem_limit(int device) {
   return bytes;
 }
 
-// The CUDA runtime's view of K3 at dimension `dim`: out[0] registers a
-// thread, out[1] local (spill) bytes a thread, out[2] resident blocks an SM.
-int ess_gauss_kernel_info(int dim, int* out) {
+// The CUDA runtime's view of K3 at dimension `dim` on stream `rng` (the keyed
+// kernel for kThreefry and kRbg): out[0] registers a thread, out[1] local
+// (spill) bytes a thread, out[2] resident blocks an SM.
+int ess_gauss_kernel_info(int dim, int rng, int* out) {
   const int variant = variant_for(dim);
-  const void* fn = kernel_for(variant);
+  const void* fn = kernel_for(variant, rng);
   const size_t smem = static_cast<size_t>(smem_bytes(dim, variant));
   cudaError_t err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
@@ -821,12 +979,16 @@ int ess_gauss_kernel_info(int dim, int* out) {
   return cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[2], fn, threads_for(variant), smem);
 }
 
-// Returns the cudaError_t of the launch (0 on success).
+// rng is kCounter, kPhilox, kThreefry or kRbg; a keyed stream takes `root`,
+// the sweep's root key (four words, a threefry key's two in the first two),
+// and `first_step`, the index of the launch's first step. Returns the
+// cudaError_t of the launch (0 on success).
 int ess_gauss_sweep(const float* q_in, float* q_out, const float* chol, const float* y,
                     const float* prec, const float* mean, int dim, int N, int n_steps,
-                    int max_iters, int seed, int rng, int block_n, void* stream) {
+                    int max_iters, int seed, int rng, int block_n, const uint32_t* root,
+                    int first_step, void* stream) {
   if (dim <= 0 || N <= 0 || n_steps < 0 || max_iters < 0 || block_n <= 0 ||
-      (rng != kCounter && rng != kPhilox))
+      (rng != kCounter && rng != kPhilox && !keyed(rng)) || (keyed(rng) && root == nullptr))
     return cudaErrorInvalidValue;
   const int variant = variant_for(dim);
   const int vec_copy = dim % 4 == 0 && reinterpret_cast<uintptr_t>(chol) % 16 == 0;
@@ -835,13 +997,17 @@ int ess_gauss_sweep(const float* q_in, float* q_out, const float* chol, const fl
   CUtensorMap chol_map{};
   if (variant != kGeneric && vec_copy && !encode_chol_map(&chol_map, chol, dim))
     return cudaErrorInvalidValue;
-  const void* fn = kernel_for(variant);
+  const void* fn = kernel_for(variant, rng);
   const size_t smem = static_cast<size_t>(smem_bytes(dim, variant));
   const cudaError_t err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                                static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const int blocks = (N + kNB - 1) / kNB;
-  void* args[] = {const_cast<EssParams*>(&prm), &chol_map};
+  KeyArgs ka{};
+  if (keyed(rng)) ka = {make_uint4(root[0], root[1], root[2], root[3]), static_cast<uint32_t>(first_step)};
+  void* tiled_args[] = {const_cast<EssParams*>(&prm), &chol_map, &ka};
+  void* generic_keyed_args[] = {const_cast<EssParams*>(&prm), &ka};
+  void** args = variant == kGeneric && keyed(rng) ? generic_keyed_args : tiled_args;
   return cudaLaunchKernel(fn, dim3(blocks), dim3(threads_for(variant)), args, smem,
                           static_cast<cudaStream_t>(stream));
 }

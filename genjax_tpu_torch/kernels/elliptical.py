@@ -15,12 +15,20 @@ Positions are ``(D, N)`` float32, chains on the last axis.
   Both shrink all chains in one Python loop with a per-chain done mask and
   the collective exit ``~all(done)`` (one host read per iteration), and
   draw the same numbers in the same order, so with the matching likelihood
-  they run the same chain up to float roundoff.
+  they run the same chain up to float roundoff. A transition draws under a
+  key (``core/keys.py``) what the reference's draws under the same key, or
+  in sequence from a ``torch.Generator``; a sweep with an int seed draws the
+  reference's stream, ``jax.random.key(seed ^ 0xE5517)`` (threefry, or rbg
+  with ``rng_impl="rbg"``), step ``i`` under ``fold_in(root, i)``, and a
+  generator in the seed's place draws from it in sequence.
 - ``ess_gauss_sweep``: the CUDA kernel (``csrc/ess_gauss_sweep.cu``), a
   chain block's whole sweep on chip. It replaces the Pallas TPU kernel
-  ``_ess_gauss_kernel``.
-- ``_reference_ess_gauss``: its plain torch version, step for step.
-- ``ess_sweep_gauss_pallas`` routes between them with ``hmc._route``.
+  ``_ess_gauss_kernel``. On the counter and Philox streams its plain torch
+  version is ``_reference_ess_gauss``, step for step, and
+  ``ess_sweep_gauss_pallas`` routes between them with ``hmc._route``; on
+  the keyed streams (``"threefry"``, ``"rbg"``) it draws what
+  ``ess_sweep_gauss_cols`` draws from the same seed, and
+  ``ess_sweep_gauss_cols`` routes between the kernel and itself.
 """
 
 from __future__ import annotations
@@ -31,9 +39,10 @@ from typing import Callable
 
 import torch
 
+from ..core import keys
 from ..core.device import entry_device
 from . import _build
-from .hmc import _RNG_IDS, _counter_stream, _int32, _normal, _route, _uniform_01
+from .hmc import _M32, _counter_stream, _int32, _normal, _route, _uniform_01
 from .rows import refuse_row_sharded
 
 _TWO_PI = 6.283185307179586
@@ -61,10 +70,11 @@ def _ellipse_draw(chol_prior, z: torch.Tensor) -> torch.Tensor:
     return chol.reshape(-1, 1) * z if chol.ndim == 1 else chol * z
 
 
-def _shrink(ll_theta: Callable, log_y, theta0, gen, max_iters: int):
+def _shrink(ll_theta: Callable, log_y, theta0, uniform: Callable, max_iters: int):
     """The bracket shrink of every chain in one loop with a done mask, until
-    all chains are done or ``max_iters`` iterations have run. One host read
-    per iteration. Returns ``(theta_acc, done, n_iters)``."""
+    all chains are done or ``max_iters`` iterations have run; iteration ``i``
+    takes the ``(N,)`` uniforms ``uniform(i)``. One host read per iteration.
+    Returns ``(theta_acc, done, n_iters)``."""
     n = theta0.shape[0]
     lo, hi = theta0 - _TWO_PI, theta0
     theta = theta_acc = theta0
@@ -76,7 +86,7 @@ def _shrink(ll_theta: Callable, log_y, theta0, gen, max_iters: int):
         keep = done | (theta >= 0)
         lo = torch.where(keep, lo, theta)
         hi = torch.where(keep, theta, hi)
-        theta_new = lo + (hi - lo) * torch.rand(n, generator=gen, device=theta0.device)
+        theta_new = lo + (hi - lo) * uniform(i)
         theta = torch.where(done, theta, theta_new)
         ok = ll_theta(theta) > log_y
         theta_acc = torch.where(~done & ok, theta, theta_acc)
@@ -86,14 +96,67 @@ def _shrink(ll_theta: Callable, log_y, theta0, gen, max_iters: int):
     return theta_acc, done, counts
 
 
-def _generator(seed: int, device) -> torch.Generator:
-    return torch.Generator(device=device).manual_seed(int(seed) ^ _SEED_MIX)
+#: The shrink uniforms a keyed transition draws at once: iterations ``i ..
+#: i + 7`` in one hash (the loop rarely runs past 16).
+_SHRINK_CHUNK = 8
+
+
+def _transition_draws(stream, d: int, n: int, device):
+    """A transition's draws: ``(z (D, N), u (N,), theta0 (N,), uniform)``,
+    ``uniform(i)`` the ``(N,)`` uniforms of shrink iteration ``i``. Under a
+    key, the reference's: ``k_nu, k_u, k_theta = split(key, 3)``, ``z =
+    normal(k_nu)``, the slice uniform from ``k_u``, the first angle's from
+    ``k_theta`` and iteration ``i``'s from ``fold_in(k_theta, i + 1)``
+    (made ``_SHRINK_CHUNK`` iterations at a time); under a generator, the
+    same shapes drawn in that order."""
+    if keys.is_key(stream):
+        if stream.device != torch.device(device):
+            raise ValueError(f"the key is on {stream.device} and the chains on {device}")
+        k_nu, k_u, k_theta = keys.split(stream, 3).unbind(-2)
+        chunks = {}
+
+        def uniform(i):
+            c = i // _SHRINK_CHUNK
+            if c not in chunks:
+                first = c * _SHRINK_CHUNK + 1
+                ks = keys.fold_in(k_theta, torch.arange(first, first + _SHRINK_CHUNK, device=stream.device))
+                chunks[c] = keys.uniform(ks, (n,))
+            return chunks[c][i % _SHRINK_CHUNK]
+
+        return keys.normal(k_nu, (d, n)), keys.uniform(k_u, (n,)), keys.uniform(k_theta, (n,)) * _TWO_PI, uniform
+    z = torch.randn((d, n), generator=stream, device=device)
+    u = torch.rand(n, generator=stream, device=device)
+    theta0 = torch.rand(n, generator=stream, device=device) * _TWO_PI
+    return z, u, theta0, lambda _i: torch.rand(n, generator=stream, device=device)
+
+
+_IMPLS = {None: "threefry2x32", "threefry2x32": "threefry2x32", "rbg": "rbg"}
+
+
+def _impl(rng_impl) -> str:
+    """The key implementation ``rng_impl`` names, as ``jax.random.key(...,
+    impl=rng_impl)`` reads it (None: threefry2x32)."""
+    if rng_impl not in _IMPLS:
+        raise ValueError(f"rng_impl must be None, 'threefry2x32' or 'rbg', got {rng_impl!r}")
+    return _IMPLS[rng_impl]
+
+
+def _step_keys(seed, rng_impl, device):
+    """The stream of a sweep given ``seed``: a function of the step index
+    that gives the step's key, ``fold_in(key(seed ^ 0xE5517), i)`` for an
+    int seed, as the reference's ``lax.scan`` folds; a ``torch.Generator``
+    in the seed's place is drawn in sequence (the same generator every
+    step)."""
+    if isinstance(seed, torch.Generator):
+        return lambda _i: seed
+    root = keys.key(int(seed) ^ _SEED_MIX, device=device, impl=_impl(rng_impl))
+    return lambda i: keys.fold_in(root, i)
 
 
 def ess_transition_cols(
     log_lik_cols: Callable,
     q: torch.Tensor,
-    gen: torch.Generator,
+    gen,
     *,
     chol_prior,
     mean=0.0,
@@ -105,9 +168,12 @@ def ess_transition_cols(
         log_lik_cols: ``(D, N) -> (N,)`` log-likelihood (not including the
             Gaussian prior, which is sampled exactly on the ellipse).
         q: ``(D, N)`` current positions.
-        gen: the ``torch.Generator`` every draw comes from: ``z (D, N)``,
-            the slice uniform ``(N,)``, the first angle ``(N,)``, then one
-            ``(N,)`` uniform per shrink iteration.
+        gen: a key (``core/keys.py``, on ``q``'s device), under which the
+            draws are the reference's under the same key (``split(gen,
+            3)``: ``z (D, N)`` from the first, the slice uniform ``(N,)``
+            from the second, the first angle from the third and shrink
+            iteration ``i``'s uniform from ``fold_in(third, i + 1)``), or a
+            ``torch.Generator``, drawn in that order.
         chol_prior: ``(D, D)`` lower Cholesky factor of the prior covariance,
             or a ``(D,)``/scalar standard deviation for a diagonal prior.
         mean: prior mean, scalar, ``(D,)`` or ``(D, 1)``.
@@ -120,17 +186,16 @@ def ess_transition_cols(
     refuse_row_sharded(log_lik_cols, "ess_transition_cols")
     d, n = q.shape
     mean = _col(mean, d, q.device)
-    z = torch.randn((d, n), generator=gen, device=q.device)
+    z, u, theta0, uniform = _transition_draws(gen, d, n, q.device)
     nu = _ellipse_draw(chol_prior, z)
-    log_y = log_lik_cols(q) + torch.log(torch.rand(n, generator=gen, device=q.device))
-    theta0 = torch.rand(n, generator=gen, device=q.device) * _TWO_PI
+    log_y = log_lik_cols(q) + torch.log(u)
     centered = q - mean
 
     def proposal(theta):
         return mean + centered * torch.cos(theta) + nu * torch.sin(theta)
 
     theta_acc, done, n_iters = _shrink(
-        lambda th: log_lik_cols(proposal(th)), log_y, theta0, gen, max_iters
+        lambda th: log_lik_cols(proposal(th)), log_y, theta0, uniform, max_iters
     )
     return torch.where(done[None, :], proposal(theta_acc), q), n_iters
 
@@ -151,19 +216,18 @@ def ess_sweep_cols(
     with ``draws`` of shape ``(n_steps, D, N)`` when ``collect`` else
     ``None``.
 
-    Every value draws from one ``torch.Generator`` on the chains' device,
-    seeded with ``seed ^ 0xE5517``; ``rng_impl`` is accepted for the
-    reference's signature and selects nothing. The reference draws from
-    ``jax.random.key(seed ^ 0xE5517)`` (threefry, or rbg where ``rng_impl``
-    says so), which ``core/keys.py`` reproduces; this sweep does not draw
-    from it yet, so it is held in law."""
+    An int ``seed`` draws the reference's stream on the chains' device: the
+    root key ``key(seed ^ 0xE5517)``, threefry2x32, or rbg with
+    ``rng_impl="rbg"``, and step ``i`` under ``fold_in(root, i)``, so the
+    chains are the reference's draw for draw. A ``torch.Generator`` in the
+    seed's place (on the chains' device) is drawn from in sequence."""
     refuse_row_sharded(log_lik_cols, "ess_sweep_cols")
     q = _f32(q0, None)
-    gen = _generator(seed, q.device)
+    step_key = _step_keys(seed, rng_impl, q.device)
     draws = []
-    for _ in range(n_steps):
+    for i in range(n_steps):
         q, _ = ess_transition_cols(
-            log_lik_cols, q, gen, chol_prior=chol_prior, mean=mean, max_iters=max_iters
+            log_lik_cols, q, step_key(i), chol_prior=chol_prior, mean=mean, max_iters=max_iters
         )
         if collect:
             draws.append(q)
@@ -172,7 +236,7 @@ def ess_sweep_cols(
 
 def ess_transition_gauss_cols(
     q: torch.Tensor,
-    gen: torch.Generator,
+    gen,
     *,
     chol_prior,
     y,
@@ -187,8 +251,8 @@ def ess_transition_gauss_cols(
     ``ll(theta) = -1/2 [A cos^2 + B sin^2 + 2C cos sin + 2D cos + 2E sin
     + F]``, whose coefficients are per-chain sums over dimensions computed
     once per transition; every shrink iteration is then O(N). The draws are
-    :func:`ess_transition_cols`'s, in the same order, so the two run the
-    same chain with the matching likelihood.
+    :func:`ess_transition_cols`'s under a key or a generator ``gen``, so
+    the two run the same chain with the matching likelihood.
 
     Args:
         y: ``(D,)`` or ``(D, 1)`` observations.
@@ -201,7 +265,7 @@ def ess_transition_gauss_cols(
     y = _f32(y, q.device).reshape(d, 1)
     prec = _col(prec, d, q.device)
 
-    z = torch.randn((d, n), generator=gen, device=q.device)
+    z, u, theta0, uniform = _transition_draws(gen, d, n, q.device)
     nu = _ellipse_draw(chol_prior, z)
     c = q - mean
     r0 = mean - y  # (D, 1): chain-independent residual of the prior mean
@@ -217,9 +281,8 @@ def ess_transition_gauss_cols(
         return -0.5 * (A * ct * ct + B * st * st + 2.0 * Cc * ct * st + 2.0 * Dc * ct + 2.0 * E * st + F)
 
     # ll at the current point is theta = 0: cos = 1, sin = 0
-    log_y = -0.5 * (A + 2.0 * Dc + F) + torch.log(torch.rand(n, generator=gen, device=q.device))
-    theta0 = torch.rand(n, generator=gen, device=q.device) * _TWO_PI
-    theta_acc, done, n_iters = _shrink(ll_theta, log_y, theta0, gen, max_iters)
+    log_y = -0.5 * (A + 2.0 * Dc + F) + torch.log(u)
+    theta_acc, done, n_iters = _shrink(ll_theta, log_y, theta0, uniform, max_iters)
     q_new = mean + c * torch.cos(theta_acc) + nu * torch.sin(theta_acc)
     return torch.where(done[None, :], q_new, q), n_iters
 
@@ -236,21 +299,68 @@ def ess_sweep_gauss_cols(
     max_iters: int = 64,
     collect: bool = False,
     rng_impl: str | None = None,
+    backend: str = "auto",
 ):
     """``n_steps`` Gaussian-likelihood ESS transitions: the fast path of
-    :func:`ess_sweep_cols`, on the same stream (one ``torch.Generator``
-    seeded with ``seed ^ 0xE5517``; ``rng_impl`` selects nothing), so the
-    two give the same chains for the matching likelihood."""
+    :func:`ess_sweep_cols`, on the same stream (an int ``seed`` draws the
+    reference's, ``key(seed ^ 0xE5517)`` as threefry2x32 or, with
+    ``rng_impl="rbg"``, rbg; a ``torch.Generator`` in its place is drawn in
+    sequence), so the two give the same chains for the matching likelihood.
+
+    It runs where ``q0`` lives. ``backend="auto"`` (default) launches K3's
+    keyed kernel for chains on the card (``ess_gauss_sweep`` with
+    ``rng="threefry"`` or ``"rbg"``, one launch a call, or a step with
+    ``collect``; a generator raises there, since the kernel draws the keyed
+    stream) and runs this plain torch version for chains on the CPU;
+    ``"torch"`` runs the plain version anywhere, which is the keyed kernel's
+    plain version; ``"cuda"`` the kernel. The route is recorded on
+    ``ess_sweep_gauss_cols.last_backend``."""
     q = _f32(q0, None)
-    gen = _generator(seed, q.device)
-    draws = []
-    for _ in range(n_steps):
-        q, _ = ess_transition_gauss_cols(
-            q, gen, chol_prior=chol_prior, y=y, prec=prec, mean=mean, max_iters=max_iters
+    backend = _route(backend, q.device)
+    if backend == "cuda":
+        if isinstance(seed, torch.Generator):
+            raise ValueError(
+                "ess_sweep_gauss_cols: K3 draws the keyed stream of an int seed; a torch.Generator's "
+                "stream runs with backend='torch'"
+            )
+        q, draws = _keyed_sweep_cuda(
+            q, seed, n_steps=n_steps, chol_prior=chol_prior, y=y, prec=prec, mean=mean,
+            max_iters=max_iters, collect=collect, rng="rbg" if _impl(rng_impl) == "rbg" else "threefry",
         )
-        if collect:
-            draws.append(q)
-    return q, (torch.stack(draws) if collect else None)
+    else:
+        step_key = _step_keys(seed, rng_impl, q.device)
+        draws = []
+        for i in range(n_steps):
+            q, _ = ess_transition_gauss_cols(
+                q, step_key(i), chol_prior=chol_prior, y=y, prec=prec, mean=mean, max_iters=max_iters
+            )
+            if collect:
+                draws.append(q)
+        draws = torch.stack(draws) if collect else None
+    ess_sweep_gauss_cols.last_backend = backend
+    return q, draws
+
+
+ess_sweep_gauss_cols.last_backend = None
+
+
+def _keyed_sweep_cuda(q, seed, *, n_steps, chol_prior, y, prec, mean, max_iters, collect, rng):
+    """``ess_sweep_gauss_cols`` on K3's keyed kernel: the inputs as
+    ``ess_sweep_gauss_pallas`` takes them (a diagonal factor for a scalar or
+    ``(D,)`` ``chol_prior``), one launch, or one a step with ``collect``."""
+    d = q.shape[0]
+    chol = _f32(chol_prior, q.device)
+    if chol.ndim < 2:
+        chol = torch.diag(torch.broadcast_to(chol.reshape(-1), (d,)))
+    kw = dict(chol=chol.contiguous(), y=y, prec=prec, mean=mean, max_iters=max_iters, rng=rng)
+    q = q.contiguous()
+    if not collect:
+        return ess_gauss_sweep(q, seed, n_steps=n_steps, **kw), None
+    draws = []
+    for i in range(n_steps):
+        q = ess_gauss_sweep(q, seed, n_steps=1, first_step=i, **kw)
+        draws.append(q)
+    return q, torch.stack(draws)
 
 
 # ----------------------------------------------------------------------
@@ -371,17 +481,40 @@ _BAND, _SLAB, _STAGES, _TILED_MAX_DIM = 16, 32, 2, 256
 _Z_STRIDE = NB + 8
 _TK, _CHOL_STRIDE = 16, 256 + 4
 VARIANTS = ("tiled", "generic")  # the kernel's ids 0 and 1
+# K3's streams and their ids in the kernel (column_common.cuh's Rng); the
+# keyed streams' kernels are their own (ess_tiled_keyed_kernel,
+# ess_generic_keyed_kernel)
+RNG_IDS = {"counter": 0, "philox": 1, "rbg": 2, "threefry": 3}
+KEYED = ("threefry", "rbg")
 
 
 def _round_up(x: int, m: int) -> int:
     return (x + m - 1) // m * m
 
 
-def geometry(d: int) -> dict:
-    """K3's launch geometry at dimension ``d``: its variant, the dynamic
-    shared memory of a block in bytes, the tiles of ``chol`` the tiled
-    variant marks for its zero-tile skip (0 in the generic variant), and the
-    threads of a block."""
+def _rng_id(rng: str) -> int:
+    if rng not in RNG_IDS:
+        raise ValueError(f"rng must be one of {sorted(RNG_IDS)}, got {rng!r}")
+    return RNG_IDS[rng]
+
+
+def _kernel_name(variant: str, rng: str) -> str:
+    _rng_id(rng)
+    return f"ess_{variant}_keyed_kernel<{rng}>" if rng in KEYED else f"ess_{variant}_kernel"
+
+
+def geometry(d: int, rng: str = "philox") -> dict:
+    """K3's launch geometry at dimension ``d`` on stream ``rng``: its
+    variant, the dynamic shared memory of a block in bytes, the tiles of
+    ``chol`` the tiled variant marks for its zero-tile skip (0 in the
+    generic variant), the threads of a block, and the kernel that runs (a
+    keyed stream's own, which adds its step keys' static shared memory to
+    the same dynamic shared memory)."""
+    geo = _geometry(d)
+    return {**geo, "kernel": _kernel_name(geo["variant"], rng)}
+
+
+def _geometry(d: int) -> dict:
     floats = _PARTS * _COEFS * NB + 3 * NB + 3 * d  # partial sums, angles, prec / mean / r0
     if d > _TILED_MAX_DIM:
         floats += 2 * d * NB + _TK * _CHOL_STRIDE + _TK * NB
@@ -396,22 +529,24 @@ def geometry(d: int) -> dict:
 def _lib() -> ctypes.CDLL:
     lib = _build.load("ess_gauss_sweep")
     P, I = ctypes.c_void_p, ctypes.c_int
-    lib.ess_gauss_sweep.argtypes = [P, P, P, P, P, P, I, I, I, I, I, I, I, P]
+    lib.ess_gauss_sweep.argtypes = [P, P, P, P, P, P, I, I, I, I, I, I, I, P, I, P]
     lib.ess_gauss_sweep.restype = I
     lib.ess_gauss_geometry.argtypes = [I, P]
     lib.ess_gauss_geometry.restype = None
     lib.ess_gauss_smem_limit.argtypes = [I]
     lib.ess_gauss_smem_limit.restype = I
-    lib.ess_gauss_kernel_info.argtypes = [I, P]
+    lib.ess_gauss_kernel_info.argtypes = [I, I, P]
     lib.ess_gauss_kernel_info.restype = I
     return lib
 
 
-def geometry_cuda(d: int) -> dict:
+def geometry_cuda(d: int, rng: str = "philox") -> dict:
     """:func:`geometry` as the compiled kernel reckons it."""
     out = (ctypes.c_long * 4)()
     _lib().ess_gauss_geometry(d, out)
-    return {"variant": VARIANTS[out[0]], "smem_bytes": out[1], "tiles": out[2], "threads": out[3]}
+    variant = VARIANTS[out[0]]
+    return {"variant": variant, "smem_bytes": out[1], "tiles": out[2], "threads": out[3],
+            "kernel": _kernel_name(variant, rng)}
 
 
 @functools.cache
@@ -422,11 +557,12 @@ def _smem_limit(device_index: int) -> int:
     return limit
 
 
-def kernel_info(d: int) -> dict:
-    """The CUDA runtime's view of K3 at ``D = d``: registers a thread, local
-    (spill) bytes a thread, resident blocks an SM."""
+def kernel_info(d: int, rng: str = "philox") -> dict:
+    """The CUDA runtime's view of K3 at ``D = d`` on stream ``rng`` (a keyed
+    stream's own kernel for ``"threefry"`` and ``"rbg"``): registers a
+    thread, local (spill) bytes a thread, resident blocks an SM."""
     out = (ctypes.c_int * 3)()
-    err = _lib().ess_gauss_kernel_info(d, out)
+    err = _lib().ess_gauss_kernel_info(d, _rng_id(rng), out)
     if err != 0:
         raise RuntimeError(f"ess_gauss_kernel_info failed with CUDA error {err}")
     return {"registers": out[0], "local_bytes": out[1], "blocks_per_sm": out[2]}
@@ -444,6 +580,7 @@ def ess_gauss_sweep(
     max_iters: int = 24,
     rng: str = "philox",
     block_n: int | None = None,
+    first_step: int = 0,
 ) -> torch.Tensor:
     """Launch the CUDA Gaussian-ESS kernel on the current stream, without
     synchronising. ``q0`` is a contiguous float32 CUDA tensor ``(D, N)`` and
@@ -452,7 +589,11 @@ def ess_gauss_sweep(
     the card as contiguous float32 ``(D,)`` (or ``(D, 1)``) tensors are
     passed as they are, with no copy. ``rng="counter"`` is the counter
     stream for chain block ``block_n`` (required, dividing ``N``);
-    ``rng="philox"`` draws from Philox keyed by (seed, chain). The variant
+    ``rng="philox"`` draws from Philox keyed by (seed, chain).
+    ``rng="threefry"`` and ``"rbg"`` launch the keyed kernel, which draws
+    what ``ess_sweep_gauss_cols(q0, seed, rng_impl=...)`` draws (the root
+    key ``key(seed ^ 0xE5517)`` of that stream, made here, and the launch's
+    step ``i`` that sweep's step ``first_step + i``; any ``N``). The variant
     (:func:`geometry`) is recorded on ``ess_gauss_sweep.last_variant``.
 
     Returns ``q`` ``(D, N)``.
@@ -469,13 +610,12 @@ def ess_gauss_sweep(
     d, n = q0.shape
     if tuple(chol.shape) != (d, d) or chol.device != q0.device:
         raise ValueError(f"chol must be ({d}, {d}) on {q0.device}, got {tuple(chol.shape)} on {chol.device}")
-    if rng not in _RNG_IDS:
-        raise ValueError(f"rng must be 'philox' or 'counter', got {rng!r}")
+    rng_id = _rng_id(rng)
     if rng == "counter" and (block_n is None or block_n < 1 or n % block_n):
         raise ValueError(f"the counter stream needs a chain block dividing N={n}: got block_n={block_n}")
-    if n_steps < 0 or max_iters < 0:
-        raise ValueError("n_steps and max_iters must be non-negative")
-    geo = geometry(d)
+    if n_steps < 0 or max_iters < 0 or first_step < 0:
+        raise ValueError("n_steps, max_iters and first_step must be non-negative")
+    geo = geometry(d, rng)
     y, prec, mean = (
         torch.broadcast_to(_f32(v, q0.device).reshape(-1), (d,)).contiguous() for v in (y, prec, mean)
     )
@@ -486,12 +626,16 @@ def ess_gauss_sweep(
             f"K3 needs {smem} B of shared memory per block at D={d}; this card allows {limit} B "
             f"per block (cudaDevAttrMaxSharedMemoryPerBlockOptin)"
         )
+    # key(seed ^ 0xE5517)'s words: (0, s) for threefry2x32, (0, s, 0, s) for rbg
+    s = (int(seed) ^ _SEED_MIX) & _M32
+    root = (ctypes.c_uint32 * 4)(0, s, 0, s if rng == "rbg" else 0)
     q_out = torch.empty_like(q0)
     with torch.cuda.device(q0.device):
         err = _lib().ess_gauss_sweep(
             q0.data_ptr(), q_out.data_ptr(), chol.data_ptr(), y.data_ptr(), prec.data_ptr(),
-            mean.data_ptr(), d, n, n_steps, max_iters, _int32(seed), _RNG_IDS[rng],
-            block_n or 1, torch.cuda.current_stream(q0.device).cuda_stream,
+            mean.data_ptr(), d, n, n_steps, max_iters, _int32(seed), rng_id,
+            block_n or 1, ctypes.cast(root, ctypes.c_void_p), int(first_step),
+            torch.cuda.current_stream(q0.device).cuda_stream,
         )
     if err != 0:
         raise RuntimeError(f"ess_gauss_sweep kernel launch failed with CUDA error {err}")

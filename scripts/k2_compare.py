@@ -26,11 +26,13 @@ Each process also stages, with its checkout's ``kernels/staged.py``, two
 column densities that take no chain operands (the flagship's
 ``hierarchical_regression`` over ``["tau", "w"]`` and the conjugate normal
 model over ``["mu"]``) and builds their K1 and K4 beside the sources. The
-script then compares the two checkouts' whole ``-Xptxas -v`` reports of
-every build (each kernel's registers, spills, stack frame, barriers, shared,
-constant and global memory), leaving out what does not come from the
-kernels: the compile times, and the tag of the anonymous namespace in the
-mangled names, which nvcc derives from the source file.
+script then compares the two checkouts' ``-Xptxas -v`` reports of every
+build, entry function by entry function (each kernel's registers, spills,
+stack frame, barriers, shared, constant and global memory), leaving out
+what does not come from the kernels: the compile times, and the tag of the
+anonymous namespace in the mangled names, which nvcc derives from the
+source file. Every kernel of the first checkout must have the same report
+in the second; kernels the second adds are listed with theirs.
 
     python scripts/k2_compare.py [--rounds 2] PARENT_ROOT CHANGE_ROOT
     python scripts/k2_compare.py --ptxas PARENT_ROOT CHANGE_ROOT
@@ -182,18 +184,39 @@ def normalised(report: str) -> list[str]:
             if "Compile time" not in line]
 
 
+def entries(report: str) -> dict:
+    """A normalised ``-Xptxas -v`` report cut into its entry functions: the
+    mangled name of each and its lines (the properties, registers, spills
+    and memory), and under ``""`` the lines before the first."""
+    out, name = {"": []}, ""
+    for line in normalised(report):
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = m.group(1)
+            out[name] = []
+        out[name].append(line)
+    return out
+
+
 def compare_reports(a: dict, b: dict, names: tuple[str, str]) -> bool:
-    """Print whether each build's reports are equal in the two checkouts,
-    and the lines that differ; return whether all are."""
+    """Print whether each build's kernels of the first checkout have equal
+    reports in the second (each entry function's lines, in any order), the
+    lines that differ, the entry functions the second adds, and the module's
+    own lines where they differ; return whether every kernel's are equal."""
     equal = {}
     for name in a:
-        la, lb = normalised(a[name]), normalised(b.get(name, ""))
-        equal[name] = la == lb
-        kernels = sum("Compiling entry function" in x for x in la)
-        print(f"[ptxas] {name}: {kernels} kernels, reports {'equal' if equal[name] else 'DIFFERENT'} "
-              f"({names[0]} against {names[1]})")
-        if not equal[name]:
-            print("\n".join(list(difflib.unified_diff(la, lb, lineterm="", n=0))[:60]))
+        ea, eb = entries(a[name]), entries(b.get(name, ""))
+        differ = [k for k in ea if k and ea[k] != eb.get(k)]
+        added = [k for k in eb if k not in ea]
+        equal[name] = not differ
+        print(f"[ptxas] {name}: {len(ea) - 1} kernels, reports {'equal' if equal[name] else 'DIFFERENT'} "
+              f"({names[0]} against {names[1]}); {len(added)} kernels added in {names[1]}")
+        if ea[""] != eb[""]:  # the module's own lines (its global and constant memory)
+            print(f"[ptxas] {name}: the module's lines before its first kernel: {ea['']} against {eb['']}")
+        for k in differ:
+            print("\n".join(list(difflib.unified_diff(ea[k], eb.get(k, []), lineterm="", n=0))[:30]))
+        for k in added:
+            print(f"[ptxas] {name}: added {k}: " + "; ".join(x.split(":", 1)[-1].strip() for x in eb[k][1:]))
     print(json.dumps({"equal": equal}), flush=True)
     return all(equal.values())
 
