@@ -1847,7 +1847,7 @@ def column_samplers_path(device, smi: str, g, hmc, nuts_pallas, elliptical, mode
     moments). Each phase prints its line, then holds its gates."""
     from genjax_tpu_torch.inference import sample
     from genjax_tpu_torch.kernels import column_hmc, column_svgd, svgd
-    from genjax_tpu_torch.kernels.model_interface import column_logdensity, init_columns
+    from genjax_tpu_torch.kernels.model_interface import column_logdensity, init_columns, prior_generator
 
     sel = g.S["w"] | g.S["tau"]
     obs = g.C["y"].set(torch.as_tensor(y, device=device))
@@ -1994,14 +1994,22 @@ def column_samplers_path(device, smi: str, g, hmc, nuts_pallas, elliptical, mode
             f"dense_nuts: covariance error {err_n:.4f} (limit {bound_n:.4f})"),
            (im_n < im_bound_n, f"dense_nuts: inv_mass off diag(Sigma*) by {im_n:.4f} (limit {im_bound_n:.4f})")])
 
-    # ---- SVGD on the flagship: the means against K1's; the card against the CPU
+    # ---- SVGD on the flagship: the means against K1's; the card against the CPU.
+    # The gated run starts where the gate was set (the generator start an int
+    # seed gave before it drew the reference's keyed start): after 100 steps
+    # the flow's tau still depends on its start, and the keyed start's gap is
+    # printed beside it
     q_s, packer_s = timed("column_svgd", lambda: column_svgd(
-        model, obs, (), ["tau", "w"], n_particles=SVGD_PARTICLES, n_steps=SVGD_STEPS, seed=SEED, device=device))
+        model, obs, (), ["tau", "w"], n_particles=SVGD_PARTICLES, n_steps=SVGD_STEPS,
+        seed=prior_generator(SEED, device), device=device))
     ref_flat = ref_draws.reshape(-1, 9)
     ref_mean, ref_sd = ref_flat.mean(dim=0), ref_flat.std(dim=0)
     gap = (q_s.mean(dim=1) - ref_mean).abs() / ref_sd
+    q_k, _packer = column_svgd(model, obs, (), ["tau", "w"], n_particles=SVGD_PARTICLES, n_steps=SVGD_STEPS,
+                               seed=SEED, device=device)
+    gap_keyed = (q_k.mean(dim=1) - ref_mean).abs() / ref_sd
     pad = packer_s.padded_dim - packer_s.dim
-    q0 = init_columns(model, obs, (), packer_s, SVGD_PARTICLES, SEED, device)[: packer_s.dim]
+    q0 = init_columns(model, obs, (), packer_s, SVGD_PARTICLES, prior_generator(SEED, device), device)[: packer_s.dim]
 
     def on_real_rows(ld):
         return lambda q: ld(torch.cat([q, q.new_zeros((pad, q.shape[1]))]))
@@ -2021,7 +2029,9 @@ def column_samplers_path(device, smi: str, g, hmc, nuts_pallas, elliptical, mode
           f"{timings['column_svgd']:.2f} s, no kernel, particles finite {bool(torch.isfinite(q_s).all())}; tau, w "
           f"means within {float(gap.max()):.3f} posterior sds of K1's (limit {SVGD_MEAN_BOUND}; tau "
           f"{float(q_s[0].mean()):.4f} vs {float(ref_mean[0]):.4f}; {int((q_s[0] <= 0).sum())} particles at "
-          f"tau <= 0); a second card run from the same q0 equal bit for bit: {same}; the card against the CPU "
+          f"tau <= 0; from the reference's keyed start of seed {SEED}, not gated, within "
+          f"{float(gap_keyed.max()):.3f}, tau {float(q_k[0].mean()):.4f}); a second card run from the same q0 "
+          f"equal bit for bit: {same}; the card against the CPU "
           f"from the same q0: " + "; ".join(
               f"{n} steps: means allclose(rtol 1e-3, atol 1e-4) {m_ok}, particles allclose(rtol 1e-3, atol "
               f"1e-5) {ok}, max abs {err:.3g}, means {mgap:.3g} apart"
@@ -5384,6 +5394,290 @@ KB_K1_REPS = 1000  # about half a second a window at 0.5 ms a sweep
 KB_K4_REPS = 400   # about 0.3 s a window at 0.7 ms a sweep
 
 
+# The column path on the reference's streams ([keys column]): the cut-size
+# calls whose results genjax_tpu gives on the CPU (KC_GOLDEN, printed by
+# scripts/keys_column_golden.py, jax 0.9.0), the flagship at KC_CHAINS chains
+KC_CHAINS = 1024
+KC_FIRST = 8  # the chains whose tau the golden results keep
+KC_HMC = dict(n_chains=KC_CHAINS, n_steps=10, eps=EPS, L=L, warmup=True)
+KC_NUTS = dict(n_chains=KC_CHAINS, n_steps=3, eps=NUTS_EPS0, max_depth=6, warmup=True)
+KC_SP = {
+    "chees": dict(n_chains=KC_CHAINS, n_warmup=10, n_samples=5, eps0=CHEES_EPS0),
+    "pt": dict(n_chains=KC_CHAINS, n_warmup=4, n_samples=4, eps0=CHEES_EPS0, L=4, n_rungs=3),
+    "dense_hmc": dict(n_chains=KC_CHAINS, n_warmup=6, n_samples=4, eps0=CHEES_EPS0, L=L),
+}
+KC_GOLDEN = {
+    "column_hmc": {
+        "mean": [0.4040743112564087, -0.3226391077041626, 0.12133041024208069, 0.2912254333496094, -0.07293631881475449, -0.37849944829940796, -0.22739078104496002, 0.08833973109722137, -0.05579221993684769],
+        "acc": 0.9839843511581421,
+        "tau": [0.2115623652935028, 0.5066794157028198, 0.5833716988563538, 0.5337117314338684, 0.4011891484260559, 0.23491153120994568, 0.29382479190826416, 0.5529508590698242],
+    },
+    "column_nuts": {
+        "mean": [0.38935500383377075, -0.32525622844696045, 0.11801299452781677, 0.28073665499687195, -0.07222738862037659, -0.37214189767837524, -0.23001456260681152, 0.08074488490819931, -0.043623268604278564],
+        "acc": 0.8841865062713623,
+        "leaps": 12.276041984558105,
+        "tau": [0.21593213081359863, 0.5218197107315063, 0.4329342544078827, 0.29381421208381653, 0.6324042677879333, 0.23226262629032135, 0.38897058367729187, 0.43070244789123535],
+    },
+    "sp_chees": {
+        "mean": [0.4489995837211609, -0.34635037183761597, 0.14118310809135437, 0.3238331973552704, -0.09280935674905777, -0.403489351272583, -0.2217351645231247, 0.09490198642015457, -0.08537916839122772],
+        "acc": 0.9186065793037415,
+        "eps": 0.16745901107788086,
+    },
+    "sp_pt": {
+        "mean": [0.7372951507568359, -0.3112480342388153, 0.09242703765630722, 0.24509185552597046, -0.055962447077035904, -0.3467324376106262, -0.23892197012901306, 0.06790214776992798, -0.008190167136490345],
+        "acc": 0.9101492166519165,
+        "eps": 0.09238079190254211,
+    },
+    "sp_dense_hmc": {
+        "mean": [0.5413763523101807, -0.319181889295578, 0.11948554962873459, 0.2882160246372223, -0.06590757519006729, -0.3766734302043915, -0.22389201819896698, 0.08824272453784943, -0.05149921029806137],
+        "acc": 0.87744140625,
+        "eps": 0.1051204651594162,
+    },
+}
+# the golden results' limits: a chain that takes another accept decision moves
+# the mean of 1,024 chains by about 1e-3, while an independent stream's mean
+# is about 1e-2 (a standard error) away
+KC_MEAN_TOL = 2e-3
+KC_EPS_RTOL = 1e-4
+
+
+def chain_share(a: torch.Tensor, b: torch.Tensor, tol: float = KB_TOL) -> tuple[float, float]:
+    """The share of chains (columns) of ``a`` within ``tol`` of ``b`` in
+    every row, and the largest difference on them."""
+    diff = (a - b).abs()
+    ok = diff.max(dim=0).values <= tol
+    return float(ok.float().mean()), (float(diff[:, ok].max()) if bool(ok.any()) else math.inf)
+
+
+def recorded_launches(nuts_pallas, call):
+    """``call()`` with every K4 launch it makes recorded: ``(result,
+    [(q_in, seed, kwargs, q_out), ...])``, each launch counted as usual."""
+    records = []
+    launch = nuts_pallas.nuts_sweep
+
+    def recording(body, q0, seed, **kw):
+        out = launch(body, q0, seed, **kw)
+        records.append((q0.clone(), seed, kw, out[0]))
+        return out
+
+    nuts_pallas.nuts_sweep = recording
+    try:
+        return call(), records
+    finally:
+        nuts_pallas.nuts_sweep = launch
+
+
+def keys_column_path(device, smi: str, g, hmc, nuts, nuts_pallas, model, y, lin_model) -> dict:
+    """``[keys column]``: the column path on the reference's streams on the
+    card. ``column_hmc(rng="rbg", warmup=True)`` and ``column_nuts(rng="rbg",
+    warmup=True)`` on the flagship at full width, K1's and K4's rbg kernels
+    (7 and 11 launches, counted from 0 just before each call), against the
+    twins of the same call; a staged-body model (``linear_regression``)
+    through ``column_hmc(rng="rbg")``, the staged rbg build; the column
+    entry points and ``sample_posterior(key(0))``'s ChEES, PT and dense HMC at
+    ``KC_CHAINS`` chains against ``genjax_tpu``'s golden results
+    (``KC_GOLDEN``); then ``[timing keys column]``. Each K4 launch of the
+    NUTS call is held against its twin from the launch's own input
+    (``recorded_launches``). Returns the launches by path for the kernels
+    line."""
+    from genjax_tpu_torch.core import keys
+    from genjax_tpu_torch.inference import sample_posterior
+    from genjax_tpu_torch.kernels import column_chees, column_hmc, column_nuts
+    from genjax_tpu_torch.kernels.model_interface import ColumnPacker, column_logdensity, init_columns, prior_generator
+
+    t0 = time.perf_counter()
+    obs = g.C["y"].set(torch.as_tensor(y, device=device))
+    addrs = ["tau", "w"]
+    hmc_kw = dict(n_chains=N_CHAINS, n_steps=N_STEPS, eps=EPS, L=L, seed=SEED, warmup=True, rng="rbg", device=device)
+    nuts_kw = dict(n_chains=N_CHAINS, n_steps=NUTS_STEPS, eps=NUTS_EPS0, max_depth=NUTS_DEPTH, seed=SEED,
+                   warmup=True, rng="rbg", device=device)
+
+    # ---- the flagship on K1's rbg kernel, against the twin of the same call
+    hmc.hmc_sweep_launches = 0
+    t1 = time.perf_counter()
+    q, acc, _p = column_hmc(model, obs, (), addrs, **hmc_kw)
+    torch.cuda.synchronize()
+    hmc_s = time.perf_counter() - t1
+    k1_n, k1_backend, k1_body = hmc.hmc_sweep_launches, hmc.pallas_hmc.last_backend, hmc.pallas_hmc.last_body
+    t1 = time.perf_counter()
+    qt, acc_t, _p = column_hmc(model, obs, (), addrs, backend="torch", **hmc_kw)
+    torch.cuda.synchronize()
+    twin_hmc_s = time.perf_counter() - t1
+    frac1, err1 = chain_share(q, qt)
+    phase("keys column", f"{smi}: column_hmc(rng='rbg', warmup=True) flagship {N_CHAINS} chains x {N_STEPS} steps, "
+                         f"L={L}: {k1_n} K1 rbg launches ({HMC_WARMUP_PHASES} phases + 1) on {k1_backend}, body "
+                         f"{k1_body}, {hmc_s:.2f} s with the keyed start; against the twin of the same call "
+                         f"(backend='torch', {twin_hmc_s:.2f} s): {frac1:.5f} of chains within {KB_TOL} (limit "
+                         f"0.995), max abs err {err1:.3g} on them, accept {float(acc):.5f} vs {float(acc_t):.5f}")
+    check(k1_n == HMC_WARMUP_PHASES + 1 and k1_backend == "cuda" and k1_body == "hier_regression",
+          f"[keys column] column_hmc(rng='rbg', warmup=True) made {k1_n} K1 launches on {k1_backend} ({k1_body})")
+    check(frac1 >= 0.995, f"[keys column] column_hmc rbg: only {frac1:.5f} of chains within {KB_TOL} of the twin")
+    check(abs(float(acc) - float(acc_t)) <= 0.005,
+          f"[keys column] column_hmc rbg accept {float(acc)} vs twin {float(acc_t)}")
+
+    # ---- the flagship on K4's rbg kernel, launches against their twins from
+    # the launch's own input. Over the whole call (110 transitions of trees
+    # up to 255 leapfrogs, the adaptation between) the kernel's and the
+    # twin's float32 rounding drift the chains apart smoothly: a first run
+    # found 0.00656 of chains within 1e-4 of the whole twin call, with the
+    # accept statistic 0.88470 vs 0.88468 and the mean leapfrogs equal. The
+    # first phase, a middle one and the main sweep are twinned
+    # (KC_K4_TWINNED): every launch's twin took 122-124 s of the script
+    nuts_pallas.nuts_sweep_launches = 0
+    t1 = time.perf_counter()
+    (qn, acc_n, leaps_n, _p), records = recorded_launches(
+        nuts_pallas, lambda: column_nuts(model, obs, (), addrs, **nuts_kw))
+    torch.cuda.synchronize()
+    nuts_s = time.perf_counter() - t1
+    k4_n, k4_backend = nuts_pallas.nuts_sweep_launches, nuts_pallas.pallas_nuts.last_backend
+    k4_body = nuts_pallas.pallas_nuts.last_body
+    packer = ColumnPacker(model, obs, (), addrs, device=device)
+    ld_flag = column_logdensity(model, obs, (), packer)
+    t1 = time.perf_counter()
+    launch_shares = []
+    for q_in, seed, kw, q_out in (records[i] for i in KC_K4_TWINNED):
+        q_twin, _a, _l = nuts.nuts_sweep_cols(
+            ld_flag, q_in, seed, n_steps=kw["n_steps"], eps=kw["eps"], max_depth=kw["max_depth"],
+            inv_mass=kw["inv_mass"], rng=kw["rng"], divergence_threshold=kw["divergence_threshold"],
+            stream_rows=kw["stream_rows"])
+        launch_shares.append(chain_share(q_out, q_twin))
+    torch.cuda.synchronize()
+    twin_nuts_s = time.perf_counter() - t1
+    frac4, err4 = min(f for f, _e in launch_shares), max(e for _f, e in launch_shares)
+    seeds = [r[1] for r in records]
+    phase("keys column", f"{smi}: column_nuts(rng='rbg', warmup=True) flagship {N_CHAINS} chains x {NUTS_STEPS} "
+                         f"transitions, depth {NUTS_DEPTH}: {k4_n} K4 rbg launches ({NUTS_WARMUP_PHASES} phases + 1, "
+                         f"seeds {seeds[0]}..{seeds[-2]}, {seeds[-1]}) on {k4_backend}, body {k4_body}, {nuts_s:.2f} "
+                         f"s with the keyed start, accept {float(acc_n):.5f}, mean leapfrogs {float(leaps_n):.4f}; "
+                         f"launches {list(KC_K4_TWINNED)} against their twins from the same input "
+                         f"({twin_nuts_s:.2f} s): chains within {KB_TOL} "
+                         + ", ".join(f"{f:.5f}" for f, _e in launch_shares) + f" (limit 0.99 each), max abs err "
+                         f"{err4:.3g} on them")
+    check(k4_n == NUTS_WARMUP_PHASES + 1 and k4_backend == "cuda" and k4_body == "hier_regression"
+          and len(records) == k4_n and all(r[2]["rng"] == "rbg" for r in records),
+          f"[keys column] column_nuts(rng='rbg', warmup=True) made {k4_n} K4 launches on {k4_backend} ({k4_body})")
+    check(seeds == [(SEED + 1) * 1_000_003 + i for i in range(NUTS_WARMUP_PHASES)] + [SEED],
+          f"[keys column] column_nuts's launches took seeds {seeds}")
+    check(frac4 >= 0.99, f"[keys column] column_nuts rbg: a launch with only {frac4:.5f} of chains within {KB_TOL} of "
+                         f"its twin")
+
+    # ---- a staged body (no hand-written one) through column_hmc(rng="rbg")
+    Xl, yl, _ = linreg_data()
+    obs_l = g.C["y"].set(torch.from_numpy(yl).to(device))
+    lin_kw = dict(hmc_kw, eps=0.05)
+    hmc.hmc_sweep_launches = 0
+    t1 = time.perf_counter()
+    ql, acc_l, _p = column_hmc(lin_model, obs_l, (), ["w"], **lin_kw)
+    torch.cuda.synchronize()
+    lin_s = time.perf_counter() - t1
+    k1_lin, lin_body = hmc.hmc_sweep_launches, hmc.pallas_hmc.last_body
+    qlt, acc_lt, _p = column_hmc(lin_model, obs_l, (), ["w"], backend="torch", **lin_kw)
+    frac_l, err_l = chain_share(ql, qlt)
+    phase("keys column", f"column_hmc(linear_regression 24 x 3, S['w'], rng='rbg', warmup=True, {N_CHAINS} chains, "
+                         f"eps0 0.05): {k1_lin} launches of the staged body's rbg build (body {lin_body}), "
+                         f"{lin_s:.2f} s; against the twin of the same call: {frac_l:.5f} of chains within "
+                         f"{KB_TOL} (limit 0.995), max abs err {err_l:.3g}, accept {float(acc_l):.5f} vs "
+                         f"{float(acc_lt):.5f}")
+    check(k1_lin == HMC_WARMUP_PHASES + 1 and lin_body == "staged",
+          f"[keys column] linear_regression made {k1_lin} K1 launches on body {lin_body}")
+    check(frac_l >= 0.995, f"[keys column] staged rbg: only {frac_l:.5f} of chains within {KB_TOL} of the twin")
+
+    # ---- the golden results at KC_CHAINS chains
+    gold = KC_GOLDEN
+    errs = {}
+
+    def mean_err(rows: torch.Tensor, want) -> float:
+        return float((rows.double().cpu() - torch.tensor(want, dtype=torch.float64)).abs().max())
+
+    q, acc, _p = column_hmc(model, obs, (), addrs, seed=SEED, rng="rbg", device=device, **KC_HMC)
+    gh = gold["column_hmc"]
+    first = int(((q[0, :KC_FIRST].double().cpu() - torch.tensor(gh["tau"], dtype=torch.float64)).abs()
+                 <= KB_TOL).sum())
+    errs["column_hmc"] = (mean_err(q[:9].mean(1), gh["mean"]), abs(float(acc) - gh["acc"]), first)
+    q, acc, leaps, _p = column_nuts(model, obs, (), addrs, seed=SEED, rng="rbg", device=device, **KC_NUTS)
+    gn = gold["column_nuts"]
+    first = int(((q[0, :KC_FIRST].double().cpu() - torch.tensor(gn["tau"], dtype=torch.float64)).abs()
+                 <= KB_TOL).sum())
+    errs["column_nuts"] = (mean_err(q[:9].mean(1), gn["mean"]), abs(float(acc) - gn["acc"]), first,
+                           abs(float(leaps) / gn["leaps"] - 1.0))
+    sel = g.S["w"] | g.S["tau"]
+    for algorithm, kw in KC_SP.items():
+        res = sample_posterior(keys.key(0, device=device), model, obs, (), sel, algorithm=algorithm, device=device,
+                               **kw)
+        d = torch.cat([res["tau"][:, :, None], res["w"]], dim=2)
+        gs = gold[f"sp_{algorithm}"]
+        errs[f"sp_{algorithm}"] = (mean_err(d.mean((0, 1)), gs["mean"]), abs(float(res.accept_rate) - gs["acc"]),
+                                   abs(float(res.eps.reshape(-1)[0]) / gs["eps"] - 1.0))
+    settings = {"column_hmc": KC_HMC, "column_nuts": KC_NUTS, **{f"sp_{a}": kw for a, kw in KC_SP.items()}}
+
+    def golden_line(name, e):
+        third = f"first chains {e[2]}/{KC_FIRST}" if name.startswith("column") else f"eps {e[2]:.3g}"
+        leaps = f", leapfrogs {e[3]:.3g}" if name == "column_nuts" else ""
+        return f"{name} {settings[name]}: mean {e[0]:.3g}, accept {e[1]:.3g}, {third}{leaps}"
+
+    phase("keys column", f"{smi}: against genjax_tpu's golden results at {KC_CHAINS} flagship chains (limits: means "
+                         f"and accept rates {KC_MEAN_TOL}, eps {KC_EPS_RTOL} relative, tau of the first {KC_FIRST} "
+                         f"chains within {KB_TOL} for {KC_FIRST - 1} of them): "
+                         + "; ".join(golden_line(name, e) for name, e in errs.items()))
+    for name, e in errs.items():
+        check(e[0] <= KC_MEAN_TOL and e[1] <= KC_MEAN_TOL,
+              f"[keys column] {name}: mean {e[0]:.3g} and accept {e[1]:.3g} off the reference (limit {KC_MEAN_TOL})")
+        if name.startswith("column"):
+            check(e[2] >= KC_FIRST - 1, f"[keys column] {name}: {e[2]} of the first {KC_FIRST} chains' tau within {KB_TOL}")
+        else:
+            check(e[2] <= KC_EPS_RTOL, f"[keys column] {name}: eps {e[2]:.3g} (relative) off the reference")
+    if "column_nuts" in errs:
+        check(errs["column_nuts"][3] <= KC_EPS_RTOL * 10,
+              f"[keys column] column_nuts: leapfrogs {errs['column_nuts'][3]:.3g} (relative) off the reference")
+
+    # ---- [timing keys column]: rbg against Philox, int seed against a generator, host clock
+    packer = ColumnPacker(model, obs, (), addrs, device=device)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated()
+    init_columns(model, obs, (), packer, N_CHAINS, SEED, device)
+    torch.cuda.synchronize()
+    start_peak = torch.cuda.max_memory_allocated() - base_mem
+    keyed_start_ms = wall_ms(lambda: init_columns(model, obs, (), packer, N_CHAINS, SEED, device))
+    gen_start_ms = wall_ms(lambda: init_columns(model, obs, (), packer, N_CHAINS, prior_generator(SEED, device), device))
+    philox_kw = {k: v for k, v in hmc_kw.items() if k != "rng"}
+    hmc_ms = {r: wall_ms(lambda r=r: column_hmc(model, obs, (), addrs, **(hmc_kw if r == "rbg" else philox_kw)))
+              for r in ("philox", "rbg")}
+    nphilox_kw = {k: v for k, v in nuts_kw.items() if k != "rng"}
+    nuts_ms = {r: wall_ms(lambda r=r: column_nuts(model, obs, (), addrs, **(nuts_kw if r == "rbg" else nphilox_kw)))
+               for r in ("philox", "rbg")}
+    chees_kw = dict(n_chains=N_CHAINS, n_warmup=KC_CHEES_WARMUP, n_steps=KC_CHEES_STEPS, eps=CHEES_EPS0, device=device)
+    chees_ms = {
+        "int seed": wall_ms(lambda: column_chees(model, obs, (), addrs, seed=SEED, **chees_kw)),
+        "generator": wall_ms(lambda: column_chees(
+            model, obs, (), addrs, seed=torch.Generator(device=device).manual_seed(SEED), **chees_kw)),
+    }
+    phase("timing keys column", f"{smi}, beside the cookbooks' process: the start of {N_CHAINS} flagship chains: "
+                                f"init_columns of the int seed (the "
+                                f"reference's keyed start, threefry under torch.func.vmap) {keyed_start_ms:.3f} ms, "
+                                f"peak {start_peak / 2**20:.1f} MiB above the resident; of prior_generator(seed) (the "
+                                f"Philox path's) {gen_start_ms:.3f} ms (host clock, median of 3)")
+    phase("timing keys column", f"{smi}: column_hmc(warmup=True) flagship {N_CHAINS} chains x {N_STEPS} steps, a call "
+                                f"(host clock, median of 3): Philox {hmc_ms['philox']:.3f} ms, rbg {hmc_ms['rbg']:.3f} "
+                                f"ms; column_nuts(warmup=True), {NUTS_STEPS} transitions, depth {NUTS_DEPTH}: Philox "
+                                f"{nuts_ms['philox']:.3f} ms, rbg {nuts_ms['rbg']:.3f} ms")
+    phase("timing keys column", f"{smi}: column_chees flagship {N_CHAINS} chains, {KC_CHEES_WARMUP} + {KC_CHEES_STEPS} "
+                                f"sweeps, a call (host clock, median of 3): int seed (the reference's rbg stream in "
+                                f"torch int64 ops) {chees_ms['int seed']:.3f} ms, a generator "
+                                f"{chees_ms['generator']:.3f} ms")
+    phase("keys column", f"the keys column phase took {time.perf_counter() - t0:.1f} s")
+    return {"K1": {"column_hmc(rng='rbg', warmup=True)": k1_n,
+                   "column_hmc(linear_regression, rng='rbg', warmup=True), staged": k1_lin,
+                   "column_share_within_1e-4": frac1, "column_max_abs_err": err1},
+            "K4": {"column_nuts(rng='rbg', warmup=True)": k4_n,
+                   "column_share_within_1e-4": frac4, "column_max_abs_err": err4}}
+
+
+KC_CHEES_WARMUP = 20
+KC_CHEES_STEPS = 10
+KC_K4_TWINNED = (0, NUTS_WARMUP_PHASES // 2, NUTS_WARMUP_PHASES)  # the first phase, a middle one, the sweep
+
+
 def finish_phases(device, smi: str, g, hmc, nuts_pallas, elliptical, model, y, k1_draws) -> int:
     """The phases after the GP path, which need no kernel timing of their
     own and run beside ``[cookbook]``'s process. Each path returns the
@@ -5939,7 +6233,7 @@ def main() -> int:
     import genjax_tpu_torch as g
     from genjax_tpu_torch.kernels import _build, adaptation, bodies, elliptical, hmc, nuts, nuts_pallas, staged
     from genjax_tpu_torch.kernels.model_interface import (
-        ColumnPacker, column_hmc, column_logdensity, column_nuts, init_columns,
+        ColumnPacker, column_hmc, column_logdensity, column_nuts, init_columns, prior_generator,
     )
     from genjax_tpu_torch.models import hierarchical_regression
 
@@ -6158,7 +6452,7 @@ def main() -> int:
                        f"variant: {launches} kernel launch(es), accept {float(accept):.4f}, "
                        f"{main_s:.2f} s including init")
 
-    q0 = init_columns(model, obs, (), packer, N_CHAINS, SEED, device)
+    q0 = init_columns(model, obs, (), packer, N_CHAINS, prior_generator(SEED, device), device)
     q_twin, accept_twin = hmc.pallas_hmc(
         ld, q0, SEED, n_steps=N_STEPS, eps=EPS, L=L, backend="torch"
     )
@@ -6247,7 +6541,7 @@ def main() -> int:
 
     # the same warmup again, outside the counted run, for its eps and mass:
     # K4 is deterministic, so its sweep must give the main path's positions
-    q0_n = init_columns(model, obs, (), packer, N_CHAINS, SEED, device)
+    q0_n = init_columns(model, obs, (), packer, N_CHAINS, prior_generator(SEED, device), device)
     t0 = time.perf_counter()
     q_wn, eps_n, im_n = nuts_pallas.warmup_column_nuts(
         ld, q0_n, SEED, eps0=NUTS_EPS0, max_depth=NUTS_DEPTH
@@ -6312,7 +6606,7 @@ def main() -> int:
         model, obs, (), ["tau", "w"], n_chains=N_CHAINS, n_steps=N_STEPS, eps=EPS, L=L,
         seed=SEED, device="cuda",
     ))
-    init_ms = wall_ms(lambda: init_columns(model, obs, (), packer, N_CHAINS, SEED, device))
+    init_ms = wall_ms(lambda: init_columns(model, obs, (), packer, N_CHAINS, prior_generator(SEED, device), device))
     phase("where the time goes", f"column_hmc call {call_ms:.3f} ms (host clock, median of 3): "
                                  f"init_columns {init_ms:.3f} ms, K1 sweep {ms:.4f} ms, the rest "
                                  f"(packer, density closure, routing) "
@@ -6420,6 +6714,7 @@ def main() -> int:
     # ---- the batched drivers under a key: K1's and K4's rbg kernels
     kb_entries = keys_batched_path(device, smi, g, hmc, nuts, nuts_pallas, model, y, ld, q0, (q_wn, eps_n, im_n))
 
+
     # ---- the GP / elliptical-slice path (K3)
     k3_entry, q_gp = gp_path(device, smi, elliptical)
 
@@ -6431,6 +6726,10 @@ def main() -> int:
     # it, in a process of its own beside the host-bound phases that follow
     cookbooks = cookbook_start()
     try:
+        # the column path on the reference's streams (K1's and K4's rbg
+        # kernels), first beside the cookbooks
+        kc = keys_column_path(device, smi, g, hmc, nuts, nuts_pallas, model, y, lin_model)
+        torch.cuda.empty_cache()
         ck_launches = finish_phases(device, smi, g, hmc, nuts_pallas, elliptical, model, y, k1_draws)
         cookbook_finish(cookbooks, smi)
     except BaseException:
@@ -6442,6 +6741,12 @@ def main() -> int:
             cookbooks[0].kill()
             cookbooks[0].wait()
 
+    for k in ("K1", "K4"):
+        paths = {p: n for p, n in kc[k].items() if p.startswith("column_") and "share" not in p and "err" not in p}
+        kb_entries[k]["launches"] += sum(paths.values())
+        kb_entries[k]["launches_by_path"].update(paths)
+        kb_entries[k]["column_path"] = {"share_within_1e-4": kc[k]["column_share_within_1e-4"],
+                                        "max_abs_err": kc[k]["column_max_abs_err"]}
     phase("total", f"chip_smoke.py took {time.perf_counter() - T_START:.1f} s")
     print(json.dumps({"kernels": [{
         "name": "hmc_sweep (K1, with K2's counter PRNG as device functions)",

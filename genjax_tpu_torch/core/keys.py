@@ -53,7 +53,7 @@ import operator
 
 import torch
 
-from .device import entry_device
+from .device import chain_generator, entry_device, same_device
 
 #: A key: an int64 tensor of two (threefry2x32) or four (rbg) 32-bit words
 #: on its last axis.
@@ -100,17 +100,77 @@ def key(seed, device=None, impl: str = "threefry2x32") -> torch.Tensor:
     return torch.stack(half * (_IMPLS[impl] // 2), dim=-1)
 
 
+def sampler_stream(seed, device, entry: str, impl: str = "rbg"):
+    """The stream a column sampler draws from on ``device``, as the
+    reference's samplers read their ``seed``: a key is used as it is, and an
+    integer is ``key(seed, impl=impl)`` (``impl`` the sampler's
+    ``rng_impl``); a ``torch.Generator`` in the seed's place is returned
+    as it is, to be drawn from in sequence. A key or a generator on another
+    device raises a ``ValueError`` naming ``entry``."""
+    if isinstance(seed, torch.Generator):
+        return chain_generator(seed, device, entry)
+    if is_key(seed):
+        if not same_device(seed.device, torch.device(device)):
+            raise ValueError(f"{entry}: the key lives on {seed.device} and the chains on {device}")
+        return seed
+    return key(seed, device=device, impl=impl)
+
+
+def split_stream(stream, num: int = 2) -> tuple:
+    """``num`` streams of a sampler's ``stream``: ``split(stream, num)``'s
+    keys, or the same ``torch.Generator`` ``num`` times (drawn from in
+    sequence)."""
+    return split(stream, num).unbind(-2) if is_key(stream) else (stream,) * num
+
+
+def split_each(batch: torch.Tensor) -> tuple:
+    """``split(k)`` of each key ``k`` of a batch ``(count, w)``, made in one
+    hash: a pair of keys for each."""
+    return tuple(tuple(pair.unbind(0)) for pair in split(batch).unbind(0))
+
+
+def split_pairs(root, count: int) -> tuple:
+    """``split(k)`` of each key ``k`` of ``split(root, count)``, as the
+    reference's samplers pre-split a scan's keys and split each in its
+    body, made for every step in two hashes; or the generator twice each
+    step."""
+    if not is_key(root):
+        return ((root, root),) * count
+    return split_each(split(root, count)) if count else ()
+
+
+def sweep_streams(root, tag: int, count: int) -> tuple:
+    """The split keys of ``count`` sweeps rooted at ``fold_in(root, tag)``
+    (``split_pairs``), or the generator twice each sweep."""
+    return split_pairs(fold_in(root, tag) if is_key(root) else root, count)
+
+
+def normal_from(stream, shape, device) -> torch.Tensor:
+    """float32 standard normals: ``normal(stream, shape)`` under a key,
+    ``torch.randn`` from a generator on ``device``."""
+    if is_key(stream):
+        return normal(stream, shape)
+    return torch.randn(_shape(shape), generator=stream, device=device)
+
+
+def uniform_from(stream, shape, device) -> torch.Tensor:
+    """float32 uniforms on ``[0, 1)``: ``uniform(stream, shape)`` under a
+    key, ``torch.rand`` from a generator on ``device``."""
+    if is_key(stream):
+        return uniform(stream, shape)
+    return torch.rand(_shape(shape), generator=stream, device=device)
+
+
 def _check(k, what: str) -> None:
     if not is_key(k):
         raise TypeError(f"{what}: expected a key (an int64 tensor of two or four words on its last axis), "
                         f"got {_describe(k)}")
 
 
-def _halves(k: torch.Tensor, f) -> torch.Tensor:
-    """``f`` of a threefry key, or of each half of an rbg key side by side."""
-    if k.shape[-1] == 2:
-        return f(k)
-    return torch.cat([f(k[..., :2]), f(k[..., 2:])], dim=-1)
+def _halves(k: torch.Tensor) -> torch.Tensor:
+    """A key as threefry keys: itself, or an rbg key's two halves on a new
+    axis before the words (``(..., 2, 2)``), hashed in one pass."""
+    return k if k.shape[-1] == 2 else k.unflatten(-1, (2, 2))
 
 
 def _describe(x) -> str:
@@ -157,14 +217,16 @@ def _hash_iota(k: torch.Tensor, shape: tuple) -> tuple[torch.Tensor, torch.Tenso
 
 def split(k: torch.Tensor, num=2) -> torch.Tensor:
     """``num`` new keys from ``k`` (``num`` an int or a shape), as
-    ``jax.random.split``: shape ``k.shape[:-1] + shape + (2,)``."""
+    ``jax.random.split``: shape ``k.shape[:-1] + shape + (2,)`` (``(4,)``
+    for rbg keys, each half split as a threefry key)."""
     _check(k, "split")
-
-    def one(half):
-        b1, b2 = _hash_iota(half, _shape(num))
-        return torch.stack([b1, b2], dim=-1)
-
-    return _halves(k, one)
+    shape = _shape(num)
+    b1, b2 = _hash_iota(_halves(k), shape)
+    out = torch.stack([b1, b2], dim=-1)
+    if k.shape[-1] == 2:
+        return out
+    # (..., half, *shape, word) -> (..., *shape, half, word) -> (..., *shape, 4)
+    return out.movedim(k.dim() - 1, -2).flatten(-2)
 
 
 def fold_in(k: torch.Tensor, data) -> torch.Tensor:
@@ -172,30 +234,26 @@ def fold_in(k: torch.Tensor, data) -> torch.Tensor:
     ``jax.random.fold_in``. ``data`` may be an integer tensor that
     broadcasts against the key's batch axes."""
     _check(k, "fold_in")
+    rbg = k.shape[-1] == 4
     if isinstance(data, torch.Tensor):
         d = data.to(device=k.device, dtype=torch.int64) & _M32
+        d = d.unsqueeze(-1) if rbg else d  # against the halves' axis
     else:
         d = int(data) & _M32
-
-    def one(half):
-        b1, b2 = threefry2x32(half[..., 0], half[..., 1], torch.zeros_like(half[..., 0]),
-                              d + torch.zeros_like(half[..., 1]))
-        return torch.stack([b1, b2], dim=-1)
-
-    return _halves(k, one)
+    half = _halves(k)
+    b1, b2 = threefry2x32(half[..., 0], half[..., 1], torch.zeros_like(half[..., 0]),
+                          d + torch.zeros_like(half[..., 1]))
+    out = torch.stack([b1, b2], dim=-1)
+    return out.flatten(-2) if rbg else out
 
 
 def _mulhilo(a: torch.Tensor, m: int) -> tuple[torch.Tensor, torch.Tensor]:
     """The high and low words of the 64-bit product ``a * m`` (``a`` in
-    ``[0, 2**32)``, ``m`` a 32-bit constant), from 16-bit halves: torch has
-    no unsigned 64-bit multiply, and every partial product here stays under
-    ``2**34``."""
-    ah, al = a >> 16, a & 0xFFFF
-    mh, ml = m >> 16, m & 0xFFFF
-    mid = ah * ml + al * mh
-    low = al * ml + ((mid & 0xFFFF) << 16)
-    high = ah * mh + (mid >> 16) + (low >> 32)
-    return high & _M32, low & _M32
+    ``[0, 2**32)``, ``m`` a 32-bit constant), from ``a``'s 16-bit halves:
+    torch has no unsigned 64-bit multiply, and each half's product with
+    ``m`` stays under ``2**48``."""
+    p1, p0 = (a >> 16) * m, (a & 0xFFFF) * m
+    return (p1 + (p0 >> 16)) >> 16, (((p1 & 0xFFFF) << 16) + p0) & _M32
 
 
 def _philox4x32(counter: tuple, key_words: tuple) -> tuple:
@@ -203,13 +261,13 @@ def _philox4x32(counter: tuple, key_words: tuple) -> tuple:
     words ``(k0, k1)``: ten rounds, the key bumped between them; int64
     tensors in ``[0, 2**32)`` that broadcast together."""
     c0, c1, c2, c3 = counter
-    k0, k1 = key_words
+    rounds = torch.arange(10, dtype=torch.int64, device=key_words[0].device)
+    k0s = ((key_words[0][..., None] + rounds * _PHILOX_W[0]) & _M32).unbind(-1)
+    k1s = ((key_words[1][..., None] + rounds * _PHILOX_W[1]) & _M32).unbind(-1)
     for r in range(10):
         hi0, lo0 = _mulhilo(c0, _PHILOX_M[0])
         hi1, lo1 = _mulhilo(c2, _PHILOX_M[1])
-        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
-        if r < 9:
-            k0, k1 = (k0 + _PHILOX_W[0]) & _M32, (k1 + _PHILOX_W[1]) & _M32
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0s[r], lo1, hi0 ^ c3 ^ k1s[r], lo0
     return c0, c1, c2, c3
 
 

@@ -22,9 +22,9 @@ samples, and report split-R̂ and ESS for each sampled parameter.
 - ``sample_logdensity`` runs ChEES on a raw column log-density.
 
 Chains are made on ``device``, the card unless the caller asks for the CPU;
-randomness comes from one ``torch.Generator`` on it, or, for the trace-path
-algorithms, from a PRNG key (``core/keys.py``), under which they draw what
-the reference draws from the same key. The trace-path
+randomness comes from one ``torch.Generator`` on it, or from a PRNG key
+(``core/keys.py``), under which every algorithm draws what the reference
+draws from the same key. The trace-path
 algorithms run their sampling in segments and, given ``checkpoint_dir``,
 save the whole sampler state after the warmup and after every segment
 (``io.save_segment_state``), so that a call with the same arguments resumes
@@ -51,13 +51,12 @@ from ..generative.choice_map import ChoiceMap
 from ..generative.gfi import GenerativeFunction
 from ..generative.mask import Mask
 from ..generative.selection import Selection
-from ..generative.typecheck import check_generator
 from ..io import check_meta_matches, load_increments, load_segment_state, save_segment_state
 from ..kernels.adaptation import cross_chain_inv_mass, multiplicative_nudge, windowed_warmup
 from ..kernels.chees import chees_hmc
 from ..kernels.dense_mass import hmc_sweep_dense_cols, warmup_column_dense
-from ..kernels.hmc import pallas_hmc
-from ..kernels.model_interface import ColumnPacker, column_logdensity, init_columns
+from ..kernels.hmc import pallas_hmc, phase_seed_base
+from ..kernels.model_interface import ColumnPacker, column_logdensity, init_columns, keyed_columns
 from ..kernels.nuts import nuts_sweep_cols
 from ..kernels.pt import geometric_ladder, pt_hmc
 from ..kernels.staged import staging_scope
@@ -355,12 +354,10 @@ def _gen_state(gen) -> torch.Tensor:
     return gen.get_state() if isinstance(gen, torch.Generator) else gen.cpu()
 
 
-def _key_on(key: torch.Tensor, device, algorithm: str, mesh) -> torch.device:
+def _key_on(key: torch.Tensor, device, mesh) -> torch.device:
     """The device of a keyed ``sample_posterior``: ``device``, where the key
-    must live. The keyed path is the trace algorithms' on one process; the
-    column algorithms and ``mesh=`` take a generator."""
-    if algorithm in _COLUMN_ALGORITHMS:
-        check_generator(key, f"sample_posterior(algorithm={algorithm!r})")
+    must live. The keyed path runs on one process; ``mesh=`` takes a
+    generator."""
     if mesh is not None:
         raise ValueError(
             "sample_posterior: a key with mesh= is not reproduced (the sharded run draws each rank's "
@@ -458,13 +455,16 @@ def _column_prep(gen, model, constraint, args, selection: Selection, n_chains: i
     """The column drivers' set-up: the selection resolved to packer paths
     (from the shapes of one trace simulated on ``device``, where the model's
     arguments and constants live), the column log-density, and ``n_chains``
-    prior-initialised columns on ``device`` drawn from ``gen``. Returns
-    ``(packer, ld, q0)``."""
+    prior-initialised columns on ``device`` drawn from ``gen``, or under a
+    key (the reference's ``k_init``) chain ``i`` from the ``i``-th of
+    ``split(key, n_chains)``. Returns ``(packer, ld, q0)``."""
     constraint, args = to_device(constraint, device), to_device(args, device)
     shape_chm = model.simulate(torch.Generator(device=device).manual_seed(0), args).get_choices()
     paths = _static_value_paths(shape_chm.filter_eager(selection))
     packer = ColumnPacker(model, constraint, args, paths, device=device)
     ld = column_logdensity(model, constraint, args, packer)
+    if keys.is_key(gen):
+        return packer, ld, keyed_columns(model, constraint, args, packer, keys.split(gen, n_chains))
     return packer, ld, init_columns(model, constraint, args, packer, n_chains, gen, device)
 
 
@@ -507,28 +507,31 @@ def _sample_chees(gen, packer, ld, q0, *, n_warmup, n_samples, thin, eps0, targe
     )
 
 
-def _sample_dense(gen, packer, ld, q0, *, n_warmup, n_samples, thin, eps0, L, target_accept, mesh=None,
-                  axis="batch"):
+def _sample_dense(packer, ld, q0, *, warm, leftover_stream, run, n_warmup, n_samples, thin, eps0, L,
+                  target_accept, mesh=None, axis="batch"):
     """The dense metric: up to 6 warmup phases and a remainder sweep,
     totalling exactly ``n_warmup`` transitions (``n_warmup=0`` keeps
     ``eps0`` and the identity metric). NaN trajectories are rejections, so
-    ``divergence_rate`` is 0."""
+    ``divergence_rate`` is 0. ``warm`` roots the phases, ``leftover_stream``
+    draws the remainder and ``run`` the sampling sweep: the reference's
+    ``k_warm``, ``fold_in(k_warm, 999)`` and ``k_run`` under a key, the
+    generator for each otherwise."""
     if n_warmup > 0:
         n_phases = min(6, n_warmup)
         steps_per_phase = n_warmup // n_phases
         leftover = n_warmup - n_phases * steps_per_phase
         q0, eps, cov_chol = warmup_column_dense(
-            ld, q0, gen, n_phases=n_phases, steps_per_phase=steps_per_phase, eps0=eps0, L=L,
+            ld, q0, warm, n_phases=n_phases, steps_per_phase=steps_per_phase, eps0=eps0, L=L,
             target_accept=target_accept, mesh=mesh, axis=axis,
         )
         if leftover:
-            q0, _acc = hmc_sweep_dense_cols(ld, q0, gen, n_steps=leftover, eps=eps, L=L, cov_chol=cov_chol,
-                                            mesh=mesh, axis=axis)
+            q0, _acc = hmc_sweep_dense_cols(ld, q0, leftover_stream, n_steps=leftover, eps=eps, L=L,
+                                            cov_chol=cov_chol, mesh=mesh, axis=axis)
     else:
         eps = torch.tensor(eps0, dtype=torch.float32, device=q0.device)
         cov_chol = torch.eye(q0.shape[0], device=q0.device)
     _q, accept, draws_all = hmc_sweep_dense_cols(
-        ld, q0, gen, n_steps=n_samples * thin, eps=eps, L=L, cov_chol=cov_chol, collect=True, mesh=mesh,
+        ld, q0, run, n_steps=n_samples * thin, eps=eps, L=L, cov_chol=cov_chol, collect=True, mesh=mesh,
         axis=axis,
     )
     return _column_result(
@@ -538,20 +541,23 @@ def _sample_dense(gen, packer, ld, q0, *, n_warmup, n_samples, thin, eps0, L, ta
     )
 
 
-def _sample_dense_nuts(gen, packer, ld, q0, *, n_warmup, n_samples, thin, eps0, max_depth,
-                       target_accept, mesh=None, axis="batch"):
+def _sample_dense_nuts(packer, ld, q0, *, warm, white_phase, white_run, rng, n_warmup, n_samples, thin, eps0,
+                       max_depth, target_accept, mesh=None, axis="batch"):
     """Dense-metric NUTS by whitening (Stan's dense_e with NUTS): about half
     of ``n_warmup`` estimates the full covariance with dense HMC (L = 5), the
     cloud is whitened, and the rest adapts the white-space NUTS step size
     and diagonal mass; sampling runs column NUTS in white coordinates and
     maps the draws back. The returned ``eps`` is the white-space step size;
-    ``inv_mass`` the metric's diagonal in the original space."""
+    ``inv_mass`` the metric's diagonal in the original space. ``warm`` roots
+    the dense phases; white-space phase ``i`` draws ``white_phase(i)`` and
+    the sampling sweep ``white_run`` on ``nuts_sweep_cols``'s stream ``rng``
+    (under a key the reference's rbg seeds, else the generator)."""
     d = q0.shape[0]
     if n_warmup > 0:
         n_a = max(1, n_warmup // 2)
         n_phases_a = min(4, n_a)
         q0, _eps_hmc, cov_chol = warmup_column_dense(
-            ld, q0, gen, n_phases=n_phases_a, steps_per_phase=max(1, n_a // n_phases_a), eps0=eps0,
+            ld, q0, warm, n_phases=n_phases_a, steps_per_phase=max(1, n_a // n_phases_a), eps0=eps0,
             L=5, target_accept=target_accept, mesh=mesh, axis=axis,
         )
         n_b = max(1, n_warmup - n_a)
@@ -565,10 +571,10 @@ def _sample_dense_nuts(gen, packer, ld, q0, *, n_warmup, n_samples, thin, eps0, 
 
     u0 = torch.linalg.solve_triangular(cov_chol, q0, upper=False)
     if n_b:
-        def sweep(u, _idx, eps, inv_mass):
+        def sweep(u, idx, eps, inv_mass):
             u, acc, _leaps = nuts_sweep_cols(
-                white_ld, u, gen, n_steps=max(1, n_b // n_phases_b), eps=eps, max_depth=max_depth,
-                inv_mass=inv_mass,
+                white_ld, u, white_phase(idx), n_steps=max(1, n_b // n_phases_b), eps=eps, max_depth=max_depth,
+                inv_mass=inv_mass, rng=rng,
             )
             return u, acc
 
@@ -579,8 +585,8 @@ def _sample_dense_nuts(gen, packer, ld, q0, *, n_warmup, n_samples, thin, eps0, 
         eps_w = torch.tensor(eps0, dtype=torch.float32, device=q0.device)
         inv_mass_w = torch.ones(d, device=q0.device)
     _u, acc, _leaps, draws_u, div = nuts_sweep_cols(
-        white_ld, u0, gen, n_steps=n_samples * thin, eps=float(eps_w), max_depth=max_depth,
-        inv_mass=inv_mass_w, collect=True,
+        white_ld, u0, white_run, n_steps=n_samples * thin, eps=float(eps_w), max_depth=max_depth,
+        inv_mass=inv_mass_w, collect=True, rng=rng,
     )
     draws_all = torch.einsum("ij,sjn->sin", cov_chol, draws_u)  # q = L u
     if mesh is not None:
@@ -605,6 +611,35 @@ def _sample_pt(gen, packer, ld, q0, *, n_warmup, n_samples, thin, eps0, L, targe
         divergence_rate=torch.zeros((), device=q0.device), eps=info.eps[0],
         inv_mass=info.inv_mass[0, : packer.dim], mesh=mesh, axis=axis,
     )
+
+
+def _sample_columns(gen, model, constraint, args, selection, algorithm: str, n_chains: int, device, *, L: int,
+                    n_rungs: int, max_depth: int, **kw) -> PosteriorSamples:
+    """A column algorithm's run. Under a key, split as the reference's
+    ``sample_posterior`` splits it: ChEES and PT ``k_init, k_run = split(key)``, the run
+    rooted at ``k_run``; the dense algorithms ``k_init, k_warm, k_run =
+    split(key, 3)``; the chains from ``split(k_init, n_chains)``. Else
+    every part draws from the generator ``gen``."""
+    keyed = keys.is_key(gen)
+    if algorithm in ("chees", "pt"):
+        k_init, k_run = keys.split_stream(gen)
+        packer, ld, q0 = _column_prep(k_init, model, constraint, args, selection, n_chains, device)
+        if algorithm == "chees":
+            return _sample_chees(k_run, packer, ld, q0, **kw)
+        return _sample_pt(k_run, packer, ld, q0, L=L, n_rungs=n_rungs, **kw)
+    k_init, k_warm, k_run = keys.split_stream(gen, 3)
+    packer, ld, q0 = _column_prep(k_init, model, constraint, args, selection, n_chains, device)
+    if algorithm == "dense_hmc":
+        leftover = keys.fold_in(k_warm, 999) if keyed else gen
+        return _sample_dense(packer, ld, q0, warm=k_warm, leftover_stream=leftover, run=k_run, L=L, **kw)
+    if keyed:
+        seed_w = int(keys.randint(keys.fold_in(k_warm, 7), (), 0, 2**11))
+        base_w = phase_seed_base(seed_w, "rbg")
+        white = dict(white_phase=lambda idx: base_w + idx,
+                     white_run=int(keys.randint(keys.fold_in(k_run, 7), (), 0, 2**30)), rng="rbg")
+    else:
+        white = dict(white_phase=lambda _idx: gen, white_run=gen, rng="generator")
+    return _sample_dense_nuts(packer, ld, q0, warm=k_warm, max_depth=max_depth, **white, **kw)
 
 
 @staging_scope()
@@ -642,14 +677,18 @@ def sample_posterior(
     on that device, or an int that seeds one; the constraint's and the
     arguments' tensors are moved there.
 
-    ``gen`` may also be a key on that device for ``"nuts"``, ``"hmc"`` and
-    ``"hmc_sweep"``: the run then draws what the reference's draws from the
-    same key, draw for draw (``k_init, k_warm, k_run = split(key, 3)``, the
+    ``gen`` may also be a key on that device: the run then draws what the
+    reference's draws from the same key, draw for draw. The trace
+    algorithms split it ``k_init, k_warm, k_run = split(key, 3)``, the
     chains from ``split(k_init, n_chains)``, the warmup's windows and the
-    pre-split draw keys of ``k_run``; ``"hmc_sweep"`` seeds its sweeps
-    with ``randint`` of those keys on the rbg stream, K1's rbg kernel on the
-    card). A key with a column algorithm raises, naming a generator, and so
-    does a key with ``mesh=``.
+    pre-split draw keys of ``k_run`` (``"hmc_sweep"`` seeds its sweeps with
+    ``randint`` of those keys on the rbg stream, K1's rbg kernel on the
+    card). ``"chees"`` and ``"pt"`` split it ``k_init, k_run``, the sampler
+    rooted at ``k_run``; ``"dense_hmc"`` and ``"dense_nuts"`` in three, the
+    dense phases rooted at ``k_warm`` and ``"dense_nuts"``'s white-space
+    NUTS on the rbg streams of ``randint`` draws of ``fold_in(k_warm, 7)``
+    and ``fold_in(k_run, 7)``. A key with ``mesh=`` raises, naming a
+    generator.
 
     Warmup: up to 6 windows totalling exactly ``n_warmup`` transitions
     (``n_warmup=0`` keeps ``eps0`` and the identity mass); each runs its
@@ -753,7 +792,7 @@ def sample_posterior(
         raise ValueError(f"n_samples must be >= 1, got {n_samples}")
     keyed = keys.is_key(gen)
     if keyed:
-        device = _key_on(gen, device, algorithm, mesh)
+        device = _key_on(gen, device, mesh)
         n_local = n_chains
         seed_identity = (gen.tolist(), "key")
         k_init, k_warm, k_run = keys.split(gen, 3).unbind(-2)
@@ -770,16 +809,9 @@ def sample_posterior(
         seed_identity = (int(shared.initial_seed()), _state_hash(shared))
         _shared, gen = mesh_generators(shared, mesh, "sample_posterior")
     if algorithm in _COLUMN_ALGORITHMS:
-        packer, ld, q0 = _column_prep(gen, model, constraint, args, selection, n_local, device)
-        kw = dict(n_warmup=n_warmup, n_samples=n_samples, thin=thin, eps0=eps0,
-                  target_accept=target_accept, mesh=mesh, axis=axis)
-        if algorithm == "chees":
-            return _sample_chees(gen, packer, ld, q0, **kw)
-        if algorithm == "pt":
-            return _sample_pt(gen, packer, ld, q0, L=L, n_rungs=n_rungs, **kw)
-        if algorithm == "dense_hmc":
-            return _sample_dense(gen, packer, ld, q0, L=L, **kw)
-        return _sample_dense_nuts(gen, packer, ld, q0, max_depth=max_depth, **kw)
+        return _sample_columns(gen, model, constraint, args, selection, algorithm, n_local, device, L=L,
+                               n_rungs=n_rungs, max_depth=max_depth, n_warmup=n_warmup, n_samples=n_samples,
+                               thin=thin, eps0=eps0, target_accept=target_accept, mesh=mesh, axis=axis)
     seg_size = checkpoint_every if (checkpoint_dir is not None and checkpoint_every > 0) else n_samples
     # the whole run identity rides in the checkpoint's meta: a resume with
     # other dynamics (algorithm, step sizes, thin, seed, ...) is refused
@@ -866,7 +898,7 @@ class LogdensitySamples(Pytree):
 
 
 def sample_logdensity(
-    gen: torch.Generator | int,
+    gen: torch.Generator | torch.Tensor | int,
     logdensity_cols,
     q0,
     *,
@@ -882,9 +914,11 @@ def sample_logdensity(
     length adapted jointly) from the start columns ``q0 (D, N)``, then
     ``n_samples`` draws each ``thin`` sweeps with split-R̂/ESS per dimension.
 
-    It runs where ``q0`` lives and never moves it; ``gen`` is a
-    ``torch.Generator`` on that device or an int seeding one there. The
-    log-density's only contract is that autograd goes through it.
+    It runs where ``q0`` lives and never moves it. ``gen`` is a key on that
+    device or an int (``chees_hmc``'s ``key(gen, "rbg")``), under which the
+    draws are the reference's ``sample_logdensity``'s from the same key, or a
+    ``torch.Generator`` there, drawn from in law. The log-density's only
+    contract is that autograd goes through it.
 
     >>> import torch
     >>> from genjax_tpu_torch.inference import sample_logdensity

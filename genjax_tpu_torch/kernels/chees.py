@@ -17,9 +17,13 @@ a sweep costs exactly ``L`` gradients for every chain. Per sweep ``m``:
 
 The reference runs the sweeps as one ``lax.scan`` with ``L`` traced. Here the
 sweeps are a Python loop on the chains' device and ``L`` is a Python int:
-one host read a sweep. Randomness is one ``torch.Generator`` on that device,
-drawn in sequence (the reference splits a key a sweep); ``seed`` is an int or
-such a generator.
+one host read a sweep. The draws are the reference's: an int ``seed`` is the
+root key ``key(seed, impl=rng_impl)`` and a key is the root itself, warmup
+sweep ``m`` draws under the ``m``-th of ``split(fold_in(root, 1),
+n_warmup)`` and sampling sweep ``m`` under the ``m``-th of
+``split(fold_in(root, 2), n_steps)``, each split into the momentum's and
+the accept uniforms' keys (``core/keys.py``). A ``torch.Generator`` in the
+seed's place is drawn from in sequence, in law.
 """
 
 from __future__ import annotations
@@ -30,7 +34,7 @@ from typing import Any, Callable
 
 import torch
 
-from ..core.device import chain_generator
+from ..core import keys
 from .adaptation import StepSizeAdaptState, _f32, _halton2, chain_mean, cross_chain_inv_mass, dual_averaging_update
 from .hmc import _lp_grad
 from .rows import Rows, chain_mesh
@@ -78,6 +82,7 @@ def chees_hmc(
     adam_lr: float = 0.025,
     inv_mass: Any | None = None,
     adapt_mass: bool = True,
+    rng_impl: str = "rbg",
     collect: bool = False,
     mesh=None,
     axis: str = "batch",
@@ -85,9 +90,12 @@ def chees_hmc(
     """ChEES-adaptive HMC on ``N`` column-layout chains, on ``q0``'s device.
 
     ``logdensity_cols`` maps ``(D, N) -> (N,)``; ``q0`` holds the starting
-    positions ``(D, N)``; ``seed`` is an int or a ``torch.Generator`` on
-    ``q0``'s device. ``n_warmup`` sweeps adapt the step size, the trajectory
-    length and (with ``adapt_mass``) the diagonal inverse mass; ``n_warmup=0``
+    positions ``(D, N)``; ``seed`` is an int (the root key ``key(seed,
+    impl=rng_impl)``), a key on ``q0``'s device (the root itself), under
+    either of which the chains are the reference's draw for draw, or a
+    ``torch.Generator`` there, drawn from in sequence. ``n_warmup`` sweeps
+    adapt the step size, the trajectory length and (with ``adapt_mass``) the
+    diagonal inverse mass; ``n_warmup=0``
     runs at ``eps0``, ``t0`` and ``inv_mass`` as given. ``n_steps`` sampling
     sweeps follow at the adapted settings, the jitter still on; ``collect``
     records their positions in ``info.draws``. With ``mesh`` (a
@@ -99,7 +107,8 @@ def chees_hmc(
     rows are sums over the model axis, every model rank of a chain draws
     alike (its rows of the full-height momentum, the same uniforms), and the
     chain means run over the density's chain axis where no ``mesh`` is
-    given.
+    given; an int seed is then the chain block's (``Rows.seed``), and a key
+    on a chain axis of more than one rank raises.
 
     Returns ``(q_final, ChEESInfo)``.
     """
@@ -107,17 +116,18 @@ def chees_hmc(
     device = q0.device
     rows = Rows(logdensity_cols, d)
     mesh, axis = chain_mesh(logdensity_cols, mesh, axis)
-    gen = chain_generator(rows.seed(seed), device, "chees_hmc")
+    root = rows.stream(seed, device, "chees_hmc", rng_impl)
     q = q0.to(torch.float32)
     if inv_mass is None:
         inv_mass0 = torch.ones(d, dtype=torch.float32, device=device)
     else:
         inv_mass0 = _f32(inv_mass).to(device).reshape(d)
 
-    def sweep(q, lp, g, step_idx, eps, log_t, inv_mass):
+    def sweep(q, lp, g, streams, step_idx, eps, log_t, inv_mass):
         im_col = inv_mass[:, None]
-        p = (1.0 / torch.sqrt(im_col)) * rows.normal(lambda dd: torch.randn((dd, n), generator=gen, device=device))
-        u = torch.rand((n,), generator=gen, device=device)
+        kp, ku = streams
+        p = (1.0 / torch.sqrt(im_col)) * rows.normal(lambda dd: keys.normal_from(kp, (dd, n), device))
+        u = keys.uniform_from(ku, (n,), device)
 
         def kinetic(p_):
             return 0.5 * rows.sum(im_col * p_ * p_)
@@ -176,9 +186,9 @@ def chees_hmc(
         adapt = StepSizeAdaptState.init(eps0, device=device)
         mv = (torch.zeros((), device=device), torch.zeros((), device=device))
         inv_mass_f = inv_mass0
-        for step_idx in range(n_warmup):
+        for step_idx, streams in enumerate(keys.sweep_streams(root, 1, n_warmup)):
             eps = torch.exp(adapt.log_eps)
-            q, lp, g, alpha, grad_logt, _n, _div = sweep(q, lp, g, step_idx, eps, log_t, inv_mass_f)
+            q, lp, g, alpha, grad_logt, _n, _div = sweep(q, lp, g, streams, step_idx, eps, log_t, inv_mass_f)
             mv, update = _adam(mv, grad_logt, adapt.step)
             log_t = clamp_logt(log_t + adam_lr * update, eps)
             adapt = dual_averaging_update(adapt, chain_mean(alpha, 0, mesh=mesh, axis=axis),
@@ -193,8 +203,8 @@ def chees_hmc(
         inv_mass_f = inv_mass0
 
     accs, n_leaps, divs, draws = [], [], [], []
-    for step_idx in range(n_warmup, n_warmup + n_steps):
-        q, lp, g, alpha, _gl, n_leap, div = sweep(q, lp, g, step_idx, eps_f, log_t, inv_mass_f)
+    for step_idx, streams in zip(range(n_warmup, n_warmup + n_steps), keys.sweep_streams(root, 2, n_steps)):
+        q, lp, g, alpha, _gl, n_leap, div = sweep(q, lp, g, streams, step_idx, eps_f, log_t, inv_mass_f)
         accs.append(chain_mean(alpha, 0, mesh=mesh, axis=axis))
         n_leaps.append(n_leap)
         divs.append(div)

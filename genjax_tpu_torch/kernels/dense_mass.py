@@ -15,9 +15,10 @@ standard normal.
 
 The reference computes these products with XLA outside any Pallas kernel;
 here they are ``torch.matmul`` in float32 (TF32 stays off, as it is by
-default). Randomness comes from one ``torch.Generator`` on the chains'
-device, drawn in sequence where the reference splits a key; ``seed`` is an
-int or such a generator. Chains stay on the device they were given.
+default). The draws are the reference's: an int ``seed`` is a root key of
+``rng_impl`` and a key is the root itself (``core/keys.py``); a
+``torch.Generator`` in the seed's place is drawn from in sequence, in law.
+Chains stay on the device they were given.
 """
 
 from __future__ import annotations
@@ -26,7 +27,7 @@ from typing import Callable
 
 import torch
 
-from ..core.device import chain_generator
+from ..core import keys
 from .adaptation import _f32, chain_mean, multiplicative_nudge
 from .hmc import _lp_grad
 from .rows import refuse_row_sharded
@@ -61,6 +62,7 @@ def hmc_sweep_dense_cols(
     eps,
     L: int,
     cov_chol,
+    rng_impl: str = "rbg",
     collect: bool = False,
     mesh=None,
     axis: str = "batch",
@@ -68,9 +70,12 @@ def hmc_sweep_dense_cols(
     """``n_steps`` MH-adjusted HMC transitions under the dense metric
     ``Sigma = cov_chol cov_chol^T``, on ``q0``'s device.
 
-    ``logdensity_cols`` maps ``(D, N) -> (N,)``; ``seed`` is an int or a
-    ``torch.Generator`` on ``q0``'s device; ``eps`` a float or a scalar
-    tensor. A NaN log acceptance is a rejection. Returns ``(q,
+    ``logdensity_cols`` maps ``(D, N) -> (N,)``; ``seed`` is an int (the
+    root key ``key(seed, impl=rng_impl)``) or a key on ``q0``'s device (the
+    root), transition ``i`` drawing under the ``i``-th of ``split(root,
+    n_steps)`` as the reference's, or a ``torch.Generator`` there, drawn from
+    in sequence; ``eps`` a float or a scalar tensor. A NaN log acceptance
+    is a rejection. Returns ``(q,
     accept_rate)``, with ``collect=True`` also every transition's positions
     ``(n_steps, D, N)``. With ``mesh``, the accept rate is every rank's
     chains'.
@@ -78,7 +83,7 @@ def hmc_sweep_dense_cols(
     refuse_row_sharded(logdensity_cols, "hmc_sweep_dense_cols")
     d, n = q0.shape
     device = q0.device
-    gen = chain_generator(seed, device, "hmc_sweep_dense_cols")
+    step_streams = keys.split_pairs(keys.sampler_stream(seed, device, "hmc_sweep_dense_cols", rng_impl), n_steps)
     cov_chol = _f32(cov_chol).to(device)
     sigma = cov_chol @ cov_chol.T
     # p = L^-T z: materialised once, so a refresh is one product
@@ -92,9 +97,9 @@ def hmc_sweep_dense_cols(
     lp, g = _lp_grad(logdensity_cols, q)
     acc = torch.zeros((), dtype=torch.float32, device=device)
     draws = []
-    for _ in range(n_steps):
-        p = mom_factor @ torch.randn((d, n), generator=gen, device=device)
-        u = torch.rand((n,), generator=gen, device=device)
+    for kp, ku in step_streams:
+        p = mom_factor @ keys.normal_from(kp, (d, n), device)
+        u = keys.uniform_from(ku, (n,), device)
         ke0 = kinetic(p)
         q_new, g_new, lp_new = q, g, lp
         for _ in range(L):
@@ -128,6 +133,7 @@ def warmup_column_dense(
     L: int = 5,
     target_accept: float = 0.8,
     shrinkage: float = 0.1,
+    rng_impl: str = "rbg",
     mesh=None,
     axis: str = "batch",
 ):
@@ -137,30 +143,33 @@ def warmup_column_dense(
     from the cross-chain spread, its shrinkage annealed linearly from 1 to
     ``shrinkage`` by the last phase.
 
-    ``seed`` is an int (a warmup stream is seeded from it, apart from the
-    sweep's) or a ``torch.Generator`` on ``q0``'s device, drawn from
-    directly. Returns ``(q, eps, cov_chol)`` for ``hmc_sweep_dense_cols``,
+    ``seed`` is an int, whose root key ``key((seed + 1) * 1_000_003,
+    impl=rng_impl)`` is apart from the sweep's, or a key on ``q0``'s device
+    (the root itself), phase ``i`` sweeping under ``fold_in(root, i)`` as
+    the reference's; or a ``torch.Generator`` there, drawn from directly.
+    Returns ``(q, eps, cov_chol)`` for ``hmc_sweep_dense_cols``,
     ``eps`` a float32 scalar tensor on the device. With ``mesh``, ``q0`` is
     this rank's share of chains over its ``axis``, and the accept rates and
     covariances are every rank's.
     """
     refuse_row_sharded(logdensity_cols, "warmup_column_dense")
     d, _ = q0.shape
-    if not isinstance(seed, torch.Generator):
+    if not (isinstance(seed, torch.Generator) or keys.is_key(seed)):
         seed = (int(seed) + 1) * 1_000_003
-    gen = chain_generator(seed, q0.device, "warmup_column_dense")
+    root = keys.sampler_stream(seed, q0.device, "warmup_column_dense", rng_impl)
     q = q0.to(torch.float32)
     eps = _f32(eps0).to(q0.device)
     cov_chol = torch.eye(d, dtype=torch.float32, device=q0.device)
     for idx in range(n_phases):
         q, acc = hmc_sweep_dense_cols(
-            logdensity_cols, q, gen, n_steps=steps_per_phase, eps=eps, L=L, cov_chol=cov_chol, mesh=mesh,
-            axis=axis,
+            logdensity_cols, q, keys.fold_in(root, idx) if keys.is_key(root) else root, n_steps=steps_per_phase,
+            eps=eps, L=L, cov_chol=cov_chol, mesh=mesh, axis=axis,
         )
         eps = multiplicative_nudge(eps, acc, target_accept=target_accept)
         # heavy shrinkage early (estimates from an unconverged cloud), the
         # final value by the last phase
-        lam = shrinkage + (1.0 - shrinkage) * (1.0 - (idx + 1.0) / n_phases)
+        # in float32, as the reference computes it from its traced index
+        lam = shrinkage + (1.0 - shrinkage) * (1.0 - _f32(idx + 1.0).to(q.device) / n_phases)
         cov_chol = torch.linalg.cholesky(cross_chain_cov(q, shrinkage=lam, mesh=mesh, axis=axis))
     return q, eps, cov_chol
 

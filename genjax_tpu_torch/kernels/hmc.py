@@ -593,6 +593,22 @@ pallas_hmc.last_backend = None
 pallas_hmc.last_body = None
 
 
+def phase_seed_base(seed: int, rng: str | None) -> int:
+    """``(seed + 1) * 1_000_003``, the warmups' phase seeds less the phase
+    index. The reference adds the index inside ``jit``, which takes this
+    Python int as an int32: on the rbg stream (the reference's draws) a base
+    outside int32 (``seed`` past 2146, or below -2148) raises the
+    ``OverflowError`` the reference raises; the other streams keep its low
+    32 bits."""
+    base = (int(seed) + 1) * 1_000_003
+    if rng == "rbg" and not -(2**31) <= base < 2**31:
+        raise OverflowError(
+            f"the warmup's phase seeds (seed + 1) * 1_000_003 + phase are int32, as the reference's: "
+            f"seed={seed} gives {base}, outside int32 (seeds -2148 to 2146 fit)"
+        )
+    return base
+
+
 @staging_scope()
 def warmup_column(
     logdensity_cols: Callable,
@@ -607,6 +623,7 @@ def warmup_column(
     backend: str = "auto",
     mesh=None,
     axis: str = "batch",
+    rng: str | None = None,
 ):
     """Windowed warmup for the column layout (``adaptation.windowed_warmup``):
     per phase, a short HMC sweep through ``pallas_hmc``'s routing (on the
@@ -615,7 +632,12 @@ def warmup_column(
     variance.
 
     Phase seeds ``(seed + 1) * 1_000_003 + phase`` are the reference's
-    stream, disjoint from the main sweep's ``seed``.
+    stream, disjoint from the main sweep's ``seed``. ``rng`` is
+    ``pallas_hmc``'s: with ``"rbg"`` each phase draws what the reference's
+    ``warmup_column`` draws from ``key(phase_seed, "rbg")`` (K1's rbg kernel
+    on the card, the twin elsewhere), and a ``seed`` whose ``(seed + 1) *
+    1_000_003`` leaves int32 raises the ``OverflowError`` the reference's
+    jitted phase index raises (``phase_seed_base``).
 
     With ``mesh`` (a ``parallel.Mesh``), ``q0`` is this rank's shard of
     chains over ``axis`` and the windows adapt to every rank's chains.
@@ -626,11 +648,12 @@ def warmup_column(
     Returns ``(q, eps, inv_mass)`` ready for the main sweep.
     """
     mesh, axis = chain_mesh(logdensity_cols, mesh, axis)
+    base = phase_seed_base(seed, rng)
 
     def sweep(q, idx, eps, inv_mass):
         return pallas_hmc(
-            logdensity_cols, q, (seed + 1) * 1_000_003 + idx, n_steps=steps_per_phase,
-            eps=eps, L=L, inv_mass=inv_mass, backend=backend,
+            logdensity_cols, q, base + idx, n_steps=steps_per_phase,
+            eps=eps, L=L, inv_mass=inv_mass, backend=backend, rng=rng,
         )
 
     q, eps, inv_mass, _accs = windowed_warmup(

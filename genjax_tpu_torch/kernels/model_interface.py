@@ -5,7 +5,9 @@ Counterpart of ``genjax_tpu/kernels/model_interface.py``: ``ColumnPacker``,
 ``mass="dense"`` a full one) and ``column_nuts``, each with the windowed
 warmup, and the prior-initialised column samplers ``column_chees``,
 ``column_pt`` and ``column_svgd``. Each makes its chains on the card unless
-the caller asks for the CPU. Positions
+the caller asks for the CPU, from the reference's start for an int seed
+(``init_columns``; ``column_hmc`` and ``column_nuts`` with ``rng="rbg"``,
+which else start from ``prior_generator``). Positions
 are packed chains-on-the-last-axis: ``(D, N)`` with ``D`` the flattened
 dimension of the selected addresses padded to a multiple of 8. Padding
 dimensions carry an independent standard-normal density (see
@@ -20,7 +22,8 @@ from typing import Any, Sequence
 
 import torch
 
-from ..core.device import chain_generator, entry_device, stream_seed
+from ..core import keys
+from ..core.device import chain_generator, entry_device, same_device, stream_seed
 from ..generative.choice_map import ChoiceMap
 from ..generative.gfi import GenerativeFunction
 from ..generative.mask import Mask
@@ -174,19 +177,45 @@ def column_logdensity(model, constraint, args, packer: ColumnPacker):
 
 def init_columns(model, constraint, args, packer: ColumnPacker, n_chains: int, seed, device):
     """``n_chains`` draws of ``model.generate`` under ``constraint``, packed
-    as columns ``(padded_dim, n_chains)`` on ``device``. ``seed`` is a
-    ``torch.Generator`` on ``device``, drawn from, or an int: a generator
-    seeded from it apart from every int32 sweep seed."""
-    if not isinstance(seed, torch.Generator):
-        seed = (0xC0FFEE << 32) | (int(seed) & 0xFFFFFFFF)
-    gen = chain_generator(seed, device, "init_columns")
+    as columns ``(padded_dim, n_chains)`` on ``device``. ``seed`` is a key
+    on ``device`` or an int, read as ``key(seed)`` (threefry): chain ``i``
+    generates under the ``i``-th of ``split(fold_in(key, 0xC0FFEE),
+    n_chains)``, as the reference's column entry points start their chains;
+    or a ``torch.Generator`` on ``device``, drawn from (``prior_generator``
+    is the one an int seeds on the Philox path of ``column_hmc`` and
+    ``column_nuts``)."""
+    device = torch.device(device)
+    if isinstance(seed, torch.Generator):
+        gen = chain_generator(seed, device, "init_columns")
 
-    def init_one(_):
-        tr, _w = model.generate(gen, constraint, args)
+        def init_one(_):
+            tr, _w = model.generate(gen, constraint, args)
+            return packer.pack(tr.get_choices())
+
+        dummy = torch.zeros(n_chains, device=device)
+        return torch.func.vmap(init_one, randomness="different", out_dims=1)(dummy).contiguous()
+    k = seed if keys.is_key(seed) else keys.key(seed, device=device)
+    if not same_device(k.device, torch.device(device)):
+        raise ValueError(f"init_columns: the key lives on {k.device} and the chains are made on {device}")
+    return keyed_columns(model, constraint, args, packer, keys.split(keys.fold_in(k, 0xC0FFEE), n_chains))
+
+
+def keyed_columns(model, constraint, args, packer: ColumnPacker, chain_keys: torch.Tensor) -> torch.Tensor:
+    """The packed columns ``(padded_dim, N)`` of ``model.generate`` under
+    each of ``chain_keys (N, w)``, on their device."""
+
+    def init_one(k):
+        tr, _w = model.generate(k, constraint, args)
         return packer.pack(tr.get_choices())
 
-    dummy = torch.zeros(n_chains, device=device)
-    return torch.func.vmap(init_one, randomness="different", out_dims=1)(dummy).contiguous()
+    return torch.func.vmap(init_one, out_dims=1)(chain_keys).contiguous()
+
+
+def prior_generator(seed: int, device) -> torch.Generator:
+    """The generator an int ``seed`` starts the chains of ``column_hmc``
+    and ``column_nuts`` from on their Philox path, apart from every int32
+    sweep seed."""
+    return chain_generator((0xC0FFEE << 32) | (int(seed) & 0xFFFFFFFF), torch.device(device), "init_columns")
 
 
 def tempered_factors(model, constraint, args, packer: ColumnPacker, device):
@@ -226,14 +255,35 @@ def packed_prior_draws(gen, model, constraint, args, packer: ColumnPacker, n: in
     return q
 
 
-def _prior_columns(model, constraint, args, addresses, n_chains: int, seed: int, device):
+def _prior_columns(model, constraint, args, addresses, n_chains: int, seed, device):
     """The packer, the column log-density and ``n_chains`` prior-initialised
-    columns on ``device``."""
+    columns on ``device`` (``init_columns`` of ``seed``)."""
     if constraint is None:
         constraint = ChoiceMap.empty()
     packer = ColumnPacker(model, constraint, args, addresses, device=device)
     logdensity_cols = column_logdensity(model, constraint, args, packer)
     return packer, logdensity_cols, init_columns(model, constraint, args, packer, n_chains, seed, device)
+
+
+def _column_stream(rng: str | None, interpret: bool, mesh, entry: str):
+    """Check the stream ``column_hmc`` and ``column_nuts`` were asked for:
+    ``rng="rbg"`` takes no counter stream and no mesh."""
+    if rng not in (None, "rbg"):
+        raise ValueError(f"{entry}: rng must be None (the Philox stream) or 'rbg', got {rng!r}")
+    if rng == "rbg" and interpret:
+        raise ValueError(f"{entry}: interpret=True selects the counter stream; it cannot be combined with rng='rbg'")
+    if rng == "rbg" and mesh is not None:
+        raise ValueError(
+            f"{entry}: rng='rbg' with mesh= is not reproduced: the reference's stream is not split over ranks "
+            "(a key under mesh=, ROADMAP item 4's step 4); drop mesh= or rng"
+        )
+
+
+def _prior_start(seed: int, rng: str | None, device):
+    """What ``init_columns`` draws the start of ``column_hmc`` and
+    ``column_nuts`` from: the int itself on the rbg stream, the Philox
+    path's ``prior_generator`` otherwise."""
+    return seed if rng == "rbg" else prior_generator(seed, device)
 
 
 def _shard_of(n_chains: int, seed: int, device, mesh, axis: str, entry: str):
@@ -270,6 +320,7 @@ def column_hmc(
     device="cuda",
     mesh=None,
     axis: str = "batch",
+    rng: str | None = None,
 ):
     """Prior-initialized, MH-adjusted HMC over ``addresses`` in the column
     layout, on ``device``: the card by default; ``device="cpu"`` runs the
@@ -288,6 +339,15 @@ def column_hmc(
     instead. ``interpret=True`` is the reference's
     name for the counter stream (``rng="counter"`` of the kernel and the
     twin): it chooses the random stream, not an interpret mode.
+
+    ``rng`` is ``pallas_hmc``'s. ``None`` (the default) starts the chains
+    from ``prior_generator(seed)`` and sweeps on the Philox stream (the
+    twin's generator on the CPU). ``"rbg"`` draws what the reference's
+    ``column_hmc(backend="xla")`` draws from ``seed`` (the path its
+    ``"auto"`` takes for the flagship), draw for draw: the start of
+    ``init_columns(seed)``, the warmup's phases and the main sweep on the
+    rbg stream, through K1's rbg kernel on the card. It takes no ``mesh``
+    and no ``interpret``.
 
     ``mass="dense"`` (with ``warmup=True``, and no ``inv_mass``) adapts a
     full covariance metric from the cross-chain spread
@@ -331,8 +391,10 @@ def column_hmc(
         )
     if mesh is not None and mass == "dense":
         raise ValueError("column_hmc: mass='dense' estimates its metric on one device; it takes no mesh")
+    _column_stream(rng, interpret, mesh, "column_hmc")
     n_chains, seed, device = _shard_of(n_chains, seed, device, mesh, axis, "column_hmc")
-    packer, logdensity_cols, q0 = _prior_columns(model, constraint, args, addresses, n_chains, seed, device)
+    packer, logdensity_cols, q0 = _prior_columns(model, constraint, args, addresses, n_chains,
+                                                 _prior_start(seed, rng, device), device)
     if mass == "dense":
         q0, eps_d, cov_chol = warmup_column_dense(logdensity_cols, q0, seed, eps0=eps, L=L)
         q, accept = hmc_sweep_dense_cols(
@@ -341,10 +403,10 @@ def column_hmc(
         return q, accept, packer
     if warmup:
         q0, eps, inv_mass = warmup_column(logdensity_cols, q0, seed, eps0=eps, L=L, backend=backend,
-                                          mesh=mesh, axis=axis)
+                                          mesh=mesh, axis=axis, rng=rng)
     q, accept = pallas_hmc(
         logdensity_cols, q0, seed, n_steps=n_steps, eps=eps, L=L,
-        block_n=block_n, interpret=interpret, backend=backend, inv_mass=inv_mass,
+        block_n=block_n, interpret=interpret, backend=backend, inv_mass=inv_mass, rng=rng,
     )
     return q, accept, packer
 
@@ -369,6 +431,7 @@ def column_nuts(
     device="cuda",
     mesh=None,
     axis: str = "batch",
+    rng: str | None = None,
 ):
     """Prior-initialized No-U-Turn sampling over ``addresses`` in the column
     layout, on ``device``: the card by default; ``device="cpu"`` runs the
@@ -384,7 +447,11 @@ def column_nuts(
     ``warmup=True`` first adapts ``eps`` (from ``eps`` as its start) and the
     diagonal inverse mass with ``warmup_column_nuts``, whose phases take the
     same routing: on the card, one kernel launch per phase. ``mesh`` shards
-    the chains as in ``column_hmc``.
+    the chains as in ``column_hmc``. ``rng`` is ``pallas_nuts``'s:
+    ``"rbg"`` draws what the reference's ``column_nuts`` draws from
+    ``seed``, start, warmup and main sweep (its ``nuts_sweep_cols``), on
+    K4's rbg kernel on the card; ``None`` keeps the Philox path, as
+    ``column_hmc``'s.
 
     >>> import torch
     >>> import genjax_tpu_torch as g
@@ -402,16 +469,18 @@ def column_nuts(
     >>> bool(abs(q[0].mean() - 1.0) < 0.3)   # posterior mean = 1
     True
     """
+    _column_stream(rng, interpret, mesh, "column_nuts")
     n_chains, seed, device = _shard_of(n_chains, seed, device, mesh, axis, "column_nuts")
-    packer, logdensity_cols, q0 = _prior_columns(model, constraint, args, addresses, n_chains, seed, device)
+    packer, logdensity_cols, q0 = _prior_columns(model, constraint, args, addresses, n_chains,
+                                                 _prior_start(seed, rng, device), device)
     if warmup:
         q0, eps, inv_mass = warmup_column_nuts(
             logdensity_cols, q0, seed, eps0=eps, max_depth=max_depth, backend=backend,
-            block_n=block_n, mesh=mesh, axis=axis,
+            block_n=block_n, mesh=mesh, axis=axis, rng=rng,
         )
     q, accept, leaps = pallas_nuts(
         logdensity_cols, q0, seed, n_steps=n_steps, eps=eps, max_depth=max_depth,
-        inv_mass=inv_mass, block_n=block_n, interpret=interpret, backend=backend,
+        inv_mass=inv_mass, block_n=block_n, interpret=interpret, backend=backend, rng=rng,
     )
     return q, accept, leaps, packer
 
@@ -435,7 +504,11 @@ def column_chees(
     layout (``chees.chees_hmc``), on ``device``: the card by default,
     raising without one; ``device="cpu"`` runs on the CPU. Step size,
     diagonal mass and trajectory length adapt jointly from cross-chain
-    statistics. Returns ``(positions, info, packer)``."""
+    statistics. An int ``seed`` draws what the reference's ``column_chees``
+    draws from it: the start of ``init_columns(seed)`` and ``chees_hmc``'s
+    stream of the int (``rng_impl`` among ``chees_kwargs``); a
+    ``torch.Generator`` in its place draws both in law. Returns
+    ``(positions, info, packer)``."""
     device = entry_device(device, "column_chees")
     packer, ld, q0 = _prior_columns(model, constraint, args, addresses, n_chains, seed, device)
     q, info = chees_hmc(
@@ -462,8 +535,10 @@ def column_svgd(
     default, raising without one; ``device="cpu"`` runs on the CPU). SVGD
     runs on the real dimensions only: padding rows are pinned at zero and
     left out of the kernel's distances, since inert padding directions
-    inflate the RBF metric and weaken the repulsion. Returns ``(positions
-    (dim, n_particles), packer)``."""
+    inflate the RBF metric and weaken the repulsion. The flow draws nothing:
+    an int ``seed`` gives the reference's start (``init_columns``), a
+    generator one in law. Returns ``(positions (dim, n_particles),
+    packer)``."""
     device = entry_device(device, "column_svgd")
     packer, ld, q0 = _prior_columns(model, constraint, args, addresses, n_particles, seed, device)
     pad = packer.padded_dim - packer.dim
@@ -497,8 +572,10 @@ def column_pt(
     (``pt.pt_hmc``), on ``device`` (the card by default, raising without
     one; ``device="cpu"`` runs on the CPU): a geometric ladder of
     ``n_rungs`` inverse temperatures unless ``betas`` is given, with
-    even-odd replica exchange, for multimodal posteriors. Returns
-    ``(cold_positions, info, packer)``."""
+    even-odd replica exchange, for multimodal posteriors. An int ``seed``
+    draws what the reference's ``column_pt`` draws (the start of
+    ``init_columns(seed)``, ``pt_hmc``'s stream of the int), a generator in
+    law. Returns ``(cold_positions, info, packer)``."""
     device = entry_device(device, "column_pt")
     if betas is None:
         betas = geometric_ladder(n_rungs)

@@ -29,7 +29,7 @@ from . import _build
 from .adaptation import windowed_warmup
 from .bodies import Body
 from .hmc import (_RNG_IDS, _check_dim, _inv_mass_col, _int32, _route, _words32, chain_operands, device_body,
-                  rbg_rows_on, rbg_step_keys)
+                  phase_seed_base, rbg_rows_on, rbg_step_keys)
 from .staged import STAGED, staging_scope
 from .nuts import nuts_sweep_cols, rbg_keys_of, rbg_keys_stride
 from .rows import chain_mesh
@@ -277,12 +277,17 @@ def warmup_column_nuts(
     block_n: int | None = None,
     mesh=None,
     axis: str = "batch",
+    rng: str | None = None,
 ):
     """Windowed warmup driven by NUTS's own accept statistic: per phase, a
     short NUTS sweep through ``pallas_nuts``'s routing (on the card one K4
     launch), a step-size nudge toward ``target_accept``, and the diagonal
     inverse mass from the cross-chain variance. Phase seeds
-    ``(seed + 1) * 1_000_003 + phase`` are the reference's stream. With
+    ``(seed + 1) * 1_000_003 + phase`` are the reference's stream; ``rng``
+    is ``pallas_nuts``'s, and with ``"rbg"`` each phase draws what the
+    reference's ``warmup_column_nuts`` draws (K4's rbg kernel on the card),
+    a ``seed`` outside the reference's int32 range raising as there
+    (``hmc.phase_seed_base``). With
     ``mesh`` (a ``parallel.Mesh``), ``q0`` is this rank's shard of chains
     over ``axis`` and the phases adapt to every rank's chains; a row-sharded
     density whose columns are split over a chain axis adapts over that axis
@@ -291,11 +296,12 @@ def warmup_column_nuts(
     Returns ``(q, eps, inv_mass)``.
     """
     mesh, axis = chain_mesh(logdensity_cols, mesh, axis)
+    base = phase_seed_base(seed, rng)
 
     def sweep(q, idx, eps, inv_mass):
         q, acc, _leaps = pallas_nuts(
-            logdensity_cols, q, (seed + 1) * 1_000_003 + idx, n_steps=steps_per_phase, eps=eps,
-            max_depth=max_depth, inv_mass=inv_mass, backend=backend, block_n=block_n,
+            logdensity_cols, q, base + idx, n_steps=steps_per_phase, eps=eps,
+            max_depth=max_depth, inv_mass=inv_mass, backend=backend, block_n=block_n, rng=rng,
         )
         return q, acc
 

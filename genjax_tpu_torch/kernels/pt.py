@@ -16,9 +16,13 @@ barriers at the hot rungs and the crossings percolate down to the cold one.
   with ``(R,)`` leaves and one shared step counter), per-rung diagonal
   inverse masses from the cross-chain variance.
 
-The sweeps are a Python loop on the chains' device; randomness is one
-``torch.Generator`` there, drawn in sequence (the reference splits a key a
-sweep); ``seed`` is an int or such a generator.
+The sweeps are a Python loop on the chains' device. The draws are the
+reference's: an int ``seed`` is the root key ``key(seed, impl=rng_impl)``
+and a key is the root itself; warmup sweep ``m`` takes the ``m``-th of
+``split(fold_in(root, 1), n_warmup)``, sampling sweep ``m`` the ``m``-th of
+``split(fold_in(root, 2), n_steps)``, each split into the HMC move's key
+(split again into the momentum's and the accept uniforms') and the swap's.
+A ``torch.Generator`` in the seed's place is drawn from in sequence, in law.
 """
 
 from __future__ import annotations
@@ -28,7 +32,7 @@ from typing import Any, Callable
 
 import torch
 
-from ..core.device import chain_generator
+from ..core import keys
 from .adaptation import StepSizeAdaptState, _f32, chain_mean, cross_chain_inv_mass, dual_averaging_update
 from .hmc import _lp_grad
 from .rows import refuse_row_sharded
@@ -71,6 +75,7 @@ def pt_hmc(
     target_accept: float = 0.8,
     inv_mass: Any | None = None,
     adapt_mass: bool = True,
+    rng_impl: str = "rbg",
     collect: bool = False,
     mesh=None,
     axis: str = "batch",
@@ -80,7 +85,9 @@ def pt_hmc(
 
     ``logdensity_cols`` is the untempered ``(D, N) -> (N,)``; ``q0`` is
     ``(D, N)`` (the same start on every rung) or ``(R, D, N)``; ``seed`` an
-    int or a ``torch.Generator`` on ``q0``'s device; ``betas`` the descending
+    int (the root key ``key(seed, impl=rng_impl)``) or a key on ``q0``'s
+    device, under which the chains are the reference's draw for draw, or a
+    ``torch.Generator`` there, drawn from in sequence; ``betas`` the descending
     ladder, ``betas[0] == 1`` the cold rung whose draws are returned (see
     ``geometric_ladder``). ``n_warmup`` sweeps adapt each rung's step size
     and (with ``adapt_mass``) its inverse mass; ``n_steps`` sampling sweeps
@@ -102,7 +109,7 @@ def pt_hmc(
         q0 = q0[None].expand((r,) + tuple(q0.shape))
     if q0.ndim != 3 or q0.shape[0] != r:
         raise ValueError(f"q0 must be (D, N) or (R, D, N) with R={r}, got {tuple(q0.shape)}")
-    gen = chain_generator(seed, device, "pt_hmc")
+    root = keys.sampler_stream(seed, device, "pt_hmc", rng_impl)
     q = q0.to(torch.float32).contiguous()
     _, d, n = q.shape
     beta_col = betas[:, None, None]  # over (R, D, N)
@@ -117,13 +124,14 @@ def pt_hmc(
         lp, g = _lp_grad(logdensity_cols, q.permute(1, 0, 2).reshape(d, r * n))
         return lp.reshape(r, n), g.reshape(d, r, n).permute(1, 0, 2)
 
-    def hmc_sweep(q, lp, g, eps, inv_mass):
+    def hmc_sweep(q, lp, g, stream, eps, inv_mass):
         """One tempered HMC transition on every rung and chain; ``lp``/``g``
         are untempered, the temperature multiplies the potential only."""
         im = inv_mass[:, :, None]
         eps_b = eps[:, None, None]
-        p = torch.randn((r, d, n), generator=gen, device=device) / torch.sqrt(im)
-        u = torch.rand((r, n), generator=gen, device=device)
+        kp, ku = keys.split_stream(stream)
+        p = keys.normal_from(kp, (r, d, n), device) / torch.sqrt(im)
+        u = keys.uniform_from(ku, (r, n), device)
 
         def kinetic(p_):
             return 0.5 * torch.sum(im * p_ * p_, dim=1)  # (R, N)
@@ -144,14 +152,14 @@ def pt_hmc(
         )
         return qn, lpn, gn, chain_mean(alpha, 1, mesh=mesh, axis=axis)  # accept per rung
 
-    def swap_sweep(q, lp, g, parity: int):
+    def swap_sweep(q, lp, g, stream, parity: int):
         """Even-odd adjacent exchange: pair ``(r, r + 1)`` is active when
         ``r = parity (mod 2)``; active pairs are disjoint, so the update is a
         select between a state and its neighbour by one roll."""
         if r == 1:
             return q, lp, g, torch.zeros(0, dtype=torch.float32, device=device)
         log_s = (betas[:-1] - betas[1:])[:, None] * (lp[1:] - lp[:-1])  # (R-1, N)
-        u = torch.rand((r - 1, n), generator=gen, device=device)
+        u = keys.uniform_from(stream, (r - 1, n), device)
         active = (torch.arange(r - 1, device=device) % 2) == parity
         do = active[:, None] & (torch.log(u) < log_s)
         pad = torch.zeros((1, n), dtype=torch.bool, device=device)
@@ -169,9 +177,9 @@ def pt_hmc(
     if n_warmup > 0:
         adapt = StepSizeAdaptState.init(torch.full((r,), float(eps0)), device=device)
         inv_mass_f = inv_mass0
-        for idx in range(n_warmup):
-            q, lp, g, acc = hmc_sweep(q, lp, g, torch.exp(adapt.log_eps), inv_mass_f)
-            q, lp, g, _sw = swap_sweep(q, lp, g, idx % 2)
+        for idx, (k_hmc, k_swap) in enumerate(keys.sweep_streams(root, 1, n_warmup)):
+            q, lp, g, acc = hmc_sweep(q, lp, g, k_hmc, torch.exp(adapt.log_eps), inv_mass_f)
+            q, lp, g, _sw = swap_sweep(q, lp, g, k_swap, idx % 2)
             adapt = dual_averaging_update(adapt, acc, target_accept=target_accept)
             if adapt_mass:
                 inv_mass_f = cross_chain_inv_mass(q, chain_axis=2, mesh=mesh, axis=axis)
@@ -181,9 +189,9 @@ def pt_hmc(
         inv_mass_f = inv_mass0
 
     accs, sws, draws = [], [], []
-    for idx in range(n_warmup, n_warmup + n_steps):
-        q, lp, g, acc = hmc_sweep(q, lp, g, eps_f, inv_mass_f)
-        q, lp, g, sw = swap_sweep(q, lp, g, idx % 2)
+    for idx, (k_hmc, k_swap) in zip(range(n_warmup, n_warmup + n_steps), keys.sweep_streams(root, 2, n_steps)):
+        q, lp, g, acc = hmc_sweep(q, lp, g, k_hmc, eps_f, inv_mass_f)
+        q, lp, g, sw = swap_sweep(q, lp, g, k_swap, idx % 2)
         accs.append(acc)
         sws.append(sw)
         if collect:

@@ -22,6 +22,7 @@ from typing import Callable
 
 import torch
 
+from ..core import keys
 from ..core.device import stream_seed
 
 
@@ -98,6 +99,19 @@ class Rows:
         if self.shard is None or isinstance(seed, torch.Generator) or self.shard.chain_size <= 1:
             return seed
         return stream_seed(int(seed), self.shard.chain_index)
+
+    def stream(self, seed, device, entry: str, impl: str = "rbg"):
+        """``keys.sampler_stream`` of this rank's ``seed``: an int seed
+        is the rank's (``seed``), a key or a generator is used as it is. A
+        key cannot be split over a chain axis of more than one rank, and
+        raises there."""
+        if keys.is_key(seed) and self.shard is not None and self.shard.chain_size > 1:
+            raise ValueError(
+                f"{entry}: a key is not split over the {self.shard.chain_size}-rank chain axis "
+                f"{self.shard.chain_axis!r} of a density row-sharded over the model axis "
+                f"{self.shard.model_axis!r}; pass an int seed or a torch.Generator"
+            )
+        return keys.sampler_stream(self.seed(seed), device, entry, impl)
 
     def chain_mean(self, x: torch.Tensor) -> torch.Tensor:
         """A rank-local mean over chains made the mean over every chain of

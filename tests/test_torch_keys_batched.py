@@ -351,12 +351,10 @@ def test_a_checkpointed_keyed_run_resumes_bit_for_bit(tmp_path):
 
 
 def test_a_key_where_the_keyed_path_does_not_reach_raises():
-    from genjax_tpu_torch.generative.typecheck import GFITypeError
-
     model, obs, _m, _o = _linear()
-    with pytest.raises(GFITypeError, match="chees.*torch.Generator"):
+    with pytest.raises(ValueError, match="a key with mesh= is not reproduced"):
         sample_posterior(keys.key(0, device="cpu"), model, obs, (), g.S["w"], algorithm="chees", device="cpu",
-                           n_chains=4, n_warmup=2, n_samples=2)
+                           n_chains=4, n_warmup=2, n_samples=2, mesh=object())
     with pytest.raises(ValueError, match="the key lives on meta"):
         sample_posterior(keys.key(0, device="meta"), model, obs, (), g.S["w"], device="cpu", n_chains=4)
 

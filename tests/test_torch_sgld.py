@@ -155,8 +155,11 @@ def test_minibatch_sgld_conjugate_posterior():
 
 
 def test_sghmc_streams_differ_from_sgld_under_one_seed():
-    """An int seed gives SGHMC its own stream (``seed ^ 0x5A17``), as the
-    reference derives its key."""
+    """An int seed gives SGHMC its own stream, the root ``key(seed ^
+    0x5A17)``, as the reference derives its key: the momentum starts as the
+    normal draw of ``fold_in(root, n_steps)``."""
+    from genjax_tpu_torch.core import keys
+
     grad = full_grad_cols(lambda q: -0.5 * torch.sum(q**2, dim=0))
     _q, p0 = sghmc_sweep_cols(grad, torch.zeros(1, 8), 7, n_steps=0, eps=0.1)
-    assert torch.equal(p0, torch.randn((1, 8), generator=torch.Generator().manual_seed(7 ^ 0x5A17)))
+    assert torch.equal(p0, keys.normal(keys.fold_in(keys.key(7 ^ 0x5A17, device="cpu"), 0), (1, 8)))
