@@ -5678,6 +5678,233 @@ KC_CHEES_STEPS = 10
 KC_K4_TWINNED = (0, NUTS_WARMUP_PHASES // 2, NUTS_WARMUP_PHASES)  # the first phase, a middle one, the sweep
 
 
+# SMC under a key ([keys smc]): the cut-size calls whose results genjax_tpu
+# gives on the CPU from the same keys (KS_GOLDEN, printed by
+# scripts/keys_smc_golden.py, jax 0.9.0), and bench_pf's filter at full width
+KS_PF_PARTICLES, KS_PF_T = 1024, 20  # bench_pf cut to 1,024 particles x 20 steps
+KS_DP_PARTICLES = 256  # bench_dp's tempered SMC at 256 particles
+KS_PG = dict(n_particles=64, n_sweeps=3)  # particle Gibbs on bench_pf's kernel, KS_PG_T steps
+KS_PG_T = 20
+KS_SMC2 = dict(n_theta=32, n_x=16, ess_threshold=0.9, rw_scales=0.15, n_rejuv=2)
+KS_SMC2_T = 10
+KS_ABC = dict(n_particles=256, n_generations=4)
+KS_CHEES = dict(n_particles=256, max_rungs=8, n_rejuvenation=2)
+KS_NESTED = dict(n_live=64, n_iter=100, n_mcmc=5, n_runs=4)
+KS_FULL_KEYS = 4  # the full-width filter under fold_in(key(0), s), s < 4
+KS_PROFILE_T = 20  # the steps of the full-width filter that are profiled
+# the golden results' limit: 1e-4 of max(|value|, 1), from the CPU tests'
+# agreement (1e-5 relative on log marginals and scores). A systematic count
+# flips where n cdf - u0 lies within rounding of an integer and the two
+# packages' exp and log round differently (about one in 200 resamples of
+# 1,000 weights on the CPU): the flipped slot takes a neighbouring source,
+# which moves the filter's final mean by up to about 1 / 1,024 a flip (the
+# CPU run of ks_calls: 7.5e-4, one flip), so that mean is held to four flips
+KS_TOL = 1e-4
+KS_LIMITS = {"pf_mean": 4.0 / KS_PF_PARTICLES}
+
+
+KS_GOLDEN = {
+    "pf": [-31.49585723876953, 483.4216003417969, 485.946044921875, 438.2194519042969, 459.0321960449219, 464.0537414550781, 455.96759033203125, 463.7004699707031, 567.783447265625, 171.85264587402344, 397.4873962402344, 373.92742919921875, 237.4468994140625, 562.5150756835938, 43.78731155395508, 411.803955078125, 133.80516052246094, 337.246826171875, 492.077880859375, 556.9520874023438, 288.2559814453125],
+    "pf_mean": [-0.5295504927635193],
+    "f8": [0.21636497974395752, 0.5278486609458923, -0.37681150436401367],
+    "dp": [-1129.11181640625, 195.38108825683594, 24.609407424926758, 100.78960418701172, 139.8770751953125, 107.71385192871094, 254.08628845214844, 254.00198364257812, 253.99423217773438, 254.00973510742188, 254.00973510742188],
+    "pgibbs": [-37.80500411987305, -36.555702209472656, -33.262115478515625, 0.5725938081741333],
+    "smc2": [-11.01000690460205, 0.553740918636322, 0.734375],
+    "abc": [1.1213245391845703, 0.49865972995758057, 0.25891298055648804, 0.13846838474273682, 0.8136668801307678],
+    "chees": [-4.426501274108887, 8.0, 0.8478372693061829, 0.7537295818328857, 0.8134301900863647, 0.7898117899894714],
+    "nested": [-1.2785999774932861, -1.049680233001709, -1.297461748123169, -1.0098187923431396],
+}
+
+
+def ks_ys(n: int, seed: int) -> np.ndarray:
+    """The observations of the cut-size SSM calls: ``n`` standard normals
+    from numpy ``seed``, float32."""
+    return np.random.default_rng(seed).normal(size=n).astype(np.float32)
+
+
+def ks_calls(lib, keys_of, place, normal, **on) -> dict:
+    """The cut-size calls of ``[keys smc]`` through ``lib`` (the port, or
+    ``genjax_tpu``, whose functions take the same arguments), each run
+    under ``keys_of(seed)`` and summarised as lists of floats, so that the
+    card's results and the reference's (``scripts/keys_smc_golden.py``)
+    come from one definition. The caller gives its own package's means:
+    ``place`` makes an array of a numpy one, ``normal(key, shape)`` draws
+    standard normals, and ``on`` holds the keywords of the entry points
+    that make particles (the port's ``device``)."""
+    inf, par, mdl = lib.inference, lib.parallel, lib.models
+    out = {}
+
+    def floats(x):
+        return [float(v) for v in np.asarray(x.detach().cpu() if isinstance(x, torch.Tensor) else x,
+                                             np.float64).reshape(-1)]
+
+    # bench_pf's filter, cut
+    kernel, _ = mdl.linear_gaussian_ssm()
+    ys = place(ks_ys(KS_PF_T, 5))
+    res = par.SSMParticleFilter(kernel, n_particles=KS_PF_PARTICLES).run(
+        keys_of(0), 0.0, place(np.zeros(KS_PF_T, np.float32)), lib.C[:, "y"].set(ys), **on)
+    out["pf"] = floats(res.log_marginal) + floats(res.ess_history)
+    out["pf_mean"] = floats(res.carries.mean())
+
+    # F8: ImportanceK's GenSP methods
+    @lib.gen
+    def conj():
+        mu = lib.normal(0.0, 1.0) @ "mu"
+        _ = lib.normal(mu, 0.5) @ "y"
+
+    target = inf.Target(conj, (), lib.C["y"].set(1.0))
+    alg = inf.ImportanceK(target, k_particles=8)
+    w, chm = alg.random_weighted(keys_of(0), target)
+    out["f8"] = floats(w) + floats(chm["mu"]) + floats(alg.estimate_logpdf(keys_of(0), lib.C["mu"].set(0.3), target))
+
+    # bench_dp's tempered SMC, cut
+    data = place(dp_data())
+    res = inf.tempered_smc(keys_of(0), mdl.dp_mixture_model(DP_TRUNC), lib.C["obs", :, "x"].set(data), (data,),
+                           n_particles=KS_DP_PARTICLES, betas=inf.geometric_ladder(DP_RUNGS), **on)
+    out["dp"] = floats(res.log_marginal) + floats(res.ess_history)
+
+    # particle Gibbs on bench_pf's kernel
+    ys = place(ks_ys(KS_PG_T, 6))
+    res = inf.particle_gibbs(keys_of(0), kernel, 0.0, place(np.zeros(KS_PG_T, np.float32)), lib.C[:, "y"].set(ys),
+                             latent_selection=lib.S["z"], **KS_PG, **on)
+    out["pgibbs"] = floats(res.log_marginals) + floats(res.trajectories["z"][-1].mean())
+
+    # SMC^2 on an AR(1) state with its coefficient unknown
+    @lib.gen
+    def ar1(c, x):
+        a, z = c
+        z_new = lib.normal(a * z, 0.5) @ "z"
+        _ = lib.normal(z_new, 0.6) @ "y"
+        return ((a, z_new), None)
+
+    ys = place(ks_ys(KS_SMC2_T, 7))
+    res = inf.smc2(keys_of(0), ar1, lambda k: 0.5 + 0.5 * normal(k, ()), lambda a: -2.0 * (a - 0.5) ** 2, 0.0,
+                   place(np.zeros(KS_SMC2_T, np.float32)), lib.C[:, "y"].set(ys), **KS_SMC2, **on)
+    out["smc2"] = floats(res.log_evidence) + floats(res.thetas.mean()) + floats(res.rejuv_accept_rate)
+
+    # ABC-SMC on the conjugate model's simulator
+    res, _p = inf.abc_smc(keys_of(0), conj, (), lambda tr: abs(tr.get_choices()["y"] - 1.0), ["mu"],
+                          **KS_ABC, **on)
+    out["abc"] = floats(res.tolerance_history) + floats(res.params[0].mean())
+
+    # ChEES tempered SMC on a 4-d Gaussian in the column layout
+    dim = 4
+    prior = lambda q: -0.5 * (q**2).sum(0)  # noqa: E731
+    lik = lambda q: -0.5 * (((q - 1.0) / 0.5) ** 2).sum(0)  # noqa: E731
+    q0 = place(np.random.default_rng(8).normal(size=(dim, KS_CHEES["n_particles"])).astype(np.float32))
+    res = inf.chees_tempered_smc(keys_of(0), prior, lik, q0, max_rungs=KS_CHEES["max_rungs"],
+                                 n_rejuvenation=KS_CHEES["n_rejuvenation"])
+    out["chees"] = floats(res.log_marginal) + floats(res.n_rungs) + floats(res.particles.mean(1))
+
+    # nested sampling on a 1-d Gaussian
+    c = -0.5 * math.log(2 * math.pi)
+    res = inf.nested_sampling(lambda k, n: normal(k, (1, n)), lambda q: -0.5 * q[0] ** 2 + c,
+                              lambda q: -0.5 * ((q[0] - 0.5) / 0.5) ** 2 - math.log(0.5) + c, keys_of(0),
+                              **KS_NESTED, **on)
+    out["nested"] = floats(res.log_z)
+    return out
+
+
+def keys_smc_path(device, smi: str, g) -> dict:
+    """``[keys smc]``: SMC under a key on the card (no kernel: the reference
+    runs it as XLA). The cut-size calls (``ks_calls``) against
+    ``genjax_tpu``'s golden results (``KS_GOLDEN``), then ``bench_pf``'s
+    filter at full width (131,072 particles, 100 steps, ``ys = 0``,
+    systematic, threshold 0.5) under ``fold_in(key(0), s)`` for ``s <
+    KS_FULL_KEYS`` and under a generator: the keyed runs' mean log marginal
+    against the Kalman filter's exact one (``dists.kalman_filter``, float64),
+    and ``[timing keys smc]``: each stream's host-clock time, launches and
+    host reads a step, and the card's idle share."""
+    import genjax_tpu_torch.inference  # noqa: F401
+    import genjax_tpu_torch.models  # noqa: F401
+    import genjax_tpu_torch.parallel  # noqa: F401
+    from genjax_tpu_torch.core import keys
+    from genjax_tpu_torch.dists import LGSSMParams, kalman_filter
+    from genjax_tpu_torch.models import linear_gaussian_ssm
+    from genjax_tpu_torch.parallel import SSMParticleFilter
+
+    t0 = time.perf_counter()
+    got = ks_calls(g, lambda s: keys.key(s, device=device), lambda a: torch.as_tensor(a, device=device),
+                   keys.normal, device=device)
+    cut_s = time.perf_counter() - t0
+    errs = {name: max(abs(a - b) / max(abs(b), 1.0) for a, b in zip(got[name], want))
+            for name, want in KS_GOLDEN.items()}
+    phase("keys smc", f"{smi}: the cut-size calls under key(0) against genjax_tpu's golden results (limit {KS_TOL} "
+                      f"of max(|value|, 1), {KS_LIMITS} for the entries that a flipped count moves), {cut_s:.1f} s: "
+                      + ", ".join(f"{k} {e:.3g}" for k, e in errs.items()))
+    for name, e in errs.items():
+        check(len(got[name]) == len(KS_GOLDEN[name]) and e <= KS_LIMITS.get(name, KS_TOL),
+              f"[keys smc] {name}: {e:.3g} off the reference's {KS_GOLDEN[name][:3]}... (got {got[name][:3]}...)")
+
+    # ---- bench_pf at full width under keys and under a generator
+    kernel, _exact = linear_gaussian_ssm()
+    K, T = PF_PARTICLES, PF_T
+    ys = torch.zeros(T, device=device)
+    obs, xs = g.C[:, "y"].set(ys), torch.zeros(T, device=device)
+    pf = SSMParticleFilter(kernel, n_particles=K, ess_threshold=0.5, method="systematic")
+    root = keys.key(0, device=device)
+
+    def run(stream):
+        return pf.run(stream, 0.0, xs, obs, device=device)
+
+    lzs, key_ms = [], []
+    for s in range(KS_FULL_KEYS):
+        k = keys.fold_in(root, s)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        res = run(k)
+        lzs.append(float(res.log_marginal))
+        key_ms.append((time.perf_counter() - t1) * 1e3)
+        check(_leaves_on(res, device) and tuple(res.carries.shape) == (K,),
+              "[keys smc] a keyed filter's output is off the card or misshapen")
+    gen_ms = []
+    for s in range(KS_FULL_KEYS):
+        gen = torch.Generator(device=device).manual_seed(s)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        lz_gen = float(run(gen).log_marginal)
+        gen_ms.append((time.perf_counter() - t1) * 1e3)
+    one = torch.ones(1, 1, dtype=torch.float64)
+    params = LGSSMParams(one, one, one, 0.25 * one, torch.zeros(1, dtype=torch.float64), one)
+    want = float(kalman_filter(params, ys.double().cpu()[:, None])[2])
+    mean_lz, se_lz, gap = se_gap(lzs, want)
+    check(all(map(math.isfinite, lzs)) and gap <= 4,
+          f"[keys smc] full-width keyed mean log marginal {mean_lz:.5f} (SE {se_lz:.5f}) against the Kalman "
+          f"filter's {want:.5f}: {gap:.2f} SE")
+    check(math.isfinite(lz_gen), f"[keys smc] the generator's log marginal {lz_gen}")
+    phase("keys smc", f"{smi}: SSMParticleFilter(linear_gaussian_ssm, n_particles={K}, 0.5, systematic).run over "
+                      f"T = {T}, ys = 0 (bench_pf) under fold_in(key(0), s), s < {KS_FULL_KEYS}: log marginals "
+                      + ", ".join(f"{v:.5f}" for v in lzs) + f", mean {mean_lz:.5f} (SE {se_lz:.5f}) against "
+                      f"kalman_filter's {want:.5f} in float64: {gap:.2f} SE (limit 4)")
+
+    key_call, gen_call = float(np.median(key_ms)), float(np.median(gen_ms))
+    # reads and the profile on the first KS_PROFILE_T steps (the profiler's
+    # post-processing of a whole keyed run's 1e5 events took a minute)
+    tp = KS_PROFILE_T
+    obs_p, xs_p = g.C[:, "y"].set(ys[:tp]), xs[:tp]
+
+    def run_short(stream):
+        return pf.run(stream, 0.0, xs_p, obs_p, device=device)
+
+    short_ms = {"key": wall_ms(lambda: run_short(keys.fold_in(root, 97))),
+                "generator": wall_ms(lambda: run_short(torch.Generator(device=device).manual_seed(97)))}
+    key_reads = host_reads(lambda: run_short(keys.fold_in(root, 99)))
+    gen_reads = host_reads(lambda: run_short(torch.Generator(device=device).manual_seed(99)))
+    key_busy = device_busy(lambda: run_short(keys.fold_in(root, 98)))
+    gen_busy = device_busy(lambda: run_short(torch.Generator(device=device).manual_seed(98)))
+    phase("timing keys smc", f"{smi}, beside the cookbooks' process: the full-width filter a run (host clock, "
+                             f"median of {KS_FULL_KEYS}): under a key {key_call:.2f} ms ("
+                             + ", ".join(f"{v:.2f}" for v in key_ms) + f"), under a generator {gen_call:.2f} ms ("
+                             + ", ".join(f"{v:.2f}" for v in gen_ms) + f"); its first {tp} steps: host reads a step "
+                             f"{key_reads / tp:.3f} and {gen_reads / tp:.3f}; kernels and copies a step "
+                             f"{(key_busy[1] / tp) if key_busy else float('nan'):.1f} and "
+                             f"{(gen_busy[1] / tp) if gen_busy else float('nan'):.1f} (torch.profiler)")
+    phase("timing keys smc", f"the first {tp} steps: " + busy_line("a keyed run", key_busy, short_ms["key"]) + "; "
+                             + busy_line("a generator run", gen_busy, short_ms["generator"]))
+    phase("keys smc", f"the keys smc phase took {time.perf_counter() - t0:.1f} s")
+    return {"errs": errs, "key_ms": key_call, "gen_ms": gen_call}
+
+
 def finish_phases(device, smi: str, g, hmc, nuts_pallas, elliptical, model, y, k1_draws) -> int:
     """The phases after the GP path, which need no kernel timing of their
     own and run beside ``[cookbook]``'s process. Each path returns the
@@ -6729,6 +6956,9 @@ def main() -> int:
         # the column path on the reference's streams (K1's and K4's rbg
         # kernels), first beside the cookbooks
         kc = keys_column_path(device, smi, g, hmc, nuts, nuts_pallas, model, y, lin_model)
+        torch.cuda.empty_cache()
+        # SMC under a key (no kernel), beside the cookbooks too
+        keys_smc_path(device, smi, g)
         torch.cuda.empty_cache()
         ck_launches = finish_phases(device, smi, g, hmc, nuts_pallas, elliptical, model, y, k1_draws)
         cookbook_finish(cookbooks, smi)

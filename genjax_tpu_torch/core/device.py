@@ -28,6 +28,12 @@ def entry_device(device, entry: str) -> torch.device:
     return device
 
 
+def is_key(x) -> bool:
+    """Whether ``x`` is a key (``core/keys.py``): an int64 tensor with a last
+    axis of 2 (threefry2x32) or 4 (rbg)."""
+    return isinstance(x, torch.Tensor) and x.dtype == torch.int64 and x.dim() >= 1 and x.shape[-1] in (2, 4)
+
+
 def same_device(a: torch.device, b: torch.device) -> bool:
     """Whether two devices are one; a device named without an index matches
     any card of its type."""
@@ -38,7 +44,13 @@ def chain_generator(seed, device: torch.device, entry: str) -> torch.Generator:
     """The random stream of chains that live on ``device``: ``seed`` itself
     if it is a ``torch.Generator`` there, a new generator there seeded with
     the int ``seed`` otherwise. A generator on another device raises a
-    ``ValueError`` naming ``entry``: the chains are not moved to it."""
+    ``ValueError`` naming ``entry``: the chains are not moved to it. A key
+    (``is_key``) raises a ``TypeError`` naming ``entry``: an entry point that draws under a key
+    takes it before it gets here."""
+    if is_key(seed):
+        raise TypeError(
+            f"{entry}: drawing under a key is not reproduced here; pass a torch.Generator or an int seed"
+        )
     if isinstance(seed, torch.Generator):
         if not same_device(seed.device, device):
             raise ValueError(

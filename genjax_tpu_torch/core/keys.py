@@ -6,7 +6,8 @@ fold-ins, bits, uniforms, normals, integers and coin flips as ``jax.random``
 gives for the same seed, and its gamma draws and the samplers built on them
 alone (``gamma``, ``loggamma``, ``beta``, ``dirichlet``, ``chisquare``,
 ``t``), so that a model driven by ``key(0)`` draws what the JAX package
-draws from ``jax.random.key(0)``.
+draws from ``jax.random.key(0)``. Gumbel noise and categorical draws come
+with them (``gumbel``, ``categorical``).
 
 A key is an int64 tensor whose last axis holds the key's 32-bit words, each in
 ``[0, 2**32)``: two for threefry2x32 (JAX's default), four for rbg; a batch of
@@ -30,7 +31,7 @@ The sources are ``jax/_src/prng.py`` (``threefry_seed``,
 ``threefry_fold_in``, ``_threefry_random_bits_partitionable``, ``_rbg_seed``,
 ``_rbg_split``, ``_rbg_fold_in``, ``_rbg_random_bits``) and
 ``jax/_src/random.py`` (``_uniform``, ``_normal_real``, ``_randint``,
-``_bernoulli``, ``_gamma_one``, ``_gamma_impl``, ``_beta``, ``_dirichlet``,
+``_bernoulli``, ``_gumbel``, ``categorical``, ``_gamma_one``, ``_gamma_impl``, ``_beta``, ``_dirichlet``,
 ``_chisquare``, ``_t`` and the samplers the distributions reproduce).
 
 >>> k = key(0, device="cpu")
@@ -48,12 +49,13 @@ The sources are ``jax/_src/prng.py`` (``threefry_seed``,
 
 from __future__ import annotations
 
+import functools
 import math
 import operator
 
 import torch
 
-from .device import chain_generator, entry_device, same_device
+from .device import chain_generator, entry_device, is_key, same_device
 
 #: A key: an int64 tensor of two (threefry2x32) or four (rbg) 32-bit words
 #: on its last axis.
@@ -66,12 +68,6 @@ _IMPLS = {"threefry2x32": 2, "rbg": 4}
 # Philox4x32-10's multipliers and key increments
 _PHILOX_M = (0xD2511F53, 0xCD9E8D57)
 _PHILOX_W = (0x9E3779B9, 0xBB67AE85)
-
-
-def is_key(x) -> bool:
-    """Whether ``x`` is a key: an int64 tensor with a last axis of 2
-    (threefry2x32) or 4 (rbg)."""
-    return isinstance(x, torch.Tensor) and x.dtype == torch.int64 and x.dim() >= 1 and x.shape[-1] in (2, 4)
 
 
 def key(seed, device=None, impl: str = "threefry2x32") -> torch.Tensor:
@@ -93,11 +89,22 @@ def key(seed, device=None, impl: str = "threefry2x32") -> torch.Tensor:
         low = seed.to(device=device, dtype=torch.int64) & _M32
     else:
         try:
-            low = torch.tensor(operator.index(seed) & _M32, dtype=torch.int64, device=device)
+            low = _on(operator.index(seed) & _M32, torch.int64, device)
         except TypeError:
             raise TypeError(f"key: a seed must be an integer, got {type(seed).__name__}") from None
     half = [torch.zeros_like(low), low]
     return torch.stack(half * (_IMPLS[impl] // 2), dim=-1)
+
+
+def entry_stream(seed, device, entry: str):
+    """The device of an entry point that makes its particles or chains
+    (``entry_device``) and its stream there: a key, placed on that device,
+    or the generator ``chain_generator`` gives for a ``torch.Generator`` or
+    an int seed."""
+    device = entry_device(device, entry)
+    if is_key(seed):
+        return seed.to(device), device
+    return chain_generator(seed, device, entry), device
 
 
 def sampler_stream(seed, device, entry: str, impl: str = "rbg"):
@@ -121,6 +128,22 @@ def split_stream(stream, num: int = 2) -> tuple:
     keys, or the same ``torch.Generator`` ``num`` times (drawn from in
     sequence)."""
     return split(stream, num).unbind(-2) if is_key(stream) else (stream,) * num
+
+
+def vmap_streams(fn, stream, n: int, in_dims=0, out_dims=0):
+    """``fn(lane_stream, *args)`` vmapped over ``n`` lanes, as a function of
+    ``args``: under a key lane ``i`` draws under the ``i``-th of
+    ``split(key, n)``, as the reference's ``vmap`` over split keys does; a
+    ``torch.Generator`` is shared by the lanes, each drawing its own
+    (``randomness="different"``). ``in_dims`` (a tuple) and ``out_dims``
+    are ``args``'s and the outputs', as ``torch.func.vmap`` takes them."""
+    dims = (0, *in_dims) if isinstance(in_dims, tuple) else in_dims
+    if is_key(stream):
+        lanes, body, kw = split(stream, n), fn, {}
+    else:
+        lanes, body, kw = torch.zeros(n, device=stream.device), (lambda _, *a: fn(stream, *a)), {"randomness": "different"}
+    batched = torch.func.vmap(body, in_dims=dims, out_dims=out_dims, **kw)
+    return lambda *args: batched(lanes, *args)
 
 
 def split_each(batch: torch.Tensor) -> tuple:
@@ -159,6 +182,14 @@ def uniform_from(stream, shape, device) -> torch.Tensor:
     if is_key(stream):
         return uniform(stream, shape)
     return torch.rand(_shape(shape), generator=stream, device=device)
+
+
+def _on(x, dtype, device) -> torch.Tensor:
+    """``x`` as a ``dtype`` tensor on ``device``; a Python number is filled
+    there, not copied from the host (a copy waits for the card)."""
+    if isinstance(x, (int, float)):
+        return torch.full((), x, dtype=dtype, device=device)
+    return torch.as_tensor(x, dtype=dtype, device=device)
 
 
 def _check(k, what: str) -> None:
@@ -203,12 +234,12 @@ def _shape(shape) -> tuple:
     return tuple(int(n) for n in shape)
 
 
-def _hash_iota(k: torch.Tensor, shape: tuple) -> tuple[torch.Tensor, torch.Tensor]:
+def _hash_iota(k: torch.Tensor, shape: tuple, start: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
     """Threefry of the row-major position of each element of ``shape`` (its
-    high and low 32-bit words as the counter pair) under each key of ``k``:
-    two tensors of shape ``k.shape[:-1] + shape``."""
+    high and low 32-bit words as the counter pair), counted from ``start``,
+    under each key of ``k``: two tensors of shape ``k.shape[:-1] + shape``."""
     n = math.prod(shape)
-    i = torch.arange(n, dtype=torch.int64, device=k.device).reshape(shape)
+    i = torch.arange(start, start + n, dtype=torch.int64, device=k.device).reshape(shape)
     lead = tuple(k.shape[:-1])
     k1 = k[..., 0].reshape(lead + (1,) * len(shape))
     k2 = k[..., 1].reshape(lead + (1,) * len(shape))
@@ -271,17 +302,64 @@ def _philox4x32(counter: tuple, key_words: tuple) -> tuple:
     return c0, c1, c2, c3
 
 
-def _rbg_bits(k: torch.Tensor, shape: tuple) -> torch.Tensor:
+def _rbg_bits(k: torch.Tensor, shape: tuple, start: int = 0) -> torch.Tensor:
     """XLA's ``RngBitGenerator`` (Philox4x32-10) under each rbg key of ``k``:
     block ``b`` at counter ``(w2 + b, w3 + carry, w0, w1)`` and key ``(w0,
-    w1)`` gives the row-major elements ``4b .. 4b + 3`` of ``shape``."""
+    w1)`` gives the row-major elements ``4b .. 4b + 3`` of a draw, of which
+    ``shape`` takes the ones from ``start`` on."""
     n = math.prod(shape)
     lead = tuple(k.shape[:-1])
     w = [k[..., i].reshape(lead + (1,)) for i in range(4)]
-    low = w[2] + torch.arange((n + 3) // 4, dtype=torch.int64, device=k.device)
+    first, skip = divmod(start, 4)
+    low = w[2] + torch.arange(first, first + (skip + n + 3) // 4, dtype=torch.int64, device=k.device)
     words = _philox4x32((low & _M32, (w[3] + (low >> 32)) & _M32, w[0], w[1]), (w[0], w[1]))
     flat = torch.stack(torch.broadcast_tensors(*words), dim=-1).reshape(lead + (-1,))
-    return flat[..., :n].reshape(lead + shape)
+    return flat[..., skip : skip + n].reshape(lead + shape)
+
+
+@functools.cache
+def _rbg_op():
+    """``_rbg_bits`` as a custom op whose ``torch.func.vmap`` rule is JAX's
+    batching rule for ``rng_bit_generator``: under ``jax.vmap`` an rbg draw
+    takes the first lane's key alone and draws every lane's elements from
+    it, lane ``b`` the ``b``-th block of ``lane`` elements (``lane`` the
+    size of one lane's whole draw, of which the op makes the elements from
+    ``start`` on). Outside a vmap each key of a batch draws its own."""
+
+    @torch.library.custom_op("genjax_tpu_torch::rbg_bits", mutates_args=())
+    def op(k: torch.Tensor, shape: list[int], start: int, lane: int) -> torch.Tensor:
+        return _rbg_bits(k, tuple(shape), start)
+
+    @op.register_fake
+    def _(k, shape, start, lane):
+        return k.new_empty(tuple(k.shape[:-1]) + tuple(shape))
+
+    def batched(info, in_dims, k, shape, start, lane):
+        first = k.movedim(in_dims[0], 0)[0]
+        size = info.batch_size
+        if start == 0 and math.prod(shape) == lane:
+            out = op(first, [size, *shape], 0, size * lane)
+        else:
+            out = torch.stack([op(first, shape, b * lane + start, size * lane) for b in range(size)],
+                              dim=first.dim() - 1)
+        return out, first.dim() - 1
+
+    op.register_vmap(batched)
+    return op
+
+
+def _bits(k: torch.Tensor, shape: tuple, start: int = 0, lane: int | None = None) -> torch.Tensor:
+    """The bits of the row-major elements ``start .. start + prod(shape) -
+    1`` of a draw of ``lane`` elements (``prod(shape)`` by default) under
+    each key of ``k``, in ``shape``: a slice of a larger draw, made alone
+    (both key kinds count an element's bits from its position only). Under
+    ``torch.func.vmap`` an rbg draw follows JAX's batching rule
+    (``_rbg_op``)."""
+    if k.shape[-1] == 4:
+        n = math.prod(shape)
+        return _rbg_op()(k, list(shape), start, n if lane is None else lane)
+    b1, b2 = _hash_iota(k, shape, start)
+    return b1 ^ b2
 
 
 def bits(k: torch.Tensor, shape=()) -> torch.Tensor:
@@ -289,10 +367,7 @@ def bits(k: torch.Tensor, shape=()) -> torch.Tensor:
     ``jax.random.bits(k, shape)`` (uint32 there, int64 in ``[0, 2**32)``
     here): shape ``k.shape[:-1] + shape``."""
     _check(k, "bits")
-    if k.shape[-1] == 4:
-        return _rbg_bits(k, _shape(shape))
-    b1, b2 = _hash_iota(k, _shape(shape))
-    return b1 ^ b2
+    return _bits(k, _shape(shape))
 
 
 def uniform(k: torch.Tensor, shape=(), dtype=torch.float32, minval=0.0, maxval=1.0) -> torch.Tensor:
@@ -304,18 +379,24 @@ def uniform(k: torch.Tensor, shape=(), dtype=torch.float32, minval=0.0, maxval=1
     _check(k, "uniform")
     shape = _shape(shape)
     if dtype == torch.float32:
-        m = bits(k, shape) >> 9
-        floats = m.to(torch.float32) * (2.0 ** -23)
-    elif dtype == torch.float64:
+        return _unit_floats(bits(k, shape), k.device, minval, maxval)
+    if dtype == torch.float64:
         if k.shape[-1] == 4:
             raise TypeError("uniform: float64 draws of an rbg key are not reproduced; use float32")
         hi, lo = _hash_iota(k, shape)  # 64 bits an element, high word first
         m = (hi << 20) | (lo >> 12)
         floats = m.to(torch.float64) * (2.0 ** -52)
-    else:
-        raise TypeError(f"uniform: dtype must be torch.float32 or torch.float64, got {dtype}")
-    lo_ = torch.as_tensor(minval, dtype=dtype, device=k.device)
-    hi_ = torch.as_tensor(maxval, dtype=dtype, device=k.device)
+        lo_, hi_ = _on(minval, dtype, k.device), _on(maxval, dtype, k.device)
+        return torch.maximum(lo_, floats * (hi_ - lo_) + lo_)
+    raise TypeError(f"uniform: dtype must be torch.float32 or torch.float64, got {dtype}")
+
+
+def _unit_floats(b: torch.Tensor, device, minval, maxval) -> torch.Tensor:
+    """float32 uniforms on ``[minval, maxval)`` from 32-bit draws ``b``:
+    the top 23 bits under an exponent of 1, less 1, scaled and shifted with
+    XLA's fused multiply-add, clipped below at ``minval``."""
+    floats = (b >> 9).to(torch.float32) * (2.0 ** -23)
+    lo_, hi_ = _on(minval, torch.float32, device), _on(maxval, torch.float32, device)
     return torch.maximum(lo_, _fma(floats, hi_ - lo_, lo_))
 
 
@@ -387,7 +468,7 @@ def randint(k: torch.Tensor, shape=(), minval=0, maxval=None) -> torch.Tensor:
     if maxval is None:
         raise TypeError("randint: maxval is required")
     shape = _shape(shape)
-    lo_, hi_ = (torch.as_tensor(v, dtype=torch.int64, device=k.device) for v in (minval, maxval))
+    lo_, hi_ = (_on(v, torch.int64, k.device) for v in (minval, maxval))
     out_of_range = hi_ > _I32_MAX
     lo_, hi_ = lo_.clamp(_I32_MIN, _I32_MAX), hi_.clamp(_I32_MIN, _I32_MAX)
     k1, k2 = split(k).unbind(-2)
@@ -413,9 +494,64 @@ def bernoulli(k: torch.Tensor, p=0.5, shape=None) -> torch.Tensor:
     ``jax.random.bernoulli``: float32 uniforms below ``p``. ``shape``
     defaults to ``p``'s."""
     _check(k, "bernoulli")
-    p = torch.as_tensor(p, dtype=torch.float32, device=k.device)
+    p = _on(p, torch.float32, k.device)
     shape = tuple(p.shape) if shape is None else _shape(shape)
     return uniform(k, shape) < p
+
+
+_TINY32 = torch.finfo(torch.float32).tiny
+
+#: The most gumbel draws ``categorical`` makes at once: a larger draw is made
+#: in slices of its leading axis, each alone (the bits depend on an
+#: element's position only), so memory stays bounded.
+CATEGORICAL_CHUNK = 2**22
+
+
+def _gumbel_of(b: torch.Tensor, device) -> torch.Tensor:
+    return -torch.log(-torch.log(_unit_floats(b, device, _TINY32, 1.0)))
+
+
+def gumbel(k: torch.Tensor, shape=()) -> torch.Tensor:
+    """Standard Gumbel draws in float32, as ``jax.random.gumbel`` (its
+    default ``mode="low"``): ``-log(-log(u))`` of uniforms on ``[tiny,
+    1)``."""
+    _check(k, "gumbel")
+    return _gumbel_of(bits(k, shape), k.device)
+
+
+def categorical(k: torch.Tensor, logits, axis: int = -1, shape=None) -> torch.Tensor:
+    """Draws from ``softmax(logits, axis)``, as ``jax.random.categorical``
+    (with replacement): the argmax of ``logits`` plus Gumbel noise of shape
+    ``(*prefix, *logits_shape)``, where ``shape`` (the batch shape of
+    ``logits`` without ``axis`` by default) is ``prefix`` before that
+    batch shape. int64, of shape ``shape``; one key. A noise of more than
+    ``CATEGORICAL_CHUNK`` elements is made in slices of its leading axis,
+    which draw what the whole does."""
+    _check(k, "categorical")
+    if k.dim() != 1:
+        raise ValueError(f"categorical: expected one key, got a batch of shape {tuple(k.shape[:-1])}")
+    logits = torch.as_tensor(logits, device=k.device)
+    if not logits.is_floating_point():
+        logits = logits.to(torch.float32)
+    nd = logits.dim()
+    axis = axis % nd
+    batch = tuple(logits.shape[:axis]) + tuple(logits.shape[axis + 1 :])
+    shape = batch if shape is None else _shape(shape)
+    if tuple(shape[len(shape) - len(batch) :]) != batch:
+        raise ValueError(f"categorical: shape {shape} must end with the logits' batch shape {batch}")
+    prefix = tuple(shape[: len(shape) - len(batch)])
+    noise_shape = prefix + batch[:axis] + (logits.shape[axis],) + batch[axis:]
+    red = axis - nd  # the category axis, counted from the end
+    if not prefix or math.prod(noise_shape) <= CATEGORICAL_CHUNK:
+        return torch.argmax(_gumbel_of(_bits(k, noise_shape), k.device) + logits, dim=red)
+    inner = math.prod(noise_shape[1:])
+    rows = max(1, CATEGORICAL_CHUNK // max(inner, 1))
+    out = []
+    for r0 in range(0, noise_shape[0], rows):
+        r1 = min(noise_shape[0], r0 + rows)
+        b = _bits(k, (r1 - r0,) + noise_shape[1:], start=r0 * inner, lane=math.prod(noise_shape))
+        out.append(torch.argmax(_gumbel_of(b, k.device) + logits, dim=red))
+    return torch.cat(out, dim=0)
 
 
 # ----------------------------------------------------------------------
@@ -436,14 +572,21 @@ def _any(mask: torch.Tensor) -> bool:
     return bool(mask.any())
 
 
-_TINY32 = torch.finfo(torch.float32).tiny
-
-
 def _flush(x: torch.Tensor) -> torch.Tensor:
     """``x`` with its subnormal values made 0, as XLA computes on the CPU
     (and a TPU, which has no subnormals): where a gamma draw or its boost
     underflows past float32's smallest normal, the reference's is 0."""
     return torch.where(x.abs() < _TINY32, torch.zeros_like(x), x)
+
+
+def _each_uniform(k: torch.Tensor, minval: float = 0.0) -> torch.Tensor:
+    """One float32 uniform on ``[minval, 1)`` under each key of the batch
+    ``k``, as ``uniform(k, (), minval=minval)``, but each rbg key draws its
+    own under ``torch.func.vmap`` too: ``jax.random.gamma`` maps its sampler
+    over the keys with ``lax.map``, not ``vmap``, so JAX's batching rule for
+    an rbg draw (``_rbg_op``) does not apply."""
+    b = _rbg_bits(k, ()) if k.shape[-1] == 4 else _bits(k, ())
+    return _unit_floats(b, k.device, minval, 1.0)
 
 
 def _gamma_one(k: torch.Tensor, alpha: torch.Tensor, log_space: bool) -> torch.Tensor:
@@ -477,27 +620,27 @@ def _gamma_one(k: torch.Tensor, alpha: torch.Tensor, log_space: bool) -> torch.T
         inner = active.clone()
         while _any(inner):
             kx_next, k_x = split(kx).unbind(-2)
-            x_new = normal(k_x, ())
+            x_new = math.sqrt(2.0) * erfinv(_each_uniform(k_x, _NORMAL_LOW))
             v_new = 1.0 + x_new * c
             kx = torch.where(inner[:, None], kx_next, kx)
             x, v = torch.where(inner, x_new, x), torch.where(inner, v_new, v)
             inner = inner & (v <= 0.0)
-        U_new = uniform(k_u, ())
+        U_new = _each_uniform(k_u)
         k = torch.where(active[:, None], k_next, k)
         X, V, U = (torch.where(active, new, old) for new, old in ((x * x, X), (v * v * v, V), (U_new, U)))
         active = active & rejected(X, V, U)
     inv_alpha = 1.0 / alpha_orig
     if log_space:
-        log_samples = torch.log1p(-uniform(sub_key, ()))
+        log_samples = torch.log1p(-_each_uniform(sub_key))
         log_boost = torch.where(boost_mask | (log_samples == 0.0), 0.0, log_samples * inv_alpha)
         return torch.log(d) + torch.log(V) + log_boost
-    samples = 1.0 - uniform(sub_key, ())
+    samples = 1.0 - _each_uniform(sub_key)
     boost = torch.where(boost_mask, 1.0, _flush(torch.pow(samples, inv_alpha)))
     return _flush(d * V * boost)
 
 
 def _float32(x, k: torch.Tensor) -> torch.Tensor:
-    return torch.as_tensor(x, dtype=torch.float32, device=k.device)
+    return _on(x, torch.float32, k.device)
 
 
 def gamma(k: torch.Tensor, a, shape=None, log_space: bool = False) -> torch.Tensor:

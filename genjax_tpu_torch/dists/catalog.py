@@ -1156,14 +1156,10 @@ def _key_logistic(key, loc=0.0, scale=1.0, **kw):
     return loc + scale * (torch.log(x) - torch.log1p(-x))
 
 
-def _key_std_gumbel(key, shape):
-    return -torch.log(-torch.log(keys.uniform(key, shape, minval=_TINY, maxval=1.0)))
-
-
 @_keyed("gumbel")
 def _key_gumbel(key, loc=0.0, scale=1.0, **kw):
     loc, scale = _tensors(loc, scale, device=key.device)
-    return loc + scale * _key_std_gumbel(key, _bshape(_shape(kw), loc, scale))
+    return loc + scale * keys.gumbel(key, _bshape(_shape(kw), loc, scale))
 
 
 @_keyed("uniform")
@@ -1228,8 +1224,7 @@ def _key_flip(key, p, **kw):
 def _key_categorical(key, logits, **kw):
     """``jax.random.categorical``: the Gumbel-max trick over the last axis."""
     (logits,) = _tensors(logits, device=key.device)
-    shape = _bshape(_shape(kw), tuple(logits.shape[:-1])) + tuple(logits.shape[-1:])
-    return torch.argmax(_key_std_gumbel(key, shape) + logits, dim=-1)
+    return keys.categorical(key, logits, shape=_bshape(_shape(kw), tuple(logits.shape[:-1])))
 
 
 @_keyed("geometric")

@@ -25,6 +25,7 @@ from typing import Any
 
 import torch
 
+from ..core import keys
 from ..core.pytree import Pytree
 from ..core.scan import associative_scan, reverse_scan
 from ..generative.mask import Mask
@@ -209,23 +210,36 @@ def kalman_smoother(params: LGSSMParams, ys):
 
 def ffbs(gen: torch.Generator, params: LGSSMParams, ys):
     """Forward-filtering backward-sampling: one exact joint draw ``z_{0:T-1}
-    ~ p(z | y)``. Returns ``(zs (T, Dz), log_marginal)``."""
+    ~ p(z | y)``. Returns ``(zs (T, Dz), log_marginal)``. Under a key the
+    last state draws under ``split(key)[0]`` and state ``t`` under
+    ``split(split(key)[1], T - 1)[t]``, as the reference's reverse scan
+    does; a generator is drawn from in sequence."""
     A, Q = params.A, params.Q
     means_f, covs_f, log_marginal = kalman_filter(params, ys)
+    T = ys.shape[0]
+    if keys.is_key(gen):
+        k_last, k_rest = keys.split(gen).unbind(-2)
+        step_keys = keys.split(k_rest, T - 1).unbind(-2) if T > 1 else ()
+        streams = list(step_keys) + [k_last]
+    else:
+        streams = [gen] * T
 
-    def draw(mean, cov):
-        z = torch.randn(mean.shape, generator=gen, device=gen.device, dtype=mean.dtype)
+    def draw(g, mean, cov):
+        if keys.is_key(g):
+            z = keys.normal(g, mean.shape).to(mean.dtype)
+        else:
+            z = torch.randn(mean.shape, generator=g, device=g.device, dtype=mean.dtype)
         return mean + cholesky_or_nan(cov) @ z
 
-    z_next = draw(means_f[-1], covs_f[-1])
+    z_next = draw(streams[-1], means_f[-1], covs_f[-1])
     zs = [z_next]
-    for t in range(ys.shape[0] - 2, -1, -1):
+    for t in range(T - 2, -1, -1):
         mean_f, cov_f = means_f[t], covs_f[t]
         cov_pred = A @ cov_f @ A.T + Q
         gain = torch.linalg.solve(cov_pred, A @ cov_f).T
         mean_c = mean_f + gain @ (z_next - A @ mean_f)
         cov_c = cov_f - gain @ A @ cov_f
-        z_next = draw(mean_c, 0.5 * (cov_c + cov_c.T))  # symmetrised for the factor
+        z_next = draw(streams[t], mean_c, 0.5 * (cov_c + cov_c.T))  # symmetrised for the factor
         zs.append(z_next)
     return torch.stack(zs[::-1]), log_marginal
 

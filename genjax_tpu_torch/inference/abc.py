@@ -6,7 +6,7 @@ Counterpart of ``genjax_tpu/inference/abc.py``: ``ABCRejectionResult``,
 program and whose likelihood is never evaluated.
 
 - ``abc_rejection`` simulates the prior predictive as one
-  ``torch.func.vmap(..., randomness="different")`` of ``model.simulate`` and
+  ``torch.func.vmap`` of ``model.simulate`` (``keys.vmap_streams``) and
   returns every choice map in one vectorised ``Mask`` whose flag marks
   acceptance (Pritchard et al. 1999).
 - ``abc_smc`` is the adaptive tolerance ladder (Del Moral, Doucet & Jasra
@@ -21,8 +21,15 @@ program and whose likelihood is never evaluated.
 
 The generations and moves are Python loops (the reference's ``lax.scan``);
 nothing is read to the host inside them. Both entry points make their
-simulations on ``device``, the card unless the caller asks for the CPU, and
-draw from one ``torch.Generator`` there.
+simulations on ``device``, the card unless the caller asks for the CPU.
+Under a key (``core/keys.py``) they split it as the reference does and draw
+its draws: simulation ``i`` under the ``i``-th of ``split(key,
+n_samples)``; ABC-SMC's ``k_init, k_gens = split(key)``, the initial
+particles under ``split(k_init, N)`` and their prior scores under
+``split(fold_in(k_init, 1), N)``, generation ``g`` under ``split(k_gens,
+n_generations)[g]``, split into its resample and move keys, and each move's
+key in three (the perturbation, the re-simulations, the accepts). A
+``torch.Generator`` (an int seed makes one) is drawn from in sequence.
 
 >>> import torch
 >>> import genjax_tpu_torch as g
@@ -43,16 +50,13 @@ from typing import Any, Callable, Sequence
 
 import torch
 
-from ..core.device import entry_generator, to_device
+from ..core import keys
+from ..core.device import to_device
 from ..core.pytree import Pytree
 from ..generative.gfi import GenerativeFunction
 from ..generative.mask import Mask
 from ..kernels.model_interface import ColumnPacker
 from ..parallel.resampling import resample_particles
-
-
-def _vmap(fn, **kw):
-    return torch.func.vmap(fn, randomness="different", **kw)
 
 
 @Pytree.dataclass
@@ -79,14 +83,14 @@ def abc_rejection(
     those whose ``distance_fn(trace)`` is within ``tolerance``. All the
     choice maps come back, in one vectorised ``Mask`` whose flag marks
     acceptance: filter with ``result.choices.flag`` downstream."""
-    gen, device = entry_generator(gen, device, "abc_rejection")
+    gen, device = keys.entry_stream(gen, device, "abc_rejection")
     args = to_device(args, device)
 
-    def one(_):
-        tr = model.simulate(gen, args)
+    def one(g):
+        tr = model.simulate(g, args)
         return tr.get_choices(), distance_fn(tr)
 
-    chms, d = _vmap(one)(torch.zeros(n_samples, device=device))
+    chms, d = keys.vmap_streams(one, gen, n_samples)()
     accept = d <= tolerance
     return ABCRejectionResult(Mask(chms, accept), d, accept.to(torch.float32).mean())
 
@@ -132,7 +136,8 @@ def abc_smc(
     Gaussian proposal of ``proposal_scale`` times the population variance.
     Returns the result and the ``ColumnPacker``: unpack a particle with
     ``packer.unpack(result.params[:, j])``."""
-    gen, device = entry_generator(gen, device, "abc_smc")
+    gen, device = keys.entry_stream(gen, device, "abc_smc")
+    keyed = keys.is_key(gen)
     args = to_device(args, device)
     if packer is None:
         packer = ColumnPacker(model, None, args, list(addresses))
@@ -140,34 +145,44 @@ def abc_smc(
     # the padding dimensions carry no parameter: they do not move
     real = (torch.arange(packer.padded_dim, device=device) < packer.dim).to(torch.float32)[:, None]
 
-    def sim_one(q):
+    def sim_one(g, q):
         """Re-simulate under the parameter column ``q``: the weight is the
         parameters' prior log-density (the data are not constrained)."""
-        tr, w = model.generate(gen, packer.unpack(q), args)
+        tr, w = model.generate(g, packer.unpack(q), args)
         return w, distance_fn(tr)
 
-    def init_one(_):
-        tr = model.simulate(gen, args)
+    def init_one(g):
+        tr = model.simulate(g, args)
         return packer.pack(tr.get_choices()), distance_fn(tr)
 
-    simulate = _vmap(sim_one, in_dims=1)
-    q, d = _vmap(init_one, out_dims=(1, 0))(torch.zeros(n, device=device))
+    def simulate(g, q):
+        return keys.vmap_streams(sim_one, g, n, in_dims=(1,))(q)
+
+    if keyed:
+        k_init, k_gens = keys.split(gen).unbind(-2)
+        gens = [tuple(ks.unbind(0)) for ks in keys.split(keys.split(k_gens, n_generations)).unbind(0)]
+        k_scores = keys.fold_in(k_init, 1)
+    else:
+        k_init = k_scores = gen
+        gens = [(gen, gen)] * n_generations
+    q, d = keys.vmap_streams(init_one, k_init, n, out_dims=(1, 0))()
     # the prior scores of the initial columns, through the path MH uses
-    prior_w, _ = simulate(q)
+    prior_w, _ = simulate(k_scores, q)
     eps = torch.tensor(float("inf"), device=device)
     prev_acc = torch.tensor(1.0, device=device)
     eps_hist, acc_hist = [], []
-    for _ in range(n_generations):
+    for k_res, k_mh in gens:
         eps = torch.where(prev_acc >= min_accept, torch.minimum(torch.quantile(d, quantile), eps), eps)
         log_w = torch.where(d <= eps, 0.0, float("-inf"))
-        qT, prior_w, d = resample_particles(gen, (q.T, prior_w, d), log_w, n, method)
+        qT, prior_w, d = resample_particles(k_res, (q.T, prior_w, d), log_w, n, method)
         q = qT.T
         sigma = torch.sqrt(proposal_scale * torch.var(q, dim=1, keepdim=True, correction=0) + 1e-12) * real
         accs = []
-        for _ in range(mh_moves):
-            q_prop = q + sigma * torch.randn(q.shape, generator=gen, device=device)
-            w_prop, d_prop = simulate(q_prop)
-            log_u = torch.log(torch.rand(n, generator=gen, device=device))
+        moves = keys.split(keys.split(k_mh, mh_moves), 3).unbind(0) if keyed else [(gen,) * 3] * mh_moves
+        for k_prop, k_sim, k_acc in (tuple(m.unbind(0)) if keyed else m for m in moves):
+            q_prop = q + sigma * keys.normal_from(k_prop, q.shape, device)
+            w_prop, d_prop = simulate(k_sim, q_prop)
+            log_u = torch.log(keys.uniform_from(k_acc, (n,), device))
             accept = (log_u < w_prop - prior_w) & (d_prop <= eps)
             q = torch.where(accept[None, :], q_prop, q)
             prior_w = torch.where(accept, w_prop, prior_w)

@@ -18,12 +18,23 @@ a step of the constrained walk hands every run's proposal to the column
 densities at once, as one ``(D, n_runs)`` call. A step is thus one set of
 launches, however many runs there are, and nothing is read to the host.
 
+Under a key (``core/keys.py``) the runs are the reference's draw for draw:
+each run draws under its element of ``split(key, n_runs)``, as the
+reference's vmap over runs: ``k_init, k_scan = split(run key)``,
+``sample_prior(k_init, n_live)``, and iteration ``i``'s pick and walk from
+``split(split(k_scan, n_iter)[i])``, the walk's step ``m`` from
+``split(split(k_mcmc, n_mcmc)[m])``. Every run's picks, normals and
+uniforms are made at once (one ``torch.func.vmap`` over the run keys, in a
+few hashes however many iterations); then the runs walk as one batch, in
+the loop a generator drives.
+
 ``column_nested_sampling`` bridges ``@gen`` models: the prior density over
 a packed column is the ``generate`` weight under the latents alone, and the
 likelihood the joint column density minus it, so the padding rows cancel
 and contribute a factor 1 to the evidence. Both entry points run on
 ``device``, the card unless the caller asks for the CPU, and draw from one
-``torch.Generator`` there (``sample_prior(gen, n)`` is handed it).
+``torch.Generator`` there (``sample_prior(gen, n)`` is handed it), or from
+a key placed there (``sample_prior(key, n)``).
 
 >>> import math, torch
 >>> from genjax_tpu_torch.inference import nested_sampling
@@ -45,7 +56,8 @@ from typing import Any, Callable
 
 import torch
 
-from ..core.device import entry_generator, to_device
+from ..core import keys
+from ..core.device import to_device
 from ..core.pytree import Pytree
 from ..generative.choice_map import ChoiceMap
 from ..kernels.model_interface import ColumnPacker, packed_prior_draws, tempered_factors
@@ -92,9 +104,12 @@ class NestedSamplingResult(Pytree):
 
     def resample_posterior(self, gen: torch.Generator, n: int):
         """``n`` equally weighted posterior draws ``(n, D)``: a categorical
-        resample of the pooled dead points by their weights."""
+        resample of the pooled dead points by their weights (under a key,
+        the reference's ``categorical(key, logits, shape=(n,))``)."""
         r, n_iter, d_dim = self.dead.shape
         logits = self.dead_log_weight.reshape(-1)
+        if keys.is_key(gen):
+            return self.dead.reshape(r * n_iter, d_dim)[keys.categorical(gen, logits, shape=(n,))]
         probs = torch.exp(logits - torch.max(logits))
         idx = torch.multinomial(probs, n, replacement=True, generator=gen)
         return self.dead.reshape(r * n_iter, d_dim)[idx]
@@ -150,31 +165,44 @@ def nested_sampling(
         step_scale: the initial proposal scale, in units of the live set's
             standard deviation; it tunes itself toward 35% acceptance.
     """
-    gen, device = entry_generator(gen, device, "nested_sampling")
+    gen, device = keys.entry_stream(gen, device, "nested_sampling")
     r = n_runs
     rows = torch.arange(r, device=device)
-    q = torch.as_tensor(sample_prior(gen, r * n_live), dtype=torch.float32).to(device)
-    d = q.shape[0]
-    lp = log_prior(q).reshape(r, n_live).clone()
-    ll = log_lik(q).reshape(r, n_live).clone()
-    q = q.reshape(d, r, n_live).permute(1, 0, 2).contiguous()  # (R, D, n_live)
+    if keys.is_key(gen):
+        q, pick, propose, log_u = _key_draws(sample_prior, gen, n_live, n_iter, n_mcmc, r)
+        cols = q.permute(1, 0, 2).reshape(q.shape[1], r * n_live)
+    else:
+        cols = torch.as_tensor(sample_prior(gen, r * n_live), dtype=torch.float32).to(device)
+
+        def pick(i):
+            return torch.randint(0, n_live, (r,), generator=gen, device=device)
+
+        def propose(i, m, qq, step):
+            return qq + step * torch.randn(qq.shape, generator=gen, device=device)
+
+        def log_u(i, m):
+            return torch.log(torch.rand(r, generator=gen, device=device))
+
+    d = cols.shape[0]
+    lp = log_prior(cols).reshape(r, n_live).clone()
+    ll = log_lik(cols).reshape(r, n_live).clone()
+    q = cols.reshape(d, r, n_live).permute(1, 0, 2).contiguous()  # (R, D, n_live)
     eps = torch.full((r,), step_scale, dtype=torch.float32, device=device)
     dead_q, dead_ll, accs = [], [], []
-    for _ in range(n_iter):
+    for i in range(n_iter):
         i_min = torch.argmin(ll, dim=1)
         l_min = ll[rows, i_min]
-        j = torch.randint(0, n_live, (r,), generator=gen, device=device)
+        j = pick(i)
         j = torch.where(j == i_min, (j + 1) % n_live, j)
         sigma = torch.std(q, dim=2, correction=0) + 1e-12  # (R, D)
         qq, qlp, qll = q[rows, :, j], lp[rows, j], ll[rows, j]
         n_acc = torch.zeros(r, device=device)
         step = eps[:, None] * sigma
-        for _ in range(n_mcmc):
-            prop = qq + step * torch.randn((r, d), generator=gen, device=device)
+        for m in range(n_mcmc):
+            prop = propose(i, m, qq, step)
             cols = prop.T  # every run's proposal in one column call
             plp, pll = log_prior(cols), log_lik(cols)
-            log_u = torch.log(torch.rand(r, generator=gen, device=device))
-            ok = (log_u < plp - qlp) & (pll > l_min)
+            ok = (log_u(i, m) < plp - qlp) & (pll > l_min)
             qq = torch.where(ok[:, None], prop, qq)
             qlp = torch.where(ok, plp, qlp)
             qll = torch.where(ok, pll, qll)
@@ -203,6 +231,28 @@ def nested_sampling(
     )
 
 
+def _key_draws(sample_prior, key, n_live, n_iter, n_mcmc, n_runs):
+    """The reference's draws of every run under ``split(key, n_runs)``,
+    made at once: the runs' live points ``(R, D, n_live)`` and the walk's
+    draws as ``nested_sampling``'s ``pick(i)``, ``propose(i, m, qq, step)``
+    and ``log_u(i, m)``."""
+
+    def run(run_key):
+        k_init, k_scan = keys.split(run_key).unbind(-2)
+        q = torch.as_tensor(sample_prior(k_init, n_live), dtype=torch.float32)
+        k_pick, k_mcmc = keys.split(keys.split(k_scan, n_iter)).unbind(-2)
+        k_noise, k_u = keys.split(keys.split(k_mcmc, n_mcmc)).unbind(-2)
+        return (q, keys.randint(k_pick, (), 0, n_live), keys.normal(k_noise, (q.shape[0],)),
+                torch.log(keys.uniform(k_u, ())))
+
+    q, picks, noise, log_us = torch.func.vmap(run)(keys.split(key, n_runs))
+
+    def propose(i, m, qq, step):
+        return keys._fma(step, noise[:, i, m], qq)  # XLA fuses the step into one multiply-add
+
+    return q, (lambda i: picks[:, i]), propose, (lambda i, m: log_us[:, i, m])
+
+
 def column_nested_sampling(
     model,
     constraint,
@@ -220,15 +270,25 @@ def column_nested_sampling(
     """Nested sampling over a model's continuous latents in the column
     layout. Returns ``(result, packer)``: ``result.log_z`` estimates ``log
     p(constraint)`` and ``packer.unpack`` decodes points to choice maps."""
-    gen, device = entry_generator(gen, device, "column_nested_sampling")
+    gen, device = keys.entry_stream(gen, device, "column_nested_sampling")
     if constraint is None:
         constraint = ChoiceMap.empty()
     constraint, args = to_device(constraint, device), to_device(args, device)
     packer = ColumnPacker(model, constraint, args, addresses)
     prior_cols, lik_cols = tempered_factors(model, constraint, args, packer, device)
+    n_pad = packer.padded_dim - packer.dim
 
     def sample_prior(g, n):
-        return packed_prior_draws(g, model, constraint, args, packer, n, device)
+        if not keys.is_key(g):
+            return packed_prior_draws(g, model, constraint, args, packer, n, device)
+
+        def init_one(kk):
+            # the reference's draw: generate under the first half, the padding rows' normals under the second
+            k_tr, k_pad = keys.split(kk).unbind(-2)
+            q = packer.pack(model.generate(k_tr, constraint, args)[0].get_choices())
+            return torch.cat([q[: packer.dim], keys.normal(k_pad, (n_pad,))]) if n_pad else q
+
+        return torch.func.vmap(init_one, out_dims=1)(keys.split(g, n))
 
     result = nested_sampling(
         sample_prior, prior_cols, lik_cols, gen, n_live=n_live, n_iter=n_iter, n_mcmc=n_mcmc,

@@ -11,8 +11,16 @@ unbiased marginal-likelihood estimate). A sweep is a Python loop over time
 with the K particles vmapped per step, where the reference runs
 ``lax.scan``; the ancestral trace-back is a reverse loop over int64
 ancestor indices, and the multinomial resampling is
-``parallel.resampling.multinomial_indices``. One ``torch.Generator``,
-drawn in sequence, takes the place of the reference's keys.
+``parallel.resampling.multinomial_indices``.
+
+Under a key (``core/keys.py``) each function splits it as the reference
+does and draws its draws: a sweep's step ``t`` takes ``k_anc, k_ext, k_ret,
+k_pgas, k_proj = split(fold_in(scan_key, t), 5)`` (made for every step in
+two hashes), the ancestors are ``categorical(k_anc, log_w, shape=(K,))``,
+particle ``i`` extends under the ``i``-th of ``split(k_ext, K)``, and the
+trace-back starts from ``categorical(final_key, log_w)``. A
+``torch.Generator`` (an int seed makes one) is drawn from in sequence where
+the reference splits a key.
 
 >>> import torch
 >>> import genjax_tpu_torch as g
@@ -33,7 +41,8 @@ from typing import Any
 import torch
 import torch.utils._pytree as pytree
 
-from ..core.device import entry_generator, to_device
+from ..core import keys
+from ..core.device import to_device
 from ..core.pytree import Pytree
 from ..dists import categorical
 from ..generative.choice_map import ChoiceMap
@@ -117,6 +126,7 @@ def csmc_sweep(
     schedule."""
     k = n_particles
     dev = gen.device
+    keyed = keys.is_key(gen)
     init_carry, xs, obs, retained = to_device((init_carry, xs, obs, retained), dev)
     leaves = [v for v in pytree.tree_leaves(xs) if isinstance(v, torch.Tensor)]
     t_count = leaves[0].shape[0] if leaves else n_steps
@@ -126,9 +136,17 @@ def csmc_sweep(
     def x_at(t):
         return pytree.tree_map(lambda v: v[t], xs) if leaves else None
 
-    def extend_free(c, t, x):
-        tr, w = kernel.generate(gen, obs.get_submap(t), (c, x))
+    def extend_free(g, c, t, x):
+        tr, w = kernel.generate(g, obs.get_submap(t), (c, x))
         return tr.get_retval()[0], w, tr.get_choices().filter_eager(latent_selection)
+
+    if keyed:
+        scan_key, final_gen = keys.split(gen).unbind(-2)
+        step_keys = keys.split(keys.fold_in(scan_key, torch.arange(t_count, device=dev)), 5)
+        streams = [tuple(ks.unbind(0)) for ks in step_keys.unbind(0)]
+    else:
+        final_gen = gen
+        streams = [(gen,) * 5] * t_count
 
     carries = pytree.tree_map(
         lambda v: torch.as_tensor(v, device=dev).expand((k,) + tuple(torch.as_tensor(v).shape)).clone(), init_carry)
@@ -136,33 +154,32 @@ def csmc_sweep(
     log_z = torch.zeros((), device=dev)
     log_k = math.log(k)
     lat_hist, anc_hist = [], []
-    for t in range(t_count):
+    for t, (k_anc, k_ext, k_ret, k_pgas, k_proj) in enumerate(streams):
         x = x_at(t)
         ret_t = None if retained is None else pytree.tree_map(lambda v: v[t], retained)
         # resample ancestors from the current weights
         log_z = log_z + torch.logsumexp(log_w, dim=0) - log_k
-        anc = multinomial_indices(gen, log_w, k)
+        anc = keys.categorical(k_anc, log_w, shape=(k,)) if keyed else multinomial_indices(gen, log_w, k)
         if ret_t is not None:
             if ancestor_sampling:
                 # PGAS: the retained slot's ancestor by w_j p(ret_t | c_j);
                 # assess scores the observation too, a constant across j
                 full_t = ret_t | obs.get_submap(t)
                 lp_trans = torch.func.vmap(lambda c: kernel.assess(full_t, (c, x))[0])(carries)
-                a_ret = categorical.sample(gen, log_w + lp_trans)
+                a_ret = categorical.sample(k_pgas, log_w + lp_trans)
             else:
                 a_ret = torch.tensor(k - 1, device=dev)
             anc = torch.cat([anc[:-1], a_ret.reshape(1)])
         parents = _take0(carries, anc)
         # extend every particle through the kernel
-        carries, ws, lats = torch.func.vmap(extend_free, in_dims=(0, None, None), randomness="different")(
-            parents, t, x)
+        carries, ws, lats = keys.vmap_streams(extend_free, k_ext, k, in_dims=(0, None, None))(parents, t, x)
         if ret_t is not None:
             # slot K-1 takes the retained latents; its bootstrap weight is
             # the observation's density alone: generate scores the latents
             # and the observation, and project subtracts the latents' prior
             parent_ret = pytree.tree_map(lambda v: v[-1], parents)
-            tr_ret, w_full = kernel.generate(gen, ret_t | obs.get_submap(t), (parent_ret, x))
-            proj = tr_ret.project(gen, latent_selection)
+            tr_ret, w_full = kernel.generate(k_ret, ret_t | obs.get_submap(t), (parent_ret, x))
+            proj = tr_ret.project(k_proj, latent_selection)
             carries = _set_last(carries, tr_ret.get_retval()[0])
             ws = torch.cat([ws[:-1], (w_full - proj).reshape(1)])
             lats = _set_last(lats, ret_t)
@@ -173,7 +190,7 @@ def csmc_sweep(
 
     # the ancestral trace-back: anc_hist[t] maps a slot at step t to its
     # parent slot at step t-1; walk back from a draw on the final weights
-    b = categorical.sample(gen, log_w)
+    b = categorical.sample(final_gen, log_w)
     path = [b]
     for t in range(t_count - 1, 0, -1):
         b = anc_hist[t][b]
@@ -207,12 +224,17 @@ def particle_gibbs(
     without a card the default raises); ``gen`` is a generator there or an
     int seed. Returns every sweep's trajectory (leaves ``(n_sweeps, T,
     ...)``); burn in and thin at the call site."""
-    gen, device = entry_generator(gen, device, "particle_gibbs")
+    gen, device = keys.entry_stream(gen, device, "particle_gibbs")
     kw = dict(latent_selection=latent_selection, n_particles=n_particles, n_steps=n_steps)
-    retained = csmc_sweep(gen, kernel, init_carry, xs, obs, None, **kw).retained
+    if keys.is_key(gen):
+        init_gen, sweep_key = keys.split(gen).unbind(-2)
+        sweep_gens = keys.split(sweep_key, n_sweeps).unbind(-2)
+    else:
+        init_gen, sweep_gens = gen, [gen] * n_sweeps
+    retained = csmc_sweep(init_gen, kernel, init_carry, xs, obs, None, **kw).retained
     trajs, log_zs = [], []
-    for _ in range(n_sweeps):
-        out = csmc_sweep(gen, kernel, init_carry, xs, obs, retained, ancestor_sampling=ancestor_sampling, **kw)
+    for sweep_gen in sweep_gens:
+        out = csmc_sweep(sweep_gen, kernel, init_carry, xs, obs, retained, ancestor_sampling=ancestor_sampling, **kw)
         retained = out.retained
         trajs.append(retained)
         log_zs.append(out.log_marginal)
@@ -240,7 +262,8 @@ def pmmh(
     without a card the default raises); ``gen`` is a generator there or an
     int seed. ``step_scales`` is a scalar or a pytree matching
     ``init_params``."""
-    gen, device = entry_generator(gen, device, "pmmh")
+    gen, device = keys.entry_stream(gen, device, "pmmh")
+    keyed = keys.is_key(gen)
     params = pytree.tree_map(lambda v: torch.as_tensor(v, device=device), init_params)
     leaves, spec = pytree.tree_flatten(params)
     scale_leaves = pytree.tree_leaves(step_scales)
@@ -251,14 +274,26 @@ def pmmh(
     def score(fn, *a):
         return torch.as_tensor(fn(*a), device=device).to(torch.float32)
 
-    lp, lz = score(log_prior_fn, params), score(log_z_fn, gen, params)
+    if keyed:
+        k_init, k_chain = keys.split(gen).unbind(-2)
+        steps = [tuple(ks.unbind(0)) for ks in keys.split(keys.split(k_chain, n_steps), 3).unbind(0)]
+    else:
+        k_init, steps = gen, [(gen,) * 3] * n_steps
+
+    def noise(g, v, i):
+        dtype = torch.promote_types(v.dtype, torch.float32)
+        if keyed:
+            return keys.normal(keys.split(g, len(scales))[i], v.shape).to(dtype)
+        return torch.randn(v.shape, generator=g, device=device, dtype=dtype)
+
+    lp, lz = score(log_prior_fn, params), score(log_z_fn, k_init, params)
     chain, lps, lzs, accepts = [], [], [], []
-    for _ in range(n_steps):
+    for k_prop, k_z, k_acc in steps:
         prop = pytree.tree_unflatten(
-            [v + s * torch.randn(v.shape, generator=gen, device=device, dtype=torch.promote_types(v.dtype, torch.float32))
-             for v, s in zip(pytree.tree_leaves(params), scales)], spec)
-        lp_new, lz_new = score(log_prior_fn, prop), score(log_z_fn, gen, prop)
-        accept = torch.log(torch.rand((), generator=gen, device=device)) < (lp_new + lz_new) - (lp + lz)
+            [v + s * noise(k_prop, v, i) for i, (v, s) in enumerate(zip(pytree.tree_leaves(params), scales))], spec)
+        lp_new, lz_new = score(log_prior_fn, prop), score(log_z_fn, k_z, prop)
+        log_u = torch.log(keys.uniform(k_acc) if keyed else torch.rand((), generator=k_acc, device=device))
+        accept = log_u < (lp_new + lz_new) - (lp + lz)
         params, lp, lz = pytree.tree_map(lambda a, b: torch.where(accept, a, b), (prop, lp_new, lz_new),
                                          (params, lp, lz))
         chain.append(params)

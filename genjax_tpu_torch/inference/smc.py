@@ -5,17 +5,23 @@ Counterpart of ``genjax_tpu/inference/smc.py``: ``ParticleCollection``,
 ``SMCAlgorithm``, ``Importance``, ``ImportanceK`` (``run_csmc`` keeps the
 retained particle in the last slot) and ``ChangeTarget``. A collection is
 one pytree whose leaves carry the particle axis first; the particles are
-one ``torch.func.vmap(..., randomness="different")`` over the particle
-index, where the reference vmaps over split keys.
+one ``torch.func.vmap`` (``keys.vmap_streams``): over split keys, as the
+reference's, or over the particle index beside one generator.
 
 The methods that make particles from a seed (``run_smc``, ``run_csmc``,
 ``log_marginal_likelihood_estimate``, ``estimate_normalizing_constant``,
 ``estimate_reciprocal_normalizing_constant`` and
-``run_csmc_for_normalizing_constant``) take a ``torch.Generator`` or an int
-seed and ``device``, the card unless the caller asks for the CPU, and move
-the algorithm's target there. As distributions, ``random_weighted`` and
-``estimate_logpdf`` run where their generator lives, as the GFI does. One
-generator is drawn from in sequence where the reference splits a key.
+``run_csmc_for_normalizing_constant``) take a key (``core/keys.py``), a
+``torch.Generator`` or an int seed, and ``device``, the card unless the
+caller asks for the CPU, and move the algorithm's target (and a key) there.
+As distributions, ``random_weighted`` and ``estimate_logpdf`` run where
+their key or generator lives, as the GFI does.
+
+Under a key every method splits it as the reference does, and particle
+``i`` draws under the ``i``-th of its ``split(..., K)`` (a
+``torch.func.vmap`` over the split keys), so the particles, weights and
+estimates are the reference's draw for draw. A generator (an int seed makes
+one) is drawn from in sequence where the reference splits a key.
 """
 
 from __future__ import annotations
@@ -26,7 +32,8 @@ from typing import Any
 import torch
 import torch.utils._pytree as pytree
 
-from ..core.device import entry_generator, to_device
+from ..core import keys
+from ..core.device import to_device
 from ..core.pytree import Pytree
 from ..dists.catalog import categorical
 from ..generative.choice_map import ChoiceMap
@@ -45,12 +52,8 @@ def _tree_append(batched, single):
     )
 
 
-def _lanes(gen: torch.Generator, n: int) -> torch.Tensor:
-    return torch.zeros(n, device=gen.device)
-
-
-def _vmap(fn):
-    return torch.func.vmap(fn, randomness="different")
+def _valid(gen) -> torch.Tensor:
+    return torch.ones((), dtype=torch.bool, device=gen.device)
 
 
 @Pytree.dataclass
@@ -104,7 +107,7 @@ class SMCAlgorithm(Algorithm):
         raise NotImplementedError
 
     def _placed(self, gen, device, entry: str):
-        gen, device = entry_generator(gen, device, f"{type(self).__name__}.{entry}")
+        gen, device = keys.entry_stream(gen, device, f"{type(self).__name__}.{entry}")
         return to_device(self, device), gen, device
 
     def run_smc(self, gen, *, device="cuda") -> ParticleCollection:
@@ -119,28 +122,30 @@ class SMCAlgorithm(Algorithm):
         alg, gen, device = self._placed(gen, device, "log_marginal_likelihood_estimate")
         if target is not None:
             alg = ChangeTarget(alg, to_device(target, device))
-        return alg._run_smc(gen).get_log_marginal_likelihood_estimate()
+        return alg._run_smc(keys.split_stream(gen)[1]).get_log_marginal_likelihood_estimate()
 
     # ----- the GenSP interface: distributions over choice maps -----
 
     def random_weighted(self, gen: torch.Generator, *args) -> tuple[Score, ChoiceMap]:
         target: Target = args[0]
-        collection = ChangeTarget(self, target)._run_smc(gen)
-        particle = collection.sample_particle(gen)
+        run_gen, pick_gen = keys.split_stream(gen)
+        collection = ChangeTarget(self, target)._run_smc(run_gen)
+        particle = collection.sample_particle(pick_gen)
         log_density_estimate = particle.get_score() - collection.get_log_marginal_likelihood_estimate()
         return log_density_estimate, target.filter_to_unconstrained(particle.get_choices())
 
     def estimate_logpdf(self, gen: torch.Generator, v: ChoiceMap, *args) -> Score:
         target: Target = args[0]
-        collection = ChangeTarget(self, target)._run_csmc(gen, v)
-        particle = collection.sample_particle(gen)
+        run_gen, pick_gen = keys.split_stream(gen)
+        collection = ChangeTarget(self, target)._run_csmc(run_gen, v)
+        particle = collection.sample_particle(pick_gen)
         return particle.get_score() - collection.get_log_marginal_likelihood_estimate()
 
     # ----- the VI hooks -----
 
     def estimate_normalizing_constant(self, gen, target: Target, *, device="cuda") -> Weight:
         alg, gen, device = self._placed(gen, device, "estimate_normalizing_constant")
-        collection = ChangeTarget(alg, to_device(target, device))._run_smc(gen)
+        collection = ChangeTarget(alg, to_device(target, device))._run_smc(keys.split_stream(gen)[1])
         return collection.get_log_marginal_likelihood_estimate()
 
     def estimate_reciprocal_normalizing_constant(
@@ -173,16 +178,18 @@ class Importance(SMCAlgorithm):
         )
 
     def _run_smc(self, gen: torch.Generator) -> ParticleCollection:
+        p_gen, q_gen = keys.split_stream(gen)
         if self.q is not None:
-            log_weight, choice = self.q.random_weighted(gen, self.target)
-            tr, target_score = self.target.importance(gen, choice)
+            log_weight, choice = self.q.random_weighted(q_gen, self.target)
+            tr, target_score = self.target.importance(p_gen, choice)
             return self._collection(tr, target_score - log_weight)
-        tr, target_score = self.target.importance(gen, ChoiceMap.empty())
+        tr, target_score = self.target.importance(p_gen, ChoiceMap.empty())
         return self._collection(tr, target_score)
 
     def _run_csmc(self, gen: torch.Generator, retained: ChoiceMap) -> ParticleCollection:
-        q_score = 0.0 if self.q is None else self.q.estimate_logpdf(gen, retained, self.target)
-        tr, target_score = self.target.importance(gen, retained)
+        p_gen, q_gen = keys.split_stream(gen)
+        q_score = 0.0 if self.q is None else self.q.estimate_logpdf(q_gen, retained, self.target)
+        tr, target_score = self.target.importance(p_gen, retained)
         return self._collection(tr, target_score - q_score)
 
 
@@ -213,40 +220,44 @@ class ImportanceK(SMCAlgorithm):
     def get_final_target(self) -> Target:
         return self.target
 
-    def _importance(self, gen):
-        return _vmap(lambda chm: self.target.importance(gen, chm))
+    def _importance(self, gen, n: int, choices=None):
+        """``n`` particles of the target, each under its own stream
+        (``keys.vmap_streams``), constrained by its row of ``choices`` if
+        given."""
+        if choices is None:
+            return keys.vmap_streams(lambda g: self.target.importance(g, ChoiceMap.empty()), gen, n)()
+        return keys.vmap_streams(lambda g, chm: self.target.importance(g, chm), gen, n)(choices)
 
     def _proposals(self, gen, n: int):
-        return _vmap(lambda _: self.q.random_weighted(gen, self.target))(_lanes(gen, n))
+        return keys.vmap_streams(lambda g: self.q.random_weighted(g, self.target), gen, n)()
 
     def _run_smc(self, gen: torch.Generator) -> ParticleCollection:
+        # the proposals and the target's own draws under separate keys
         k = self.k_particles
+        q_gen, p_gen = keys.split_stream(gen)
         if self.q is not None:
-            log_weights, choices = self._proposals(gen, k)
-            trs, target_scores = self._importance(gen)(choices)
+            log_weights, choices = self._proposals(q_gen, k)
+            trs, target_scores = self._importance(p_gen, k, choices)
             target_scores = target_scores - log_weights
         else:
-            trs, target_scores = _vmap(lambda _: self.target.importance(gen, ChoiceMap.empty()))(
-                _lanes(gen, k)
-            )
-        return ParticleCollection(trs, target_scores, torch.ones((), dtype=torch.bool, device=gen.device))
+            trs, target_scores = self._importance(p_gen, k)
+        return ParticleCollection(trs, target_scores, _valid(gen))
 
     def _run_csmc(self, gen: torch.Generator, retained: ChoiceMap) -> ParticleCollection:
         """K - 1 fresh particles and the retained one in the last slot."""
         k = self.k_particles
+        q_gen, est_gen, p_gen = keys.split_stream(gen, 3)
         if self.q is not None:
-            log_scores, choices = self._proposals(gen, k - 1)
-            retained_q_score = self.q.estimate_logpdf(gen, retained, self.target)
-            trs, target_scores = self._importance(gen)(_tree_append(choices, retained))
+            log_scores, choices = self._proposals(q_gen, k - 1)
+            retained_q_score = self.q.estimate_logpdf(est_gen, retained, self.target)
+            trs, target_scores = self._importance(p_gen, k, _tree_append(choices, retained))
             target_scores = target_scores - _tree_append(log_scores, retained_q_score)
         else:
-            free_trs, free_scores = _vmap(lambda _: self.target.importance(gen, ChoiceMap.empty()))(
-                _lanes(gen, k - 1)
-            )
-            retained_tr, retained_score = self.target.importance(gen, retained)
+            free_trs, free_scores = self._importance(p_gen, k - 1)
+            retained_tr, retained_score = self.target.importance(est_gen, retained)
             trs = _tree_append(free_trs, retained_tr)
             target_scores = _tree_append(free_scores, retained_score)
-        return ParticleCollection(trs, target_scores, torch.ones((), dtype=torch.bool, device=gen.device))
+        return ParticleCollection(trs, target_scores, _valid(gen))
 
 
 @Pytree.dataclass
@@ -273,18 +284,22 @@ class ChangeTarget(SMCAlgorithm):
         return self.prev.get_final_target().filter_to_unconstrained(particle.get_choices())
 
     def _reweight_collection(self, gen: torch.Generator, collection: ParticleCollection) -> ParticleCollection:
-        def reweight(particle, weight):
-            new_trace, new_weight = self.target.importance(gen, self._latents(particle))
+        def reweight(g, particle, weight):
+            new_trace, new_weight = self.target.importance(g, self._latents(particle))
             return new_trace, new_weight - particle.get_score() + weight
 
-        new_particles, new_weights = _vmap(reweight)(collection.get_particles(), collection.get_log_weights())
-        return ParticleCollection(new_particles, new_weights, torch.ones((), dtype=torch.bool, device=gen.device))
+        new_particles, new_weights = keys.vmap_streams(reweight, gen, self.get_num_particles())(
+            collection.get_particles(), collection.get_log_weights()
+        )
+        return ParticleCollection(new_particles, new_weights, _valid(gen))
 
     def _run_smc(self, gen: torch.Generator) -> ParticleCollection:
-        return self._reweight_collection(gen, self.prev._run_smc(gen))
+        prev_gen, rw_gen = keys.split_stream(gen)
+        return self._reweight_collection(rw_gen, self.prev._run_smc(prev_gen))
 
     def _run_csmc(self, gen: torch.Generator, retained: ChoiceMap) -> ParticleCollection:
-        return self._reweight_collection(gen, self.prev._run_csmc(gen, retained))
+        prev_gen, rw_gen = keys.split_stream(gen)
+        return self._reweight_collection(rw_gen, self.prev._run_csmc(prev_gen, retained))
 
     def run_csmc_for_normalizing_constant(self, gen, latent_choices: ChoiceMap, w: Weight, *, device="cuda"):
         """The low-variance estimate of the reciprocal normalising constant
@@ -294,14 +309,15 @@ class ChangeTarget(SMCAlgorithm):
         return alg._csmc_for_normalizing_constant(gen, *to_device((latent_choices, w), device))
 
     def _csmc_for_normalizing_constant(self, gen: torch.Generator, latent_choices: ChoiceMap, w: Weight):
-        collection = self.prev._run_csmc(gen, latent_choices)
+        gen, sub_gen = keys.split_stream(gen)
+        collection = self.prev._run_csmc(sub_gen, latent_choices)
         n = self.get_num_particles()
 
-        def reweight(particle, weight):
-            _, new_score = self.target.importance(gen, self._latents(particle))
+        def reweight(g, particle, weight):
+            _, new_score = self.target.importance(g, self._latents(particle))
             return new_score - particle.get_score() + weight
 
-        rejected = _vmap(reweight)(
+        rejected = keys.vmap_streams(reweight, gen, n - 1)(
             pytree.tree_map(lambda v: v[:-1], collection.get_particles()),
             collection.get_log_weights()[:-1],
         )

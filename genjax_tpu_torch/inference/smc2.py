@@ -26,8 +26,19 @@ Deviations from the reference, results alike in law:
   and masks nothing. The reference runs a masked scan over the whole horizon
   (an O(T^2) program); here ``t`` is a host integer, so the filter is the
   same in law and cheaper;
-- one ``torch.Generator`` is drawn from in sequence where the reference
-  splits keys; ``theta_sample`` takes that generator.
+- under a ``torch.Generator`` (an int seed makes one) it is drawn from in
+  sequence where the reference splits keys; ``theta_sample`` takes that
+  generator.
+
+Under a key (``core/keys.py``) the run is the reference's draw for draw:
+``k_init, k_loop = split(fold_in(key, 0x53C2))``, ``theta_sample`` gets
+parameter ``i``'s key of ``split(k_init, n_theta)``, step ``t`` splits
+``fold_in(k_loop, t)`` in three (the filters, the parameter resample, the
+rejuvenation), parameter ``i``'s filter splits its key of ``split(k_ext,
+n_theta)`` into its extension and resample keys, and a PMMH move ``j``
+splits ``fold_in(k_rej, j)`` in three; the proposal's fresh filter runs
+step ``s`` under ``fold_in(its key, s)``. The inner resample's counts are
+the keyed ``systematic_counts``'s (XLA's association).
 
 The run makes its particles on ``device``, the card unless the caller asks
 for the CPU. ``mesh=`` shards the parameter particles (and each one's inner
@@ -44,13 +55,16 @@ from typing import Any, Callable
 import torch
 import torch.utils._pytree as pytree
 
-from ..core.device import entry_generator, to_device
+from ..core import keys
+from ..core.device import to_device
 from ..core.pytree import Pytree
 from ..generative.choice_map import ChoiceMap
 from ..generative.gfi import GenerativeFunction
+from ..generative.typecheck import check_generator
 from ..parallel.mesh import local_count, mesh_generators
 from ..parallel.resampling import (
     _systematic_counts,
+    _systematic_counts_keyed,
     collective_log_normalizer,
     collective_resample,
     collective_weight_stats,
@@ -130,9 +144,11 @@ def smc2(
             evidence, ESS history and acceptance.
     """
     if mesh is None:
-        gen, device = entry_generator(gen, device, "smc2")
+        gen, device = keys.entry_stream(gen, device, "smc2")
         n_local = n_theta
     else:
+        if keys.is_key(gen):
+            check_generator(gen, "smc2(mesh=)")
         n_local = local_count(n_theta, mesh, axis, "n_theta")
         shared, gen = mesh_generators(gen, mesh, "smc2")
         device = mesh.device
@@ -145,7 +161,12 @@ def smc2(
     else:
         raise ValueError("smc2: xs is None/empty — pass n_steps.")
 
-    thetas = _vmap(lambda _: theta_sample(gen))(torch.zeros(n_local, device=device))
+    keyed = keys.is_key(gen)
+    if keyed:
+        k_init, k_loop = keys.split(keys.fold_in(gen, 0x53C2)).unbind(-2)
+        thetas = torch.func.vmap(theta_sample)(keys.split(k_init, n_local))
+    else:
+        thetas = _vmap(lambda _: theta_sample(gen))(torch.zeros(n_local, device=device))
     theta_leaves = pytree.tree_leaves(thetas)
     # a number is shared by every leaf, else a pytree matching theta
     scale_leaves = [rw_scales] * len(theta_leaves) if isinstance(rw_scales, (int, float)) else \
@@ -165,22 +186,32 @@ def smc2(
     def x_at(t):
         return pytree.tree_map(lambda v: v[t] if isinstance(v, torch.Tensor) else v, xs)
 
-    def pf_step(thetas, zss, t):
+    def pf_step(thetas, zss, t, pkeys=None):
         """One bootstrap step of every parameter's filter at observation
         ``t``: the particles extended and resampled, and each parameter's
-        log evidence increment ``(n_theta,)``."""
+        log evidence increment ``(n_theta,)``. Under keys, parameter ``i``'s
+        filter draws under ``pkeys[i]``."""
         submap, x = constraint.get_submap(t), x_at(t)
 
-        def extend(theta, z):
-            tr, w = kernel.generate(gen, submap, ((theta, z), x))
+        def extend(g, theta, z):
+            tr, w = kernel.generate(g, submap, ((theta, z), x))
             (_, z_new), _y = tr.get_retval()
             return z_new, w
 
-        zss_new, ws = _vmap(_vmap(extend, in_dims=(None, 0)))(thetas, zss)
-        n_th = ws.shape[0]
+        if pkeys is not None:
+            def one(pk, theta, zs):
+                ek, rk = keys.split(pk).unbind(-2)
+                zs_new, ws = torch.func.vmap(extend, in_dims=(0, None, 0))(keys.split(ek, n_x), theta, zs)
+                return zs_new, ws, _systematic_counts_keyed(keys.uniform(rk), ws, n_x)
+
+            zss_new, ws, counts = torch.func.vmap(one)(pkeys, thetas, zss)
+            n_th = ws.shape[0]
+        else:
+            zss_new, ws = _vmap(_vmap(lambda theta, z: extend(gen, theta, z), in_dims=(None, 0)))(thetas, zss)
+            n_th = ws.shape[0]
+            u = torch.rand(n_th, generator=gen, device=device)
+            counts = torch.func.vmap(_systematic_counts, in_dims=(0, 0, None))(u, ws, n_x)
         inc = torch.logsumexp(ws, dim=1) - math.log(n_x)
-        u = torch.rand(n_th, generator=gen, device=device)
-        counts = torch.func.vmap(_systematic_counts, in_dims=(0, 0, None))(u, ws, n_x)
         # source of target j: the first source whose cumulative count passes j
         targets = torch.arange(n_x, device=device).expand(n_th, n_x).contiguous()
         idx = torch.searchsorted(torch.cumsum(counts, dim=1), targets, right=True)
@@ -189,33 +220,38 @@ def smc2(
         )
         return zss_new, inc
 
-    def pf_full(thetas, t_now):
+    def pf_full(thetas, t_now, pkeys=None):
         """A fresh filter for every parameter over ``y_0 .. y_t_now``: the
-        final particles and ``log p-hat(y_0..t_now | theta)``."""
+        final particles and ``log p-hat(y_0..t_now | theta)``; under keys
+        step ``s`` of parameter ``i`` draws under ``fold_in(pkeys[i], s)``."""
         zss = broadcast_z((n_local, n_x))
         log_z = torch.zeros(n_local, device=device)
         for s in range(t_now + 1):
-            zss, inc = pf_step(thetas, zss, s)
+            zss, inc = pf_step(thetas, zss, s, None if pkeys is None else keys.fold_in(pkeys, s))
             log_z = log_z + inc
         return zss, log_z
 
-    def rejuvenate(thetas, zss, log_zs, t_now):
+    def rejuvenate(thetas, zss, log_zs, t_now, k_rej=None):
         """``n_rejuv`` PMMH exchange moves of every parameter particle,
         targeting ``p(theta | y_0..t_now)``: an accepted proposal takes its
         fresh filter's particles and evidence."""
         lps = log_prior(thetas)
         n_acc = torch.zeros((), device=device)
-        for _ in range(n_rejuv):
+        for j in range(n_rejuv):
             leaves, treedef = pytree.tree_flatten(thetas)
-            props = pytree.tree_unflatten(
-                [v + s * torch.randn(v.shape, generator=gen, device=device, dtype=v.dtype)
-                 for v, s in zip(leaves, scales)],
-                treedef,
-            )
+            if keyed:
+                k_prop, k_pf, k_acc = keys.split(keys.fold_in(k_rej, j), 3).unbind(-2)
+                noise = [keys.normal(nk, v.shape).to(v.dtype)
+                         for v, nk in zip(leaves, keys.split(k_prop, len(leaves)).unbind(-2))]
+            else:
+                noise = [torch.randn(v.shape, generator=gen, device=device, dtype=v.dtype) for v in leaves]
+            props = pytree.tree_unflatten([v + s * z for v, s, z in zip(leaves, scales, noise)], treedef)
             lps_new = log_prior(props)
-            zss_new, lzs_new = pf_full(props, t_now)
+            zss_new, lzs_new = pf_full(props, t_now, keys.split(k_pf, n_local) if keyed else None)
             log_alpha = (lps_new + lzs_new) - (lps + log_zs)
-            accept = torch.log(torch.rand(n_local, generator=gen, device=device)) < log_alpha
+            log_u = torch.log(keys.uniform(k_acc, (n_local,)) if keyed
+                              else torch.rand(n_local, generator=gen, device=device))
+            accept = log_u < log_alpha
             pick = lambda a, b: torch.where(_rows(accept, a), a, b)  # noqa: E731
             thetas = pytree.tree_map(pick, props, thetas)
             zss = pytree.tree_map(pick, zss_new, zss)
@@ -232,7 +268,9 @@ def smc2(
     n_rejuvs = 0
     ess_hist = []
     for t in range(horizon):
-        zss, incs = pf_step(thetas, zss, t)
+        if keyed:
+            k_ext, k_res, k_rej = keys.split(keys.fold_in(k_loop, t), 3).unbind(-2)
+        zss, incs = pf_step(thetas, zss, t, keys.split(k_ext, n_local) if keyed else None)
         omega = omega + incs
         log_zs = log_zs + incs
         if mesh is None:
@@ -243,14 +281,14 @@ def smc2(
         if bool(ess < ess_threshold * n_theta):
             if mesh is None:
                 log_ev = log_ev + torch.logsumexp(omega, dim=0) - math.log(n_theta)
-                idx = systematic_indices(gen, omega, n_theta)
+                idx = systematic_indices(k_res if keyed else gen, omega, n_theta)
                 thetas, zss, log_zs = _take((thetas, zss, log_zs), idx)
             else:
                 (thetas, zss, log_zs), _, inc = collective_resample(
                     shared, (thetas, zss, log_zs), omega, mesh, axis, mode="all_gather", log_z_inc=log_z_inc
                 )
                 log_ev = log_ev + inc
-            thetas, zss, log_zs, acc = rejuvenate(thetas, zss, log_zs, t)
+            thetas, zss, log_zs, acc = rejuvenate(thetas, zss, log_zs, t, k_rej if keyed else None)
             omega = torch.zeros(n_local, device=device)
             acc_sum = acc_sum + acc
             n_rejuvs += 1

@@ -29,7 +29,19 @@ Deviations from the reference, results alike in law:
   (the final ``beta``, zeros elsewhere), so the result has the reference's
   shapes and ``n_rungs`` counts the same rungs;
 - resampling is decided on the host (``parallel.smc.resample_if``);
-- one ``torch.Generator`` is drawn from in sequence.
+- under a ``torch.Generator`` it is drawn from in sequence; an int seed
+  makes a generator here too (where the column samplers read an int as
+  ``key(seed)``), so that the cookbooks that run this sampler
+  keep their streams and their cost: a key's hashes are many launches each.
+
+Under a key (``core/keys.py``) the sampler splits and folds it in as the
+reference does and draws its draws: ``init_key, ladder_key = split(key)``,
+rung ``t`` resamples under ``fold_in(fold_in(ladder_key, t), 1)``, and its
+sweep ``j`` draws its momenta and accepts from the two halves of
+``split(fold_in(fold_in(fold_in(ladder_key, t), 2), j))``;
+``column_tempered_chees`` draws its prior particles by ``simulate`` under
+``split(k_init, N)`` and its padding rows under ``fold_in(k_init, 1)``, and
+runs the sampler under ``k_run`` (``k_init, k_run = split(key)``).
 
 ``chees_tempered_smc`` runs where its ``q0`` lives; ``column_tempered_chees``
 makes its particles on ``device``, the card unless the caller asks for the
@@ -43,7 +55,8 @@ from typing import Any, Callable
 
 import torch
 
-from ..core.device import chain_generator, entry_generator, to_device
+from ..core import keys
+from ..core.device import chain_generator, same_device, to_device
 from ..core.pytree import Pytree
 from ..kernels.adaptation import StepSizeAdaptState, _halton2, cross_chain_inv_mass, dual_averaging_update
 from ..kernels.chees import _adam
@@ -104,7 +117,13 @@ def chees_tempered_smc(
         raise ValueError(f"cess_target must be in (0, 1), got {cess_target}")
     q0 = torch.as_tensor(q0)
     device = q0.device
-    gen = chain_generator(gen, device, "chees_tempered_smc")
+    keyed = keys.is_key(gen)
+    if keyed:
+        if not same_device(gen.device, device):
+            raise ValueError(f"chees_tempered_smc: the key lives on {gen.device} and q0 on {device}")
+        ladder = keys.split(gen)[1]
+    else:
+        gen = chain_generator(gen, device, "chees_tempered_smc")
     q = q0.to(torch.float32)
     d, n = q.shape
 
@@ -120,12 +139,17 @@ def chees_tempered_smc(
         (g,) = pullback((torch.ones_like(lp), torch.zeros_like(lik)))
         return lp.detach(), g.detach(), lik.detach()
 
-    def sweep(q, lp, g, lik, step_idx, beta, eps, log_t, inv_mass):
+    def sweep(q, lp, g, lik, step_idx, beta, eps, log_t, inv_mass, key=None):
         """One jittered-trajectory HMC sweep on the tempered target, with
         ``kernels.chees``'s integrator, accept and ChEES gradient driven by
-        the particle population."""
+        the particle population; under ``key`` its momenta and accepts are
+        the reference's."""
         im_col = inv_mass[:, None]
-        p = torch.randn((d, n), generator=gen, device=device) / torch.sqrt(im_col)
+        if key is not None:
+            k_p, k_u = keys.split(key).unbind(-2)
+            p = (1.0 / torch.sqrt(im_col)) * keys.normal(k_p, (d, n))
+        else:
+            p = torch.randn((d, n), generator=gen, device=device) / torch.sqrt(im_col)
 
         def kinetic(p_):
             return 0.5 * torch.sum(im_col * p_ * p_, dim=0)
@@ -143,7 +167,7 @@ def chees_tempered_smc(
             torch.isnan(log_alpha), 0.0, torch.clamp(torch.exp(torch.clamp(log_alpha, max=0.0)), max=1.0)
         )
         finite_pos = torch.all(torch.isfinite(q1), dim=0)
-        log_u = torch.log(torch.rand(n, generator=gen, device=device))
+        log_u = torch.log(keys.uniform(k_u, (n,)) if key is not None else torch.rand(n, generator=gen, device=device))
         accept = (log_u < log_alpha) & finite_pos
         qn = torch.where(accept[None, :], q1, q)
         lpn = torch.where(accept, lp1, lp)
@@ -182,14 +206,21 @@ def chees_tempered_smc(
         beta = torch.clamp(beta + delta, max=1.0)
         log_w = log_w + delta * lik
         ess = effective_sample_size(log_w)
-        (qT, lik), log_w, log_z = resample_if(gen, ess < ess_threshold * n, (q.T, lik), log_w, log_z, method)
+        if keyed:
+            rung = keys.fold_in(ladder, t)
+            resample_gen, rejuv = keys.fold_in(rung, torch.arange(1, 3, device=device)).unbind(-2)
+            sweep_keys = keys.fold_in(rejuv, torch.arange(n_rejuvenation, device=device)).unbind(-2)
+        else:
+            resample_gen, sweep_keys = gen, [None] * n_rejuvenation
+        (qT, lik), log_w, log_z = resample_if(
+            resample_gen, ess < ess_threshold * n, (q.T, lik), log_w, log_z, method)
         q = qT.T
         lp, g, lik = lp_g(q, beta)
         alphas, ls = [], []
         for j in range(n_rejuvenation):
             eps = torch.exp(adapt.log_eps)
             q, lp, g, lik, alpha, grad_logt, big_l = sweep(
-                q, lp, g, lik, t * n_rejuvenation + j, beta, eps, log_t, inv_mass
+                q, lp, g, lik, t * n_rejuvenation + j, beta, eps, log_t, inv_mass, sweep_keys[j]
             )
             mv, update = _adam(mv, grad_logt, adapt.step)
             log_t = clamp_logt(log_t + adam_lr * update, eps)
@@ -239,12 +270,20 @@ def column_tempered_chees(
     bridge: the prior column density is the ``generate`` weight under the
     latents alone and the likelihood the joint (``column_logdensity``) minus
     it. Returns ``(result, packer)``."""
-    gen, device = entry_generator(gen, device, "column_tempered_chees")
+    gen, device = keys.entry_stream(gen, device, "column_tempered_chees")
     constraint, args = to_device(constraint, device), to_device(args, device)
     packer = ColumnPacker(model, constraint, args, list(addresses))
     prior_cols, lik_cols = tempered_factors(model, constraint, args, packer, device)
-    q0 = packed_prior_draws(gen, model, constraint, args, packer, n_particles, device)
-    return chees_tempered_smc(gen, prior_cols, lik_cols, q0, **kwargs), packer
+    if not keys.is_key(gen):
+        q0 = packed_prior_draws(gen, model, constraint, args, packer, n_particles, device)
+        return chees_tempered_smc(gen, prior_cols, lik_cols, q0, **kwargs), packer
+    k_init, k_run = keys.split(gen).unbind(-2)
+    q0 = torch.func.vmap(lambda k: packer.pack(model.simulate(k, args).get_choices()), out_dims=1)(
+        keys.split(k_init, n_particles)).contiguous()
+    n_pad = packer.padded_dim - packer.dim
+    if n_pad:
+        q0[packer.dim :] = keys.normal(keys.fold_in(k_init, 1), (n_pad, n_particles))
+    return chees_tempered_smc(k_run, prior_cols, lik_cols, q0, **kwargs), packer
 
 
 __all__ = ["ChEESTemperedResult", "chees_tempered_smc", "column_tempered_chees"]

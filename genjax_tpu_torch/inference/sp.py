@@ -7,9 +7,11 @@ port's ``Distribution``. The contracts (Lew et al. 2023, "Probabilistic
 programming with stochastic probabilities"): ``Algorithm.random_weighted(gen,
 target)`` returns ``(w, S)`` with ``E[1/w | S] = 1 / P(S | constraint;
 args)``; ``estimate_logpdf(gen, S, target)`` returns ``w`` with ``E[w] =
-P(S | constraint; args)``. As distributions they run where their generator
-lives, and one ``torch.Generator`` is drawn from in sequence where the
-reference splits a key.
+P(S | constraint; args)``. As distributions they run where their key or
+generator lives: a key (``core/keys.py``) is split as the reference splits
+it, and draws what the reference draws from the same key; one
+``torch.Generator`` is drawn from in sequence where the reference splits a
+key.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ from typing import Any, Callable
 
 import torch
 
+from ..core import keys
 from ..core.pytree import Const, Pytree
 from ..dists.distribution import Distribution
 from ..generative.choice_map import ChoiceMap
@@ -102,13 +105,14 @@ class Marginal(SampleDistribution):
 
     def random_weighted(self, gen: torch.Generator, *args) -> tuple[Score, ChoiceMap]:
         selection = self._selection()
-        tr = self.gen_fn.simulate(gen, args)
+        gen, sim_gen, proj_gen = keys.split_stream(gen, 3)
+        tr = self.gen_fn.simulate(sim_gen, args)
         choices = tr.get_choices()
         latent_choices = choices.filter(selection)
         # the density estimate of the latent sample: the full score less the
         # internal proposal density of the choices marginalised out (Lew
         # 2023, Defn 3.2), as the reference corrects its own reference
-        weight = tr.get_score() - tr.project(gen, ~selection)
+        weight = tr.get_score() - tr.project(proj_gen, ~selection)
         algorithm = self._algorithm()
         if algorithm is None:
             return weight, latent_choices

@@ -21,8 +21,17 @@ Deviations from the reference, results alike:
   last axis for the TPU's lanes between resamples);
 - resampling is decided on the host (``parallel.smc.resample_if``), as the
   particle filter's is;
-- one ``torch.Generator`` is drawn from in sequence where the reference
-  splits or folds in a key.
+- under a ``torch.Generator`` (an int seed makes one) it is drawn from in
+  sequence where the reference splits or folds in a key.
+
+Under a key (``core/keys.py``) the drivers split and fold it in as the
+reference does, and draw its draws: ``init_key, ladder_key = split(key)``,
+particle ``i`` starts under the ``i``-th of ``split(init_key, K)``, rung
+``t`` resamples under ``fold_in(fold_in(ladder_key, t), 1)`` and
+rejuvenates under ``fold_in(..., 2)``, whose ``n_rejuvenation`` sweeps take
+``split(rejuvenation key, n_rejuvenation)``, particle ``i`` of a sweep the
+``i``-th of that sweep key's ``split(., K)``, folded in with 0 (the edit), 1
+(the accept), 2 and 3 (the projections).
 
 The drivers make their particles on ``device``, the card unless the caller
 asks for the CPU.
@@ -35,7 +44,8 @@ from typing import Any
 
 import torch
 
-from ..core.device import entry_generator, to_device
+from ..core import keys
+from ..core.device import to_device
 from ..core.pytree import Pytree
 from ..generative.choice_map import ChoiceMap
 from ..generative.concepts import DiffAnnotate, EditRequest, Regenerate
@@ -70,12 +80,13 @@ class AdaptiveTemperedSMCResult(Pytree):
     accept_history: Any
 
 
-def _init_particles(gen, model, constraint, args, k: int):
-    """``k`` particles from the prior under ``constraint`` and their
-    log-likelihoods."""
-    return torch.func.vmap(lambda _: model.generate(gen, constraint, args), randomness="different")(
-        torch.zeros(k, device=gen.device)
-    )
+def _rung_streams(ladder, t: int):
+    """Rung ``t``'s ``(resample, rejuvenation)`` streams: ``fold_in(fold_in(
+    ladder_key, t), 1)`` and ``2``, or the generator twice."""
+    if not keys.is_key(ladder):
+        return ladder, ladder
+    rung = keys.fold_in(ladder, t)
+    return keys.fold_in(rung, torch.arange(1, 3, device=rung.device)).unbind(-2)
 
 
 def _log_mean_exp(log_w: torch.Tensor) -> torch.Tensor:
@@ -111,12 +122,13 @@ def tempered_smc(
     >>> abs(float(res.log_marginal) - (-1.9305)) < 0.1  # log N(1.5; 0, 1.25)
     True
     """
-    gen, device = entry_generator(gen, device, "tempered_smc")
+    gen, device = keys.entry_stream(gen, device, "tempered_smc")
     _validate_rejuvenation(rejuvenation)
     k = n_particles
     betas = torch.as_tensor(betas, dtype=torch.float32, device=device)
     constraint, args = to_device(constraint, device), to_device(args, device)
-    traces, llhs = _init_particles(gen, model, constraint, args, k)
+    init_gen, ladder = keys.split_stream(gen)
+    traces, llhs = keys.vmap_streams(lambda g: model.generate(g, constraint, args), init_gen, k)()
     rejuvenate = _make_rejuvenator(constraint, rejuvenation, n_rejuvenation)
     log_w = torch.zeros(k, device=device)
     log_z = torch.zeros((), device=device)
@@ -126,10 +138,11 @@ def tempered_smc(
         beta = betas[t]
         log_w = log_w + (beta - beta_prev) * llhs
         ess = effective_sample_size(log_w)
+        resample_gen, rejuv_gen = _rung_streams(ladder, t)
         (traces, llhs), log_w, log_z = resample_if(
-            gen, ess < ess_threshold * k, (traces, llhs), log_w, log_z, method
+            resample_gen, ess < ess_threshold * k, (traces, llhs), log_w, log_z, method
         )
-        traces, llhs, acc = rejuvenate(gen, traces, llhs, beta)
+        traces, llhs, acc = rejuvenate(rejuv_gen, traces, llhs, beta)
         ess_hist.append(ess)
         acc_hist.append(acc)
         beta_prev = beta
@@ -190,25 +203,27 @@ def adaptive_tempered_smc(
             f"cess_target must be in (0, 1), got {cess_target} — at 1.0 "
             "the bisection returns a zero temperature increment forever"
         )
-    gen, device = entry_generator(gen, device, "adaptive_tempered_smc")
+    gen, device = keys.entry_stream(gen, device, "adaptive_tempered_smc")
     _validate_rejuvenation(rejuvenation)
     k = n_particles
     constraint, args = to_device(constraint, device), to_device(args, device)
-    traces, llhs = _init_particles(gen, model, constraint, args, k)
+    init_gen, ladder = keys.split_stream(gen)
+    traces, llhs = keys.vmap_streams(lambda g: model.generate(g, constraint, args), init_gen, k)()
     rejuvenate = _make_rejuvenator(constraint, rejuvenation, n_rejuvenation)
     log_w = torch.zeros(k, device=device)
     log_z = torch.zeros((), device=device)
     beta = torch.zeros((), device=device)
     beta_hist, ess_hist, acc_hist = [], [], []
-    for _ in range(max_rungs):
+    for t in range(max_rungs):
         delta = _choose_delta(log_w, llhs, beta, cess_target, n_bisect)
         beta = torch.clamp(beta + delta, max=1.0)
         log_w = log_w + delta * llhs
         ess = effective_sample_size(log_w)
+        resample_gen, rejuv_gen = _rung_streams(ladder, t)
         (traces, llhs), log_w, log_z = resample_if(
-            gen, ess < ess_threshold * k, (traces, llhs), log_w, log_z, method
+            resample_gen, ess < ess_threshold * k, (traces, llhs), log_w, log_z, method
         )
-        traces, llhs, acc = rejuvenate(gen, traces, llhs, beta)
+        traces, llhs, acc = rejuvenate(rejuv_gen, traces, llhs, beta)
         beta_hist.append(beta)
         ess_hist.append(ess)
         acc_hist.append(acc)
@@ -258,20 +273,24 @@ def _make_rejuvenator(constraint, rejuvenation, n_rejuvenation: int):
     is_prior_regen = isinstance(request, Regenerate)
 
     def rejuvenate(gen, traces, llhs, beta):
-        def per_particle(tr, llh):
-            new_tr, w, _rd, _bwd = tr.edit(gen, request)
-            new_llh = _constrained_score(constraint, new_tr, gen)
+        def per_particle(g, tr, llh):
+            if keys.is_key(g):
+                k_edit, k_acc, k_new, k_old = keys.fold_in(g, torch.arange(4, device=g.device)).unbind(-2)
+                k_score = keys.key(0, device=g.device)
+            else:
+                k_edit = k_acc = k_new = k_old = k_score = g
+            new_tr, w, _rd, _bwd = tr.edit(k_edit, request)
+            new_llh = _constrained_score(constraint, new_tr, k_score)
             dllh = new_llh - llh
             if is_prior_regen:
                 sel = request.selection
-                w = w - (new_tr.project(gen, sel) - tr.project(gen, sel))
-            out_tr, accept = mh_accept(gen, tr, new_tr, w - (1.0 - beta) * dllh)
+                w = w - (new_tr.project(k_new, sel) - tr.project(k_old, sel))
+            out_tr, accept = mh_accept(k_acc, tr, new_tr, w - (1.0 - beta) * dllh)
             return out_tr, torch.where(accept, new_llh, llh), accept.to(torch.float32)
 
-        batched = torch.func.vmap(per_particle, randomness="different")
         accs = []
-        for _ in range(n_rejuvenation):
-            traces, llhs, acc = batched(traces, llhs)
+        for sweep in keys.split_stream(gen, n_rejuvenation):
+            traces, llhs, acc = keys.vmap_streams(per_particle, sweep, llhs.shape[0])(traces, llhs)
             accs.append(acc.mean())
         return traces, llhs, torch.stack(accs).mean()
 
@@ -281,7 +300,8 @@ def _make_rejuvenator(constraint, rejuvenation, n_rejuvenation: int):
 def _constrained_score(constraint: ChoiceMap, trace, gen: torch.Generator | None = None):
     """The log-likelihood of the constrained (observed) choices under the
     trace's latents: the trace's score projected onto the constraint's
-    addresses (exact for exact-density models)."""
+    addresses (exact for exact-density models; the reference projects
+    under ``key(0)``)."""
     return trace.project(gen, constraint.get_selection())
 
 

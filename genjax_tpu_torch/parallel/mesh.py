@@ -30,7 +30,9 @@ import torch
 import torch.distributed as dist
 import torch.utils._pytree as pytree
 
+from ..core import keys
 from ..core.device import chain_generator, entry_device, int_seed, stream_seed
+from ..generative.typecheck import check_generator
 from . import _comm
 
 
@@ -248,7 +250,10 @@ def mesh_generators(gen, mesh: Mesh, entry: str) -> tuple[torch.Generator, torch
     (``gen`` itself, or one seeded by the int ``gen``), which every rank
     holds in the same state, and this rank's own, seeded by
     ``stream_seed(base, rank)`` with ``base`` drawn once from the shared
-    one."""
+    one. A key raises ``GFITypeError``: a run over a mesh draws from
+    generators only."""
+    if keys.is_key(gen):
+        check_generator(gen, entry)
     shared = chain_generator(gen, mesh.device, entry)
     local = torch.Generator(device=mesh.device).manual_seed(stream_seed(int_seed(shared), mesh.rank))
     return shared, local

@@ -12,11 +12,16 @@ mean and covariance of ``z | u_{1:t}, y_{1:t}`` (``dists/lgssm.py``'s
 update); its weight is the exact one-step predictive density. One device, no
 process group.
 
-Deviations, results alike in law: ``sample_regime`` takes ``(gen, u_prev,
-t)`` where the reference takes a key, and draws from the generator under
-``torch.func.vmap`` over the particles; the resample decision is one host
-read of the ESS a step (``smc.resample_if``), where the reference decides
-in ``lax.cond``.
+Under a key (``core/keys.py``) the filter draws the reference's draws:
+step ``t`` splits ``fold_in(key, t)`` into its extension and resample keys,
+and particle ``i``'s ``sample_regime`` gets the ``i``-th of
+``split(extension key, K)``, as ``SSMParticleFilter.run`` does.
+
+Deviations, results alike in law: under a generator (or an int seed)
+``sample_regime`` takes ``(gen, u_prev, t)`` and draws from the generator
+under ``torch.func.vmap`` over the particles; the resample decision is one
+host read of the ESS a step (``smc.resample_if``), where the reference
+decides in ``lax.cond``.
 """
 
 from __future__ import annotations
@@ -27,11 +32,11 @@ from typing import Any, Callable
 import torch
 import torch.utils._pytree as pytree
 
-from ..core.device import entry_generator
+from ..core import keys
 from ..core.pytree import Pytree
 from ..dists.lgssm import kalman_update
 from .resampling import effective_sample_size
-from .smc import resample_if
+from .smc import resample_if, step_streams
 
 
 @Pytree.dataclass
@@ -66,9 +71,11 @@ def rbpf(
     caller asks for the CPU).
 
     Args:
-        gen: a ``torch.Generator`` on ``device``, or an int seed.
+        gen: a key (placed on ``device``), a ``torch.Generator`` there, or
+            an int seed.
         sample_regime: ``(gen, u_prev, t) -> u``, one prior draw of the
-            regime (torch ops; vmapped over the particles).
+            regime from a particle's key or the generator (torch ops;
+            vmapped over the particles).
         matrices: ``u -> (A, Q, C, R)``, the linear system of regime ``u``
             (shapes ``(Dz, Dz), (Dz, Dz), (Dy, Dz), (Dy, Dy)``).
         ys: observations ``(T, Dy)``.
@@ -87,14 +94,14 @@ def rbpf(
     >>> tuple(res.means.shape), bool(torch.isfinite(res.log_marginal))
     ((64, 1), True)
     """
-    gen, device = entry_generator(gen, device, "rbpf")
+    gen, device = keys.entry_stream(gen, device, "rbpf")
     k = n_particles
     ys = torch.as_tensor(ys, dtype=torch.float32, device=device)
     mu0 = torch.as_tensor(mu0, dtype=torch.float32, device=device)
     P0 = torch.as_tensor(P0, dtype=torch.float32, device=device)
 
-    def particle_step(u_prev, mean, cov, t, y):
-        u = sample_regime(gen, u_prev, t)
+    def particle_step(pgen, u_prev, mean, cov, t, y):
+        u = sample_regime(pgen, u_prev, t)
         A, Q, C, R = matrices(u)
         # predict through the regime's dynamics, then update on y: the
         # weight is the exact predictive density p(y_t | u_{1:t}, y_<t)
@@ -103,7 +110,8 @@ def rbpf(
         mean_f, cov_f, ll = kalman_update(mean_pred, cov_pred, C, R, y)
         return u, mean_f, cov_f, ll
 
-    step = torch.func.vmap(particle_step, in_dims=(0, 0, 0, None, None), randomness="different")
+    def step(sgen, *rest):
+        return keys.vmap_streams(particle_step, sgen, k, in_dims=(0, 0, 0, None, None))(*rest)
     dz = mu0.shape[0]
     us = pytree.tree_map(
         lambda v: torch.as_tensor(v, device=device).expand((k,) + tuple(torch.as_tensor(v).shape)).clone(),
@@ -114,13 +122,13 @@ def rbpf(
     log_w = torch.zeros(k, device=device)
     log_z = torch.zeros((), device=device)
     ess_hist = []
-    for t in range(ys.shape[0]):
-        us, means, covs, lls = step(us, means, covs, torch.tensor(t, device=device), ys[t])
+    for t, (extend_gen, resample_gen) in enumerate(step_streams(gen, ys.shape[0])):
+        us, means, covs, lls = step(extend_gen, us, means, covs, torch.tensor(t, device=device), ys[t])
         log_w = log_w + lls
         ess = effective_sample_size(log_w)
         ess_hist.append(ess)
         (us, means, covs), log_w, log_z = resample_if(
-            gen, ess < ess_threshold * k, (us, means, covs), log_w, log_z, method
+            resample_gen, ess < ess_threshold * k, (us, means, covs), log_w, log_z, method
         )
     log_norm = torch.logsumexp(log_w, dim=0)
     return RBPFResult(

@@ -8,7 +8,14 @@ half (``_normalize`` to ``resample_particles``) and the collective half
 shard of the particles, its reductions calls of ``parallel/_comm.py``.
 
 Every function runs where its weights live and draws from a
-``torch.Generator`` there. Nothing reads a value back to the host:
+``torch.Generator`` there, or from a key (``core/keys.py``): under a key it
+draws what the reference draws from the same key (``uniform(key)`` for the
+systematic offset, ``uniform(key, (n,))`` for the strata,
+``categorical(key, ..., shape=(n,))`` for the multinomial and residual
+draws), and sums the CDF in XLA's association (``_xla_cumsum``), its
+``n cdf - u0`` one fused multiply-add as XLA makes it, so that the counts
+flip where the reference's do and nowhere else. Nothing reads a value back
+to the host:
 ``torch.repeat_interleave`` is given its ``output_size``, which it would
 otherwise read from the counts on every resample. The monotonic methods
 (systematic, stratified) resample by counts, without a binary search. The
@@ -27,6 +34,8 @@ from typing import Any
 import torch
 import torch.utils._pytree as pytree
 
+from ..core import keys
+from ..generative.typecheck import check_generator
 from . import _comm
 
 
@@ -60,19 +69,63 @@ def _systematic_counts(u0: torch.Tensor, log_weights: torch.Tensor, n: int) -> t
     return _last_bucket(t, n)
 
 
+_SCAN_BASE = 16
+
+
+def _running_sums(x: torch.Tensor) -> torch.Tensor:
+    """The running sums along the last axis, one float32 add at a time."""
+    acc = x[..., 0]
+    out = [acc]
+    for j in range(1, x.shape[-1]):
+        acc = acc + x[..., j]
+        out.append(acc)
+    return torch.stack(out, dim=-1)
+
+
+def _xla_cumsum(x: torch.Tensor) -> torch.Tensor:
+    """``jnp.cumsum`` along the last axis in the association XLA's CPU
+    compiler gives it, bit for bit: up to 16 elements a running sum; above,
+    rows of 16 (zero-padded) summed so, and each row's sums shifted by the
+    sums, taken the same way, of the rows before it. Every step is an
+    exact IEEE add, so the card gives the same sums."""
+    n = x.shape[-1]
+    if n <= _SCAN_BASE:
+        return _running_sums(x)
+    rows = -(-n // _SCAN_BASE)
+    pad = x.new_zeros(x.shape[:-1] + (rows * _SCAN_BASE - n,))
+    within = _running_sums(torch.cat([x, pad], dim=-1).unflatten(-1, (rows, _SCAN_BASE)))
+    before = _xla_cumsum(within[..., -1])
+    before = torch.cat([torch.zeros_like(before[..., :1]), before[..., :-1]], dim=-1)
+    return (within + before.unsqueeze(-1)).flatten(-2)[..., :n]
+
+
+def _reference_cdf(log_weights: torch.Tensor) -> torch.Tensor:
+    return _xla_cumsum(torch.exp(_normalize(log_weights)))
+
+
+def _systematic_counts_keyed(u0: torch.Tensor, log_weights: torch.Tensor, n: int) -> torch.Tensor:
+    """``_systematic_counts`` as the reference computes it: the CDF summed
+    in XLA's association and ``n cdf - u0`` one fused multiply-add."""
+    t = torch.ceil(keys._fma(torch.full_like(u0, n), _reference_cdf(log_weights), -u0))
+    return _last_bucket(torch.clamp(t, 0, n).to(torch.int64), n)
+
+
 def systematic_counts(gen: torch.Generator, log_weights: torch.Tensor, n: int | None = None):
     """Per-source copy counts for systematic resampling (int64, summing to
     ``n``), in O(K) arithmetic from one uniform."""
     n = log_weights.shape[0] if n is None else n
+    if keys.is_key(gen):
+        return _systematic_counts_keyed(keys.uniform(gen), log_weights, n)
     u0 = torch.rand((), generator=gen, device=log_weights.device)
     return _systematic_counts(u0, log_weights, n)
 
 
-def _stratified_counts(us: torch.Tensor, log_weights: torch.Tensor, n: int) -> torch.Tensor:
+def _stratified_counts(us: torch.Tensor, log_weights: torch.Tensor, n: int, cdf=None) -> torch.Tensor:
     """Stratified counts at the ``n`` uniforms ``us``: the strata points
     ``(j + us_j) / n`` are sorted, so a search of the CDF among them gives
     the cumulative counts."""
-    cdf = torch.cumsum(torch.exp(_normalize(log_weights)), dim=0)
+    if cdf is None:
+        cdf = torch.cumsum(torch.exp(_normalize(log_weights)), dim=0)
     points = (torch.arange(n, device=us.device) + us) / n
     t = torch.searchsorted(points, cdf, side="left")
     return _last_bucket(t, n)
@@ -82,6 +135,8 @@ def stratified_counts(gen: torch.Generator, log_weights: torch.Tensor, n: int | 
     """Per-source copy counts for stratified resampling (one uniform a
     stratum)."""
     n = log_weights.shape[0] if n is None else n
+    if keys.is_key(gen):
+        return _stratified_counts(keys.uniform(gen, (n,)), log_weights, n, _reference_cdf(log_weights))
     us = torch.rand(n, generator=gen, device=log_weights.device)
     return _stratified_counts(us, log_weights, n)
 
@@ -111,6 +166,8 @@ def multinomial_indices(gen: torch.Generator, log_weights: torch.Tensor, n: int 
     """``n`` independent draws of a source index from the normalised
     weights."""
     n = log_weights.shape[0] if n is None else n
+    if keys.is_key(gen):
+        return keys.categorical(gen, _normalize(log_weights), shape=(n,))
     return _draw(gen, torch.exp(_normalize(log_weights)), n)
 
 
@@ -123,10 +180,15 @@ def residual_indices(gen: torch.Generator, log_weights: torch.Tensor, n: int | N
     n = k if n is None else n
     w = torch.exp(_normalize(log_weights))
     counts = torch.floor(n * w).to(torch.int64)
-    resid = torch.clamp(n * w - counts, min=1e-37)
     slots = torch.arange(n, device=w.device)
     det_idx = torch.searchsorted(torch.cumsum(counts, dim=0), slots, side="right")
-    rand_idx = _draw(gen, resid / resid.sum(), n)
+    if keys.is_key(gen):
+        # the remainder n w - counts as XLA fuses it, and the reference's draw
+        resid = torch.clamp(keys._fma(torch.full_like(w, n), w, -counts.to(w.dtype)), min=1e-37)
+        rand_idx = keys.categorical(gen, torch.log(resid), shape=(n,))
+    else:
+        resid = torch.clamp(n * w - counts, min=1e-37)
+        rand_idx = _draw(gen, resid / resid.sum(), n)
     return torch.where(slots < counts.sum(), torch.clamp(det_idx, 0, k - 1), rand_idx)
 
 
@@ -227,6 +289,8 @@ def collective_resample(gen: torch.Generator, particles: Any, log_weights: torch
       from ``gen``, which must be in the same state on every rank (the
       caller's generator), and takes its slice of it.
     """
+    if keys.is_key(gen):
+        check_generator(gen, "collective_resample")
     k_local = log_weights.shape[0]
     if log_z_inc is None:
         log_z_inc = collective_log_normalizer(log_weights, mesh, axis)

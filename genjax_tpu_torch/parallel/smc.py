@@ -16,6 +16,15 @@ and selecting with ``torch.where``, reads nothing and launches the resample
 always; ``chip_smoke.py`` times both. The run lives on ``device``, the card
 unless the caller asks for the CPU.
 
+``run`` takes a key (``core/keys.py``), a ``torch.Generator`` or an int
+seed. Under a key step ``t`` draws as the reference's does: ``extend_key,
+resample_key = split(fold_in(key, t))`` (made for every step at once, in
+two hashes), particle ``i`` extends under the ``i``-th of ``split(extend_key,
+K)``, and a step that resamples draws under ``resample_key``; the filter is
+then the reference's draw for draw. A generator is drawn from in sequence.
+The sharded drivers draw from generators only: a key there raises
+``GFITypeError``.
+
 ``run_sharded`` is the reference's ``shard_map`` program run by every rank
 of a mesh axis on its own ``n_particles / world`` particles: the global ESS
 and normalizer in two collectives a step (``collective_weight_stats``), the
@@ -32,10 +41,12 @@ from typing import Any
 import torch
 import torch.utils._pytree as pytree
 
-from ..core.device import entry_generator, to_device
+from ..core import keys
+from ..core.device import to_device
 from ..core.pytree import Pytree
 from ..generative.choice_map import ChoiceMap
 from ..generative.gfi import GenerativeFunction
+from ..generative.typecheck import check_generator
 from . import _comm
 from .mesh import Mesh, local_count, mesh_generators
 from .resampling import (
@@ -69,16 +80,27 @@ def _broadcast(init_carry, k: int, device):
 
 def _extend(kernel, gen, carries, xs, constraint, t: int):
     """Every particle extended by one step of ``kernel`` under the
-    observations at ``t``: ``(carries, incremental log weights)``."""
+    observations at ``t``: ``(carries, incremental log weights)``. Under a
+    key particle ``i`` draws under the ``i``-th of ``split(key, K)``."""
     x = pytree.tree_map(lambda v: None if v is None else v[t], xs)
     submap = constraint.get_submap(t)
 
-    def extend(c):
-        tr, w = kernel.generate(gen, submap, (c, x))
+    def extend(g, c):
+        tr, w = kernel.generate(g, submap, (c, x))
         c_new, _y = tr.get_retval()
         return c_new, w
 
-    return torch.func.vmap(extend, randomness="different")(carries)
+    return keys.vmap_streams(extend, gen, pytree.tree_leaves(carries)[0].shape[0])(carries)
+
+
+def step_streams(gen, t_count: int) -> list:
+    """Each step's ``(extend, resample)`` streams: under a key the pairs
+    ``split(fold_in(key, t))`` of the reference's filters, made for every
+    step in two hashes; a generator twice each step."""
+    if not keys.is_key(gen):
+        return [(gen, gen)] * t_count
+    steps = keys.fold_in(gen, torch.arange(t_count, device=gen.device))
+    return [tuple(pair.unbind(0)) for pair in keys.split(steps).unbind(0)]
 
 
 def resample_if(gen: torch.Generator, fire: torch.Tensor, particles: Any, log_w: torch.Tensor,
@@ -140,8 +162,9 @@ class SSMParticleFilter(Pytree):
     ) -> ParticleFilterResult:
         """Filter over ``xs`` (a pytree with the step axis leading, or None
         with ``n_steps``) from ``init_carry``, with particles on ``device``.
-        ``gen`` is a ``torch.Generator`` there or an int seed."""
-        gen, device = entry_generator(gen, device, "SSMParticleFilter.run")
+        ``gen`` is a key (placed there), a ``torch.Generator`` there or an
+        int seed."""
+        gen, device = keys.entry_stream(gen, device, "SSMParticleFilter.run")
         k = self.n_particles
         t_count = _steps(xs, n_steps, "SSMParticleFilter.run")
         xs, constraint = to_device(xs, device), to_device(constraint, device)
@@ -149,13 +172,13 @@ class SSMParticleFilter(Pytree):
         log_w = torch.zeros(k, device=device)
         log_z = torch.zeros((), device=device)
         ess_hist = []
-        for t in range(t_count):
-            carries, ws = _extend(self.kernel, gen, carries, xs, constraint, t)
+        for t, (extend_gen, resample_gen) in enumerate(step_streams(gen, t_count)):
+            carries, ws = _extend(self.kernel, extend_gen, carries, xs, constraint, t)
             log_w = log_w + ws
             ess = effective_sample_size(log_w)
             ess_hist.append(ess)
             carries, log_w, log_z = resample_if(
-                gen, ess < self.ess_threshold * k, carries, log_w, log_z, self.method
+                resample_gen, ess < self.ess_threshold * k, carries, log_w, log_z, self.method
             )
         log_marginal = log_z + torch.logsumexp(log_w, dim=0) - math.log(k)
         return ParticleFilterResult(carries, log_w, log_marginal, torch.stack(ess_hist))
@@ -182,6 +205,8 @@ class SSMParticleFilter(Pytree):
         Returns this rank's carries and log weights, and the global log
         marginal likelihood and ESS history (alike on every rank)."""
         entry = "SSMParticleFilter.run_sharded"
+        if keys.is_key(gen):
+            check_generator(gen, entry)
         k = self.n_particles
         k_local = local_count(k, mesh, axis, "n_particles")
         shared, local = mesh_generators(gen, mesh, entry)
@@ -220,6 +245,8 @@ def sharded_importance(target_importance, gen, k_particles: int, mesh: Mesh, *, 
     own stream, and the normalizer is one max and one sum over the axis.
     Returns this rank's ``(traces, log_weights)`` and the global ``log_z``.
     ``gen`` must be in the same state on every rank."""
+    if keys.is_key(gen):
+        check_generator(gen, "sharded_importance")
     k_local = local_count(k_particles, mesh, axis, "k_particles")
     _shared, local = mesh_generators(gen, mesh, "sharded_importance")
     trs, ws = torch.func.vmap(lambda _: target_importance(local), randomness="different")(

@@ -186,6 +186,23 @@ def test_no_jax_import_anywhere():
     assert not bad, "\n".join(bad)
 
 
+def test_chip_smoke_names_no_jax_module():
+    """``chip_smoke.py`` runs on a machine without JAX: it imports neither
+    ``jax`` nor ``genjax_tpu``, statically or through ``__import__`` or
+    ``importlib.import_module`` on a literal name."""
+    path = os.path.join(REPO, "chip_smoke.py")
+    forbidden = ("jax", "jaxlib", "genjax_tpu")
+    bad = [t for t in _imports(path, "chip_smoke") if t.split(".")[0] in forbidden]
+    for node in ast.walk(ast.parse(open(path).read(), filename=path)):
+        if isinstance(node, ast.Call) and node.args and isinstance(node.args[0], ast.Constant):
+            fn = node.func
+            name = fn.id if isinstance(fn, ast.Name) else fn.attr if isinstance(fn, ast.Attribute) else None
+            arg = node.args[0].value
+            if name in ("__import__", "import_module") and isinstance(arg, str) and arg.split(".")[0] in forbidden:
+                bad.append(f"line {node.lineno}: {name}({arg!r})")
+    assert not bad, bad
+
+
 def test_gp_and_elliptical_modules_are_layered():
     """The GP model sits at layer 4 and reaches no kernel module; the
     elliptical sampler sits at layer 5, above it."""
