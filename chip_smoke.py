@@ -5905,6 +5905,264 @@ def keys_smc_path(device, smi: str, g) -> dict:
     return {"errs": errs, "key_ms": key_call, "gen_ms": gen_call}
 
 
+# ADEV and VI under a key ([keys vi]): the cut-size calls whose results
+# genjax_tpu gives on the CPU from the same keys (KV_GOLDEN, printed by
+# scripts/keys_vi_golden.py, jax 0.9.0), and bench_vi's ELBO step at full
+# width under split keys
+KV_STEPS = 100  # the keyed descent's steps at VI_BATCH estimates a step
+KV_GEN_STEPS = 20  # the generator's steps timed beside it
+KV_FIT = dict(n_steps=5, batch_size=4)
+KV_ADVI = dict(n_steps=10, n_samples=4, n_elbo_samples=16)
+KV_MAP = dict(n_steps=5, n_restarts=3)
+KV_PF = dict(n_iters=8, n_draws=6)
+# the golden results' limit: 1e-4 of max(|value|, 1), from the CPU tests'
+# agreement (1e-5 relative on gradients and draws, 1e-4 on the optimisers'
+# short runs, whose float32 rounding the card's kernels change again)
+KV_TOL = 1e-4
+KV_PHI = (0.0, 1.0, 0.0, -1.0, 0.0)  # a bench_vi point whose gradient under key(0) is written out
+
+
+KV_GOLDEN = {
+    "f9_predictive": [-1.157477617263794, -1.1356250047683716, 0.9609788060188293, 1.4322328567504883],
+    "f9_involutive": [2.724257707595825, 0.001824097940698266],
+    "f9_gibbs": [1.0, 1.0, 0.0, 1.0, 1.0, 1.0],
+    "f9_sbc": [11.0, 1.0, 0.0, 11.0, 0.0, 5.0, 9.0, 1.0],
+    "adev_quad": [-5.514955520629883],
+    "adev_reinforce": [-1.2925604581832886],
+    "elbo": [1.3017793893814087, -3.5841193199157715, -0.5812894105911255, 0.0, 0.0],
+    "iwelbo": [-0.8792012929916382, -0.8692389130592346],
+    "pwake": [-6.708619594573975, 5.646805763244629],
+    "qwake": [0.0, 1.000000238418579],
+    "fit": [0.5274235606193542, -0.3670332431793213],
+    "advi": [0.4831683337688446, -0.44122612476348877, 0.37631887197494507, -0.21128106117248535],
+    "fit_map": [0.44645485281944275, -0.8879729509353638, -7.209627151489258],
+    "laplace": [0.44645485281944275, -0.8879729509353638, 0.2380952537059784, -0.142857164144516, -0.1428571492433548, 0.2857142984867096, -6.8940110206604],
+    "pathfinder": [1.6478192806243896, 1.677506685256958, -0.21272119879722595, -0.8766402006149292, -0.17983263731002808, 0.08433961868286133, 0.677375853061676],
+}
+
+
+def kv_calls(lib, keys_of, place, normal, **on) -> dict:
+    """The cut-size calls of ``[keys vi]`` through ``lib`` (the port, or
+    ``genjax_tpu``, whose functions take the same arguments), each run
+    under ``keys_of(seed)`` and summarised as lists of floats, so that the
+    card's results and the reference's (``scripts/keys_vi_golden.py``) come
+    from one definition. The programs use arithmetic alone where the two
+    packages' array functions differ (``e ** x`` for ``exp(x)``, ``2 z - 1``
+    for ``where(z, 1, -1)``). ``place`` makes an array of a numpy one,
+    ``normal(key, shape)`` draws standard normals, and ``on`` holds the
+    keywords of the entry points that make their own draws (the port's
+    ``device``)."""
+    inf, ad, vi = lib.inference, lib.adev, lib.inference.vi
+    e = math.e
+    out = {}
+
+    def floats(*xs):
+        return [float(v) for x in xs for v in np.asarray(
+            x.detach().cpu() if isinstance(x, torch.Tensor) else x, np.float64).reshape(-1)]
+
+    # F9: posterior_predictive, involutive_mh, enumerative_gibbs
+    @lib.gen
+    def pred():
+        mu = lib.normal(0.0, 1.0) @ "mu"
+        _ = lib.normal(mu, 1.0) @ "y"
+
+    out["f9_predictive"] = floats(inf.posterior_predictive(
+        keys_of(0), pred, (), {"mu": place(np.array([0.1, 0.2, 0.3, 0.4], np.float32))})["y"])
+
+    @lib.gen
+    def scale_model():
+        return lib.log_normal(0.0, 1.0) @ "sigma"
+
+    @lib.gen
+    def scale_aux():
+        return lib.normal(0.0, 0.4) @ "u"
+
+    def scale(t, u):
+        return lib.C["sigma"].set(t["sigma"] * e ** u["u"]), lib.C["u"].set(-u["u"])
+
+    tr = scale_model.simulate(keys_of(0), ())
+    new, info = inf.involutive_mh(keys_of(1), tr, scale_aux, scale)
+    out["f9_involutive"] = floats(new.get_choices()["sigma"], info.alpha)
+
+    @lib.gen
+    def flip_model():
+        z = lib.flip(0.5) @ "z"
+        _ = lib.normal(2.0 * z - 1.0, 1.0) @ "x"
+
+    tr, _ = flip_model.generate(keys_of(0), lib.C["x"].set(0.3), ())
+    out["f9_gibbs"] = floats(*(inf.enumerative_gibbs(keys_of(s), tr, "z", place(np.array([False, True])))[1].index
+                              for s in range(6)))
+    res = inf.sbc_ranks(keys_of(0), pred, (), lib.S["mu"], lambda k, chm: chm["y"] + 0.5 * normal(k, (11, 1)),
+                        n_sims=8, **on)
+    out["f9_sbc"] = floats(res.ranks)
+
+    # two ADEV programs: a reparameterised draw, and REINFORCE before one
+    @ad.expectation
+    def quad(mu):
+        return (ad.normal_reparam(mu, 1.0) - 2.0) ** 2
+
+    @ad.expectation
+    def reinforce(p):
+        return ad.flip_reinforce(p) * 1.0 + ad.normal_reparam(0.0, 1.0)
+
+    out["adev_quad"] = floats(*quad.grad_estimate(keys_of(0), (0.5,)))
+    out["adev_reinforce"] = floats(*reinforce.grad_estimate(keys_of(0), (0.3,)))
+
+    # bench_vi's ELBO (mixture_vi's program, in arithmetic)
+    @lib.gen
+    def mix_model(phi):
+        z = lib.flip(0.5) @ "z"
+        mu = lib.normal(4.0 * z - 2.0, 1.0) @ "mu"
+        _ = lib.normal(mu, 0.5) @ "y"
+
+    @lib.gen
+    def mix_guide(target):
+        (phi,) = target.args
+        z = vi.flip_reinforce(1.0 / (1.0 + e ** -phi[0])) @ "z"
+        zf = z * 1.0
+        m = zf * phi[1] + (1.0 - zf) * phi[3]
+        s = e ** (zf * phi[2] + (1.0 - zf) * phi[4])
+        _ = vi.normal_reparam(m, s) @ "mu"
+
+    mix = inf.sp.Marginal(mix_guide, lib.Pytree.const(lib.Selection.all()), lib.Pytree.const(None))
+    elbo = vi.ELBO(mix, lambda phi: inf.Target(mix_model, (phi,), lib.C["y"].set(1.5)))
+    out["elbo"] = floats(*elbo(keys_of(0), (place(np.asarray(KV_PHI, np.float32)),)))
+
+    # the losses on a normal model with a reparameterised guide
+    @lib.gen
+    def nn_model(phi):
+        mu = lib.normal(0.0 * phi[0], 1.0) @ "mu"
+        _ = lib.normal(mu, 0.5) @ "y"
+
+    @lib.gen
+    def nn_guide(target):
+        (phi,) = target.args
+        _ = vi.normal_reparam(phi[0], e ** phi[1]) @ "mu"
+
+    guide = inf.sp.Marginal(nn_guide, lib.Pytree.const(lib.Selection.all()), lib.Pytree.const(None))
+
+    def make_target(phi):
+        return inf.Target(nn_model, (phi,), lib.C["y"].set(1.0))
+
+    phi = place(np.array([0.3, -0.5], np.float32))
+    for name, est in (("iwelbo", vi.IWELBO(guide, make_target, 4)), ("pwake", vi.PWake(guide, make_target)),
+                      ("qwake", vi.QWake(guide, guide, make_target))):
+        out[name] = floats(*est(keys_of(0), (phi,)))
+    out["fit"] = floats(vi.fit(vi.ELBO(guide, make_target), phi, key=keys_of(0), **KV_FIT))
+
+    # ADVI, MAP and Laplace, Pathfinder
+    mean = place(np.array([1.0, -0.5, 0.3], np.float32))
+
+    def ld(z):
+        return -0.5 * (((z - mean[:, None]) ** 2) / 0.25).sum(0)
+
+    res = inf.advi(keys_of(0), ld, 3, **KV_ADVI, **on)
+    out["advi"] = floats(res.mu, res.elbo)
+
+    @lib.gen
+    def ab_model():
+        a = lib.normal(0.0, 1.0) @ "a"
+        b = lib.normal(a, 1.0) @ "b"
+        _ = lib.normal(a + b, 0.5) @ "y"
+
+    sel = lib.S["a"] | lib.S["b"]
+    res = inf.fit_map(keys_of(0), ab_model, lib.C["y"].set(1.0), (), sel, **KV_MAP, **on)
+    out["fit_map"] = floats(res["a"], res["b"], res.log_joint)
+    res = inf.laplace_approximation(keys_of(0), ab_model, lib.C["y"].set(1.0), (), sel, **KV_MAP, **on)
+    out["laplace"] = floats(res.mean, res.cov, res.log_marginal)
+    res = inf.pathfinder(keys_of(0), ld, 3, **KV_PF, **on)
+    out["pathfinder"] = floats(res.draws[:, :2], res.elbo)
+    return out
+
+
+def keys_vi_path(device, smi: str, g) -> dict:
+    """``[keys vi]``: ADEV and VI under a key on the card (no kernel: the
+    reference runs them as XLA). The cut-size calls (``kv_calls``) against
+    ``genjax_tpu``'s golden results (``KV_GOLDEN``), then ``bench_vi``'s ELBO
+    at full width under keys: ``VI_BATCH`` estimates a step, each under its
+    own key of ``split(k, VI_BATCH)``, the step's ``k`` from ``split(key(0),
+    KV_STEPS)``: at ``phi0`` the mean within 5 SE of the exact gradient, and
+    the exact loss lower after the ``KV_STEPS`` steps. ``[timing keys vi]``:
+    a keyed step's host-clock time, kernels and idle share beside a
+    generator's."""
+    import genjax_tpu_torch.adev  # noqa: F401
+    import genjax_tpu_torch.inference  # noqa: F401
+    from genjax_tpu_torch.core import keys
+
+    t0 = time.perf_counter()
+    got = kv_calls(g, lambda s: keys.key(s, device=device), lambda a: torch.as_tensor(a, device=device),
+                   keys.normal, device=device)
+    cut_s = time.perf_counter() - t0
+    errs = {name: max(abs(a - b) / max(abs(b), 1.0) for a, b in zip(got[name], want))
+            for name, want in KV_GOLDEN.items()}
+    phase("keys vi", f"{smi}: the cut-size calls under key(0) against genjax_tpu's golden results (limit {KV_TOL} "
+                     f"of max(|value|, 1)), {cut_s:.1f} s: " + ", ".join(f"{k} {e:.3g}" for k, e in errs.items()))
+    check(set(got) == set(KV_GOLDEN), f"[keys vi] the calls {sorted(got)} against the golden {sorted(KV_GOLDEN)}")
+    for name, e in errs.items():
+        check(len(got[name]) == len(KV_GOLDEN[name]) and e <= KV_TOL,
+              f"[keys vi] {name}: {e:.3g} off the reference's {KV_GOLDEN[name][:3]}... (got {got[name][:3]}...)")
+
+    # ---- bench_vi's step at full width under keys
+    elbo_grad, _, _ = mixture_vi(g)
+    phi0 = torch.tensor(VI_PHI0, device=device)
+
+    def grads(k, phi):
+        return torch.func.vmap(lambda kk: elbo_grad(kk, (phi,))[0])(keys.split(k, VI_BATCH))
+
+    def step(k, phi):
+        return phi - VI_LR * grads(k, phi).mean(dim=0)
+
+    root = keys.key(0, device=device)
+    step_keys = keys.split(root, KV_STEPS)
+    gs = grads(keys.fold_in(root, 1), phi0).double()
+    loss0, exact = exact_neg_elbo(VI_PHI0)
+    mean, se = gs.mean(0).cpu().numpy(), (gs.std(0) / math.sqrt(VI_BATCH)).cpu().numpy()
+    z = np.abs(mean - exact) / se
+    check(bool(np.all(z < 5)) and tuple(gs.shape) == (VI_BATCH, 5),
+          f"[keys vi] keyed ELBO gradient at phi0 {mean.tolist()} vs exact {exact.tolist()}: {z.tolist()} SE")
+    phi = phi0
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for k in step_keys.unbind(0):
+        phi = step(k, phi)
+    torch.cuda.synchronize()
+    key_ms = (time.perf_counter() - t1) / KV_STEPS * 1e3
+    loss1, _ = exact_neg_elbo(phi.cpu().numpy())
+    check(math.isfinite(loss1) and loss1 < loss0,
+          f"[keys vi] exact negative ELBO {loss1} after the keyed descent vs {loss0} at phi0")
+    phase("keys vi", f"{smi}: bench_vi's ELBO under keys, {VI_BATCH} estimates a step each under its key of "
+                     f"split(k, {VI_BATCH}), the steps' k of split(key(0), {KV_STEPS}): at phi0 the mean within "
+                     f"{float(z.max()):.2f} SE of the exact float64 gradient (limit 5; "
+                     f"{np.round(mean, 4).tolist()} vs {np.round(exact, 4).tolist()}); {KV_STEPS} steps of "
+                     f"{VI_LR}: exact negative ELBO {loss0:.4f} -> {loss1:.4f} "
+                     f"(phi {np.round(phi.cpu().numpy(), 4).tolist()})")
+
+    # ---- [timing keys vi]: a keyed step beside a generator's
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    lanes = torch.zeros(VI_BATCH, device=device)
+    gen_batched = torch.func.vmap(lambda _, p: elbo_grad(gen, (p,))[0], in_dims=(0, None), randomness="different")
+
+    def gen_step(p):
+        return p - VI_LR * gen_batched(lanes, p).mean(dim=0)
+
+    p = phi0
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for _ in range(KV_GEN_STEPS):
+        p = gen_step(p)
+    torch.cuda.synchronize()
+    gen_ms = (time.perf_counter() - t1) / KV_GEN_STEPS * 1e3
+    key_busy = device_busy(lambda: step(keys.fold_in(root, 2), phi0))
+    gen_busy = device_busy(lambda: gen_step(phi0))
+    phase("timing keys vi", f"{smi}, beside the cookbooks' process: bench_vi's step at {VI_BATCH} estimates "
+                            f"(host clock): under keys {key_ms:.3f} ms (mean of {KV_STEPS}), under a generator "
+                            f"{gen_ms:.3f} ms (mean of {KV_GEN_STEPS}), {key_ms / gen_ms:.2f}x; "
+                            + busy_line("a keyed step", key_busy, key_ms) + "; "
+                            + busy_line("a generator step", gen_busy, gen_ms))
+    phase("keys vi", f"the keys vi phase took {time.perf_counter() - t0:.1f} s")
+    return {"errs": errs, "key_ms": key_ms, "gen_ms": gen_ms}
+
+
 def finish_phases(device, smi: str, g, hmc, nuts_pallas, elliptical, model, y, k1_draws) -> int:
     """The phases after the GP path, which need no kernel timing of their
     own and run beside ``[cookbook]``'s process. Each path returns the
@@ -6959,6 +7217,9 @@ def main() -> int:
         torch.cuda.empty_cache()
         # SMC under a key (no kernel), beside the cookbooks too
         keys_smc_path(device, smi, g)
+        torch.cuda.empty_cache()
+        # ADEV and VI under a key (no kernel), beside the cookbooks too
+        keys_vi_path(device, smi, g)
         torch.cuda.empty_cache()
         ck_launches = finish_phases(device, smi, g, hmc, nuts_pallas, elliptical, model, y, k1_draws)
         cookbook_finish(cookbooks, smi)

@@ -6,8 +6,9 @@ fold-ins, bits, uniforms, normals, integers and coin flips as ``jax.random``
 gives for the same seed, and its gamma draws and the samplers built on them
 alone (``gamma``, ``loggamma``, ``beta``, ``dirichlet``, ``chisquare``,
 ``t``), so that a model driven by ``key(0)`` draws what the JAX package
-draws from ``jax.random.key(0)``. Gumbel noise and categorical draws come
-with them (``gumbel``, ``categorical``).
+draws from ``jax.random.key(0)``. Gumbel noise, categorical draws, draws
+of an index with replacement and geometric draws come with them
+(``gumbel``, ``categorical``, ``choice``, ``geometric``).
 
 A key is an int64 tensor whose last axis holds the key's 32-bit words, each in
 ``[0, 2**32)``: two for threefry2x32 (JAX's default), four for rbg; a batch of
@@ -31,7 +32,7 @@ The sources are ``jax/_src/prng.py`` (``threefry_seed``,
 ``threefry_fold_in``, ``_threefry_random_bits_partitionable``, ``_rbg_seed``,
 ``_rbg_split``, ``_rbg_fold_in``, ``_rbg_random_bits``) and
 ``jax/_src/random.py`` (``_uniform``, ``_normal_real``, ``_randint``,
-``_bernoulli``, ``_gumbel``, ``categorical``, ``_gamma_one``, ``_gamma_impl``, ``_beta``, ``_dirichlet``,
+``_bernoulli``, ``_gumbel``, ``categorical``, ``choice``, ``_geometric``, ``_gamma_one``, ``_gamma_impl``, ``_beta``, ``_dirichlet``,
 ``_chisquare``, ``_t`` and the samplers the distributions reproduce).
 
 >>> k = key(0, device="cpu")
@@ -552,6 +553,41 @@ def categorical(k: torch.Tensor, logits, axis: int = -1, shape=None) -> torch.Te
         b = _bits(k, (r1 - r0,) + noise_shape[1:], start=r0 * inner, lane=math.prod(noise_shape))
         out.append(torch.argmax(_gumbel_of(b, k.device) + logits, dim=red))
     return torch.cat(out, dim=0)
+
+
+def choice(k: torch.Tensor, a, shape=(), replace: bool = True, axis: int = 0) -> torch.Tensor:
+    """Draws from ``a``, as ``jax.random.choice(k, a, shape)`` makes them
+    with replacement and uniform weights: ``randint(k, shape, 0, n)``, then
+    those indices of ``a`` along ``axis`` (an int ``a`` is ``arange(a)``,
+    and the indices are the draw). Without replacement the reference takes
+    a permutation, which is not reproduced: ``replace=False`` raises a
+    ``TypeError``; draw it from a ``torch.Generator`` instead
+    (``torch.randperm``)."""
+    _check(k, "choice")
+    if not replace:
+        raise TypeError("choice: a draw without replacement under a key is not reproduced here; pass a "
+                        "torch.Generator and draw it with torch.randperm")
+    shape = _shape(shape)
+    arr = a if isinstance(a, torch.Tensor) else torch.as_tensor(a, device=k.device)
+    n = int(arr) if arr.dim() == 0 else int(arr.shape[axis])
+    if n <= 0:
+        raise ValueError("choice: a must be greater than 0 unless no samples are taken")
+    ind = randint(k, shape, 0, n)
+    if arr.dim() == 0:
+        return ind
+    return torch.index_select(arr, axis, ind.reshape(-1)).unflatten(axis, shape)
+
+
+def geometric(k: torch.Tensor, p, shape=None) -> torch.Tensor:
+    """Trials up to the first success, as ``jax.random.geometric`` draws
+    them in its default int32 (int64 here): ``floor(log u / log1p(-p)) + 1``
+    of float32 uniforms ``u``. ``shape`` defaults to ``p``'s."""
+    _check(k, "geometric")
+    p = _on(p, torch.float32, k.device)
+    shape = tuple(p.shape) if shape is None else _shape(shape)
+    u = uniform(k, shape)
+    g = torch.floor(torch.log(u) / torch.log1p(-p).expand(shape)) + 1
+    return g.to(torch.int64)
 
 
 # ----------------------------------------------------------------------

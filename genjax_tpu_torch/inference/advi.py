@@ -17,9 +17,12 @@ Two gradient estimators:
   gradients once ``q`` reaches the target's family;
 - ``"entropy"``: the analytic Gaussian entropy (classic ADVI).
 
-``advi`` and ``column_advi`` make their own randomness: they take a
-``torch.Generator`` or an int seed and ``device``, the card unless the
-caller asks for the CPU.
+``advi`` and ``column_advi`` make their own randomness: they take a key
+(``core/keys.py``), a ``torch.Generator`` or an int seed, and ``device``,
+the card unless the caller asks for the CPU. A key is split as the
+reference splits it (a fitting key, split into a key a step, and the final
+ELBO's key), so the fit draws the reference's draws; a generator is drawn
+from in sequence.
 """
 
 from __future__ import annotations
@@ -29,7 +32,8 @@ from typing import Any, Callable, Sequence
 import torch
 import torch.utils._pytree as pytree
 
-from ..core.device import entry_generator, to_device
+from ..core import keys
+from ..core.device import to_device
 from ..core.pytree import Pytree
 from ._adam import adam_init, adam_update
 from ..kernels.rows import refuse_row_sharded
@@ -58,9 +62,10 @@ class ADVIResult(Pytree):
     def sd(self):
         return torch.sqrt(torch.sum(self.scale_tril**2, dim=1))
 
-    def sample(self, gen: torch.Generator, n: int):
-        """``(D, n)`` columns from the fitted Gaussian."""
-        eps = torch.randn((self.mu.shape[0], n), generator=gen, device=gen.device)
+    def sample(self, gen, n: int):
+        """``(D, n)`` columns from the fitted Gaussian, under a key or from a
+        generator."""
+        eps = keys.normal_from(gen, (self.mu.shape[0], n), gen.device)
         return self.mu[:, None] + self.scale_tril @ eps
 
     def logq(self, z):
@@ -107,7 +112,7 @@ def advi(
         raise ValueError(f"rank must be 'diag' or 'full', got {rank!r}")
     if estimator not in ("stl", "entropy"):
         raise ValueError(f"estimator must be 'stl' or 'entropy', got {estimator!r}")
-    gen, device = entry_generator(gen, device, "advi")
+    gen, device = keys.entry_stream(gen, device, "advi")
     mu0 = (
         torch.zeros(dim, device=device)
         if init_mu is None
@@ -150,12 +155,13 @@ def advi(
     neg_grad = torch.func.grad_and_value(lambda p, eps: -elbo_est(p, eps))
     state = adam_init(params)
     trace = []
-    for _ in range(n_steps):
-        eps = torch.randn((dim, n_samples), generator=gen, device=device)
+    fit_gen, eval_gen = keys.split_stream(gen)
+    for k in keys.split_stream(fit_gen, n_steps):
+        eps = keys.normal_from(k, (dim, n_samples), device)
         g, loss = neg_grad(params, eps)
         params, state = adam_update(g, state, params, learning_rate)
         trace.append(-loss)
-    final = elbo_est(params, torch.randn((dim, n_elbo_samples), generator=gen, device=device))
+    final = elbo_est(params, keys.normal_from(eval_gen, (dim, n_elbo_samples), device))
     tril = torch.diag(torch.exp(params["log_sigma"])) if rank == "diag" else build_tril(params)
     return ADVIResult(
         mu=params["mu"],
@@ -173,7 +179,7 @@ class ADVIPosterior(Pytree):
     result: ADVIResult
     packer: Any = Pytree.static(compare=False)
 
-    def sample_choices(self, gen: torch.Generator, n: int):
+    def sample_choices(self, gen, n: int):
         """``n`` posterior choice maps (leaves carry a leading ``n`` axis)."""
         cols = self.result.sample(gen, n)
         return torch.func.vmap(self.packer.unpack, in_dims=1)(cols)
@@ -200,7 +206,7 @@ def column_advi(
     from ..generative.choice_map import ChoiceMap
     from ..kernels.model_interface import ColumnPacker, column_logdensity
 
-    gen, device = entry_generator(gen, device, "column_advi")
+    gen, device = keys.entry_stream(gen, device, "column_advi")
     if constraint is None:
         constraint = ChoiceMap.empty()
     constraint, args = to_device((constraint, args), device)

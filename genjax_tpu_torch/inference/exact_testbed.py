@@ -20,6 +20,7 @@ from typing import Any, Callable
 
 import torch
 
+from ..core import keys
 from ..core.pytree import Pytree
 from ..dists.discrete_hmm import DiscreteHMM, DiscreteHMMConfiguration
 from ..models.hmm import discrete_hmm_model
@@ -45,7 +46,8 @@ def build_test_against_exact_inference(
     """Returns ``(problem_generator, markov_chain_model, config)``: the
     scanned ``@gen`` Markov chain (addresses ``(t, "z")`` latent, ``(t,
     "x")`` observed) and ``problem_generator(gen)``, which simulates one
-    problem on ``gen``'s device."""
+    problem on the device of ``gen``, a key or a generator; a key is split
+    into the path's key and the posterior's, as the reference splits it."""
     config = DiscreteHMMConfiguration(
         state_space_size,
         transition_distance_truncation,
@@ -55,9 +57,10 @@ def build_test_against_exact_inference(
     )
     markov_chain, _ = discrete_hmm_model(config, max_length)
 
-    def inference_test_generator(gen: torch.Generator) -> DiscreteHMMInferenceProblem:
+    def inference_test_generator(gen) -> DiscreteHMMInferenceProblem:
+        gen, k_path = keys.split_stream(gen)
         initial_state = torch.tensor(config.linear_grid_dim // 2, device=gen.device)
-        tr = markov_chain.simulate(gen, (initial_state, torch.zeros(max_length, device=gen.device)))
+        tr = markov_chain.simulate(k_path, (initial_state, torch.zeros(max_length, device=gen.device)))
         chm = tr.get_choices()
         latent_sequence, observation_sequence = chm[:, "z"], chm[:, "x"]
         return DiscreteHMMInferenceProblem(

@@ -10,7 +10,10 @@ Gibbs move, accepted with probability 1. The support enumeration is one
 candidate) ``IndexRequest`` edits, block Gibbs since the lanes of a
 ``Vmap`` combinator are conditionally independent given everything outside
 it. A sweep is a Python loop over sweeps, where the reference runs
-``lax.scan``; every move draws from one ``torch.Generator`` in sequence,
+``lax.scan``. Under a key (``core/keys.py``) every function splits it as
+the reference does (a move into its enumeration, draw and edit keys, a
+sweep into a key a sweep and that into a key a move), so the moves draw
+the reference's draws; a ``torch.Generator`` is drawn from in sequence,
 and moves run under ``torch.func.vmap(..., randomness="different")`` over
 chains.
 
@@ -38,6 +41,7 @@ from typing import Any, Callable, Sequence
 import torch
 import torch.utils._pytree as pytree
 
+from ..core import keys
 from ..core.pytree import Pytree
 from ..dists import categorical
 from ..generative.choice_map import C, ChoiceMap
@@ -85,13 +89,14 @@ def enumerative_gibbs(gen: torch.Generator, trace: Trace, site, support) -> tupl
     EditRequest``; ``support`` a tensor (or a pytree with a leading candidate
     axis) of candidate values."""
     support = _support_on(support, trace)
+    k_enum, k_cat, k_apply = keys.split_stream(gen, 3)
 
     def weight_of(c):
-        return trace.edit(gen, _request_for(site, c))[1]
+        return trace.edit(k_enum, _request_for(site, c))[1]
 
     log_w = torch.func.vmap(weight_of, randomness="different")(support)
-    idx = categorical.sample(gen, log_w)
-    new_trace = trace.edit(gen, _request_for(site, _take(support, idx)))[0]
+    idx = categorical.sample(k_cat, log_w)
+    new_trace = trace.edit(k_apply, _request_for(site, _take(support, idx)))[0]
     return new_trace, GibbsInfo(index=idx, log_probs=torch.log_softmax(log_w, dim=-1))
 
 
@@ -131,6 +136,7 @@ def enumerative_gibbs_vmap(
     support = _support_on(support, trace)
     if n_lanes is None:
         n_lanes = _lane_count(trace, prefix, postfix)
+    k_enum, k_cat, k_apply = keys.split_stream(gen, 3)
 
     def lane_request(i, c) -> EditRequest:
         req: EditRequest = IndexRequest(i, Update(_set_path(postfix, c)))
@@ -139,14 +145,14 @@ def enumerative_gibbs_vmap(
         return req
 
     def lane_weights(i):
-        return torch.func.vmap(lambda c: trace.edit(gen, lane_request(i, c))[1], randomness="different")(support)
+        return torch.func.vmap(lambda c: trace.edit(k_enum, lane_request(i, c))[1], randomness="different")(support)
 
     lanes = torch.arange(n_lanes, device=trace_device(trace))
     batch = n_lanes if lane_batch is None else max(1, min(lane_batch, n_lanes))
     log_w = torch.cat([torch.func.vmap(lane_weights, randomness="different")(lanes[s:s + batch])
                        for s in range(0, n_lanes, batch)])
-    idx = categorical.sample(gen, log_w)
-    new_trace = trace.edit(gen, Update(C[prefix + (lanes,) + postfix].set(_take(support, idx))))[0]
+    idx = categorical.sample(k_cat, log_w)
+    new_trace = trace.edit(k_apply, Update(C[prefix + (lanes,) + postfix].set(_take(support, idx))))[0]
     return new_trace, GibbsInfo(index=idx, log_probs=torch.log_softmax(log_w, dim=-1))
 
 
@@ -202,11 +208,13 @@ def gibbs_sweep(
     deterministic-scan Gibbs kernel, where the trace lives. Build moves with
     ``enum_move``, ``enum_vmap_move``, ``mh_move`` or
     ``involutive.involutive_move``; ``record(trace)`` is kept after every
-    sweep."""
+    sweep. A key is split into a key a sweep and each of those into a key a
+    move, as the reference's scan splits it."""
+    moves = tuple(moves)
     history = []
-    for _ in range(n_sweeps):
-        for mv in moves:
-            trace = mv(gen, trace)
+    for k in keys.split_stream(gen, n_sweeps):
+        for mv, mk in zip(moves, keys.split_stream(k, len(moves))):
+            trace = mv(mk, trace)
         if record is not None:
             history.append(record(trace))
     stacked = pytree.tree_map(lambda *xs: torch.stack(xs), *history) if history else None

@@ -13,7 +13,9 @@ leaves pass through and add no volume). The model-score ratio comes from
 one fully determined ``Update`` edit; the Jacobian is ``torch.func.jacfwd``
 of the involution over the raveled continuous coordinates with
 ``torch.linalg.slogdet``, where the reference takes ``jax.jacfwd``; the move
-runs under ``torch.func.vmap`` over chains.
+runs under ``torch.func.vmap`` over chains. A key is split into the
+auxiliary draw's, the edit's and the accept draw's keys, as the reference
+splits it; a ``torch.Generator`` is drawn from in sequence.
 
 >>> import torch
 >>> import genjax_tpu_torch as g
@@ -38,6 +40,7 @@ from typing import Any, Callable
 
 import torch
 
+from ..core import keys
 from ..core.pytree import Pytree
 from ..generative.choice_map import ChoiceMap
 from ..generative.concepts import Update
@@ -85,9 +88,10 @@ def involutive_mh(
         raise ValueError(f"jacobian must be 'auto' or 'zero', got {jacobian!r}")
     args_of = aux_args if callable(aux_args) else (lambda _tr: aux_args)
     dev = trace_device(trace)
+    k_aux, k_edit, k_acc = keys.split_stream(gen, 3)
 
     t = trace.get_choices()
-    u_trace = aux_model.simulate(gen, args_of(trace))
+    u_trace = aux_model.simulate(k_aux, args_of(trace))
     u = u_trace.get_choices()
     q_fwd = u_trace.get_score()
     t_new, u_new = involution(t, u)
@@ -106,7 +110,7 @@ def involutive_mh(
         jac = torch.func.jacfwd(lambda z: split_ravel(involution(*rebuild(z)))[0])(flat_in)
         logdet = torch.linalg.slogdet(jac)[1]
 
-    new_trace, w_model, _rd, _bwd = trace.edit(gen, Update(t_new))
+    new_trace, w_model, _rd, _bwd = trace.edit(k_edit, Update(t_new))
     q_bwd, _ = aux_model.assess(u_new, args_of(new_trace))
     alpha = w_model + q_bwd - q_fwd + logdet
 
@@ -122,7 +126,7 @@ def involutive_mh(
         else:
             involution_error = torch.zeros((), device=dev)
 
-    out, accepted = mh_accept(gen, trace, new_trace, alpha)
+    out, accepted = mh_accept(k_acc, trace, new_trace, alpha)
     return out, InvolutiveInfo(accepted=accepted, alpha=alpha, logdet=logdet, involution_error=involution_error)
 
 

@@ -7,9 +7,12 @@ estimation or MLE under a flat prior, with Adam (optax's update) from
 ``laplace_approximation`` adds the Gaussian curvature at the mode by
 ``torch.func.hessian``. Both reuse the raveled selection of the gradient
 requests (``requests.grad_view.split_ravel``), so they work on any ``@gen``
-model through ``assess``. Both make their own randomness: they take a
-``torch.Generator`` or an int seed and ``device``, the card unless the
-caller asks for the CPU.
+model through ``assess``. Both make their own randomness: they take a key
+(``core/keys.py``), a ``torch.Generator`` or an int seed, and ``device``,
+the card unless the caller asks for the CPU. Under a key restart ``i``
+starts from a prior draw under the ``i``-th of ``split(key, n_restarts)``,
+as the reference's do; a generator gives each restart its own draw
+(``randomness="different"``).
 """
 
 from __future__ import annotations
@@ -19,7 +22,8 @@ from typing import Any
 
 import torch
 
-from ..core.device import entry_generator, to_device
+from ..core import keys
+from ..core.device import to_device
 from ..core.pytree import Pytree
 from ..dists.catalog import cholesky_or_nan
 from ..generative.choice_map import ChoiceMap
@@ -47,7 +51,8 @@ class MAPResult(Pytree):
 
 
 def _fit_map(gen, model, constraint, args, selection, n_steps, learning_rate, n_restarts):
-    """``fit_map`` on a placed generator, with the log-joint it climbed."""
+    """``fit_map`` on a placed key or generator, with the log-joint it
+    climbed."""
     tr, _ = model.generate(gen, constraint, args)
     chm = tr.get_choices()
     frozen = chm.filter(~selection)
@@ -57,12 +62,12 @@ def _fit_map(gen, model, constraint, args, selection, n_steps, learning_rate, n_
         w, _ = model.assess(rebuild(z).merge(frozen), args)
         return w
 
-    def init_one(_):
-        t, _ = model.generate(gen, constraint, args)
+    def init_one(stream):
+        t, _ = model.generate(stream, constraint, args)
         z, _ = split_ravel(t.get_choices().filter_eager(selection))
         return z.to(torch.float32)
 
-    zs = torch.func.vmap(init_one, randomness="different")(torch.zeros(n_restarts, device=gen.device))
+    zs = keys.vmap_streams(init_one, gen, n_restarts)()
     neg_grad = torch.func.vmap(torch.func.grad_and_value(lambda z: -log_joint(z)))
     state = adam_init(zs)
     trajectory = []
@@ -91,7 +96,7 @@ def fit_map(
     """Maximize ``log p(selection, constraint)`` over the selected choices:
     ``n_restarts`` starts drawn from the prior, Adam on each (one
     ``torch.func.vmap``), the best returned."""
-    gen, device = entry_generator(gen, device, "fit_map")
+    gen, device = keys.entry_stream(gen, device, "fit_map")
     constraint, args = to_device((constraint, args), device)
     return _fit_map(gen, model, constraint, args, selection, n_steps, learning_rate, n_restarts)[0]
 
@@ -129,7 +134,7 @@ def laplace_approximation(
     unconverged fit) the approximation does not exist: ``cov`` and
     ``log_marginal`` are NaN, as in the reference, and nothing raises or
     waits on the card."""
-    gen, device = entry_generator(gen, device, "laplace_approximation")
+    gen, device = keys.entry_stream(gen, device, "laplace_approximation")
     constraint, args = to_device((constraint, args), device)
     kw = {"n_steps": 300, "learning_rate": 0.05, "n_restarts": 8, **fit_kwargs}
     res, log_joint = _fit_map(

@@ -20,7 +20,12 @@ a step. ``multi_pathfinder`` pools the draws and resamples them by their
 Pareto-smoothed importance weights (``model_comparison._psis_smooth_column``).
 
 The entry points run on ``device``, the card unless the caller asks for the
-CPU, and draw from one ``torch.Generator`` there.
+CPU. Under a key (``core/keys.py``) each path draws under its own key as the
+reference's does (``split(fold_in(key, 0), n_paths)`` for several paths,
+each split into its start's, its ELBO draws' and its final draws' keys,
+the ELBO draws of iteration ``k`` under ``fold_in(elbo_key, k)``), and the
+resampling draws under ``fold_in(key, 1)``; a ``torch.Generator`` (an int
+seed makes one) is drawn from in sequence.
 
 >>> import torch
 >>> from genjax_tpu_torch.inference import pathfinder
@@ -36,7 +41,8 @@ from typing import Any, Callable, Sequence
 
 import torch
 
-from ..core.device import entry_generator, to_device
+from ..core import keys
+from ..core.device import to_device
 from ..core.pytree import Pytree
 from ..generative.choice_map import ChoiceMap
 from ..kernels.model_interface import ColumnPacker, column_logdensity
@@ -99,17 +105,35 @@ class PathfinderResult(Pytree):
     logp: Any
     linesearch_steps: Any
 
-    def sample(self, gen: torch.Generator, n: int):
-        eps = torch.randn((self.mu.shape[0], n), generator=gen, device=self.mu.device)
+    def sample(self, gen, n: int):
+        eps = keys.normal_from(gen, (self.mu.shape[0], n), self.mu.device)
         return self.mu[:, None] + self.scale_tril @ eps
+
+
+def _path_draws(streams, draw, p: int, shape: tuple, fold: int | None = None):
+    """``(p, *shape)`` draws: under a key each path's ``draw(k, shape)``
+    under its own key of ``streams`` (``(p, W)``, each folded with ``fold``
+    if given), mapped over the paths as the reference's ``vmap`` maps them;
+    under a generator ``draw(gen, (p, *shape))``."""
+    if keys.is_key(streams):
+        return torch.func.vmap(lambda k: draw(k if fold is None else keys.fold_in(k, fold), shape))(streams)
+    return draw(streams, (p, *shape))
 
 
 def _paths(gen, logdensity_cols: Callable, dim: int, n_paths: int, device, *, init=None, n_iters: int = 60,
            history: int = 6, n_elbo_samples: int = 30, n_draws: int = 200, init_scale: float = 2.0,
            jitter: float = 1e-6) -> PathfinderResult:
     """``n_paths`` Pathfinders as one batch; every field leads with the
-    path axis."""
+    path axis. ``gen`` is a generator or the paths' keys ``(n_paths, W)``,
+    each split into its start's, ELBO draws' and final draws' keys."""
     p = n_paths
+    if keys.is_key(gen):
+        init_keys, elbo_keys, draw_keys = keys.split(gen, 3).unbind(-2)
+    else:
+        init_keys = elbo_keys = draw_keys = gen
+
+    def normal(stream, shape):
+        return keys.normal_from(stream, shape, device)
 
     def value_and_grad(theta):  # f = -logdensity, every path's point a column
         theta = theta.detach().requires_grad_(True)
@@ -122,7 +146,10 @@ def _paths(gen, logdensity_cols: Callable, dim: int, n_paths: int, device, *, in
         k = z.shape[-1]
         return logdensity_cols(z.permute(1, 0, 2).reshape(dim, p * k)).reshape(p, k).detach()
 
-    if init is None:
+    if init is None and keys.is_key(gen):
+        theta = _path_draws(init_keys, lambda k, sh: keys.uniform(k, sh, minval=-init_scale, maxval=init_scale),
+                            p, (dim,))
+    elif init is None:
         theta = (torch.rand((p, dim), generator=gen, device=device) * 2.0 - 1.0) * init_scale
     else:
         theta = torch.as_tensor(init, dtype=torch.float32, device=device).expand(p, dim).clone()
@@ -135,7 +162,7 @@ def _paths(gen, logdensity_cols: Callable, dim: int, n_paths: int, device, *, in
     best_elbo = theta.new_full((p,), float("-inf"))
     best_mu, best_chol = theta.clone(), eye.expand(p, dim, dim).clone()
     trace, steps = [], []
-    for _ in range(n_iters):
+    for it in range(n_iters):
         value, grad = value_and_grad_from_state(value_and_grad, theta, state)
         theta_new, state = lbfgs_update(value_and_grad, grad, state, theta, value)
         _, grad_new = value_and_grad_from_state(value_and_grad, theta_new, state)
@@ -154,7 +181,7 @@ def _paths(gen, logdensity_cols: Callable, dim: int, n_paths: int, device, *, in
         chol, info = torch.linalg.cholesky_ex(H + jitter * eye)
         chol = torch.where((info == 0)[:, None, None], chol, float("nan"))
         mu = theta_new - (H @ grad_new[..., None])[..., 0]
-        eps = torch.randn((p, dim, n_elbo_samples), generator=gen, device=device)
+        eps = _path_draws(elbo_keys, normal, p, (dim, n_elbo_samples), fold=it)
         zs = mu[..., None] + chol @ eps
         elbo = torch.mean(ld_paths(zs) - _mvn_logpdf_cols(zs, mu, chol), dim=-1)
         elbo = torch.where(torch.isfinite(elbo), elbo, float("-inf"))
@@ -164,7 +191,7 @@ def _paths(gen, logdensity_cols: Callable, dim: int, n_paths: int, device, *, in
         best_chol = torch.where(better[:, None, None], chol, best_chol)
         trace.append(elbo)
         theta = theta_new
-    eps = torch.randn((p, dim, n_draws), generator=gen, device=device)
+    eps = _path_draws(draw_keys, normal, p, (dim, n_draws))
     draws = best_mu[..., None] + best_chol @ eps
     return PathfinderResult(
         mu=best_mu, scale_tril=best_chol, elbo=best_elbo, elbo_trace=torch.stack(trace, dim=1), draws=draws,
@@ -195,8 +222,8 @@ def pathfinder(
     ``init``: an optional ``(D,)`` start (by default uniform on
     ``(-init_scale, init_scale)``, Stan's convention)."""
     refuse_row_sharded(logdensity_cols, "pathfinder")
-    gen, device = entry_generator(gen, device, "pathfinder")
-    res = _paths(gen, logdensity_cols, dim, 1, device, init=init, n_iters=n_iters, history=history,
+    gen, device = keys.entry_stream(gen, device, "pathfinder")
+    res = _paths(gen[None] if keys.is_key(gen) else gen, logdensity_cols, dim, 1, device, init=init, n_iters=n_iters, history=history,
                  n_elbo_samples=n_elbo_samples, n_draws=n_draws, init_scale=init_scale, jitter=jitter)
     return PathfinderResult(*(v[0] for v in (res.mu, res.scale_tril, res.elbo, res.elbo_trace, res.draws,
                                              res.logq, res.logp, res.linesearch_steps)))
@@ -235,9 +262,15 @@ def _pool(paths: PathfinderResult):
 
 
 def _multi(gen, logdensity_cols, dim, n_paths, n_resample, device, path_kwargs) -> MultiPathfinderResult:
-    paths = _paths(gen, logdensity_cols, dim, n_paths, device, **path_kwargs)
+    """Under a key the paths' keys are ``split(fold_in(key, 0), n_paths)``
+    and the resampling draws under ``fold_in(key, 1)``, as the reference's."""
+    path_gen = keys.split(keys.fold_in(gen, 0), n_paths) if keys.is_key(gen) else gen
+    paths = _paths(path_gen, logdensity_cols, dim, n_paths, device, **path_kwargs)
     pooled, lw_s, k_hat = _pool(paths)
-    idx = torch.multinomial(torch.exp(lw_s - torch.max(lw_s)), n_resample, replacement=True, generator=gen)
+    if keys.is_key(gen):
+        idx = keys.categorical(keys.fold_in(gen, 1), lw_s, shape=(n_resample,))
+    else:
+        idx = torch.multinomial(torch.exp(lw_s - torch.max(lw_s)), n_resample, replacement=True, generator=gen)
     return MultiPathfinderResult(draws=pooled[:, idx], pareto_k=k_hat, path_elbos=paths.elbo, paths=paths)
 
 
@@ -255,7 +288,7 @@ def multi_pathfinder(
     their draws pooled and resampled by Pareto-smoothed importance weights
     ``log p - log q`` (Vehtari et al. 2017): the paper's algorithm 2."""
     refuse_row_sharded(logdensity_cols, "multi_pathfinder")
-    gen, device = entry_generator(gen, device, "multi_pathfinder")
+    gen, device = keys.entry_stream(gen, device, "multi_pathfinder")
     return _multi(gen, logdensity_cols, dim, n_paths, n_resample, device, path_kwargs)
 
 
@@ -267,9 +300,12 @@ class PathfinderPosterior(Pytree):
     result: MultiPathfinderResult
     packer: Any = Pytree.static()
 
-    def sample_choices(self, gen: torch.Generator, n: int):
+    def sample_choices(self, gen, n: int):
         draws = self.result.draws
-        idx = torch.randint(0, draws.shape[1], (n,), generator=gen, device=draws.device)
+        if keys.is_key(gen):
+            idx = keys.choice(gen, draws.shape[1], (n,))
+        else:
+            idx = torch.randint(0, draws.shape[1], (n,), generator=gen, device=draws.device)
         return torch.func.vmap(self.packer.unpack, in_dims=1)(draws[:, idx])
 
     def mean_choices(self):
@@ -290,7 +326,7 @@ def column_pathfinder(
 ) -> PathfinderPosterior:
     """Multi-path Pathfinder over a model's continuous addresses in the
     column layout (the bridge of ``column_advi``)."""
-    gen, device = entry_generator(gen, device, "column_pathfinder")
+    gen, device = keys.entry_stream(gen, device, "column_pathfinder")
     if constraint is None:
         constraint = ChoiceMap.empty()
     constraint, args = to_device(constraint, device), to_device(args, device)

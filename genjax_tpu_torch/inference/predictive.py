@@ -3,7 +3,10 @@
 Counterpart of ``genjax_tpu/inference/predictive.py``: replay posterior
 draws through the model, the addresses that hold draws constrained and
 every other address sampled fresh, as one ``torch.func.vmap`` of
-``generate`` over the draws, where the draws live.
+``generate`` over the draws, where the key or generator lives. Under a key
+draw ``i`` is made under the ``i``-th of ``split(key, n)``, as the
+reference's; a ``torch.Generator`` gives each draw its own numbers
+(``randomness="different"``).
 
 >>> import torch
 >>> import genjax_tpu_torch as g
@@ -22,6 +25,7 @@ from typing import Any
 
 import torch
 
+from ..core import keys
 from ..generative.choice_map import C, ChoiceMap
 from ..generative.gfi import GenerativeFunction
 from ..generative.mask import Mask
@@ -78,12 +82,13 @@ def posterior_predictive(
         steps = torch.arange(n_draws, device=gen.device)
         idx = steps * (n - 1) // max(n_draws - 1, 1)
         draws = {k: v[idx] for k, v in draws.items()}
+        n = n_draws
     paths = list(draws.keys())
 
-    def one(*row):
+    def one(stream, *row):
         cm = ChoiceMap.empty()
         for p, v in zip(paths, row):
             cm = cm | C[p if isinstance(p, tuple) else (p,)].set(v)
-        return model.generate(gen, cm, args)[0].get_choices()
+        return model.generate(stream, cm, args)[0].get_choices()
 
-    return torch.func.vmap(one, randomness="different")(*(draws[p] for p in paths))
+    return keys.vmap_streams(one, gen, n, in_dims=(0,) * len(paths))(*(draws[p] for p in paths))

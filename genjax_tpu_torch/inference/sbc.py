@@ -5,7 +5,10 @@ Counterpart of ``genjax_tpu/inference/sbc.py``. Draw ``theta_0`` from the
 prior, simulate data given it, run the posterior sampler on the data, and
 record the rank of ``theta_0`` among the posterior draws: for a sampler of
 the exact posterior the ranks are uniform on ``{0, ..., L}`` for every
-parameter. The battery is one ``torch.func.vmap`` over simulations; the
+parameter. The battery is one ``torch.func.vmap`` over simulations: under a
+key simulation ``i`` splits the ``i``-th of ``split(key, n_sims)`` into its
+prior draw's and its sampler's keys, as the reference does; a
+``torch.Generator`` is shared by the simulations, each drawing its own. The
 uniformity test's chi-square tail is ``torch.special.gammaincc``, where the
 reference calls ``jax.scipy.stats.chi2``.
 
@@ -22,7 +25,8 @@ from typing import Any, Callable
 
 import torch
 
-from ..core.device import entry_generator, to_device
+from ..core import keys
+from ..core.device import to_device
 from ..core.pytree import Pytree
 from ..generative.gfi import GenerativeFunction
 from ..generative.selection import Selection
@@ -51,33 +55,35 @@ def sbc_ranks(
 ) -> SBCResult:
     """Run the SBC battery on ``device``, the card by default
     (``device="cpu"`` for the CPU; without a card the default raises);
-    ``gen`` is a generator there or an int seed.
+    ``gen`` is a key (placed there), a generator there or an int seed.
 
     ``model`` is the generative program (prior over ``selection``,
     likelihood over its complement); ``sampler(gen, constraint)`` returns
     ``(n_draws, d)`` posterior draws of the raveled selected parameters
     given the simulated observations, raveled as ``split_ravel`` ravels
-    ``filter_eager(selection)``. It runs under ``torch.func.vmap(...,
-    randomness="different")`` over simulations. For a calibrated pipeline
+    ``filter_eager(selection)``. It runs under ``torch.func.vmap`` over
+    simulations, with a simulation's key or the shared generator
+    (``randomness="different"``). For a calibrated pipeline
     each column of ``ranks`` is uniform: test it with
     :func:`sbc_uniformity`."""
-    gen, device = entry_generator(gen, device, "sbc_ranks")
+    gen, device = keys.entry_stream(gen, device, "sbc_ranks")
     args = to_device(args, device)
     meta = {}
 
-    def one(_):
-        chm = model.simulate(gen, args).get_choices()
+    def one(stream):
+        k_sim, k_post = keys.split_stream(stream)
+        chm = model.simulate(k_sim, args).get_choices()
         theta0, _ = split_ravel(chm.filter_eager(selection))
         if theta0.shape[0] == 0:
             raise ValueError(
                 "sbc_ranks: the selection contains no continuous (inexact-dtype) parameters; discrete "
                 "latents need tie-broken ranks and are not supported by this battery"
             )
-        draws = sampler(gen, chm.filter(~selection))  # (n_draws, d)
+        draws = sampler(k_post, chm.filter(~selection))  # (n_draws, d)
         meta["n_draws"] = int(draws.shape[0])
         return torch.sum(draws < theta0[None, :], dim=0)
 
-    ranks = torch.func.vmap(one, randomness="different")(torch.zeros(n_sims, device=device))
+    ranks = keys.vmap_streams(one, gen, n_sims)()
     return SBCResult(ranks=ranks, n_draws=meta["n_draws"])
 
 
